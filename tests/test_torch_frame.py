@@ -1,0 +1,146 @@
+"""The DI slice of the frame, PyTorch port against ``render_frame_restir``.
+
+The slice is the flagship ReSTIR GI frame with its indirect pass off. The
+JAX side runs with ``band_rows=0``: banded gathers are a TPU workaround
+that the port does not have, and they drop reuse the port would keep.
+"""
+
+import os
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import jax
+import pytest
+import torch
+
+from zetaray_tpu.render.frame import RenderConfig as JaxRenderConfig
+from zetaray_tpu.render.frame import render_frame_restir_jit
+from zetaray_tpu.scene.camera import Camera as JaxCamera
+from zetaray_tpu_torch.interop import camera_from_arrays, frame_state_from_arrays
+from zetaray_tpu_torch.render.frame import RenderConfig, render_frame_restir
+from zetaray_tpu_torch.scene.procedural import CAMERA_EYE, CAMERA_TARGET, CAMERA_VFOV, cornell_box
+from tests.test_torch_restir_di import cam_dict
+from tests.test_torch_scene import scene_pair
+
+torch.set_num_threads(1)
+
+RES = 32
+SLICE = dict(width=RES, height=RES, mode="restir_gi", indirect=False, denoise=True, taa=True)
+CFG_J = JaxRenderConfig(band_rows=0, **SLICE)
+CFG_T = RenderConfig(**SLICE)
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _camera(k):
+    """Frame k: the reference framing, eye drifting right, Halton jitter."""
+    eye = (CAMERA_EYE[0] + 0.03 * k, CAMERA_EYE[1], CAMERA_EYE[2])
+    return JaxCamera.look_at(eye, CAMERA_TARGET, vfov_deg=CAMERA_VFOV, aspect=1.0).with_jitter(k)
+
+
+def _state_dict(state) -> dict:
+    return {
+        "reservoirs": np.asarray(state.reservoirs),
+        "gi_reservoirs": np.asarray(state.gi_reservoirs),
+        "gbuf": np.asarray(state.gbuf),
+        "camera_prev": cam_dict(state.camera_prev),
+        "history": np.asarray(state.history),
+        "sky_reservoirs": state.sky_reservoirs,
+        "upscale_lock": state.upscale_lock,
+    }
+
+
+@pytest.fixture(scope="module")
+def jax_run():
+    """Four JAX frames: (outputs, state after each frame)."""
+    jdev, tdev = scene_pair(cornell_box())
+    outs, states, state = [], [], None
+    for k in range(4):
+        out, state = render_frame_restir_jit(jdev, _camera(k), jax.random.PRNGKey(k), CFG_J, state)
+        outs.append({key: np.asarray(v) for key, v in out.items()})
+        states.append(_state_dict(state))
+    return tdev, outs, states
+
+
+def _seed(k):
+    from zetaray_tpu.core.rng import seed_from_key
+
+    return int(seed_from_key(jax.random.PRNGKey(k)))
+
+
+def _port_frame(tdev, k, state):
+    return render_frame_restir(
+        tdev, camera_from_arrays(cam_dict(_camera(k))), _seed(k), CFG_T, state
+    )
+
+
+@pytest.mark.parametrize("k", [0, 1, 3])
+def test_frame_from_jax_state(jax_run, k):
+    """Start the port from the JAX state after frame k-1, render frame k."""
+    tdev, outs, states = jax_run
+    state = frame_state_from_arrays(states[k - 1]) if k > 0 else None
+    out, new_state = _port_frame(tdev, k, state)
+    hdr, want = out["hdr"].numpy(), outs[k]["hdr"]
+    assert hdr.shape == want.shape == (RES, RES, 3)
+    close = np.abs(hdr - want) <= 1e-3 * (1.0 + np.abs(want))
+    assert close.all(-1).mean() >= 0.99
+    ldr = out["ldr"].numpy()
+    assert ldr.dtype == np.uint8 and ldr.shape == (RES, RES, 3)
+    assert (np.abs(ldr.astype(int) - outs[k]["ldr"]) <= 1).all(-1).mean() >= 0.99
+    tg, tg_want = new_state.gbuf.numpy(), states[k]["gbuf"]
+    assert (tg[0].view(np.uint32) == tg_want[0].view(np.uint32)).mean() >= 0.99  # oct16 normal
+    np.testing.assert_allclose(tg[1], tg_want[1], rtol=1e-5)  # depth
+    np.testing.assert_array_equal(tg[2], tg_want[2])  # instance id
+
+
+def test_chained_frames_mean(jax_run):
+    """Each package chains its own four frames from nothing. Temporal reuse
+    and TAA feed any flipped pick forward, so pixels drift apart; the mean
+    HDR, which the estimator's expectation fixes, stays within 1%."""
+    tdev, outs, _ = jax_run
+    state = None
+    for k in range(4):
+        out, state = _port_frame(tdev, k, state)
+        got, want = out["hdr"].numpy(), outs[k]["hdr"]
+        assert np.isfinite(got).all()
+        assert abs(got.mean() - want.mean()) <= 0.01 * want.mean()
+    assert (state.reservoirs[10] > 128).float().mean() > 0.5  # temporal reuse ran
+
+
+def test_unported_settings_raise():
+    for kw in ({"indirect": True}, {"mode": "pt"}, {"skydi": True}, {"render_scale": 0.5},
+               {"firefly_factor": 2.0}, {"tonemapper": "neutral"},
+               {"exposure_mode": "weighted_avg"}):
+        cfg = RenderConfig(**{**SLICE, **kw})
+        with pytest.raises(NotImplementedError):
+            cfg.check_ported()
+
+
+def test_port_runs_without_jax():
+    """A port frame on the CPU in a process where importing jax fails."""
+    code = textwrap.dedent("""
+        import sys
+        sys.modules["jax"] = None
+        sys.modules["zetaray_tpu"] = None
+        import torch
+        from zetaray_tpu_torch.render.frame import RenderConfig, render_frame_restir
+        from zetaray_tpu_torch.scene.camera import Camera
+        from zetaray_tpu_torch.scene.procedural import cornell_box
+        from zetaray_tpu_torch.scene.scene import upload_scene
+        torch.set_num_threads(1)
+        cfg = RenderConfig(width=16, height=16, mode="restir_gi", indirect=False,
+                           denoise=True, taa=True)
+        cam = Camera.look_at((0, 1, 3.5), (0, 1, 0), vfov_deg=45.0, aspect=1.0)
+        out, state = render_frame_restir(upload_scene(cornell_box()), cam, 7, cfg, None)
+        out, state = render_frame_restir(upload_scene(cornell_box()), cam, 8, cfg, state)
+        assert torch.isfinite(out["hdr"]).all() and out["hdr"].mean() > 0
+        assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules
+                       if sys.modules[m] is not None)
+        print("ok")
+    """)
+    env = {**os.environ, "PYTHONPATH": REPO}
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          cwd=REPO, env=env, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"

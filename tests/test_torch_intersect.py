@@ -1,0 +1,197 @@
+"""Occlusion (B3) and G-buffer (B1) of the PyTorch port against the JAX kernels.
+
+On the CPU the port runs each kernel's plain PyTorch version; it is held
+against the Pallas kernel in interpret mode and the jnp intersector
+(tests/test_torch_cuda.py holds the CUDA kernels against the plain
+versions on the card).
+"""
+
+import re
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from zetaray_tpu.accel.intersect import intersect_any
+from zetaray_tpu.accel.megakernel import G as JG, LSET_ROWS as JLSET_ROWS, gbuffer as jax_gbuffer
+from zetaray_tpu.accel.pallas_kernels import occlusion_pallas
+from zetaray_tpu.ops.restir_di import R_ROWS as JR_ROWS
+from zetaray_tpu.scene.camera import Camera as JaxCamera
+from zetaray_tpu.scene.scene import A as JA
+from zetaray_tpu_torch import native
+from zetaray_tpu_torch.accel.intersect import occlusion, occlusion_plain
+from zetaray_tpu_torch.accel.megakernel import G, gbuffer, gbuffer_plain
+from zetaray_tpu_torch.scene.procedural import (
+    CAMERA_EYE, CAMERA_TARGET, CAMERA_VFOV, SYMMETRIC_ROOM, cornell_box,
+)
+from tests.test_torch_scene import SCENES, scene_pair
+
+torch.set_num_threads(1)
+
+EXACT_ROWS = [G.VALID, G.MATID, G.INST]
+
+
+def _random_rays(seed, n=512, spread=4.0):
+    r = np.random.default_rng(seed)
+    o = r.uniform(-spread, spread, (n, 3)).astype(np.float32)
+    d = r.normal(size=(n, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    return o, d.astype(np.float32)
+
+
+def _camera_rays(res=32):
+    cam = JaxCamera.look_at(CAMERA_EYE, CAMERA_TARGET, vfov_deg=CAMERA_VFOV, aspect=1.0)
+    o, d = cam.generate_rays(res, res)
+    return np.array(o), np.array(d)
+
+
+def _segment_rays(seed, n=512):
+    """Shadow segments from inside the Cornell box toward its light."""
+    r = np.random.default_rng(seed)
+    o = np.stack([r.uniform(-0.95, 0.95, n), r.uniform(0.02, 1.9, n),
+                  r.uniform(-0.95, 0.95, n)], -1)
+    tgt = np.stack([r.uniform(-0.19, 0.19, n), np.full(n, 1.98),
+                    r.uniform(-0.24, 0.24, n)], -1)
+    return o.astype(np.float32), (tgt - o).astype(np.float32)
+
+
+@pytest.mark.parametrize("name,rays,t_min,t_max", [
+    ("random300", "random", 1e-3, 3.0),
+    ("random300", "random", 1e-4, 3.0e38),
+    ("cornell", "segment", 1e-3, 1.0 - 1e-3),
+])
+def test_occlusion_plain_matches_jax(name, rays, t_min, t_max):
+    jdev, tdev = scene_pair(SCENES[name]())
+    o, d = _random_rays(8) if rays == "random" else _segment_rays(9)
+    got = occlusion_plain(tdev.woop, torch.from_numpy(o), torch.from_numpy(d), t_min, t_max)
+    woop3 = jdev.woop.reshape(4, 3, -1)
+    want_k = occlusion_pallas(woop3, jnp.asarray(o), jnp.asarray(d), t_min=t_min,
+                              t_max=t_max, interpret=True)
+    want_j = intersect_any(jdev, jnp.asarray(o), jnp.asarray(d), t_min=t_min, t_max=t_max)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want_k))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want_j))
+    assert 0 < got.sum() < got.numel()
+    # the wrapper takes the plain version for CPU tensors
+    np.testing.assert_array_equal(
+        occlusion(tdev.woop, torch.from_numpy(o), torch.from_numpy(d), t_min, t_max).numpy(),
+        got.numpy())
+
+
+@pytest.mark.parametrize("name,rays", [("cornell", "camera"), ("random300", "random")])
+def test_gbuffer_plain_matches_jax(name, rays):
+    jdev, tdev = scene_pair(SCENES[name]())
+    o, d = _camera_rays() if rays == "camera" else _random_rays(11, n=1024)
+    want = np.asarray(jax_gbuffer(jdev, jnp.asarray(o), jnp.asarray(d), interpret=True))
+    got = gbuffer_plain(tdev, torch.from_numpy(o), torch.from_numpy(d)).numpy()
+    assert got.shape == want.shape == (G.ROWS, o.shape[0])
+    assert G.ROWS == JG.ROWS and G.INST == JG.INST
+    for r in EXACT_ROWS:
+        np.testing.assert_array_equal(got[r], want[r], err_msg=f"row {r}")
+    assert 0.2 < got[G.VALID].mean() <= 1.0
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    np.testing.assert_array_equal(
+        gbuffer(tdev, torch.from_numpy(o), torch.from_numpy(d)).numpy(), got)
+
+
+def test_gbuffer_tie_rule_across_chunks():
+    """Duplicate triangles in one chunk and in a later chunk: the highest
+    index of the first chunk that reaches the minimum wins (the JAX rule)."""
+    cpu = cornell_box()
+    jdev, tdev = scene_pair(_duplicated(cpu))
+    o, d = _camera_rays(16)
+    want = np.asarray(jax_gbuffer(jdev, jnp.asarray(o), jnp.asarray(d), interpret=True))
+    got = gbuffer_plain(tdev, torch.from_numpy(o), torch.from_numpy(d)).numpy()
+    np.testing.assert_array_equal(got[G.INST], want[G.INST])
+    # copy 1 (same chunk, higher index) beats copy 0; copy 2 (next chunk) never wins
+    hit = got[G.VALID] > 0.5
+    assert set(np.unique(got[G.INST][hit])) == {1.0}
+
+
+def _duplicated(cpu):
+    """Three copies of the 36-triangle box: copies 0 and 1 share the first
+    128-triangle chunk, copy 2 starts at 128; instance id = copy index."""
+    import dataclasses
+
+    t = cpu.num_tris
+    pad = 128 - 2 * t
+
+    def rep(a, fill=None):
+        gap = np.repeat(a[:1], pad, 0) if fill is None else np.full((pad,) + a.shape[1:], fill, a.dtype)
+        return np.concatenate([a, a, gap, a])
+
+    tiny = lambda a: np.concatenate([a, a, np.repeat(a[:1] * 0 + 50.0, pad, 0), a])
+    out = dataclasses.replace(
+        cpu, v0=tiny(cpu.v0), v1=tiny(cpu.v1), v2=tiny(cpu.v2),
+        n0=rep(cpu.n0), n1=rep(cpu.n1), n2=rep(cpu.n2),
+        uv0=rep(cpu.uv0), uv1=rep(cpu.uv1), uv2=rep(cpu.uv2),
+        mat_id=rep(cpu.mat_id), inst_id=np.concatenate([
+            np.zeros(t, np.int32), np.ones(t, np.int32), np.full(pad, 3, np.int32),
+            np.full(t, 2, np.int32)]),
+        emissive_tris=cpu.emissive_tris,
+    )
+    return out
+
+
+def _edge_margin(cpu, o, d):
+    """Float64 Moller-Trumbore: the smallest distance, in barycentrics, from
+    the ray's crossing of any triangle plane ahead of it to that triangle's
+    edge (0 means the ray passes exactly through an edge)."""
+    v0, v1, v2 = (a.astype(np.float64) for a in (cpu.v0, cpu.v1, cpu.v2))
+    e1, e2 = v1 - v0, v2 - v0
+    o, d = o.astype(np.float64), d.astype(np.float64)
+    p = np.cross(d, e2)
+    det = (e1 * p).sum(-1)
+    s = o - v0
+    q = np.cross(s, e1)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        u = (s * p).sum(-1) / det
+        v = (d * q).sum(-1) / det
+        t = (e2 * q).sum(-1) / det
+    m = np.abs(np.minimum(np.minimum(u, v), 1.0 - u - v))
+    return m[t > 0].min()
+
+
+def test_gbuffer_symmetric_box_flips_only_on_edges():
+    """On the box that is symmetric about the camera axis, a few camera rays
+    pass exactly through an outer edge, where hit or miss is decided by how
+    the edge test rounds: XLA fuses its multiply-adds, the port rounds each
+    operation; where two walls meet, the same decides which wall is hit.
+    Pixels whose VALID, MATID or INST differ stay few, and each lies on an
+    edge."""
+    cpu = cornell_box(room=SYMMETRIC_ROOM)
+    jdev, tdev = scene_pair(cpu)
+    o, d = _camera_rays()
+    want = np.asarray(jax_gbuffer(jdev, jnp.asarray(o), jnp.asarray(d), interpret=True))
+    got = gbuffer_plain(tdev, torch.from_numpy(o), torch.from_numpy(d)).numpy()
+    flip = np.nonzero((got[EXACT_ROWS] != want[EXACT_ROWS]).any(0))[0]
+    assert len(flip) <= 0.01 * o.shape[0]
+    for i in flip:
+        assert _edge_margin(cpu, o[i], d[i]) < 1e-9, f"pixel {i} differs away from any edge"
+
+
+def _header_constants(text):
+    return {k: int(v) for k, v in re.findall(r"constexpr int (\w+) = (-?\d+);", text)}
+
+
+def test_kernel_layout_header_matches_the_reference():
+    """The kernels' ``layout.h`` is generated from the port's Python layouts,
+    and those equal the JAX package's: ``A``, ``G``, ``LSET_ROWS``, ``R_ROWS``."""
+    consts = _header_constants(native.layout_header())
+    want = {f"{p}_{k}": v for p, cls in (("A", JA), ("G", JG))
+            for k, v in vars(cls).items() if k.isupper()}
+    want.update(LSET_ROWS=JLSET_ROWS, R_ROWS=JR_ROWS)
+    assert consts == want
+
+
+def test_kernel_sources_take_layouts_only_from_the_header():
+    """Every layout name a kernel source uses is one the generated header
+    defines, and no source defines a layout of its own."""
+    consts = _header_constants(native.layout_header())
+    used = set()
+    for src in native.sources():
+        text = src.read_text()
+        assert not re.search(r"\b(?:[AG]_[A-Z0-9_]+|LSET_ROWS|R_ROWS)\s*=", text), src.name
+        assert "enum" not in text, src.name
+        used |= set(re.findall(r"\b(?:[AG]_[A-Z0-9_]+|LSET_ROWS|R_ROWS)\b", text))
+    assert used and used <= set(consts), sorted(used - set(consts))

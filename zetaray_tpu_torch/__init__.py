@@ -1,0 +1,26 @@
+"""ZetaRay in PyTorch with hand-written CUDA kernels for Hopper (sm_90a).
+
+The PyTorch counterpart of the JAX package: the same row layouts at every
+public function (G-buffer ``G``, scene tables ``A``/``EA``, presampled
+light sets, DI reservoirs and their packed form, the packed temporal
+G-buffer ``TG``), so each module can be held against its JAX counterpart.
+
+What runs on the card as a kernel written by hand (``csrc/``):
+
+- ``accel.megakernel.gbuffer``    primary closest hit -> 40-row G-buffer
+- ``ops.restir_di.initial_candidates``  full-set RIS over a light set
+- ``accel.intersect.occlusion``   any-hit shadow rays
+
+Each wrapper takes its plain PyTorch version for a CPU tensor and launches
+its kernel for a CUDA tensor. Everything between the kernels is plain
+PyTorch on the same device.
+
+Package layout mirrors the JAX package:
+  core/    pcg4d, SoA vectors, packing, sampling, transforms
+  scene/   host scene arrays, upload, procedural Cornell box, camera
+  accel/   G-buffer and occlusion kernels, the CUDA build
+  ops/     lights, shading, ReSTIR DI, packing, denoise, TAA, post
+  render/  the frame
+"""
+
+__version__ = "0.1.0"

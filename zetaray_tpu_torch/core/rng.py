@@ -1,0 +1,56 @@
+"""Counter-based pcg4d hash (Jarzynski & Olano, JCGT 2020).
+
+Bit-identical to the JAX package's ``core/rng.py``. PyTorch's ``uint32`` has no
+``+`` or ``>>`` on the CPU, so the lanes are carried as ``int64`` holding
+values in [0, 2^32) and every step is reduced modulo 2^32. Products are
+split into 16-bit halves so that no intermediate leaves the int64 range.
+The frame seed is a plain u32 integer (the JAX package derives it from a
+PRNG key with ``seed_from_key``).
+"""
+
+from __future__ import annotations
+
+import torch
+
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(a: torch.Tensor, b) -> torch.Tensor:
+    """(a * b) mod 2^32 for values in [0, 2^32); no int64 overflow."""
+    lo = (a & 0xFFFF) * b
+    hi = ((a >> 16) * b) & 0xFFFF
+    return (lo + (hi << 16)) & _M32
+
+
+def pcg4d_lanes(a, b, c, d):
+    """pcg4d on four same-shaped int64 tensors of u32 values -> four."""
+    a = (_mul32(a, 1664525) + 1013904223) & _M32
+    b = (_mul32(b, 1664525) + 1013904223) & _M32
+    c = (_mul32(c, 1664525) + 1013904223) & _M32
+    d = (_mul32(d, 1664525) + 1013904223) & _M32
+    x = (a + _mul32(b, d)) & _M32
+    y = (b + _mul32(c, x)) & _M32
+    z = (c + _mul32(x, y)) & _M32
+    w = (d + _mul32(y, z)) & _M32
+    x = x ^ (x >> 16)
+    y = y ^ (y >> 16)
+    z = z ^ (z >> 16)
+    w = w ^ (w >> 16)
+    x = (x + _mul32(y, w)) & _M32
+    y = (y + _mul32(z, x)) & _M32
+    z = (z + _mul32(x, y)) & _M32
+    w = (w + _mul32(y, z)) & _M32
+    return x, y, z, w
+
+
+def to_unit_float(bits: torch.Tensor) -> torch.Tensor:
+    """u32 values -> [0, 1) float32 from the top 24 bits (exact in f32)."""
+    return (bits >> 8).to(torch.float32) * (1.0 / 16777216.0)
+
+
+def uniform4(pixel: torch.Tensor, bounce: int, frame_seed: int, salt: int = 0):
+    """Four [N] float32 uniforms per pixel id, as in the JAX package."""
+    p = pixel.to(torch.int64) & _M32
+    full = lambda v: torch.full_like(p, int(v) & _M32)
+    x, y, z, w = pcg4d_lanes(p, full(bounce), full(frame_seed), full(salt))
+    return to_unit_float(x), to_unit_float(y), to_unit_float(z), to_unit_float(w)

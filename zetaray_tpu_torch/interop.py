@@ -1,0 +1,52 @@
+"""Carry scenes, cameras and frame state over from the JAX package.
+
+Each converter takes numpy arrays (for example ``np.asarray`` of each field
+of the JAX object) and never imports JAX, so a test can start the port from
+exactly the state the JAX frame reached.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .render.frame import FrameState
+from .scene.camera import Camera
+from .scene.scene import SceneBuffers, buffers_from_arrays
+
+
+def scene_from_arrays(d: dict, device="cpu") -> SceneBuffers:
+    """Fields of a JAX ``SceneBuffers`` (numpy arrays and Python scalars)
+    -> the port's scene. Only the dense, uncut scene is ported."""
+    if d.get("cluster_aabb") is not None:
+        raise NotImplementedError("clustered scenes (kernels B8/B9) are not ported yet")
+    for flag in ("has_transmission", "has_coat", "has_cutout"):
+        if d.get(flag):
+            raise NotImplementedError(f"{flag}: that material feature is not ported yet")
+    return buffers_from_arrays(d, device)
+
+
+def camera_from_arrays(d: dict) -> Camera:
+    """Fields of a JAX ``Camera`` -> the port's camera."""
+    vec = lambda k: np.asarray(d[k], np.float32).reshape(3)
+    jitter = np.asarray(d.get("jitter", (0.0, 0.0)), np.float64).reshape(2)
+    return Camera(
+        eye=vec("eye"), right=vec("right"), up=vec("up"), forward=vec("forward"),
+        tan_half_fov=float(d["tan_half_fov"]), aspect=float(d["aspect"]),
+        lens_radius=float(d.get("lens_radius", 0.0)),
+        focus_dist=float(d.get("focus_dist", 1.0)),
+        jitter=(float(jitter[0]), float(jitter[1])),
+    )
+
+
+def frame_state_from_arrays(d: dict, device="cpu") -> FrameState:
+    """Fields of a JAX ``FrameState`` (``camera_prev`` as a dict of camera
+    fields) -> the port's state."""
+    for k in ("sky_reservoirs", "upscale_lock"):
+        if d.get(k) is not None:
+            raise NotImplementedError(f"{k}: that frame feature is not ported yet")
+    t = lambda k: torch.from_numpy(np.array(d[k], np.float32)).to(device)
+    return FrameState(
+        reservoirs=t("reservoirs"), gi_reservoirs=t("gi_reservoirs"), gbuf=t("gbuf"),
+        camera_prev=camera_from_arrays(d["camera_prev"]), history=t("history"),
+    )

@@ -1,0 +1,153 @@
+"""Build and load the hand-written CUDA kernels in ``csrc/``.
+
+The kernels are compiled with ``nvcc`` for Hopper (``sm_90a``) into one
+shared library with a plain C interface, loaded with ``ctypes``. The build
+runs at first use, keyed by a hash of the sources and the flags, into
+``_build/`` inside the package (listed in ``.gitignore``), so a fresh
+checkout builds everything the first time a CUDA tensor reaches a kernel.
+
+Each C entry point launches on the stream it is given, allocates nothing,
+and returns ``cudaGetLastError()``; :func:`check` turns a non-zero code
+into an exception.
+
+The row and column layouts the kernels index (``A``, ``G``, ``LSET_ROWS``,
+``R_ROWS``) are defined once, in Python: :func:`layout_header` writes them
+as C constants into the ``layout.h`` that the sources include.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+# No fast math: the Woop edge tests sit on triangle edges. No FMA
+# contraction: each operation rounds on its own, as in the plain versions.
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
+    "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
+]
+
+_VP = ctypes.c_void_p
+_SIGNATURES = {
+    # o, d, woop, attrs, out, n, tp, t_min, stream
+    "zr_gbuffer": [_VP, _VP, _VP, _VP, _VP, ctypes.c_int, ctypes.c_int, ctypes.c_float, _VP],
+    # o, d, woop, out, n, tp, t_min, t_max, stream
+    "zr_occlusion": [_VP, _VP, _VP, _VP, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                     ctypes.c_float, _VP],
+    # gb, sets, out, n, n_sets, ps, rt, block, seed, stream
+    "zr_ris": [_VP, _VP, _VP, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+               ctypes.c_int, ctypes.c_uint32, _VP],
+}
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path("/usr/local/cuda/bin/nvcc")
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit to build")
+
+
+def sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def layout_header() -> str:
+    """``layout.h``: the Python layouts as ``constexpr int`` constants
+    (``A_<column>``, ``G_<row>``, ``LSET_ROWS``, ``R_ROWS``)."""
+    from .accel.megakernel import G, LSET_ROWS
+    from .ops.restir_di import R_ROWS
+    from .scene.scene import A
+
+    lines = ["// Generated by zetaray_tpu_torch.native.layout_header(); do not edit.",
+             "#pragma once"]
+    for prefix, cls in (("A", A), ("G", G)):
+        lines += [f"constexpr int {prefix}_{k} = {v};"
+                  for k, v in vars(cls).items() if k.isupper()]
+    lines += [f"constexpr int LSET_ROWS = {LSET_ROWS};", f"constexpr int R_ROWS = {R_ROWS};"]
+    return "\n".join(lines) + "\n"
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h.update(layout_header().encode())
+    for p in sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return BUILD_DIR / f"libzetaray_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile ``csrc/*.cu`` unless a library for these sources exists."""
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cu = [str(p) for p in sorted(CSRC.glob("*.cu"))]
+    inc = tempfile.mkdtemp(dir=BUILD_DIR)
+    (Path(inc) / "layout.h").write_text(layout_header())
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        cmd = [_nvcc(), *NVCC_FLAGS, "-I", inc, "-o", tmp, *cu]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
+            )
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+        shutil.rmtree(inc, ignore_errors=True)
+    return out
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            loaded = ctypes.CDLL(str(build()))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(loaded, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _lib = loaded
+        return _lib
+
+
+def stream_ptr(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def check(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {err}")
+
+
+def require_cuda(t: torch.Tensor, name: str, dtype: torch.dtype, shape=None) -> None:
+    """Validate a tensor handed to a kernel: device, dtype, contiguity, shape."""
+    if not t.is_cuda:
+        raise ValueError(f"{name}: expected a CUDA tensor, got one on {t.device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")

@@ -1,0 +1,375 @@
+"""ReSTIR DI, as the JAX package's ``ops/restir_di.py`` (biased spatial MIS).
+
+Reservoir rows ([16, N] float32, the JAX package's layout):
+  0-2 y_pos | 3-5 y_ng | 6-8 y_Le | 9 w_sum | 10 M | 11 W
+  12 y_two_sided | 13 y_phat (target at this pixel) | 14-15 pad
+
+``initial_candidates`` replaces the TPU kernel ``_ris_kernel``
+(the JAX package's ``ops/restir_di.py``) with ``csrc/ris.cu``. Per pixel it rates
+all 128 entries of a light set, about 30 float operations each, twice (the
+second pass finds the pick); the set (8 KB) is shared by a block and the
+pixel's G-buffer rows are read once, so the kernel is bound by arithmetic
+and by its two sequential passes, not by bytes. Its design stages the set
+in shared memory once per block, computes the pcg4d uniform in the kernel
+(the TPU hashed it in XLA beforehand) and replaces the TPU's tril-matmul
+prefix sum and one-hot fetch with a running sum and an indexed read.
+
+Everything else here is plain PyTorch: the reuse passes gather reservoirs
+with ``index_select`` over the flat pixel axis (the TPU's banded windows
+are not needed on the card).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from .. import native
+from ..accel.intersect import intersect_occluded
+from ..accel.megakernel import G, LSET_ROWS
+from ..core import vec3 as v3
+from ..core.rng import uniform4
+from ..core.rows import stack_rows
+from ..core.vec3 import V3
+from . import shading_soa as S
+from .gbuffer_pack import depth_valid, unpack_normal
+from .reservoir_pack import DI_PACKED_ROWS, pack_di, unpack_di
+
+R_ROWS = 16
+_EPS_RAY = 1e-3
+_RIS_BLOCK = 128  # pixels per block of the RIS kernel; divides every tile width
+
+
+@dataclass(frozen=True)
+class ReSTIRConfig:
+    temporal: bool = True
+    m_max_factor: float = 20.0  # clamp temporal M to factor * M of the current reservoir
+    spatial_iterations: int = 1
+    spatial_radius: int = 16  # pixels
+    depth_tolerance: float = 0.1  # relative depth test for reuse
+    normal_tolerance: float = 0.9  # min dot(ns, ns_prev) for reuse
+    lvg_samples: int = 0  # light-voxel-grid candidates: not ported yet
+    spatial_mis: str = "biased"  # "pairwise" is not ported yet
+
+    def __post_init__(self):
+        if self.lvg_samples > 0:
+            raise NotImplementedError(
+                "light-voxel-grid DI candidates (ops.prelighting) are not ported yet"
+            )
+        if self.spatial_mis != "biased":
+            raise NotImplementedError(
+                f"spatial_mis={self.spatial_mis!r}: pairwise MIS is not ported yet"
+            )
+
+
+def surface_from_gbuf(gb: torch.Tensor):
+    """[G.ROWS, N] -> (pos, ns, ng, wo, mat, valid)."""
+    mat = S.MatSoA(
+        base=v3.from_rows(gb, G.BASE), metallic=gb[G.METAL],
+        roughness=gb[G.ROUGH], ior=gb[G.IOR],
+    )
+    return (
+        v3.from_rows(gb, G.POS), v3.from_rows(gb, G.NS), v3.from_rows(gb, G.NG),
+        v3.from_rows(gb, G.WO), mat, gb[G.VALID] > 0.5,
+    )
+
+
+def phat(mat, frame, wo_l, pos: V3, ns: V3, y_pos: V3, y_ng: V3, y_le: V3, y_two, full=True):
+    """Unshadowed target in area measure: lum(f * Le) * cos_surf * cos_light / d^2.
+    Returns (phat, wi_w, dist2, cos_surf, cos_l, f)."""
+    to_l = y_pos - pos
+    dist2 = torch.clamp_min(v3.dot(to_l, to_l), 1e-12)
+    inv_d = torch.rsqrt(dist2)
+    wi_w = to_l * inv_d
+    cos_surf = v3.dot(wi_w, ns)
+    cos_l_raw = -v3.dot(wi_w, y_ng)
+    cos_l = torch.where(y_two, torch.abs(cos_l_raw), cos_l_raw)
+    if full:
+        f, _ = S.bsdf_eval(mat, wo_l, frame.to_local(wi_w))
+    else:
+        inv_pi = 0.3183098861
+        f = V3((mat.base.x + 0.04) * inv_pi, (mat.base.y + 0.04) * inv_pi,
+               (mat.base.z + 0.04) * inv_pi)
+    lum = v3.luminance(f * y_le) * cos_surf * cos_l / dist2
+    ok = (cos_surf > 1e-6) & (cos_l > 1e-6)
+    return torch.where(ok, torch.clamp_min(lum, 0.0), 0.0), wi_w, dist2, cos_surf, cos_l, f
+
+
+# ---------------------------------------------------------------------------
+# Initial candidates (kernel B2)
+# ---------------------------------------------------------------------------
+
+
+def initial_candidates_plain(gbuf, light_sets, seed: int, rt: int) -> torch.Tensor:
+    """The plain PyTorch version of the RIS kernel: [R_ROWS, N]."""
+    n = gbuf.shape[1]
+    n_sets, _, ps = light_sets.shape
+    dev = gbuf.device
+    pix = torch.arange(n, dtype=torch.int64, device=dev)
+    set_of_pix = (pix // rt) * 31 % n_sets
+    rows = {r: light_sets[:, r, :][set_of_pix] for r in range(11)}  # each [N, ps]
+    pos, ns, _ng, _wo, mat, valid = surface_from_gbuf(gbuf)
+    col = rows.__getitem__
+    e_lum = (0.2126 * col(6) + 0.7152 * col(7)) + 0.0722 * col(8)
+    to_x = col(0) - pos.x[:, None]
+    to_y = col(1) - pos.y[:, None]
+    to_z = col(2) - pos.z[:, None]
+    dist2 = torch.clamp_min((to_x * to_x + to_y * to_y) + to_z * to_z, 1e-12)
+    inv_d = torch.rsqrt(dist2)
+    cos_surf = ((to_x * ns.x[:, None] + to_y * ns.y[:, None]) + to_z * ns.z[:, None]) * inv_d
+    cos_l_raw = -((to_x * col(3) + to_y * col(4)) + to_z * col(5)) * inv_d
+    cos_l = torch.where(col(10) > 0.5, torch.abs(cos_l_raw), cos_l_raw)
+    base_l = (
+        (0.2126 * (mat.base.x + 0.04) + 0.7152 * (mat.base.y + 0.04))
+        + 0.0722 * (mat.base.z + 0.04)
+    ) * 0.3183098861
+    phat_all = base_l[:, None] * e_lum * cos_surf * cos_l / dist2
+    phat_all = torch.where(
+        (cos_surf > 1e-6) & (cos_l > 1e-6), torch.clamp_min(phat_all, 0.0), 0.0
+    )
+    e_pdf = col(9)
+    w_all = torch.where(
+        valid[:, None] & (e_pdf > 0.0), phat_all / torch.clamp_min(e_pdf, 1e-12), 0.0
+    )
+    # sequential inclusive sum, the order the kernel adds in
+    cum = torch.empty_like(w_all)
+    acc = torch.zeros((n,), dtype=torch.float32, device=dev)
+    for k in range(ps):
+        acc = acc + w_all[:, k]
+        cum[:, k] = acc
+    w_sum = acc
+    u = uniform4(pix, 0, seed, salt=0x51E5)[0]
+    sel = cum > (u * w_sum)[:, None]
+    idx = torch.where(sel.any(1), sel.to(torch.int64).argmax(1), ps - 1)  # first True
+    pick = lambda t: t.gather(1, idx[:, None])[:, 0]
+    y_phat = pick(phat_all)
+    m_count = float(ps)
+    big_w = torch.where(y_phat > 0.0, w_sum / torch.clamp_min(m_count * y_phat, 1e-12), 0.0)
+    return stack_rows(R_ROWS, {
+        **{k: pick(rows[k]) for k in range(9)},
+        9: w_sum, 10: torch.full((n,), m_count, device=dev), 11: big_w,
+        12: pick(rows[10]), 13: y_phat,
+    })
+
+
+def initial_candidates(gbuf, light_sets, seed: int, rt: int = 1024) -> torch.Tensor:
+    """Full-set RIS over each pixel's presampled light set -> [R_ROWS, N].
+
+    ``rt`` is the JAX frame's tile width (``render.frame.pick_rt``): pixel p
+    draws from set ``(31 * (p // rt)) % n_sets``. A CPU tensor takes the
+    plain version; a CUDA tensor launches the kernel.
+    """
+    if gbuf.device.type == "cpu":
+        return initial_candidates_plain(gbuf, light_sets, seed, rt)
+    n = gbuf.shape[1]
+    n_sets, _, ps = light_sets.shape
+    native.require_cuda(gbuf, "gbuf", torch.float32, (G.ROWS, n))
+    native.require_cuda(light_sets, "light_sets", torch.float32, (n_sets, LSET_ROWS, ps))
+    if rt % _RIS_BLOCK:
+        raise ValueError(f"tile width {rt} is not a multiple of {_RIS_BLOCK}")
+    out = torch.empty((R_ROWS, n), dtype=torch.float32, device=gbuf.device)
+    err = native.lib().zr_ris(
+        gbuf.data_ptr(), light_sets.data_ptr(), out.data_ptr(), n, n_sets, ps, rt,
+        _RIS_BLOCK, int(seed) & 0xFFFFFFFF, native.stream_ptr(gbuf.device),
+    )
+    native.check(err, "ris")
+    initial_candidates.launches += 1
+    return out
+
+
+initial_candidates.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Reservoir merging
+# ---------------------------------------------------------------------------
+
+
+def merge(res_a, res_b, surf, u, m_cap=None):
+    """Combine reservoir B into A, re-rating B's sample at ``surf``
+    = (pos, ns, mat, frame, wo_l, valid) with the albedo/pi target (the
+    JAX default, ``full_target=False``)."""
+    pos, ns, mat, frame, wo_l, valid = surf
+    m_b = res_b[10]
+    if m_cap is not None:
+        m_b = torch.minimum(m_b, m_cap)
+    phat_b, *_ = phat(
+        mat, frame, wo_l, pos, ns, v3.from_rows(res_b, 0), v3.from_rows(res_b, 3),
+        v3.from_rows(res_b, 6), res_b[12] > 0.5, full=False,
+    )
+    w_b = torch.where(valid, phat_b * res_b[11] * m_b, 0.0)
+    w_sum = res_a[9] + w_b
+    take = u * w_sum < w_b
+    out = torch.where(take[None, :], res_b, res_a)
+    y_phat = torch.where(take, phat_b, res_a[13])
+    m_new = res_a[10] + m_b
+    big_w = torch.where(y_phat > 0.0, w_sum / torch.clamp_min(m_new * y_phat, 1e-12), 0.0)
+    return stack_rows(res_a.shape[0], {9: w_sum, 10: m_new, 11: big_w, 13: y_phat}, like=out)
+
+
+def _surf(gbuf):
+    pos, ns, _ng, wo, mat, valid = surface_from_gbuf(gbuf)
+    frame = S.make_frame(ns)
+    return (pos, ns, mat, frame, frame.to_local(wo), valid)
+
+
+def take_multi(parts, idx):
+    """Gather several [R_i, N] tables at flat indices ``idx`` with one
+    ``index_select``; uint32 parts ride bit-cast as float32."""
+    views = [p if p.dtype == torch.float32 else p.view(torch.float32) for p in parts]
+    vals = torch.cat(views, 0).index_select(1, idx)
+    outs, off = [], 0
+    for p in parts:
+        o = vals[off : off + p.shape[0]]
+        off += p.shape[0]
+        outs.append(o if p.dtype == torch.float32 else o.view(p.dtype))
+    return outs
+
+
+def _gather_reservoirs(res_src, extra, idx):
+    """Gather reservoirs in the packed 8-row form (the JAX default,
+    ``packed_reuse=True``) together with ``extra`` rows."""
+    src = res_src if res_src.shape[0] == DI_PACKED_ROWS else pack_di(res_src)
+    r, e = take_multi([src, extra], idx)
+    return unpack_di(r), e
+
+
+def _drop_m_w(res, ok):
+    """Zero M and W where reuse is rejected."""
+    return stack_rows(res.shape[0], {
+        10: torch.where(ok, res[10], 0.0), 11: torch.where(ok, res[11], 0.0),
+    }, like=res)
+
+
+def reproject_prev(gbuf, prev_cam, width: int, height: int):
+    """Previous-frame flat index of each pixel's hit point:
+    (idx, inside, depth of the point from the previous eye)."""
+    pos = v3.from_rows(gbuf, G.POS)
+    p_world = v3.aos3(pos)
+    px, py, w_fwd = prev_cam.project(p_world, width, height)
+    rel = p_world - torch.tensor(np.asarray(prev_cam.eye, np.float32), device=gbuf.device)
+    depth_prev_est = torch.sqrt(torch.clamp_min(
+        (rel[:, 0] * rel[:, 0] + rel[:, 1] * rel[:, 1]) + rel[:, 2] * rel[:, 2], 1e-12
+    ))
+    ix = torch.clamp(torch.round(px).to(torch.int64), 0, width - 1)
+    iy = torch.clamp(torch.round(py).to(torch.int64), 0, height - 1)
+    inside = (
+        (px >= -0.5) & (px <= width - 0.5) & (py >= -0.5) & (py <= height - 0.5)
+        & (w_fwd > 0.0)
+    )
+    return iy * width + ix, inside, depth_prev_est
+
+
+def temporal_reuse(res, prev_res, prev_gbuf, gbuf, prev_cam, width, height, seed,
+                   cfg: ReSTIRConfig):
+    """Merge the reprojected previous-frame reservoirs into the current ones.
+
+    ``prev_gbuf`` is the previous frame's packed temporal G-buffer (TG).
+    """
+    n = res.shape[1]
+    surf = _surf(gbuf)
+    ns, valid = surf[1], surf[5]
+    idx, inside, depth_prev_est = reproject_prev(gbuf, prev_cam, width, height)
+    prev_r, prev_g = _gather_reservoirs(prev_res, prev_gbuf, idx)
+    nx, ny, nz = unpack_normal(prev_g)
+    depth_prev, prev_valid = depth_valid(prev_g)
+    depth_ok = torch.abs(depth_prev - depth_prev_est) < (
+        cfg.depth_tolerance * torch.clamp_min(depth_prev_est, 1e-3)
+    )
+    normal_ok = v3.dot(ns, V3(nx, ny, nz)) > cfg.normal_tolerance
+    ok = inside & depth_ok & normal_ok & prev_valid & valid
+    prev_r = _drop_m_w(prev_r, ok)
+    pix = torch.arange(n, dtype=torch.int64, device=res.device)
+    u = uniform4(pix, 0, seed, salt=0x7E17)[0]
+    m_cap = cfg.m_max_factor * torch.clamp_min(res[10], 1.0)
+    return merge(res, prev_r, surf, u, m_cap=m_cap)
+
+
+GEOM_DEPTH, GEOM_NS, GEOM_VALID = 0, 1, 4
+
+
+def geom_table(gbuf):
+    """[5, N] slim geometry rows (depth, ns.xyz, valid) for the reuse test."""
+    return torch.stack(
+        [gbuf[G.DEPTH], gbuf[G.NS], gbuf[G.NS + 1], gbuf[G.NS + 2], gbuf[G.VALID]], 0
+    )
+
+
+def geom_ok_slim(gbuf, nb_geom, ns: V3, cfg: ReSTIRConfig):
+    depth = gbuf[G.DEPTH]
+    ns_nb = V3(nb_geom[GEOM_NS], nb_geom[GEOM_NS + 1], nb_geom[GEOM_NS + 2])
+    return (
+        (torch.abs(nb_geom[GEOM_DEPTH] - depth)
+         < cfg.depth_tolerance * torch.clamp_min(depth, 1e-3))
+        & (v3.dot(ns, ns_nb) > cfg.normal_tolerance)
+        & (nb_geom[GEOM_VALID] > 0.5)
+    )
+
+
+def disk_neighbor(pix, width, height, u, radius):
+    """Disk-sampled neighbour flat index from a uniform4 row pair."""
+    x = pix % width
+    y = pix // width
+    r = radius * torch.sqrt(u[0])
+    phi = 2.0 * torch.pi * u[1]
+    dx = torch.round(r * torch.cos(phi)).to(torch.int64)
+    dy = torch.round(r * torch.sin(phi)).to(torch.int64)
+    nx = torch.clamp(x + dx, 0, width - 1)
+    ny = torch.clamp(y + dy, 0, height - 1)
+    return ny * width + nx
+
+
+def spatial_step(res, gbuf, width, height, seed, it, cfg: ReSTIRConfig):
+    """One spatial-reuse iteration (biased M-clamped merge)."""
+    n = res.shape[1]
+    surf = _surf(gbuf)
+    pix = torch.arange(n, dtype=torch.int64, device=res.device)
+    u = uniform4(pix, it, seed, salt=0x5A71)
+    nidx = disk_neighbor(pix, width, height, u, cfg.spatial_radius)
+    nb, nb_geom = _gather_reservoirs(res, geom_table(gbuf), nidx)
+    ok = geom_ok_slim(gbuf, nb_geom, surf[1], cfg)
+    return merge(res, _drop_m_w(nb, ok), surf, u[2])
+
+
+def spatial_reuse(res, gbuf, width, height, seed, cfg: ReSTIRConfig):
+    """Merge reservoirs from random nearby pixels."""
+    out = res
+    for it in range(cfg.spatial_iterations):
+        out = spatial_step(out, gbuf, width, height, seed, it, cfg)
+    return out
+
+
+def _shadow_segments(res, gbuf):
+    pos = v3.from_rows(gbuf, G.POS)
+    ng = v3.from_rows(gbuf, G.NG)
+    to_l = v3.from_rows(res, 0) - pos
+    return v3.aos3(pos + ng * _EPS_RAY), v3.aos3(to_l)
+
+
+def visibility_reuse(scene, res, gbuf):
+    """Zero w_sum and W where the reservoir's sample is occluded."""
+    so, seg = _shadow_segments(res, gbuf)
+    occ = intersect_occluded(scene, so, seg, t_min=1e-3, t_max=1.0 - 1e-3)
+    keep = ((gbuf[G.VALID] > 0.5) & (res[11] > 0.0) & ~occ).to(torch.float32)
+    return stack_rows(res.shape[0], {9: res[9] * keep, 11: res[11] * keep}, like=res)
+
+
+def shade(scene, res, gbuf) -> torch.Tensor:
+    """Shadow-test each pixel's sample: direct radiance plus the directly
+    visible emission, planar [3, N]."""
+    pos, ns, mat, frame, wo_l, valid = _surf(gbuf)
+    y_le = v3.from_rows(res, 6)
+    big_w = res[11]
+    ph, _wi, dist2, cos_surf, cos_l, f = phat(
+        mat, frame, wo_l, pos, ns, v3.from_rows(res, 0), v3.from_rows(res, 3), y_le,
+        res[12] > 0.5,
+    )
+    lit = valid & (ph > 0.0) & (big_w > 0.0)
+    so, seg = _shadow_segments(res, gbuf)
+    occ = intersect_occluded(scene, so, seg, t_min=1e-3, t_max=1.0 - 1e-3)
+    vis = lit & ~occ
+    scale = torch.where(vis, cos_surf * cos_l / torch.clamp_min(dist2, 1e-12) * big_w, 0.0)
+    out = f * y_le * scale + v3.from_rows(gbuf, G.EMISS)
+    return v3.aos3(out, 0)

@@ -1,0 +1,110 @@
+"""Temporal anti-aliasing, as the JAX package's ``ops/taa.py`` with its default
+settings: depth-dilated motion, Catmull-Rom history resample, 3x3
+neighbourhood clamp, blend 0.1. Planar [3, H, W] images.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+BLEND = 0.1  # weight of the current frame
+
+
+def _pad_edge(img, before: int, after: int):
+    """Edge-replicate the last two axes of [C, H, W]."""
+    return F.pad(img[None], (before, after, before, after), mode="replicate")[0]
+
+
+def _neighborhood_minmax_p(img):
+    """[3, H, W] -> per-pixel 3x3 min and max (edge-clamped borders)."""
+    _, h, w = img.shape
+    p = _pad_edge(img, 1, 1)
+    lo = img
+    hi = img
+    for dy in (-1, 0, 1):
+        for dx in (-1, 0, 1):
+            if dx == 0 and dy == 0:
+                continue
+            n = p[:, 1 + dy : 1 + dy + h, 1 + dx : 1 + dx + w]
+            lo = torch.minimum(lo, n)
+            hi = torch.maximum(hi, n)
+    return lo, hi
+
+
+def _cubic_w(f):
+    """Catmull-Rom weights of the 4 taps around offset f in [0, 1)."""
+    f2 = f * f
+    f3 = f2 * f
+    return (
+        -0.5 * f3 + f2 - 0.5 * f,
+        1.5 * f3 - 2.5 * f2 + 1.0,
+        -1.5 * f3 + 2.0 * f2 + 0.5 * f,
+        0.5 * f3 - 0.5 * f2,
+    )
+
+
+def catmull_rom_p(img, px, py):
+    """Catmull-Rom resample of [3, H, W] at texel coordinates px, py [N]
+    (0.0 = centre of texel 0), border-clamped. Returns [3, N]."""
+    _, h, w = img.shape
+    pxc = torch.clamp(px, 0.0, w - 1.0)
+    pyc = torch.clamp(py, 0.0, h - 1.0)
+    x1 = torch.floor(pxc)
+    y1 = torch.floor(pyc)
+    wx = _cubic_w(pxc - x1)
+    wy = _cubic_w(pyc - y1)
+    xi = x1.to(torch.int64)
+    yi = y1.to(torch.int64)
+    flat = img.reshape(3, -1)
+    out = torch.zeros((3, px.shape[0]), dtype=img.dtype, device=img.device)
+    for j in range(4):
+        row = torch.clamp(yi + (j - 1), 0, h - 1) * w
+        for i in range(4):
+            tap = flat.index_select(1, row + torch.clamp(xi + (i - 1), 0, w - 1))
+            out = out + tap * (wy[j] * wx[i])
+    return out
+
+
+def _depth_dilated_motion(motion, depth, valid):
+    """Adopt each pixel's 3x3 closest-depth neighbour's motion [2, H, W]."""
+    h, w = depth.shape
+    d0 = torch.where(valid, depth, 3.0e38)
+    pd = _pad_edge(d0[None], 1, 1)[0]
+    pm = _pad_edge(motion, 1, 1)
+    best_d = d0
+    best_m = motion
+    for dy in (-1, 0, 1):
+        for dx in (-1, 0, 1):
+            if dx == 0 and dy == 0:
+                continue
+            nd = pd[1 + dy : 1 + dy + h, 1 + dx : 1 + dx + w]
+            nm = pm[:, 1 + dy : 1 + dy + h, 1 + dx : 1 + dx + w]
+            closer = nd < best_d
+            best_d = torch.where(closer, nd, best_d)
+            best_m = torch.where(closer[None], nm, best_m)
+    return best_m
+
+
+def taa_resolve_p(curr, history, world_pos, valid, prev_cam, depth):
+    """One TAA step: curr, history, world_pos [3, H, W]; valid, depth [H, W];
+    prev_cam the previous frame's camera. Returns the resolved colour."""
+    _, h, w = curr.shape
+    dev = curr.device
+    px, py, zfwd = prev_cam.project(world_pos.reshape(3, -1).T, w, h)
+    xg = torch.arange(w, dtype=torch.float32, device=dev).repeat(h)
+    yg = torch.arange(h, dtype=torch.float32, device=dev).repeat_interleave(w)
+    m = torch.stack([(px - xg).reshape(h, w), (py - yg).reshape(h, w)], 0)
+    m = _depth_dilated_motion(m, depth, valid)
+    px = xg + m[0].reshape(-1)
+    py = yg + m[1].reshape(-1)
+    inside = (
+        (px >= -0.5) & (px <= w - 0.5) & (py >= -0.5) & (py <= h - 0.5) & (zfwd > 0)
+    )
+    ry = torch.round(py)
+    inside = inside & (ry >= 0) & (ry <= h - 1)
+    hist = catmull_rom_p(history, px, torch.clamp(py, 0.0, h - 1.0)).reshape(3, h, w)
+    lo, hi = _neighborhood_minmax_p(curr)
+    hist = torch.minimum(torch.maximum(hist, lo), hi)
+    ok = (inside.reshape(h, w) & valid)[None]
+    return torch.where(ok, BLEND * curr + (1.0 - BLEND) * hist, curr)

@@ -1,0 +1,355 @@
+"""Flattened scene arrays and their upload to tensors.
+
+The counterpart of the JAX package's ``scene/scene.py`` for the dense path (at most
+8192 triangles, no alpha cutout, no transmission, no coat): the same
+``CpuScene`` field names on the host and the same table layouts on the
+device -- Woop unit-triangle transforms ``[4, 3*Tp]``, the per-triangle
+attribute table ``A`` and the emissive table ``EA``, with the triangle and
+emissive counts padded to multiples of 128 exactly as the JAX package pads
+them, so the two uploads agree entry for entry.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, fields
+
+import numpy as np
+import torch
+
+from ..core.sampling import build_alias_table
+from .light_build import emissive_powers
+
+LANE = 128
+# Above this many triangles the JAX package switches to its BVH-cluster
+# streaming traversal (kernels B8/B9), which the port does not have yet.
+DENSE_MAX_TRIS = 8192
+
+
+@dataclass
+class MaterialsSoA:
+    base_color: np.ndarray  # [M, 3]
+    metallic: np.ndarray  # [M]
+    roughness: np.ndarray  # [M]
+    emissive: np.ndarray  # [M, 3] factor * strength
+    ior: np.ndarray  # [M]
+    transmission: np.ndarray  # [M]
+    coat_weight: np.ndarray  # [M]
+    coat_roughness: np.ndarray  # [M]
+    double_sided: np.ndarray  # [M] bool
+    base_color_tex: np.ndarray  # [M] int32, -1 = none
+    normal_tex: np.ndarray | None = None
+    metallic_roughness_tex: np.ndarray | None = None
+    emissive_tex: np.ndarray | None = None
+    alpha_cutoff: np.ndarray | None = None  # [M]; > 0 only for MASK mode
+
+
+@dataclass
+class CpuScene:
+    """Host-side flattened world-space triangle soup."""
+
+    v0: np.ndarray  # [T, 3]
+    v1: np.ndarray
+    v2: np.ndarray
+    n0: np.ndarray  # [T, 3] vertex normals
+    n1: np.ndarray
+    n2: np.ndarray
+    uv0: np.ndarray  # [T, 2]
+    uv1: np.ndarray
+    uv2: np.ndarray
+    mat_id: np.ndarray  # [T] int32
+    materials: MaterialsSoA
+    emissive_tris: np.ndarray  # [E] int32
+    inst_id: np.ndarray | None = None  # [T] int32
+    inst_names: list | None = None
+    texture_paths: list | None = None
+
+    def __post_init__(self):
+        if self.inst_id is None:
+            self.inst_id = np.zeros(self.v0.shape[0], np.int32)
+        if self.inst_names is None:
+            self.inst_names = ["<anon>"]
+
+    @property
+    def num_tris(self) -> int:
+        return int(self.v0.shape[0])
+
+    def geometric_normals(self) -> np.ndarray:
+        n = np.cross(self.v1 - self.v0, self.v2 - self.v0)
+        l = np.linalg.norm(n, axis=-1, keepdims=True)
+        return n / np.maximum(l, 1e-20)
+
+    def areas(self) -> np.ndarray:
+        return 0.5 * np.linalg.norm(np.cross(self.v1 - self.v0, self.v2 - self.v0), axis=-1)
+
+    def aabb(self):
+        lo = np.minimum(np.minimum(self.v0.min(0), self.v1.min(0)), self.v2.min(0))
+        hi = np.maximum(np.maximum(self.v0.max(0), self.v1.max(0)), self.v2.max(0))
+        return lo, hi
+
+
+class A:
+    """Per-triangle attribute table columns (tri_attrs [Tp, A.WIDTH])."""
+
+    NG = 0
+    N0 = 3
+    N1 = 6
+    N2 = 9
+    UV0 = 12
+    UV1 = 14
+    UV2 = 16
+    BASE = 18
+    METAL = 21
+    ROUGH = 22
+    EMISS = 23
+    IOR = 26
+    TRANS = 27
+    DOUBLE = 28
+    MATID = 29
+    EM_PDF_AREA = 30
+    TEXID = 31
+    COATW = 32
+    COATR = 33
+    TANG = 34
+    UVDENS = 37
+    ACUT = 38
+    ATEX = 39
+    INSTID = 40
+    WIDTH = 48
+
+
+class EA:
+    """Emissive table columns (em_attrs [Ep, EA.WIDTH])."""
+
+    V0 = 0
+    E1 = 3
+    E2 = 6
+    NG = 9
+    LE = 12
+    PDF_AREA = 15
+    TWO_SIDED = 16
+    WIDTH = 24
+
+
+@dataclass(frozen=True)
+class SceneBuffers:
+    """Device-side scene (the dense subset of the JAX ``SceneBuffers``)."""
+
+    woop: torch.Tensor  # [4, 3*Tp] float32
+    tri_attrs: torch.Tensor  # [Tp, A.WIDTH]
+    em_attrs: torch.Tensor  # [Ep, EA.WIDTH]
+    v0: torch.Tensor  # [Tp, 3]
+    e1: torch.Tensor
+    e2: torch.Tensor
+    ng: torch.Tensor
+    n0: torch.Tensor
+    n1: torch.Tensor
+    n2: torch.Tensor
+    uv0: torch.Tensor  # [Tp, 2]
+    uv1: torch.Tensor
+    uv2: torch.Tensor
+    mat_id: torch.Tensor  # [Tp] int32
+    inst_id: torch.Tensor  # [Tp] int32
+    num_tris: int
+    mat_base_color: torch.Tensor
+    mat_metallic: torch.Tensor
+    mat_roughness: torch.Tensor
+    mat_emissive: torch.Tensor
+    mat_ior: torch.Tensor
+    mat_transmission: torch.Tensor
+    mat_coat_weight: torch.Tensor
+    mat_coat_roughness: torch.Tensor
+    mat_double_sided: torch.Tensor  # [M] bool
+    em_tri: torch.Tensor  # [Ep] int32
+    em_prob: torch.Tensor
+    em_alias: torch.Tensor  # [Ep] int32
+    em_pdf: torch.Tensor
+    em_area: torch.Tensor
+    em_of_tri: torch.Tensor  # [Tp] int32
+    em_power: torch.Tensor  # scalar
+    num_emissives: int
+    has_transmission: bool
+    has_coat: bool
+    has_cutout: bool
+    world_lo: torch.Tensor  # [3]
+    world_hi: torch.Tensor
+
+    @property
+    def device(self) -> torch.device:
+        return self.woop.device
+
+
+def _woop_matrices(v0, v1, v2) -> np.ndarray:
+    """World -> unit-triangle affine transforms packed [4, 3T] (see JAX)."""
+    t = v0.shape[0]
+    e1 = (v1 - v0).astype(np.float64)
+    e2 = (v2 - v0).astype(np.float64)
+    n = np.cross(e1, e2)
+    m = np.stack([e1, e2, n], axis=-1)
+    dets = np.linalg.det(m)
+    good = np.abs(dets) > 1e-18
+    w = np.zeros((t, 3, 4), np.float64)
+    if good.any():
+        inv = np.linalg.inv(m[good])
+        w[good, :, :3] = inv
+        w[good, :, 3] = -np.einsum("tij,tj->ti", inv, v0[good].astype(np.float64))
+    out = np.zeros((4, 3 * t), np.float32)
+    for r in range(3):
+        out[:, r * t : (r + 1) * t] = w[:, r, :].T.astype(np.float32)
+    return out
+
+
+def _pad_to(x: np.ndarray, n: int, value=0):
+    pad = n - x.shape[0]
+    if pad <= 0:
+        return x
+    return np.pad(x, [(0, pad)] + [(0, 0)] * (x.ndim - 1), constant_values=value)
+
+
+def _tangents_and_uv_density(cpu: CpuScene):
+    """Per-triangle tangent (+u direction) and sqrt(uv area / world area)."""
+    e1 = (cpu.v1 - cpu.v0).astype(np.float64)
+    e2 = (cpu.v2 - cpu.v0).astype(np.float64)
+    du1 = (cpu.uv1[:, 0] - cpu.uv0[:, 0]).astype(np.float64)
+    dv1 = (cpu.uv1[:, 1] - cpu.uv0[:, 1]).astype(np.float64)
+    du2 = (cpu.uv2[:, 0] - cpu.uv0[:, 0]).astype(np.float64)
+    dv2 = (cpu.uv2[:, 1] - cpu.uv0[:, 1]).astype(np.float64)
+    det = du1 * dv2 - du2 * dv1
+    ok = np.abs(det) > 1e-12
+    inv = np.where(ok, 1.0 / np.where(ok, det, 1.0), 0.0)
+    tang = (e1 * dv2[:, None] - e2 * dv1[:, None]) * inv[:, None]
+    ng = np.cross(e1, e2)
+    ng_l = np.linalg.norm(ng, axis=-1, keepdims=True)
+    ng_u = ng / np.maximum(ng_l, 1e-20)
+    alt = np.cross(ng_u, np.where(np.abs(ng_u[:, :1]) < 0.9, [[1.0, 0, 0]], [[0, 1.0, 0]]))
+    tang = np.where(ok[:, None], tang, alt)
+    tang -= ng_u * np.sum(tang * ng_u, -1, keepdims=True)
+    tl = np.linalg.norm(tang, axis=-1, keepdims=True)
+    tang = np.where(tl > 1e-12, tang / np.maximum(tl, 1e-20), alt)
+    world_area = 0.5 * ng_l[:, 0]
+    uv_area = 0.5 * np.abs(det)
+    uvdens = np.sqrt(uv_area / np.maximum(world_area, 1e-20))
+    return tang.astype(np.float32), uvdens.astype(np.float32)
+
+
+def _check_supported(cpu: CpuScene):
+    mats = cpu.materials
+    if cpu.num_tris > DENSE_MAX_TRIS:
+        raise NotImplementedError(
+            f"{cpu.num_tris} triangles: scenes above {DENSE_MAX_TRIS} need the "
+            "BVH-cluster streaming traversal (kernels B8/B9), not ported yet"
+        )
+    if mats.alpha_cutoff is not None and (np.asarray(mats.alpha_cutoff) > 0).any():
+        raise NotImplementedError("alpha cutout (textures) is not ported yet")
+    if (np.asarray(mats.transmission) > 0).any():
+        raise NotImplementedError("the transmission lobe is not ported yet")
+    if (np.asarray(mats.coat_weight) > 0).any():
+        raise NotImplementedError("the coat lobe is not ported yet")
+
+
+def upload_scene_arrays(cpu: CpuScene) -> dict:
+    """CpuScene -> dict of padded numpy tables (the SceneBuffers fields)."""
+    _check_supported(cpu)
+    lane = LANE
+    t = cpu.num_tris
+    tp = max(lane, ((t + lane - 1) // lane) * lane)
+    v0 = _pad_to(cpu.v0, tp)
+    v1 = _pad_to(cpu.v1, tp)
+    v2 = _pad_to(cpu.v2, tp)
+    woop = _woop_matrices(v0, v1, v2)
+    ng = np.zeros((tp, 3), np.float32)
+    ng[:t] = cpu.geometric_normals()
+
+    em = cpu.emissive_tris
+    e = em.shape[0]
+    ep = max(lane, ((e + lane - 1) // lane) * lane)
+    if e > 0:
+        powers = emissive_powers(cpu)
+        prob, alias, pdf = build_alias_table(powers)
+        total_power = float(powers.sum())
+        em_area = cpu.areas()[em].astype(np.float32)
+    else:
+        prob = np.ones(0, np.float32)
+        alias = np.zeros(0, np.int32)
+        pdf = np.zeros(0, np.float32)
+        em_area = np.zeros(0, np.float32)
+        total_power = 0.0
+    em_of_tri = np.full(tp, -1, np.int32)
+    em_of_tri[em] = np.arange(e, dtype=np.int32)
+
+    mats = cpu.materials
+    mid = cpu.mat_id
+    attrs = np.zeros((tp, A.WIDTH), np.float32)
+    attrs[:t, A.NG : A.NG + 3] = ng[:t]
+    attrs[:t, A.N0 : A.N0 + 3] = cpu.n0
+    attrs[:t, A.N1 : A.N1 + 3] = cpu.n1
+    attrs[:t, A.N2 : A.N2 + 3] = cpu.n2
+    attrs[:t, A.UV0 : A.UV0 + 2] = cpu.uv0
+    attrs[:t, A.UV1 : A.UV1 + 2] = cpu.uv1
+    attrs[:t, A.UV2 : A.UV2 + 2] = cpu.uv2
+    attrs[:t, A.BASE : A.BASE + 3] = mats.base_color[mid]
+    attrs[:t, A.METAL] = mats.metallic[mid]
+    attrs[:t, A.ROUGH] = mats.roughness[mid]
+    attrs[:t, A.EMISS : A.EMISS + 3] = mats.emissive[mid]
+    attrs[:t, A.IOR] = mats.ior[mid]
+    attrs[:t, A.TRANS] = mats.transmission[mid]
+    attrs[:t, A.DOUBLE] = mats.double_sided[mid].astype(np.float32)
+    attrs[:t, A.MATID] = mid.astype(np.float32)
+    attrs[:t, A.TEXID] = mats.base_color_tex[mid].astype(np.float32)
+    attrs[:t, A.COATW] = mats.coat_weight[mid]
+    attrs[:t, A.COATR] = mats.coat_roughness[mid]
+    tang, uvdens = _tangents_and_uv_density(cpu)
+    attrs[:t, A.TANG : A.TANG + 3] = tang
+    attrs[:t, A.UVDENS] = uvdens
+    attrs[:t, A.ATEX] = -1.0  # no alpha atlas on the dense, uncut path
+    attrs[:, A.INSTID] = -1.0
+    attrs[:t, A.INSTID] = cpu.inst_id[:t].astype(np.float32)
+    em_attrs = np.zeros((ep, EA.WIDTH), np.float32)
+    if e > 0:
+        attrs[em, A.EM_PDF_AREA] = pdf / np.maximum(em_area, 1e-12)
+        em_attrs[:e, EA.V0 : EA.V0 + 3] = v0[em]
+        em_attrs[:e, EA.E1 : EA.E1 + 3] = (v1 - v0)[em]
+        em_attrs[:e, EA.E2 : EA.E2 + 3] = (v2 - v0)[em]
+        em_attrs[:e, EA.NG : EA.NG + 3] = ng[em]
+        em_attrs[:e, EA.LE : EA.LE + 3] = mats.emissive[mid[em]]
+        em_attrs[:e, EA.PDF_AREA] = pdf / np.maximum(em_area, 1e-12)
+        em_attrs[:e, EA.TWO_SIDED] = mats.double_sided[mid[em]].astype(np.float32)
+
+    lo, hi = cpu.aabb()
+    return dict(
+        woop=woop, tri_attrs=attrs, em_attrs=em_attrs,
+        v0=v0, e1=v1 - v0, e2=v2 - v0, ng=ng,
+        n0=_pad_to(cpu.n0, tp), n1=_pad_to(cpu.n1, tp), n2=_pad_to(cpu.n2, tp),
+        uv0=_pad_to(cpu.uv0, tp), uv1=_pad_to(cpu.uv1, tp), uv2=_pad_to(cpu.uv2, tp),
+        mat_id=_pad_to(cpu.mat_id, tp), inst_id=_pad_to(cpu.inst_id, tp, value=-1),
+        num_tris=t,
+        mat_base_color=mats.base_color, mat_metallic=mats.metallic,
+        mat_roughness=mats.roughness, mat_emissive=mats.emissive,
+        mat_ior=mats.ior, mat_transmission=mats.transmission,
+        mat_coat_weight=mats.coat_weight, mat_coat_roughness=mats.coat_roughness,
+        mat_double_sided=mats.double_sided,
+        em_tri=_pad_to(em, ep, value=-1), em_prob=_pad_to(prob, ep),
+        em_alias=_pad_to(alias, ep), em_pdf=_pad_to(pdf, ep),
+        em_area=_pad_to(em_area, ep, value=1.0), em_of_tri=em_of_tri,
+        em_power=np.asarray(total_power, np.float32), num_emissives=e,
+        has_transmission=False, has_coat=False, has_cutout=False,
+        world_lo=np.asarray(lo, np.float32), world_hi=np.asarray(hi, np.float32),
+    )
+
+
+def buffers_from_arrays(d: dict, device="cpu") -> SceneBuffers:
+    """Dict of SceneBuffers fields (numpy or scalars) -> SceneBuffers."""
+    kw = {}
+    for f in fields(SceneBuffers):
+        v = d[f.name]
+        if f.name in ("num_tris", "num_emissives"):
+            kw[f.name] = int(v)
+        elif f.name.startswith("has_"):
+            kw[f.name] = bool(v)
+        else:
+            kw[f.name] = torch.from_numpy(np.array(v)).to(device)
+    return SceneBuffers(**kw)
+
+
+def upload_scene(cpu: CpuScene, device="cpu") -> SceneBuffers:
+    """CpuScene -> SceneBuffers on ``device`` (the dense, uncut path)."""
+    return buffers_from_arrays(upload_scene_arrays(cpu), device)
