@@ -1,4 +1,4 @@
-"""Drive the PyTorch port's ReSTIR DI frame once on an NVIDIA GPU.
+"""Drive the PyTorch port's ReSTIR frame once on an NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -6,18 +6,26 @@ Phases (any failure exits non-zero):
   1. needs CUDA; prints the card's name and power limit;
   2. builds the CUDA kernels of zetaray_tpu_torch/csrc with nvcc;
   3. holds each kernel against its plain PyTorch version at the frame's
-     shapes (G-buffer and occlusion over 512^2 rays on the procedural
-     Cornell box and on its 8192-triangle subdivision, RIS over 512^2 pixels
-     with [64, 16, 128] light sets) and times both with CUDA events;
-  4. renders the slice (mode restir_gi, indirect off, a-trous, TAA,
-     histogram exposure, AgX) for 4 chained frames at 512^2 and 4 at
-     1920x1080 (the first frame of a chain has no temporal reuse and no
-     TAA, so frame times are medians of frames 2-4), checks that every
-     kernel launched and that the images are finite and lit, and compares
-     a 64^2 frame on the card with the same frame on the CPU;
+     shapes and times both with CUDA events, on the procedural Cornell box
+     and on its 8192-triangle subdivision at 512^2: G-buffer (B1), RIS over
+     [64, 16, 128] light sets (B2), occlusion (B3), and the path bounce
+     kernels on GI bounce-0 rays built from the G-buffer as the frame's
+     ReSTIR GI builds them: trace (B4), shade (B5), fused bounce (B6, at
+     bounce 1 and, on its trace-only branch of a path's last bounce, at 2);
+  4. renders 4 chained frames of each path with its launch counters set to
+     0 just before it and read just after: the DI-only slice at 512^2
+     (indirect off), the main path -- the flagship frame of bench.py
+     (ReSTIR DI + GI with PTConfig(max_bounces=3), a-trous, TAA, histogram
+     exposure, AgX) at 512^2 -- and the 1920x1080 frame of bench.py
+     (max_bounces=2). The first frame of a chain has no temporal reuse and
+     no TAA, so frame times are medians of frames 2-4. It checks that every
+     kernel of each path launched, that the images are finite and lit and
+     that GI adds light, and compares two chained 64^2 GI frames on the card
+     with the same frames on the CPU;
   5. prints the kernels' record, the card line, and last a JSON status.
 
-The 512^2 image is written to chiprun_out/zetaray_torch_512.png.
+The 512^2 images are written to chiprun_out/zetaray_torch_512.png (the
+flagship frame) and chiprun_out/zetaray_torch_512_di.png (DI only).
 """
 
 from __future__ import annotations
@@ -58,6 +66,22 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+def bounce_err(name: str, label: str, k, p, found) -> float:
+    """Kernel rows k against plain rows p: every row on rays that found a
+    hit, radiance and alive on every ray (a ray that missed moves on from a
+    zero-attribute surface, whose sampled pdf swings with an ulp of its
+    direction). Raises below 99.9% agreement to 1e-5; returns the max abs
+    error over the found rays."""
+    torch.cuda.synchronize()
+    close = torch.isclose(k, p, rtol=1e-5, atol=1e-5)
+    share_found = close[:, found].all(0).float().mean().item()
+    share_all = close[[9, 10, 11, 13]].all(0).float().mean().item() if k.shape[0] == 16 else 1.0
+    if share_found < 0.999 or share_all < 0.999:
+        raise AssertionError(f"{name} {label}: {share_found:.6f} of the found rays and "
+                             f"{share_all:.6f} of all rays agree with the plain version")
+    return (k[:, found] - p[:, found]).abs().max().item()
+
+
 def write_png(path: str, img) -> None:
     """[H, W, 3] uint8 numpy array -> PNG file."""
     h, w, _ = img.shape
@@ -81,6 +105,8 @@ def main() -> int:
     from zetaray_tpu_torch.accel import intersect as XI
     from zetaray_tpu_torch.accel import megakernel as MK
     from zetaray_tpu_torch.ops import restir_di as RD
+    from zetaray_tpu_torch.ops.pathtracer import PTConfig
+    from zetaray_tpu_torch.ops.restir_gi import secondary_rays
     from zetaray_tpu_torch.render.frame import RenderConfig, pick_rt, render_frame_restir
     from zetaray_tpu_torch.scene.camera import Camera
     from zetaray_tpu_torch.scene.procedural import (
@@ -97,7 +123,7 @@ def main() -> int:
     native.lib()
     print(f"build: {time.perf_counter() - t0:.1f} s -> {os.path.relpath(lib_path)}", flush=True)
 
-    # -- phase 3: each kernel against its plain version at the slice's shapes
+    # -- phase 3: each kernel against its plain version at the frame's shapes
     res = 512
     n = res * res
     seed = 0x2468ACE1
@@ -157,73 +183,131 @@ def main() -> int:
             "gbuffer": (err_g, ms_g, ms_gp), "ris": (err_r, ms_r, ms_rp),
             "occlusion": (float(err_o), ms_o, ms_op),
         }
-        del scene, gk, gp, rk, rp, so, seg
+
+        # B4-B6 on the GI trace's bounce-0 rays (the flagship's GI trace:
+        # 2 bounces after x2, x2's own emission excluded)
+        o2, d2, _, _ = secondary_rays(gk, seed)
+        st0 = MK.initial_state(o2, d2)
+        gi_cfg = PTConfig(max_bounces=2, min_emissive_bounce=1)
+        spread = cam.pixel_spread_angle(res)
+        st4, sf4 = MK.bounce_trace(scene, st0, 0, gi_cfg, True, spread)
+        st4_p, sf4_p = MK.bounce_trace_plain(scene, st0, 0, gi_cfg, True, spread)
+        found = st4_p[13] > 0.5
+        err_4 = max(bounce_err("bounce_trace", label, st4, st4_p, found),
+                    bounce_err("bounce_trace surf", label, sf4, sf4_p, found))
+        ms_4 = cuda_ms(lambda: MK.bounce_trace(scene, st0, 0, gi_cfg, True, spread), reps=20)
+        ms_4p = cuda_ms(lambda: MK.bounce_trace_plain(scene, st0, 0, gi_cfg, True, spread),
+                        reps=3, warmup=1)
+        shade_args = (scene, st4_p, sf4_p, lsets, 0, seed, gi_cfg, True, rt)
+        st5_p = MK.bounce_shade_plain(*shade_args)
+        err_5 = bounce_err("bounce_shade", label, MK.bounce_shade(*shade_args), st5_p, found)
+        ms_5 = cuda_ms(lambda: MK.bounce_shade(*shade_args), reps=20)
+        ms_5p = cuda_ms(lambda: MK.bounce_shade_plain(*shade_args), reps=3, warmup=1)
+        found_1 = MK.bounce_trace_plain(scene, st5_p, 1, gi_cfg, True)[0][13] > 0.5
+        b6_args = (scene, st5_p, lsets, 1, seed, gi_cfg, False, True, rt)
+        st6_p = MK.bounce_plain(*b6_args)
+        err_6 = bounce_err("bounce", label, MK.bounce(*b6_args), st6_p, found_1)
+        # the frame's final bounce takes the kernel's trace-only branch
+        b6_last = (scene, st6_p, lsets, 2, seed, gi_cfg, True, True, rt)
+        st6_last_p = MK.bounce_plain(*b6_last)
+        err_6 = max(err_6, bounce_err("bounce last", label, MK.bounce(*b6_last), st6_last_p,
+                                      st6_last_p[13] > 0.5))
+        ms_6 = cuda_ms(lambda: MK.bounce(*b6_args), reps=20)
+        ms_6p = cuda_ms(lambda: MK.bounce_plain(*b6_args), reps=3, warmup=1)
+        print(f"{label} ({n} GI bounce-0 rays, {found.float().mean().item():.4f} hit, "
+              f"{found_1.float().mean().item():.4f} hit at bounce 1): "
+              f"bounce_trace {ms_4:.4f} ms (plain {ms_4p:.3f}), max abs err {err_4:.3g}; "
+              f"bounce_shade {ms_5:.4f} ms (plain {ms_5p:.3f}), max abs err {err_5:.3g}; "
+              f"bounce {ms_6:.4f} ms (plain {ms_6p:.3f}), max abs err {err_6:.3g}", flush=True)
+        record[label].update({
+            "bounce_trace": (err_4, ms_4, ms_4p), "bounce_shade": (err_5, ms_5, ms_5p),
+            "bounce": (err_6, ms_6, ms_6p),
+        })
+        del scene, gk, gp, rk, rp, so, seg, st0, st4, sf4, st4_p, sf4_p, st5_p, st6_p, st6_last_p
         torch.cuda.empty_cache()
 
-    # -- phase 4: the main path, through the frame entry point
+    # -- phase 4: each path through the frame entry point, counts read per path
     scene = upload_scene(cornell_box(), device=dev)
-    slice_cfg = dict(mode="restir_gi", indirect=False, denoise=True, taa=True)
-    cfg = RenderConfig(width=res, height=res, **slice_cfg)
-    MK.gbuffer.launches = 0
-    RD.initial_candidates.launches = 0
-    XI.occlusion.launches = 0
+    kernels_of = {
+        "gbuffer": MK.gbuffer, "ris": RD.initial_candidates, "occlusion": XI.occlusion,
+        "bounce_trace": MK.bounce_trace, "bounce_shade": MK.bounce_shade, "bounce": MK.bounce,
+    }
+    di_kernels = ("gbuffer", "ris", "occlusion")
 
-    def chain(cfg_, cam_, frames=4):
-        """Render chained frames; returns the last output and each frame's ms."""
+    def chain(cfg_, cam_, expect, frames=4):
+        """Render chained frames with the launch counts set to 0 just before
+        and read just after; returns (last output, each frame's ms, counts)."""
+        for fn in kernels_of.values():
+            fn.launches = 0
         state, times = None, []
         for k in range(frames):
             t = time.perf_counter()
             out_, state = render_frame_restir(scene, cam_.with_jitter(k), seed + k, cfg_, state)
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t) * 1e3)
-        return out_, times
+        counts = {name: fn.launches for name, fn in kernels_of.items()}
+        for name in expect:
+            if counts[name] <= 0:
+                raise AssertionError(f"kernel {name} was not launched by its path: {counts}")
+        h_ = out_["hdr"]
+        if tuple(h_.shape) != (cfg_.height, cfg_.width, 3) or not torch.isfinite(h_).all():
+            raise AssertionError(f"{cfg_.width}x{cfg_.height}: bad or non-finite HDR")
+        if out_["ldr"].float().mean().item() < 10.0:
+            raise AssertionError(f"{cfg_.width}x{cfg_.height}: the image is black")
+        return out_, times, counts
 
-    out, times = chain(cfg, cam)
-    hdr512, ldr512 = out["hdr"], out["ldr"]
-    cfg_hd = RenderConfig(width=1920, height=1080, **slice_cfg)
+    def show(tag, times, counts):
+        print(f"{tag}: frames {[round(x, 3) for x in times]} ms (median of frames 2-4 "
+              f"{statistics.median(times[1:]):.3f} ms); launches {counts}", flush=True)
+
+    flagship = dict(mode="restir_gi", pt=PTConfig(max_bounces=3), denoise=True, taa=True)
+    out_di, times_di, counts_di = chain(
+        RenderConfig(width=res, height=res, mode="restir_gi", indirect=False, denoise=True,
+                     taa=True), cam, di_kernels)
+    show("DI-only slice 512^2", times_di, counts_di)
+    out, times, launches = chain(RenderConfig(width=res, height=res, **flagship), cam,
+                                 kernels_of)
+    show("main path, flagship 512^2", times, launches)
     cam_hd = Camera.look_at(CAMERA_EYE, CAMERA_TARGET, vfov_deg=CAMERA_VFOV, aspect=1920 / 1080)
-    out_hd, times_hd = chain(cfg_hd, cam_hd)
-    launches = {
-        "gbuffer": MK.gbuffer.launches, "ris": RD.initial_candidates.launches,
-        "occlusion": XI.occlusion.launches,
-    }
-    print(f"main path: 512^2 frames {[round(x, 3) for x in times]} ms "
-          f"(median of frames 2-4 {statistics.median(times[1:]):.3f} ms), "
-          f"1920x1080 frames {[round(x, 3) for x in times_hd]} ms "
-          f"(median of frames 2-4 {statistics.median(times_hd[1:]):.3f} ms); "
-          f"launches {launches}", flush=True)
-    for name, cnt in launches.items():
-        if cnt <= 0:
-            raise AssertionError(f"kernel {name} was not launched by the main path")
-    for tag, o_ in (("512", out), ("1080p", out_hd)):
-        h_ = o_["hdr"]
-        if not torch.isfinite(h_).all():
-            raise AssertionError(f"{tag}: non-finite HDR")
-        if o_["ldr"].float().mean().item() < 10.0:
-            raise AssertionError(f"{tag}: the image is black")
-    if tuple(hdr512.shape) != (res, res, 3) or tuple(out_hd["hdr"].shape) != (1080, 1920, 3):
-        raise AssertionError("unexpected output shapes")
+    cfg_hd = RenderConfig(width=1920, height=1080, mode="restir_gi", pt=PTConfig(max_bounces=2),
+                          denoise=True, taa=True)
+    out_hd, times_hd, counts_hd = chain(cfg_hd, cam_hd, kernels_of)
+    show("flagship 1920x1080, max_bounces=2", times_hd, counts_hd)
+    mean_gi, mean_di = out["hdr"].mean().item(), out_di["hdr"].mean().item()
+    print(f"mean HDR at 512^2: flagship {mean_gi:.6f}, DI only {mean_di:.6f}", flush=True)
+    if not mean_gi > 1.05 * mean_di:
+        raise AssertionError("the GI frame adds no light to the DI-only frame")
     os.makedirs("chiprun_out", exist_ok=True)
-    write_png(os.path.join("chiprun_out", "zetaray_torch_512.png"), ldr512.cpu().numpy())
+    write_png(os.path.join("chiprun_out", "zetaray_torch_512.png"), out["ldr"].cpu().numpy())
+    write_png(os.path.join("chiprun_out", "zetaray_torch_512_di.png"),
+              out_di["ldr"].cpu().numpy())
 
-    # the same 64^2 frame through the kernels on the card and the plain
-    # versions on the CPU
-    small = RenderConfig(width=64, height=64, **slice_cfg)
-    cpu_scene = upload_scene(cornell_box())
-    gpu_hdr = render_frame_restir(scene, cam, seed, small, None)[0]["hdr"].cpu()
-    cpu_hdr = render_frame_restir(cpu_scene, cam, seed, small, None)[0]["hdr"]
+    # two chained 64^2 flagship frames through the kernels on the card and
+    # through the plain versions on the CPU
+    small = RenderConfig(width=64, height=64, **flagship)
+    hdrs = {}
+    for dv, sc in (("cuda", scene), ("cpu", upload_scene(cornell_box()))):
+        state = None
+        for k in range(2):
+            out_s, state = render_frame_restir(sc, cam.with_jitter(k), seed + k, small, state)
+        hdrs[dv] = out_s["hdr"].cpu()
+    gpu_hdr, cpu_hdr = hdrs["cuda"], hdrs["cpu"]
     close = ((gpu_hdr - cpu_hdr).abs() <= 1e-3 * (1 + cpu_hdr.abs())).all(-1)
     share = close.float().mean().item()
-    print(f"64^2 frame, card vs CPU: {share:.4f} of pixels within 1e-3*(1+|x|), "
+    print(f"64^2 GI frames, card vs CPU: {share:.4f} of pixels within 1e-3*(1+|x|), "
           f"means {gpu_hdr.mean().item():.6f} / {cpu_hdr.mean().item():.6f}", flush=True)
     if share < 0.99:
         raise AssertionError("the card's frame disagrees with the CPU frame")
 
+    bounce_src = "zetaray_tpu_torch/csrc/bounce.cu"
     sources = {
         "gbuffer": ("zetaray_tpu_torch/csrc/gbuffer.cu", "zetaray_tpu/accel/megakernel.py:650"),
         "ris": ("zetaray_tpu_torch/csrc/ris.cu", "zetaray_tpu/ops/restir_di.py:141"),
         "occlusion": ("zetaray_tpu_torch/csrc/occlusion.cu",
                       "zetaray_tpu/accel/pallas_kernels.py:148"),
+        "bounce_trace": (bounce_src, "zetaray_tpu/accel/megakernel.py:830"),
+        "bounce_shade": (bounce_src, "zetaray_tpu/accel/megakernel.py:944"),
+        "bounce": (bounce_src, "zetaray_tpu/accel/megakernel.py:360"),
     }
     kernels = []
     for name, (src, replaces) in sources.items():

@@ -12,6 +12,8 @@ import torch
 from zetaray_tpu_torch.accel import intersect as XI
 from zetaray_tpu_torch.accel import megakernel as MK
 from zetaray_tpu_torch.ops import restir_di as RD
+from zetaray_tpu_torch.ops.pathtracer import PTConfig
+from zetaray_tpu_torch.ops.restir_gi import secondary_rays
 from zetaray_tpu_torch.render.frame import RenderConfig, pick_rt, render_frame_restir
 from zetaray_tpu_torch.scene.camera import Camera
 from zetaray_tpu_torch.scene.procedural import CAMERA_EYE, CAMERA_TARGET, CAMERA_VFOV, cornell_box
@@ -79,12 +81,52 @@ def test_wrappers_reject_bad_inputs(cuda):
         XI.occlusion(scene.woop, o.double(), d.double())
 
 
+def _close_rays(k, p, rows=slice(None)):
+    """Share of rays whose rows agree to 1e-5 (relative and absolute)."""
+    return torch.isclose(k[rows], p[rows], rtol=1e-5, atol=1e-5).all(0).float().mean().item()
+
+
 @pytest.mark.cuda
-def test_card_frame_matches_cpu_frame(cuda):
+@pytest.mark.parametrize("subdivide", [None, 2000])
+def test_bounce_kernels_match_plain(cuda, subdivide):
+    """B4, B5 and B6 against their plain versions on GI bounce-0 rays. All
+    rows on rays that found a hit, radiance and alive on every ray (rays
+    that missed move on from a zero-attribute surface, where one ulp of the
+    sampled direction moves the pdf row by percents)."""
+    scene = upload_scene(cornell_box(subdivide_to=subdivide), device=cuda)
+    _, o, d = _rays(cuda)
+    o2, d2, _, _ = secondary_rays(MK.gbuffer(scene, o, d), SEED)
+    lsets = MK.build_light_sets(scene, SEED)
+    cfg = PTConfig(max_bounces=3, min_emissive_bounce=1, rr_start=1)
+    rt = pick_rt(o.shape[0])
+    counts = (MK.bounce_trace.launches, MK.bounce_shade.launches, MK.bounce.launches)
+    st, surf = MK.bounce_trace(scene, MK.initial_state(o2, d2), 0, cfg, True, 0.004)
+    st_p, surf_p = MK.bounce_trace_plain(scene, MK.initial_state(o2, d2), 0, cfg, True, 0.004)
+    found = st_p[13] > 0.5
+    assert 0.3 < found.float().mean() < 1.0
+    assert _close_rays(st, st_p) == 1.0 and _close_rays(surf, surf_p) == 1.0
+    st5 = MK.bounce_shade(scene, st_p, surf_p, lsets, 0, SEED, cfg, True, rt)
+    st5_p = MK.bounce_shade_plain(scene, st_p, surf_p, lsets, 0, SEED, cfg, True, rt)
+    assert _close_rays(st5[:, found], st5_p[:, found]) >= 0.999
+    assert _close_rays(st5, st5_p, [9, 10, 11, 13]) >= 0.999
+    for b, last in ((1, False), (2, True)):
+        f6 = MK.bounce_trace_plain(scene, st5_p, b, cfg, True)[0][13] > 0.5
+        st6 = MK.bounce(scene, st5_p, lsets, b, SEED, cfg, last, True, rt)
+        st6_p = MK.bounce_plain(scene, st5_p, lsets, b, SEED, cfg, last, True, rt)
+        assert _close_rays(st6[:, f6], st6_p[:, f6]) >= 0.999
+        assert _close_rays(st6, st6_p, [9, 10, 11, 13]) >= 0.999
+    torch.cuda.synchronize()
+    assert (MK.bounce_trace.launches, MK.bounce_shade.launches, MK.bounce.launches) == (
+        counts[0] + 1, counts[1] + 1, counts[2] + 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("indirect", [False, True])
+def test_card_frame_matches_cpu_frame(cuda, indirect):
     """Two chained 32^2 frames through the kernels on the card and through
-    the plain versions on the CPU."""
-    cfg = RenderConfig(width=32, height=32, mode="restir_gi", indirect=False, denoise=True,
-                       taa=True)
+    the plain versions on the CPU, DI only and with ReSTIR GI."""
+    cfg = RenderConfig(width=32, height=32, mode="restir_gi", indirect=indirect,
+                       pt=PTConfig(max_bounces=3), denoise=True, taa=True)
     cam, _, _ = _rays(cuda)
     outs = {}
     for dev in ("cpu", cuda):

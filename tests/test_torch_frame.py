@@ -19,6 +19,8 @@ from zetaray_tpu.render.frame import RenderConfig as JaxRenderConfig
 from zetaray_tpu.render.frame import render_frame_restir_jit
 from zetaray_tpu.scene.camera import Camera as JaxCamera
 from zetaray_tpu_torch.interop import camera_from_arrays, frame_state_from_arrays
+from zetaray_tpu_torch.ops.pathtracer import PTConfig
+from zetaray_tpu_torch.ops.restir_gi import ReSTIRGIConfig
 from zetaray_tpu_torch.render.frame import RenderConfig, render_frame_restir
 from zetaray_tpu_torch.scene.procedural import CAMERA_EYE, CAMERA_TARGET, CAMERA_VFOV, cornell_box
 from tests.test_torch_restir_di import cam_dict
@@ -69,9 +71,9 @@ def _seed(k):
     return int(seed_from_key(jax.random.PRNGKey(k)))
 
 
-def _port_frame(tdev, k, state):
+def _port_frame(tdev, k, state, cfg=CFG_T):
     return render_frame_restir(
-        tdev, camera_from_arrays(cam_dict(_camera(k))), _seed(k), CFG_T, state
+        tdev, camera_from_arrays(cam_dict(_camera(k))), _seed(k), cfg, state
     )
 
 
@@ -109,32 +111,41 @@ def test_chained_frames_mean(jax_run):
 
 
 def test_unported_settings_raise():
-    for kw in ({"indirect": True}, {"mode": "pt"}, {"skydi": True}, {"render_scale": 0.5},
-               {"firefly_factor": 2.0}, {"tonemapper": "neutral"},
+    gi = {**SLICE, "indirect": True}
+    RenderConfig(**gi).check_ported()  # the whole flagship frame is ported
+    for kw in ({"pt": PTConfig(sky=object())}, {"pt": PTConfig(nee_mode="wops")},
+               {"pt": PTConfig(stochastic_multi_bounce=True)},
+               {"pt": PTConfig(path_regularization=True)}, {"pt": PTConfig(firefly_clamp=10.0)},
+               {"restir_gi": ReSTIRGIConfig(lvg=True)}, {"mode": "pt"}, {"skydi": True},
+               {"render_scale": 0.5}, {"firefly_factor": 2.0}, {"tonemapper": "neutral"},
                {"exposure_mode": "weighted_avg"}):
-        cfg = RenderConfig(**{**SLICE, **kw})
+        cfg = RenderConfig(**{**gi, **kw})
         with pytest.raises(NotImplementedError):
             cfg.check_ported()
 
 
 def test_port_runs_without_jax():
-    """A port frame on the CPU in a process where importing jax fails."""
+    """Port frames on the CPU, DI only and with GI, in a process where
+    importing jax fails."""
     code = textwrap.dedent("""
         import sys
         sys.modules["jax"] = None
         sys.modules["zetaray_tpu"] = None
         import torch
+        from zetaray_tpu_torch.ops.pathtracer import PTConfig
         from zetaray_tpu_torch.render.frame import RenderConfig, render_frame_restir
         from zetaray_tpu_torch.scene.camera import Camera
         from zetaray_tpu_torch.scene.procedural import cornell_box
         from zetaray_tpu_torch.scene.scene import upload_scene
         torch.set_num_threads(1)
-        cfg = RenderConfig(width=16, height=16, mode="restir_gi", indirect=False,
-                           denoise=True, taa=True)
         cam = Camera.look_at((0, 1, 3.5), (0, 1, 0), vfov_deg=45.0, aspect=1.0)
-        out, state = render_frame_restir(upload_scene(cornell_box()), cam, 7, cfg, None)
-        out, state = render_frame_restir(upload_scene(cornell_box()), cam, 8, cfg, state)
-        assert torch.isfinite(out["hdr"]).all() and out["hdr"].mean() > 0
+        for indirect in (False, True):
+            cfg = RenderConfig(width=16, height=16, mode="restir_gi", indirect=indirect,
+                               pt=PTConfig(max_bounces=3), denoise=True, taa=True)
+            out, state = render_frame_restir(upload_scene(cornell_box()), cam, 7, cfg, None)
+            out, state = render_frame_restir(upload_scene(cornell_box()), cam, 8, cfg, state)
+            assert torch.isfinite(out["hdr"]).all() and out["hdr"].mean() > 0
+            assert (state.gi_reservoirs[10] > 1).any() == indirect
         assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules
                        if sys.modules[m] is not None)
         print("ok")

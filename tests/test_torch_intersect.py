@@ -6,6 +6,7 @@ against the Pallas kernel in interpret mode and the jnp intersector
 versions on the card).
 """
 
+import inspect
 import re
 
 import numpy as np
@@ -14,14 +15,18 @@ import pytest
 import torch
 
 from zetaray_tpu.accel.intersect import intersect_any
+from zetaray_tpu.accel import megakernel as JMK
 from zetaray_tpu.accel.megakernel import G as JG, LSET_ROWS as JLSET_ROWS, gbuffer as jax_gbuffer
+from zetaray_tpu.ops import shading_soa as JS
 from zetaray_tpu.accel.pallas_kernels import occlusion_pallas
 from zetaray_tpu.ops.restir_di import R_ROWS as JR_ROWS
 from zetaray_tpu.scene.camera import Camera as JaxCamera
 from zetaray_tpu.scene.scene import A as JA
 from zetaray_tpu_torch import native
+from zetaray_tpu_torch.accel import megakernel as MK
 from zetaray_tpu_torch.accel.intersect import occlusion, occlusion_plain
 from zetaray_tpu_torch.accel.megakernel import G, gbuffer, gbuffer_plain
+from zetaray_tpu_torch.render.frame import pick_rt
 from zetaray_tpu_torch.scene.procedural import (
     CAMERA_EYE, CAMERA_TARGET, CAMERA_VFOV, SYMMETRIC_ROOM, cornell_box,
 )
@@ -170,18 +175,36 @@ def test_gbuffer_symmetric_box_flips_only_on_edges():
         assert _edge_margin(cpu, o[i], d[i]) < 1e-9, f"pixel {i} differs away from any edge"
 
 
+_LAYOUT_NAMES = (r"[AG]_[A-Z0-9_]+|LSET_ROWS|LSET_STAGED|R_ROWS|STATE_ROWS|SURF_ROWS"
+                 r"|BOUNCE_BLOCK|BOUNCE_SALT|GGX_[A-Z_]+")
+
+
 def _header_constants(text):
     return {k: int(v) for k, v in re.findall(r"constexpr int (\w+) = (-?\d+);", text)}
 
 
 def test_kernel_layout_header_matches_the_reference():
     """The kernels' ``layout.h`` is generated from the port's Python layouts,
-    and those equal the JAX package's: ``A``, ``G``, ``LSET_ROWS``, ``R_ROWS``."""
-    consts = _header_constants(native.layout_header())
+    and those equal the JAX package's: ``A``, ``G``, ``LSET_ROWS``, ``R_ROWS``,
+    ``STATE_ROWS``, ``SURF_ROWS``, the bounce uniforms' salt and the GGX
+    albedo fit, whose coefficients read back as exactly the JAX package's
+    Python floats. ``LSET_STAGED`` is the 11 filled rows of a light set
+    (pos, ng, Le, pdf, two-sided); ``BOUNCE_BLOCK`` has no JAX counterpart
+    and must divide every tile width the frame picks."""
+    text = native.layout_header()
+    consts = _header_constants(text)
     want = {f"{p}_{k}": v for p, cls in (("A", JA), ("G", JG))
             for k, v in vars(cls).items() if k.isupper()}
-    want.update(LSET_ROWS=JLSET_ROWS, R_ROWS=JR_ROWS)
+    salt = inspect.signature(JMK.bounce_uniforms).parameters["salt"].default
+    want.update(LSET_ROWS=JLSET_ROWS, LSET_STAGED=11, R_ROWS=JR_ROWS,
+                STATE_ROWS=JMK.STATE_ROWS, SURF_ROWS=JMK.SURF_ROWS,
+                BOUNCE_BLOCK=MK.BOUNCE_BLOCK, BOUNCE_SALT=salt, GGX_E_DEG=JS._GGX_E_DEG)
+    assert all(pick_rt(n) % MK.BOUNCE_BLOCK == 0 for n in (100, 64 * 64, 512 * 512, 1920 * 1080))
     assert consts == want
+    arrays = {k: [float(x) for x in v.split(",")]
+              for k, v in re.findall(r"float (\w+)\[\d+\] = \{([^}]*)\};", text)}
+    assert arrays == {"GGX_E_COEF": list(JS._GGX_E_COEF),
+                      "GGX_EAVG_COEF": list(JS._GGX_EAVG_COEF)}
 
 
 def test_kernel_sources_take_layouts_only_from_the_header():
@@ -191,7 +214,7 @@ def test_kernel_sources_take_layouts_only_from_the_header():
     used = set()
     for src in native.sources():
         text = src.read_text()
-        assert not re.search(r"\b(?:[AG]_[A-Z0-9_]+|LSET_ROWS|R_ROWS)\s*=", text), src.name
+        assert not re.search(rf"\b(?:{_LAYOUT_NAMES})\s*(?:\[\s*\d*\s*\]\s*)?=(?!=)", text), src.name
         assert "enum" not in text, src.name
-        used |= set(re.findall(r"\b(?:[AG]_[A-Z0-9_]+|LSET_ROWS|R_ROWS)\b", text))
-    assert used and used <= set(consts), sorted(used - set(consts))
+        used |= set(re.findall(rf"\b(?:{_LAYOUT_NAMES})\b", text))
+    assert used and used <= set(consts) | {"GGX_E_COEF", "GGX_EAVG_COEF"}, sorted(used - set(consts))

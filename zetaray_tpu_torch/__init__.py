@@ -10,6 +10,8 @@ What runs on the card as a kernel written by hand (``csrc/``):
 - ``accel.megakernel.gbuffer``    primary closest hit -> 40-row G-buffer
 - ``ops.restir_di.initial_candidates``  full-set RIS over a light set
 - ``accel.intersect.occlusion``   any-hit shadow rays
+- ``accel.megakernel.bounce_trace``, ``bounce_shade``, ``bounce``  one path
+  bounce (trace half, shade half, both fused) of the ReSTIR GI trace
 
 Each wrapper takes its plain PyTorch version for a CPU tensor and launches
 its kernel for a CUDA tensor. Everything between the kernels is plain
@@ -18,8 +20,9 @@ PyTorch on the same device.
 Package layout mirrors the JAX package:
   core/    pcg4d, SoA vectors, packing, sampling, transforms
   scene/   host scene arrays, upload, procedural Cornell box, camera
-  accel/   G-buffer and occlusion kernels, the CUDA build
-  ops/     lights, shading, ReSTIR DI, packing, denoise, TAA, post
+  accel/   G-buffer, occlusion and path bounce kernels
+  ops/     lights, shading, path-tracer settings, ReSTIR DI and GI,
+           packing, denoise, TAA, post
   render/  the frame
 """
 

@@ -45,6 +45,14 @@ def dot(a: V3, b: V3):
     return a.x * b.x + a.y * b.y + a.z * b.z
 
 
+def cross(a: V3, b: V3) -> V3:
+    return V3(a.y * b.z - a.z * b.y, a.z * b.x - a.x * b.z, a.x * b.y - a.y * b.x)
+
+
+def max_component(a: V3):
+    return torch.maximum(a.x, torch.maximum(a.y, a.z))
+
+
 def normalize(a: V3, eps: float = 1e-20) -> V3:
     return a * torch.rsqrt(torch.clamp_min(dot(a, a), eps))
 

@@ -1,0 +1,175 @@
+// Path bounce kernels: B4 trace, B5 shade, B6 the two fused
+// (zetaray_tpu_torch.accel.megakernel.bounce_trace / bounce_shade / bounce).
+// They replace the TPU kernels _bounce_trace_kernel, _bounce_shade_kernel
+// and _bounce_kernel of the JAX package's accel/megakernel.py. On the card
+// they are bound by the Woop arithmetic of their triangle loops (every ray
+// against every triangle, twice for a shaded bounce), not by bytes: a ray's
+// state, surface and light-set entry are read once.
+//
+// One thread per ray, BOUNCE_BLOCK (128) rays per block; the device
+// functions are those of path.cuh. Triangles stream through shared memory in
+// 128-wide Woop chunks for the closest hit and again for the NEE shadow
+// segment; a block leaves the shadow loop once every ray in it is occluded
+// or has no candidate. The tile width rt is a multiple of the block, so a
+// block's rays share one light set, staged in shared memory once (its first
+// LSET_STAGED rows). The five uniforms of a bounce come from one pcg4d per
+// ray, computed in place.
+#include "path.cuh"
+
+namespace {
+
+// B4: closest hit, emission and surface rebuild. Writes the input state with
+// rows 9-11 (radiance), 13 (alive) and 15 (cone width) updated, and the
+// SURF_ROWS surface rows.
+__global__ void __launch_bounds__(BOUNCE_BLOCK)
+bounce_trace_kernel(const float* __restrict__ st_in, const float* __restrict__ woop,
+                    const float* __restrict__ attrs, float* __restrict__ st_out,
+                    float* __restrict__ surf_out, int n, int tp, zr::BounceParams prm,
+                    float spread) {
+  __shared__ zr::WoopChunk chunk;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool live = i < n;
+  zr::Path path = live ? zr::load_path(st_in, n, i) : zr::Path{};
+  zr::Surface sf;
+  int tri;
+  float bu, bv;
+  const float t_hit = zr::trace_part(chunk, woop, attrs, tp, prm, live, path, sf, &tri, &bu, &bv);
+  if (!live) return;
+
+  path.cone = path.cone + (path.alive ? t_hit * spread : 0.f);
+  zr::store_path(st_out, n, i, path);  // o, d, throughput, pdf and flag pass through
+
+  const bool hit = tri >= 0;
+  const float* row = attrs + (size_t)(hit ? tri : 0) * A_WIDTH;
+  auto at = [&](int k) { return hit ? row[k] : 0.f; };
+  const float w0 = 1.f - bu - bv;
+  const float s[SURF_ROWS] = {
+      sf.pos.x, sf.pos.y, sf.pos.z, sf.ns.x, sf.ns.y, sf.ns.z, sf.ng.x, sf.ng.y, sf.ng.z,
+      sf.mat.base.x, sf.mat.base.y, sf.mat.base.z, sf.mat.metallic, sf.mat.roughness,
+      sf.mat.ior, at(A_TRANS), sf.eta, at(A_COATW), at(A_COATR),
+      w0 * at(A_UV0) + bu * at(A_UV1) + bv * at(A_UV2),
+      w0 * at(A_UV0 + 1) + bu * at(A_UV1 + 1) + bv * at(A_UV2 + 1),
+      hit ? at(A_TEXID) : -1.f, at(A_UVDENS), 0.f};
+#pragma unroll
+  for (int r = 0; r < SURF_ROWS; ++r) surf_out[(size_t)r * n + i] = s[r];
+}
+
+// B5: NEE, BSDF sample and Russian roulette from the surface rows of B4.
+__global__ void __launch_bounds__(BOUNCE_BLOCK)
+bounce_shade_kernel(const float* __restrict__ st_in, const float* __restrict__ surf,
+                    const float* __restrict__ woop, const float* __restrict__ sets,
+                    float* __restrict__ st_out, int n, int tp, zr::BounceParams prm) {
+  __shared__ zr::WoopChunk chunk;
+  extern __shared__ float lset[];  // [LSET_STAGED][ps]
+  const int p0 = blockIdx.x * blockDim.x;
+  const int i = p0 + threadIdx.x;
+  const bool live = i < n;
+  if (prm.nee && prm.has_lights) {
+    zr::stage_light_set(lset, sets, zr::bounce_set(prm, p0), prm.ps);
+  }
+  __syncthreads();
+
+  zr::Path path = live ? zr::load_path(st_in, n, i) : zr::Path{};
+  zr::Surface sf{};
+  if (live) {
+    auto s = [&](int r) { return surf[(size_t)r * n + i]; };
+    sf.pos = {s(0), s(1), s(2)};
+    sf.ns = {s(3), s(4), s(5)};
+    sf.ng = {s(6), s(7), s(8)};
+    sf.mat = {{s(9), s(10), s(11)}, s(12), s(13), s(14)};
+    sf.eta = s(16);
+  }
+  const bool transmitted = zr::shade_part(chunk, woop, tp, lset, prm, i, live, path, sf);
+  if (!live) return;
+  if (transmitted && sf.eta > 0.f) path.cone = path.cone * sf.eta;
+  zr::store_path(st_out, n, i, path);
+}
+
+// B6: one whole bounce; with last != 0 only the trace half and its emission.
+__global__ void __launch_bounds__(BOUNCE_BLOCK)
+bounce_kernel(const float* __restrict__ st_in, const float* __restrict__ woop,
+              const float* __restrict__ attrs, const float* __restrict__ sets,
+              float* __restrict__ st_out, int n, int tp, zr::BounceParams prm, int last) {
+  __shared__ zr::WoopChunk chunk;
+  extern __shared__ float lset[];  // [LSET_STAGED][ps]
+  const int p0 = blockIdx.x * blockDim.x;
+  const int i = p0 + threadIdx.x;
+  const bool live = i < n;
+  if (!last && prm.nee && prm.has_lights) {
+    zr::stage_light_set(lset, sets, zr::bounce_set(prm, p0), prm.ps);
+  }
+  __syncthreads();
+
+  zr::Path path = live ? zr::load_path(st_in, n, i) : zr::Path{};
+  zr::Surface sf;
+  int tri;
+  float bu, bv;
+  zr::trace_part(chunk, woop, attrs, tp, prm, live, path, sf, &tri, &bu, &bv);
+  if (!last) zr::shade_part(chunk, woop, tp, lset, prm, i, live, path, sf);
+  if (live) zr::store_path(st_out, n, i, path);
+}
+
+zr::BounceParams params(int bounce, uint32_t seed, int rt, int n_sets, int ps, float t_min,
+                        int min_emissive_bounce, int min_nee_bounce, int rr_start, int nee,
+                        int has_lights) {
+  zr::BounceParams p;
+  p.bounce = bounce;
+  p.seed = seed;
+  p.rt = rt;
+  p.n_sets = n_sets;
+  p.ps = ps;
+  p.t_min = t_min;
+  p.min_emissive_bounce = min_emissive_bounce;
+  p.min_nee_bounce = min_nee_bounce;
+  p.rr_start = rr_start;
+  p.nee = nee != 0;
+  p.has_lights = has_lights != 0;
+  return p;
+}
+
+}  // namespace
+
+extern "C" int zr_bounce_trace(const float* st_in, const float* woop, const float* attrs,
+                               float* st_out, float* surf_out, int n, int tp, int bounce,
+                               float t_min, float spread, int min_emissive_bounce, int nee,
+                               int has_lights, void* stream) {
+  const zr::BounceParams p = params(bounce, 0u, BOUNCE_BLOCK, 1, 1, t_min, min_emissive_bounce,
+                                    0, 0, nee, has_lights);
+  const int grid = (n + BOUNCE_BLOCK - 1) / BOUNCE_BLOCK;
+  if (grid > 0) {
+    bounce_trace_kernel<<<grid, BOUNCE_BLOCK, 0, (cudaStream_t)stream>>>(
+        st_in, woop, attrs, st_out, surf_out, n, tp, p, spread);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int zr_bounce_shade(const float* st_in, const float* surf, const float* woop,
+                               const float* sets, float* st_out, int n, int tp, int n_sets,
+                               int ps, int rt, int bounce, uint32_t seed, int min_nee_bounce,
+                               int rr_start, int nee, int has_lights, void* stream) {
+  const zr::BounceParams p = params(bounce, seed, rt, n_sets, ps, 0.f, 0, min_nee_bounce,
+                                    rr_start, nee, has_lights);
+  const int grid = (n + BOUNCE_BLOCK - 1) / BOUNCE_BLOCK;
+  const size_t smem = (size_t)LSET_STAGED * ps * sizeof(float);
+  if (grid > 0) {
+    bounce_shade_kernel<<<grid, BOUNCE_BLOCK, smem, (cudaStream_t)stream>>>(
+        st_in, surf, woop, sets, st_out, n, tp, p);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int zr_bounce(const float* st_in, const float* woop, const float* attrs,
+                         const float* sets, float* st_out, int n, int tp, int n_sets, int ps,
+                         int rt, int bounce, uint32_t seed, float t_min, int min_emissive_bounce,
+                         int min_nee_bounce, int rr_start, int nee, int has_lights, int last,
+                         void* stream) {
+  const zr::BounceParams p = params(bounce, seed, rt, n_sets, ps, t_min, min_emissive_bounce,
+                                    min_nee_bounce, rr_start, nee, has_lights);
+  const int grid = (n + BOUNCE_BLOCK - 1) / BOUNCE_BLOCK;
+  const size_t smem = (size_t)LSET_STAGED * ps * sizeof(float);
+  if (grid > 0) {
+    bounce_kernel<<<grid, BOUNCE_BLOCK, smem, (cudaStream_t)stream>>>(
+        st_in, woop, attrs, sets, st_out, n, tp, p, last);
+  }
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,441 @@
+// Device functions of one path bounce, shared by the three kernels of
+// bounce.cu (zetaray_tpu_torch.accel.megakernel.bounce_trace/_shade/bounce).
+//
+// Every function follows its PyTorch counterpart operation for operation
+// (ops/shading_soa.py, accel/megakernel.py), and the library is built with
+// --fmad=false and without fast math, so each float operation rounds as it
+// does there. Constants that the Python code writes as double literals are
+// written here as (float) casts of the same literals.
+//
+// Path state rows (STATE_ROWS): 0-2 o | 3-5 d | 6-8 throughput | 9-11
+// radiance | 12 prev_bsdf_pdf | 13 alive | 14 specular flag | 15 cone width.
+#pragma once
+
+#include "common.cuh"
+#include "layout.h"  // A_*, BOUNCE_SALT, STATE_ROWS, SURF_ROWS, GGX_*
+
+namespace zr {
+
+struct V3f {
+  float x, y, z;
+};
+
+__device__ __forceinline__ V3f operator+(V3f a, V3f b) { return {a.x + b.x, a.y + b.y, a.z + b.z}; }
+__device__ __forceinline__ V3f operator-(V3f a, V3f b) { return {a.x - b.x, a.y - b.y, a.z - b.z}; }
+__device__ __forceinline__ V3f operator*(V3f a, V3f b) { return {a.x * b.x, a.y * b.y, a.z * b.z}; }
+__device__ __forceinline__ V3f operator*(V3f a, float s) { return {a.x * s, a.y * s, a.z * s}; }
+__device__ __forceinline__ V3f operator-(V3f a) { return {-a.x, -a.y, -a.z}; }
+__device__ __forceinline__ float dot(V3f a, V3f b) { return a.x * b.x + a.y * b.y + a.z * b.z; }
+__device__ __forceinline__ V3f cross(V3f a, V3f b) {
+  return {a.y * b.z - a.z * b.y, a.z * b.x - a.x * b.z, a.x * b.y - a.y * b.x};
+}
+__device__ __forceinline__ V3f normalize(V3f a, float eps) {
+  return a * rsqrtf(fmaxf(dot(a, a), eps));
+}
+__device__ __forceinline__ float luminance(V3f a) {
+  return (float)0.2126 * a.x + (float)0.7152 * a.y + (float)0.0722 * a.z;
+}
+__device__ __forceinline__ float clampf(float x, float lo, float hi) {
+  return fminf(fmaxf(x, lo), hi);
+}
+__device__ __forceinline__ float power_heuristic(float a, float b) {
+  const float a2 = a * a;
+  return a2 / fmaxf(a2 + b * b, 1e-20f);
+}
+
+constexpr double kPi = 3.141592653589793;  // math.pi
+constexpr float kPi32 = (float)3.14159265;  // the literal of _ggx_d and _ms_lobe
+constexpr float kInvPi = (float)(1.0 / 3.14159265358979);
+constexpr float kEpsRay = (float)1e-3;
+
+// ---------------------------------------------------------------------------
+// Opaque BSDF: Lambert + GGX reflection with the Kulla-Conty multiscatter
+// lobe (ops/shading_soa.py).
+// ---------------------------------------------------------------------------
+
+struct Mat {
+  V3f base;
+  float metallic, roughness, ior;
+};
+
+struct Frame {
+  V3f t, b, n;
+  __device__ __forceinline__ V3f to_local(V3f w) const { return {dot(w, t), dot(w, b), dot(w, n)}; }
+  __device__ __forceinline__ V3f to_world(V3f w) const { return t * w.x + b * w.y + n * w.z; }
+};
+
+__device__ __forceinline__ Frame make_frame(V3f n) {
+  const float s = n.z >= 0.f ? 1.f : -1.f;
+  const float a = -1.f / (s + n.z);
+  const float b = n.x * n.y * a;
+  Frame f;
+  f.t = {1.f + s * n.x * n.x * a, s * b, -s * n.x};
+  f.b = {b, s + n.y * n.y * a, -n.y};
+  f.n = n;
+  return f;
+}
+
+__device__ __forceinline__ V3f fresnel(V3f f0, float cos_h) {
+  const float m = clampf(1.f - cos_h, 0.f, 1.f);
+  const float m5 = (m * m) * (m * m) * m;
+  return f0 + V3f{1.f - f0.x, 1.f - f0.y, 1.f - f0.z} * m5;
+}
+
+__device__ __forceinline__ float ggx_d(float a2, float cos_h) {
+  const float c2 = cos_h * cos_h;
+  const float den = c2 * (a2 - 1.f) + 1.f;
+  return a2 / fmaxf(kPi32 * den * den, 1e-12f);
+}
+
+__device__ __forceinline__ float smith_lambda(float a2, float cos_t) {
+  const float c2 = clampf(cos_t * cos_t, 1e-8f, 1.f);
+  return 0.5f * (sqrtf(1.f + a2 * (1.f - c2) / c2) - 1.f);
+}
+
+// Fitted single-scatter GGX directional albedo E(cos_o, roughness).
+__device__ __forceinline__ float ggx_albedo(float cos_o, float rough) {
+  const float mi = clampf(cos_o, 0.02f, 1.f);
+  const float ai = clampf(rough, 0.04f, 1.f);
+  float out = 0.f, mp = 1.f;
+  int idx = 0;
+#pragma unroll
+  for (int i = 0; i <= GGX_E_DEG; ++i) {
+    float ap = 1.f;
+#pragma unroll
+    for (int j = 0; j <= GGX_E_DEG; ++j) {
+      out = out + GGX_E_COEF[idx] * mp * ap;
+      ++idx;
+      ap = ap * ai;
+    }
+    mp = mp * mi;
+  }
+  return clampf(out, 0.05f, 1.f);
+}
+
+// Fitted cosine-weighted average albedo E_avg(roughness).
+__device__ __forceinline__ float ggx_albedo_avg(float rough) {
+  const float ai = clampf(rough, 0.04f, 1.f);
+  float out = 0.f, ap = 1.f;
+#pragma unroll
+  for (int k = 0; k < GGX_E_DEG + 2; ++k) {
+    out = out + GGX_EAVG_COEF[k] * ap;
+    ap = ap * ai;
+  }
+  return clampf(out, 0.05f, 1.f);
+}
+
+__device__ __forceinline__ V3f ms_lobe(V3f f0, float rough, float cos_o, float cos_i) {
+  const float e_o = ggx_albedo(cos_o, rough);
+  const float e_i = ggx_albedo(cos_i, rough);
+  const float e_avg = ggx_albedo_avg(rough);
+  const float ms = (1.f - e_o) * (1.f - e_i) / (kPi32 * fmaxf(1.f - e_avg, 1e-4f));
+  const V3f f_avg = f0 + V3f{1.f - f0.x, 1.f - f0.y, 1.f - f0.z} * (float)(1.0 / 21.0);
+  auto fres = [e_avg](float fa) {
+    return fa * fa * e_avg / fmaxf(1.f - fa * (1.f - e_avg), 1e-4f);
+  };
+  return {ms * fres(f_avg.x), ms * fres(f_avg.y), ms * fres(f_avg.z)};
+}
+
+struct Lobes {
+  float alpha, q_s, q_d;
+  V3f f0, kd;
+};
+
+__device__ __forceinline__ Lobes lobes(const Mat& m, float cos_o) {
+  Lobes l;
+  l.alpha = fmaxf(m.roughness * m.roughness, 1e-4f);
+  const float r = (m.ior - 1.f) / (m.ior + 1.f);
+  const float f0d = r * r;
+  l.f0 = {f0d * (1.f - m.metallic) + m.base.x * m.metallic,
+          f0d * (1.f - m.metallic) + m.base.y * m.metallic,
+          f0d * (1.f - m.metallic) + m.base.z * m.metallic};
+  l.kd = m.base * (1.f - m.metallic);
+  const float s = luminance(fresnel(l.f0, cos_o));
+  const float d = luminance(l.kd);
+  l.q_s = clampf(s / fmaxf(s + d, 1e-8f), 0.05f, 1.f);
+  l.q_d = 1.f - l.q_s;
+  return l;
+}
+
+// (f, *pdf) for directions in the local frame; zero below the surface.
+__device__ __forceinline__ V3f bsdf_eval(const Mat& m, V3f wo, V3f wi, float* pdf) {
+  const float cos_o = fmaxf(wo.z, 1e-6f);
+  const Lobes l = lobes(m, cos_o);
+  const float a2 = l.alpha * l.alpha;
+  const bool up = wi.z > 1e-6f;
+  const float cos_i = fmaxf(wi.z, 1e-6f);
+  const V3f h = normalize(wo + wi, 1e-24f);
+  const float cos_h = clampf(h.z, 0.f, 1.f);
+  const float odoth = fmaxf(dot(wo, h), 1e-6f);
+  const float dt = ggx_d(a2, cos_h);
+  const float g2 = 1.f / (1.f + smith_lambda(a2, cos_o) + smith_lambda(a2, cos_i));
+  const V3f fr = fresnel(l.f0, odoth);
+  const V3f f_ms = ms_lobe(l.f0, m.roughness, cos_o, cos_i);
+  const V3f f_refl = fr * (dt * g2 / (4.f * cos_o * cos_i)) + f_ms + l.kd * kInvPi;
+  const float pdf_spec = (1.f / (1.f + smith_lambda(a2, cos_o))) * dt / (4.f * cos_o);
+  const float pdf_refl = l.q_s * pdf_spec + l.q_d * (cos_i * kInvPi);
+  *pdf = up ? pdf_refl : 0.f;
+  return up ? f_refl : V3f{0.f, 0.f, 0.f};
+}
+
+__device__ __forceinline__ V3f cosine_hemisphere(float u1, float u2) {
+  const float a = 2.f * u1 - 1.f;
+  const float b = 2.f * u2 - 1.f;
+  const bool cond = fabsf(a) > fabsf(b);
+  const float r = cond ? a : b;
+  const float safe = r == 0.f ? 1.f : r;
+  float phi = cond ? (float)(kPi / 4.0) * (b / safe)
+                   : (float)(kPi / 2.0) - (float)(kPi / 4.0) * (a / safe);
+  if (r == 0.f) phi = 0.f;
+  const float x = r * cosf(phi);
+  const float y = r * sinf(phi);
+  return {x, y, sqrtf(fmaxf(1.f - x * x - y * y, 0.f))};
+}
+
+__device__ __forceinline__ V3f ggx_vndf(V3f wo, float alpha, float u1, float u2) {
+  const V3f v = normalize(V3f{wo.x * alpha, wo.y * alpha, wo.z}, 1e-20f);
+  const float lensq = v.x * v.x + v.y * v.y;
+  const float safe = rsqrtf(fmaxf(lensq, 1e-20f));
+  const bool big = lensq > 1e-12f;
+  const V3f t1 = {big ? -v.y * safe : 1.f, big ? v.x * safe : 0.f, 0.f};
+  const V3f t2 = cross(v, t1);
+  const float r = sqrtf(u1);
+  const float phi = (float)(2.0 * kPi) * u2;
+  const float p1 = r * cosf(phi);
+  float p2 = r * sinf(phi);
+  const float s = 0.5f * (1.f + v.z);
+  p2 = (1.f - s) * sqrtf(fmaxf(1.f - p1 * p1, 0.f)) + s * p2;
+  const float p3 = sqrtf(fmaxf(1.f - p1 * p1 - p2 * p2, 0.f));
+  const V3f nh = t1 * p1 + t2 * p2 + v * p3;
+  return normalize(V3f{alpha * nh.x, alpha * nh.y, fmaxf(nh.z, 1e-6f)}, 1e-20f);
+}
+
+// Sample wi from the two-lobe mixture; *wgt = f |cos| / pdf, *pdf.
+__device__ __forceinline__ V3f bsdf_sample(const Mat& m, V3f wo, float u1, float u2, float u3,
+                                           V3f* wgt, float* pdf) {
+  const Lobes l = lobes(m, fmaxf(wo.z, 1e-6f));
+  const V3f h = ggx_vndf(wo, l.alpha, u2, u3);
+  const V3f wi_spec = h * (2.f * dot(wo, h)) - wo;
+  const V3f wi = u1 < l.q_s ? wi_spec : cosine_hemisphere(u2, u3);
+  float p;
+  const V3f f = bsdf_eval(m, wo, wi, &p);
+  const bool good = (p > 1e-12f) && (wi.z > 1e-6f);
+  const float scale = good ? fabsf(wi.z) / fmaxf(p, 1e-12f) : 0.f;
+  *wgt = f * scale;
+  *pdf = good ? p : 0.f;
+  return wi;
+}
+
+// ---------------------------------------------------------------------------
+// The bounce
+// ---------------------------------------------------------------------------
+
+struct Path {
+  V3f o, d, thr, rad;
+  float prev_pdf, spec, cone;
+  bool alive;
+};
+
+__device__ __forceinline__ Path load_path(const float* __restrict__ st, int n, int i) {
+  auto r = [&](int k) { return st[(size_t)k * n + i]; };
+  Path p;
+  p.o = {r(0), r(1), r(2)};
+  p.d = {r(3), r(4), r(5)};
+  p.thr = {r(6), r(7), r(8)};
+  p.rad = {r(9), r(10), r(11)};
+  p.prev_pdf = r(12);
+  p.alive = r(13) > 0.5f;
+  p.spec = r(14);
+  p.cone = r(15);
+  return p;
+}
+
+__device__ __forceinline__ void store_path(float* __restrict__ st, int n, int i, const Path& p) {
+  const float v[STATE_ROWS] = {p.o.x, p.o.y, p.o.z, p.d.x, p.d.y, p.d.z,
+                               p.thr.x, p.thr.y, p.thr.z, p.rad.x, p.rad.y, p.rad.z,
+                               p.prev_pdf, p.alive ? 1.f : 0.f, p.spec, p.cone};
+#pragma unroll
+  for (int k = 0; k < STATE_ROWS; ++k) st[(size_t)k * n + i] = v[k];
+}
+
+// What one bounce's kernel is told (accel.megakernel wrappers, PTConfig).
+struct BounceParams {
+  int bounce;
+  uint32_t seed;
+  int rt, n_sets, ps;  // light-set tiling: set (i / rt + 13 * bounce) % n_sets
+  float t_min;
+  int min_emissive_bounce, min_nee_bounce, rr_start;
+  bool nee, has_lights;
+};
+
+// The hit surface: what the trace half hands to the shade half (the
+// SURF_ROWS of the split kernels).
+struct Surface {
+  V3f pos, ns, ng;
+  Mat mat;
+  float eta;
+};
+
+// Closest hit of the ray over every triangle, with the tie rule of
+// gbuffer.cu. Every thread of the block must call it (the triangles stream
+// through `chunk`); threads with live == false only help load.
+__device__ __forceinline__ float closest_hit(WoopChunk& chunk, const float* __restrict__ woop,
+                                             int tp, V3f o, V3f d, float t_min, bool live,
+                                             int* tri, float* bu, float* bv) {
+  float best_t = ZR_INF;
+  *tri = -1;
+  *bu = 0.f;
+  *bv = 0.f;
+  for (int c0 = 0; c0 < tp; c0 += kTriChunk) {
+    __syncthreads();
+    load_woop_chunk(chunk, woop, tp, c0);
+    __syncthreads();
+    if (!live) continue;
+    float ct = ZR_INF, cu = 0.f, cv = 0.f;
+    int cj = -1;
+    for (int j = 0; j < kTriChunk; ++j) {
+      float u, v;
+      const float t = woop_hit(chunk, j, o.x, o.y, o.z, d.x, d.y, d.z, t_min, ZR_INF, &u, &v);
+      if (t < ZR_INF && t <= ct) {
+        ct = t; cu = u; cv = v; cj = j;
+      }
+    }
+    if (ct < best_t) {
+      best_t = ct; *bu = cu; *bv = cv; *tri = c0 + cj;
+    }
+  }
+  return best_t;
+}
+
+// The trace half: closest hit, MIS-weighted emission gated by
+// min_emissive_bounce, alive = found, and the surface rebuilt at the hit.
+// Returns t_hit; *tri_out is the hit triangle (-1 on a miss) and *bary its
+// barycentrics, for the extra surface rows of the split kernel.
+__device__ __forceinline__ float trace_part(WoopChunk& chunk, const float* __restrict__ woop,
+                                            const float* __restrict__ attrs, int tp,
+                                            const BounceParams& prm, bool live, Path& path,
+                                            Surface& sf, int* tri_out, float* bu_out,
+                                            float* bv_out) {
+  int tri;
+  float bu, bv;
+  const float t_hit = closest_hit(chunk, woop, tp, path.o, path.d, prm.t_min, live, &tri,
+                                  &bu, &bv);
+  *tri_out = tri;
+  *bu_out = bu;
+  *bv_out = bv;
+  const bool hit = tri >= 0;
+  const float* row = attrs + (size_t)(hit ? tri : 0) * A_WIDTH;
+  auto at = [&](int k) { return hit ? row[k] : 0.f; };
+  auto at3 = [&](int k) { return V3f{at(k), at(k + 1), at(k + 2)}; };
+
+  const bool found = hit && path.alive;
+  const V3f ng_raw = at3(A_NG);
+  const float wo_dot_ng = -dot(path.d, ng_raw);
+  if (prm.has_lights) {
+    const bool vis_side = (at(A_DOUBLE) > 0.5f) || (wo_dot_ng > 0.f);
+    const float pdf_l_sa = at(A_EM_PDF_AREA) * t_hit * t_hit / fmaxf(fabsf(wo_dot_ng), 1e-8f);
+    const float mis = !prm.nee ? 1.f
+                      : (path.spec > 0.5f ? 1.f : power_heuristic(path.prev_pdf, pdf_l_sa));
+    float gain = (found && vis_side) ? mis : 0.f;
+    if (prm.bounce < prm.min_emissive_bounce) gain = 0.f;
+    path.rad = path.rad + path.thr * at3(A_EMISS) * gain;
+  }
+  path.alive = found;
+
+  const float w0 = 1.f - bu - bv;
+  V3f ns = normalize(at3(A_N0) * w0 + at3(A_N1) * bu + at3(A_N2) * bv, 1e-20f);
+  const bool front = wo_dot_ng > 0.f;
+  const float sgn = front ? 1.f : -1.f;
+  sf.ng = ng_raw * sgn;
+  ns = ns * sgn;
+  sf.ns = dot(ns, sf.ng) < 0.f ? -ns : ns;
+  sf.pos = path.o + path.d * t_hit;
+  const float ior = fmaxf(at(A_IOR), 1.01f);
+  sf.mat = {at3(A_BASE), at(A_METAL), at(A_ROUGH), ior};
+  sf.eta = front ? 1.f / ior : ior;
+  return t_hit;
+}
+
+// The light set of the tile that holds ray p0 at this bounce.
+__device__ __forceinline__ int bounce_set(const BounceParams& prm, int p0) {
+  return (int)(((long long)(p0 / prm.rt) + 13LL * prm.bounce) % prm.n_sets);
+}
+
+// The shade half: NEE from the staged light set with its shadow segment,
+// BSDF sample, Russian roulette; the path moves to the next vertex.
+// Every thread of the block must call it (the shadow loop streams the
+// triangles through `chunk`). Returns whether the sample was transmitted.
+__device__ __forceinline__ bool shade_part(WoopChunk& chunk, const float* __restrict__ woop,
+                                           int tp, const float* lset, const BounceParams& prm,
+                                           int i, bool live, Path& path, const Surface& sf) {
+  uint32_t h0 = (uint32_t)i, h1 = (uint32_t)prm.bounce, h2 = prm.seed, h3 = BOUNCE_SALT;
+  pcg4d(h0, h1, h2, h3);
+  const float u1 = to_unit(h0), u5 = to_unit(h1), u6 = to_unit(h2), u7 = to_unit(h3);
+  const uint32_t lo = (h0 & 0xFFu) | ((h1 & 0xFFu) << 8) | ((h2 & 0xFFu) << 16);
+  const float u8 = (float)lo * (1.0f / 16777216.0f);
+
+  const Frame frame = make_frame(sf.ns);
+  const V3f wo_l = frame.to_local(-path.d);
+
+  if (prm.nee && prm.has_lights) {
+    const int k = min((int)(u1 * (float)prm.ps), prm.ps - 1);
+    auto ls = [&](int r) { return lset[r * prm.ps + k]; };
+    const V3f lp = {ls(0), ls(1), ls(2)};
+    const V3f lng = {ls(3), ls(4), ls(5)};
+    const V3f lle = {ls(6), ls(7), ls(8)};
+    const float lpdf_area = ls(9);
+    const V3f to_l = lp - sf.pos;
+    const float dist2 = fmaxf(dot(to_l, to_l), 1e-12f);
+    const V3f wi_w = to_l * rsqrtf(dist2);
+    const float cos_surf = dot(wi_w, sf.ns);
+    const float cos_l_raw = -dot(wi_w, lng);
+    const float cos_l = ls(10) > 0.5f ? fabsf(cos_l_raw) : cos_l_raw;
+    float pdf_b;
+    const V3f f = bsdf_eval(sf.mat, wo_l, frame.to_local(wi_w), &pdf_b);
+    const float pdf_l_sa2 = lpdf_area * dist2 / fmaxf(cos_l, 1e-8f);
+    const bool candidate = live && path.alive && cos_surf > 1e-6f && cos_l > 1e-6f &&
+                           lpdf_area > 0.f && prm.bounce >= prm.min_nee_bounce;
+    // The segment starts off the surface but keeps the length lp - pos.
+    const V3f so = sf.pos + sf.ng * kEpsRay;
+    bool done = !candidate, occluded = false;
+    for (int c0 = 0; c0 < tp; c0 += kTriChunk) {
+      if (__syncthreads_and(done)) break;
+      load_woop_chunk(chunk, woop, tp, c0);
+      __syncthreads();
+      for (int j = 0; j < kTriChunk && !done; ++j) {
+        float u, v;
+        if (woop_hit(chunk, j, so.x, so.y, so.z, to_l.x, to_l.y, to_l.z, kEpsRay,
+                     (float)(1.0 - 1e-3), &u, &v) < ZR_INF) {
+          occluded = true;
+          done = true;
+        }
+      }
+    }
+    if (candidate && !occluded) {
+      const float scale = cos_surf * power_heuristic(pdf_l_sa2, pdf_b) / fmaxf(pdf_l_sa2, 1e-12f);
+      path.rad = path.rad + path.thr * f * lle * scale;
+    }
+  }
+
+  V3f wgt;
+  float pdf;
+  const V3f wi_l = bsdf_sample(sf.mat, wo_l, u5, u6, u7, &wgt, &pdf);
+  const V3f wi_w2 = frame.to_world(wi_l);
+  const bool transmitted = wi_l.z < 0.f;
+  const float side = dot(wi_w2, sf.ng);
+  const bool geo_ok = transmitted ? side < -1e-6f : side > 1e-6f;
+  path.alive = path.alive && pdf > 0.f && geo_ok;
+  path.thr = path.thr * wgt;
+  if (prm.bounce >= prm.rr_start) {
+    const float q = clampf(fmaxf(path.thr.x, fmaxf(path.thr.y, path.thr.z)), 0.05f, 0.95f);
+    path.alive = path.alive && u8 < q;
+    path.thr = path.thr * (1.f / q);
+  }
+  path.o = sf.pos + sf.ng * (transmitted ? -kEpsRay : kEpsRay);
+  path.d = wi_w2;
+  path.prev_pdf = pdf;
+  path.spec = 0.f;
+  return transmitted;
+}
+
+}  // namespace zr

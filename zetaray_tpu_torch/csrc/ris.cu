@@ -3,32 +3,20 @@
 // One thread per pixel. Pixel p uses light set (31 * (p / rt)) % n_sets,
 // where rt is the JAX frame's tile width: that mapping is part of what the
 // frame computes, so it is kept. The block size divides rt, so a block's
-// pixels share one set, which is staged in shared memory once (11 of its 16
-// rows, plus each entry's luminance). Each thread rates all ps entries with
+// pixels share one set, which is staged in shared memory once (its first
+// LSET_STAGED rows, plus each entry's luminance). Each thread rates all ps entries with
 // the albedo/pi target, takes a sequential inclusive sum, draws one pcg4d
 // uniform (salt 0x51E5, the stream of core.rng.uniform4) and picks the first
 // entry whose running sum exceeds u * w_sum in a second pass over the same
 // weights.
 #include "common.cuh"
-#include "layout.h"  // G_*, LSET_ROWS, R_ROWS
+#include "layout.h"  // G_*, LSET_ROWS, LSET_STAGED, R_ROWS
 
 namespace {
 
 // Light-set rows: 0-2 pos | 3-5 ng | 6-8 Le | 9 pdf | 10 two-sided.
-constexpr int kStaged = 12;  // rows 0-10 of the set + luminance of Le
-
-__device__ __forceinline__ uint32_t lcg(uint32_t x) { return x * 1664525u + 1013904223u; }
-
-// First output of pcg4d(a, b, c, d) (Jarzynski & Olano 2020).
-__device__ __forceinline__ uint32_t pcg4d_x(uint32_t a, uint32_t b, uint32_t c, uint32_t d) {
-  a = lcg(a); b = lcg(b); c = lcg(c); d = lcg(d);
-  uint32_t x = a + b * d;
-  uint32_t y = b + c * x;
-  uint32_t z = c + x * y;
-  uint32_t w = d + y * z;
-  x ^= x >> 16; y ^= y >> 16; z ^= z >> 16; w ^= w >> 16;
-  return x + y * w;
-}
+constexpr int kLum = LSET_STAGED;  // staged row of the luminance of Le
+constexpr int kStaged = LSET_STAGED + 1;
 
 struct Surface {
   float px, py, pz, nx, ny, nz, base_l;
@@ -46,7 +34,7 @@ __device__ __forceinline__ float ris_weight(const float* __restrict__ s, int ps,
   const float cos_surf = (tx * sf.nx + ty * sf.ny + tz * sf.nz) * inv_d;
   const float cos_l_raw = -(tx * s[3 * ps + k] + ty * s[4 * ps + k] + tz * s[5 * ps + k]) * inv_d;
   const float cos_l = s[10 * ps + k] > 0.5f ? fabsf(cos_l_raw) : cos_l_raw;
-  float phat = sf.base_l * s[11 * ps + k] * cos_surf * cos_l / dist2;
+  float phat = sf.base_l * s[kLum * ps + k] * cos_surf * cos_l / dist2;
   phat = (cos_surf > 1e-6f && cos_l > 1e-6f) ? fmaxf(phat, 0.f) : 0.f;
   *phat_out = phat;
   const float pdf = s[9 * ps + k];
@@ -59,11 +47,11 @@ __global__ void ris_kernel(const float* __restrict__ gb, const float* __restrict
   extern __shared__ float s[];  // [kStaged][ps]
   const int p0 = blockIdx.x * blockDim.x;
   const int set = (int)(((long long)(p0 / rt) * 31) % n_sets);
+  zr::stage_light_set(s, sets, set, ps);
   const float* src = sets + (size_t)set * LSET_ROWS * ps;
-  for (int k = threadIdx.x; k < 11 * ps; k += blockDim.x) s[k] = src[k];
   for (int k = threadIdx.x; k < ps; k += blockDim.x) {
-    s[11 * ps + k] = 0.2126f * src[6 * ps + k] + 0.7152f * src[7 * ps + k] +
-                     0.0722f * src[8 * ps + k];
+    s[kLum * ps + k] = 0.2126f * src[6 * ps + k] + 0.7152f * src[7 * ps + k] +
+                       0.0722f * src[8 * ps + k];
   }
   __syncthreads();
   const int i = p0 + threadIdx.x;
@@ -86,8 +74,9 @@ __global__ void ris_kernel(const float* __restrict__ gb, const float* __restrict
   float w_sum = 0.f, phat;
   for (int k = 0; k < ps; ++k) w_sum = w_sum + ris_weight(s, ps, k, sf, &phat);
 
-  const uint32_t bits = pcg4d_x((uint32_t)i, 0u, seed, 0x51E5u);
-  const float u = (float)(bits >> 8) * (1.0f / 16777216.0f);
+  uint32_t h0 = (uint32_t)i, h1 = 0u, h2 = seed, h3 = 0x51E5u;
+  zr::pcg4d(h0, h1, h2, h3);
+  const float u = zr::to_unit(h0);
   const float target = u * w_sum;
   int idx = ps - 1;
   float cum = 0.f, y_phat = 0.f;

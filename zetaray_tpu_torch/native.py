@@ -11,8 +11,10 @@ and returns ``cudaGetLastError()``; :func:`check` turns a non-zero code
 into an exception.
 
 The row and column layouts the kernels index (``A``, ``G``, ``LSET_ROWS``,
-``R_ROWS``) are defined once, in Python: :func:`layout_header` writes them
-as C constants into the ``layout.h`` that the sources include.
+``R_ROWS``, ``STATE_ROWS``, ``SURF_ROWS``), the bounce kernels' block size
+and pcg4d salt, and the GGX albedo fit of ``ops.shading_soa`` are defined
+once, in Python: :func:`layout_header`
+writes them as C constants into the ``layout.h`` that the sources include.
 """
 
 from __future__ import annotations
@@ -38,6 +40,8 @@ NVCC_FLAGS = [
 ]
 
 _VP = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
 _SIGNATURES = {
     # o, d, woop, attrs, out, n, tp, t_min, stream
     "zr_gbuffer": [_VP, _VP, _VP, _VP, _VP, ctypes.c_int, ctypes.c_int, ctypes.c_float, _VP],
@@ -47,6 +51,17 @@ _SIGNATURES = {
     # gb, sets, out, n, n_sets, ps, rt, block, seed, stream
     "zr_ris": [_VP, _VP, _VP, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                ctypes.c_int, ctypes.c_uint32, _VP],
+    # state, woop, attrs, state_out, surf_out, n, tp, bounce, t_min, spread,
+    # min_emissive_bounce, nee, has_lights, stream
+    "zr_bounce_trace": [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _F, _F, _I, _I, _I, _VP],
+    # state, surf, woop, sets, state_out, n, tp, n_sets, ps, rt, bounce, seed,
+    # min_nee_bounce, rr_start, nee, has_lights, stream
+    "zr_bounce_shade": [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, ctypes.c_uint32,
+                        _I, _I, _I, _I, _VP],
+    # state, woop, attrs, sets, state_out, n, tp, n_sets, ps, rt, bounce, seed, t_min,
+    # min_emissive_bounce, min_nee_bounce, rr_start, nee, has_lights, last, stream
+    "zr_bounce": [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, ctypes.c_uint32, _F,
+                  _I, _I, _I, _I, _I, _I, _VP],
 }
 
 _lock = threading.Lock()
@@ -68,9 +83,18 @@ def sources() -> list[Path]:
 
 
 def layout_header() -> str:
-    """``layout.h``: the Python layouts as ``constexpr int`` constants
-    (``A_<column>``, ``G_<row>``, ``LSET_ROWS``, ``R_ROWS``)."""
-    from .accel.megakernel import G, LSET_ROWS
+    """``layout.h``: the Python layouts and launch constants as ``constexpr
+    int`` constants (``A_<column>``, ``G_<row>``, ``LSET_ROWS``,
+    ``LSET_STAGED``, ``R_ROWS``, ``STATE_ROWS``, ``SURF_ROWS``,
+    ``BOUNCE_BLOCK``, ``BOUNCE_SALT``) and the GGX albedo fit (``GGX_E_DEG``,
+    ``GGX_E_COEF``, ``GGX_EAVG_COEF``) as float arrays in constant memory,
+    each coefficient the ``repr`` of its Python float, so it rounds to
+    float32 as in PyTorch."""
+    from .accel.megakernel import (
+        BOUNCE_BLOCK, G, LSET_ROWS, LSET_STAGED, STATE_ROWS, SURF_ROWS,
+    )
+    from .core.rng import BOUNCE_SALT
+    from .ops import shading_soa as S
     from .ops.restir_di import R_ROWS
     from .scene.scene import A
 
@@ -79,7 +103,13 @@ def layout_header() -> str:
     for prefix, cls in (("A", A), ("G", G)):
         lines += [f"constexpr int {prefix}_{k} = {v};"
                   for k, v in vars(cls).items() if k.isupper()]
-    lines += [f"constexpr int LSET_ROWS = {LSET_ROWS};", f"constexpr int R_ROWS = {R_ROWS};"]
+    lines += [f"constexpr int {k} = {v};" for k, v in (
+        ("LSET_ROWS", LSET_ROWS), ("LSET_STAGED", LSET_STAGED), ("R_ROWS", R_ROWS),
+        ("STATE_ROWS", STATE_ROWS), ("SURF_ROWS", SURF_ROWS), ("BOUNCE_BLOCK", BOUNCE_BLOCK),
+        ("BOUNCE_SALT", BOUNCE_SALT), ("GGX_E_DEG", S._GGX_E_DEG))]
+    for name, coef in (("GGX_E_COEF", S._GGX_E_COEF), ("GGX_EAVG_COEF", S._GGX_EAVG_COEF)):
+        vals = ", ".join(repr(float(c)) for c in coef)
+        lines.append(f"static __constant__ float {name}[{len(coef)}] = {{{vals}}};")
     return "\n".join(lines) + "\n"
 
 

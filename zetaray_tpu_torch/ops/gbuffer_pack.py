@@ -39,3 +39,13 @@ def depth_valid(tg: torch.Tensor):
     """(depth, valid) from packed rows; misses have depth 0."""
     d = tg[TG.DEPTH]
     return d, d > 0.0
+
+
+def temporal_geom_ok(prev_g, ns, depth_est, depth_tol: float, normal_tol: float):
+    """Reuse test against gathered packed previous planes: the previous pixel
+    was a hit, its depth is within ``depth_tol`` (relative) of the
+    reprojected estimate and its decoded normal agrees with ``ns``."""
+    nx, ny, nz = unpack_normal(prev_g)
+    depth_prev, prev_valid = depth_valid(prev_g)
+    depth_ok = torch.abs(depth_prev - depth_est) < depth_tol * torch.clamp_min(depth_est, 1e-3)
+    return depth_ok & (ns.x * nx + ns.y * ny + ns.z * nz > normal_tol) & prev_valid

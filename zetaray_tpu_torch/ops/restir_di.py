@@ -28,13 +28,13 @@ import torch
 
 from .. import native
 from ..accel.intersect import intersect_occluded
-from ..accel.megakernel import G, LSET_ROWS
+from ..accel.megakernel import G, LSET_ROWS, LSET_STAGED
 from ..core import vec3 as v3
 from ..core.rng import uniform4
 from ..core.rows import stack_rows
 from ..core.vec3 import V3
 from . import shading_soa as S
-from .gbuffer_pack import depth_valid, unpack_normal
+from .gbuffer_pack import temporal_geom_ok
 from .reservoir_pack import DI_PACKED_ROWS, pack_di, unpack_di
 
 R_ROWS = 16
@@ -109,7 +109,7 @@ def initial_candidates_plain(gbuf, light_sets, seed: int, rt: int) -> torch.Tens
     dev = gbuf.device
     pix = torch.arange(n, dtype=torch.int64, device=dev)
     set_of_pix = (pix // rt) * 31 % n_sets
-    rows = {r: light_sets[:, r, :][set_of_pix] for r in range(11)}  # each [N, ps]
+    rows = {r: light_sets[:, r, :][set_of_pix] for r in range(LSET_STAGED)}  # each [N, ps]
     pos, ns, _ng, _wo, mat, valid = surface_from_gbuf(gbuf)
     col = rows.__getitem__
     e_lum = (0.2126 * col(6) + 0.7152 * col(7)) + 0.0722 * col(8)
@@ -228,7 +228,7 @@ def take_multi(parts, idx):
     return outs
 
 
-def _gather_reservoirs(res_src, extra, idx):
+def gather_reservoirs(res_src, extra, idx):
     """Gather reservoirs in the packed 8-row form (the JAX default,
     ``packed_reuse=True``) together with ``extra`` rows."""
     src = res_src if res_src.shape[0] == DI_PACKED_ROWS else pack_di(res_src)
@@ -236,7 +236,7 @@ def _gather_reservoirs(res_src, extra, idx):
     return unpack_di(r), e
 
 
-def _drop_m_w(res, ok):
+def drop_m_w(res, ok):
     """Zero M and W where reuse is rejected."""
     return stack_rows(res.shape[0], {
         10: torch.where(ok, res[10], 0.0), 11: torch.where(ok, res[11], 0.0),
@@ -263,24 +263,24 @@ def reproject_prev(gbuf, prev_cam, width: int, height: int):
 
 
 def temporal_reuse(res, prev_res, prev_gbuf, gbuf, prev_cam, width, height, seed,
-                   cfg: ReSTIRConfig):
+                   cfg: ReSTIRConfig, prefetch=None):
     """Merge the reprojected previous-frame reservoirs into the current ones.
 
-    ``prev_gbuf`` is the previous frame's packed temporal G-buffer (TG).
+    ``prev_gbuf`` is the previous frame's packed temporal G-buffer (TG);
+    ``prefetch`` = (prev reservoirs, prev packed G, inside, depth estimate)
+    when the frame's joint gather already fetched them.
     """
     n = res.shape[1]
     surf = _surf(gbuf)
     ns, valid = surf[1], surf[5]
-    idx, inside, depth_prev_est = reproject_prev(gbuf, prev_cam, width, height)
-    prev_r, prev_g = _gather_reservoirs(prev_res, prev_gbuf, idx)
-    nx, ny, nz = unpack_normal(prev_g)
-    depth_prev, prev_valid = depth_valid(prev_g)
-    depth_ok = torch.abs(depth_prev - depth_prev_est) < (
-        cfg.depth_tolerance * torch.clamp_min(depth_prev_est, 1e-3)
-    )
-    normal_ok = v3.dot(ns, V3(nx, ny, nz)) > cfg.normal_tolerance
-    ok = inside & depth_ok & normal_ok & prev_valid & valid
-    prev_r = _drop_m_w(prev_r, ok)
+    if prefetch is not None:
+        prev_r, prev_g, inside, depth_prev_est = prefetch
+    else:
+        idx, inside, depth_prev_est = reproject_prev(gbuf, prev_cam, width, height)
+        prev_r, prev_g = gather_reservoirs(prev_res, prev_gbuf, idx)
+    ok = inside & temporal_geom_ok(prev_g, ns, depth_prev_est, cfg.depth_tolerance,
+                                   cfg.normal_tolerance) & valid
+    prev_r = drop_m_w(prev_r, ok)
     pix = torch.arange(n, dtype=torch.int64, device=res.device)
     u = uniform4(pix, 0, seed, salt=0x7E17)[0]
     m_cap = cfg.m_max_factor * torch.clamp_min(res[10], 1.0)
@@ -328,9 +328,9 @@ def spatial_step(res, gbuf, width, height, seed, it, cfg: ReSTIRConfig):
     pix = torch.arange(n, dtype=torch.int64, device=res.device)
     u = uniform4(pix, it, seed, salt=0x5A71)
     nidx = disk_neighbor(pix, width, height, u, cfg.spatial_radius)
-    nb, nb_geom = _gather_reservoirs(res, geom_table(gbuf), nidx)
+    nb, nb_geom = gather_reservoirs(res, geom_table(gbuf), nidx)
     ok = geom_ok_slim(gbuf, nb_geom, surf[1], cfg)
-    return merge(res, _drop_m_w(nb, ok), surf, u[2])
+    return merge(res, drop_m_w(nb, ok), surf, u[2])
 
 
 def spatial_reuse(res, gbuf, width, height, seed, cfg: ReSTIRConfig):

@@ -1,0 +1,213 @@
+"""ReSTIR GI, as the JAX package's ``ops/restir_gi.py`` (dense scenes, no sky).
+
+Per pixel the sample is a reconnection vertex: the secondary hit x2 with its
+normal n2 and the radiance L2 it sends back toward the primary hit, traced
+by the path kernels B4-B6 (``accel.megakernel.trace_with_first_hit``).
+Reservoir weights use the area measure, so reuse needs no Jacobian.
+
+Reservoir rows ([16, N] float32, the JAX package's layout):
+  0-2 x2 | 3-5 n2 | 6-8 L2 | 9 w_sum | 10 M | 11 W | 12 phat | 13-15 pad
+
+Reuse gathers carry GI reservoirs in the packed DI form
+(``reservoir_pack.pack_di``), as the JAX package does: L2 travels as f16,
+n2 as oct16, and row 12 comes back as the DI two-sided bit, which the merge
+then overwrites.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, replace
+
+import torch
+
+from ..accel.intersect import intersect_occluded
+from ..accel.megakernel import G, trace_with_first_hit
+from ..core import vec3 as v3
+from ..core.rng import uniform4
+from ..core.rows import stack_rows
+from ..core.vec3 import V3
+from . import shading_soa as S
+from .gbuffer_pack import temporal_geom_ok
+from .restir_di import (
+    disk_neighbor, drop_m_w, gather_reservoirs, geom_ok_slim, geom_table, reproject_prev,
+)
+
+R_ROWS = 16
+_EPS_RAY = 1e-3
+
+
+@dataclass(frozen=True)
+class ReSTIRGIConfig:
+    temporal: bool = True
+    m_max: float = 10.0  # temporal M cap
+    spatial_iterations: int = 1
+    spatial_radius: int = 12
+    depth_tolerance: float = 0.1
+    normal_tolerance: float = 0.9
+    lvg: bool = False  # light-voxel-grid NEE at x2: not ported yet (the frame refuses it)
+    boiling_suppression: bool = True
+
+
+def _surf(gbuf):
+    """[G.ROWS, N] -> (pos, ns, ng, wo, mat, frame, valid)."""
+    ns = v3.from_rows(gbuf, G.NS)
+    mat = S.MatSoA(base=v3.from_rows(gbuf, G.BASE), metallic=gbuf[G.METAL],
+                   roughness=gbuf[G.ROUGH], ior=gbuf[G.IOR])
+    return (v3.from_rows(gbuf, G.POS), ns, v3.from_rows(gbuf, G.NG), v3.from_rows(gbuf, G.WO),
+            mat, S.make_frame(ns), gbuf[G.VALID] > 0.5)
+
+
+def _phat_area(mat, frame, wo_l, pos, ns, x2: V3, n2: V3, l2: V3, full=True):
+    """Area-measure target and its factors: (phat, f, geom, wi).
+    ``full=False``: the albedo/pi target of candidates and merges."""
+    to2 = x2 - pos
+    d2 = torch.clamp_min(v3.dot(to2, to2), 1e-12)
+    wi = to2 * torch.rsqrt(d2)
+    cos1 = v3.dot(wi, ns)
+    cos2 = torch.clamp_min(-v3.dot(wi, n2), 0.0)
+    if full:
+        f, _ = S.bsdf_eval(mat, wo_l, frame.to_local(wi))
+    else:
+        inv_pi = 0.3183098861
+        f = V3((mat.base.x + 0.04) * inv_pi, (mat.base.y + 0.04) * inv_pi,
+               (mat.base.z + 0.04) * inv_pi)
+    geom = cos1 * cos2 / d2
+    phat = torch.clamp_min(v3.luminance(f * l2) * geom, 0.0)
+    return torch.where(cos1 > 1e-6, phat, 0.0), f, geom, wi
+
+
+def secondary_rays(gbuf, seed: int):
+    """The rays of the GI samples: a BSDF direction at each primary hit
+    (uniforms of bounce 101, salt 0x61AA) from the hit offset along its
+    geometric normal. Returns (o [N, 3], d [N, 3], pdf_sa, live)."""
+    pos, _ns, ng, wo, mat, frame, valid = _surf(gbuf)
+    pix = torch.arange(gbuf.shape[1], dtype=torch.int64, device=gbuf.device)
+    u = uniform4(pix, 101, seed, salt=0x61AA)
+    wi_l, _, pdf_sa = S.bsdf_sample(mat, frame.to_local(wo), u[0], u[1], u[2])
+    wi = frame.to_world(wi_l)
+    live = valid & (pdf_sa > 0.0) & (v3.dot(wi, ng) > 1e-6)
+    return v3.aos3(pos + ng * _EPS_RAY), v3.aos3(wi), pdf_sa, live
+
+
+def initial_samples(scene, gbuf, pt_cfg, seed: int, rt: int, light_sets=None,
+                    spread_angle=0.0) -> torch.Tensor:
+    """One GI sample per pixel: a BSDF direction at the primary hit, traced
+    with ``max_bounces - 1`` further bounces (x2's own emission excluded,
+    NEE from x2 on). Returns reservoir rows [R_ROWS, N]."""
+    pos, ns, _ng, wo, mat, frame, _valid = _surf(gbuf)
+    wo_l = frame.to_local(wo)
+    o2, d2, pdf_sa, live = secondary_rays(gbuf, seed)
+
+    l2_cfg = replace(
+        pt_cfg,
+        max_bounces=max(pt_cfg.max_bounces - 1, 0),
+        min_emissive_bounce=max(pt_cfg.min_emissive_bounce - 1, 1),
+        min_nee_bounce=0,
+    )
+    l2_rows, surf2, alive2 = trace_with_first_hit(
+        scene, o2, d2, seed, l2_cfg, rt, light_sets=light_sets, spread_angle=spread_angle,
+    )
+    hit = (alive2 > 0.5) & live
+    x2, n2, l2 = v3.from_rows(surf2, 0), v3.from_rows(surf2, 6), v3.from_rows(l2_rows, 0)
+
+    phat, _, _, _ = _phat_area(mat, frame, wo_l, pos, ns, x2, n2, l2, full=False)
+    to2 = x2 - pos
+    dist2 = torch.clamp_min(v3.dot(to2, to2), 1e-12)
+    cos2 = torch.clamp_min(-v3.dot(to2 * torch.rsqrt(dist2), n2), 1e-6)
+    pdf_area = pdf_sa * cos2 / dist2
+    w = torch.where(hit & (pdf_area > 0.0), phat / torch.clamp_min(pdf_area, 1e-12), 0.0)
+    big_w = torch.where(phat > 0.0, w / torch.clamp_min(phat, 1e-12), 0.0)
+    return stack_rows(R_ROWS, {
+        0: x2.x, 1: x2.y, 2: x2.z, 3: n2.x, 4: n2.y, 5: n2.z, 6: l2.x, 7: l2.y, 8: l2.z,
+        9: w, 10: hit.to(torch.float32), 11: big_w, 12: phat,
+    })
+
+
+def _merge(res_a, res_b, surf, u, m_cap=None):
+    """Combine reservoir B into A, re-rating B's sample at ``surf`` with
+    the albedo/pi target."""
+    pos, ns, _ng, wo, mat, frame, valid = surf
+    m_b = res_b[10]
+    if m_cap is not None:
+        m_b = torch.clamp_max(m_b, m_cap)
+    phat_b, _, _, _ = _phat_area(
+        mat, frame, frame.to_local(wo), pos, ns, v3.from_rows(res_b, 0),
+        v3.from_rows(res_b, 3), v3.from_rows(res_b, 6), full=False,
+    )
+    w_b = torch.where(valid, phat_b * res_b[11] * m_b, 0.0)
+    w_sum = res_a[9] + w_b
+    take = u * w_sum < w_b
+    out = torch.where(take[None, :], res_b, res_a)
+    y_phat = torch.where(take, phat_b, res_a[12])
+    m_new = res_a[10] + m_b
+    big_w = torch.where(y_phat > 0.0, w_sum / torch.clamp_min(m_new * y_phat, 1e-12), 0.0)
+    return stack_rows(R_ROWS, {9: w_sum, 10: m_new, 11: big_w, 12: y_phat}, like=out)
+
+
+def suppress_outlier_reservoirs(res, group: int = 32):
+    """Boiling suppression: a reservoir whose w_sum exceeds 25x the mean of
+    the rest of its group of ``group`` consecutive pixels gets M <= 1."""
+    n = res.shape[1]
+    g = torch.nn.functional.pad(res[9], (0, (-n) % group)).reshape(-1, group)
+    avg_others = (g.sum(1, keepdim=True) - g) / (group - 1)
+    outlier = (g > 25.0 * avg_others).reshape(-1)[:n]
+    return stack_rows(res.shape[0], {
+        10: torch.where(outlier, torch.clamp_max(res[10], 1.0), res[10]),
+    }, like=res)
+
+
+def temporal_reuse(res, prev_res, prev_gbuf, gbuf, prev_cam, width, height, seed,
+                   cfg: ReSTIRGIConfig, prefetch=None):
+    """Merge the reprojected previous-frame reservoirs into the current ones,
+    then suppress outliers. ``prev_gbuf`` is the packed temporal G-buffer;
+    ``prefetch`` = (prev reservoirs, prev packed G, inside, depth estimate)
+    when the frame's joint gather already fetched them."""
+    n = res.shape[1]
+    surf = _surf(gbuf)
+    if prefetch is not None:
+        prev_r, prev_g, inside, depth_est = prefetch
+    else:
+        idx, inside, depth_est = reproject_prev(gbuf, prev_cam, width, height)
+        prev_r, prev_g = gather_reservoirs(prev_res, prev_gbuf, idx)
+    ok = inside & temporal_geom_ok(prev_g, surf[1], depth_est, cfg.depth_tolerance,
+                                   cfg.normal_tolerance)
+    prev_r = drop_m_w(prev_r, ok)
+    pix = torch.arange(n, dtype=torch.int64, device=res.device)
+    u = uniform4(pix, 102, seed, salt=0x6E31)[0]
+    out = _merge(res, prev_r, surf, u, m_cap=cfg.m_max)
+    return suppress_outlier_reservoirs(out) if cfg.boiling_suppression else out
+
+
+def spatial_step(res, gbuf, width, height, seed, it, cfg: ReSTIRGIConfig):
+    """One spatial-reuse iteration: merge a random neighbour within
+    ``spatial_radius`` whose geometry agrees."""
+    n = res.shape[1]
+    surf = _surf(gbuf)
+    pix = torch.arange(n, dtype=torch.int64, device=res.device)
+    u = uniform4(pix, 103 + it, seed, salt=0x51A7)
+    nidx = disk_neighbor(pix, width, height, u, cfg.spatial_radius)
+    nb, nb_geom = gather_reservoirs(res, geom_table(gbuf), nidx)
+    ok = geom_ok_slim(gbuf, nb_geom, surf[1], cfg)
+    return _merge(res, drop_m_w(nb, ok), surf, u[2])
+
+
+def spatial_reuse(res, gbuf, width, height, seed, cfg: ReSTIRGIConfig):
+    out = res
+    for it in range(cfg.spatial_iterations):
+        out = spatial_step(out, gbuf, width, height, seed, it, cfg)
+    return out
+
+
+def shade(scene, res, gbuf) -> torch.Tensor:
+    """Indirect radiance of each pixel's surviving sample after its
+    visibility ray (kernel B3): planar [3, N]."""
+    pos, ns, ng, wo, mat, frame, valid = _surf(gbuf)
+    x2, l2 = v3.from_rows(res, 0), v3.from_rows(res, 6)
+    big_w = res[11]
+    phat, f, geom, _ = _phat_area(mat, frame, frame.to_local(wo), pos, ns, x2,
+                                  v3.from_rows(res, 3), l2)
+    lit = valid & (phat > 0.0) & (big_w > 0.0)
+    so = pos + ng * _EPS_RAY
+    occ = intersect_occluded(scene, v3.aos3(so), v3.aos3(x2 - so), t_min=1e-3, t_max=1.0 - 1e-3)
+    gain = torch.where(lit & ~occ, geom * big_w, 0.0)
+    return v3.aos3(f * l2 * gain, 0)

@@ -1,14 +1,16 @@
 """SoA shading math, as the JAX package's ``ops/shading_soa.py`` for opaque materials.
 
 Lambert diffuse plus GGX reflection (height-correlated Smith, Schlick
-Fresnel) with the Kulla-Conty multiple-scattering term, over ``V3``s of
-tensors. The operations follow the JAX package in the same order, so the
+Fresnel) with the Kulla-Conty multiple-scattering term, its one-sample
+lobe-mixture sampler (GGX VNDF or cosine hemisphere) and the power
+heuristic, over ``V3``s of tensors. The operations follow the JAX package in the same order, so the
 two agree to float rounding. The transmission and coat lobes are not ported
 yet: ``upload_scene`` refuses materials that need them.
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import numpy as np
@@ -35,6 +37,9 @@ class Frame(NamedTuple):
 
     def to_local(self, w: V3) -> V3:
         return V3(v3.dot(w, self.t), v3.dot(w, self.b), v3.dot(w, self.n))
+
+    def to_world(self, w: V3) -> V3:
+        return self.t * w.x + self.b * w.y + self.n * w.z
 
 
 def make_frame(n: V3) -> Frame:
@@ -236,3 +241,62 @@ def bsdf_eval(mat: MatSoA, wo: V3, wi: V3):
     zero = torch.zeros_like(cos_o)
     f = v3.where(up, f_refl, V3(zero, zero, zero))
     return f, torch.where(up, pdf_refl, 0.0)
+
+
+def _cosine_hemisphere(u1, u2) -> V3:
+    """Concentric-disk cosine-weighted hemisphere direction."""
+    a = 2.0 * u1 - 1.0
+    b = 2.0 * u2 - 1.0
+    cond = torch.abs(a) > torch.abs(b)
+    r = torch.where(cond, a, b)
+    safe = torch.where(r == 0.0, 1.0, r)
+    phi = torch.where(
+        cond, (math.pi / 4.0) * (b / safe), (math.pi / 2.0) - (math.pi / 4.0) * (a / safe)
+    )
+    phi = torch.where(r == 0.0, 0.0, phi)
+    x = r * torch.cos(phi)
+    y = r * torch.sin(phi)
+    z = torch.sqrt(torch.clamp_min(1.0 - x * x - y * y, 0.0))
+    return V3(x, y, z)
+
+
+def _ggx_vndf(wo: V3, alpha, u1, u2) -> V3:
+    """Heitz 2018 visible-normal sample of the GGX half vector."""
+    v = v3.normalize(V3(wo.x * alpha, wo.y * alpha, wo.z))
+    lensq = v.x * v.x + v.y * v.y
+    safe = torch.rsqrt(torch.clamp_min(lensq, 1e-20))
+    big = lensq > 1e-12
+    t1 = V3(torch.where(big, -v.y * safe, 1.0), torch.where(big, v.x * safe, 0.0),
+            torch.zeros_like(v.x))
+    t2 = v3.cross(v, t1)
+    r = torch.sqrt(u1)
+    phi = 2.0 * math.pi * u2
+    p1 = r * torch.cos(phi)
+    p2 = r * torch.sin(phi)
+    s = 0.5 * (1.0 + v.z)
+    p2 = (1.0 - s) * torch.sqrt(torch.clamp_min(1.0 - p1 * p1, 0.0)) + s * p2
+    p3 = torch.sqrt(torch.clamp_min(1.0 - p1 * p1 - p2 * p2, 0.0))
+    nh = t1 * p1 + t2 * p2 + v * p3
+    return v3.normalize(V3(alpha * nh.x, alpha * nh.y, torch.clamp_min(nh.z, 1e-6)))
+
+
+def bsdf_sample(mat: MatSoA, wo: V3, u1, u2, u3):
+    """Sample wi from the two-lobe mixture (GGX reflection or diffuse).
+    Returns (wi [V3], weight f*|cos|/pdf [V3], pdf)."""
+    alpha, f0, kd = _lobe_params(mat)
+    cos_o = torch.clamp_min(wo.z, 1e-6)
+    q_s, _ = _lobe_probs(f0, kd, cos_o)
+    pick_spec = u1 < q_s
+    h = _ggx_vndf(wo, alpha, u2, u3)
+    wi_spec = h * (2.0 * v3.dot(wo, h)) - wo
+    wi_diff = _cosine_hemisphere(u2, u3)
+    wi = v3.where(pick_spec, wi_spec, wi_diff)
+    f, pdf = bsdf_eval(mat, wo, wi)
+    good = (pdf > 1e-12) & (wi.z > 1e-6)
+    scale = torch.where(good, torch.abs(wi.z) / torch.clamp_min(pdf, 1e-12), 0.0)
+    return wi, f * scale, torch.where(good, pdf, 0.0)
+
+
+def power_heuristic(pdf_a, pdf_b):
+    a2 = pdf_a * pdf_a
+    return a2 / torch.clamp_min(a2 + pdf_b * pdf_b, 1e-20)

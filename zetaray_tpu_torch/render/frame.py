@@ -1,12 +1,15 @@
-"""The ReSTIR DI frame, as ``render_frame_restir`` of the JAX package's ``render/frame.py``.
+"""The ReSTIR frame, as ``render_frame_restir`` of the JAX package's ``render/frame.py``.
 
-The slice this package covers is the flagship frame with its indirect pass
-off: ``RenderConfig(mode="restir_gi", indirect=False, denoise=True,
-taa=True)``. It runs camera rays -> G-buffer -> presampled light sets ->
-DI RIS -> DI temporal -> DI visibility -> DI spatial -> DI shade -> a-trous
--> TAA -> histogram exposure, AgX and sRGB, in the JAX frame's order, and
-feeds the pre-spatial reservoirs forward. A setting outside the slice
-raises ``NotImplementedError``.
+The frame this package covers is the flagship ``RenderConfig(mode="restir_gi",
+pt=PTConfig(max_bounces=3), denoise=True, taa=True)``, with its indirect pass
+on or off. It runs camera rays -> G-buffer -> presampled light sets -> DI
+RIS -> DI temporal -> DI visibility -> DI spatial -> DI shade -> GI initial
+samples (a path trace from the primary hit) -> GI temporal (with boiling
+suppression) -> GI spatial -> GI shade -> a-trous -> TAA -> histogram
+exposure, AgX and sRGB, in the JAX frame's order. One reprojection and one
+gather serve both temporal passes, and the pre-spatial DI and GI
+reservoirs are fed forward. A setting outside this raises
+``NotImplementedError``.
 
 The JAX frame's banded gathers (``band_rows``/``band_halo``) are a TPU
 workaround and have no counterpart here: reuse gathers read the whole
@@ -15,7 +18,7 @@ previous frame.
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 
 import torch
 
@@ -23,8 +26,11 @@ from ..accel.megakernel import G, build_light_sets, gbuffer
 from ..ops import denoise as DN
 from ..ops import post
 from ..ops import restir_di as RD
+from ..ops import restir_gi as RG
 from ..ops import taa as TA
 from ..ops.gbuffer_pack import pack_temporal
+from ..ops.pathtracer import PTConfig
+from ..ops.reservoir_pack import pack_di, unpack_di
 from ..scene.camera import Camera
 
 
@@ -35,7 +41,9 @@ class RenderConfig:
     width: int = 512
     height: int = 512
     mode: str = "pt"
+    pt: PTConfig = field(default_factory=PTConfig)
     restir: RD.ReSTIRConfig = field(default_factory=RD.ReSTIRConfig)
+    restir_gi: RG.ReSTIRGIConfig = field(default_factory=RG.ReSTIRGIConfig)
     indirect: bool = True
     skydi: bool = False
     volumetrics: object = None
@@ -51,7 +59,6 @@ class RenderConfig:
     def check_ported(self) -> None:
         """Raise for any setting this package does not implement yet."""
         later = {
-            "indirect=True (ReSTIR GI, kernels B4-B6)": self.indirect,
             f"mode={self.mode!r} (plain PT and ReSTIR PT)": self.mode != "restir_gi",
             "skydi (ops.skydi)": self.skydi,
             "volumetrics (ops.volumetrics)": self.volumetrics is not None,
@@ -63,6 +70,10 @@ class RenderConfig:
                 self.tonemapper != "agx",
         }
         missing = [name for name, hit in later.items() if hit]
+        if self.indirect:
+            missing += self.pt.unported()
+            if self.restir_gi.lvg:
+                missing.append("restir_gi.lvg (light-voxel-grid NEE, ops.prelighting)")
         if missing:
             raise NotImplementedError("not ported yet: " + ", ".join(missing))
 
@@ -72,7 +83,7 @@ class FrameState:
     """Temporal state carried between frames."""
 
     reservoirs: torch.Tensor  # [16, N] DI reservoirs (pre-spatial)
-    gi_reservoirs: torch.Tensor  # [16, N] GI reservoirs (zeros: GI is not ported)
+    gi_reservoirs: torch.Tensor  # [16, N] GI reservoirs (pre-spatial; zeros without GI)
     gbuf: torch.Tensor  # [TG.ROWS, N] packed temporal G-buffer
     camera_prev: Camera
     history: torch.Tensor  # [3, H, W] TAA history (HDR)
@@ -102,14 +113,42 @@ def render_frame_restir(scene, camera: Camera, seed: int, cfg: RenderConfig,
 
     gb = gbuffer(scene, o, d)
     lsets = build_light_sets(scene, seed)
+    gi = cfg.indirect  # check_ported admits only mode "restir_gi"
+
+    # Joint temporal gather: the DI and GI reservoirs and the packed temporal
+    # G-buffer reproject alike, so one reprojection and one gather serve both.
+    pf_di = pf_gi = None
+    if state is not None and gi and cfg.restir.temporal and cfg.restir_gi.temporal:
+        idx, inside, depth_est = RD.reproject_prev(gb, state.camera_prev, w, h)
+        p_di, p_gi, p_g = RD.take_multi(
+            [pack_di(state.reservoirs), pack_di(state.gi_reservoirs), state.gbuf], idx
+        )
+        pf_di = (unpack_di(p_di), p_g, inside, depth_est)
+        pf_gi = (unpack_di(p_gi), p_g, inside, depth_est)
+
     res = RD.initial_candidates(gb, lsets, seed, rt=rt)
     if cfg.restir.temporal and state is not None:
         res = RD.temporal_reuse(
-            res, state.reservoirs, state.gbuf, gb, state.camera_prev, w, h, seed, cfg.restir
+            res, state.reservoirs, state.gbuf, gb, state.camera_prev, w, h, seed, cfg.restir,
+            prefetch=pf_di,
         )
     res = RD.visibility_reuse(scene, res, gb)
     res_sp = RD.spatial_reuse(res, gb, w, h, seed, cfg.restir)
-    hdr = RD.shade(scene, res_sp, gb).reshape(3, h, w)
+    hdr = RD.shade(scene, res_sp, gb)
+
+    gi_res = torch.zeros_like(res)
+    if gi:
+        pt_cfg = replace(cfg.pt, min_emissive_bounce=2, min_nee_bounce=1)
+        gi_res = RG.initial_samples(scene, gb, pt_cfg, seed, rt, light_sets=lsets,
+                                    spread_angle=camera.pixel_spread_angle(h))
+        if cfg.restir_gi.temporal and state is not None:
+            gi_res = RG.temporal_reuse(
+                gi_res, state.gi_reservoirs, state.gbuf, gb, state.camera_prev, w, h, seed,
+                cfg.restir_gi, prefetch=pf_gi,
+            )
+        gi_sp = RG.spatial_reuse(gi_res, gb, w, h, seed, cfg.restir_gi)
+        hdr = hdr + RG.shade(scene, gi_sp, gb)
+    hdr = hdr.reshape(3, h, w)
 
     normal_img = gb[G.NS : G.NS + 3].reshape(3, h, w)
     depth_img = gb[G.DEPTH].reshape(h, w)
@@ -124,7 +163,7 @@ def render_frame_restir(scene, camera: Camera, seed: int, cfg: RenderConfig,
     exposure = post.histogram_exposure_p(hdr) if cfg.auto_exposure else cfg.manual_exposure
     ldr = post.to_u8(post.srgb_encode(post.tonemap_agx_p(hdr * exposure)))
     new_state = FrameState(
-        reservoirs=res, gi_reservoirs=torch.zeros_like(res), gbuf=pack_temporal(gb),
+        reservoirs=res, gi_reservoirs=gi_res, gbuf=pack_temporal(gb),
         camera_prev=camera, history=hdr,
     )
     return {"hdr": hdr.permute(1, 2, 0), "ldr": ldr.permute(1, 2, 0)}, new_state

@@ -56,6 +56,10 @@ class Camera:
     def with_jitter(self, frame: int) -> "Camera":
         return replace(self, jitter=halton_jitter(frame))
 
+    def pixel_spread_angle(self, height: int) -> float:
+        """Angle one pixel subtends, for ray cones."""
+        return 2.0 * self.tan_half_fov / height
+
     def _vec(self, name: str, device) -> torch.Tensor:
         return torch.tensor(np.asarray(getattr(self, name), np.float32), device=device)
 
