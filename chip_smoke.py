@@ -1,4 +1,4 @@
-"""Drive the PyTorch port's ReSTIR frame once on an NVIDIA GPU.
+"""Drive the PyTorch port's frames once on an NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -8,24 +8,33 @@ Phases (any failure exits non-zero):
   3. holds each kernel against its plain PyTorch version at the frame's
      shapes and times both with CUDA events, on the procedural Cornell box
      and on its 8192-triangle subdivision at 512^2: G-buffer (B1), RIS over
-     [64, 16, 128] light sets (B2), occlusion (B3), and the path bounce
-     kernels on GI bounce-0 rays built from the G-buffer as the frame's
-     ReSTIR GI builds them: trace (B4), shade (B5), fused bounce (B6, at
-     bounce 1 and, on its trace-only branch of a path's last bounce, at 2);
-  4. renders 4 chained frames of each path with its launch counters set to
-     0 just before it and read just after: the DI-only slice at 512^2
+     [64, 16, 128] light sets (B2), occlusion (B3), the path bounce kernels
+     on GI bounce-0 rays built from the G-buffer as the frame's ReSTIR GI
+     builds them: trace (B4), shade (B5), fused bounce (B6, at bounce 1
+     and, on its trace-only branch of a path's last bounce, at 2), and the
+     closest hit with attributes (B7) on ReSTIR PT prefix rays built as its
+     initial samples build them; B7 also on 1024^2 camera rays, as the
+     primary-rays rate of bench.py. Each kernel's least time on the card
+     (bound_ms) is reckoned from this run's work and the H100's published
+     peaks;
+  4. renders chained frames of each path with its launch counters set to 0
+     just before it and read just after: the DI-only slice at 512^2
      (indirect off), the main path -- the flagship frame of bench.py
      (ReSTIR DI + GI with PTConfig(max_bounces=3), a-trous, TAA, histogram
-     exposure, AgX) at 512^2 -- and the 1920x1080 frame of bench.py
-     (max_bounces=2). The first frame of a chain has no temporal reuse and
-     no TAA, so frame times are medians of frames 2-4. It checks that every
-     kernel of each path launched, that the images are finite and lit and
-     that GI adds light, and compares two chained 64^2 GI frames on the card
-     with the same frames on the CPU;
+     exposure, AgX) at 512^2 --, the 1920x1080 frame of bench.py
+     (max_bounces=2), the ReSTIR PT frame of bench.py at 512^2 (ReSTIR DI +
+     PT, max_bounces=3, a-trous, TAA) and the plain path-traced frame of
+     bench.py at 512^2 (max_bounces=4). Chains are 4 frames; the first has
+     no temporal reuse and no TAA, so frame times are medians of frames 2-4.
+     It checks that every kernel of each path launched, that the images are
+     finite and lit and that the indirect passes add light, and compares two
+     chained 64^2 GI frames and two 64^2 PT frames on the card with the same
+     frames on the CPU;
   5. prints the kernels' record, the card line, and last a JSON status.
 
-The 512^2 images are written to chiprun_out/zetaray_torch_512.png (the
-flagship frame) and chiprun_out/zetaray_torch_512_di.png (DI only).
+The 512^2 images are written to IMAGE_DIR: zetaray_torch_512.png (the
+flagship frame), zetaray_torch_512_di.png (DI only), zetaray_torch_512_pt.png
+(ReSTIR PT) and zetaray_torch_512_plain_pt.png (plain PT).
 """
 
 from __future__ import annotations
@@ -40,6 +49,26 @@ import time
 import zlib
 
 import torch
+
+
+IMAGE_DIR = "chiprun_out"
+
+# The least time the card could take (bound_ms): the larger of the work's
+# float operations over the H100 SXM's float32 rate outside the tensor cores
+# and its bytes (each input read once, each output written once) over the
+# HBM3 rate, both NVIDIA's published peaks at a 700 W power limit.
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES_PER_S = 3.35e12
+PAIR_OPS = 40  # float operations of one Woop ray-triangle test
+RIS_ENTRY_OPS = 30  # float operations of rating one light-set entry in RIS
+F32 = 4
+
+
+def bound(ops: float, nbytes: float):
+    """(bound_ms, bound_by) of work of ``ops`` float32 operations moving ``nbytes``."""
+    t_ops = ops / PEAK_F32_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
 def card_line() -> str:
@@ -107,12 +136,15 @@ def main() -> int:
     from zetaray_tpu_torch.ops import restir_di as RD
     from zetaray_tpu_torch.ops.pathtracer import PTConfig
     from zetaray_tpu_torch.ops.restir_gi import secondary_rays
-    from zetaray_tpu_torch.render.frame import RenderConfig, pick_rt, render_frame_restir
+    from zetaray_tpu_torch.ops.restir_pt import prefix_rays
+    from zetaray_tpu_torch.render.frame import (
+        RenderConfig, pick_rt, render_frame, render_frame_restir,
+    )
     from zetaray_tpu_torch.scene.camera import Camera
     from zetaray_tpu_torch.scene.procedural import (
         CAMERA_EYE, CAMERA_TARGET, CAMERA_VFOV, cornell_box,
     )
-    from zetaray_tpu_torch.scene.scene import upload_scene
+    from zetaray_tpu_torch.scene.scene import A, upload_scene
 
     dev = torch.device("cuda", 0)
     card = card_line()
@@ -133,6 +165,14 @@ def main() -> int:
     for label, subdivide in (("cornell36", None), ("cornell8192", 8192)):
         scene = upload_scene(cornell_box(subdivide_to=subdivide), device=dev)
         tp = scene.woop.shape[1] // 3
+        n_tri = scene.num_tris
+        tri_bytes = n_tri * (12 + A.WIDTH) * F32  # Woop rows and attribute rows
+        rec = record[label] = {}
+
+        def put(name, err, ms, plain_ms, ops, nbytes):
+            rec[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+            rec[name]["bound_ms"], rec[name]["bound_by"] = bound(ops, nbytes)
+
         gk = MK.gbuffer(scene, o, d)
         gp = MK.gbuffer_plain(scene, o, d)
         torch.cuda.synchronize()
@@ -144,10 +184,13 @@ def main() -> int:
         tol_ok = ((gk[:, hit] - gp[:, hit]).abs() <= 1e-5 * (1 + gp[:, hit].abs())).all().item()
         if not tol_ok:
             raise AssertionError(f"gbuffer {label}: max abs err {err_g} beyond 1e-5*(1+|x|)")
-        ms_g = cuda_ms(lambda: MK.gbuffer(scene, o, d), reps=20)
-        ms_gp = cuda_ms(lambda: MK.gbuffer_plain(scene, o, d), reps=3, warmup=1)
+        put("gbuffer", err_g, cuda_ms(lambda: MK.gbuffer(scene, o, d), reps=20),
+            cuda_ms(lambda: MK.gbuffer_plain(scene, o, d), reps=3, warmup=1),
+            PAIR_OPS * n * n_tri, n * (6 + MK.G.ROWS) * F32 + tri_bytes)
 
         lsets = MK.build_light_sets(scene, seed)
+        n_sets, _, ps = lsets.shape
+        set_bytes = n_sets * MK.LSET_STAGED * ps * F32
         rt = pick_rt(n)
         rk = RD.initial_candidates(gk, lsets, seed, rt=rt)
         rp = RD.initial_candidates_plain(gk, lsets, seed, rt)
@@ -158,8 +201,10 @@ def main() -> int:
         rel_ok = ((rk[:, same] - rp[:, same]).abs() <= 1e-5 * (1 + rp[:, same].abs())).all().item()
         if share < 0.995 or not rel_ok:
             raise AssertionError(f"ris {label}: same pick on {share:.6f}, max abs err {err_r}")
-        ms_r = cuda_ms(lambda: RD.initial_candidates(gk, lsets, seed, rt=rt), reps=20)
-        ms_rp = cuda_ms(lambda: RD.initial_candidates_plain(gk, lsets, seed, rt), reps=3, warmup=1)
+        # RIS reads 10 G-buffer rows (position, normal, base color, valid)
+        put("ris", err_r, cuda_ms(lambda: RD.initial_candidates(gk, lsets, seed, rt=rt), reps=20),
+            cuda_ms(lambda: RD.initial_candidates_plain(gk, lsets, seed, rt), reps=3, warmup=1),
+            RIS_ENTRY_OPS * n * ps, n * (10 + RD.R_ROWS) * F32 + set_bytes)
 
         so = (gk[MK.G.POS : MK.G.POS + 3] + 1e-3 * gk[MK.G.NG : MK.G.NG + 3]).T.contiguous()
         seg = (rk[0:3] - gk[MK.G.POS : MK.G.POS + 3]).T.contiguous()
@@ -167,22 +212,20 @@ def main() -> int:
         op = XI.occlusion_plain(scene.woop, so, seg, 1e-3, 1.0 - 1e-3)
         torch.cuda.synchronize()
         n_diff = (ok != op).sum().item()
-        err_o = (ok.int() - op.int()).abs().max().item()
         if n_diff:
             raise AssertionError(f"occlusion {label}: {n_diff} rays differ from the plain version")
-        ms_o = cuda_ms(lambda: XI.occlusion(scene.woop, so, seg, 1e-3, 1.0 - 1e-3), reps=20)
-        ms_op = cuda_ms(lambda: XI.occlusion_plain(scene.woop, so, seg, 1e-3, 1.0 - 1e-3),
-                        reps=3, warmup=1)
-        occ_share = ok.float().mean().item()
-        print(f"{label} ({tp} padded triangles, {n} rays): "
-              f"gbuffer {ms_g:.4f} ms (plain {ms_gp:.3f}), max abs err {err_g:.3g}; "
-              f"ris {ms_r:.4f} ms (plain {ms_rp:.3f}), same pick {share:.6f}, "
-              f"max abs err {err_r:.3g}; occlusion {ms_o:.4f} ms (plain {ms_op:.3f}), "
-              f"{occ_share:.4f} occluded, 0 differ", flush=True)
-        record[label] = {
-            "gbuffer": (err_g, ms_g, ms_gp), "ris": (err_r, ms_r, ms_rp),
-            "occlusion": (float(err_o), ms_o, ms_op),
-        }
+        n_occ = ok.sum().item()
+        # an occluded ray needs at least one test, a free one all of them
+        put("occlusion", float((ok.int() - op.int()).abs().max().item()),
+            cuda_ms(lambda: XI.occlusion(scene.woop, so, seg, 1e-3, 1.0 - 1e-3), reps=20),
+            cuda_ms(lambda: XI.occlusion_plain(scene.woop, so, seg, 1e-3, 1.0 - 1e-3),
+                    reps=3, warmup=1),
+            PAIR_OPS * ((n - n_occ) * n_tri + n_occ), n * (6 + 1) * F32 + 12 * n_tri * F32)
+        print(f"{label} ({tp} padded triangles, {n} rays): " + "; ".join(
+            f"{k} {rec[k]['ms']:.4f} ms (plain {rec[k]['plain_ms']:.3f}, bound "
+            f"{rec[k]['bound_ms']:.4f} by {rec[k]['bound_by']}), max abs err "
+            f"{rec[k]['max_abs_err']:.3g}" for k in ("gbuffer", "ris", "occlusion"))
+            + f"; {n_occ / n:.4f} occluded", flush=True)
 
         # B4-B6 on the GI trace's bounce-0 rays (the flagship's GI trace:
         # 2 bounces after x2, x2's own emission excluded)
@@ -195,15 +238,23 @@ def main() -> int:
         found = st4_p[13] > 0.5
         err_4 = max(bounce_err("bounce_trace", label, st4, st4_p, found),
                     bounce_err("bounce_trace surf", label, sf4, sf4_p, found))
-        ms_4 = cuda_ms(lambda: MK.bounce_trace(scene, st0, 0, gi_cfg, True, spread), reps=20)
-        ms_4p = cuda_ms(lambda: MK.bounce_trace_plain(scene, st0, 0, gi_cfg, True, spread),
-                        reps=3, warmup=1)
+        state_bytes = MK.STATE_ROWS * F32
+        put("bounce_trace", err_4,
+            cuda_ms(lambda: MK.bounce_trace(scene, st0, 0, gi_cfg, True, spread), reps=20),
+            cuda_ms(lambda: MK.bounce_trace_plain(scene, st0, 0, gi_cfg, True, spread),
+                    reps=3, warmup=1),
+            PAIR_OPS * n * n_tri, n * (2 * state_bytes + MK.SURF_ROWS * F32) + tri_bytes)
         shade_args = (scene, st4_p, sf4_p, lsets, 0, seed, gi_cfg, True, rt)
         st5_p = MK.bounce_shade_plain(*shade_args)
         err_5 = bounce_err("bounce_shade", label, MK.bounce_shade(*shade_args), st5_p, found)
-        ms_5 = cuda_ms(lambda: MK.bounce_shade(*shade_args), reps=20)
-        ms_5p = cuda_ms(lambda: MK.bounce_shade_plain(*shade_args), reps=3, warmup=1)
-        found_1 = MK.bounce_trace_plain(scene, st5_p, 1, gi_cfg, True)[0][13] > 0.5
+        # a shadow segment that let its light through tested every triangle
+        lit_5 = ((st5_p[9:12] - st4_p[9:12]).abs().sum(0) > 0).sum().item()
+        put("bounce_shade", err_5, cuda_ms(lambda: MK.bounce_shade(*shade_args), reps=20),
+            cuda_ms(lambda: MK.bounce_shade_plain(*shade_args), reps=3, warmup=1),
+            PAIR_OPS * lit_5 * n_tri,
+            n * (2 * state_bytes + MK.SURF_ROWS * F32) + 12 * n_tri * F32 + set_bytes)
+        st_t1 = MK.bounce_trace_plain(scene, st5_p, 1, gi_cfg, True)[0]
+        found_1 = st_t1[13] > 0.5
         b6_args = (scene, st5_p, lsets, 1, seed, gi_cfg, False, True, rt)
         st6_p = MK.bounce_plain(*b6_args)
         err_6 = bounce_err("bounce", label, MK.bounce(*b6_args), st6_p, found_1)
@@ -212,18 +263,45 @@ def main() -> int:
         st6_last_p = MK.bounce_plain(*b6_last)
         err_6 = max(err_6, bounce_err("bounce last", label, MK.bounce(*b6_last), st6_last_p,
                                       st6_last_p[13] > 0.5))
-        ms_6 = cuda_ms(lambda: MK.bounce(*b6_args), reps=20)
-        ms_6p = cuda_ms(lambda: MK.bounce_plain(*b6_args), reps=3, warmup=1)
+        lit_6 = ((st6_p[9:12] - st_t1[9:12]).abs().sum(0) > 0).sum().item()
+        put("bounce", err_6, cuda_ms(lambda: MK.bounce(*b6_args), reps=20),
+            cuda_ms(lambda: MK.bounce_plain(*b6_args), reps=3, warmup=1),
+            PAIR_OPS * (int(found_1.sum().item()) + lit_6) * n_tri,
+            n * 2 * state_bytes + tri_bytes + set_bytes)
         print(f"{label} ({n} GI bounce-0 rays, {found.float().mean().item():.4f} hit, "
-              f"{found_1.float().mean().item():.4f} hit at bounce 1): "
-              f"bounce_trace {ms_4:.4f} ms (plain {ms_4p:.3f}), max abs err {err_4:.3g}; "
-              f"bounce_shade {ms_5:.4f} ms (plain {ms_5p:.3f}), max abs err {err_5:.3g}; "
-              f"bounce {ms_6:.4f} ms (plain {ms_6p:.3f}), max abs err {err_6:.3g}", flush=True)
-        record[label].update({
-            "bounce_trace": (err_4, ms_4, ms_4p), "bounce_shade": (err_5, ms_5, ms_5p),
-            "bounce": (err_6, ms_6, ms_6p),
-        })
+              f"{found_1.float().mean().item():.4f} hit at bounce 1): " + "; ".join(
+                  f"{k} {rec[k]['ms']:.4f} ms (plain {rec[k]['plain_ms']:.3f}, bound "
+                  f"{rec[k]['bound_ms']:.4f} by {rec[k]['bound_by']}), max abs err "
+                  f"{rec[k]['max_abs_err']:.3g}"
+                  for k in ("bounce_trace", "bounce_shade", "bounce")),
+              flush=True)
+
+        # B7 on ReSTIR PT prefix rays: every output equal to the plain version
+        o7, d7 = prefix_rays(gk, seed)
+        sh = XI.closest_hit(scene.woop, scene.tri_attrs, o7, d7)
+        sh_p = XI.closest_hit_plain_shaded(scene.woop, scene.tri_attrs, o7, d7)
+        torch.cuda.synchronize()
+        for field, a, b in zip(sh._fields, sh, sh_p):
+            if not torch.equal(a, b):
+                raise AssertionError(f"closest {label}: {field} differs from the plain version")
+        hit7 = sh_p.tri >= 0
+        err_7 = max((a.float() - b.float())[..., hit7].abs().max().item() for a, b in zip(sh, sh_p))
+        put("closest", err_7,
+            cuda_ms(lambda: XI.closest_hit(scene.woop, scene.tri_attrs, o7, d7), reps=20),
+            cuda_ms(lambda: XI.closest_hit_plain_shaded(scene.woop, scene.tri_attrs, o7, d7),
+                    reps=3, warmup=1),
+            PAIR_OPS * n * n_tri, n * (6 + 4 + A.WIDTH) * F32 + tri_bytes)
+        r7 = rec["closest"]
+        # bench.py's primary-rays rate: B7 on 1024^2 camera rays
+        oc, dc = cam.generate_rays(1024, 1024, device=dev)
+        ms_c = cuda_ms(lambda: XI.closest_hit(scene.woop, scene.tri_attrs, oc, dc), reps=10)
+        print(f"{label} ({n} PT prefix rays, {hit7.float().mean().item():.4f} hit, tie chunk "
+              f"{XI.tie_chunk(tp)}): closest {r7['ms']:.4f} ms (plain {r7['plain_ms']:.3f}, bound "
+              f"{r7['bound_ms']:.4f} by {r7['bound_by']}), tri/t/u/v/attrs equal, max abs err "
+              f"{err_7:.3g}; 1024^2 camera rays {ms_c:.4f} ms = "
+              f"{oc.shape[0] / ms_c / 1e3:.1f} Mrays/s", flush=True)
         del scene, gk, gp, rk, rp, so, seg, st0, st4, sf4, st4_p, sf4_p, st5_p, st6_p, st6_last_p
+        del st_t1, o7, d7, sh, sh_p, oc, dc
         torch.cuda.empty_cache()
 
     # -- phase 4: each path through the frame entry point, counts read per path
@@ -231,10 +309,11 @@ def main() -> int:
     kernels_of = {
         "gbuffer": MK.gbuffer, "ris": RD.initial_candidates, "occlusion": XI.occlusion,
         "bounce_trace": MK.bounce_trace, "bounce_shade": MK.bounce_shade, "bounce": MK.bounce,
+        "closest": XI.closest_hit,
     }
     di_kernels = ("gbuffer", "ris", "occlusion")
 
-    def chain(cfg_, cam_, expect, frames=4):
+    def chain(cfg_, cam_, expect, frames=4, restir=True):
         """Render chained frames with the launch counts set to 0 just before
         and read just after; returns (last output, each frame's ms, counts)."""
         for fn in kernels_of.values():
@@ -242,7 +321,11 @@ def main() -> int:
         state, times = None, []
         for k in range(frames):
             t = time.perf_counter()
-            out_, state = render_frame_restir(scene, cam_.with_jitter(k), seed + k, cfg_, state)
+            if restir:
+                out_, state = render_frame_restir(scene, cam_.with_jitter(k), seed + k, cfg_,
+                                                  state)
+            else:
+                out_ = render_frame(scene, cam_.with_jitter(k), seed + k, cfg_)
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t) * 1e3)
         counts = {name: fn.launches for name, fn in kernels_of.items()}
@@ -261,43 +344,55 @@ def main() -> int:
               f"{statistics.median(times[1:]):.3f} ms); launches {counts}", flush=True)
 
     flagship = dict(mode="restir_gi", pt=PTConfig(max_bounces=3), denoise=True, taa=True)
+    pt_frame = dict(mode="restir_pt", pt=PTConfig(max_bounces=3), denoise=True, taa=True)
     out_di, times_di, counts_di = chain(
         RenderConfig(width=res, height=res, mode="restir_gi", indirect=False, denoise=True,
                      taa=True), cam, di_kernels)
     show("DI-only slice 512^2", times_di, counts_di)
+    gi_kernels = ("gbuffer", "ris", "occlusion", "bounce_trace", "bounce_shade", "bounce")
     out, times, launches = chain(RenderConfig(width=res, height=res, **flagship), cam,
-                                 kernels_of)
+                                 gi_kernels)
     show("main path, flagship 512^2", times, launches)
     cam_hd = Camera.look_at(CAMERA_EYE, CAMERA_TARGET, vfov_deg=CAMERA_VFOV, aspect=1920 / 1080)
     cfg_hd = RenderConfig(width=1920, height=1080, mode="restir_gi", pt=PTConfig(max_bounces=2),
                           denoise=True, taa=True)
-    out_hd, times_hd, counts_hd = chain(cfg_hd, cam_hd, kernels_of)
+    out_hd, times_hd, counts_hd = chain(cfg_hd, cam_hd, gi_kernels)
     show("flagship 1920x1080, max_bounces=2", times_hd, counts_hd)
-    mean_gi, mean_di = out["hdr"].mean().item(), out_di["hdr"].mean().item()
-    print(f"mean HDR at 512^2: flagship {mean_gi:.6f}, DI only {mean_di:.6f}", flush=True)
-    if not mean_gi > 1.05 * mean_di:
-        raise AssertionError("the GI frame adds no light to the DI-only frame")
-    os.makedirs("chiprun_out", exist_ok=True)
-    write_png(os.path.join("chiprun_out", "zetaray_torch_512.png"), out["ldr"].cpu().numpy())
-    write_png(os.path.join("chiprun_out", "zetaray_torch_512_di.png"),
-              out_di["ldr"].cpu().numpy())
+    out_pt, times_pt, launches_pt = chain(
+        RenderConfig(width=res, height=res, **pt_frame), cam,
+        ("gbuffer", "ris", "occlusion", "bounce", "closest"))
+    show("ReSTIR PT 512^2, max_bounces=3", times_pt, launches_pt)
+    out_ppt, times_ppt, counts_ppt = chain(
+        RenderConfig(width=res, height=res, mode="pt", pt=PTConfig(max_bounces=4)), cam,
+        ("bounce",), restir=False)
+    show("plain PT 512^2, max_bounces=4", times_ppt, counts_ppt)
+    means = {k: v["hdr"].mean().item() for k, v in
+             (("flagship", out), ("pt", out_pt), ("di", out_di), ("plain_pt", out_ppt))}
+    print(f"mean HDR at 512^2: {means}", flush=True)
+    for k in ("flagship", "pt"):
+        if not means[k] > 1.05 * means["di"]:
+            raise AssertionError(f"the {k} frame adds no light to the DI-only frame")
+    os.makedirs(IMAGE_DIR, exist_ok=True)
+    for name, o_ in (("", out), ("_di", out_di), ("_pt", out_pt), ("_plain_pt", out_ppt)):
+        write_png(os.path.join(IMAGE_DIR, f"zetaray_torch_512{name}.png"), o_["ldr"].cpu().numpy())
 
-    # two chained 64^2 flagship frames through the kernels on the card and
+    # two chained 64^2 frames, GI and PT, through the kernels on the card and
     # through the plain versions on the CPU
-    small = RenderConfig(width=64, height=64, **flagship)
-    hdrs = {}
-    for dv, sc in (("cuda", scene), ("cpu", upload_scene(cornell_box()))):
-        state = None
-        for k in range(2):
-            out_s, state = render_frame_restir(sc, cam.with_jitter(k), seed + k, small, state)
-        hdrs[dv] = out_s["hdr"].cpu()
-    gpu_hdr, cpu_hdr = hdrs["cuda"], hdrs["cpu"]
-    close = ((gpu_hdr - cpu_hdr).abs() <= 1e-3 * (1 + cpu_hdr.abs())).all(-1)
-    share = close.float().mean().item()
-    print(f"64^2 GI frames, card vs CPU: {share:.4f} of pixels within 1e-3*(1+|x|), "
-          f"means {gpu_hdr.mean().item():.6f} / {cpu_hdr.mean().item():.6f}", flush=True)
-    if share < 0.99:
-        raise AssertionError("the card's frame disagrees with the CPU frame")
+    for tag, base in (("GI", flagship), ("PT", pt_frame)):
+        small = RenderConfig(width=64, height=64, **base)
+        hdrs = {}
+        for dv, sc in (("cuda", scene), ("cpu", upload_scene(cornell_box(), device="cpu"))):
+            state = None
+            for k in range(2):
+                out_s, state = render_frame_restir(sc, cam.with_jitter(k), seed + k, small, state)
+            hdrs[dv] = out_s["hdr"].cpu()
+        gpu_hdr, cpu_hdr = hdrs["cuda"], hdrs["cpu"]
+        close = ((gpu_hdr - cpu_hdr).abs() <= 1e-3 * (1 + cpu_hdr.abs())).all(-1)
+        share = close.float().mean().item()
+        print(f"64^2 {tag} frames, card vs CPU: {share:.4f} of pixels within 1e-3*(1+|x|), "
+              f"means {gpu_hdr.mean().item():.6f} / {cpu_hdr.mean().item():.6f}", flush=True)
+        if share < 0.99:
+            raise AssertionError(f"the card's {tag} frame disagrees with the CPU frame")
 
     bounce_src = "zetaray_tpu_torch/csrc/bounce.cu"
     sources = {
@@ -308,13 +403,17 @@ def main() -> int:
         "bounce_trace": (bounce_src, "zetaray_tpu/accel/megakernel.py:830"),
         "bounce_shade": (bounce_src, "zetaray_tpu/accel/megakernel.py:944"),
         "bounce": (bounce_src, "zetaray_tpu/accel/megakernel.py:360"),
+        "closest": ("zetaray_tpu_torch/csrc/closest.cu",
+                    "zetaray_tpu/accel/pallas_kernels.py:66"),
     }
     kernels = []
     for name, (src, replaces) in sources.items():
-        err, ms, plain_ms = record["cornell36"][name]
+        # no single PyTorch call computes a ray-triangle closest hit, an
+        # any-hit query, RIS over a light set or a path bounce
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": launches[name], "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "launches": (launches_pt if name == "closest" else launches)[name],
+            **record["cornell36"][name], "library_ms": None,
         })
     print(json.dumps({"kernels": kernels}))
     print(card)

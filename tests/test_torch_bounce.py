@@ -61,7 +61,8 @@ def _bounce0_rays(tdev):
     from zetaray_tpu_torch.ops.restir_gi import secondary_rays
 
     cam = Camera.look_at(CAMERA_EYE, CAMERA_TARGET, vfov_deg=CAMERA_VFOV, aspect=1.0)
-    o2, d2, _, _ = secondary_rays(MK.gbuffer_plain(tdev, *cam.generate_rays(16, 16)), SEED)
+    o, d = cam.generate_rays(16, 16, device="cpu")
+    o2, d2, _, _ = secondary_rays(MK.gbuffer_plain(tdev, o, d), SEED)
     return o2.numpy(), d2.numpy()
 
 

@@ -14,7 +14,7 @@ from zetaray_tpu_torch.accel import megakernel as MK
 from zetaray_tpu_torch.ops import restir_di as RD
 from zetaray_tpu_torch.ops.pathtracer import PTConfig
 from zetaray_tpu_torch.ops.restir_gi import secondary_rays
-from zetaray_tpu_torch.render.frame import RenderConfig, pick_rt, render_frame_restir
+from zetaray_tpu_torch.render.frame import RenderConfig, pick_rt, render_frame, render_frame_restir
 from zetaray_tpu_torch.scene.camera import Camera
 from zetaray_tpu_torch.scene.procedural import CAMERA_EYE, CAMERA_TARGET, CAMERA_VFOV, cornell_box
 from zetaray_tpu_torch.scene.scene import upload_scene
@@ -121,11 +121,29 @@ def test_bounce_kernels_match_plain(cuda, subdivide):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("indirect", [False, True])
-def test_card_frame_matches_cpu_frame(cuda, indirect):
+@pytest.mark.parametrize("subdivide", [None, 2000])
+def test_closest_kernel_matches_plain(cuda, subdivide):
+    """B7 against its plain version on ReSTIR PT prefix rays (a BSDF
+    direction at each primary hit): every output equal."""
+    scene = upload_scene(cornell_box(subdivide_to=subdivide), device=cuda)
+    _, o, d = _rays(cuda)
+    o2, d2, _, _ = secondary_rays(MK.gbuffer(scene, o, d), SEED)
+    before = XI.closest_hit.launches
+    got = XI.closest_hit(scene.woop, scene.tri_attrs, o2, d2)
+    want = XI.closest_hit_plain_shaded(scene.woop, scene.tri_attrs, o2, d2)
+    torch.cuda.synchronize()
+    assert XI.closest_hit.launches == before + 1
+    assert 0.3 < (want.tri >= 0).float().mean() < 1.0
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,indirect", [("restir_gi", False), ("restir_gi", True),
+                                           ("restir_pt", True)])
+def test_card_frame_matches_cpu_frame(cuda, mode, indirect):
     """Two chained 32^2 frames through the kernels on the card and through
-    the plain versions on the CPU, DI only and with ReSTIR GI."""
-    cfg = RenderConfig(width=32, height=32, mode="restir_gi", indirect=indirect,
+    the plain versions on the CPU: DI only, with ReSTIR GI, with ReSTIR PT."""
+    cfg = RenderConfig(width=32, height=32, mode=mode, indirect=indirect,
                        pt=PTConfig(max_bounces=3), denoise=True, taa=True)
     cam, _, _ = _rays(cuda)
     outs = {}
@@ -135,6 +153,17 @@ def test_card_frame_matches_cpu_frame(cuda, indirect):
         for k in range(2):
             out, state = render_frame_restir(scene, cam.with_jitter(k), SEED + k, cfg, state)
         outs[str(dev)] = out["hdr"].cpu()
+    got, want = outs[str(cuda)], outs["cpu"]
+    close = ((got - want).abs() <= 1e-3 * (1 + want.abs())).all(-1)
+    assert close.float().mean() >= 0.99
+
+
+@pytest.mark.cuda
+def test_card_plain_pt_frame_matches_cpu_frame(cuda):
+    cfg = RenderConfig(width=32, height=32, mode="pt", pt=PTConfig(max_bounces=4))
+    cam, _, _ = _rays(cuda)
+    outs = {str(dev): render_frame(upload_scene(cornell_box(), device=dev), cam, SEED,
+                                   cfg)["hdr"].cpu() for dev in ("cpu", cuda)}
     got, want = outs[str(cuda)], outs["cpu"]
     close = ((got - want).abs() <= 1e-3 * (1 + want.abs())).all(-1)
     assert close.float().mean() >= 0.99

@@ -81,7 +81,7 @@ def _port_frame(tdev, k, state, cfg=CFG_T):
 def test_frame_from_jax_state(jax_run, k):
     """Start the port from the JAX state after frame k-1, render frame k."""
     tdev, outs, states = jax_run
-    state = frame_state_from_arrays(states[k - 1]) if k > 0 else None
+    state = frame_state_from_arrays(states[k - 1], device="cpu") if k > 0 else None
     out, new_state = _port_frame(tdev, k, state)
     hdr, want = out["hdr"].numpy(), outs[k]["hdr"]
     assert hdr.shape == want.shape == (RES, RES, 3)
@@ -113,39 +113,76 @@ def test_chained_frames_mean(jax_run):
 def test_unported_settings_raise():
     gi = {**SLICE, "indirect": True}
     RenderConfig(**gi).check_ported()  # the whole flagship frame is ported
+    RenderConfig(**{**gi, "mode": "restir_pt"}).check_ported()  # and ReSTIR PT
+    RenderConfig(**{**gi, "mode": "pt"}).check_ported(plain=True)  # and plain PT
+    # render_frame reads neither the reuse passes nor the post chain's filters
+    RenderConfig(**{**gi, "mode": "pt", "firefly_factor": 2.0}).check_ported(plain=True)
     for kw in ({"pt": PTConfig(sky=object())}, {"pt": PTConfig(nee_mode="wops")},
                {"pt": PTConfig(stochastic_multi_bounce=True)},
                {"pt": PTConfig(path_regularization=True)}, {"pt": PTConfig(firefly_clamp=10.0)},
-               {"restir_gi": ReSTIRGIConfig(lvg=True)}, {"mode": "pt"}, {"skydi": True},
-               {"render_scale": 0.5}, {"firefly_factor": 2.0}, {"tonemapper": "neutral"},
-               {"exposure_mode": "weighted_avg"}):
+               {"restir_gi": ReSTIRGIConfig(lvg=True)}, {"mode": "pt"}, {"mode": "restir_di"},
+               {"skydi": True}, {"render_scale": 0.5}, {"firefly_factor": 2.0},
+               {"tonemapper": "neutral"}, {"exposure_mode": "weighted_avg"},
+               {"mode": "restir_pt", "pt": PTConfig(sky=object())}):
         cfg = RenderConfig(**{**gi, **kw})
         with pytest.raises(NotImplementedError):
             cfg.check_ported()
+    for kw in ({"mode": "restir_gi"}, {"mode": "restir_pt"}, {"pt": PTConfig(sky=object())},
+               {"tonemapper": "neutral"}, {"volumetrics": object()}):
+        cfg = RenderConfig(**{**gi, "mode": "pt", **kw})
+        with pytest.raises(NotImplementedError):
+            cfg.check_ported(plain=True)
+
+
+def test_loaders_default_to_the_card(monkeypatch):
+    """Without a device named, the scene, the camera's rays and the interop
+    loaders go to the card; where CUDA is absent that raises instead of
+    falling back to the CPU."""
+    from zetaray_tpu_torch.scene.camera import Camera
+    from zetaray_tpu_torch.scene.scene import upload_scene
+    from zetaray_tpu_torch.interop import scene_from_arrays
+    from tests.test_torch_scene import jax_scene_arrays
+
+    jdev, _ = scene_pair(cornell_box())
+    arrays = jax_scene_arrays(jdev)
+    state = {k: np.zeros((16, 4), np.float32) for k in ("reservoirs", "gi_reservoirs", "gbuf")}
+    state.update(history=np.zeros((3, 2, 2), np.float32), camera_prev=cam_dict(_camera(0)))
+    cam = Camera.look_at((0, 1, 3.5), (0, 1, 0), vfov_deg=45.0, aspect=1.0)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for load in (lambda: upload_scene(cornell_box()), lambda: cam.generate_rays(4, 4),
+                 lambda: scene_from_arrays(arrays), lambda: frame_state_from_arrays(state)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            load()
+    assert upload_scene(cornell_box(), device="cpu").device.type == "cpu"
+    assert cam.generate_rays(4, 4, device="cpu")[0].device.type == "cpu"
 
 
 def test_port_runs_without_jax():
-    """Port frames on the CPU, DI only and with GI, in a process where
-    importing jax fails."""
+    """Port frames on the CPU (DI only, with ReSTIR GI, with ReSTIR PT, and
+    plain PT) in a process where importing jax fails."""
     code = textwrap.dedent("""
         import sys
         sys.modules["jax"] = None
         sys.modules["zetaray_tpu"] = None
         import torch
         from zetaray_tpu_torch.ops.pathtracer import PTConfig
-        from zetaray_tpu_torch.render.frame import RenderConfig, render_frame_restir
+        from zetaray_tpu_torch.render.frame import RenderConfig, render_frame, render_frame_restir
         from zetaray_tpu_torch.scene.camera import Camera
         from zetaray_tpu_torch.scene.procedural import cornell_box
         from zetaray_tpu_torch.scene.scene import upload_scene
         torch.set_num_threads(1)
         cam = Camera.look_at((0, 1, 3.5), (0, 1, 0), vfov_deg=45.0, aspect=1.0)
-        for indirect in (False, True):
-            cfg = RenderConfig(width=16, height=16, mode="restir_gi", indirect=indirect,
+        scene = upload_scene(cornell_box(), device="cpu")
+        for mode, indirect, m_row in (("restir_gi", False, 10), ("restir_gi", True, 10),
+                                      ("restir_pt", True, 21)):
+            cfg = RenderConfig(width=16, height=16, mode=mode, indirect=indirect,
                                pt=PTConfig(max_bounces=3), denoise=True, taa=True)
-            out, state = render_frame_restir(upload_scene(cornell_box()), cam, 7, cfg, None)
-            out, state = render_frame_restir(upload_scene(cornell_box()), cam, 8, cfg, state)
+            out, state = render_frame_restir(scene, cam, 7, cfg, None)
+            out, state = render_frame_restir(scene, cam, 8, cfg, state)
             assert torch.isfinite(out["hdr"]).all() and out["hdr"].mean() > 0
-            assert (state.gi_reservoirs[10] > 1).any() == indirect
+            assert (state.gi_reservoirs[m_row] > 1).any() == indirect
+        out = render_frame(scene, cam, 9, RenderConfig(width=16, height=16, mode="pt"))
+        assert torch.isfinite(out["hdr"]).all() and out["hdr"].mean() > 0
         assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules
                        if sys.modules[m] is not None)
         print("ok")

@@ -67,7 +67,7 @@ def test_gi_frame_from_jax_state(scenes, jax_gi_run, k):
     """Start the port from the JAX state after frame k-1, render frame k."""
     _, tdev = scenes
     outs, states = jax_gi_run
-    state = frame_state_from_arrays(states[k - 1]) if k > 0 else None
+    state = frame_state_from_arrays(states[k - 1], device="cpu") if k > 0 else None
     out, new_state = _port_frame(tdev, k, state, _port_cfg(GI))
     hdr, want = out["hdr"].numpy(), outs[k]["hdr"]
     assert hdr.shape == want.shape == (RES, RES, 3)

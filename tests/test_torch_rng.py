@@ -38,3 +38,20 @@ def test_uniform4_bit_exact(salt, bounce):
         for w, g in zip(want, got):
             assert g.dtype == torch.float32
             np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+@pytest.mark.parametrize("dtype", [torch.int64, torch.int32])
+def test_uniform4_tensor_seed_bit_exact(dtype):
+    """Per-pixel seeds, as ReSTIR PT's replay draws them from the SRCSEED
+    row: u32 values in int64, or their bits in int32 (the row viewed as
+    int32), including seeds whose bits form a float NaN."""
+    r = np.random.default_rng(11)
+    pix = r.integers(0, 2**24, 4096).astype(np.int32)
+    seeds = r.integers(0, 2**32, 4096, dtype=np.uint64).astype(np.uint32)
+    seeds[:6] = [0, 1, 2**31, 2**32 - 1, 0x7FC00001, 0xFF800001]
+    want = jrng.uniform4(jnp.asarray(pix), 201, jnp.asarray(seeds), 0x9717)
+    t_seeds = torch.from_numpy(seeds.view(np.int32).copy() if dtype == torch.int32
+                               else seeds.astype(np.int64))
+    got = trng.uniform4(torch.from_numpy(pix), 201, t_seeds, 0x9717)
+    for w, g in zip(want, got):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))

@@ -52,7 +52,7 @@ def jax_scene_arrays(dev: JS.SceneBuffers) -> dict:
 
 def scene_pair(cpu: TS.CpuScene):
     """(JAX SceneBuffers, port SceneBuffers) of one host scene."""
-    return JS.upload_scene(to_jax_cpu_scene(cpu)), TS.upload_scene(cpu)
+    return JS.upload_scene(to_jax_cpu_scene(cpu)), TS.upload_scene(cpu, device="cpu")
 
 
 def frame_seed(k: int) -> int:
@@ -83,7 +83,7 @@ def test_upload_matches_jax(name):
 
 def test_interop_scene_roundtrip():
     jdev, tdev = scene_pair(cornell_box())
-    conv = scene_from_arrays(jax_scene_arrays(jdev))
+    conv = scene_from_arrays(jax_scene_arrays(jdev), device="cpu")
     for k in TABLES:
         np.testing.assert_array_equal(getattr(conv, k).numpy(), getattr(tdev, k).numpy())
 
@@ -95,7 +95,7 @@ def test_subdivided_box_fills_dense_path():
     np.testing.assert_allclose(cpu.areas().sum(), area, rtol=1e-5)
     assert len(cpu.emissive_tris) > 2
     with pytest.raises(NotImplementedError):
-        TS.upload_scene(cornell_box(subdivide_to=TS.DENSE_MAX_TRIS + 1))
+        TS.upload_scene(cornell_box(subdivide_to=TS.DENSE_MAX_TRIS + 1), device="cpu")
 
 
 @pytest.mark.parametrize("k", [0, 5])

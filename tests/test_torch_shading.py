@@ -86,7 +86,7 @@ def test_camera_rays_and_projection_match_jax(jitter_frame):
         cam = cam.with_jitter(jitter_frame)
     tcam = camera_from_arrays(cam_dict(cam))
     oj, dj = cam.generate_rays(40, 24)
-    ot, dt = tcam.generate_rays(40, 24)
+    ot, dt = tcam.generate_rays(40, 24, device="cpu")
     np.testing.assert_allclose(ot.numpy(), np.asarray(oj), rtol=1e-6)
     np.testing.assert_allclose(dt.numpy(), np.asarray(dj), rtol=1e-6, atol=1e-7)
     pts = np.asarray(oj) + 2.5 * np.asarray(dj)

@@ -11,19 +11,24 @@ What runs on the card as a kernel written by hand (``csrc/``):
 - ``ops.restir_di.initial_candidates``  full-set RIS over a light set
 - ``accel.intersect.occlusion``   any-hit shadow rays
 - ``accel.megakernel.bounce_trace``, ``bounce_shade``, ``bounce``  one path
-  bounce (trace half, shade half, both fused) of the ReSTIR GI trace
+  bounce (trace half, shade half, both fused) of the ReSTIR GI trace, the
+  ReSTIR PT suffix and plain PT
+- ``accel.intersect.closest_hit``  closest hit with the winner's attribute
+  row: every ray query of ReSTIR PT
 
 Each wrapper takes its plain PyTorch version for a CPU tensor and launches
 its kernel for a CUDA tensor. Everything between the kernels is plain
-PyTorch on the same device.
+PyTorch on the same device. The loaders put scenes and rays on the card
+unless told otherwise (``native.default_device``).
 
 Package layout mirrors the JAX package:
   core/    pcg4d, SoA vectors, packing, sampling, transforms
   scene/   host scene arrays, upload, procedural Cornell box, camera
-  accel/   G-buffer, occlusion and path bounce kernels
-  ops/     lights, shading, path-tracer settings, ReSTIR DI and GI,
+  accel/   G-buffer, occlusion, closest-hit and path bounce kernels
+  ops/     lights, shading, the path tracer, ReSTIR DI, GI and PT,
            packing, denoise, TAA, post
-  render/  the frame
+  render/  the frames
+  profile  where a frame's time goes on the card
 """
 
 __version__ = "0.1.0"

@@ -1,4 +1,4 @@
-"""Any-hit occlusion queries (kernel B3).
+"""Any-hit occlusion (kernel B3) and closest hit with attributes (kernel B7).
 
 ``occlusion`` replaces the TPU kernel ``_occlusion_kernel``
 (the JAX package's ``accel/pallas_kernels.py``, launched by ``occlusion_pallas``)
@@ -9,14 +9,34 @@ and a block leaves the triangle loop once all its rays are occluded. That
 saves work only where most rays are blocked: for the Cornell box's shadow
 segments (about 73% unoccluded) it runs as long as the G-buffer kernel
 (5.6 ms at 512^2 against 8192 triangles on an H100 80GB HBM3, 700 W).
+
+``closest_hit`` replaces ``_closest_kernel`` (``accel/pallas_kernels.py``,
+launched by ``closest_hit_pallas``) with ``csrc/closest.cu``: the closest
+(t, tri, u, v) of each ray and the winner's attribute row. It is the
+port's one "closest hit + attributes" query (``intersect_closest_shaded``),
+serving both the JAX package's Pallas path and its pure-XLA dense path
+(``intersect_closest_shaded_dense``, which the JAX ReSTIR PT takes on
+dense scenes to dodge a TPU fusion problem). Bound: about 40 float
+operations per ray-triangle pair against 232 bytes per ray (the ray in,
+the hit and its 48-float row out), so arithmetic; at 512^2 rays against
+8192 triangles that is about 8.6e10 operations, 1.3 ms at the H100's
+67 TFLOP/s of float32, against 0.018 ms for the 61 MB of rays and outputs
+at 3.35 TB/s. The kernel streams the triangles through shared memory as
+B1 does (one thread per ray) and reads the winner's attribute row by index
+after the loop, where the TPU kernel fetched it with a one-hot matmul per
+chunk. Measured on an H100 80GB HBM3 (700 W) for 512^2 ReSTIR PT prefix
+rays against 8192 triangles: 8.7 ms, 15% of the bound.
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from .. import native
-from .megakernel import INF, TRI_CHUNK, RAY_CHUNK, tri_hits
+from ..scene.scene import A
+from .megakernel import INF, TRI_CHUNK, RAY_CHUNK, closest_hit_plain, tri_hits
 
 
 def occlusion_plain(woop: torch.Tensor, o: torch.Tensor, d: torch.Tensor, t_min, t_max):
@@ -64,3 +84,76 @@ def intersect_occluded(scene, o: torch.Tensor, d: torch.Tensor, t_min=1e-4, t_ma
     """Occlusion against the scene's triangles (the dense path)."""
     return occlusion(scene.woop, o.contiguous(), d.contiguous(), t_min,
                      INF if t_max is None else t_max)
+
+
+class ShadedHit(NamedTuple):
+    """Closest hit and the winner's attribute row of each ray."""
+
+    t: torch.Tensor  # [N] float32, INF at a miss
+    tri: torch.Tensor  # [N] int32, -1 at a miss
+    u: torch.Tensor  # [N] float32 barycentric, 0 at a miss
+    v: torch.Tensor  # [N]
+    attrs: torch.Tensor  # [A.WIDTH, N] rows of scene.A, zeros at a miss
+
+    @property
+    def valid(self):
+        return self.tri >= 0
+
+
+def tie_chunk(tp: int) -> int:
+    """Width of the chunks in which B7 breaks ties, for ``tp`` padded
+    triangles: the triangle tile of the JAX kernel (``_pick_tiles``), 512
+    for 8192 triangles and 128, 256 or 384 for smaller counts."""
+    tc = min(512, tp)
+    while tp % tc:
+        tc -= TRI_CHUNK
+    return tc
+
+
+def closest_hit_plain_shaded(woop, attrs, o, d, t_min=1e-4, t_max=INF) -> ShadedHit:
+    """The plain PyTorch version of the closest-hit kernel (B7)."""
+    t, tri, u, v = closest_hit_plain(woop, o, d, t_min, t_max, tie_chunk(woop.shape[1] // 3))
+    hit = tri >= 0
+    at = torch.where(hit[:, None], attrs[tri.clamp_min(0)], 0.0).T.contiguous()
+    return ShadedHit(t, tri.to(torch.int32), u, v, at)
+
+
+def closest_hit(woop, attrs, o, d, t_min=1e-4, t_max=INF) -> ShadedHit:
+    """Closest hit of rays o, d [N, 3] over woop [4, 3*Tp] in (t_min,
+    t_max) with the winner's row of attrs [Tp, A.WIDTH], as attribute rows
+    [A.WIDTH, N] (the layout every caller reads).
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel.
+    """
+    if o.device.type == "cpu":
+        return closest_hit_plain_shaded(woop, attrs, o, d, t_min, t_max)
+    n = o.shape[0]
+    tp = woop.shape[1] // 3
+    native.require_cuda(o, "o", torch.float32, (n, 3))
+    native.require_cuda(d, "d", torch.float32, (n, 3))
+    native.require_cuda(woop, "woop", torch.float32, (4, 3 * tp))
+    native.require_cuda(attrs, "attrs", torch.float32, (tp, A.WIDTH))
+    if tp % TRI_CHUNK:
+        raise ValueError(f"triangle count {tp} is not padded to a multiple of {TRI_CHUNK}")
+    f32 = dict(dtype=torch.float32, device=o.device)
+    t, u, v = (torch.empty((n,), **f32) for _ in range(3))
+    tri = torch.empty((n,), dtype=torch.int32, device=o.device)
+    at = torch.empty((A.WIDTH, n), **f32)
+    err = native.lib().zr_closest(
+        o.data_ptr(), d.data_ptr(), woop.data_ptr(), attrs.data_ptr(), t.data_ptr(),
+        tri.data_ptr(), u.data_ptr(), v.data_ptr(), at.data_ptr(), n, tp, tie_chunk(tp),
+        float(t_min), float(t_max), native.stream_ptr(o.device),
+    )
+    native.check(err, "closest")
+    closest_hit.launches += 1
+    return ShadedHit(t, tri, u, v, at)
+
+
+closest_hit.launches = 0
+
+
+def intersect_closest_shaded(scene, o: torch.Tensor, d: torch.Tensor, t_min=1e-4,
+                             t_max=INF) -> ShadedHit:
+    """Closest hit with attributes against the scene's triangles (B7)."""
+    return closest_hit(scene.woop, scene.tri_attrs, o.contiguous(), d.contiguous(), t_min,
+                       t_max)

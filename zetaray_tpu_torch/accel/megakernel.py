@@ -114,9 +114,11 @@ def tri_hits(w: torch.Tensor, o: torch.Tensor, d: torch.Tensor, t_min, t_max):
     return torch.where(valid, t, INF), u, v
 
 
-def closest_hit_plain(woop: torch.Tensor, o: torch.Tensor, d: torch.Tensor, t_min=1e-4):
-    """Closest hit by chunks of 128 triangles with the kernel's tie rule:
-    (t [N], tri [N] int64 (-1 = miss), u [N], v [N])."""
+def closest_hit_plain(woop: torch.Tensor, o: torch.Tensor, d: torch.Tensor, t_min=1e-4,
+                      t_max=INF, tie: int = TRI_CHUNK):
+    """Closest hit with the kernels' tie rule: within a chunk of ``tie``
+    triangles the highest index among equal t wins, a later chunk only with
+    a strictly smaller t. (t [N], tri [N] int64 (-1 = miss), u [N], v [N])."""
     n = o.shape[0]
     tp = woop.shape[1] // 3
     w3 = woop.reshape(4, 3, tp)
@@ -124,10 +126,11 @@ def closest_hit_plain(woop: torch.Tensor, o: torch.Tensor, d: torch.Tensor, t_mi
     best = torch.full((n,), -1, dtype=torch.int64, device=o.device)
     bu = torch.zeros((n,), dtype=torch.float32, device=o.device)
     bv = torch.zeros_like(bu)
-    for r0 in range(0, n, RAY_CHUNK):
-        rs = slice(r0, min(n, r0 + RAY_CHUNK))
-        for c0 in range(0, tp, TRI_CHUNK):
-            t, u, v = tri_hits(w3[:, :, c0 : c0 + TRI_CHUNK], o[rs], d[rs], t_min, INF)
+    step = max(1, RAY_CHUNK * TRI_CHUNK // tie)
+    for r0 in range(0, n, step):
+        rs = slice(r0, min(n, r0 + step))
+        for c0 in range(0, tp, tie):
+            t, u, v = tri_hits(w3[:, :, c0 : c0 + tie], o[rs], d[rs], t_min, t_max)
             tmin = t.min(1).values
             col = torch.arange(t.shape[1], device=o.device)
             idx = torch.where(t == tmin[:, None], col, -1).max(1).values
@@ -515,6 +518,43 @@ def initial_state(o: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
     return st
 
 
+def _trace_light_sets(scene, seed: int, cfg, light_sets, device):
+    """The light sets of a path trace: ``light_sets`` (the frame's) when they
+    have the configured size (``cfg.light_ns``, ``cfg.light_ps``), which
+    makes them the sets built from ``seed``; else sets of that size built
+    from ``seed``; zeros without lights or NEE."""
+    shape = (cfg.light_ns, LSET_ROWS, cfg.light_ps)
+    if not (scene.num_emissives > 0 and cfg.nee):
+        return torch.zeros(shape, dtype=torch.float32, device=device)
+    if light_sets is not None and tuple(light_sets.shape) == shape:
+        return light_sets
+    return build_light_sets(scene, seed, cfg.light_ns, cfg.light_ps)
+
+
+def trace_megakernel(scene, o, d, seed: int, cfg, rt: int = 1024, rows_out: bool = False,
+                     light_sets=None):
+    """Path trace of rays o, d [N, 3] through the fused bounce kernel (B6):
+    bounces 0..max_bounces, the last one stopping after its emission.
+    Returns radiance [N, 3], or rows [3, N] with ``rows_out``.
+
+    The rays are padded to a multiple of the tile width ``rt``, as the JAX
+    function pads them: ray i draws its NEE sample from light set
+    ``(i // rt + 13 * bounce) % n_sets``. ``light_sets``: as in
+    ``trace_with_first_hit``.
+    """
+    n = o.shape[0]
+    pad = (-n) % rt
+    o_p = torch.nn.functional.pad(o, (0, 0, 0, pad))
+    d_p = torch.nn.functional.pad(d, (0, 0, 0, pad))
+    has_lights = scene.num_emissives > 0
+    lsets = _trace_light_sets(scene, seed, cfg, light_sets, o.device)
+    state = initial_state(o_p, d_p)
+    for b in range(cfg.max_bounces + 1):
+        state = bounce(scene, state, lsets, b, seed, cfg, b == cfg.max_bounces, has_lights, rt)
+    rad = state[9:12, :n]
+    return rad if rows_out else rad.T
+
+
 def trace_with_first_hit(scene, o, d, seed: int, cfg, rt: int, light_sets=None,
                          spread_angle=0.0):
     """Path trace of rays o, d [N, 3] that also returns the first hit's surface:
@@ -527,13 +567,7 @@ def trace_with_first_hit(scene, o, d, seed: int, cfg, rt: int, light_sets=None,
     function would build from ``seed``. Otherwise sets of that size are built.
     """
     has_lights = scene.num_emissives > 0
-    shape = (cfg.light_ns, LSET_ROWS, cfg.light_ps)
-    if not (has_lights and cfg.nee):
-        lsets = torch.zeros(shape, dtype=torch.float32, device=o.device)
-    elif light_sets is not None and tuple(light_sets.shape) == shape:
-        lsets = light_sets
-    else:
-        lsets = build_light_sets(scene, seed, cfg.light_ns, cfg.light_ps)
+    lsets = _trace_light_sets(scene, seed, cfg, light_sets, o.device)
     state, surf = bounce_trace(scene, initial_state(o, d), 0, cfg, has_lights, spread_angle)
     alive0 = state[13].clone()
     if cfg.max_bounces > 0:

@@ -81,3 +81,16 @@ def bits_f32(p: torch.Tensor) -> torch.Tensor:
     p = p.to(torch.int64) & 0xFFFFFFFF
     p = torch.where(p >= 2**31, p - 2**32, p)
     return p.to(torch.int32).view(torch.float32)
+
+
+def pack_rgb8(c: torch.Tensor) -> torch.Tensor:
+    """[..., 3] in [0, 1] -> u32 word 0x00BBGGRR (int64)."""
+    q = torch.round(torch.clamp(c, 0.0, 1.0) * 255.0).to(torch.int64)
+    return q[..., 0] | (q[..., 1] << 8) | (q[..., 2] << 16)
+
+
+def unpack_rgb8(p: torch.Tensor) -> torch.Tensor:
+    """u32 word -> [..., 3] float32 in [0, 1]."""
+    p = p.to(torch.int64)
+    q = torch.stack([p & 0xFF, (p >> 8) & 0xFF, (p >> 16) & 0xFF], -1)
+    return q.to(torch.float32) / 255.0

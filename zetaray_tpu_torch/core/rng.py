@@ -5,7 +5,7 @@ Bit-identical to the JAX package's ``core/rng.py``. PyTorch's ``uint32`` has no
 values in [0, 2^32) and every step is reduced modulo 2^32. Products are
 split into 16-bit halves so that no intermediate leaves the int64 range.
 The frame seed is a plain u32 integer (the JAX package derives it from a
-PRNG key with ``seed_from_key``).
+PRNG key with ``seed_from_key``), or a tensor of them.
 """
 
 from __future__ import annotations
@@ -49,11 +49,19 @@ def to_unit_float(bits: torch.Tensor) -> torch.Tensor:
     return (bits >> 8).to(torch.float32) * (1.0 / 16777216.0)
 
 
-def uniform4(pixel: torch.Tensor, bounce: int, frame_seed: int, salt: int = 0):
-    """Four [N] float32 uniforms per pixel id, as in the JAX package."""
+def uniform4(pixel: torch.Tensor, bounce: int, frame_seed, salt: int = 0):
+    """Four [N] float32 uniforms per pixel id, as in the JAX package.
+
+    ``frame_seed`` is a u32 integer, or a tensor of per-pixel u32 seeds
+    (int64 values, or int32 holding the bits) such as a reservoir's stored
+    generating seed."""
     p = pixel.to(torch.int64) & _M32
     full = lambda v: torch.full_like(p, int(v) & _M32)
-    x, y, z, w = pcg4d_lanes(p, full(bounce), full(frame_seed), full(salt))
+    if isinstance(frame_seed, torch.Tensor):
+        seeds = frame_seed.to(torch.int64).expand_as(p) & _M32
+    else:
+        seeds = full(frame_seed)
+    x, y, z, w = pcg4d_lanes(p, full(bounce), seeds, full(salt))
     return to_unit_float(x), to_unit_float(y), to_unit_float(z), to_unit_float(w)
 
 

@@ -17,3 +17,10 @@ def stack_rows(num_rows: int, vals: dict, n=None, like=None) -> torch.Tensor:
         n = first.shape[0]
     zero = torch.zeros((n,), dtype=torch.float32, device=first.device)
     return torch.stack([vals.get(i, zero) for i in range(num_rows)], 0)
+
+
+def set3(vals: dict, row: int, v) -> None:
+    """vals[row..row+2] = the V3's components."""
+    vals[row] = v.x
+    vals[row + 1] = v.y
+    vals[row + 2] = v.z

@@ -42,8 +42,8 @@ __device__ inline void stage_light_set(float* s, const float* __restrict__ sets,
 }
 
 // Triangles stream through shared memory in chunks of this many Woop
-// columns. It is also the width of the JAX package's chunks, which fixes
-// the closest-hit tie rule (see gbuffer.cu).
+// columns. It is also the width of the JAX bounce and G-buffer kernels'
+// chunks, which fixes their closest-hit tie rule (see closest_hit).
 constexpr int kTriChunk = 128;
 // The 12 Woop coefficients of a chunk: row c*3 + r holds coefficient c
 // (x, y, z, translation) of local axis r (u, v, w).
@@ -84,6 +84,46 @@ __device__ __forceinline__ float woop_hit(const WoopChunk& s, int j, float ox, f
   *u_out = u;
   *v_out = v;
   return t;
+}
+
+// Closest hit of the ray (o, d) over triangles [0, tp) of woop [4, 3, tp],
+// with t in (t_min, t_max). Returns t (ZR_INF on a miss), the triangle in
+// *tri (-1 on a miss) and its barycentrics (0 on a miss). The tie rule is
+// the JAX kernels': within a group of `tie` consecutive triangles (a
+// multiple of kTriChunk that divides tp) the highest index among equal t
+// wins; a later group replaces the winner only with a strictly smaller t.
+// Every thread of the block must call it (the triangles stream through
+// `chunk`); threads with live == false only help load.
+__device__ __forceinline__ float closest_hit(WoopChunk& chunk, const float* __restrict__ woop,
+                                             int tp, int tie, float ox, float oy, float oz,
+                                             float dx, float dy, float dz, float t_min,
+                                             float t_max, bool live, int* tri, float* bu,
+                                             float* bv) {
+  float best_t = ZR_INF;
+  *tri = -1;
+  *bu = 0.f;
+  *bv = 0.f;
+  for (int g0 = 0; g0 < tp; g0 += tie) {  // one tie group
+    float ct = ZR_INF, cu = 0.f, cv = 0.f;
+    int cj = -1;
+    for (int c0 = g0; c0 < g0 + tie; c0 += kTriChunk) {
+      __syncthreads();
+      load_woop_chunk(chunk, woop, tp, c0);
+      __syncthreads();
+      if (!live) continue;
+      for (int j = 0; j < kTriChunk; ++j) {
+        float u, v;
+        const float t = woop_hit(chunk, j, ox, oy, oz, dx, dy, dz, t_min, t_max, &u, &v);
+        if (t < ZR_INF && t <= ct) {
+          ct = t; cu = u; cv = v; cj = c0 + j;
+        }
+      }
+    }
+    if (ct < best_t) {
+      best_t = ct; *bu = cu; *bv = cv; *tri = cj;
+    }
+  }
+  return best_t;
 }
 
 }  // namespace zr

@@ -5,8 +5,9 @@
 // One thread per ray. The block's triangles stream through shared memory in
 // chunks of 128 Woop columns (6 KB), read by every thread of the block at
 // the same address (a broadcast, no bank conflicts). The tie rule is the
-// JAX kernel's: within a chunk the highest index among equal t wins, across
-// chunks only a strictly smaller t replaces the winner.
+// JAX kernel's: within a chunk of 128 the highest index among equal t wins,
+// across chunks only a strictly smaller t replaces the winner
+// (zr::closest_hit with tie = kTriChunk).
 #include "common.cuh"
 #include "layout.h"  // A_* (scene.A) and G_* (accel.megakernel.G)
 
@@ -24,26 +25,10 @@ __global__ void gbuffer_kernel(const float* __restrict__ o, const float* __restr
   const float dx = live ? d[3 * i] : 0.f, dy = live ? d[3 * i + 1] : 0.f,
               dz = live ? d[3 * i + 2] : 0.f;
 
-  float best_t = ZR_INF, bu = 0.f, bv = 0.f;
-  int best = -1;
-  for (int c0 = 0; c0 < tp; c0 += zr::kTriChunk) {
-    __syncthreads();
-    zr::load_woop_chunk(chunk, woop, tp, c0);
-    __syncthreads();
-    if (!live) continue;
-    float ct = ZR_INF, cu = 0.f, cv = 0.f;
-    int cj = -1;
-    for (int j = 0; j < zr::kTriChunk; ++j) {
-      float u, v;
-      const float t = zr::woop_hit(chunk, j, ox, oy, oz, dx, dy, dz, t_min, ZR_INF, &u, &v);
-      if (t < ZR_INF && t <= ct) {
-        ct = t; cu = u; cv = v; cj = j;
-      }
-    }
-    if (ct < best_t) {
-      best_t = ct; bu = cu; bv = cv; best = c0 + cj;
-    }
-  }
+  int best;
+  float bu, bv;
+  const float best_t = zr::closest_hit(chunk, woop, tp, zr::kTriChunk, ox, oy, oz, dx, dy, dz,
+                                       t_min, ZR_INF, live, &best, &bu, &bv);
   if (!live) return;
 
   const bool hit = best >= 0;

@@ -276,39 +276,9 @@ struct Surface {
   float eta;
 };
 
-// Closest hit of the ray over every triangle, with the tie rule of
-// gbuffer.cu. Every thread of the block must call it (the triangles stream
-// through `chunk`); threads with live == false only help load.
-__device__ __forceinline__ float closest_hit(WoopChunk& chunk, const float* __restrict__ woop,
-                                             int tp, V3f o, V3f d, float t_min, bool live,
-                                             int* tri, float* bu, float* bv) {
-  float best_t = ZR_INF;
-  *tri = -1;
-  *bu = 0.f;
-  *bv = 0.f;
-  for (int c0 = 0; c0 < tp; c0 += kTriChunk) {
-    __syncthreads();
-    load_woop_chunk(chunk, woop, tp, c0);
-    __syncthreads();
-    if (!live) continue;
-    float ct = ZR_INF, cu = 0.f, cv = 0.f;
-    int cj = -1;
-    for (int j = 0; j < kTriChunk; ++j) {
-      float u, v;
-      const float t = woop_hit(chunk, j, o.x, o.y, o.z, d.x, d.y, d.z, t_min, ZR_INF, &u, &v);
-      if (t < ZR_INF && t <= ct) {
-        ct = t; cu = u; cv = v; cj = j;
-      }
-    }
-    if (ct < best_t) {
-      best_t = ct; *bu = cu; *bv = cv; *tri = c0 + cj;
-    }
-  }
-  return best_t;
-}
-
-// The trace half: closest hit, MIS-weighted emission gated by
-// min_emissive_bounce, alive = found, and the surface rebuilt at the hit.
+// The trace half: closest hit (the tie rule of gbuffer.cu), MIS-weighted
+// emission gated by min_emissive_bounce, alive = found, and the surface
+// rebuilt at the hit.
 // Returns t_hit; *tri_out is the hit triangle (-1 on a miss) and *bary its
 // barycentrics, for the extra surface rows of the split kernel.
 __device__ __forceinline__ float trace_part(WoopChunk& chunk, const float* __restrict__ woop,
@@ -318,7 +288,8 @@ __device__ __forceinline__ float trace_part(WoopChunk& chunk, const float* __res
                                             float* bv_out) {
   int tri;
   float bu, bv;
-  const float t_hit = closest_hit(chunk, woop, tp, path.o, path.d, prm.t_min, live, &tri,
+  const float t_hit = closest_hit(chunk, woop, tp, kTriChunk, path.o.x, path.o.y, path.o.z,
+                                  path.d.x, path.d.y, path.d.z, prm.t_min, ZR_INF, live, &tri,
                                   &bu, &bv);
   *tri_out = tri;
   *bu_out = bu;

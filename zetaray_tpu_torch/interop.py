@@ -10,14 +10,16 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import native
 from .render.frame import FrameState
 from .scene.camera import Camera
 from .scene.scene import SceneBuffers, buffers_from_arrays
 
 
-def scene_from_arrays(d: dict, device="cpu") -> SceneBuffers:
+def scene_from_arrays(d: dict, device=None) -> SceneBuffers:
     """Fields of a JAX ``SceneBuffers`` (numpy arrays and Python scalars)
-    -> the port's scene. Only the dense, uncut scene is ported."""
+    -> the port's scene on ``device`` (default: the card). Only the dense,
+    uncut scene is ported."""
     if d.get("cluster_aabb") is not None:
         raise NotImplementedError("clustered scenes (kernels B8/B9) are not ported yet")
     for flag in ("has_transmission", "has_coat", "has_cutout"):
@@ -39,9 +41,12 @@ def camera_from_arrays(d: dict) -> Camera:
     )
 
 
-def frame_state_from_arrays(d: dict, device="cpu") -> FrameState:
+def frame_state_from_arrays(d: dict, device=None) -> FrameState:
     """Fields of a JAX ``FrameState`` (``camera_prev`` as a dict of camera
-    fields) -> the port's state."""
+    fields) -> the port's state on ``device`` (default: the card). The
+    indirect reservoirs may be ReSTIR GI's 16 rows or ReSTIR PT's 58; the
+    rows are copied bit for bit (PT's SRCSEED row holds u32 bits)."""
+    device = native.default_device(device)
     for k in ("sky_reservoirs", "upscale_lock"):
         if d.get(k) is not None:
             raise NotImplementedError(f"{k}: that frame feature is not ported yet")

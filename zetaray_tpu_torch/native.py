@@ -1,10 +1,11 @@
 """Build and load the hand-written CUDA kernels in ``csrc/``.
 
-The kernels are compiled with ``nvcc`` for Hopper (``sm_90a``) into one
-shared library with a plain C interface, loaded with ``ctypes``. The build
-runs at first use, keyed by a hash of the sources and the flags, into
-``_build/`` inside the package (listed in ``.gitignore``), so a fresh
-checkout builds everything the first time a CUDA tensor reaches a kernel.
+The kernels are compiled with ``nvcc`` for Hopper (``sm_90a``), one process
+per source started together, and linked into one shared library with a
+plain C interface, loaded with ``ctypes``. The build runs at first use,
+keyed by a hash of the sources and the flags, into ``_build/`` inside the
+package (listed in ``.gitignore``), so a fresh checkout builds everything
+the first time a CUDA tensor reaches a kernel.
 
 Each C entry point launches on the stream it is given, allocates nothing,
 and returns ``cudaGetLastError()``; :func:`check` turns a non-zero code
@@ -36,7 +37,7 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 # contraction: each operation rounds on its own, as in the plain versions.
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-    "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
+    "--fmad=false", "-Xcompiler", "-fPIC",
 ]
 
 _VP = ctypes.c_void_p
@@ -62,6 +63,8 @@ _SIGNATURES = {
     # min_emissive_bounce, min_nee_bounce, rr_start, nee, has_lights, last, stream
     "zr_bounce": [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, ctypes.c_uint32, _F,
                   _I, _I, _I, _I, _I, _I, _VP],
+    # o, d, woop, attrs, t, tri, u, v, attrs_out, n, tp, tie, t_min, t_max, stream
+    "zr_closest": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _F, _F, _VP],
 }
 
 _lock = threading.Lock()
@@ -122,29 +125,34 @@ def library_path() -> Path:
     return BUILD_DIR / f"libzetaray_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds: list[list[str]]) -> None:
+    """Run the commands at once; raise with the output of the first that fails."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, p, text in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}):\n{' '.join(cmd)}\n{text}")
+
+
 def build() -> Path:
-    """Compile ``csrc/*.cu`` unless a library for these sources exists."""
+    """Compile ``csrc/*.cu`` unless a library for these sources exists: one
+    nvcc per source, all started together, then one link."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = [str(p) for p in sorted(CSRC.glob("*.cu"))]
-    inc = tempfile.mkdtemp(dir=BUILD_DIR)
-    (Path(inc) / "layout.h").write_text(layout_header())
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
+    tmp_dir = Path(tempfile.mkdtemp(dir=BUILD_DIR))
+    (tmp_dir / "layout.h").write_text(layout_header())
+    objs = [tmp_dir / f"{p.stem}.o" for p in sorted(CSRC.glob("*.cu"))]
     try:
-        cmd = [_nvcc(), *NVCC_FLAGS, "-I", inc, "-o", tmp, *cu]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-            )
-        os.replace(tmp, out)
+        _run_all([[_nvcc(), *NVCC_FLAGS, "-c", "-I", str(tmp_dir), "-o", str(obj),
+                   str(CSRC / f"{obj.stem}.cu")] for obj in objs])
+        lib_tmp = tmp_dir / out.name
+        _run_all([[_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(lib_tmp), *map(str, objs)]])
+        os.replace(lib_tmp, out)
     finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-        shutil.rmtree(inc, ignore_errors=True)
+        shutil.rmtree(tmp_dir, ignore_errors=True)
     return out
 
 
@@ -160,6 +168,18 @@ def lib() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             _lib = loaded
         return _lib
+
+
+def default_device(device=None) -> torch.device:
+    """The device a loader puts its tensors on: ``device`` where one is
+    named, else the card. Without CUDA and without a named device it raises:
+    the CPU runs only where the caller asks for it."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available: name device='cpu' to run the plain "
+                           "PyTorch versions on the CPU")
+    return torch.device("cuda")
 
 
 def stream_ptr(device: torch.device) -> int:

@@ -1,13 +1,17 @@
-"""Path-tracer settings, as ``PTConfig`` of the JAX package's ``ops/pathtracer.py``.
+"""The path tracer, as ``ops/pathtracer.py`` of the JAX package: its settings
+``PTConfig`` and ``trace``.
 
-Only the settings record is ported: the bounce kernels that read it are in
-``accel/megakernel.py``. The wavefront tracer (``trace``, the plain PT mode)
-is not ported yet.
+``trace`` runs the fused bounce kernel B6 once per bounce
+(``accel.megakernel.trace_megakernel``) on every device; a CPU tensor takes
+B6's plain version. The JAX package's wavefront ``trace_reference`` is its
+oracle for the CPU and for clustered scenes and has no counterpart here.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+
+from ..accel.megakernel import trace_megakernel
 
 
 @dataclass(frozen=True)
@@ -41,3 +45,13 @@ class PTConfig:
             "pt.firefly_clamp > 0": self.firefly_clamp > 0.0,
         }
         return [name for name, hit in later.items() if hit]
+
+
+def trace(scene, o, d, seed: int, cfg: PTConfig = PTConfig(), rt: int = 1024,
+          rows_out: bool = False, light_sets=None):
+    """Path-traced radiance of rays o, d [N, 3]: [N, 3] linear HDR, or rows
+    [3, N] with ``rows_out``. ``seed`` is the u32 frame seed; ``rt`` the tile
+    width that picks each ray's light set. ``light_sets``: the frame's sets,
+    used where they are the ones ``seed`` gives (``trace_megakernel``)."""
+    return trace_megakernel(scene, o, d, seed, cfg, rt=rt, rows_out=rows_out,
+                            light_sets=light_sets)

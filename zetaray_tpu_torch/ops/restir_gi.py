@@ -144,15 +144,16 @@ def _merge(res_a, res_b, surf, u, m_cap=None):
     return stack_rows(R_ROWS, {9: w_sum, 10: m_new, 11: big_w, 12: y_phat}, like=out)
 
 
-def suppress_outlier_reservoirs(res, group: int = 32):
-    """Boiling suppression: a reservoir whose w_sum exceeds 25x the mean of
-    the rest of its group of ``group`` consecutive pixels gets M <= 1."""
+def suppress_outlier_reservoirs(res, group: int = 32, w_sum_row: int = 9, m_row: int = 10):
+    """Boiling suppression: a reservoir whose w_sum (row ``w_sum_row``)
+    exceeds 25x the mean of the rest of its group of ``group`` consecutive
+    pixels gets M (row ``m_row``) <= 1."""
     n = res.shape[1]
-    g = torch.nn.functional.pad(res[9], (0, (-n) % group)).reshape(-1, group)
+    g = torch.nn.functional.pad(res[w_sum_row], (0, (-n) % group)).reshape(-1, group)
     avg_others = (g.sum(1, keepdim=True) - g) / (group - 1)
     outlier = (g > 25.0 * avg_others).reshape(-1)[:n]
     return stack_rows(res.shape[0], {
-        10: torch.where(outlier, torch.clamp_max(res[10], 1.0), res[10]),
+        m_row: torch.where(outlier, torch.clamp_max(res[m_row], 1.0), res[m_row]),
     }, like=res)
 
 

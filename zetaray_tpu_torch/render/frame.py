@@ -1,15 +1,17 @@
-"""The ReSTIR frame, as ``render_frame_restir`` of the JAX package's ``render/frame.py``.
+"""The frames of the JAX package's ``render/frame.py``: ``render_frame_restir``
+and the plain path-traced ``render_frame``.
 
-The frame this package covers is the flagship ``RenderConfig(mode="restir_gi",
-pt=PTConfig(max_bounces=3), denoise=True, taa=True)``, with its indirect pass
-on or off. It runs camera rays -> G-buffer -> presampled light sets -> DI
-RIS -> DI temporal -> DI visibility -> DI spatial -> DI shade -> GI initial
-samples (a path trace from the primary hit) -> GI temporal (with boiling
-suppression) -> GI spatial -> GI shade -> a-trous -> TAA -> histogram
-exposure, AgX and sRGB, in the JAX frame's order. One reprojection and one
-gather serve both temporal passes, and the pre-spatial DI and GI
-reservoirs are fed forward. A setting outside this raises
-``NotImplementedError``.
+``render_frame_restir`` covers ``mode="restir_gi"`` (the flagship
+``RenderConfig(mode="restir_gi", pt=PTConfig(max_bounces=3), denoise=True,
+taa=True)``) and ``mode="restir_pt"``, with the indirect pass on or off. It
+runs camera rays -> G-buffer -> presampled light sets -> DI RIS -> DI
+temporal -> DI visibility -> DI spatial -> DI shade -> the indirect pass
+(ReSTIR GI or ReSTIR PT: initial samples, temporal reuse with boiling
+suppression, spatial reuse, shade) -> a-trous -> TAA -> histogram exposure,
+AgX and sRGB, in the JAX frame's order. One reprojection and one gather
+serve both temporal passes, and the pre-spatial DI and indirect reservoirs
+are fed forward. ``render_frame`` covers ``mode="pt"``. A setting outside
+these raises ``NotImplementedError``.
 
 The JAX frame's banded gathers (``band_rows``/``band_halo``) are a TPU
 workaround and have no counterpart here: reuse gathers read the whole
@@ -27,10 +29,11 @@ from ..ops import denoise as DN
 from ..ops import post
 from ..ops import restir_di as RD
 from ..ops import restir_gi as RG
+from ..ops import restir_pt as RP
 from ..ops import taa as TA
 from ..ops.gbuffer_pack import pack_temporal
-from ..ops.pathtracer import PTConfig
-from ..ops.reservoir_pack import pack_di, unpack_di
+from ..ops.pathtracer import PTConfig, trace
+from ..ops.reservoir_pack import pack_di, pack_pt, unpack_di, unpack_pt
 from ..scene.camera import Camera
 
 
@@ -44,6 +47,7 @@ class RenderConfig:
     pt: PTConfig = field(default_factory=PTConfig)
     restir: RD.ReSTIRConfig = field(default_factory=RD.ReSTIRConfig)
     restir_gi: RG.ReSTIRGIConfig = field(default_factory=RG.ReSTIRGIConfig)
+    restir_pt: RP.ReSTIRPTConfig = field(default_factory=RP.ReSTIRPTConfig)
     indirect: bool = True
     skydi: bool = False
     volumetrics: object = None
@@ -56,24 +60,31 @@ class RenderConfig:
     denoise: bool = False
     taa: bool = True
 
-    def check_ported(self) -> None:
-        """Raise for any setting this package does not implement yet."""
+    def check_ported(self, plain: bool = False) -> None:
+        """Raise for any setting this package does not implement yet, in
+        ``render_frame_restir`` or, with ``plain``, in ``render_frame`` (which
+        reads only the mode, the path tracer's settings and the display)."""
+        modes = ("pt",) if plain else ("restir_gi", "restir_pt")
         later = {
-            f"mode={self.mode!r} (plain PT and ReSTIR PT)": self.mode != "restir_gi",
-            "skydi (ops.skydi)": self.skydi,
+            f"mode={self.mode!r} in {'render_frame' if plain else 'render_frame_restir'}":
+                self.mode not in modes,
             "volumetrics (ops.volumetrics)": self.volumetrics is not None,
-            "render_scale != 1 (the temporal upscaler)": self.render_scale != 1.0,
-            "firefly_factor > 0 (the firefly filter)": self.firefly_factor > 0.0,
             f"exposure_mode={self.exposure_mode!r} (weighted-average exposure)":
                 self.auto_exposure and self.exposure_mode != "histogram",
             f"tonemapper={self.tonemapper!r} (tonemappers other than AgX)":
                 self.tonemapper != "agx",
         }
+        if not plain:
+            later.update({
+                "skydi (ops.skydi)": self.skydi,
+                "render_scale != 1 (the temporal upscaler)": self.render_scale != 1.0,
+                "firefly_factor > 0 (the firefly filter)": self.firefly_factor > 0.0,
+            })
         missing = [name for name, hit in later.items() if hit]
-        if self.indirect:
+        if plain or self.indirect:
             missing += self.pt.unported()
-            if self.restir_gi.lvg:
-                missing.append("restir_gi.lvg (light-voxel-grid NEE, ops.prelighting)")
+        if not plain and self.indirect and self.mode == "restir_gi" and self.restir_gi.lvg:
+            missing.append("restir_gi.lvg (light-voxel-grid NEE, ops.prelighting)")
         if missing:
             raise NotImplementedError("not ported yet: " + ", ".join(missing))
 
@@ -83,7 +94,9 @@ class FrameState:
     """Temporal state carried between frames."""
 
     reservoirs: torch.Tensor  # [16, N] DI reservoirs (pre-spatial)
-    gi_reservoirs: torch.Tensor  # [16, N] GI reservoirs (pre-spatial; zeros without GI)
+    # pre-spatial indirect reservoirs: [16, N] ReSTIR GI or [RP.PR.ROWS, N]
+    # ReSTIR PT; [16, N] zeros without the indirect pass
+    gi_reservoirs: torch.Tensor
     gbuf: torch.Tensor  # [TG.ROWS, N] packed temporal G-buffer
     camera_prev: Camera
     history: torch.Tensor  # [3, H, W] TAA history (HDR)
@@ -96,6 +109,24 @@ def pick_rt(n: int) -> int:
         if n % rt == 0:
             return rt
     return 1024
+
+
+def _postprocess(hdr, cfg: RenderConfig):
+    """Planar [3, H, W] linear radiance -> [3, H, W] uint8 sRGB."""
+    exposure = post.histogram_exposure_p(hdr) if cfg.auto_exposure else cfg.manual_exposure
+    return post.to_u8(post.srgb_encode(post.tonemap_agx_p(hdr * exposure)))
+
+
+def render_frame(scene, camera: Camera, seed: int, cfg: RenderConfig):
+    """One plain path-traced frame (``mode="pt"``) on ``scene.device``:
+    {"hdr": [H, W, 3] float32, "ldr": [H, W, 3] uint8}. ``seed`` is the u32
+    frame seed. The camera rays are path-traced by B6 with ``cfg.pt``."""
+    cfg.check_ported(plain=True)
+    w, h = cfg.width, cfg.height
+    o, d = camera.generate_rays(w, h, device=scene.device)
+    hdr = trace(scene, o, d, seed, cfg.pt, rows_out=True).reshape(3, h, w)
+    ldr = _postprocess(hdr, cfg)
+    return {"hdr": hdr.permute(1, 2, 0), "ldr": ldr.permute(1, 2, 0)}
 
 
 def render_frame_restir(scene, camera: Camera, seed: int, cfg: RenderConfig,
@@ -113,18 +144,21 @@ def render_frame_restir(scene, camera: Camera, seed: int, cfg: RenderConfig,
 
     gb = gbuffer(scene, o, d)
     lsets = build_light_sets(scene, seed)
-    gi = cfg.indirect  # check_ported admits only mode "restir_gi"
+    pt_mode = cfg.mode == "restir_pt"  # check_ported admits "restir_gi" and "restir_pt"
+    ind_cfg = cfg.restir_pt if pt_mode else cfg.restir_gi
+    pack_ind, unpack_ind = (pack_pt, unpack_pt) if pt_mode else (pack_di, unpack_di)
 
-    # Joint temporal gather: the DI and GI reservoirs and the packed temporal
-    # G-buffer reproject alike, so one reprojection and one gather serve both.
-    pf_di = pf_gi = None
-    if state is not None and gi and cfg.restir.temporal and cfg.restir_gi.temporal:
+    # Joint temporal gather: the DI and indirect reservoirs and the packed
+    # temporal G-buffer reproject alike, so one reprojection and one gather
+    # serve both temporal passes.
+    pf_di = pf_ind = None
+    if state is not None and cfg.indirect and cfg.restir.temporal and ind_cfg.temporal:
         idx, inside, depth_est = RD.reproject_prev(gb, state.camera_prev, w, h)
-        p_di, p_gi, p_g = RD.take_multi(
-            [pack_di(state.reservoirs), pack_di(state.gi_reservoirs), state.gbuf], idx
+        p_di, p_ind, p_g = RD.take_multi(
+            [pack_di(state.reservoirs), pack_ind(state.gi_reservoirs), state.gbuf], idx
         )
         pf_di = (unpack_di(p_di), p_g, inside, depth_est)
-        pf_gi = (unpack_di(p_gi), p_g, inside, depth_est)
+        pf_ind = (unpack_ind(p_ind), p_g, inside, depth_est)
 
     res = RD.initial_candidates(gb, lsets, seed, rt=rt)
     if cfg.restir.temporal and state is not None:
@@ -136,17 +170,28 @@ def render_frame_restir(scene, camera: Camera, seed: int, cfg: RenderConfig,
     res_sp = RD.spatial_reuse(res, gb, w, h, seed, cfg.restir)
     hdr = RD.shade(scene, res_sp, gb)
 
-    gi_res = torch.zeros_like(res)
-    if gi:
-        pt_cfg = replace(cfg.pt, min_emissive_bounce=2, min_nee_bounce=1)
-        gi_res = RG.initial_samples(scene, gb, pt_cfg, seed, rt, light_sets=lsets,
-                                    spread_angle=camera.pixel_spread_angle(h))
-        if cfg.restir_gi.temporal and state is not None:
-            gi_res = RG.temporal_reuse(
-                gi_res, state.gi_reservoirs, state.gbuf, gb, state.camera_prev, w, h, seed,
-                cfg.restir_gi, prefetch=pf_gi,
+    ind_res = torch.zeros_like(res)
+    pt_cfg = replace(cfg.pt, min_emissive_bounce=2, min_nee_bounce=1)
+    temporal = ind_cfg.temporal and state is not None
+    if cfg.indirect and pt_mode:
+        ind_res = RP.initial_samples(scene, gb, pt_cfg, seed, cfg.restir_pt, rt,
+                                     light_sets=lsets)
+        if temporal:
+            ind_res = RP.temporal_reuse(
+                ind_res, state.gi_reservoirs, state.gbuf, gb, state.camera_prev, w, h, seed,
+                cfg.restir_pt, scene=scene, prefetch=pf_ind,
             )
-        gi_sp = RG.spatial_reuse(gi_res, gb, w, h, seed, cfg.restir_gi)
+        pt_sp = RP.spatial_reuse(ind_res, gb, w, h, seed, cfg.restir_pt, scene=scene)
+        hdr = hdr + RP.shade(scene, pt_sp, gb)
+    elif cfg.indirect:
+        ind_res = RG.initial_samples(scene, gb, pt_cfg, seed, rt, light_sets=lsets,
+                                     spread_angle=camera.pixel_spread_angle(h))
+        if temporal:
+            ind_res = RG.temporal_reuse(
+                ind_res, state.gi_reservoirs, state.gbuf, gb, state.camera_prev, w, h, seed,
+                cfg.restir_gi, prefetch=pf_ind,
+            )
+        gi_sp = RG.spatial_reuse(ind_res, gb, w, h, seed, cfg.restir_gi)
         hdr = hdr + RG.shade(scene, gi_sp, gb)
     hdr = hdr.reshape(3, h, w)
 
@@ -160,10 +205,9 @@ def render_frame_restir(scene, camera: Camera, seed: int, cfg: RenderConfig,
         hdr = TA.taa_resolve_p(hdr, state.history, pos_img, valid_img, state.camera_prev,
                                depth_img)
 
-    exposure = post.histogram_exposure_p(hdr) if cfg.auto_exposure else cfg.manual_exposure
-    ldr = post.to_u8(post.srgb_encode(post.tonemap_agx_p(hdr * exposure)))
+    ldr = _postprocess(hdr, cfg)
     new_state = FrameState(
-        reservoirs=res, gi_reservoirs=gi_res, gbuf=pack_temporal(gb),
+        reservoirs=res, gi_reservoirs=ind_res, gbuf=pack_temporal(gb),
         camera_prev=camera, history=hdr,
     )
     return {"hdr": hdr.permute(1, 2, 0), "ldr": ldr.permute(1, 2, 0)}, new_state

@@ -1,9 +1,9 @@
 """Pinhole camera with Halton TAA jitter, as the JAX package's ``scene/camera.py``.
 
 The camera is a small frozen record of host values (numpy float32 vectors
-and Python floats). Ray generation and reprojection run on tensors of the
-device the caller names, in float32 -- the precision the JAX frame traces
-the camera's scalars at.
+and Python floats). Ray generation runs on the card unless the caller names
+another device, reprojection on the device of the points it is given, both
+in float32 -- the precision the JAX frame traces the camera's scalars at.
 """
 
 from __future__ import annotations
@@ -13,6 +13,7 @@ from dataclasses import dataclass, replace
 import numpy as np
 import torch
 
+from .. import native
 from ..core import transforms as T
 from ..core.sampling import halton_jitter
 
@@ -66,8 +67,10 @@ class Camera:
     def _scalar(self, v: float, device) -> torch.Tensor:
         return torch.tensor(float(v), dtype=torch.float32, device=device)
 
-    def generate_rays(self, width: int, height: int, device="cpu"):
-        """Primary rays through pixel centres (+ jitter): ([N, 3], [N, 3])."""
+    def generate_rays(self, width: int, height: int, device=None):
+        """Primary rays through pixel centres (+ jitter): ([N, 3], [N, 3]) on
+        ``device`` (default: the card; ``native.default_device``)."""
+        device = native.default_device(device)
         if self.lens_radius > 0.0:
             raise NotImplementedError(
                 "thin-lens depth of field is not ported yet (pinhole only)"

@@ -16,6 +16,7 @@ from dataclasses import dataclass, fields
 import numpy as np
 import torch
 
+from .. import native
 from ..core.sampling import build_alias_table
 from .light_build import emissive_powers
 
@@ -336,8 +337,10 @@ def upload_scene_arrays(cpu: CpuScene) -> dict:
     )
 
 
-def buffers_from_arrays(d: dict, device="cpu") -> SceneBuffers:
-    """Dict of SceneBuffers fields (numpy or scalars) -> SceneBuffers."""
+def buffers_from_arrays(d: dict, device=None) -> SceneBuffers:
+    """Dict of SceneBuffers fields (numpy or scalars) -> SceneBuffers on
+    ``device`` (default: the card; ``native.default_device``)."""
+    device = native.default_device(device)
     kw = {}
     for f in fields(SceneBuffers):
         v = d[f.name]
@@ -350,6 +353,8 @@ def buffers_from_arrays(d: dict, device="cpu") -> SceneBuffers:
     return SceneBuffers(**kw)
 
 
-def upload_scene(cpu: CpuScene, device="cpu") -> SceneBuffers:
-    """CpuScene -> SceneBuffers on ``device`` (the dense, uncut path)."""
+def upload_scene(cpu: CpuScene, device=None) -> SceneBuffers:
+    """CpuScene -> SceneBuffers on ``device`` (the dense, uncut path). The
+    default is the card; without CUDA it raises unless ``device="cpu"`` is
+    named."""
     return buffers_from_arrays(upload_scene_arrays(cpu), device)
