@@ -14,9 +14,15 @@ Phases (any failure exits non-zero):
      and, on its trace-only branch of a path's last bounce, at 2), and the
      closest hit with attributes (B7) on ReSTIR PT prefix rays built as its
      initial samples build them; B7 also on 1024^2 camera rays, as the
-     primary-rays rate of bench.py. Each kernel's least time on the card
-     (bound_ms) is reckoned from this run's work and the H100's published
-     peaks;
+     primary-rays rate of bench.py. On the box split to 139,266 triangles
+     (bench.py's large scene, clustered into 798 clusters of 256 slots) at
+     256^2: the streaming closest hit (B8) on camera rays, on bench.py's
+     GI-like rays (origins at the primary hits, random unit directions),
+     on those of them whose primary ray hit, and on the frame's GI bounce-0
+     rays, and the streaming any hit (B9) on the frame's DI shadow
+     segments, with bench.py's raw primary and GI-like rates. Each kernel's
+     least time on the card (bound_ms) is reckoned from this run's work and
+     the H100's published peaks;
   4. renders chained frames of each path with its launch counters set to 0
      just before it and read just after: the DI-only slice at 512^2
      (indirect off), the main path -- the flagship frame of bench.py
@@ -24,17 +30,22 @@ Phases (any failure exits non-zero):
      exposure, AgX) at 512^2 --, the 1920x1080 frame of bench.py
      (max_bounces=2), the ReSTIR PT frame of bench.py at 512^2 (ReSTIR DI +
      PT, max_bounces=3, a-trous, TAA) and the plain path-traced frame of
-     bench.py at 512^2 (max_bounces=4). Chains are 4 frames; the first has
-     no temporal reuse and no TAA, so frame times are medians of frames 2-4.
-     It checks that every kernel of each path launched, that the images are
-     finite and lit and that the indirect passes add light, and compares two
-     chained 64^2 GI frames and two 64^2 PT frames on the card with the same
-     frames on the CPU;
+     bench.py at 512^2 (max_bounces=4), and on the 139,266-triangle box the
+     large-scene frame of bench.py (ReSTIR GI, max_bounces=2, a-trous, TAA)
+     at 256^2 with its DI-only slice, and plain PT at 256^2. Chains are 4
+     frames; the first has no temporal reuse and no TAA, so frame times are
+     medians of frames 2-4. It checks that every kernel of each path
+     launched (and, on the clustered box, that no dense kernel did), that
+     the images are finite and lit and that the indirect passes add light,
+     and compares two chained 64^2 GI frames and two 64^2 PT frames on the
+     card with the same frames on the CPU, and two 64^2 GI frames on the box
+     split to 8706 triangles (clustered) likewise;
   5. prints the kernels' record, the card line, and last a JSON status.
 
 The 512^2 images are written to IMAGE_DIR: zetaray_torch_512.png (the
 flagship frame), zetaray_torch_512_di.png (DI only), zetaray_torch_512_pt.png
-(ReSTIR PT) and zetaray_torch_512_plain_pt.png (plain PT).
+(ReSTIR PT) and zetaray_torch_512_plain_pt.png (plain PT); the clustered
+GI frame to zetaray_torch_256_clustered.png.
 """
 
 from __future__ import annotations
@@ -133,8 +144,9 @@ def main() -> int:
     from zetaray_tpu_torch import native
     from zetaray_tpu_torch.accel import intersect as XI
     from zetaray_tpu_torch.accel import megakernel as MK
+    from zetaray_tpu_torch.accel import stream as ST
     from zetaray_tpu_torch.ops import restir_di as RD
-    from zetaray_tpu_torch.ops.pathtracer import PTConfig
+    from zetaray_tpu_torch.ops.pathtracer import PTConfig, park
     from zetaray_tpu_torch.ops.restir_gi import secondary_rays
     from zetaray_tpu_torch.ops.restir_pt import prefix_rays
     from zetaray_tpu_torch.render.frame import (
@@ -145,6 +157,7 @@ def main() -> int:
         CAMERA_EYE, CAMERA_TARGET, CAMERA_VFOV, cornell_box,
     )
     from zetaray_tpu_torch.scene.scene import A, upload_scene
+    from zetaray_tpu_torch.scene.subdivide import subdivide_scene
 
     dev = torch.device("cuda", 0)
     card = card_line()
@@ -304,34 +317,131 @@ def main() -> int:
         del st_t1, o7, d7, sh, sh_p, oc, dc
         torch.cuda.empty_cache()
 
+    # -- phase 3 on the clustered box: B8 and B9 against their plain versions
+    big_cpu = subdivide_scene(cornell_box(), 100_000)
+    big = upload_scene(big_cpu, device=dev)
+    if big.cluster_aabb is None:
+        raise AssertionError(f"{big_cpu.num_tris} triangles: the large box did not cluster")
+    res_c = 256
+    n_c = res_c * res_c
+    oc, dc = cam.generate_rays(res_c, res_c, device=dev)
+    tp_c = big.woop.shape[1] // 3
+    n_cl = big.cluster_aabb.shape[0]
+    print(f"cornell139k: {big_cpu.num_tris} triangles in {n_cl} clusters of "
+          f"{big.cluster_size} slots", flush=True)
+    # a query reads at least the rays, writes its outputs, and reads the Woop
+    # rows of the real triangles (pad slots are all-zero rows) and the tree
+    # once; a hit ray (B8) needs at least the Woop tests of the real triangles
+    # of the cluster that holds its hit, a blocked segment (B9) one test --
+    # a floor, since the walk also tests the clusters it passes through first
+    real_c = (big.woop.reshape(4, 3, -1) != 0).any(0).any(0)  # [Tp] slot holds a triangle
+    real_per_cluster = real_c.reshape(-1, big.cluster_size).sum(1)
+    n_real = int(real_c.sum().item())
+    if n_real != big_cpu.num_tris:
+        raise AssertionError(f"{n_real} non-zero Woop slots for {big_cpu.num_tris} triangles")
+    tree_bytes = sum(x.numel() * x.element_size() for x in (
+        big.tree_lo, big.tree_hi, big.tree_left, big.tree_right, big.tree_cluster))
+    scene_bytes_c = 12 * n_real * F32 + tree_bytes
+    rec_c = record["cornell139k"] = {}
+
+    def check_b8(label, o_, d_):
+        t_k, tri_k = ST.stream_closest(big, o_, d_)
+        t_p, tri_p = ST.stream_closest_plain(big, o_, d_)
+        torch.cuda.synchronize()
+        if not (torch.equal(tri_k, tri_p) and torch.equal(t_k, t_p)):
+            raise AssertionError(
+                f"stream_closest {label}: {(tri_k != tri_p).sum().item()} slots and "
+                f"{(t_k != t_p).sum().item()} t differ from the plain version")
+        hit = tri_p >= 0
+        err = max((t_k[hit] - t_p[hit]).abs().max().item() if hit.any() else 0.0,
+                  (tri_k - tri_p).abs().max().item())
+        ms = cuda_ms(lambda: ST.stream_closest(big, o_, d_), reps=10)
+        plain = cuda_ms(lambda: ST.stream_closest_plain(big, o_, d_), reps=1, warmup=0)
+        tests = int(real_per_cluster[tri_p[hit].long() // big.cluster_size].sum().item())
+        b_ms, b_by = bound(PAIR_OPS * tests, o_.shape[0] * (6 + 2) * F32 + scene_bytes_c)
+        print(f"cornell139k ({tp_c} slots in {n_cl} clusters, {o_.shape[0]} {label}, "
+              f"{hit.float().mean().item():.4f} hit): stream_closest {ms:.4f} ms (plain "
+              f"{plain:.3f}, bound {b_ms:.4f} by {b_by}), t and slot equal", flush=True)
+        return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by), t_p
+
+    def raw_rate(o_, d_):
+        """bench.py's raw rate: B8 and its Woop epilogue, Mrays/s."""
+        return o_.shape[0] / cuda_ms(lambda: ST.closest_hit_stream(big, o_, d_), reps=5) / 1e3
+
+    rec_c["stream_closest"], t_cam = check_b8("camera rays", oc, dc)
+    g = torch.Generator(device=dev).manual_seed(11)
+    dg = torch.randn(oc.shape, device=dev, generator=g)
+    dg = dg / dg.norm(dim=1, keepdim=True).clamp_min(1e-9)
+    og = oc + (t_cam - 1e-3)[:, None] * dc  # a missed primary ray leaves from ~3e38
+    check_b8("GI-like rays", og, dg)
+    cam_hit = t_cam < MK.INF
+    check_b8("GI-like rays of primary hits (the rest parked)", *park(cam_hit, og, dg))
+    mrays = {"primary": raw_rate(oc, dc), "gi": raw_rate(og, dg)}
+    print(f"cornell139k raw stream rates (bench.py): primary {mrays['primary']:.3f} Mrays/s, "
+          f"GI-like {mrays['gi']:.3f} Mrays/s", flush=True)
+    gk_c = MK.gbuffer(big, oc, dc)
+    o2c, d2c, _, live_c = secondary_rays(gk_c, seed)
+    check_b8("GI bounce-0 rays (dead parked)", *park(live_c, o2c, d2c))
+    rk_c = RD.initial_candidates(gk_c, MK.build_light_sets(big, seed), seed, rt=pick_rt(n_c))
+    so_c = (gk_c[MK.G.POS : MK.G.POS + 3] + 1e-3 * gk_c[MK.G.NG : MK.G.NG + 3]).T.contiguous()
+    seg_c = (rk_c[0:3] - gk_c[MK.G.POS : MK.G.POS + 3]).T.contiguous()
+    occ_k = ST.occlusion_stream(big, so_c, seg_c, 1e-3, 1.0 - 1e-3)
+    occ_p = ST.occlusion_stream_plain(big, so_c, seg_c, 1e-3, 1.0 - 1e-3)
+    torch.cuda.synchronize()
+    if not torch.equal(occ_k, occ_p):
+        raise AssertionError(f"occlusion_stream: {(occ_k != occ_p).sum().item()} segments "
+                             "differ from the plain version")
+    n_occ_c = int(occ_p.sum().item())
+    b_ms, b_by = bound(PAIR_OPS * n_occ_c, n_c * (6 + 1) * F32 + scene_bytes_c)
+    rec_c["occlusion_stream"] = dict(
+        max_abs_err=float((occ_k.int() - occ_p.int()).abs().max().item()),
+        ms=cuda_ms(lambda: ST.occlusion_stream(big, so_c, seg_c, 1e-3, 1.0 - 1e-3), reps=10),
+        plain_ms=cuda_ms(lambda: ST.occlusion_stream_plain(big, so_c, seg_c, 1e-3, 1.0 - 1e-3),
+                         reps=1, warmup=0),
+        bound_ms=b_ms, bound_by=b_by)
+    r9 = rec_c["occlusion_stream"]
+    print(f"cornell139k ({n_c} DI shadow segments, {n_occ_c / n_c:.4f} blocked): "
+          f"occlusion_stream {r9['ms']:.4f} ms (plain {r9['plain_ms']:.3f}, bound "
+          f"{r9['bound_ms']:.4f} by {r9['bound_by']}), equal on every segment", flush=True)
+    del og, dg, gk_c, o2c, d2c, rk_c, so_c, seg_c, occ_k, occ_p
+    torch.cuda.empty_cache()
+
     # -- phase 4: each path through the frame entry point, counts read per path
     scene = upload_scene(cornell_box(), device=dev)
     kernels_of = {
         "gbuffer": MK.gbuffer, "ris": RD.initial_candidates, "occlusion": XI.occlusion,
         "bounce_trace": MK.bounce_trace, "bounce_shade": MK.bounce_shade, "bounce": MK.bounce,
-        "closest": XI.closest_hit,
+        "closest": XI.closest_hit, "stream_closest": ST.stream_closest,
+        "occlusion_stream": ST.occlusion_stream,
     }
     di_kernels = ("gbuffer", "ris", "occlusion")
+    dense_kernels = ("gbuffer", "occlusion", "bounce_trace", "bounce_shade", "bounce", "closest")
 
-    def chain(cfg_, cam_, expect, frames=4, restir=True):
-        """Render chained frames with the launch counts set to 0 just before
-        and read just after; returns (last output, each frame's ms, counts)."""
+    def chain(cfg_, cam_, expect, frames=4, restir=True, sc=None, absent=()):
+        """Render chained frames on ``sc`` (default: the box) with the launch
+        counts set to 0 just before and read just after; the kernels of
+        ``expect`` must have launched, those of ``absent`` not. Returns
+        (last output, each frame's ms, counts)."""
+        sc = scene if sc is None else sc
         for fn in kernels_of.values():
             fn.launches = 0
         state, times = None, []
         for k in range(frames):
             t = time.perf_counter()
             if restir:
-                out_, state = render_frame_restir(scene, cam_.with_jitter(k), seed + k, cfg_,
-                                                  state)
+                out_, state = render_frame_restir(sc, cam_.with_jitter(k), seed + k, cfg_, state)
             else:
-                out_ = render_frame(scene, cam_.with_jitter(k), seed + k, cfg_)
+                out_ = render_frame(sc, cam_.with_jitter(k), seed + k, cfg_)
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t) * 1e3)
         counts = {name: fn.launches for name, fn in kernels_of.items()}
         for name in expect:
             if counts[name] <= 0:
                 raise AssertionError(f"kernel {name} was not launched by its path: {counts}")
+        for name in absent:
+            if counts[name] != 0:
+                raise AssertionError(f"kernel {name} ran on a path that must not launch it: "
+                                     f"{counts}")
         h_ = out_["hdr"]
         if tuple(h_.shape) != (cfg_.height, cfg_.width, 3) or not torch.isfinite(h_).all():
             raise AssertionError(f"{cfg_.width}x{cfg_.height}: bad or non-finite HDR")
@@ -376,12 +486,43 @@ def main() -> int:
     for name, o_ in (("", out), ("_di", out_di), ("_pt", out_pt), ("_plain_pt", out_ppt)):
         write_png(os.path.join(IMAGE_DIR, f"zetaray_torch_512{name}.png"), o_["ldr"].cpu().numpy())
 
-    # two chained 64^2 frames, GI and PT, through the kernels on the card and
-    # through the plain versions on the CPU
-    for tag, base in (("GI", flagship), ("PT", pt_frame)):
+    # bench.py's large-scene frame on the clustered box: every ray query
+    # through B8 and B9, none through the dense kernels
+    large = dict(mode="restir_gi", pt=PTConfig(max_bounces=2), denoise=True, taa=True)
+    stream_kernels = ("stream_closest", "occlusion_stream")
+    out_cl, times_cl, launches_cl = chain(
+        RenderConfig(width=res_c, height=res_c, **large), cam, ("ris",) + stream_kernels,
+        sc=big, absent=dense_kernels)
+    show("clustered GI 256^2 (139,266 triangles), max_bounces=2", times_cl, launches_cl)
+    out_cl_di, times_cl_di, counts_cl_di = chain(
+        RenderConfig(width=res_c, height=res_c, **{**large, "indirect": False}), cam,
+        ("ris",) + stream_kernels, sc=big, absent=dense_kernels)
+    show("clustered DI-only slice 256^2", times_cl_di, counts_cl_di)
+    out_cl_pt, times_cl_pt, counts_cl_pt = chain(
+        RenderConfig(width=res_c, height=res_c, mode="pt", pt=PTConfig(max_bounces=4)), cam,
+        stream_kernels, restir=False, sc=big, absent=dense_kernels)
+    show("clustered plain PT 256^2, max_bounces=4", times_cl_pt, counts_cl_pt)
+    means_cl = {k: v["hdr"].mean().item() for k, v in
+                (("gi", out_cl), ("di", out_cl_di), ("plain_pt", out_cl_pt))}
+    print(f"mean HDR at 256^2 on the clustered box: {means_cl}", flush=True)
+    if not means_cl["gi"] > 1.05 * means_cl["di"]:
+        raise AssertionError("the clustered GI frame adds no light to its DI-only frame")
+    write_png(os.path.join(IMAGE_DIR, "zetaray_torch_256_clustered.png"),
+              out_cl["ldr"].cpu().numpy())
+    del big
+    torch.cuda.empty_cache()
+
+    # two chained 64^2 frames, GI and PT on the box and GI on the box split to
+    # 8706 triangles (clustered), through the kernels on the card and through
+    # the plain versions on the CPU
+    for tag, base, cpu_scene in (("GI", flagship, cornell_box()), ("PT", pt_frame, cornell_box()),
+                                 ("clustered GI", large, subdivide_scene(cornell_box(), 8193))):
         small = RenderConfig(width=64, height=64, **base)
         hdrs = {}
-        for dv, sc in (("cuda", scene), ("cpu", upload_scene(cornell_box(), device="cpu"))):
+        for dv in ("cuda", "cpu"):
+            sc = upload_scene(cpu_scene, device=dv)
+            if (sc.cluster_aabb is not None) != tag.startswith("clustered"):
+                raise AssertionError(f"64^2 {tag}: the scene is not uploaded as expected")
             state = None
             for k in range(2):
                 out_s, state = render_frame_restir(sc, cam.with_jitter(k), seed + k, small, state)
@@ -405,15 +546,21 @@ def main() -> int:
         "bounce": (bounce_src, "zetaray_tpu/accel/megakernel.py:360"),
         "closest": ("zetaray_tpu_torch/csrc/closest.cu",
                     "zetaray_tpu/accel/pallas_kernels.py:66"),
+        "stream_closest": ("zetaray_tpu_torch/csrc/stream.cu", "zetaray_tpu/accel/stream.py:382"),
+        "occlusion_stream": ("zetaray_tpu_torch/csrc/stream.cu",
+                             "zetaray_tpu/accel/stream.py:420"),
     }
     kernels = []
     for name, (src, replaces) in sources.items():
         # no single PyTorch call computes a ray-triangle closest hit, an
         # any-hit query, RIS over a light set or a path bounce
+        if name in stream_kernels:  # on the clustered box, launches of its GI frame
+            launches_of, rec_of = launches_cl, record["cornell139k"]
+        else:
+            launches_of, rec_of = launches_pt if name == "closest" else launches, record["cornell36"]
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": (launches_pt if name == "closest" else launches)[name],
-            **record["cornell36"][name], "library_ms": None,
+            "launches": launches_of[name], **rec_of[name], "library_ms": None,
         })
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -11,6 +11,7 @@ import torch
 
 from zetaray_tpu_torch.accel import intersect as XI
 from zetaray_tpu_torch.accel import megakernel as MK
+from zetaray_tpu_torch.accel import stream as ST
 from zetaray_tpu_torch.ops import restir_di as RD
 from zetaray_tpu_torch.ops.pathtracer import PTConfig
 from zetaray_tpu_torch.ops.restir_gi import secondary_rays
@@ -18,6 +19,7 @@ from zetaray_tpu_torch.render.frame import RenderConfig, pick_rt, render_frame, 
 from zetaray_tpu_torch.scene.camera import Camera
 from zetaray_tpu_torch.scene.procedural import CAMERA_EYE, CAMERA_TARGET, CAMERA_VFOV, cornell_box
 from zetaray_tpu_torch.scene.scene import upload_scene
+from zetaray_tpu_torch.scene.subdivide import subdivide_scene
 
 torch.set_num_threads(1)
 
@@ -164,6 +166,60 @@ def test_card_plain_pt_frame_matches_cpu_frame(cuda):
     cam, _, _ = _rays(cuda)
     outs = {str(dev): render_frame(upload_scene(cornell_box(), device=dev), cam, SEED,
                                    cfg)["hdr"].cpu() for dev in ("cpu", cuda)}
+    got, want = outs[str(cuda)], outs["cpu"]
+    close = ((got - want).abs() <= 1e-3 * (1 + want.abs())).all(-1)
+    assert close.float().mean() >= 0.99
+
+
+@pytest.mark.cuda
+def test_stream_kernels_match_plain(cuda):
+    """B8 and B9 on the box split to 8706 triangles (34 clusters of 256)
+    against their plain versions: camera rays, rays leaving each primary hit
+    (or, where the primary ray missed, from its far end, as bench.py builds
+    them) in random directions, and shadow segments; t and slot equal."""
+    scene = upload_scene(subdivide_scene(cornell_box(), 8193), device=cuda)
+    assert scene.cluster_aabb is not None
+    _, o, d = _rays(cuda)
+    g = torch.Generator(device=cuda).manual_seed(SEED)
+    before = (ST.stream_closest.launches, ST.occlusion_stream.launches)
+    t, tri = ST.stream_closest(scene, o, d)
+    t_p, tri_p = ST.stream_closest_plain(scene, o, d)
+    assert torch.equal(tri, tri_p) and torch.equal(t, t_p)
+    dg = torch.randn(o.shape, device=cuda, generator=g)
+    og = o + (t_p - 1e-3)[:, None] * d
+    dg = dg / dg.norm(dim=1, keepdim=True)
+    t2, tri2 = ST.stream_closest(scene, og, dg)
+    t2_p, tri2_p = ST.stream_closest_plain(scene, og, dg)
+    assert torch.equal(tri2, tri2_p) and torch.equal(t2, t2_p)
+    assert 0.3 < (tri2_p >= 0).float().mean() < 1.0
+    gb = MK.gbuffer(scene, o, d)
+    rk = RD.initial_candidates(gb, MK.build_light_sets(scene, SEED), SEED, rt=pick_rt(o.shape[0]))
+    so = (gb[MK.G.POS : MK.G.POS + 3] + 1e-3 * gb[MK.G.NG : MK.G.NG + 3]).T.contiguous()
+    seg = (rk[0:3] - gb[MK.G.POS : MK.G.POS + 3]).T.contiguous()
+    occ = ST.occlusion_stream(scene, so, seg, 1e-3, 1.0 - 1e-3)
+    assert torch.equal(occ, ST.occlusion_stream_plain(scene, so, seg, 1e-3, 1.0 - 1e-3))
+    assert 0 < occ.sum() < occ.numel()
+    torch.cuda.synchronize()
+    # the G-buffer took B8 too
+    assert (ST.stream_closest.launches, ST.occlusion_stream.launches) == (
+        before[0] + 3, before[1] + 1)
+
+
+@pytest.mark.cuda
+def test_card_clustered_gi_frame_matches_cpu_frame(cuda):
+    """Two chained 32^2 GI frames on the 546-triangle box in clusters of 128:
+    through B8/B9 on the card and their plain versions on the CPU."""
+    cfg = RenderConfig(width=32, height=32, mode="restir_gi", pt=PTConfig(max_bounces=2),
+                       denoise=True, taa=True)
+    cam, _, _ = _rays(cuda)
+    box = subdivide_scene(cornell_box(), 500)
+    outs = {}
+    for dev in ("cpu", cuda):
+        scene = upload_scene(box, device=dev, cluster_size=128)
+        state = None
+        for k in range(2):
+            out, state = render_frame_restir(scene, cam.with_jitter(k), SEED + k, cfg, state)
+        outs[str(dev)] = out["hdr"].cpu()
     got, want = outs[str(cuda)], outs["cpu"]
     close = ((got - want).abs() <= 1e-3 * (1 + want.abs())).all(-1)
     assert close.float().mean() >= 0.99

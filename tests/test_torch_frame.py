@@ -132,6 +132,14 @@ def test_unported_settings_raise():
         cfg = RenderConfig(**{**gi, "mode": "pt", **kw})
         with pytest.raises(NotImplementedError):
             cfg.check_ported(plain=True)
+    # ReSTIR PT on a clustered scene (its reuse passes sweep the dense table)
+    from zetaray_tpu_torch.scene.scene import upload_scene
+    from zetaray_tpu_torch.scene.subdivide import subdivide_scene
+
+    clustered = upload_scene(subdivide_scene(cornell_box(), 500), device="cpu", cluster_size=128)
+    cam = camera_from_arrays(cam_dict(_camera(0)))
+    with pytest.raises(NotImplementedError, match="clustered"):
+        render_frame_restir(clustered, cam, 1, RenderConfig(**{**gi, "mode": "restir_pt"}), None)
 
 
 def test_loaders_default_to_the_card(monkeypatch):
@@ -158,8 +166,9 @@ def test_loaders_default_to_the_card(monkeypatch):
 
 
 def test_port_runs_without_jax():
-    """Port frames on the CPU (DI only, with ReSTIR GI, with ReSTIR PT, and
-    plain PT) in a process where importing jax fails."""
+    """Port frames on the CPU (DI only, with ReSTIR GI, with ReSTIR PT, plain
+    PT, and ReSTIR GI on a clustered scene) in a process where importing jax
+    fails."""
     code = textwrap.dedent("""
         import sys
         sys.modules["jax"] = None
@@ -183,6 +192,16 @@ def test_port_runs_without_jax():
             assert (state.gi_reservoirs[m_row] > 1).any() == indirect
         out = render_frame(scene, cam, 9, RenderConfig(width=16, height=16, mode="pt"))
         assert torch.isfinite(out["hdr"]).all() and out["hdr"].mean() > 0
+        # the GI frame on a clustered scene (kernels B8/B9)
+        from zetaray_tpu_torch.scene.subdivide import subdivide_scene
+        clustered = upload_scene(subdivide_scene(cornell_box(), 500), device="cpu",
+                                 cluster_size=128)
+        cfg = RenderConfig(width=16, height=16, mode="restir_gi", pt=PTConfig(max_bounces=2),
+                           denoise=True, taa=True)
+        out, state = render_frame_restir(clustered, cam, 7, cfg, None)
+        out, state = render_frame_restir(clustered, cam, 8, cfg, state)
+        assert torch.isfinite(out["hdr"]).all() and out["hdr"].mean() > 0
+        assert (state.gi_reservoirs[10] > 1).any()
         assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules
                        if sys.modules[m] is not None)
         print("ok")

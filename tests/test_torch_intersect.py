@@ -23,6 +23,7 @@ from zetaray_tpu.ops.restir_di import R_ROWS as JR_ROWS
 from zetaray_tpu.scene.camera import Camera as JaxCamera
 from zetaray_tpu.scene.scene import A as JA
 from zetaray_tpu_torch import native
+from zetaray_tpu_torch.accel import bvh as TB
 from zetaray_tpu_torch.accel import megakernel as MK
 from zetaray_tpu_torch.accel.intersect import occlusion, occlusion_plain
 from zetaray_tpu_torch.accel.megakernel import G, gbuffer, gbuffer_plain
@@ -176,7 +177,7 @@ def test_gbuffer_symmetric_box_flips_only_on_edges():
 
 
 _LAYOUT_NAMES = (r"[AG]_[A-Z0-9_]+|LSET_ROWS|LSET_STAGED|R_ROWS|STATE_ROWS|SURF_ROWS"
-                 r"|BOUNCE_BLOCK|BOUNCE_SALT|GGX_[A-Z_]+")
+                 r"|BOUNCE_BLOCK|BOUNCE_SALT|GGX_[A-Z_]+|TREE_STACK|TREE_PAD_REL")
 
 
 def _header_constants(text):
@@ -190,7 +191,8 @@ def test_kernel_layout_header_matches_the_reference():
     albedo fit, whose coefficients read back as exactly the JAX package's
     Python floats. ``LSET_STAGED`` is the 11 filled rows of a light set
     (pos, ng, Le, pdf, two-sided); ``BOUNCE_BLOCK`` has no JAX counterpart
-    and must divide every tile width the frame picks."""
+    and must divide every tile width the frame picks; nor have the cluster
+    tree's stack depth and box padding (``accel.bvh``)."""
     text = native.layout_header()
     consts = _header_constants(text)
     want = {f"{p}_{k}": v for p, cls in (("A", JA), ("G", JG))
@@ -198,13 +200,16 @@ def test_kernel_layout_header_matches_the_reference():
     salt = inspect.signature(JMK.bounce_uniforms).parameters["salt"].default
     want.update(LSET_ROWS=JLSET_ROWS, LSET_STAGED=11, R_ROWS=JR_ROWS,
                 STATE_ROWS=JMK.STATE_ROWS, SURF_ROWS=JMK.SURF_ROWS,
-                BOUNCE_BLOCK=MK.BOUNCE_BLOCK, BOUNCE_SALT=salt, GGX_E_DEG=JS._GGX_E_DEG)
+                BOUNCE_BLOCK=MK.BOUNCE_BLOCK, BOUNCE_SALT=salt, GGX_E_DEG=JS._GGX_E_DEG,
+                TREE_STACK=TB.TREE_STACK)
     assert all(pick_rt(n) % MK.BOUNCE_BLOCK == 0 for n in (100, 64 * 64, 512 * 512, 1920 * 1080))
     assert consts == want
     arrays = {k: [float(x) for x in v.split(",")]
               for k, v in re.findall(r"float (\w+)\[\d+\] = \{([^}]*)\};", text)}
     assert arrays == {"GGX_E_COEF": list(JS._GGX_E_COEF),
                       "GGX_EAVG_COEF": list(JS._GGX_EAVG_COEF)}
+    pad = re.findall(r"constexpr float TREE_PAD_REL = ([^;]+)f;", text)
+    assert [float(x) for x in pad] == [TB.TREE_PAD_REL]
 
 
 def test_kernel_sources_take_layouts_only_from_the_header():
@@ -217,4 +222,5 @@ def test_kernel_sources_take_layouts_only_from_the_header():
         assert not re.search(rf"\b(?:{_LAYOUT_NAMES})\s*(?:\[\s*\d*\s*\]\s*)?=(?!=)", text), src.name
         assert "enum" not in text, src.name
         used |= set(re.findall(rf"\b(?:{_LAYOUT_NAMES})\b", text))
-    assert used and used <= set(consts) | {"GGX_E_COEF", "GGX_EAVG_COEF"}, sorted(used - set(consts))
+    floats = {"GGX_E_COEF", "GGX_EAVG_COEF", "TREE_PAD_REL"}
+    assert used and used <= set(consts) | floats, sorted(used - set(consts))

@@ -89,13 +89,15 @@ def test_interop_scene_roundtrip():
 
 
 def test_subdivided_box_fills_dense_path():
-    cpu = cornell_box(subdivide_to=TS.DENSE_MAX_TRIS)
-    assert cpu.num_tris == TS.DENSE_MAX_TRIS
+    cpu = cornell_box(subdivide_to=TS.CLUSTER_THRESHOLD)
+    assert cpu.num_tris == TS.CLUSTER_THRESHOLD
     area = cornell_box().areas().sum()
     np.testing.assert_allclose(cpu.areas().sum(), area, rtol=1e-5)
     assert len(cpu.emissive_tris) > 2
-    with pytest.raises(NotImplementedError):
-        TS.upload_scene(cornell_box(subdivide_to=TS.DENSE_MAX_TRIS + 1), device="cpu")
+    assert TS.upload_scene(cpu, device="cpu").cluster_aabb is None
+    # one triangle more and the upload takes the clustered path
+    big = TS.upload_scene(cornell_box(subdivide_to=TS.CLUSTER_THRESHOLD + 1), device="cpu")
+    assert big.cluster_aabb is not None and big.cluster_size == TS.CLUSTER_SIZE
 
 
 @pytest.mark.parametrize("k", [0, 5])

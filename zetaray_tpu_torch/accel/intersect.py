@@ -10,6 +10,10 @@ saves work only where most rays are blocked: for the Cornell box's shadow
 segments (about 73% unoccluded) it runs as long as the G-buffer kernel
 (5.6 ms at 512^2 against 8192 triangles on an H100 80GB HBM3, 700 W).
 
+On a clustered scene ``intersect_occluded`` and ``intersect_closest_shaded``
+dispatch to the streaming kernels B9 and B8 (``accel.stream``), as the JAX
+package's do.
+
 ``closest_hit`` replaces ``_closest_kernel`` (``accel/pallas_kernels.py``,
 launched by ``closest_hit_pallas``) with ``csrc/closest.cu``: the closest
 (t, tri, u, v) of each ray and the winner's attribute row. It is the
@@ -81,9 +85,15 @@ occlusion.launches = 0
 
 
 def intersect_occluded(scene, o: torch.Tensor, d: torch.Tensor, t_min=1e-4, t_max=None):
-    """Occlusion against the scene's triangles (the dense path)."""
-    return occlusion(scene.woop, o.contiguous(), d.contiguous(), t_min,
-                     INF if t_max is None else t_max)
+    """Occlusion against the scene's triangles: B9 on a clustered scene
+    (``accel.stream``), B3 on a dense one."""
+    t_max = INF if t_max is None else t_max
+    o, d = o.contiguous(), d.contiguous()
+    if scene.cluster_aabb is not None:
+        from .stream import occlusion_stream
+
+        return occlusion_stream(scene, o, d, t_min, t_max)
+    return occlusion(scene.woop, o, d, t_min, t_max)
 
 
 class ShadedHit(NamedTuple):
@@ -154,6 +164,12 @@ closest_hit.launches = 0
 
 def intersect_closest_shaded(scene, o: torch.Tensor, d: torch.Tensor, t_min=1e-4,
                              t_max=INF) -> ShadedHit:
-    """Closest hit with attributes against the scene's triangles (B7)."""
-    return closest_hit(scene.woop, scene.tri_attrs, o.contiguous(), d.contiguous(), t_min,
-                       t_max)
+    """Closest hit with attributes against the scene's triangles: B8 and
+    its Moller-Trumbore epilogue on a clustered scene (``accel.stream``), B7
+    on a dense one."""
+    o, d = o.contiguous(), d.contiguous()
+    if scene.cluster_aabb is not None:
+        from .stream import closest_hit_stream_shaded
+
+        return closest_hit_stream_shaded(scene, o, d, t_min, t_max)
+    return closest_hit(scene.woop, scene.tri_attrs, o, d, t_min, t_max)

@@ -145,10 +145,16 @@ def closest_hit_plain(woop: torch.Tensor, o: torch.Tensor, d: torch.Tensor, t_mi
 
 def gbuffer_plain(scene, o: torch.Tensor, d: torch.Tensor, t_min=1e-4) -> torch.Tensor:
     """The plain PyTorch version of the G-buffer kernel: [G.ROWS, N]."""
-    n = o.shape[0]
     t_hit, tri, bu, bv = closest_hit_plain(scene.woop, o, d, t_min)
     hit = tri >= 0
     at = torch.where(hit[:, None], scene.tri_attrs[tri.clamp_min(0)], 0.0).T
+    return gbuffer_rows(o, d, t_hit, hit, bu, bv, at)
+
+
+def gbuffer_rows(o: torch.Tensor, d: torch.Tensor, t_hit, hit, bu, bv, at) -> torch.Tensor:
+    """The G-buffer rows [G.ROWS, N] of rays o, d [N, 3] from their closest
+    hits: t, hit mask, barycentrics and the winners' attribute rows at
+    [A.WIDTH, N] (zeros at a miss)."""
     ov = V3(o[:, 0], o[:, 1], o[:, 2])
     dv = V3(d[:, 0], d[:, 1], d[:, 2])
     ng_raw = v3.from_rows(at, A.NG)
@@ -191,10 +197,17 @@ def gbuffer_plain(scene, o: torch.Tensor, d: torch.Tensor, t_min=1e-4) -> torch.
 
 
 def gbuffer(scene, o: torch.Tensor, d: torch.Tensor, t_min=1e-4) -> torch.Tensor:
-    """Primary-hit G-buffer: rays o, d [N, 3] -> [G.ROWS, N].
+    """Primary-hit G-buffer: rays o, d [N, 3] -> [G.ROWS, N]. A clustered
+    scene takes the streaming closest hit (kernel B8, Moller-Trumbore t, u,
+    v), then the rows, as the JAX ``gbuffer_xla`` does.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel.
     """
+    if scene.cluster_aabb is not None:
+        from .stream import closest_hit_stream_shaded
+
+        sh = closest_hit_stream_shaded(scene, o, d, t_min)
+        return gbuffer_rows(o, d, sh.t, sh.valid, sh.u, sh.v, sh.attrs)
     if o.device.type == "cpu":
         return gbuffer_plain(scene, o, d, t_min)
     n = o.shape[0]
@@ -241,6 +254,14 @@ def _check_pt(cfg) -> None:
     missing = cfg.unported()
     if missing:
         raise NotImplementedError("not ported yet: " + ", ".join(missing))
+
+
+def _check_dense(scene, name: str) -> None:
+    """The bounce kernels sweep the whole triangle table: clustered scenes
+    take ``ops.pathtracer.trace_reference`` instead."""
+    if scene.cluster_aabb is not None:
+        raise ValueError(f"{name} sweeps every triangle and takes dense scenes only; a "
+                         "clustered scene traces with ops.pathtracer.trace_reference")
 
 
 def cone_spread(spread_angle: float) -> float:
@@ -434,6 +455,7 @@ def bounce_trace(scene, state, bounce: int, cfg, has_lights: bool, spread_angle=
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel.
     """
+    _check_dense(scene, "bounce_trace")
     if state.device.type == "cpu":
         return bounce_trace_plain(scene, state, bounce, cfg, has_lights, spread_angle)
     _check_pt(cfg)
@@ -460,6 +482,7 @@ def bounce_shade(scene, state, surf, light_sets, bounce: int, seed: int, cfg,
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel.
     """
+    _check_dense(scene, "bounce_shade")
     if state.device.type == "cpu":
         return bounce_shade_plain(scene, state, surf, light_sets, bounce, seed, cfg,
                                   has_lights, rt)
@@ -487,6 +510,7 @@ def bounce(scene, state, light_sets, b: int, seed: int, cfg, last: bool,
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel.
     """
+    _check_dense(scene, "bounce")
     if state.device.type == "cpu":
         return bounce_plain(scene, state, light_sets, b, seed, cfg, last, has_lights, rt)
     _check_pt(cfg)
@@ -542,6 +566,7 @@ def trace_megakernel(scene, o, d, seed: int, cfg, rt: int = 1024, rows_out: bool
     ``(i // rt + 13 * bounce) % n_sets``. ``light_sets``: as in
     ``trace_with_first_hit``.
     """
+    _check_dense(scene, "trace_megakernel")
     n = o.shape[0]
     pad = (-n) % rt
     o_p = torch.nn.functional.pad(o, (0, 0, 0, pad))
@@ -566,6 +591,7 @@ def trace_with_first_hit(scene, o, d, seed: int, cfg, rt: int, light_sets=None,
     size (``cfg.light_ns``, ``cfg.light_ps``), which makes them the sets this
     function would build from ``seed``. Otherwise sets of that size are built.
     """
+    _check_dense(scene, "trace_with_first_hit")
     has_lights = scene.num_emissives > 0
     lsets = _trace_light_sets(scene, seed, cfg, light_sets, o.device)
     state, surf = bounce_trace(scene, initial_state(o, d), 0, cfg, has_lights, spread_angle)

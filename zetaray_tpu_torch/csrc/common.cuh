@@ -62,28 +62,43 @@ __device__ inline void load_woop_chunk(WoopChunk& s, const float* __restrict__ w
   }
 }
 
-// Woop unit-triangle test of triangle j of the chunk. Returns t, or ZR_INF
-// when the ray misses it or t lies outside (t_min, t_max).
-__device__ __forceinline__ float woop_hit(const WoopChunk& s, int j, float ox, float oy,
-                                          float oz, float dx, float dy, float dz,
-                                          float t_min, float t_max, float* u_out,
-                                          float* v_out) {
-  const float dw = s.w[2][j] * dx + s.w[5][j] * dy + s.w[8][j] * dz;
+// Woop unit-triangle test of triangle j of a coefficient table whose row q
+// (coefficient c = q / 3 -- x, y, z, translation -- of local axis r = q % 3)
+// starts at w + q * stride: a chunk in shared memory (stride kTriChunk) or
+// the whole woop [4, 3, tp] table (stride tp). Returns t, or ZR_INF when the
+// ray misses the triangle or t lies outside (t_min, t_max).
+__device__ __forceinline__ float woop_test(const float* __restrict__ w, size_t stride, int j,
+                                           float ox, float oy, float oz, float dx, float dy,
+                                           float dz, float t_min, float t_max, float* u_out,
+                                           float* v_out) {
+  const float* c = w + j;
+#define ZR_W(q) c[(q) * stride]
+  const float dw = ZR_W(2) * dx + ZR_W(5) * dy + ZR_W(8) * dz;
   const bool par = fabsf(dw) < 1e-12f;
-  const float ow = s.w[2][j] * ox + s.w[5][j] * oy + s.w[8][j] * oz + s.w[11][j];
+  const float ow = ZR_W(2) * ox + ZR_W(5) * oy + ZR_W(8) * oz + ZR_W(11);
   const float t = -ow / (par ? 1.0f : dw);
   if (par || !(t > t_min) || !(t < t_max)) return ZR_INF;
-  const float ou = s.w[0][j] * ox + s.w[3][j] * oy + s.w[6][j] * oz + s.w[9][j];
-  const float du = s.w[0][j] * dx + s.w[3][j] * dy + s.w[6][j] * dz;
+  const float ou = ZR_W(0) * ox + ZR_W(3) * oy + ZR_W(6) * oz + ZR_W(9);
+  const float du = ZR_W(0) * dx + ZR_W(3) * dy + ZR_W(6) * dz;
   const float u = ou + t * du;
   if (!(u >= 0.0f)) return ZR_INF;
-  const float ov = s.w[1][j] * ox + s.w[4][j] * oy + s.w[7][j] * oz + s.w[10][j];
-  const float dv = s.w[1][j] * dx + s.w[4][j] * dy + s.w[7][j] * dz;
+  const float ov = ZR_W(1) * ox + ZR_W(4) * oy + ZR_W(7) * oz + ZR_W(10);
+  const float dv = ZR_W(1) * dx + ZR_W(4) * dy + ZR_W(7) * dz;
   const float v = ov + t * dv;
+#undef ZR_W
   if (!(v >= 0.0f) || !(u + v <= 1.0f)) return ZR_INF;
   *u_out = u;
   *v_out = v;
   return t;
+}
+
+// The Woop test of triangle j of a chunk in shared memory.
+__device__ __forceinline__ float woop_hit(const WoopChunk& s, int j, float ox, float oy,
+                                          float oz, float dx, float dy, float dz,
+                                          float t_min, float t_max, float* u_out,
+                                          float* v_out) {
+  return woop_test(&s.w[0][0], kTriChunk, j, ox, oy, oz, dx, dy, dz, t_min, t_max, u_out,
+                   v_out);
 }
 
 // Closest hit of the ray (o, d) over triangles [0, tp) of woop [4, 3, tp],

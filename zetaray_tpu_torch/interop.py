@@ -18,10 +18,10 @@ from .scene.scene import SceneBuffers, buffers_from_arrays
 
 def scene_from_arrays(d: dict, device=None) -> SceneBuffers:
     """Fields of a JAX ``SceneBuffers`` (numpy arrays and Python scalars)
-    -> the port's scene on ``device`` (default: the card). Only the dense,
-    uncut scene is ported."""
-    if d.get("cluster_aabb") is not None:
-        raise NotImplementedError("clustered scenes (kernels B8/B9) are not ported yet")
+    -> the port's scene on ``device`` (default: the card). Dense and
+    clustered opaque scenes are ported; a clustered scene gets its traversal
+    tree from ``cluster_aabb``, and the TPU-only ``woop_stream``,
+    ``stream_attrs`` and ``stream_tcap`` are not read."""
     for flag in ("has_transmission", "has_coat", "has_cutout"):
         if d.get(flag):
             raise NotImplementedError(f"{flag}: that material feature is not ported yet")

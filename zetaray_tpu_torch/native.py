@@ -13,8 +13,9 @@ into an exception.
 
 The row and column layouts the kernels index (``A``, ``G``, ``LSET_ROWS``,
 ``R_ROWS``, ``STATE_ROWS``, ``SURF_ROWS``), the bounce kernels' block size
-and pcg4d salt, and the GGX albedo fit of ``ops.shading_soa`` are defined
-once, in Python: :func:`layout_header`
+and pcg4d salt, the cluster tree's stack depth and box padding, and the GGX
+albedo fit of ``ops.shading_soa`` are defined once, in Python:
+:func:`layout_header`
 writes them as C constants into the ``layout.h`` that the sources include.
 """
 
@@ -65,6 +66,12 @@ _SIGNATURES = {
                   _I, _I, _I, _I, _I, _I, _VP],
     # o, d, woop, attrs, t, tri, u, v, attrs_out, n, tp, tie, t_min, t_max, stream
     "zr_closest": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _F, _F, _VP],
+    # o, d, woop, tree_lo, tree_hi, tree_left, tree_right, tree_cluster, t, tri, n, tp, c,
+    # t_min, t_max, stream
+    "zr_stream_closest": [_VP] * 10 + [_I, _I, _I, _F, _F, _VP],
+    # o, d, woop, tree_lo, tree_hi, tree_left, tree_right, tree_cluster, out, n, tp, c,
+    # t_min, t_max, stream
+    "zr_stream_occlusion": [_VP] * 9 + [_I, _I, _I, _F, _F, _VP],
 }
 
 _lock = threading.Lock()
@@ -89,10 +96,12 @@ def layout_header() -> str:
     """``layout.h``: the Python layouts and launch constants as ``constexpr
     int`` constants (``A_<column>``, ``G_<row>``, ``LSET_ROWS``,
     ``LSET_STAGED``, ``R_ROWS``, ``STATE_ROWS``, ``SURF_ROWS``,
-    ``BOUNCE_BLOCK``, ``BOUNCE_SALT``) and the GGX albedo fit (``GGX_E_DEG``,
+    ``BOUNCE_BLOCK``, ``BOUNCE_SALT``, ``TREE_STACK``), ``TREE_PAD_REL`` as
+    a ``constexpr float`` and the GGX albedo fit (``GGX_E_DEG``,
     ``GGX_E_COEF``, ``GGX_EAVG_COEF``) as float arrays in constant memory,
     each coefficient the ``repr`` of its Python float, so it rounds to
     float32 as in PyTorch."""
+    from .accel.bvh import TREE_PAD_REL, TREE_STACK
     from .accel.megakernel import (
         BOUNCE_BLOCK, G, LSET_ROWS, LSET_STAGED, STATE_ROWS, SURF_ROWS,
     )
@@ -109,7 +118,8 @@ def layout_header() -> str:
     lines += [f"constexpr int {k} = {v};" for k, v in (
         ("LSET_ROWS", LSET_ROWS), ("LSET_STAGED", LSET_STAGED), ("R_ROWS", R_ROWS),
         ("STATE_ROWS", STATE_ROWS), ("SURF_ROWS", SURF_ROWS), ("BOUNCE_BLOCK", BOUNCE_BLOCK),
-        ("BOUNCE_SALT", BOUNCE_SALT), ("GGX_E_DEG", S._GGX_E_DEG))]
+        ("BOUNCE_SALT", BOUNCE_SALT), ("GGX_E_DEG", S._GGX_E_DEG), ("TREE_STACK", TREE_STACK))]
+    lines.append(f"constexpr float TREE_PAD_REL = {TREE_PAD_REL!r}f;")
     for name, coef in (("GGX_E_COEF", S._GGX_E_COEF), ("GGX_EAVG_COEF", S._GGX_EAVG_COEF)):
         vals = ", ".join(repr(float(c)) for c in coef)
         lines.append(f"static __constant__ float {name}[{len(coef)}] = {{{vals}}};")

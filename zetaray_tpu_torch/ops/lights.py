@@ -46,3 +46,8 @@ def sample_emissive(scene, u) -> LightSample:
         tri=scene.em_tri[k],
         two_sided=row[:, EA.TWO_SIDED] > 0.5,
     )
+
+
+def pdf_area_to_solid_angle(pdf_area, dist2, cos_light):
+    """An area-measure pdf in solid-angle measure at the shading point."""
+    return pdf_area * dist2 / torch.clamp_min(cos_light, 1e-8)

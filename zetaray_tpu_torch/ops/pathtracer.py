@@ -1,17 +1,39 @@
 """The path tracer, as ``ops/pathtracer.py`` of the JAX package: its settings
-``PTConfig`` and ``trace``.
+``PTConfig``, ``trace`` and the wavefront ``trace_reference``.
 
 ``trace`` runs the fused bounce kernel B6 once per bounce
-(``accel.megakernel.trace_megakernel``) on every device; a CPU tensor takes
-B6's plain version. The JAX package's wavefront ``trace_reference`` is its
-oracle for the CPU and for clustered scenes and has no counterpart here.
+(``accel.megakernel.trace_megakernel``) on a dense scene; a CPU tensor takes
+B6's plain version. B6 sweeps the whole triangle table, so a clustered
+scene takes the wavefront ``trace_reference`` instead, as in the JAX
+package: per bounce one closest hit with attributes
+(``accel.intersect.intersect_closest_shaded``: kernel B8) and one NEE
+shadow segment (``intersect_occluded``: kernel B9), with the shading in
+plain PyTorch over ``ops.shading_soa``. Its NEE draws a light per ray from
+the alias table (``ops.lights.sample_emissive``), not from the presampled
+light sets, and its random numbers are ``uniform4(pixel, bounce, seed,
+salt)`` with salt 1 (light), 2 (BSDF) and 3 (Russian roulette).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 
+import torch
+
+from ..accel.intersect import intersect_closest_shaded, intersect_occluded
 from ..accel.megakernel import trace_megakernel
+from ..core import vec3 as v3
+from ..core.rng import uniform4
+from ..core.vec3 import V3
+from ..scene.scene import A
+from . import lights as L
+from . import shading_soa as S
+
+_EPS_RAY = 1e-3  # ray offset along the geometric normal (scene units)
+# Dead rays are parked outside any scene, heading away from it: the
+# streaming traversal culls them at the root box.
+_PARK = 3.0e7
+_PARK_DIR = (1.0, 0.0, 0.0)
 
 
 @dataclass(frozen=True)
@@ -52,6 +74,130 @@ def trace(scene, o, d, seed: int, cfg: PTConfig = PTConfig(), rt: int = 1024,
     """Path-traced radiance of rays o, d [N, 3]: [N, 3] linear HDR, or rows
     [3, N] with ``rows_out``. ``seed`` is the u32 frame seed; ``rt`` the tile
     width that picks each ray's light set. ``light_sets``: the frame's sets,
-    used where they are the ones ``seed`` gives (``trace_megakernel``)."""
+    used where they are the ones ``seed`` gives (``trace_megakernel``). A
+    clustered scene takes ``trace_reference``, which reads neither."""
+    if scene.cluster_aabb is not None:
+        out = trace_reference(scene, o, d, seed, cfg)
+        return out.T if rows_out else out
     return trace_megakernel(scene, o, d, seed, cfg, rt=rt, rows_out=rows_out,
                             light_sets=light_sets)
+
+
+def park(mask, o: torch.Tensor, d: torch.Tensor):
+    """Rays o, d [N, 3] where ``mask`` is False moved outside the scene:
+    every use of their results is gated by the same mask."""
+    pd = torch.tensor(_PARK_DIR, dtype=d.dtype, device=d.device)
+    return torch.where(mask[:, None], o, _PARK), torch.where(mask[:, None], d, pd)
+
+
+def _div(a: V3, s) -> V3:
+    return V3(a.x / s, a.y / s, a.z / s)
+
+
+def trace_reference(scene, o, d, seed: int, cfg: PTConfig = PTConfig(),
+                    return_first_hit: bool = False):
+    """Wavefront path trace of rays o, d [N, 3]: radiance [N, 3], and with
+    ``return_first_hit`` also the bounce-0 ``ShadedHit`` (the GI pass reads
+    its reconnection vertex from it). Bounces 0..max_bounces, the last one
+    stopping after its emission. Dead rays are parked (``park``)."""
+    missing = cfg.unported()
+    if missing:
+        raise NotImplementedError("not ported yet: " + ", ".join(missing))
+    n = o.shape[0]
+    dev = o.device
+    pixel = torch.arange(n, dtype=torch.int64, device=dev)
+    zero = torch.zeros((n,), dtype=torch.float32, device=dev)
+    radiance = V3(zero, zero, zero)
+    throughput = v3.splat(torch.ones_like(zero))
+    alive = torch.ones((n,), dtype=torch.bool, device=dev)
+    prev_pdf = zero
+    spec_bounce = torch.ones_like(alive)  # primary rays count as specular
+    has_lights = scene.num_emissives > 0
+
+    sh0 = None
+    for bounce in range(cfg.max_bounces + 1):
+        sh = intersect_closest_shaded(scene, o, d, t_min=cfg.t_min)
+        if bounce == 0:
+            sh0 = sh
+        found = sh.valid & alive
+        ov, dv = V3(o[:, 0], o[:, 1], o[:, 2]), V3(d[:, 0], d[:, 1], d[:, 2])
+        at = sh.attrs
+        # the hit's surface
+        w0 = 1.0 - sh.u - sh.v
+        ng_raw = v3.from_rows(at, A.NG)
+        ns = v3.from_rows(at, A.N0) * w0 + v3.from_rows(at, A.N1) * sh.u \
+            + v3.from_rows(at, A.N2) * sh.v
+        ns = _div(ns, torch.clamp_min(torch.sqrt(v3.dot(ns, ns)), 1e-20))
+        front = v3.dot(dv, ng_raw) < 0.0
+        sign = torch.where(front, 1.0, -1.0)
+        ng = ng_raw * sign
+        ns = ns * sign
+        ns = v3.where(v3.dot(ns, ng) < 0.0, -ns, ns)
+        pos = ov + dv * sh.t
+        mat = S.MatSoA(base=v3.from_rows(at, A.BASE), metallic=at[A.METAL],
+                       roughness=at[A.ROUGH], ior=torch.clamp_min(at[A.IOR], 1.01))
+
+        # emitted radiance at the hit, MIS-weighted against the previous NEE
+        if has_lights and bounce >= cfg.min_emissive_bounce:
+            wo_dot_ng = -v3.dot(dv, ng_raw)
+            visible = (at[A.DOUBLE] > 0.5) | (wo_dot_ng > 0.0)
+            le = v3.where(visible, v3.from_rows(at, A.EMISS), v3.splat(zero))
+            if cfg.nee and bounce > 0:
+                pdf_l_sa = L.pdf_area_to_solid_angle(at[A.EM_PDF_AREA], sh.t * sh.t,
+                                                     torch.abs(wo_dot_ng))
+                mis = torch.where(spec_bounce, 1.0, S.power_heuristic(prev_pdf, pdf_l_sa))
+            else:
+                mis = torch.ones_like(zero)
+            radiance = radiance + v3.where(found, throughput * le * mis, v3.splat(zero))
+
+        alive = found
+        if bounce == cfg.max_bounces:
+            break
+
+        frame = S.make_frame(ns)
+        wo_l = frame.to_local(-dv)
+
+        # NEE: one shadow segment toward a point on an emissive triangle
+        if cfg.nee and has_lights and bounce >= cfg.min_nee_bounce:
+            ls = L.sample_emissive(scene, uniform4(pixel, bounce, seed, salt=1))
+            to_l = V3(ls.pos[:, 0], ls.pos[:, 1], ls.pos[:, 2]) - pos
+            dist2 = torch.clamp_min(v3.dot(to_l, to_l), 1e-12)
+            wi_w = to_l * torch.rsqrt(dist2)
+            cos_surf = v3.dot(wi_w, ns)
+            cos_light_raw = -v3.dot(wi_w, V3(ls.ng[:, 0], ls.ng[:, 1], ls.ng[:, 2]))
+            cos_light = torch.where(ls.two_sided, torch.abs(cos_light_raw), cos_light_raw)
+            f, pdf_b = S.bsdf_eval(mat, wo_l, frame.to_local(wi_w))
+            pdf_l_sa = L.pdf_area_to_solid_angle(ls.pdf_area, dist2, cos_light)
+            candidate = alive & (cos_surf > 1e-6) & (cos_light > 1e-6)
+            # the unnormalised segment as direction: the light sits at t = 1
+            so, sd = park(candidate, v3.aos3(pos + ng * _EPS_RAY), v3.aos3(to_l))
+            occluded = intersect_occluded(scene, so, sd, t_min=1e-3, t_max=1.0 - 1e-3)
+            vis = candidate & ~occluded
+            mis = S.power_heuristic(pdf_l_sa, pdf_b)
+            le_l = V3(ls.le[:, 0], ls.le[:, 1], ls.le[:, 2])
+            contrib = throughput * f * le_l * (cos_surf * mis / torch.clamp_min(pdf_l_sa, 1e-12))
+            radiance = radiance + v3.where(vis, contrib, v3.splat(zero))
+
+        # BSDF sample of the next direction
+        u_b = uniform4(pixel, bounce, seed, salt=2)
+        wi_l, weight, pdf = S.bsdf_sample(mat, wo_l, u_b[0], u_b[1], u_b[2])
+        wi_w = frame.to_world(wi_l)
+        # reflected rays leave above the geometric surface, transmitted below
+        transmitted = wi_l.z < 0.0
+        side = v3.dot(wi_w, ng)
+        geo_ok = torch.where(transmitted, side < -1e-6, side > 1e-6)
+        alive = alive & (pdf > 0.0) & geo_ok
+        throughput = throughput * weight
+        prev_pdf = pdf
+        spec_bounce = torch.zeros_like(alive)
+
+        if bounce >= cfg.rr_start:
+            q = torch.clamp(v3.max_component(throughput), 0.05, 0.95)
+            alive = alive & (uniform4(pixel, bounce, seed, salt=3)[0] < q)
+            throughput = _div(throughput, q)
+
+        offset = torch.where(transmitted, -1.0, 1.0)
+        o, d = park(alive, v3.aos3(pos + ng * _EPS_RAY * offset), v3.aos3(wi_w))
+
+    rad = v3.aos3(radiance)
+    return (rad, sh0) if return_first_hit else rad

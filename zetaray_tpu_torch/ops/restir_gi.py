@@ -1,8 +1,10 @@
-"""ReSTIR GI, as the JAX package's ``ops/restir_gi.py`` (dense scenes, no sky).
+"""ReSTIR GI, as the JAX package's ``ops/restir_gi.py`` (no sky).
 
 Per pixel the sample is a reconnection vertex: the secondary hit x2 with its
 normal n2 and the radiance L2 it sends back toward the primary hit, traced
-by the path kernels B4-B6 (``accel.megakernel.trace_with_first_hit``).
+by the path kernels B4-B6 (``accel.megakernel.trace_with_first_hit``) on a
+dense scene and by the wavefront ``ops.pathtracer.trace_reference``
+(kernels B8/B9) on a clustered one.
 Reservoir weights use the area measure, so reuse needs no Jacobian.
 
 Reservoir rows ([16, N] float32, the JAX package's layout):
@@ -27,7 +29,9 @@ from ..core.rng import uniform4
 from ..core.rows import stack_rows
 from ..core.vec3 import V3
 from . import shading_soa as S
+from ..scene.scene import A
 from .gbuffer_pack import temporal_geom_ok
+from .pathtracer import park, trace_reference
 from .restir_di import (
     disk_neighbor, drop_m_w, gather_reservoirs, geom_ok_slim, geom_table, reproject_prev,
 )
@@ -93,7 +97,9 @@ def initial_samples(scene, gbuf, pt_cfg, seed: int, rt: int, light_sets=None,
                     spread_angle=0.0) -> torch.Tensor:
     """One GI sample per pixel: a BSDF direction at the primary hit, traced
     with ``max_bounces - 1`` further bounces (x2's own emission excluded,
-    NEE from x2 on). Returns reservoir rows [R_ROWS, N]."""
+    NEE from x2 on). On a clustered scene x2 = o2 + t * d2 from the trace's
+    first hit and n2 its geometric normal turned toward the primary hit.
+    Returns reservoir rows [R_ROWS, N]."""
     pos, ns, _ng, wo, mat, frame, _valid = _surf(gbuf)
     wo_l = frame.to_local(wo)
     o2, d2, pdf_sa, live = secondary_rays(gbuf, seed)
@@ -104,11 +110,22 @@ def initial_samples(scene, gbuf, pt_cfg, seed: int, rt: int, light_sets=None,
         min_emissive_bounce=max(pt_cfg.min_emissive_bounce - 1, 1),
         min_nee_bounce=0,
     )
-    l2_rows, surf2, alive2 = trace_with_first_hit(
-        scene, o2, d2, seed, l2_cfg, rt, light_sets=light_sets, spread_angle=spread_angle,
-    )
-    hit = (alive2 > 0.5) & live
-    x2, n2, l2 = v3.from_rows(surf2, 0), v3.from_rows(surf2, 6), v3.from_rows(l2_rows, 0)
+    if scene.cluster_aabb is None:
+        l2_rows, surf2, alive2 = trace_with_first_hit(
+            scene, o2, d2, seed, l2_cfg, rt, light_sets=light_sets, spread_angle=spread_angle,
+        )
+        hit = (alive2 > 0.5) & live
+        x2, n2, l2 = v3.from_rows(surf2, 0), v3.from_rows(surf2, 6), v3.from_rows(l2_rows, 0)
+    else:
+        # the wavefront trace's bounce-0 closest hit is the x2 query; dead
+        # rays are parked so the traversal culls them
+        l2_rgb, sh = trace_reference(scene, *park(live, o2, d2), seed, l2_cfg,
+                                     return_first_hit=True)
+        hit = sh.valid & live
+        x2 = V3(*(o2 + sh.t[:, None] * d2).T)
+        n2_raw = v3.from_rows(sh.attrs, A.NG)
+        n2 = v3.where(v3.dot(n2_raw, V3(*d2.T)) > 0.0, -n2_raw, n2_raw)  # faces x1
+        l2 = V3(*l2_rgb.T)
 
     phat, _, _, _ = _phat_area(mat, frame, wo_l, pos, ns, x2, n2, l2, full=False)
     to2 = x2 - pos

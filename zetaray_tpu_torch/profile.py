@@ -2,21 +2,28 @@
 
     python -m zetaray_tpu_torch.profile [--frames 6] [--out profile.json] [--paths ...]
 
-For each path on the procedural Cornell box -- the flagship ReSTIR GI frame
+For each path -- on the procedural Cornell box the flagship ReSTIR GI frame
 at 512^2 and 1920x1080 (max_bounces 3 and 2), the ReSTIR PT frame at 512^2
-and the plain path-traced frame at 512^2 (max_bounces 4), each with a-trous
-and TAA where the frame has them -- it measures:
+and the plain path-traced frame at 512^2 (max_bounces 4), and on the box
+split to 139,266 triangles (clustered: every ray query through B8/B9) the
+ReSTIR GI frame at 256^2 (max_bounces 2), each with a-trous and TAA where
+the frame has them -- it measures:
 
 - frame: host clock around each of ``--frames`` chained frames, each ending
   in ``torch.cuda.synchronize()``; the median of frames 2 on (the first has
-  no temporal reuse and no TAA);
+  no temporal reuse and no TAA), and the SM clock and power draw that
+  ``nvidia-smi`` reads just after;
 - passes: the same chain again with each stage function the frame calls
   wrapped in a synchronise and the host clock (a stage called inside
   another counts in the outer one), the median per pass over frames 2 on
   (the synchronises add their own cost);
-- device: ``torch.profiler`` over 3 more chained frames: kernel launches
-  and device kernel time per frame, each hand-written kernel's time, and
-  the device's idle share, 1 - kernel time / the frame median.
+- device: ``torch.profiler`` over 3 more chained frames, after a first
+  frame that is traced and dropped (it starts the trace and the chain):
+  kernel launches and device kernel time per frame, each hand-written
+  kernel's time per frame and per launch (every launch of the profiled
+  frames, in order; their number must equal the launches its wrapper
+  counted), and the device's idle share, 1 - kernel time / the frame
+  median.
 
 It prints one JSON object and writes it to ``--out``. It needs a CUDA card.
 """
@@ -27,6 +34,7 @@ import argparse
 import functools
 import json
 import os
+import re
 import statistics
 import subprocess
 import time
@@ -34,6 +42,9 @@ from collections import defaultdict
 
 import torch
 
+from .accel import intersect as XI
+from .accel import megakernel as MK
+from .accel import stream as ST
 from .ops import restir_di as RD
 from .ops import restir_gi as RG
 from .ops import restir_pt as RP
@@ -42,46 +53,60 @@ from .render import frame as F
 from .scene.camera import Camera
 from .scene.procedural import CAMERA_EYE, CAMERA_TARGET, CAMERA_VFOV, cornell_box
 from .scene.scene import upload_scene
+from .scene.subdivide import subdivide_scene
 
 # (module, attribute, pass name): the stage functions the frames call
 STAGES = [
-    (F, "gbuffer", "G-buffer (B1)"), (F, "build_light_sets", "light sets"),
+    (F, "gbuffer", "G-buffer (B1; clustered B8)"), (F, "build_light_sets", "light sets"),
     (RD, "reproject_prev", "joint temporal gather"), (RD, "take_multi", "joint temporal gather"),
     (RD, "initial_candidates", "DI RIS (B2)"), (RD, "temporal_reuse", "DI temporal reuse"),
-    (RD, "visibility_reuse", "DI visibility (B3)"), (RD, "spatial_reuse", "DI spatial reuse"),
-    (RD, "shade", "DI shade (B3)"),
-    (RG, "initial_samples", "GI initial samples (B4-B6)"),
+    (RD, "visibility_reuse", "DI visibility (B3; clustered B9)"),
+    (RD, "spatial_reuse", "DI spatial reuse"), (RD, "shade", "DI shade (B3; clustered B9)"),
+    (RG, "initial_samples", "GI initial samples (B4-B6; clustered B8, B9)"),
     (RG, "temporal_reuse", "GI temporal reuse"), (RG, "spatial_reuse", "GI spatial reuse"),
-    (RG, "shade", "GI shade (B3)"),
+    (RG, "shade", "GI shade (B3; clustered B9)"),
     (RP, "initial_samples", "PT initial samples (B7 x2, B6)"),
     (RP, "temporal_reuse", "PT temporal reuse (replay: B7)"),
     (RP, "spatial_reuse", "PT spatial reuse (replay: B7)"), (RP, "shade", "PT shade (B3)"),
-    (F, "trace", "path trace (B6)"),
+    (F, "trace", "path trace (B6; clustered B8, B9)"),
     (F.DN, "atrous_denoise_p", "a-trous"), (F.TA, "taa_resolve_p", "TAA"),
     (F, "_postprocess", "exposure + AgX + sRGB"), (F, "pack_temporal", "pack temporal G-buffer"),
 ]
 KERNELS = {"gbuffer_kernel": "B1", "ris_kernel": "B2", "occlusion_kernel": "B3",
            "bounce_trace_kernel": "B4", "bounce_shade_kernel": "B5", "bounce_kernel": "B6",
-           "closest_kernel": "B7"}
+           "closest_kernel": "B7", "stream_closest_kernel": "B8",
+           "stream_occlusion_kernel": "B9"}
+# (module, wrapper) of each kernel: the wrapper counts its launches
+LAUNCHERS = {"B1": (MK, "gbuffer"), "B2": (RD, "initial_candidates"), "B3": (XI, "occlusion"),
+             "B4": (MK, "bounce_trace"), "B5": (MK, "bounce_shade"), "B6": (MK, "bounce"),
+             "B7": (XI, "closest_hit"), "B8": (ST, "stream_closest"),
+             "B9": (ST, "occlusion_stream")}
+# the scenes of the paths: the box, and the box split past the dense limit
+SCENES = {"box": lambda: cornell_box(),
+          "box139k": lambda: subdivide_scene(cornell_box(), 100_000)}
 
 
 def _paths():
+    """{path: (scene name, camera, RenderConfig)}."""
     cam = Camera.look_at(CAMERA_EYE, CAMERA_TARGET, vfov_deg=CAMERA_VFOV, aspect=1.0)
     cam_hd = Camera.look_at(CAMERA_EYE, CAMERA_TARGET, vfov_deg=CAMERA_VFOV, aspect=1920 / 1080)
     post = dict(denoise=True, taa=True)
     return {
-        "restir_gi_512": (cam, F.RenderConfig(mode="restir_gi", pt=PTConfig(max_bounces=3),
-                                              **post)),
-        "restir_gi_1080p": (cam_hd, F.RenderConfig(width=1920, height=1080, mode="restir_gi",
-                                                   pt=PTConfig(max_bounces=2), **post)),
-        "restir_pt_512": (cam, F.RenderConfig(mode="restir_pt", pt=PTConfig(max_bounces=3),
-                                              **post)),
-        "pt_512": (cam, F.RenderConfig(mode="pt", pt=PTConfig(max_bounces=4))),
+        "restir_gi_512": ("box", cam, F.RenderConfig(mode="restir_gi",
+                                                     pt=PTConfig(max_bounces=3), **post)),
+        "restir_gi_1080p": ("box", cam_hd, F.RenderConfig(
+            width=1920, height=1080, mode="restir_gi", pt=PTConfig(max_bounces=2), **post)),
+        "restir_pt_512": ("box", cam, F.RenderConfig(mode="restir_pt",
+                                                     pt=PTConfig(max_bounces=3), **post)),
+        "pt_512": ("box", cam, F.RenderConfig(mode="pt", pt=PTConfig(max_bounces=4))),
+        "clustered_gi_256": ("box139k", cam, F.RenderConfig(
+            width=256, height=256, mode="restir_gi", pt=PTConfig(max_bounces=2), **post)),
     }
 
 
-def _chain(scene, cam, cfg, frames, seed=0x2468ACE1):
-    """Chained frames; returns each frame's ms (host clock, synchronised)."""
+def _chain(scene, cam, cfg, frames, seed=0x2468ACE1, after=None):
+    """Chained frames; returns each frame's ms (host clock, synchronised).
+    ``after(k)`` runs after frame k, outside its time."""
     state, times = None, []
     for k in range(frames):
         t = time.perf_counter()
@@ -91,6 +116,8 @@ def _chain(scene, cam, cfg, frames, seed=0x2468ACE1):
             _, state = F.render_frame_restir(scene, cam.with_jitter(k), seed + k, cfg, state)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t) * 1e3)
+        if after is not None:
+            after(k)
     return times
 
 
@@ -134,28 +161,67 @@ def _passes(scene, cam, cfg, frames):
     return dict(sorted(rows.items(), key=lambda kv: -kv[1]))
 
 
+def _kernel_tag(name: str):
+    """B1-B9 for a hand-written kernel's event name, else None. Whole names:
+    B7's closest_kernel ends B8's stream_closest_kernel."""
+    for kernel, tag in KERNELS.items():
+        if re.search(rf"(?<![A-Za-z_]){kernel}", name):
+            return tag
+    return None
+
+
 def _device(scene, cam, cfg, frame_ms, frames=3):
-    """Kernel launches, device kernel time and idle share per frame."""
-    _chain(scene, cam, cfg, 2)
+    """Kernel launches, device kernel time and idle share per frame, over
+    ``frames`` chained frames after a first one that is traced and dropped."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        _chain(scene, cam, cfg, frames)
+    sched = torch.profiler.schedule(wait=0, warmup=1, active=frames, repeat=1)
+
+    def step(k):
+        if k == 0:  # the profiled frames start here
+            for m, a in LAUNCHERS.values():
+                getattr(m, a).launches = 0
+        prof.step()
+
+    with torch.profiler.profile(activities=acts, schedule=sched) as prof:
+        _chain(scene, cam, cfg, frames + 1, after=step)
+    counted = {tag: getattr(m, a).launches for tag, (m, a) in LAUNCHERS.items()}
     launches, copies, kernel_us, ours = 0, 0, 0.0, defaultdict(float)
+    # each launch of a hand-written kernel, in launch order: the same kernel
+    # serves several passes of a frame on inputs of different cost
+    each = defaultdict(list)
+    for ev in sorted(prof.events(), key=lambda e: e.time_range.start):
+        tag = _kernel_tag(ev.name) if ev.device_type == torch.autograd.DeviceType.CUDA else None
+        if tag:
+            each[tag].append(ev.device_time_total / 1e3)
     for ev in prof.key_averages():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
+        # the schedule's step annotations span each frame on the device track
+        if ev.device_type != torch.autograd.DeviceType.CUDA or ev.key.startswith("ProfilerStep"):
             continue
         if ev.key.startswith(("Memcpy", "Memset")):
             copies += ev.count
             continue
         launches += ev.count
         kernel_us += ev.self_device_time_total
-        for name, tag in KERNELS.items():
-            if name in ev.key:
-                ours[tag] += ev.self_device_time_total / frames / 1e3
+        tag = _kernel_tag(ev.key)
+        if tag:
+            ours[tag] += ev.self_device_time_total / frames / 1e3
+    traced = {tag: len(x) for tag, x in each.items()}
+    if traced != {tag: k for tag, k in counted.items() if k}:
+        raise AssertionError(f"the trace holds {traced} launches of the hand-written kernels; "
+                             f"their wrappers counted {counted}")
     kernel_ms = kernel_us / frames / 1e3
     return dict(launches_per_frame=launches / frames, copies_per_frame=copies / frames,
                 kernel_ms_per_frame=kernel_ms, idle_share=1.0 - kernel_ms / frame_ms,
-                hand_written_ms_per_frame=dict(sorted(ours.items())))
+                hand_written_launches=dict(sorted(traced.items())),
+                hand_written_ms_per_frame=dict(sorted(ours.items())),
+                hand_written_ms_each_launch=dict(sorted(each.items())))
+
+
+def _clocks() -> str:
+    """The card's SM clock (MHz) and power draw (W) just after a chain."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True).stdout.strip()
 
 
 def main() -> int:
@@ -169,14 +235,18 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
                           check=True).stdout.strip().splitlines()[0]
-    scene = upload_scene(cornell_box())
+    scenes = {}
     result = {"card": card, "kind": torch.cuda.get_device_name(0), "paths": {}}
     for name in args.paths.split(","):
-        cam, cfg = _paths()[name]
+        scene_name, cam, cfg = _paths()[name]
+        if scene_name not in scenes:
+            scenes[scene_name] = upload_scene(SCENES[scene_name]())
+        scene = scenes[scene_name]
         times = _chain(scene, cam, cfg, args.frames)
         frame_ms = statistics.median(times[1:])
         result["paths"][name] = dict(
-            frames_ms=times, frame_ms=frame_ms, passes_ms=_passes(scene, cam, cfg, args.frames),
+            frames_ms=times, frame_ms=frame_ms, clocks=_clocks(),
+            passes_ms=_passes(scene, cam, cfg, args.frames),
             device=_device(scene, cam, cfg, frame_ms),
         )
         print(name, json.dumps(result["paths"][name]), flush=True)

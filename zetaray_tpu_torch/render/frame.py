@@ -13,6 +13,11 @@ serve both temporal passes, and the pre-spatial DI and indirect reservoirs
 are fed forward. ``render_frame`` covers ``mode="pt"``. A setting outside
 these raises ``NotImplementedError``.
 
+On a clustered scene (``scene.cluster_aabb`` set) every ray query goes
+through the streaming kernels B8/B9 and the path traces through the
+wavefront ``ops.pathtracer.trace_reference``: the ReSTIR GI frame and plain
+PT run; ReSTIR PT there is not ported yet.
+
 The JAX frame's banded gathers (``band_rows``/``band_halo``) are a TPU
 workaround and have no counterpart here: reuse gathers read the whole
 previous frame.
@@ -137,6 +142,8 @@ def render_frame_restir(scene, camera: Camera, seed: int, cfg: RenderConfig,
     for name, value in (("textures", textures), ("motion", motion), ("shard", shard)):
         if value is not None:
             raise NotImplementedError(f"{name} is not ported yet")
+    if cfg.mode == "restir_pt" and cfg.indirect and scene.cluster_aabb is not None:
+        raise NotImplementedError("ReSTIR PT on a clustered scene is not ported yet")
     w, h = cfg.width, cfg.height
     dev = scene.device
     o, d = camera.generate_rays(w, h, device=dev)

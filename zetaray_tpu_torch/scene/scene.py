@@ -1,12 +1,20 @@
 """Flattened scene arrays and their upload to tensors.
 
-The counterpart of the JAX package's ``scene/scene.py`` for the dense path (at most
-8192 triangles, no alpha cutout, no transmission, no coat): the same
-``CpuScene`` field names on the host and the same table layouts on the
-device -- Woop unit-triangle transforms ``[4, 3*Tp]``, the per-triangle
-attribute table ``A`` and the emissive table ``EA``, with the triangle and
-emissive counts padded to multiples of 128 exactly as the JAX package pads
-them, so the two uploads agree entry for entry.
+The counterpart of the JAX package's ``scene/scene.py`` for opaque scenes
+(no alpha cutout, no transmission, no coat): the same ``CpuScene`` field
+names on the host and the same table layouts on the device -- Woop
+unit-triangle transforms ``[4, 3*Tp]``, the per-triangle attribute table
+``A`` and the emissive table ``EA``, with the triangle and emissive counts
+padded to multiples of 128 exactly as the JAX package pads them, so the two
+uploads agree entry for entry.
+
+Above ``CLUSTER_THRESHOLD`` triangles the upload is clustered as in the JAX
+package: the triangles are reordered into BVH leaves of ``CLUSTER_SIZE``
+slots (cluster k owns slots ``[k*C, (k+1)*C)`` of every table), and the
+scene carries the cluster boxes and the traversal tree over them that the
+streaming kernels B8/B9 walk (``accel.stream``). The JAX package's
+TPU-only stream layouts (``woop_stream``, ``stream_attrs``) and its
+two-phase distance cap (``stream_tcap``) have no counterpart.
 """
 
 from __future__ import annotations
@@ -21,9 +29,10 @@ from ..core.sampling import build_alias_table
 from .light_build import emissive_powers
 
 LANE = 128
-# Above this many triangles the JAX package switches to its BVH-cluster
-# streaming traversal (kernels B8/B9), which the port does not have yet.
-DENSE_MAX_TRIS = 8192
+# Scenes above CLUSTER_THRESHOLD triangles are reordered into BVH-leaf
+# clusters of CLUSTER_SIZE slots for the streaming traversal (accel.stream).
+CLUSTER_SIZE = 256
+CLUSTER_THRESHOLD = 8192
 
 
 @dataclass
@@ -133,7 +142,8 @@ class EA:
 
 @dataclass(frozen=True)
 class SceneBuffers:
-    """Device-side scene (the dense subset of the JAX ``SceneBuffers``)."""
+    """Device-side scene (the opaque subset of the JAX ``SceneBuffers``).
+    The cluster fields are None on a dense scene."""
 
     woop: torch.Tensor  # [4, 3*Tp] float32
     tri_attrs: torch.Tensor  # [Tp, A.WIDTH]
@@ -173,6 +183,14 @@ class SceneBuffers:
     has_cutout: bool
     world_lo: torch.Tensor  # [3]
     world_hi: torch.Tensor
+    cluster_aabb: torch.Tensor | None = None  # [M, 8] lo.xyz, hi.xyz, pad
+    cluster_size: int | None = None  # C: cluster k owns slots [k*C, (k+1)*C)
+    # the traversal tree over the clusters (accel.bvh.cluster_tree); node 0 is the root
+    tree_lo: torch.Tensor | None = None  # [K, 3] padded node boxes
+    tree_hi: torch.Tensor | None = None
+    tree_left: torch.Tensor | None = None  # [K] int32 children, -1 at a leaf
+    tree_right: torch.Tensor | None = None
+    tree_cluster: torch.Tensor | None = None  # [K] int32 a leaf's cluster, else -1
 
     @property
     def device(self) -> torch.device:
@@ -232,13 +250,57 @@ def _tangents_and_uv_density(cpu: CpuScene):
     return tang.astype(np.float32), uvdens.astype(np.float32)
 
 
+def _clusterize(cpu: CpuScene, c: int):
+    """Reorder triangles into BVH-leaf clusters padded to ``c`` slots, as the
+    JAX package does. Returns (the cluster-ordered CpuScene with degenerate
+    pad triangles, cluster boxes [M, 8]). Cluster k is the k-th leaf in node
+    order (``BVH.leaves``), not in the order of the leaves' first slots.
+    Pad slots are zero-area triangles collapsed onto a vertex of their own
+    cluster (every ray misses them, and the box does not grow), and are never
+    emissive."""
+    from ..accel.bvh import build_bvh
+
+    bvh = build_bvh(cpu.v0, cpu.v1, cpu.v2, leaf_size=c)
+    lo, hi, first, count = bvh.cluster_aabbs()
+    m = lo.shape[0]
+    t = cpu.num_tris
+    slot_src = np.full(m * c, -1, np.int64)
+    for k in range(m):
+        slot_src[k * c : k * c + count[k]] = bvh.perm[first[k] : first[k] + count[k]]
+    valid = slot_src >= 0
+
+    def take(x, fill=0):
+        out = np.full((m * c,) + x.shape[1:], fill, x.dtype)
+        out[valid] = x[slot_src[valid]]
+        return out
+
+    inv = np.full(t, -1, np.int64)
+    inv[slot_src[valid]] = np.nonzero(valid)[0]
+    # slot k*c is always valid: leaves fill from the front and hold >= 1 triangle
+    v0n, v1n, v2n = take(cpu.v0), take(cpu.v1), take(cpu.v2)
+    fill = v0n[(np.arange(m * c) // c) * c]
+    v0n[~valid] = fill[~valid]
+    v1n[~valid] = fill[~valid]
+    v2n[~valid] = fill[~valid]
+    new = CpuScene(
+        v0=v0n, v1=v1n, v2=v2n,
+        n0=take(cpu.n0), n1=take(cpu.n1), n2=take(cpu.n2),
+        uv0=take(cpu.uv0), uv1=take(cpu.uv1), uv2=take(cpu.uv2),
+        mat_id=take(cpu.mat_id),
+        inst_id=take(cpu.inst_id, fill=-1),
+        inst_names=cpu.inst_names,
+        texture_paths=cpu.texture_paths,
+        materials=cpu.materials,
+        emissive_tris=inv[cpu.emissive_tris].astype(np.int32),
+    )
+    aabb = np.zeros((m, 8), np.float32)
+    aabb[:, 0:3] = lo
+    aabb[:, 3:6] = hi
+    return new, aabb
+
+
 def _check_supported(cpu: CpuScene):
     mats = cpu.materials
-    if cpu.num_tris > DENSE_MAX_TRIS:
-        raise NotImplementedError(
-            f"{cpu.num_tris} triangles: scenes above {DENSE_MAX_TRIS} need the "
-            "BVH-cluster streaming traversal (kernels B8/B9), not ported yet"
-        )
     if mats.alpha_cutoff is not None and (np.asarray(mats.alpha_cutoff) > 0).any():
         raise NotImplementedError("alpha cutout (textures) is not ported yet")
     if (np.asarray(mats.transmission) > 0).any():
@@ -247,9 +309,20 @@ def _check_supported(cpu: CpuScene):
         raise NotImplementedError("the coat lobe is not ported yet")
 
 
-def upload_scene_arrays(cpu: CpuScene) -> dict:
-    """CpuScene -> dict of padded numpy tables (the SceneBuffers fields)."""
+def upload_scene_arrays(cpu: CpuScene, cluster_size: int | None = None) -> dict:
+    """CpuScene -> dict of padded numpy tables (the SceneBuffers fields but
+    the traversal tree, which ``buffers_from_arrays`` builds).
+    ``cluster_size``: None clusters above ``CLUSTER_THRESHOLD`` triangles,
+    0 never clusters, C > 0 (a multiple of 128, so that the clusters fill
+    the padded tables) always clusters C slots to a cluster."""
     _check_supported(cpu)
+    if cluster_size is None:
+        cluster_size = CLUSTER_SIZE if cpu.num_tris > CLUSTER_THRESHOLD else 0
+    if cluster_size % LANE or cluster_size < 0:
+        raise ValueError(f"cluster_size={cluster_size} is not a multiple of {LANE}")
+    cluster_aabb = None
+    if cluster_size:
+        cpu, cluster_aabb = _clusterize(cpu, cluster_size)
     lane = LANE
     t = cpu.num_tris
     tp = max(lane, ((t + lane - 1) // lane) * lane)
@@ -334,17 +407,31 @@ def upload_scene_arrays(cpu: CpuScene) -> dict:
         em_power=np.asarray(total_power, np.float32), num_emissives=e,
         has_transmission=False, has_coat=False, has_cutout=False,
         world_lo=np.asarray(lo, np.float32), world_hi=np.asarray(hi, np.float32),
+        cluster_aabb=cluster_aabb,
     )
 
 
 def buffers_from_arrays(d: dict, device=None) -> SceneBuffers:
     """Dict of SceneBuffers fields (numpy or scalars) -> SceneBuffers on
-    ``device`` (default: the card; ``native.default_device``)."""
+    ``device`` (default: the card; ``native.default_device``). Where
+    ``cluster_aabb`` is given, the cluster size and the traversal tree are
+    derived from it and the Woop table's width."""
+    from ..accel.bvh import cluster_tree
+
     device = native.default_device(device)
+    d = dict(d)
+    if d.get("cluster_aabb") is not None:
+        m = np.asarray(d["cluster_aabb"]).shape[0]
+        tp = np.asarray(d["woop"]).shape[1] // 3
+        if tp % m:
+            raise ValueError(f"{tp} triangle slots do not split into {m} clusters")
+        d.update(cluster_tree(d["cluster_aabb"]), cluster_size=tp // m)
     kw = {}
     for f in fields(SceneBuffers):
-        v = d[f.name]
-        if f.name in ("num_tris", "num_emissives"):
+        v = d.get(f.name) if f.default is None else d[f.name]
+        if v is None:
+            kw[f.name] = None
+        elif f.name in ("num_tris", "num_emissives", "cluster_size"):
             kw[f.name] = int(v)
         elif f.name.startswith("has_"):
             kw[f.name] = bool(v)
@@ -353,8 +440,10 @@ def buffers_from_arrays(d: dict, device=None) -> SceneBuffers:
     return SceneBuffers(**kw)
 
 
-def upload_scene(cpu: CpuScene, device=None) -> SceneBuffers:
-    """CpuScene -> SceneBuffers on ``device`` (the dense, uncut path). The
-    default is the card; without CUDA it raises unless ``device="cpu"`` is
-    named."""
-    return buffers_from_arrays(upload_scene_arrays(cpu), device)
+def upload_scene(cpu: CpuScene, device=None, cluster_size: int | None = None) -> SceneBuffers:
+    """CpuScene -> SceneBuffers on ``device``. The default is the card;
+    without CUDA it raises unless ``device="cpu"`` is named.
+    ``cluster_size`` as in the JAX package: None clusters automatically
+    above ``CLUSTER_THRESHOLD`` triangles, 0 never clusters, C > 0 (a
+    multiple of 128) forces clusters of C slots."""
+    return buffers_from_arrays(upload_scene_arrays(cpu, cluster_size), device)
