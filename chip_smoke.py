@@ -14,7 +14,9 @@ Phases (any failure exits non-zero):
      and, on its trace-only branch of a path's last bounce, at 2), and the
      closest hit with attributes (B7) on ReSTIR PT prefix rays built as its
      initial samples build them; B7 also on 1024^2 camera rays, as the
-     primary-rays rate of bench.py. On the box split to 139,266 triangles
+     primary-rays rate of bench.py. B6 and B7 record the real triangle
+     count they sweep (nt) and the ray-triangle pairs they test a second.
+     On the box split to 139,266 triangles
      (bench.py's large scene, clustered into 798 clusters of 256 slots) at
      256^2: the streaming closest hit (B8) on camera rays, on bench.py's
      GI-like rays (origins at the primary hits, random unit directions),
@@ -54,7 +56,6 @@ import json
 import os
 import statistics
 import struct
-import subprocess
 import sys
 import time
 import zlib
@@ -80,30 +81,6 @@ def bound(ops: float, nbytes: float):
     t_ops = ops / PEAK_F32_FLOPS * 1e3
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    )
-    return out.stdout.strip().splitlines()[0]
-
-
-def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Median milliseconds of fn() over reps runs, timed with CUDA events."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
 
 
 def bounce_err(name: str, label: str, k, p, found) -> float:
@@ -158,6 +135,7 @@ def main() -> int:
     )
     from zetaray_tpu_torch.scene.scene import A, upload_scene
     from zetaray_tpu_torch.scene.subdivide import subdivide_scene
+    from zetaray_tpu_torch.timing import card_line, cuda_ms
 
     dev = torch.device("cuda", 0)
     card = card_line()
@@ -281,17 +259,21 @@ def main() -> int:
             cuda_ms(lambda: MK.bounce_plain(*b6_args), reps=3, warmup=1),
             PAIR_OPS * (int(found_1.sum().item()) + lit_6) * n_tri,
             n * 2 * state_bytes + tri_bytes + set_bytes)
+        # B6 and B7 sweep the n_tri real triangles: every ray's closest hit,
+        # and (B6) every triangle again for a segment that let its light through
+        r6 = rec["bounce"]
+        r6.update(nt=n_tri, pairs_per_s=(n + lit_6) * n_tri / (r6["ms"] * 1e-3))
         print(f"{label} ({n} GI bounce-0 rays, {found.float().mean().item():.4f} hit, "
               f"{found_1.float().mean().item():.4f} hit at bounce 1): " + "; ".join(
                   f"{k} {rec[k]['ms']:.4f} ms (plain {rec[k]['plain_ms']:.3f}, bound "
                   f"{rec[k]['bound_ms']:.4f} by {rec[k]['bound_by']}), max abs err "
                   f"{rec[k]['max_abs_err']:.3g}"
-                  for k in ("bounce_trace", "bounce_shade", "bounce")),
-              flush=True)
+                  for k in ("bounce_trace", "bounce_shade", "bounce"))
+              + f"; bounce {r6['pairs_per_s']:.4g} pairs/s", flush=True)
 
         # B7 on ReSTIR PT prefix rays: every output equal to the plain version
         o7, d7 = prefix_rays(gk, seed)
-        sh = XI.closest_hit(scene.woop, scene.tri_attrs, o7, d7)
+        sh = XI.closest_hit(scene, o7, d7)
         sh_p = XI.closest_hit_plain_shaded(scene.woop, scene.tri_attrs, o7, d7)
         torch.cuda.synchronize()
         for field, a, b in zip(sh._fields, sh, sh_p):
@@ -300,18 +282,19 @@ def main() -> int:
         hit7 = sh_p.tri >= 0
         err_7 = max((a.float() - b.float())[..., hit7].abs().max().item() for a, b in zip(sh, sh_p))
         put("closest", err_7,
-            cuda_ms(lambda: XI.closest_hit(scene.woop, scene.tri_attrs, o7, d7), reps=20),
+            cuda_ms(lambda: XI.closest_hit(scene, o7, d7), reps=20),
             cuda_ms(lambda: XI.closest_hit_plain_shaded(scene.woop, scene.tri_attrs, o7, d7),
                     reps=3, warmup=1),
             PAIR_OPS * n * n_tri, n * (6 + 4 + A.WIDTH) * F32 + tri_bytes)
         r7 = rec["closest"]
+        r7.update(nt=n_tri, pairs_per_s=n * n_tri / (r7["ms"] * 1e-3))
         # bench.py's primary-rays rate: B7 on 1024^2 camera rays
         oc, dc = cam.generate_rays(1024, 1024, device=dev)
-        ms_c = cuda_ms(lambda: XI.closest_hit(scene.woop, scene.tri_attrs, oc, dc), reps=10)
+        ms_c = cuda_ms(lambda: XI.closest_hit(scene, oc, dc), reps=10)
         print(f"{label} ({n} PT prefix rays, {hit7.float().mean().item():.4f} hit, tie chunk "
               f"{XI.tie_chunk(tp)}): closest {r7['ms']:.4f} ms (plain {r7['plain_ms']:.3f}, bound "
               f"{r7['bound_ms']:.4f} by {r7['bound_by']}), tri/t/u/v/attrs equal, max abs err "
-              f"{err_7:.3g}; 1024^2 camera rays {ms_c:.4f} ms = "
+              f"{err_7:.3g}, {r7['pairs_per_s']:.4g} pairs/s; 1024^2 camera rays {ms_c:.4f} ms = "
               f"{oc.shape[0] / ms_c / 1e3:.1f} Mrays/s", flush=True)
         del scene, gk, gp, rk, rp, so, seg, st0, st4, sf4, st4_p, sf4_p, st5_p, st6_p, st6_last_p
         del st_t1, o7, d7, sh, sh_p, oc, dc

@@ -60,8 +60,8 @@ def test_closest_plain_matches_pallas(name, rays, t_max):
     assert 0.1 < (got.tri >= 0).float().mean() < 1.0
     _check(got, want)
     # the wrapper takes the plain version for CPU tensors; the scene query too
-    via_wrapper = XI.closest_hit(tdev.woop, tdev.tri_attrs, torch.from_numpy(o),
-                                 torch.from_numpy(d), t_max=t_max or XI.INF)
+    via_wrapper = XI.closest_hit(tdev, torch.from_numpy(o), torch.from_numpy(d),
+                                 t_max=t_max or XI.INF)
     assert all(torch.equal(a, b) for a, b in zip(via_wrapper, got))
     if t_max is None:
         via_scene = XI.intersect_closest_shaded(tdev, torch.from_numpy(o), torch.from_numpy(d))

@@ -1,0 +1,103 @@
+"""The port's configs against the JAX package's: every field of the JAX
+``ReSTIRConfig``, ``ReSTIRGIConfig``, ``ReSTIRPTConfig`` and
+``RenderConfig`` is accepted with the JAX default, and each value the port
+does not implement raises ``NotImplementedError``.
+
+The JAX defaults are the fields' declared defaults. JAX's
+``RenderConfig.__post_init__`` fills ``lvg_cfg``, ``skydi_cfg`` and
+``upscale_cfg`` with the configs of features the port does not have; the
+port keeps them None and refuses any other value.
+"""
+
+import dataclasses
+
+import pytest
+import torch
+
+from zetaray_tpu.ops import restir_di as JD
+from zetaray_tpu.ops import restir_gi as JG
+from zetaray_tpu.ops import restir_pt as JP
+from zetaray_tpu.render import frame as JF
+from zetaray_tpu_torch.ops import restir_di as RD
+from zetaray_tpu_torch.ops import restir_gi as RG
+from zetaray_tpu_torch.ops import restir_pt as RP
+from zetaray_tpu_torch.ops.pathtracer import PTConfig
+from zetaray_tpu_torch.render import frame as TF
+from zetaray_tpu_torch.scene.camera import Camera
+from zetaray_tpu_torch.scene.procedural import CAMERA_EYE, CAMERA_TARGET, CAMERA_VFOV, cornell_box
+from zetaray_tpu_torch.scene.scene import upload_scene
+
+torch.set_num_threads(1)
+
+PAIRS = {
+    "ReSTIRConfig": (JD.ReSTIRConfig, RD.ReSTIRConfig),
+    "ReSTIRGIConfig": (JG.ReSTIRGIConfig, RG.ReSTIRGIConfig),
+    "ReSTIRPTConfig": (JP.ReSTIRPTConfig, RP.ReSTIRPTConfig),
+    "RenderConfig": (JF.RenderConfig, TF.RenderConfig),
+}
+PORT_CLASSES = {port.__name__: port for _, port in PAIRS.values()} | {"PTConfig": PTConfig}
+
+
+def _declared_defaults(cls) -> dict:
+    return {f.name: (f.default if f.default is not dataclasses.MISSING else f.default_factory())
+            for f in dataclasses.fields(cls)}
+
+
+def _to_port(value):
+    """A JAX config (nested ones too) as the port's config of the same name."""
+    if dataclasses.is_dataclass(value) and type(value).__name__ in PORT_CLASSES:
+        kw = {f.name: _to_port(getattr(value, f.name)) for f in dataclasses.fields(value)}
+        return PORT_CLASSES[type(value).__name__](**kw)
+    return value
+
+
+@pytest.mark.parametrize("name", sorted(PAIRS))
+def test_jax_defaults_give_the_port_default(name):
+    jax_cls, port_cls = PAIRS[name]
+    assert [f.name for f in dataclasses.fields(port_cls)] == \
+        [f.name for f in dataclasses.fields(jax_cls)]
+    kw = {k: _to_port(v) for k, v in _declared_defaults(jax_cls).items()}
+    assert port_cls(**kw) == port_cls()
+
+
+UNPORTED = [
+    (RD.ReSTIRConfig, {"full_target": True}),
+    (RD.ReSTIRConfig, {"packed_reuse": False}),
+    (RD.ReSTIRConfig, {"spatial_mis": "pairwise", "spatial_neighbors": 5}),
+    (RG.ReSTIRGIConfig, {"full_target": True}),
+    (RG.ReSTIRGIConfig, {"packed_reuse": False}),
+    (RP.ReSTIRPTConfig, {"full_target": True}),
+    (RP.ReSTIRPTConfig, {"packed_reuse": False}),
+    (TF.RenderConfig, {"lvg_cfg": object()}),
+    (TF.RenderConfig, {"skydi_cfg": object()}),
+    (TF.RenderConfig, {"upscale_cfg": object()}),
+]
+
+
+@pytest.mark.parametrize("cls,kw", UNPORTED,
+                         ids=[f"{c.__name__}-{'-'.join(k)}" for c, k in UNPORTED])
+def test_unported_values_raise(cls, kw):
+    with pytest.raises(NotImplementedError, match="not ported"):
+        cls(**kw)
+
+
+def test_accepted_fields_leave_the_frame_unchanged():
+    """``num_candidates`` (never read, as in JAX), ``spatial_neighbors``
+    (read by pairwise MIS only) and ``band_rows``/``band_halo`` (the port
+    has no banded gathers) change nothing in a GI frame."""
+    scene = upload_scene(cornell_box(), device="cpu")
+    cam = Camera.look_at(CAMERA_EYE, CAMERA_TARGET, vfov_deg=CAMERA_VFOV, aspect=1.0)
+    base = dict(width=16, height=16, mode="restir_gi", pt=PTConfig(max_bounces=2),
+                denoise=True, taa=True)
+    outs = []
+    for cfg in (TF.RenderConfig(**base),
+                TF.RenderConfig(**base, restir=RD.ReSTIRConfig(num_candidates=4,
+                                                               spatial_neighbors=7),
+                                band_rows=0, band_halo=8, restir_gi=None, restir_pt=None)):
+        state = None
+        for k in range(2):
+            out, state = TF.render_frame_restir(scene, cam.with_jitter(k), 0x1234 + k, cfg, state)
+        outs.append(out)
+    assert torch.isfinite(outs[0]["hdr"]).all() and outs[0]["hdr"].mean() > 0
+    assert torch.equal(outs[0]["hdr"], outs[1]["hdr"])
+    assert torch.equal(outs[0]["ldr"], outs[1]["ldr"])

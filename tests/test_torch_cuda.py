@@ -131,12 +131,53 @@ def test_closest_kernel_matches_plain(cuda, subdivide):
     _, o, d = _rays(cuda)
     o2, d2, _, _ = secondary_rays(MK.gbuffer(scene, o, d), SEED)
     before = XI.closest_hit.launches
-    got = XI.closest_hit(scene.woop, scene.tri_attrs, o2, d2)
+    got = XI.closest_hit(scene, o2, d2)
     want = XI.closest_hit_plain_shaded(scene.woop, scene.tri_attrs, o2, d2)
     torch.cuda.synchronize()
     assert XI.closest_hit.launches == before + 1
     assert 0.3 < (want.tri >= 0).float().mean() < 1.0
     assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("subdivide", [None, 200, 300, 1000])
+def test_sweep_kernels_on_ragged_shapes(cuda, subdivide):
+    """B6 and B7 where their sweep has ragged edges: 36, 200, 300 or 1000
+    real triangles (1, 2, 3 and 8 chunks of the 128-triangle staging ring,
+    none full; with an odd count of at least 3 the shadow sweep starts in
+    the ring stage that holds the closest-hit sweep's last chunk), 1000 rays
+    (not a multiple of a block's 128) and B6 with the narrowest tile width,
+    rt = 128. B7 equal to its plain version in every output. B6 as in
+    test_bounce_kernels_match_plain, and on every ray that found a hit its
+    next origin (the hit point moved off the surface) equal bit for bit.
+    Both refuse a negative t_min."""
+    scene = upload_scene(cornell_box(subdivide_to=subdivide), device=cuda)
+    assert scene.num_tris % 128
+    _, o, d = _rays(cuda, 32)
+    o2, d2, _, _ = secondary_rays(MK.gbuffer(scene, o, d), SEED)
+    o2, d2 = o2[:1000].contiguous(), d2[:1000].contiguous()
+    got = XI.closest_hit(scene, o2, d2)
+    want = XI.closest_hit_plain_shaded(scene.woop, scene.tri_attrs, o2, d2)
+    torch.cuda.synchronize()
+    assert 0.3 < (want.tri >= 0).float().mean() < 1.0
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    lsets = MK.build_light_sets(scene, SEED)
+    cfg = PTConfig(max_bounces=3, min_emissive_bounce=1, rr_start=1)
+    st, surf = MK.bounce_trace_plain(scene, MK.initial_state(o2, d2), 0, cfg, True)
+    st5 = MK.bounce_shade_plain(scene, st, surf, lsets, 0, SEED, cfg, True, 128)
+    for b, last in ((1, False), (2, True)):
+        f6 = MK.bounce_trace_plain(scene, st5, b, cfg, True)[0][13] > 0.5
+        st6 = MK.bounce(scene, st5, lsets, b, SEED, cfg, last, True, 128)
+        st6_p = MK.bounce_plain(scene, st5, lsets, b, SEED, cfg, last, True, 128)
+        assert _close_rays(st6[:, f6], st6_p[:, f6]) >= 0.999
+        assert _close_rays(st6, st6_p, [9, 10, 11, 13]) >= 0.999
+        if not last:
+            assert f6.float().mean() > 0.3
+            assert torch.equal(st6[0:3, f6], st6_p[0:3, f6])
+    with pytest.raises(ValueError, match="t_min"):
+        XI.closest_hit(scene, o2, d2, t_min=-1.0)
+    with pytest.raises(ValueError, match="t_min"):
+        MK.bounce(scene, st5, lsets, 1, SEED, PTConfig(t_min=-1.0), False, True, 128)
 
 
 @pytest.mark.cuda

@@ -6,6 +6,7 @@ against the Pallas kernel in interpret mode and the jnp intersector
 versions on the card).
 """
 
+import dataclasses
 import inspect
 import re
 
@@ -25,12 +26,14 @@ from zetaray_tpu.scene.scene import A as JA
 from zetaray_tpu_torch import native
 from zetaray_tpu_torch.accel import bvh as TB
 from zetaray_tpu_torch.accel import megakernel as MK
-from zetaray_tpu_torch.accel.intersect import occlusion, occlusion_plain
+from zetaray_tpu_torch.accel.intersect import closest_hit_plain_shaded, occlusion, occlusion_plain
 from zetaray_tpu_torch.accel.megakernel import G, gbuffer, gbuffer_plain
+from zetaray_tpu_torch.ops.pathtracer import PTConfig
 from zetaray_tpu_torch.render.frame import pick_rt
 from zetaray_tpu_torch.scene.procedural import (
     CAMERA_EYE, CAMERA_TARGET, CAMERA_VFOV, SYMMETRIC_ROOM, cornell_box,
 )
+from zetaray_tpu_torch.scene.scene import upload_scene
 from tests.test_torch_scene import SCENES, scene_pair
 
 torch.set_num_threads(1)
@@ -224,3 +227,79 @@ def test_kernel_sources_take_layouts_only_from_the_header():
         used |= set(re.findall(rf"\b(?:{_LAYOUT_NAMES})\b", text))
     floats = {"GGX_E_COEF", "GGX_EAVG_COEF", "TREE_PAD_REL"}
     assert used and used <= set(consts) | floats, sorted(used - set(consts))
+
+
+def _inside_rays(seed, n=1000):
+    """Rays from seeded points inside the Cornell box in seeded directions."""
+    r = np.random.default_rng(seed)
+    o = np.stack([r.uniform(-0.95, 0.95, n), r.uniform(0.05, 1.9, n),
+                  r.uniform(-0.95, 0.95, n)], -1)
+    d = r.normal(size=(n, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    return o.astype(np.float32), d.astype(np.float32)
+
+
+def _bits_equal(a, b):
+    return a.shape == b.shape and torch.equal(a.contiguous().view(torch.int32),
+                                              b.contiguous().view(torch.int32))
+
+
+@pytest.mark.parametrize("rays", ["camera", "inside"])
+@pytest.mark.parametrize("subdivide", [None, 1000])
+def test_pad_slots_never_hit(subdivide, rays):
+    """B6 and B7 sweep only the first ``num_tris`` slots (36 of 128 on the
+    box, 1000 of 1024 when it is split to 1000 triangles). Every slot past
+    them is an all-zero Woop row that misses every ray under the plain Woop
+    test, and with NaN attribute rows there the plain B7 and the plain B6
+    (a shaded bounce and a last, trace-only one) give the same outputs bit
+    for bit: no pad slot ever wins."""
+    scene = upload_scene(cornell_box(subdivide_to=subdivide), device="cpu")
+    nt, tp = scene.num_tris, scene.woop.shape[1] // 3
+    assert 0 < nt < tp and nt % 128
+    o, d = map(torch.from_numpy, _camera_rays() if rays == "camera" else _inside_rays(5))
+    w3 = scene.woop.reshape(4, 3, tp)
+    assert not w3[:, :, nt:].any()
+    t_pad, _, _ = MK.tri_hits(w3[:, :, nt:], o, d, 0.0, MK.INF)
+    assert (t_pad == MK.INF).all()
+
+    attrs = scene.tri_attrs.clone()
+    attrs[nt:] = float("nan")
+    nan_scene = dataclasses.replace(scene, tri_attrs=attrs)
+    want = closest_hit_plain_shaded(scene.woop, scene.tri_attrs, o, d)
+    got = closest_hit_plain_shaded(nan_scene.woop, nan_scene.tri_attrs, o, d)
+    assert (want.tri >= 0).float().mean() > 0.5 and (want.tri < nt).all()
+    assert all(_bits_equal(a, b) for a, b in zip(got, want))
+
+    lsets = MK.build_light_sets(scene, 7)
+    cfg = PTConfig(max_bounces=2, min_emissive_bounce=1)
+    st = MK.initial_state(o, d)
+    for b, last in ((1, False), (2, True)):
+        want6 = MK.bounce_plain(scene, st, lsets, b, 7, cfg, last, True, 128)
+        got6 = MK.bounce_plain(nan_scene, st, lsets, b, 7, cfg, last, True, 128)
+        assert torch.isfinite(want6).all()
+        assert _bits_equal(got6, want6)
+
+
+@pytest.mark.parametrize("subdivide", [None, 300])
+def test_woop_rows_follow_the_woop_table(subdivide):
+    """The triangle-major table that B6 and B7 stage: row k holds triangle
+    k's w, u and v rows of ``woop`` (x, y, z, translation each). It is made
+    once and reused, and made again after ``woop`` is changed in place, so
+    the sweep never reads geometry that ``woop`` no longer holds; a copy of
+    the scene makes its own."""
+    scene = upload_scene(cornell_box(subdivide_to=subdivide), device="cpu")
+    tp = scene.woop.shape[1] // 3
+
+    def holds_woop(rows):
+        w3 = scene.woop.reshape(4, 3, tp)
+        return rows.shape == (tp, 12) and rows.is_contiguous() and all(
+            torch.equal(rows[:, 4 * k:4 * k + 4], w3[:, plane, :].T)
+            for k, plane in enumerate((2, 0, 1)))  # w, u, v
+
+    rows = scene.woop_rows()
+    assert holds_woop(rows)
+    assert scene.woop_rows() is rows
+    scene.woop[:, :3] *= 2.0  # the u rows of triangles 0-2
+    moved = scene.woop_rows()
+    assert moved is not rows and holds_woop(moved) and not holds_woop(rows)
+    assert dataclasses.replace(scene, num_tris=tp).woop_rows() is not moved

@@ -29,6 +29,8 @@ Package layout mirrors the JAX package:
            packing, denoise, TAA, post
   render/  the frames
   profile  where a frame's time goes on the card
+  kernel_ab  B6 and B7 against another commit's kernels on the card
+  timing   CUDA-event medians and the card's name and power limit
 """
 
 __version__ = "0.1.0"

@@ -40,7 +40,9 @@ import torch
 
 from .. import native
 from ..scene.scene import A
-from .megakernel import INF, TRI_CHUNK, RAY_CHUNK, closest_hit_plain, tri_hits
+from .megakernel import (
+    INF, TRI_CHUNK, RAY_CHUNK, check_sweep_t_min, closest_hit_plain, tri_hits,
+)
 
 
 def occlusion_plain(woop: torch.Tensor, o: torch.Tensor, d: torch.Tensor, t_min, t_max):
@@ -128,31 +130,35 @@ def closest_hit_plain_shaded(woop, attrs, o, d, t_min=1e-4, t_max=INF) -> Shaded
     return ShadedHit(t, tri.to(torch.int32), u, v, at)
 
 
-def closest_hit(woop, attrs, o, d, t_min=1e-4, t_max=INF) -> ShadedHit:
-    """Closest hit of rays o, d [N, 3] over woop [4, 3*Tp] in (t_min,
-    t_max) with the winner's row of attrs [Tp, A.WIDTH], as attribute rows
-    [A.WIDTH, N] (the layout every caller reads).
+def closest_hit(scene, o, d, t_min=1e-4, t_max=INF) -> ShadedHit:
+    """Closest hit of rays o, d [N, 3] over the scene's dense Woop table in
+    (t_min, t_max) with the winner's row of ``scene.tri_attrs``, as
+    attribute rows [A.WIDTH, N] (the layout every caller reads).
 
-    A CPU tensor takes the plain version; a CUDA tensor launches the kernel.
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel,
+    which sweeps the ``scene.num_tris`` real triangles only (the pad slots
+    past them are all-zero Woop rows, which never hit).
     """
     if o.device.type == "cpu":
-        return closest_hit_plain_shaded(woop, attrs, o, d, t_min, t_max)
+        return closest_hit_plain_shaded(scene.woop, scene.tri_attrs, o, d, t_min, t_max)
     n = o.shape[0]
-    tp = woop.shape[1] // 3
+    tp = scene.woop.shape[1] // 3
     native.require_cuda(o, "o", torch.float32, (n, 3))
     native.require_cuda(d, "d", torch.float32, (n, 3))
-    native.require_cuda(woop, "woop", torch.float32, (4, 3 * tp))
-    native.require_cuda(attrs, "attrs", torch.float32, (tp, A.WIDTH))
+    native.require_cuda(scene.woop, "woop", torch.float32, (4, 3 * tp))
+    native.require_cuda(scene.tri_attrs, "tri_attrs", torch.float32, (tp, A.WIDTH))
+    rows = scene.woop_rows()
     if tp % TRI_CHUNK:
         raise ValueError(f"triangle count {tp} is not padded to a multiple of {TRI_CHUNK}")
+    check_sweep_t_min(t_min)
     f32 = dict(dtype=torch.float32, device=o.device)
     t, u, v = (torch.empty((n,), **f32) for _ in range(3))
     tri = torch.empty((n,), dtype=torch.int32, device=o.device)
     at = torch.empty((A.WIDTH, n), **f32)
     err = native.lib().zr_closest(
-        o.data_ptr(), d.data_ptr(), woop.data_ptr(), attrs.data_ptr(), t.data_ptr(),
-        tri.data_ptr(), u.data_ptr(), v.data_ptr(), at.data_ptr(), n, tp, tie_chunk(tp),
-        float(t_min), float(t_max), native.stream_ptr(o.device),
+        o.data_ptr(), d.data_ptr(), rows.data_ptr(), scene.tri_attrs.data_ptr(),
+        t.data_ptr(), tri.data_ptr(), u.data_ptr(), v.data_ptr(), at.data_ptr(), n, tp,
+        scene.num_tris, tie_chunk(tp), float(t_min), float(t_max), native.stream_ptr(o.device),
     )
     native.check(err, "closest")
     closest_hit.launches += 1
@@ -172,4 +178,4 @@ def intersect_closest_shaded(scene, o: torch.Tensor, d: torch.Tensor, t_min=1e-4
         from .stream import closest_hit_stream_shaded
 
         return closest_hit_stream_shaded(scene, o, d, t_min, t_max)
-    return closest_hit(scene.woop, scene.tri_attrs, o, d, t_min, t_max)
+    return closest_hit(scene, o, d, t_min, t_max)

@@ -256,6 +256,13 @@ def _check_pt(cfg) -> None:
         raise NotImplementedError("not ported yet: " + ", ".join(missing))
 
 
+def check_sweep_t_min(t_min) -> None:
+    """The sweep of B6 and B7 (``csrc/sweep.cuh``) drops a pair by the signs
+    of its plane distances before dividing, which is exact for t_min >= 0."""
+    if not t_min >= 0.0:
+        raise ValueError(f"t_min={t_min}: the dense sweep of B6 and B7 needs t_min >= 0")
+
+
 def _check_dense(scene, name: str) -> None:
     """The bounce kernels sweep the whole triangle table: clustered scenes
     take ``ops.pathtracer.trace_reference`` instead."""
@@ -515,10 +522,11 @@ def bounce(scene, state, light_sets, b: int, seed: int, cfg, last: bool,
         return bounce_plain(scene, state, light_sets, b, seed, cfg, last, has_lights, rt)
     _check_pt(cfg)
     n, tp, n_sets, ps = _bounce_args(scene, state, light_sets, rt)
+    check_sweep_t_min(cfg.t_min)
     out = torch.empty_like(state)
     err = native.lib().zr_bounce(
-        state.data_ptr(), scene.woop.data_ptr(), scene.tri_attrs.data_ptr(),
-        light_sets.data_ptr(), out.data_ptr(), n, tp, n_sets, ps, rt, b,
+        state.data_ptr(), scene.woop_rows().data_ptr(), scene.tri_attrs.data_ptr(),
+        light_sets.data_ptr(), out.data_ptr(), n, tp, scene.num_tris, n_sets, ps, rt, b,
         int(seed) & 0xFFFFFFFF, cfg.t_min, cfg.min_emissive_bounce, cfg.min_nee_bounce,
         cfg.rr_start, int(cfg.nee), int(has_lights), int(last), native.stream_ptr(state.device),
     )

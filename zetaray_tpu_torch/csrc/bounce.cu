@@ -6,15 +6,27 @@
 // against every triangle, twice for a shaded bounce), not by bytes: a ray's
 // state, surface and light-set entry are read once.
 //
-// One thread per ray, BOUNCE_BLOCK (128) rays per block; the device
-// functions are those of path.cuh. Triangles stream through shared memory in
-// 128-wide Woop chunks for the closest hit and again for the NEE shadow
-// segment; a block leaves the shadow loop once every ray in it is occluded
-// or has no candidate. The tile width rt is a multiple of the block, so a
-// block's rays share one light set, staged in shared memory once (its first
-// LSET_STAGED rows). The five uniforms of a bounce come from one pcg4d per
-// ray, computed in place.
+// B4 and B5: one thread per ray, BOUNCE_BLOCK (128) rays per block; the
+// device functions are those of path.cuh. Triangles stream through shared
+// memory in 128-wide Woop chunks for the closest hit and again for the NEE
+// shadow segment; a block leaves the shadow loop once every ray in it is
+// occluded or has no candidate.
+//
+// B6 runs both sweeps through sweep.cuh: one ray a thread, real triangles
+// only, triangle-major rows in a double-buffered ring. During the
+// closest-hit sweep a thread holds only its ray and the running best; then
+// it reads the path state, adds the emission, rebuilds the surface, draws
+// the NEE sample and the BSDF sample and writes the next vertex, and keeps
+// only the shadow segment and the lit radiance for the shadow sweep, after
+// which an unblocked ray gets the lit radiance. A warp whose segments are
+// all done stops testing; the block leaves when all are.
+//
+// The tile width rt is a multiple of BOUNCE_BLOCK, so a block's rays share
+// one light set, staged in shared memory once (its first LSET_STAGED rows).
+// The five uniforms of a bounce come from one pcg4d per ray, computed in
+// place.
 #include "path.cuh"
+#include "sweep.cuh"
 
 namespace {
 
@@ -86,27 +98,47 @@ bounce_shade_kernel(const float* __restrict__ st_in, const float* __restrict__ s
 }
 
 // B6: one whole bounce; with last != 0 only the trace half and its emission.
-__global__ void __launch_bounds__(BOUNCE_BLOCK)
-bounce_kernel(const float* __restrict__ st_in, const float* __restrict__ woop,
+__global__ void __launch_bounds__(BOUNCE_BLOCK, zr::kSweepBlocks)
+bounce_kernel(const float* __restrict__ st_in, const float4* __restrict__ tri_rows,
               const float* __restrict__ attrs, const float* __restrict__ sets,
-              float* __restrict__ st_out, int n, int tp, zr::BounceParams prm, int last) {
-  __shared__ zr::WoopChunk chunk;
+              float* __restrict__ st_out, int n, int nt, zr::BounceParams prm, int last) {
+  __shared__ zr::SweepRing ring;
   extern __shared__ float lset[];  // [LSET_STAGED][ps]
-  const int p0 = blockIdx.x * blockDim.x;
+  const int p0 = blockIdx.x * BOUNCE_BLOCK;
   const int i = p0 + threadIdx.x;
   const bool live = i < n;
-  if (!last && prm.nee && prm.has_lights) {
-    zr::stage_light_set(lset, sets, zr::bounce_set(prm, p0), prm.ps);
-  }
+  const bool nee = !last && prm.nee && prm.has_lights;
+  if (nee) zr::stage_light_set(lset, sets, zr::bounce_set(prm, p0), prm.ps);
   __syncthreads();
 
-  zr::Path path = live ? zr::load_path(st_in, n, i) : zr::Path{};
-  zr::Surface sf;
-  int tri;
-  float bu, bv;
-  zr::trace_part(chunk, woop, attrs, tp, prm, live, path, sf, &tri, &bu, &bv);
-  if (!last) zr::shade_part(chunk, woop, tp, lset, prm, i, live, path, sf);
-  if (live) zr::store_path(st_out, n, i, path);
+  auto row = [&](int k) { return st_in[(size_t)k * n + i]; };
+  const zr::Ray ray = live ? zr::Ray{row(0), row(1), row(2), row(3), row(4), row(5)}
+                           : zr::Ray{0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  const zr::Hit hit = zr::closest_sweep(ring, tri_rows, nt, zr::kTriChunk, ray, prm.t_min, ZR_INF);
+
+  // what the shadow sweep needs: the segment, whether it is a candidate, and
+  // the radiance with the NEE light
+  zr::Ray seg = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  zr::V3f rad_lit;
+  bool cand = false;
+  if (live) {
+    zr::Path path = zr::load_path(st_in, n, i);
+    zr::Surface sf;
+    zr::surface_at(attrs, prm, hit.t, hit.tri, hit.u, hit.v, path, sf);
+    if (!last) {
+      zr::V3f so, to_l;
+      cand = zr::shade_sample(lset, prm, i, path, sf, &so, &to_l, &rad_lit);
+      seg = {so.x, so.y, so.z, to_l.x, to_l.y, to_l.z};
+    }
+    zr::store_path(st_out, n, i, path);
+  }
+  if (!nee) return;
+  const bool occ = zr::occluded_sweep(ring, tri_rows, nt, seg, zr::kEpsRay, (float)(1.0 - 1e-3),
+                                      !cand);
+  if (!cand || occ) return;  // a candidate lies below n
+  st_out[(size_t)9 * n + i] = rad_lit.x;
+  st_out[(size_t)10 * n + i] = rad_lit.y;
+  st_out[(size_t)11 * n + i] = rad_lit.z;
 }
 
 zr::BounceParams params(int bounce, uint32_t seed, int rt, int n_sets, int ps, float t_min,
@@ -158,18 +190,23 @@ extern "C" int zr_bounce_shade(const float* st_in, const float* surf, const floa
   return (int)cudaGetLastError();
 }
 
-extern "C" int zr_bounce(const float* st_in, const float* woop, const float* attrs,
-                         const float* sets, float* st_out, int n, int tp, int n_sets, int ps,
-                         int rt, int bounce, uint32_t seed, float t_min, int min_emissive_bounce,
-                         int min_nee_bounce, int rr_start, int nee, int has_lights, int last,
-                         void* stream) {
+// tri_rows: the triangle-major Woop rows [tp][12] (SceneBuffers.woop_rows());
+// nt: the real triangles, the first nt slots.
+extern "C" int zr_bounce(const float* st_in, const float* tri_rows, const float* attrs,
+                         const float* sets, float* st_out, int n, int tp, int nt, int n_sets,
+                         int ps, int rt, int bounce, uint32_t seed, float t_min,
+                         int min_emissive_bounce, int min_nee_bounce, int rr_start, int nee,
+                         int has_lights, int last, void* stream) {
+  if (nt < 0 || nt > tp || rt % BOUNCE_BLOCK || !(t_min >= 0.f)) {
+    return (int)cudaErrorInvalidValue;
+  }
   const zr::BounceParams p = params(bounce, seed, rt, n_sets, ps, t_min, min_emissive_bounce,
                                     min_nee_bounce, rr_start, nee, has_lights);
   const int grid = (n + BOUNCE_BLOCK - 1) / BOUNCE_BLOCK;
   const size_t smem = (size_t)LSET_STAGED * ps * sizeof(float);
   if (grid > 0) {
     bounce_kernel<<<grid, BOUNCE_BLOCK, smem, (cudaStream_t)stream>>>(
-        st_in, woop, attrs, sets, st_out, n, tp, p, last);
+        st_in, reinterpret_cast<const float4*>(tri_rows), attrs, sets, st_out, n, nt, p, last);
   }
   return (int)cudaGetLastError();
 }

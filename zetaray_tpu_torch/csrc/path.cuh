@@ -409,4 +409,106 @@ __device__ __forceinline__ bool shade_part(WoopChunk& chunk, const float* __rest
   return transmitted;
 }
 
+// B6's trace half after its sweep (sweep.cuh): what trace_part does with
+// the closest hit (t_hit, tri, bu, bv) -- MIS-weighted emission, alive =
+// found, the surface rebuilt at the hit.
+__device__ __forceinline__ void surface_at(const float* __restrict__ attrs,
+                                           const BounceParams& prm, float t_hit, int tri,
+                                           float bu, float bv, Path& path, Surface& sf) {
+  const bool hit = tri >= 0;
+  const float* row = attrs + (size_t)(hit ? tri : 0) * A_WIDTH;
+  auto at = [&](int k) { return hit ? row[k] : 0.f; };
+  auto at3 = [&](int k) { return V3f{at(k), at(k + 1), at(k + 2)}; };
+
+  const bool found = hit && path.alive;
+  const V3f ng_raw = at3(A_NG);
+  const float wo_dot_ng = -dot(path.d, ng_raw);
+  if (prm.has_lights) {
+    const bool vis_side = (at(A_DOUBLE) > 0.5f) || (wo_dot_ng > 0.f);
+    const float pdf_l_sa = at(A_EM_PDF_AREA) * t_hit * t_hit / fmaxf(fabsf(wo_dot_ng), 1e-8f);
+    const float mis = !prm.nee ? 1.f
+                      : (path.spec > 0.5f ? 1.f : power_heuristic(path.prev_pdf, pdf_l_sa));
+    float gain = (found && vis_side) ? mis : 0.f;
+    if (prm.bounce < prm.min_emissive_bounce) gain = 0.f;
+    path.rad = path.rad + path.thr * at3(A_EMISS) * gain;
+  }
+  path.alive = found;
+
+  const float w0 = 1.f - bu - bv;
+  V3f ns = normalize(at3(A_N0) * w0 + at3(A_N1) * bu + at3(A_N2) * bv, 1e-20f);
+  const bool front = wo_dot_ng > 0.f;
+  const float sgn = front ? 1.f : -1.f;
+  sf.ng = ng_raw * sgn;
+  ns = ns * sgn;
+  sf.ns = dot(ns, sf.ng) < 0.f ? -ns : ns;
+  sf.pos = path.o + path.d * t_hit;
+  const float ior = fmaxf(at(A_IOR), 1.01f);
+  sf.mat = {at3(A_BASE), at(A_METAL), at(A_ROUGH), ior};
+  sf.eta = front ? 1.f / ior : ior;
+}
+
+// B6's shade half before its shadow sweep: shade_part for ray i, with the
+// NEE sample's shadow segment handed back instead of traced. The path moves
+// to its next vertex without the NEE light. Returns whether the sample is a
+// candidate; then *so, *seg are its shadow segment (tested in (kEpsRay,
+// 1 - 1e-3)) and *rad_lit the path's radiance if nothing blocks it.
+__device__ __forceinline__ bool shade_sample(const float* lset, const BounceParams& prm, int i,
+                                             Path& path, const Surface& sf, V3f* so, V3f* seg,
+                                             V3f* rad_lit) {
+  uint32_t h0 = (uint32_t)i, h1 = (uint32_t)prm.bounce, h2 = prm.seed, h3 = BOUNCE_SALT;
+  pcg4d(h0, h1, h2, h3);
+  const float u1 = to_unit(h0), u5 = to_unit(h1), u6 = to_unit(h2), u7 = to_unit(h3);
+  const uint32_t lo = (h0 & 0xFFu) | ((h1 & 0xFFu) << 8) | ((h2 & 0xFFu) << 16);
+  const float u8 = (float)lo * (1.0f / 16777216.0f);
+
+  const Frame frame = make_frame(sf.ns);
+  const V3f wo_l = frame.to_local(-path.d);
+
+  bool candidate = false;
+  if (prm.nee && prm.has_lights) {
+    const int k = min((int)(u1 * (float)prm.ps), prm.ps - 1);
+    auto ls = [&](int r) { return lset[r * prm.ps + k]; };
+    const V3f lp = {ls(0), ls(1), ls(2)};
+    const V3f lng = {ls(3), ls(4), ls(5)};
+    const V3f lle = {ls(6), ls(7), ls(8)};
+    const float lpdf_area = ls(9);
+    const V3f to_l = lp - sf.pos;
+    const float dist2 = fmaxf(dot(to_l, to_l), 1e-12f);
+    const V3f wi_w = to_l * rsqrtf(dist2);
+    const float cos_surf = dot(wi_w, sf.ns);
+    const float cos_l_raw = -dot(wi_w, lng);
+    const float cos_l = ls(10) > 0.5f ? fabsf(cos_l_raw) : cos_l_raw;
+    float pdf_b;
+    const V3f f = bsdf_eval(sf.mat, wo_l, frame.to_local(wi_w), &pdf_b);
+    const float pdf_l_sa2 = lpdf_area * dist2 / fmaxf(cos_l, 1e-8f);
+    candidate = path.alive && cos_surf > 1e-6f && cos_l > 1e-6f && lpdf_area > 0.f &&
+                prm.bounce >= prm.min_nee_bounce;
+    // The segment starts off the surface but keeps the length lp - pos.
+    *so = sf.pos + sf.ng * kEpsRay;
+    *seg = to_l;
+    const float scale = cos_surf * power_heuristic(pdf_l_sa2, pdf_b) / fmaxf(pdf_l_sa2, 1e-12f);
+    *rad_lit = path.rad + path.thr * f * lle * scale;
+  }
+
+  V3f wgt;
+  float pdf;
+  const V3f wi_l = bsdf_sample(sf.mat, wo_l, u5, u6, u7, &wgt, &pdf);
+  const V3f wi_w2 = frame.to_world(wi_l);
+  const bool transmitted = wi_l.z < 0.f;
+  const float side = dot(wi_w2, sf.ng);
+  const bool geo_ok = transmitted ? side < -1e-6f : side > 1e-6f;
+  path.alive = path.alive && pdf > 0.f && geo_ok;
+  path.thr = path.thr * wgt;
+  if (prm.bounce >= prm.rr_start) {
+    const float q = clampf(fmaxf(path.thr.x, fmaxf(path.thr.y, path.thr.z)), 0.05f, 0.95f);
+    path.alive = path.alive && u8 < q;
+    path.thr = path.thr * (1.f / q);
+  }
+  path.o = sf.pos + sf.ng * (transmitted ? -kEpsRay : kEpsRay);
+  path.d = wi_w2;
+  path.prev_pdf = pdf;
+  path.spec = 0.f;
+  return candidate;
+}
+
 }  // namespace zr

@@ -1,0 +1,202 @@
+"""A/B of the dense-sweep kernels B6 (fused bounce) and B7 (closest hit +
+attribute row) against another commit's, on the card, in one process.
+
+    python -m zetaray_tpu_torch.kernel_ab --parent DIR [--out FILE]
+
+DIR is the other commit's package (``git archive <commit> zetaray_tpu_torch``
+unpacked; DIR is its ``zetaray_tpu_torch``). It is copied to a temporary
+directory outside the checkout and imported there under another name, so
+it builds its kernels from its own sources and launches them through its
+own wrappers (``accel.megakernel.bounce`` and
+``accel.intersect.intersect_closest_shaded``, whose signatures both
+commits share) on its own upload of the same scene.
+
+On the procedural Cornell box (36 triangles in 128 slots) and its
+8192-triangle subdivision, at 512^2 rays built as ``chip_smoke.py`` phase 3
+builds them (B6 on GI rays at bounce 1 and on its trace-only last bounce at
+2, B7 on ReSTIR PT prefix rays), it prints and writes to FILE (default
+``kernel_ab.json``):
+
+- each kernel's registers, stack frame and spills (``nvcc -Xptxas -v``) in
+  both builds;
+- each kernel's median time under CUDA events, taken in turns (parent, new,
+  new, parent), with this checkout's B4 and B5 timed beside them as the
+  control for the spread between calls;
+- whether every output of every ray is equal, bit for bit, between builds.
+
+Needs the card; it raises without CUDA.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import importlib
+import json
+import os
+import shutil
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
+import torch
+
+from . import native
+from .accel import intersect as XI
+from .accel import megakernel as MK
+from .timing import card_line, cuda_ms
+
+
+def import_package(src: Path, into: Path, name: str):
+    """The package at src, copied to into/name and imported as ``name``."""
+    shutil.copytree(src, into / name, ignore=shutil.ignore_patterns("_build", "__pycache__"))
+    sys.path.insert(0, str(into))
+    try:
+        return importlib.import_module(name)
+    finally:
+        sys.path.remove(str(into))
+
+
+def ptxas_report(nat) -> str:
+    """What ``nvcc -Xptxas -v`` prints for each source of a package's
+    ``native`` module: every kernel's registers, stack frame and spills."""
+    tmp_dir = Path(tempfile.mkdtemp())
+    try:
+        (tmp_dir / "layout.h").write_text(nat.layout_header())
+        cmds = [[nat._nvcc(), *nat.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-I", str(tmp_dir),
+                 "-o", str(tmp_dir / f"{p.stem}.o"), str(p)] for p in sorted(nat.CSRC.glob("*.cu"))]
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for c in cmds]
+        return "".join(p.communicate()[0] for p in procs)
+    finally:
+        shutil.rmtree(tmp_dir, ignore_errors=True)
+
+
+def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal bit for bit (NaN patterns included)."""
+    torch.cuda.synchronize()
+    return a.shape == b.shape and torch.equal(a.contiguous().view(torch.int32),
+                                              b.contiguous().view(torch.int32))
+
+
+def _inputs(scene, cam, res: int, seed: int):
+    """B6's and B7's inputs as chip_smoke.py phase 3 builds them."""
+    from .ops.pathtracer import PTConfig
+    from .ops.restir_gi import secondary_rays
+    from .ops.restir_pt import prefix_rays
+    from .render.frame import pick_rt
+
+    o, d = cam.generate_rays(res, res, device=scene.device)
+    gk = MK.gbuffer(scene, o, d)
+    lsets = MK.build_light_sets(scene, seed)
+    rt = pick_rt(res * res)
+    o2, d2, _, _ = secondary_rays(gk, seed)
+    cfg = PTConfig(max_bounces=2, min_emissive_bounce=1)
+    st4, sf4 = MK.bounce_trace_plain(scene, MK.initial_state(o2, d2), 0, cfg, True,
+                                     cam.pixel_spread_angle(res))
+    st5 = MK.bounce_shade_plain(scene, st4, sf4, lsets, 0, seed, cfg, True, rt)
+    b6 = (st5, lsets, 1, seed, cfg, False, True, rt)
+    b6_last = (MK.bounce_plain(scene, *b6), lsets, 2, seed, cfg, True, True, rt)
+    o7, d7 = prefix_rays(gk, seed)
+    return dict(b6=b6, b6_last=b6_last, b7=(o7, d7), b45=(st4, sf4, o2, d2, lsets, cfg, rt))
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", required=True, type=Path,
+                    help="directory of the other commit's zetaray_tpu_torch package")
+    ap.add_argument("--out", default="kernel_ab.json")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise RuntimeError("kernel_ab needs the card: CUDA is not available")
+    from .scene.camera import Camera
+    from .scene.procedural import CAMERA_EYE, CAMERA_TARGET, CAMERA_VFOV, cornell_box
+    from .scene.scene import upload_scene
+
+    card = card_line()
+    print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
+    work = Path(tempfile.mkdtemp(prefix="zetaray_ab_"))
+    report = {"card": card, "ptxas": {}, "scenes": {}}
+    try:
+        name = "zetaray_ab_parent"
+        import_package(args.parent.resolve(), work, name)
+        p_native, p_mk, p_xi, p_pt, p_proc, p_scene = (
+            importlib.import_module(f"{name}.{m}") for m in (
+                "native", "accel.megakernel", "accel.intersect", "ops.pathtracer",
+                "scene.procedural", "scene.scene"))
+        for label, nat in (("parent", p_native), ("new", native)):
+            text = report["ptxas"][label] = ptxas_report(nat)
+            print(f"ptxas, {label}:\n" + "\n".join(
+                line for line in text.splitlines()
+                if "bounce_kernel" in line or "closest_kernel" in line or "Used" in line
+                or "spill" in line), flush=True)
+        p_native.lib()
+        native.lib()
+
+        dev = torch.device("cuda", 0)
+        res, seed = 512, 0x2468ACE1
+        cam = Camera.look_at(CAMERA_EYE, CAMERA_TARGET, vfov_deg=CAMERA_VFOV, aspect=1.0)
+        for label, subdivide in (("cornell36", None), ("cornell8192", 8192)):
+            scene = upload_scene(cornell_box(subdivide_to=subdivide), device=dev)
+            scene_p = p_scene.upload_scene(p_proc.cornell_box(subdivide_to=subdivide), device=dev)
+            if not (bits_equal(scene.woop, scene_p.woop)
+                    and bits_equal(scene.tri_attrs, scene_p.tri_attrs)):
+                raise AssertionError(f"{label}: the two commits upload different scenes")
+            nt, tp = scene.num_tris, scene.woop.shape[1] // 3
+            inp = _inputs(scene, cam, res, seed)
+            st4, sf4, o2, d2, lsets, cfg, rt = inp["b45"]
+            cfg_p = p_pt.PTConfig(**{f.name: getattr(cfg, f.name)
+                                     for f in dataclasses.fields(p_pt.PTConfig)})
+            o7, d7 = inp["b7"]
+            st0 = MK.initial_state(o2, d2)
+
+            def b6(key):
+                st, *rest = inp[key]
+                rest_p = [cfg_p if x is cfg else x for x in rest]
+                return {"parent": lambda: p_mk.bounce(scene_p, st, *rest_p),
+                        "new": lambda: MK.bounce(scene, st, *rest)}
+
+            runs = {
+                "bounce": b6("b6"),
+                "bounce_last": b6("b6_last"),
+                "closest": {"parent": lambda: p_xi.intersect_closest_shaded(scene_p, o7, d7),
+                            "new": lambda: XI.intersect_closest_shaded(scene, o7, d7)},
+                "control_bounce_trace": {
+                    "this": lambda: MK.bounce_trace(scene, st0, 0, cfg, True),
+                },
+                "control_bounce_shade": {
+                    "this": lambda: MK.bounce_shade(scene, st4, sf4, lsets, 0, seed, cfg,
+                                                    True, rt),
+                },
+            }
+            out = report["scenes"][label] = {"nt": nt, "tp": tp, "rays": res * res}
+            for kname, fns in runs.items():
+                got = {v: fn() for v, fn in fns.items()}
+                got = {v: g if isinstance(g, tuple) else (g,) for v, g in got.items()}
+                ref = next(iter(got.values()))
+                rec = out[kname] = {v: {"equal_to_first": all(bits_equal(a, b)
+                                                              for a, b in zip(g, ref))}
+                                    for v, g in got.items()}
+                # in turns: forward then backward, a median of 20 runs each time
+                times = {v: [] for v in fns}
+                for v in list(fns) + list(reversed(fns)):
+                    times[v].append(cuda_ms(fns[v], reps=20))
+                for v in fns:
+                    rec[v]["ms"] = times[v]
+                print(f"{label} (nt {nt}, tp {tp}) {kname}: " + "; ".join(
+                    f"{v} {[round(x, 4) for x in r['ms']]} ms equal={r['equal_to_first']}"
+                    for v, r in rec.items()), flush=True)
+            del scene, scene_p, inp, runs
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+    with open(args.out, "w") as f:
+        json.dump(report, f, indent=1)
+    print(f"wrote {args.out}")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -60,12 +60,12 @@ _SIGNATURES = {
     # min_nee_bounce, rr_start, nee, has_lights, stream
     "zr_bounce_shade": [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, ctypes.c_uint32,
                         _I, _I, _I, _I, _VP],
-    # state, woop, attrs, sets, state_out, n, tp, n_sets, ps, rt, bounce, seed, t_min,
-    # min_emissive_bounce, min_nee_bounce, rr_start, nee, has_lights, last, stream
-    "zr_bounce": [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, ctypes.c_uint32, _F,
+    # state, woop_rows, attrs, sets, state_out, n, tp, nt, n_sets, ps, rt, bounce, seed,
+    # t_min, min_emissive_bounce, min_nee_bounce, rr_start, nee, has_lights, last, stream
+    "zr_bounce": [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _I, ctypes.c_uint32, _F,
                   _I, _I, _I, _I, _I, _I, _VP],
-    # o, d, woop, attrs, t, tri, u, v, attrs_out, n, tp, tie, t_min, t_max, stream
-    "zr_closest": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _F, _F, _VP],
+    # o, d, woop_rows, attrs, t, tri, u, v, attrs_out, n, tp, nt, tie, t_min, t_max, stream
+    "zr_closest": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _F, _F, _VP],
     # o, d, woop, tree_lo, tree_hi, tree_left, tree_right, tree_cluster, t, tri, n, tp, c,
     # t_min, t_max, stream
     "zr_stream_closest": [_VP] * 10 + [_I, _I, _I, _F, _F, _VP],

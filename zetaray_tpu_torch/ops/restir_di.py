@@ -42,18 +42,40 @@ _EPS_RAY = 1e-3
 _RIS_BLOCK = 128  # pixels per block of the RIS kernel; divides every tile width
 
 
+def refuse_unported_reuse(cfg) -> None:
+    """Raise for the reuse settings that the DI, GI and PT configs share and
+    the port does not implement: the full GGX+Lambert target
+    (``full_target=True``) and raw-float32 reuse gathers
+    (``packed_reuse=False``)."""
+    if cfg.full_target:
+        raise NotImplementedError(
+            "full_target=True: the full GGX+Lambert reuse target is not ported yet"
+        )
+    if not cfg.packed_reuse:
+        raise NotImplementedError(
+            "packed_reuse=False: raw-float32 reuse gathers are not ported yet"
+        )
+
+
 @dataclass(frozen=True)
 class ReSTIRConfig:
+    """Field names and defaults follow the JAX package."""
+
+    num_candidates: int = 16  # accepted and not read: RIS rates the whole light set, as in JAX
     temporal: bool = True
     m_max_factor: float = 20.0  # clamp temporal M to factor * M of the current reservoir
     spatial_iterations: int = 1
     spatial_radius: int = 16  # pixels
     depth_tolerance: float = 0.1  # relative depth test for reuse
     normal_tolerance: float = 0.9  # min dot(ns, ns_prev) for reuse
+    full_target: bool = False  # True is not ported yet
     lvg_samples: int = 0  # light-voxel-grid candidates: not ported yet
     spatial_mis: str = "biased"  # "pairwise" is not ported yet
+    spatial_neighbors: int = 3  # read by pairwise MIS only
+    packed_reuse: bool = True  # False is not ported yet
 
     def __post_init__(self):
+        refuse_unported_reuse(self)
         if self.lvg_samples > 0:
             raise NotImplementedError(
                 "light-voxel-grid DI candidates (ops.prelighting) are not ported yet"

@@ -33,7 +33,8 @@ from ..scene.scene import A
 from .gbuffer_pack import temporal_geom_ok
 from .pathtracer import park, trace_reference
 from .restir_di import (
-    disk_neighbor, drop_m_w, gather_reservoirs, geom_ok_slim, geom_table, reproject_prev,
+    disk_neighbor, drop_m_w, gather_reservoirs, geom_ok_slim, geom_table, refuse_unported_reuse,
+    reproject_prev,
 )
 
 R_ROWS = 16
@@ -42,14 +43,21 @@ _EPS_RAY = 1e-3
 
 @dataclass(frozen=True)
 class ReSTIRGIConfig:
+    """Field names and defaults follow the JAX package."""
+
     temporal: bool = True
+    full_target: bool = False  # True is not ported yet
     m_max: float = 10.0  # temporal M cap
     spatial_iterations: int = 1
     spatial_radius: int = 12
     depth_tolerance: float = 0.1
     normal_tolerance: float = 0.9
+    packed_reuse: bool = True  # False is not ported yet
     lvg: bool = False  # light-voxel-grid NEE at x2: not ported yet (the frame refuses it)
     boiling_suppression: bool = True
+
+    def __post_init__(self):
+        refuse_unported_reuse(self)
 
 
 def _surf(gbuf):

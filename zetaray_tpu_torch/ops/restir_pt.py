@@ -41,7 +41,9 @@ from . import shading_soa as S
 from .gbuffer_pack import temporal_geom_ok
 from .pathtracer import trace
 from .reservoir_pack import PT_PACKED_ROWS, pack_pt, unpack_pt
-from .restir_di import disk_neighbor, geom_ok_slim, geom_table, reproject_prev, take_multi
+from .restir_di import (
+    disk_neighbor, geom_ok_slim, geom_table, refuse_unported_reuse, reproject_prev, take_multi,
+)
 from .restir_gi import _surf, suppress_outlier_reservoirs
 
 _EPS_RAY = 1e-3
@@ -89,9 +91,7 @@ class PR:
 
 @dataclass(frozen=True)
 class ReSTIRPTConfig:
-    """Field names and defaults follow the JAX package (its ``full_target``
-    and ``packed_reuse`` are gone: merges use the albedo/pi target and the
-    reuse gathers are packed, as the JAX defaults)."""
+    """Field names and defaults follow the JAX package."""
 
     temporal: bool = True
     m_max: float = 10.0  # temporal M cap
@@ -103,9 +103,14 @@ class ReSTIRPTConfig:
     min_reconnect_rough: float = 0.1  # rc roughness below this -> no reconnection
     replay: bool = True  # replay shift where the reconnection is invalid
     force_replay: bool = False  # testing hook: every merge takes the replay shift
+    full_target: bool = False  # True is not ported yet
     sort_suffix: bool = True  # trace the suffix rays sorted by (material, octant)
+    packed_reuse: bool = True  # False is not ported yet
     spatial_search: int = 1  # neighbours probed for one that passes the geometry test
     boiling_suppression: bool = True
+
+    def __post_init__(self):
+        refuse_unported_reuse(self)
 
 
 def _rc_mat(res):

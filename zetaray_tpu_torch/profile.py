@@ -54,6 +54,7 @@ from .scene.camera import Camera
 from .scene.procedural import CAMERA_EYE, CAMERA_TARGET, CAMERA_VFOV, cornell_box
 from .scene.scene import upload_scene
 from .scene.subdivide import subdivide_scene
+from .timing import card_line
 
 # (module, attribute, pass name): the stage functions the frames call
 STAGES = [
@@ -232,9 +233,7 @@ def main() -> int:
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile: CUDA is not available")
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True, text=True,
-                          check=True).stdout.strip().splitlines()[0]
+    card = card_line()
     scenes = {}
     result = {"card": card, "kind": torch.cuda.get_device_name(0), "paths": {}}
     for name in args.paths.split(","):

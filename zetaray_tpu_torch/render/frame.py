@@ -19,8 +19,8 @@ wavefront ``ops.pathtracer.trace_reference``: the ReSTIR GI frame and plain
 PT run; ReSTIR PT there is not ported yet.
 
 The JAX frame's banded gathers (``band_rows``/``band_halo``) are a TPU
-workaround and have no counterpart here: reuse gathers read the whole
-previous frame.
+workaround and have no counterpart here: the two fields are accepted and
+have no effect, and reuse gathers read the whole previous frame.
 """
 
 from __future__ import annotations
@@ -51,12 +51,17 @@ class RenderConfig:
     mode: str = "pt"
     pt: PTConfig = field(default_factory=PTConfig)
     restir: RD.ReSTIRConfig = field(default_factory=RD.ReSTIRConfig)
-    restir_gi: RG.ReSTIRGIConfig = field(default_factory=RG.ReSTIRGIConfig)
-    restir_pt: RP.ReSTIRPTConfig = field(default_factory=RP.ReSTIRPTConfig)
+    restir_gi: RG.ReSTIRGIConfig | None = None  # None: the default, built in __post_init__
+    restir_pt: RP.ReSTIRPTConfig | None = None  # None: the default, built in __post_init__
     indirect: bool = True
+    lvg_cfg: object = None  # the light-voxel grid's shape: not ported yet
     skydi: bool = False
+    skydi_cfg: object = None  # not ported yet
     volumetrics: object = None
     render_scale: float = 1.0
+    upscale_cfg: object = None  # not ported yet
+    band_rows: int = -1  # accepted, no effect: the port has no banded gathers
+    band_halo: int = 64  # accepted, no effect
     tonemapper: str = "agx"
     auto_exposure: bool = True
     exposure_mode: str = "histogram"
@@ -64,6 +69,17 @@ class RenderConfig:
     firefly_factor: float = 0.0
     denoise: bool = False
     taa: bool = True
+
+    def __post_init__(self):
+        if self.restir_gi is None:
+            object.__setattr__(self, "restir_gi", RG.ReSTIRGIConfig())
+        if self.restir_pt is None:
+            object.__setattr__(self, "restir_pt", RP.ReSTIRPTConfig())
+        for name, what in (("lvg_cfg", "the light-voxel grid (ops.prelighting)"),
+                           ("skydi_cfg", "SkyDI (ops.skydi)"),
+                           ("upscale_cfg", "the temporal upscaler (ops.upscale)")):
+            if getattr(self, name) is not None:
+                raise NotImplementedError(f"{name}: {what} is not ported yet")
 
     def check_ported(self, plain: bool = False) -> None:
         """Raise for any setting this package does not implement yet, in

@@ -19,7 +19,7 @@ two-phase distance cap (``stream_tcap``) have no counterpart.
 
 from __future__ import annotations
 
-from dataclasses import dataclass, fields
+from dataclasses import dataclass, field, fields
 
 import numpy as np
 import torch
@@ -191,10 +191,26 @@ class SceneBuffers:
     tree_left: torch.Tensor | None = None  # [K] int32 children, -1 at a leaf
     tree_right: torch.Tensor | None = None
     tree_cluster: torch.Tensor | None = None  # [K] int32 a leaf's cluster, else -1
+    # woop_rows()'s cache: (woop's version counter, the rows)
+    _woop_rows: tuple | None = field(default=None, init=False, repr=False, compare=False)
 
     @property
     def device(self) -> torch.device:
         return self.woop.device
+
+    def woop_rows(self) -> torch.Tensor:
+        """``woop`` [4, 3*Tp] triangle by triangle, [Tp, 12]: per triangle the
+        w, u and v rows of its Woop transform, each as (x, y, z, translation).
+        The table that the sweep of kernels B6 and B7 stages. Made at first
+        use, and made again whenever ``woop`` was changed in place (its
+        version counter moved), so the two tables never disagree; a write
+        through a raw pointer does not move the counter."""
+        version = self.woop._version
+        if self._woop_rows is None or self._woop_rows[0] != version:
+            tp = self.woop.shape[1] // 3
+            rows = self.woop.reshape(4, 3, tp)[:, [2, 0, 1]].permute(2, 1, 0).reshape(tp, 12)
+            object.__setattr__(self, "_woop_rows", (version, rows.contiguous()))
+        return self._woop_rows[1]
 
 
 def _woop_matrices(v0, v1, v2) -> np.ndarray:
@@ -428,6 +444,8 @@ def buffers_from_arrays(d: dict, device=None) -> SceneBuffers:
         d.update(cluster_tree(d["cluster_aabb"]), cluster_size=tp // m)
     kw = {}
     for f in fields(SceneBuffers):
+        if not f.init:
+            continue
         v = d.get(f.name) if f.default is None else d[f.name]
         if v is None:
             kw[f.name] = None

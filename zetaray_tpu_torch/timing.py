@@ -1,0 +1,33 @@
+"""Timing on the card, shared by ``chip_smoke.py``, ``profile`` and
+``kernel_ab``: the card's name and power limit, and CUDA-event medians."""
+
+from __future__ import annotations
+
+import statistics
+import subprocess
+
+import torch
+
+
+def card_line() -> str:
+    """The card's name and power limit, as ``nvidia-smi --query-gpu=
+    name,power.limit --format=csv,noheader`` prints them."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
+    """Median milliseconds of fn() over reps runs, timed with CUDA events."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
