@@ -18,13 +18,14 @@ Phases (any failure exits non-zero):
      count they sweep (nt) and the ray-triangle pairs they test a second.
      On the box split to 139,266 triangles
      (bench.py's large scene, clustered into 798 clusters of 256 slots) at
-     256^2: the streaming closest hit (B8) on camera rays, on bench.py's
-     GI-like rays (origins at the primary hits, random unit directions),
-     on those of them whose primary ray hit, and on the frame's GI bounce-0
-     rays, and the streaming any hit (B9) on the frame's DI shadow
-     segments, with bench.py's raw primary and GI-like rates. Each kernel's
-     least time on the card (bound_ms) is reckoned from this run's work and
-     the H100's published peaks;
+     256^2 (its upload time, B8's tree included, printed): the streaming
+     closest hit (B8) on camera rays, on bench.py's GI-like rays (origins at
+     the primary hits, random unit directions; a missed primary ray's far
+     end near 3e38), on those of them whose primary ray hit (the rest
+     parked), and on the frame's GI bounce-0 rays, and the streaming any
+     hit (B9) on the frame's DI shadow segments, with bench.py's raw primary
+     and GI-like rates. Each kernel's least time on the card (bound_ms) is
+     reckoned from this run's work and the H100's published peaks;
   4. renders chained frames of each path with its launch counters set to 0
      just before it and read just after: the DI-only slice at 512^2
      (indirect off), the main path -- the flagship frame of bench.py
@@ -122,6 +123,7 @@ def main() -> int:
     from zetaray_tpu_torch.accel import intersect as XI
     from zetaray_tpu_torch.accel import megakernel as MK
     from zetaray_tpu_torch.accel import stream as ST
+    from zetaray_tpu_torch.accel.bvh import LEAF_SIZE
     from zetaray_tpu_torch.ops import restir_di as RD
     from zetaray_tpu_torch.ops.pathtracer import PTConfig, park
     from zetaray_tpu_torch.ops.restir_gi import secondary_rays
@@ -199,7 +201,7 @@ def main() -> int:
 
         so = (gk[MK.G.POS : MK.G.POS + 3] + 1e-3 * gk[MK.G.NG : MK.G.NG + 3]).T.contiguous()
         seg = (rk[0:3] - gk[MK.G.POS : MK.G.POS + 3]).T.contiguous()
-        ok = XI.occlusion(scene.woop, so, seg, 1e-3, 1.0 - 1e-3)
+        ok = XI.occlusion(scene, so, seg, 1e-3, 1.0 - 1e-3)
         op = XI.occlusion_plain(scene.woop, so, seg, 1e-3, 1.0 - 1e-3)
         torch.cuda.synchronize()
         n_diff = (ok != op).sum().item()
@@ -208,7 +210,7 @@ def main() -> int:
         n_occ = ok.sum().item()
         # an occluded ray needs at least one test, a free one all of them
         put("occlusion", float((ok.int() - op.int()).abs().max().item()),
-            cuda_ms(lambda: XI.occlusion(scene.woop, so, seg, 1e-3, 1.0 - 1e-3), reps=20),
+            cuda_ms(lambda: XI.occlusion(scene, so, seg, 1e-3, 1.0 - 1e-3), reps=20),
             cuda_ms(lambda: XI.occlusion_plain(scene.woop, so, seg, 1e-3, 1.0 - 1e-3),
                     reps=3, warmup=1),
             PAIR_OPS * ((n - n_occ) * n_tri + n_occ), n * (6 + 1) * F32 + 12 * n_tri * F32)
@@ -302,7 +304,10 @@ def main() -> int:
 
     # -- phase 3 on the clustered box: B8 and B9 against their plain versions
     big_cpu = subdivide_scene(cornell_box(), 100_000)
+    t_up = time.perf_counter()
     big = upload_scene(big_cpu, device=dev)
+    torch.cuda.synchronize()
+    t_up = time.perf_counter() - t_up
     if big.cluster_aabb is None:
         raise AssertionError(f"{big_cpu.num_tris} triangles: the large box did not cluster")
     res_c = 256
@@ -310,21 +315,20 @@ def main() -> int:
     oc, dc = cam.generate_rays(res_c, res_c, device=dev)
     tp_c = big.woop.shape[1] // 3
     n_cl = big.cluster_aabb.shape[0]
+    n_leaves = int((big.walk_nodes[:, 12:14] < 0).sum().item())
     print(f"cornell139k: {big_cpu.num_tris} triangles in {n_cl} clusters of "
-          f"{big.cluster_size} slots", flush=True)
-    # a query reads at least the rays, writes its outputs, and reads the Woop
-    # rows of the real triangles (pad slots are all-zero rows) and the tree
-    # once; a hit ray (B8) needs at least the Woop tests of the real triangles
-    # of the cluster that holds its hit, a blocked segment (B9) one test --
-    # a floor, since the walk also tests the clusters it passes through first
-    real_c = (big.woop.reshape(4, 3, -1) != 0).any(0).any(0)  # [Tp] slot holds a triangle
-    real_per_cluster = real_c.reshape(-1, big.cluster_size).sum(1)
-    n_real = int(real_c.sum().item())
-    if n_real != big_cpu.num_tris:
-        raise AssertionError(f"{n_real} non-zero Woop slots for {big_cpu.num_tris} triangles")
-    tree_bytes = sum(x.numel() * x.element_size() for x in (
-        big.tree_lo, big.tree_hi, big.tree_left, big.tree_right, big.tree_cluster))
-    scene_bytes_c = 12 * n_real * F32 + tree_bytes
+          f"{big.cluster_size} slots; B8's tree {big.walk_nodes.shape[0]} nodes, {n_leaves} "
+          f"leaves of at most {LEAF_SIZE} triangles, stack {big.walk_stack}; upload "
+          f"{t_up:.3f} s", flush=True)
+    # the floor of any walk: a query reads the rays and writes its outputs;
+    # B8 reads the Woop rows of the distinct slots it returns, and a ray that
+    # hits (B8) or is blocked (B9) needs one Woop test. What else a walk
+    # reads (nodes, rows of triangles it misses, for B9 which blocker)
+    # depends on its tree, so it is not counted
+    n_real = int((big.woop.reshape(4, 3, -1) != 0).any(0).any(0).sum().item())
+    if n_real != big_cpu.num_tris or big.leaf_slot.shape[0] != n_real:
+        raise AssertionError(f"{n_real} non-zero Woop slots and {big.leaf_slot.shape[0]} "
+                             f"leaf rows for {big_cpu.num_tris} triangles")
     rec_c = record["cornell139k"] = {}
 
     def check_b8(label, o_, d_):
@@ -340,8 +344,8 @@ def main() -> int:
                   (tri_k - tri_p).abs().max().item())
         ms = cuda_ms(lambda: ST.stream_closest(big, o_, d_), reps=10)
         plain = cuda_ms(lambda: ST.stream_closest_plain(big, o_, d_), reps=1, warmup=0)
-        tests = int(real_per_cluster[tri_p[hit].long() // big.cluster_size].sum().item())
-        b_ms, b_by = bound(PAIR_OPS * tests, o_.shape[0] * (6 + 2) * F32 + scene_bytes_c)
+        b_ms, b_by = bound(PAIR_OPS * int(hit.sum().item()),
+                           o_.shape[0] * (6 + 2) * F32 + tri_p[hit].unique().numel() * 12 * F32)
         print(f"cornell139k ({tp_c} slots in {n_cl} clusters, {o_.shape[0]} {label}, "
               f"{hit.float().mean().item():.4f} hit): stream_closest {ms:.4f} ms (plain "
               f"{plain:.3f}, bound {b_ms:.4f} by {b_by}), t and slot equal", flush=True)
@@ -375,7 +379,7 @@ def main() -> int:
         raise AssertionError(f"occlusion_stream: {(occ_k != occ_p).sum().item()} segments "
                              "differ from the plain version")
     n_occ_c = int(occ_p.sum().item())
-    b_ms, b_by = bound(PAIR_OPS * n_occ_c, n_c * (6 + 1) * F32 + scene_bytes_c)
+    b_ms, b_by = bound(PAIR_OPS * n_occ_c, n_c * (6 + 1) * F32)
     rec_c["occlusion_stream"] = dict(
         max_abs_err=float((occ_k.int() - occ_p.int()).abs().max().item()),
         ms=cuda_ms(lambda: ST.occlusion_stream(big, so_c, seg_c, 1e-3, 1.0 - 1e-3), reps=10),

@@ -9,6 +9,7 @@ of JAX, so they also run where JAX is not installed:
 import pytest
 import torch
 
+from zetaray_tpu_torch.accel import bvh as TB
 from zetaray_tpu_torch.accel import intersect as XI
 from zetaray_tpu_torch.accel import megakernel as MK
 from zetaray_tpu_torch.accel import stream as ST
@@ -17,8 +18,10 @@ from zetaray_tpu_torch.ops.pathtracer import PTConfig
 from zetaray_tpu_torch.ops.restir_gi import secondary_rays
 from zetaray_tpu_torch.render.frame import RenderConfig, pick_rt, render_frame, render_frame_restir
 from zetaray_tpu_torch.scene.camera import Camera
-from zetaray_tpu_torch.scene.procedural import CAMERA_EYE, CAMERA_TARGET, CAMERA_VFOV, cornell_box
-from zetaray_tpu_torch.scene.scene import upload_scene
+from zetaray_tpu_torch.scene.procedural import (
+    CAMERA_EYE, CAMERA_TARGET, CAMERA_VFOV, cornell_box, repeated_box,
+)
+from zetaray_tpu_torch.scene.scene import upload_scene, with_cluster_tree
 from zetaray_tpu_torch.scene.subdivide import subdivide_scene
 
 torch.set_num_threads(1)
@@ -68,7 +71,7 @@ def test_ris_and_occlusion_kernels_match_plain(cuda):
     torch.testing.assert_close(rk[:, same], rp[:, same], rtol=1e-5, atol=1e-6)
     so = (gb[MK.G.POS : MK.G.POS + 3] + 1e-3 * gb[MK.G.NG : MK.G.NG + 3]).T.contiguous()
     seg = (rk[0:3] - gb[MK.G.POS : MK.G.POS + 3]).T.contiguous()
-    ok = XI.occlusion(scene.woop, so, seg, 1e-3, 1.0 - 1e-3)
+    ok = XI.occlusion(scene, so, seg, 1e-3, 1.0 - 1e-3)
     assert torch.equal(ok, XI.occlusion_plain(scene.woop, so, seg, 1e-3, 1.0 - 1e-3))
     assert 0 < ok.sum() < ok.numel()
 
@@ -80,7 +83,7 @@ def test_wrappers_reject_bad_inputs(cuda):
     with pytest.raises(ValueError):
         MK.gbuffer(scene, o.T.contiguous().T, d)  # not contiguous
     with pytest.raises(TypeError):
-        XI.occlusion(scene.woop, o.double(), d.double())
+        XI.occlusion(scene, o.double(), d.double())
 
 
 def _close_rays(k, p, rows=slice(None)):
@@ -142,15 +145,16 @@ def test_closest_kernel_matches_plain(cuda, subdivide):
 @pytest.mark.cuda
 @pytest.mark.parametrize("subdivide", [None, 200, 300, 1000])
 def test_sweep_kernels_on_ragged_shapes(cuda, subdivide):
-    """B6 and B7 where their sweep has ragged edges: 36, 200, 300 or 1000
-    real triangles (1, 2, 3 and 8 chunks of the 128-triangle staging ring,
-    none full; with an odd count of at least 3 the shadow sweep starts in
-    the ring stage that holds the closest-hit sweep's last chunk), 1000 rays
-    (not a multiple of a block's 128) and B6 with the narrowest tile width,
-    rt = 128. B7 equal to its plain version in every output. B6 as in
+    """B3, B6 and B7 where their sweep has ragged edges: 36, 200, 300 or
+    1000 real triangles (1, 2, 3 and 8 chunks of the 128-triangle staging
+    ring, none full; with an odd count of at least 3 B6's shadow sweep
+    starts in the ring stage that holds the closest-hit sweep's last chunk),
+    1000 rays (not a multiple of a block's 128) and B6 with the narrowest
+    tile width, rt = 128. B3 equal to its plain version on shadow segments
+    and on rays of unbounded length, B7 in every output. B6 as in
     test_bounce_kernels_match_plain, and on every ray that found a hit its
     next origin (the hit point moved off the surface) equal bit for bit.
-    Both refuse a negative t_min."""
+    All three refuse a negative t_min."""
     scene = upload_scene(cornell_box(subdivide_to=subdivide), device=cuda)
     assert scene.num_tris % 128
     _, o, d = _rays(cuda, 32)
@@ -162,6 +166,11 @@ def test_sweep_kernels_on_ragged_shapes(cuda, subdivide):
     assert 0.3 < (want.tri >= 0).float().mean() < 1.0
     assert all(torch.equal(a, b) for a, b in zip(got, want))
     lsets = MK.build_light_sets(scene, SEED)
+    seg = (MK.build_light_sets(scene, SEED + 1)[0, 0:3, :1].T - o2).contiguous()
+    for dirs, t_min, t_max in ((seg, 1e-3, 1.0 - 1e-3), (d2, 1e-4, MK.INF)):
+        occ = XI.occlusion(scene, o2, dirs, t_min, t_max)
+        assert torch.equal(occ, XI.occlusion_plain(scene.woop, o2, dirs, t_min, t_max))
+        assert 0 < occ.sum() < occ.numel()
     cfg = PTConfig(max_bounces=3, min_emissive_bounce=1, rr_start=1)
     st, surf = MK.bounce_trace_plain(scene, MK.initial_state(o2, d2), 0, cfg, True)
     st5 = MK.bounce_shade_plain(scene, st, surf, lsets, 0, SEED, cfg, True, 128)
@@ -176,6 +185,8 @@ def test_sweep_kernels_on_ragged_shapes(cuda, subdivide):
             assert torch.equal(st6[0:3, f6], st6_p[0:3, f6])
     with pytest.raises(ValueError, match="t_min"):
         XI.closest_hit(scene, o2, d2, t_min=-1.0)
+    with pytest.raises(ValueError, match="t_min"):
+        XI.occlusion(scene, o2, d2, t_min=-1.0)
     with pytest.raises(ValueError, match="t_min"):
         MK.bounce(scene, st5, lsets, 1, SEED, PTConfig(t_min=-1.0), False, True, 128)
 
@@ -213,13 +224,28 @@ def test_card_plain_pt_frame_matches_cpu_frame(cuda):
 
 
 @pytest.mark.cuda
-def test_stream_kernels_match_plain(cuda):
-    """B8 and B9 on the box split to 8706 triangles (34 clusters of 256)
-    against their plain versions: camera rays, rays leaving each primary hit
-    (or, where the primary ray missed, from its far end, as bench.py builds
-    them) in random directions, and shadow segments; t and slot equal."""
-    scene = upload_scene(subdivide_scene(cornell_box(), 8193), device=cuda)
+@pytest.mark.parametrize("name,cluster_size", [("box8706", None), ("box546", 128),
+                                               ("ties", 128), ("deep", 128)])
+def test_stream_kernels_match_plain(cuda, name, cluster_size):
+    """B8 and B9 against their plain versions on the box split to 8706
+    triangles (34 clusters of 256), on the box split to 546 triangles in
+    clusters of 128, on the box with each triangle repeated 160 times
+    (clusters of 128), where the tie rule (t, cluster, -slot) decides every
+    hit, and on the box bisected to 56 triangles, each repeated 100 times,
+    with its 56 clusters in a chain (B9's tree 55 deep, B8's stack 61
+    entries, 61 KiB of shared memory a block): camera rays, rays leaving
+    each primary hit (or, where the primary ray missed, from its far end,
+    as bench.py builds them) in random directions, and shadow segments; t
+    and slot equal. B8 refuses a negative t_min."""
+    cpu = {"box8706": lambda: subdivide_scene(cornell_box(), 8193),
+           "box546": lambda: subdivide_scene(cornell_box(), 500),
+           "ties": lambda: repeated_box(160),
+           "deep": lambda: repeated_box(100, 56)}[name]()
+    scene = upload_scene(cpu, device=cuda, cluster_size=cluster_size)
     assert scene.cluster_aabb is not None
+    if name == "deep":
+        scene = with_cluster_tree(scene, TB.chain_tree(scene.cluster_aabb.cpu().numpy()))
+        assert scene.walk_stack == 61
     _, o, d = _rays(cuda)
     g = torch.Generator(device=cuda).manual_seed(SEED)
     before = (ST.stream_closest.launches, ST.occlusion_stream.launches)
@@ -244,6 +270,8 @@ def test_stream_kernels_match_plain(cuda):
     # the G-buffer took B8 too
     assert (ST.stream_closest.launches, ST.occlusion_stream.launches) == (
         before[0] + 3, before[1] + 1)
+    with pytest.raises(ValueError, match="t_min"):
+        ST.stream_closest(scene, o, d, t_min=-1.0)
 
 
 @pytest.mark.cuda

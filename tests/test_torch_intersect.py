@@ -26,6 +26,8 @@ from zetaray_tpu.scene.scene import A as JA
 from zetaray_tpu_torch import native
 from zetaray_tpu_torch.accel import bvh as TB
 from zetaray_tpu_torch.accel import megakernel as MK
+from zetaray_tpu_torch.accel import intersect as XI
+from zetaray_tpu_torch.accel import stream as ST
 from zetaray_tpu_torch.accel.intersect import closest_hit_plain_shaded, occlusion, occlusion_plain
 from zetaray_tpu_torch.accel.megakernel import G, gbuffer, gbuffer_plain
 from zetaray_tpu_torch.ops.pathtracer import PTConfig
@@ -34,6 +36,7 @@ from zetaray_tpu_torch.scene.procedural import (
     CAMERA_EYE, CAMERA_TARGET, CAMERA_VFOV, SYMMETRIC_ROOM, cornell_box,
 )
 from zetaray_tpu_torch.scene.scene import upload_scene
+from zetaray_tpu_torch.scene.subdivide import subdivide_scene
 from tests.test_torch_scene import SCENES, scene_pair
 
 torch.set_num_threads(1)
@@ -83,7 +86,7 @@ def test_occlusion_plain_matches_jax(name, rays, t_min, t_max):
     assert 0 < got.sum() < got.numel()
     # the wrapper takes the plain version for CPU tensors
     np.testing.assert_array_equal(
-        occlusion(tdev.woop, torch.from_numpy(o), torch.from_numpy(d), t_min, t_max).numpy(),
+        occlusion(tdev, torch.from_numpy(o), torch.from_numpy(d), t_min, t_max).numpy(),
         got.numpy())
 
 
@@ -180,7 +183,7 @@ def test_gbuffer_symmetric_box_flips_only_on_edges():
 
 
 _LAYOUT_NAMES = (r"[AG]_[A-Z0-9_]+|LSET_ROWS|LSET_STAGED|R_ROWS|STATE_ROWS|SURF_ROWS"
-                 r"|BOUNCE_BLOCK|BOUNCE_SALT|GGX_[A-Z_]+|TREE_STACK|TREE_PAD_REL")
+                 r"|BOUNCE_BLOCK|BOUNCE_SALT|GGX_[A-Z_]+|TREE_STACK|WALK_STACK_MAX|TREE_PAD_REL")
 
 
 def _header_constants(text):
@@ -194,8 +197,8 @@ def test_kernel_layout_header_matches_the_reference():
     albedo fit, whose coefficients read back as exactly the JAX package's
     Python floats. ``LSET_STAGED`` is the 11 filled rows of a light set
     (pos, ng, Le, pdf, two-sided); ``BOUNCE_BLOCK`` has no JAX counterpart
-    and must divide every tile width the frame picks; nor have the cluster
-    tree's stack depth and box padding (``accel.bvh``)."""
+    and must divide every tile width the frame picks; nor have the tree
+    walks' stack limits and box padding (``accel.bvh``)."""
     text = native.layout_header()
     consts = _header_constants(text)
     want = {f"{p}_{k}": v for p, cls in (("A", JA), ("G", JG))
@@ -204,7 +207,7 @@ def test_kernel_layout_header_matches_the_reference():
     want.update(LSET_ROWS=JLSET_ROWS, LSET_STAGED=11, R_ROWS=JR_ROWS,
                 STATE_ROWS=JMK.STATE_ROWS, SURF_ROWS=JMK.SURF_ROWS,
                 BOUNCE_BLOCK=MK.BOUNCE_BLOCK, BOUNCE_SALT=salt, GGX_E_DEG=JS._GGX_E_DEG,
-                TREE_STACK=TB.TREE_STACK)
+                TREE_STACK=TB.TREE_STACK, WALK_STACK_MAX=TB.WALK_STACK_MAX)
     assert all(pick_rt(n) % MK.BOUNCE_BLOCK == 0 for n in (100, 64 * 64, 512 * 512, 1920 * 1080))
     assert consts == want
     arrays = {k: [float(x) for x in v.split(",")]
@@ -303,3 +306,23 @@ def test_woop_rows_follow_the_woop_table(subdivide):
     moved = scene.woop_rows()
     assert moved is not rows and holds_woop(moved) and not holds_woop(rows)
     assert dataclasses.replace(scene, num_tris=tp).woop_rows() is not moved
+
+
+def test_dense_queries_refuse_clustered_scenes():
+    """B3's and B7's wrappers sweep the dense table from slot 0, where a
+    clustered scene has pad slots inside each cluster and real triangles
+    past num_tris: they raise on such a scene before any launch, on the CPU
+    as on the card. ``intersect_occluded`` and ``intersect_closest_shaded``
+    take it to B9 and B8."""
+    scene = upload_scene(subdivide_scene(cornell_box(), 500), device="cpu", cluster_size=128)
+    assert scene.cluster_aabb is not None
+    o, d = (torch.from_numpy(x) for x in _camera_rays(16))
+    with pytest.raises(ValueError, match="dense scenes only.*intersect_occluded"):
+        occlusion(scene, o, d)
+    with pytest.raises(ValueError, match="dense scenes only.*intersect_closest_shaded"):
+        XI.closest_hit(scene, o, d)
+    assert torch.equal(XI.intersect_occluded(scene, o, d, 1e-3, 0.5),
+                       ST.occlusion_stream_plain(scene, o, d, 1e-3, 0.5))
+    _, tri = ST.stream_closest_plain(scene, o, d)
+    assert torch.equal(XI.intersect_closest_shaded(scene, o, d).tri, tri)
+    assert (tri >= 0).any()

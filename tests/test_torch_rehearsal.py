@@ -1,0 +1,317 @@
+"""The ray-query kernels B3, B8 and B9 built for the host and held to their
+plain versions, so that their logic (the sign test, the pruning, B8's tie
+rule and node culling) is checked on every run of the tests, with no card.
+
+``csrc/occlusion.cu`` and ``csrc/stream.cu`` are compiled with g++ against a
+small stand-in for ``cuda_runtime.h``: the CUDA qualifiers are empty,
+``__shared__`` is ``static``, each block runs as ``blockDim.x`` threads with
+barriers behind ``__syncthreads``, ``__syncthreads_and`` and ``__all_sync``,
+the ``<<<...>>>`` launches become calls of that launcher, and an
+``extern __shared__`` array points at a buffer of the launch's size. Without
+``__CUDA_ARCH__`` the sweep's ``cp.async`` copies are plain copies. With
+``-ffp-contract=off`` each float operation rounds on its own, as in the
+plain versions and in the card's build (``--fmad=false``), so the outputs
+must be equal bit for bit.
+
+Skips only where g++ is absent.
+"""
+
+import ctypes
+import dataclasses
+import re
+import shutil
+import subprocess
+
+import numpy as np
+import pytest
+import torch
+
+from zetaray_tpu_torch import native
+from zetaray_tpu_torch.accel import intersect as XI
+from zetaray_tpu_torch.accel import stream as ST
+from zetaray_tpu_torch.accel import bvh as TB
+from zetaray_tpu_torch.accel.bvh import LEAF_SIZE, WALK_STACK_MAX
+from zetaray_tpu_torch.accel.megakernel import INF
+from zetaray_tpu_torch.scene.procedural import cornell_box, repeated_box
+from zetaray_tpu_torch.scene.scene import upload_scene, with_cluster_tree
+from zetaray_tpu_torch.scene.subdivide import subdivide_scene
+
+torch.set_num_threads(1)
+
+MOCK_CUDA = r"""
+#pragma once
+#include <math.h>
+#include <stdint.h>
+#include <string.h>
+#include <algorithm>
+#include <atomic>
+#include <barrier>
+#include <memory>
+#include <thread>
+#include <vector>
+using std::max;
+using std::min;
+#define __device__
+#define __global__
+#define __forceinline__ inline
+#define __constant__
+#define __shared__ static
+#define __launch_bounds__(...)
+struct alignas(16) float4 { float x, y, z, w; };
+struct dim3 { unsigned x = 1, y = 1, z = 1; };
+inline dim3 blockIdx, blockDim;
+inline thread_local dim3 threadIdx;
+typedef void* cudaStream_t;
+enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
+template <class K> cudaError_t cudaFuncSetAttribute(K, cudaFuncAttribute, int) {
+  return cudaSuccess;
+}
+inline int __float_as_int(float f) { int i; memcpy(&i, &f, 4); return i; }
+template <class T> inline T __ldg(const T* p) { return *p; }
+
+namespace mock {
+using Barrier = std::barrier<>;
+inline Barrier* block;
+inline std::vector<std::unique_ptr<Barrier>> warps;
+inline std::atomic<int> block_false;
+inline std::atomic<int> warp_false[32];
+inline std::vector<float4> dynamic_shared;  // a launch's extern __shared__ bytes
+
+// all threads of a group: arrive, count the false predicates, read, reset
+inline bool all_of(Barrier& bar, std::atomic<int>& n_false, bool p, bool leader) {
+  bar.arrive_and_wait();
+  if (!p) n_false.fetch_add(1);
+  bar.arrive_and_wait();
+  const bool all = n_false.load() == 0;
+  bar.arrive_and_wait();
+  if (leader) n_false.store(0);
+  return all;
+}
+}  // namespace mock
+
+inline void __syncthreads() { mock::block->arrive_and_wait(); }
+inline int __syncthreads_and(int p) {
+  return mock::all_of(*mock::block, mock::block_false, p != 0, threadIdx.x == 0);
+}
+inline bool __all_sync(unsigned, int p) {
+  const unsigned w = threadIdx.x / 32;
+  return mock::all_of(*mock::warps[w], mock::warp_false[w], p != 0, threadIdx.x % 32 == 0);
+}
+
+// kernel<<<grid, block, shared, ...>>>(args): the blocks one after another,
+// each as `block` threads
+template <class K, class... A>
+void zr_launch(int grid, int block, size_t shared, K kernel, A... args) {
+  blockDim.x = block;
+  mock::dynamic_shared.assign(shared / sizeof(float4) + 1, float4{});
+  for (int b = 0; b < grid; ++b) {
+    blockIdx.x = b;
+    mock::Barrier bar(block);
+    mock::block = &bar;
+    mock::warps.clear();
+    for (int w = 0; w * 32 < block; ++w) {
+      mock::warps.push_back(std::make_unique<mock::Barrier>(std::min(32, block - 32 * w)));
+    }
+    std::vector<std::thread> threads;
+    for (int t = 0; t < block; ++t) {
+      threads.emplace_back([=] {
+        threadIdx.x = t;
+        kernel(args...);
+      });
+    }
+    for (auto& th : threads) th.join();
+  }
+}
+"""
+
+LAUNCH = re.compile(r"(\w+)<<<\s*([^,]+),\s*([^,]+),\s*([^,]+),[^>]*>>>\(")
+DYNAMIC_SHARED = re.compile(r"extern __shared__ (\w+) (\w+)\[\];")
+KERNELS = ("zr_occlusion", "zr_stream_closest", "zr_stream_occlusion")
+
+
+@pytest.fixture(scope="module")
+def host_kernels(tmp_path_factory):
+    """csrc/occlusion.cu and csrc/stream.cu built for the host, loaded."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("needs g++ to build the kernels for the host")
+    tmp = tmp_path_factory.mktemp("rehearsal")
+    (tmp / "cuda_runtime.h").write_text(MOCK_CUDA)
+    (tmp / "layout.h").write_text(native.layout_header())
+    for p in native.CSRC.glob("*.cuh"):
+        shutil.copy(p, tmp / p.name)
+    srcs = []
+    for name in ("occlusion.cu", "stream.cu"):
+        text = LAUNCH.sub(r"zr_launch(\2, \3, \4, \1, ", (native.CSRC / name).read_text())
+        text = DYNAMIC_SHARED.sub(
+            r"\1* const \2 = reinterpret_cast<\1*>(mock::dynamic_shared.data());", text)
+        (tmp / f"{name}.cc").write_text(text)
+        srcs.append(str(tmp / f"{name}.cc"))
+    lib_path = tmp / "libhost_kernels.so"
+    subprocess.run([gxx, "-std=c++20", "-O1", "-ffp-contract=off", "-fPIC", "-shared",
+                    "-pthread", "-I", str(tmp), *srcs, "-o", str(lib_path)],
+                   check=True, capture_output=True)
+    lib = ctypes.CDLL(str(lib_path))
+    for name in KERNELS:
+        getattr(lib, name).argtypes = native._SIGNATURES[name]
+        getattr(lib, name).restype = ctypes.c_int
+    return lib
+
+
+def _ptr(x: torch.Tensor) -> int:
+    assert x.is_contiguous()
+    return x.data_ptr()
+
+
+def host_occlusion(lib, scene, o, d, t_min, t_max):
+    """B3 on the host: bool [N]."""
+    n, tp = o.shape[0], scene.woop.shape[1] // 3
+    out = torch.full((n,), -1, dtype=torch.int32)
+    assert lib.zr_occlusion(_ptr(o), _ptr(d), _ptr(scene.woop_rows()), _ptr(out), n, tp,
+                            scene.num_tris, t_min, t_max, None) == 0
+    assert ((out == 0) | (out == 1)).all()
+    return out.bool()
+
+
+def host_stream_closest(lib, scene, o, d, t_min=1e-4, t_max=INF):
+    """B8 on the host: (t [N], slot [N])."""
+    n = o.shape[0]
+    t = torch.full((n,), -7.0)
+    tri = torch.full((n,), -7, dtype=torch.int32)
+    assert lib.zr_stream_closest(_ptr(o), _ptr(d), _ptr(scene.walk_nodes),
+                                 _ptr(scene.leaf_rows()), _ptr(scene.leaf_slot), _ptr(t),
+                                 _ptr(tri), n, scene.cluster_size, scene.walk_stack, t_min,
+                                 t_max, None) == 0
+    return t, tri
+
+
+def host_stream_occlusion(lib, scene, o, d, t_min, t_max):
+    """B9 on the host: bool [N]."""
+    n = o.shape[0]
+    out = torch.full((n,), -1, dtype=torch.int32)
+    tree = [_ptr(getattr(scene, k)) for k in ("tree_lo", "tree_hi", "tree_left", "tree_right",
+                                             "tree_cluster")]
+    assert lib.zr_stream_occlusion(_ptr(o), _ptr(d), _ptr(scene.woop), *tree, _ptr(out), n,
+                                   scene.woop.shape[1] // 3, scene.cluster_size, t_min, t_max,
+                                   None) == 0
+    return out.bool()
+
+
+def _segments(seed, n):
+    """Shadow segments from points in the box to points on its ceiling
+    light, and rays from the same points in random directions."""
+    r = np.random.default_rng(seed)
+    o = np.stack([r.uniform(-0.95, 0.95, n), r.uniform(0.02, 1.9, n),
+                  r.uniform(-0.95, 0.95, n)], -1)
+    tgt = np.stack([r.uniform(-0.19, 0.19, n), np.full(n, 1.98), r.uniform(-0.24, 0.24, n)], -1)
+    d = r.normal(size=(n, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    as_t = lambda x: torch.from_numpy(np.ascontiguousarray(x, np.float32))
+    return as_t(o), as_t(tgt - o), as_t(d)
+
+
+@pytest.mark.parametrize("subdivide", [None, 200, 300])
+def test_occlusion_kernel_on_host(host_kernels, subdivide):
+    """B3 equal to its plain version with 36, 200 and 300 real triangles
+    (1, 2 and 3 chunks of the sweep's ring), on 300 shadow segments and 300
+    rays (3 blocks, the last one ragged); a negative t_min is refused."""
+    scene = upload_scene(cornell_box(subdivide_to=subdivide), device="cpu")
+    o, seg, d = _segments(3, 300)
+    for dirs, t_min, t_max in ((seg, 1e-3, 1.0 - 1e-3), (d, 1e-4, INF), (d, 0.0, 0.7)):
+        got = host_occlusion(host_kernels, scene, o, dirs, t_min, t_max)
+        want = XI.occlusion_plain(scene.woop, o, dirs, t_min, t_max)
+        assert torch.equal(got, want)
+        assert 0 < got.sum() < got.numel()
+    n, tp = o.shape[0], scene.woop.shape[1] // 3
+    out = torch.zeros((n,), dtype=torch.int32)
+    assert host_kernels.zr_occlusion(_ptr(o), _ptr(seg), _ptr(scene.woop_rows()), _ptr(out), n,
+                                     tp, scene.num_tris, -1.0, 1.0, None) != 0
+
+
+def _deep():
+    """The box bisected to 56 triangles, each repeated 100 times, in 56
+    clusters of 128 slots put in a chain: B9's cluster tree 55 deep, B8's
+    walk 61 stack entries (61 KiB of shared memory a block, past the 48 KiB
+    a launch gets unasked)."""
+    scene = upload_scene(repeated_box(100, 56), device="cpu", cluster_size=128)
+    return with_cluster_tree(scene, TB.chain_tree(scene.cluster_aabb.numpy()))
+
+
+CLUSTERED = {
+    "box546": lambda: upload_scene(subdivide_scene(cornell_box(), 500), device="cpu",
+                                   cluster_size=128),
+    "ties": lambda: upload_scene(repeated_box(160), device="cpu", cluster_size=128),
+    "deep": _deep,
+}
+
+
+@pytest.mark.parametrize("name", sorted(CLUSTERED))
+def test_stream_kernels_on_host(host_kernels, name):
+    """B8 (t and slot) and B9 equal to their plain versions on the
+    546-triangle box and on the box with each triangle repeated 160 times
+    (5760 slots, where the tie rule (t, cluster, -slot) decides every hit
+    among copies in two or more clusters), both clustered by 128, and on a
+    scene of repeated triangles with its clusters in a chain (the deepest
+    trees, beyond 48 KiB of B8's stack a block): camera rays
+    from inside the box, rays leaving their hits in random directions
+    (those that missed from their far end, near the float range), and
+    shadow segments. A negative t_min and a stack out of range are
+    refused."""
+    scene = CLUSTERED[name]()
+    assert scene.cluster_aabb is not None
+    if name == "deep":
+        assert scene.walk_stack == 61 and scene.tree_cluster.shape[0] == 111
+    o, seg, d = _segments(5, 300)
+    t, tri = host_stream_closest(host_kernels, scene, o, d)
+    t_p, tri_p = ST.stream_closest_plain(scene, o, d)
+    assert torch.equal(tri, tri_p) and torch.equal(t, t_p)
+    assert 0.5 < (tri_p >= 0).float().mean() < 1.0
+    if name == "ties":  # the winner's 160 copies lie in more than one cluster
+        w = scene.woop.reshape(12, -1)
+        for s in tri_p[tri_p >= 0][:20].tolist():
+            copies = torch.nonzero((w == w[:, s : s + 1]).all(0))[:, 0]
+            assert len(copies) == 160 and len((copies // 128).unique()) > 1
+    r = np.random.default_rng(7)
+    d2 = torch.from_numpy(r.normal(size=(300, 3)).astype(np.float32))
+    d2 = (d2 / d2.norm(dim=1, keepdim=True)).contiguous()
+    o2 = (o + (t_p - 1e-3)[:, None] * d).contiguous()
+    o2[:5] = o[:5] + (INF - 1e-3) * d[:5]  # far ends of missed rays
+    for oo, dd, t_min, t_max in ((o2, d2, 1e-4, INF), (o, d, 1e-3, 0.5), (o, d, 0.0, INF)):
+        t, tri = host_stream_closest(host_kernels, scene, oo, dd, t_min, t_max)
+        t_p, tri_p = ST.stream_closest_plain(scene, oo, dd, t_min, t_max)
+        assert torch.equal(tri, tri_p) and torch.equal(t, t_p)
+    for dirs, t_min, t_max in ((seg, 1e-3, 1.0 - 1e-3), (d2, 1e-4, INF)):
+        got = host_stream_occlusion(host_kernels, scene, o, dirs, t_min, t_max)
+        assert torch.equal(got, ST.occlusion_stream_plain(scene, o, dirs, t_min, t_max))
+        assert 0 < got.sum() < got.numel()
+    t0 = torch.zeros(300)
+    tri0 = torch.zeros(300, dtype=torch.int32)
+    for stack, t_min in ((scene.walk_stack, -1.0), (0, 1e-4), (WALK_STACK_MAX + 1, 1e-4)):
+        assert host_kernels.zr_stream_closest(
+            _ptr(o), _ptr(d), _ptr(scene.walk_nodes), _ptr(scene.leaf_rows()),
+            _ptr(scene.leaf_slot), _ptr(t0), _ptr(tri0), 300, 128, stack, t_min, INF,
+            None) != 0
+
+
+@pytest.mark.parametrize("n_tris", [36, LEAF_SIZE])
+def test_stream_closest_on_host_one_cluster(host_kernels, n_tris):
+    """B8 equal to its plain version where the whole scene is one cluster of
+    128 slots: the cluster tree is a single leaf, so B8's root is the
+    sub-tree's (36 triangles) or, where the cluster fits in one leaf
+    (LEAF_SIZE triangles), a node above that leaf."""
+    box = cornell_box()
+    cpu = dataclasses.replace(
+        box, **{f: getattr(box, f)[:n_tris] for f in ("v0", "v1", "v2", "n0", "n1", "n2", "uv0",
+                                                      "uv1", "uv2", "mat_id", "inst_id")},
+        emissive_tris=box.emissive_tris[box.emissive_tris < n_tris])
+    scene = upload_scene(cpu, device="cpu", cluster_size=128)
+    assert scene.cluster_aabb.shape[0] == 1
+    leaves = -(-n_tris // LEAF_SIZE)  # a node above each pair of subtrees
+    assert scene.walk_nodes.shape[0] == max(leaves - 1, 1)
+    o, _, d = _segments(9, 300)
+    t, tri = host_stream_closest(host_kernels, scene, o, d)
+    t_p, tri_p = ST.stream_closest_plain(scene, o, d)
+    assert torch.equal(tri, tri_p) and torch.equal(t, t_p)
+    assert (tri_p >= 0).any()

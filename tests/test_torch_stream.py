@@ -1,6 +1,7 @@
 """The clustered scene path of the PyTorch port against the JAX package:
-subdivision, the BVH build, the clustered upload, and the plain versions of
-the streaming kernels B8 (closest hit) and B9 (any hit).
+subdivision, the BVH build, the clustered upload, the trees the streaming
+kernels walk, and the plain versions of those kernels, B8 (closest hit) and
+B9 (any hit).
 
 The JAX streaming kernels run in interpret mode. On the CPU the port runs
 B8's and B9's plain versions: the dense sweep over every slot, with tie
@@ -46,6 +47,7 @@ CPU_SCENES = {
     "soup": lambda: to_port_cpu_scene(_soup(np.random.default_rng(3))),
 }
 TREE = ("tree_lo", "tree_hi", "tree_left", "tree_right", "tree_cluster")
+WALK = ("walk_nodes", "leaf_slot")
 
 
 @pytest.fixture(scope="module", params=sorted(CPU_SCENES))
@@ -154,12 +156,133 @@ def test_cluster_tree_depth_is_checked(monkeypatch):
 
 def test_interop_carries_a_clustered_scene(clustered):
     """A clustered JAX scene (its TPU-only stream tables ignored) becomes
-    the port's own upload of the same host scene, tree included."""
+    the port's own upload of the same host scene, trees and B8's
+    leaf-ordered rows included."""
     _, jdev, tdev = clustered
     got = scene_from_arrays(jax_scene_arrays(jdev), device="cpu")
     assert got.cluster_size == C and got.num_tris == tdev.num_tris
-    for k in TABLES + ["cluster_aabb", *TREE]:
+    for k in TABLES + ["cluster_aabb", *TREE, *WALK]:
         assert torch.equal(getattr(got, k), getattr(tdev, k)), k
+    assert torch.equal(got.leaf_rows(), tdev.leaf_rows())
+    assert got.walk_stack == tdev.walk_stack
+
+
+def _walk_children(scene):
+    """B8's tree as (node, side, lo [3], hi [3], ref) for every child of
+    every node, and the rows below each ref {ref: rows}."""
+    nodes = scene.walk_nodes.numpy()
+    f = nodes[:, :12].view(np.float32)
+    kids = []
+    for k in range(nodes.shape[0]):
+        for side in (0, 1):
+            lo = np.array([f[k, 4 * side], f[k, 4 * side + 2], f[k, 8 + 2 * side]])
+            hi = np.array([f[k, 4 * side + 1], f[k, 4 * side + 3], f[k, 9 + 2 * side]])
+            kids.append((k, side, lo, hi, int(nodes[k, 12 + side])))
+    below = {}
+
+    def rows(ref):
+        if ref not in below:
+            if ref < 0:
+                first, count = (~ref) >> 4, (~ref) & 15
+                below[ref] = list(range(first, first + count))
+            else:
+                below[ref] = rows(int(nodes[ref, 12])) + rows(int(nodes[ref, 13]))
+        return below[ref]
+
+    rows(0 if nodes.shape[0] else -1)
+    for *_, ref in kids:
+        rows(ref)
+    return kids, below
+
+
+def test_walk_tree_leaves(clustered):
+    """B8's tree: every real slot lies in exactly one leaf of at most
+    LEAF_SIZE rows and no pad slot in any; each child box holds the
+    vertices of every triangle below it, after padding and outward
+    rounding; and the rows are the Woop rows of their slots."""
+    name, _, tdev = clustered
+    slot = tdev.leaf_slot.numpy()
+    kids, below = _walk_children(tdev)
+    leaf_rows = sorted(r for *_, ref in kids if ref < 0 for r in below[ref])
+    assert leaf_rows == list(range(slot.shape[0]))
+    assert max(len(below[ref]) for *_, ref in kids if ref < 0) <= TB.LEAF_SIZE
+    real = np.nonzero((tdev.woop.reshape(12, -1) != 0).any(0).numpy())[0]
+    assert sorted(slot) == list(real) and real.shape[0] == CPU_SCENES[name]().num_tris
+    assert (slot // C == np.sort(slot) // C).all()  # rows stay grouped by cluster
+    v0 = tdev.v0.numpy().astype(np.float64)
+    corners = np.stack([v0, v0 + tdev.e1.numpy(), v0 + tdev.e2.numpy()])  # [3, Tp, 3]
+    for _, _, lo, hi, ref in kids:
+        pts = corners[:, slot[below[ref]]].reshape(-1, 3)
+        assert (lo < pts.min(0)).all() and (hi > pts.max(0)).all()
+    assert tdev.walk_nodes.dtype == torch.int32 and tdev.walk_nodes.shape[1] == 16
+    assert torch.equal(tdev.leaf_rows(), tdev.woop_rows()[tdev.leaf_slot.long()])
+
+
+def test_walk_tree_depth_is_checked(clustered, monkeypatch):
+    """The stack B8's walk can need (one entry for each inner node above
+    the node it visits, cluster tree and sub-tree together) is counted at
+    build into ``walk_stack`` and checked against WALK_STACK_MAX."""
+    _, _, tdev = clustered
+    tree = {k: getattr(tdev, k).numpy() for k in TREE}
+    args = (tree, C, *(getattr(tdev, k).numpy() for k in ("woop", "v0", "e1", "e2")))
+    got = TB.walk_tree(*args)
+    assert np.array_equal(got["walk_nodes"], tdev.walk_nodes.numpy())
+    assert got["walk_stack"] == tdev.walk_stack
+    assert tdev.walk_stack == max(_ancestors(tdev).values())
+    monkeypatch.setattr(TB, "WALK_STACK_MAX", tdev.walk_stack - 1)
+    with pytest.raises(ValueError, match="stack"):
+        TB.walk_tree(*args)
+
+
+def _ancestors(scene):
+    """{leaf ref: how many inner nodes of B8's tree lie above it}."""
+    nodes = scene.walk_nodes.numpy()
+    out, todo = {}, [(0, 0)]
+    while todo:
+        k, depth = todo.pop()
+        for ref in nodes[k, 12:14].tolist():
+            if ref >= 0:
+                todo.append((ref, depth + 1))
+            else:
+                out[ref] = max(out.get(ref, 0), depth + 1)
+    return out
+
+
+def test_chain_tree_is_deep_and_valid(clustered, monkeypatch):
+    """chain_tree: one leaf per cluster, every node box holds its children's
+    boxes, M - 1 deep; a scene given it walks B8's tree with the stack its
+    depth needs, and above TREE_STACK - 1 clusters deep it raises as the
+    cluster tree does."""
+    _, _, tdev = clustered
+    box = tdev.cluster_aabb.numpy()
+    m = box.shape[0]
+    chain = TS.with_cluster_tree(tdev, TB.chain_tree(box))
+    lo, hi = chain.tree_lo.numpy(), chain.tree_hi.numpy()
+    left, right, cl = (getattr(chain, k).numpy() for k in TREE[2:])
+    leaf = cl >= 0
+    assert sorted(cl[leaf]) == list(range(m)) and cl.shape[0] == 2 * m - 1
+    assert (lo[leaf] < box[cl[leaf], 0:3]).all() and (hi[leaf] > box[cl[leaf], 3:6]).all()
+    inner = np.nonzero(~leaf)[0]
+    for kids in (left[inner], right[inner]):
+        assert (lo[inner] <= lo[kids]).all() and (hi[inner] >= hi[kids]).all()
+    assert TB._depth(left, right).max() == m - 1
+    assert chain.walk_stack == max(_ancestors(chain).values()) > tdev.walk_stack
+    assert torch.equal(chain.leaf_slot.sort().values, tdev.leaf_slot.sort().values)
+    monkeypatch.setattr(TB, "TREE_STACK", m - 1)
+    with pytest.raises(ValueError, match="depth"):
+        TB.chain_tree(box)
+
+
+def test_leaf_rows_follow_the_woop_table(clustered):
+    """leaf_rows() is made at first use, kept while woop is unchanged, and
+    made again after an in-place edit of woop."""
+    _, _, tdev = clustered
+    scene = dataclasses.replace(tdev, woop=tdev.woop.clone())
+    rows = scene.leaf_rows()
+    assert scene.leaf_rows() is rows
+    scene.woop.mul_(2.0)
+    moved = scene.leaf_rows()
+    assert moved is not rows and torch.equal(moved, 2.0 * rows)
 
 
 # The share of hit rays on which the port and JAX pick the same slot: on

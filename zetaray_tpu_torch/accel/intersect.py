@@ -3,12 +3,16 @@
 ``occlusion`` replaces the TPU kernel ``_occlusion_kernel``
 (the JAX package's ``accel/pallas_kernels.py``, launched by ``occlusion_pallas``)
 with ``csrc/occlusion.cu``. Like the G-buffer kernel it is bound by the
-per-pair Woop arithmetic, not by bytes. The TPU swept every ray tile over
-every triangle chunk; on the card each thread stops at its ray's first hit
-and a block leaves the triangle loop once all its rays are occluded. That
-saves work only where most rays are blocked: for the Cornell box's shadow
-segments (about 73% unoccluded) it runs as long as the G-buffer kernel
-(5.6 ms at 512^2 against 8192 triangles on an H100 80GB HBM3, 700 W).
+per-pair Woop arithmetic, not by bytes: a segment that lets its light
+through tests every triangle, a blocked one needs one test. The TPU swept
+every ray tile over every triangle chunk. On the card B3 is one call of the
+dense sweep's any-hit loop (``csrc/sweep.cuh``, also B6's shadow segment):
+the ``num_tris`` real triangles only, triangle-major rows
+(``SceneBuffers.woop_rows()``) read as three 16-byte broadcasts, chunks
+double-buffered by ``cp.async``, a pair dropped by the signs of its plane
+distances before the division (exact for t_min >= 0, which the wrapper
+checks); each thread stops at its ray's first hit, a warp whose rays are
+all blocked skips a chunk, and a block leaves once all its rays are.
 
 On a clustered scene ``intersect_occluded`` and ``intersect_closest_shaded``
 dispatch to the streaming kernels B9 and B8 (``accel.stream``), as the JAX
@@ -41,7 +45,7 @@ import torch
 from .. import native
 from ..scene.scene import A
 from .megakernel import (
-    INF, TRI_CHUNK, RAY_CHUNK, check_sweep_t_min, closest_hit_plain, tri_hits,
+    INF, TRI_CHUNK, RAY_CHUNK, _check_dense, check_sweep_t_min, closest_hit_plain, tri_hits,
 )
 
 
@@ -59,24 +63,30 @@ def occlusion_plain(woop: torch.Tensor, o: torch.Tensor, d: torch.Tensor, t_min,
     return occ
 
 
-def occlusion(woop: torch.Tensor, o: torch.Tensor, d: torch.Tensor, t_min=1e-4, t_max=INF):
-    """Any-hit query of rays or segments o, d [N, 3] against woop [4, 3*Tp].
+def occlusion(scene, o: torch.Tensor, d: torch.Tensor, t_min=1e-4, t_max=INF):
+    """Any-hit query of rays or segments o, d [N, 3] in (t_min, t_max)
+    against the scene's dense Woop table: bool [N].
 
-    A CPU tensor takes the plain version; a CUDA tensor launches the kernel.
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel,
+    which sweeps the ``scene.num_tris`` real triangles only (the pad slots
+    past them are all-zero Woop rows, which never hit) and needs t_min >= 0.
+    A clustered scene raises: it takes ``intersect_occluded`` (B9).
     """
+    _check_dense(scene, "occlusion", "takes intersect_occluded (kernel B9)")
     if o.device.type == "cpu":
-        return occlusion_plain(woop, o, d, t_min, t_max)
+        return occlusion_plain(scene.woop, o, d, t_min, t_max)
     n = o.shape[0]
-    tp = woop.shape[1] // 3
+    tp = scene.woop.shape[1] // 3
     native.require_cuda(o, "o", torch.float32, (n, 3))
     native.require_cuda(d, "d", torch.float32, (n, 3))
-    native.require_cuda(woop, "woop", torch.float32, (4, 3 * tp))
+    native.require_cuda(scene.woop, "woop", torch.float32, (4, 3 * tp))
     if tp % TRI_CHUNK:
         raise ValueError(f"triangle count {tp} is not padded to a multiple of {TRI_CHUNK}")
+    check_sweep_t_min(t_min)
     out = torch.empty((n,), dtype=torch.int32, device=o.device)
     err = native.lib().zr_occlusion(
-        o.data_ptr(), d.data_ptr(), woop.data_ptr(), out.data_ptr(), n, tp,
-        float(t_min), float(t_max), native.stream_ptr(o.device),
+        o.data_ptr(), d.data_ptr(), scene.woop_rows().data_ptr(), out.data_ptr(), n, tp,
+        scene.num_tris, float(t_min), float(t_max), native.stream_ptr(o.device),
     )
     native.check(err, "occlusion")
     occlusion.launches += 1
@@ -95,7 +105,7 @@ def intersect_occluded(scene, o: torch.Tensor, d: torch.Tensor, t_min=1e-4, t_ma
         from .stream import occlusion_stream
 
         return occlusion_stream(scene, o, d, t_min, t_max)
-    return occlusion(scene.woop, o, d, t_min, t_max)
+    return occlusion(scene, o, d, t_min, t_max)
 
 
 class ShadedHit(NamedTuple):
@@ -137,8 +147,10 @@ def closest_hit(scene, o, d, t_min=1e-4, t_max=INF) -> ShadedHit:
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel,
     which sweeps the ``scene.num_tris`` real triangles only (the pad slots
-    past them are all-zero Woop rows, which never hit).
+    past them are all-zero Woop rows, which never hit). A clustered scene
+    raises: it takes ``intersect_closest_shaded`` (B8).
     """
+    _check_dense(scene, "closest_hit", "takes intersect_closest_shaded (kernel B8)")
     if o.device.type == "cpu":
         return closest_hit_plain_shaded(scene.woop, scene.tri_attrs, o, d, t_min, t_max)
     n = o.shape[0]

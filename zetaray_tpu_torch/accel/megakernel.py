@@ -257,18 +257,21 @@ def _check_pt(cfg) -> None:
 
 
 def check_sweep_t_min(t_min) -> None:
-    """The sweep of B6 and B7 (``csrc/sweep.cuh``) drops a pair by the signs
-    of its plane distances before dividing, which is exact for t_min >= 0."""
+    """The Woop test of B3, B6, B7 and B8 (``csrc/sweep.cuh`` ``sweep_test``)
+    drops a pair by the signs of its plane distances before dividing, which
+    is exact for t_min >= 0."""
     if not t_min >= 0.0:
-        raise ValueError(f"t_min={t_min}: the dense sweep of B6 and B7 needs t_min >= 0")
+        raise ValueError(f"t_min={t_min}: the Woop test of B3, B6, B7 and B8 needs t_min >= 0")
 
 
-def _check_dense(scene, name: str) -> None:
-    """The bounce kernels sweep the whole triangle table: clustered scenes
-    take ``ops.pathtracer.trace_reference`` instead."""
+def _check_dense(scene, name: str,
+                 instead: str = "traces with ops.pathtracer.trace_reference") -> None:
+    """The dense kernels sweep the triangle table from slot 0, where a
+    clustered scene has pad slots inside each cluster: such a scene
+    ``instead`` (the bounce kernels: ``ops.pathtracer.trace_reference``)."""
     if scene.cluster_aabb is not None:
-        raise ValueError(f"{name} sweeps every triangle and takes dense scenes only; a "
-                         "clustered scene traces with ops.pathtracer.trace_reference")
+        raise ValueError(f"{name} sweeps the dense triangle table and takes dense scenes only; "
+                         f"a clustered scene {instead}")
 
 
 def cone_spread(spread_angle: float) -> float:

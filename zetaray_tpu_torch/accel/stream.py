@@ -10,14 +10,21 @@ k owning slots ``[k*C, (k+1)*C)`` of the Woop and attribute tables.
 ``csrc/stream.cu``. The TPU kernels swept tiles of shaft-sorted rays over a
 front-to-back list of clusters that an interval prepass found to overlap
 each tile, in a dynamic grid of visit pairs. On the card each thread walks
-the tree over the cluster boxes (``accel.bvh.cluster_tree``) for its own
-ray with a short stack, nearer child first, and runs the Woop test over
-the C slots of each cluster it reaches; B9 stops at the ray's first hit.
-Bound: about 40 float operations per ray-triangle test that the walk must
-make, against the rays, the outputs and the scene tables read once. What
-the tree saves is the work itself: a camera ray reaches a handful of the
-798 clusters of the 139,266-triangle box, where the dense sweep tests all
-204,288 slots.
+a tree for its own ray with a short stack, nearer child first. B9 walks the
+tree over the cluster boxes (``accel.bvh.cluster_tree``), runs the Woop
+test over the C slots of each cluster it reaches and stops at the ray's
+first hit. B8 walks on below the clusters (``accel.bvh.walk_tree``): a
+sub-tree over each cluster's real slots with leaves of a few triangles,
+whose Woop rows lie in leaf order, three 16-byte words a triangle
+(``SceneBuffers.leaf_rows``), tested with the dense sweep's sign test and
+pruning. A camera ray of the 139,266-triangle box reaches about one
+cluster; below it B8 tests a few leaves, where the cluster walk tested all
+256 slots of each cluster it reached, pads included.
+
+Bound: one Woop test (about 40 float operations) for each ray that hits
+(B8) or is blocked (B9), against the bytes any walk must move: the rays and
+the outputs, and for B8 the Woop rows of the distinct slots hit. How many
+other rows a walk reads depends on its tree, so they are not counted.
 
 The kernels keep the tie rule of their plain version, the dense brute
 force with tie groups of one cluster: among equal t the highest slot
@@ -46,7 +53,7 @@ from .. import native
 from ..core import vec3 as v3
 from ..core.vec3 import V3
 from .intersect import ShadedHit, occlusion_plain
-from .megakernel import INF, closest_hit_plain
+from .megakernel import INF, check_sweep_t_min, closest_hit_plain
 
 
 def _check_clustered(scene) -> None:
@@ -63,24 +70,17 @@ def stream_closest_plain(scene, o, d, t_min=1e-4, t_max=INF):
     return t, tri.to(torch.int32)
 
 
-def _launch_args(scene, o, d):
-    """Validate a launch of B8 or B9; returns (n, tp, the tree's tensors)."""
+def _check_rays(scene, o, d) -> int:
+    """Validate the rays and the Woop table of a launch of B8 or B9; returns N."""
     n = o.shape[0]
     tp = scene.woop.shape[1] // 3
     m = scene.cluster_aabb.shape[0]
-    k = scene.tree_cluster.shape[0]
     native.require_cuda(o, "o", torch.float32, (n, 3))
     native.require_cuda(d, "d", torch.float32, (n, 3))
     native.require_cuda(scene.woop, "woop", torch.float32, (4, 3 * tp))
     if m * scene.cluster_size != tp:
         raise ValueError(f"{m} clusters of {scene.cluster_size} do not fill {tp} slots")
-    tree = (scene.tree_lo, scene.tree_hi, scene.tree_left, scene.tree_right,
-            scene.tree_cluster)
-    for name, x in zip(("tree_lo", "tree_hi"), tree[:2]):
-        native.require_cuda(x, name, torch.float32, (k, 3))
-    for name, x in zip(("tree_left", "tree_right", "tree_cluster"), tree[2:]):
-        native.require_cuda(x, name, torch.int32, (k,))
-    return n, tp, [x.data_ptr() for x in tree]
+    return n
 
 
 def stream_closest(scene, o, d, t_min=1e-4, t_max=INF):
@@ -88,17 +88,26 @@ def stream_closest(scene, o, d, t_min=1e-4, t_max=INF):
     in (t_min, t_max) (B8): t [N] float32 (INF at a miss), tri [N] int32
     slot (-1 at a miss).
 
-    A CPU tensor takes the plain version; a CUDA tensor launches the kernel.
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel,
+    which walks ``scene.walk_nodes`` over ``scene.leaf_rows()`` with a stack
+    of ``scene.walk_stack`` entries and needs t_min >= 0.
     """
     _check_clustered(scene)
     if o.device.type == "cpu":
         return stream_closest_plain(scene, o, d, t_min, t_max)
-    n, tp, tree = _launch_args(scene, o, d)
+    n = _check_rays(scene, o, d)
+    check_sweep_t_min(t_min)
+    r = scene.leaf_slot.shape[0]
+    native.require_cuda(scene.walk_nodes, "walk_nodes", torch.int32,
+                        (scene.walk_nodes.shape[0], 16))
+    native.require_cuda(scene.leaf_slot, "leaf_slot", torch.int32, (r,))
+    rows = scene.leaf_rows()
     t = torch.empty((n,), dtype=torch.float32, device=o.device)
     tri = torch.empty((n,), dtype=torch.int32, device=o.device)
     err = native.lib().zr_stream_closest(
-        o.data_ptr(), d.data_ptr(), scene.woop.data_ptr(), *tree, t.data_ptr(), tri.data_ptr(),
-        n, tp, scene.cluster_size, float(t_min), float(t_max), native.stream_ptr(o.device),
+        o.data_ptr(), d.data_ptr(), scene.walk_nodes.data_ptr(), rows.data_ptr(),
+        scene.leaf_slot.data_ptr(), t.data_ptr(), tri.data_ptr(), n, scene.cluster_size,
+        scene.walk_stack, float(t_min), float(t_max), native.stream_ptr(o.device),
     )
     native.check(err, "stream_closest")
     stream_closest.launches += 1
@@ -124,11 +133,19 @@ def occlusion_stream(scene, o, d, t_min=1e-4, t_max=INF):
     _check_clustered(scene)
     if o.device.type == "cpu":
         return occlusion_stream_plain(scene, o, d, t_min, t_max)
-    n, tp, tree = _launch_args(scene, o, d)
+    n = _check_rays(scene, o, d)
+    k = scene.tree_cluster.shape[0]
+    tree = (scene.tree_lo, scene.tree_hi, scene.tree_left, scene.tree_right,
+            scene.tree_cluster)
+    for name, x in zip(("tree_lo", "tree_hi"), tree[:2]):
+        native.require_cuda(x, name, torch.float32, (k, 3))
+    for name, x in zip(("tree_left", "tree_right", "tree_cluster"), tree[2:]):
+        native.require_cuda(x, name, torch.int32, (k,))
     out = torch.empty((n,), dtype=torch.int32, device=o.device)
     err = native.lib().zr_stream_occlusion(
-        o.data_ptr(), d.data_ptr(), scene.woop.data_ptr(), *tree, out.data_ptr(), n, tp,
-        scene.cluster_size, float(t_min), float(t_max), native.stream_ptr(o.device),
+        o.data_ptr(), d.data_ptr(), scene.woop.data_ptr(), *(x.data_ptr() for x in tree),
+        out.data_ptr(), n, scene.woop.shape[1] // 3, scene.cluster_size, float(t_min),
+        float(t_max), native.stream_ptr(o.device),
     )
     native.check(err, "stream_occlusion")
     occlusion_stream.launches += 1

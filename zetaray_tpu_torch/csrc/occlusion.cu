@@ -1,45 +1,48 @@
-// Any-hit occlusion: does any triangle cut the ray or segment within
-// (t_min, t_max)?
+// Any-hit occlusion (kernel B3): does any triangle cut the ray or segment
+// within (t_min, t_max)?
 //
-// One thread per ray, triangles streamed through shared memory in chunks of
-// 128 as in gbuffer.cu. A ray stops testing at its first hit, and the whole
-// block leaves the triangle loop once every ray in it is occluded.
-#include "common.cuh"
+// Replaces _occlusion_kernel of the JAX package (accel/pallas_kernels.py).
+// Bound by the Woop arithmetic: about 40 float operations per ray-triangle
+// pair for a segment that lets its light through, one test for a blocked
+// one. One call of the dense sweep's any-hit loop (sweep.cuh
+// occluded_sweep, also B6's shadow segment): the num_tris real triangles
+// only, triangle-major rows read as three 16-byte broadcasts, chunks
+// double-buffered by cp.async, a pair dropped by the signs of its plane
+// distances before the division (exact for t_min >= 0, which the entry
+// point checks). A ray stops testing at its first hit, a warp whose rays
+// are all blocked skips the chunk, and the block leaves once all its rays
+// are.
+#include "sweep.cuh"
 
 namespace {
 
-__global__ void occlusion_kernel(const float* __restrict__ o, const float* __restrict__ d,
-                                 const float* __restrict__ woop, int32_t* __restrict__ out,
-                                 int n, int tp, float t_min, float t_max) {
-  __shared__ zr::WoopChunk chunk;
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+__global__ void __launch_bounds__(BOUNCE_BLOCK, zr::kSweepBlocks)
+occlusion_kernel(const float* __restrict__ o, const float* __restrict__ d,
+                 const float4* __restrict__ tri_rows, int32_t* __restrict__ out, int n, int nt,
+                 float t_min, float t_max) {
+  __shared__ zr::SweepRing ring;
+  const int i = blockIdx.x * BOUNCE_BLOCK + threadIdx.x;
   const bool live = i < n;
-  const float ox = live ? o[3 * i] : 0.f, oy = live ? o[3 * i + 1] : 0.f,
-              oz = live ? o[3 * i + 2] : 0.f;
-  const float dx = live ? d[3 * i] : 0.f, dy = live ? d[3 * i + 1] : 0.f,
-              dz = live ? d[3 * i + 2] : 0.f;
-  bool occluded = !live;  // padding lanes count as done
-  for (int c0 = 0; c0 < tp; c0 += zr::kTriChunk) {
-    if (__syncthreads_and(occluded)) break;
-    zr::load_woop_chunk(chunk, woop, tp, c0);
-    __syncthreads();
-    for (int j = 0; j < zr::kTriChunk && !occluded; ++j) {
-      float u, v;
-      occluded = zr::woop_hit(chunk, j, ox, oy, oz, dx, dy, dz, t_min, t_max, &u, &v) < ZR_INF;
-    }
-  }
-  if (live) out[i] = occluded ? 1 : 0;
+  const zr::Ray ray = live ? zr::Ray{o[3 * i], o[3 * i + 1], o[3 * i + 2], d[3 * i],
+                                     d[3 * i + 1], d[3 * i + 2]}
+                           : zr::Ray{0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  // padding lanes count as done
+  const bool occ = zr::occluded_sweep(ring, tri_rows, nt, ray, t_min, t_max, !live);
+  if (live) out[i] = occ ? 1 : 0;
 }
 
 }  // namespace
 
-extern "C" int zr_occlusion(const float* o, const float* d, const float* woop, int32_t* out,
-                            int n, int tp, float t_min, float t_max, void* stream) {
-  const int block = 128;
-  const int grid = (n + block - 1) / block;
+// tri_rows: the triangle-major Woop rows [tp][12] (SceneBuffers.woop_rows());
+// nt: the real triangles, the first nt slots.
+extern "C" int zr_occlusion(const float* o, const float* d, const float* tri_rows,
+                            int32_t* out, int n, int tp, int nt, float t_min, float t_max,
+                            void* stream) {
+  if (nt < 0 || nt > tp || !(t_min >= 0.f)) return (int)cudaErrorInvalidValue;
+  const int grid = (n + BOUNCE_BLOCK - 1) / BOUNCE_BLOCK;
   if (grid > 0) {
-    occlusion_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(o, d, woop, out, n, tp, t_min,
-                                                                t_max);
+    occlusion_kernel<<<grid, BOUNCE_BLOCK, 0, (cudaStream_t)stream>>>(
+        o, d, reinterpret_cast<const float4*>(tri_rows), out, n, nt, t_min, t_max);
   }
   return (int)cudaGetLastError();
 }

@@ -1,7 +1,7 @@
-// The dense ray-triangle sweep of kernels B6 (bounce.cu bounce_kernel: its
-// closest hit and its NEE shadow segment) and B7 (closest.cu). B1, B3, B4
-// and B5 still sweep with zr::closest_hit and the loops of common.cuh and
-// path.cuh.
+// The dense ray-triangle sweep of kernels B3 (occlusion.cu), B6 (bounce.cu
+// bounce_kernel: its closest hit and its NEE shadow segment) and B7
+// (closest.cu). B1, B4 and B5 still sweep with zr::closest_hit and the
+// loops of common.cuh and path.cuh.
 //
 // What bounds it: every ray tests every real triangle, about 40 float
 // operations and one IEEE division a pair, against a few hundred bytes a

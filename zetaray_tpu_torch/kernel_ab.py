@@ -1,5 +1,6 @@
-"""A/B of the dense-sweep kernels B6 (fused bounce) and B7 (closest hit +
-attribute row) against another commit's, on the card, in one process.
+"""A/B of the ray-query kernels B3 (dense any hit), B6 (fused bounce), B7
+(closest hit + attribute row) and B8 (clustered closest hit) against
+another commit's, on the card, in one process.
 
     python -m zetaray_tpu_torch.kernel_ab --parent DIR [--out FILE]
 
@@ -7,21 +8,26 @@ DIR is the other commit's package (``git archive <commit> zetaray_tpu_torch``
 unpacked; DIR is its ``zetaray_tpu_torch``). It is copied to a temporary
 directory outside the checkout and imported there under another name, so
 it builds its kernels from its own sources and launches them through its
-own wrappers (``accel.megakernel.bounce`` and
-``accel.intersect.intersect_closest_shaded``, whose signatures both
-commits share) on its own upload of the same scene.
+own wrappers (``accel.intersect.intersect_occluded``,
+``accel.megakernel.bounce``, ``accel.intersect.intersect_closest_shaded``
+and ``accel.stream.stream_closest``, whose signatures both commits share)
+on its own upload of the same scene.
 
 On the procedural Cornell box (36 triangles in 128 slots) and its
 8192-triangle subdivision, at 512^2 rays built as ``chip_smoke.py`` phase 3
-builds them (B6 on GI rays at bounce 1 and on its trace-only last bounce at
-2, B7 on ReSTIR PT prefix rays), it prints and writes to FILE (default
-``kernel_ab.json``):
+builds them (B3 on DI shadow segments, B6 on GI rays at bounce 1 and on its
+trace-only last bounce at 2, B7 on ReSTIR PT prefix rays), and on the box
+split to 139,266 triangles (clustered) at 256^2 (B8 on camera rays, on
+bench.py's GI-like rays, on those of them whose primary ray hit with the
+rest parked, and on GI bounce-0 rays with the dead ones parked), it prints
+and writes to FILE (default ``kernel_ab.json``):
 
 - each kernel's registers, stack frame and spills (``nvcc -Xptxas -v``) in
   both builds;
 - each kernel's median time under CUDA events, taken in turns (parent, new,
-  new, parent), with this checkout's B4 and B5 timed beside them as the
-  control for the spread between calls;
+  new, parent), with this checkout's B4 and B5 and both commits' B9 (DI
+  shadow segments on the clustered box) timed beside them as the control
+  for the spread between calls;
 - whether every output of every ray is equal, bit for bit, between builds.
 
 Needs the card; it raises without CUDA.
@@ -80,8 +86,18 @@ def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
                                               b.contiguous().view(torch.int32))
 
 
+def _shadow_segments(scene, gk, lsets, seed: int, rt: int):
+    """The DI shadow segments of chip_smoke.py phase 3: from each primary hit
+    to its RIS light sample, as (o, d) [N, 3]."""
+    from .ops import restir_di as RD
+
+    rk = RD.initial_candidates(gk, lsets, seed, rt=rt)
+    so = (gk[MK.G.POS : MK.G.POS + 3] + 1e-3 * gk[MK.G.NG : MK.G.NG + 3]).T.contiguous()
+    return so, (rk[0:3] - gk[MK.G.POS : MK.G.POS + 3]).T.contiguous()
+
+
 def _inputs(scene, cam, res: int, seed: int):
-    """B6's and B7's inputs as chip_smoke.py phase 3 builds them."""
+    """B3's, B6's and B7's inputs as chip_smoke.py phase 3 builds them."""
     from .ops.pathtracer import PTConfig
     from .ops.restir_gi import secondary_rays
     from .ops.restir_pt import prefix_rays
@@ -99,7 +115,52 @@ def _inputs(scene, cam, res: int, seed: int):
     b6 = (st5, lsets, 1, seed, cfg, False, True, rt)
     b6_last = (MK.bounce_plain(scene, *b6), lsets, 2, seed, cfg, True, True, rt)
     o7, d7 = prefix_rays(gk, seed)
-    return dict(b6=b6, b6_last=b6_last, b7=(o7, d7), b45=(st4, sf4, o2, d2, lsets, cfg, rt))
+    return dict(b3=_shadow_segments(scene, gk, lsets, seed, rt), b6=b6, b6_last=b6_last,
+                b7=(o7, d7), b45=(st4, sf4, o2, d2, lsets, cfg, rt))
+
+
+def _clustered_inputs(scene, cam, res: int, seed: int):
+    """B8's ray sets and B9's segments as chip_smoke.py phase 3 builds them
+    on the clustered box."""
+    from .accel import stream as ST
+    from .ops.pathtracer import park
+    from .ops.restir_gi import secondary_rays
+    from .render.frame import pick_rt
+
+    dev = scene.device
+    oc, dc = cam.generate_rays(res, res, device=dev)
+    t_cam, _ = ST.stream_closest_plain(scene, oc, dc)
+    g = torch.Generator(device=dev).manual_seed(11)
+    dg = torch.randn(oc.shape, device=dev, generator=g)
+    dg = dg / dg.norm(dim=1, keepdim=True).clamp_min(1e-9)
+    og = oc + (t_cam - 1e-3)[:, None] * dc  # a missed primary ray leaves from ~3e38
+    gk = MK.gbuffer(scene, oc, dc)
+    o2, d2, _, live = secondary_rays(gk, seed)
+    return {"camera": (oc, dc), "gi_like": (og, dg),
+            "gi_like_parked": park(t_cam < MK.INF, og, dg),
+            "gi_bounce0_parked": park(live, o2, d2),
+            "b9": _shadow_segments(scene, gk, MK.build_light_sets(scene, seed), seed,
+                                   pick_rt(res * res))}
+
+
+def _run(out: dict, label: str, runs: dict) -> None:
+    """Each entry of runs ({kernel: {build: fn}}): outputs compared bit for
+    bit with the first build's, then timed in turns, into out[kernel]."""
+    for kname, fns in runs.items():
+        got = {v: fn() for v, fn in fns.items()}
+        got = {v: g if isinstance(g, tuple) else (g,) for v, g in got.items()}
+        ref = next(iter(got.values()))
+        rec = out[kname] = {v: {"equal_to_first": all(bits_equal(a, b) for a, b in zip(g, ref))}
+                            for v, g in got.items()}
+        # in turns: forward then backward, a median of 20 runs each time
+        times = {v: [] for v in fns}
+        for v in list(fns) + list(reversed(fns)):
+            times[v].append(cuda_ms(fns[v], reps=20))
+        for v in fns:
+            rec[v]["ms"] = times[v]
+        print(f"{label} {kname}: " + "; ".join(
+            f"{v} {[round(x, 4) for x in r['ms']]} ms equal={r['equal_to_first']}"
+            for v, r in rec.items()), flush=True)
 
 
 def main() -> int:
@@ -121,16 +182,15 @@ def main() -> int:
     try:
         name = "zetaray_ab_parent"
         import_package(args.parent.resolve(), work, name)
-        p_native, p_mk, p_xi, p_pt, p_proc, p_scene = (
+        p_native, p_mk, p_xi, p_st, p_pt, p_proc, p_scene, p_sub = (
             importlib.import_module(f"{name}.{m}") for m in (
-                "native", "accel.megakernel", "accel.intersect", "ops.pathtracer",
-                "scene.procedural", "scene.scene"))
+                "native", "accel.megakernel", "accel.intersect", "accel.stream",
+                "ops.pathtracer", "scene.procedural", "scene.scene", "scene.subdivide"))
         for label, nat in (("parent", p_native), ("new", native)):
             text = report["ptxas"][label] = ptxas_report(nat)
             print(f"ptxas, {label}:\n" + "\n".join(
                 line for line in text.splitlines()
-                if "bounce_kernel" in line or "closest_kernel" in line or "Used" in line
-                or "spill" in line), flush=True)
+                if "Compiling" in line or "Used" in line or "spill" in line), flush=True)
         p_native.lib()
         native.lib()
 
@@ -157,7 +217,11 @@ def main() -> int:
                 return {"parent": lambda: p_mk.bounce(scene_p, st, *rest_p),
                         "new": lambda: MK.bounce(scene, st, *rest)}
 
+            so, seg = inp["b3"]
             runs = {
+                "occlusion": {
+                    "parent": lambda: p_xi.intersect_occluded(scene_p, so, seg, 1e-3, 1.0 - 1e-3),
+                    "new": lambda: XI.intersect_occluded(scene, so, seg, 1e-3, 1.0 - 1e-3)},
                 "bounce": b6("b6"),
                 "bounce_last": b6("b6_last"),
                 "closest": {"parent": lambda: p_xi.intersect_closest_shaded(scene_p, o7, d7),
@@ -171,24 +235,33 @@ def main() -> int:
                 },
             }
             out = report["scenes"][label] = {"nt": nt, "tp": tp, "rays": res * res}
-            for kname, fns in runs.items():
-                got = {v: fn() for v, fn in fns.items()}
-                got = {v: g if isinstance(g, tuple) else (g,) for v, g in got.items()}
-                ref = next(iter(got.values()))
-                rec = out[kname] = {v: {"equal_to_first": all(bits_equal(a, b)
-                                                              for a, b in zip(g, ref))}
-                                    for v, g in got.items()}
-                # in turns: forward then backward, a median of 20 runs each time
-                times = {v: [] for v in fns}
-                for v in list(fns) + list(reversed(fns)):
-                    times[v].append(cuda_ms(fns[v], reps=20))
-                for v in fns:
-                    rec[v]["ms"] = times[v]
-                print(f"{label} (nt {nt}, tp {tp}) {kname}: " + "; ".join(
-                    f"{v} {[round(x, 4) for x in r['ms']]} ms equal={r['equal_to_first']}"
-                    for v, r in rec.items()), flush=True)
+            _run(out, f"{label} (nt {nt}, tp {tp})", runs)
             del scene, scene_p, inp, runs
             torch.cuda.empty_cache()
+
+        # B8 on the clustered box, B9 as the control
+        from .accel import stream as ST
+        from .scene.subdivide import subdivide_scene
+
+        big = upload_scene(subdivide_scene(cornell_box(), 100_000), device=dev)
+        big_p = p_scene.upload_scene(p_sub.subdivide_scene(p_proc.cornell_box(), 100_000),
+                                     device=dev)
+        if not bits_equal(big.woop, big_p.woop):
+            raise AssertionError("cornell139k: the two commits upload different scenes")
+        inp = _clustered_inputs(big, cam, 256, seed)
+        so, seg = inp.pop("b9")
+
+        def b8(o, d):
+            return {"parent": lambda: p_st.stream_closest(big_p, o, d),
+                    "new": lambda: ST.stream_closest(big, o, d)}
+
+        runs = {f"stream_closest_{k}": b8(*rays) for k, rays in inp.items()}
+        runs["control_occlusion_stream"] = {
+            "parent": lambda: p_st.occlusion_stream(big_p, so, seg, 1e-3, 1.0 - 1e-3),
+            "new": lambda: ST.occlusion_stream(big, so, seg, 1e-3, 1.0 - 1e-3)}
+        out = report["scenes"]["cornell139k"] = {"slots": big.woop.shape[1] // 3,
+                                                 "rays": 256 * 256}
+        _run(out, "cornell139k", runs)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)

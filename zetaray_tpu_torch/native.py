@@ -47,9 +47,8 @@ _F = ctypes.c_float
 _SIGNATURES = {
     # o, d, woop, attrs, out, n, tp, t_min, stream
     "zr_gbuffer": [_VP, _VP, _VP, _VP, _VP, ctypes.c_int, ctypes.c_int, ctypes.c_float, _VP],
-    # o, d, woop, out, n, tp, t_min, t_max, stream
-    "zr_occlusion": [_VP, _VP, _VP, _VP, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                     ctypes.c_float, _VP],
+    # o, d, woop_rows, out, n, tp, nt, t_min, t_max, stream
+    "zr_occlusion": [_VP, _VP, _VP, _VP, _I, _I, _I, _F, _F, _VP],
     # gb, sets, out, n, n_sets, ps, rt, block, seed, stream
     "zr_ris": [_VP, _VP, _VP, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                ctypes.c_int, ctypes.c_uint32, _VP],
@@ -66,9 +65,8 @@ _SIGNATURES = {
                   _I, _I, _I, _I, _I, _I, _VP],
     # o, d, woop_rows, attrs, t, tri, u, v, attrs_out, n, tp, nt, tie, t_min, t_max, stream
     "zr_closest": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _F, _F, _VP],
-    # o, d, woop, tree_lo, tree_hi, tree_left, tree_right, tree_cluster, t, tri, n, tp, c,
-    # t_min, t_max, stream
-    "zr_stream_closest": [_VP] * 10 + [_I, _I, _I, _F, _F, _VP],
+    # o, d, walk_nodes, leaf_rows, leaf_slot, t, tri, n, c, stack, t_min, t_max, stream
+    "zr_stream_closest": [_VP] * 7 + [_I, _I, _I, _F, _F, _VP],
     # o, d, woop, tree_lo, tree_hi, tree_left, tree_right, tree_cluster, out, n, tp, c,
     # t_min, t_max, stream
     "zr_stream_occlusion": [_VP] * 9 + [_I, _I, _I, _F, _F, _VP],
@@ -96,12 +94,13 @@ def layout_header() -> str:
     """``layout.h``: the Python layouts and launch constants as ``constexpr
     int`` constants (``A_<column>``, ``G_<row>``, ``LSET_ROWS``,
     ``LSET_STAGED``, ``R_ROWS``, ``STATE_ROWS``, ``SURF_ROWS``,
-    ``BOUNCE_BLOCK``, ``BOUNCE_SALT``, ``TREE_STACK``), ``TREE_PAD_REL`` as
+    ``BOUNCE_BLOCK``, ``BOUNCE_SALT``, ``TREE_STACK``, ``WALK_STACK_MAX``),
+    ``TREE_PAD_REL`` as
     a ``constexpr float`` and the GGX albedo fit (``GGX_E_DEG``,
     ``GGX_E_COEF``, ``GGX_EAVG_COEF``) as float arrays in constant memory,
     each coefficient the ``repr`` of its Python float, so it rounds to
     float32 as in PyTorch."""
-    from .accel.bvh import TREE_PAD_REL, TREE_STACK
+    from .accel.bvh import TREE_PAD_REL, TREE_STACK, WALK_STACK_MAX
     from .accel.megakernel import (
         BOUNCE_BLOCK, G, LSET_ROWS, LSET_STAGED, STATE_ROWS, SURF_ROWS,
     )
@@ -118,7 +117,8 @@ def layout_header() -> str:
     lines += [f"constexpr int {k} = {v};" for k, v in (
         ("LSET_ROWS", LSET_ROWS), ("LSET_STAGED", LSET_STAGED), ("R_ROWS", R_ROWS),
         ("STATE_ROWS", STATE_ROWS), ("SURF_ROWS", SURF_ROWS), ("BOUNCE_BLOCK", BOUNCE_BLOCK),
-        ("BOUNCE_SALT", BOUNCE_SALT), ("GGX_E_DEG", S._GGX_E_DEG), ("TREE_STACK", TREE_STACK))]
+        ("BOUNCE_SALT", BOUNCE_SALT), ("GGX_E_DEG", S._GGX_E_DEG), ("TREE_STACK", TREE_STACK),
+        ("WALK_STACK_MAX", WALK_STACK_MAX))]
     lines.append(f"constexpr float TREE_PAD_REL = {TREE_PAD_REL!r}f;")
     for name, coef in (("GGX_E_COEF", S._GGX_E_COEF), ("GGX_EAVG_COEF", S._GGX_EAVG_COEF)):
         vals = ", ".join(repr(float(c)) for c in coef)

@@ -17,6 +17,8 @@ size (8192).
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 
 from .scene import CpuScene, MaterialsSoA
@@ -168,3 +170,15 @@ def cornell_box(subdivide_to: int | None = None, room=ROOM) -> CpuScene:
         inst_id=np.zeros(p.shape[0], np.int32),
         inst_names=["cornell_box"],
     )
+
+
+def repeated_box(copies: int, subdivide_to: int | None = None) -> CpuScene:
+    """The box (``cornell_box(subdivide_to)``) with each triangle repeated
+    ``copies`` times in a row: every hit ties between the copies, so the tie
+    rule decides it, and clusters split the copies up."""
+    box = cornell_box(subdivide_to)
+    rep = lambda x: np.repeat(x, copies, axis=0)
+    fields = {f: rep(getattr(box, f)) for f in ("v0", "v1", "v2", "n0", "n1", "n2", "uv0",
+                                                "uv1", "uv2", "mat_id", "inst_id")}
+    em = (box.emissive_tris[:, None] * copies + np.arange(copies)).ravel().astype(np.int32)
+    return dataclasses.replace(box, **fields, emissive_tris=em)

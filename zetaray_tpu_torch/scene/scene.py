@@ -11,15 +11,17 @@ uploads agree entry for entry.
 Above ``CLUSTER_THRESHOLD`` triangles the upload is clustered as in the JAX
 package: the triangles are reordered into BVH leaves of ``CLUSTER_SIZE``
 slots (cluster k owns slots ``[k*C, (k+1)*C)`` of every table), and the
-scene carries the cluster boxes and the traversal tree over them that the
-streaming kernels B8/B9 walk (``accel.stream``). The JAX package's
+scene carries the cluster boxes, the traversal tree over them that the
+any-hit kernel B9 walks, and the tree that the closest-hit kernel B8 walks:
+the same tree with a sub-tree of small leaves over each cluster's real
+slots (``accel.bvh``, ``accel.stream``). The JAX package's
 TPU-only stream layouts (``woop_stream``, ``stream_attrs``) and its
 two-phase distance cap (``stream_tcap``) have no counterpart.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field, fields
+from dataclasses import dataclass, field, fields, replace
 
 import numpy as np
 import torch
@@ -191,8 +193,14 @@ class SceneBuffers:
     tree_left: torch.Tensor | None = None  # [K] int32 children, -1 at a leaf
     tree_right: torch.Tensor | None = None
     tree_cluster: torch.Tensor | None = None  # [K] int32 a leaf's cluster, else -1
-    # woop_rows()'s cache: (woop's version counter, the rows)
+    # the tree B8 walks (accel.bvh.walk_tree): the cluster tree with a sub-tree
+    # over each cluster's real slots below it
+    walk_nodes: torch.Tensor | None = None  # [K2, 16] int32, one node a row
+    leaf_slot: torch.Tensor | None = None  # [R] int32 the slot of each leaf-ordered row
+    walk_stack: int | None = None  # the most stack entries B8's walk can need
+    # woop_rows()'s and leaf_rows()'s caches: (woop's version counter, the rows)
     _woop_rows: tuple | None = field(default=None, init=False, repr=False, compare=False)
+    _leaf_rows: tuple | None = field(default=None, init=False, repr=False, compare=False)
 
     @property
     def device(self) -> torch.device:
@@ -201,16 +209,33 @@ class SceneBuffers:
     def woop_rows(self) -> torch.Tensor:
         """``woop`` [4, 3*Tp] triangle by triangle, [Tp, 12]: per triangle the
         w, u and v rows of its Woop transform, each as (x, y, z, translation).
-        The table that the sweep of kernels B6 and B7 stages. Made at first
+        The table that the sweep of kernels B3, B6 and B7 stages. Made at first
         use, and made again whenever ``woop`` was changed in place (its
         version counter moved), so the two tables never disagree; a write
         through a raw pointer does not move the counter."""
+        return self._rows_cached("_woop_rows", None)
+
+    def leaf_rows(self) -> torch.Tensor:
+        """The rows of ``woop_rows()`` of the slots ``leaf_slot``, in leaf
+        order, [R, 12]: the table kernel B8 reads, gathered from ``woop``
+        (no dense copy is made), at first use and again whenever ``woop`` was
+        changed in place. Only the rows follow ``woop``: the trees
+        (``tree_*``, ``walk_nodes``, ``leaf_slot``, ``walk_stack``) are built
+        at upload, so an edit that moves a triangle out of its boxes, or
+        makes a pad slot real, needs a fresh upload."""
+        return self._rows_cached("_leaf_rows", self.leaf_slot.long())
+
+    def _rows_cached(self, name: str, slots):
+        cached = getattr(self, name)
         version = self.woop._version
-        if self._woop_rows is None or self._woop_rows[0] != version:
-            tp = self.woop.shape[1] // 3
-            rows = self.woop.reshape(4, 3, tp)[:, [2, 0, 1]].permute(2, 1, 0).reshape(tp, 12)
-            object.__setattr__(self, "_woop_rows", (version, rows.contiguous()))
-        return self._woop_rows[1]
+        if cached is None or cached[0] != version:
+            w = self.woop.reshape(4, 3, -1)[:, [2, 0, 1]]
+            if slots is not None:
+                w = w[:, :, slots]
+            rows = w.permute(2, 1, 0).reshape(-1, 12).contiguous()
+            object.__setattr__(self, name, (version, rows))
+            cached = (version, rows)
+        return cached[1]
 
 
 def _woop_matrices(v0, v1, v2) -> np.ndarray:
@@ -430,9 +455,9 @@ def upload_scene_arrays(cpu: CpuScene, cluster_size: int | None = None) -> dict:
 def buffers_from_arrays(d: dict, device=None) -> SceneBuffers:
     """Dict of SceneBuffers fields (numpy or scalars) -> SceneBuffers on
     ``device`` (default: the card; ``native.default_device``). Where
-    ``cluster_aabb`` is given, the cluster size and the traversal tree are
-    derived from it and the Woop table's width."""
-    from ..accel.bvh import cluster_tree
+    ``cluster_aabb`` is given, the cluster size and the traversal trees are
+    derived from it, the Woop table and ``v0``/``e1``/``e2``."""
+    from ..accel.bvh import cluster_tree, walk_tree
 
     device = native.default_device(device)
     d = dict(d)
@@ -441,7 +466,9 @@ def buffers_from_arrays(d: dict, device=None) -> SceneBuffers:
         tp = np.asarray(d["woop"]).shape[1] // 3
         if tp % m:
             raise ValueError(f"{tp} triangle slots do not split into {m} clusters")
-        d.update(cluster_tree(d["cluster_aabb"]), cluster_size=tp // m)
+        tree = cluster_tree(d["cluster_aabb"])
+        d.update(tree, cluster_size=tp // m)
+        d.update(walk_tree(tree, tp // m, *(np.asarray(d[k]) for k in ("woop", "v0", "e1", "e2"))))
     kw = {}
     for f in fields(SceneBuffers):
         if not f.init:
@@ -449,13 +476,27 @@ def buffers_from_arrays(d: dict, device=None) -> SceneBuffers:
         v = d.get(f.name) if f.default is None else d[f.name]
         if v is None:
             kw[f.name] = None
-        elif f.name in ("num_tris", "num_emissives", "cluster_size"):
+        elif f.name in ("num_tris", "num_emissives", "cluster_size", "walk_stack"):
             kw[f.name] = int(v)
         elif f.name.startswith("has_"):
             kw[f.name] = bool(v)
         else:
             kw[f.name] = torch.from_numpy(np.array(v)).to(device)
     return SceneBuffers(**kw)
+
+
+def with_cluster_tree(scene: SceneBuffers, tree: dict) -> SceneBuffers:
+    """``scene`` (clustered) with ``tree`` as its clusters' traversal tree,
+    in the form of ``accel.bvh.cluster_tree`` (``accel.bvh.chain_tree`` is
+    the deepest), and B8's tree rebuilt below it."""
+    from ..accel.bvh import walk_tree
+
+    host = lambda k: getattr(scene, k).cpu().numpy()
+    walk = walk_tree(tree, scene.cluster_size, *(host(k) for k in ("woop", "v0", "e1", "e2")))
+    stack = walk.pop("walk_stack")
+    tables = {k: torch.from_numpy(np.asarray(v)).to(scene.device)
+              for k, v in {**tree, **walk}.items()}
+    return replace(scene, walk_stack=stack, **tables)
 
 
 def upload_scene(cpu: CpuScene, device=None, cluster_size: int | None = None) -> SceneBuffers:
