@@ -14,7 +14,7 @@ Phases (any failure exits non-zero):
      and, on its trace-only branch of a path's last bounce, at 2), and the
      closest hit with attributes (B7) on ReSTIR PT prefix rays built as its
      initial samples build them; B7 also on 1024^2 camera rays, as the
-     primary-rays rate of bench.py. B6 and B7 record the real triangle
+     primary-rays rate of bench.py. B4, B6 and B7 record the real triangle
      count they sweep (nt) and the ray-triangle pairs they test a second.
      On the box split to 139,266 triangles
      (bench.py's large scene, clustered into 798 clusters of 256 slots) at
@@ -23,8 +23,9 @@ Phases (any failure exits non-zero):
      the primary hits, random unit directions; a missed primary ray's far
      end near 3e38), on those of them whose primary ray hit (the rest
      parked), and on the frame's GI bounce-0 rays, and the streaming any
-     hit (B9) on the frame's DI shadow segments, with bench.py's raw primary
-     and GI-like rates. Each kernel's least time on the card (bound_ms) is
+     hit (B9) on the frame's DI shadow segments (the share of them blocked
+     recorded), with bench.py's raw primary and GI-like rates. Each
+     kernel's least time on the card (bound_ms) is
      reckoned from this run's work and the H100's published peaks;
   4. renders chained frames of each path with its launch counters set to 0
      just before it and read just after: the DI-only slice at 512^2
@@ -261,9 +262,11 @@ def main() -> int:
             cuda_ms(lambda: MK.bounce_plain(*b6_args), reps=3, warmup=1),
             PAIR_OPS * (int(found_1.sum().item()) + lit_6) * n_tri,
             n * 2 * state_bytes + tri_bytes + set_bytes)
-        # B6 and B7 sweep the n_tri real triangles: every ray's closest hit,
-        # and (B6) every triangle again for a segment that let its light through
-        r6 = rec["bounce"]
+        # B4, B6 and B7 sweep the n_tri real triangles: every ray's closest
+        # hit, and (B6) every triangle again for a segment that let its light
+        # through
+        r4, r6 = rec["bounce_trace"], rec["bounce"]
+        r4.update(nt=n_tri, pairs_per_s=n * n_tri / (r4["ms"] * 1e-3))
         r6.update(nt=n_tri, pairs_per_s=(n + lit_6) * n_tri / (r6["ms"] * 1e-3))
         print(f"{label} ({n} GI bounce-0 rays, {found.float().mean().item():.4f} hit, "
               f"{found_1.float().mean().item():.4f} hit at bounce 1): " + "; ".join(
@@ -271,7 +274,8 @@ def main() -> int:
                   f"{rec[k]['bound_ms']:.4f} by {rec[k]['bound_by']}), max abs err "
                   f"{rec[k]['max_abs_err']:.3g}"
                   for k in ("bounce_trace", "bounce_shade", "bounce"))
-              + f"; bounce {r6['pairs_per_s']:.4g} pairs/s", flush=True)
+              + f"; bounce_trace {r4['pairs_per_s']:.4g}, bounce {r6['pairs_per_s']:.4g} "
+              "pairs/s", flush=True)
 
         # B7 on ReSTIR PT prefix rays: every output equal to the plain version
         o7, d7 = prefix_rays(gk, seed)
@@ -385,7 +389,7 @@ def main() -> int:
         ms=cuda_ms(lambda: ST.occlusion_stream(big, so_c, seg_c, 1e-3, 1.0 - 1e-3), reps=10),
         plain_ms=cuda_ms(lambda: ST.occlusion_stream_plain(big, so_c, seg_c, 1e-3, 1.0 - 1e-3),
                          reps=1, warmup=0),
-        bound_ms=b_ms, bound_by=b_by)
+        bound_ms=b_ms, bound_by=b_by, blocked=n_occ_c / n_c)
     r9 = rec_c["occlusion_stream"]
     print(f"cornell139k ({n_c} DI shadow segments, {n_occ_c / n_c:.4f} blocked): "
           f"occlusion_stream {r9['ms']:.4f} ms (plain {r9['plain_ms']:.3f}, bound "

@@ -145,16 +145,16 @@ def test_closest_kernel_matches_plain(cuda, subdivide):
 @pytest.mark.cuda
 @pytest.mark.parametrize("subdivide", [None, 200, 300, 1000])
 def test_sweep_kernels_on_ragged_shapes(cuda, subdivide):
-    """B3, B6 and B7 where their sweep has ragged edges: 36, 200, 300 or
+    """B3, B4, B6 and B7 where their sweep has ragged edges: 36, 200, 300 or
     1000 real triangles (1, 2, 3 and 8 chunks of the 128-triangle staging
     ring, none full; with an odd count of at least 3 B6's shadow sweep
     starts in the ring stage that holds the closest-hit sweep's last chunk),
     1000 rays (not a multiple of a block's 128) and B6 with the narrowest
     tile width, rt = 128. B3 equal to its plain version on shadow segments
-    and on rays of unbounded length, B7 in every output. B6 as in
-    test_bounce_kernels_match_plain, and on every ray that found a hit its
-    next origin (the hit point moved off the surface) equal bit for bit.
-    All three refuse a negative t_min."""
+    and on rays of unbounded length, B7 in every output. B4 and B6 as in
+    test_bounce_kernels_match_plain, and on every ray that found a hit B4's
+    surface position and B6's next origin (the hit point moved off the
+    surface) equal bit for bit. All four refuse a negative t_min."""
     scene = upload_scene(cornell_box(subdivide_to=subdivide), device=cuda)
     assert scene.num_tris % 128
     _, o, d = _rays(cuda, 32)
@@ -172,7 +172,13 @@ def test_sweep_kernels_on_ragged_shapes(cuda, subdivide):
         assert torch.equal(occ, XI.occlusion_plain(scene.woop, o2, dirs, t_min, t_max))
         assert 0 < occ.sum() < occ.numel()
     cfg = PTConfig(max_bounces=3, min_emissive_bounce=1, rr_start=1)
-    st, surf = MK.bounce_trace_plain(scene, MK.initial_state(o2, d2), 0, cfg, True)
+    st0 = MK.initial_state(o2, d2)
+    st4, surf4 = MK.bounce_trace(scene, st0, 0, cfg, True, 0.004)
+    st, surf = MK.bounce_trace_plain(scene, st0, 0, cfg, True, 0.004)
+    found = st[13] > 0.5
+    assert 0.3 < found.float().mean() < 1.0
+    assert _close_rays(st4, st) == 1.0 and _close_rays(surf4, surf) == 1.0
+    assert torch.equal(st4[13], st[13]) and torch.equal(surf4[0:3, found], surf[0:3, found])
     st5 = MK.bounce_shade_plain(scene, st, surf, lsets, 0, SEED, cfg, True, 128)
     for b, last in ((1, False), (2, True)):
         f6 = MK.bounce_trace_plain(scene, st5, b, cfg, True)[0][13] > 0.5
@@ -189,6 +195,8 @@ def test_sweep_kernels_on_ragged_shapes(cuda, subdivide):
         XI.occlusion(scene, o2, d2, t_min=-1.0)
     with pytest.raises(ValueError, match="t_min"):
         MK.bounce(scene, st5, lsets, 1, SEED, PTConfig(t_min=-1.0), False, True, 128)
+    with pytest.raises(ValueError, match="t_min"):
+        MK.bounce_trace(scene, st0, 0, PTConfig(t_min=-1.0), True)
 
 
 @pytest.mark.cuda
@@ -232,11 +240,11 @@ def test_stream_kernels_match_plain(cuda, name, cluster_size):
     clusters of 128, on the box with each triangle repeated 160 times
     (clusters of 128), where the tie rule (t, cluster, -slot) decides every
     hit, and on the box bisected to 56 triangles, each repeated 100 times,
-    with its 56 clusters in a chain (B9's tree 55 deep, B8's stack 61
-    entries, 61 KiB of shared memory a block): camera rays, rays leaving
-    each primary hit (or, where the primary ray missed, from its far end,
-    as bench.py builds them) in random directions, and shadow segments; t
-    and slot equal. B8 refuses a negative t_min."""
+    with its 56 clusters in a chain (the cluster tree 55 deep, the walks'
+    stack 61 entries, 61 KiB of B8's shared memory a block): camera rays,
+    rays leaving each primary hit (or, where the primary ray missed, from
+    its far end, as bench.py builds them) in random directions, and shadow
+    segments; t and slot equal. B8 and B9 refuse a negative t_min."""
     cpu = {"box8706": lambda: subdivide_scene(cornell_box(), 8193),
            "box546": lambda: subdivide_scene(cornell_box(), 500),
            "ties": lambda: repeated_box(160),
@@ -272,6 +280,8 @@ def test_stream_kernels_match_plain(cuda, name, cluster_size):
         before[0] + 3, before[1] + 1)
     with pytest.raises(ValueError, match="t_min"):
         ST.stream_closest(scene, o, d, t_min=-1.0)
+    with pytest.raises(ValueError, match="t_min"):
+        ST.occlusion_stream(scene, so, seg, t_min=-1.0)
 
 
 @pytest.mark.cuda

@@ -183,7 +183,7 @@ def test_gbuffer_symmetric_box_flips_only_on_edges():
 
 
 _LAYOUT_NAMES = (r"[AG]_[A-Z0-9_]+|LSET_ROWS|LSET_STAGED|R_ROWS|STATE_ROWS|SURF_ROWS"
-                 r"|BOUNCE_BLOCK|BOUNCE_SALT|GGX_[A-Z_]+|TREE_STACK|WALK_STACK_MAX|TREE_PAD_REL")
+                 r"|BOUNCE_BLOCK|BOUNCE_SALT|GGX_[A-Z_]+|WALK_STACK_MAX|TREE_PAD_REL")
 
 
 def _header_constants(text):
@@ -198,7 +198,7 @@ def test_kernel_layout_header_matches_the_reference():
     Python floats. ``LSET_STAGED`` is the 11 filled rows of a light set
     (pos, ng, Le, pdf, two-sided); ``BOUNCE_BLOCK`` has no JAX counterpart
     and must divide every tile width the frame picks; nor have the tree
-    walks' stack limits and box padding (``accel.bvh``)."""
+    walks' stack limit and box padding (``accel.bvh``)."""
     text = native.layout_header()
     consts = _header_constants(text)
     want = {f"{p}_{k}": v for p, cls in (("A", JA), ("G", JG))
@@ -207,7 +207,7 @@ def test_kernel_layout_header_matches_the_reference():
     want.update(LSET_ROWS=JLSET_ROWS, LSET_STAGED=11, R_ROWS=JR_ROWS,
                 STATE_ROWS=JMK.STATE_ROWS, SURF_ROWS=JMK.SURF_ROWS,
                 BOUNCE_BLOCK=MK.BOUNCE_BLOCK, BOUNCE_SALT=salt, GGX_E_DEG=JS._GGX_E_DEG,
-                TREE_STACK=TB.TREE_STACK, WALK_STACK_MAX=TB.WALK_STACK_MAX)
+                WALK_STACK_MAX=TB.WALK_STACK_MAX)
     assert all(pick_rt(n) % MK.BOUNCE_BLOCK == 0 for n in (100, 64 * 64, 512 * 512, 1920 * 1080))
     assert consts == want
     arrays = {k: [float(x) for x in v.split(",")]

@@ -1,17 +1,20 @@
-"""The ray-query kernels B3, B8 and B9 built for the host and held to their
-plain versions, so that their logic (the sign test, the pruning, B8's tie
-rule and node culling) is checked on every run of the tests, with no card.
+"""The ray-query kernels B3, B4, B8 and B9 built for the host and held to
+their plain versions, so that their logic (the sign test, the pruning, the
+tie rules and node culling) is checked on every run of the tests, with no
+card.
 
-``csrc/occlusion.cu`` and ``csrc/stream.cu`` are compiled with g++ against a
-small stand-in for ``cuda_runtime.h``: the CUDA qualifiers are empty,
-``__shared__`` is ``static``, each block runs as ``blockDim.x`` threads with
-barriers behind ``__syncthreads``, ``__syncthreads_and`` and ``__all_sync``,
-the ``<<<...>>>`` launches become calls of that launcher, and an
-``extern __shared__`` array points at a buffer of the launch's size. Without
-``__CUDA_ARCH__`` the sweep's ``cp.async`` copies are plain copies. With
+``csrc/occlusion.cu``, ``csrc/bounce.cu`` and ``csrc/stream.cu`` are
+compiled with g++ against a small stand-in for ``cuda_runtime.h``: the CUDA
+qualifiers are empty, ``__shared__`` is ``static``, each block runs as
+``blockDim.x`` threads with barriers behind ``__syncthreads``,
+``__syncthreads_and`` and ``__all_sync``, the ``<<<...>>>`` launches become
+calls of that launcher, and an ``extern __shared__`` array points at a
+buffer of the launch's size. Without ``__CUDA_ARCH__`` the sweep's
+``cp.async`` copies are plain copies, and ``rsqrtf`` is ``1 / sqrtf``. With
 ``-ffp-contract=off`` each float operation rounds on its own, as in the
-plain versions and in the card's build (``--fmad=false``), so the outputs
-must be equal bit for bit.
+plain versions and in the card's build (``--fmad=false``), so the ray
+queries' outputs must be equal bit for bit; B4's shading rows, whose
+operations PyTorch orders its own way, agree to 1e-5.
 
 Skips only where g++ is absent.
 """
@@ -28,13 +31,20 @@ import torch
 
 from zetaray_tpu_torch import native
 from zetaray_tpu_torch.accel import intersect as XI
+from zetaray_tpu_torch.accel import megakernel as MK
 from zetaray_tpu_torch.accel import stream as ST
 from zetaray_tpu_torch.accel import bvh as TB
 from zetaray_tpu_torch.accel.bvh import LEAF_SIZE, WALK_STACK_MAX
 from zetaray_tpu_torch.accel.megakernel import INF
-from zetaray_tpu_torch.scene.procedural import cornell_box, repeated_box
+from zetaray_tpu_torch.ops.pathtracer import PTConfig
+from zetaray_tpu_torch.ops.restir_gi import secondary_rays
+from zetaray_tpu_torch.scene.camera import Camera
+from zetaray_tpu_torch.scene.procedural import (
+    CAMERA_EYE, CAMERA_TARGET, CAMERA_VFOV, cornell_box, repeated_box,
+)
 from zetaray_tpu_torch.scene.scene import upload_scene, with_cluster_tree
 from zetaray_tpu_torch.scene.subdivide import subdivide_scene
+from tests.test_torch_cuda import _close_rays
 
 torch.set_num_threads(1)
 
@@ -70,6 +80,7 @@ template <class K> cudaError_t cudaFuncSetAttribute(K, cudaFuncAttribute, int) {
 }
 inline int __float_as_int(float f) { int i; memcpy(&i, &f, 4); return i; }
 template <class T> inline T __ldg(const T* p) { return *p; }
+inline float rsqrtf(float x) { return 1.f / sqrtf(x); }
 
 namespace mock {
 using Barrier = std::barrier<>;
@@ -128,12 +139,13 @@ void zr_launch(int grid, int block, size_t shared, K kernel, A... args) {
 
 LAUNCH = re.compile(r"(\w+)<<<\s*([^,]+),\s*([^,]+),\s*([^,]+),[^>]*>>>\(")
 DYNAMIC_SHARED = re.compile(r"extern __shared__ (\w+) (\w+)\[\];")
-KERNELS = ("zr_occlusion", "zr_stream_closest", "zr_stream_occlusion")
+KERNELS = ("zr_occlusion", "zr_bounce_trace", "zr_stream_closest", "zr_stream_occlusion")
 
 
-@pytest.fixture(scope="module")
+@pytest.fixture(scope="session")
 def host_kernels(tmp_path_factory):
-    """csrc/occlusion.cu and csrc/stream.cu built for the host, loaded."""
+    """csrc/occlusion.cu, csrc/bounce.cu and csrc/stream.cu built for the
+    host, loaded."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ to build the kernels for the host")
@@ -143,7 +155,7 @@ def host_kernels(tmp_path_factory):
     for p in native.CSRC.glob("*.cuh"):
         shutil.copy(p, tmp / p.name)
     srcs = []
-    for name in ("occlusion.cu", "stream.cu"):
+    for name in ("occlusion.cu", "bounce.cu", "stream.cu"):
         text = LAUNCH.sub(r"zr_launch(\2, \3, \4, \1, ", (native.CSRC / name).read_text())
         text = DYNAMIC_SHARED.sub(
             r"\1* const \2 = reinterpret_cast<\1*>(mock::dynamic_shared.data());", text)
@@ -187,16 +199,32 @@ def host_stream_closest(lib, scene, o, d, t_min=1e-4, t_max=INF):
     return t, tri
 
 
-def host_stream_occlusion(lib, scene, o, d, t_min, t_max):
-    """B9 on the host: bool [N]."""
+def host_stream_occlusion(lib, scene, o, d, t_min, t_max, stack=None):
+    """B9 on the host: bool [N], or None where the entry point refuses the
+    launch."""
     n = o.shape[0]
     out = torch.full((n,), -1, dtype=torch.int32)
-    tree = [_ptr(getattr(scene, k)) for k in ("tree_lo", "tree_hi", "tree_left", "tree_right",
-                                             "tree_cluster")]
-    assert lib.zr_stream_occlusion(_ptr(o), _ptr(d), _ptr(scene.woop), *tree, _ptr(out), n,
-                                   scene.woop.shape[1] // 3, scene.cluster_size, t_min, t_max,
-                                   None) == 0
+    err = lib.zr_stream_occlusion(_ptr(o), _ptr(d), _ptr(scene.walk_nodes),
+                                  _ptr(scene.leaf_rows()), _ptr(out), n,
+                                  scene.walk_stack if stack is None else stack, t_min, t_max,
+                                  None)
+    if err:
+        return None
+    assert ((out == 0) | (out == 1)).all()
     return out.bool()
+
+
+def host_bounce_trace(lib, scene, state, cfg, spread_angle):
+    """B4 at bounce 0 on the host: (state [STATE_ROWS, N], surf [SURF_ROWS,
+    N]), or None where the entry point refuses the launch."""
+    n, tp = state.shape[1], scene.woop.shape[1] // 3
+    out = torch.full_like(state, -7.0)
+    surf = torch.full((MK.SURF_ROWS, n), -7.0)
+    err = lib.zr_bounce_trace(_ptr(state), _ptr(scene.woop_rows()), _ptr(scene.tri_attrs),
+                              _ptr(out), _ptr(surf), n, tp, scene.num_tris, 0, cfg.t_min,
+                              MK.cone_spread(spread_angle), cfg.min_emissive_bounce,
+                              int(cfg.nee), 1, None)
+    return None if err else (out, surf)
 
 
 def _segments(seed, n):
@@ -230,11 +258,37 @@ def test_occlusion_kernel_on_host(host_kernels, subdivide):
                                      tp, scene.num_tris, -1.0, 1.0, None) != 0
 
 
+@pytest.mark.parametrize("subdivide", [None, 200, 300])
+def test_bounce_trace_on_host(host_kernels, subdivide):
+    """B4 against its plain version with 36, 200 and 300 real triangles (1,
+    2 and 3 chunks of the sweep's ring) on 300 GI bounce-0 rays (3 blocks,
+    the last one ragged): alive and the texture id exact, every row to 1e-5
+    on the rays that hit and the radiance on all, the hit position of a ray
+    that hit bit for bit; a negative t_min is refused."""
+    scene = upload_scene(cornell_box(subdivide_to=subdivide), device="cpu")
+    cam = Camera.look_at(CAMERA_EYE, CAMERA_TARGET, vfov_deg=CAMERA_VFOV, aspect=1.0)
+    o, d = cam.generate_rays(18, 18, device="cpu")
+    o2, d2, _, _ = secondary_rays(MK.gbuffer(scene, o, d), 0x2468ACE1)
+    st0 = MK.initial_state(o2[:300], d2[:300]).contiguous()
+    cfg = PTConfig(max_bounces=2, min_emissive_bounce=1)
+    spread = cam.pixel_spread_angle(18)
+    st, surf = host_bounce_trace(host_kernels, scene, st0, cfg, spread)
+    st_p, surf_p = MK.bounce_trace_plain(scene, st0, 0, cfg, True, spread)
+    found = st_p[13] > 0.5
+    assert 0.3 < found.float().mean() < 1.0
+    assert torch.equal(st[13], st_p[13]) and torch.equal(surf[21], surf_p[21])
+    assert torch.equal(surf[0:3, found], surf_p[0:3, found])
+    assert _close_rays(st[:, found], st_p[:, found]) == 1.0
+    assert _close_rays(surf[:, found], surf_p[:, found]) == 1.0
+    assert _close_rays(st, st_p, [9, 10, 11]) == 1.0
+    assert host_bounce_trace(host_kernels, scene, st0, PTConfig(t_min=-1.0), spread) is None
+
+
 def _deep():
     """The box bisected to 56 triangles, each repeated 100 times, in 56
-    clusters of 128 slots put in a chain: B9's cluster tree 55 deep, B8's
-    walk 61 stack entries (61 KiB of shared memory a block, past the 48 KiB
-    a launch gets unasked)."""
+    clusters of 128 slots put in a chain: the cluster tree 55 deep, the
+    walk 61 stack entries (61 KiB of B8's shared memory a block, past the
+    48 KiB a launch gets unasked)."""
     scene = upload_scene(repeated_box(100, 56), device="cpu", cluster_size=128)
     return with_cluster_tree(scene, TB.chain_tree(scene.cluster_aabb.numpy()))
 
@@ -262,7 +316,7 @@ def test_stream_kernels_on_host(host_kernels, name):
     scene = CLUSTERED[name]()
     assert scene.cluster_aabb is not None
     if name == "deep":
-        assert scene.walk_stack == 61 and scene.tree_cluster.shape[0] == 111
+        assert scene.walk_stack == 61 and scene.walk_nodes.shape[0] == 2799
     o, seg, d = _segments(5, 300)
     t, tri = host_stream_closest(host_kernels, scene, o, d)
     t_p, tri_p = ST.stream_closest_plain(scene, o, d)
@@ -286,6 +340,8 @@ def test_stream_kernels_on_host(host_kernels, name):
         got = host_stream_occlusion(host_kernels, scene, o, dirs, t_min, t_max)
         assert torch.equal(got, ST.occlusion_stream_plain(scene, o, dirs, t_min, t_max))
         assert 0 < got.sum() < got.numel()
+    got = host_stream_occlusion(host_kernels, scene, o2, d2, 1e-4, INF)
+    assert torch.equal(got, ST.occlusion_stream_plain(scene, o2, d2, 1e-4, INF))
     t0 = torch.zeros(300)
     tri0 = torch.zeros(300, dtype=torch.int32)
     for stack, t_min in ((scene.walk_stack, -1.0), (0, 1e-4), (WALK_STACK_MAX + 1, 1e-4)):
@@ -293,6 +349,7 @@ def test_stream_kernels_on_host(host_kernels, name):
             _ptr(o), _ptr(d), _ptr(scene.walk_nodes), _ptr(scene.leaf_rows()),
             _ptr(scene.leaf_slot), _ptr(t0), _ptr(tri0), 300, 128, stack, t_min, INF,
             None) != 0
+        assert host_stream_occlusion(host_kernels, scene, o, seg, t_min, 1.0, stack) is None
 
 
 @pytest.mark.parametrize("n_tris", [36, LEAF_SIZE])

@@ -32,9 +32,12 @@ from zetaray_tpu_torch.accel import stream as ST
 from zetaray_tpu_torch.interop import scene_from_arrays
 from zetaray_tpu_torch.ops import pathtracer as PT
 from zetaray_tpu_torch.scene import scene as TS
-from zetaray_tpu_torch.scene.procedural import cornell_box
+from zetaray_tpu_torch.scene.procedural import cornell_box, repeated_box
 from zetaray_tpu_torch.scene.subdivide import subdivide_scene
 from tests.test_stream import _soup
+from tests.test_torch_rehearsal import (  # noqa: F401  (host_kernels is a fixture)
+    _segments, host_kernels, host_stream_closest, host_stream_occlusion,
+)
 from tests.test_torch_intersect import _camera_rays
 from tests.test_torch_scene import TABLES, jax_scene_arrays, to_jax_cpu_scene, to_port_cpu_scene
 
@@ -46,7 +49,6 @@ CPU_SCENES = {
     "box546": lambda: subdivide_scene(cornell_box(), 500),
     "soup": lambda: to_port_cpu_scene(_soup(np.random.default_rng(3))),
 }
-TREE = ("tree_lo", "tree_hi", "tree_left", "tree_right", "tree_cluster")
 WALK = ("walk_nodes", "leaf_slot")
 
 
@@ -128,13 +130,11 @@ def test_cluster_size_option():
         TS.upload_scene(small, device="cpu", cluster_size=100)
 
 
-def test_cluster_tree(clustered):
+def _check_cluster_tree(tree, box):
     """One leaf per cluster; every node box holds its children's boxes and
-    each leaf's box its cluster's; the tree's depth is checked at build."""
-    _, _, tdev = clustered
-    box = tdev.cluster_aabb.numpy()
-    lo, hi = tdev.tree_lo.numpy(), tdev.tree_hi.numpy()
-    left, right, cl = (getattr(tdev, k).numpy() for k in TREE[2:])
+    each leaf's box its cluster's. Returns (left, right, leaf)."""
+    lo, hi = tree["tree_lo"], tree["tree_hi"]
+    left, right, cl = tree["tree_left"], tree["tree_right"], tree["tree_cluster"]
     leaf = cl >= 0
     assert sorted(cl[leaf]) == list(range(box.shape[0]))
     assert ((left < 0) == leaf).all() and ((right < 0) == leaf).all()
@@ -142,16 +142,49 @@ def test_cluster_tree(clustered):
     inner = np.nonzero(~leaf)[0]
     for kids in (left[inner], right[inner]):
         assert (lo[inner] <= lo[kids]).all() and (hi[inner] >= hi[kids]).all()
-    assert lo.dtype == np.float32 and left.dtype == np.int32
+    assert lo.dtype == np.float32 and left.dtype == np.int32 and cl.dtype == np.int32
+    return left, right, leaf
 
 
-def test_cluster_tree_depth_is_checked(monkeypatch):
-    box = np.zeros((16, 8), np.float32)
-    box[:, 0] = np.arange(16)
-    box[:, 3] = np.arange(16) + 0.5
-    monkeypatch.setattr(TB, "TREE_STACK", 3)
-    with pytest.raises(ValueError, match="depth"):
-        TB.cluster_tree(box)
+def test_cluster_tree(clustered):
+    """The tree over the clusters that the walks' tree is built on: one leaf
+    per cluster; every node box holds its children's boxes and each leaf's
+    box its cluster's; the cluster tree's inner nodes head the walks'
+    tree."""
+    _, _, tdev = clustered
+    box = tdev.cluster_aabb.numpy()
+    tree = TB.cluster_tree(box)
+    _, _, leaf = _check_cluster_tree(tree, box)
+    # walk node k < the inner nodes holds inner node k's children's boxes
+    top = np.nonzero(~leaf)[0]
+    f = tdev.walk_nodes.numpy()[:, :12].view(np.float32)
+    for side, kids in enumerate((tree["tree_left"][top], tree["tree_right"][top])):
+        np.testing.assert_array_equal(f[: top.shape[0], 4 * side], tree["tree_lo"][kids, 0])
+        np.testing.assert_array_equal(f[: top.shape[0], 9 + 2 * side], tree["tree_hi"][kids, 2])
+
+
+def test_cluster_tree_depth_is_checked(host_kernels):
+    """A cluster tree's depth is checked only as part of the walks' stack
+    (``walk_stack`` against WALK_STACK_MAX; test_walk_tree_depth_is_checked):
+    the box bisected to 80 triangles, each repeated 100 times, in 80
+    clusters of 128 slots put in a chain, a cluster tree 79 deep (deeper
+    than the 64 that B9's own walk once allowed), uploads, and B8 and B9
+    built for the host walk it as their plain versions answer."""
+    scene = TS.upload_scene(repeated_box(100, 80), device="cpu", cluster_size=C)
+    box = scene.cluster_aabb.numpy()
+    chain = TS.with_cluster_tree(scene, TB.chain_tree(box))
+    left, right, _ = _check_cluster_tree(TB.chain_tree(box), box)
+    assert box.shape[0] == 80 and TB._depth(left, right).max() == 79
+    assert 79 < chain.walk_stack <= TB.WALK_STACK_MAX
+    o, seg, d = _segments(5, 300)
+    t, tri = host_stream_closest(host_kernels, chain, o, d)
+    t_p, tri_p = ST.stream_closest_plain(chain, o, d)
+    assert torch.equal(tri, tri_p) and torch.equal(t, t_p)
+    assert 0.5 < (tri_p >= 0).float().mean() < 1.0
+    for dirs, t_max in ((seg, 1.0 - 1e-3), (d, 0.5)):
+        got = host_stream_occlusion(host_kernels, chain, o, dirs, 1e-3, t_max)
+        assert torch.equal(got, ST.occlusion_stream_plain(chain, o, dirs, 1e-3, t_max))
+        assert 0 < got.sum() < got.numel()
 
 
 def test_interop_carries_a_clustered_scene(clustered):
@@ -161,7 +194,7 @@ def test_interop_carries_a_clustered_scene(clustered):
     _, jdev, tdev = clustered
     got = scene_from_arrays(jax_scene_arrays(jdev), device="cpu")
     assert got.cluster_size == C and got.num_tris == tdev.num_tris
-    for k in TABLES + ["cluster_aabb", *TREE, *WALK]:
+    for k in TABLES + ["cluster_aabb", *WALK]:
         assert torch.equal(getattr(got, k), getattr(tdev, k)), k
     assert torch.equal(got.leaf_rows(), tdev.leaf_rows())
     assert got.walk_stack == tdev.walk_stack
@@ -223,7 +256,7 @@ def test_walk_tree_depth_is_checked(clustered, monkeypatch):
     the node it visits, cluster tree and sub-tree together) is counted at
     build into ``walk_stack`` and checked against WALK_STACK_MAX."""
     _, _, tdev = clustered
-    tree = {k: getattr(tdev, k).numpy() for k in TREE}
+    tree = TB.cluster_tree(tdev.cluster_aabb.numpy())
     args = (tree, C, *(getattr(tdev, k).numpy() for k in ("woop", "v0", "e1", "e2")))
     got = TB.walk_tree(*args)
     assert np.array_equal(got["walk_nodes"], tdev.walk_nodes.numpy())
@@ -248,29 +281,20 @@ def _ancestors(scene):
     return out
 
 
-def test_chain_tree_is_deep_and_valid(clustered, monkeypatch):
+def test_chain_tree_is_deep_and_valid(clustered):
     """chain_tree: one leaf per cluster, every node box holds its children's
-    boxes, M - 1 deep; a scene given it walks B8's tree with the stack its
-    depth needs, and above TREE_STACK - 1 clusters deep it raises as the
-    cluster tree does."""
+    boxes, M - 1 deep; a scene given it walks a tree with the stack its
+    depth needs, over the same rows."""
     _, _, tdev = clustered
     box = tdev.cluster_aabb.numpy()
     m = box.shape[0]
-    chain = TS.with_cluster_tree(tdev, TB.chain_tree(box))
-    lo, hi = chain.tree_lo.numpy(), chain.tree_hi.numpy()
-    left, right, cl = (getattr(chain, k).numpy() for k in TREE[2:])
-    leaf = cl >= 0
-    assert sorted(cl[leaf]) == list(range(m)) and cl.shape[0] == 2 * m - 1
-    assert (lo[leaf] < box[cl[leaf], 0:3]).all() and (hi[leaf] > box[cl[leaf], 3:6]).all()
-    inner = np.nonzero(~leaf)[0]
-    for kids in (left[inner], right[inner]):
-        assert (lo[inner] <= lo[kids]).all() and (hi[inner] >= hi[kids]).all()
+    tree = TB.chain_tree(box)
+    chain = TS.with_cluster_tree(tdev, tree)
+    left, right, _ = _check_cluster_tree(tree, box)
+    assert tree["tree_cluster"].shape[0] == 2 * m - 1
     assert TB._depth(left, right).max() == m - 1
     assert chain.walk_stack == max(_ancestors(chain).values()) > tdev.walk_stack
     assert torch.equal(chain.leaf_slot.sort().values, tdev.leaf_slot.sort().values)
-    monkeypatch.setattr(TB, "TREE_STACK", m - 1)
-    with pytest.raises(ValueError, match="depth"):
-        TB.chain_tree(box)
 
 
 def test_leaf_rows_follow_the_woop_table(clustered):

@@ -15,9 +15,9 @@ What runs on the card as a kernel written by hand (``csrc/``):
   ReSTIR PT suffix and plain PT
 - ``accel.intersect.closest_hit``  closest hit with the winner's attribute
   row: every ray query of ReSTIR PT
-- ``accel.stream.stream_closest``, ``occlusion_stream``  closest and any hit
-  on a clustered scene: a walk over the cluster tree (B9) and on down to
-  leaves of a few triangles (B8)
+- ``accel.stream.stream_closest``, ``occlusion_stream``  closest (B8) and
+  any hit (B9) on a clustered scene: a walk over the cluster tree and on
+  down to leaves of a few triangles
 
 Each wrapper takes its plain PyTorch version for a CPU tensor and launches
 its kernel for a CUDA tensor. Everything between the kernels is plain
@@ -32,7 +32,7 @@ Package layout mirrors the JAX package:
            packing, denoise, TAA, post
   render/  the frames
   profile  where a frame's time goes on the card
-  kernel_ab  B3, B6, B7 and B8 against another commit's kernels on the card
+  kernel_ab  B3, B4 and B6-B9 against another commit's kernels on the card
   timing   CUDA-event medians and the card's name and power limit
 """
 

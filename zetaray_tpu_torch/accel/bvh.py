@@ -4,15 +4,15 @@ traversal tree over the cluster boxes, and the sub-trees below them.
 A copy of the JAX package's ``accel/bvh.py`` (``build_bvh`` and
 ``BVH.cluster_aabbs``), so that the clustered upload reorders triangles
 exactly as the JAX package does. On top of it, :func:`cluster_tree` builds
-the tree the any-hit kernel B9 walks, one leaf per cluster, from the
-``[M, 8]`` cluster box rows alone, and :func:`walk_tree` the tree the
-closest-hit kernel B8 walks: the cluster tree with a sub-tree over each
-cluster's real slots below it, leaves of at most ``LEAF_SIZE`` triangles.
-These read only tables that every clustered scene carries (the cluster
-boxes, the Woop table, ``v0``/``e1``/``e2``), so a scene carried over from
-JAX gets the same trees as one uploaded here. :func:`chain_tree` is the
-deepest tree over the clusters, on which the tests hold both walks'
-stacks.
+the tree over the clusters, one leaf per cluster, from the ``[M, 8]``
+cluster box rows alone, and :func:`walk_tree` the tree that the
+closest-hit kernel B8 and the any-hit kernel B9 walk: the cluster tree with
+a sub-tree over each cluster's real slots below it, leaves of at most
+``LEAF_SIZE`` triangles. These read only tables that every clustered scene
+carries (the cluster boxes, the Woop table, ``v0``/``e1``/``e2``), so a
+scene carried over from JAX gets the same tree as one uploaded here.
+:func:`chain_tree` is the deepest tree over the clusters, on which the
+tests hold the walks' stacks.
 """
 
 from __future__ import annotations
@@ -22,21 +22,17 @@ from dataclasses import dataclass
 import numpy as np
 
 _N_BINS = 16
-# Deepest cluster tree the any-hit walk B9 takes (layout.h TREE_STACK): it
-# pushes both children, so its stack in local memory holds at most depth + 1
-# nodes. Checked at every clustered upload.
-TREE_STACK = 64
-# Most stack entries the closest-hit walk B8 may need (layout.h
-# WALK_STACK_MAX). B8 goes on with the nearer child and pushes the farther,
-# so it holds at most one node for each inner node above the one it visits,
-# cluster tree and sub-tree together (``walk_stack``: 20 on the
-# 139,266-triangle box). Its stack lives in shared memory, 8 bytes an entry
-# for each of a block's 128 threads, sized at launch from the scene's
-# ``walk_stack``: 192 entries are 192 KiB, under the 227 KiB a block of an
-# H100 may have.
+# Most stack entries a walk of B8 or B9 may need (layout.h WALK_STACK_MAX).
+# A walk goes on with the nearer child and pushes the farther, so it holds
+# at most one node for each inner node above the one it visits, cluster
+# tree and sub-tree together (``walk_stack``: 20 on the 139,266-triangle
+# box). The stack lives in shared memory, sized at launch from the scene's
+# ``walk_stack``, for each of a block's 128 threads 8 bytes an entry in B8
+# and 4 in B9: 192 entries are 192 KiB in B8, under the 227 KiB a block of
+# an H100 may have.
 WALK_STACK_MAX = 192
-# Most triangles in a leaf of B8's sub-trees (at most 15: a leaf ref holds
-# its count in 4 bits).
+# Most triangles in a leaf of the walk's sub-trees (at most 15: a leaf ref
+# holds its count in 4 bits).
 LEAF_SIZE = 2
 # Node boxes grow by this share of the scene's largest coordinate: the Woop
 # test rounds a hit point off its triangle by a few ulps of the coordinates,
@@ -184,8 +180,7 @@ def cluster_tree(cluster_aabb: np.ndarray) -> dict:
     (each box grown by ``TREE_PAD_REL`` of the largest coordinate and rounded
     outward), ``tree_left``/``tree_right`` [K] int32 (-1 at a leaf) and
     ``tree_cluster`` [K] int32 (the leaf's cluster, -1 at an inner node).
-    Node 0 is the root. Raises if the tree is deeper than ``TREE_STACK``
-    allows."""
+    Node 0 is the root. It is :func:`walk_tree`'s input."""
     box = np.asarray(cluster_aabb, np.float32)
     lo, hi = box[:, 0:3], box[:, 3:6]
     bvh = build_bvh(lo, hi, lo, leaf_size=1)
@@ -218,12 +213,7 @@ def chain_tree(cluster_aabb: np.ndarray) -> dict:
 
 
 def _tree(box, lo, hi, left, right, cluster) -> dict:
-    """A cluster tree's arrays, its boxes padded; raises if it is deeper
-    than ``TREE_STACK`` allows."""
-    depth = _depth(left, right)
-    if depth.max() + 1 > TREE_STACK:
-        raise ValueError(f"cluster tree depth {depth.max()} exceeds the traversal stack "
-                         f"({TREE_STACK})")
+    """A cluster tree's arrays, its boxes padded."""
     scale = float(max(np.abs(box[:, 0:3]).max(), np.abs(box[:, 3:6]).max()))
     tree_lo, tree_hi = _pad_box(lo, hi, TREE_PAD_REL * scale)
     return dict(tree_lo=tree_lo, tree_hi=tree_hi, tree_left=np.asarray(left, np.int32),
@@ -258,7 +248,7 @@ def _depth(left: np.ndarray, right: np.ndarray) -> np.ndarray:
 
 def walk_tree(tree: dict, cluster_size: int, woop: np.ndarray, v0: np.ndarray,
               e1: np.ndarray, e2: np.ndarray) -> dict:
-    """The tree that kernel B8 walks: the cluster tree ``tree`` (from
+    """The tree that kernels B8 and B9 walk: the cluster tree ``tree`` (from
     :func:`cluster_tree`) with, below each cluster leaf, a sub-tree over the
     cluster's real slots (non-zero Woop rows; a pad slot's all-zero rows
     never hit) with leaves of at most ``LEAF_SIZE`` triangles.
@@ -267,7 +257,7 @@ def walk_tree(tree: dict, cluster_size: int, woop: np.ndarray, v0: np.ndarray,
     box centres, built for all clusters at once a level at a time; a node
     holds ``ceil(leaves / 2) * LEAF_SIZE`` triangles on its left, so every
     leaf but the last of a cluster is full and the sub-tree is balanced.
-    The slots keep their ids and clusters: only the rows of B8's table
+    The slots keep their ids and clusters: only the rows of the walks' table
     (``SceneBuffers.leaf_rows``) are put in leaf order.
 
     Returns ``walk_nodes`` [K, 16] int32, one node a row, node 0 the root:
@@ -279,7 +269,7 @@ def walk_tree(tree: dict, cluster_size: int, woop: np.ndarray, v0: np.ndarray,
     of the cluster boxes' largest coordinate and rounded outward, as the
     cluster tree's are. ``leaf_slot`` [R] int32: the slot of each row in
     leaf order. And ``walk_stack``: the most stack entries a walk can need,
-    which sizes B8's stack at launch.
+    which sizes the walks' stacks at launch.
     Raises if that is more than ``WALK_STACK_MAX``."""
     tp = woop.shape[1] // 3
     slots = np.nonzero((np.asarray(woop).reshape(4, 3, tp) != 0).any((0, 1)))[0]
@@ -367,6 +357,6 @@ def walk_tree(tree: dict, cluster_size: int, woop: np.ndarray, v0: np.ndarray,
     np.maximum.at(sub_depth, node_cl, node_level + 1)
     stack = max(int((top_depth[cl >= 0] + sub_depth[cl[cl >= 0]]).max()), 1)
     if stack > WALK_STACK_MAX:
-        raise ValueError(f"B8's tree needs a stack of {stack} nodes, more than its "
+        raise ValueError(f"the walk's tree needs a stack of {stack} nodes, more than its "
                          f"traversal stack may hold ({WALK_STACK_MAX})")
     return dict(walk_nodes=nodes, leaf_slot=slots[order].astype(np.int32), walk_stack=stack)

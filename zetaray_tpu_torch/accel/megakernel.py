@@ -27,14 +27,16 @@ the 24 surface rows), B5 the shade half read back from those rows (NEE from
 a light set with its shadow ray, BSDF sample, Russian roulette), B6 both
 with the surface kept in registers. Like B1 they are bound by the Woop
 arithmetic of the two triangle loops (closest hit, shadow segment), not by
-bytes: a ray's 16 state rows and the light-set entry are read once. A
-block stages its tile's light set (11 rows) in shared memory, computes the
-five pcg4d uniforms of a bounce in place (the TPU hashed them in XLA
-beforehand) and reads attribute and light-set rows by index instead of the
-TPU's one-hot matmuls; a block leaves the shadow loop once every ray in it
-is occluded or has no candidate. Measured on an H100 80GB HBM3 (700 W) for
-512^2 GI bounce-0 rays against 8192 triangles: B4 8.3 ms, B5 5.4 ms, B6
-17.1 ms.
+bytes: a ray's 16 state rows and the light-set entry are read once. B4 and
+B6 sweep the ``num_tris`` real triangles of ``SceneBuffers.woop_rows()``
+through ``csrc/sweep.cuh`` (16-byte broadcasts, a double-buffered ring,
+the sign test before the division); B5's shadow loop still streams the
+whole padded Woop table in 128-wide chunks. A block stages its tile's
+light set (11 rows) in shared memory, computes the five pcg4d uniforms of a
+bounce in place (the TPU hashed them in XLA beforehand) and reads attribute
+and light-set rows by index instead of the TPU's one-hot matmuls; a block
+leaves a shadow loop once every ray in it is occluded or has no candidate.
+Their times on the card are in ``PERF.md`` (section 6).
 """
 
 from __future__ import annotations
@@ -257,11 +259,11 @@ def _check_pt(cfg) -> None:
 
 
 def check_sweep_t_min(t_min) -> None:
-    """The Woop test of B3, B6, B7 and B8 (``csrc/sweep.cuh`` ``sweep_test``)
+    """The Woop test of B3, B4 and B6-B9 (``csrc/sweep.cuh`` ``sweep_test``)
     drops a pair by the signs of its plane distances before dividing, which
     is exact for t_min >= 0."""
     if not t_min >= 0.0:
-        raise ValueError(f"t_min={t_min}: the Woop test of B3, B6, B7 and B8 needs t_min >= 0")
+        raise ValueError(f"t_min={t_min}: the Woop test of B3, B4 and B6-B9 needs t_min >= 0")
 
 
 def _check_dense(scene, name: str,
@@ -463,19 +465,22 @@ def _bounce_args(scene, state, light_sets, rt: int):
 def bounce_trace(scene, state, bounce: int, cfg, has_lights: bool, spread_angle=0.0):
     """Trace half of a bounce (B4): (state [STATE_ROWS, N], surf [SURF_ROWS, N]).
 
-    A CPU tensor takes the plain version; a CUDA tensor launches the kernel.
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel,
+    which sweeps the ``scene.num_tris`` real triangles and needs t_min >= 0.
     """
     _check_dense(scene, "bounce_trace")
     if state.device.type == "cpu":
         return bounce_trace_plain(scene, state, bounce, cfg, has_lights, spread_angle)
     _check_pt(cfg)
     n, tp, _, _ = _bounce_args(scene, state, None, 0)
+    check_sweep_t_min(cfg.t_min)
     out = torch.empty_like(state)
     surf = torch.empty((SURF_ROWS, n), dtype=torch.float32, device=state.device)
     err = native.lib().zr_bounce_trace(
-        state.data_ptr(), scene.woop.data_ptr(), scene.tri_attrs.data_ptr(), out.data_ptr(),
-        surf.data_ptr(), n, tp, bounce, cfg.t_min, cone_spread(spread_angle),
-        cfg.min_emissive_bounce, int(cfg.nee), int(has_lights), native.stream_ptr(state.device),
+        state.data_ptr(), scene.woop_rows().data_ptr(), scene.tri_attrs.data_ptr(),
+        out.data_ptr(), surf.data_ptr(), n, tp, scene.num_tris, bounce, cfg.t_min,
+        cone_spread(spread_angle), cfg.min_emissive_bounce, int(cfg.nee), int(has_lights),
+        native.stream_ptr(state.device),
     )
     native.check(err, "bounce_trace")
     bounce_trace.launches += 1

@@ -10,28 +10,29 @@ k owning slots ``[k*C, (k+1)*C)`` of the Woop and attribute tables.
 ``csrc/stream.cu``. The TPU kernels swept tiles of shaft-sorted rays over a
 front-to-back list of clusters that an interval prepass found to overlap
 each tile, in a dynamic grid of visit pairs. On the card each thread walks
-a tree for its own ray with a short stack, nearer child first. B9 walks the
-tree over the cluster boxes (``accel.bvh.cluster_tree``), runs the Woop
-test over the C slots of each cluster it reaches and stops at the ray's
-first hit. B8 walks on below the clusters (``accel.bvh.walk_tree``): a
-sub-tree over each cluster's real slots with leaves of a few triangles,
-whose Woop rows lie in leaf order, three 16-byte words a triangle
-(``SceneBuffers.leaf_rows``), tested with the dense sweep's sign test and
-pruning. A camera ray of the 139,266-triangle box reaches about one
-cluster; below it B8 tests a few leaves, where the cluster walk tested all
-256 slots of each cluster it reached, pads included.
+one tree for its own ray with a short stack in shared memory, nearer child
+first: the tree over the cluster boxes (``accel.bvh.cluster_tree``) with a
+sub-tree over each cluster's real slots below it, leaves of a few
+triangles (``accel.bvh.walk_tree``), whose Woop rows lie in leaf order,
+three 16-byte words a triangle (``SceneBuffers.leaf_rows``), tested with
+the dense sweep's sign test. A camera ray of the 139,266-triangle box
+reaches about one cluster; below it a walk tests a few leaves, where a walk
+over the cluster boxes alone would test all 256 slots of each cluster it
+reached, pads included. B8 keeps the closest hit and prunes candidates
+beyond it; B9 stops at the segment's first hit.
 
 Bound: one Woop test (about 40 float operations) for each ray that hits
 (B8) or is blocked (B9), against the bytes any walk must move: the rays and
 the outputs, and for B8 the Woop rows of the distinct slots hit. How many
 other rows a walk reads depends on its tree, so they are not counted.
 
-The kernels keep the tie rule of their plain version, the dense brute
-force with tie groups of one cluster: among equal t the highest slot
-within a cluster and the lowest cluster. The walk visits clusters in its
-own order, so it keeps the lexicographic best (t ascending, cluster
-ascending, slot descending) and culls a node only when its entry lies
-strictly beyond the best t. A node's slab test never culls a true hit: the
+B8 keeps the tie rule of its plain version, the dense brute force with
+tie groups of one cluster: among equal t the highest slot within a cluster
+and the lowest cluster. The walk visits clusters in its own order, so it
+keeps the lexicographic best (t ascending, cluster ascending, slot
+descending) and culls a node only when its entry lies strictly beyond the
+best t. B9's any hit has no tie rule; it culls only beyond t_max. A
+node's slab test never culls a true hit: the
 node boxes are padded at build (``bvh.TREE_PAD_REL``), the kernel pads
 them again by the same share of the ray origin's largest coordinate, and
 widens the slab interval by a relative 1e-6. So the kernels return what
@@ -83,6 +84,15 @@ def _check_rays(scene, o, d) -> int:
     return n
 
 
+def _walk_rows(scene) -> torch.Tensor:
+    """Validate the tree of a walk of B8 or B9; returns its leaf-ordered rows."""
+    rows = scene.leaf_rows()
+    native.require_cuda(scene.walk_nodes, "walk_nodes", torch.int32,
+                        (scene.walk_nodes.shape[0], 16))
+    native.require_cuda(rows, "leaf_rows", torch.float32, (rows.shape[0], 12))
+    return rows
+
+
 def stream_closest(scene, o, d, t_min=1e-4, t_max=INF):
     """Closest (t, tri) of rays o, d [N, 3] over the clustered scene's slots
     in (t_min, t_max) (B8): t [N] float32 (INF at a miss), tri [N] int32
@@ -97,11 +107,8 @@ def stream_closest(scene, o, d, t_min=1e-4, t_max=INF):
         return stream_closest_plain(scene, o, d, t_min, t_max)
     n = _check_rays(scene, o, d)
     check_sweep_t_min(t_min)
-    r = scene.leaf_slot.shape[0]
-    native.require_cuda(scene.walk_nodes, "walk_nodes", torch.int32,
-                        (scene.walk_nodes.shape[0], 16))
-    native.require_cuda(scene.leaf_slot, "leaf_slot", torch.int32, (r,))
-    rows = scene.leaf_rows()
+    rows = _walk_rows(scene)
+    native.require_cuda(scene.leaf_slot, "leaf_slot", torch.int32, (rows.shape[0],))
     t = torch.empty((n,), dtype=torch.float32, device=o.device)
     tri = torch.empty((n,), dtype=torch.int32, device=o.device)
     err = native.lib().zr_stream_closest(
@@ -128,24 +135,22 @@ def occlusion_stream(scene, o, d, t_min=1e-4, t_max=INF):
     """Any-hit query of rays or segments o, d [N, 3] in (t_min, t_max) on
     the clustered scene (B9): bool [N].
 
-    A CPU tensor takes the plain version; a CUDA tensor launches the kernel.
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel,
+    which walks the tree of B8 (``scene.walk_nodes`` over
+    ``scene.leaf_rows()``, a stack of ``scene.walk_stack`` entries), stops
+    at the first hit and needs t_min >= 0.
     """
     _check_clustered(scene)
     if o.device.type == "cpu":
         return occlusion_stream_plain(scene, o, d, t_min, t_max)
     n = _check_rays(scene, o, d)
-    k = scene.tree_cluster.shape[0]
-    tree = (scene.tree_lo, scene.tree_hi, scene.tree_left, scene.tree_right,
-            scene.tree_cluster)
-    for name, x in zip(("tree_lo", "tree_hi"), tree[:2]):
-        native.require_cuda(x, name, torch.float32, (k, 3))
-    for name, x in zip(("tree_left", "tree_right", "tree_cluster"), tree[2:]):
-        native.require_cuda(x, name, torch.int32, (k,))
+    check_sweep_t_min(t_min)
+    rows = _walk_rows(scene)
     out = torch.empty((n,), dtype=torch.int32, device=o.device)
     err = native.lib().zr_stream_occlusion(
-        o.data_ptr(), d.data_ptr(), scene.woop.data_ptr(), *(x.data_ptr() for x in tree),
-        out.data_ptr(), n, scene.woop.shape[1] // 3, scene.cluster_size, float(t_min),
-        float(t_max), native.stream_ptr(o.device),
+        o.data_ptr(), d.data_ptr(), scene.walk_nodes.data_ptr(), rows.data_ptr(),
+        out.data_ptr(), n, scene.walk_stack, float(t_min), float(t_max),
+        native.stream_ptr(o.device),
     )
     native.check(err, "stream_occlusion")
     occlusion_stream.launches += 1

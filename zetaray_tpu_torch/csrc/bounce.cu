@@ -6,20 +6,21 @@
 // against every triangle, twice for a shaded bounce), not by bytes: a ray's
 // state, surface and light-set entry are read once.
 //
-// B4 and B5: one thread per ray, BOUNCE_BLOCK (128) rays per block; the
-// device functions are those of path.cuh. Triangles stream through shared
-// memory in 128-wide Woop chunks for the closest hit and again for the NEE
-// shadow segment; a block leaves the shadow loop once every ray in it is
-// occluded or has no candidate.
-//
-// B6 runs both sweeps through sweep.cuh: one ray a thread, real triangles
+// B4 and B6 sweep through sweep.cuh: one ray a thread, real triangles
 // only, triangle-major rows in a double-buffered ring. During the
 // closest-hit sweep a thread holds only its ray and the running best; then
-// it reads the path state, adds the emission, rebuilds the surface, draws
-// the NEE sample and the BSDF sample and writes the next vertex, and keeps
-// only the shadow segment and the lit radiance for the shadow sweep, after
-// which an unblocked ray gets the lit radiance. A warp whose segments are
-// all done stops testing; the block leaves when all are.
+// it reads the path state, adds the emission and rebuilds the surface
+// (path.cuh surface_at). B4 writes that surface as the SURF_ROWS rows. B6
+// goes on: it draws the NEE sample and the BSDF sample and writes the next
+// vertex, and keeps only the shadow segment and the lit radiance for the
+// shadow sweep, after which an unblocked ray gets the lit radiance. A warp
+// whose segments are all done stops testing; the block leaves when all are.
+//
+// B5: one thread per ray, BOUNCE_BLOCK (128) rays per block, the device
+// functions of path.cuh. Its NEE shadow segment streams the triangles
+// through shared memory in 128-wide Woop chunks (zr::WoopChunk); a block
+// leaves the shadow loop once every ray in it is occluded or has no
+// candidate.
 //
 // The tile width rt is a multiple of BOUNCE_BLOCK, so a block's rays share
 // one light set, staged in shared memory once (its first LSET_STAGED rows).
@@ -30,37 +31,43 @@
 
 namespace {
 
+// Ray i of the state rows, or all zeros (it misses every triangle) past n.
+__device__ __forceinline__ zr::Ray state_ray(const float* __restrict__ st, int n, int i) {
+  auto row = [&](int k) { return st[(size_t)k * n + i]; };
+  return i < n ? zr::Ray{row(0), row(1), row(2), row(3), row(4), row(5)}
+               : zr::Ray{0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+}
+
 // B4: closest hit, emission and surface rebuild. Writes the input state with
 // rows 9-11 (radiance), 13 (alive) and 15 (cone width) updated, and the
 // SURF_ROWS surface rows.
-__global__ void __launch_bounds__(BOUNCE_BLOCK)
-bounce_trace_kernel(const float* __restrict__ st_in, const float* __restrict__ woop,
+__global__ void __launch_bounds__(BOUNCE_BLOCK, zr::kSweepBlocks)
+bounce_trace_kernel(const float* __restrict__ st_in, const float4* __restrict__ tri_rows,
                     const float* __restrict__ attrs, float* __restrict__ st_out,
-                    float* __restrict__ surf_out, int n, int tp, zr::BounceParams prm,
+                    float* __restrict__ surf_out, int n, int nt, zr::BounceParams prm,
                     float spread) {
-  __shared__ zr::WoopChunk chunk;
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool live = i < n;
-  zr::Path path = live ? zr::load_path(st_in, n, i) : zr::Path{};
-  zr::Surface sf;
-  int tri;
-  float bu, bv;
-  const float t_hit = zr::trace_part(chunk, woop, attrs, tp, prm, live, path, sf, &tri, &bu, &bv);
-  if (!live) return;
+  __shared__ zr::SweepRing ring;
+  const int i = blockIdx.x * BOUNCE_BLOCK + threadIdx.x;
+  const zr::Hit h = zr::closest_sweep(ring, tri_rows, nt, zr::kTriChunk, state_ray(st_in, n, i),
+                                      prm.t_min, ZR_INF);
+  if (i >= n) return;
 
-  path.cone = path.cone + (path.alive ? t_hit * spread : 0.f);
+  zr::Path path = zr::load_path(st_in, n, i);
+  zr::Surface sf;
+  zr::surface_at(attrs, prm, h.t, h.tri, h.u, h.v, path, sf);
+  path.cone = path.cone + (path.alive ? h.t * spread : 0.f);
   zr::store_path(st_out, n, i, path);  // o, d, throughput, pdf and flag pass through
 
-  const bool hit = tri >= 0;
-  const float* row = attrs + (size_t)(hit ? tri : 0) * A_WIDTH;
+  const bool hit = h.tri >= 0;
+  const float* row = attrs + (size_t)(hit ? h.tri : 0) * A_WIDTH;
   auto at = [&](int k) { return hit ? row[k] : 0.f; };
-  const float w0 = 1.f - bu - bv;
+  const float w0 = 1.f - h.u - h.v;
   const float s[SURF_ROWS] = {
       sf.pos.x, sf.pos.y, sf.pos.z, sf.ns.x, sf.ns.y, sf.ns.z, sf.ng.x, sf.ng.y, sf.ng.z,
       sf.mat.base.x, sf.mat.base.y, sf.mat.base.z, sf.mat.metallic, sf.mat.roughness,
       sf.mat.ior, at(A_TRANS), sf.eta, at(A_COATW), at(A_COATR),
-      w0 * at(A_UV0) + bu * at(A_UV1) + bv * at(A_UV2),
-      w0 * at(A_UV0 + 1) + bu * at(A_UV1 + 1) + bv * at(A_UV2 + 1),
+      w0 * at(A_UV0) + h.u * at(A_UV1) + h.v * at(A_UV2),
+      w0 * at(A_UV0 + 1) + h.u * at(A_UV1 + 1) + h.v * at(A_UV2 + 1),
       hit ? at(A_TEXID) : -1.f, at(A_UVDENS), 0.f};
 #pragma unroll
   for (int r = 0; r < SURF_ROWS; ++r) surf_out[(size_t)r * n + i] = s[r];
@@ -111,10 +118,8 @@ bounce_kernel(const float* __restrict__ st_in, const float4* __restrict__ tri_ro
   if (nee) zr::stage_light_set(lset, sets, zr::bounce_set(prm, p0), prm.ps);
   __syncthreads();
 
-  auto row = [&](int k) { return st_in[(size_t)k * n + i]; };
-  const zr::Ray ray = live ? zr::Ray{row(0), row(1), row(2), row(3), row(4), row(5)}
-                           : zr::Ray{0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  const zr::Hit hit = zr::closest_sweep(ring, tri_rows, nt, zr::kTriChunk, ray, prm.t_min, ZR_INF);
+  const zr::Hit hit = zr::closest_sweep(ring, tri_rows, nt, zr::kTriChunk, state_ray(st_in, n, i),
+                                        prm.t_min, ZR_INF);
 
   // what the shadow sweep needs: the segment, whether it is a candidate, and
   // the radiance with the NEE light
@@ -161,16 +166,20 @@ zr::BounceParams params(int bounce, uint32_t seed, int rt, int n_sets, int ps, f
 
 }  // namespace
 
-extern "C" int zr_bounce_trace(const float* st_in, const float* woop, const float* attrs,
-                               float* st_out, float* surf_out, int n, int tp, int bounce,
-                               float t_min, float spread, int min_emissive_bounce, int nee,
-                               int has_lights, void* stream) {
+// tri_rows: the triangle-major Woop rows [tp][12] (SceneBuffers.woop_rows());
+// nt: the real triangles, the first nt slots.
+extern "C" int zr_bounce_trace(const float* st_in, const float* tri_rows, const float* attrs,
+                               float* st_out, float* surf_out, int n, int tp, int nt,
+                               int bounce, float t_min, float spread, int min_emissive_bounce,
+                               int nee, int has_lights, void* stream) {
+  if (nt < 0 || nt > tp || !(t_min >= 0.f)) return (int)cudaErrorInvalidValue;
   const zr::BounceParams p = params(bounce, 0u, BOUNCE_BLOCK, 1, 1, t_min, min_emissive_bounce,
                                     0, 0, nee, has_lights);
   const int grid = (n + BOUNCE_BLOCK - 1) / BOUNCE_BLOCK;
   if (grid > 0) {
     bounce_trace_kernel<<<grid, BOUNCE_BLOCK, 0, (cudaStream_t)stream>>>(
-        st_in, woop, attrs, st_out, surf_out, n, tp, p, spread);
+        st_in, reinterpret_cast<const float4*>(tri_rows), attrs, st_out, surf_out, n, nt, p,
+        spread);
   }
   return (int)cudaGetLastError();
 }

@@ -276,57 +276,6 @@ struct Surface {
   float eta;
 };
 
-// The trace half: closest hit (the tie rule of gbuffer.cu), MIS-weighted
-// emission gated by min_emissive_bounce, alive = found, and the surface
-// rebuilt at the hit.
-// Returns t_hit; *tri_out is the hit triangle (-1 on a miss) and *bary its
-// barycentrics, for the extra surface rows of the split kernel.
-__device__ __forceinline__ float trace_part(WoopChunk& chunk, const float* __restrict__ woop,
-                                            const float* __restrict__ attrs, int tp,
-                                            const BounceParams& prm, bool live, Path& path,
-                                            Surface& sf, int* tri_out, float* bu_out,
-                                            float* bv_out) {
-  int tri;
-  float bu, bv;
-  const float t_hit = closest_hit(chunk, woop, tp, kTriChunk, path.o.x, path.o.y, path.o.z,
-                                  path.d.x, path.d.y, path.d.z, prm.t_min, ZR_INF, live, &tri,
-                                  &bu, &bv);
-  *tri_out = tri;
-  *bu_out = bu;
-  *bv_out = bv;
-  const bool hit = tri >= 0;
-  const float* row = attrs + (size_t)(hit ? tri : 0) * A_WIDTH;
-  auto at = [&](int k) { return hit ? row[k] : 0.f; };
-  auto at3 = [&](int k) { return V3f{at(k), at(k + 1), at(k + 2)}; };
-
-  const bool found = hit && path.alive;
-  const V3f ng_raw = at3(A_NG);
-  const float wo_dot_ng = -dot(path.d, ng_raw);
-  if (prm.has_lights) {
-    const bool vis_side = (at(A_DOUBLE) > 0.5f) || (wo_dot_ng > 0.f);
-    const float pdf_l_sa = at(A_EM_PDF_AREA) * t_hit * t_hit / fmaxf(fabsf(wo_dot_ng), 1e-8f);
-    const float mis = !prm.nee ? 1.f
-                      : (path.spec > 0.5f ? 1.f : power_heuristic(path.prev_pdf, pdf_l_sa));
-    float gain = (found && vis_side) ? mis : 0.f;
-    if (prm.bounce < prm.min_emissive_bounce) gain = 0.f;
-    path.rad = path.rad + path.thr * at3(A_EMISS) * gain;
-  }
-  path.alive = found;
-
-  const float w0 = 1.f - bu - bv;
-  V3f ns = normalize(at3(A_N0) * w0 + at3(A_N1) * bu + at3(A_N2) * bv, 1e-20f);
-  const bool front = wo_dot_ng > 0.f;
-  const float sgn = front ? 1.f : -1.f;
-  sf.ng = ng_raw * sgn;
-  ns = ns * sgn;
-  sf.ns = dot(ns, sf.ng) < 0.f ? -ns : ns;
-  sf.pos = path.o + path.d * t_hit;
-  const float ior = fmaxf(at(A_IOR), 1.01f);
-  sf.mat = {at3(A_BASE), at(A_METAL), at(A_ROUGH), ior};
-  sf.eta = front ? 1.f / ior : ior;
-  return t_hit;
-}
-
 // The light set of the tile that holds ray p0 at this bounce.
 __device__ __forceinline__ int bounce_set(const BounceParams& prm, int p0) {
   return (int)(((long long)(p0 / prm.rt) + 13LL * prm.bounce) % prm.n_sets);
@@ -409,9 +358,10 @@ __device__ __forceinline__ bool shade_part(WoopChunk& chunk, const float* __rest
   return transmitted;
 }
 
-// B6's trace half after its sweep (sweep.cuh): what trace_part does with
-// the closest hit (t_hit, tri, bu, bv) -- MIS-weighted emission, alive =
-// found, the surface rebuilt at the hit.
+// The trace half of B4 and B6 after their closest-hit sweep (sweep.cuh),
+// from the hit (t_hit, tri, bu, bv; tri -1 on a miss): MIS-weighted
+// emission gated by min_emissive_bounce, alive = found, and the surface
+// rebuilt at the hit.
 __device__ __forceinline__ void surface_at(const float* __restrict__ attrs,
                                            const BounceParams& prm, float t_hit, int tri,
                                            float bu, float bv, Path& path, Surface& sf) {

@@ -1,7 +1,8 @@
-// The dense ray-triangle sweep of kernels B3 (occlusion.cu), B6 (bounce.cu
-// bounce_kernel: its closest hit and its NEE shadow segment) and B7
-// (closest.cu). B1, B4 and B5 still sweep with zr::closest_hit and the
-// loops of common.cuh and path.cuh.
+// The dense ray-triangle sweep of kernels B3 (occlusion.cu), B4 (bounce.cu
+// bounce_trace_kernel: its closest hit), B6 (bounce.cu bounce_kernel: its
+// closest hit and its NEE shadow segment) and B7 (closest.cu). B1 and B5
+// are now the only users of zr::closest_hit, WoopChunk and load_woop_chunk
+// (common.cuh; B5 through path.cuh shade_part).
 //
 // What bounds it: every ray tests every real triangle, about 40 float
 // operations and one IEEE division a pair, against a few hundred bytes a
@@ -39,9 +40,9 @@
 // updates as zr::closest_hit, so the outputs equal the old kernels' and the
 // plain versions' bit for bit.
 //
-// The tie group `tie` (B6: kTriChunk, the JAX kernel's chunk; B7: the Pallas
-// tile, accel.intersect.tie_chunk) is counted from slot 0 and is independent
-// of the staging width kSweepChunk.
+// The tie group `tie` (B4, B6: kTriChunk, the JAX kernels' chunk; B7: the
+// Pallas tile, accel.intersect.tie_chunk) is counted from slot 0 and is
+// independent of the staging width kSweepChunk.
 //
 // A sweep may follow another on the same ring (B6 sweeps twice): each starts
 // with a block barrier, so no warp still reads a stage of the earlier sweep

@@ -13,7 +13,7 @@ into an exception.
 
 The row and column layouts the kernels index (``A``, ``G``, ``LSET_ROWS``,
 ``R_ROWS``, ``STATE_ROWS``, ``SURF_ROWS``), the bounce kernels' block size
-and pcg4d salt, the cluster tree's stack depth and box padding, and the GGX
+and pcg4d salt, the tree walks' stack limit and box padding, and the GGX
 albedo fit of ``ops.shading_soa`` are defined once, in Python:
 :func:`layout_header`
 writes them as C constants into the ``layout.h`` that the sources include.
@@ -52,9 +52,9 @@ _SIGNATURES = {
     # gb, sets, out, n, n_sets, ps, rt, block, seed, stream
     "zr_ris": [_VP, _VP, _VP, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                ctypes.c_int, ctypes.c_uint32, _VP],
-    # state, woop, attrs, state_out, surf_out, n, tp, bounce, t_min, spread,
+    # state, woop_rows, attrs, state_out, surf_out, n, tp, nt, bounce, t_min, spread,
     # min_emissive_bounce, nee, has_lights, stream
-    "zr_bounce_trace": [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _F, _F, _I, _I, _I, _VP],
+    "zr_bounce_trace": [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _F, _F, _I, _I, _I, _VP],
     # state, surf, woop, sets, state_out, n, tp, n_sets, ps, rt, bounce, seed,
     # min_nee_bounce, rr_start, nee, has_lights, stream
     "zr_bounce_shade": [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, ctypes.c_uint32,
@@ -67,9 +67,8 @@ _SIGNATURES = {
     "zr_closest": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _F, _F, _VP],
     # o, d, walk_nodes, leaf_rows, leaf_slot, t, tri, n, c, stack, t_min, t_max, stream
     "zr_stream_closest": [_VP] * 7 + [_I, _I, _I, _F, _F, _VP],
-    # o, d, woop, tree_lo, tree_hi, tree_left, tree_right, tree_cluster, out, n, tp, c,
-    # t_min, t_max, stream
-    "zr_stream_occlusion": [_VP] * 9 + [_I, _I, _I, _F, _F, _VP],
+    # o, d, walk_nodes, leaf_rows, out, n, stack, t_min, t_max, stream
+    "zr_stream_occlusion": [_VP] * 5 + [_I, _I, _F, _F, _VP],
 }
 
 _lock = threading.Lock()
@@ -94,13 +93,12 @@ def layout_header() -> str:
     """``layout.h``: the Python layouts and launch constants as ``constexpr
     int`` constants (``A_<column>``, ``G_<row>``, ``LSET_ROWS``,
     ``LSET_STAGED``, ``R_ROWS``, ``STATE_ROWS``, ``SURF_ROWS``,
-    ``BOUNCE_BLOCK``, ``BOUNCE_SALT``, ``TREE_STACK``, ``WALK_STACK_MAX``),
-    ``TREE_PAD_REL`` as
-    a ``constexpr float`` and the GGX albedo fit (``GGX_E_DEG``,
+    ``BOUNCE_BLOCK``, ``BOUNCE_SALT``, ``WALK_STACK_MAX``), ``TREE_PAD_REL``
+    as a ``constexpr float`` and the GGX albedo fit (``GGX_E_DEG``,
     ``GGX_E_COEF``, ``GGX_EAVG_COEF``) as float arrays in constant memory,
     each coefficient the ``repr`` of its Python float, so it rounds to
     float32 as in PyTorch."""
-    from .accel.bvh import TREE_PAD_REL, TREE_STACK, WALK_STACK_MAX
+    from .accel.bvh import TREE_PAD_REL, WALK_STACK_MAX
     from .accel.megakernel import (
         BOUNCE_BLOCK, G, LSET_ROWS, LSET_STAGED, STATE_ROWS, SURF_ROWS,
     )
@@ -117,7 +115,7 @@ def layout_header() -> str:
     lines += [f"constexpr int {k} = {v};" for k, v in (
         ("LSET_ROWS", LSET_ROWS), ("LSET_STAGED", LSET_STAGED), ("R_ROWS", R_ROWS),
         ("STATE_ROWS", STATE_ROWS), ("SURF_ROWS", SURF_ROWS), ("BOUNCE_BLOCK", BOUNCE_BLOCK),
-        ("BOUNCE_SALT", BOUNCE_SALT), ("GGX_E_DEG", S._GGX_E_DEG), ("TREE_STACK", TREE_STACK),
+        ("BOUNCE_SALT", BOUNCE_SALT), ("GGX_E_DEG", S._GGX_E_DEG),
         ("WALK_STACK_MAX", WALK_STACK_MAX))]
     lines.append(f"constexpr float TREE_PAD_REL = {TREE_PAD_REL!r}f;")
     for name, coef in (("GGX_E_COEF", S._GGX_E_COEF), ("GGX_EAVG_COEF", S._GGX_EAVG_COEF)):

@@ -76,7 +76,7 @@ STAGES = [
 KERNELS = {"gbuffer_kernel": "B1", "ris_kernel": "B2", "occlusion_kernel": "B3",
            "bounce_trace_kernel": "B4", "bounce_shade_kernel": "B5", "bounce_kernel": "B6",
            "closest_kernel": "B7", "stream_closest_kernel": "B8",
-           "stream_occlusion_kernel": "B9"}
+           "stream_any_hit_kernel": "B9"}
 # (module, wrapper) of each kernel: the wrapper counts its launches
 LAUNCHERS = {"B1": (MK, "gbuffer"), "B2": (RD, "initial_candidates"), "B3": (XI, "occlusion"),
              "B4": (MK, "bounce_trace"), "B5": (MK, "bounce_shade"), "B6": (MK, "bounce"),

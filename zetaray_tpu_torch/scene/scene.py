@@ -187,17 +187,11 @@ class SceneBuffers:
     world_hi: torch.Tensor
     cluster_aabb: torch.Tensor | None = None  # [M, 8] lo.xyz, hi.xyz, pad
     cluster_size: int | None = None  # C: cluster k owns slots [k*C, (k+1)*C)
-    # the traversal tree over the clusters (accel.bvh.cluster_tree); node 0 is the root
-    tree_lo: torch.Tensor | None = None  # [K, 3] padded node boxes
-    tree_hi: torch.Tensor | None = None
-    tree_left: torch.Tensor | None = None  # [K] int32 children, -1 at a leaf
-    tree_right: torch.Tensor | None = None
-    tree_cluster: torch.Tensor | None = None  # [K] int32 a leaf's cluster, else -1
-    # the tree B8 walks (accel.bvh.walk_tree): the cluster tree with a sub-tree
-    # over each cluster's real slots below it
-    walk_nodes: torch.Tensor | None = None  # [K2, 16] int32, one node a row
+    # the tree B8 and B9 walk (accel.bvh.walk_tree): the tree over the clusters
+    # with a sub-tree over each cluster's real slots below it
+    walk_nodes: torch.Tensor | None = None  # [K, 16] int32, one node a row
     leaf_slot: torch.Tensor | None = None  # [R] int32 the slot of each leaf-ordered row
-    walk_stack: int | None = None  # the most stack entries B8's walk can need
+    walk_stack: int | None = None  # the most stack entries a walk can need
     # woop_rows()'s and leaf_rows()'s caches: (woop's version counter, the rows)
     _woop_rows: tuple | None = field(default=None, init=False, repr=False, compare=False)
     _leaf_rows: tuple | None = field(default=None, init=False, repr=False, compare=False)
@@ -217,12 +211,12 @@ class SceneBuffers:
 
     def leaf_rows(self) -> torch.Tensor:
         """The rows of ``woop_rows()`` of the slots ``leaf_slot``, in leaf
-        order, [R, 12]: the table kernel B8 reads, gathered from ``woop``
-        (no dense copy is made), at first use and again whenever ``woop`` was
-        changed in place. Only the rows follow ``woop``: the trees
-        (``tree_*``, ``walk_nodes``, ``leaf_slot``, ``walk_stack``) are built
-        at upload, so an edit that moves a triangle out of its boxes, or
-        makes a pad slot real, needs a fresh upload."""
+        order, [R, 12]: the table kernels B8 and B9 read, gathered from
+        ``woop`` (no dense copy is made), at first use and again whenever
+        ``woop`` was changed in place. Only the rows follow ``woop``: the
+        tree (``walk_nodes``, ``leaf_slot``, ``walk_stack``) is built at
+        upload, so an edit that moves a triangle out of its boxes, or makes a
+        pad slot real, needs a fresh upload."""
         return self._rows_cached("_leaf_rows", self.leaf_slot.long())
 
     def _rows_cached(self, name: str, slots):
@@ -455,7 +449,7 @@ def upload_scene_arrays(cpu: CpuScene, cluster_size: int | None = None) -> dict:
 def buffers_from_arrays(d: dict, device=None) -> SceneBuffers:
     """Dict of SceneBuffers fields (numpy or scalars) -> SceneBuffers on
     ``device`` (default: the card; ``native.default_device``). Where
-    ``cluster_aabb`` is given, the cluster size and the traversal trees are
+    ``cluster_aabb`` is given, the cluster size and the walks' tree are
     derived from it, the Woop table and ``v0``/``e1``/``e2``."""
     from ..accel.bvh import cluster_tree, walk_tree
 
@@ -466,9 +460,9 @@ def buffers_from_arrays(d: dict, device=None) -> SceneBuffers:
         tp = np.asarray(d["woop"]).shape[1] // 3
         if tp % m:
             raise ValueError(f"{tp} triangle slots do not split into {m} clusters")
-        tree = cluster_tree(d["cluster_aabb"])
-        d.update(tree, cluster_size=tp // m)
-        d.update(walk_tree(tree, tp // m, *(np.asarray(d[k]) for k in ("woop", "v0", "e1", "e2"))))
+        d.update(walk_tree(cluster_tree(d["cluster_aabb"]), tp // m,
+                           *(np.asarray(d[k]) for k in ("woop", "v0", "e1", "e2"))),
+                 cluster_size=tp // m)
     kw = {}
     for f in fields(SceneBuffers):
         if not f.init:
@@ -486,16 +480,15 @@ def buffers_from_arrays(d: dict, device=None) -> SceneBuffers:
 
 
 def with_cluster_tree(scene: SceneBuffers, tree: dict) -> SceneBuffers:
-    """``scene`` (clustered) with ``tree`` as its clusters' traversal tree,
-    in the form of ``accel.bvh.cluster_tree`` (``accel.bvh.chain_tree`` is
-    the deepest), and B8's tree rebuilt below it."""
+    """``scene`` (clustered) with the walks' tree rebuilt over ``tree`` as its
+    clusters' tree, in the form of ``accel.bvh.cluster_tree``
+    (``accel.bvh.chain_tree`` is the deepest)."""
     from ..accel.bvh import walk_tree
 
     host = lambda k: getattr(scene, k).cpu().numpy()
     walk = walk_tree(tree, scene.cluster_size, *(host(k) for k in ("woop", "v0", "e1", "e2")))
     stack = walk.pop("walk_stack")
-    tables = {k: torch.from_numpy(np.asarray(v)).to(scene.device)
-              for k, v in {**tree, **walk}.items()}
+    tables = {k: torch.from_numpy(np.asarray(v)).to(scene.device) for k, v in walk.items()}
     return replace(scene, walk_stack=stack, **tables)
 
 
