@@ -14,8 +14,9 @@ Phases (any failure exits non-zero):
      and, on its trace-only branch of a path's last bounce, at 2), and the
      closest hit with attributes (B7) on ReSTIR PT prefix rays built as its
      initial samples build them; B7 also on 1024^2 camera rays, as the
-     primary-rays rate of bench.py. B4, B6 and B7 record the real triangle
-     count they sweep (nt) and the ray-triangle pairs they test a second.
+     primary-rays rate of bench.py. B1, B4, B5, B6 and B7 record the real
+     triangle count they sweep (nt) and B1, B4, B6 and B7 the ray-triangle
+     pairs they test a second (B5 the shadow segments it lets through).
      On the box split to 139,266 triangles
      (bench.py's large scene, clustered into 798 clusters of 256 slots) at
      256^2 (its upload time, B8's tree included, printed): the streaming
@@ -181,6 +182,8 @@ def main() -> int:
         put("gbuffer", err_g, cuda_ms(lambda: MK.gbuffer(scene, o, d), reps=20),
             cuda_ms(lambda: MK.gbuffer_plain(scene, o, d), reps=3, warmup=1),
             PAIR_OPS * n * n_tri, n * (6 + MK.G.ROWS) * F32 + tri_bytes)
+        r1 = rec["gbuffer"]
+        r1.update(nt=n_tri, pairs_per_s=n * n_tri / (r1["ms"] * 1e-3))
 
         lsets = MK.build_light_sets(scene, seed)
         n_sets, _, ps = lsets.shape
@@ -219,7 +222,7 @@ def main() -> int:
             f"{k} {rec[k]['ms']:.4f} ms (plain {rec[k]['plain_ms']:.3f}, bound "
             f"{rec[k]['bound_ms']:.4f} by {rec[k]['bound_by']}), max abs err "
             f"{rec[k]['max_abs_err']:.3g}" for k in ("gbuffer", "ris", "occlusion"))
-            + f"; {n_occ / n:.4f} occluded", flush=True)
+            + f"; {n_occ / n:.4f} occluded; gbuffer {r1['pairs_per_s']:.4g} pairs/s", flush=True)
 
         # B4-B6 on the GI trace's bounce-0 rays (the flagship's GI trace:
         # 2 bounces after x2, x2's own emission excluded)
@@ -267,6 +270,7 @@ def main() -> int:
         # through
         r4, r6 = rec["bounce_trace"], rec["bounce"]
         r4.update(nt=n_tri, pairs_per_s=n * n_tri / (r4["ms"] * 1e-3))
+        rec["bounce_shade"].update(nt=n_tri, lit_segments=lit_5)
         r6.update(nt=n_tri, pairs_per_s=(n + lit_6) * n_tri / (r6["ms"] * 1e-3))
         print(f"{label} ({n} GI bounce-0 rays, {found.float().mean().item():.4f} hit, "
               f"{found_1.float().mean().item():.4f} hit at bounce 1): " + "; ".join(
@@ -275,7 +279,7 @@ def main() -> int:
                   f"{rec[k]['max_abs_err']:.3g}"
                   for k in ("bounce_trace", "bounce_shade", "bounce"))
               + f"; bounce_trace {r4['pairs_per_s']:.4g}, bounce {r6['pairs_per_s']:.4g} "
-              "pairs/s", flush=True)
+              f"pairs/s; bounce_shade lets {lit_5} shadow segments through", flush=True)
 
         # B7 on ReSTIR PT prefix rays: every output equal to the plain version
         o7, d7 = prefix_rays(gk, seed)

@@ -145,19 +145,29 @@ def test_closest_kernel_matches_plain(cuda, subdivide):
 @pytest.mark.cuda
 @pytest.mark.parametrize("subdivide", [None, 200, 300, 1000])
 def test_sweep_kernels_on_ragged_shapes(cuda, subdivide):
-    """B3, B4, B6 and B7 where their sweep has ragged edges: 36, 200, 300 or
+    """B1 and B3-B7 where their sweep has ragged edges: 36, 200, 300 or
     1000 real triangles (1, 2, 3 and 8 chunks of the 128-triangle staging
     ring, none full; with an odd count of at least 3 B6's shadow sweep
     starts in the ring stage that holds the closest-hit sweep's last chunk),
-    1000 rays (not a multiple of a block's 128) and B6 with the narrowest
-    tile width, rt = 128. B3 equal to its plain version on shadow segments
-    and on rays of unbounded length, B7 in every output. B4 and B6 as in
-    test_bounce_kernels_match_plain, and on every ray that found a hit B4's
-    surface position and B6's next origin (the hit point moved off the
-    surface) equal bit for bit. All four refuse a negative t_min."""
+    1000 rays (not a multiple of a block's 128) and B5 and B6 with the
+    narrowest tile width, rt = 128. B1 on 1000 camera rays as in
+    test_gbuffer_kernel_matches_plain. B3 equal to its plain version on
+    shadow segments and on rays of unbounded length, B7 in every output. B4,
+    B5 and B6 as in test_bounce_kernels_match_plain, and on every ray that
+    found a hit B4's surface position and B6's next origin (the hit point
+    moved off the surface) equal bit for bit. B1, B3, B4, B6 and B7 refuse
+    a negative t_min."""
     scene = upload_scene(cornell_box(subdivide_to=subdivide), device=cuda)
     assert scene.num_tris % 128
     _, o, d = _rays(cuda, 32)
+    o1, d1 = o[:1000].contiguous(), d[:1000].contiguous()
+    g1, g1_p = MK.gbuffer(scene, o1, d1), MK.gbuffer_plain(scene, o1, d1)
+    torch.cuda.synchronize()
+    for r in (MK.G.VALID, MK.G.MATID, MK.G.INST):
+        assert torch.equal(g1[r], g1_p[r])
+    hit = g1_p[MK.G.VALID] > 0.5
+    assert hit.float().mean() > 0.5
+    torch.testing.assert_close(g1[:, hit], g1_p[:, hit], rtol=1e-5, atol=1e-5)
     o2, d2, _, _ = secondary_rays(MK.gbuffer(scene, o, d), SEED)
     o2, d2 = o2[:1000].contiguous(), d2[:1000].contiguous()
     got = XI.closest_hit(scene, o2, d2)
@@ -180,6 +190,9 @@ def test_sweep_kernels_on_ragged_shapes(cuda, subdivide):
     assert _close_rays(st4, st) == 1.0 and _close_rays(surf4, surf) == 1.0
     assert torch.equal(st4[13], st[13]) and torch.equal(surf4[0:3, found], surf[0:3, found])
     st5 = MK.bounce_shade_plain(scene, st, surf, lsets, 0, SEED, cfg, True, 128)
+    st5_k = MK.bounce_shade(scene, st, surf, lsets, 0, SEED, cfg, True, 128)
+    assert _close_rays(st5_k[:, found], st5[:, found]) >= 0.999
+    assert _close_rays(st5_k, st5, [9, 10, 11, 13]) >= 0.999
     for b, last in ((1, False), (2, True)):
         f6 = MK.bounce_trace_plain(scene, st5, b, cfg, True)[0][13] > 0.5
         st6 = MK.bounce(scene, st5, lsets, b, SEED, cfg, last, True, 128)
@@ -189,6 +202,8 @@ def test_sweep_kernels_on_ragged_shapes(cuda, subdivide):
         if not last:
             assert f6.float().mean() > 0.3
             assert torch.equal(st6[0:3, f6], st6_p[0:3, f6])
+    with pytest.raises(ValueError, match="t_min"):
+        MK.gbuffer(scene, o1, d1, t_min=-1.0)
     with pytest.raises(ValueError, match="t_min"):
         XI.closest_hit(scene, o2, d2, t_min=-1.0)
     with pytest.raises(ValueError, match="t_min"):

@@ -1,20 +1,21 @@
-"""The ray-query kernels B3, B4, B8 and B9 built for the host and held to
-their plain versions, so that their logic (the sign test, the pruning, the
-tie rules and node culling) is checked on every run of the tests, with no
-card.
+"""The ray-query kernels B1, B3, B4, B5, B8 and B9 built for the host and
+held to their plain versions, so that their logic (the sign test, the
+pruning, the tie rules, node culling and the shadow sweep's early exit) is
+checked on every run of the tests, with no card.
 
-``csrc/occlusion.cu``, ``csrc/bounce.cu`` and ``csrc/stream.cu`` are
-compiled with g++ against a small stand-in for ``cuda_runtime.h``: the CUDA
-qualifiers are empty, ``__shared__`` is ``static``, each block runs as
-``blockDim.x`` threads with barriers behind ``__syncthreads``,
-``__syncthreads_and`` and ``__all_sync``, the ``<<<...>>>`` launches become
-calls of that launcher, and an ``extern __shared__`` array points at a
-buffer of the launch's size. Without ``__CUDA_ARCH__`` the sweep's
-``cp.async`` copies are plain copies, and ``rsqrtf`` is ``1 / sqrtf``. With
-``-ffp-contract=off`` each float operation rounds on its own, as in the
-plain versions and in the card's build (``--fmad=false``), so the ray
-queries' outputs must be equal bit for bit; B4's shading rows, whose
-operations PyTorch orders its own way, agree to 1e-5.
+``csrc/gbuffer.cu``, ``csrc/occlusion.cu``, ``csrc/bounce.cu`` and
+``csrc/stream.cu`` are compiled with g++ against a small stand-in for
+``cuda_runtime.h``: the CUDA qualifiers are empty, ``__shared__`` is
+``static``, each block runs as ``blockDim.x`` threads with barriers behind
+``__syncthreads``, ``__syncthreads_and`` and ``__all_sync``, the
+``<<<...>>>`` launches become calls of that launcher, and an ``extern
+__shared__`` array points at a buffer of the launch's size. Without
+``__CUDA_ARCH__`` the sweep's ``cp.async`` copies are plain copies, and
+``rsqrtf`` is ``1 / sqrtf``. With ``-ffp-contract=off`` each float operation
+rounds on its own, as in the plain versions and in the card's build
+(``--fmad=false``), so the ray queries' outputs must be equal bit for bit;
+the shading rows of B1, B4 and B5, whose operations PyTorch orders its own
+way, agree to 1e-5.
 
 Skips only where g++ is absent.
 """
@@ -47,6 +48,8 @@ from zetaray_tpu_torch.scene.subdivide import subdivide_scene
 from tests.test_torch_cuda import _close_rays
 
 torch.set_num_threads(1)
+
+SEED = 0x1234567
 
 MOCK_CUDA = r"""
 #pragma once
@@ -139,13 +142,14 @@ void zr_launch(int grid, int block, size_t shared, K kernel, A... args) {
 
 LAUNCH = re.compile(r"(\w+)<<<\s*([^,]+),\s*([^,]+),\s*([^,]+),[^>]*>>>\(")
 DYNAMIC_SHARED = re.compile(r"extern __shared__ (\w+) (\w+)\[\];")
-KERNELS = ("zr_occlusion", "zr_bounce_trace", "zr_stream_closest", "zr_stream_occlusion")
+KERNELS = ("zr_gbuffer", "zr_occlusion", "zr_bounce_trace", "zr_bounce_shade",
+           "zr_stream_closest", "zr_stream_occlusion")
 
 
 @pytest.fixture(scope="session")
 def host_kernels(tmp_path_factory):
-    """csrc/occlusion.cu, csrc/bounce.cu and csrc/stream.cu built for the
-    host, loaded."""
+    """csrc/gbuffer.cu, csrc/occlusion.cu, csrc/bounce.cu and csrc/stream.cu
+    built for the host, loaded."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ to build the kernels for the host")
@@ -155,7 +159,7 @@ def host_kernels(tmp_path_factory):
     for p in native.CSRC.glob("*.cuh"):
         shutil.copy(p, tmp / p.name)
     srcs = []
-    for name in ("occlusion.cu", "bounce.cu", "stream.cu"):
+    for name in ("gbuffer.cu", "occlusion.cu", "bounce.cu", "stream.cu"):
         text = LAUNCH.sub(r"zr_launch(\2, \3, \4, \1, ", (native.CSRC / name).read_text())
         text = DYNAMIC_SHARED.sub(
             r"\1* const \2 = reinterpret_cast<\1*>(mock::dynamic_shared.data());", text)
@@ -185,6 +189,16 @@ def host_occlusion(lib, scene, o, d, t_min, t_max):
                             scene.num_tris, t_min, t_max, None) == 0
     assert ((out == 0) | (out == 1)).all()
     return out.bool()
+
+
+def host_gbuffer(lib, scene, o, d, t_min=1e-4, nt=None):
+    """B1 on the host: G [G.ROWS, N], or None where the entry point refuses
+    the launch. ``nt``: the real triangles the entry point is told of."""
+    n, tp = o.shape[0], scene.woop.shape[1] // 3
+    out = torch.full((MK.G.ROWS, n), -7.0)
+    err = lib.zr_gbuffer(_ptr(o), _ptr(d), _ptr(scene.woop_rows()), _ptr(scene.tri_attrs),
+                         _ptr(out), n, tp, scene.num_tris if nt is None else nt, t_min, None)
+    return None if err else out
 
 
 def host_stream_closest(lib, scene, o, d, t_min=1e-4, t_max=INF):
@@ -227,6 +241,19 @@ def host_bounce_trace(lib, scene, state, cfg, spread_angle):
     return None if err else (out, surf)
 
 
+def host_bounce_shade(lib, scene, state, surf, lsets, seed, cfg, rt, nt=None):
+    """B5 at bounce 0 on the host: state [STATE_ROWS, N], or None where the
+    entry point refuses the launch."""
+    n, tp = state.shape[1], scene.woop.shape[1] // 3
+    n_sets, _, ps = lsets.shape
+    out = torch.full_like(state, -7.0)
+    err = lib.zr_bounce_shade(_ptr(state), _ptr(surf), _ptr(scene.woop_rows()), _ptr(lsets),
+                              _ptr(out), n, tp, scene.num_tris if nt is None else nt, n_sets,
+                              ps, rt, 0, seed & 0xFFFFFFFF, cfg.min_nee_bounce, cfg.rr_start,
+                              int(cfg.nee), 1, None)
+    return None if err else out
+
+
 def _segments(seed, n):
     """Shadow segments from points in the box to points on its ceiling
     light, and rays from the same points in random directions."""
@@ -258,6 +285,16 @@ def test_occlusion_kernel_on_host(host_kernels, subdivide):
                                      tp, scene.num_tris, -1.0, 1.0, None) != 0
 
 
+def _gi_bounce0(scene, res=18, n=300):
+    """GI bounce-0 rays from a res^2 G-buffer of the box camera (the first
+    n: 3 blocks, the last one ragged) as their initial path state, and the
+    camera's pixel spread angle."""
+    cam = Camera.look_at(CAMERA_EYE, CAMERA_TARGET, vfov_deg=CAMERA_VFOV, aspect=1.0)
+    o, d = cam.generate_rays(res, res, device="cpu")
+    o2, d2, _, _ = secondary_rays(MK.gbuffer(scene, o, d), 0x2468ACE1)
+    return MK.initial_state(o2[:n], d2[:n]).contiguous(), cam.pixel_spread_angle(res)
+
+
 @pytest.mark.parametrize("subdivide", [None, 200, 300])
 def test_bounce_trace_on_host(host_kernels, subdivide):
     """B4 against its plain version with 36, 200 and 300 real triangles (1,
@@ -266,12 +303,8 @@ def test_bounce_trace_on_host(host_kernels, subdivide):
     on the rays that hit and the radiance on all, the hit position of a ray
     that hit bit for bit; a negative t_min is refused."""
     scene = upload_scene(cornell_box(subdivide_to=subdivide), device="cpu")
-    cam = Camera.look_at(CAMERA_EYE, CAMERA_TARGET, vfov_deg=CAMERA_VFOV, aspect=1.0)
-    o, d = cam.generate_rays(18, 18, device="cpu")
-    o2, d2, _, _ = secondary_rays(MK.gbuffer(scene, o, d), 0x2468ACE1)
-    st0 = MK.initial_state(o2[:300], d2[:300]).contiguous()
+    st0, spread = _gi_bounce0(scene)
     cfg = PTConfig(max_bounces=2, min_emissive_bounce=1)
-    spread = cam.pixel_spread_angle(18)
     st, surf = host_bounce_trace(host_kernels, scene, st0, cfg, spread)
     st_p, surf_p = MK.bounce_trace_plain(scene, st0, 0, cfg, True, spread)
     found = st_p[13] > 0.5
@@ -282,6 +315,105 @@ def test_bounce_trace_on_host(host_kernels, subdivide):
     assert _close_rays(surf[:, found], surf_p[:, found]) == 1.0
     assert _close_rays(st, st_p, [9, 10, 11]) == 1.0
     assert host_bounce_trace(host_kernels, scene, st0, PTConfig(t_min=-1.0), spread) is None
+
+
+def _with_shelf(cpu):
+    """``cpu`` with one more triangle in its last real slot: a shelf under
+    the ceiling light, the only blocker of many shadow segments and in view
+    of the camera, so that a sweep that stops short of the last triangle
+    shows."""
+    tri = {"v0": [-0.6, 1.5, -0.6], "v1": [0.6, 1.5, -0.6], "v2": [0.0, 1.5, 0.6],
+           **{f: [0.0, -1.0, 0.0] for f in ("n0", "n1", "n2")},
+           **{f: [0.0, 0.0] for f in ("uv0", "uv1", "uv2")},
+           "mat_id": cpu.mat_id[0], "inst_id": cpu.inst_id[0]}
+    return dataclasses.replace(cpu, **{
+        f: np.concatenate([getattr(cpu, f), np.asarray([v], getattr(cpu, f).dtype)])
+        for f, v in tri.items()})
+
+
+GBUFFER_SCENES = {
+    "box": lambda: _with_shelf(cornell_box()),
+    "box200": lambda: _with_shelf(cornell_box(subdivide_to=200)),
+    "box300": lambda: _with_shelf(cornell_box(subdivide_to=300)),
+    "ties": lambda: repeated_box(5),
+}
+
+
+@pytest.mark.parametrize("name", sorted(GBUFFER_SCENES))
+def test_gbuffer_on_host(host_kernels, name):
+    """B1 against gbuffer_plain on the box and its subdivisions to 200 and
+    300 triangles, each with a shelf in its last slot (37, 201 and 301 real
+    triangles: 1, 2 and 3 chunks of the sweep's ring), and on the box with
+    each triangle repeated
+    5 times (180 slots, where the tie rule decides every hit, across the
+    128-slot tie groups for the copies of slots 125-129), on 324 camera rays
+    (3 blocks, the last one ragged) and on 300 rays from inside the box in
+    random directions: the hit rows (position, VALID, DEPTH, INST, MATID,
+    TEXID) equal bit for bit, the normal rows and every row of a ray that
+    hit to 1e-5; a negative t_min and a real-triangle count beyond the table
+    are refused."""
+    scene = upload_scene(GBUFFER_SCENES[name](), device="cpu")
+    cam = Camera.look_at(CAMERA_EYE, CAMERA_TARGET, vfov_deg=CAMERA_VFOV, aspect=1.0)
+    o, d = cam.generate_rays(18, 18, device="cpu")
+    o_in, _, d_in = _segments(4, 300)
+    G = MK.G
+    for oo, dd in ((o.contiguous(), d.contiguous()), (o_in, d_in)):
+        g = host_gbuffer(host_kernels, scene, oo, dd)
+        g_p = MK.gbuffer_plain(scene, oo, dd)
+        hit = g_p[G.VALID] > 0.5
+        assert 0.5 < hit.float().mean()
+        for r in (G.POS, G.POS + 1, G.POS + 2, G.VALID, G.DEPTH, G.INST, G.MATID, G.TEXID):
+            assert torch.equal(g[r], g_p[r]), r
+        assert _close_rays(g, g_p, slice(G.NS, G.NS + 3)) == 1.0
+        assert _close_rays(g[:, hit], g_p[:, hit]) == 1.0
+    if name == "ties":  # every hit is the last copy of its triangle within its tie group
+        tri = MK.closest_hit_plain(scene.woop, o_in, d_in)[1]
+        assert ((tri[tri >= 0] % 5 == 4) | (tri[tri >= 0] == 127)).all()
+        assert (tri == 127).any()
+    tp = scene.woop.shape[1] // 3
+    assert host_gbuffer(host_kernels, scene, o, d, t_min=-1.0) is None
+    assert host_gbuffer(host_kernels, scene, o, d, nt=tp + 1) is None
+
+
+@pytest.mark.parametrize("subdivide", [None, 200, 300])
+def test_bounce_shade_on_host(host_kernels, subdivide, monkeypatch):
+    """B5 against bounce_shade_plain on the box and its subdivisions to 200
+    and 300 triangles, each with a shelf under the light in its last slot
+    (37, 201 and 301 real triangles: 1, 2 and 3 chunks of the sweep's ring),
+    on 300 GI bounce-0 rays after B4's
+    plain version (3 blocks, the last one ragged) at the narrowest tile
+    width, rt = 128, with the criteria of the card's
+    test_bounce_kernels_match_plain: every row on the rays that found a hit,
+    radiance and alive on every ray. The shadow sweep's decision: a ray
+    gains the NEE light in B5 exactly where it does in the plain version,
+    whose segments go through occlusion_plain; the segments that the plain
+    version lights with nothing blocking include both blocked and free ones.
+    A tile width off the block and a real-triangle count beyond the table
+    are refused."""
+    scene = upload_scene(_with_shelf(cornell_box(subdivide_to=subdivide)), device="cpu")
+    st0, spread = _gi_bounce0(scene)
+    cfg = PTConfig(max_bounces=3, min_emissive_bounce=1, rr_start=1)
+    st4, sf4 = MK.bounce_trace_plain(scene, st0, 0, cfg, True, spread)
+    lsets = MK.build_light_sets(scene, SEED)
+    st5 = host_bounce_shade(host_kernels, scene, st4, sf4, lsets, SEED, cfg, 128)
+    st5_p = MK.bounce_shade_plain(scene, st4, sf4, lsets, 0, SEED, cfg, True, 128)
+    found = st4[13] > 0.5
+    assert 0.3 < found.float().mean() < 1.0
+    assert _close_rays(st5[:, found], st5_p[:, found]) >= 0.999
+    assert _close_rays(st5, st5_p, [9, 10, 11, 13]) >= 0.999
+    lit = (st5[9:12] != st4[9:12]).any(0)
+    lit_p = (st5_p[9:12] != st4[9:12]).any(0)
+    assert torch.equal(lit, lit_p)
+    monkeypatch.setattr(XI, "occlusion_plain",
+                        lambda woop, o, d, t_min, t_max: torch.zeros(o.shape[0], dtype=torch.bool))
+    st5_free = MK.bounce_shade_plain(scene, st4, sf4, lsets, 0, SEED, cfg, True, 128)
+    free = (st5_free[9:12] != st4[9:12]).any(0)
+    assert (free & lit_p).sum() > 20 and (free & ~lit_p).sum() > 5
+    assert not (lit_p & ~free).any()
+    tp = scene.woop.shape[1] // 3
+    assert host_bounce_shade(host_kernels, scene, st4, sf4, lsets, SEED, cfg, 100) is None
+    assert host_bounce_shade(host_kernels, scene, st4, sf4, lsets, SEED, cfg, 128,
+                             nt=tp + 1) is None
 
 
 def _deep():

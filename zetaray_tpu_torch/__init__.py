@@ -32,7 +32,7 @@ Package layout mirrors the JAX package:
            packing, denoise, TAA, post
   render/  the frames
   profile  where a frame's time goes on the card
-  kernel_ab  B3, B4 and B6-B9 against another commit's kernels on the card
+  kernel_ab  B1 and B3-B9 against another commit's kernels on the card
   timing   CUDA-event medians and the card's name and power limit
 """
 

@@ -8,15 +8,15 @@ state and the ``[SURF_ROWS, N]`` surface rows.
 ``gbuffer`` replaces the TPU kernel ``_gbuffer_kernel``
 (the JAX package's ``accel/megakernel.py``, closest hit in ``_closest_soa``) with
 ``csrc/gbuffer.cu``. On the card it is bound by arithmetic, not bytes: every
-ray tests every triangle (Woop transform, one IEEE division, edge tests),
-about 40 float operations per pair, while the rays and the 40 output rows
-are a few hundred bytes each. The kernel keeps that arithmetic fed: one
-thread per ray, triangles streamed through shared memory in 128-wide chunks
-read as broadcasts, the division only for planes the ray crosses, and the
-edge tests cut short. The one-hot-matmul attribute fetch of the TPU is
-gone: after the loop each thread reads its winner's attribute row by index.
-Measured on an H100 80GB HBM3 (700 W): 5.6 ms for 512^2 rays against 8192
-triangles, about 380 G ray-triangle tests per second.
+ray tests every real triangle (Woop transform, one IEEE division, edge
+tests), about 40 float operations per pair, while the rays and the 40
+output rows are a few hundred bytes each. The kernel is one call of the
+dense sweep of ``csrc/sweep.cuh`` over the ``num_tris`` real triangles of
+``SceneBuffers.woop_rows()`` (16-byte broadcasts, a double-buffered ring,
+the sign test before the division, candidates beyond the best t dropped
+before their edge tests), one thread per ray. The one-hot-matmul attribute
+fetch of the TPU is gone: after the sweep each thread reads its winner's
+attribute row by index.
 
 The bounce kernels replace ``_bounce_trace_kernel`` (B4),
 ``_bounce_shade_kernel`` (B5) and ``_bounce_kernel`` (B6) of the JAX
@@ -26,17 +26,15 @@ half (closest hit, MIS-weighted emission, surface rebuild, written out as
 the 24 surface rows), B5 the shade half read back from those rows (NEE from
 a light set with its shadow ray, BSDF sample, Russian roulette), B6 both
 with the surface kept in registers. Like B1 they are bound by the Woop
-arithmetic of the two triangle loops (closest hit, shadow segment), not by
-bytes: a ray's 16 state rows and the light-set entry are read once. B4 and
-B6 sweep the ``num_tris`` real triangles of ``SceneBuffers.woop_rows()``
-through ``csrc/sweep.cuh`` (16-byte broadcasts, a double-buffered ring,
-the sign test before the division); B5's shadow loop still streams the
-whole padded Woop table in 128-wide chunks. A block stages its tile's
-light set (11 rows) in shared memory, computes the five pcg4d uniforms of a
-bounce in place (the TPU hashed them in XLA beforehand) and reads attribute
-and light-set rows by index instead of the TPU's one-hot matmuls; a block
-leaves a shadow loop once every ray in it is occluded or has no candidate.
-Their times on the card are in ``PERF.md`` (section 6).
+arithmetic of the two triangle sweeps (closest hit, shadow segment), not by
+bytes: a ray's 16 state rows and the light-set entry are read once. All
+three sweep the ``num_tris`` real triangles of ``SceneBuffers.woop_rows()``
+through ``csrc/sweep.cuh``. A block stages its tile's light set (11 rows)
+in shared memory, computes the five pcg4d uniforms of a bounce in place
+(the TPU hashed them in XLA beforehand) and reads attribute and light-set
+rows by index instead of the TPU's one-hot matmuls; a block leaves a
+shadow sweep once every ray in it is occluded or has no candidate.
+Their times on the card, and B1's, are in ``PERF.md`` (section 6).
 """
 
 from __future__ import annotations
@@ -203,7 +201,8 @@ def gbuffer(scene, o: torch.Tensor, d: torch.Tensor, t_min=1e-4) -> torch.Tensor
     scene takes the streaming closest hit (kernel B8, Moller-Trumbore t, u,
     v), then the rows, as the JAX ``gbuffer_xla`` does.
 
-    A CPU tensor takes the plain version; a CUDA tensor launches the kernel.
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel,
+    which sweeps the ``scene.num_tris`` real triangles and needs t_min >= 0.
     """
     if scene.cluster_aabb is not None:
         from .stream import closest_hit_stream_shaded
@@ -220,10 +219,11 @@ def gbuffer(scene, o: torch.Tensor, d: torch.Tensor, t_min=1e-4) -> torch.Tensor
     native.require_cuda(scene.tri_attrs, "tri_attrs", torch.float32, (tp, A.WIDTH))
     if tp % TRI_CHUNK:
         raise ValueError(f"triangle count {tp} is not padded to a multiple of {TRI_CHUNK}")
+    check_sweep_t_min(t_min)
     out = torch.empty((G.ROWS, n), dtype=torch.float32, device=o.device)
     err = native.lib().zr_gbuffer(
-        o.data_ptr(), d.data_ptr(), scene.woop.data_ptr(), scene.tri_attrs.data_ptr(),
-        out.data_ptr(), n, tp, t_min, native.stream_ptr(o.device),
+        o.data_ptr(), d.data_ptr(), scene.woop_rows().data_ptr(), scene.tri_attrs.data_ptr(),
+        out.data_ptr(), n, tp, scene.num_tris, t_min, native.stream_ptr(o.device),
     )
     native.check(err, "gbuffer")
     gbuffer.launches += 1
@@ -259,11 +259,11 @@ def _check_pt(cfg) -> None:
 
 
 def check_sweep_t_min(t_min) -> None:
-    """The Woop test of B3, B4 and B6-B9 (``csrc/sweep.cuh`` ``sweep_test``)
+    """The Woop test of B1 and B3-B9 (``csrc/sweep.cuh`` ``sweep_test``)
     drops a pair by the signs of its plane distances before dividing, which
     is exact for t_min >= 0."""
     if not t_min >= 0.0:
-        raise ValueError(f"t_min={t_min}: the Woop test of B3, B4 and B6-B9 needs t_min >= 0")
+        raise ValueError(f"t_min={t_min}: the Woop test of B1 and B3-B9 needs t_min >= 0")
 
 
 def _check_dense(scene, name: str,
@@ -495,7 +495,8 @@ def bounce_shade(scene, state, surf, light_sets, bounce: int, seed: int, cfg,
     """Shade half of a bounce (B5): state [STATE_ROWS, N]. Pixel i draws its
     NEE sample from set ``(i // rt + 13 * bounce) % n_sets``.
 
-    A CPU tensor takes the plain version; a CUDA tensor launches the kernel.
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel,
+    whose shadow sweep tests the ``scene.num_tris`` real triangles.
     """
     _check_dense(scene, "bounce_shade")
     if state.device.type == "cpu":
@@ -506,8 +507,8 @@ def bounce_shade(scene, state, surf, light_sets, bounce: int, seed: int, cfg,
     native.require_cuda(surf, "surf", torch.float32, (SURF_ROWS, n))
     out = torch.empty_like(state)
     err = native.lib().zr_bounce_shade(
-        state.data_ptr(), surf.data_ptr(), scene.woop.data_ptr(), light_sets.data_ptr(),
-        out.data_ptr(), n, tp, n_sets, ps, rt, bounce, int(seed) & 0xFFFFFFFF,
+        state.data_ptr(), surf.data_ptr(), scene.woop_rows().data_ptr(), light_sets.data_ptr(),
+        out.data_ptr(), n, tp, scene.num_tris, n_sets, ps, rt, bounce, int(seed) & 0xFFFFFFFF,
         cfg.min_nee_bounce, cfg.rr_start, int(cfg.nee), int(has_lights),
         native.stream_ptr(state.device),
     )

@@ -1,26 +1,28 @@
 // Path bounce kernels: B4 trace, B5 shade, B6 the two fused
 // (zetaray_tpu_torch.accel.megakernel.bounce_trace / bounce_shade / bounce).
 // They replace the TPU kernels _bounce_trace_kernel, _bounce_shade_kernel
-// and _bounce_kernel of the JAX package's accel/megakernel.py. On the card
-// they are bound by the Woop arithmetic of their triangle loops (every ray
-// against every triangle, twice for a shaded bounce), not by bytes: a ray's
-// state, surface and light-set entry are read once.
+// and _bounce_kernel of the JAX package's accel/megakernel.py.
 //
-// B4 and B6 sweep through sweep.cuh: one ray a thread, real triangles
-// only, triangle-major rows in a double-buffered ring. During the
-// closest-hit sweep a thread holds only its ray and the running best; then
-// it reads the path state, adds the emission and rebuilds the surface
-// (path.cuh surface_at). B4 writes that surface as the SURF_ROWS rows. B6
-// goes on: it draws the NEE sample and the BSDF sample and writes the next
-// vertex, and keeps only the shadow segment and the lit radiance for the
-// shadow sweep, after which an unblocked ray gets the lit radiance. A warp
-// whose segments are all done stops testing; the block leaves when all are.
+// What bounds them on the card: the Woop arithmetic of their triangle
+// sweeps (every ray's closest hit against every real triangle in B4 and B6,
+// every NEE shadow segment that nothing blocks against every real triangle
+// in B5 and B6), not bytes: a ray's state, surface and light-set entry are
+// read once. Without FMAs (--fmad=false, for bit-equality with the plain
+// versions) the card reaches at most half its float32 rate, and scattered
+// rays diverge in the Woop test's branches.
 //
-// B5: one thread per ray, BOUNCE_BLOCK (128) rays per block, the device
-// functions of path.cuh. Its NEE shadow segment streams the triangles
-// through shared memory in 128-wide Woop chunks (zr::WoopChunk); a block
-// leaves the shadow loop once every ray in it is occluded or has no
-// candidate.
+// What the design does about it: all three sweep through sweep.cuh (one ray
+// a thread, BOUNCE_BLOCK threads a block, the real triangles only,
+// triangle-major rows read as 16-byte broadcasts from a double-buffered
+// ring, the sign test before the division, a 64-register cap). During a
+// sweep a thread holds only its ray and the running best or its done flag.
+// B4 then reads the path state, adds the emission and rebuilds the surface
+// (path.cuh surface_at), and writes that surface as the SURF_ROWS rows. B5
+// reads that surface back and B6 goes on from its own: both draw the NEE
+// sample and the BSDF sample, write the next vertex (path.cuh shade_sample),
+// and keep only the shadow segment and the lit radiance for the shadow
+// sweep, after which an unblocked ray gets the lit radiance. A warp whose
+// segments are all done stops testing; the block leaves when all are.
 //
 // The tile width rt is a multiple of BOUNCE_BLOCK, so a block's rays share
 // one light set, staged in shared memory once (its first LSET_STAGED rows).
@@ -36,6 +38,22 @@ __device__ __forceinline__ zr::Ray state_ray(const float* __restrict__ st, int n
   auto row = [&](int k) { return st[(size_t)k * n + i]; };
   return i < n ? zr::Ray{row(0), row(1), row(2), row(3), row(4), row(5)}
                : zr::Ray{0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+}
+
+// The shadow sweep of B5 and B6 after shade_sample: where ray i's NEE
+// segment is a candidate and nothing blocks it, its lit radiance replaces
+// rows 9-11 of the state the ray wrote. Every thread of the block must call
+// it.
+__device__ __forceinline__ void shadow_sweep(zr::SweepRing& ring,
+                                             const float4* __restrict__ tri_rows, int nt,
+                                             const zr::Ray& seg, bool cand, const zr::V3f& rad_lit,
+                                             float* __restrict__ st_out, int n, int i) {
+  const bool occ = zr::occluded_sweep(ring, tri_rows, nt, seg, zr::kEpsRay, (float)(1.0 - 1e-3),
+                                      !cand);
+  if (!cand || occ) return;  // a candidate lies below n
+  st_out[(size_t)9 * n + i] = rad_lit.x;
+  st_out[(size_t)10 * n + i] = rad_lit.y;
+  st_out[(size_t)11 * n + i] = rad_lit.z;
 }
 
 // B4: closest hit, emission and surface rebuild. Writes the input state with
@@ -73,35 +91,41 @@ bounce_trace_kernel(const float* __restrict__ st_in, const float4* __restrict__ 
   for (int r = 0; r < SURF_ROWS; ++r) surf_out[(size_t)r * n + i] = s[r];
 }
 
-// B5: NEE, BSDF sample and Russian roulette from the surface rows of B4.
-__global__ void __launch_bounds__(BOUNCE_BLOCK)
+// B5: NEE, BSDF sample and Russian roulette from the surface rows of B4,
+// then the shadow sweep. Writes the next vertex, with the cone width scaled
+// by eta where the sample was transmitted.
+__global__ void __launch_bounds__(BOUNCE_BLOCK, zr::kSweepBlocks)
 bounce_shade_kernel(const float* __restrict__ st_in, const float* __restrict__ surf,
-                    const float* __restrict__ woop, const float* __restrict__ sets,
-                    float* __restrict__ st_out, int n, int tp, zr::BounceParams prm) {
-  __shared__ zr::WoopChunk chunk;
+                    const float4* __restrict__ tri_rows, const float* __restrict__ sets,
+                    float* __restrict__ st_out, int n, int nt, zr::BounceParams prm) {
+  __shared__ zr::SweepRing ring;
   extern __shared__ float lset[];  // [LSET_STAGED][ps]
-  const int p0 = blockIdx.x * blockDim.x;
+  const int p0 = blockIdx.x * BOUNCE_BLOCK;
   const int i = p0 + threadIdx.x;
-  const bool live = i < n;
-  if (prm.nee && prm.has_lights) {
-    zr::stage_light_set(lset, sets, zr::bounce_set(prm, p0), prm.ps);
-  }
+  const bool nee = prm.nee && prm.has_lights;
+  if (nee) zr::stage_light_set(lset, sets, zr::bounce_set(prm, p0), prm.ps);
   __syncthreads();
 
-  zr::Path path = live ? zr::load_path(st_in, n, i) : zr::Path{};
-  zr::Surface sf{};
-  if (live) {
+  zr::Ray seg = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  zr::V3f rad_lit;
+  bool cand = false;
+  if (i < n) {
+    zr::Path path = zr::load_path(st_in, n, i);
     auto s = [&](int r) { return surf[(size_t)r * n + i]; };
+    zr::Surface sf;
     sf.pos = {s(0), s(1), s(2)};
     sf.ns = {s(3), s(4), s(5)};
     sf.ng = {s(6), s(7), s(8)};
     sf.mat = {{s(9), s(10), s(11)}, s(12), s(13), s(14)};
     sf.eta = s(16);
+    zr::V3f so, to_l;
+    bool transmitted;
+    cand = zr::shade_sample(lset, prm, i, path, sf, &so, &to_l, &rad_lit, &transmitted);
+    seg = {so.x, so.y, so.z, to_l.x, to_l.y, to_l.z};
+    if (transmitted && sf.eta > 0.f) path.cone = path.cone * sf.eta;
+    zr::store_path(st_out, n, i, path);
   }
-  const bool transmitted = zr::shade_part(chunk, woop, tp, lset, prm, i, live, path, sf);
-  if (!live) return;
-  if (transmitted && sf.eta > 0.f) path.cone = path.cone * sf.eta;
-  zr::store_path(st_out, n, i, path);
+  if (nee) shadow_sweep(ring, tri_rows, nt, seg, cand, rad_lit, st_out, n, i);
 }
 
 // B6: one whole bounce; with last != 0 only the trace half and its emission.
@@ -132,18 +156,13 @@ bounce_kernel(const float* __restrict__ st_in, const float4* __restrict__ tri_ro
     zr::surface_at(attrs, prm, hit.t, hit.tri, hit.u, hit.v, path, sf);
     if (!last) {
       zr::V3f so, to_l;
-      cand = zr::shade_sample(lset, prm, i, path, sf, &so, &to_l, &rad_lit);
+      bool transmitted;  // B6 keeps its cone width, as its plain version does
+      cand = zr::shade_sample(lset, prm, i, path, sf, &so, &to_l, &rad_lit, &transmitted);
       seg = {so.x, so.y, so.z, to_l.x, to_l.y, to_l.z};
     }
     zr::store_path(st_out, n, i, path);
   }
-  if (!nee) return;
-  const bool occ = zr::occluded_sweep(ring, tri_rows, nt, seg, zr::kEpsRay, (float)(1.0 - 1e-3),
-                                      !cand);
-  if (!cand || occ) return;  // a candidate lies below n
-  st_out[(size_t)9 * n + i] = rad_lit.x;
-  st_out[(size_t)10 * n + i] = rad_lit.y;
-  st_out[(size_t)11 * n + i] = rad_lit.z;
+  if (nee) shadow_sweep(ring, tri_rows, nt, seg, cand, rad_lit, st_out, n, i);
 }
 
 zr::BounceParams params(int bounce, uint32_t seed, int rt, int n_sets, int ps, float t_min,
@@ -184,17 +203,20 @@ extern "C" int zr_bounce_trace(const float* st_in, const float* tri_rows, const 
   return (int)cudaGetLastError();
 }
 
-extern "C" int zr_bounce_shade(const float* st_in, const float* surf, const float* woop,
-                               const float* sets, float* st_out, int n, int tp, int n_sets,
-                               int ps, int rt, int bounce, uint32_t seed, int min_nee_bounce,
-                               int rr_start, int nee, int has_lights, void* stream) {
+// tri_rows, nt: as for zr_bounce_trace.
+extern "C" int zr_bounce_shade(const float* st_in, const float* surf, const float* tri_rows,
+                               const float* sets, float* st_out, int n, int tp, int nt,
+                               int n_sets, int ps, int rt, int bounce, uint32_t seed,
+                               int min_nee_bounce, int rr_start, int nee, int has_lights,
+                               void* stream) {
+  if (nt < 0 || nt > tp || rt % BOUNCE_BLOCK) return (int)cudaErrorInvalidValue;
   const zr::BounceParams p = params(bounce, seed, rt, n_sets, ps, 0.f, 0, min_nee_bounce,
                                     rr_start, nee, has_lights);
   const int grid = (n + BOUNCE_BLOCK - 1) / BOUNCE_BLOCK;
   const size_t smem = (size_t)LSET_STAGED * ps * sizeof(float);
   if (grid > 0) {
     bounce_shade_kernel<<<grid, BOUNCE_BLOCK, smem, (cudaStream_t)stream>>>(
-        st_in, surf, woop, sets, st_out, n, tp, p);
+        st_in, surf, reinterpret_cast<const float4*>(tri_rows), sets, st_out, n, nt, p);
   }
   return (int)cudaGetLastError();
 }

@@ -1,5 +1,7 @@
 // Device functions of one path bounce, shared by the three kernels of
-// bounce.cu (zetaray_tpu_torch.accel.megakernel.bounce_trace/_shade/bounce).
+// bounce.cu (zetaray_tpu_torch.accel.megakernel.bounce_trace/_shade/bounce):
+// the trace half after the closest-hit sweep (surface_at) and the shade half
+// before the shadow sweep (shade_sample).
 //
 // Every function follows its PyTorch counterpart operation for operation
 // (ops/shading_soa.py, accel/megakernel.py), and the library is built with
@@ -281,83 +283,6 @@ __device__ __forceinline__ int bounce_set(const BounceParams& prm, int p0) {
   return (int)(((long long)(p0 / prm.rt) + 13LL * prm.bounce) % prm.n_sets);
 }
 
-// The shade half: NEE from the staged light set with its shadow segment,
-// BSDF sample, Russian roulette; the path moves to the next vertex.
-// Every thread of the block must call it (the shadow loop streams the
-// triangles through `chunk`). Returns whether the sample was transmitted.
-__device__ __forceinline__ bool shade_part(WoopChunk& chunk, const float* __restrict__ woop,
-                                           int tp, const float* lset, const BounceParams& prm,
-                                           int i, bool live, Path& path, const Surface& sf) {
-  uint32_t h0 = (uint32_t)i, h1 = (uint32_t)prm.bounce, h2 = prm.seed, h3 = BOUNCE_SALT;
-  pcg4d(h0, h1, h2, h3);
-  const float u1 = to_unit(h0), u5 = to_unit(h1), u6 = to_unit(h2), u7 = to_unit(h3);
-  const uint32_t lo = (h0 & 0xFFu) | ((h1 & 0xFFu) << 8) | ((h2 & 0xFFu) << 16);
-  const float u8 = (float)lo * (1.0f / 16777216.0f);
-
-  const Frame frame = make_frame(sf.ns);
-  const V3f wo_l = frame.to_local(-path.d);
-
-  if (prm.nee && prm.has_lights) {
-    const int k = min((int)(u1 * (float)prm.ps), prm.ps - 1);
-    auto ls = [&](int r) { return lset[r * prm.ps + k]; };
-    const V3f lp = {ls(0), ls(1), ls(2)};
-    const V3f lng = {ls(3), ls(4), ls(5)};
-    const V3f lle = {ls(6), ls(7), ls(8)};
-    const float lpdf_area = ls(9);
-    const V3f to_l = lp - sf.pos;
-    const float dist2 = fmaxf(dot(to_l, to_l), 1e-12f);
-    const V3f wi_w = to_l * rsqrtf(dist2);
-    const float cos_surf = dot(wi_w, sf.ns);
-    const float cos_l_raw = -dot(wi_w, lng);
-    const float cos_l = ls(10) > 0.5f ? fabsf(cos_l_raw) : cos_l_raw;
-    float pdf_b;
-    const V3f f = bsdf_eval(sf.mat, wo_l, frame.to_local(wi_w), &pdf_b);
-    const float pdf_l_sa2 = lpdf_area * dist2 / fmaxf(cos_l, 1e-8f);
-    const bool candidate = live && path.alive && cos_surf > 1e-6f && cos_l > 1e-6f &&
-                           lpdf_area > 0.f && prm.bounce >= prm.min_nee_bounce;
-    // The segment starts off the surface but keeps the length lp - pos.
-    const V3f so = sf.pos + sf.ng * kEpsRay;
-    bool done = !candidate, occluded = false;
-    for (int c0 = 0; c0 < tp; c0 += kTriChunk) {
-      if (__syncthreads_and(done)) break;
-      load_woop_chunk(chunk, woop, tp, c0);
-      __syncthreads();
-      for (int j = 0; j < kTriChunk && !done; ++j) {
-        float u, v;
-        if (woop_hit(chunk, j, so.x, so.y, so.z, to_l.x, to_l.y, to_l.z, kEpsRay,
-                     (float)(1.0 - 1e-3), &u, &v) < ZR_INF) {
-          occluded = true;
-          done = true;
-        }
-      }
-    }
-    if (candidate && !occluded) {
-      const float scale = cos_surf * power_heuristic(pdf_l_sa2, pdf_b) / fmaxf(pdf_l_sa2, 1e-12f);
-      path.rad = path.rad + path.thr * f * lle * scale;
-    }
-  }
-
-  V3f wgt;
-  float pdf;
-  const V3f wi_l = bsdf_sample(sf.mat, wo_l, u5, u6, u7, &wgt, &pdf);
-  const V3f wi_w2 = frame.to_world(wi_l);
-  const bool transmitted = wi_l.z < 0.f;
-  const float side = dot(wi_w2, sf.ng);
-  const bool geo_ok = transmitted ? side < -1e-6f : side > 1e-6f;
-  path.alive = path.alive && pdf > 0.f && geo_ok;
-  path.thr = path.thr * wgt;
-  if (prm.bounce >= prm.rr_start) {
-    const float q = clampf(fmaxf(path.thr.x, fmaxf(path.thr.y, path.thr.z)), 0.05f, 0.95f);
-    path.alive = path.alive && u8 < q;
-    path.thr = path.thr * (1.f / q);
-  }
-  path.o = sf.pos + sf.ng * (transmitted ? -kEpsRay : kEpsRay);
-  path.d = wi_w2;
-  path.prev_pdf = pdf;
-  path.spec = 0.f;
-  return transmitted;
-}
-
 // The trace half of B4 and B6 after their closest-hit sweep (sweep.cuh),
 // from the hit (t_hit, tri, bu, bv; tri -1 on a miss): MIS-weighted
 // emission gated by min_emissive_bounce, alive = found, and the surface
@@ -397,14 +322,16 @@ __device__ __forceinline__ void surface_at(const float* __restrict__ attrs,
   sf.eta = front ? 1.f / ior : ior;
 }
 
-// B6's shade half before its shadow sweep: shade_part for ray i, with the
-// NEE sample's shadow segment handed back instead of traced. The path moves
-// to its next vertex without the NEE light. Returns whether the sample is a
-// candidate; then *so, *seg are its shadow segment (tested in (kEpsRay,
-// 1 - 1e-3)) and *rad_lit the path's radiance if nothing blocks it.
+// The shade half of B5 and B6 before their shadow sweep, for ray i: the NEE
+// sample from the staged light set, the BSDF sample and Russian roulette.
+// The path moves to its next vertex without the NEE light. Returns whether
+// the NEE sample is a candidate; then *so, *seg are its shadow segment
+// (tested in (kEpsRay, 1 - 1e-3)) and *rad_lit the path's radiance if
+// nothing blocks it. *trans_out: whether the BSDF sample went below the
+// surface.
 __device__ __forceinline__ bool shade_sample(const float* lset, const BounceParams& prm, int i,
                                              Path& path, const Surface& sf, V3f* so, V3f* seg,
-                                             V3f* rad_lit) {
+                                             V3f* rad_lit, bool* trans_out) {
   uint32_t h0 = (uint32_t)i, h1 = (uint32_t)prm.bounce, h2 = prm.seed, h3 = BOUNCE_SALT;
   pcg4d(h0, h1, h2, h3);
   const float u1 = to_unit(h0), u5 = to_unit(h1), u6 = to_unit(h2), u7 = to_unit(h3);
@@ -445,6 +372,7 @@ __device__ __forceinline__ bool shade_sample(const float* lset, const BouncePara
   const V3f wi_l = bsdf_sample(sf.mat, wo_l, u5, u6, u7, &wgt, &pdf);
   const V3f wi_w2 = frame.to_world(wi_l);
   const bool transmitted = wi_l.z < 0.f;
+  *trans_out = transmitted;
   const float side = dot(wi_w2, sf.ng);
   const bool geo_ok = transmitted ? side < -1e-6f : side > 1e-6f;
   path.alive = path.alive && pdf > 0.f && geo_ok;

@@ -1,8 +1,8 @@
-// The dense ray-triangle sweep of kernels B3 (occlusion.cu), B4 (bounce.cu
-// bounce_trace_kernel: its closest hit), B6 (bounce.cu bounce_kernel: its
-// closest hit and its NEE shadow segment) and B7 (closest.cu). B1 and B5
-// are now the only users of zr::closest_hit, WoopChunk and load_woop_chunk
-// (common.cuh; B5 through path.cuh shade_part).
+// The dense ray-triangle sweep of every kernel that queries a dense scene:
+// B1 (gbuffer.cu: its closest hit), B3 (occlusion.cu), B4 (bounce.cu
+// bounce_trace_kernel: its closest hit), B5 (bounce.cu bounce_shade_kernel:
+// its NEE shadow segment), B6 (bounce.cu bounce_kernel: its closest hit and
+// its NEE shadow segment) and B7 (closest.cu).
 //
 // What bounds it: every ray tests every real triangle, about 40 float
 // operations and one IEEE division a pair, against a few hundred bytes a
@@ -34,13 +34,15 @@
 //   so a thread's rays do not overlap, and their state halves the warps an
 //   SM holds.
 // - The kernels that sweep cap themselves at 64 registers (kSweepBlocks
-//   blocks of 128 threads an SM): B7 uncapped takes 168 and B6 85, and both
-//   measured slower so.
-// Each ray still visits the triangles in ascending order with the same
-// updates as zr::closest_hit, so the outputs equal the old kernels' and the
-// plain versions' bit for bit.
+//   blocks of 128 threads an SM): uncapped, B7 takes 168 registers, B6 85
+//   and B5 79, and all three measured slower so. B1 takes no cap: it builds
+//   to 56 registers without one.
+// Each ray visits the triangles in ascending order, and the pruning drops
+// only pairs that could not change the answer, so the outputs equal the
+// plain versions' (accel.megakernel.closest_hit_plain,
+// accel.intersect.occlusion_plain) bit for bit.
 //
-// The tie group `tie` (B4, B6: kTriChunk, the JAX kernels' chunk; B7: the
+// The tie group `tie` (B1, B4, B6: kTriChunk, the JAX kernels' chunk; B7: the
 // Pallas tile, accel.intersect.tie_chunk) is counted from slot 0 and is
 // independent of the staging width kSweepChunk.
 //
@@ -107,7 +109,8 @@ __device__ __forceinline__ void stage_chunk(SweepRing& ring, int s,
 }
 
 // The Woop test of one staged triangle (rows w, u, v) against a ray, in the
-// operation order of woop_test (common.cuh), for t_min >= 0. Returns t, or
+// operation order of the plain version (accel.megakernel.tri_hits), for
+// t_min >= 0. Returns t, or
 // ZR_INF unless the ray hits with t_min < t < t_lt and t <= t_le.
 __device__ __forceinline__ float sweep_test(const float4& w, const float4& a, const float4& b,
                                             const Ray& r, float t_min, float t_lt, float t_le,
@@ -131,7 +134,7 @@ __device__ __forceinline__ float sweep_test(const float4& w, const float4& a, co
 }
 
 // Closest hit of a ray over triangles [0, nt) of tri [tp][3] with t in
-// (t_min, t_max), with zr::closest_hit's tie rule over groups of `tie`
+// (t_min, t_max), with the JAX kernels' tie rule over groups of `tie`
 // slots: within a group the highest index among equal t wins, a later group
 // replaces the winner only with a strictly smaller t. A ray of all zeros
 // misses every triangle at once (a thread past the end). Every thread of the

@@ -1,7 +1,7 @@
-"""A/B of the ray-query kernels B3 (dense any hit), B4 (bounce trace), B6
-(fused bounce), B7 (closest hit + attribute row), B8 (clustered closest
-hit) and B9 (clustered any hit) against another commit's, on the card, in
-one process.
+"""A/B of the ray-query kernels B1 (G-buffer), B3 (dense any hit), B4
+(bounce trace), B5 (bounce shade), B6 (fused bounce), B7 (closest hit +
+attribute row), B8 (clustered closest hit) and B9 (clustered any hit)
+against another commit's, on the card, in one process.
 
     python -m zetaray_tpu_torch.kernel_ab --parent DIR [--out FILE]
 
@@ -9,27 +9,30 @@ DIR is the other commit's package (``git archive <commit> zetaray_tpu_torch``
 unpacked; DIR is its ``zetaray_tpu_torch``). It is copied to a temporary
 directory outside the checkout and imported there under another name, so
 it builds its kernels from its own sources and launches them through its
-own wrappers (``accel.intersect.intersect_occluded``,
-``accel.megakernel.bounce_trace``, ``accel.megakernel.bounce``,
+own wrappers (``accel.megakernel.gbuffer``,
+``accel.intersect.intersect_occluded``, ``accel.megakernel.bounce_trace``,
+``accel.megakernel.bounce_shade``, ``accel.megakernel.bounce``,
 ``accel.intersect.intersect_closest_shaded``, ``accel.stream.stream_closest``
 and ``accel.stream.occlusion_stream``, whose signatures both commits share)
 on its own upload of the same scene.
 
 On the procedural Cornell box (36 triangles in 128 slots) and its
 8192-triangle subdivision, at 512^2 rays built as ``chip_smoke.py`` phase 3
-builds them (B3 on DI shadow segments, B4 on GI bounce-0 rays, B6 on GI
-rays at bounce 1 and on its trace-only last bounce at 2, B7 on ReSTIR PT
-prefix rays), and on the box split to 139,266 triangles (clustered) at
-256^2 (B8 on camera rays, on bench.py's GI-like rays, on those of them
-whose primary ray hit with the rest parked, and on GI bounce-0 rays with
-the dead ones parked; B9 on the DI shadow segments), it prints and writes
-to FILE (default ``kernel_ab.json``):
+builds them (B1 on camera rays, B3 on DI shadow segments, B4 on GI bounce-0
+rays, B5 on those rays after B4's plain version, B6 on GI rays at bounce 1
+and on its trace-only last bounce at 2, B7 on ReSTIR PT prefix rays), and
+on the box split to 139,266 triangles (clustered) at 256^2 (B8 on camera
+rays, on bench.py's GI-like rays, on those of them whose primary ray hit
+with the rest parked, and on GI bounce-0 rays with the dead ones parked;
+B9 on the DI shadow segments), it prints and writes to FILE (default
+``kernel_ab.json``):
 
 - each kernel's registers, stack frame and spills (``nvcc -Xptxas -v``) in
   both builds;
 - each kernel's median time under CUDA events, taken in turns (parent, new,
-  new, parent), with this checkout's B1 (camera rays) and B5 (GI bounce-0
-  rays) timed beside them as the control for the spread between calls;
+  new, parent), with this checkout's B2 (RIS over the light sets, which no
+  ray query touches) timed beside them as the control for the spread
+  between calls;
 - whether every output of every ray is equal, bit for bit, between builds.
 
 Needs the card; it raises without CUDA.
@@ -53,6 +56,7 @@ import torch
 from . import native
 from .accel import intersect as XI
 from .accel import megakernel as MK
+from .ops import restir_di as RD
 from .timing import card_line, cuda_ms
 
 
@@ -91,15 +95,13 @@ def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
 def _shadow_segments(scene, gk, lsets, seed: int, rt: int):
     """The DI shadow segments of chip_smoke.py phase 3: from each primary hit
     to its RIS light sample, as (o, d) [N, 3]."""
-    from .ops import restir_di as RD
-
     rk = RD.initial_candidates(gk, lsets, seed, rt=rt)
     so = (gk[MK.G.POS : MK.G.POS + 3] + 1e-3 * gk[MK.G.NG : MK.G.NG + 3]).T.contiguous()
     return so, (rk[0:3] - gk[MK.G.POS : MK.G.POS + 3]).T.contiguous()
 
 
 def _inputs(scene, cam, res: int, seed: int):
-    """B1's and B3-B7's inputs as chip_smoke.py phase 3 builds them."""
+    """B1-B7's inputs as chip_smoke.py phase 3 builds them."""
     from .ops.pathtracer import PTConfig
     from .ops.restir_gi import secondary_rays
     from .ops.restir_pt import prefix_rays
@@ -117,7 +119,7 @@ def _inputs(scene, cam, res: int, seed: int):
     b6 = (st5, lsets, 1, seed, cfg, False, True, rt)
     b6_last = (MK.bounce_plain(scene, *b6), lsets, 2, seed, cfg, True, True, rt)
     o7, d7 = prefix_rays(gk, seed)
-    return dict(b1=(o, d), b3=_shadow_segments(scene, gk, lsets, seed, rt), b6=b6,
+    return dict(b1=(o, d), b2=gk, b3=_shadow_segments(scene, gk, lsets, seed, rt), b6=b6,
                 b6_last=b6_last, b7=(o7, d7), b45=(st4, sf4, o2, d2, lsets, cfg, rt))
 
 
@@ -221,22 +223,25 @@ def main() -> int:
 
             so, seg = inp["b3"]
             o1, d1 = inp["b1"]
+            gk = inp["b2"]
             runs = {
+                "gbuffer": {"parent": lambda: p_mk.gbuffer(scene_p, o1, d1),
+                            "new": lambda: MK.gbuffer(scene, o1, d1)},
                 "occlusion": {
                     "parent": lambda: p_xi.intersect_occluded(scene_p, so, seg, 1e-3, 1.0 - 1e-3),
                     "new": lambda: XI.intersect_occluded(scene, so, seg, 1e-3, 1.0 - 1e-3)},
                 "bounce_trace": {
                     "parent": lambda: p_mk.bounce_trace(scene_p, st0, 0, cfg_p, True),
                     "new": lambda: MK.bounce_trace(scene, st0, 0, cfg, True)},
+                "bounce_shade": {
+                    "parent": lambda: p_mk.bounce_shade(scene_p, st4, sf4, lsets, 0, seed, cfg_p,
+                                                        True, rt),
+                    "new": lambda: MK.bounce_shade(scene, st4, sf4, lsets, 0, seed, cfg, True, rt)},
                 "bounce": b6("b6"),
                 "bounce_last": b6("b6_last"),
                 "closest": {"parent": lambda: p_xi.intersect_closest_shaded(scene_p, o7, d7),
                             "new": lambda: XI.intersect_closest_shaded(scene, o7, d7)},
-                "control_gbuffer": {"this": lambda: MK.gbuffer(scene, o1, d1)},
-                "control_bounce_shade": {
-                    "this": lambda: MK.bounce_shade(scene, st4, sf4, lsets, 0, seed, cfg,
-                                                    True, rt),
-                },
+                "control_ris": {"this": lambda: RD.initial_candidates(gk, lsets, seed, rt=rt)},
             }
             out = report["scenes"][label] = {"nt": nt, "tp": tp, "rays": res * res}
             _run(out, f"{label} (nt {nt}, tp {tp})", runs)

@@ -45,8 +45,8 @@ _VP = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    # o, d, woop, attrs, out, n, tp, t_min, stream
-    "zr_gbuffer": [_VP, _VP, _VP, _VP, _VP, ctypes.c_int, ctypes.c_int, ctypes.c_float, _VP],
+    # o, d, woop_rows, attrs, out, n, tp, nt, t_min, stream
+    "zr_gbuffer": [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _F, _VP],
     # o, d, woop_rows, out, n, tp, nt, t_min, t_max, stream
     "zr_occlusion": [_VP, _VP, _VP, _VP, _I, _I, _I, _F, _F, _VP],
     # gb, sets, out, n, n_sets, ps, rt, block, seed, stream
@@ -55,9 +55,9 @@ _SIGNATURES = {
     # state, woop_rows, attrs, state_out, surf_out, n, tp, nt, bounce, t_min, spread,
     # min_emissive_bounce, nee, has_lights, stream
     "zr_bounce_trace": [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _F, _F, _I, _I, _I, _VP],
-    # state, surf, woop, sets, state_out, n, tp, n_sets, ps, rt, bounce, seed,
+    # state, surf, woop_rows, sets, state_out, n, tp, nt, n_sets, ps, rt, bounce, seed,
     # min_nee_bounce, rr_start, nee, has_lights, stream
-    "zr_bounce_shade": [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, ctypes.c_uint32,
+    "zr_bounce_shade": [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _I, ctypes.c_uint32,
                         _I, _I, _I, _I, _VP],
     # state, woop_rows, attrs, sets, state_out, n, tp, nt, n_sets, ps, rt, bounce, seed,
     # t_min, min_emissive_bounce, min_nee_bounce, rr_start, nee, has_lights, last, stream
