@@ -8,7 +8,8 @@ Phases (any failure exits non-zero):
   3. holds each kernel against its plain PyTorch version at the frame's
      shapes and times both with CUDA events, on the procedural Cornell box
      and on its 8192-triangle subdivision at 512^2: G-buffer (B1), RIS over
-     [64, 16, 128] light sets (B2), occlusion (B3), the path bounce kernels
+     [64, 16, 128] light sets (B2; on the box also on its 1920x1080
+     G-buffer), occlusion (B3), the path bounce kernels
      on GI bounce-0 rays built from the G-buffer as the frame's ReSTIR GI
      builds them: trace (B4), shade (B5), fused bounce (B6, at bounce 1
      and, on its trace-only branch of a path's last bounce, at 2), and the
@@ -75,7 +76,9 @@ IMAGE_DIR = "chiprun_out"
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 PAIR_OPS = 40  # float operations of one Woop ray-triangle test
-RIS_ENTRY_OPS = 30  # float operations of rating one light-set entry in RIS
+# float operations of rating one light-set entry in RIS: 3 subtractions, 14
+# multiplications, 7 additions, 2 maxima, 3 comparisons, 1 rsqrt, 2 divisions
+RIS_ENTRY_OPS = 32
 F32 = 4
 
 
@@ -156,6 +159,37 @@ def main() -> int:
     seed = 0x2468ACE1
     cam = Camera.look_at(CAMERA_EYE, CAMERA_TARGET, vfov_deg=CAMERA_VFOV, aspect=1.0)
     o, d = cam.generate_rays(res, res, device=dev)
+    cam_hd = Camera.look_at(CAMERA_EYE, CAMERA_TARGET, vfov_deg=CAMERA_VFOV, aspect=1920 / 1080)
+
+    def check_ris(label, gk, lsets):
+        """B2 on G-buffer gk against its plain version: at least 99.5% of the
+        pixels pick the same entry and those agree to 1e-5 * (1 + |x|).
+        Returns its reservoirs and a record of its times and bound."""
+        n_px = gk.shape[1]
+        n_sets, _, ps = lsets.shape
+        rt = pick_rt(n_px)
+        rk = RD.initial_candidates(gk, lsets, seed, rt=rt)
+        rp = RD.initial_candidates_plain(gk, lsets, seed, rt)
+        torch.cuda.synchronize()
+        same = (rk[0:3] == rp[0:3]).all(0)
+        share = same.float().mean().item()
+        err = (rk[:, same] - rp[:, same]).abs().max().item()
+        rel_ok = ((rk[:, same] - rp[:, same]).abs() <= 1e-5 * (1 + rp[:, same].abs())).all().item()
+        if share < 0.995 or not rel_ok:
+            raise AssertionError(f"ris {label}: same pick on {share:.6f}, max abs err {err}")
+        del rp
+        # a valid pixel rates every entry, an invalid one only the last (its
+        # weights are 0, its target is row 13); RIS reads 10 G-buffer rows
+        # (position, normal, base color, valid)
+        n_valid = int((gk[MK.G.VALID] > 0.5).sum().item())
+        b_ms, b_by = bound(RIS_ENTRY_OPS * (n_valid * ps + n_px - n_valid),
+                           n_px * (10 + RD.R_ROWS) * F32 + n_sets * MK.LSET_STAGED * ps * F32)
+        return rk, dict(max_abs_err=err,
+                        ms=cuda_ms(lambda: RD.initial_candidates(gk, lsets, seed, rt=rt), reps=20),
+                        plain_ms=cuda_ms(lambda: RD.initial_candidates_plain(gk, lsets, seed, rt),
+                                         reps=3, warmup=1),
+                        bound_ms=b_ms, bound_by=b_by, valid_share=n_valid / n_px)
+
     record = {}
     for label, subdivide in (("cornell36", None), ("cornell8192", 8192)):
         scene = upload_scene(cornell_box(subdivide_to=subdivide), device=dev)
@@ -189,19 +223,17 @@ def main() -> int:
         n_sets, _, ps = lsets.shape
         set_bytes = n_sets * MK.LSET_STAGED * ps * F32
         rt = pick_rt(n)
-        rk = RD.initial_candidates(gk, lsets, seed, rt=rt)
-        rp = RD.initial_candidates_plain(gk, lsets, seed, rt)
-        torch.cuda.synchronize()
-        same = (rk[0:3] == rp[0:3]).all(0)
-        share = same.float().mean().item()
-        err_r = (rk[:, same] - rp[:, same]).abs().max().item()
-        rel_ok = ((rk[:, same] - rp[:, same]).abs() <= 1e-5 * (1 + rp[:, same].abs())).all().item()
-        if share < 0.995 or not rel_ok:
-            raise AssertionError(f"ris {label}: same pick on {share:.6f}, max abs err {err_r}")
-        # RIS reads 10 G-buffer rows (position, normal, base color, valid)
-        put("ris", err_r, cuda_ms(lambda: RD.initial_candidates(gk, lsets, seed, rt=rt), reps=20),
-            cuda_ms(lambda: RD.initial_candidates_plain(gk, lsets, seed, rt), reps=3, warmup=1),
-            RIS_ENTRY_OPS * n * ps, n * (10 + RD.R_ROWS) * F32 + set_bytes)
+        rk, rec["ris"] = check_ris(label, gk, lsets)
+        if label == "cornell36":  # B2 also at 1920x1080, where it costs most
+            o_hd, d_hd = cam_hd.generate_rays(1920, 1080, device=dev)
+            g_hd = MK.gbuffer(scene, o_hd, d_hd)
+            r_hd = rec["ris"]["at_1920x1080"] = check_ris("cornell36 1920x1080", g_hd, lsets)[1]
+            print(f"cornell36 (1920x1080 pixels, {r_hd['valid_share']:.4f} valid): ris "
+                  f"{r_hd['ms']:.4f} ms (plain {r_hd['plain_ms']:.3f}, bound "
+                  f"{r_hd['bound_ms']:.4f} by {r_hd['bound_by']}), max abs err "
+                  f"{r_hd['max_abs_err']:.3g}", flush=True)
+            del o_hd, d_hd, g_hd
+            torch.cuda.empty_cache()
 
         so = (gk[MK.G.POS : MK.G.POS + 3] + 1e-3 * gk[MK.G.NG : MK.G.NG + 3]).T.contiguous()
         seg = (rk[0:3] - gk[MK.G.POS : MK.G.POS + 3]).T.contiguous()
@@ -306,7 +338,7 @@ def main() -> int:
               f"{r7['bound_ms']:.4f} by {r7['bound_by']}), tri/t/u/v/attrs equal, max abs err "
               f"{err_7:.3g}, {r7['pairs_per_s']:.4g} pairs/s; 1024^2 camera rays {ms_c:.4f} ms = "
               f"{oc.shape[0] / ms_c / 1e3:.1f} Mrays/s", flush=True)
-        del scene, gk, gp, rk, rp, so, seg, st0, st4, sf4, st4_p, sf4_p, st5_p, st6_p, st6_last_p
+        del scene, gk, gp, rk, so, seg, st0, st4, sf4, st4_p, sf4_p, st5_p, st6_p, st6_last_p
         del st_t1, o7, d7, sh, sh_p, oc, dc
         torch.cuda.empty_cache()
 
@@ -458,7 +490,6 @@ def main() -> int:
     out, times, launches = chain(RenderConfig(width=res, height=res, **flagship), cam,
                                  gi_kernels)
     show("main path, flagship 512^2", times, launches)
-    cam_hd = Camera.look_at(CAMERA_EYE, CAMERA_TARGET, vfov_deg=CAMERA_VFOV, aspect=1920 / 1080)
     cfg_hd = RenderConfig(width=1920, height=1080, mode="restir_gi", pt=PTConfig(max_bounces=2),
                           denoise=True, taa=True)
     out_hd, times_hd, counts_hd = chain(cfg_hd, cam_hd, gi_kernels)

@@ -57,18 +57,90 @@ def test_gbuffer_kernel_matches_plain(cuda, subdivide):
     torch.testing.assert_close(gk[:, hit], gp[:, hit], rtol=1e-5, atol=1e-5)
 
 
+# The frame seed of B2's cases: pcg4d gives pixel RIS_U0_PIXEL a uniform of
+# exactly 0, so its target u * w_sum is 0 and equals every checkpoint of
+# running sum 0 before its first entry of positive weight.
+RIS_SEED = 34907
+RIS_U0_PIXEL = 522
+RIS_RT = 128  # the narrowest tile width: the 1000 pixels draw from all 8 sets
+
+
+def _ris_sets(lsets, name):
+    """B2's light sets of case ``name`` (edited in place): the sampled sets;
+    every third entry of pdf 0; entries 32-63 of pdf 0 (a whole chunk of
+    zero weight, so checkpoints repeat); weight only in entries 0-7 (every
+    pick in the first chunk) or in 120-127 (every pick in the last); no
+    weight at all (every pick the last entry); every odd entry two-sided
+    and facing away, every fourth of pdf 0, the last entry among them."""
+    pdf, two, ng = lsets[:, 9], lsets[:, 10], lsets[:, 3:6]
+    if name == "pdf0":
+        pdf[:, ::3] = 0.0
+    elif name == "zero_chunk":
+        pdf[:, 32:64] = 0.0
+    elif name == "first_chunk":
+        pdf[:, 8:] = 0.0
+    elif name == "last_chunk":
+        pdf[:, :120] = 0.0
+    elif name == "no_weight":
+        pdf[:] = 0.0
+    elif name == "two_sided":
+        two[:, 1::2] = 1.0
+        ng[:, :, 1::2] *= -1.0
+        pdf[:, 3::4] = 0.0
+    else:
+        assert name == "sampled"
+    return lsets
+
+
+RIS_CASES = ("sampled", "pdf0", "zero_chunk", "first_chunk", "last_chunk", "no_weight",
+             "two_sided")
+
+
+def ris_case(name, dev):
+    """(G-buffer, light sets) of B2's case ``name`` on ``dev``: the box's
+    32^2 camera G-buffer cut to 1000 pixels (the last block ragged) with
+    every fifth pixel's VALID row cleared and its other rows kept (its
+    row-13 target is that of the last entry, mostly not 0), and 8 light sets
+    of 128 entries (_ris_sets)."""
+    scene = upload_scene(cornell_box(), device=dev)
+    _, o, d = _rays(dev, 32)
+    gb = MK.gbuffer(scene, o, d)[:, :1000].contiguous()
+    gb[MK.G.VALID, ::5] = 0.0
+    return gb, _ris_sets(MK.build_light_sets(scene, SEED, 8), name).contiguous()
+
+
+def ris_pick(res, lsets, rt):
+    """The light-set entry each pixel of reservoirs ``res`` picked: the
+    first of its set with the same position."""
+    n, n_sets = res.shape[1], lsets.shape[0]
+    set_of = (torch.arange(n, device=res.device) // rt) * 31 % n_sets
+    same = (lsets[set_of, 0:3, :] == res[0:3].T[:, :, None]).all(1)
+    assert same.any(1).all()
+    return same.int().argmax(1)
+
+
 @pytest.mark.cuda
 def test_ris_and_occlusion_kernels_match_plain(cuda):
+    """B2 and B3 against their plain versions on 128^2 camera rays of the box
+    split to 1000 triangles, and B2 also on the cases of the host test
+    (test_torch_rehearsal.py::test_ris_on_host): at least 99.5% of the
+    pixels pick the same entry (the card's rsqrtf is not the CPU's 1/sqrt),
+    and those agree to 1e-5."""
     scene = upload_scene(cornell_box(subdivide_to=1000), device=cuda)
     _, o, d = _rays(cuda)
     gb = MK.gbuffer(scene, o, d)
     lsets = MK.build_light_sets(scene, SEED)
     rt = pick_rt(gb.shape[1])
+    cases = [(gb, lsets, SEED, rt)] + [(*ris_case(c, cuda), RIS_SEED, RIS_RT) for c in RIS_CASES]
+    before = RD.initial_candidates.launches
+    for g, ls, seed, rt_ in cases:
+        rk = RD.initial_candidates(g, ls, seed, rt=rt_)
+        rp = RD.initial_candidates_plain(g, ls, seed, rt_)
+        same = (rk[0:3] == rp[0:3]).all(0)
+        assert same.float().mean() >= 0.995
+        torch.testing.assert_close(rk[:, same], rp[:, same], rtol=1e-5, atol=1e-6)
+    assert RD.initial_candidates.launches == before + len(cases)
     rk = RD.initial_candidates(gb, lsets, SEED, rt=rt)
-    rp = RD.initial_candidates_plain(gb, lsets, SEED, rt)
-    same = (rk[0:3] == rp[0:3]).all(0)
-    assert same.float().mean() >= 0.995
-    torch.testing.assert_close(rk[:, same], rp[:, same], rtol=1e-5, atol=1e-6)
     so = (gb[MK.G.POS : MK.G.POS + 3] + 1e-3 * gb[MK.G.NG : MK.G.NG + 3]).T.contiguous()
     seg = (rk[0:3] - gb[MK.G.POS : MK.G.POS + 3]).T.contiguous()
     ok = XI.occlusion(scene, so, seg, 1e-3, 1.0 - 1e-3)

@@ -1,10 +1,10 @@
-"""The ray-query kernels B1, B3, B4, B5, B8 and B9 built for the host and
-held to their plain versions, so that their logic (the sign test, the
-pruning, the tie rules, node culling and the shadow sweep's early exit) is
-checked on every run of the tests, with no card.
+"""The kernels B1, B2, B3, B4, B5, B8 and B9 built for the host and held to
+their plain versions, so that their logic (the sign test, the pruning, the
+tie rules, node culling, the shadow sweep's early exit and RIS's
+checkpoints) is checked on every run of the tests, with no card.
 
-``csrc/gbuffer.cu``, ``csrc/occlusion.cu``, ``csrc/bounce.cu`` and
-``csrc/stream.cu`` are compiled with g++ against a small stand-in for
+``csrc/gbuffer.cu``, ``csrc/ris.cu``, ``csrc/occlusion.cu``,
+``csrc/bounce.cu`` and ``csrc/stream.cu`` are compiled with g++ against a small stand-in for
 ``cuda_runtime.h``: the CUDA qualifiers are empty, ``__shared__`` is
 ``static``, each block runs as ``blockDim.x`` threads with barriers behind
 ``__syncthreads``, ``__syncthreads_and`` and ``__all_sync``, the
@@ -13,8 +13,8 @@ __shared__`` array points at a buffer of the launch's size. Without
 ``__CUDA_ARCH__`` the sweep's ``cp.async`` copies are plain copies, and
 ``rsqrtf`` is ``1 / sqrtf``. With ``-ffp-contract=off`` each float operation
 rounds on its own, as in the plain versions and in the card's build
-(``--fmad=false``), so the ray queries' outputs must be equal bit for bit;
-the shading rows of B1, B4 and B5, whose operations PyTorch orders its own
+(``--fmad=false``), so the ray queries' outputs and B2's reservoirs must be
+equal bit for bit; the shading rows of B1, B4 and B5, whose operations PyTorch orders its own
 way, agree to 1e-5.
 
 Skips only where g++ is absent.
@@ -37,6 +37,8 @@ from zetaray_tpu_torch.accel import stream as ST
 from zetaray_tpu_torch.accel import bvh as TB
 from zetaray_tpu_torch.accel.bvh import LEAF_SIZE, WALK_STACK_MAX
 from zetaray_tpu_torch.accel.megakernel import INF
+from zetaray_tpu_torch.core.rng import uniform4
+from zetaray_tpu_torch.ops import restir_di as RD
 from zetaray_tpu_torch.ops.pathtracer import PTConfig
 from zetaray_tpu_torch.ops.restir_gi import secondary_rays
 from zetaray_tpu_torch.scene.camera import Camera
@@ -45,7 +47,9 @@ from zetaray_tpu_torch.scene.procedural import (
 )
 from zetaray_tpu_torch.scene.scene import upload_scene, with_cluster_tree
 from zetaray_tpu_torch.scene.subdivide import subdivide_scene
-from tests.test_torch_cuda import _close_rays
+from tests.test_torch_cuda import (
+    RIS_CASES, RIS_RT, RIS_SEED, RIS_U0_PIXEL, _close_rays, ris_case, ris_pick,
+)
 
 torch.set_num_threads(1)
 
@@ -142,14 +146,14 @@ void zr_launch(int grid, int block, size_t shared, K kernel, A... args) {
 
 LAUNCH = re.compile(r"(\w+)<<<\s*([^,]+),\s*([^,]+),\s*([^,]+),[^>]*>>>\(")
 DYNAMIC_SHARED = re.compile(r"extern __shared__ (\w+) (\w+)\[\];")
-KERNELS = ("zr_gbuffer", "zr_occlusion", "zr_bounce_trace", "zr_bounce_shade",
+KERNELS = ("zr_gbuffer", "zr_ris", "zr_occlusion", "zr_bounce_trace", "zr_bounce_shade",
            "zr_stream_closest", "zr_stream_occlusion")
 
 
 @pytest.fixture(scope="session")
 def host_kernels(tmp_path_factory):
-    """csrc/gbuffer.cu, csrc/occlusion.cu, csrc/bounce.cu and csrc/stream.cu
-    built for the host, loaded."""
+    """csrc/gbuffer.cu, csrc/ris.cu, csrc/occlusion.cu, csrc/bounce.cu and
+    csrc/stream.cu built for the host, loaded."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ to build the kernels for the host")
@@ -159,7 +163,7 @@ def host_kernels(tmp_path_factory):
     for p in native.CSRC.glob("*.cuh"):
         shutil.copy(p, tmp / p.name)
     srcs = []
-    for name in ("gbuffer.cu", "occlusion.cu", "bounce.cu", "stream.cu"):
+    for name in ("gbuffer.cu", "ris.cu", "occlusion.cu", "bounce.cu", "stream.cu"):
         text = LAUNCH.sub(r"zr_launch(\2, \3, \4, \1, ", (native.CSRC / name).read_text())
         text = DYNAMIC_SHARED.sub(
             r"\1* const \2 = reinterpret_cast<\1*>(mock::dynamic_shared.data());", text)
@@ -252,6 +256,58 @@ def host_bounce_shade(lib, scene, state, surf, lsets, seed, cfg, rt, nt=None):
                               ps, rt, 0, seed & 0xFFFFFFFF, cfg.min_nee_bounce, cfg.rr_start,
                               int(cfg.nee), 1, None)
     return None if err else out
+
+
+def host_ris(lib, gb, lsets, seed, rt, block=128):
+    """B2 on the host: reservoirs [R_ROWS, N], or None where the entry point
+    refuses the launch."""
+    n = gb.shape[1]
+    n_sets, _, ps = lsets.shape
+    out = torch.full((RD.R_ROWS, n), -7.0)
+    err = lib.zr_ris(_ptr(gb), _ptr(lsets), _ptr(out), n, n_sets, ps, rt, block,
+                     seed & 0xFFFFFFFF, None)
+    return None if err else out
+
+
+@pytest.mark.parametrize("name", RIS_CASES)
+def test_ris_on_host(host_kernels, name):
+    """B2 equal to initial_candidates_plain, every row bit for bit, on the
+    cases of ris_case (1000 pixels of the box in 8 blocks, the last one
+    ragged, every fifth one not valid; 8 sets at tile width 128): the
+    sampled sets, entries of pdf 0, a weightless chunk, picks only in the
+    first or only in the last chunk, no weight at all, and two-sided
+    entries. A pixel that is not valid keeps w_sum 0 and the last entry with
+    its target; the pixel whose uniform is 0 picks the first entry of
+    positive weight, past checkpoints equal to its target. A tile width that
+    the block does not divide and an empty block are refused."""
+    gb, lsets = ris_case(name, "cpu")
+    got = host_ris(host_kernels, gb, lsets, RIS_SEED, RIS_RT)
+    want = RD.initial_candidates_plain(gb, lsets, RIS_SEED, RIS_RT)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    ps = lsets.shape[2]
+    pick = ris_pick(want, lsets, RIS_RT)
+    valid = gb[MK.G.VALID] > 0.5
+    lit = valid & (want[9] > 0)
+    assert (want[9, ~valid] == 0).all() and (pick[~valid] == ps - 1).all()
+    assert (want[13, ~valid] > 0).float().mean() > 0.5
+    assert (pick[valid & ~lit] == ps - 1).all()
+    picks = pick[lit]
+    first, last = {"first_chunk": (0, 8), "last_chunk": (120, ps)}.get(name, (0, ps))
+    assert ((picks >= first) & (picks < last)).all()
+    if name == "no_weight":
+        assert not lit.any()
+        return
+    assert lit.float().mean() > 0.4
+    if name == "zero_chunk":
+        assert not ((picks >= 32) & (picks < 64)).any()
+    if name in ("sampled", "pdf0", "two_sided"):  # first entries of chunks of 16
+        assert ((picks % 16 == 0) & (picks > 0)).sum() > 5
+    if name == "last_chunk":  # target 0: the first entry of positive weight, not the last
+        u = uniform4(torch.tensor([RIS_U0_PIXEL]), 0, RIS_SEED, salt=0x51E5)[0]
+        assert u.item() == 0.0 and want[9, RIS_U0_PIXEL] > 0
+        assert 120 <= pick[RIS_U0_PIXEL] < ps - 1
+    assert host_ris(host_kernels, gb, lsets, RIS_SEED, 192) is None
+    assert host_ris(host_kernels, gb, lsets, RIS_SEED, 128, block=0) is None
 
 
 def _segments(seed, n):

@@ -1,4 +1,4 @@
-"""A/B of the ray-query kernels B1 (G-buffer), B3 (dense any hit), B4
+"""A/B of the kernels B1 (G-buffer), B2 (RIS), B3 (dense any hit), B4
 (bounce trace), B5 (bounce shade), B6 (fused bounce), B7 (closest hit +
 attribute row), B8 (clustered closest hit) and B9 (clustered any hit)
 against another commit's, on the card, in one process.
@@ -10,28 +10,30 @@ unpacked; DIR is its ``zetaray_tpu_torch``). It is copied to a temporary
 directory outside the checkout and imported there under another name, so
 it builds its kernels from its own sources and launches them through its
 own wrappers (``accel.megakernel.gbuffer``,
-``accel.intersect.intersect_occluded``, ``accel.megakernel.bounce_trace``,
-``accel.megakernel.bounce_shade``, ``accel.megakernel.bounce``,
+``ops.restir_di.initial_candidates``, ``accel.intersect.intersect_occluded``,
+``accel.megakernel.bounce_trace``, ``accel.megakernel.bounce_shade``,
+``accel.megakernel.bounce``,
 ``accel.intersect.intersect_closest_shaded``, ``accel.stream.stream_closest``
 and ``accel.stream.occlusion_stream``, whose signatures both commits share)
 on its own upload of the same scene.
 
 On the procedural Cornell box (36 triangles in 128 slots) and its
 8192-triangle subdivision, at 512^2 rays built as ``chip_smoke.py`` phase 3
-builds them (B1 on camera rays, B3 on DI shadow segments, B4 on GI bounce-0
-rays, B5 on those rays after B4's plain version, B6 on GI rays at bounce 1
-and on its trace-only last bounce at 2, B7 on ReSTIR PT prefix rays), and
-on the box split to 139,266 triangles (clustered) at 256^2 (B8 on camera
-rays, on bench.py's GI-like rays, on those of them whose primary ray hit
-with the rest parked, and on GI bounce-0 rays with the dead ones parked;
-B9 on the DI shadow segments), it prints and writes to FILE (default
-``kernel_ab.json``):
+builds them (B1 on camera rays, B2 on their G-buffer and the frame's light
+sets, B3 on DI shadow segments, B4 on GI bounce-0 rays, B5 on those rays
+after B4's plain version, B6 on GI rays at bounce 1 and on its trace-only
+last bounce at 2, B7 on ReSTIR PT prefix rays), B2 also on the box's
+1920x1080 G-buffer, and on the box split to 139,266 triangles (clustered)
+at 256^2 (B8 on camera rays, on bench.py's GI-like rays, on those of them
+whose primary ray hit with the rest parked, and on GI bounce-0 rays with
+the dead ones parked; B9 on the DI shadow segments), it prints and writes
+to FILE (default ``kernel_ab.json``):
 
 - each kernel's registers, stack frame and spills (``nvcc -Xptxas -v``) in
   both builds;
 - each kernel's median time under CUDA events, taken in turns (parent, new,
-  new, parent), with this checkout's B2 (RIS over the light sets, which no
-  ray query touches) timed beside them as the control for the spread
+  new, parent), with this checkout's B3 (dense any hit) timed alone beside
+  them on the box and at 8192 triangles as the control for the spread
   between calls;
 - whether every output of every ray is equal, bit for bit, between builds.
 
@@ -147,6 +149,12 @@ def _clustered_inputs(scene, cam, res: int, seed: int):
                                    pick_rt(res * res))}
 
 
+def _ris_runs(p_rd, gk, lsets, seed: int, rt: int) -> dict:
+    """B2 of both builds on one G-buffer and its light sets."""
+    return {"parent": lambda: p_rd.initial_candidates(gk, lsets, seed, rt=rt),
+            "new": lambda: RD.initial_candidates(gk, lsets, seed, rt=rt)}
+
+
 def _run(out: dict, label: str, runs: dict) -> None:
     """Each entry of runs ({kernel: {build: fn}}): outputs compared bit for
     bit with the first build's, then timed in turns, into out[kernel]."""
@@ -177,6 +185,7 @@ def main() -> int:
         raise RuntimeError("kernel_ab needs the card: CUDA is not available")
     from .scene.camera import Camera
     from .scene.procedural import CAMERA_EYE, CAMERA_TARGET, CAMERA_VFOV, cornell_box
+    from .render.frame import pick_rt
     from .scene.scene import upload_scene
 
     card = card_line()
@@ -186,10 +195,11 @@ def main() -> int:
     try:
         name = "zetaray_ab_parent"
         import_package(args.parent.resolve(), work, name)
-        p_native, p_mk, p_xi, p_st, p_pt, p_proc, p_scene, p_sub = (
+        p_native, p_mk, p_xi, p_st, p_rd, p_pt, p_proc, p_scene, p_sub = (
             importlib.import_module(f"{name}.{m}") for m in (
                 "native", "accel.megakernel", "accel.intersect", "accel.stream",
-                "ops.pathtracer", "scene.procedural", "scene.scene", "scene.subdivide"))
+                "ops.restir_di", "ops.pathtracer", "scene.procedural", "scene.scene",
+                "scene.subdivide"))
         for label, nat in (("parent", p_native), ("new", native)):
             text = report["ptxas"][label] = ptxas_report(nat)
             print(f"ptxas, {label}:\n" + "\n".join(
@@ -227,6 +237,7 @@ def main() -> int:
             runs = {
                 "gbuffer": {"parent": lambda: p_mk.gbuffer(scene_p, o1, d1),
                             "new": lambda: MK.gbuffer(scene, o1, d1)},
+                "ris": _ris_runs(p_rd, gk, lsets, seed, rt),
                 "occlusion": {
                     "parent": lambda: p_xi.intersect_occluded(scene_p, so, seg, 1e-3, 1.0 - 1e-3),
                     "new": lambda: XI.intersect_occluded(scene, so, seg, 1e-3, 1.0 - 1e-3)},
@@ -241,10 +252,20 @@ def main() -> int:
                 "bounce_last": b6("b6_last"),
                 "closest": {"parent": lambda: p_xi.intersect_closest_shaded(scene_p, o7, d7),
                             "new": lambda: XI.intersect_closest_shaded(scene, o7, d7)},
-                "control_ris": {"this": lambda: RD.initial_candidates(gk, lsets, seed, rt=rt)},
+                "control_occlusion": {
+                    "this": lambda: XI.intersect_occluded(scene, so, seg, 1e-3, 1.0 - 1e-3)},
             }
             out = report["scenes"][label] = {"nt": nt, "tp": tp, "rays": res * res}
             _run(out, f"{label} (nt {nt}, tp {tp})", runs)
+            if subdivide is None:  # B2 at 1920x1080, where it costs most
+                cam_hd = Camera.look_at(CAMERA_EYE, CAMERA_TARGET, vfov_deg=CAMERA_VFOV,
+                                        aspect=1920 / 1080)
+                g_hd = MK.gbuffer(scene, *cam_hd.generate_rays(1920, 1080, device=dev))
+                n_hd = g_hd.shape[1]
+                out = report["scenes"]["cornell36_1080p"] = {"nt": nt, "tp": tp, "rays": n_hd}
+                _run(out, "cornell36 1920x1080",
+                     {"ris": _ris_runs(p_rd, g_hd, lsets, seed, pick_rt(n_hd))})
+                del g_hd
             del scene, scene_p, inp, runs
             torch.cuda.empty_cache()
 

@@ -5,14 +5,17 @@ Reservoir rows ([16, N] float32, the JAX package's layout):
   12 y_two_sided | 13 y_phat (target at this pixel) | 14-15 pad
 
 ``initial_candidates`` replaces the TPU kernel ``_ris_kernel``
-(the JAX package's ``ops/restir_di.py``) with ``csrc/ris.cu``. Per pixel it rates
-all 128 entries of a light set, about 30 float operations each, twice (the
-second pass finds the pick); the set (8 KB) is shared by a block and the
-pixel's G-buffer rows are read once, so the kernel is bound by arithmetic
-and by its two sequential passes, not by bytes. Its design stages the set
-in shared memory once per block, computes the pcg4d uniform in the kernel
-(the TPU hashed it in XLA beforehand) and replaces the TPU's tril-matmul
-prefix sum and one-hot fetch with a running sum and an indexed read.
+(the JAX package's ``ops/restir_di.py``) with ``csrc/ris.cu``. A valid pixel
+rates all 128 entries of a light set, 32 float operations each (two of them
+divisions), an invalid one only the last; the set (8 KB) is shared by a
+block and the pixel's G-buffer rows are read once, so the kernel is bound
+by instructions, not by bytes. Its design stages the set in
+shared memory once per block as 16-byte entry rows, rates each entry once
+while keeping the running sum at 8 checkpoints, and rates again only the
+chunk of entries that holds the pick, so its outputs equal those of the
+sequential sum bit for bit; it computes the pcg4d uniform in the kernel (the
+TPU hashed it in XLA beforehand) and replaces the TPU's tril-matmul prefix
+sum and one-hot fetch with a running sum and an indexed read.
 
 Everything else here is plain PyTorch: the reuse passes gather reservoirs
 with ``index_select`` over the flat pixel axis (the TPU's banded windows
