@@ -12,8 +12,11 @@ Phases (any failure exits non-zero):
      G-buffer), occlusion (B3), the path bounce kernels
      on GI bounce-0 rays built from the G-buffer as the frame's ReSTIR GI
      builds them: trace (B4), shade (B5), fused bounce (B6, at bounce 1
-     and, on its trace-only branch of a path's last bounce, at 2), and the
-     closest hit with attributes (B7) on ReSTIR PT prefix rays built as its
+     and, on its trace-only branch of a path's last bounce, at 2), each
+     also with the sky (the sun shining in through the box's opening), sun
+     NEE, path regularization and the firefly clamp on, and with the sky
+     but sun NEE off, each instance's registers (nvcc -Xptxas -v) recorded;
+     and the closest hit with attributes (B7) on ReSTIR PT prefix rays built as its
      initial samples build them; B7 also on 1024^2 camera rays, as the
      primary-rays rate of bench.py. B1, B4, B5, B6 and B7 record the real
      triangle count they sweep (nt) and B1, B4, B6 and B7 the ray-triangle
@@ -36,28 +39,42 @@ Phases (any failure exits non-zero):
      exposure, AgX) at 512^2 --, the 1920x1080 frame of bench.py
      (max_bounces=2), the ReSTIR PT frame of bench.py at 512^2 (ReSTIR DI +
      PT, max_bounces=3, a-trous, TAA) and the plain path-traced frame of
-     bench.py at 512^2 (max_bounces=4), and on the 139,266-triangle box the
+     bench.py at 512^2 (max_bounces=4); the JAX app's default frame
+     (mode="restir_di", PTConfig(max_bounces=4), TAA, no a-trous) at 512^2
+     with its sun and sky and without them, the flagship frame with the sky,
+     path regularization, the firefly clamp and stochastic multi-bounce, and
+     the ReSTIR PT frame with the sky; and on the 139,266-triangle box the
      large-scene frame of bench.py (ReSTIR GI, max_bounces=2, a-trous, TAA)
-     at 256^2 with its DI-only slice, and plain PT at 256^2. Chains are 4
-     frames; the first has no temporal reuse and no TAA, so frame times are
-     medians of frames 2-4. It checks that every kernel of each path
-     launched (and, on the clustered box, that no dense kernel did), that
-     the images are finite and lit and that the indirect passes add light,
-     and compares two chained 64^2 GI frames and two 64^2 PT frames on the
-     card with the same frames on the CPU, and two 64^2 GI frames on the box
-     split to 8706 triangles (clustered) likewise;
+     at 256^2 with its DI-only slice, plain PT and the JAX app's default
+     frame with the sky at 256^2. Chains are 4 frames; the first has no
+     temporal reuse and no TAA, so frame times are medians of frames 2-4. It
+     checks that every kernel of each path launched (and, on the clustered
+     box, that no dense kernel did), that the images are finite and lit,
+     that the indirect passes add light, that the sky shows behind the
+     primary misses above the horizon in every sky frame and not without
+     it, and that the sun lights hits the frame without sky leaves darker;
+     and compares two chained 64^2 frames on the card with the same frames
+     on the CPU: GI, PT, the default frame with the sky and GI with the sky
+     and the path options on the box, and GI, the default frame with the
+     sky and GI with the sky on the box split to 8706 triangles
+     (clustered);
   5. prints the kernels' record, the card line, and last a JSON status.
 
 The 512^2 images are written to IMAGE_DIR: zetaray_torch_512.png (the
 flagship frame), zetaray_torch_512_di.png (DI only), zetaray_torch_512_pt.png
-(ReSTIR PT) and zetaray_torch_512_plain_pt.png (plain PT); the clustered
-GI frame to zetaray_torch_256_clustered.png.
+(ReSTIR PT), zetaray_torch_512_plain_pt.png (plain PT),
+zetaray_torch_512_restir_di_sky.png and _restir_di.png (the JAX app's
+default frame with and without the sky), _gi_sky.png and _pt_sky.png; the
+clustered GI frame to zetaray_torch_256_clustered.png and the clustered
+default frame with the sky to zetaray_torch_256_clustered_restir_di_sky.png.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
+import re
 import statistics
 import struct
 import sys
@@ -80,6 +97,14 @@ PAIR_OPS = 40  # float operations of one Woop ray-triangle test
 # multiplications, 7 additions, 2 maxima, 3 comparisons, 1 rsqrt, 2 divisions
 RIS_ENTRY_OPS = 32
 F32 = 4
+# float operations of the sky and the sun disk for a live ray that misses (B4,
+# B6; csrc/path.cuh sky_env, sun_disk and surface_at), counted by hand from the
+# source: 40 for the sky, 7 for the disk past the cosine it shares with the
+# sky, 15 to add both, times the throughput, to the radiance; with sun NEE one
+# more, the disk's gate on specular rays
+SKY_OPS = 62
+SUN = (0.2, 0.45, 0.87)  # toward the sun: it shines in through the box's opening at +z
+FIREFLY_CLAMP = 10.0
 
 
 def bound(ops: float, nbytes: float):
@@ -103,6 +128,117 @@ def bounce_err(name: str, label: str, k, p, found) -> float:
         raise AssertionError(f"{name} {label}: {share_found:.6f} of the found rays and "
                              f"{share_all:.6f} of all rays agree with the plain version")
     return (k[:, found] - p[:, found]).abs().max().item()
+
+
+def lit_segments(after, before, after_no_sun=None) -> int:
+    """The shadow segments that let their light through in one shade step:
+    rays whose radiance rows (9-11) changed from ``before`` to ``after``; with
+    sun NEE, ``after_no_sun`` (the step without it) tells an NEE segment and
+    a sun segment of one ray apart."""
+    lit = lambda a, b: int((a[9:12] != b[9:12]).any(0).sum().item())
+    if after_no_sun is None:
+        return lit(after, before)
+    return lit(after_no_sun, before) + lit(after, after_no_sun)
+
+
+def bounce_records(scene, label, opt, cfg, st0, lsets, seed, rt, spread, n_tri, tri_bytes,
+                   set_bytes) -> dict:
+    """B4 at bounce 0 on the GI bounce-0 state ``st0``, B5 after it and B6 at
+    bounce 1 (and on its trace-only last bounce at 2) under ``cfg``, each
+    held against its plain version (``bounce_err``) and timed, with its
+    bound: {"bounce_trace" | "bounce_shade" | "bounce": record}. A live ray
+    that misses costs SKY_OPS (and one more with sun NEE) where ``cfg`` has a
+    sky; a shadow segment that lets its light through (NEE or the sun) a test
+    of every triangle."""
+    from zetaray_tpu_torch.accel import megakernel as MK
+    from zetaray_tpu_torch.timing import cuda_ms
+
+    n = st0.shape[1]
+    tag = f"{label} {opt}".strip()
+    state_bytes = MK.STATE_ROWS * F32
+    miss_ops = SKY_OPS + int(cfg.sun_nee) if cfg.sky is not None else 0
+    no_sun = dataclasses.replace(cfg, sun_nee=False) if cfg.sky is not None and cfg.sun_nee \
+        else None
+
+    def record(err, fn, plain_fn, ops, nbytes, **extra):
+        r = dict(max_abs_err=err, ms=cuda_ms(fn, reps=20), plain_ms=cuda_ms(plain_fn, reps=3,
+                                                                             warmup=1))
+        r["bound_ms"], r["bound_by"] = bound(ops, nbytes)
+        return {**r, **extra}
+
+    trace = (scene, st0, 0, cfg, True, spread)
+    st4, sf4 = MK.bounce_trace(*trace)
+    st4_p, sf4_p = MK.bounce_trace_plain(*trace)
+    found = st4_p[13] > 0.5
+    misses4 = int(((st0[13] > 0.5) & ~found).sum().item())
+    err = max(bounce_err("bounce_trace", tag, st4, st4_p, found),
+              bounce_err("bounce_trace surf", tag, sf4, sf4_p, found))
+    r4 = record(err, lambda: MK.bounce_trace(*trace), lambda: MK.bounce_trace_plain(*trace),
+                PAIR_OPS * n * n_tri + miss_ops * misses4,
+                n * (2 * state_bytes + MK.SURF_ROWS * F32) + tri_bytes,
+                nt=n_tri, hit=found.float().mean().item(), live_misses=misses4)
+    r4["pairs_per_s"] = n * n_tri / (r4["ms"] * 1e-3)
+
+    shade = (scene, st4_p, sf4_p, lsets, 0, seed, cfg, True, rt)
+    st5_p = MK.bounce_shade_plain(*shade)
+    err = bounce_err("bounce_shade", tag, MK.bounce_shade(*shade), st5_p, found)
+    segs5 = lit_segments(st5_p, st4_p, None if no_sun is None else MK.bounce_shade_plain(
+        scene, st4_p, sf4_p, lsets, 0, seed, no_sun, True, rt))
+    r5 = record(err, lambda: MK.bounce_shade(*shade), lambda: MK.bounce_shade_plain(*shade),
+                PAIR_OPS * segs5 * n_tri,
+                n * (2 * state_bytes + MK.SURF_ROWS * F32) + 12 * n_tri * F32 + set_bytes,
+                nt=n_tri, lit_segments=segs5)
+
+    st_t1 = MK.bounce_trace_plain(scene, st5_p, 1, cfg, True)[0]
+    found_1 = st_t1[13] > 0.5
+    misses6 = int(((st5_p[13] > 0.5) & ~found_1).sum().item())
+    b6 = (scene, st5_p, lsets, 1, seed, cfg, False, True, rt)
+    st6_p = MK.bounce_plain(*b6)
+    err = bounce_err("bounce", tag, MK.bounce(*b6), st6_p, found_1)
+    # the frame's final bounce takes the kernel's trace-only branch
+    b6_last = (scene, st6_p, lsets, 2, seed, cfg, True, True, rt)
+    st6_last_p = MK.bounce_plain(*b6_last)
+    err = max(err, bounce_err("bounce last", tag, MK.bounce(*b6_last), st6_last_p,
+                              st6_last_p[13] > 0.5))
+    segs6 = lit_segments(st6_p, st_t1, None if no_sun is None else MK.bounce_plain(
+        scene, st5_p, lsets, 1, seed, no_sun, False, True, rt))
+    r6 = record(err, lambda: MK.bounce(*b6), lambda: MK.bounce_plain(*b6),
+                PAIR_OPS * (int(found_1.sum().item()) + segs6) * n_tri + miss_ops * misses6,
+                n * 2 * state_bytes + tri_bytes + set_bytes,
+                nt=n_tri, hit=found_1.float().mean().item(), lit_segments=segs6,
+                live_misses=misses6)
+    r6["pairs_per_s"] = (n + segs6) * n_tri / (r6["ms"] * 1e-3)
+    return {"bounce_trace": r4, "bounce_shade": r5, "bounce": r6}
+
+
+def bounce_registers() -> dict:
+    """What ``nvcc -Xptxas -v`` reports for each instance of B4-B6:
+    {"bounce_trace" | "bounce_shade" | "bounce": {instance: text}}, the
+    instances named by their compile-time branches (B4 sky, B5 sun_nee, B6
+    sky and sky_sun_nee; "" for none)."""
+    from zetaray_tpu_torch import kernel_ab, native
+
+    names = {"bounce_trace_kernel": ("bounce_trace", ("sky",)),
+             "bounce_shade_kernel": ("bounce_shade", ("sun_nee",)),
+             "bounce_kernel": ("bounce", ("sky", "sun_nee"))}
+    out = {v[0]: {} for v in names.values()}
+    key = spill = None
+    for line in kernel_ab.ptxas_report(native).splitlines():
+        m = re.search(r"Compiling entry function '\w*?\d+(bounce\w*_kernel)I((?:Lb[01]E)+)E", line)
+        if m:
+            kernel, branches = names[m.group(1)]
+            flags = re.findall(r"Lb([01])E", m.group(2))
+            key = (kernel, "_".join(b for b, f in zip(branches, flags) if f == "1"))
+            spill = None
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and key:
+            spill = f"{m.group(1)} B spill stores, {m.group(2)} B loads"
+        m = re.search(r"Used (\d+) registers", line)
+        if m and key:
+            out[key[0]][key[1]] = f"{m.group(1)} registers, {spill}"
+            key = None
+    return out
 
 
 def write_png(path: str, img) -> None:
@@ -133,6 +269,7 @@ def main() -> int:
     from zetaray_tpu_torch.ops.pathtracer import PTConfig, park
     from zetaray_tpu_torch.ops.restir_gi import secondary_rays
     from zetaray_tpu_torch.ops.restir_pt import prefix_rays
+    from zetaray_tpu_torch.ops.sky import SkyParams
     from zetaray_tpu_torch.render.frame import (
         RenderConfig, pick_rt, render_frame, render_frame_restir,
     )
@@ -152,6 +289,8 @@ def main() -> int:
     lib_path = native.build()
     native.lib()
     print(f"build: {time.perf_counter() - t0:.1f} s -> {os.path.relpath(lib_path)}", flush=True)
+    registers = bounce_registers()
+    print(f"registers of B4-B6 by their compile-time branches: {registers}", flush=True)
 
     # -- phase 3: each kernel against its plain version at the frame's shapes
     res = 512
@@ -257,61 +396,39 @@ def main() -> int:
             + f"; {n_occ / n:.4f} occluded; gbuffer {r1['pairs_per_s']:.4g} pairs/s", flush=True)
 
         # B4-B6 on the GI trace's bounce-0 rays (the flagship's GI trace:
-        # 2 bounces after x2, x2's own emission excluded)
+        # 2 bounces after x2, x2's own emission excluded), without path
+        # options, then with the sky (the sun shining in through the box's
+        # opening), sun NEE, path regularization and the firefly clamp, and
+        # with the sky but no sun NEE
         o2, d2, _, _ = secondary_rays(gk, seed)
         st0 = MK.initial_state(o2, d2)
         gi_cfg = PTConfig(max_bounces=2, min_emissive_bounce=1)
+        opt_cfg = dataclasses.replace(gi_cfg, sky=SkyParams(sun_dir=SUN), path_regularization=True,
+                                      firefly_clamp=FIREFLY_CLAMP)
         spread = cam.pixel_spread_angle(res)
-        st4, sf4 = MK.bounce_trace(scene, st0, 0, gi_cfg, True, spread)
-        st4_p, sf4_p = MK.bounce_trace_plain(scene, st0, 0, gi_cfg, True, spread)
-        found = st4_p[13] > 0.5
-        err_4 = max(bounce_err("bounce_trace", label, st4, st4_p, found),
-                    bounce_err("bounce_trace surf", label, sf4, sf4_p, found))
-        state_bytes = MK.STATE_ROWS * F32
-        put("bounce_trace", err_4,
-            cuda_ms(lambda: MK.bounce_trace(scene, st0, 0, gi_cfg, True, spread), reps=20),
-            cuda_ms(lambda: MK.bounce_trace_plain(scene, st0, 0, gi_cfg, True, spread),
-                    reps=3, warmup=1),
-            PAIR_OPS * n * n_tri, n * (2 * state_bytes + MK.SURF_ROWS * F32) + tri_bytes)
-        shade_args = (scene, st4_p, sf4_p, lsets, 0, seed, gi_cfg, True, rt)
-        st5_p = MK.bounce_shade_plain(*shade_args)
-        err_5 = bounce_err("bounce_shade", label, MK.bounce_shade(*shade_args), st5_p, found)
-        # a shadow segment that let its light through tested every triangle
-        lit_5 = ((st5_p[9:12] - st4_p[9:12]).abs().sum(0) > 0).sum().item()
-        put("bounce_shade", err_5, cuda_ms(lambda: MK.bounce_shade(*shade_args), reps=20),
-            cuda_ms(lambda: MK.bounce_shade_plain(*shade_args), reps=3, warmup=1),
-            PAIR_OPS * lit_5 * n_tri,
-            n * (2 * state_bytes + MK.SURF_ROWS * F32) + 12 * n_tri * F32 + set_bytes)
-        st_t1 = MK.bounce_trace_plain(scene, st5_p, 1, gi_cfg, True)[0]
-        found_1 = st_t1[13] > 0.5
-        b6_args = (scene, st5_p, lsets, 1, seed, gi_cfg, False, True, rt)
-        st6_p = MK.bounce_plain(*b6_args)
-        err_6 = bounce_err("bounce", label, MK.bounce(*b6_args), st6_p, found_1)
-        # the frame's final bounce takes the kernel's trace-only branch
-        b6_last = (scene, st6_p, lsets, 2, seed, gi_cfg, True, True, rt)
-        st6_last_p = MK.bounce_plain(*b6_last)
-        err_6 = max(err_6, bounce_err("bounce last", label, MK.bounce(*b6_last), st6_last_p,
-                                      st6_last_p[13] > 0.5))
-        lit_6 = ((st6_p[9:12] - st_t1[9:12]).abs().sum(0) > 0).sum().item()
-        put("bounce", err_6, cuda_ms(lambda: MK.bounce(*b6_args), reps=20),
-            cuda_ms(lambda: MK.bounce_plain(*b6_args), reps=3, warmup=1),
-            PAIR_OPS * (int(found_1.sum().item()) + lit_6) * n_tri,
-            n * 2 * state_bytes + tri_bytes + set_bytes)
-        # B4, B6 and B7 sweep the n_tri real triangles: every ray's closest
-        # hit, and (B6) every triangle again for a segment that let its light
-        # through
-        r4, r6 = rec["bounce_trace"], rec["bounce"]
-        r4.update(nt=n_tri, pairs_per_s=n * n_tri / (r4["ms"] * 1e-3))
-        rec["bounce_shade"].update(nt=n_tri, lit_segments=lit_5)
-        r6.update(nt=n_tri, pairs_per_s=(n + lit_6) * n_tri / (r6["ms"] * 1e-3))
-        print(f"{label} ({n} GI bounce-0 rays, {found.float().mean().item():.4f} hit, "
-              f"{found_1.float().mean().item():.4f} hit at bounce 1): " + "; ".join(
-                  f"{k} {rec[k]['ms']:.4f} ms (plain {rec[k]['plain_ms']:.3f}, bound "
-                  f"{rec[k]['bound_ms']:.4f} by {rec[k]['bound_by']}), max abs err "
-                  f"{rec[k]['max_abs_err']:.3g}"
-                  for k in ("bounce_trace", "bounce_shade", "bounce"))
-              + f"; bounce_trace {r4['pairs_per_s']:.4g}, bounce {r6['pairs_per_s']:.4g} "
-              f"pairs/s; bounce_shade lets {lit_5} shadow segments through", flush=True)
+        for opt, cfg_ in (("", gi_cfg), ("sky_sun", opt_cfg),
+                          ("sky_no_sun_nee", dataclasses.replace(opt_cfg, sun_nee=False))):
+            recs = bounce_records(scene, label, opt, cfg_, st0, lsets, seed, rt, spread, n_tri,
+                                  tri_bytes, set_bytes)
+            for name, r in recs.items():
+                if opt:
+                    rec[name][opt] = r
+                else:
+                    rec[name] = r
+            print(f"{label} ({n} GI bounce-0 rays{', ' + opt if opt else ''}, "
+                  f"{recs['bounce_trace']['hit']:.4f} hit, {recs['bounce']['hit']:.4f} hit at "
+                  f"bounce 1): " + "; ".join(
+                      f"{k} {r['ms']:.4f} ms (plain {r['plain_ms']:.3f}, bound "
+                      f"{r['bound_ms']:.4f} by {r['bound_by']}), max abs err "
+                      f"{r['max_abs_err']:.3g}" for k, r in recs.items())
+                  + f"; bounce_trace {recs['bounce_trace']['pairs_per_s']:.4g}, bounce "
+                  f"{recs['bounce']['pairs_per_s']:.4g} pairs/s; shadow segments let through: "
+                  f"bounce_shade {recs['bounce_shade']['lit_segments']}, bounce "
+                  f"{recs['bounce']['lit_segments']}" + (
+                      f"; live misses: bounce_trace {recs['bounce_trace']['live_misses']}, "
+                      f"bounce {recs['bounce']['live_misses']}; bounds with the sky, ms: "
+                      f"bounce_trace {recs['bounce_trace']['bound_ms']!r}, bounce "
+                      f"{recs['bounce']['bound_ms']!r}" if opt else ""), flush=True)
 
         # B7 on ReSTIR PT prefix rays: every output equal to the plain version
         o7, d7 = prefix_rays(gk, seed)
@@ -338,8 +455,7 @@ def main() -> int:
               f"{r7['bound_ms']:.4f} by {r7['bound_by']}), tri/t/u/v/attrs equal, max abs err "
               f"{err_7:.3g}, {r7['pairs_per_s']:.4g} pairs/s; 1024^2 camera rays {ms_c:.4f} ms = "
               f"{oc.shape[0] / ms_c / 1e3:.1f} Mrays/s", flush=True)
-        del scene, gk, gp, rk, so, seg, st0, st4, sf4, st4_p, sf4_p, st5_p, st6_p, st6_last_p
-        del st_t1, o7, d7, sh, sh_p, oc, dc
+        del scene, gk, gp, rk, so, seg, st0, o7, d7, sh, sh_p, oc, dc
         torch.cuda.empty_cache()
 
     # -- phase 3 on the clustered box: B8 and B9 against their plain versions
@@ -508,8 +624,57 @@ def main() -> int:
     for k in ("flagship", "pt"):
         if not means[k] > 1.05 * means["di"]:
             raise AssertionError(f"the {k} frame adds no light to the DI-only frame")
+
+    # the JAX app's default frame (restir_di, max_bounces=4, TAA, no a-trous)
+    # with its sun and sky and without them, the flagship GI frame with the
+    # sky and the path options, and ReSTIR PT with the sky
+    sky = SkyParams(sun_dir=SUN)
+    app = dict(width=res, height=res, mode="restir_di", taa=True)
+    app_kernels = ("gbuffer", "ris", "occlusion", "bounce")
+    out_app, times_app, counts_app = chain(
+        RenderConfig(**app, pt=PTConfig(max_bounces=4, sky=sky)), cam, app_kernels)
+    show("JAX app default frame 512^2 (restir_di, max_bounces=4) with sun and sky", times_app,
+         counts_app)
+    out_app0, times_app0, counts_app0 = chain(RenderConfig(**app, pt=PTConfig(max_bounces=4)),
+                                              cam, app_kernels)
+    show("JAX app default frame 512^2 without sky", times_app0, counts_app0)
+    gi_sky = dict(mode="restir_gi", denoise=True, taa=True, pt=PTConfig(
+        max_bounces=3, sky=sky, path_regularization=True, firefly_clamp=FIREFLY_CLAMP,
+        stochastic_multi_bounce=True))
+    out_gs, times_gs, counts_gs = chain(RenderConfig(width=res, height=res, **gi_sky), cam,
+                                        gi_kernels)
+    show("flagship 512^2 with sky, regularization, firefly clamp, stochastic multi-bounce",
+         times_gs, counts_gs)
+    pt_sky = {**pt_frame, "pt": PTConfig(max_bounces=3, sky=sky)}
+    out_ps, times_ps, counts_ps = chain(RenderConfig(width=res, height=res, **pt_sky), cam,
+                                        ("gbuffer", "ris", "occlusion", "bounce", "closest"))
+    show("ReSTIR PT 512^2 with sky", times_ps, counts_ps)
+    # the last frame's primary misses that look above the horizon show the
+    # sky in every sky frame, and none of the frame without it; the sun
+    # lights hits the frame without sky leaves darker
+    o_l, d_l = cam.with_jitter(3).generate_rays(res, res, device=dev)
+    valid_l = (MK.gbuffer(scene, o_l, d_l)[MK.G.VALID] > 0.5).reshape(res, res)
+    miss_up = ~valid_l & (d_l[:, 1] > 0.0).reshape(res, res)
+    lum = {k: v["hdr"].sum(-1) for k, v in
+           (("app", out_app), ("app_no_sky", out_app0), ("gi", out_gs), ("pt", out_ps))}
+    sky_shares = {k: (lum[k][miss_up] > 0).float().mean().item() for k in ("app", "gi", "pt")}
+    dark_share = (lum["app_no_sky"][miss_up] == 0).float().mean().item()
+    differs = (out_app["hdr"] != out_app0["hdr"]).any(-1).float().mean().item()
+    sunlit = ((lum["app"] > 1.5 * lum["app_no_sky"] + 1e-3) & valid_l).float().mean().item()
+    print(f"sky at 512^2: {int(miss_up.sum().item())} primary misses above the horizon, lit in "
+          f"{sky_shares} of them, black without sky in {dark_share:.4f}; the default frame "
+          f"with sky differs on {differs:.4f} of pixels and is over 1.5x brighter on "
+          f"{sunlit:.4f} of them (hits); mean HDR app {out_app['hdr'].mean().item():.6f}, "
+          f"without sky {out_app0['hdr'].mean().item():.6f}, GI sky "
+          f"{out_gs['hdr'].mean().item():.6f}, PT sky {out_ps['hdr'].mean().item():.6f}",
+          flush=True)
+    if (min(sky_shares.values()) < 0.99 or dark_share < 0.95 or differs < 0.5 or sunlit < 0.05
+            or miss_up.sum().item() < 1000):
+        raise AssertionError("the sky and the sun do not show as they should")
     os.makedirs(IMAGE_DIR, exist_ok=True)
-    for name, o_ in (("", out), ("_di", out_di), ("_pt", out_pt), ("_plain_pt", out_ppt)):
+    for name, o_ in (("", out), ("_di", out_di), ("_pt", out_pt), ("_plain_pt", out_ppt),
+                     ("_restir_di_sky", out_app), ("_restir_di", out_app0), ("_gi_sky", out_gs),
+                     ("_pt_sky", out_ps)):
         write_png(os.path.join(IMAGE_DIR, f"zetaray_torch_512{name}.png"), o_["ldr"].cpu().numpy())
 
     # bench.py's large-scene frame on the clustered box: every ray query
@@ -535,14 +700,29 @@ def main() -> int:
         raise AssertionError("the clustered GI frame adds no light to its DI-only frame")
     write_png(os.path.join(IMAGE_DIR, "zetaray_torch_256_clustered.png"),
               out_cl["ldr"].cpu().numpy())
+    out_cl_app, times_cl_app, counts_cl_app = chain(
+        RenderConfig(width=res_c, height=res_c, mode="restir_di", taa=True,
+                     pt=PTConfig(max_bounces=4, sky=sky)), cam, ("ris",) + stream_kernels,
+        sc=big, absent=dense_kernels)
+    show("clustered JAX app default frame 256^2 with sun and sky", times_cl_app, counts_cl_app)
+    write_png(os.path.join(IMAGE_DIR, "zetaray_torch_256_clustered_restir_di_sky.png"),
+              out_cl_app["ldr"].cpu().numpy())
     del big
     torch.cuda.empty_cache()
 
     # two chained 64^2 frames, GI and PT on the box and GI on the box split to
-    # 8706 triangles (clustered), through the kernels on the card and through
-    # the plain versions on the CPU
+    # 8706 triangles (clustered), then the JAX app's default frame with its
+    # sun and sky and the GI frame with the sky and the path options on both,
+    # through the kernels on the card and through the plain versions on the
+    # CPU
+    box_8706 = subdivide_scene(cornell_box(), 8193)
+    app_64 = dict(mode="restir_di", taa=True, pt=PTConfig(max_bounces=4, sky=sky))
     for tag, base, cpu_scene in (("GI", flagship, cornell_box()), ("PT", pt_frame, cornell_box()),
-                                 ("clustered GI", large, subdivide_scene(cornell_box(), 8193))):
+                                 ("clustered GI", large, box_8706),
+                                 ("restir_di sky", app_64, cornell_box()),
+                                 ("GI sky", gi_sky, cornell_box()),
+                                 ("clustered restir_di sky", app_64, box_8706),
+                                 ("clustered GI sky", gi_sky, box_8706)):
         small = RenderConfig(width=64, height=64, **base)
         hdrs = {}
         for dv in ("cuda", "cpu"):
@@ -587,6 +767,7 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": launches_of[name], **rec_of[name], "library_ms": None,
+            **({"registers": registers[name]} if name in registers else {}),
         })
     print(json.dumps({"kernels": kernels}))
     print(card)

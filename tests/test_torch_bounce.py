@@ -21,6 +21,12 @@ What must agree, and how closely:
   (dead at the input, or missed) still moves on, sampled from whatever
   surface it got -- for a miss a zero-attribute one (roughness 0), where
   the sampled pdf swings by percents with an ulp of the direction.
+
+The path options (``test_bounce_options_match_jax``) are held the same
+way: the sky and the sun disk on rays that miss (B4, B6), sun NEE with its
+shadow segment (B5, B6), path regularization and the firefly clamp (B5,
+B6). No ray of these sets meets the sun disk's rim, where one ulp of the
+direction moves the radiance by about 1e3 (tests/test_torch_sky.py).
 """
 
 import dataclasses
@@ -34,11 +40,13 @@ from zetaray_tpu.accel import megakernel as JMK
 from zetaray_tpu.core.vec3 import V3 as JV3
 from zetaray_tpu.ops import shading_soa as JS
 from zetaray_tpu.ops.pathtracer import PTConfig as JPTConfig
+from zetaray_tpu.ops.sky import SkyParams as JSkyParams
 from zetaray_tpu_torch.accel import megakernel as MK
 from zetaray_tpu_torch.core.rng import bounce_uniforms
 from zetaray_tpu_torch.core.vec3 import V3 as TV3
 from zetaray_tpu_torch.ops import shading_soa as TS
 from zetaray_tpu_torch.ops.pathtracer import PTConfig
+from zetaray_tpu_torch.ops.sky import SkyParams
 from zetaray_tpu_torch.scene.camera import Camera
 from zetaray_tpu_torch.scene.procedural import CAMERA_EYE, CAMERA_TARGET, CAMERA_VFOV
 from tests.test_torch_intersect import _random_rays
@@ -239,3 +247,61 @@ def test_trace_with_first_hit_matches_jax():
     assert jr.mean() > 0.01
     # the radiance estimate agrees on the whole: its mean within 3%
     assert abs(tr.numpy().mean() - jr.mean()) <= 0.03 * jr.mean()
+
+
+SUN = (0.2, 0.45, 0.87)  # in through the box's opening at +z
+OPTS = {
+    "sky": dict(sky=SUN),
+    "sky_no_sun_nee": dict(sky=SUN, sun_nee=False),
+    "regularized": dict(path_regularization=True),
+    "firefly": dict(firefly_clamp=0.05),
+}
+
+
+def _opt_cfgs(opt):
+    """(JAX PTConfig, port PTConfig) of CFG with the path option ``opt``."""
+    kw = dict(OPTS[opt])
+    sky = kw.pop("sky", None)
+    return (JPTConfig(**CFG, **kw, sky=None if sky is None else JSkyParams(sun_dir=sky)),
+            PTConfig(**CFG, **kw, sky=None if sky is None else SkyParams(sun_dir=sky)))
+
+
+@pytest.mark.parametrize("opt", sorted(OPTS))
+def test_bounce_options_match_jax(case, opt):
+    """Each path option through B4 (trace), B4 then B5 (one split bounce)
+    and B6 (a whole bounce, and for the sky its trace-only last bounce)
+    against ``bounce_step_split`` and ``bounce_step``, at bounce 1 (path
+    regularization starts there); each option changes the rows it acts on
+    (direction, throughput or radiance)."""
+    st = case["st"]
+    agree, found = case["agree"], case["found"]
+    jcfg, cfg = _opt_cfgs(opt)
+    b = 1
+    args = (case["woop3"], case["attrs_t"], case["lsets"], b, jnp.uint32(SEED))
+    want4 = JMK.bounce_step_split(jnp.asarray(st), *args, jcfg, last=True,
+                                  has_lights=case["has_lights"], rt=RT, interpret=True)
+    st4, surf = MK.bounce_trace_plain(case["tdev"], T(st), b, cfg, case["has_lights"])
+    _check_state(st4, want4, agree, found)
+    want5 = JMK.bounce_step_split(jnp.asarray(st), *args, jcfg, last=False,
+                                  has_lights=case["has_lights"], rt=RT, interpret=True)
+    got5 = MK.bounce_shade_plain(case["tdev"], st4, surf, T(case["lsets"]), b, SEED, cfg,
+                                 case["has_lights"], RT)
+    _check_state(got5, want5, agree, found)
+    lasts = (False, True) if cfg.sky is not None else (False,)
+    for last in lasts:
+        want6 = JMK.bounce_step(jnp.asarray(st), *args, jcfg, last=last,
+                                has_lights=case["has_lights"], rt=RT, interpret=True)
+        got6 = MK.bounce_plain(case["tdev"], T(st), T(case["lsets"]), b, SEED, cfg, last,
+                               case["has_lights"], RT)
+        _check_state(got6, want6, agree, found)
+    # the option changes the rows it acts on (the firefly clamp, the NEE
+    # radiance, only where the scene has lights)
+    base = MK.bounce_plain(case["tdev"], T(st), T(case["lsets"]), b, SEED, PTConfig(**CFG),
+                           False, case["has_lights"], RT)
+    got = MK.bounce_plain(case["tdev"], T(st), T(case["lsets"]), b, SEED, cfg, False,
+                          case["has_lights"], RT)
+    changed = (got != base)[3:12].any(0).float().mean().item()
+    if opt == "firefly" and not case["has_lights"]:
+        assert changed == 0.0
+    else:
+        assert changed > 0.02, opt

@@ -16,12 +16,15 @@ import torch
 
 from zetaray_tpu.ops import restir_di as JD
 from zetaray_tpu.ops import restir_gi as JG
+from zetaray_tpu.ops import pathtracer as JPT
 from zetaray_tpu.ops import restir_pt as JP
+from zetaray_tpu.ops import sky as JSK
 from zetaray_tpu.render import frame as JF
 from zetaray_tpu_torch.ops import restir_di as RD
 from zetaray_tpu_torch.ops import restir_gi as RG
 from zetaray_tpu_torch.ops import restir_pt as RP
 from zetaray_tpu_torch.ops.pathtracer import PTConfig
+from zetaray_tpu_torch.ops.sky import SkyParams
 from zetaray_tpu_torch.render import frame as TF
 from zetaray_tpu_torch.scene.camera import Camera
 from zetaray_tpu_torch.scene.procedural import CAMERA_EYE, CAMERA_TARGET, CAMERA_VFOV, cornell_box
@@ -34,8 +37,10 @@ PAIRS = {
     "ReSTIRGIConfig": (JG.ReSTIRGIConfig, RG.ReSTIRGIConfig),
     "ReSTIRPTConfig": (JP.ReSTIRPTConfig, RP.ReSTIRPTConfig),
     "RenderConfig": (JF.RenderConfig, TF.RenderConfig),
+    "PTConfig": (JPT.PTConfig, PTConfig),
+    "SkyParams": (JSK.SkyParams, SkyParams),
 }
-PORT_CLASSES = {port.__name__: port for _, port in PAIRS.values()} | {"PTConfig": PTConfig}
+PORT_CLASSES = {port.__name__: port for _, port in PAIRS.values()}
 
 
 def _declared_defaults(cls) -> dict:
@@ -58,6 +63,22 @@ def test_jax_defaults_give_the_port_default(name):
         [f.name for f in dataclasses.fields(jax_cls)]
     kw = {k: _to_port(v) for k, v in _declared_defaults(jax_cls).items()}
     assert port_cls(**kw) == port_cls()
+
+
+def test_jax_sky_config_converts():
+    """A JAX PTConfig with a sky (the app's --sun) becomes the port's, sky
+    included, and the frame admits it in every mode."""
+    jax_pt = JPT.PTConfig(max_bounces=4, sky=JSK.SkyParams(sun_dir=(0.2, 0.45, 0.87)),
+                          sun_nee=False, path_regularization=True, firefly_clamp=3.0,
+                          stochastic_multi_bounce=True)
+    pt = _to_port(jax_pt)
+    assert pt == PTConfig(max_bounces=4, sky=SkyParams(sun_dir=(0.2, 0.45, 0.87)), sun_nee=False,
+                          path_regularization=True, firefly_clamp=3.0,
+                          stochastic_multi_bounce=True)
+    assert isinstance(pt.sky, SkyParams)
+    for mode in ("restir_di", "restir_gi", "restir_pt"):
+        TF.RenderConfig(mode=mode, pt=pt).check_ported()
+    TF.RenderConfig(mode="pt", pt=pt).check_ported(plain=True)
 
 
 UNPORTED = [

@@ -16,6 +16,7 @@ from zetaray_tpu_torch.accel import stream as ST
 from zetaray_tpu_torch.ops import restir_di as RD
 from zetaray_tpu_torch.ops.pathtracer import PTConfig
 from zetaray_tpu_torch.ops.restir_gi import secondary_rays
+from zetaray_tpu_torch.ops.sky import SkyParams
 from zetaray_tpu_torch.render.frame import RenderConfig, pick_rt, render_frame, render_frame_restir
 from zetaray_tpu_torch.scene.camera import Camera
 from zetaray_tpu_torch.scene.procedural import (
@@ -195,6 +196,55 @@ def test_bounce_kernels_match_plain(cuda, subdivide):
     torch.cuda.synchronize()
     assert (MK.bounce_trace.launches, MK.bounce_shade.launches, MK.bounce.launches) == (
         counts[0] + 1, counts[1] + 1, counts[2] + 2)
+
+
+SUN = (0.2, 0.45, 0.87)  # shines in through the box's opening at +z
+PATH_OPTIONS = {
+    "sky": dict(sky=SkyParams(sun_dir=SUN)),
+    "sky_no_sun_nee": dict(sky=SkyParams(sun_dir=SUN), sun_nee=False),
+    "regularized_clamped": dict(path_regularization=True, firefly_clamp=0.05),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("subdivide", [None, 300, 2000])
+@pytest.mark.parametrize("opts", sorted(PATH_OPTIONS))
+def test_bounce_options_match_plain(cuda, subdivide, opts):
+    """The sky, sun NEE, path regularization and firefly branches of B4, B5
+    and B6 against the plain versions, as test_bounce_kernels_match_plain
+    holds them, on GI bounce-0 rays at the narrowest tile width (rt = 128),
+    on the box, on 300 triangles (3 chunks of the sweep's ring, swept three
+    times by B5 and B6 with sun NEE) and on 2000: B4 at bounce 0, B5 at
+    bounce 0 and 1 (where regularization acts), B6 at bounce 1 and on its
+    trace-only last bounce at 2. Rays that escape
+    through the opening gather the sky; every ray gains light (NEE or the
+    sun) in the kernel exactly where it does in the plain version."""
+    scene = upload_scene(cornell_box(subdivide_to=subdivide), device=cuda)
+    _, o, d = _rays(cuda)
+    o2, d2, _, _ = secondary_rays(MK.gbuffer(scene, o, d), SEED)
+    lsets = MK.build_light_sets(scene, SEED)
+    cfg = PTConfig(max_bounces=3, min_emissive_bounce=1, rr_start=1, **PATH_OPTIONS[opts])
+    st0 = MK.initial_state(o2, d2)
+    st, surf = MK.bounce_trace(scene, st0, 0, cfg, True, 0.004)
+    st_p, surf_p = MK.bounce_trace_plain(scene, st0, 0, cfg, True, 0.004)
+    found = st_p[13] > 0.5
+    assert 0.3 < found.float().mean() < 1.0
+    assert _close_rays(st, st_p) == 1.0 and _close_rays(surf, surf_p) == 1.0
+    escaped = ((st_p[9:12] != st0[9:12]).any(0) & ~found).sum().item()
+    assert escaped > 50 if cfg.sky is not None else escaped == 0
+    for b in (1, 0):
+        st5 = MK.bounce_shade(scene, st_p, surf_p, lsets, b, SEED, cfg, True, 128)
+        st5_p = MK.bounce_shade_plain(scene, st_p, surf_p, lsets, b, SEED, cfg, True, 128)
+        assert _close_rays(st5[:, found], st5_p[:, found]) >= 0.999
+        assert _close_rays(st5, st5_p, [9, 10, 11, 13]) >= 0.999
+        assert torch.equal(*((x[9:12] != st_p[9:12]).any(0) for x in (st5, st5_p)))
+    for b, last in ((1, False), (2, True)):
+        f6 = MK.bounce_trace_plain(scene, st5_p, b, cfg, True)[0][13] > 0.5
+        st6 = MK.bounce(scene, st5_p, lsets, b, SEED, cfg, last, True, 128)
+        st6_p = MK.bounce_plain(scene, st5_p, lsets, b, SEED, cfg, last, True, 128)
+        assert _close_rays(st6[:, f6], st6_p[:, f6]) >= 0.999
+        assert _close_rays(st6, st6_p, [9, 10, 11, 13]) >= 0.999
+        assert torch.equal(*((x[9:12] != st5_p[9:12]).any(0) for x in (st6, st6_p)))
 
 
 @pytest.mark.cuda

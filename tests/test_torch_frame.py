@@ -21,6 +21,7 @@ from zetaray_tpu.scene.camera import Camera as JaxCamera
 from zetaray_tpu_torch.interop import camera_from_arrays, frame_state_from_arrays
 from zetaray_tpu_torch.ops.pathtracer import PTConfig
 from zetaray_tpu_torch.ops.restir_gi import ReSTIRGIConfig
+from zetaray_tpu_torch.ops.sky import SkyParams
 from zetaray_tpu_torch.render.frame import RenderConfig, render_frame_restir
 from zetaray_tpu_torch.scene.procedural import CAMERA_EYE, CAMERA_TARGET, CAMERA_VFOV, cornell_box
 from tests.test_torch_restir_di import cam_dict
@@ -114,21 +115,27 @@ def test_unported_settings_raise():
     gi = {**SLICE, "indirect": True}
     RenderConfig(**gi).check_ported()  # the whole flagship frame is ported
     RenderConfig(**{**gi, "mode": "restir_pt"}).check_ported()  # and ReSTIR PT
+    RenderConfig(**{**gi, "mode": "restir_di"}).check_ported()  # and the JAX app's default
     RenderConfig(**{**gi, "mode": "pt"}).check_ported(plain=True)  # and plain PT
     # render_frame reads neither the reuse passes nor the post chain's filters
     RenderConfig(**{**gi, "mode": "pt", "firefly_factor": 2.0}).check_ported(plain=True)
-    for kw in ({"pt": PTConfig(sky=object())}, {"pt": PTConfig(nee_mode="wops")},
-               {"pt": PTConfig(stochastic_multi_bounce=True)},
-               {"pt": PTConfig(path_regularization=True)}, {"pt": PTConfig(firefly_clamp=10.0)},
-               {"restir_gi": ReSTIRGIConfig(lvg=True)}, {"mode": "pt"}, {"mode": "restir_di"},
-               {"skydi": True}, {"render_scale": 0.5}, {"firefly_factor": 2.0},
-               {"tonemapper": "neutral"}, {"exposure_mode": "weighted_avg"},
-               {"mode": "restir_pt", "pt": PTConfig(sky=object())}):
+    # the sun and sky and the path options, in every mode
+    opts = PTConfig(sky=SkyParams(), stochastic_multi_bounce=True, path_regularization=True,
+                    firefly_clamp=10.0)
+    for mode in ("restir_di", "restir_gi", "restir_pt"):
+        RenderConfig(**{**gi, "mode": mode, "pt": opts}).check_ported()
+    RenderConfig(**{**gi, "mode": "pt", "pt": opts}).check_ported(plain=True)
+    for kw in ({"pt": PTConfig(nee_mode="wops")}, {"restir_gi": ReSTIRGIConfig(lvg=True)},
+               {"mode": "pt"}, {"skydi": True, "pt": PTConfig(sky=SkyParams())},
+               {"render_scale": 0.5}, {"firefly_factor": 2.0}, {"tonemapper": "neutral"},
+               {"exposure_mode": "weighted_avg"}, {"volumetrics": object()},
+               {"mode": "restir_di", "pt": PTConfig(nee_mode="wops")}):
         cfg = RenderConfig(**{**gi, **kw})
         with pytest.raises(NotImplementedError):
             cfg.check_ported()
-    for kw in ({"mode": "restir_gi"}, {"mode": "restir_pt"}, {"pt": PTConfig(sky=object())},
-               {"tonemapper": "neutral"}, {"volumetrics": object()}):
+    for kw in ({"mode": "restir_gi"}, {"mode": "restir_pt"}, {"mode": "restir_di"},
+               {"pt": PTConfig(nee_mode="wops")}, {"tonemapper": "neutral"},
+               {"volumetrics": object()}):
         cfg = RenderConfig(**{**gi, "mode": "pt", **kw})
         with pytest.raises(NotImplementedError):
             cfg.check_ported(plain=True)
@@ -167,7 +174,8 @@ def test_loaders_default_to_the_card(monkeypatch):
 
 def test_port_runs_without_jax():
     """Port frames on the CPU (DI only, with ReSTIR GI, with ReSTIR PT, plain
-    PT, and ReSTIR GI on a clustered scene) in a process where importing jax
+    PT, the JAX app's default restir_di frame with the sun and sky, and
+    ReSTIR GI on a clustered scene) in a process where importing jax
     fails."""
     code = textwrap.dedent("""
         import sys
@@ -192,6 +200,14 @@ def test_port_runs_without_jax():
             assert (state.gi_reservoirs[m_row] > 1).any() == indirect
         out = render_frame(scene, cam, 9, RenderConfig(width=16, height=16, mode="pt"))
         assert torch.isfinite(out["hdr"]).all() and out["hdr"].mean() > 0
+        # the JAX app's default frame, with its sun and sky
+        from zetaray_tpu_torch.ops.sky import SkyParams
+        cfg = RenderConfig(width=16, height=16, mode="restir_di", taa=True,
+                           pt=PTConfig(max_bounces=4, sky=SkyParams(sun_dir=(0.2, 0.45, 0.87))))
+        out, state = render_frame_restir(scene, cam, 7, cfg, None)
+        out, state = render_frame_restir(scene, cam, 8, cfg, state)
+        assert torch.isfinite(out["hdr"]).all() and out["hdr"].mean() > 0
+        assert not state.gi_reservoirs.any()
         # the GI frame on a clustered scene (kernels B8/B9)
         from zetaray_tpu_torch.scene.subdivide import subdivide_scene
         clustered = upload_scene(subdivide_scene(cornell_box(), 500), device="cpu",

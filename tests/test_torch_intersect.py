@@ -8,6 +8,7 @@ versions on the card).
 
 import dataclasses
 import inspect
+import math
 import re
 
 import numpy as np
@@ -21,6 +22,7 @@ from zetaray_tpu.accel.megakernel import G as JG, LSET_ROWS as JLSET_ROWS, gbuff
 from zetaray_tpu.ops import shading_soa as JS
 from zetaray_tpu.accel.pallas_kernels import occlusion_pallas
 from zetaray_tpu.ops.restir_di import R_ROWS as JR_ROWS
+from zetaray_tpu.ops import sky as JSK
 from zetaray_tpu.scene.camera import Camera as JaxCamera
 from zetaray_tpu.scene.scene import A as JA
 from zetaray_tpu_torch import native
@@ -183,7 +185,8 @@ def test_gbuffer_symmetric_box_flips_only_on_edges():
 
 
 _LAYOUT_NAMES = (r"[AG]_[A-Z0-9_]+|LSET_ROWS|LSET_STAGED|R_ROWS|STATE_ROWS|SURF_ROWS"
-                 r"|BOUNCE_BLOCK|BOUNCE_SALT|GGX_[A-Z_]+|WALK_STACK_MAX|TREE_PAD_REL")
+                 r"|BOUNCE_BLOCK|BOUNCE_SALT|GGX_[A-Z_]+|WALK_STACK_MAX|TREE_PAD_REL"
+                 r"|PATH_OPTS|SKY_[A-Z0-9_]+")
 
 
 def _header_constants(text):
@@ -195,10 +198,13 @@ def test_kernel_layout_header_matches_the_reference():
     and those equal the JAX package's: ``A``, ``G``, ``LSET_ROWS``, ``R_ROWS``,
     ``STATE_ROWS``, ``SURF_ROWS``, the bounce uniforms' salt and the GGX
     albedo fit, whose coefficients read back as exactly the JAX package's
-    Python floats. ``LSET_STAGED`` is the 11 filled rows of a light set
-    (pos, ng, Le, pdf, two-sided); ``BOUNCE_BLOCK`` has no JAX counterpart
-    and must divide every tile width the frame picks; nor have the tree
-    walks' stack limit and box padding (``accel.bvh``)."""
+    Python floats, and the closed-form sky's fixed parameters (``SKY_*``),
+    the float32 values of the JAX ``ops/sky.py`` expressions.
+    ``LSET_STAGED`` is the 11 filled rows of a light set (pos, ng, Le, pdf,
+    two-sided); ``BOUNCE_BLOCK`` has no JAX counterpart and must divide
+    every tile width the frame picks; nor have the tree walks' stack limit
+    and box padding (``accel.bvh``) and ``PATH_OPTS``, the length of the
+    bounce kernels' path options block."""
     text = native.layout_header()
     consts = _header_constants(text)
     want = {f"{p}_{k}": v for p, cls in (("A", JA), ("G", JG))
@@ -207,7 +213,8 @@ def test_kernel_layout_header_matches_the_reference():
     want.update(LSET_ROWS=JLSET_ROWS, LSET_STAGED=11, R_ROWS=JR_ROWS,
                 STATE_ROWS=JMK.STATE_ROWS, SURF_ROWS=JMK.SURF_ROWS,
                 BOUNCE_BLOCK=MK.BOUNCE_BLOCK, BOUNCE_SALT=salt, GGX_E_DEG=JS._GGX_E_DEG,
-                WALK_STACK_MAX=TB.WALK_STACK_MAX)
+                WALK_STACK_MAX=TB.WALK_STACK_MAX, PATH_OPTS=MK.PATH_OPTS)
+    assert len(MK.path_options(PTConfig())) == MK.PATH_OPTS
     assert all(pick_rt(n) % MK.BOUNCE_BLOCK == 0 for n in (100, 64 * 64, 512 * 512, 1920 * 1080))
     assert consts == want
     arrays = {k: [float(x) for x in v.split(",")]
@@ -216,19 +223,29 @@ def test_kernel_layout_header_matches_the_reference():
                       "GGX_EAVG_COEF": list(JS._GGX_EAVG_COEF)}
     pad = re.findall(r"constexpr float TREE_PAD_REL = ([^;]+)f;", text)
     assert [float(x) for x in pad] == [TB.TREE_PAD_REL]
+    g = JSK._MIE_G
+    sky = {"SKY_RAYLEIGH": 3.0 / (16.0 * math.pi), "SKY_MIE_A": 1.0 + g * g,
+           "SKY_MIE_B": 2.0 * g, "SKY_MIE_NUM": 1.0 - g * g, "SKY_FOUR_PI": 4.0 * math.pi,
+           "SKY_MIE_K": JSK._BETA_M[0] * JSK._MIE_H * 2.2,
+           "SKY_SUN_SCALE": JSK.SUN_RADIANCE_SCALE,
+           **{f"SKY_BETA_R{i}": b for i, b in enumerate(JSK._BETA_R * JSK._RAYLEIGH_H)}}
+    got = {k: float(v) for k, v in re.findall(r"constexpr float (SKY_\w+) = ([^;]+)f;", text)}
+    assert got == {k: float(np.float32(v)) for k, v in sky.items()}
 
 
 def test_kernel_sources_take_layouts_only_from_the_header():
     """Every layout name a kernel source uses is one the generated header
     defines, and no source defines a layout of its own."""
-    consts = _header_constants(native.layout_header())
+    header = native.layout_header()
+    consts = _header_constants(header)
     used = set()
     for src in native.sources():
         text = src.read_text()
         assert not re.search(rf"\b(?:{_LAYOUT_NAMES})\s*(?:\[\s*\d*\s*\]\s*)?=(?!=)", text), src.name
         assert "enum" not in text, src.name
         used |= set(re.findall(rf"\b(?:{_LAYOUT_NAMES})\b", text))
-    floats = {"GGX_E_COEF", "GGX_EAVG_COEF", "TREE_PAD_REL"}
+    floats = {"GGX_E_COEF", "GGX_EAVG_COEF", "TREE_PAD_REL",
+              *re.findall(r"constexpr float (SKY_\w+)", header)}
     assert used and used <= set(consts) | floats, sorted(used - set(consts))
 
 

@@ -1,4 +1,4 @@
-"""The kernels B1, B2, B3, B4, B5, B8 and B9 built for the host and held to
+"""The kernels B1, B2, B3, B4, B5, B6, B8 and B9 built for the host and held to
 their plain versions, so that their logic (the sign test, the pruning, the
 tie rules, node culling, the shadow sweep's early exit and RIS's
 checkpoints) is checked on every run of the tests, with no card.
@@ -41,6 +41,7 @@ from zetaray_tpu_torch.core.rng import uniform4
 from zetaray_tpu_torch.ops import restir_di as RD
 from zetaray_tpu_torch.ops.pathtracer import PTConfig
 from zetaray_tpu_torch.ops.restir_gi import secondary_rays
+from zetaray_tpu_torch.ops.sky import SkyParams, sun_direction
 from zetaray_tpu_torch.scene.camera import Camera
 from zetaray_tpu_torch.scene.procedural import (
     CAMERA_EYE, CAMERA_TARGET, CAMERA_VFOV, cornell_box, repeated_box,
@@ -147,7 +148,7 @@ void zr_launch(int grid, int block, size_t shared, K kernel, A... args) {
 LAUNCH = re.compile(r"(\w+)<<<\s*([^,]+),\s*([^,]+),\s*([^,]+),[^>]*>>>\(")
 DYNAMIC_SHARED = re.compile(r"extern __shared__ (\w+) (\w+)\[\];")
 KERNELS = ("zr_gbuffer", "zr_ris", "zr_occlusion", "zr_bounce_trace", "zr_bounce_shade",
-           "zr_stream_closest", "zr_stream_occlusion")
+           "zr_bounce", "zr_stream_closest", "zr_stream_occlusion")
 
 
 @pytest.fixture(scope="session")
@@ -241,21 +242,33 @@ def host_bounce_trace(lib, scene, state, cfg, spread_angle):
     err = lib.zr_bounce_trace(_ptr(state), _ptr(scene.woop_rows()), _ptr(scene.tri_attrs),
                               _ptr(out), _ptr(surf), n, tp, scene.num_tris, 0, cfg.t_min,
                               MK.cone_spread(spread_angle), cfg.min_emissive_bounce,
-                              int(cfg.nee), 1, None)
+                              int(cfg.nee), 1, MK.path_options(cfg), None)
     return None if err else (out, surf)
 
 
-def host_bounce_shade(lib, scene, state, surf, lsets, seed, cfg, rt, nt=None):
-    """B5 at bounce 0 on the host: state [STATE_ROWS, N], or None where the
+def host_bounce_shade(lib, scene, state, surf, lsets, seed, cfg, rt, nt=None, bounce=0):
+    """B5 at ``bounce`` on the host: state [STATE_ROWS, N], or None where the
     entry point refuses the launch."""
     n, tp = state.shape[1], scene.woop.shape[1] // 3
     n_sets, _, ps = lsets.shape
     out = torch.full_like(state, -7.0)
     err = lib.zr_bounce_shade(_ptr(state), _ptr(surf), _ptr(scene.woop_rows()), _ptr(lsets),
                               _ptr(out), n, tp, scene.num_tris if nt is None else nt, n_sets,
-                              ps, rt, 0, seed & 0xFFFFFFFF, cfg.min_nee_bounce, cfg.rr_start,
-                              int(cfg.nee), 1, None)
+                              ps, rt, bounce, seed & 0xFFFFFFFF, cfg.min_nee_bounce,
+                              cfg.rr_start, int(cfg.nee), 1, MK.path_options(cfg), None)
     return None if err else out
+
+
+def host_bounce(lib, scene, state, lsets, b, seed, cfg, last, rt=128):
+    """B6 at bounce b on the host: state [STATE_ROWS, N]."""
+    n, tp = state.shape[1], scene.woop.shape[1] // 3
+    n_sets, _, ps = lsets.shape
+    out = torch.full_like(state, -7.0)
+    assert lib.zr_bounce(_ptr(state), _ptr(scene.woop_rows()), _ptr(scene.tri_attrs), _ptr(lsets),
+                         _ptr(out), n, tp, scene.num_tris, n_sets, ps, rt, b, seed & 0xFFFFFFFF,
+                         cfg.t_min, cfg.min_emissive_bounce, cfg.min_nee_bounce, cfg.rr_start,
+                         int(cfg.nee), 1, int(last), MK.path_options(cfg), None) == 0
+    return out
 
 
 def host_ris(lib, gb, lsets, seed, rt, block=128):
@@ -470,6 +483,67 @@ def test_bounce_shade_on_host(host_kernels, subdivide, monkeypatch):
     assert host_bounce_shade(host_kernels, scene, st4, sf4, lsets, SEED, cfg, 100) is None
     assert host_bounce_shade(host_kernels, scene, st4, sf4, lsets, SEED, cfg, 128,
                              nt=tp + 1) is None
+
+
+SUN = (0.2, 0.45, 0.87)  # shines in through the box's opening at +z
+PATH_OPTIONS = {
+    "sky": dict(sky=SkyParams(sun_dir=SUN)),
+    "sky_no_sun_nee": dict(sky=SkyParams(sun_dir=SUN), sun_nee=False),
+    "regularized_clamped": dict(path_regularization=True, firefly_clamp=0.05),
+}
+
+
+@pytest.mark.parametrize("subdivide", [None, 300])
+@pytest.mark.parametrize("opts", sorted(PATH_OPTIONS))
+def test_bounce_options_on_host(host_kernels, subdivide, opts):
+    """The branches of the path options in B4, B5 and B6 against the plain
+    versions, on the box with a shelf in its last slot and on its
+    subdivision to 300 triangles (3 chunks of the sweep's ring, where B5 and
+    B6 sweep three times), on 300 GI bounce-0 rays (3 blocks, the last one
+    ragged) at rt = 128: B4 with the criteria of test_bounce_trace_on_host,
+    B5 at bounce 0 and B6 at bounce 1 (where regularization acts) and on its
+    trace-only last bounce at 2 with those of test_bounce_shade_on_host. The
+    rays that escape through the opening gather the sky in B4; with sun NEE
+    the sun lights rays with nothing in its way and not the ones it leaves
+    in shadow, and both kinds occur."""
+    scene = upload_scene(_with_shelf(cornell_box(subdivide_to=subdivide)), device="cpu")
+    st0, spread = _gi_bounce0(scene)
+    cfg = PTConfig(max_bounces=3, min_emissive_bounce=1, rr_start=1, **PATH_OPTIONS[opts])
+    lsets = MK.build_light_sets(scene, SEED)
+    st4, sf4 = host_bounce_trace(host_kernels, scene, st0, cfg, spread)
+    st4_p, sf4_p = MK.bounce_trace_plain(scene, st0, 0, cfg, True, spread)
+    found = st4_p[13] > 0.5
+    assert torch.equal(st4[13], st4_p[13]) and torch.equal(sf4[0:3, found], sf4_p[0:3, found])
+    assert _close_rays(st4, st4_p) == 1.0 and _close_rays(sf4[:, found], sf4_p[:, found]) == 1.0
+    escaped = (st4_p[9:12] != st0[9:12]).any(0) & ~found
+    assert escaped.sum() > 10 if cfg.sky is not None else not escaped.any()
+
+    st5 = host_bounce_shade(host_kernels, scene, st4_p, sf4_p, lsets, SEED, cfg, 128)
+    st5_p = MK.bounce_shade_plain(scene, st4_p, sf4_p, lsets, 0, SEED, cfg, True, 128)
+    assert _close_rays(st5[:, found], st5_p[:, found]) >= 0.999
+    assert _close_rays(st5, st5_p, [9, 10, 11, 13]) >= 0.999
+    lit, lit_p = ((x[9:12] != st4_p[9:12]).any(0) for x in (st5, st5_p))
+    assert torch.equal(lit, lit_p)
+    if cfg.sky is not None and cfg.sun_nee:
+        no_sun = dataclasses.replace(cfg, sun_nee=False)
+        sun_lit = (st5_p != MK.bounce_shade_plain(scene, st4_p, sf4_p, lsets, 0, SEED, no_sun,
+                                                  True, 128))[9:12].any(0)
+        s = torch.from_numpy(sun_direction(cfg.sky))
+        facing = found & ((sf4_p[3:6] * s[:, None]).sum(0) > 1e-6)
+        assert (facing & sun_lit).sum() > 10 and (facing & ~sun_lit).sum() > 10
+        assert not (sun_lit & ~facing).any()
+    st5 = host_bounce_shade(host_kernels, scene, st4_p, sf4_p, lsets, SEED, cfg, 128, bounce=1)
+    st5_1 = MK.bounce_shade_plain(scene, st4_p, sf4_p, lsets, 1, SEED, cfg, True, 128)
+    assert _close_rays(st5[:, found], st5_1[:, found]) >= 0.999
+    assert _close_rays(st5, st5_1, [9, 10, 11, 13]) >= 0.999
+
+    for b, last in ((1, False), (2, True)):
+        f6 = MK.bounce_trace_plain(scene, st5_p, b, cfg, True)[0][13] > 0.5
+        st6 = host_bounce(host_kernels, scene, st5_p, lsets, b, SEED, cfg, last)
+        st6_p = MK.bounce_plain(scene, st5_p, lsets, b, SEED, cfg, last, True, 128)
+        assert _close_rays(st6[:, f6], st6_p[:, f6]) >= 0.999
+        assert _close_rays(st6, st6_p, [9, 10, 11, 13]) >= 0.999
+        assert torch.equal(*((x[9:12] != st5_p[9:12]).any(0) for x in (st6, st6_p)))
 
 
 def _deep():

@@ -34,10 +34,21 @@ in shared memory, computes the five pcg4d uniforms of a bounce in place
 (the TPU hashed them in XLA beforehand) and reads attribute and light-set
 rows by index instead of the TPU's one-hot matmuls; a block leaves a
 shadow sweep once every ray in it is occluded or has no candidate.
+With ``PTConfig.sky`` set, B4 and B6 add the sky and the sun disk to the
+rays that miss, and with ``sun_nee`` B5 and B6 send every ray a second
+shadow segment, toward the sun; ``path_regularization`` and
+``firefly_clamp`` act in the shade half of B5 and B6. The sky and the sun
+are compile-time branches of the kernels (their builds without them carry
+none of their code); the two other settings are read at run time.
+The settings reach a kernel as one block of PATH_OPTS floats
+(``path_options``).
+
 Their times on the card, and B1's, are in ``PERF.md`` (section 6).
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -47,6 +58,7 @@ from ..core.rng import bounce_uniforms, uniform4
 from ..core.rows import stack_rows
 from ..core.vec3 import V3
 from ..ops import shading_soa as S
+from ..ops import sky as SK
 from ..ops.lights import sample_emissive
 from ..scene.scene import A
 from .. import native
@@ -64,6 +76,9 @@ SURF_ROWS = 24  # 0-2 pos | 3-5 ns | 6-8 ng | 9-11 base | 12 metal | 13 rough | 
 # | 15 trans | 16 eta | 17 coatw | 18 coatr | 19-20 uv | 21 texid | 22 uvdens | 23 pad
 _EPS_RAY = 1e-3
 BOUNCE_BLOCK = 128  # rays per block of the bounce kernels; divides every tile width
+# the path options block of the bounce kernels (path_options): firefly clamp |
+# path regularization | sky | sun NEE | the sky's kernel_constants (12 floats)
+PATH_OPTS = 16
 
 
 class G:
@@ -289,14 +304,42 @@ def _path(st):
             v3.from_rows(st, 9), st[12], st[13] > 0.5, st[14] > 0.5)
 
 
+def path_options(cfg) -> ctypes.Array:
+    """The block of PATH_OPTS floats that tells a bounce kernel the path
+    options of ``cfg``: firefly clamp, path regularization, sky, sun NEE
+    (the flags as 0 or 1), then the sky's ``ops.sky.kernel_constants``
+    (zeros without a sky)."""
+    sky = cfg.sky is not None
+    vals = [cfg.firefly_clamp, float(cfg.path_regularization), float(sky),
+            float(sky and cfg.sun_nee)]
+    vals += SK.kernel_constants(cfg.sky) if sky else [0.0] * (PATH_OPTS - 4)
+    return (ctypes.c_float * PATH_OPTS)(*vals)
+
+
+def _sky_miss(d: V3, spec, miss, cfg) -> V3:
+    """What a ray that misses gathers in B4 and B6 (zero where ``miss`` is
+    False): the sky, and the sun disk, the disk only on specular rays
+    (``spec``) when NEE samples the sun."""
+    env = SK.sky_radiance(d, cfg.sky, with_disk=False)
+    disk = SK.sun_disk(v3.aos3(d), cfg.sky)
+    if cfg.sun_nee:
+        disk = disk * torch.where(spec, 1.0, 0.0)[:, None]
+    gain = torch.where(miss, 1.0, 0.0)
+    return V3((env.x + disk[:, 0]) * gain, (env.y + disk[:, 1]) * gain,
+              (env.z + disk[:, 2]) * gain)
+
+
 def _trace_plain(scene, st, bounce: int, cfg, has_lights: bool):
-    """Closest hit and MIS-weighted emission, the trace half of a bounce.
-    Returns (rad, found, hit, t_hit, bu, bv, at [A.WIDTH, N], wo_dot_ng)."""
+    """Closest hit, the sky on a miss and MIS-weighted emission, the trace
+    half of a bounce. Returns (rad, found, hit, t_hit, bu, bv, at [A.WIDTH,
+    N], wo_dot_ng)."""
     o, d, thr, rad, prev_pdf, alive, spec = _path(st)
     t_hit, tri, bu, bv = closest_hit_plain(scene.woop, v3.aos3(o), v3.aos3(d), cfg.t_min)
     hit = tri >= 0
     found = hit & alive
     at = torch.where(hit[:, None], scene.tri_attrs[tri.clamp_min(0)], 0.0).T
+    if cfg.sky is not None:
+        rad = rad + thr * _sky_miss(d, spec, alive & ~hit, cfg)
     wo_dot_ng = -v3.dot(d, v3.from_rows(at, A.NG))
     if has_lights:
         vis_side = (at[A.DOUBLE] > 0.5) | (wo_dot_ng > 0.0)
@@ -328,10 +371,15 @@ def _surface_plain(o: V3, d: V3, t_hit, bu, bv, at, wo_dot_ng):
 
 def _shade_plain(scene, d: V3, thr: V3, rad: V3, alive, pos: V3, ns: V3, ng: V3, mat,
                  light_sets, u, bounce: int, cfg, has_lights: bool, rt: int):
-    """NEE with its shadow segment, BSDF sample and Russian roulette, the
-    shade half of a bounce. Returns (o, d, thr, rad, pdf, alive, transmitted)."""
+    """NEE with its shadow segment, sun NEE with its own, BSDF sample and
+    Russian roulette, the shade half of a bounce, at the regularized
+    material past bounce 0 where ``cfg.path_regularization``. Returns (o, d,
+    thr, rad, pdf, alive, transmitted)."""
     from .intersect import occlusion_plain
+    from ..ops.pathtracer import regularize
 
+    if cfg.path_regularization and bounce >= 1:
+        mat = mat._replace(roughness=regularize(mat.roughness))
     frame = S.make_frame(ns)
     wo_l = frame.to_local(-d)
     u1, u5, u6, u7, u8 = u
@@ -361,8 +409,23 @@ def _shade_plain(scene, d: V3, thr: V3, rad: V3, alive, pos: V3, ns: V3, ng: V3,
         vis = candidate & ~occ
         scale = cos_surf * S.power_heuristic(pdf_l_sa2, pdf_b) / torch.clamp_min(pdf_l_sa2, 1e-12)
         contrib = thr * f * lle * scale
+        if cfg.firefly_clamp > 0.0:
+            contrib = V3(*(torch.clamp_max(c, cfg.firefly_clamp) for c in contrib))
         zero = torch.zeros_like(scale)
         rad = rad + v3.where(vis, contrib, V3(zero, zero, zero))
+
+    if cfg.sky is not None and cfg.sun_nee:  # a second segment, toward the sun
+        sdir = V3(*(torch.full_like(u1, float(x)) for x in SK.sun_direction(cfg.sky)))
+        e_sun = [float(x) for x in SK.sun_irradiance(cfg.sky)]
+        cos_s = v3.dot(sdir, ns)
+        f_s, _ = S.bsdf_eval(mat, wo_l, frame.to_local(sdir))
+        cand_s = alive & (cos_s > 1e-6)
+        so = v3.aos3(pos + ng * _EPS_RAY)
+        occ_s = torch.zeros_like(cand_s)
+        occ_s[cand_s] = occlusion_plain(scene.woop, so[cand_s], v3.aos3(sdir)[cand_s], 1e-3, 1e8)
+        gain_s = torch.where(cand_s & ~occ_s, cos_s, 0.0)
+        rad = rad + thr * V3(f_s.x * e_sun[0] * gain_s, f_s.y * e_sun[1] * gain_s,
+                             f_s.z * e_sun[2] * gain_s)
 
     wi_l, wgt, pdf = S.bsdf_sample(mat, wo_l, u5, u6, u7)
     wi_w2 = frame.to_world(wi_l)
@@ -480,7 +543,7 @@ def bounce_trace(scene, state, bounce: int, cfg, has_lights: bool, spread_angle=
         state.data_ptr(), scene.woop_rows().data_ptr(), scene.tri_attrs.data_ptr(),
         out.data_ptr(), surf.data_ptr(), n, tp, scene.num_tris, bounce, cfg.t_min,
         cone_spread(spread_angle), cfg.min_emissive_bounce, int(cfg.nee), int(has_lights),
-        native.stream_ptr(state.device),
+        path_options(cfg), native.stream_ptr(state.device),
     )
     native.check(err, "bounce_trace")
     bounce_trace.launches += 1
@@ -509,7 +572,7 @@ def bounce_shade(scene, state, surf, light_sets, bounce: int, seed: int, cfg,
     err = native.lib().zr_bounce_shade(
         state.data_ptr(), surf.data_ptr(), scene.woop_rows().data_ptr(), light_sets.data_ptr(),
         out.data_ptr(), n, tp, scene.num_tris, n_sets, ps, rt, bounce, int(seed) & 0xFFFFFFFF,
-        cfg.min_nee_bounce, cfg.rr_start, int(cfg.nee), int(has_lights),
+        cfg.min_nee_bounce, cfg.rr_start, int(cfg.nee), int(has_lights), path_options(cfg),
         native.stream_ptr(state.device),
     )
     native.check(err, "bounce_shade")
@@ -537,7 +600,8 @@ def bounce(scene, state, light_sets, b: int, seed: int, cfg, last: bool,
         state.data_ptr(), scene.woop_rows().data_ptr(), scene.tri_attrs.data_ptr(),
         light_sets.data_ptr(), out.data_ptr(), n, tp, scene.num_tris, n_sets, ps, rt, b,
         int(seed) & 0xFFFFFFFF, cfg.t_min, cfg.min_emissive_bounce, cfg.min_nee_bounce,
-        cfg.rr_start, int(cfg.nee), int(has_lights), int(last), native.stream_ptr(state.device),
+        cfg.rr_start, int(cfg.nee), int(has_lights), int(last), path_options(cfg),
+        native.stream_ptr(state.device),
     )
     native.check(err, "bounce")
     bounce.launches += 1
@@ -572,8 +636,16 @@ def _trace_light_sets(scene, seed: int, cfg, light_sets, device):
     return build_light_sets(scene, seed, cfg.light_ns, cfg.light_ps)
 
 
+def _smb_keep(state, smb_kill) -> None:
+    """Stochastic multi-bounce: the paths of ``smb_kill`` (bool [N], N up to
+    the state's width) stop extending; alive (row 13) times 1 - kill."""
+    keep = 1.0 - torch.nn.functional.pad(smb_kill.to(torch.float32),
+                                         (0, state.shape[1] - smb_kill.shape[0]))
+    state[13] = state[13] * keep
+
+
 def trace_megakernel(scene, o, d, seed: int, cfg, rt: int = 1024, rows_out: bool = False,
-                     light_sets=None):
+                     light_sets=None, smb_kill=None):
     """Path trace of rays o, d [N, 3] through the fused bounce kernel (B6):
     bounces 0..max_bounces, the last one stopping after its emission.
     Returns radiance [N, 3], or rows [3, N] with ``rows_out``.
@@ -581,7 +653,8 @@ def trace_megakernel(scene, o, d, seed: int, cfg, rt: int = 1024, rows_out: bool
     The rays are padded to a multiple of the tile width ``rt``, as the JAX
     function pads them: ray i draws its NEE sample from light set
     ``(i // rt + 13 * bounce) % n_sets``. ``light_sets``: as in
-    ``trace_with_first_hit``.
+    ``trace_with_first_hit``. ``smb_kill``: optional bool [N], paths that
+    stop extending after bounce 0's launch.
     """
     _check_dense(scene, "trace_megakernel")
     n = o.shape[0]
@@ -593,12 +666,14 @@ def trace_megakernel(scene, o, d, seed: int, cfg, rt: int = 1024, rows_out: bool
     state = initial_state(o_p, d_p)
     for b in range(cfg.max_bounces + 1):
         state = bounce(scene, state, lsets, b, seed, cfg, b == cfg.max_bounces, has_lights, rt)
+        if smb_kill is not None and b == 0:
+            _smb_keep(state, smb_kill)
     rad = state[9:12, :n]
     return rad if rows_out else rad.T
 
 
 def trace_with_first_hit(scene, o, d, seed: int, cfg, rt: int, light_sets=None,
-                         spread_angle=0.0):
+                         spread_angle=0.0, smb_kill=None):
     """Path trace of rays o, d [N, 3] that also returns the first hit's surface:
     B4 and B5 at bounce 0, then B6 for bounces 1..max_bounces (the last one
     stops after its emission). Returns (radiance rows [3, N], surf
@@ -607,6 +682,7 @@ def trace_with_first_hit(scene, o, d, seed: int, cfg, rt: int, light_sets=None,
     ``light_sets``: the frame's sets; used when they have the configured
     size (``cfg.light_ns``, ``cfg.light_ps``), which makes them the sets this
     function would build from ``seed``. Otherwise sets of that size are built.
+    ``smb_kill``: optional bool [N], paths that stop extending after B5.
     """
     _check_dense(scene, "trace_with_first_hit")
     has_lights = scene.num_emissives > 0
@@ -615,6 +691,8 @@ def trace_with_first_hit(scene, o, d, seed: int, cfg, rt: int, light_sets=None,
     alive0 = state[13].clone()
     if cfg.max_bounces > 0:
         state = bounce_shade(scene, state, surf, lsets, 0, seed, cfg, has_lights, rt)
+        if smb_kill is not None:
+            _smb_keep(state, smb_kill)
         for b in range(1, cfg.max_bounces + 1):
             state = bounce(scene, state, lsets, b, seed, cfg, b == cfg.max_bounces, has_lights, rt)
     return state[9:12], surf, alive0

@@ -28,6 +28,14 @@
 // one light set, staged in shared memory once (its first LSET_STAGED rows).
 // The five uniforms of a bounce come from one pcg4d per ray, computed in
 // place.
+//
+// PTConfig.sky and its sun NEE are compile-time branches (kSky: the sky and
+// the sun disk on a miss in B4 and B6; kSunNee: a second shadow sweep, of
+// unit segments toward the sun in (1e-3, 1e8), in B5 and B6), so the
+// instances without them carry none of their code; a sun segment that
+// nothing blocks tests every real triangle, as a lit NEE segment does, and
+// the sun's term is held in registers across the NEE sweep. Path
+// regularization and the firefly clamp are read at run time.
 #include "path.cuh"
 #include "sweep.cuh"
 
@@ -56,9 +64,27 @@ __device__ __forceinline__ void shadow_sweep(zr::SweepRing& ring,
   st_out[(size_t)11 * n + i] = rad_lit.z;
 }
 
-// B4: closest hit, emission and surface rebuild. Writes the input state with
-// rows 9-11 (radiance), 13 (alive) and 15 (cone width) updated, and the
-// SURF_ROWS surface rows.
+// The sun's shadow sweep of B5 and B6 after shade_sample and the NEE sweep:
+// ray i (live: below n) adds its sun term `add` to rows 9-11 of the state
+// it wrote, unless its segment from `so` toward the sun is a candidate
+// that something blocks. Every thread of the block must call it.
+__device__ __forceinline__ void sun_sweep(zr::SweepRing& ring, const float4* __restrict__ tri_rows,
+                                          int nt, const zr::V3f& so, const zr::V3f& sun,
+                                          bool cand, const zr::V3f& add,
+                                          float* __restrict__ st_out, int n, int i, bool live) {
+  const zr::Ray seg = {so.x, so.y, so.z, sun.x, sun.y, sun.z};
+  const bool occ = zr::occluded_sweep(ring, tri_rows, nt, seg, (float)1e-3, (float)1e8, !cand);
+  if (!live || (cand && occ)) return;
+  float* rad = st_out + (size_t)9 * n + i;
+  rad[0] = rad[0] + add.x;
+  rad[n] = rad[n] + add.y;
+  rad[(size_t)2 * n] = rad[(size_t)2 * n] + add.z;
+}
+
+// B4: closest hit, with kSky the sky on a miss, emission and surface
+// rebuild. Writes the input state with rows 9-11 (radiance), 13 (alive) and
+// 15 (cone width) updated, and the SURF_ROWS surface rows.
+template <bool kSky>
 __global__ void __launch_bounds__(BOUNCE_BLOCK, zr::kSweepBlocks)
 bounce_trace_kernel(const float* __restrict__ st_in, const float4* __restrict__ tri_rows,
                     const float* __restrict__ attrs, float* __restrict__ st_out,
@@ -72,7 +98,7 @@ bounce_trace_kernel(const float* __restrict__ st_in, const float4* __restrict__ 
 
   zr::Path path = zr::load_path(st_in, n, i);
   zr::Surface sf;
-  zr::surface_at(attrs, prm, h.t, h.tri, h.u, h.v, path, sf);
+  zr::surface_at<kSky>(attrs, prm, h.t, h.tri, h.u, h.v, path, sf);
   path.cone = path.cone + (path.alive ? h.t * spread : 0.f);
   zr::store_path(st_out, n, i, path);  // o, d, throughput, pdf and flag pass through
 
@@ -91,9 +117,11 @@ bounce_trace_kernel(const float* __restrict__ st_in, const float4* __restrict__ 
   for (int r = 0; r < SURF_ROWS; ++r) surf_out[(size_t)r * n + i] = s[r];
 }
 
-// B5: NEE, BSDF sample and Russian roulette from the surface rows of B4,
-// then the shadow sweep. Writes the next vertex, with the cone width scaled
-// by eta where the sample was transmitted.
+// B5: NEE, with kSunNee the sun's term, BSDF sample and Russian roulette
+// from the surface rows of B4, then the shadow sweeps. Writes the next
+// vertex, with the cone width scaled by eta where the sample was
+// transmitted.
+template <bool kSunNee>
 __global__ void __launch_bounds__(BOUNCE_BLOCK, zr::kSweepBlocks)
 bounce_shade_kernel(const float* __restrict__ st_in, const float* __restrict__ surf,
                     const float4* __restrict__ tri_rows, const float* __restrict__ sets,
@@ -107,8 +135,8 @@ bounce_shade_kernel(const float* __restrict__ st_in, const float* __restrict__ s
   __syncthreads();
 
   zr::Ray seg = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  zr::V3f rad_lit;
-  bool cand = false;
+  zr::V3f rad_lit, sun_add;
+  bool cand = false, sun_cand = false;
   if (i < n) {
     zr::Path path = zr::load_path(st_in, n, i);
     auto s = [&](int r) { return surf[(size_t)r * n + i]; };
@@ -120,15 +148,22 @@ bounce_shade_kernel(const float* __restrict__ st_in, const float* __restrict__ s
     sf.eta = s(16);
     zr::V3f so, to_l;
     bool transmitted;
-    cand = zr::shade_sample(lset, prm, i, path, sf, &so, &to_l, &rad_lit, &transmitted);
+    cand = zr::shade_sample<kSunNee>(lset, prm, i, path, sf, &so, &to_l, &rad_lit, &sun_cand,
+                                     &sun_add, &transmitted);
     seg = {so.x, so.y, so.z, to_l.x, to_l.y, to_l.z};
     if (transmitted && sf.eta > 0.f) path.cone = path.cone * sf.eta;
     zr::store_path(st_out, n, i, path);
   }
   if (nee) shadow_sweep(ring, tri_rows, nt, seg, cand, rad_lit, st_out, n, i);
+  if constexpr (kSunNee) {
+    sun_sweep(ring, tri_rows, nt, {seg.ox, seg.oy, seg.oz}, prm.sky.sun, sun_cand, sun_add,
+              st_out, n, i, i < n);
+  }
 }
 
-// B6: one whole bounce; with last != 0 only the trace half and its emission.
+// B6: one whole bounce; with last != 0 only the trace half, its sky and its
+// emission.
+template <bool kSky, bool kSunNee>
 __global__ void __launch_bounds__(BOUNCE_BLOCK, zr::kSweepBlocks)
 bounce_kernel(const float* __restrict__ st_in, const float4* __restrict__ tri_rows,
               const float* __restrict__ attrs, const float* __restrict__ sets,
@@ -145,29 +180,36 @@ bounce_kernel(const float* __restrict__ st_in, const float4* __restrict__ tri_ro
   const zr::Hit hit = zr::closest_sweep(ring, tri_rows, nt, zr::kTriChunk, state_ray(st_in, n, i),
                                         prm.t_min, ZR_INF);
 
-  // what the shadow sweep needs: the segment, whether it is a candidate, and
-  // the radiance with the NEE light
+  // what the shadow sweeps need: the segment, whether it is a candidate, and
+  // the radiance with the NEE light; the sun's candidacy and term
   zr::Ray seg = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  zr::V3f rad_lit;
-  bool cand = false;
+  zr::V3f rad_lit, sun_add;
+  bool cand = false, sun_cand = false;
   if (live) {
     zr::Path path = zr::load_path(st_in, n, i);
     zr::Surface sf;
-    zr::surface_at(attrs, prm, hit.t, hit.tri, hit.u, hit.v, path, sf);
+    zr::surface_at<kSky>(attrs, prm, hit.t, hit.tri, hit.u, hit.v, path, sf);
     if (!last) {
       zr::V3f so, to_l;
       bool transmitted;  // B6 keeps its cone width, as its plain version does
-      cand = zr::shade_sample(lset, prm, i, path, sf, &so, &to_l, &rad_lit, &transmitted);
+      cand = zr::shade_sample<kSunNee>(lset, prm, i, path, sf, &so, &to_l, &rad_lit, &sun_cand,
+                                       &sun_add, &transmitted);
       seg = {so.x, so.y, so.z, to_l.x, to_l.y, to_l.z};
     }
     zr::store_path(st_out, n, i, path);
   }
   if (nee) shadow_sweep(ring, tri_rows, nt, seg, cand, rad_lit, st_out, n, i);
+  if constexpr (kSunNee) {
+    if (!last) {
+      sun_sweep(ring, tri_rows, nt, {seg.ox, seg.oy, seg.oz}, prm.sky.sun, sun_cand, sun_add,
+                st_out, n, i, live);
+    }
+  }
 }
 
 zr::BounceParams params(int bounce, uint32_t seed, int rt, int n_sets, int ps, float t_min,
                         int min_emissive_bounce, int min_nee_bounce, int rr_start, int nee,
-                        int has_lights) {
+                        int has_lights, const float* opts) {
   zr::BounceParams p;
   p.bounce = bounce;
   p.seed = seed;
@@ -180,63 +222,70 @@ zr::BounceParams params(int bounce, uint32_t seed, int rt, int n_sets, int ps, f
   p.rr_start = rr_start;
   p.nee = nee != 0;
   p.has_lights = has_lights != 0;
+  zr::set_path_options(p, opts);
   return p;
 }
 
 }  // namespace
 
 // tri_rows: the triangle-major Woop rows [tp][12] (SceneBuffers.woop_rows());
-// nt: the real triangles, the first nt slots.
+// nt: the real triangles, the first nt slots; opts: the path options, a
+// host array of PATH_OPTS floats (accel.megakernel.path_options) or null.
 extern "C" int zr_bounce_trace(const float* st_in, const float* tri_rows, const float* attrs,
                                float* st_out, float* surf_out, int n, int tp, int nt,
                                int bounce, float t_min, float spread, int min_emissive_bounce,
-                               int nee, int has_lights, void* stream) {
+                               int nee, int has_lights, const float* opts, void* stream) {
   if (nt < 0 || nt > tp || !(t_min >= 0.f)) return (int)cudaErrorInvalidValue;
   const zr::BounceParams p = params(bounce, 0u, BOUNCE_BLOCK, 1, 1, t_min, min_emissive_bounce,
-                                    0, 0, nee, has_lights);
+                                    0, 0, nee, has_lights, opts);
   const int grid = (n + BOUNCE_BLOCK - 1) / BOUNCE_BLOCK;
+  const auto kernel = zr::opts_sky(opts) ? bounce_trace_kernel<true> : bounce_trace_kernel<false>;
   if (grid > 0) {
-    bounce_trace_kernel<<<grid, BOUNCE_BLOCK, 0, (cudaStream_t)stream>>>(
+    kernel<<<grid, BOUNCE_BLOCK, 0, (cudaStream_t)stream>>>(
         st_in, reinterpret_cast<const float4*>(tri_rows), attrs, st_out, surf_out, n, nt, p,
         spread);
   }
   return (int)cudaGetLastError();
 }
 
-// tri_rows, nt: as for zr_bounce_trace.
+// tri_rows, nt, opts: as for zr_bounce_trace.
 extern "C" int zr_bounce_shade(const float* st_in, const float* surf, const float* tri_rows,
                                const float* sets, float* st_out, int n, int tp, int nt,
                                int n_sets, int ps, int rt, int bounce, uint32_t seed,
                                int min_nee_bounce, int rr_start, int nee, int has_lights,
-                               void* stream) {
+                               const float* opts, void* stream) {
   if (nt < 0 || nt > tp || rt % BOUNCE_BLOCK) return (int)cudaErrorInvalidValue;
   const zr::BounceParams p = params(bounce, seed, rt, n_sets, ps, 0.f, 0, min_nee_bounce,
-                                    rr_start, nee, has_lights);
+                                    rr_start, nee, has_lights, opts);
   const int grid = (n + BOUNCE_BLOCK - 1) / BOUNCE_BLOCK;
   const size_t smem = (size_t)LSET_STAGED * ps * sizeof(float);
+  const auto kernel =
+      zr::opts_sun_nee(opts) ? bounce_shade_kernel<true> : bounce_shade_kernel<false>;
   if (grid > 0) {
-    bounce_shade_kernel<<<grid, BOUNCE_BLOCK, smem, (cudaStream_t)stream>>>(
+    kernel<<<grid, BOUNCE_BLOCK, smem, (cudaStream_t)stream>>>(
         st_in, surf, reinterpret_cast<const float4*>(tri_rows), sets, st_out, n, nt, p);
   }
   return (int)cudaGetLastError();
 }
 
-// tri_rows: the triangle-major Woop rows [tp][12] (SceneBuffers.woop_rows());
-// nt: the real triangles, the first nt slots.
+// tri_rows, nt, opts: as for zr_bounce_trace.
 extern "C" int zr_bounce(const float* st_in, const float* tri_rows, const float* attrs,
                          const float* sets, float* st_out, int n, int tp, int nt, int n_sets,
                          int ps, int rt, int bounce, uint32_t seed, float t_min,
                          int min_emissive_bounce, int min_nee_bounce, int rr_start, int nee,
-                         int has_lights, int last, void* stream) {
+                         int has_lights, int last, const float* opts, void* stream) {
   if (nt < 0 || nt > tp || rt % BOUNCE_BLOCK || !(t_min >= 0.f)) {
     return (int)cudaErrorInvalidValue;
   }
   const zr::BounceParams p = params(bounce, seed, rt, n_sets, ps, t_min, min_emissive_bounce,
-                                    min_nee_bounce, rr_start, nee, has_lights);
+                                    min_nee_bounce, rr_start, nee, has_lights, opts);
   const int grid = (n + BOUNCE_BLOCK - 1) / BOUNCE_BLOCK;
   const size_t smem = (size_t)LSET_STAGED * ps * sizeof(float);
+  const auto kernel = !zr::opts_sky(opts)      ? bounce_kernel<false, false>
+                      : zr::opts_sun_nee(opts) ? bounce_kernel<true, true>
+                                               : bounce_kernel<true, false>;
   if (grid > 0) {
-    bounce_kernel<<<grid, BOUNCE_BLOCK, smem, (cudaStream_t)stream>>>(
+    kernel<<<grid, BOUNCE_BLOCK, smem, (cudaStream_t)stream>>>(
         st_in, reinterpret_cast<const float4*>(tri_rows), attrs, sets, st_out, n, nt, p, last);
   }
   return (int)cudaGetLastError();

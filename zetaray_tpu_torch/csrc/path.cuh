@@ -1,7 +1,8 @@
 // Device functions of one path bounce, shared by the three kernels of
 // bounce.cu (zetaray_tpu_torch.accel.megakernel.bounce_trace/_shade/bounce):
 // the trace half after the closest-hit sweep (surface_at) and the shade half
-// before the shadow sweep (shade_sample).
+// before the shadow sweeps (shade_sample), with the closed-form sky of
+// ops/sky.py (sky_env) for rays that miss.
 //
 // Every function follows its PyTorch counterpart operation for operation
 // (ops/shading_soa.py, accel/megakernel.py), and the library is built with
@@ -14,7 +15,7 @@
 #pragma once
 
 #include "common.cuh"
-#include "layout.h"  // A_*, BOUNCE_SALT, STATE_ROWS, SURF_ROWS, GGX_*
+#include "layout.h"  // A_*, BOUNCE_SALT, PATH_OPTS, STATE_ROWS, SURF_ROWS, GGX_*, SKY_*
 
 namespace zr {
 
@@ -43,6 +44,43 @@ __device__ __forceinline__ float clampf(float x, float lo, float hi) {
 __device__ __forceinline__ float power_heuristic(float a, float b) {
   const float a2 = a * a;
   return a2 / fmaxf(a2 + b * b, 1e-20f);
+}
+
+// The path regularization of a roughness (ops/pathtracer.py regularize): GGX
+// alpha below 0.25 becomes clamp(2 alpha, 0.1, 0.25).
+__device__ __forceinline__ float regularize(float rough) {
+  const float alpha = rough * rough;
+  return sqrtf(alpha < 0.25f ? clampf(2.f * alpha, 0.1f, 0.25f) : alpha);
+}
+
+// One PTConfig.sky as the kernels read it (ops/sky.py kernel_constants).
+struct Sky {
+  V3f sun;          // unit, toward the sun
+  float intensity;  // the sky's scale
+  float cos_r;      // cos of the disk's angular radius
+  float den;        // max(1e-6, 1 - cos_r), the width of the disk's edge
+  V3f color;        // SUN_COLOR
+  V3f e_sun;        // the sun's irradiance (sun_irradiance)
+};
+
+// The sun disk's radiance toward d before SUN_COLOR, a smooth-edged disk
+// (ops/sky.py sun_disk).
+__device__ __forceinline__ float sun_disk(V3f d, const Sky& s) {
+  return clampf((dot(d, s.sun) - s.cos_r) / s.den * 4.f, 0.f, 1.f) * s.intensity * SKY_SUN_SCALE;
+}
+
+// The closed-form sky without the sun disk toward d (ops/sky.py
+// sky_radiance with with_disk=False).
+__device__ __forceinline__ V3f sky_env(V3f d, const Sky& s) {
+  const float c = clampf(dot(d, s.sun), -1.f, 1.f);
+  const float up = clampf(d.y, -1.f, 1.f);
+  const float m = 1.f / fmaxf(up * 0.8f + 0.22f, 0.05f);  // an optical-depth proxy
+  const float ray = SKY_RAYLEIGH * (1.f + c * c) * m;
+  const float den = SKY_MIE_A - SKY_MIE_B * c;
+  const float mie = SKY_MIE_NUM / (SKY_FOUR_PI * den * sqrtf(fmaxf(den, 1e-6f))) * m * SKY_MIE_K;
+  const float scale = s.intensity * clampf((up + 0.08f) * 12.f, 0.f, 1.f);
+  return {(ray * SKY_BETA_R0 + mie) * scale, (ray * SKY_BETA_R1 + mie) * scale,
+          (ray * SKY_BETA_R2 + mie) * scale};
 }
 
 constexpr double kPi = 3.141592653589793;  // math.pi
@@ -268,7 +306,30 @@ struct BounceParams {
   float t_min;
   int min_emissive_bounce, min_nee_bounce, rr_start;
   bool nee, has_lights;
+  // the path options (accel.megakernel.path_options); the sky's and the
+  // sun's branches are compile-time flags of the kernels, sun_nee gates the
+  // sun disk on a miss
+  float firefly;  // 0: off; else the most a NEE sample adds
+  bool path_reg, sun_nee;
+  Sky sky;
 };
+
+// The path options block of PATH_OPTS floats (accel.megakernel.path_options;
+// a host array, or null for none) into p.
+inline void set_path_options(BounceParams& p, const float* opts) {
+  float o[PATH_OPTS] = {};
+  if (opts != nullptr) {
+    for (int k = 0; k < PATH_OPTS; ++k) o[k] = opts[k];
+  }
+  p.firefly = o[0];
+  p.path_reg = o[1] != 0.f;
+  p.sun_nee = o[3] != 0.f;
+  p.sky = {{o[4], o[5], o[6]}, o[7], o[8], o[9], {o[10], o[11], o[12]}, {o[13], o[14], o[15]}};
+}
+
+// Whether the path options ask for the sky (its kernels' branch) and sun NEE.
+inline bool opts_sky(const float* opts) { return opts != nullptr && opts[2] != 0.f; }
+inline bool opts_sun_nee(const float* opts) { return opts != nullptr && opts[3] != 0.f; }
 
 // The hit surface: what the trace half hands to the shade half (the
 // SURF_ROWS of the split kernels).
@@ -284,9 +345,11 @@ __device__ __forceinline__ int bounce_set(const BounceParams& prm, int p0) {
 }
 
 // The trace half of B4 and B6 after their closest-hit sweep (sweep.cuh),
-// from the hit (t_hit, tri, bu, bv; tri -1 on a miss): MIS-weighted
-// emission gated by min_emissive_bounce, alive = found, and the surface
-// rebuilt at the hit.
+// from the hit (t_hit, tri, bu, bv; tri -1 on a miss): with kSky the sky
+// and the sun disk where a live ray missed (the disk only on a specular ray
+// when NEE samples the sun), MIS-weighted emission gated by
+// min_emissive_bounce, alive = found, and the surface rebuilt at the hit.
+template <bool kSky>
 __device__ __forceinline__ void surface_at(const float* __restrict__ attrs,
                                            const BounceParams& prm, float t_hit, int tri,
                                            float bu, float bv, Path& path, Surface& sf) {
@@ -296,6 +359,16 @@ __device__ __forceinline__ void surface_at(const float* __restrict__ attrs,
   auto at3 = [&](int k) { return V3f{at(k), at(k + 1), at(k + 2)}; };
 
   const bool found = hit && path.alive;
+  if constexpr (kSky) {
+    const Sky& s = prm.sky;
+    const V3f env = sky_env(path.d, s);
+    float disk = sun_disk(path.d, s);
+    if (prm.sun_nee) disk = disk * (path.spec > 0.5f ? 1.f : 0.f);
+    const float gain = (path.alive && !hit) ? 1.f : 0.f;
+    path.rad = path.rad + path.thr * V3f{(env.x + disk * s.color.x) * gain,
+                                         (env.y + disk * s.color.y) * gain,
+                                         (env.z + disk * s.color.z) * gain};
+  }
   const V3f ng_raw = at3(A_NG);
   const float wo_dot_ng = -dot(path.d, ng_raw);
   if (prm.has_lights) {
@@ -322,24 +395,34 @@ __device__ __forceinline__ void surface_at(const float* __restrict__ attrs,
   sf.eta = front ? 1.f / ior : ior;
 }
 
-// The shade half of B5 and B6 before their shadow sweep, for ray i: the NEE
-// sample from the staged light set, the BSDF sample and Russian roulette.
-// The path moves to its next vertex without the NEE light. Returns whether
-// the NEE sample is a candidate; then *so, *seg are its shadow segment
-// (tested in (kEpsRay, 1 - 1e-3)) and *rad_lit the path's radiance if
-// nothing blocks it. *trans_out: whether the BSDF sample went below the
-// surface.
+// The shade half of B5 and B6 before their shadow sweeps, for ray i, at the
+// regularized material past bounce 0 where prm.path_reg: the NEE sample
+// from the staged light set (clamped by prm.firefly), with kSunNee the sun
+// term, the BSDF sample and Russian roulette. The path moves to its next
+// vertex without the NEE light and the sun. Returns whether the NEE sample
+// is a candidate; then *seg is its shadow segment from *so, the hit moved
+// off the surface (tested in (kEpsRay, 1 - 1e-3)), and *rad_lit the path's
+// radiance if nothing blocks it. With kSunNee, *sun_cand: whether the
+// segment from *so toward the sun is a candidate (tested in (1e-3, 1e8));
+// *sun_add what the sun adds to the radiance unless the segment is a
+// candidate that something blocks. *trans_out: whether the BSDF sample went
+// below the surface.
+template <bool kSunNee>
 __device__ __forceinline__ bool shade_sample(const float* lset, const BounceParams& prm, int i,
                                              Path& path, const Surface& sf, V3f* so, V3f* seg,
-                                             V3f* rad_lit, bool* trans_out) {
+                                             V3f* rad_lit, bool* sun_cand, V3f* sun_add,
+                                             bool* trans_out) {
   uint32_t h0 = (uint32_t)i, h1 = (uint32_t)prm.bounce, h2 = prm.seed, h3 = BOUNCE_SALT;
   pcg4d(h0, h1, h2, h3);
   const float u1 = to_unit(h0), u5 = to_unit(h1), u6 = to_unit(h2), u7 = to_unit(h3);
   const uint32_t lo = (h0 & 0xFFu) | ((h1 & 0xFFu) << 8) | ((h2 & 0xFFu) << 16);
   const float u8 = (float)lo * (1.0f / 16777216.0f);
 
+  Mat mat = sf.mat;
+  if (prm.path_reg && prm.bounce >= 1) mat.roughness = regularize(mat.roughness);
   const Frame frame = make_frame(sf.ns);
   const V3f wo_l = frame.to_local(-path.d);
+  *so = sf.pos + sf.ng * kEpsRay;  // the shadow segments start off the surface
 
   bool candidate = false;
   if (prm.nee && prm.has_lights) {
@@ -356,20 +439,33 @@ __device__ __forceinline__ bool shade_sample(const float* lset, const BouncePara
     const float cos_l_raw = -dot(wi_w, lng);
     const float cos_l = ls(10) > 0.5f ? fabsf(cos_l_raw) : cos_l_raw;
     float pdf_b;
-    const V3f f = bsdf_eval(sf.mat, wo_l, frame.to_local(wi_w), &pdf_b);
+    const V3f f = bsdf_eval(mat, wo_l, frame.to_local(wi_w), &pdf_b);
     const float pdf_l_sa2 = lpdf_area * dist2 / fmaxf(cos_l, 1e-8f);
     candidate = path.alive && cos_surf > 1e-6f && cos_l > 1e-6f && lpdf_area > 0.f &&
                 prm.bounce >= prm.min_nee_bounce;
-    // The segment starts off the surface but keeps the length lp - pos.
-    *so = sf.pos + sf.ng * kEpsRay;
-    *seg = to_l;
+    *seg = to_l;  // the segment keeps the length lp - pos
     const float scale = cos_surf * power_heuristic(pdf_l_sa2, pdf_b) / fmaxf(pdf_l_sa2, 1e-12f);
-    *rad_lit = path.rad + path.thr * f * lle * scale;
+    V3f contrib = path.thr * f * lle * scale;
+    if (prm.firefly > 0.f) {
+      contrib = {fminf(contrib.x, prm.firefly), fminf(contrib.y, prm.firefly),
+                 fminf(contrib.z, prm.firefly)};
+    }
+    *rad_lit = path.rad + contrib;
+  }
+  if constexpr (kSunNee) {
+    const Sky& s = prm.sky;
+    const float cos_s = dot(s.sun, sf.ns);
+    float pdf_s;
+    const V3f f_s = bsdf_eval(mat, wo_l, frame.to_local(s.sun), &pdf_s);
+    *sun_cand = path.alive && cos_s > 1e-6f;
+    const float gain = *sun_cand ? cos_s : 0.f;
+    *sun_add = path.thr * V3f{f_s.x * s.e_sun.x * gain, f_s.y * s.e_sun.y * gain,
+                              f_s.z * s.e_sun.z * gain};
   }
 
   V3f wgt;
   float pdf;
-  const V3f wi_l = bsdf_sample(sf.mat, wo_l, u5, u6, u7, &wgt, &pdf);
+  const V3f wi_l = bsdf_sample(mat, wo_l, u5, u6, u7, &wgt, &pdf);
   const V3f wi_w2 = frame.to_world(wi_l);
   const bool transmitted = wi_l.z < 0.f;
   *trans_out = transmitted;

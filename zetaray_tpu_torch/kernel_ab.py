@@ -26,8 +26,10 @@ last bounce at 2, B7 on ReSTIR PT prefix rays), B2 also on the box's
 1920x1080 G-buffer, and on the box split to 139,266 triangles (clustered)
 at 256^2 (B8 on camera rays, on bench.py's GI-like rays, on those of them
 whose primary ray hit with the rest parked, and on GI bounce-0 rays with
-the dead ones parked; B9 on the DI shadow segments), it prints and writes
-to FILE (default ``kernel_ab.json``):
+the dead ones parked; B8 with its Woop epilogue, ``accel.stream.
+closest_hit_stream``, bench.py's raw rate, on the camera and GI-like rays;
+B9 on the DI shadow segments), it prints and writes to FILE (default
+``kernel_ab.json``):
 
 - each kernel's registers, stack frame and spills (``nvcc -Xptxas -v``) in
   both builds;
@@ -285,7 +287,12 @@ def main() -> int:
             return {"parent": lambda: p_st.stream_closest(big_p, o, d),
                     "new": lambda: ST.stream_closest(big, o, d)}
 
+        def raw(o, d):  # bench.py's raw rate: B8 and its Woop epilogue
+            return {"parent": lambda: p_st.closest_hit_stream(big_p, o, d),
+                    "new": lambda: ST.closest_hit_stream(big, o, d)}
+
         runs = {f"stream_closest_{k}": b8(*rays) for k, rays in inp.items()}
+        runs.update({f"closest_hit_stream_{k}": raw(*inp[k]) for k in ("camera", "gi_like")})
         runs["occlusion_stream"] = {
             "parent": lambda: p_st.occlusion_stream(big_p, so, seg, 1e-3, 1.0 - 1e-3),
             "new": lambda: ST.occlusion_stream(big, so, seg, 1e-3, 1.0 - 1e-3)}

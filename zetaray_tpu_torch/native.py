@@ -12,8 +12,9 @@ and returns ``cudaGetLastError()``; :func:`check` turns a non-zero code
 into an exception.
 
 The row and column layouts the kernels index (``A``, ``G``, ``LSET_ROWS``,
-``R_ROWS``, ``STATE_ROWS``, ``SURF_ROWS``), the bounce kernels' block size
-and pcg4d salt, the tree walks' stack limit and box padding, and the GGX
+``R_ROWS``, ``STATE_ROWS``, ``SURF_ROWS``), the bounce kernels' block size,
+pcg4d salt and path options block, the tree walks' stack limit and box
+padding, the closed-form sky's fixed parameters of ``ops.sky`` and the GGX
 albedo fit of ``ops.shading_soa`` are defined once, in Python:
 :func:`layout_header`
 writes them as C constants into the ``layout.h`` that the sources include.
@@ -44,6 +45,7 @@ NVCC_FLAGS = [
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_FP = ctypes.POINTER(ctypes.c_float)  # a host array (accel.megakernel.path_options)
 _SIGNATURES = {
     # o, d, woop_rows, attrs, out, n, tp, nt, t_min, stream
     "zr_gbuffer": [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _F, _VP],
@@ -53,16 +55,17 @@ _SIGNATURES = {
     "zr_ris": [_VP, _VP, _VP, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                ctypes.c_int, ctypes.c_uint32, _VP],
     # state, woop_rows, attrs, state_out, surf_out, n, tp, nt, bounce, t_min, spread,
-    # min_emissive_bounce, nee, has_lights, stream
-    "zr_bounce_trace": [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _F, _F, _I, _I, _I, _VP],
+    # min_emissive_bounce, nee, has_lights, path options, stream
+    "zr_bounce_trace": [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _F, _F, _I, _I, _I, _FP, _VP],
     # state, surf, woop_rows, sets, state_out, n, tp, nt, n_sets, ps, rt, bounce, seed,
-    # min_nee_bounce, rr_start, nee, has_lights, stream
+    # min_nee_bounce, rr_start, nee, has_lights, path options, stream
     "zr_bounce_shade": [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _I, ctypes.c_uint32,
-                        _I, _I, _I, _I, _VP],
+                        _I, _I, _I, _I, _FP, _VP],
     # state, woop_rows, attrs, sets, state_out, n, tp, nt, n_sets, ps, rt, bounce, seed,
-    # t_min, min_emissive_bounce, min_nee_bounce, rr_start, nee, has_lights, last, stream
+    # t_min, min_emissive_bounce, min_nee_bounce, rr_start, nee, has_lights, last,
+    # path options, stream
     "zr_bounce": [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _I, ctypes.c_uint32, _F,
-                  _I, _I, _I, _I, _I, _I, _VP],
+                  _I, _I, _I, _I, _I, _I, _FP, _VP],
     # o, d, woop_rows, attrs, t, tri, u, v, attrs_out, n, tp, nt, tie, t_min, t_max, stream
     "zr_closest": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _F, _F, _VP],
     # o, d, walk_nodes, leaf_rows, leaf_slot, t, tri, n, c, stack, t_min, t_max, stream
@@ -93,17 +96,19 @@ def layout_header() -> str:
     """``layout.h``: the Python layouts and launch constants as ``constexpr
     int`` constants (``A_<column>``, ``G_<row>``, ``LSET_ROWS``,
     ``LSET_STAGED``, ``R_ROWS``, ``STATE_ROWS``, ``SURF_ROWS``,
-    ``BOUNCE_BLOCK``, ``BOUNCE_SALT``, ``WALK_STACK_MAX``), ``TREE_PAD_REL``
-    as a ``constexpr float`` and the GGX albedo fit (``GGX_E_DEG``,
+    ``BOUNCE_BLOCK``, ``BOUNCE_SALT``, ``WALK_STACK_MAX``, ``PATH_OPTS``),
+    ``TREE_PAD_REL`` and the sky's ``SKY_*`` (``ops.sky.layout_constants``)
+    as ``constexpr float`` and the GGX albedo fit (``GGX_E_DEG``,
     ``GGX_E_COEF``, ``GGX_EAVG_COEF``) as float arrays in constant memory,
     each coefficient the ``repr`` of its Python float, so it rounds to
     float32 as in PyTorch."""
     from .accel.bvh import TREE_PAD_REL, WALK_STACK_MAX
     from .accel.megakernel import (
-        BOUNCE_BLOCK, G, LSET_ROWS, LSET_STAGED, STATE_ROWS, SURF_ROWS,
+        BOUNCE_BLOCK, G, LSET_ROWS, LSET_STAGED, PATH_OPTS, STATE_ROWS, SURF_ROWS,
     )
     from .core.rng import BOUNCE_SALT
     from .ops import shading_soa as S
+    from .ops import sky as SK
     from .ops.restir_di import R_ROWS
     from .scene.scene import A
 
@@ -116,8 +121,9 @@ def layout_header() -> str:
         ("LSET_ROWS", LSET_ROWS), ("LSET_STAGED", LSET_STAGED), ("R_ROWS", R_ROWS),
         ("STATE_ROWS", STATE_ROWS), ("SURF_ROWS", SURF_ROWS), ("BOUNCE_BLOCK", BOUNCE_BLOCK),
         ("BOUNCE_SALT", BOUNCE_SALT), ("GGX_E_DEG", S._GGX_E_DEG),
-        ("WALK_STACK_MAX", WALK_STACK_MAX))]
+        ("WALK_STACK_MAX", WALK_STACK_MAX), ("PATH_OPTS", PATH_OPTS))]
     lines.append(f"constexpr float TREE_PAD_REL = {TREE_PAD_REL!r}f;")
+    lines += [f"constexpr float {k} = {v!r}f;" for k, v in SK.layout_constants().items()]
     for name, coef in (("GGX_E_COEF", S._GGX_E_COEF), ("GGX_EAVG_COEF", S._GGX_EAVG_COEF)):
         vals = ", ".join(repr(float(c)) for c in coef)
         lines.append(f"static __constant__ float {name}[{len(coef)}] = {{{vals}}};")

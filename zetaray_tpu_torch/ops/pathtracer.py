@@ -6,12 +6,21 @@
 B6's plain version. B6 sweeps the whole triangle table, so a clustered
 scene takes the wavefront ``trace_reference`` instead, as in the JAX
 package: per bounce one closest hit with attributes
-(``accel.intersect.intersect_closest_shaded``: kernel B8) and one NEE
-shadow segment (``intersect_occluded``: kernel B9), with the shading in
-plain PyTorch over ``ops.shading_soa``. Its NEE draws a light per ray from
-the alias table (``ops.lights.sample_emissive``), not from the presampled
-light sets, and its random numbers are ``uniform4(pixel, bounce, seed,
-salt)`` with salt 1 (light), 2 (BSDF) and 3 (Russian roulette).
+(``accel.intersect.intersect_closest_shaded``: kernel B8) and the NEE and
+sun shadow segments (``intersect_occluded``: kernel B9), with the shading
+in plain PyTorch over ``ops.shading_soa``. Its NEE draws a light per ray
+from the alias table (``ops.lights.sample_emissive``), not from the
+presampled light sets, and its random numbers are ``uniform4(pixel,
+bounce, seed, salt)`` with salt 1 (light), 2 (BSDF) and 3 (Russian
+roulette).
+
+With ``PTConfig.sky`` set, rays that miss the scene gather the sky (and the
+sun disk, on the specular primary rays only when ``sun_nee`` samples the
+sun), and with ``sun_nee`` every vertex sends a shadow segment toward the
+sun (``ops.sky``). ``path_regularization`` clamps GGX roughness at the
+vertices past the first, ``firefly_clamp`` clamps each NEE sample, and the
+stochastic multi-bounce mask ``smb_kill`` ends the chosen paths after their
+first vertex (``ops.restir_gi.initial_samples`` draws it).
 """
 
 from __future__ import annotations
@@ -28,6 +37,8 @@ from ..core.vec3 import V3
 from ..scene.scene import A
 from . import lights as L
 from . import shading_soa as S
+from . import sky as SK
+from .sky import SkyParams
 
 _EPS_RAY = 1e-3  # ray offset along the geometric normal (scene units)
 # Dead rays are parked outside any scene, heading away from it: the
@@ -44,43 +55,42 @@ class PTConfig:
     rr_start: int = 3  # bounce index where Russian roulette starts
     nee: bool = True  # next-event estimation against emissive lights
     t_min: float = 1e-4
-    firefly_clamp: float = 0.0  # 0 = off (clamping is not ported yet)
+    firefly_clamp: float = 0.0  # 0 = off; else the most each NEE sample adds
     # emission at bounce < min_emissive_bounce and NEE at bounce <
     # min_nee_bounce are skipped (the DI/GI split of the frame)
     min_emissive_bounce: int = 0
     min_nee_bounce: int = 0
-    sky: object = None  # the sun and sky environment is not ported yet
-    sun_nee: bool = True
+    sky: SkyParams | None = None  # the sun and sky environment; None: black
+    sun_nee: bool = True  # with a sky: a shadow segment toward the sun per vertex
     light_ns: int = 64  # presampled light sets
     light_ps: int = 128  # samples per set
     nee_mode: str = "wps"  # "wops" (per-ray alias sampling) is not ported yet
-    stochastic_multi_bounce: bool = False  # not ported yet
-    path_regularization: bool = False  # not ported yet
+    # with probability 1/2 a GI path ends after its first vertex (primary
+    # roughness >= 0.1; ops.restir_gi.initial_samples draws the mask)
+    stochastic_multi_bounce: bool = False
+    # GGX alpha < 0.25 -> clamp(2 alpha, 0.1, 0.25) at the vertices past the first
+    path_regularization: bool = False
 
     def unported(self) -> list[str]:
         """Names of the settings this package does not implement yet."""
-        later = {
-            "pt.sky (the sun and sky environment, ops.sky)": self.sky is not None,
-            f"pt.nee_mode={self.nee_mode!r} (per-ray alias NEE)": self.nee_mode != "wps",
-            "pt.stochastic_multi_bounce": self.stochastic_multi_bounce,
-            "pt.path_regularization": self.path_regularization,
-            "pt.firefly_clamp > 0": self.firefly_clamp > 0.0,
-        }
-        return [name for name, hit in later.items() if hit]
+        if self.nee_mode != "wps":
+            return [f"pt.nee_mode={self.nee_mode!r} (per-ray alias NEE)"]
+        return []
 
 
 def trace(scene, o, d, seed: int, cfg: PTConfig = PTConfig(), rt: int = 1024,
-          rows_out: bool = False, light_sets=None):
+          rows_out: bool = False, light_sets=None, smb_kill=None):
     """Path-traced radiance of rays o, d [N, 3]: [N, 3] linear HDR, or rows
     [3, N] with ``rows_out``. ``seed`` is the u32 frame seed; ``rt`` the tile
     width that picks each ray's light set. ``light_sets``: the frame's sets,
     used where they are the ones ``seed`` gives (``trace_megakernel``). A
-    clustered scene takes ``trace_reference``, which reads neither."""
+    clustered scene takes ``trace_reference``, which reads neither.
+    ``smb_kill``: optional bool [N], paths that end after their first vertex."""
     if scene.cluster_aabb is not None:
-        out = trace_reference(scene, o, d, seed, cfg)
+        out = trace_reference(scene, o, d, seed, cfg, smb_kill=smb_kill)
         return out.T if rows_out else out
     return trace_megakernel(scene, o, d, seed, cfg, rt=rt, rows_out=rows_out,
-                            light_sets=light_sets)
+                            light_sets=light_sets, smb_kill=smb_kill)
 
 
 def park(mask, o: torch.Tensor, d: torch.Tensor):
@@ -90,16 +100,25 @@ def park(mask, o: torch.Tensor, d: torch.Tensor):
     return torch.where(mask[:, None], o, _PARK), torch.where(mask[:, None], d, pd)
 
 
+def regularize(rough: torch.Tensor) -> torch.Tensor:
+    """Path regularization of a roughness: GGX alpha below 0.25 becomes
+    clamp(2 alpha, 0.1, 0.25)."""
+    alpha = rough * rough
+    return torch.sqrt(torch.where(alpha < 0.25, torch.clamp(2.0 * alpha, 0.1, 0.25), alpha))
+
+
 def _div(a: V3, s) -> V3:
     return V3(a.x / s, a.y / s, a.z / s)
 
 
 def trace_reference(scene, o, d, seed: int, cfg: PTConfig = PTConfig(),
-                    return_first_hit: bool = False):
+                    return_first_hit: bool = False, smb_kill=None):
     """Wavefront path trace of rays o, d [N, 3]: radiance [N, 3], and with
     ``return_first_hit`` also the bounce-0 ``ShadedHit`` (the GI pass reads
     its reconnection vertex from it). Bounces 0..max_bounces, the last one
-    stopping after its emission. Dead rays are parked (``park``)."""
+    stopping after its emission. Dead rays are parked (``park``).
+    ``smb_kill``: optional bool [N], paths that stop extending after bounce
+    0's BSDF sample (before Russian roulette)."""
     missing = cfg.unported()
     if missing:
         raise NotImplementedError("not ported yet: " + ", ".join(missing))
@@ -136,6 +155,18 @@ def trace_reference(scene, o, d, seed: int, cfg: PTConfig = PTConfig(),
         pos = ov + dv * sh.t
         mat = S.MatSoA(base=v3.from_rows(at, A.BASE), metallic=at[A.METAL],
                        roughness=at[A.ROUGH], ior=torch.clamp_min(at[A.IOR], 1.01))
+        if cfg.path_regularization and bounce > 0:
+            mat = mat._replace(roughness=regularize(mat.roughness))
+
+        # the sky, and the sun disk (only on specular rays where NEE samples
+        # the sun), on rays that miss
+        if cfg.sky is not None:
+            env = SK.sky_radiance(dv, cfg.sky, with_disk=False)
+            disk = SK.sun_disk(d, cfg.sky)
+            if cfg.sun_nee:
+                disk = disk * spec_bounce[:, None].to(disk.dtype)
+            env = V3(env.x + disk[:, 0], env.y + disk[:, 1], env.z + disk[:, 2])
+            radiance = radiance + v3.where(alive & ~sh.valid, throughput * env, v3.splat(zero))
 
         # emitted radiance at the hit, MIS-weighted against the previous NEE
         if has_lights and bounce >= cfg.min_emissive_bounce:
@@ -176,7 +207,21 @@ def trace_reference(scene, o, d, seed: int, cfg: PTConfig = PTConfig(),
             mis = S.power_heuristic(pdf_l_sa, pdf_b)
             le_l = V3(ls.le[:, 0], ls.le[:, 1], ls.le[:, 2])
             contrib = throughput * f * le_l * (cos_surf * mis / torch.clamp_min(pdf_l_sa, 1e-12))
+            if cfg.firefly_clamp > 0.0:
+                contrib = V3(*(torch.clamp_max(c, cfg.firefly_clamp) for c in contrib))
             radiance = radiance + v3.where(vis, contrib, v3.splat(zero))
+
+        # sun NEE: a shadow segment toward the sun (a delta light), in (1e-3, 1e8)
+        if cfg.sky is not None and cfg.sun_nee:
+            sdir = V3(*(torch.full_like(zero, float(x)) for x in SK.sun_direction(cfg.sky)))
+            cos_s = v3.dot(sdir, ns)
+            f_s, _ = S.bsdf_eval(mat, wo_l, frame.to_local(sdir))
+            sun_cand = alive & (cos_s > 1e-6)
+            so, sd = park(sun_cand, v3.aos3(pos + ng * _EPS_RAY), v3.aos3(sdir))
+            occ_s = intersect_occluded(scene, so, sd, t_min=1e-3, t_max=1e8)
+            e_sun = V3(*map(float, SK.sun_irradiance(cfg.sky)))
+            radiance = radiance + v3.where(sun_cand & ~occ_s, throughput * f_s * e_sun * cos_s,
+                                           v3.splat(zero))
 
         # BSDF sample of the next direction
         u_b = uniform4(pixel, bounce, seed, salt=2)
@@ -190,6 +235,8 @@ def trace_reference(scene, o, d, seed: int, cfg: PTConfig = PTConfig(),
         throughput = throughput * weight
         prev_pdf = pdf
         spec_bounce = torch.zeros_like(alive)
+        if smb_kill is not None and bounce == 0:
+            alive = alive & ~smb_kill  # full shading at the first vertex, no extension
 
         if bounce >= cfg.rr_start:
             q = torch.clamp(v3.max_component(throughput), 0.05, 0.95)

@@ -1,10 +1,13 @@
-"""ReSTIR GI, as the JAX package's ``ops/restir_gi.py`` (no sky).
+"""ReSTIR GI, as the JAX package's ``ops/restir_gi.py``.
 
 Per pixel the sample is a reconnection vertex: the secondary hit x2 with its
 normal n2 and the radiance L2 it sends back toward the primary hit, traced
 by the path kernels B4-B6 (``accel.megakernel.trace_with_first_hit``) on a
 dense scene and by the wavefront ``ops.pathtracer.trace_reference``
-(kernels B8/B9) on a clustered one.
+(kernels B8/B9) on a clustered one. With a sky, a ray that escapes becomes
+a vertex on a far sphere (``SKY_DIST``) that carries the sky's radiance;
+with ``stochastic_multi_bounce`` half the paths from rough primary hits end
+at x2.
 Reservoir weights use the area measure, so reuse needs no Jacobian.
 
 Reservoir rows ([16, N] float32, the JAX package's layout):
@@ -29,6 +32,7 @@ from ..core.rng import uniform4
 from ..core.rows import stack_rows
 from ..core.vec3 import V3
 from . import shading_soa as S
+from . import sky as SK
 from ..scene.scene import A
 from .gbuffer_pack import temporal_geom_ok
 from .pathtracer import park, trace_reference
@@ -39,6 +43,9 @@ from .restir_di import (
 
 R_ROWS = 16
 _EPS_RAY = 1e-3
+# a ray that escapes into the sky reconnects on a sphere this far out: phat
+# ~ 1/d^2 and pdf_area ~ 1/d^2 cancel, and 1e4 stays safe in float32
+SKY_DIST = 1.0e4
 
 
 @dataclass(frozen=True)
@@ -107,10 +114,19 @@ def initial_samples(scene, gbuf, pt_cfg, seed: int, rt: int, light_sets=None,
     with ``max_bounces - 1`` further bounces (x2's own emission excluded,
     NEE from x2 on). On a clustered scene x2 = o2 + t * d2 from the trace's
     first hit and n2 its geometric normal turned toward the primary hit.
+    With ``pt_cfg.sky`` a ray that misses reconnects on the far sphere with
+    the sky's radiance (the sun disk excluded: the primary sun NEE owns it).
+    With ``pt_cfg.stochastic_multi_bounce`` (and ``max_bounces`` > 1) the
+    path of a pixel whose primary roughness is at least 0.1 ends at x2 with
+    probability 1/2 (``uniform4(pixel, 97, seed, 0x53B0)``).
     Returns reservoir rows [R_ROWS, N]."""
     pos, ns, _ng, wo, mat, frame, _valid = _surf(gbuf)
     wo_l = frame.to_local(wo)
     o2, d2, pdf_sa, live = secondary_rays(gbuf, seed)
+    smb_kill = None
+    if pt_cfg.stochastic_multi_bounce and pt_cfg.max_bounces > 1:
+        pix = torch.arange(gbuf.shape[1], dtype=torch.int64, device=gbuf.device)
+        smb_kill = (uniform4(pix, 97, seed, salt=0x53B0)[0] < 0.5) & (mat.roughness >= 0.1)
 
     l2_cfg = replace(
         pt_cfg,
@@ -121,19 +137,28 @@ def initial_samples(scene, gbuf, pt_cfg, seed: int, rt: int, light_sets=None,
     if scene.cluster_aabb is None:
         l2_rows, surf2, alive2 = trace_with_first_hit(
             scene, o2, d2, seed, l2_cfg, rt, light_sets=light_sets, spread_angle=spread_angle,
+            smb_kill=smb_kill,
         )
-        hit = (alive2 > 0.5) & live
+        x2_hit = alive2 > 0.5
         x2, n2, l2 = v3.from_rows(surf2, 0), v3.from_rows(surf2, 6), v3.from_rows(l2_rows, 0)
     else:
         # the wavefront trace's bounce-0 closest hit is the x2 query; dead
         # rays are parked so the traversal culls them
         l2_rgb, sh = trace_reference(scene, *park(live, o2, d2), seed, l2_cfg,
-                                     return_first_hit=True)
-        hit = sh.valid & live
+                                     return_first_hit=True, smb_kill=smb_kill)
+        x2_hit = sh.valid
         x2 = V3(*(o2 + sh.t[:, None] * d2).T)
         n2_raw = v3.from_rows(sh.attrs, A.NG)
         n2 = v3.where(v3.dot(n2_raw, V3(*d2.T)) > 0.0, -n2_raw, n2_raw)  # faces x1
         l2 = V3(*l2_rgb.T)
+    hit = x2_hit & live
+    if pt_cfg.sky is not None:
+        sky_miss = live & ~x2_hit
+        d2v = V3(*d2.T)
+        x2 = v3.where(sky_miss, V3(*o2.T) + d2v * SKY_DIST, x2)
+        n2 = v3.where(sky_miss, -d2v, n2)
+        l2 = v3.where(sky_miss, SK.sky_radiance(d2v, pt_cfg.sky, with_disk=False), l2)
+        hit = hit | sky_miss
 
     phat, _, _, _ = _phat_area(mat, frame, wo_l, pos, ns, x2, n2, l2, full=False)
     to2 = x2 - pos

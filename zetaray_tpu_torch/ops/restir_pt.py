@@ -1,5 +1,5 @@
 """ReSTIR PT, as the JAX package's ``ops/restir_pt.py`` (dense scenes, opaque
-materials, no sky, no textures).
+materials, no textures).
 
 The sample of a pixel is a whole path beyond its primary hit, held as its
 reconnection vertex x_rc (the prefix's first hit) and a frozen suffix: the
@@ -38,6 +38,8 @@ from ..core.rows import set3, stack_rows
 from ..core.vec3 import V3
 from ..scene.scene import A
 from . import shading_soa as S
+from . import sky as SK
+from .restir_gi import SKY_DIST
 from .gbuffer_pack import temporal_geom_ok
 from .pathtracer import trace
 from .reservoir_pack import PT_PACKED_ROWS, pack_pt, unpack_pt
@@ -290,11 +292,30 @@ def initial_samples(scene, gbuf, pt_cfg, seed: int, cfg: ReSTIRPTConfig, rt: int
     zero = torch.zeros((n,), dtype=torch.float32, device=dev)
     l_s = v3.where(has3, V3(lout3.x * gain_s, lout3.y * gain_s, lout3.z * gain_s),
                    V3(zero, zero, zero))
+    le = V3(zero, zero, zero)  # no emission at x_rc: the DI pass owns bounce-1 emission
+    if pt_cfg.sky is not None:
+        # the suffix's first segment escaped: the sky and the sun disk
+        d3v = V3(*d3.T)
+        env_s = SK.sky_radiance(d3v, pt_cfg.sky, with_disk=False)
+        disk_s = SK.sun_disk(d3, pt_cfg.sky)
+        l_sky = V3((env_s.x + disk_s[:, 0]) * gain_s, (env_s.y + disk_s[:, 1]) * gain_s,
+                   (env_s.z + disk_s[:, 2]) * gain_s)
+        l_s = v3.where(suffix_ok & ~sh3.valid, l_sky, l_s)
+        # the prefix escaped: a vertex on the far sphere that emits the sky
+        sky_miss = live & ~sh.valid
+        d2v = V3(*d2.T)
+        x_rc = v3.where(sky_miss, V3(*o2.T) + d2v * SKY_DIST, x_rc)
+        n_rc = v3.where(sky_miss, -d2v, n_rc)
+        le = v3.where(sky_miss, SK.sky_radiance(d2v, pt_cfg.sky, with_disk=False), le)
+        l_s = v3.where(sky_miss, V3(zero, zero, zero), l_s)
+        rc_rough = torch.where(sky_miss, 1.0, rc_rough)
+        hit = hit | sky_miss
 
     to = x_rc - pos
     vals = {}
     set3(vals, PR.X, x_rc)
     set3(vals, PR.N, n_rc)
+    set3(vals, PR.LE, le)
     set3(vals, PR.WS, w_s)
     set3(vals, PR.LS, l_s)
     set3(vals, PR.BASE, rc_base)

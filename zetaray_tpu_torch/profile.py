@@ -3,8 +3,10 @@
     python -m zetaray_tpu_torch.profile [--frames 6] [--out profile.json] [--paths ...]
 
 For each path -- on the procedural Cornell box the flagship ReSTIR GI frame
-at 512^2 and 1920x1080 (max_bounces 3 and 2), the ReSTIR PT frame at 512^2
-and the plain path-traced frame at 512^2 (max_bounces 4), and on the box
+at 512^2 and 1920x1080 (max_bounces 3 and 2), the ReSTIR PT frame at 512^2,
+the plain path-traced frame at 512^2 (max_bounces 4) and the JAX app's
+default frame (mode="restir_di", max_bounces 4, TAA) at 512^2 without and
+with its sun and sky, and on the box
 split to 139,266 triangles (clustered: every ray query through B8/B9) the
 ReSTIR GI frame at 256^2 (max_bounces 2), each with a-trous and TAA where
 the frame has them -- it measures:
@@ -49,6 +51,7 @@ from .ops import restir_di as RD
 from .ops import restir_gi as RG
 from .ops import restir_pt as RP
 from .ops.pathtracer import PTConfig
+from .ops.sky import SkyParams
 from .render import frame as F
 from .scene.camera import Camera
 from .scene.procedural import CAMERA_EYE, CAMERA_TARGET, CAMERA_VFOV, cornell_box
@@ -70,6 +73,7 @@ STAGES = [
     (RP, "temporal_reuse", "PT temporal reuse (replay: B7)"),
     (RP, "spatial_reuse", "PT spatial reuse (replay: B7)"), (RP, "shade", "PT shade (B3)"),
     (F, "trace", "path trace (B6; clustered B8, B9)"),
+    (F, "_sky_direct", "sky background + primary sun NEE (B3; clustered B9)"),
     (F.DN, "atrous_denoise_p", "a-trous"), (F.TA, "taa_resolve_p", "TAA"),
     (F, "_postprocess", "exposure + AgX + sRGB"), (F, "pack_temporal", "pack temporal G-buffer"),
 ]
@@ -100,6 +104,10 @@ def _paths():
         "restir_pt_512": ("box", cam, F.RenderConfig(mode="restir_pt",
                                                      pt=PTConfig(max_bounces=3), **post)),
         "pt_512": ("box", cam, F.RenderConfig(mode="pt", pt=PTConfig(max_bounces=4))),
+        "restir_di_512": ("box", cam, F.RenderConfig(mode="restir_di",
+                                                     pt=PTConfig(max_bounces=4), taa=True)),
+        "restir_di_sky_512": ("box", cam, F.RenderConfig(mode="restir_di", taa=True, pt=PTConfig(
+            max_bounces=4, sky=SkyParams(sun_dir=(0.2, 0.45, 0.87))))),
         "clustered_gi_256": ("box139k", cam, F.RenderConfig(
             width=256, height=256, mode="restir_gi", pt=PTConfig(max_bounces=2), **post)),
     }

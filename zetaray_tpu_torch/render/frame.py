@@ -1,17 +1,25 @@
 """The frames of the JAX package's ``render/frame.py``: ``render_frame_restir``
 and the plain path-traced ``render_frame``.
 
-``render_frame_restir`` covers ``mode="restir_gi"`` (the flagship
-``RenderConfig(mode="restir_gi", pt=PTConfig(max_bounces=3), denoise=True,
-taa=True)``) and ``mode="restir_pt"``, with the indirect pass on or off. It
-runs camera rays -> G-buffer -> presampled light sets -> DI RIS -> DI
-temporal -> DI visibility -> DI spatial -> DI shade -> the indirect pass
-(ReSTIR GI or ReSTIR PT: initial samples, temporal reuse with boiling
+``render_frame_restir`` covers ``mode="restir_di"`` (the JAX app's default
+frame: ReSTIR DI with the indirect light path-traced), ``mode="restir_gi"``
+(the flagship ``RenderConfig(mode="restir_gi", pt=PTConfig(max_bounces=3),
+denoise=True, taa=True)``) and ``mode="restir_pt"``, with the indirect pass
+on or off. It runs camera rays -> G-buffer -> presampled light sets -> DI
+RIS -> DI temporal -> DI visibility -> DI spatial -> DI shade -> the
+indirect pass (a path trace of the camera rays past their first hit, or
+ReSTIR GI or ReSTIR PT: initial samples, temporal reuse with boiling
 suppression, spatial reuse, shade) -> a-trous -> TAA -> histogram exposure,
-AgX and sRGB, in the JAX frame's order. One reprojection and one gather
-serve both temporal passes, and the pre-spatial DI and indirect reservoirs
-are fed forward. ``render_frame`` covers ``mode="pt"``. A setting outside
-these raises ``NotImplementedError``.
+AgX and sRGB, in the JAX frame's order. In the GI and PT modes one
+reprojection and one gather serve both temporal passes, and the pre-spatial
+DI and indirect reservoirs are fed forward. ``render_frame`` covers
+``mode="pt"``. A setting outside these raises ``NotImplementedError``.
+
+With ``pt.sky`` set (the JAX app's ``--sun``) the path traces gather the
+sky and the sun (``ops.sky``), and the GI and PT modes add what the path
+trace gives the other modes: the sky behind primary-miss pixels and the
+sun's light at the primary hits (``_sky_direct``, the JAX frame's
+SkyDI-lite).
 
 On a clustered scene (``scene.cluster_aabb`` set) every ray query goes
 through the streaming kernels B8/B9 and the path traces through the
@@ -29,12 +37,17 @@ from dataclasses import dataclass, field, replace
 
 import torch
 
+from ..accel.intersect import intersect_occluded
 from ..accel.megakernel import G, build_light_sets, gbuffer
+from ..core import vec3 as v3
+from ..core.vec3 import V3
 from ..ops import denoise as DN
 from ..ops import post
 from ..ops import restir_di as RD
 from ..ops import restir_gi as RG
 from ..ops import restir_pt as RP
+from ..ops import shading_soa as S
+from ..ops import sky as SK
 from ..ops import taa as TA
 from ..ops.gbuffer_pack import pack_temporal
 from ..ops.pathtracer import PTConfig, trace
@@ -85,7 +98,7 @@ class RenderConfig:
         """Raise for any setting this package does not implement yet, in
         ``render_frame_restir`` or, with ``plain``, in ``render_frame`` (which
         reads only the mode, the path tracer's settings and the display)."""
-        modes = ("pt",) if plain else ("restir_gi", "restir_pt")
+        modes = ("pt",) if plain else ("restir_di", "restir_gi", "restir_pt")
         later = {
             f"mode={self.mode!r} in {'render_frame' if plain else 'render_frame_restir'}":
                 self.mode not in modes,
@@ -138,6 +151,33 @@ def _postprocess(hdr, cfg: RenderConfig):
     return post.to_u8(post.srgb_encode(post.tonemap_agx_p(hdr * exposure)))
 
 
+def _sky_background(gb, sky) -> torch.Tensor:
+    """The sky and the sun disk behind primary-miss pixels, zero elsewhere: [3, N]."""
+    d = -v3.from_rows(gb, G.WO)
+    env = SK.sky_radiance(d, sky, with_disk=False)
+    env_rgb = torch.stack([env.x, env.y, env.z], 0) + SK.sun_disk(v3.aos3(d), sky).T
+    return torch.where((gb[G.VALID] > 0.5)[None, :], 0.0, env_rgb)
+
+
+def _sky_direct(scene, gb, sky) -> torch.Tensor:
+    """The sky behind primary-miss pixels and the sun's light at the primary
+    hits, through a shadow segment toward the sun in (1e-3, 1e8) (B3, or B9
+    on a clustered scene): [3, N]. The GI and PT modes add it; the other
+    modes' path trace gives both."""
+    pos, ns, ng, wo, mat, valid = RD.surface_from_gbuf(gb)
+    frame = S.make_frame(ns)
+    sdir = V3(*(torch.full_like(gb[G.VALID], float(x)) for x in SK.sun_direction(sky)))
+    cos_s = v3.dot(sdir, ns)
+    f_s, _ = S.bsdf_eval(mat, frame.to_local(wo), frame.to_local(sdir))
+    occ = intersect_occluded(scene, v3.aos3(pos + ng * 1e-3), v3.aos3(sdir), t_min=1e-3,
+                             t_max=1e8)
+    e_sun = SK.sun_irradiance(sky)
+    gain = torch.where(valid & (cos_s > 1e-6) & ~occ, cos_s, 0.0)
+    sun = torch.stack([f_s.x * float(e_sun[0]) * gain, f_s.y * float(e_sun[1]) * gain,
+                       f_s.z * float(e_sun[2]) * gain], 0)
+    return _sky_background(gb, sky) + sun
+
+
 def render_frame(scene, camera: Camera, seed: int, cfg: RenderConfig):
     """One plain path-traced frame (``mode="pt"``) on ``scene.device``:
     {"hdr": [H, W, 3] float32, "ldr": [H, W, 3] uint8}. ``seed`` is the u32
@@ -167,15 +207,16 @@ def render_frame_restir(scene, camera: Camera, seed: int, cfg: RenderConfig,
 
     gb = gbuffer(scene, o, d)
     lsets = build_light_sets(scene, seed)
-    pt_mode = cfg.mode == "restir_pt"  # check_ported admits "restir_gi" and "restir_pt"
+    pt_mode = cfg.mode == "restir_pt"  # check_ported admits restir_di, restir_gi, restir_pt
     ind_cfg = cfg.restir_pt if pt_mode else cfg.restir_gi
     pack_ind, unpack_ind = (pack_pt, unpack_pt) if pt_mode else (pack_di, unpack_di)
 
-    # Joint temporal gather: the DI and indirect reservoirs and the packed
-    # temporal G-buffer reproject alike, so one reprojection and one gather
-    # serve both temporal passes.
+    # Joint temporal gather (GI and PT modes): the DI and indirect reservoirs
+    # and the packed temporal G-buffer reproject alike, so one reprojection
+    # and one gather serve both temporal passes.
     pf_di = pf_ind = None
-    if state is not None and cfg.indirect and cfg.restir.temporal and ind_cfg.temporal:
+    if (state is not None and cfg.indirect and cfg.restir.temporal and ind_cfg.temporal
+            and cfg.mode in ("restir_gi", "restir_pt")):
         idx, inside, depth_est = RD.reproject_prev(gb, state.camera_prev, w, h)
         p_di, p_ind, p_g = RD.take_multi(
             [pack_di(state.reservoirs), pack_ind(state.gi_reservoirs), state.gbuf], idx
@@ -191,11 +232,12 @@ def render_frame_restir(scene, camera: Camera, seed: int, cfg: RenderConfig,
         )
     res = RD.visibility_reuse(scene, res, gb)
     res_sp = RD.spatial_reuse(res, gb, w, h, seed, cfg.restir)
-    hdr = RD.shade(scene, res_sp, gb)
+    direct = RD.shade(scene, res_sp, gb)
 
     ind_res = torch.zeros_like(res)
     pt_cfg = replace(cfg.pt, min_emissive_bounce=2, min_nee_bounce=1)
     temporal = ind_cfg.temporal and state is not None
+    indirect = None
     if cfg.indirect and pt_mode:
         ind_res = RP.initial_samples(scene, gb, pt_cfg, seed, cfg.restir_pt, rt,
                                      light_sets=lsets)
@@ -205,8 +247,8 @@ def render_frame_restir(scene, camera: Camera, seed: int, cfg: RenderConfig,
                 cfg.restir_pt, scene=scene, prefetch=pf_ind,
             )
         pt_sp = RP.spatial_reuse(ind_res, gb, w, h, seed, cfg.restir_pt, scene=scene)
-        hdr = hdr + RP.shade(scene, pt_sp, gb)
-    elif cfg.indirect:
+        indirect = RP.shade(scene, pt_sp, gb)
+    elif cfg.indirect and cfg.mode == "restir_gi":
         ind_res = RG.initial_samples(scene, gb, pt_cfg, seed, rt, light_sets=lsets,
                                      spread_angle=camera.pixel_spread_angle(h))
         if temporal:
@@ -215,8 +257,12 @@ def render_frame_restir(scene, camera: Camera, seed: int, cfg: RenderConfig,
                 cfg.restir_gi, prefetch=pf_ind,
             )
         gi_sp = RG.spatial_reuse(ind_res, gb, w, h, seed, cfg.restir_gi)
-        hdr = hdr + RG.shade(scene, gi_sp, gb)
-    hdr = hdr.reshape(3, h, w)
+        indirect = RG.shade(scene, gi_sp, gb)
+    elif cfg.indirect:  # restir_di: the camera rays path-traced past their first hit
+        indirect = trace(scene, o, d, seed, pt_cfg, rt=rt, rows_out=True, light_sets=lsets)
+    if cfg.indirect and cfg.mode != "restir_di" and cfg.pt.sky is not None:
+        direct = direct + _sky_direct(scene, gb, cfg.pt.sky)
+    hdr = (direct if indirect is None else direct + indirect).reshape(3, h, w)
 
     normal_img = gb[G.NS : G.NS + 3].reshape(3, h, w)
     depth_img = gb[G.DEPTH].reshape(h, w)
