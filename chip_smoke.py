@@ -47,7 +47,17 @@ Phases (any failure exits non-zero):
      large-scene frame of bench.py (ReSTIR GI, max_bounces=2, a-trous, TAA)
      at 256^2 with its DI-only slice, plain PT and the JAX app's default
      frame with the sky at 256^2. Chains are 4 frames; the first has no
-     temporal reuse and no TAA, so frame times are medians of frames 2-4. It
+     temporal reuse and no TAA, so frame times are medians of frames 2-4.
+     Then bench.py's features frame (ReSTIR DI with 2 light-voxel-grid
+     candidates and pairwise MIS, ReSTIR GI with max_bounces=2, SkyDI with
+     pairwise MIS, froxel volumetrics, a-trous, TAA) at 256^2 with its sun
+     and at 512^2 with the sun in through the box's opening, there also
+     with the GI grid NEE, plain PT with volumetrics at 512^2 and, on the
+     139,266-triangle box, ReSTIR PT at 256^2 (B8 and B9, no dense kernel);
+     phase 3 holds B3 (and B9 on the clustered box) on SkyDI's shade
+     segments and the froxel grid's 12,288 sun segments (t_max 1e8; the
+     blocked shares printed) and B5 with min_nee_bounce=1 (the GI grid NEE's
+     bounce 0) against their plain versions. It
      checks that every kernel of each path launched (and, on the clustered
      box, that no dense kernel did), that the images are finite and lit,
      that the indirect passes add light, that the sky shows behind the
@@ -57,16 +67,19 @@ Phases (any failure exits non-zero):
      on the CPU: GI, PT, the default frame with the sky and GI with the sky
      and the path options on the box, and GI, the default frame with the
      sky and GI with the sky on the box split to 8706 triangles
-     (clustered);
+     (clustered), and the features frame (on both), the GI grid NEE frame
+     and clustered ReSTIR PT;
   5. prints the kernels' record, the card line, and last a JSON status.
 
 The 512^2 images are written to IMAGE_DIR: zetaray_torch_512.png (the
 flagship frame), zetaray_torch_512_di.png (DI only), zetaray_torch_512_pt.png
 (ReSTIR PT), zetaray_torch_512_plain_pt.png (plain PT),
 zetaray_torch_512_restir_di_sky.png and _restir_di.png (the JAX app's
-default frame with and without the sky), _gi_sky.png and _pt_sky.png; the
-clustered GI frame to zetaray_torch_256_clustered.png and the clustered
-default frame with the sky to zetaray_torch_256_clustered_restir_di_sky.png.
+default frame with and without the sky), _gi_sky.png, _pt_sky.png,
+_features_sun.png and _plain_pt_volumetrics.png; the clustered GI frame to
+zetaray_torch_256_clustered.png, the clustered default frame with the sky
+to zetaray_torch_256_clustered_restir_di_sky.png and clustered ReSTIR PT to
+zetaray_torch_256_clustered_pt.png.
 """
 
 from __future__ import annotations
@@ -104,6 +117,7 @@ F32 = 4
 # more, the disk's gate on specular rays
 SKY_OPS = 62
 SUN = (0.2, 0.45, 0.87)  # toward the sun: it shines in through the box's opening at +z
+BENCH_FEATURES_SUN = (0.3, 0.8, 0.2)  # bench.py's features frame
 FIREFLY_CLAMP = 10.0
 
 
@@ -188,6 +202,19 @@ def bounce_records(scene, label, opt, cfg, st0, lsets, seed, rt, spread, n_tri, 
                 PAIR_OPS * segs5 * n_tri,
                 n * (2 * state_bytes + MK.SURF_ROWS * F32) + 12 * n_tri * F32 + set_bytes,
                 nt=n_tri, lit_segments=segs5)
+    # the instance the ReSTIR_GI_LVG variant launches: no NEE at bounce 0
+    # (min_nee_bounce=1; the grid's NEE runs outside), the sun segment stays
+    shade1 = (scene, st4_p, sf4_p, lsets, 0, seed, dataclasses.replace(cfg, min_nee_bounce=1),
+              True, rt)
+    st5_1p = MK.bounce_shade_plain(*shade1)
+    err = bounce_err("bounce_shade min_nee_bounce=1", tag, MK.bounce_shade(*shade1), st5_1p,
+                     found)
+    segs5_1 = lit_segments(st5_1p, st4_p)
+    r5["min_nee_bounce_1"] = record(
+        err, lambda: MK.bounce_shade(*shade1), lambda: MK.bounce_shade_plain(*shade1),
+        PAIR_OPS * segs5_1 * n_tri,
+        n * (2 * state_bytes + MK.SURF_ROWS * F32) + (12 * n_tri * F32 if segs5_1 else 0),
+        nt=n_tri, lit_segments=segs5_1)
 
     st_t1 = MK.bounce_trace_plain(scene, st5_p, 1, cfg, True)[0]
     found_1 = st_t1[13] > 0.5
@@ -266,7 +293,13 @@ def main() -> int:
     from zetaray_tpu_torch.accel import stream as ST
     from zetaray_tpu_torch.accel.bvh import LEAF_SIZE
     from zetaray_tpu_torch.ops import restir_di as RD
+    from zetaray_tpu_torch.ops import skydi as SD
+    from zetaray_tpu_torch.ops import volumetrics as VL
     from zetaray_tpu_torch.ops.pathtracer import PTConfig, park
+    from zetaray_tpu_torch.ops.restir_di import ReSTIRConfig
+    from zetaray_tpu_torch.ops.restir_gi import ReSTIRGIConfig
+    from zetaray_tpu_torch.ops.skydi import SkyDIConfig
+    from zetaray_tpu_torch.ops.volumetrics import VolumetricsConfig
     from zetaray_tpu_torch.ops.restir_gi import secondary_rays
     from zetaray_tpu_torch.ops.restir_pt import prefix_rays
     from zetaray_tpu_torch.ops.sky import SkyParams
@@ -328,6 +361,44 @@ def main() -> int:
                         plain_ms=cuda_ms(lambda: RD.initial_candidates_plain(gk, lsets, seed, rt),
                                          reps=3, warmup=1),
                         bound_ms=b_ms, bound_by=b_by, valid_share=n_valid / n_px)
+
+    sky = SkyParams(sun_dir=SUN)
+    vol_cfg = VolumetricsConfig()
+
+    def direction_segments(gk, dev_):
+        """The frame's segments along unit directions, tested in (1e-3, 1e8):
+        SkyDI's shade segments toward the winning sky directions of the
+        G-buffer gk (candidates and a pairwise spatial pass, as the features
+        frame draws them) and the default froxel grid's 12,288 sun segments
+        ({name: (origins [M, 3], directions [M, 3])})."""
+        sd_cfg = SkyDIConfig(spatial_mis="pairwise")
+        side = int(round(gk.shape[1] ** 0.5))
+        sky_res = SD.spatial_reuse(SD.initial_candidates(gk, sky, seed, sd_cfg), gk, side, side,
+                                   seed, sd_cfg)
+        pos, _, _ = VL.froxel_points(cam, vol_cfg, dev_)
+        return {"skydi_segments": SD.shade_segments(sky_res, gk),
+                "froxel_sun_segments": VL.sun_segments(pos, sky)}
+
+    def check_any_hit(tag, kernel, plain, so_s, sd_s, pair_tests, scene_bytes):
+        """An any-hit kernel on segments so_s, sd_s against its plain version:
+        every flag equal. A blocked segment needs at least one test, a free
+        one ``pair_tests``. Returns its record."""
+        ok_k, ok_p = kernel(so_s, sd_s), plain(so_s, sd_s)
+        torch.cuda.synchronize()
+        n_diff = int((ok_k != ok_p).sum().item())
+        if n_diff:
+            raise AssertionError(f"{tag}: {n_diff} segments differ from the plain version")
+        m = so_s.shape[0]
+        n_blk = int(ok_p.sum().item())
+        b_ms, b_by = bound(PAIR_OPS * ((m - n_blk) * pair_tests + n_blk),
+                           m * (6 + 1) * F32 + scene_bytes)
+        r = dict(max_abs_err=0.0, ms=cuda_ms(lambda: kernel(so_s, sd_s), reps=20),
+                 plain_ms=cuda_ms(lambda: plain(so_s, sd_s), reps=2, warmup=1),
+                 bound_ms=b_ms, bound_by=b_by, segments=m, blocked=n_blk / m)
+        print(f"{tag} ({m} segments, {n_blk / m:.4f} blocked): {r['ms']:.4f} ms (plain "
+              f"{r['plain_ms']:.3f}, bound {b_ms:.4f} by {b_by}), equal on every segment",
+              flush=True)
+        return r
 
     record = {}
     for label, subdivide in (("cornell36", None), ("cornell8192", 8192)):
@@ -394,6 +465,13 @@ def main() -> int:
             f"{rec[k]['bound_ms']:.4f} by {rec[k]['bound_by']}), max abs err "
             f"{rec[k]['max_abs_err']:.3g}" for k in ("gbuffer", "ris", "occlusion"))
             + f"; {n_occ / n:.4f} occluded; gbuffer {r1['pairs_per_s']:.4g} pairs/s", flush=True)
+        # B3 on direction segments in (1e-3, 1e8): SkyDI's shade toward each
+        # pixel's winning sky direction and the froxel grid's sun segments
+        for seg_name, (so_s, sd_s) in direction_segments(gk, dev).items():
+            rec["occlusion"][seg_name] = check_any_hit(
+                f"occlusion {label} {seg_name}", lambda a, b: XI.occlusion(scene, a, b, 1e-3, 1e8),
+                lambda a, b: XI.occlusion_plain(scene.woop, a, b, 1e-3, 1e8), so_s, sd_s,
+                n_tri, 12 * n_tri * F32)
 
         # B4-B6 on the GI trace's bounce-0 rays (the flagship's GI trace:
         # 2 bounces after x2, x2's own emission excluded), without path
@@ -421,6 +499,11 @@ def main() -> int:
                       f"{k} {r['ms']:.4f} ms (plain {r['plain_ms']:.3f}, bound "
                       f"{r['bound_ms']:.4f} by {r['bound_by']}), max abs err "
                       f"{r['max_abs_err']:.3g}" for k, r in recs.items())
+                  + f"; bounce_shade min_nee_bounce=1 "
+                  f"{recs['bounce_shade']['min_nee_bounce_1']['ms']:.4f} ms (plain "
+                  f"{recs['bounce_shade']['min_nee_bounce_1']['plain_ms']:.3f}, bound "
+                  f"{recs['bounce_shade']['min_nee_bounce_1']['bound_ms']:.4f}), max abs err "
+                  f"{recs['bounce_shade']['min_nee_bounce_1']['max_abs_err']:.3g}"
                   + f"; bounce_trace {recs['bounce_trace']['pairs_per_s']:.4g}, bounce "
                   f"{recs['bounce']['pairs_per_s']:.4g} pairs/s; shadow segments let through: "
                   f"bounce_shade {recs['bounce_shade']['lit_segments']}, bounce "
@@ -546,6 +629,11 @@ def main() -> int:
     print(f"cornell139k ({n_c} DI shadow segments, {n_occ_c / n_c:.4f} blocked): "
           f"occlusion_stream {r9['ms']:.4f} ms (plain {r9['plain_ms']:.3f}, bound "
           f"{r9['bound_ms']:.4f} by {r9['bound_by']}), equal on every segment", flush=True)
+    for seg_name, (so_s, sd_s) in direction_segments(gk_c, dev).items():
+        r9[seg_name] = check_any_hit(
+            f"occlusion_stream cornell139k {seg_name}",
+            lambda a, b: ST.occlusion_stream(big, a, b, 1e-3, 1e8),
+            lambda a, b: ST.occlusion_stream_plain(big, a, b, 1e-3, 1e8), so_s, sd_s, 0, 0)
     del og, dg, gk_c, o2c, d2c, rk_c, so_c, seg_c, occ_k, occ_p
     torch.cuda.empty_cache()
 
@@ -628,7 +716,6 @@ def main() -> int:
     # the JAX app's default frame (restir_di, max_bounces=4, TAA, no a-trous)
     # with its sun and sky and without them, the flagship GI frame with the
     # sky and the path options, and ReSTIR PT with the sky
-    sky = SkyParams(sun_dir=SUN)
     app = dict(width=res, height=res, mode="restir_di", taa=True)
     app_kernels = ("gbuffer", "ris", "occlusion", "bounce")
     out_app, times_app, counts_app = chain(
@@ -677,6 +764,51 @@ def main() -> int:
                      ("_pt_sky", out_ps)):
         write_png(os.path.join(IMAGE_DIR, f"zetaray_torch_512{name}.png"), o_["ldr"].cpu().numpy())
 
+    # bench.py's features frame (ReSTIR DI with 2 light-voxel-grid
+    # candidates and pairwise MIS, ReSTIR GI with max_bounces=2, stochastic
+    # multi-bounce and path regularization, SkyDI with pairwise MIS,
+    # froxel volumetrics, a-trous and TAA) at 256^2 as it stands, then at
+    # 512^2 with the sun in through the box's opening, there also with the
+    # GI grid NEE (restir_gi.lvg: B5 with min_nee_bounce=1), and plain PT
+    # with volumetrics at 512^2
+    def features(sun_dir):
+        return dict(mode="restir_gi", pt=PTConfig(
+            max_bounces=2, sky=SkyParams(sun_dir=sun_dir), stochastic_multi_bounce=True,
+            path_regularization=True),
+            restir=ReSTIRConfig(lvg_samples=2, spatial_mis="pairwise"),
+            restir_gi=ReSTIRGIConfig(boiling_suppression=True), skydi=True,
+            skydi_cfg=SkyDIConfig(spatial_mis="pairwise"), volumetrics=vol_cfg, denoise=True,
+            taa=True)
+
+    feat_paths = {}
+    for tag, w_, cfg_kw in (
+            ("features 256^2 (bench.py)", 256, features(BENCH_FEATURES_SUN)),
+            ("features 512^2 with SUN", res, features(SUN)),
+            ("features 512^2 with SUN and the GI grid NEE", res,
+             {**features(SUN), "restir_gi": ReSTIRGIConfig(boiling_suppression=True, lvg=True)})):
+        out_f, times_f, counts_f = chain(RenderConfig(width=w_, height=w_, **cfg_kw), cam,
+                                         gi_kernels)
+        show(tag, times_f, counts_f)
+        feat_paths[tag] = (out_f, times_f, counts_f)
+    out_fv, times_fv, counts_fv = chain(
+        RenderConfig(width=res, height=res, mode="pt", pt=PTConfig(max_bounces=4, sky=sky),
+                     volumetrics=vol_cfg), cam, ("gbuffer", "occlusion", "bounce"), restir=False)
+    show("plain PT 512^2 with SUN and volumetrics", times_fv, counts_fv)
+    out_f512 = feat_paths["features 512^2 with SUN"][0]
+    # B3 a frame: the flagship's three (DI visibility, DI shade, GI shade),
+    # plus SkyDI's shade and the froxels' sun segments, plus the GI grid NEE
+    occ_per_frame = [c["occlusion"] / 4 for _, _, c in feat_paths.values()]
+    if occ_per_frame != [launches["occlusion"] / 4 + 2] * 2 + [launches["occlusion"] / 4 + 3]:
+        raise AssertionError(f"B3 launches a frame {occ_per_frame}: SkyDI, the froxels or the "
+                             f"GI grid NEE did not run as they should")
+    print(f"mean HDR: features 256^2 "
+          f"{feat_paths['features 256^2 (bench.py)'][0]['hdr'].mean().item():.6f}, 512^2 with SUN "
+          f"{out_f512['hdr'].mean().item():.6f}, with the GI grid NEE "
+          f"{feat_paths['features 512^2 with SUN and the GI grid NEE'][0]['hdr'].mean().item():.6f}"
+          f", plain PT with volumetrics {out_fv['hdr'].mean().item():.6f}", flush=True)
+    for name, o_ in (("_features_sun", out_f512), ("_plain_pt_volumetrics", out_fv)):
+        write_png(os.path.join(IMAGE_DIR, f"zetaray_torch_512{name}.png"), o_["ldr"].cpu().numpy())
+
     # bench.py's large-scene frame on the clustered box: every ray query
     # through B8 and B9, none through the dense kernels
     large = dict(mode="restir_gi", pt=PTConfig(max_bounces=2), denoise=True, taa=True)
@@ -707,6 +839,14 @@ def main() -> int:
     show("clustered JAX app default frame 256^2 with sun and sky", times_cl_app, counts_cl_app)
     write_png(os.path.join(IMAGE_DIR, "zetaray_torch_256_clustered_restir_di_sky.png"),
               out_cl_app["ldr"].cpu().numpy())
+    out_cl_rpt, times_cl_rpt, counts_cl_rpt = chain(
+        RenderConfig(width=res_c, height=res_c, **pt_frame), cam, ("ris",) + stream_kernels,
+        sc=big, absent=dense_kernels)
+    show("clustered ReSTIR PT 256^2, max_bounces=3", times_cl_rpt, counts_cl_rpt)
+    if not out_cl_rpt["hdr"].mean().item() > 1.05 * means_cl["di"]:
+        raise AssertionError("the clustered ReSTIR PT frame adds no light to its DI-only frame")
+    write_png(os.path.join(IMAGE_DIR, "zetaray_torch_256_clustered_pt.png"),
+              out_cl_rpt["ldr"].cpu().numpy())
     del big
     torch.cuda.empty_cache()
 
@@ -717,12 +857,18 @@ def main() -> int:
     # CPU
     box_8706 = subdivide_scene(cornell_box(), 8193)
     app_64 = dict(mode="restir_di", taa=True, pt=PTConfig(max_bounces=4, sky=sky))
+    feat_64 = features(SUN)
+    gi_lvg_64 = {**feat_64, "restir_gi": ReSTIRGIConfig(boiling_suppression=True, lvg=True)}
     for tag, base, cpu_scene in (("GI", flagship, cornell_box()), ("PT", pt_frame, cornell_box()),
                                  ("clustered GI", large, box_8706),
                                  ("restir_di sky", app_64, cornell_box()),
                                  ("GI sky", gi_sky, cornell_box()),
                                  ("clustered restir_di sky", app_64, box_8706),
-                                 ("clustered GI sky", gi_sky, box_8706)):
+                                 ("clustered GI sky", gi_sky, box_8706),
+                                 ("features", feat_64, cornell_box()),
+                                 ("clustered features", feat_64, box_8706),
+                                 ("GI grid NEE", gi_lvg_64, cornell_box()),
+                                 ("clustered ReSTIR PT", pt_frame, box_8706)):
         small = RenderConfig(width=64, height=64, **base)
         hdrs = {}
         for dv in ("cuda", "cpu"):

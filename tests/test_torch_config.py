@@ -5,8 +5,10 @@ does not implement raises ``NotImplementedError``.
 
 The JAX defaults are the fields' declared defaults. JAX's
 ``RenderConfig.__post_init__`` fills ``lvg_cfg``, ``skydi_cfg`` and
-``upscale_cfg`` with the configs of features the port does not have; the
-port keeps them None and refuses any other value.
+``upscale_cfg`` with their configs' defaults; the port fills ``lvg_cfg``
+and ``skydi_cfg`` alike (``LVGConfig``, ``SkyDIConfig``), keeps
+``upscale_cfg`` None (the upscaler is not ported) and refuses any other
+value there.
 """
 
 import dataclasses
@@ -17,12 +19,18 @@ import torch
 from zetaray_tpu.ops import restir_di as JD
 from zetaray_tpu.ops import restir_gi as JG
 from zetaray_tpu.ops import pathtracer as JPT
+from zetaray_tpu.ops import prelighting as JPL
 from zetaray_tpu.ops import restir_pt as JP
 from zetaray_tpu.ops import sky as JSK
+from zetaray_tpu.ops import skydi as JSD
+from zetaray_tpu.ops import volumetrics as JVL
 from zetaray_tpu.render import frame as JF
 from zetaray_tpu_torch.ops import restir_di as RD
 from zetaray_tpu_torch.ops import restir_gi as RG
+from zetaray_tpu_torch.ops import prelighting as PL
 from zetaray_tpu_torch.ops import restir_pt as RP
+from zetaray_tpu_torch.ops import skydi as SD
+from zetaray_tpu_torch.ops import volumetrics as VL
 from zetaray_tpu_torch.ops.pathtracer import PTConfig
 from zetaray_tpu_torch.ops.sky import SkyParams
 from zetaray_tpu_torch.render import frame as TF
@@ -39,6 +47,9 @@ PAIRS = {
     "RenderConfig": (JF.RenderConfig, TF.RenderConfig),
     "PTConfig": (JPT.PTConfig, PTConfig),
     "SkyParams": (JSK.SkyParams, SkyParams),
+    "LVGConfig": (JPL.LVGConfig, PL.LVGConfig),
+    "SkyDIConfig": (JSD.SkyDIConfig, SD.SkyDIConfig),
+    "VolumetricsConfig": (JVL.VolumetricsConfig, VL.VolumetricsConfig),
 }
 PORT_CLASSES = {port.__name__: port for _, port in PAIRS.values()}
 
@@ -84,13 +95,10 @@ def test_jax_sky_config_converts():
 UNPORTED = [
     (RD.ReSTIRConfig, {"full_target": True}),
     (RD.ReSTIRConfig, {"packed_reuse": False}),
-    (RD.ReSTIRConfig, {"spatial_mis": "pairwise", "spatial_neighbors": 5}),
     (RG.ReSTIRGIConfig, {"full_target": True}),
     (RG.ReSTIRGIConfig, {"packed_reuse": False}),
     (RP.ReSTIRPTConfig, {"full_target": True}),
     (RP.ReSTIRPTConfig, {"packed_reuse": False}),
-    (TF.RenderConfig, {"lvg_cfg": object()}),
-    (TF.RenderConfig, {"skydi_cfg": object()}),
     (TF.RenderConfig, {"upscale_cfg": object()}),
 ]
 
@@ -100,6 +108,30 @@ UNPORTED = [
 def test_unported_values_raise(cls, kw):
     with pytest.raises(NotImplementedError, match="not ported"):
         cls(**kw)
+
+
+def test_jax_features_config_converts():
+    """bench.py's features frame config, written with the JAX classes,
+    becomes the port's (nested configs included) and the frame admits it:
+    pairwise MIS, grid candidates, SkyDI, volumetrics and the GI grid NEE."""
+    jax_cfg = JF.RenderConfig(
+        width=256, height=256, mode="restir_gi",
+        pt=JPT.PTConfig(max_bounces=2, sky=JSK.SkyParams(sun_dir=(0.3, 0.8, 0.2)),
+                        stochastic_multi_bounce=True, path_regularization=True),
+        restir=JD.ReSTIRConfig(lvg_samples=2, spatial_mis="pairwise", spatial_neighbors=5),
+        restir_gi=JG.ReSTIRGIConfig(boiling_suppression=True, lvg=True),
+        skydi=True, skydi_cfg=JSD.SkyDIConfig(spatial_mis="pairwise"),
+        lvg_cfg=JPL.LVGConfig(dim=(16, 8, 20), slots=4),
+        volumetrics=JVL.VolumetricsConfig(), denoise=True, taa=True,
+    )
+    kw = {f.name: _to_port(getattr(jax_cfg, f.name)) for f in dataclasses.fields(jax_cfg)}
+    kw["upscale_cfg"] = None  # the JAX default UpscaleConfig(): the upscaler is not ported
+    cfg = TF.RenderConfig(**kw)
+    assert isinstance(cfg.lvg_cfg, PL.LVGConfig) and cfg.lvg_cfg.slots == 4
+    assert isinstance(cfg.skydi_cfg, SD.SkyDIConfig) and cfg.skydi_cfg.spatial_mis == "pairwise"
+    assert isinstance(cfg.volumetrics, VL.VolumetricsConfig)
+    assert cfg.restir.spatial_neighbors == 5
+    cfg.check_ported()
 
 
 def test_accepted_fields_leave_the_frame_unchanged():

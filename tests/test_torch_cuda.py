@@ -439,3 +439,105 @@ def test_card_clustered_gi_frame_matches_cpu_frame(cuda):
     got, want = outs[str(cuda)], outs["cpu"]
     close = ((got - want).abs() <= 1e-3 * (1 + want.abs())).all(-1)
     assert close.float().mean() >= 0.99
+
+
+def _direction_segments(gb, cam, res):
+    """SkyDI's shade segments toward each pixel's winning sky direction and
+    the default froxel grid's 12,288 sun segments (unit directions, tested
+    in (1e-3, 1e8)), as the features frame sends them."""
+    from zetaray_tpu_torch.ops import skydi as SD
+    from zetaray_tpu_torch.ops import volumetrics as VL
+
+    sky = SkyParams(sun_dir=SUN)
+    cfg = SD.SkyDIConfig(spatial_mis="pairwise")
+    res_sd = SD.spatial_reuse(SD.initial_candidates(gb, sky, SEED, cfg), gb, res, res, SEED, cfg)
+    pos, _, _ = VL.froxel_points(cam, VL.VolumetricsConfig(), gb.device)
+    return {"skydi": SD.shade_segments(res_sd, gb), "froxels": VL.sun_segments(pos, sky)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["box", "box2000", "box546_clustered"])
+def test_any_hit_on_direction_segments_matches_plain(cuda, name):
+    """B3 (dense) and B9 (clustered) on the segments along unit directions
+    that SkyDI's shade and the froxel grid send, with t_max = 1e8: every
+    flag equal to the plain version's, some blocked and some free."""
+    cpu = {"box": cornell_box, "box2000": lambda: cornell_box(subdivide_to=2000),
+           "box546_clustered": lambda: subdivide_scene(cornell_box(), 500)}[name]()
+    scene = upload_scene(cpu, device=cuda, cluster_size=128 if "clustered" in name else None)
+    cam, o, d = _rays(cuda)
+    for key, (so, sd) in _direction_segments(MK.gbuffer(scene, o, d), cam, 128).items():
+        if scene.cluster_aabb is None:
+            got = XI.occlusion(scene, so, sd, 1e-3, 1e8)
+            want = XI.occlusion_plain(scene.woop, so, sd, 1e-3, 1e8)
+        else:
+            got = ST.occlusion_stream(scene, so, sd, 1e-3, 1e8)
+            want = ST.occlusion_stream_plain(scene, so, sd, 1e-3, 1e8)
+        assert torch.equal(got, want), key
+        assert 0 < want.sum() < want.numel(), key
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("subdivide", [None, 300, 2000])
+@pytest.mark.parametrize("opts", ["", "sky"])
+def test_bounce_shade_without_bounce0_nee_matches_plain(cuda, subdivide, opts):
+    """B5 as the ReSTIR_GI_LVG variant launches it, min_nee_bounce = 1 (no
+    NEE at bounce 0; with the sky its sun segment stays), against the plain
+    version as test_bounce_kernels_match_plain holds B5; no ray gains NEE
+    light."""
+    scene = upload_scene(cornell_box(subdivide_to=subdivide), device=cuda)
+    _, o, d = _rays(cuda)
+    o2, d2, _, _ = secondary_rays(MK.gbuffer(scene, o, d), SEED)
+    lsets = MK.build_light_sets(scene, SEED)
+    cfg = PTConfig(max_bounces=1, min_emissive_bounce=1, min_nee_bounce=1,
+                   **(PATH_OPTIONS[opts] if opts else {}))
+    st_p, surf_p = MK.bounce_trace_plain(scene, MK.initial_state(o2, d2), 0, cfg, True, 0.004)
+    found = st_p[13] > 0.5
+    st5 = MK.bounce_shade(scene, st_p, surf_p, lsets, 0, SEED, cfg, True, pick_rt(o.shape[0]))
+    st5_p = MK.bounce_shade_plain(scene, st_p, surf_p, lsets, 0, SEED, cfg, True,
+                                  pick_rt(o.shape[0]))
+    assert _close_rays(st5[:, found], st5_p[:, found]) >= 0.999
+    assert _close_rays(st5, st5_p, [9, 10, 11, 13]) >= 0.999
+    lit = (st5_p[9:12] != st_p[9:12]).any(0)
+    if opts:
+        assert lit.any()  # the sun lights some rays
+    else:
+        assert not lit.any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["features", "features_gi_lvg", "clustered_pt"])
+def test_card_features_and_clustered_pt_frames_match_cpu_frames(cuda, name):
+    """Two chained 32^2 frames on the card and on the CPU: bench.py's
+    features frame (grid candidates, pairwise MIS, SkyDI, volumetrics) with
+    the sun in through the box's opening, also with the GI grid NEE, and
+    ReSTIR PT on the 546-triangle box in clusters of 128."""
+    from zetaray_tpu_torch.ops.restir_di import ReSTIRConfig
+    from zetaray_tpu_torch.ops.restir_gi import ReSTIRGIConfig
+    from zetaray_tpu_torch.ops.skydi import SkyDIConfig
+    from zetaray_tpu_torch.ops.volumetrics import VolumetricsConfig
+
+    if name == "clustered_pt":
+        cfg = RenderConfig(width=32, height=32, mode="restir_pt", pt=PTConfig(max_bounces=3),
+                           denoise=True, taa=True)
+        cpu, cluster = subdivide_scene(cornell_box(), 500), 128
+    else:
+        cfg = RenderConfig(
+            width=32, height=32, mode="restir_gi",
+            pt=PTConfig(max_bounces=2, sky=SkyParams(sun_dir=SUN),
+                        stochastic_multi_bounce=True, path_regularization=True),
+            restir=ReSTIRConfig(lvg_samples=2, spatial_mis="pairwise"),
+            restir_gi=ReSTIRGIConfig(lvg=name == "features_gi_lvg"), skydi=True,
+            skydi_cfg=SkyDIConfig(spatial_mis="pairwise"), volumetrics=VolumetricsConfig(),
+            denoise=True, taa=True)
+        cpu, cluster = cornell_box(), None
+    cam, _, _ = _rays(cuda)
+    outs = {}
+    for dev in ("cpu", cuda):
+        scene = upload_scene(cpu, device=dev, cluster_size=cluster)
+        state = None
+        for k in range(2):
+            out, state = render_frame_restir(scene, cam.with_jitter(k), SEED + k, cfg, state)
+        outs[str(dev)] = out["hdr"].cpu()
+    got, want = outs[str(cuda)], outs["cpu"]
+    close = ((got - want).abs() <= 1e-3 * (1 + want.abs())).all(-1)
+    assert close.float().mean() >= 0.99

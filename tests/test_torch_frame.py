@@ -125,28 +125,39 @@ def test_unported_settings_raise():
     for mode in ("restir_di", "restir_gi", "restir_pt"):
         RenderConfig(**{**gi, "mode": mode, "pt": opts}).check_ported()
     RenderConfig(**{**gi, "mode": "pt", "pt": opts}).check_ported(plain=True)
-    for kw in ({"pt": PTConfig(nee_mode="wops")}, {"restir_gi": ReSTIRGIConfig(lvg=True)},
-               {"mode": "pt"}, {"skydi": True, "pt": PTConfig(sky=SkyParams())},
-               {"render_scale": 0.5}, {"firefly_factor": 2.0}, {"tonemapper": "neutral"},
-               {"exposure_mode": "weighted_avg"}, {"volumetrics": object()},
+    # the light voxel grid, pairwise MIS, SkyDI and volumetrics, in every mode
+    from zetaray_tpu_torch.ops.restir_di import ReSTIRConfig
+    from zetaray_tpu_torch.ops.skydi import SkyDIConfig
+    from zetaray_tpu_torch.ops.volumetrics import VolumetricsConfig
+
+    features = dict(restir=ReSTIRConfig(lvg_samples=2, spatial_mis="pairwise"),
+                    restir_gi=ReSTIRGIConfig(lvg=True), skydi=True,
+                    skydi_cfg=SkyDIConfig(spatial_mis="pairwise"),
+                    volumetrics=VolumetricsConfig(), pt=PTConfig(sky=SkyParams()))
+    for mode in ("restir_di", "restir_gi", "restir_pt"):
+        RenderConfig(**{**gi, **features, "mode": mode}).check_ported()
+    RenderConfig(**{**gi, **features, "mode": "pt"}).check_ported(plain=True)
+    for kw in ({"pt": PTConfig(nee_mode="wops")}, {"mode": "pt"}, {"render_scale": 0.5},
+               {"firefly_factor": 2.0}, {"tonemapper": "neutral"},
+               {"exposure_mode": "weighted_avg"},
                {"mode": "restir_di", "pt": PTConfig(nee_mode="wops")}):
         cfg = RenderConfig(**{**gi, **kw})
         with pytest.raises(NotImplementedError):
             cfg.check_ported()
     for kw in ({"mode": "restir_gi"}, {"mode": "restir_pt"}, {"mode": "restir_di"},
-               {"pt": PTConfig(nee_mode="wops")}, {"tonemapper": "neutral"},
-               {"volumetrics": object()}):
+               {"pt": PTConfig(nee_mode="wops")}, {"tonemapper": "neutral"}):
         cfg = RenderConfig(**{**gi, "mode": "pt", **kw})
         with pytest.raises(NotImplementedError):
             cfg.check_ported(plain=True)
-    # ReSTIR PT on a clustered scene (its reuse passes sweep the dense table)
+    # ReSTIR PT on a clustered scene renders (B8 and B9 on the card)
     from zetaray_tpu_torch.scene.scene import upload_scene
     from zetaray_tpu_torch.scene.subdivide import subdivide_scene
 
     clustered = upload_scene(subdivide_scene(cornell_box(), 500), device="cpu", cluster_size=128)
     cam = camera_from_arrays(cam_dict(_camera(0)))
-    with pytest.raises(NotImplementedError, match="clustered"):
-        render_frame_restir(clustered, cam, 1, RenderConfig(**{**gi, "mode": "restir_pt"}), None)
+    cfg = RenderConfig(**{**gi, "mode": "restir_pt", "width": 16, "height": 16})
+    out, state = render_frame_restir(clustered, cam, 1, cfg, None)
+    assert torch.isfinite(out["hdr"]).all() and out["hdr"].mean() > 0
 
 
 def test_loaders_default_to_the_card(monkeypatch):
@@ -174,9 +185,9 @@ def test_loaders_default_to_the_card(monkeypatch):
 
 def test_port_runs_without_jax():
     """Port frames on the CPU (DI only, with ReSTIR GI, with ReSTIR PT, plain
-    PT, the JAX app's default restir_di frame with the sun and sky, and
-    ReSTIR GI on a clustered scene) in a process where importing jax
-    fails."""
+    PT, the JAX app's default restir_di frame with the sun and sky, ReSTIR
+    GI and ReSTIR PT on a clustered scene, and bench.py's features frame on
+    both) in a process where importing jax fails."""
     code = textwrap.dedent("""
         import sys
         sys.modules["jax"] = None
@@ -218,6 +229,28 @@ def test_port_runs_without_jax():
         out, state = render_frame_restir(clustered, cam, 8, cfg, state)
         assert torch.isfinite(out["hdr"]).all() and out["hdr"].mean() > 0
         assert (state.gi_reservoirs[10] > 1).any()
+        # ReSTIR PT there, and bench.py's features frame (grid candidates,
+        # pairwise MIS, SkyDI, volumetrics) with the GI grid NEE, on both scenes
+        from zetaray_tpu_torch.ops.restir_di import ReSTIRConfig
+        from zetaray_tpu_torch.ops.restir_gi import ReSTIRGIConfig
+        from zetaray_tpu_torch.ops.skydi import SkyDIConfig
+        from zetaray_tpu_torch.ops.volumetrics import VolumetricsConfig
+        cfg = RenderConfig(width=16, height=16, mode="restir_pt", pt=PTConfig(max_bounces=3))
+        out, state = render_frame_restir(clustered, cam, 7, cfg, None)
+        assert torch.isfinite(out["hdr"]).all() and out["hdr"].mean() > 0
+        cfg = RenderConfig(
+            width=16, height=16, mode="restir_gi",
+            pt=PTConfig(max_bounces=2, sky=SkyParams(sun_dir=(0.3, 0.8, 0.2)),
+                        stochastic_multi_bounce=True, path_regularization=True),
+            restir=ReSTIRConfig(lvg_samples=2, spatial_mis="pairwise"),
+            restir_gi=ReSTIRGIConfig(lvg=True), skydi=True,
+            skydi_cfg=SkyDIConfig(spatial_mis="pairwise"), volumetrics=VolumetricsConfig(),
+            denoise=True, taa=True)
+        for sc in (scene, clustered):
+            out, state = render_frame_restir(sc, cam, 7, cfg, None)
+            out, state = render_frame_restir(sc, cam, 8, cfg, state)
+            assert torch.isfinite(out["hdr"]).all() and out["hdr"].mean() > 0
+            assert state.sky_reservoirs is not None
         assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules
                        if sys.modules[m] is not None)
         print("ok")

@@ -9,7 +9,10 @@ and the alias table), so the images agree pixel for pixel but where a ray
 meets an edge shared by two triangles, or where XLA's fused multiply-adds
 move a value across a test: the shares below hold that margin. The scene
 is the Cornell box split to 546 triangles and clustered by 128 slots; the
-JAX frames run with ``band_rows=0`` (the port has no banded gathers).
+JAX frames run with ``band_rows=0`` (the port has no banded gathers). The
+ReSTIR PT frames there take every ray query through B8 and trace their
+suffixes with the wavefront tracer, in the sorted order of ``sort_suffix``
+or without it.
 """
 
 import numpy as np
@@ -21,11 +24,15 @@ import torch
 from zetaray_tpu.accel.megakernel import gbuffer as jax_gbuffer
 from zetaray_tpu.ops import pathtracer as JPT
 from zetaray_tpu.ops import restir_gi as JRG
+from zetaray_tpu.ops import restir_pt as JRP
+from zetaray_tpu.ops.sky import SkyParams as JSkyParams
 from zetaray_tpu.render import frame as JF
 from zetaray_tpu.scene import scene as JS
 from zetaray_tpu_torch.interop import camera_from_arrays
 from zetaray_tpu_torch.ops import pathtracer as TPT
 from zetaray_tpu_torch.ops import restir_gi as TRG
+from zetaray_tpu_torch.ops import restir_pt as TRP
+from zetaray_tpu_torch.ops.sky import SkyParams
 from zetaray_tpu_torch.render.frame import (
     RenderConfig, pick_rt, render_frame, render_frame_restir,
 )
@@ -133,3 +140,45 @@ def test_plain_pt_frame_matches_jax(scenes):
     want = np.asarray(out_j["hdr"])
     assert want.mean() > 0
     assert _share(out_t["hdr"].numpy(), want) >= 0.99
+
+
+SUN = (0.2, 0.45, 0.87)  # in through the box's opening at +z
+# name: (max_bounces, the sun or None, ReSTIRPTConfig.sort_suffix). At 3
+# bounces (bench.py's PT frame) the suffix past x3 gathers emission only and
+# draws no random number; from 4 on its NEE draws by ray index, so the
+# order of the suffix rays shows
+PT_CASES = {"pt": (3, None, True), "pt_4": (4, None, True), "pt_sky_4": (4, SUN, True),
+            "pt_unsorted_4": (4, None, False)}
+
+
+@pytest.mark.parametrize("name", sorted(PT_CASES))
+def test_chained_restir_pt_frames_match_jax(scenes, name):
+    """Two chained ReSTIR PT frames (max_bounces 3 or 4) on the clustered box,
+    each package chaining its own, with the a-trous filter and TAA off: the
+    prefix, suffix and replay queries through B8 (the JAX package's stream
+    query), the suffix past x3 through the wavefront tracer, whose random
+    streams are keyed by ray index, so with ``sort_suffix`` both packages
+    trace the suffix in the same stable order of (material, octant) keys.
+    The JAX frames run eagerly."""
+    jdev, tdev = scenes["clustered"]
+    bounces, sun, sort = PT_CASES[name]
+    base = dict(width=RES, height=RES, mode="restir_pt", denoise=False, taa=False)
+    cfg_j = JF.RenderConfig(band_rows=0, **base, restir_pt=JRP.ReSTIRPTConfig(sort_suffix=sort),
+                            pt=JPT.PTConfig(max_bounces=bounces, sky=None if sun is None else
+                                            JSkyParams(sun_dir=sun)))
+    cfg_t = RenderConfig(**base, restir_pt=TRP.ReSTIRPTConfig(sort_suffix=sort),
+                         pt=TPT.PTConfig(max_bounces=bounces, sky=None if sun is None else
+                                         SkyParams(sun_dir=sun)))
+    state_j = state_t = None
+    for k in range(2):
+        out_j, state_j = JF.render_frame_restir(jdev, _camera(k), jax.random.PRNGKey(k), cfg_j,
+                                                state_j)
+        out_t, state_t = render_frame_restir(tdev, camera_from_arrays(cam_dict(_camera(k))),
+                                             _seed(k), cfg_t, state_t)
+        got = out_t["hdr"].numpy()
+        assert got.shape == (RES, RES, 3) and np.isfinite(got).all()
+        assert _share(got, out_j["hdr"]) >= 0.98
+        assert abs(got.mean() - np.asarray(out_j["hdr"]).mean()) <= 0.01 * got.mean()
+    assert (state_t.gi_reservoirs[TRP.PR.M] > 1).float().mean() > 0.3  # temporal PT reuse ran
+    pt, pt_want = state_t.gi_reservoirs.numpy(), np.asarray(state_j.gi_reservoirs)
+    assert np.isclose(pt, pt_want, rtol=1e-3, atol=1e-5).all(0).mean() >= 0.98

@@ -1,4 +1,4 @@
-"""ReSTIR DI, as the JAX package's ``ops/restir_di.py`` (biased spatial MIS).
+"""ReSTIR DI, as the JAX package's ``ops/restir_di.py``.
 
 Reservoir rows ([16, N] float32, the JAX package's layout):
   0-2 y_pos | 3-5 y_ng | 6-8 y_Le | 9 w_sum | 10 M | 11 W
@@ -19,7 +19,11 @@ sum and one-hot fetch with a running sum and an indexed read.
 
 Everything else here is plain PyTorch: the reuse passes gather reservoirs
 with ``index_select`` over the flat pixel axis (the TPU's banded windows
-are not needed on the card).
+are not needed on the card). The spatial pass is the biased M-clamped merge
+(``spatial_mis="biased"``) or pairwise MIS (``"pairwise"``: ``k`` =
+``spatial_neighbors`` defensive strategies a pass, unbiased); with
+``lvg_samples`` > 0 each pixel also merges that many candidates from the
+light voxel grid (``ops.prelighting``) into its initial reservoir.
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ from ..core.rows import stack_rows
 from ..core.vec3 import V3
 from . import shading_soa as S
 from .gbuffer_pack import temporal_geom_ok
+from .prelighting import sample_lvg
 from .reservoir_pack import DI_PACKED_ROWS, pack_di, unpack_di
 
 R_ROWS = 16
@@ -72,21 +77,13 @@ class ReSTIRConfig:
     depth_tolerance: float = 0.1  # relative depth test for reuse
     normal_tolerance: float = 0.9  # min dot(ns, ns_prev) for reuse
     full_target: bool = False  # True is not ported yet
-    lvg_samples: int = 0  # light-voxel-grid candidates: not ported yet
-    spatial_mis: str = "biased"  # "pairwise" is not ported yet
-    spatial_neighbors: int = 3  # read by pairwise MIS only
+    lvg_samples: int = 0  # light-voxel-grid candidates merged into each initial reservoir
+    spatial_mis: str = "biased"  # "pairwise": pairwise MIS; anything else the biased merge
+    spatial_neighbors: int = 3  # neighbours a pairwise pass; read by pairwise MIS only
     packed_reuse: bool = True  # False is not ported yet
 
     def __post_init__(self):
         refuse_unported_reuse(self)
-        if self.lvg_samples > 0:
-            raise NotImplementedError(
-                "light-voxel-grid DI candidates (ops.prelighting) are not ported yet"
-            )
-        if self.spatial_mis != "biased":
-            raise NotImplementedError(
-                f"spatial_mis={self.spatial_mis!r}: pairwise MIS is not ported yet"
-            )
 
 
 def surface_from_gbuf(gb: torch.Tensor):
@@ -240,6 +237,26 @@ def _surf(gbuf):
     return (pos, ns, mat, frame, frame.to_local(wo), valid)
 
 
+def lvg_merge(res, gbuf, camera, lvg, seed: int, cfg: ReSTIRConfig, lvg_cfg):
+    """Merge ``cfg.lvg_samples`` light-voxel-grid candidates into each
+    pixel's reservoir (``ops.prelighting.sample_lvg`` with salt 0x51AB + s;
+    the merge's uniform ``uniform4(pixel, s, seed, 0x1B7A)``). A candidate
+    enters as a one-sample reservoir, M = 1 and W = 1 / pdf_area, so its
+    merge weight is the RIS weight phat / pdf."""
+    n = res.shape[1]
+    surf = _surf(gbuf)
+    pix = torch.arange(n, dtype=torch.int64, device=res.device)
+    for s in range(cfg.lvg_samples):
+        rows, ok = sample_lvg(lvg, gbuf, camera, seed, lvg_cfg, salt=0x51AB + s)
+        okf = ok.to(torch.float32)
+        res_b = stack_rows(R_ROWS, {
+            **{i: rows[i] for i in range(9)},
+            10: okf, 11: okf / torch.clamp_min(rows[9], 1e-9), 12: rows[10],
+        }, n=n)
+        res = merge(res, res_b, surf, uniform4(pix, s, seed, salt=0x1B7A)[0])
+    return res
+
+
 def take_multi(parts, idx):
     """Gather several [R_i, N] tables at flat indices ``idx`` with one
     ``index_select``; uint32 parts ride bit-cast as float32."""
@@ -351,18 +368,104 @@ def spatial_step(res, gbuf, width, height, seed, it, cfg: ReSTIRConfig):
     n = res.shape[1]
     surf = _surf(gbuf)
     pix = torch.arange(n, dtype=torch.int64, device=res.device)
-    u = uniform4(pix, it, seed, salt=0x5A71)
-    nidx = disk_neighbor(pix, width, height, u, cfg.spatial_radius)
+    nidx, u_merge = neighbor_pick(pix, width, height, seed, it, cfg)
     nb, nb_geom = gather_reservoirs(res, geom_table(gbuf), nidx)
     ok = geom_ok_slim(gbuf, nb_geom, surf[1], cfg)
-    return merge(res, drop_m_w(nb, ok), surf, u[2])
+    return merge(res, drop_m_w(nb, ok), surf, u_merge)
+
+
+def neighbor_pick(pix, width, height, seed, tag: int, cfg):
+    """A random disk neighbour of each pixel (``uniform4(pixel, tag, seed,
+    0x5A71)``): (flat index, the uniform of its stream pick)."""
+    u = uniform4(pix, tag, seed, salt=0x5A71)
+    return disk_neighbor(pix, width, height, u, cfg.spatial_radius), u[2]
+
+
+def geom_ok(gbuf, nb_g, ns: V3, cfg):
+    """The neighbour-agreement test against gathered full G-buffer rows."""
+    depth = gbuf[G.DEPTH]
+    return (
+        (torch.abs(nb_g[G.DEPTH] - depth) < cfg.depth_tolerance * torch.clamp_min(depth, 1e-3))
+        & (v3.dot(ns, v3.from_rows(nb_g, G.NS)) > cfg.normal_tolerance)
+        & (nb_g[G.VALID] > 0.5)
+    )
+
+
+def spatial_step_pairwise(res, gbuf, width, height, seed, it, cfg: ReSTIRConfig):
+    """One pairwise-MIS spatial pass over ``cfg.spatial_neighbors``
+    defensive strategies (neighbour i of pass ``it`` from stream it*16 + i).
+
+    A neighbour's sample y_i gets the weight M_i p_i(y_i) / (M_i p_i(y_i) +
+    (M_c / k_eff) p_c(y_i)) and the canonical sample collects the
+    complements; W divides by 1 + k_eff, where k_eff counts the neighbours
+    that pass the geometry test. The samples are area-measure light points,
+    so every shift has Jacobian 1."""
+    n = res.shape[1]
+    pos, ns, mat, frame, wo_l, valid = _surf(gbuf)
+    pix = torch.arange(n, dtype=torch.int64, device=res.device)
+    res_p = pack_di(res)
+    nbs = []
+    k_eff = torch.zeros((n,), dtype=torch.float32, device=res.device)
+    for i in range(cfg.spatial_neighbors):
+        nidx, u_stream = neighbor_pick(pix, width, height, seed, it * 16 + i, cfg)
+        nb_p, nb_g = take_multi([res_p, gbuf], nidx)
+        ok = geom_ok(gbuf, nb_g, ns, cfg) & valid
+        k_eff = k_eff + ok.to(torch.float32)
+        nbs.append((unpack_di(nb_p), nb_g, ok, u_stream))
+    k_div = torch.clamp_min(k_eff, 1.0)
+
+    phat_c_yc, w_c_cap, m_c_count = res[13], res[11], res[10]
+    m_c = torch.ones_like(k_eff)
+    out = res
+    w_sum_s = torch.zeros_like(k_eff)
+    m_s = m_c_count
+    phat_sel = phat_c_yc
+    yc = (v3.from_rows(res, 0), v3.from_rows(res, 3), v3.from_rows(res, 6), res[12] > 0.5)
+    for nb, nb_g, ok, u_stream in nbs:
+        m_i_count = nb[10]
+        # p_c(y_i): the neighbour's sample rated at this pixel's surface
+        phat_c_yi, *_ = phat(mat, frame, wo_l, pos, ns, v3.from_rows(nb, 0),
+                             v3.from_rows(nb, 3), v3.from_rows(nb, 6), nb[12] > 0.5, full=False)
+        num_i = m_i_count * nb[13]
+        den_i = num_i + (m_c_count / k_div) * phat_c_yi
+        m_i = torch.where(ok & (den_i > 0.0), num_i / torch.clamp_min(den_i, 1e-12), 0.0)
+        w_i = m_i * phat_c_yi * nb[11]
+        w_sum_s = w_sum_s + w_i
+        take = u_stream * torch.clamp_min(w_sum_s, 1e-30) < w_i
+        out = torch.where(take[None, :], nb, out)
+        phat_sel = torch.where(take, phat_c_yi, phat_sel)
+
+        # p_i(y_c): this pixel's sample rated at the neighbour's surface
+        pos_i, ns_i, _ng_i, wo_i, mat_i, _ = surface_from_gbuf(nb_g)
+        frame_i = S.make_frame(ns_i)
+        phat_i_yc, *_ = phat(mat_i, frame_i, frame_i.to_local(wo_i), pos_i, ns_i, *yc,
+                             full=False)
+        num_c = m_i_count * phat_i_yc
+        den_c = num_c + (m_c_count / k_div) * phat_c_yc
+        dm = torch.where(den_c > 0.0, 1.0 - num_c / torch.clamp_min(den_c, 1e-12), 1.0)
+        m_c = m_c + torch.where(ok, dm, 0.0)
+        m_s = m_s + torch.where(ok, m_i_count, 0.0)
+
+    # the canonical sample's stream
+    w_c = m_c * phat_c_yc * w_c_cap
+    w_sum_s = w_sum_s + w_c
+    u_end = uniform4(pix, it * 16 + 15, seed, salt=0x5A72)[0]
+    take_c = u_end * torch.clamp_min(w_sum_s, 1e-30) < w_c
+    out = torch.where(take_c[None, :], res, out)
+    phat_sel = torch.where(take_c, phat_c_yc, phat_sel)
+    w_new = torch.where(
+        phat_sel > 0.0, w_sum_s / torch.clamp_min(phat_sel * (1.0 + k_eff), 1e-12), 0.0
+    )
+    return stack_rows(out.shape[0], {9: w_sum_s, 10: m_s, 11: w_new, 13: phat_sel}, like=out)
 
 
 def spatial_reuse(res, gbuf, width, height, seed, cfg: ReSTIRConfig):
-    """Merge reservoirs from random nearby pixels."""
+    """Merge reservoirs from random nearby pixels (``cfg.spatial_mis``:
+    pairwise MIS or the biased merge)."""
+    step = spatial_step_pairwise if cfg.spatial_mis == "pairwise" else spatial_step
     out = res
     for it in range(cfg.spatial_iterations):
-        out = spatial_step(out, gbuf, width, height, seed, it, cfg)
+        out = step(out, gbuf, width, height, seed, it, cfg)
     return out
 
 

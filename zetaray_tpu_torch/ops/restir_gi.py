@@ -7,7 +7,10 @@ dense scene and by the wavefront ``ops.pathtracer.trace_reference``
 (kernels B8/B9) on a clustered one. With a sky, a ray that escapes becomes
 a vertex on a far sphere (``SKY_DIST``) that carries the sky's radiance;
 with ``stochastic_multi_bounce`` half the paths from rough primary hits end
-at x2.
+at x2. The ReSTIR_GI_LVG variant (``lvg``) moves the NEE at x2 out of the
+path trace (bounce 0 runs with ``min_nee_bounce=1``, in kernel B5 on a
+dense scene) and draws its light from the light voxel grid
+(``_nee_emissive_lvg``, shadow segment B3 or B9).
 Reservoir weights use the area measure, so reuse needs no Jacobian.
 
 Reservoir rows ([16, N] float32, the JAX package's layout):
@@ -33,9 +36,10 @@ from ..core.rows import stack_rows
 from ..core.vec3 import V3
 from . import shading_soa as S
 from . import sky as SK
-from ..scene.scene import A
+from ..scene.scene import A, EA
 from .gbuffer_pack import temporal_geom_ok
 from .pathtracer import park, trace_reference
+from .prelighting import sample_light_points, sample_lvg_at
 from .restir_di import (
     disk_neighbor, drop_m_w, gather_reservoirs, geom_ok_slim, geom_table, refuse_unported_reuse,
     reproject_prev,
@@ -60,7 +64,7 @@ class ReSTIRGIConfig:
     depth_tolerance: float = 0.1
     normal_tolerance: float = 0.9
     packed_reuse: bool = True  # False is not ported yet
-    lvg: bool = False  # light-voxel-grid NEE at x2: not ported yet (the frame refuses it)
+    lvg: bool = False  # the NEE at x2 draws its light from the light voxel grid
     boiling_suppression: bool = True
 
     def __post_init__(self):
@@ -108,8 +112,47 @@ def secondary_rays(gbuf, seed: int):
     return v3.aos3(pos + ng * _EPS_RAY), v3.aos3(wi), pdf_sa, live
 
 
+def _nee_emissive_lvg(scene, lvg, camera, pos2: V3, ns2: V3, ng2: V3, mat2, wo2: V3, live,
+                      seed: int, lvg_cfg) -> V3:
+    """NEE at the reconnection vertex x2 with a light from the light voxel
+    grid (``sample_lvg_at``, salt 0x6B21), or, where the grid has none, a
+    power-sampled light (``uniform4(pixel, 7, seed, 0x6B22)``), weighted by
+    the power heuristic against the BSDF, behind one shadow segment.
+    ``wo2`` points back toward x1. Returns radiance, zero where not ``live``."""
+    n = ns2.x.shape[0]
+    zero = torch.zeros((n,), dtype=torch.float32, device=ns2.x.device)
+    if scene.num_emissives == 0:
+        return V3(zero, zero, zero)
+    pix = torch.arange(n, dtype=torch.int64, device=zero.device)
+    rows_l, use_lvg = sample_lvg_at(lvg, v3.aos3(pos2), live, camera, seed, lvg_cfg,
+                                    salt=0x6B21)
+    row, lp_f, pdf_f = sample_light_points(scene, uniform4(pix, 7, seed, salt=0x6B22))
+
+    lp = v3.where(use_lvg, v3.from_rows(rows_l, 0), V3(*lp_f.T))
+    lng = v3.where(use_lvg, v3.from_rows(rows_l, 3), V3(*row[:, EA.NG : EA.NG + 3].T))
+    lle = v3.where(use_lvg, v3.from_rows(rows_l, 6), V3(*row[:, EA.LE : EA.LE + 3].T))
+    lpdf = torch.where(use_lvg, rows_l[9], pdf_f)
+    two = torch.where(use_lvg, rows_l[10], row[:, EA.TWO_SIDED]) > 0.5
+
+    to_l = lp - pos2
+    dist2 = torch.clamp_min(v3.dot(to_l, to_l), 1e-12)
+    wi = to_l * torch.rsqrt(dist2)
+    cos_s = v3.dot(wi, ns2)
+    cos_l_raw = -v3.dot(wi, lng)
+    cos_l = torch.where(two, torch.abs(cos_l_raw), cos_l_raw)
+    frame2 = S.make_frame(ns2)
+    f2, pdf_b = S.bsdf_eval(mat2, frame2.to_local(wo2), frame2.to_local(wi))
+    pdf_l_sa = lpdf * dist2 / torch.clamp_min(cos_l, 1e-8)
+    cand = live & (cos_s > 1e-6) & (cos_l > 1e-6) & (lpdf > 0.0)
+    occ = intersect_occluded(scene, v3.aos3(pos2 + ng2 * _EPS_RAY), v3.aos3(to_l),
+                             t_min=1e-3, t_max=1.0 - 1e-3)
+    mis = S.power_heuristic(pdf_l_sa, pdf_b)
+    gain = torch.where(cand & ~occ, cos_s * mis / torch.clamp_min(pdf_l_sa, 1e-12), 0.0)
+    return V3(f2.x * lle.x * gain, f2.y * lle.y * gain, f2.z * lle.z * gain)
+
+
 def initial_samples(scene, gbuf, pt_cfg, seed: int, rt: int, light_sets=None,
-                    spread_angle=0.0) -> torch.Tensor:
+                    spread_angle=0.0, lvg=None, lvg_cam=None, lvg_cfg=None) -> torch.Tensor:
     """One GI sample per pixel: a BSDF direction at the primary hit, traced
     with ``max_bounces - 1`` further bounces (x2's own emission excluded,
     NEE from x2 on). On a clustered scene x2 = o2 + t * d2 from the trace's
@@ -118,7 +161,9 @@ def initial_samples(scene, gbuf, pt_cfg, seed: int, rt: int, light_sets=None,
     the sky's radiance (the sun disk excluded: the primary sun NEE owns it).
     With ``pt_cfg.stochastic_multi_bounce`` (and ``max_bounces`` > 1) the
     path of a pixel whose primary roughness is at least 0.1 ends at x2 with
-    probability 1/2 (``uniform4(pixel, 97, seed, 0x53B0)``).
+    probability 1/2 (``uniform4(pixel, 97, seed, 0x53B0)``). With ``lvg``
+    (the frame's grid, its camera ``lvg_cam`` and ``lvg_cfg``) the NEE at x2
+    is ``_nee_emissive_lvg`` in place of the trace's bounce-0 NEE.
     Returns reservoir rows [R_ROWS, N]."""
     pos, ns, _ng, wo, mat, frame, _valid = _surf(gbuf)
     wo_l = frame.to_local(wo)
@@ -132,7 +177,7 @@ def initial_samples(scene, gbuf, pt_cfg, seed: int, rt: int, light_sets=None,
         pt_cfg,
         max_bounces=max(pt_cfg.max_bounces - 1, 0),
         min_emissive_bounce=max(pt_cfg.min_emissive_bounce - 1, 1),
-        min_nee_bounce=0,
+        min_nee_bounce=1 if lvg is not None else 0,
     )
     if scene.cluster_aabb is None:
         l2_rows, surf2, alive2 = trace_with_first_hit(
@@ -141,6 +186,9 @@ def initial_samples(scene, gbuf, pt_cfg, seed: int, rt: int, light_sets=None,
         )
         x2_hit = alive2 > 0.5
         x2, n2, l2 = v3.from_rows(surf2, 0), v3.from_rows(surf2, 6), v3.from_rows(l2_rows, 0)
+        ns2 = v3.from_rows(surf2, 3)
+        mat2 = S.MatSoA(base=v3.from_rows(surf2, 9), metallic=surf2[12], roughness=surf2[13],
+                        ior=surf2[14])
     else:
         # the wavefront trace's bounce-0 closest hit is the x2 query; dead
         # rays are parked so the traversal culls them
@@ -151,7 +199,13 @@ def initial_samples(scene, gbuf, pt_cfg, seed: int, rt: int, light_sets=None,
         n2_raw = v3.from_rows(sh.attrs, A.NG)
         n2 = v3.where(v3.dot(n2_raw, V3(*d2.T)) > 0.0, -n2_raw, n2_raw)  # faces x1
         l2 = V3(*l2_rgb.T)
+        ns2 = n2
+        mat2 = S.MatSoA(base=v3.from_rows(sh.attrs, A.BASE), metallic=sh.attrs[A.METAL],
+                        roughness=sh.attrs[A.ROUGH], ior=torch.clamp_min(sh.attrs[A.IOR], 1.01))
     hit = x2_hit & live
+    if lvg is not None:
+        l2 = l2 + _nee_emissive_lvg(scene, lvg, lvg_cam, x2, ns2, n2, mat2, -V3(*d2.T), hit,
+                                    seed, lvg_cfg)
     if pt_cfg.sky is not None:
         sky_miss = live & ~x2_hit
         d2v = V3(*d2.T)

@@ -4,12 +4,14 @@
 
 For each path -- on the procedural Cornell box the flagship ReSTIR GI frame
 at 512^2 and 1920x1080 (max_bounces 3 and 2), the ReSTIR PT frame at 512^2,
-the plain path-traced frame at 512^2 (max_bounces 4) and the JAX app's
+the plain path-traced frame at 512^2 (max_bounces 4), the JAX app's
 default frame (mode="restir_di", max_bounces 4, TAA) at 512^2 without and
-with its sun and sky, and on the box
+with its sun and sky, and bench.py's features frame (light-voxel-grid DI
+candidates, pairwise MIS, SkyDI, froxel volumetrics) at 256^2 as it stands
+and at 512^2 with the sun in through the box's opening; and on the box
 split to 139,266 triangles (clustered: every ray query through B8/B9) the
-ReSTIR GI frame at 256^2 (max_bounces 2), each with a-trous and TAA where
-the frame has them -- it measures:
+ReSTIR GI frame (max_bounces 2) and the ReSTIR PT frame (max_bounces 3) at
+256^2, each with a-trous and TAA where the frame has them -- it measures:
 
 - frame: host clock around each of ``--frames`` chained frames, each ending
   in ``torch.cuda.synchronize()``; the median of frames 2 on (the first has
@@ -47,10 +49,13 @@ import torch
 from .accel import intersect as XI
 from .accel import megakernel as MK
 from .accel import stream as ST
+from .ops import prelighting as PL
 from .ops import restir_di as RD
 from .ops import restir_gi as RG
 from .ops import restir_pt as RP
+from .ops import volumetrics as VL
 from .ops.pathtracer import PTConfig
+from .ops.skydi import SkyDIConfig
 from .ops.sky import SkyParams
 from .render import frame as F
 from .scene.camera import Camera
@@ -63,7 +68,9 @@ from .timing import card_line
 STAGES = [
     (F, "gbuffer", "G-buffer (B1; clustered B8)"), (F, "build_light_sets", "light sets"),
     (RD, "reproject_prev", "joint temporal gather"), (RD, "take_multi", "joint temporal gather"),
-    (RD, "initial_candidates", "DI RIS (B2)"), (RD, "temporal_reuse", "DI temporal reuse"),
+    (RD, "initial_candidates", "DI RIS (B2)"),
+    (PL, "build_light_voxel_grid", "light voxel grid build"),
+    (RD, "lvg_merge", "DI grid candidates"), (RD, "temporal_reuse", "DI temporal reuse"),
     (RD, "visibility_reuse", "DI visibility (B3; clustered B9)"),
     (RD, "spatial_reuse", "DI spatial reuse"), (RD, "shade", "DI shade (B3; clustered B9)"),
     (RG, "initial_samples", "GI initial samples (B4-B6; clustered B8, B9)"),
@@ -74,6 +81,9 @@ STAGES = [
     (RP, "spatial_reuse", "PT spatial reuse (replay: B7)"), (RP, "shade", "PT shade (B3)"),
     (F, "trace", "path trace (B6; clustered B8, B9)"),
     (F, "_sky_direct", "sky background + primary sun NEE (B3; clustered B9)"),
+    (F, "_skydi", "SkyDI (B3; clustered B9)"),
+    (VL, "build_froxels", "froxel build (B3; clustered B9)"),
+    (VL, "apply_inscattering", "froxel compositing"),
     (F.DN, "atrous_denoise_p", "a-trous"), (F.TA, "taa_resolve_p", "TAA"),
     (F, "_postprocess", "exposure + AgX + sRGB"), (F, "pack_temporal", "pack temporal G-buffer"),
 ]
@@ -108,9 +118,25 @@ def _paths():
                                                      pt=PTConfig(max_bounces=4), taa=True)),
         "restir_di_sky_512": ("box", cam, F.RenderConfig(mode="restir_di", taa=True, pt=PTConfig(
             max_bounces=4, sky=SkyParams(sun_dir=(0.2, 0.45, 0.87))))),
+        "features_256": ("box", cam, _features(256, (0.3, 0.8, 0.2))),
+        "features_sun_512": ("box", cam, _features(512, (0.2, 0.45, 0.87))),
         "clustered_gi_256": ("box139k", cam, F.RenderConfig(
             width=256, height=256, mode="restir_gi", pt=PTConfig(max_bounces=2), **post)),
+        "clustered_pt_256": ("box139k", cam, F.RenderConfig(
+            width=256, height=256, mode="restir_pt", pt=PTConfig(max_bounces=3), **post)),
     }
+
+
+def _features(res: int, sun_dir) -> F.RenderConfig:
+    """bench.py's features frame at res^2 with the sun toward ``sun_dir``."""
+    return F.RenderConfig(
+        width=res, height=res, mode="restir_gi",
+        pt=PTConfig(max_bounces=2, sky=SkyParams(sun_dir=sun_dir), stochastic_multi_bounce=True,
+                    path_regularization=True),
+        restir=RD.ReSTIRConfig(lvg_samples=2, spatial_mis="pairwise"),
+        restir_gi=RG.ReSTIRGIConfig(boiling_suppression=True), skydi=True,
+        skydi_cfg=SkyDIConfig(spatial_mis="pairwise"), volumetrics=VL.VolumetricsConfig(),
+        denoise=True, taa=True)
 
 
 def _chain(scene, cam, cfg, frames, seed=0x2468ACE1, after=None):

@@ -18,13 +18,17 @@ DI and indirect reservoirs are fed forward. ``render_frame`` covers
 With ``pt.sky`` set (the JAX app's ``--sun``) the path traces gather the
 sky and the sun (``ops.sky``), and the GI and PT modes add what the path
 trace gives the other modes: the sky behind primary-miss pixels and the
-sun's light at the primary hits (``_sky_direct``, the JAX frame's
-SkyDI-lite).
+sun's light at the primary hits, either from SkyDI (``skydi``: reservoirs
+over sky directions, ``ops.skydi``) or from ``_sky_direct`` (the JAX
+frame's SkyDI-lite). ``volumetrics`` composites froxel inscattering
+(``ops.volumetrics``) before the post chain, in both frames. The light
+voxel grid (``ops.prelighting``) is built once a frame where
+``restir.lvg_samples`` > 0 (extra DI candidates) or ``restir_gi.lvg`` asks
+for it (the GI path's NEE at x2).
 
 On a clustered scene (``scene.cluster_aabb`` set) every ray query goes
 through the streaming kernels B8/B9 and the path traces through the
-wavefront ``ops.pathtracer.trace_reference``: the ReSTIR GI frame and plain
-PT run; ReSTIR PT there is not ported yet.
+wavefront ``ops.pathtracer.trace_reference``.
 
 The JAX frame's banded gathers (``band_rows``/``band_halo``) are a TPU
 workaround and have no counterpart here: the two fields are accepted and
@@ -43,12 +47,15 @@ from ..core import vec3 as v3
 from ..core.vec3 import V3
 from ..ops import denoise as DN
 from ..ops import post
+from ..ops import prelighting as PL
 from ..ops import restir_di as RD
 from ..ops import restir_gi as RG
 from ..ops import restir_pt as RP
 from ..ops import shading_soa as S
 from ..ops import sky as SK
+from ..ops import skydi as SD
 from ..ops import taa as TA
+from ..ops import volumetrics as VL
 from ..ops.gbuffer_pack import pack_temporal
 from ..ops.pathtracer import PTConfig, trace
 from ..ops.reservoir_pack import pack_di, pack_pt, unpack_di, unpack_pt
@@ -67,10 +74,10 @@ class RenderConfig:
     restir_gi: RG.ReSTIRGIConfig | None = None  # None: the default, built in __post_init__
     restir_pt: RP.ReSTIRPTConfig | None = None  # None: the default, built in __post_init__
     indirect: bool = True
-    lvg_cfg: object = None  # the light-voxel grid's shape: not ported yet
-    skydi: bool = False
-    skydi_cfg: object = None  # not ported yet
-    volumetrics: object = None
+    lvg_cfg: PL.LVGConfig | None = None  # None: the default, built in __post_init__
+    skydi: bool = False  # SkyDI in the GI and PT modes (with pt.sky)
+    skydi_cfg: SD.SkyDIConfig | None = None  # None: the default, built in __post_init__
+    volumetrics: VL.VolumetricsConfig | None = None  # froxel inscattering (with pt.sky)
     render_scale: float = 1.0
     upscale_cfg: object = None  # not ported yet
     band_rows: int = -1  # accepted, no effect: the port has no banded gathers
@@ -88,11 +95,13 @@ class RenderConfig:
             object.__setattr__(self, "restir_gi", RG.ReSTIRGIConfig())
         if self.restir_pt is None:
             object.__setattr__(self, "restir_pt", RP.ReSTIRPTConfig())
-        for name, what in (("lvg_cfg", "the light-voxel grid (ops.prelighting)"),
-                           ("skydi_cfg", "SkyDI (ops.skydi)"),
-                           ("upscale_cfg", "the temporal upscaler (ops.upscale)")):
-            if getattr(self, name) is not None:
-                raise NotImplementedError(f"{name}: {what} is not ported yet")
+        if self.lvg_cfg is None:
+            object.__setattr__(self, "lvg_cfg", PL.LVGConfig())
+        if self.skydi_cfg is None:
+            object.__setattr__(self, "skydi_cfg", SD.SkyDIConfig())
+        if self.upscale_cfg is not None:
+            raise NotImplementedError(
+                "upscale_cfg: the temporal upscaler (ops.upscale) is not ported yet")
 
     def check_ported(self, plain: bool = False) -> None:
         """Raise for any setting this package does not implement yet, in
@@ -102,7 +111,6 @@ class RenderConfig:
         later = {
             f"mode={self.mode!r} in {'render_frame' if plain else 'render_frame_restir'}":
                 self.mode not in modes,
-            "volumetrics (ops.volumetrics)": self.volumetrics is not None,
             f"exposure_mode={self.exposure_mode!r} (weighted-average exposure)":
                 self.auto_exposure and self.exposure_mode != "histogram",
             f"tonemapper={self.tonemapper!r} (tonemappers other than AgX)":
@@ -110,15 +118,12 @@ class RenderConfig:
         }
         if not plain:
             later.update({
-                "skydi (ops.skydi)": self.skydi,
                 "render_scale != 1 (the temporal upscaler)": self.render_scale != 1.0,
                 "firefly_factor > 0 (the firefly filter)": self.firefly_factor > 0.0,
             })
         missing = [name for name, hit in later.items() if hit]
         if plain or self.indirect:
             missing += self.pt.unported()
-        if not plain and self.indirect and self.mode == "restir_gi" and self.restir_gi.lvg:
-            missing.append("restir_gi.lvg (light-voxel-grid NEE, ops.prelighting)")
         if missing:
             raise NotImplementedError("not ported yet: " + ", ".join(missing))
 
@@ -134,6 +139,7 @@ class FrameState:
     gbuf: torch.Tensor  # [TG.ROWS, N] packed temporal G-buffer
     camera_prev: Camera
     history: torch.Tensor  # [3, H, W] TAA history (HDR)
+    sky_reservoirs: torch.Tensor | None = None  # [16, N] SkyDI reservoirs (pre-spatial)
 
 
 def pick_rt(n: int) -> int:
@@ -178,6 +184,25 @@ def _sky_direct(scene, gb, sky) -> torch.Tensor:
     return _sky_background(gb, sky) + sun
 
 
+def _inscatter(scene, camera, gb, hdr, cfg: RenderConfig):
+    """hdr [3, H, W] through the froxel grid of this frame's camera."""
+    froxels = VL.build_froxels(scene, camera, cfg.pt.sky, cfg.volumetrics)
+    return VL.apply_inscattering(hdr, gb, camera, froxels, cfg.volumetrics, cfg.width,
+                                 cfg.height)
+
+
+def _skydi(scene, gb, state, w, h, seed, cfg: RenderConfig):
+    """SkyDI's direct light ([3, N]) and the pre-spatial reservoirs the next
+    frame reuses."""
+    sky, sd_cfg = cfg.pt.sky, cfg.skydi_cfg
+    sky_res = SD.initial_candidates(gb, sky, seed, sd_cfg)
+    if sd_cfg.temporal and state is not None and state.sky_reservoirs is not None:
+        sky_res = SD.temporal_reuse(sky_res, state.sky_reservoirs, state.gbuf, gb,
+                                    state.camera_prev, w, h, seed, sd_cfg, sky)
+    sky_sp = SD.spatial_reuse(sky_res, gb, w, h, seed, sd_cfg)
+    return SD.shade(scene, sky_sp, gb), sky_res
+
+
 def render_frame(scene, camera: Camera, seed: int, cfg: RenderConfig):
     """One plain path-traced frame (``mode="pt"``) on ``scene.device``:
     {"hdr": [H, W, 3] float32, "ldr": [H, W, 3] uint8}. ``seed`` is the u32
@@ -186,6 +211,8 @@ def render_frame(scene, camera: Camera, seed: int, cfg: RenderConfig):
     w, h = cfg.width, cfg.height
     o, d = camera.generate_rays(w, h, device=scene.device)
     hdr = trace(scene, o, d, seed, cfg.pt, rows_out=True).reshape(3, h, w)
+    if cfg.volumetrics is not None and cfg.pt.sky is not None:
+        hdr = _inscatter(scene, camera, gbuffer(scene, o, d), hdr, cfg)
     ldr = _postprocess(hdr, cfg)
     return {"hdr": hdr.permute(1, 2, 0), "ldr": ldr.permute(1, 2, 0)}
 
@@ -198,8 +225,6 @@ def render_frame_restir(scene, camera: Camera, seed: int, cfg: RenderConfig,
     for name, value in (("textures", textures), ("motion", motion), ("shard", shard)):
         if value is not None:
             raise NotImplementedError(f"{name} is not ported yet")
-    if cfg.mode == "restir_pt" and cfg.indirect and scene.cluster_aabb is not None:
-        raise NotImplementedError("ReSTIR PT on a clustered scene is not ported yet")
     w, h = cfg.width, cfg.height
     dev = scene.device
     o, d = camera.generate_rays(w, h, device=dev)
@@ -225,6 +250,12 @@ def render_frame_restir(scene, camera: Camera, seed: int, cfg: RenderConfig,
         pf_ind = (unpack_ind(p_ind), p_g, inside, depth_est)
 
     res = RD.initial_candidates(gb, lsets, seed, rt=rt)
+    gi_lvg = cfg.mode == "restir_gi" and cfg.restir_gi.lvg and cfg.indirect
+    lvg = None
+    if cfg.restir.lvg_samples > 0 or gi_lvg:
+        lvg = PL.build_light_voxel_grid(scene, camera, seed, cfg.lvg_cfg)
+    if cfg.restir.lvg_samples > 0:
+        res = RD.lvg_merge(res, gb, camera, lvg, seed, cfg.restir, cfg.lvg_cfg)
     if cfg.restir.temporal and state is not None:
         res = RD.temporal_reuse(
             res, state.reservoirs, state.gbuf, gb, state.camera_prev, w, h, seed, cfg.restir,
@@ -233,6 +264,12 @@ def render_frame_restir(scene, camera: Camera, seed: int, cfg: RenderConfig,
     res = RD.visibility_reuse(scene, res, gb)
     res_sp = RD.spatial_reuse(res, gb, w, h, seed, cfg.restir)
     direct = RD.shade(scene, res_sp, gb)
+    # SkyDI: the GI and PT modes take the sky's direct light from reservoirs
+    use_skydi = cfg.skydi and cfg.pt.sky is not None and cfg.mode in ("restir_gi", "restir_pt")
+    sky_res = None
+    if use_skydi:
+        sky_direct, sky_res = _skydi(scene, gb, state, w, h, seed, cfg)
+        direct = direct + sky_direct + _sky_background(gb, cfg.pt.sky)
 
     ind_res = torch.zeros_like(res)
     pt_cfg = replace(cfg.pt, min_emissive_bounce=2, min_nee_bounce=1)
@@ -250,7 +287,9 @@ def render_frame_restir(scene, camera: Camera, seed: int, cfg: RenderConfig,
         indirect = RP.shade(scene, pt_sp, gb)
     elif cfg.indirect and cfg.mode == "restir_gi":
         ind_res = RG.initial_samples(scene, gb, pt_cfg, seed, rt, light_sets=lsets,
-                                     spread_angle=camera.pixel_spread_angle(h))
+                                     spread_angle=camera.pixel_spread_angle(h),
+                                     lvg=lvg if gi_lvg else None, lvg_cam=camera,
+                                     lvg_cfg=cfg.lvg_cfg)
         if temporal:
             ind_res = RG.temporal_reuse(
                 ind_res, state.gi_reservoirs, state.gbuf, gb, state.camera_prev, w, h, seed,
@@ -260,9 +299,11 @@ def render_frame_restir(scene, camera: Camera, seed: int, cfg: RenderConfig,
         indirect = RG.shade(scene, gi_sp, gb)
     elif cfg.indirect:  # restir_di: the camera rays path-traced past their first hit
         indirect = trace(scene, o, d, seed, pt_cfg, rt=rt, rows_out=True, light_sets=lsets)
-    if cfg.indirect and cfg.mode != "restir_di" and cfg.pt.sky is not None:
+    if cfg.indirect and cfg.mode != "restir_di" and cfg.pt.sky is not None and not use_skydi:
         direct = direct + _sky_direct(scene, gb, cfg.pt.sky)
     hdr = (direct if indirect is None else direct + indirect).reshape(3, h, w)
+    if cfg.volumetrics is not None and cfg.pt.sky is not None:
+        hdr = _inscatter(scene, camera, gb, hdr, cfg)
 
     normal_img = gb[G.NS : G.NS + 3].reshape(3, h, w)
     depth_img = gb[G.DEPTH].reshape(h, w)
@@ -277,6 +318,6 @@ def render_frame_restir(scene, camera: Camera, seed: int, cfg: RenderConfig,
     ldr = _postprocess(hdr, cfg)
     new_state = FrameState(
         reservoirs=res, gi_reservoirs=ind_res, gbuf=pack_temporal(gb),
-        camera_prev=camera, history=hdr,
+        camera_prev=camera, history=hdr, sky_reservoirs=sky_res,
     )
     return {"hdr": hdr.permute(1, 2, 0), "ldr": ldr.permute(1, 2, 0)}, new_state
