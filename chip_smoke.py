@@ -16,11 +16,18 @@ Phases (any failure exits non-zero):
      also with the sky (the sun shining in through the box's opening), sun
      NEE, path regularization and the firefly clamp on, and with the sky
      but sun NEE off, each instance's registers (nvcc -Xptxas -v) recorded;
-     and the closest hit with attributes (B7) on ReSTIR PT prefix rays built as its
-     initial samples build them; B7 also on 1024^2 camera rays, as the
-     primary-rays rate of bench.py. B1, B4, B5, B6 and B7 record the real
-     triangle count they sweep (nt) and B1, B4, B6 and B7 the ray-triangle
-     pairs they test a second (B5 the shadow segments it lets through).
+     the WoPS NEE instances of B5 and B6 (PTConfig.nee_mode="wops", a
+     per-ray draw from the emissive alias table) on the same rays without
+     and with the sky and sun NEE (on the box also B6 with the sky without
+     sun NEE) and on the box with three wall lights of unequal power
+     (multi_light_box, the share of rays whose pick the alias table
+     redirects printed), each bit-equal to its plain version on the rays
+     that found a hit (max abs err 0); and the closest hit with attributes
+     (B7) on ReSTIR PT prefix rays built as its initial samples build them;
+     B7 also on 1024^2 camera rays, as the primary-rays rate of bench.py.
+     B1, B4, B5, B6 and B7 record the real triangle count they sweep (nt)
+     and B1, B4, B6 and B7 the ray-triangle pairs they test a second (B5
+     the shadow segments it lets through).
      On the box split to 139,266 triangles
      (bench.py's large scene, clustered into 798 clusters of 256 slots) at
      256^2 (its upload time, B8's tree included, printed): the streaming
@@ -54,6 +61,16 @@ Phases (any failure exits non-zero):
      and at 512^2 with the sun in through the box's opening, there also
      with the GI grid NEE, plain PT with volumetrics at 512^2 and, on the
      139,266-triangle box, ReSTIR PT at 256^2 (B8 and B9, no dense kernel);
+     bench.py's upscale_256_to_512 (ReSTIR GI, max_bounces=2, rendered at
+     256^2, the temporal upscaler to 512^2, RCAS 0.8) on the box and on
+     its 8192-triangle subdivision beside its native 512^2 twin
+     (render_scale=1); the flagship and the JAX app's default frame with
+     WoPS NEE at 512^2, and with the sky (the flagship with sun NEE and the
+     path options, the default frame without sun NEE), each WoPS instance
+     of phase 3 taking its launches from the one path that runs it; and
+     the default frame at 512^2 with the firefly
+     filter at 3 and the weighted-average exposure, with each tonemapper
+     but the LUT's, and through a thin lens (f/2.8, 50 mm, focus 3.5);
      phase 3 holds B3 (and B9 on the clustered box) on SkyDI's shade
      segments and the froxel grid's 12,288 sun segments (t_max 1e8; the
      blocked shares printed) and B5 with min_nee_bounce=1 (the GI grid NEE's
@@ -67,8 +84,11 @@ Phases (any failure exits non-zero):
      on the CPU: GI, PT, the default frame with the sky and GI with the sky
      and the path options on the box, and GI, the default frame with the
      sky and GI with the sky on the box split to 8706 triangles
-     (clustered), and the features frame (on both), the GI grid NEE frame
-     and clustered ReSTIR PT;
+     (clustered), and the features frame (on both), the GI grid NEE frame,
+     clustered ReSTIR PT, the upscale frame at display 64^2 (render 32^2),
+     the default and GI frames with WoPS NEE on the box with wall lights,
+     and the default frame through the thin lens with the firefly filter,
+     the weighted-average exposure and AgX punchy (its LDR held too);
   5. prints the kernels' record, the card line, and last a JSON status.
 
 The 512^2 images are written to IMAGE_DIR: zetaray_torch_512.png (the
@@ -76,7 +96,8 @@ flagship frame), zetaray_torch_512_di.png (DI only), zetaray_torch_512_pt.png
 (ReSTIR PT), zetaray_torch_512_plain_pt.png (plain PT),
 zetaray_torch_512_restir_di_sky.png and _restir_di.png (the JAX app's
 default frame with and without the sky), _gi_sky.png, _pt_sky.png,
-_features_sun.png and _plain_pt_volumetrics.png; the clustered GI frame to
+_features_sun.png, _plain_pt_volumetrics.png, _upscale_256_to_512.png, _wops.png
+(the flagship with WoPS NEE) and _restir_di_lens.png; the clustered GI frame to
 zetaray_torch_256_clustered.png, the clustered default frame with the sky
 to zetaray_torch_256_clustered_restir_di_sky.png and clustered ReSTIR PT to
 zetaray_torch_256_clustered_pt.png.
@@ -156,14 +177,18 @@ def lit_segments(after, before, after_no_sun=None) -> int:
 
 
 def bounce_records(scene, label, opt, cfg, st0, lsets, seed, rt, spread, n_tri, tri_bytes,
-                   set_bytes) -> dict:
+                   set_bytes, full=True) -> dict:
     """B4 at bounce 0 on the GI bounce-0 state ``st0``, B5 after it and B6 at
     bounce 1 (and on its trace-only last bounce at 2) under ``cfg``, each
     held against its plain version (``bounce_err``) and timed, with its
     bound: {"bounce_trace" | "bounce_shade" | "bounce": record}. A live ray
     that misses costs SKY_OPS (and one more with sun NEE) where ``cfg`` has a
     sky; a shadow segment that lets its light through (NEE or the sun) a test
-    of every triangle."""
+    of every triangle. ``lsets``: the light sets, or with
+    ``cfg.nee_mode="wops"`` the WoPS table (B5's record then holds the share
+    of live rays whose pick the alias table redirects). Without ``full``
+    B4 runs only as its plain version and B5 without min_nee_bounce=1:
+    the record has B5 and B6."""
     from zetaray_tpu_torch.accel import megakernel as MK
     from zetaray_tpu_torch.timing import cuda_ms
 
@@ -181,40 +206,49 @@ def bounce_records(scene, label, opt, cfg, st0, lsets, seed, rt, spread, n_tri, 
         return {**r, **extra}
 
     trace = (scene, st0, 0, cfg, True, spread)
-    st4, sf4 = MK.bounce_trace(*trace)
     st4_p, sf4_p = MK.bounce_trace_plain(*trace)
     found = st4_p[13] > 0.5
-    misses4 = int(((st0[13] > 0.5) & ~found).sum().item())
-    err = max(bounce_err("bounce_trace", tag, st4, st4_p, found),
-              bounce_err("bounce_trace surf", tag, sf4, sf4_p, found))
-    r4 = record(err, lambda: MK.bounce_trace(*trace), lambda: MK.bounce_trace_plain(*trace),
-                PAIR_OPS * n * n_tri + miss_ops * misses4,
-                n * (2 * state_bytes + MK.SURF_ROWS * F32) + tri_bytes,
-                nt=n_tri, hit=found.float().mean().item(), live_misses=misses4)
-    r4["pairs_per_s"] = n * n_tri / (r4["ms"] * 1e-3)
+    out = {}
+    if full:
+        st4, sf4 = MK.bounce_trace(*trace)
+        misses4 = int(((st0[13] > 0.5) & ~found).sum().item())
+        err = max(bounce_err("bounce_trace", tag, st4, st4_p, found),
+                  bounce_err("bounce_trace surf", tag, sf4, sf4_p, found))
+        r4 = out["bounce_trace"] = record(
+            err, lambda: MK.bounce_trace(*trace), lambda: MK.bounce_trace_plain(*trace),
+            PAIR_OPS * n * n_tri + miss_ops * misses4,
+            n * (2 * state_bytes + MK.SURF_ROWS * F32) + tri_bytes,
+            nt=n_tri, hit=found.float().mean().item(), live_misses=misses4)
+        r4["pairs_per_s"] = n * n_tri / (r4["ms"] * 1e-3)
 
     shade = (scene, st4_p, sf4_p, lsets, 0, seed, cfg, True, rt)
     st5_p = MK.bounce_shade_plain(*shade)
     err = bounce_err("bounce_shade", tag, MK.bounce_shade(*shade), st5_p, found)
     segs5 = lit_segments(st5_p, st4_p, None if no_sun is None else MK.bounce_shade_plain(
         scene, st4_p, sf4_p, lsets, 0, seed, no_sun, True, rt))
-    r5 = record(err, lambda: MK.bounce_shade(*shade), lambda: MK.bounce_shade_plain(*shade),
-                PAIR_OPS * segs5 * n_tri,
-                n * (2 * state_bytes + MK.SURF_ROWS * F32) + 12 * n_tri * F32 + set_bytes,
-                nt=n_tri, lit_segments=segs5)
-    # the instance the ReSTIR_GI_LVG variant launches: no NEE at bounce 0
-    # (min_nee_bounce=1; the grid's NEE runs outside), the sun segment stays
-    shade1 = (scene, st4_p, sf4_p, lsets, 0, seed, dataclasses.replace(cfg, min_nee_bounce=1),
-              True, rt)
-    st5_1p = MK.bounce_shade_plain(*shade1)
-    err = bounce_err("bounce_shade min_nee_bounce=1", tag, MK.bounce_shade(*shade1), st5_1p,
-                     found)
-    segs5_1 = lit_segments(st5_1p, st4_p)
-    r5["min_nee_bounce_1"] = record(
-        err, lambda: MK.bounce_shade(*shade1), lambda: MK.bounce_shade_plain(*shade1),
-        PAIR_OPS * segs5_1 * n_tri,
-        n * (2 * state_bytes + MK.SURF_ROWS * F32) + (12 * n_tri * F32 if segs5_1 else 0),
-        nt=n_tri, lit_segments=segs5_1)
+    r5 = out["bounce_shade"] = record(
+        err, lambda: MK.bounce_shade(*shade), lambda: MK.bounce_shade_plain(*shade),
+        PAIR_OPS * segs5 * n_tri,
+        n * (2 * state_bytes + MK.SURF_ROWS * F32) + 12 * n_tri * F32 + set_bytes,
+        nt=n_tri, lit_segments=segs5)
+    if cfg.nee_mode == "wops":
+        u = MK.bounce_uniforms(n, 0, seed, device=st0.device, wops=True)
+        taken = MK.wops_pick(lsets, scene.num_emissives, u[0], u[5])[1] & found
+        r5["alias_share"] = taken.float().sum().item() / max(1, int(found.sum().item()))
+    if full:
+        # the instance the ReSTIR_GI_LVG variant launches: no NEE at bounce 0
+        # (min_nee_bounce=1; the grid's NEE runs outside), the sun segment stays
+        shade1 = (scene, st4_p, sf4_p, lsets, 0, seed,
+                  dataclasses.replace(cfg, min_nee_bounce=1), True, rt)
+        st5_1p = MK.bounce_shade_plain(*shade1)
+        err = bounce_err("bounce_shade min_nee_bounce=1", tag, MK.bounce_shade(*shade1), st5_1p,
+                         found)
+        segs5_1 = lit_segments(st5_1p, st4_p)
+        r5["min_nee_bounce_1"] = record(
+            err, lambda: MK.bounce_shade(*shade1), lambda: MK.bounce_shade_plain(*shade1),
+            PAIR_OPS * segs5_1 * n_tri,
+            n * (2 * state_bytes + MK.SURF_ROWS * F32) + (12 * n_tri * F32 if segs5_1 else 0),
+            nt=n_tri, lit_segments=segs5_1)
 
     st_t1 = MK.bounce_trace_plain(scene, st5_p, 1, cfg, True)[0]
     found_1 = st_t1[13] > 0.5
@@ -229,25 +263,52 @@ def bounce_records(scene, label, opt, cfg, st0, lsets, seed, rt, spread, n_tri, 
                               st6_last_p[13] > 0.5))
     segs6 = lit_segments(st6_p, st_t1, None if no_sun is None else MK.bounce_plain(
         scene, st5_p, lsets, 1, seed, no_sun, False, True, rt))
-    r6 = record(err, lambda: MK.bounce(*b6), lambda: MK.bounce_plain(*b6),
-                PAIR_OPS * (int(found_1.sum().item()) + segs6) * n_tri + miss_ops * misses6,
-                n * 2 * state_bytes + tri_bytes + set_bytes,
-                nt=n_tri, hit=found_1.float().mean().item(), lit_segments=segs6,
-                live_misses=misses6)
+    r6 = out["bounce"] = record(
+        err, lambda: MK.bounce(*b6), lambda: MK.bounce_plain(*b6),
+        PAIR_OPS * (int(found_1.sum().item()) + segs6) * n_tri + miss_ops * misses6,
+        n * 2 * state_bytes + tri_bytes + set_bytes,
+        nt=n_tri, hit=found_1.float().mean().item(), lit_segments=segs6, live_misses=misses6)
     r6["pairs_per_s"] = (n + segs6) * n_tri / (r6["ms"] * 1e-3)
-    return {"bounce_trace": r4, "bounce_shade": r5, "bounce": r6}
+    return out
+
+
+def wops_bounce_records(scene, label, opt, cfg, st0, seed, rt, spread, n_tri, tri_bytes,
+                        rec, kernels=("bounce_shade", "bounce")) -> None:
+    """The WoPS instances of B5 and B6 under ``cfg`` (nee_mode="wops") on
+    the GI bounce-0 state ``st0`` (``bounce_records`` without B4's kernel),
+    each bit-equal to its plain version on the rays that found a hit (max
+    abs err 0, as the other instances); those of ``kernels`` are stored as
+    rec[kernel][opt]."""
+    from zetaray_tpu_torch.accel import megakernel as MK
+
+    table = MK.wops_table(scene)
+    recs = bounce_records(scene, label, opt, cfg, st0, table, seed, rt, spread, n_tri,
+                          tri_bytes, table.numel() * F32, full=False)
+    alias_share = recs["bounce_shade"]["alias_share"]
+    recs = {k: r for k, r in recs.items() if k in kernels}
+    for name, r in recs.items():
+        if r["max_abs_err"] != 0.0:
+            raise AssertionError(f"{name} {label} {opt}: max abs err {r['max_abs_err']} on "
+                                 "the found rays, not 0")
+        rec.setdefault(name, {})[opt] = r
+    print(f"{label} ({st0.shape[1]} GI bounce-0 rays, {opt}, {scene.num_emissives} emissives, "
+          f"alias taken by {alias_share:.4f} of the live rays): "
+          + "; ".join(f"{k} {r['ms']:.4f} ms (plain {r['plain_ms']:.3f}, bound "
+                      f"{r['bound_ms']:.4f} by {r['bound_by']}), max abs err "
+                      f"{r['max_abs_err']:.3g}, shadow segments let through "
+                      f"{r['lit_segments']}" for k, r in recs.items()), flush=True)
 
 
 def bounce_registers() -> dict:
     """What ``nvcc -Xptxas -v`` reports for each instance of B4-B6:
     {"bounce_trace" | "bounce_shade" | "bounce": {instance: text}}, the
-    instances named by their compile-time branches (B4 sky, B5 sun_nee, B6
-    sky and sky_sun_nee; "" for none)."""
+    instances named by their compile-time branches (B4 sky, B5 sun_nee and
+    wops, B6 sky, sun_nee and wops, joined by "_"; "" for none)."""
     from zetaray_tpu_torch import kernel_ab, native
 
     names = {"bounce_trace_kernel": ("bounce_trace", ("sky",)),
-             "bounce_shade_kernel": ("bounce_shade", ("sun_nee",)),
-             "bounce_kernel": ("bounce", ("sky", "sun_nee"))}
+             "bounce_shade_kernel": ("bounce_shade", ("sun_nee", "wops")),
+             "bounce_kernel": ("bounce", ("sky", "sun_nee", "wops"))}
     out = {v[0]: {} for v in names.values()}
     key = spill = None
     for line in kernel_ab.ptxas_report(native).splitlines():
@@ -307,8 +368,9 @@ def main() -> int:
         RenderConfig, pick_rt, render_frame, render_frame_restir,
     )
     from zetaray_tpu_torch.scene.camera import Camera
+    from zetaray_tpu_torch.ops.upscale import UpscaleConfig
     from zetaray_tpu_torch.scene.procedural import (
-        CAMERA_EYE, CAMERA_TARGET, CAMERA_VFOV, cornell_box,
+        CAMERA_EYE, CAMERA_TARGET, CAMERA_VFOV, cornell_box, multi_light_box,
     )
     from zetaray_tpu_torch.scene.scene import A, upload_scene
     from zetaray_tpu_torch.scene.subdivide import subdivide_scene
@@ -513,6 +575,19 @@ def main() -> int:
                       f"bounce_trace {recs['bounce_trace']['bound_ms']!r}, bounce "
                       f"{recs['bounce']['bound_ms']!r}" if opt else ""), flush=True)
 
+        # the WoPS instances of B5 and B6 (nee_mode="wops": a per-ray draw
+        # from the emissive alias table) on the same rays, bit-equal to
+        # their plain versions; without sun NEE B5 runs the instance of
+        # "wops" (it has no sky branch), so there only B6 is kept
+        opts_wops = [("wops", gi_cfg, ("bounce_shade", "bounce")),
+                     ("wops_sky_sun", opt_cfg, ("bounce_shade", "bounce"))]
+        if label == "cornell36":
+            opts_wops.append(("wops_sky_no_sun_nee", dataclasses.replace(opt_cfg, sun_nee=False),
+                              ("bounce",)))
+        for opt, cfg_, kept in opts_wops:
+            wops_bounce_records(scene, label, opt, dataclasses.replace(cfg_, nee_mode="wops"), st0,
+                                seed, rt, spread, n_tri, tri_bytes, rec, kept)
+
         # B7 on ReSTIR PT prefix rays: every output equal to the plain version
         o7, d7 = prefix_rays(gk, seed)
         sh = XI.closest_hit(scene, o7, d7)
@@ -540,6 +615,19 @@ def main() -> int:
               f"{oc.shape[0] / ms_c / 1e3:.1f} Mrays/s", flush=True)
         del scene, gk, gp, rk, so, seg, st0, o7, d7, sh, sh_p, oc, dc
         torch.cuda.empty_cache()
+
+    # the WoPS instances on the box with three wall lights of unequal power,
+    # where the alias table redirects picks
+    ml = upload_scene(multi_light_box(), device=dev)
+    o2m, d2m, _, _ = secondary_rays(MK.gbuffer(ml, o, d), seed)
+    record["multi_light"] = {}
+    wops_bounce_records(ml, "multi_light", "wops",
+                        PTConfig(max_bounces=2, min_emissive_bounce=1, nee_mode="wops"),
+                        MK.initial_state(o2m, d2m), seed, pick_rt(n), cam.pixel_spread_angle(res),
+                        ml.num_tris, ml.num_tris * (12 + A.WIDTH) * F32, record["multi_light"])
+    if not record["multi_light"]["bounce_shade"]["wops"]["alias_share"] > 0.01:
+        raise AssertionError("the alias table redirects no pick on the multi-light box")
+    del ml, o2m, d2m
 
     # -- phase 3 on the clustered box: B8 and B9 against their plain versions
     big_cpu = subdivide_scene(cornell_box(), 100_000)
@@ -764,6 +852,86 @@ def main() -> int:
                      ("_pt_sky", out_ps)):
         write_png(os.path.join(IMAGE_DIR, f"zetaray_torch_512{name}.png"), o_["ldr"].cpu().numpy())
 
+    # bench.py's upscale_256_to_512 (bench.py:178-183: render 256^2, TAAU to
+    # 512^2, RCAS) on the box and on its 8192-triangle subdivision, and its
+    # native 512^2 twin (render_scale=1) on the box
+    upscale = RenderConfig(width=res, height=res, mode="restir_gi", pt=PTConfig(max_bounces=2),
+                           render_scale=0.5, taa=True,
+                           upscale_cfg=UpscaleConfig(rcas_sharpness=0.8))
+    scene_8k = upload_scene(cornell_box(subdivide_to=8192), device=dev)
+    up_paths = {}
+    for tag, cfg_, sc in (("upscale_256_to_512", upscale, scene),
+                          ("upscale_256_to_512 at 8192 triangles", upscale, scene_8k),
+                          ("native 512^2 twin (render_scale=1)",
+                           dataclasses.replace(upscale, render_scale=1.0), scene)):
+        up_paths[tag] = chain(cfg_, cam, gi_kernels, sc=sc)
+        show(tag, *up_paths[tag][1:])
+    del scene_8k
+    out_up = up_paths["upscale_256_to_512"][0]
+    # the WoPS flagship (B5 and B6 on their WoPS branch) and the JAX app's
+    # default frame with WoPS (B6 alone); then, for the launches of phase
+    # 3's other WoPS instances, the flagship with the sky, sun NEE and the
+    # path options (B5 and B6 with sun NEE) and the default frame with the
+    # sky but no sun NEE (B6 with the sky alone). A wrapper counts its
+    # launches whatever the instance, so each record takes the counts of
+    # the one path that runs its instance
+    no_b45 = ("bounce_trace", "bounce_shade")
+    wops_paths = {}
+    for tag, opt, cfg_, kern, absent in (
+            ("flagship 512^2 with WoPS NEE", "wops", RenderConfig(
+                width=res, height=res, **{**flagship, "pt": PTConfig(max_bounces=3,
+                                                                     nee_mode="wops")}),
+             gi_kernels, ()),
+            ("JAX app default frame 512^2 with WoPS NEE", None, RenderConfig(
+                **app, pt=PTConfig(max_bounces=4, nee_mode="wops")), app_kernels, no_b45),
+            ("flagship 512^2 with sky, path options and WoPS NEE", "wops_sky_sun", RenderConfig(
+                width=res, height=res, **{**gi_sky, "pt": dataclasses.replace(
+                    gi_sky["pt"], nee_mode="wops")}), gi_kernels, ()),
+            ("JAX app default frame 512^2 with sky, no sun NEE, WoPS NEE", "wops_sky_no_sun_nee",
+             RenderConfig(**app, pt=PTConfig(max_bounces=4, sky=sky, sun_nee=False,
+                                             nee_mode="wops")), app_kernels, no_b45)):
+        wops_paths[tag] = chain(cfg_, cam, kern, absent=absent)
+        show(tag, *wops_paths[tag][1:])
+        for name in ("bounce_shade", "bounce"):
+            if opt in record["cornell36"][name]:
+                record["cornell36"][name][opt]["launches"] = wops_paths[tag][2][name]
+    # the JAX app's default frame with the display options: the firefly
+    # filter at 3 with the weighted-average exposure, each tonemapper but
+    # the LUT's (AgX is the default frame above), and a thin lens
+    lens = Camera.look_at(CAMERA_EYE, CAMERA_TARGET, vfov_deg=CAMERA_VFOV, aspect=1.0,
+                          f_stop=2.8, focal_length_mm=50.0, focus_dist=3.5)
+    display = {}
+    for tag, extra, cam_ in (
+            ("firefly 3 + weighted-average exposure",
+             dict(firefly_factor=3.0, exposure_mode="weighted_avg"), cam),
+            ("tonemapper none", dict(tonemapper="none"), cam),
+            ("tonemapper neutral", dict(tonemapper="neutral"), cam),
+            ("tonemapper agx_golden", dict(tonemapper="agx_golden"), cam),
+            ("tonemapper agx_punchy", dict(tonemapper="agx_punchy"), cam),
+            ("thin lens f/2.8 50 mm focus 3.5", {}, lens)):
+        display[tag] = chain(RenderConfig(**app, pt=PTConfig(max_bounces=4), **extra), cam_,
+                             app_kernels)
+        show(f"JAX app default frame 512^2, {tag}", *display[tag][1:])
+    base_hdr, base_ldr = out_app0["hdr"], out_app0["ldr"]
+    shares = {}
+    for tag, (o_, _, _) in display.items():
+        same_hdr = ((o_["hdr"] - base_hdr).abs() <= 1e-3 * (1 + base_hdr.abs())).all(-1)
+        shares[tag] = (same_hdr.float().mean().item(),
+                       (o_["ldr"] != base_ldr).any(-1).float().mean().item())
+    print(f"display options against the default frame (share of pixels with the same HDR, "
+          f"share with another LDR): {shares}", flush=True)
+    for tag, (same, other) in shares.items():
+        # a tonemapper leaves the HDR as it is, the filter darkens a few
+        # pixels, the lens blurs most; each changes the displayed image
+        lo, hi = ((0.99, 1.0) if tag.startswith("tonemapper") else
+                  (0.0, 0.999) if tag.startswith("firefly") else (0.0, 0.9))
+        if other < 0.1 or not lo <= same <= hi:
+            raise AssertionError(f"the display option {tag} does not act as it should")
+    for name, o_ in (("_upscale_256_to_512", out_up),
+                     ("_wops", wops_paths["flagship 512^2 with WoPS NEE"][0]),
+                     ("_restir_di_lens", display["thin lens f/2.8 50 mm focus 3.5"][0])):
+        write_png(os.path.join(IMAGE_DIR, f"zetaray_torch_512{name}.png"), o_["ldr"].cpu().numpy())
+
     # bench.py's features frame (ReSTIR DI with 2 light-voxel-grid
     # candidates and pairwise MIS, ReSTIR GI with max_bounces=2, stochastic
     # multi-bounce and path regularization, SkyDI with pairwise MIS,
@@ -859,6 +1027,15 @@ def main() -> int:
     app_64 = dict(mode="restir_di", taa=True, pt=PTConfig(max_bounces=4, sky=sky))
     feat_64 = features(SUN)
     gi_lvg_64 = {**feat_64, "restir_gi": ReSTIRGIConfig(boiling_suppression=True, lvg=True)}
+    up_64 = dict(mode="restir_gi", pt=PTConfig(max_bounces=2), render_scale=0.5, taa=True,
+                 upscale_cfg=UpscaleConfig(rcas_sharpness=0.8))
+    wops_app_64 = {**app_64, "pt": PTConfig(max_bounces=4, nee_mode="wops")}
+    wops_gi_64 = {**flagship, "pt": PTConfig(max_bounces=3, nee_mode="wops")}
+    display_64 = {**app_64, "firefly_factor": 3.0, "exposure_mode": "weighted_avg",
+                  "tonemapper": "agx_punchy"}
+    # the display options act after the HDR: that frame is also held on
+    # its LDR, each channel within one level of the CPU's
+    cams_64 = {"restir_di lens + display options": lens}
     for tag, base, cpu_scene in (("GI", flagship, cornell_box()), ("PT", pt_frame, cornell_box()),
                                  ("clustered GI", large, box_8706),
                                  ("restir_di sky", app_64, cornell_box()),
@@ -868,23 +1045,33 @@ def main() -> int:
                                  ("features", feat_64, cornell_box()),
                                  ("clustered features", feat_64, box_8706),
                                  ("GI grid NEE", gi_lvg_64, cornell_box()),
-                                 ("clustered ReSTIR PT", pt_frame, box_8706)):
+                                 ("clustered ReSTIR PT", pt_frame, box_8706),
+                                 ("upscale 32^2 to 64^2", up_64, cornell_box()),
+                                 ("restir_di WoPS, wall lights", wops_app_64, multi_light_box()),
+                                 ("GI WoPS, wall lights", wops_gi_64, multi_light_box()),
+                                 ("restir_di lens + display options", display_64, cornell_box())):
         small = RenderConfig(width=64, height=64, **base)
-        hdrs = {}
+        cam_ = cams_64.get(tag, cam)
+        outs = {}
         for dv in ("cuda", "cpu"):
             sc = upload_scene(cpu_scene, device=dv)
             if (sc.cluster_aabb is not None) != tag.startswith("clustered"):
                 raise AssertionError(f"64^2 {tag}: the scene is not uploaded as expected")
             state = None
             for k in range(2):
-                out_s, state = render_frame_restir(sc, cam.with_jitter(k), seed + k, small, state)
-            hdrs[dv] = out_s["hdr"].cpu()
-        gpu_hdr, cpu_hdr = hdrs["cuda"], hdrs["cpu"]
+                out_s, state = render_frame_restir(sc, cam_.with_jitter(k), seed + k, small, state)
+            outs[dv] = out_s
+        gpu_hdr, cpu_hdr = outs["cuda"]["hdr"].cpu(), outs["cpu"]["hdr"]
         close = ((gpu_hdr - cpu_hdr).abs() <= 1e-3 * (1 + cpu_hdr.abs())).all(-1)
-        share = close.float().mean().item()
-        print(f"64^2 {tag} frames, card vs CPU: {share:.4f} of pixels within 1e-3*(1+|x|), "
-              f"means {gpu_hdr.mean().item():.6f} / {cpu_hdr.mean().item():.6f}", flush=True)
-        if share < 0.99:
+        shares = [close.float().mean().item()]
+        text = f"{shares[0]:.4f} of pixels within 1e-3*(1+|x|)"
+        if tag in cams_64:
+            ldr_diff = (outs["cuda"]["ldr"].cpu().int() - outs["cpu"]["ldr"].int()).abs()
+            shares.append((ldr_diff <= 1).all(-1).float().mean().item())
+            text += f", {shares[1]:.4f} with an LDR within one level"
+        print(f"64^2 {tag} frames, card vs CPU: {text}, means {gpu_hdr.mean().item():.6f} / "
+              f"{cpu_hdr.mean().item():.6f}", flush=True)
+        if min(shares) < 0.99:
             raise AssertionError(f"the card's {tag} frame disagrees with the CPU frame")
 
     bounce_src = "zetaray_tpu_torch/csrc/bounce.cu"

@@ -5,10 +5,8 @@ does not implement raises ``NotImplementedError``.
 
 The JAX defaults are the fields' declared defaults. JAX's
 ``RenderConfig.__post_init__`` fills ``lvg_cfg``, ``skydi_cfg`` and
-``upscale_cfg`` with their configs' defaults; the port fills ``lvg_cfg``
-and ``skydi_cfg`` alike (``LVGConfig``, ``SkyDIConfig``), keeps
-``upscale_cfg`` None (the upscaler is not ported) and refuses any other
-value there.
+``upscale_cfg`` with their configs' defaults; the port fills them alike
+(``LVGConfig``, ``SkyDIConfig``, ``UpscaleConfig``).
 """
 
 import dataclasses
@@ -23,6 +21,7 @@ from zetaray_tpu.ops import prelighting as JPL
 from zetaray_tpu.ops import restir_pt as JP
 from zetaray_tpu.ops import sky as JSK
 from zetaray_tpu.ops import skydi as JSD
+from zetaray_tpu.ops import upscale as JUP
 from zetaray_tpu.ops import volumetrics as JVL
 from zetaray_tpu.render import frame as JF
 from zetaray_tpu_torch.ops import restir_di as RD
@@ -30,6 +29,7 @@ from zetaray_tpu_torch.ops import restir_gi as RG
 from zetaray_tpu_torch.ops import prelighting as PL
 from zetaray_tpu_torch.ops import restir_pt as RP
 from zetaray_tpu_torch.ops import skydi as SD
+from zetaray_tpu_torch.ops import upscale as UP
 from zetaray_tpu_torch.ops import volumetrics as VL
 from zetaray_tpu_torch.ops.pathtracer import PTConfig
 from zetaray_tpu_torch.ops.sky import SkyParams
@@ -50,6 +50,7 @@ PAIRS = {
     "LVGConfig": (JPL.LVGConfig, PL.LVGConfig),
     "SkyDIConfig": (JSD.SkyDIConfig, SD.SkyDIConfig),
     "VolumetricsConfig": (JVL.VolumetricsConfig, VL.VolumetricsConfig),
+    "UpscaleConfig": (JUP.UpscaleConfig, UP.UpscaleConfig),
 }
 PORT_CLASSES = {port.__name__: port for _, port in PAIRS.values()}
 
@@ -99,7 +100,6 @@ UNPORTED = [
     (RG.ReSTIRGIConfig, {"packed_reuse": False}),
     (RP.ReSTIRPTConfig, {"full_target": True}),
     (RP.ReSTIRPTConfig, {"packed_reuse": False}),
-    (TF.RenderConfig, {"upscale_cfg": object()}),
 ]
 
 
@@ -125,13 +125,30 @@ def test_jax_features_config_converts():
         volumetrics=JVL.VolumetricsConfig(), denoise=True, taa=True,
     )
     kw = {f.name: _to_port(getattr(jax_cfg, f.name)) for f in dataclasses.fields(jax_cfg)}
-    kw["upscale_cfg"] = None  # the JAX default UpscaleConfig(): the upscaler is not ported
     cfg = TF.RenderConfig(**kw)
+    assert cfg.upscale_cfg == UP.UpscaleConfig()
     assert isinstance(cfg.lvg_cfg, PL.LVGConfig) and cfg.lvg_cfg.slots == 4
     assert isinstance(cfg.skydi_cfg, SD.SkyDIConfig) and cfg.skydi_cfg.spatial_mis == "pairwise"
     assert isinstance(cfg.volumetrics, VL.VolumetricsConfig)
     assert cfg.restir.spatial_neighbors == 5
     cfg.check_ported()
+
+
+def test_jax_upscale_config_converts():
+    """bench.py's upscale_256_to_512 config (bench.py:178-183), written with
+    the JAX classes, becomes the port's and the frame admits it, with the
+    render size the JAX frame computes."""
+    jax_cfg = JF.RenderConfig(width=512, height=512, mode="restir_gi",
+                              pt=JPT.PTConfig(max_bounces=2), render_scale=0.5, taa=True,
+                              upscale_cfg=JUP.UpscaleConfig(rcas_sharpness=0.8))
+    kw = {f.name: _to_port(getattr(jax_cfg, f.name)) for f in dataclasses.fields(jax_cfg)}
+    cfg = TF.RenderConfig(**kw)
+    assert isinstance(cfg.upscale_cfg, UP.UpscaleConfig)
+    assert cfg.upscale_cfg.rcas_sharpness == 0.8
+    cfg.check_ported()
+    assert cfg.render_size() == (256, 256)
+    for scale, size in ((0.67, (343, 343)), (0.001, (8, 8)), (1.0, (512, 512))):
+        assert dataclasses.replace(cfg, render_scale=scale).render_size() == size
 
 
 def test_accepted_fields_leave_the_frame_unchanged():

@@ -541,3 +541,83 @@ def test_card_features_and_clustered_pt_frames_match_cpu_frames(cuda, name):
     got, want = outs[str(cuda)], outs["cpu"]
     close = ((got - want).abs() <= 1e-3 * (1 + want.abs())).all(-1)
     assert close.float().mean() >= 0.99
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("subdivide", [None, 300, 2000])
+@pytest.mark.parametrize("sun", [False, True], ids=["no_sky", "sun_nee"])
+def test_wops_kernels_match_plain(cuda, subdivide, sun):
+    """The WoPS NEE instances of B5 (bounce 0 and 1) and B6 (bounce 1)
+    against their plain versions on 128^2 GI bounce-0 rays of the box with
+    three wall lights of unequal power (multi_light_box; 300 triangles: 3
+    chunks of the sweep's ring), with and without sun NEE, held as
+    test_bounce_options_match_plain holds the others; the alias table
+    redirects a share of the picks."""
+    from zetaray_tpu_torch.scene.procedural import multi_light_box
+    from zetaray_tpu_torch.core.rng import bounce_uniforms
+
+    scene = upload_scene(multi_light_box(subdivide_to=subdivide), device=cuda)
+    _, o, d = _rays(cuda)
+    o2, d2, _, _ = secondary_rays(MK.gbuffer(scene, o, d), SEED)
+    cfg = PTConfig(max_bounces=3, min_emissive_bounce=1, rr_start=1, nee_mode="wops",
+                   sky=SkyParams(sun_dir=SUN) if sun else None)
+    table = MK.wops_table(scene)
+    st_p, surf_p = MK.bounce_trace_plain(scene, MK.initial_state(o2, d2), 0, cfg, True)
+    found = st_p[13] > 0.5
+    u = bounce_uniforms(o2.shape[0], 0, SEED, device=cuda, wops=True)
+    redirected = MK.wops_pick(table, scene.num_emissives, u[0], u[5])[1]
+    assert (redirected & found).float().mean() > 0.01
+    for b in (0, 1):
+        before = MK.bounce_shade.launches
+        st5 = MK.bounce_shade(scene, st_p, surf_p, table, b, SEED, cfg, True, 128)
+        assert MK.bounce_shade.launches == before + 1
+        st5_p = MK.bounce_shade_plain(scene, st_p, surf_p, table, b, SEED, cfg, True, 128)
+        assert _close_rays(st5[:, found], st5_p[:, found]) >= 0.999
+        assert _close_rays(st5, st5_p, [9, 10, 11, 13]) >= 0.999
+        assert torch.equal(*((x[9:12] != st_p[9:12]).any(0) for x in (st5, st5_p)))
+    f6 = MK.bounce_trace_plain(scene, st5_p, 1, cfg, True)[0][13] > 0.5
+    st6 = MK.bounce(scene, st5_p, table, 1, SEED, cfg, False, True, 128)
+    st6_p = MK.bounce_plain(scene, st5_p, table, 1, SEED, cfg, False, True, 128)
+    assert _close_rays(st6[:, f6], st6_p[:, f6]) >= 0.999
+    assert _close_rays(st6, st6_p, [9, 10, 11, 13]) >= 0.999
+    assert torch.equal(*((x[9:12] != st5_p[9:12]).any(0) for x in (st6, st6_p)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["upscale", "wops_restir_di", "lens_display"])
+def test_card_upscale_wops_and_display_frames_match_cpu_frames(cuda, name):
+    """Two chained frames on the card and on the CPU: bench.py's
+    upscale_256_to_512 config at display 64^2 (render 32^2), the JAX app's
+    default frame with WoPS NEE on the box with wall lights, and that frame
+    through a thin lens with the firefly filter, the weighted-average
+    exposure and the punchy AgX look, at 32^2."""
+    from zetaray_tpu_torch.ops.upscale import UpscaleConfig
+    from zetaray_tpu_torch.scene.procedural import multi_light_box
+
+    cam, _, _ = _rays(cuda)
+    cpu = cornell_box()
+    if name == "upscale":
+        cfg = RenderConfig(width=64, height=64, mode="restir_gi", pt=PTConfig(max_bounces=2),
+                           render_scale=0.5, taa=True,
+                           upscale_cfg=UpscaleConfig(rcas_sharpness=0.8))
+    elif name == "wops_restir_di":
+        cfg = RenderConfig(width=32, height=32, mode="restir_di", taa=True,
+                           pt=PTConfig(max_bounces=4, nee_mode="wops"))
+        cpu = multi_light_box()
+    else:
+        cfg = RenderConfig(width=32, height=32, mode="restir_di", taa=True,
+                           pt=PTConfig(max_bounces=4), firefly_factor=3.0,
+                           exposure_mode="weighted_avg", tonemapper="agx_punchy")
+        cam = Camera.look_at(CAMERA_EYE, CAMERA_TARGET, vfov_deg=CAMERA_VFOV, aspect=1.0,
+                             f_stop=2.8, focal_length_mm=50.0, focus_dist=3.5)
+    outs = {}
+    for dev in ("cpu", cuda):
+        scene = upload_scene(cpu, device=dev)
+        state = None
+        for k in range(2):
+            out, state = render_frame_restir(scene, cam.with_jitter(k), SEED + k, cfg, state)
+        outs[str(dev)] = out["hdr"].cpu()
+    got, want = outs[str(cuda)], outs["cpu"]
+    assert got.shape == (cfg.height, cfg.width, 3)
+    close = ((got - want).abs() <= 1e-3 * (1 + want.abs())).all(-1)
+    assert close.float().mean() >= 0.99

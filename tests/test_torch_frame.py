@@ -137,15 +137,22 @@ def test_unported_settings_raise():
     for mode in ("restir_di", "restir_gi", "restir_pt"):
         RenderConfig(**{**gi, **features, "mode": mode}).check_ported()
     RenderConfig(**{**gi, **features, "mode": "pt"}).check_ported(plain=True)
-    for kw in ({"pt": PTConfig(nee_mode="wops")}, {"mode": "pt"}, {"render_scale": 0.5},
+    # the upscaler and the display options, in every mode; WoPS NEE
+    from zetaray_tpu_torch.ops.upscale import UpscaleConfig
+
+    for kw in ({"pt": PTConfig(nee_mode="wops")}, {"render_scale": 0.5},
+               {"render_scale": 0.5, "upscale_cfg": UpscaleConfig(rcas_sharpness=0.8)},
                {"firefly_factor": 2.0}, {"tonemapper": "neutral"},
-               {"exposure_mode": "weighted_avg"},
-               {"mode": "restir_di", "pt": PTConfig(nee_mode="wops")}):
-        cfg = RenderConfig(**{**gi, **kw})
-        with pytest.raises(NotImplementedError):
-            cfg.check_ported()
-    for kw in ({"mode": "restir_gi"}, {"mode": "restir_pt"}, {"mode": "restir_di"},
-               {"pt": PTConfig(nee_mode="wops")}, {"tonemapper": "neutral"}):
+               {"exposure_mode": "weighted_avg"}):
+        for mode in ("restir_di", "restir_gi", "restir_pt"):
+            RenderConfig(**{**gi, **kw, "mode": mode}).check_ported()
+    for kw in ({"pt": PTConfig(nee_mode="wops")}, {"tonemapper": "agx_punchy"},
+               {"exposure_mode": "weighted_avg"}):
+        RenderConfig(**{**gi, **kw, "mode": "pt"}).check_ported(plain=True)
+    # what stays refused: each frame's other modes
+    with pytest.raises(NotImplementedError):
+        RenderConfig(**{**gi, "mode": "pt"}).check_ported()
+    for kw in ({"mode": "restir_gi"}, {"mode": "restir_pt"}, {"mode": "restir_di"}):
         cfg = RenderConfig(**{**gi, "mode": "pt", **kw})
         with pytest.raises(NotImplementedError):
             cfg.check_ported(plain=True)
@@ -158,6 +165,26 @@ def test_unported_settings_raise():
     cfg = RenderConfig(**{**gi, "mode": "restir_pt", "width": 16, "height": 16})
     out, state = render_frame_restir(clustered, cam, 1, cfg, None)
     assert torch.isfinite(out["hdr"]).all() and out["hdr"].mean() > 0
+
+
+def test_frame_state_from_arrays_roundtrip():
+    """A JAX-side state with SkyDI reservoirs and the upscaler's lock plane
+    comes over bit for bit; without them those fields stay None."""
+    r = np.random.default_rng(1)
+    state = {k: r.uniform(-1, 1, (16, 64)).astype(np.float32)
+             for k in ("reservoirs", "gi_reservoirs", "sky_reservoirs")}
+    state.update(gbuf=r.uniform(0, 4, (3, 64)).astype(np.float32),
+                 history=r.uniform(0, 2, (3, 16, 16)).astype(np.float32),
+                 upscale_lock=r.uniform(0, 1, (16, 16)).astype(np.float32),
+                 camera_prev=cam_dict(_camera(2)))
+    got = frame_state_from_arrays(state, device="cpu")
+    for k in ("reservoirs", "gi_reservoirs", "sky_reservoirs", "gbuf", "history",
+              "upscale_lock"):
+        np.testing.assert_array_equal(getattr(got, k).numpy(), state[k], err_msg=k)
+    assert got.camera_prev.jitter == tuple(float(x) for x in _camera(2).jitter)
+    bare = frame_state_from_arrays({**state, "sky_reservoirs": None, "upscale_lock": None},
+                                   device="cpu")
+    assert bare.sky_reservoirs is None and bare.upscale_lock is None
 
 
 def test_loaders_default_to_the_card(monkeypatch):
@@ -186,8 +213,9 @@ def test_loaders_default_to_the_card(monkeypatch):
 def test_port_runs_without_jax():
     """Port frames on the CPU (DI only, with ReSTIR GI, with ReSTIR PT, plain
     PT, the JAX app's default restir_di frame with the sun and sky, ReSTIR
-    GI and ReSTIR PT on a clustered scene, and bench.py's features frame on
-    both) in a process where importing jax fails."""
+    GI and ReSTIR PT on a clustered scene, bench.py's features frame on
+    both, and the upscale frame with WoPS NEE, the display options and a
+    thin lens) in a process where importing jax fails."""
     code = textwrap.dedent("""
         import sys
         sys.modules["jax"] = None
@@ -251,6 +279,19 @@ def test_port_runs_without_jax():
             out, state = render_frame_restir(sc, cam, 8, cfg, state)
             assert torch.isfinite(out["hdr"]).all() and out["hdr"].mean() > 0
             assert state.sky_reservoirs is not None
+        # the upscaler with RCAS, WoPS NEE, a display option and a thin lens
+        from zetaray_tpu_torch.ops.upscale import UpscaleConfig
+        lens = Camera.look_at((0, 1, 3.5), (0, 1, 0), vfov_deg=45.0, aspect=1.0, f_stop=2.8,
+                              focal_length_mm=50.0, focus_dist=3.5)
+        cfg = RenderConfig(width=16, height=16, mode="restir_gi",
+                           pt=PTConfig(max_bounces=2, nee_mode="wops"), render_scale=0.5,
+                           upscale_cfg=UpscaleConfig(rcas_sharpness=0.8), firefly_factor=3.0,
+                           tonemapper="agx_punchy", exposure_mode="weighted_avg", taa=True)
+        out, state = render_frame_restir(scene, lens, 7, cfg, None)
+        out, state = render_frame_restir(scene, lens, 8, cfg, state)
+        assert out["hdr"].shape == (16, 16, 3) and state.gbuf.shape[1] == 8 * 8
+        assert torch.isfinite(out["hdr"]).all() and out["hdr"].mean() > 0
+        assert state.upscale_lock.shape == (16, 16)
         assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules
                        if sys.modules[m] is not None)
         print("ok")

@@ -24,7 +24,7 @@ from zetaray_tpu.accel.pallas_kernels import occlusion_pallas
 from zetaray_tpu.ops.restir_di import R_ROWS as JR_ROWS
 from zetaray_tpu.ops import sky as JSK
 from zetaray_tpu.scene.camera import Camera as JaxCamera
-from zetaray_tpu.scene.scene import A as JA
+from zetaray_tpu.scene.scene import A as JA, EA as JEA
 from zetaray_tpu_torch import native
 from zetaray_tpu_torch.accel import bvh as TB
 from zetaray_tpu_torch.accel import megakernel as MK
@@ -195,26 +195,33 @@ def _header_constants(text):
 
 def test_kernel_layout_header_matches_the_reference():
     """The kernels' ``layout.h`` is generated from the port's Python layouts,
-    and those equal the JAX package's: ``A``, ``G``, ``LSET_ROWS``, ``R_ROWS``,
-    ``STATE_ROWS``, ``SURF_ROWS``, the bounce uniforms' salt and the GGX
+    and those equal the JAX package's: ``A``, ``EA``, ``G``, ``LSET_ROWS``,
+    ``R_ROWS``, ``STATE_ROWS``, ``SURF_ROWS``, the bounce uniforms' salt,
+    the WoPS uniforms' salt (0x905A, written into the JAX
+    ``bounce_uniforms``; its rows are held bit for bit in
+    tests/test_torch_wops.py) and the GGX
     albedo fit, whose coefficients read back as exactly the JAX package's
     Python floats, and the closed-form sky's fixed parameters (``SKY_*``),
     the float32 values of the JAX ``ops/sky.py`` expressions.
     ``LSET_STAGED`` is the 11 filled rows of a light set (pos, ng, Le, pdf,
     two-sided); ``BOUNCE_BLOCK`` has no JAX counterpart and must divide
     every tile width the frame picks; nor have the tree walks' stack limit
-    and box padding (``accel.bvh``) and ``PATH_OPTS``, the length of the
-    bounce kernels' path options block."""
+    and box padding (``accel.bvh``), ``PATH_OPTS``, the length of the
+    bounce kernels' path options block, and ``WOPS_ROW``, the width of a
+    row of the port's WoPS table (``EA.WIDTH`` columns and the alias entry,
+    in 16-byte words)."""
     text = native.layout_header()
     consts = _header_constants(text)
-    want = {f"{p}_{k}": v for p, cls in (("A", JA), ("G", JG))
+    want = {f"{p}_{k}": v for p, cls in (("A", JA), ("EA", JEA), ("G", JG))
             for k, v in vars(cls).items() if k.isupper()}
     salt = inspect.signature(JMK.bounce_uniforms).parameters["salt"].default
     want.update(LSET_ROWS=JLSET_ROWS, LSET_STAGED=11, R_ROWS=JR_ROWS,
                 STATE_ROWS=JMK.STATE_ROWS, SURF_ROWS=JMK.SURF_ROWS,
-                BOUNCE_BLOCK=MK.BOUNCE_BLOCK, BOUNCE_SALT=salt, GGX_E_DEG=JS._GGX_E_DEG,
-                WALK_STACK_MAX=TB.WALK_STACK_MAX, PATH_OPTS=MK.PATH_OPTS)
+                BOUNCE_BLOCK=MK.BOUNCE_BLOCK, BOUNCE_SALT=salt, WOPS_SALT=0x905A,
+                GGX_E_DEG=JS._GGX_E_DEG,
+                WALK_STACK_MAX=TB.WALK_STACK_MAX, PATH_OPTS=MK.PATH_OPTS, WOPS_ROW=MK.WOPS_ROW)
     assert len(MK.path_options(PTConfig())) == MK.PATH_OPTS
+    assert MK.WOPS_ROW % 4 == 0 and MK.WOPS_ROW >= JEA.WIDTH + 2
     assert all(pick_rt(n) % MK.BOUNCE_BLOCK == 0 for n in (100, 64 * 64, 512 * 512, 1920 * 1080))
     assert consts == want
     arrays = {k: [float(x) for x in v.split(",")]

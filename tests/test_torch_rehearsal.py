@@ -44,7 +44,7 @@ from zetaray_tpu_torch.ops.restir_gi import secondary_rays
 from zetaray_tpu_torch.ops.sky import SkyParams, sun_direction
 from zetaray_tpu_torch.scene.camera import Camera
 from zetaray_tpu_torch.scene.procedural import (
-    CAMERA_EYE, CAMERA_TARGET, CAMERA_VFOV, cornell_box, repeated_box,
+    CAMERA_EYE, CAMERA_TARGET, CAMERA_VFOV, cornell_box, multi_light_box, repeated_box,
 )
 from zetaray_tpu_torch.scene.scene import upload_scene, with_cluster_tree
 from zetaray_tpu_torch.scene.subdivide import subdivide_scene
@@ -76,6 +76,7 @@ using std::min;
 #define __shared__ static
 #define __launch_bounds__(...)
 struct alignas(16) float4 { float x, y, z, w; };
+struct alignas(8) float2 { float x, y; };
 struct dim3 { unsigned x = 1, y = 1, z = 1; };
 inline dim3 blockIdx, blockDim;
 inline thread_local dim3 threadIdx;
@@ -246,28 +247,39 @@ def host_bounce_trace(lib, scene, state, cfg, spread_angle):
     return None if err else (out, surf)
 
 
+def _lights(scene, lsets, cfg):
+    """(n_sets, ps, wops_em) of a bounce launch: the light sets' shape, or
+    with cfg.nee_mode="wops" one set of the WoPS table's rows."""
+    wops_em = MK._wops_em(scene, cfg)
+    if wops_em:
+        return 1, lsets.shape[0], wops_em
+    return lsets.shape[0], lsets.shape[2], 0
+
+
 def host_bounce_shade(lib, scene, state, surf, lsets, seed, cfg, rt, nt=None, bounce=0):
     """B5 at ``bounce`` on the host: state [STATE_ROWS, N], or None where the
-    entry point refuses the launch."""
+    entry point refuses the launch. ``lsets``: the light sets, or with
+    cfg.nee_mode="wops" the WoPS table."""
     n, tp = state.shape[1], scene.woop.shape[1] // 3
-    n_sets, _, ps = lsets.shape
+    n_sets, ps, wops_em = _lights(scene, lsets, cfg)
     out = torch.full_like(state, -7.0)
     err = lib.zr_bounce_shade(_ptr(state), _ptr(surf), _ptr(scene.woop_rows()), _ptr(lsets),
                               _ptr(out), n, tp, scene.num_tris if nt is None else nt, n_sets,
                               ps, rt, bounce, seed & 0xFFFFFFFF, cfg.min_nee_bounce,
-                              cfg.rr_start, int(cfg.nee), 1, MK.path_options(cfg), None)
+                              cfg.rr_start, int(cfg.nee), 1, wops_em, MK.path_options(cfg), None)
     return None if err else out
 
 
 def host_bounce(lib, scene, state, lsets, b, seed, cfg, last, rt=128):
-    """B6 at bounce b on the host: state [STATE_ROWS, N]."""
+    """B6 at bounce b on the host: state [STATE_ROWS, N]. ``lsets``: as for
+    host_bounce_shade."""
     n, tp = state.shape[1], scene.woop.shape[1] // 3
-    n_sets, _, ps = lsets.shape
+    n_sets, ps, wops_em = _lights(scene, lsets, cfg)
     out = torch.full_like(state, -7.0)
     assert lib.zr_bounce(_ptr(state), _ptr(scene.woop_rows()), _ptr(scene.tri_attrs), _ptr(lsets),
                          _ptr(out), n, tp, scene.num_tris, n_sets, ps, rt, b, seed & 0xFFFFFFFF,
                          cfg.t_min, cfg.min_emissive_bounce, cfg.min_nee_bounce, cfg.rr_start,
-                         int(cfg.nee), 1, int(last), MK.path_options(cfg), None) == 0
+                         int(cfg.nee), 1, int(last), wops_em, MK.path_options(cfg), None) == 0
     return out
 
 
@@ -544,6 +556,43 @@ def test_bounce_options_on_host(host_kernels, subdivide, opts):
         assert _close_rays(st6[:, f6], st6_p[:, f6]) >= 0.999
         assert _close_rays(st6, st6_p, [9, 10, 11, 13]) >= 0.999
         assert torch.equal(*((x[9:12] != st5_p[9:12]).any(0) for x in (st6, st6_p)))
+
+
+@pytest.mark.parametrize("subdivide", [None, 300])
+@pytest.mark.parametrize("sun", [False, True], ids=["no_sky", "sun_nee"])
+def test_wops_bounce_on_host(host_kernels, subdivide, sun):
+    """The WoPS instances of B5 (bounce 0) and B6 (bounce 1) against their
+    plain versions on the box with three wall lights of unequal power
+    (multi_light_box; its subdivision to 300 triangles: 3 chunks of the
+    sweep's ring), with a shelf in the last slot, on 300 GI bounce-0 rays
+    at rt = 128, with and without sun NEE, with the criteria of
+    test_bounce_shade_on_host: the same rays gain the NEE light, and the
+    alias table redirects a share of the picks."""
+    scene = upload_scene(_with_shelf(multi_light_box(subdivide_to=subdivide)), device="cpu")
+    st0, spread = _gi_bounce0(scene)
+    cfg = PTConfig(max_bounces=3, min_emissive_bounce=1, rr_start=1, nee_mode="wops",
+                   sky=SkyParams(sun_dir=SUN) if sun else None)
+    table = MK.wops_table(scene)
+    st4, sf4 = MK.bounce_trace_plain(scene, st0, 0, cfg, True, spread)
+    found = st4[13] > 0.5
+    st5 = host_bounce_shade(host_kernels, scene, st4, sf4, table, SEED, cfg, 128)
+    st5_p = MK.bounce_shade_plain(scene, st4, sf4, table, 0, SEED, cfg, True, 128)
+    assert _close_rays(st5[:, found], st5_p[:, found]) >= 0.999
+    assert _close_rays(st5, st5_p, [9, 10, 11, 13]) >= 0.999
+    lit, lit_p = ((x[9:12] != st4[9:12]).any(0) for x in (st5, st5_p))
+    assert torch.equal(lit, lit_p) and lit.float().mean() > 0.1
+    u = MK.bounce_uniforms(st0.shape[1], 0, SEED, wops=True)
+    redirected = MK.wops_pick(table, scene.num_emissives, u[0], u[5])[1]
+    assert (redirected & found).sum() > 10  # the alias is taken
+    f6 = MK.bounce_trace_plain(scene, st5_p, 1, cfg, True)[0][13] > 0.5
+    st6 = host_bounce(host_kernels, scene, st5_p, table, 1, SEED, cfg, False)
+    st6_p = MK.bounce_plain(scene, st5_p, table, 1, SEED, cfg, False, True, 128)
+    assert _close_rays(st6[:, f6], st6_p[:, f6]) >= 0.999
+    assert _close_rays(st6, st6_p, [9, 10, 11, 13]) >= 0.999
+    assert torch.equal(*((x[9:12] != st5_p[9:12]).any(0) for x in (st6, st6_p)))
+    # a table narrower than its emissive count is refused
+    assert host_bounce_shade(host_kernels, scene, st4, sf4, table[: scene.num_emissives - 1],
+                             SEED, cfg, 128) is None
 
 
 def _deep():

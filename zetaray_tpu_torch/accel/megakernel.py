@@ -33,13 +33,18 @@ through ``csrc/sweep.cuh``. A block stages its tile's light set (11 rows)
 in shared memory, computes the five pcg4d uniforms of a bounce in place
 (the TPU hashed them in XLA beforehand) and reads attribute and light-set
 rows by index instead of the TPU's one-hot matmuls; a block leaves a
-shadow sweep once every ray in it is occluded or has no candidate.
+shadow sweep once every ray in it is occluded or has no candidate. With
+``PTConfig.nee_mode="wops"`` B5 and B6 draw each ray's NEE sample from the
+emissive alias table instead (``wops_table``: a second pcg4d, salt
+``WOPS_SALT``, gives the alias test and the point on the triangle), read
+from global memory, its alias entry and then its light's row; the light
+sets are not staged.
 With ``PTConfig.sky`` set, B4 and B6 add the sky and the sun disk to the
 rays that miss, and with ``sun_nee`` B5 and B6 send every ray a second
 shadow segment, toward the sun; ``path_regularization`` and
-``firefly_clamp`` act in the shade half of B5 and B6. The sky and the sun
-are compile-time branches of the kernels (their builds without them carry
-none of their code); the two other settings are read at run time.
+``firefly_clamp`` act in the shade half of B5 and B6. The sky, the sun
+and WoPS NEE are compile-time branches of the kernels (their builds without
+them carry none of their code); the two other settings are read at run time.
 The settings reach a kernel as one block of PATH_OPTS floats
 (``path_options``).
 
@@ -60,7 +65,8 @@ from ..core.vec3 import V3
 from ..ops import shading_soa as S
 from ..ops import sky as SK
 from ..ops.lights import sample_emissive
-from ..scene.scene import A
+from ..core.sampling import square_to_triangle
+from ..scene.scene import A, EA
 from .. import native
 
 INF = 3.0e38
@@ -79,6 +85,9 @@ BOUNCE_BLOCK = 128  # rays per block of the bounce kernels; divides every tile w
 # the path options block of the bounce kernels (path_options): firefly clamp |
 # path regularization | sky | sun NEE | the sky's kernel_constants (12 floats)
 PATH_OPTS = 16
+# floats a row of wops_table: EA.WIDTH, alias prob and alias, padding to one
+# 128-byte line
+WOPS_ROW = 32
 
 
 class G:
@@ -262,15 +271,44 @@ def build_light_sets(scene, seed: int, ns: int = NS, ps: int = PS) -> torch.Tens
     return rows.reshape(LSET_ROWS, ns, ps).permute(1, 0, 2).contiguous()
 
 
+def wops_table(scene) -> torch.Tensor:
+    """The emissive table of WoPS NEE, [Ep, WOPS_ROW]: row k holds emissive
+    k's ``em_attrs`` columns, then its alias prob and alias (as a float),
+    then zeros. It is the transpose of the JAX package's [EA.WIDTH + 2, Ep]
+    ``wops_table``, padded so that a kernel finds a light in one 128-byte
+    line and its alias entry in one 8-byte word."""
+    ep = scene.em_attrs.shape[0]
+    table = torch.zeros((ep, WOPS_ROW), dtype=torch.float32, device=scene.em_attrs.device)
+    table[:, : EA.WIDTH] = scene.em_attrs
+    table[:, EA.WIDTH] = scene.em_prob
+    table[:, EA.WIDTH + 1] = scene.em_alias.to(torch.float32)
+    return table
+
+
+def wops_pick(table, n_em: int, u_pick, u_alias):
+    """WoPS NEE's pick over the ``n_em`` real emissives of ``wops_table``:
+    (the first pick k0 [N], whether the alias table redirects it [N])."""
+    k0 = torch.clamp_max((u_pick * n_em).to(torch.int64), n_em - 1)
+    return k0, u_alias >= table[k0, EA.WIDTH]
+
+
+def _wops_light(table, n_em: int, u_pick, u_alias, u_b0, u_b1):
+    """WoPS NEE's light sample from ``wops_table``: an alias draw
+    (``wops_pick``), then a point on that emissive's triangle
+    (``square_to_triangle`` of u_b0, u_b1). Returns (position, normal, Le,
+    pdf per area, two-sided)."""
+    k0, redirected = wops_pick(table, n_em, u_pick, u_alias)
+    k = torch.where(redirected, table[k0, EA.WIDTH + 1].to(torch.int64), k0)
+    row = table[k].T
+    b1, b2 = square_to_triangle(u_b0, u_b1)
+    lp = v3.from_rows(row, EA.V0) + v3.from_rows(row, EA.E1) * b1 + v3.from_rows(row, EA.E2) * b2
+    return (lp, v3.from_rows(row, EA.NG), v3.from_rows(row, EA.LE), row[EA.PDF_AREA],
+            row[EA.TWO_SIDED] > 0.5)
+
+
 # ---------------------------------------------------------------------------
 # Path bounce: trace (B4), shade (B5), fused (B6)
 # ---------------------------------------------------------------------------
-
-
-def _check_pt(cfg) -> None:
-    missing = cfg.unported()
-    if missing:
-        raise NotImplementedError("not ported yet: " + ", ".join(missing))
 
 
 def check_sweep_t_min(t_min) -> None:
@@ -373,8 +411,9 @@ def _shade_plain(scene, d: V3, thr: V3, rad: V3, alive, pos: V3, ns: V3, ng: V3,
                  light_sets, u, bounce: int, cfg, has_lights: bool, rt: int):
     """NEE with its shadow segment, sun NEE with its own, BSDF sample and
     Russian roulette, the shade half of a bounce, at the regularized
-    material past bounce 0 where ``cfg.path_regularization``. Returns (o, d,
-    thr, rad, pdf, alive, transmitted)."""
+    material past bounce 0 where ``cfg.path_regularization``. ``light_sets``
+    is ``wops_table`` with ``cfg.nee_mode="wops"`` (and ``u`` then has its
+    8 rows). Returns (o, d, thr, rad, pdf, alive, transmitted)."""
     from .intersect import occlusion_plain
     from ..ops.pathtracer import regularize
 
@@ -382,20 +421,25 @@ def _shade_plain(scene, d: V3, thr: V3, rad: V3, alive, pos: V3, ns: V3, ng: V3,
         mat = mat._replace(roughness=regularize(mat.roughness))
     frame = S.make_frame(ns)
     wo_l = frame.to_local(-d)
-    u1, u5, u6, u7, u8 = u
+    u1, u5, u6, u7, u8 = u[:5]
     if cfg.nee and has_lights:
-        n_sets, _, ps = light_sets.shape
-        pix = torch.arange(u1.shape[0], dtype=torch.int64, device=u1.device)
-        set_idx = (pix // rt + bounce * 13) % n_sets
-        p = torch.clamp_max((u1 * ps).to(torch.int64), ps - 1)
-        srow = light_sets[set_idx, :, p].T  # [LSET_ROWS, N]
-        lle, lpdf_area = v3.from_rows(srow, 6), srow[9]
-        to_l = v3.from_rows(srow, 0) - pos
+        if cfg.nee_mode == "wops":
+            lp, lng, lle, lpdf_area, l2s = _wops_light(light_sets, scene.num_emissives, u1,
+                                                       *u[5:8])
+        else:
+            n_sets, _, ps = light_sets.shape
+            pix = torch.arange(u1.shape[0], dtype=torch.int64, device=u1.device)
+            set_idx = (pix // rt + bounce * 13) % n_sets
+            p = torch.clamp_max((u1 * ps).to(torch.int64), ps - 1)
+            srow = light_sets[set_idx, :, p].T  # [LSET_ROWS, N]
+            lp, lng, lle = v3.from_rows(srow, 0), v3.from_rows(srow, 3), v3.from_rows(srow, 6)
+            lpdf_area, l2s = srow[9], srow[10] > 0.5
+        to_l = lp - pos
         dist2 = torch.clamp_min(v3.dot(to_l, to_l), 1e-12)
         wi_w = to_l * torch.rsqrt(dist2)
         cos_surf = v3.dot(wi_w, ns)
-        cos_l_raw = -v3.dot(wi_w, v3.from_rows(srow, 3))
-        cos_l = torch.where(srow[10] > 0.5, torch.abs(cos_l_raw), cos_l_raw)
+        cos_l_raw = -v3.dot(wi_w, lng)
+        cos_l = torch.where(l2s, torch.abs(cos_l_raw), cos_l_raw)
         f, pdf_b = S.bsdf_eval(mat, wo_l, frame.to_local(wi_w))
         pdf_l_sa2 = lpdf_area * dist2 / torch.clamp_min(cos_l, 1e-8)
         candidate = alive & (cos_surf > 1e-6) & (cos_l > 1e-6) & (lpdf_area > 0.0)
@@ -449,7 +493,6 @@ def _state(o: V3, d: V3, thr: V3, rad: V3, pdf, alive, spec, cone) -> torch.Tens
 def bounce_trace_plain(scene, state, bounce: int, cfg, has_lights: bool, spread_angle=0.0):
     """The plain PyTorch version of the trace kernel (B4):
     (state [STATE_ROWS, N], surf [SURF_ROWS, N])."""
-    _check_pt(cfg)
     o, d = v3.from_rows(state, 0), v3.from_rows(state, 3)
     rad, found, hit, t_hit, bu, bv, at, wo_dot_ng = _trace_plain(scene, state, bounce, cfg,
                                                                   has_lights)
@@ -474,11 +517,11 @@ def bounce_trace_plain(scene, state, bounce: int, cfg, has_lights: bool, spread_
 def bounce_shade_plain(scene, state, surf, light_sets, bounce: int, seed: int, cfg,
                        has_lights: bool, rt: int):
     """The plain PyTorch version of the shade kernel (B5): state [STATE_ROWS, N]."""
-    _check_pt(cfg)
     _, d, thr, rad, _, alive, _ = _path(state)
     mat = S.MatSoA(base=v3.from_rows(surf, 9), metallic=surf[12], roughness=surf[13],
                    ior=surf[14])
-    u = bounce_uniforms(state.shape[1], bounce, seed, device=state.device)
+    u = bounce_uniforms(state.shape[1], bounce, seed, device=state.device,
+                        wops=cfg.nee_mode == "wops")
     o2, d2, thr, rad, pdf, alive, transmitted = _shade_plain(
         scene, d, thr, rad, alive, v3.from_rows(surf, 0), v3.from_rows(surf, 3),
         v3.from_rows(surf, 6), mat, light_sets, u, bounce, cfg, has_lights, rt,
@@ -491,7 +534,6 @@ def bounce_plain(scene, state, light_sets, bounce: int, seed: int, cfg, last: bo
                  has_lights: bool, rt: int):
     """The plain PyTorch version of the fused bounce kernel (B6):
     state [STATE_ROWS, N]. ``last`` stops after the emission."""
-    _check_pt(cfg)
     o, d, thr, _, prev_pdf, _, _ = _path(state)
     rad, found, _, t_hit, bu, bv, at, wo_dot_ng = _trace_plain(scene, state, bounce, cfg,
                                                                 has_lights)
@@ -500,15 +542,17 @@ def bounce_plain(scene, state, light_sets, bounce: int, seed: int, cfg, last: bo
     pos, ns, ng, _, ior, _ = _surface_plain(o, d, t_hit, bu, bv, at, wo_dot_ng)
     mat = S.MatSoA(base=v3.from_rows(at, A.BASE), metallic=at[A.METAL],
                    roughness=at[A.ROUGH], ior=ior)
-    u = bounce_uniforms(state.shape[1], bounce, seed, device=state.device)
+    u = bounce_uniforms(state.shape[1], bounce, seed, device=state.device,
+                        wops=cfg.nee_mode == "wops")
     o2, d2, thr, rad, pdf, alive, _ = _shade_plain(
         scene, d, thr, rad, found, pos, ns, ng, mat, light_sets, u, bounce, cfg, has_lights, rt,
     )
     return _state(o2, d2, thr, rad, pdf, alive, torch.zeros_like(pdf), state[15])
 
 
-def _bounce_args(scene, state, light_sets, rt: int):
-    """Validate the tensors of a bounce launch; returns (n, tp, n_sets, ps)."""
+def _bounce_args(scene, state, light_sets, rt: int, wops: bool = False):
+    """Validate the tensors of a bounce launch; returns (n, tp, n_sets, ps):
+    with ``wops`` ``light_sets`` is ``wops_table`` and (n_sets, ps) (1, Ep)."""
     n = state.shape[1]
     tp = scene.woop.shape[1] // 3
     native.require_cuda(state, "state", torch.float32, (STATE_ROWS, n))
@@ -518,11 +562,22 @@ def _bounce_args(scene, state, light_sets, rt: int):
         raise ValueError(f"triangle count {tp} is not padded to a multiple of {TRI_CHUNK}")
     if light_sets is None:
         return n, tp, 1, 1
-    n_sets, _, ps = light_sets.shape
-    native.require_cuda(light_sets, "light_sets", torch.float32, (n_sets, LSET_ROWS, ps))
     if rt % BOUNCE_BLOCK:
         raise ValueError(f"tile width {rt} is not a multiple of {BOUNCE_BLOCK}")
+    if wops:
+        ep = scene.em_attrs.shape[0]
+        native.require_cuda(light_sets, "wops_table", torch.float32, (ep, WOPS_ROW))
+        return n, tp, 1, ep
+    n_sets, _, ps = light_sets.shape
+    native.require_cuda(light_sets, "light_sets", torch.float32, (n_sets, LSET_ROWS, ps))
     return n, tp, n_sets, ps
+
+
+def _wops_em(scene, cfg) -> int:
+    """What a bounce launch's ``wops_em`` argument says: the real emissives
+    WoPS NEE draws from with ``cfg.nee_mode="wops"`` and NEE on, else 0
+    (the light sets)."""
+    return scene.num_emissives if cfg.nee and cfg.nee_mode == "wops" else 0
 
 
 def bounce_trace(scene, state, bounce: int, cfg, has_lights: bool, spread_angle=0.0):
@@ -534,7 +589,6 @@ def bounce_trace(scene, state, bounce: int, cfg, has_lights: bool, spread_angle=
     _check_dense(scene, "bounce_trace")
     if state.device.type == "cpu":
         return bounce_trace_plain(scene, state, bounce, cfg, has_lights, spread_angle)
-    _check_pt(cfg)
     n, tp, _, _ = _bounce_args(scene, state, None, 0)
     check_sweep_t_min(cfg.t_min)
     out = torch.empty_like(state)
@@ -556,7 +610,8 @@ bounce_trace.launches = 0
 def bounce_shade(scene, state, surf, light_sets, bounce: int, seed: int, cfg,
                  has_lights: bool, rt: int):
     """Shade half of a bounce (B5): state [STATE_ROWS, N]. Pixel i draws its
-    NEE sample from set ``(i // rt + 13 * bounce) % n_sets``.
+    NEE sample from set ``(i // rt + 13 * bounce) % n_sets``, or with
+    ``cfg.nee_mode="wops"`` from ``light_sets`` = ``wops_table(scene)``.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel,
     whose shadow sweep tests the ``scene.num_tris`` real triangles.
@@ -565,15 +620,15 @@ def bounce_shade(scene, state, surf, light_sets, bounce: int, seed: int, cfg,
     if state.device.type == "cpu":
         return bounce_shade_plain(scene, state, surf, light_sets, bounce, seed, cfg,
                                   has_lights, rt)
-    _check_pt(cfg)
-    n, tp, n_sets, ps = _bounce_args(scene, state, light_sets, rt)
+    wops = _wops_em(scene, cfg)
+    n, tp, n_sets, ps = _bounce_args(scene, state, light_sets, rt, wops > 0)
     native.require_cuda(surf, "surf", torch.float32, (SURF_ROWS, n))
     out = torch.empty_like(state)
     err = native.lib().zr_bounce_shade(
         state.data_ptr(), surf.data_ptr(), scene.woop_rows().data_ptr(), light_sets.data_ptr(),
         out.data_ptr(), n, tp, scene.num_tris, n_sets, ps, rt, bounce, int(seed) & 0xFFFFFFFF,
-        cfg.min_nee_bounce, cfg.rr_start, int(cfg.nee), int(has_lights), path_options(cfg),
-        native.stream_ptr(state.device),
+        cfg.min_nee_bounce, cfg.rr_start, int(cfg.nee), int(has_lights), wops,
+        path_options(cfg), native.stream_ptr(state.device),
     )
     native.check(err, "bounce_shade")
     bounce_shade.launches += 1
@@ -586,21 +641,22 @@ bounce_shade.launches = 0
 def bounce(scene, state, light_sets, b: int, seed: int, cfg, last: bool,
            has_lights: bool, rt: int):
     """One whole bounce, of index ``b`` (B6): state [STATE_ROWS, N].
+    ``light_sets``: as for ``bounce_shade``.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel.
     """
     _check_dense(scene, "bounce")
     if state.device.type == "cpu":
         return bounce_plain(scene, state, light_sets, b, seed, cfg, last, has_lights, rt)
-    _check_pt(cfg)
-    n, tp, n_sets, ps = _bounce_args(scene, state, light_sets, rt)
+    wops = _wops_em(scene, cfg)
+    n, tp, n_sets, ps = _bounce_args(scene, state, light_sets, rt, wops > 0)
     check_sweep_t_min(cfg.t_min)
     out = torch.empty_like(state)
     err = native.lib().zr_bounce(
         state.data_ptr(), scene.woop_rows().data_ptr(), scene.tri_attrs.data_ptr(),
         light_sets.data_ptr(), out.data_ptr(), n, tp, scene.num_tris, n_sets, ps, rt, b,
         int(seed) & 0xFFFFFFFF, cfg.t_min, cfg.min_emissive_bounce, cfg.min_nee_bounce,
-        cfg.rr_start, int(cfg.nee), int(has_lights), int(last), path_options(cfg),
+        cfg.rr_start, int(cfg.nee), int(has_lights), int(last), wops, path_options(cfg),
         native.stream_ptr(state.device),
     )
     native.check(err, "bounce")
@@ -627,10 +683,13 @@ def _trace_light_sets(scene, seed: int, cfg, light_sets, device):
     """The light sets of a path trace: ``light_sets`` (the frame's) when they
     have the configured size (``cfg.light_ns``, ``cfg.light_ps``), which
     makes them the sets built from ``seed``; else sets of that size built
-    from ``seed``; zeros without lights or NEE."""
+    from ``seed``; zeros without lights or NEE; ``wops_table`` with
+    ``cfg.nee_mode="wops"``."""
     shape = (cfg.light_ns, LSET_ROWS, cfg.light_ps)
     if not (scene.num_emissives > 0 and cfg.nee):
         return torch.zeros(shape, dtype=torch.float32, device=device)
+    if cfg.nee_mode == "wops":
+        return wops_table(scene)
     if light_sets is not None and tuple(light_sets.shape) == shape:
         return light_sets
     return build_light_sets(scene, seed, cfg.light_ns, cfg.light_ps)

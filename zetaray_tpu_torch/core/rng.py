@@ -14,6 +14,7 @@ import torch
 
 _M32 = 0xFFFFFFFF
 BOUNCE_SALT = 0x9E37  # fourth pcg4d counter of a path bounce's uniforms
+WOPS_SALT = 0x905A  # fourth pcg4d counter of a bounce's WoPS NEE uniforms
 
 
 def _mul32(a: torch.Tensor, b) -> torch.Tensor:
@@ -65,14 +66,22 @@ def uniform4(pixel: torch.Tensor, bounce: int, frame_seed, salt: int = 0):
     return to_unit_float(x), to_unit_float(y), to_unit_float(z), to_unit_float(w)
 
 
-def bounce_uniforms(n: int, bounce: int, seed: int, device="cpu") -> torch.Tensor:
+def bounce_uniforms(n: int, bounce: int, seed: int, device="cpu",
+                    wops: bool = False) -> torch.Tensor:
     """[5, N] float32 uniforms of one path bounce from one pcg4d per ray
     (ray index i, bounce, seed, BOUNCE_SALT): the top 24 bits of each of the
     four outputs (light pick and three BSDF-sample uniforms), then the
-    Russian-roulette uniform built from the low bytes of the first three."""
+    Russian-roulette uniform built from the low bytes of the first three.
+    With ``wops``, [8, N]: then the top 24 bits of the first three outputs
+    of a second pcg4d (salt WOPS_SALT): WoPS NEE's alias test and the two
+    uniforms of its point on the triangle."""
     pix = torch.arange(n, dtype=torch.int64, device=device)
     full = lambda v: torch.full_like(pix, int(v) & _M32)
     r = pcg4d_lanes(pix, full(bounce), full(seed), full(BOUNCE_SALT))
     lo = (r[0] & 0xFF) | ((r[1] & 0xFF) << 8) | ((r[2] & 0xFF) << 16)
     u_rr = lo.to(torch.float32) * (1.0 / 16777216.0)
-    return torch.stack([*(to_unit_float(x) for x in r), u_rr], 0)
+    rows = [*(to_unit_float(x) for x in r), u_rr]
+    if wops:
+        r2 = pcg4d_lanes(pix, full(bounce), full(seed), full(WOPS_SALT))
+        rows += [to_unit_float(x) for x in r2[:3]]
+    return torch.stack(rows, 0)

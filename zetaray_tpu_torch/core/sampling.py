@@ -1,10 +1,13 @@
 """Alias tables, Halton jitter and warps, as the JAX package's ``core/sampling.py``.
 
 ``build_alias_table`` and the Halton sequence run on the host in numpy;
-``sample_alias`` and ``square_to_triangle`` run on tensors.
+``sample_alias``, ``square_to_triangle`` and ``square_to_disk_concentric``
+run on tensors.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -55,6 +58,19 @@ def square_to_triangle(u1, u2):
     b1 = torch.where(flip, u1 * 0.5, u1 - u2 * 0.5)
     b2 = torch.where(flip, u2 - u1 * 0.5, u2 * 0.5)
     return b1, b2
+
+
+def square_to_disk_concentric(u: torch.Tensor) -> torch.Tensor:
+    """[..., 2] uniform square -> unit disk, concentric (Shirley) mapping."""
+    a = 2.0 * u[..., 0] - 1.0
+    b = 2.0 * u[..., 1] - 1.0
+    cond = torch.abs(a) > torch.abs(b)
+    r = torch.where(cond, a, b)
+    safe = torch.where(r == 0.0, 1.0, r)
+    phi = torch.where(cond, (math.pi / 4.0) * (b / safe),
+                      (math.pi / 2.0) - (math.pi / 4.0) * (a / safe))
+    phi = torch.where(r == 0.0, 0.0, phi)
+    return torch.stack([r * torch.cos(phi), r * torch.sin(phi)], -1)
 
 
 _PRIMES = (2, 3, 5, 7, 11, 13, 17, 19, 23, 29, 31, 37)

@@ -27,15 +27,19 @@
 // The tile width rt is a multiple of BOUNCE_BLOCK, so a block's rays share
 // one light set, staged in shared memory once (its first LSET_STAGED rows).
 // The five uniforms of a bounce come from one pcg4d per ray, computed in
-// place.
+// place. WoPS NEE (kWops, PTConfig.nee_mode="wops") stages nothing: each
+// ray draws its light from the emissive alias table in global memory
+// (path.cuh wops_light, a second pcg4d), reading the pick's alias entry and
+// then its light's row (an 8-byte word and 17 floats of one 128-byte line).
 //
 // PTConfig.sky and its sun NEE are compile-time branches (kSky: the sky and
 // the sun disk on a miss in B4 and B6; kSunNee: a second shadow sweep, of
 // unit segments toward the sun in (1e-3, 1e8), in B5 and B6), so the
 // instances without them carry none of their code; a sun segment that
 // nothing blocks tests every real triangle, as a lit NEE segment does, and
-// the sun's term is held in registers across the NEE sweep. Path
-// regularization and the firefly clamp are read at run time.
+// the sun's term is held in registers across the NEE sweep. WoPS NEE is a
+// compile-time branch too (kWops, in B5 and B6). Path regularization and
+// the firefly clamp are read at run time.
 #include "path.cuh"
 #include "sweep.cuh"
 
@@ -117,21 +121,21 @@ bounce_trace_kernel(const float* __restrict__ st_in, const float4* __restrict__ 
   for (int r = 0; r < SURF_ROWS; ++r) surf_out[(size_t)r * n + i] = s[r];
 }
 
-// B5: NEE, with kSunNee the sun's term, BSDF sample and Russian roulette
-// from the surface rows of B4, then the shadow sweeps. Writes the next
-// vertex, with the cone width scaled by eta where the sample was
-// transmitted.
-template <bool kSunNee>
+// B5: NEE (with kWops from the WoPS table at sets), with kSunNee the sun's
+// term, BSDF sample and Russian roulette from the surface rows of B4, then
+// the shadow sweeps. Writes the next vertex, with the cone width scaled by
+// eta where the sample was transmitted.
+template <bool kSunNee, bool kWops>
 __global__ void __launch_bounds__(BOUNCE_BLOCK, zr::kSweepBlocks)
 bounce_shade_kernel(const float* __restrict__ st_in, const float* __restrict__ surf,
                     const float4* __restrict__ tri_rows, const float* __restrict__ sets,
                     float* __restrict__ st_out, int n, int nt, zr::BounceParams prm) {
   __shared__ zr::SweepRing ring;
-  extern __shared__ float lset[];  // [LSET_STAGED][ps]
+  extern __shared__ float lset[];  // [LSET_STAGED][ps]; empty with kWops
   const int p0 = blockIdx.x * BOUNCE_BLOCK;
   const int i = p0 + threadIdx.x;
   const bool nee = prm.nee && prm.has_lights;
-  if (nee) zr::stage_light_set(lset, sets, zr::bounce_set(prm, p0), prm.ps);
+  if (!kWops && nee) zr::stage_light_set(lset, sets, zr::bounce_set(prm, p0), prm.ps);
   __syncthreads();
 
   zr::Ray seg = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
@@ -148,8 +152,8 @@ bounce_shade_kernel(const float* __restrict__ st_in, const float* __restrict__ s
     sf.eta = s(16);
     zr::V3f so, to_l;
     bool transmitted;
-    cand = zr::shade_sample<kSunNee>(lset, prm, i, path, sf, &so, &to_l, &rad_lit, &sun_cand,
-                                     &sun_add, &transmitted);
+    cand = zr::shade_sample<kSunNee, kWops>(kWops ? sets : lset, prm, i, path, sf, &so, &to_l,
+                                            &rad_lit, &sun_cand, &sun_add, &transmitted);
     seg = {so.x, so.y, so.z, to_l.x, to_l.y, to_l.z};
     if (transmitted && sf.eta > 0.f) path.cone = path.cone * sf.eta;
     zr::store_path(st_out, n, i, path);
@@ -162,19 +166,19 @@ bounce_shade_kernel(const float* __restrict__ st_in, const float* __restrict__ s
 }
 
 // B6: one whole bounce; with last != 0 only the trace half, its sky and its
-// emission.
-template <bool kSky, bool kSunNee>
+// emission. kWops: as for B5.
+template <bool kSky, bool kSunNee, bool kWops>
 __global__ void __launch_bounds__(BOUNCE_BLOCK, zr::kSweepBlocks)
 bounce_kernel(const float* __restrict__ st_in, const float4* __restrict__ tri_rows,
               const float* __restrict__ attrs, const float* __restrict__ sets,
               float* __restrict__ st_out, int n, int nt, zr::BounceParams prm, int last) {
   __shared__ zr::SweepRing ring;
-  extern __shared__ float lset[];  // [LSET_STAGED][ps]
+  extern __shared__ float lset[];  // [LSET_STAGED][ps]; empty with kWops
   const int p0 = blockIdx.x * BOUNCE_BLOCK;
   const int i = p0 + threadIdx.x;
   const bool live = i < n;
   const bool nee = !last && prm.nee && prm.has_lights;
-  if (nee) zr::stage_light_set(lset, sets, zr::bounce_set(prm, p0), prm.ps);
+  if (!kWops && nee) zr::stage_light_set(lset, sets, zr::bounce_set(prm, p0), prm.ps);
   __syncthreads();
 
   const zr::Hit hit = zr::closest_sweep(ring, tri_rows, nt, zr::kTriChunk, state_ray(st_in, n, i),
@@ -192,8 +196,9 @@ bounce_kernel(const float* __restrict__ st_in, const float4* __restrict__ tri_ro
     if (!last) {
       zr::V3f so, to_l;
       bool transmitted;  // B6 keeps its cone width, as its plain version does
-      cand = zr::shade_sample<kSunNee>(lset, prm, i, path, sf, &so, &to_l, &rad_lit, &sun_cand,
-                                       &sun_add, &transmitted);
+      cand = zr::shade_sample<kSunNee, kWops>(kWops ? sets : lset, prm, i, path, sf, &so,
+                                              &to_l, &rad_lit, &sun_cand, &sun_add,
+                                              &transmitted);
       seg = {so.x, so.y, so.z, to_l.x, to_l.y, to_l.z};
     }
     zr::store_path(st_out, n, i, path);
@@ -207,15 +212,16 @@ bounce_kernel(const float* __restrict__ st_in, const float4* __restrict__ tri_ro
   }
 }
 
-zr::BounceParams params(int bounce, uint32_t seed, int rt, int n_sets, int ps, float t_min,
-                        int min_emissive_bounce, int min_nee_bounce, int rr_start, int nee,
-                        int has_lights, const float* opts) {
+zr::BounceParams params(int bounce, uint32_t seed, int rt, int n_sets, int ps, int n_em,
+                        float t_min, int min_emissive_bounce, int min_nee_bounce, int rr_start,
+                        int nee, int has_lights, const float* opts) {
   zr::BounceParams p;
   p.bounce = bounce;
   p.seed = seed;
   p.rt = rt;
   p.n_sets = n_sets;
   p.ps = ps;
+  p.n_em = n_em;
   p.t_min = t_min;
   p.min_emissive_bounce = min_emissive_bounce;
   p.min_nee_bounce = min_nee_bounce;
@@ -236,8 +242,8 @@ extern "C" int zr_bounce_trace(const float* st_in, const float* tri_rows, const 
                                int bounce, float t_min, float spread, int min_emissive_bounce,
                                int nee, int has_lights, const float* opts, void* stream) {
   if (nt < 0 || nt > tp || !(t_min >= 0.f)) return (int)cudaErrorInvalidValue;
-  const zr::BounceParams p = params(bounce, 0u, BOUNCE_BLOCK, 1, 1, t_min, min_emissive_bounce,
-                                    0, 0, nee, has_lights, opts);
+  const zr::BounceParams p = params(bounce, 0u, BOUNCE_BLOCK, 1, 1, 0, t_min,
+                                    min_emissive_bounce, 0, 0, nee, has_lights, opts);
   const int grid = (n + BOUNCE_BLOCK - 1) / BOUNCE_BLOCK;
   const auto kernel = zr::opts_sky(opts) ? bounce_trace_kernel<true> : bounce_trace_kernel<false>;
   if (grid > 0) {
@@ -248,19 +254,28 @@ extern "C" int zr_bounce_trace(const float* st_in, const float* tri_rows, const 
   return (int)cudaGetLastError();
 }
 
-// tri_rows, nt, opts: as for zr_bounce_trace.
+// tri_rows, nt, opts: as for zr_bounce_trace. wops_em: 0 for NEE from the
+// light sets at sets ([n_sets][LSET_ROWS][ps]); > 0 for WoPS NEE over that
+// many emissives, sets then the [ps][WOPS_ROW] table (wops_table, ps its
+// padded emissive count).
 extern "C" int zr_bounce_shade(const float* st_in, const float* surf, const float* tri_rows,
                                const float* sets, float* st_out, int n, int tp, int nt,
                                int n_sets, int ps, int rt, int bounce, uint32_t seed,
                                int min_nee_bounce, int rr_start, int nee, int has_lights,
-                               const float* opts, void* stream) {
-  if (nt < 0 || nt > tp || rt % BOUNCE_BLOCK) return (int)cudaErrorInvalidValue;
-  const zr::BounceParams p = params(bounce, seed, rt, n_sets, ps, 0.f, 0, min_nee_bounce,
-                                    rr_start, nee, has_lights, opts);
+                               int wops_em, const float* opts, void* stream) {
+  if (nt < 0 || nt > tp || rt % BOUNCE_BLOCK || wops_em < 0 || wops_em > ps) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const zr::BounceParams p = params(bounce, seed, rt, n_sets, ps, wops_em, 0.f, 0,
+                                    min_nee_bounce, rr_start, nee, has_lights, opts);
   const int grid = (n + BOUNCE_BLOCK - 1) / BOUNCE_BLOCK;
-  const size_t smem = (size_t)LSET_STAGED * ps * sizeof(float);
-  const auto kernel =
-      zr::opts_sun_nee(opts) ? bounce_shade_kernel<true> : bounce_shade_kernel<false>;
+  const bool wops = wops_em > 0;
+  const size_t smem = wops ? 0 : (size_t)LSET_STAGED * ps * sizeof(float);
+  const bool sun = zr::opts_sun_nee(opts);
+  const auto kernel = wops ? (sun ? bounce_shade_kernel<true, true>
+                                  : bounce_shade_kernel<false, true>)
+                           : (sun ? bounce_shade_kernel<true, false>
+                                  : bounce_shade_kernel<false, false>);
   if (grid > 0) {
     kernel<<<grid, BOUNCE_BLOCK, smem, (cudaStream_t)stream>>>(
         st_in, surf, reinterpret_cast<const float4*>(tri_rows), sets, st_out, n, nt, p);
@@ -268,22 +283,31 @@ extern "C" int zr_bounce_shade(const float* st_in, const float* surf, const floa
   return (int)cudaGetLastError();
 }
 
-// tri_rows, nt, opts: as for zr_bounce_trace.
+// tri_rows, nt, opts: as for zr_bounce_trace; sets, wops_em: as for
+// zr_bounce_shade.
 extern "C" int zr_bounce(const float* st_in, const float* tri_rows, const float* attrs,
                          const float* sets, float* st_out, int n, int tp, int nt, int n_sets,
                          int ps, int rt, int bounce, uint32_t seed, float t_min,
                          int min_emissive_bounce, int min_nee_bounce, int rr_start, int nee,
-                         int has_lights, int last, const float* opts, void* stream) {
-  if (nt < 0 || nt > tp || rt % BOUNCE_BLOCK || !(t_min >= 0.f)) {
+                         int has_lights, int last, int wops_em, const float* opts,
+                         void* stream) {
+  if (nt < 0 || nt > tp || rt % BOUNCE_BLOCK || !(t_min >= 0.f) || wops_em < 0 ||
+      wops_em > ps) {
     return (int)cudaErrorInvalidValue;
   }
-  const zr::BounceParams p = params(bounce, seed, rt, n_sets, ps, t_min, min_emissive_bounce,
-                                    min_nee_bounce, rr_start, nee, has_lights, opts);
+  const zr::BounceParams p = params(bounce, seed, rt, n_sets, ps, wops_em, t_min,
+                                    min_emissive_bounce, min_nee_bounce, rr_start, nee,
+                                    has_lights, opts);
   const int grid = (n + BOUNCE_BLOCK - 1) / BOUNCE_BLOCK;
-  const size_t smem = (size_t)LSET_STAGED * ps * sizeof(float);
-  const auto kernel = !zr::opts_sky(opts)      ? bounce_kernel<false, false>
-                      : zr::opts_sun_nee(opts) ? bounce_kernel<true, true>
-                                               : bounce_kernel<true, false>;
+  const bool wops = wops_em > 0;
+  const size_t smem = wops ? 0 : (size_t)LSET_STAGED * ps * sizeof(float);
+  const bool sky = zr::opts_sky(opts), sun = zr::opts_sun_nee(opts);
+  const auto kernel = wops ? (!sky ? bounce_kernel<false, false, true>
+                              : sun ? bounce_kernel<true, true, true>
+                                    : bounce_kernel<true, false, true>)
+                           : (!sky ? bounce_kernel<false, false, false>
+                              : sun ? bounce_kernel<true, true, false>
+                                    : bounce_kernel<true, false, false>);
   if (grid > 0) {
     kernel<<<grid, BOUNCE_BLOCK, smem, (cudaStream_t)stream>>>(
         st_in, reinterpret_cast<const float4*>(tri_rows), attrs, sets, st_out, n, nt, p, last);

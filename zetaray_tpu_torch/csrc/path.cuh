@@ -15,7 +15,8 @@
 #pragma once
 
 #include "common.cuh"
-#include "layout.h"  // A_*, BOUNCE_SALT, PATH_OPTS, STATE_ROWS, SURF_ROWS, GGX_*, SKY_*
+#include "layout.h"  // A_*, EA_*, BOUNCE_SALT, WOPS_SALT, WOPS_ROW, PATH_OPTS, STATE_ROWS,
+                     // SURF_ROWS, GGX_*, SKY_*
 
 namespace zr {
 
@@ -303,6 +304,7 @@ struct BounceParams {
   int bounce;
   uint32_t seed;
   int rt, n_sets, ps;  // light-set tiling: set (i / rt + 13 * bounce) % n_sets
+  int n_em;  // WoPS NEE: the real emissives of the table (ps its rows)
   float t_min;
   int min_emissive_bounce, min_nee_bounce, rr_start;
   bool nee, has_lights;
@@ -395,10 +397,55 @@ __device__ __forceinline__ void surface_at(const float* __restrict__ attrs,
   sf.eta = front ? 1.f / ior : ior;
 }
 
+// One NEE light sample: its position, normal, emitted radiance, pdf per
+// area and whether it is two-sided.
+struct LightSample {
+  V3f p, ng, le;
+  float pdf_area;
+  bool two_sided;
+};
+
+// Entry k of the light set staged at lset (LSET_STAGED rows of prm.ps).
+__device__ __forceinline__ LightSample set_light(const float* lset, const BounceParams& prm,
+                                                 int k) {
+  auto ls = [&](int r) { return lset[r * prm.ps + k]; };
+  return {{ls(0), ls(1), ls(2)}, {ls(3), ls(4), ls(5)}, {ls(6), ls(7), ls(8)}, ls(9),
+          ls(10) > 0.5f};
+}
+
+// WoPS NEE's light sample for ray i (accel.megakernel._wops_light): a second
+// pcg4d (i, bounce, seed, WOPS_SALT) gives the alias test and the point on
+// the triangle; pick u_pick over the prm.n_em real emissives, resolve it
+// through the alias entry {prob, alias} of the pick's row and read the
+// chosen light's row. tab: accel.megakernel.wops_table in global memory,
+// rows of WOPS_ROW floats, one 128-byte line each: the alias entry is one
+// 8-byte word through the read-only path, the light 17 floats of its line.
+// (Its row read as 16-byte words held more registers: B5 and B6 spilled
+// more than their light-set instances.)
+__device__ __forceinline__ LightSample wops_light(const float* __restrict__ tab,
+                                                  const BounceParams& prm, int i, float u_pick) {
+  static_assert(WOPS_ROW % 2 == 0 && EA_WIDTH % 2 == 0, "the alias entry is an 8-byte word");
+  uint32_t h0 = (uint32_t)i, h1 = (uint32_t)prm.bounce, h2 = prm.seed, h3 = WOPS_SALT;
+  pcg4d(h0, h1, h2, h3);
+  const float u_alias = to_unit(h0), u_b0 = to_unit(h1), u_b1 = to_unit(h2);
+  const int k0 = min((int)(u_pick * (float)prm.n_em), prm.n_em - 1);
+  const float2 entry =
+      __ldg(reinterpret_cast<const float2*>(tab + (size_t)k0 * WOPS_ROW + EA_WIDTH));
+  const int k = u_alias >= entry.x ? (int)entry.y : k0;
+  const float* v = tab + (size_t)k * WOPS_ROW;
+  auto at3 = [&](int c) { return V3f{v[c], v[c + 1], v[c + 2]}; };
+  const bool flip = u_b1 > u_b0;  // core.sampling.square_to_triangle
+  const float b1 = flip ? u_b0 * 0.5f : u_b0 - u_b1 * 0.5f;
+  const float b2 = flip ? u_b1 - u_b0 * 0.5f : u_b1 * 0.5f;
+  return {(at3(EA_V0) + at3(EA_E1) * b1) + at3(EA_E2) * b2, at3(EA_NG), at3(EA_LE),
+          v[EA_PDF_AREA], v[EA_TWO_SIDED] > 0.5f};
+}
+
 // The shade half of B5 and B6 before their shadow sweeps, for ray i, at the
 // regularized material past bounce 0 where prm.path_reg: the NEE sample
-// from the staged light set (clamped by prm.firefly), with kSunNee the sun
-// term, the BSDF sample and Russian roulette. The path moves to its next
+// from the staged light set, or with kWops a per-ray draw from the WoPS
+// table at lights (clamped by prm.firefly), with kSunNee the sun term, the
+// BSDF sample and Russian roulette. The path moves to its next
 // vertex without the NEE light and the sun. Returns whether the NEE sample
 // is a candidate; then *seg is its shadow segment from *so, the hit moved
 // off the surface (tested in (kEpsRay, 1 - 1e-3)), and *rad_lit the path's
@@ -407,8 +454,8 @@ __device__ __forceinline__ void surface_at(const float* __restrict__ attrs,
 // *sun_add what the sun adds to the radiance unless the segment is a
 // candidate that something blocks. *trans_out: whether the BSDF sample went
 // below the surface.
-template <bool kSunNee>
-__device__ __forceinline__ bool shade_sample(const float* lset, const BounceParams& prm, int i,
+template <bool kSunNee, bool kWops>
+__device__ __forceinline__ bool shade_sample(const float* lights, const BounceParams& prm, int i,
                                              Path& path, const Surface& sf, V3f* so, V3f* seg,
                                              V3f* rad_lit, bool* sun_cand, V3f* sun_add,
                                              bool* trans_out) {
@@ -426,18 +473,20 @@ __device__ __forceinline__ bool shade_sample(const float* lset, const BouncePara
 
   bool candidate = false;
   if (prm.nee && prm.has_lights) {
-    const int k = min((int)(u1 * (float)prm.ps), prm.ps - 1);
-    auto ls = [&](int r) { return lset[r * prm.ps + k]; };
-    const V3f lp = {ls(0), ls(1), ls(2)};
-    const V3f lng = {ls(3), ls(4), ls(5)};
-    const V3f lle = {ls(6), ls(7), ls(8)};
-    const float lpdf_area = ls(9);
-    const V3f to_l = lp - sf.pos;
+    LightSample l;
+    if constexpr (kWops) {
+      l = wops_light(lights, prm, i, u1);
+    } else {
+      l = set_light(lights, prm, min((int)(u1 * (float)prm.ps), prm.ps - 1));
+    }
+    const V3f lle = l.le;
+    const float lpdf_area = l.pdf_area;
+    const V3f to_l = l.p - sf.pos;
     const float dist2 = fmaxf(dot(to_l, to_l), 1e-12f);
     const V3f wi_w = to_l * rsqrtf(dist2);
     const float cos_surf = dot(wi_w, sf.ns);
-    const float cos_l_raw = -dot(wi_w, lng);
-    const float cos_l = ls(10) > 0.5f ? fabsf(cos_l_raw) : cos_l_raw;
+    const float cos_l_raw = -dot(wi_w, l.ng);
+    const float cos_l = l.two_sided ? fabsf(cos_l_raw) : cos_l_raw;
     float pdf_b;
     const V3f f = bsdf_eval(mat, wo_l, frame.to_local(wi_w), &pdf_b);
     const float pdf_l_sa2 = lpdf_area * dist2 / fmaxf(cos_l, 1e-8f);

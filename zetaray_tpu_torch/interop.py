@@ -46,13 +46,13 @@ def frame_state_from_arrays(d: dict, device=None) -> FrameState:
     fields) -> the port's state on ``device`` (default: the card). The
     indirect reservoirs may be ReSTIR GI's 16 rows or ReSTIR PT's 58; the
     rows are copied bit for bit (PT's SRCSEED row holds u32 bits), and so
-    are SkyDI's ``sky_reservoirs`` where the state has them."""
+    are SkyDI's ``sky_reservoirs`` and the upscaler's ``upscale_lock`` where
+    the state has them."""
     device = native.default_device(device)
-    if d.get("upscale_lock") is not None:
-        raise NotImplementedError("upscale_lock: the temporal upscaler is not ported yet")
     t = lambda k: torch.from_numpy(np.array(d[k], np.float32)).to(device)
+    opt = lambda k: None if d.get(k) is None else t(k)
     return FrameState(
         reservoirs=t("reservoirs"), gi_reservoirs=t("gi_reservoirs"), gbuf=t("gbuf"),
         camera_prev=camera_from_arrays(d["camera_prev"]), history=t("history"),
-        sky_reservoirs=None if d.get("sky_reservoirs") is None else t("sky_reservoirs"),
+        sky_reservoirs=opt("sky_reservoirs"), upscale_lock=opt("upscale_lock"),
     )

@@ -39,6 +39,10 @@ B9 on the DI shadow segments), it prints and writes to FILE (default
   between calls;
 - whether every output of every ray is equal, bit for bit, between builds.
 
+B5 and B6 also run with the sky, sun NEE, path regularization and the
+firefly clamp on (``bounce_shade_sky_sun``, ``bounce_sky_sun``), the
+instances of the JAX app's ``--sun`` frame.
+
 Needs the card; it raises without CUDA.
 """
 
@@ -61,7 +65,10 @@ from . import native
 from .accel import intersect as XI
 from .accel import megakernel as MK
 from .ops import restir_di as RD
+from .ops.sky import SkyParams
 from .timing import card_line, cuda_ms
+
+SUN = (0.2, 0.45, 0.87)  # in through the box's opening at +z
 
 
 def import_package(src: Path, into: Path, name: str):
@@ -197,11 +204,11 @@ def main() -> int:
     try:
         name = "zetaray_ab_parent"
         import_package(args.parent.resolve(), work, name)
-        p_native, p_mk, p_xi, p_st, p_rd, p_pt, p_proc, p_scene, p_sub = (
+        p_native, p_mk, p_xi, p_st, p_rd, p_pt, p_proc, p_scene, p_sub, p_sky = (
             importlib.import_module(f"{name}.{m}") for m in (
                 "native", "accel.megakernel", "accel.intersect", "accel.stream",
                 "ops.restir_di", "ops.pathtracer", "scene.procedural", "scene.scene",
-                "scene.subdivide"))
+                "scene.subdivide", "ops.sky"))
         for label, nat in (("parent", p_native), ("new", native)):
             text = report["ptxas"][label] = ptxas_report(nat)
             print(f"ptxas, {label}:\n" + "\n".join(
@@ -224,6 +231,10 @@ def main() -> int:
             st4, sf4, o2, d2, lsets, cfg, rt = inp["b45"]
             cfg_p = p_pt.PTConfig(**{f.name: getattr(cfg, f.name)
                                      for f in dataclasses.fields(p_pt.PTConfig)})
+            # the sky (the sun in through the box's opening) and the path options
+            opts = dict(path_regularization=True, firefly_clamp=10.0)
+            cfg_s = dataclasses.replace(cfg, sky=SkyParams(sun_dir=SUN), **opts)
+            cfg_sp = dataclasses.replace(cfg_p, sky=p_sky.SkyParams(sun_dir=SUN), **opts)
             o7, d7 = inp["b7"]
             st0 = MK.initial_state(o2, d2)
 
@@ -252,6 +263,16 @@ def main() -> int:
                     "new": lambda: MK.bounce_shade(scene, st4, sf4, lsets, 0, seed, cfg, True, rt)},
                 "bounce": b6("b6"),
                 "bounce_last": b6("b6_last"),
+                "bounce_shade_sky_sun": {
+                    "parent": lambda: p_mk.bounce_shade(scene_p, st4, sf4, lsets, 0, seed,
+                                                        cfg_sp, True, rt),
+                    "new": lambda: MK.bounce_shade(scene, st4, sf4, lsets, 0, seed, cfg_s, True,
+                                                   rt)},
+                "bounce_sky_sun": {
+                    "parent": lambda: p_mk.bounce(scene_p, inp["b6"][0], lsets, 1, seed, cfg_sp,
+                                                  False, True, rt),
+                    "new": lambda: MK.bounce(scene, inp["b6"][0], lsets, 1, seed, cfg_s, False,
+                                             True, rt)},
                 "closest": {"parent": lambda: p_xi.intersect_closest_shaded(scene_p, o7, d7),
                             "new": lambda: XI.intersect_closest_shaded(scene, o7, d7)},
                 "control_occlusion": {

@@ -11,9 +11,9 @@ Each C entry point launches on the stream it is given, allocates nothing,
 and returns ``cudaGetLastError()``; :func:`check` turns a non-zero code
 into an exception.
 
-The row and column layouts the kernels index (``A``, ``G``, ``LSET_ROWS``,
-``R_ROWS``, ``STATE_ROWS``, ``SURF_ROWS``), the bounce kernels' block size,
-pcg4d salt and path options block, the tree walks' stack limit and box
+The row and column layouts the kernels index (``A``, ``EA``, ``G``,
+``LSET_ROWS``, ``R_ROWS``, ``STATE_ROWS``, ``SURF_ROWS``), the bounce
+kernels' block size, pcg4d salts and path options block, the tree walks' stack limit and box
 padding, the closed-form sky's fixed parameters of ``ops.sky`` and the GGX
 albedo fit of ``ops.shading_soa`` are defined once, in Python:
 :func:`layout_header`
@@ -58,14 +58,14 @@ _SIGNATURES = {
     # min_emissive_bounce, nee, has_lights, path options, stream
     "zr_bounce_trace": [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _F, _F, _I, _I, _I, _FP, _VP],
     # state, surf, woop_rows, sets, state_out, n, tp, nt, n_sets, ps, rt, bounce, seed,
-    # min_nee_bounce, rr_start, nee, has_lights, path options, stream
+    # min_nee_bounce, rr_start, nee, has_lights, wops_em, path options, stream
     "zr_bounce_shade": [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _I, ctypes.c_uint32,
-                        _I, _I, _I, _I, _FP, _VP],
+                        _I, _I, _I, _I, _I, _FP, _VP],
     # state, woop_rows, attrs, sets, state_out, n, tp, nt, n_sets, ps, rt, bounce, seed,
     # t_min, min_emissive_bounce, min_nee_bounce, rr_start, nee, has_lights, last,
-    # path options, stream
+    # wops_em, path options, stream
     "zr_bounce": [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _I, ctypes.c_uint32, _F,
-                  _I, _I, _I, _I, _I, _I, _FP, _VP],
+                  _I, _I, _I, _I, _I, _I, _I, _FP, _VP],
     # o, d, woop_rows, attrs, t, tri, u, v, attrs_out, n, tp, nt, tie, t_min, t_max, stream
     "zr_closest": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _F, _F, _VP],
     # o, d, walk_nodes, leaf_rows, leaf_slot, t, tri, n, c, stack, t_min, t_max, stream
@@ -94,9 +94,10 @@ def sources() -> list[Path]:
 
 def layout_header() -> str:
     """``layout.h``: the Python layouts and launch constants as ``constexpr
-    int`` constants (``A_<column>``, ``G_<row>``, ``LSET_ROWS``,
-    ``LSET_STAGED``, ``R_ROWS``, ``STATE_ROWS``, ``SURF_ROWS``,
-    ``BOUNCE_BLOCK``, ``BOUNCE_SALT``, ``WALK_STACK_MAX``, ``PATH_OPTS``),
+    int`` constants (``A_<column>``, ``EA_<column>``, ``G_<row>``,
+    ``LSET_ROWS``, ``LSET_STAGED``, ``R_ROWS``, ``STATE_ROWS``, ``SURF_ROWS``,
+    ``BOUNCE_BLOCK``, ``BOUNCE_SALT``, ``WOPS_SALT``, ``WALK_STACK_MAX``,
+    ``PATH_OPTS``, ``WOPS_ROW``),
     ``TREE_PAD_REL`` and the sky's ``SKY_*`` (``ops.sky.layout_constants``)
     as ``constexpr float`` and the GGX albedo fit (``GGX_E_DEG``,
     ``GGX_E_COEF``, ``GGX_EAVG_COEF``) as float arrays in constant memory,
@@ -104,24 +105,24 @@ def layout_header() -> str:
     float32 as in PyTorch."""
     from .accel.bvh import TREE_PAD_REL, WALK_STACK_MAX
     from .accel.megakernel import (
-        BOUNCE_BLOCK, G, LSET_ROWS, LSET_STAGED, PATH_OPTS, STATE_ROWS, SURF_ROWS,
+        BOUNCE_BLOCK, G, LSET_ROWS, LSET_STAGED, PATH_OPTS, STATE_ROWS, SURF_ROWS, WOPS_ROW,
     )
-    from .core.rng import BOUNCE_SALT
+    from .core.rng import BOUNCE_SALT, WOPS_SALT
     from .ops import shading_soa as S
     from .ops import sky as SK
     from .ops.restir_di import R_ROWS
-    from .scene.scene import A
+    from .scene.scene import A, EA
 
     lines = ["// Generated by zetaray_tpu_torch.native.layout_header(); do not edit.",
              "#pragma once"]
-    for prefix, cls in (("A", A), ("G", G)):
+    for prefix, cls in (("A", A), ("EA", EA), ("G", G)):
         lines += [f"constexpr int {prefix}_{k} = {v};"
                   for k, v in vars(cls).items() if k.isupper()]
     lines += [f"constexpr int {k} = {v};" for k, v in (
         ("LSET_ROWS", LSET_ROWS), ("LSET_STAGED", LSET_STAGED), ("R_ROWS", R_ROWS),
         ("STATE_ROWS", STATE_ROWS), ("SURF_ROWS", SURF_ROWS), ("BOUNCE_BLOCK", BOUNCE_BLOCK),
-        ("BOUNCE_SALT", BOUNCE_SALT), ("GGX_E_DEG", S._GGX_E_DEG),
-        ("WALK_STACK_MAX", WALK_STACK_MAX), ("PATH_OPTS", PATH_OPTS))]
+        ("BOUNCE_SALT", BOUNCE_SALT), ("WOPS_SALT", WOPS_SALT), ("GGX_E_DEG", S._GGX_E_DEG),
+        ("WALK_STACK_MAX", WALK_STACK_MAX), ("PATH_OPTS", PATH_OPTS), ("WOPS_ROW", WOPS_ROW))]
     lines.append(f"constexpr float TREE_PAD_REL = {TREE_PAD_REL!r}f;")
     lines += [f"constexpr float {k} = {v!r}f;" for k, v in SK.layout_constants().items()]
     for name, coef in (("GGX_E_COEF", S._GGX_E_COEF), ("GGX_EAVG_COEF", S._GGX_EAVG_COEF)):

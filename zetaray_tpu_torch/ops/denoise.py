@@ -1,4 +1,5 @@
-"""Edge-aware a-trous wavelet filter, as the JAX package's ``ops/denoise.py``.
+"""The firefly filter and the edge-aware a-trous wavelet filter, as the JAX
+package's ``ops/denoise.py``.
 
 Planar: img and normal [3, H, W], depth and validity [H, W]. The stencil
 taps are circular rolls, as in the JAX package.
@@ -27,6 +28,21 @@ _B3 = (1.0 / 16.0, 1.0 / 4.0, 3.0 / 8.0, 1.0 / 4.0, 1.0 / 16.0)
 def _roll2(a, dy, dx):
     """Roll the last two (row, column) axes."""
     return torch.roll(a, shifts=(dy, dx), dims=(-2, -1))
+
+
+def firefly_filter_p(img, factor: float = 3.0):
+    """Scale down, hue kept, each pixel of img [3, H, W] whose luminance
+    exceeds ``factor`` times that of the mean of its 8 neighbours (the
+    centre left out, the image wrapped around)."""
+    acc = torch.zeros_like(img)
+    for dy in (-1, 0, 1):
+        for dx in (-1, 0, 1):
+            if dx or dy:
+                acc = acc + _roll2(img, dy, dx)
+    lum = luminance_p(img)
+    limit = factor * torch.clamp_min(luminance_p(acc / 8.0), 1e-4)
+    scale = torch.where(lum > limit, limit / torch.clamp_min(lum, 1e-8), 1.0)
+    return img * scale[None]
 
 
 def atrous_iteration_p(out, normal, depth, vf, step: int, cfg: ATrousConfig = ATrousConfig()):

@@ -64,18 +64,15 @@ class PTConfig:
     sun_nee: bool = True  # with a sky: a shadow segment toward the sun per vertex
     light_ns: int = 64  # presampled light sets
     light_ps: int = 128  # samples per set
-    nee_mode: str = "wps"  # "wops" (per-ray alias sampling) is not ported yet
+    # "wps": NEE from the presampled light sets; "wops": a per-ray draw from
+    # the emissive alias table (the bounce kernels only: trace_reference,
+    # the clustered scenes' path trace, ignores it, as in the JAX package)
+    nee_mode: str = "wps"
     # with probability 1/2 a GI path ends after its first vertex (primary
     # roughness >= 0.1; ops.restir_gi.initial_samples draws the mask)
     stochastic_multi_bounce: bool = False
     # GGX alpha < 0.25 -> clamp(2 alpha, 0.1, 0.25) at the vertices past the first
     path_regularization: bool = False
-
-    def unported(self) -> list[str]:
-        """Names of the settings this package does not implement yet."""
-        if self.nee_mode != "wps":
-            return [f"pt.nee_mode={self.nee_mode!r} (per-ray alias NEE)"]
-        return []
 
 
 def trace(scene, o, d, seed: int, cfg: PTConfig = PTConfig(), rt: int = 1024,
@@ -118,10 +115,9 @@ def trace_reference(scene, o, d, seed: int, cfg: PTConfig = PTConfig(),
     its reconnection vertex from it). Bounces 0..max_bounces, the last one
     stopping after its emission. Dead rays are parked (``park``).
     ``smb_kill``: optional bool [N], paths that stop extending after bounce
-    0's BSDF sample (before Russian roulette)."""
-    missing = cfg.unported()
-    if missing:
-        raise NotImplementedError("not ported yet: " + ", ".join(missing))
+    0's BSDF sample (before Russian roulette). Its NEE draws from the
+    emissive alias table whatever ``cfg.nee_mode`` says, as the JAX
+    function does."""
     n = o.shape[0]
     dev = o.device
     pixel = torch.arange(n, dtype=torch.int64, device=dev)

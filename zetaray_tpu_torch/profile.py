@@ -6,9 +6,11 @@ For each path -- on the procedural Cornell box the flagship ReSTIR GI frame
 at 512^2 and 1920x1080 (max_bounces 3 and 2), the ReSTIR PT frame at 512^2,
 the plain path-traced frame at 512^2 (max_bounces 4), the JAX app's
 default frame (mode="restir_di", max_bounces 4, TAA) at 512^2 without and
-with its sun and sky, and bench.py's features frame (light-voxel-grid DI
+with its sun and sky, bench.py's features frame (light-voxel-grid DI
 candidates, pairwise MIS, SkyDI, froxel volumetrics) at 256^2 as it stands
-and at 512^2 with the sun in through the box's opening; and on the box
+and at 512^2 with the sun in through the box's opening, and bench.py's
+upscale_256_to_512 (ReSTIR GI, max_bounces 2, rendered at 256^2, the
+temporal upscaler to 512^2 and RCAS) beside its native 512^2 twin; and on the box
 split to 139,266 triangles (clustered: every ray query through B8/B9) the
 ReSTIR GI frame (max_bounces 2) and the ReSTIR PT frame (max_bounces 3) at
 256^2, each with a-trous and TAA where the frame has them -- it measures:
@@ -20,7 +22,8 @@ ReSTIR GI frame (max_bounces 2) and the ReSTIR PT frame (max_bounces 3) at
 - passes: the same chain again with each stage function the frame calls
   wrapped in a synchronise and the host clock (a stage called inside
   another counts in the outer one), the median per pass over frames 2 on
-  (the synchronises add their own cost);
+  (the synchronises add their own cost). RCAS runs inside the post chain
+  and is timed on its own row, not in the post chain's;
 - device: ``torch.profiler`` over 3 more chained frames, after a first
   frame that is traced and dropped (it starts the trace and the chain):
   kernel launches and device kernel time per frame, each hand-written
@@ -53,6 +56,7 @@ from .ops import prelighting as PL
 from .ops import restir_di as RD
 from .ops import restir_gi as RG
 from .ops import restir_pt as RP
+from .ops import upscale as UP
 from .ops import volumetrics as VL
 from .ops.pathtracer import PTConfig
 from .ops.skydi import SkyDIConfig
@@ -85,8 +89,13 @@ STAGES = [
     (VL, "build_froxels", "froxel build (B3; clustered B9)"),
     (VL, "apply_inscattering", "froxel compositing"),
     (F.DN, "atrous_denoise_p", "a-trous"), (F.TA, "taa_resolve_p", "TAA"),
+    (UP, "taau_resolve", "TAAU (temporal upscaler)"), (UP, "rcas_p", "RCAS"),
     (F, "_postprocess", "exposure + AgX + sRGB"), (F, "pack_temporal", "pack temporal G-buffer"),
 ]
+# stages timed on their own rows even inside another stage, whose row they
+# leave. It holds RCAS alone: RCAS runs inside the post chain, as the
+# ``ldr_transform`` that ``_postprocess`` applies after the tonemap
+NESTED = {"RCAS"}
 KERNELS = {"gbuffer_kernel": "B1", "ris_kernel": "B2", "occlusion_kernel": "B3",
            "bounce_trace_kernel": "B4", "bounce_shade_kernel": "B5", "bounce_kernel": "B6",
            "closest_kernel": "B7", "stream_closest_kernel": "B8",
@@ -120,6 +129,8 @@ def _paths():
             max_bounces=4, sky=SkyParams(sun_dir=(0.2, 0.45, 0.87))))),
         "features_256": ("box", cam, _features(256, (0.3, 0.8, 0.2))),
         "features_sun_512": ("box", cam, _features(512, (0.2, 0.45, 0.87))),
+        "upscale_256_to_512": ("box", cam, _upscale(0.5)),
+        "upscale_native_512": ("box", cam, _upscale(1.0)),
         "clustered_gi_256": ("box139k", cam, F.RenderConfig(
             width=256, height=256, mode="restir_gi", pt=PTConfig(max_bounces=2), **post)),
         "clustered_pt_256": ("box139k", cam, F.RenderConfig(
@@ -137,6 +148,13 @@ def _features(res: int, sun_dir) -> F.RenderConfig:
         restir_gi=RG.ReSTIRGIConfig(boiling_suppression=True), skydi=True,
         skydi_cfg=SkyDIConfig(spatial_mis="pairwise"), volumetrics=VL.VolumetricsConfig(),
         denoise=True, taa=True)
+
+
+def _upscale(render_scale: float) -> F.RenderConfig:
+    """bench.py's upscale_256_to_512 (bench.py:178-183) at ``render_scale``."""
+    return F.RenderConfig(width=512, height=512, mode="restir_gi", pt=PTConfig(max_bounces=2),
+                          render_scale=render_scale, taa=True,
+                          upscale_cfg=UP.UpscaleConfig(rcas_sharpness=0.8))
 
 
 def _chain(scene, cam, cfg, frames, seed=0x2468ACE1, after=None):
@@ -159,22 +177,25 @@ def _chain(scene, cam, cfg, frames, seed=0x2468ACE1, after=None):
 def _passes(scene, cam, cfg, frames):
     """Median ms per pass over frames 2 on, each stage synchronised."""
     spent = defaultdict(lambda: [0.0] * frames)
-    frame_no, depth = [0], [0]
+    frame_no, stack = [0], []
 
     def wrap(fn, name):
         @functools.wraps(fn)
         def timed(*a, **kw):
-            if depth[0]:
+            if stack and name not in NESTED:
                 return fn(*a, **kw)
-            depth[0] += 1
+            stack.append(name)
             torch.cuda.synchronize()
             t = time.perf_counter()
             try:
                 return fn(*a, **kw)
             finally:
                 torch.cuda.synchronize()
-                spent[name][frame_no[0]] += (time.perf_counter() - t) * 1e3
-                depth[0] -= 1
+                ms = (time.perf_counter() - t) * 1e3
+                stack.pop()
+                spent[name][frame_no[0]] += ms
+                if stack:  # a NESTED stage leaves its enclosing stage's row
+                    spent[stack[-1]][frame_no[0]] -= ms
         return timed
 
     saved = [(m, a, getattr(m, a)) for m, a, _ in STAGES]

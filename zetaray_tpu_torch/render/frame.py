@@ -9,11 +9,24 @@ on or off. It runs camera rays -> G-buffer -> presampled light sets -> DI
 RIS -> DI temporal -> DI visibility -> DI spatial -> DI shade -> the
 indirect pass (a path trace of the camera rays past their first hit, or
 ReSTIR GI or ReSTIR PT: initial samples, temporal reuse with boiling
-suppression, spatial reuse, shade) -> a-trous -> TAA -> histogram exposure,
-AgX and sRGB, in the JAX frame's order. In the GI and PT modes one
+suppression, spatial reuse, shade) -> the firefly filter -> a-trous -> TAA
+or the temporal upscaler -> exposure (histogram or weighted average), a
+tonemapper of ``ops.post.TONEMAPPERS_P``, RCAS after an upscale, and sRGB,
+in the JAX frame's order. In the GI and PT modes one
 reprojection and one gather serve both temporal passes, and the pre-spatial
 DI and indirect reservoirs are fed forward. ``render_frame`` covers
 ``mode="pt"``. A setting outside these raises ``NotImplementedError``.
+
+With ``render_scale`` != 1 everything up to the post chain runs at the
+render resolution (``render_size``) and ``ops.upscale.taau_resolve``
+reconstructs the display image in place of TAA; reservoirs and G-buffer
+stay at render resolution, the history and the luminance locks
+(``FrameState.upscale_lock``) at display resolution.
+
+A thin-lens camera (``Camera.lens_radius`` > 0) takes its lens uniforms from
+``_lens_u``: ``uniform4(pixel, 0, seed, 0x0D0F)``. The JAX frame draws them
+with ``jax.random`` from its PRNG key, a stream the port's u32 frame seed
+cannot give; the feature is the same, the random stream is not.
 
 With ``pt.sky`` set (the JAX app's ``--sun``) the path traces gather the
 sky and the sun (``ops.sky``), and the GI and PT modes add what the path
@@ -44,6 +57,7 @@ import torch
 from ..accel.intersect import intersect_occluded
 from ..accel.megakernel import G, build_light_sets, gbuffer
 from ..core import vec3 as v3
+from ..core.rng import uniform4
 from ..core.vec3 import V3
 from ..ops import denoise as DN
 from ..ops import post
@@ -55,8 +69,9 @@ from ..ops import shading_soa as S
 from ..ops import sky as SK
 from ..ops import skydi as SD
 from ..ops import taa as TA
+from ..ops import upscale as UP
 from ..ops import volumetrics as VL
-from ..ops.gbuffer_pack import pack_temporal
+from ..ops.gbuffer_pack import TG, pack_temporal
 from ..ops.pathtracer import PTConfig, trace
 from ..ops.reservoir_pack import pack_di, pack_pt, unpack_di, unpack_pt
 from ..scene.camera import Camera
@@ -79,7 +94,7 @@ class RenderConfig:
     skydi_cfg: SD.SkyDIConfig | None = None  # None: the default, built in __post_init__
     volumetrics: VL.VolumetricsConfig | None = None  # froxel inscattering (with pt.sky)
     render_scale: float = 1.0
-    upscale_cfg: object = None  # not ported yet
+    upscale_cfg: UP.UpscaleConfig | None = None  # None: the default, built in __post_init__
     band_rows: int = -1  # accepted, no effect: the port has no banded gathers
     band_halo: int = 64  # accepted, no effect
     tonemapper: str = "agx"
@@ -99,33 +114,28 @@ class RenderConfig:
             object.__setattr__(self, "lvg_cfg", PL.LVGConfig())
         if self.skydi_cfg is None:
             object.__setattr__(self, "skydi_cfg", SD.SkyDIConfig())
-        if self.upscale_cfg is not None:
-            raise NotImplementedError(
-                "upscale_cfg: the temporal upscaler (ops.upscale) is not ported yet")
+        if self.upscale_cfg is None:
+            object.__setattr__(self, "upscale_cfg", UP.UpscaleConfig())
 
     def check_ported(self, plain: bool = False) -> None:
-        """Raise for any setting this package does not implement yet, in
-        ``render_frame_restir`` or, with ``plain``, in ``render_frame`` (which
-        reads only the mode, the path tracer's settings and the display)."""
+        """Raise ``NotImplementedError`` for a mode the frame does not render
+        (``render_frame_restir``, or with ``plain`` ``render_frame``) and
+        ``ValueError`` for a tonemapper that ``ops.post.TONEMAPPERS_P`` does
+        not name."""
         modes = ("pt",) if plain else ("restir_di", "restir_gi", "restir_pt")
-        later = {
-            f"mode={self.mode!r} in {'render_frame' if plain else 'render_frame_restir'}":
-                self.mode not in modes,
-            f"exposure_mode={self.exposure_mode!r} (weighted-average exposure)":
-                self.auto_exposure and self.exposure_mode != "histogram",
-            f"tonemapper={self.tonemapper!r} (tonemappers other than AgX)":
-                self.tonemapper != "agx",
-        }
-        if not plain:
-            later.update({
-                "render_scale != 1 (the temporal upscaler)": self.render_scale != 1.0,
-                "firefly_factor > 0 (the firefly filter)": self.firefly_factor > 0.0,
-            })
-        missing = [name for name, hit in later.items() if hit]
-        if plain or self.indirect:
-            missing += self.pt.unported()
-        if missing:
-            raise NotImplementedError("not ported yet: " + ", ".join(missing))
+        if self.mode not in modes:
+            name = "render_frame" if plain else "render_frame_restir"
+            raise NotImplementedError(f"not ported yet: mode={self.mode!r} in {name}")
+        if self.tonemapper not in post.TONEMAPPERS_P:
+            raise ValueError(f"unknown tonemapper {self.tonemapper!r}; "
+                             f"one of {sorted(post.TONEMAPPERS_P)}")
+
+    def render_size(self) -> tuple[int, int]:
+        """(width, height) the frame renders at before the upscaler."""
+        if self.render_scale == 1.0:
+            return self.width, self.height
+        return (max(8, int(round(self.width * self.render_scale))),
+                max(8, int(round(self.height * self.render_scale))))
 
 
 @dataclass(frozen=True)
@@ -138,8 +148,9 @@ class FrameState:
     gi_reservoirs: torch.Tensor
     gbuf: torch.Tensor  # [TG.ROWS, N] packed temporal G-buffer
     camera_prev: Camera
-    history: torch.Tensor  # [3, H, W] TAA history (HDR)
+    history: torch.Tensor  # [3, H, W] TAA history (HDR), at display resolution
     sky_reservoirs: torch.Tensor | None = None  # [16, N] SkyDI reservoirs (pre-spatial)
+    upscale_lock: torch.Tensor | None = None  # [H, W] the upscaler's luminance locks
 
 
 def pick_rt(n: int) -> int:
@@ -151,10 +162,29 @@ def pick_rt(n: int) -> int:
     return 1024
 
 
-def _postprocess(hdr, cfg: RenderConfig):
-    """Planar [3, H, W] linear radiance -> [3, H, W] uint8 sRGB."""
-    exposure = post.histogram_exposure_p(hdr) if cfg.auto_exposure else cfg.manual_exposure
-    return post.to_u8(post.srgb_encode(post.tonemap_agx_p(hdr * exposure)))
+def _postprocess(hdr, cfg: RenderConfig, ldr_transform=None):
+    """Planar [3, H, W] linear radiance -> [3, H, W] uint8 sRGB.
+    ``ldr_transform``: applied after the tonemap (RCAS after an upscale)."""
+    if not cfg.auto_exposure:
+        exposure = cfg.manual_exposure
+    elif cfg.exposure_mode == "weighted_avg":
+        exposure, _ = post.weighted_avg_exposure_p(hdr)
+    else:
+        exposure = post.histogram_exposure_p(hdr)
+    ldr = post.TONEMAPPERS_P[cfg.tonemapper](hdr * exposure)
+    if ldr_transform is not None:
+        ldr = ldr_transform(ldr)
+    return post.to_u8(post.srgb_encode(ldr))
+
+
+def _lens_u(camera: Camera, seed: int, n: int, device):
+    """Per-pixel lens-disk uniforms [n, 2] of a thin-lens camera, or None
+    for a pinhole: ``uniform4(pixel, 0, seed, 0x0D0F)``, the first two.
+    (The JAX frame draws them with ``jax.random`` from its key.)"""
+    if camera.lens_radius <= 0.0:
+        return None
+    u = uniform4(torch.arange(n, device=device), 0, seed, salt=0x0D0F)
+    return torch.stack([u[0], u[1]], -1)
 
 
 def _sky_background(gb, sky) -> torch.Tensor:
@@ -185,10 +215,10 @@ def _sky_direct(scene, gb, sky) -> torch.Tensor:
 
 
 def _inscatter(scene, camera, gb, hdr, cfg: RenderConfig):
-    """hdr [3, H, W] through the froxel grid of this frame's camera."""
+    """hdr [3, h, w] through the froxel grid of this frame's camera."""
     froxels = VL.build_froxels(scene, camera, cfg.pt.sky, cfg.volumetrics)
-    return VL.apply_inscattering(hdr, gb, camera, froxels, cfg.volumetrics, cfg.width,
-                                 cfg.height)
+    h, w = hdr.shape[1:]
+    return VL.apply_inscattering(hdr, gb, camera, froxels, cfg.volumetrics, w, h)
 
 
 def _skydi(scene, gb, state, w, h, seed, cfg: RenderConfig):
@@ -206,10 +236,12 @@ def _skydi(scene, gb, state, w, h, seed, cfg: RenderConfig):
 def render_frame(scene, camera: Camera, seed: int, cfg: RenderConfig):
     """One plain path-traced frame (``mode="pt"``) on ``scene.device``:
     {"hdr": [H, W, 3] float32, "ldr": [H, W, 3] uint8}. ``seed`` is the u32
-    frame seed. The camera rays are path-traced by B6 with ``cfg.pt``."""
+    frame seed. The camera rays are path-traced by B6 with ``cfg.pt``. Like
+    the JAX function it renders at the display size (no upscaler)."""
     cfg.check_ported(plain=True)
     w, h = cfg.width, cfg.height
-    o, d = camera.generate_rays(w, h, device=scene.device)
+    o, d = camera.generate_rays(w, h, _lens_u(camera, seed, w * h, scene.device),
+                                device=scene.device)
     hdr = trace(scene, o, d, seed, cfg.pt, rows_out=True).reshape(3, h, w)
     if cfg.volumetrics is not None and cfg.pt.sky is not None:
         hdr = _inscatter(scene, camera, gbuffer(scene, o, d), hdr, cfg)
@@ -220,14 +252,15 @@ def render_frame(scene, camera: Camera, seed: int, cfg: RenderConfig):
 def render_frame_restir(scene, camera: Camera, seed: int, cfg: RenderConfig,
                         state: FrameState | None, textures=None, motion=None, shard=None):
     """One frame on ``scene.device``: returns ({"hdr": [H, W, 3] float32,
-    "ldr": [H, W, 3] uint8}, FrameState). ``seed`` is the u32 frame seed."""
+    "ldr": [H, W, 3] uint8}, FrameState) at the display size.
+    ``seed`` is the u32 frame seed."""
     cfg.check_ported()
     for name, value in (("textures", textures), ("motion", motion), ("shard", shard)):
         if value is not None:
             raise NotImplementedError(f"{name} is not ported yet")
-    w, h = cfg.width, cfg.height
+    w, h = cfg.render_size()
     dev = scene.device
-    o, d = camera.generate_rays(w, h, device=dev)
+    o, d = camera.generate_rays(w, h, _lens_u(camera, seed, w * h, dev), device=dev)
     rt = pick_rt(w * h)
 
     gb = gbuffer(scene, o, d)
@@ -308,16 +341,32 @@ def render_frame_restir(scene, camera: Camera, seed: int, cfg: RenderConfig,
     normal_img = gb[G.NS : G.NS + 3].reshape(3, h, w)
     depth_img = gb[G.DEPTH].reshape(h, w)
     valid_img = (gb[G.VALID] > 0.5).reshape(h, w)
+    if cfg.firefly_factor > 0.0:
+        hdr = DN.firefly_filter_p(hdr, cfg.firefly_factor)
     if cfg.denoise:
         hdr = DN.atrous_denoise_p(hdr, normal_img, depth_img, valid_img)
-    if cfg.taa and state is not None:
-        pos_img = gb[G.POS : G.POS + 3].reshape(3, h, w)
+    pos_img = gb[G.POS : G.POS + 3].reshape(3, h, w)
+    lock = None
+    rcas = None
+    if cfg.render_scale != 1.0:
+        # the history, the last depth plane and the locks gate together
+        hist = state.history if (cfg.taa and state is not None) else None
+        hdr, lock = UP.taau_resolve(
+            hdr, hist, pos_img, valid_img, depth_img,
+            state.camera_prev if state is not None else camera, camera.jitter, cfg.width,
+            cfg.height, cfg.upscale_cfg,
+            prev_depth_lr=None if hist is None else state.gbuf[TG.DEPTH].reshape(h, w),
+            lock=None if hist is None else state.upscale_lock,
+        )
+        if cfg.upscale_cfg.rcas_sharpness > 0.0:
+            rcas = lambda ldr: UP.rcas_p(ldr, cfg.upscale_cfg.rcas_sharpness)
+    elif cfg.taa and state is not None:
         hdr = TA.taa_resolve_p(hdr, state.history, pos_img, valid_img, state.camera_prev,
                                depth_img)
 
-    ldr = _postprocess(hdr, cfg)
+    ldr = _postprocess(hdr, cfg, rcas)
     new_state = FrameState(
         reservoirs=res, gi_reservoirs=ind_res, gbuf=pack_temporal(gb),
-        camera_prev=camera, history=hdr, sky_reservoirs=sky_res,
+        camera_prev=camera, history=hdr, sky_reservoirs=sky_res, upscale_lock=lock,
     )
     return {"hdr": hdr.permute(1, 2, 0), "ldr": ldr.permute(1, 2, 0)}, new_state

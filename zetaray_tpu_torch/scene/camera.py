@@ -1,4 +1,5 @@
-"""Pinhole camera with Halton TAA jitter, as the JAX package's ``scene/camera.py``.
+"""Pinhole and thin-lens camera with Halton TAA jitter, as the JAX package's
+``scene/camera.py``.
 
 The camera is a small frozen record of host values (numpy float32 vectors
 and Python floats). Ray generation runs on the card unless the caller names
@@ -15,7 +16,7 @@ import torch
 
 from .. import native
 from ..core import transforms as T
-from ..core.sampling import halton_jitter
+from ..core.sampling import halton_jitter, square_to_disk_concentric
 
 
 @dataclass(frozen=True)
@@ -26,7 +27,7 @@ class Camera:
     forward: np.ndarray  # [3] unit
     tan_half_fov: float  # vertical
     aspect: float  # width / height
-    lens_radius: float = 0.0  # 0 => pinhole (the only kind ported)
+    lens_radius: float = 0.0  # 0 => pinhole
     focus_dist: float = 1.0
     jitter: tuple[float, float] = (0.0, 0.0)  # sub-pixel, in pixels
 
@@ -67,14 +68,15 @@ class Camera:
     def _scalar(self, v: float, device) -> torch.Tensor:
         return torch.tensor(float(v), dtype=torch.float32, device=device)
 
-    def generate_rays(self, width: int, height: int, device=None):
+    def generate_rays(self, width: int, height: int, lens_u: torch.Tensor | None = None,
+                      device=None):
         """Primary rays through pixel centres (+ jitter): ([N, 3], [N, 3]) on
-        ``device`` (default: the card; ``native.default_device``)."""
+        ``device`` (default: the card; ``native.default_device``).
+        ``lens_u`` ([N, 2] uniforms) moves each origin onto the lens disk
+        and aims it at the pixel's point on the focus plane where
+        ``lens_radius`` > 0 (thin-lens depth of field); without it the
+        rays leave the eye."""
         device = native.default_device(device)
-        if self.lens_radius > 0.0:
-            raise NotImplementedError(
-                "thin-lens depth of field is not ported yet (pinhole only)"
-            )
         f32 = torch.float32
         jx = self._scalar(self.jitter[0], device)
         jy = self._scalar(self.jitter[1], device)
@@ -88,7 +90,15 @@ class Camera:
         sy = sy[:, None].expand(height, width).reshape(-1)
         right, up, fwd = (self._vec(k, device) for k in ("right", "up", "forward"))
         d = sx[:, None] * right + sy[:, None] * up + fwd
-        o = self._vec("eye", device).expand(d.shape).contiguous()
+        eye = self._vec("eye", device)
+        if self.lens_radius > 0.0 and lens_u is not None:
+            p_focus = eye + d * self._scalar(self.focus_dist, device)
+            disk = square_to_disk_concentric(lens_u.to(device)) * self._scalar(
+                self.lens_radius, device)
+            o = eye + disk[:, 0:1] * right + disk[:, 1:2] * up
+            d = p_focus - o
+        else:
+            o = eye.expand(d.shape).contiguous()
         nrm = torch.sqrt((d[:, 0:1] * d[:, 0:1] + d[:, 1:2] * d[:, 1:2]) + d[:, 2:3] * d[:, 2:3])
         return o, d / nrm
 

@@ -12,7 +12,9 @@ ceiling. The camera ``look_at((0, 1, 3.5), (0, 1, 0), vfov 45)`` -- the
 framing the JAX package's Cornell glTF is rendered with -- sees the whole
 box. ``subdivide_to`` bisects triangles (longest edge first) up to exactly
 that many triangles, so the kernels can be exercised at the dense path's
-size (8192).
+size (8192). ``multi_light_box`` adds emissive wall triangles of unequal
+power, for the alias step of WoPS NEE (the box's two light triangles have
+equal power, so their alias table never redirects a pick).
 """
 
 from __future__ import annotations
@@ -182,3 +184,30 @@ def repeated_box(copies: int, subdivide_to: int | None = None) -> CpuScene:
                                                 "uv1", "uv2", "mat_id", "inst_id")}
     em = (box.emissive_tris[:, None] * copies + np.arange(copies)).ravel().astype(np.int32)
     return dataclasses.replace(box, **fields, emissive_tris=em)
+
+
+# radiance of the wall triangles multi_light_box makes emissive (two-sided)
+WALL_LIGHTS = ((6.0, 6.0, 6.0), (1.0, 3.0, 8.0), (8.0, 2.0, 1.0))
+
+
+def multi_light_box(subdivide_to: int | None = None) -> CpuScene:
+    """The box (``cornell_box(subdivide_to)``) with the first triangle of the
+    back, left and right walls turned into two-sided lights of the
+    radiances ``WALL_LIGHTS``: five emissive triangles of unequal power."""
+    box = cornell_box(subdivide_to)
+    z0 = ROOM[3]
+    back = (box.mat_id == WHITE) & (np.abs((box.v0 + box.v1 + box.v2)[:, 2] / 3.0 - z0) < 1e-4)
+    walls = [back, box.mat_id == RED, box.mat_id == GREEN]
+    m = box.materials
+    n0 = m.base_color.shape[0]
+    k = len(WALL_LIGHTS)
+    grow = {f.name: np.concatenate([getattr(m, f.name), getattr(m, f.name)[[WHITE] * k]])
+            for f in dataclasses.fields(m)}
+    grow["emissive"][n0:] = np.asarray(WALL_LIGHTS, np.float32)
+    grow["double_sided"][n0:] = True
+    mat = box.mat_id.copy()
+    for j, sel in enumerate(walls):
+        mat[np.nonzero(sel)[0][0]] = n0 + j
+    materials = MaterialsSoA(**grow)
+    em = np.nonzero(materials.emissive[mat].max(axis=-1) > 0.0)[0].astype(np.int32)
+    return dataclasses.replace(box, mat_id=mat, materials=materials, emissive_tris=em)
