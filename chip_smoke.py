@@ -22,7 +22,13 @@ Phases (any failure exits non-zero):
      sun NEE) and on the box with three wall lights of unequal power
      (multi_light_box, the share of rays whose pick the alias table
      redirects printed), each bit-equal to its plain version on the rays
-     that found a hit (max abs err 0); and the closest hit with attributes
+     that found a hit (max abs err 0); the material instances of B5 and
+     B6 (the transmission and coat lobes) on the materials box (the tall
+     block glass, the short one clear-coated) at 512^2 and at 8192
+     triangles, on its GI bounce-0 rays, without path options (B4 too:
+     its surface rows carry the materials), with the sky, sun NEE and the
+     path options, with the sky alone and each with WoPS NEE; and the
+     closest hit with attributes
      (B7) on ReSTIR PT prefix rays built as its initial samples build them;
      B7 also on 1024^2 camera rays, as the primary-rays rate of bench.py.
      B1, B4, B5, B6 and B7 record the real triangle count they sweep (nt)
@@ -68,6 +74,11 @@ Phases (any failure exits non-zero):
      WoPS NEE at 512^2, and with the sky (the flagship with sun NEE and the
      path options, the default frame without sun NEE), each WoPS instance
      of phase 3 taking its launches from the one path that runs it; and
+     the flagship, ReSTIR PT and the default frame on the materials box at
+     512^2, each also with full_target=True and packed_reuse=False in every
+     ReSTIR config, and there, for the launches of the other material
+     instances, the flagship with the sky and path options, the default
+     frame with the sky and no sun NEE, and those with WoPS NEE; and
      the default frame at 512^2 with the firefly
      filter at 3 and the weighted-average exposure, with each tonemapper
      but the LUT's, and through a thin lens (f/2.8, 50 mm, focus 3.5);
@@ -87,8 +98,10 @@ Phases (any failure exits non-zero):
      (clustered), and the features frame (on both), the GI grid NEE frame,
      clustered ReSTIR PT, the upscale frame at display 64^2 (render 32^2),
      the default and GI frames with WoPS NEE on the box with wall lights,
-     and the default frame through the thin lens with the firefly filter,
-     the weighted-average exposure and AgX punchy (its LDR held too);
+     the default frame through the thin lens with the firefly filter,
+     the weighted-average exposure and AgX punchy (its LDR held too), and
+     the GI (also with the reuse options), PT and default frames on the
+     materials box;
   5. prints the kernels' record, the card line, and last a JSON status.
 
 The 512^2 images are written to IMAGE_DIR: zetaray_torch_512.png (the
@@ -97,7 +110,8 @@ flagship frame), zetaray_torch_512_di.png (DI only), zetaray_torch_512_pt.png
 zetaray_torch_512_restir_di_sky.png and _restir_di.png (the JAX app's
 default frame with and without the sky), _gi_sky.png, _pt_sky.png,
 _features_sun.png, _plain_pt_volumetrics.png, _upscale_256_to_512.png, _wops.png
-(the flagship with WoPS NEE) and _restir_di_lens.png; the clustered GI frame to
+(the flagship with WoPS NEE), _restir_di_lens.png and _materials.png,
+_materials_pt.png and _materials_restir_di.png (the materials box); the clustered GI frame to
 zetaray_torch_256_clustered.png, the clustered default frame with the sky
 to zetaray_torch_256_clustered_restir_di_sky.png and clustered ReSTIR PT to
 zetaray_torch_256_clustered_pt.png.
@@ -302,13 +316,14 @@ def wops_bounce_records(scene, label, opt, cfg, st0, seed, rt, spread, n_tri, tr
 def bounce_registers() -> dict:
     """What ``nvcc -Xptxas -v`` reports for each instance of B4-B6:
     {"bounce_trace" | "bounce_shade" | "bounce": {instance: text}}, the
-    instances named by their compile-time branches (B4 sky, B5 sun_nee and
-    wops, B6 sky, sun_nee and wops, joined by "_"; "" for none)."""
+    instances named by their compile-time branches (B4 sky, B5 sun_nee,
+    wops and mat, B6 sky, sun_nee, wops and mat, joined by "_"; "" for
+    none)."""
     from zetaray_tpu_torch import kernel_ab, native
 
     names = {"bounce_trace_kernel": ("bounce_trace", ("sky",)),
-             "bounce_shade_kernel": ("bounce_shade", ("sun_nee", "wops")),
-             "bounce_kernel": ("bounce", ("sky", "sun_nee", "wops"))}
+             "bounce_shade_kernel": ("bounce_shade", ("sun_nee", "wops", "mat")),
+             "bounce_kernel": ("bounce", ("sky", "sun_nee", "wops", "mat"))}
     out = {v[0]: {} for v in names.values()}
     key = spill = None
     for line in kernel_ab.ptxas_report(native).splitlines():
@@ -359,6 +374,7 @@ def main() -> int:
     from zetaray_tpu_torch.ops.pathtracer import PTConfig, park
     from zetaray_tpu_torch.ops.restir_di import ReSTIRConfig
     from zetaray_tpu_torch.ops.restir_gi import ReSTIRGIConfig
+    from zetaray_tpu_torch.ops.restir_pt import ReSTIRPTConfig
     from zetaray_tpu_torch.ops.skydi import SkyDIConfig
     from zetaray_tpu_torch.ops.volumetrics import VolumetricsConfig
     from zetaray_tpu_torch.ops.restir_gi import secondary_rays
@@ -370,7 +386,7 @@ def main() -> int:
     from zetaray_tpu_torch.scene.camera import Camera
     from zetaray_tpu_torch.ops.upscale import UpscaleConfig
     from zetaray_tpu_torch.scene.procedural import (
-        CAMERA_EYE, CAMERA_TARGET, CAMERA_VFOV, cornell_box, multi_light_box,
+        CAMERA_EYE, CAMERA_TARGET, CAMERA_VFOV, cornell_box, materials_box, multi_light_box,
     )
     from zetaray_tpu_torch.scene.scene import A, upload_scene
     from zetaray_tpu_torch.scene.subdivide import subdivide_scene
@@ -628,6 +644,53 @@ def main() -> int:
     if not record["multi_light"]["bounce_shade"]["wops"]["alias_share"] > 0.01:
         raise AssertionError("the alias table redirects no pick on the multi-light box")
     del ml, o2m, d2m
+
+    # the material instances of B5 and B6 (their transmission and coat
+    # lobes) on the materials box (the tall block glass, the short one under
+    # a clear coat) and its 8192-triangle subdivision, on the GI bounce-0
+    # rays as the frame's ReSTIR GI draws them (through the glass too), each
+    # held against its plain version: without path options (with B4, whose
+    # surface rows 15-18 carry the materials, and B5 with min_nee_bounce=1),
+    # with the sky, sun NEE and the path options, with the sky alone, and
+    # each with WoPS NEE; the box covers every material instance, the
+    # subdivision the two that the materials frames below spend most in
+    mat_cfgs = {
+        "": (gi_cfg, ("bounce_trace", "bounce_shade", "bounce")),
+        "sky_sun": (opt_cfg, ("bounce_shade", "bounce")),
+        "sky_no_sun_nee": (dataclasses.replace(opt_cfg, sun_nee=False), ("bounce",)),
+        "wops": (dataclasses.replace(gi_cfg, nee_mode="wops"), ("bounce_shade", "bounce")),
+        "wops_sky_sun": (dataclasses.replace(opt_cfg, nee_mode="wops"),
+                         ("bounce_shade", "bounce")),
+        "wops_sky_no_sun_nee": (dataclasses.replace(opt_cfg, sun_nee=False, nee_mode="wops"),
+                                ("bounce",)),
+    }
+    for label, subdivide, opts in (("materials36", None, list(mat_cfgs)),
+                                   ("materials8192", 8192, ["", "wops_sky_sun"])):
+        ms = upload_scene(materials_box(subdivide_to=subdivide), device=dev)
+        if not (ms.has_transmission and ms.has_coat):
+            raise AssertionError(f"{label}: the materials box has no glass or no coat")
+        gk_m = MK.gbuffer(ms, o, d)
+        o2m, d2m, _, _ = secondary_rays(gk_m, seed, trans=True, coat=True)
+        st0m = MK.initial_state(o2m, d2m)
+        rec = record[label] = {}
+        tri_bytes_m = ms.num_tris * (12 + A.WIDTH) * F32
+        for opt in opts:
+            cfg_, kept = mat_cfgs[opt]
+            lights = MK.wops_table(ms) if cfg_.nee_mode == "wops" else MK.build_light_sets(ms, seed)
+            recs = bounce_records(ms, label, opt, cfg_, st0m, lights, seed, rt, spread, ms.num_tris,
+                                  tri_bytes_m, lights.numel() * F32, full=opt == "")
+            for name in kept:
+                rec.setdefault(name, {})[opt] = recs[name]
+            print(f"{label} ({n} GI bounce-0 rays, materials{', ' + opt if opt else ''}): "
+                  + "; ".join(f"{k} {recs[k]['ms']:.4f} ms (plain {recs[k]['plain_ms']:.3f}, "
+                              f"bound {recs[k]['bound_ms']:.4f} by {recs[k]['bound_by']}), max "
+                              f"abs err {recs[k]['max_abs_err']:.3g}" for k in kept)
+                  + (f"; bounce_shade min_nee_bounce=1 "
+                     f"{recs['bounce_shade']['min_nee_bounce_1']['ms']:.4f} ms, max abs err "
+                     f"{recs['bounce_shade']['min_nee_bounce_1']['max_abs_err']:.3g}"
+                     if opt == "" else ""), flush=True)
+        del ms, gk_m, o2m, d2m, st0m
+        torch.cuda.empty_cache()
 
     # -- phase 3 on the clustered box: B8 and B9 against their plain versions
     big_cpu = subdivide_scene(cornell_box(), 100_000)
@@ -895,6 +958,67 @@ def main() -> int:
         for name in ("bounce_shade", "bounce"):
             if opt in record["cornell36"][name]:
                 record["cornell36"][name][opt]["launches"] = wops_paths[tag][2][name]
+    # the three frames on the materials box (a glass block, a coated block):
+    # the flagship, ReSTIR PT and the JAX app's default frame, each also
+    # with full_target=True and packed_reuse=False in every ReSTIR config;
+    # then, for the launches of phase 3's other material instances, the
+    # flagship with the sky, sun NEE and the path options, the default frame
+    # with the sky but no sun NEE, and those with WoPS NEE. A wrapper counts
+    # its launches whatever the instance, so each record takes the counts of
+    # the one path that runs its instance
+    mscene = upload_scene(materials_box(), device=dev)
+    reuse_opts = dict(restir=ReSTIRConfig(full_target=True, packed_reuse=False),
+                      restir_gi=ReSTIRGIConfig(full_target=True, packed_reuse=False),
+                      restir_pt=ReSTIRPTConfig(full_target=True, packed_reuse=False))
+    pt_kernels = ("gbuffer", "ris", "occlusion", "bounce", "closest")
+    wops_pt = lambda base: dataclasses.replace(base, nee_mode="wops")
+    mat_paths = {}
+    for tag, opt, cfg_, kern, absent in (
+            ("flagship", "", RenderConfig(width=res, height=res, **flagship), gi_kernels, ()),
+            ("ReSTIR PT", None, RenderConfig(width=res, height=res, **pt_frame), pt_kernels,
+             ("bounce_trace", "bounce_shade")),
+            ("default restir_di", None, RenderConfig(**app, pt=PTConfig(max_bounces=4)),
+             app_kernels, no_b45),
+            ("flagship, full_target + packed_reuse=False", None,
+             RenderConfig(width=res, height=res, **flagship, **reuse_opts), gi_kernels, ()),
+            ("ReSTIR PT, full_target + packed_reuse=False", None,
+             RenderConfig(width=res, height=res, **pt_frame, **reuse_opts), pt_kernels,
+             ("bounce_trace", "bounce_shade")),
+            ("default restir_di, full_target + packed_reuse=False", None,
+             RenderConfig(**app, pt=PTConfig(max_bounces=4), **reuse_opts), app_kernels, no_b45),
+            ("flagship with sky and path options", "sky_sun",
+             RenderConfig(width=res, height=res, **gi_sky), gi_kernels, ()),
+            ("default restir_di with sky, no sun NEE", "sky_no_sun_nee",
+             RenderConfig(**app, pt=PTConfig(max_bounces=4, sky=sky, sun_nee=False)),
+             app_kernels, no_b45),
+            ("flagship with WoPS NEE", "wops", RenderConfig(
+                width=res, height=res, **{**flagship, "pt": PTConfig(max_bounces=3,
+                                                                     nee_mode="wops")}),
+             gi_kernels, ()),
+            ("flagship with sky, path options and WoPS NEE", "wops_sky_sun", RenderConfig(
+                width=res, height=res, **{**gi_sky, "pt": wops_pt(gi_sky["pt"])}), gi_kernels,
+             ()),
+            ("default restir_di with sky, no sun NEE, WoPS NEE", "wops_sky_no_sun_nee",
+             RenderConfig(**app, pt=PTConfig(max_bounces=4, sky=sky, sun_nee=False,
+                                             nee_mode="wops")), app_kernels, no_b45)):
+        mat_paths[tag] = chain(cfg_, cam, kern, sc=mscene, absent=absent)
+        show(f"materials box 512^2: {tag}", *mat_paths[tag][1:])
+        for name in ("bounce_trace", "bounce_shade", "bounce"):
+            if opt is not None and opt in record["materials36"].get(name, {}):
+                record["materials36"][name][opt]["launches"] = mat_paths[tag][2][name]
+    m_means = {tag: p_[0]["hdr"].mean().item() for tag, p_ in mat_paths.items()}
+    opaque_gi = ((mat_paths["flagship"][0]["hdr"] - out["hdr"]).abs()
+                 > 1e-3 * (1 + out["hdr"].abs())).any(-1).float().mean().item()
+    print(f"materials box mean HDR at 512^2: {m_means}; the flagship differs from the opaque "
+          f"box's on {opaque_gi:.4f} of pixels", flush=True)
+    if opaque_gi < 0.05:
+        raise AssertionError("the glass and the coat do not show in the flagship frame")
+    for name, tag in (("_materials", "flagship"), ("_materials_pt", "ReSTIR PT"),
+                      ("_materials_restir_di", "default restir_di")):
+        write_png(os.path.join(IMAGE_DIR, f"zetaray_torch_512{name}.png"),
+                  mat_paths[tag][0]["ldr"].cpu().numpy())
+    del mscene
+
     # the JAX app's default frame with the display options: the firefly
     # filter at 3 with the weighted-average exposure, each tonemapper but
     # the LUT's (AgX is the default frame above), and a thin lens
@@ -1049,7 +1173,12 @@ def main() -> int:
                                  ("upscale 32^2 to 64^2", up_64, cornell_box()),
                                  ("restir_di WoPS, wall lights", wops_app_64, multi_light_box()),
                                  ("GI WoPS, wall lights", wops_gi_64, multi_light_box()),
-                                 ("restir_di lens + display options", display_64, cornell_box())):
+                                 ("restir_di lens + display options", display_64, cornell_box()),
+                                 ("GI materials", flagship, materials_box()),
+                                 ("GI materials, full_target + packed_reuse=False",
+                                  {**flagship, **reuse_opts}, materials_box()),
+                                 ("PT materials", pt_frame, materials_box()),
+                                 ("restir_di materials", app_64, materials_box())):
         small = RenderConfig(width=64, height=64, **base)
         cam_ = cams_64.get(tag, cam)
         outs = {}
@@ -1097,10 +1226,13 @@ def main() -> int:
             launches_of, rec_of = launches_cl, record["cornell139k"]
         else:
             launches_of, rec_of = launches_pt if name == "closest" else launches, record["cornell36"]
+        mats = {k: record[k][name] for k in ("materials36", "materials8192")
+                if name in record[k]}
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": launches_of[name], **rec_of[name], "library_ms": None,
             **({"registers": registers[name]} if name in registers else {}),
+            **({"materials": mats} if mats else {}),
         })
     print(json.dumps({"kernels": kernels}))
     print(card)

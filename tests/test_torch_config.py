@@ -1,7 +1,8 @@
 """The port's configs against the JAX package's: every field of the JAX
 ``ReSTIRConfig``, ``ReSTIRGIConfig``, ``ReSTIRPTConfig`` and
-``RenderConfig`` is accepted with the JAX default, and each value the port
-does not implement raises ``NotImplementedError``.
+``RenderConfig`` is accepted with the JAX default, and the reuse options
+``full_target`` and ``packed_reuse=False`` of the three ReSTIR configs
+act as in JAX.
 
 The JAX defaults are the fields' declared defaults. JAX's
 ``RenderConfig.__post_init__`` fills ``lvg_cfg``, ``skydi_cfg`` and
@@ -93,7 +94,7 @@ def test_jax_sky_config_converts():
     TF.RenderConfig(mode="pt", pt=pt).check_ported(plain=True)
 
 
-UNPORTED = [
+REUSE_OPTIONS = [
     (RD.ReSTIRConfig, {"full_target": True}),
     (RD.ReSTIRConfig, {"packed_reuse": False}),
     (RG.ReSTIRGIConfig, {"full_target": True}),
@@ -101,13 +102,25 @@ UNPORTED = [
     (RP.ReSTIRPTConfig, {"full_target": True}),
     (RP.ReSTIRPTConfig, {"packed_reuse": False}),
 ]
+KIND = {RD.ReSTIRConfig: "di", RG.ReSTIRGIConfig: "gi", RP.ReSTIRPTConfig: "pt"}
 
 
-@pytest.mark.parametrize("cls,kw", UNPORTED,
-                         ids=[f"{c.__name__}-{'-'.join(k)}" for c, k in UNPORTED])
-def test_unported_values_raise(cls, kw):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        cls(**kw)
+@pytest.mark.parametrize("cls,kw", REUSE_OPTIONS,
+                         ids=[f"{c.__name__}-{'-'.join(k)}" for c, k in REUSE_OPTIONS])
+def test_reuse_options_match_jax(cls, kw):
+    """Each config takes ``full_target=True`` and ``packed_reuse=False``
+    (the frame admits them in every mode), and its passes under the option
+    agree with the JAX passes under it on the materials box
+    (tests/test_torch_reuse_options.py ``check_option``: the shares of
+    pixels stated there)."""
+    from tests.test_torch_reuse_options import check_option
+
+    cfg = cls(**kw)
+    assert all(getattr(cfg, k) == v for k, v in kw.items())
+    field_name = {"di": "restir", "gi": "restir_gi", "pt": "restir_pt"}[KIND[cls]]
+    for mode in ("restir_di", "restir_gi", "restir_pt"):
+        TF.RenderConfig(mode=mode, **{field_name: cfg}).check_ported()
+    check_option(KIND[cls], next(iter(kw)))
 
 
 def test_jax_features_config_converts():

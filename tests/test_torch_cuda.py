@@ -621,3 +621,109 @@ def test_card_upscale_wops_and_display_frames_match_cpu_frames(cuda, name):
     assert got.shape == (cfg.height, cfg.width, 3)
     close = ((got - want).abs() <= 1e-3 * (1 + want.abs())).all(-1)
     assert close.float().mean() >= 0.99
+
+
+def lobes_box(lobes: str, subdivide_to=None):
+    """``materials_box`` with the lobes ``lobes`` names: "glass" (the tall
+    block's transmission, the coat taken off), "coat" (the short block's
+    coat, the glass made opaque), "glass_coat" (both) or "coated_glass"
+    (both, and the glass under a coat of weight 0.5, roughness 0.2, so that
+    the coat attenuates transmitted light)."""
+    import dataclasses
+
+    import numpy as np
+
+    from zetaray_tpu_torch.scene.procedural import materials_box
+
+    cpu = materials_box(subdivide_to)
+    m = cpu.materials
+    if lobes == "coat":
+        m = dataclasses.replace(m, transmission=np.zeros_like(m.transmission))
+    elif lobes == "glass":
+        m = dataclasses.replace(m, coat_weight=np.zeros_like(m.coat_weight))
+    elif lobes == "coated_glass":
+        from zetaray_tpu_torch.scene.procedural import GLOSSY
+
+        m = dataclasses.replace(m, coat_weight=m.coat_weight.copy(),
+                                coat_roughness=m.coat_roughness.copy())
+        m.coat_weight[GLOSSY], m.coat_roughness[GLOSSY] = 0.5, 0.2
+    return dataclasses.replace(cpu, materials=m)
+
+
+MATERIAL_CASES = {
+    "glass": ("glass", None, {}),
+    "coat": ("coat", None, {}),
+    "glass_coat": ("glass_coat", None, {}),
+    "coated_glass": ("coated_glass", None, {}),
+    "glass_coat_300_sky_sun": ("glass_coat", 300, dict(
+        sky=SkyParams(sun_dir=SUN), path_regularization=True, firefly_clamp=0.05)),
+    "glass_coat_300_wops": ("glass_coat", 300, dict(nee_mode="wops")),
+    "glass_coat_2000_sky": ("glass_coat", 2000, dict(sky=SkyParams(sun_dir=SUN),
+                                                     sun_nee=False)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(MATERIAL_CASES))
+def test_material_kernels_match_plain(cuda, case):
+    """The material instances of B5 (bounce 0) and B6 (bounce 1, and its
+    trace-only last bounce at 2) against their plain versions on 128^2 GI
+    bounce-0 rays of the box with a glass block and a coated block (each
+    lobe alone and both, with the path options, WoPS NEE and the sky), at
+    rt = 128, as test_bounce_kernels_match_plain holds the opaque ones;
+    the same rays gain the NEE light, and some samples are transmitted."""
+    lobes, subdivide, opts = MATERIAL_CASES[case]
+    scene = upload_scene(lobes_box(lobes, subdivide), device=cuda)
+    _, o, d = _rays(cuda)
+    o2, d2, _, _ = secondary_rays(MK.gbuffer(scene, o, d), SEED)
+    cfg = PTConfig(max_bounces=3, min_emissive_bounce=1, rr_start=1, **opts)
+    lsets = MK.wops_table(scene) if cfg.nee_mode == "wops" else MK.build_light_sets(scene, SEED)
+    st_p, surf_p = MK.bounce_trace_plain(scene, MK.initial_state(o2, d2), 0, cfg, True)
+    found = st_p[13] > 0.5
+    before = (MK.bounce_shade.launches, MK.bounce.launches)
+    st5 = MK.bounce_shade(scene, st_p, surf_p, lsets, 0, SEED, cfg, True, 128)
+    st5_p = MK.bounce_shade_plain(scene, st_p, surf_p, lsets, 0, SEED, cfg, True, 128)
+    assert _close_rays(st5[:, found], st5_p[:, found]) >= 0.999
+    assert _close_rays(st5, st5_p, [9, 10, 11, 13]) >= 0.999
+    assert torch.equal(*((x[9:12] != st_p[9:12]).any(0) for x in (st5, st5_p)))
+    below = found & (st5_p[13] > 0.5) & ((st5_p[3:6] * surf_p[6:9]).sum(0) < 0.0)
+    assert (below.sum() > 10) == scene.has_transmission
+    for b, last in ((1, False), (2, True)):
+        f6 = MK.bounce_trace_plain(scene, st5_p, b, cfg, True)[0][13] > 0.5
+        st6 = MK.bounce(scene, st5_p, lsets, b, SEED, cfg, last, True, 128)
+        st6_p = MK.bounce_plain(scene, st5_p, lsets, b, SEED, cfg, last, True, 128)
+        assert _close_rays(st6[:, f6], st6_p[:, f6]) >= 0.999
+        assert _close_rays(st6, st6_p, [9, 10, 11, 13]) >= 0.999
+    torch.cuda.synchronize()
+    assert (MK.bounce_shade.launches, MK.bounce.launches) == (before[0] + 1, before[1] + 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["restir_gi", "restir_gi_options", "restir_pt", "restir_di"])
+def test_card_materials_frames_match_cpu_frames(cuda, name):
+    """Two chained 32^2 frames on the materials box on the card and on the
+    CPU: the flagship GI frame (also with full_target and packed_reuse=False
+    in every ReSTIR config), ReSTIR PT and the default restir_di frame."""
+    from zetaray_tpu_torch.ops import restir_gi as RG
+    from zetaray_tpu_torch.ops import restir_pt as RP
+    from zetaray_tpu_torch.scene.procedural import materials_box
+
+    opt = dict(full_target=True, packed_reuse=False)
+    mode = name.replace("_options", "")
+    extra = dict(restir=RD.ReSTIRConfig(**opt), restir_gi=RG.ReSTIRGIConfig(**opt),
+                 restir_pt=RP.ReSTIRPTConfig(**opt)) if name.endswith("_options") else {}
+    cfg = RenderConfig(width=32, height=32, mode=mode, denoise=mode != "restir_di", taa=True,
+                       pt=PTConfig(max_bounces=4 if mode == "restir_di" else 3), **extra)
+    cam, _, _ = _rays(cuda)
+    outs = {}
+    for dev in ("cpu", cuda):
+        scene = upload_scene(materials_box(), device=dev)
+        state = None
+        for k in range(2):
+            out, state = render_frame_restir(scene, cam.with_jitter(k), SEED + k, cfg, state)
+        outs[str(dev)] = out["hdr"].cpu()
+    got, want = outs[str(cuda)], outs["cpu"]
+    assert torch.isfinite(got).all() and got.mean() > 0
+    close = ((got - want).abs() <= 1e-3 * (1 + want.abs())).all(-1)
+    assert close.float().mean() >= 0.99
+    assert abs(got.mean() - want.mean()) <= 0.02 * want.mean()

@@ -1,7 +1,8 @@
 """The kernels B1, B2, B3, B4, B5, B6, B8 and B9 built for the host and held to
 their plain versions, so that their logic (the sign test, the pruning, the
-tie rules, node culling, the shadow sweep's early exit and RIS's
-checkpoints) is checked on every run of the tests, with no card.
+tie rules, node culling, the shadow sweep's early exit, RIS's checkpoints
+and the transmission and coat lobes of B5 and B6) is checked on every run
+of the tests, with no card.
 
 ``csrc/gbuffer.cu``, ``csrc/ris.cu``, ``csrc/occlusion.cu``,
 ``csrc/bounce.cu`` and ``csrc/stream.cu`` are compiled with g++ against a small stand-in for
@@ -49,7 +50,8 @@ from zetaray_tpu_torch.scene.procedural import (
 from zetaray_tpu_torch.scene.scene import upload_scene, with_cluster_tree
 from zetaray_tpu_torch.scene.subdivide import subdivide_scene
 from tests.test_torch_cuda import (
-    RIS_CASES, RIS_RT, RIS_SEED, RIS_U0_PIXEL, _close_rays, ris_case, ris_pick,
+    MATERIAL_CASES, RIS_CASES, RIS_RT, RIS_SEED, RIS_U0_PIXEL, _close_rays, lobes_box, ris_case,
+    ris_pick,
 )
 
 torch.set_num_threads(1)
@@ -266,7 +268,8 @@ def host_bounce_shade(lib, scene, state, surf, lsets, seed, cfg, rt, nt=None, bo
     err = lib.zr_bounce_shade(_ptr(state), _ptr(surf), _ptr(scene.woop_rows()), _ptr(lsets),
                               _ptr(out), n, tp, scene.num_tris if nt is None else nt, n_sets,
                               ps, rt, bounce, seed & 0xFFFFFFFF, cfg.min_nee_bounce,
-                              cfg.rr_start, int(cfg.nee), 1, wops_em, MK.path_options(cfg), None)
+                              cfg.rr_start, int(cfg.nee), 1, wops_em, MK.material_flags(scene),
+                              MK.path_options(cfg), None)
     return None if err else out
 
 
@@ -279,7 +282,8 @@ def host_bounce(lib, scene, state, lsets, b, seed, cfg, last, rt=128):
     assert lib.zr_bounce(_ptr(state), _ptr(scene.woop_rows()), _ptr(scene.tri_attrs), _ptr(lsets),
                          _ptr(out), n, tp, scene.num_tris, n_sets, ps, rt, b, seed & 0xFFFFFFFF,
                          cfg.t_min, cfg.min_emissive_bounce, cfg.min_nee_bounce, cfg.rr_start,
-                         int(cfg.nee), 1, int(last), wops_em, MK.path_options(cfg), None) == 0
+                         int(cfg.nee), 1, int(last), wops_em, MK.material_flags(scene),
+                         MK.path_options(cfg), None) == 0
     return out
 
 
@@ -593,6 +597,60 @@ def test_wops_bounce_on_host(host_kernels, subdivide, sun):
     # a table narrower than its emissive count is refused
     assert host_bounce_shade(host_kernels, scene, st4, sf4, table[: scene.num_emissives - 1],
                              SEED, cfg, 128) is None
+
+
+def _close_material(k, p, found):
+    """The criteria of test_bounce_shade_on_host on a scene with glass of
+    roughness 0.05, whose GGX peak (alpha^2 = 6.25e-6) turns an ulp of the
+    half vector (rsqrt rounds differently in the host build and in
+    PyTorch) into percents of the sampled pdf: every row but the pdf (row
+    12) to 1e-5 on 99.9% of the rays that found a hit, the pdf to 1e-5 on
+    99% of them and to 2% on all; radiance and alive to 1e-5 on 99.9% of
+    all rays."""
+    rows = [r for r in range(MK.STATE_ROWS) if r != 12]
+    assert _close_rays(k[:, found], p[:, found], rows) >= 0.999
+    assert _close_rays(k[:, found], p[:, found], [12]) >= 0.99
+    assert torch.isclose(k[12, found], p[12, found], rtol=2e-2, atol=1e-5).all()
+    assert _close_rays(k, p, [9, 10, 11, 13]) >= 0.999
+
+
+@pytest.mark.parametrize("case", sorted(c for c in MATERIAL_CASES if "2000" not in c))
+def test_material_bounce_on_host(host_kernels, case):
+    """The material instances of B5 (bounce 0) and B6 (bounce 1, and its
+    trace-only last bounce at 2) against their plain versions on the box
+    with a glass block and a coated block (``lobes_box``: each lobe alone
+    and both; with a shelf in the last slot; at 300 triangles also with the
+    sky, sun NEE and the path options, and with WoPS NEE), on 300 GI
+    bounce-0 rays at rt = 128, with the criteria of ``_close_material``;
+    the same rays gain the NEE light. The BSDF samples go below the surface
+    (transmission) where the scene has glass, and bounce 1 meets the glass
+    from inside (eta > 1), so both faces of the interface are driven."""
+    lobes, subdivide, opts = MATERIAL_CASES[case]
+    scene = upload_scene(_with_shelf(lobes_box(lobes, subdivide)), device="cpu")
+    assert scene.has_transmission == ("glass" in lobes) and scene.has_coat == ("coat" in lobes)
+    st0, spread = _gi_bounce0(scene)
+    cfg = PTConfig(max_bounces=3, min_emissive_bounce=1, rr_start=1, **opts)
+    lsets = MK.wops_table(scene) if cfg.nee_mode == "wops" else MK.build_light_sets(scene, SEED)
+    st4, sf4 = MK.bounce_trace_plain(scene, st0, 0, cfg, True, spread)
+    found = st4[13] > 0.5
+    st5 = host_bounce_shade(host_kernels, scene, st4, sf4, lsets, SEED, cfg, 128)
+    st5_p = MK.bounce_shade_plain(scene, st4, sf4, lsets, 0, SEED, cfg, True, 128)
+    _close_material(st5, st5_p, found)
+    lit, lit_p = ((x[9:12] != st4[9:12]).any(0) for x in (st5, st5_p))
+    assert torch.equal(lit, lit_p) and lit.float().mean() > 0.1
+    below = found & (st5_p[13] > 0.5) & ((st5_p[3:6] * sf4[6:9]).sum(0) < 0.0)
+    assert (below.sum() > 3) == scene.has_transmission
+    st_t1, sf_t1 = MK.bounce_trace_plain(scene, st5_p, 1, cfg, True)
+    f6 = st_t1[13] > 0.5
+    if scene.has_transmission:
+        assert (f6 & (sf_t1[16] > 1.0)).sum() > 3  # rays inside the glass meet its back faces
+    for b, last in ((1, False), (2, True)):
+        if b == 2:
+            f6 = MK.bounce_trace_plain(scene, st5_p, b, cfg, True)[0][13] > 0.5
+        st6 = host_bounce(host_kernels, scene, st5_p, lsets, b, SEED, cfg, last)
+        st6_p = MK.bounce_plain(scene, st5_p, lsets, b, SEED, cfg, last, True, 128)
+        _close_material(st6, st6_p, f6)
+        assert torch.equal(*((x[9:12] != st5_p[9:12]).any(0) for x in (st6, st6_p)))
 
 
 def _deep():

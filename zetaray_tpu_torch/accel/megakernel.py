@@ -48,6 +48,14 @@ them carry none of their code); the two other settings are read at run time.
 The settings reach a kernel as one block of PATH_OPTS floats
 (``path_options``).
 
+On glass and coated materials (``SceneBuffers.has_transmission`` /
+``has_coat``) B5 and B6 evaluate and sample the transmission and coat lobes
+of ``ops.shading_soa``, as the JAX kernels do under their static
+``has_transmission``/``has_coat``: a scene with neither takes the opaque
+instances, which carry no code of either lobe; a scene with either takes
+the material instances (a compile-time branch of B5 and
+B6), which read the two flags at run time (``material_flags``).
+
 Their times on the card, and B1's, are in ``PERF.md`` (section 6).
 """
 
@@ -336,6 +344,23 @@ def cone_spread(spread_angle: float) -> float:
     return float(np.float32(micro) * np.float32(1e-6))
 
 
+def material_flags(scene) -> int:
+    """The material lobes the bounce kernels evaluate on ``scene``: bit 0
+    the transmission lobe (``has_transmission``), bit 1 the coat
+    (``has_coat``)."""
+    return int(bool(scene.has_transmission)) | (int(bool(scene.has_coat)) << 1)
+
+
+def hit_material(at, front, trans: bool, coat: bool):
+    """The ``MatSoA`` of hits with attribute rows ``at`` [A.WIDTH, N] seen
+    from the ``front`` of their geometric normals: ior clamped to 1.01,
+    eta = 1 / ior entering and ior leaving; ``trans``/``coat`` as
+    ``shading_soa.material``."""
+    ior = torch.clamp_min(at[A.IOR], 1.01)
+    return S.material(v3.from_rows(at, A.BASE), at[A.METAL], at[A.ROUGH], ior, at[A.TRANS],
+                      torch.where(front, 1.0 / ior, ior), at[A.COATW], at[A.COATR], trans, coat)
+
+
 def _path(st):
     """State rows -> (o, d, thr, rad, prev_pdf, alive, spec)."""
     return (v3.from_rows(st, 0), v3.from_rows(st, 3), v3.from_rows(st, 6),
@@ -518,8 +543,8 @@ def bounce_shade_plain(scene, state, surf, light_sets, bounce: int, seed: int, c
                        has_lights: bool, rt: int):
     """The plain PyTorch version of the shade kernel (B5): state [STATE_ROWS, N]."""
     _, d, thr, rad, _, alive, _ = _path(state)
-    mat = S.MatSoA(base=v3.from_rows(surf, 9), metallic=surf[12], roughness=surf[13],
-                   ior=surf[14])
+    mat = S.material(v3.from_rows(surf, 9), *surf[12:19], scene.has_transmission,
+                     scene.has_coat)
     u = bounce_uniforms(state.shape[1], bounce, seed, device=state.device,
                         wops=cfg.nee_mode == "wops")
     o2, d2, thr, rad, pdf, alive, transmitted = _shade_plain(
@@ -539,9 +564,8 @@ def bounce_plain(scene, state, light_sets, bounce: int, seed: int, cfg, last: bo
                                                                 has_lights)
     if last:
         return _state(o, d, thr, rad, prev_pdf, found, state[14], state[15])
-    pos, ns, ng, _, ior, _ = _surface_plain(o, d, t_hit, bu, bv, at, wo_dot_ng)
-    mat = S.MatSoA(base=v3.from_rows(at, A.BASE), metallic=at[A.METAL],
-                   roughness=at[A.ROUGH], ior=ior)
+    pos, ns, ng, front, _, _ = _surface_plain(o, d, t_hit, bu, bv, at, wo_dot_ng)
+    mat = hit_material(at, front, scene.has_transmission, scene.has_coat)
     u = bounce_uniforms(state.shape[1], bounce, seed, device=state.device,
                         wops=cfg.nee_mode == "wops")
     o2, d2, thr, rad, pdf, alive, _ = _shade_plain(
@@ -628,7 +652,7 @@ def bounce_shade(scene, state, surf, light_sets, bounce: int, seed: int, cfg,
         state.data_ptr(), surf.data_ptr(), scene.woop_rows().data_ptr(), light_sets.data_ptr(),
         out.data_ptr(), n, tp, scene.num_tris, n_sets, ps, rt, bounce, int(seed) & 0xFFFFFFFF,
         cfg.min_nee_bounce, cfg.rr_start, int(cfg.nee), int(has_lights), wops,
-        path_options(cfg), native.stream_ptr(state.device),
+        material_flags(scene), path_options(cfg), native.stream_ptr(state.device),
     )
     native.check(err, "bounce_shade")
     bounce_shade.launches += 1
@@ -656,8 +680,8 @@ def bounce(scene, state, light_sets, b: int, seed: int, cfg, last: bool,
         state.data_ptr(), scene.woop_rows().data_ptr(), scene.tri_attrs.data_ptr(),
         light_sets.data_ptr(), out.data_ptr(), n, tp, scene.num_tris, n_sets, ps, rt, b,
         int(seed) & 0xFFFFFFFF, cfg.t_min, cfg.min_emissive_bounce, cfg.min_nee_bounce,
-        cfg.rr_start, int(cfg.nee), int(has_lights), int(last), wops, path_options(cfg),
-        native.stream_ptr(state.device),
+        cfg.rr_start, int(cfg.nee), int(has_lights), int(last), wops, material_flags(scene),
+        path_options(cfg), native.stream_ptr(state.device),
     )
     native.check(err, "bounce")
     bounce.launches += 1

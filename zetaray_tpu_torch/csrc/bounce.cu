@@ -38,8 +38,11 @@
 // instances without them carry none of their code; a sun segment that
 // nothing blocks tests every real triangle, as a lit NEE segment does, and
 // the sun's term is held in registers across the NEE sweep. WoPS NEE is a
-// compile-time branch too (kWops, in B5 and B6). Path regularization and
-// the firefly clamp are read at run time.
+// compile-time branch too (kWops, in B5 and B6), and so are glass and coated
+// materials (kMat, in B5 and B6: the transmission and coat lobes of the
+// BSDF, taken where the scene has either; which of the two a scene has is
+// read at run time, a branch uniform over the launch). Path regularization
+// and the firefly clamp are read at run time.
 #include "path.cuh"
 #include "sweep.cuh"
 
@@ -122,10 +125,11 @@ bounce_trace_kernel(const float* __restrict__ st_in, const float4* __restrict__ 
 }
 
 // B5: NEE (with kWops from the WoPS table at sets), with kSunNee the sun's
-// term, BSDF sample and Russian roulette from the surface rows of B4, then
-// the shadow sweeps. Writes the next vertex, with the cone width scaled by
-// eta where the sample was transmitted.
-template <bool kSunNee, bool kWops>
+// term, BSDF sample (with kMat the transmission and coat lobes, from surface
+// rows 15-18) and Russian roulette from the surface rows of B4, then the
+// shadow sweeps. Writes the next vertex, with the cone width scaled by eta
+// where the sample was transmitted.
+template <bool kSunNee, bool kWops, bool kMat>
 __global__ void __launch_bounds__(BOUNCE_BLOCK, zr::kSweepBlocks)
 bounce_shade_kernel(const float* __restrict__ st_in, const float* __restrict__ surf,
                     const float4* __restrict__ tri_rows, const float* __restrict__ sets,
@@ -150,10 +154,17 @@ bounce_shade_kernel(const float* __restrict__ st_in, const float* __restrict__ s
     sf.ng = {s(6), s(7), s(8)};
     sf.mat = {{s(9), s(10), s(11)}, s(12), s(13), s(14)};
     sf.eta = s(16);
+    if constexpr (kMat) {
+      sf.mat.trans = s(15);
+      sf.mat.eta = sf.eta;
+      sf.mat.coat = s(17);
+      sf.mat.coat_rough = s(18);
+    }
     zr::V3f so, to_l;
     bool transmitted;
-    cand = zr::shade_sample<kSunNee, kWops>(kWops ? sets : lset, prm, i, path, sf, &so, &to_l,
-                                            &rad_lit, &sun_cand, &sun_add, &transmitted);
+    cand = zr::shade_sample<kSunNee, kWops, kMat>(kWops ? sets : lset, prm, i, path, sf, &so,
+                                                  &to_l, &rad_lit, &sun_cand, &sun_add,
+                                                  &transmitted);
     seg = {so.x, so.y, so.z, to_l.x, to_l.y, to_l.z};
     if (transmitted && sf.eta > 0.f) path.cone = path.cone * sf.eta;
     zr::store_path(st_out, n, i, path);
@@ -166,8 +177,8 @@ bounce_shade_kernel(const float* __restrict__ st_in, const float* __restrict__ s
 }
 
 // B6: one whole bounce; with last != 0 only the trace half, its sky and its
-// emission. kWops: as for B5.
-template <bool kSky, bool kSunNee, bool kWops>
+// emission. kWops, kMat: as for B5.
+template <bool kSky, bool kSunNee, bool kWops, bool kMat>
 __global__ void __launch_bounds__(BOUNCE_BLOCK, zr::kSweepBlocks)
 bounce_kernel(const float* __restrict__ st_in, const float4* __restrict__ tri_rows,
               const float* __restrict__ attrs, const float* __restrict__ sets,
@@ -192,13 +203,13 @@ bounce_kernel(const float* __restrict__ st_in, const float4* __restrict__ tri_ro
   if (live) {
     zr::Path path = zr::load_path(st_in, n, i);
     zr::Surface sf;
-    zr::surface_at<kSky>(attrs, prm, hit.t, hit.tri, hit.u, hit.v, path, sf);
+    zr::surface_at<kSky, kMat>(attrs, prm, hit.t, hit.tri, hit.u, hit.v, path, sf);
     if (!last) {
       zr::V3f so, to_l;
       bool transmitted;  // B6 keeps its cone width, as its plain version does
-      cand = zr::shade_sample<kSunNee, kWops>(kWops ? sets : lset, prm, i, path, sf, &so,
-                                              &to_l, &rad_lit, &sun_cand, &sun_add,
-                                              &transmitted);
+      cand = zr::shade_sample<kSunNee, kWops, kMat>(kWops ? sets : lset, prm, i, path, sf, &so,
+                                                    &to_l, &rad_lit, &sun_cand, &sun_add,
+                                                    &transmitted);
       seg = {so.x, so.y, so.z, to_l.x, to_l.y, to_l.z};
     }
     zr::store_path(st_out, n, i, path);
@@ -214,7 +225,7 @@ bounce_kernel(const float* __restrict__ st_in, const float4* __restrict__ tri_ro
 
 zr::BounceParams params(int bounce, uint32_t seed, int rt, int n_sets, int ps, int n_em,
                         float t_min, int min_emissive_bounce, int min_nee_bounce, int rr_start,
-                        int nee, int has_lights, const float* opts) {
+                        int nee, int has_lights, int mat, const float* opts) {
   zr::BounceParams p;
   p.bounce = bounce;
   p.seed = seed;
@@ -228,8 +239,16 @@ zr::BounceParams params(int bounce, uint32_t seed, int rt, int n_sets, int ps, i
   p.rr_start = rr_start;
   p.nee = nee != 0;
   p.has_lights = has_lights != 0;
+  p.has_trans = (mat & 1) != 0;
+  p.has_coat = (mat & 2) != 0;
   zr::set_path_options(p, opts);
   return p;
+}
+
+// The instance of a kernel template <..., kMat> for the material flags mat.
+template <class K>
+K pick_mat(int mat, K opaque, K with_mat) {
+  return mat != 0 ? with_mat : opaque;
 }
 
 }  // namespace
@@ -243,7 +262,7 @@ extern "C" int zr_bounce_trace(const float* st_in, const float* tri_rows, const 
                                int nee, int has_lights, const float* opts, void* stream) {
   if (nt < 0 || nt > tp || !(t_min >= 0.f)) return (int)cudaErrorInvalidValue;
   const zr::BounceParams p = params(bounce, 0u, BOUNCE_BLOCK, 1, 1, 0, t_min,
-                                    min_emissive_bounce, 0, 0, nee, has_lights, opts);
+                                    min_emissive_bounce, 0, 0, nee, has_lights, 0, opts);
   const int grid = (n + BOUNCE_BLOCK - 1) / BOUNCE_BLOCK;
   const auto kernel = zr::opts_sky(opts) ? bounce_trace_kernel<true> : bounce_trace_kernel<false>;
   if (grid > 0) {
@@ -257,25 +276,32 @@ extern "C" int zr_bounce_trace(const float* st_in, const float* tri_rows, const 
 // tri_rows, nt, opts: as for zr_bounce_trace. wops_em: 0 for NEE from the
 // light sets at sets ([n_sets][LSET_ROWS][ps]); > 0 for WoPS NEE over that
 // many emissives, sets then the [ps][WOPS_ROW] table (wops_table, ps its
-// padded emissive count).
+// padded emissive count). mat: the scene's material lobes, bit 0
+// transmission, bit 1 coat (material_flags); 0 takes the opaque instances.
 extern "C" int zr_bounce_shade(const float* st_in, const float* surf, const float* tri_rows,
                                const float* sets, float* st_out, int n, int tp, int nt,
                                int n_sets, int ps, int rt, int bounce, uint32_t seed,
                                int min_nee_bounce, int rr_start, int nee, int has_lights,
-                               int wops_em, const float* opts, void* stream) {
-  if (nt < 0 || nt > tp || rt % BOUNCE_BLOCK || wops_em < 0 || wops_em > ps) {
+                               int wops_em, int mat, const float* opts, void* stream) {
+  if (nt < 0 || nt > tp || rt % BOUNCE_BLOCK || wops_em < 0 || wops_em > ps || mat < 0 ||
+      mat > 3) {
     return (int)cudaErrorInvalidValue;
   }
   const zr::BounceParams p = params(bounce, seed, rt, n_sets, ps, wops_em, 0.f, 0,
-                                    min_nee_bounce, rr_start, nee, has_lights, opts);
+                                    min_nee_bounce, rr_start, nee, has_lights, mat, opts);
   const int grid = (n + BOUNCE_BLOCK - 1) / BOUNCE_BLOCK;
   const bool wops = wops_em > 0;
   const size_t smem = wops ? 0 : (size_t)LSET_STAGED * ps * sizeof(float);
   const bool sun = zr::opts_sun_nee(opts);
-  const auto kernel = wops ? (sun ? bounce_shade_kernel<true, true>
-                                  : bounce_shade_kernel<false, true>)
-                           : (sun ? bounce_shade_kernel<true, false>
-                                  : bounce_shade_kernel<false, false>);
+  const auto kernel =
+      wops ? (sun ? pick_mat(mat, bounce_shade_kernel<true, true, false>,
+                             bounce_shade_kernel<true, true, true>)
+                  : pick_mat(mat, bounce_shade_kernel<false, true, false>,
+                             bounce_shade_kernel<false, true, true>))
+           : (sun ? pick_mat(mat, bounce_shade_kernel<true, false, false>,
+                             bounce_shade_kernel<true, false, true>)
+                  : pick_mat(mat, bounce_shade_kernel<false, false, false>,
+                             bounce_shade_kernel<false, false, true>));
   if (grid > 0) {
     kernel<<<grid, BOUNCE_BLOCK, smem, (cudaStream_t)stream>>>(
         st_in, surf, reinterpret_cast<const float4*>(tri_rows), sets, st_out, n, nt, p);
@@ -283,31 +309,38 @@ extern "C" int zr_bounce_shade(const float* st_in, const float* surf, const floa
   return (int)cudaGetLastError();
 }
 
-// tri_rows, nt, opts: as for zr_bounce_trace; sets, wops_em: as for
+// tri_rows, nt, opts: as for zr_bounce_trace; sets, wops_em, mat: as for
 // zr_bounce_shade.
 extern "C" int zr_bounce(const float* st_in, const float* tri_rows, const float* attrs,
                          const float* sets, float* st_out, int n, int tp, int nt, int n_sets,
                          int ps, int rt, int bounce, uint32_t seed, float t_min,
                          int min_emissive_bounce, int min_nee_bounce, int rr_start, int nee,
-                         int has_lights, int last, int wops_em, const float* opts,
+                         int has_lights, int last, int wops_em, int mat, const float* opts,
                          void* stream) {
   if (nt < 0 || nt > tp || rt % BOUNCE_BLOCK || !(t_min >= 0.f) || wops_em < 0 ||
-      wops_em > ps) {
+      wops_em > ps || mat < 0 || mat > 3) {
     return (int)cudaErrorInvalidValue;
   }
   const zr::BounceParams p = params(bounce, seed, rt, n_sets, ps, wops_em, t_min,
                                     min_emissive_bounce, min_nee_bounce, rr_start, nee,
-                                    has_lights, opts);
+                                    has_lights, mat, opts);
   const int grid = (n + BOUNCE_BLOCK - 1) / BOUNCE_BLOCK;
   const bool wops = wops_em > 0;
   const size_t smem = wops ? 0 : (size_t)LSET_STAGED * ps * sizeof(float);
   const bool sky = zr::opts_sky(opts), sun = zr::opts_sun_nee(opts);
-  const auto kernel = wops ? (!sky ? bounce_kernel<false, false, true>
-                              : sun ? bounce_kernel<true, true, true>
-                                    : bounce_kernel<true, false, true>)
-                           : (!sky ? bounce_kernel<false, false, false>
-                              : sun ? bounce_kernel<true, true, false>
-                                    : bounce_kernel<true, false, false>);
+  const auto kernel =
+      wops ? (!sky ? pick_mat(mat, bounce_kernel<false, false, true, false>,
+                              bounce_kernel<false, false, true, true>)
+              : sun ? pick_mat(mat, bounce_kernel<true, true, true, false>,
+                               bounce_kernel<true, true, true, true>)
+                    : pick_mat(mat, bounce_kernel<true, false, true, false>,
+                               bounce_kernel<true, false, true, true>))
+           : (!sky ? pick_mat(mat, bounce_kernel<false, false, false, false>,
+                              bounce_kernel<false, false, false, true>)
+              : sun ? pick_mat(mat, bounce_kernel<true, true, false, false>,
+                               bounce_kernel<true, true, false, true>)
+                    : pick_mat(mat, bounce_kernel<true, false, false, false>,
+                               bounce_kernel<true, false, false, true>));
   if (grid > 0) {
     kernel<<<grid, BOUNCE_BLOCK, smem, (cudaStream_t)stream>>>(
         st_in, reinterpret_cast<const float4*>(tri_rows), attrs, sets, st_out, n, nt, p, last);

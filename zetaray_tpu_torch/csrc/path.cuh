@@ -2,7 +2,10 @@
 // bounce.cu (zetaray_tpu_torch.accel.megakernel.bounce_trace/_shade/bounce):
 // the trace half after the closest-hit sweep (surface_at) and the shade half
 // before the shadow sweeps (shade_sample), with the closed-form sky of
-// ops/sky.py (sky_env) for rays that miss.
+// ops/sky.py (sky_env) for rays that miss. The BSDF's transmission and coat
+// lobes are a compile-time branch (kMat) of bsdf_eval, bsdf_sample and
+// shade_sample; within it the scene's flags (Mat::has_trans, has_coat) pick
+// the lobes at run time, as ops/shading_soa.py's None fields do.
 //
 // Every function follows its PyTorch counterpart operation for operation
 // (ops/shading_soa.py, accel/megakernel.py), and the library is built with
@@ -90,14 +93,21 @@ constexpr float kInvPi = (float)(1.0 / 3.14159265358979);
 constexpr float kEpsRay = (float)1e-3;
 
 // ---------------------------------------------------------------------------
-// Opaque BSDF: Lambert + GGX reflection with the Kulla-Conty multiscatter
-// lobe (ops/shading_soa.py).
+// BSDF (ops/shading_soa.py): Lambert + GGX reflection with the Kulla-Conty
+// multiscatter lobe; with kMat also the rough dielectric transmission
+// (Walter 2007) where has_trans, and the coat layer where has_coat.
 // ---------------------------------------------------------------------------
 
 struct Mat {
   V3f base;
   float metallic, roughness, ior;
+  // read by the kMat branches only: the transmission weight and the relative
+  // IOR along the ray (has_trans), the coat's weight and roughness (has_coat)
+  float trans, eta, coat, coat_rough;
+  bool has_trans, has_coat;
 };
+
+constexpr float kCoatF0 = (float)0.04;  // the coat's IOR 1.5 (_COAT_F0)
 
 struct Frame {
   V3f t, b, n;
@@ -178,10 +188,11 @@ __device__ __forceinline__ V3f ms_lobe(V3f f0, float rough, float cos_o, float c
 }
 
 struct Lobes {
-  float alpha, q_s, q_d;
-  V3f f0, kd;
+  float alpha, q_s, q_d, q_t;  // q_t: with kMat and has_trans only
+  V3f f0, kd, kt;
 };
 
+template <bool kMat>
 __device__ __forceinline__ Lobes lobes(const Mat& m, float cos_o) {
   Lobes l;
   l.alpha = fmaxf(m.roughness * m.roughness, 1e-4f);
@@ -190,6 +201,18 @@ __device__ __forceinline__ Lobes lobes(const Mat& m, float cos_o) {
   l.f0 = {f0d * (1.f - m.metallic) + m.base.x * m.metallic,
           f0d * (1.f - m.metallic) + m.base.y * m.metallic,
           f0d * (1.f - m.metallic) + m.base.z * m.metallic};
+  if (kMat && m.has_trans) {
+    l.kd = m.base * ((1.f - m.metallic) * (1.f - m.trans));
+    l.kt = m.base * ((1.f - m.metallic) * m.trans);
+    const float s = luminance(fresnel(l.f0, cos_o));
+    const float d = luminance(l.kd);
+    const float t = luminance(l.kt);
+    const float tot = fmaxf(s + d + t, 1e-8f);
+    l.q_s = clampf(s / tot, 0.05f, 1.f);
+    l.q_t = fminf(t / tot * (1.f - l.q_s) / fmaxf(1.f - s / tot, 1e-8f), 1.f - l.q_s);
+    l.q_d = fmaxf(1.f - l.q_s - l.q_t, 0.f);
+    return l;
+  }
   l.kd = m.base * (1.f - m.metallic);
   const float s = luminance(fresnel(l.f0, cos_o));
   const float d = luminance(l.kd);
@@ -198,10 +221,63 @@ __device__ __forceinline__ Lobes lobes(const Mat& m, float cos_o) {
   return l;
 }
 
-// (f, *pdf) for directions in the local frame; zero below the surface.
+// Schlick Fresnel of a scalar f0 (_fresnel_s).
+__device__ __forceinline__ float fresnel_s(float f0, float cos_h) {
+  const float m = clampf(1.f - cos_h, 0.f, 1.f);
+  const float m5 = (m * m) * (m * m) * m;
+  return f0 + (1.f - f0) * m5;
+}
+
+// Exact unpolarized dielectric Fresnel, eta = eta_i / eta_t; 1 at total
+// internal reflection (_fresnel_scalar_dielectric).
+__device__ __forceinline__ float fresnel_dielectric(float cos_i, float eta) {
+  cos_i = clampf(cos_i, 0.f, 1.f);
+  const float sin2_t = eta * eta * (1.f - cos_i * cos_i);
+  const float cos_t = sqrtf(fmaxf(1.f - sin2_t, 0.f));
+  const float r_par = (cos_i - eta * cos_t) / fmaxf(cos_i + eta * cos_t, 1e-8f);
+  const float r_perp = (eta * cos_i - cos_t) / fmaxf(eta * cos_i + cos_t, 1e-8f);
+  const float f = 0.5f * (r_par * r_par + r_perp * r_perp);
+  return sin2_t >= 1.f ? 1.f : clampf(f, 0.f, 1.f);
+}
+
+// The coat's sampling probability (_coat_q).
+__device__ __forceinline__ float coat_q(const Mat& m, float cos_o) {
+  return clampf(m.coat * fresnel_s(kCoatF0, cos_o) * 2.f, 0.f, 0.5f);
+}
+
+// The rough dielectric BTDF and its half-vector pdf for wi.z < 0
+// (_transmission_terms): returns f_t, *pdf the pdf before the lobe's pick.
+__device__ __forceinline__ V3f transmission_terms(const Mat& m, V3f wo, V3f wi, float alpha,
+                                                  V3f kt, float* pdf) {
+  const float inv_eta = 1.f / m.eta;
+  const float a2 = alpha * alpha;
+  const float cos_o = fmaxf(wo.z, 1e-6f);
+  const float cos_i = fmaxf(-wi.z, 1e-6f);
+  V3f h = normalize(wo + wi * inv_eta, 1e-24f);
+  if (h.z < 0.f) h = -h;
+  const float odoth = dot(wo, h);
+  const float idoth = dot(wi, h);
+  const bool valid = (odoth > 1e-6f) && (idoth < -1e-6f);
+  const float dt = ggx_d(a2, clampf(h.z, 0.f, 1.f));
+  const float lam_o = smith_lambda(a2, cos_o);
+  const float g2 = 1.f / (1.f + lam_o + smith_lambda(a2, cos_i));
+  const float fr = fresnel_dielectric(odoth, m.eta);
+  const float denom = odoth + inv_eta * idoth;
+  const float denom2 = fmaxf(denom * denom, 1e-12f);
+  const float scale =
+      (1.f - fr) * dt * g2 * fabsf(idoth) * fabsf(odoth) / (cos_o * cos_i * denom2);
+  const float dwh_dwi = fabsf(idoth) * (inv_eta * inv_eta) / denom2;
+  const float pdf_t = (1.f / (1.f + lam_o)) * dt * fmaxf(odoth, 0.f) / cos_o * dwh_dwi;
+  *pdf = valid ? pdf_t : 0.f;
+  return kt * (valid ? scale : 0.f);
+}
+
+// (f, *pdf) for directions in the local frame; zero below the surface
+// unless kMat and has_trans.
+template <bool kMat>
 __device__ __forceinline__ V3f bsdf_eval(const Mat& m, V3f wo, V3f wi, float* pdf) {
   const float cos_o = fmaxf(wo.z, 1e-6f);
-  const Lobes l = lobes(m, cos_o);
+  const Lobes l = lobes<kMat>(m, cos_o);
   const float a2 = l.alpha * l.alpha;
   const bool up = wi.z > 1e-6f;
   const float cos_i = fmaxf(wi.z, 1e-6f);
@@ -215,8 +291,46 @@ __device__ __forceinline__ V3f bsdf_eval(const Mat& m, V3f wo, V3f wi, float* pd
   const V3f f_refl = fr * (dt * g2 / (4.f * cos_o * cos_i)) + f_ms + l.kd * kInvPi;
   const float pdf_spec = (1.f / (1.f + smith_lambda(a2, cos_o))) * dt / (4.f * cos_o);
   const float pdf_refl = l.q_s * pdf_spec + l.q_d * (cos_i * kInvPi);
-  *pdf = up ? pdf_refl : 0.f;
-  return up ? f_refl : V3f{0.f, 0.f, 0.f};
+  if constexpr (!kMat) {
+    *pdf = up ? pdf_refl : 0.f;
+    return up ? f_refl : V3f{0.f, 0.f, 0.f};
+  } else {
+    V3f f_up = f_refl;
+    float pdf_up = pdf_refl, fc_o = 0.f, q_c = 0.f;
+    if (m.has_coat) {
+      const float cw = m.coat;
+      const float ca = fmaxf(m.coat_rough * m.coat_rough, 1e-4f);
+      const float ca2 = ca * ca;
+      q_c = coat_q(m, cos_o);
+      fc_o = cw * fresnel_s(kCoatF0, cos_o);
+      const float fc_i = cw * fresnel_s(kCoatF0, cos_i);
+      const float dt_c = ggx_d(ca2, cos_h);
+      const float lam_c = smith_lambda(ca2, cos_o);
+      const float g2_c = 1.f / (1.f + lam_c + smith_lambda(ca2, cos_i));
+      const float f_coat =
+          cw * fresnel_s(kCoatF0, odoth) * dt_c * g2_c / (4.f * cos_o * cos_i);
+      const float att = (1.f - fc_o) * (1.f - fc_i);
+      f_up = {f_coat + att * f_refl.x, f_coat + att * f_refl.y, f_coat + att * f_refl.z};
+      const float pdf_coat = (1.f / (1.f + lam_c)) * dt_c / (4.f * cos_o);
+      pdf_up = q_c * pdf_coat + (1.f - q_c) * pdf_refl;
+    }
+    if (!m.has_trans) {
+      *pdf = up ? pdf_up : 0.f;
+      return up ? f_up : V3f{0.f, 0.f, 0.f};
+    }
+    const bool down = wi.z < -1e-6f;
+    float pdf_tr;
+    V3f f_tr = transmission_terms(m, wo, wi, l.alpha, l.kt, &pdf_tr);
+    if (m.has_coat) {
+      // the coat attenuates the transmitted energy on both interfaces
+      f_tr = f_tr * ((1.f - fc_o) * (1.f - m.coat * fresnel_s(kCoatF0, fmaxf(-wi.z, 1e-6f))));
+      pdf_tr = (1.f - q_c) * l.q_t * pdf_tr;
+    } else {
+      pdf_tr = l.q_t * pdf_tr;
+    }
+    *pdf = up ? pdf_up : (down ? pdf_tr : 0.f);
+    return up ? f_up : (down ? f_tr : V3f{0.f, 0.f, 0.f});
+  }
 }
 
 __device__ __forceinline__ V3f cosine_hemisphere(float u1, float u2) {
@@ -251,16 +365,62 @@ __device__ __forceinline__ V3f ggx_vndf(V3f wo, float alpha, float u1, float u2)
   return normalize(V3f{alpha * nh.x, alpha * nh.y, fmaxf(nh.z, 1e-6f)}, 1e-20f);
 }
 
-// Sample wi from the two-lobe mixture; *wgt = f |cos| / pdf, *pdf.
+// Sample wi from the lobe mixture (without kMat: GGX reflection or diffuse;
+// with it the coat first, at probability coat_q, then the base mixture on u1
+// rescaled, with the transmission lobe where has_trans; a transmission pick
+// at total internal reflection is killed); *wgt = f |cos| / pdf, *pdf.
+template <bool kMat>
 __device__ __forceinline__ V3f bsdf_sample(const Mat& m, V3f wo, float u1, float u2, float u3,
                                            V3f* wgt, float* pdf) {
-  const Lobes l = lobes(m, fmaxf(wo.z, 1e-6f));
+  const float cos_o = fmaxf(wo.z, 1e-6f);
+  const Lobes l = lobes<kMat>(m, cos_o);
+  if constexpr (!kMat) {
+    const V3f h = ggx_vndf(wo, l.alpha, u2, u3);
+    const V3f wi_spec = h * (2.f * dot(wo, h)) - wo;
+    const V3f wi = u1 < l.q_s ? wi_spec : cosine_hemisphere(u2, u3);
+    float p;
+    const V3f f = bsdf_eval<false>(m, wo, wi, &p);
+    const bool good = (p > 1e-12f) && (wi.z > 1e-6f);
+    const float scale = good ? fabsf(wi.z) / fmaxf(p, 1e-12f) : 0.f;
+    *wgt = f * scale;
+    *pdf = good ? p : 0.f;
+    return wi;
+  }
+  bool pick_coat = false;
+  V3f wi_coat;
+  if (m.has_coat) {
+    const float q_c = coat_q(m, cos_o);
+    pick_coat = u1 < q_c;
+    u1 = clampf((u1 - q_c) / fmaxf(1.f - q_c, 1e-6f), 0.f, 1.f);
+    const V3f h_c = ggx_vndf(wo, fmaxf(m.coat_rough * m.coat_rough, 1e-4f), u2, u3);
+    wi_coat = h_c * (2.f * dot(wo, h_c)) - wo;
+  }
   const V3f h = ggx_vndf(wo, l.alpha, u2, u3);
   const V3f wi_spec = h * (2.f * dot(wo, h)) - wo;
-  const V3f wi = u1 < l.q_s ? wi_spec : cosine_hemisphere(u2, u3);
+  const bool pick_spec = u1 < l.q_s;
+  bool below = false, tir = false;  // a transmission pick, and total internal reflection
+  V3f wi;
+  if (m.has_trans) {
+    below = !pick_spec && u1 < l.q_s + l.q_t;
+    // refraction through the sampled half vector
+    const float odoth = dot(wo, h);
+    const float sin2_t = m.eta * m.eta * (1.f - odoth * odoth);
+    tir = sin2_t >= 1.f;
+    const float cos_t = sqrtf(fmaxf(1.f - sin2_t, 0.f));
+    wi = pick_spec ? wi_spec
+                   : (below ? h * (m.eta * odoth - cos_t) - wo * m.eta
+                            : cosine_hemisphere(u2, u3));
+  } else {
+    wi = pick_spec ? wi_spec : cosine_hemisphere(u2, u3);
+  }
+  if (pick_coat) {
+    wi = wi_coat;
+    below = false;
+  }
   float p;
-  const V3f f = bsdf_eval(m, wo, wi, &p);
-  const bool good = (p > 1e-12f) && (wi.z > 1e-6f);
+  const V3f f = bsdf_eval<kMat>(m, wo, wi, &p);
+  const bool hemi_ok = below ? (wi.z < -1e-6f && !tir) : wi.z > 1e-6f;
+  const bool good = (p > 1e-12f) && hemi_ok;
   const float scale = good ? fabsf(wi.z) / fmaxf(p, 1e-12f) : 0.f;
   *wgt = f * scale;
   *pdf = good ? p : 0.f;
@@ -313,6 +473,9 @@ struct BounceParams {
   // sun disk on a miss
   float firefly;  // 0: off; else the most a NEE sample adds
   bool path_reg, sun_nee;
+  // the scene's material lobes (accel.megakernel.material_flags), read by
+  // the kMat instances only
+  bool has_trans, has_coat;
   Sky sky;
 };
 
@@ -350,8 +513,9 @@ __device__ __forceinline__ int bounce_set(const BounceParams& prm, int p0) {
 // from the hit (t_hit, tri, bu, bv; tri -1 on a miss): with kSky the sky
 // and the sun disk where a live ray missed (the disk only on a specular ray
 // when NEE samples the sun), MIS-weighted emission gated by
-// min_emissive_bounce, alive = found, and the surface rebuilt at the hit.
-template <bool kSky>
+// min_emissive_bounce, alive = found, and the surface rebuilt at the hit,
+// with kMat its transmission and coat too.
+template <bool kSky, bool kMat = false>
 __device__ __forceinline__ void surface_at(const float* __restrict__ attrs,
                                            const BounceParams& prm, float t_hit, int tri,
                                            float bu, float bv, Path& path, Surface& sf) {
@@ -395,6 +559,12 @@ __device__ __forceinline__ void surface_at(const float* __restrict__ attrs,
   const float ior = fmaxf(at(A_IOR), 1.01f);
   sf.mat = {at3(A_BASE), at(A_METAL), at(A_ROUGH), ior};
   sf.eta = front ? 1.f / ior : ior;
+  if constexpr (kMat) {
+    sf.mat.trans = at(A_TRANS);
+    sf.mat.eta = sf.eta;
+    sf.mat.coat = at(A_COATW);
+    sf.mat.coat_rough = at(A_COATR);
+  }
 }
 
 // One NEE light sample: its position, normal, emitted radiance, pdf per
@@ -453,8 +623,9 @@ __device__ __forceinline__ LightSample wops_light(const float* __restrict__ tab,
 // segment from *so toward the sun is a candidate (tested in (1e-3, 1e8));
 // *sun_add what the sun adds to the radiance unless the segment is a
 // candidate that something blocks. *trans_out: whether the BSDF sample went
-// below the surface.
-template <bool kSunNee, bool kWops>
+// below the surface. kMat: the BSDF with its transmission and coat lobes,
+// as prm.has_trans and prm.has_coat ask.
+template <bool kSunNee, bool kWops, bool kMat>
 __device__ __forceinline__ bool shade_sample(const float* lights, const BounceParams& prm, int i,
                                              Path& path, const Surface& sf, V3f* so, V3f* seg,
                                              V3f* rad_lit, bool* sun_cand, V3f* sun_add,
@@ -467,6 +638,10 @@ __device__ __forceinline__ bool shade_sample(const float* lights, const BouncePa
 
   Mat mat = sf.mat;
   if (prm.path_reg && prm.bounce >= 1) mat.roughness = regularize(mat.roughness);
+  if constexpr (kMat) {
+    mat.has_trans = prm.has_trans;
+    mat.has_coat = prm.has_coat;
+  }
   const Frame frame = make_frame(sf.ns);
   const V3f wo_l = frame.to_local(-path.d);
   *so = sf.pos + sf.ng * kEpsRay;  // the shadow segments start off the surface
@@ -488,7 +663,7 @@ __device__ __forceinline__ bool shade_sample(const float* lights, const BouncePa
     const float cos_l_raw = -dot(wi_w, l.ng);
     const float cos_l = l.two_sided ? fabsf(cos_l_raw) : cos_l_raw;
     float pdf_b;
-    const V3f f = bsdf_eval(mat, wo_l, frame.to_local(wi_w), &pdf_b);
+    const V3f f = bsdf_eval<kMat>(mat, wo_l, frame.to_local(wi_w), &pdf_b);
     const float pdf_l_sa2 = lpdf_area * dist2 / fmaxf(cos_l, 1e-8f);
     candidate = path.alive && cos_surf > 1e-6f && cos_l > 1e-6f && lpdf_area > 0.f &&
                 prm.bounce >= prm.min_nee_bounce;
@@ -505,7 +680,7 @@ __device__ __forceinline__ bool shade_sample(const float* lights, const BouncePa
     const Sky& s = prm.sky;
     const float cos_s = dot(s.sun, sf.ns);
     float pdf_s;
-    const V3f f_s = bsdf_eval(mat, wo_l, frame.to_local(s.sun), &pdf_s);
+    const V3f f_s = bsdf_eval<kMat>(mat, wo_l, frame.to_local(s.sun), &pdf_s);
     *sun_cand = path.alive && cos_s > 1e-6f;
     const float gain = *sun_cand ? cos_s : 0.f;
     *sun_add = path.thr * V3f{f_s.x * s.e_sun.x * gain, f_s.y * s.e_sun.y * gain,
@@ -514,7 +689,7 @@ __device__ __forceinline__ bool shade_sample(const float* lights, const BouncePa
 
   V3f wgt;
   float pdf;
-  const V3f wi_l = bsdf_sample(mat, wo_l, u5, u6, u7, &wgt, &pdf);
+  const V3f wi_l = bsdf_sample<kMat>(mat, wo_l, u5, u6, u7, &wgt, &pdf);
   const V3f wi_w2 = frame.to_world(wi_l);
   const bool transmitted = wi_l.z < 0.f;
   *trans_out = transmitted;

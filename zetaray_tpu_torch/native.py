@@ -58,14 +58,14 @@ _SIGNATURES = {
     # min_emissive_bounce, nee, has_lights, path options, stream
     "zr_bounce_trace": [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _F, _F, _I, _I, _I, _FP, _VP],
     # state, surf, woop_rows, sets, state_out, n, tp, nt, n_sets, ps, rt, bounce, seed,
-    # min_nee_bounce, rr_start, nee, has_lights, wops_em, path options, stream
+    # min_nee_bounce, rr_start, nee, has_lights, wops_em, material flags, path options, stream
     "zr_bounce_shade": [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _I, ctypes.c_uint32,
-                        _I, _I, _I, _I, _I, _FP, _VP],
+                        _I, _I, _I, _I, _I, _I, _FP, _VP],
     # state, woop_rows, attrs, sets, state_out, n, tp, nt, n_sets, ps, rt, bounce, seed,
     # t_min, min_emissive_bounce, min_nee_bounce, rr_start, nee, has_lights, last,
-    # wops_em, path options, stream
+    # wops_em, material flags, path options, stream
     "zr_bounce": [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _I, ctypes.c_uint32, _F,
-                  _I, _I, _I, _I, _I, _I, _I, _FP, _VP],
+                  _I, _I, _I, _I, _I, _I, _I, _I, _FP, _VP],
     # o, d, woop_rows, attrs, t, tri, u, v, attrs_out, n, tp, nt, tie, t_min, t_max, stream
     "zr_closest": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _F, _F, _VP],
     # o, d, walk_nodes, leaf_rows, leaf_slot, t, tri, n, c, stack, t_min, t_max, stream

@@ -14,6 +14,11 @@ presampled light sets, and its random numbers are ``uniform4(pixel,
 bounce, seed, salt)`` with salt 1 (light), 2 (BSDF) and 3 (Russian
 roulette).
 
+On glass and coated materials (``SceneBuffers.has_transmission`` /
+``has_coat``) the shading takes the transmission and coat lobes
+(``accel.megakernel.hit_material``); a transmitted ray leaves below the
+surface.
+
 With ``PTConfig.sky`` set, rays that miss the scene gather the sky (and the
 sun disk, on the specular primary rays only when ``sun_nee`` samples the
 sun), and with ``sun_nee`` every vertex sends a shadow segment toward the
@@ -30,7 +35,7 @@ from dataclasses import dataclass
 import torch
 
 from ..accel.intersect import intersect_closest_shaded, intersect_occluded
-from ..accel.megakernel import trace_megakernel
+from ..accel.megakernel import hit_material, trace_megakernel
 from ..core import vec3 as v3
 from ..core.rng import uniform4
 from ..core.vec3 import V3
@@ -149,8 +154,9 @@ def trace_reference(scene, o, d, seed: int, cfg: PTConfig = PTConfig(),
         ns = ns * sign
         ns = v3.where(v3.dot(ns, ng) < 0.0, -ns, ns)
         pos = ov + dv * sh.t
-        mat = S.MatSoA(base=v3.from_rows(at, A.BASE), metallic=at[A.METAL],
-                       roughness=at[A.ROUGH], ior=torch.clamp_min(at[A.IOR], 1.01))
+        # the JAX wavefront keeps the transmission lobe on every scene; with
+        # transmission 0 everywhere it gives the opaque lobes' results
+        mat = hit_material(at, front, scene.has_transmission, scene.has_coat)
         if cfg.path_regularization and bounce > 0:
             mat = mat._replace(roughness=regularize(mat.roughness))
 

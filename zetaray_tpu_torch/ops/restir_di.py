@@ -19,7 +19,12 @@ sum and one-hot fetch with a running sum and an indexed read.
 
 Everything else here is plain PyTorch: the reuse passes gather reservoirs
 with ``index_select`` over the flat pixel axis (the TPU's banded windows
-are not needed on the card). The spatial pass is the biased M-clamped merge
+are not needed on the card), in the packed 8-row form
+(``packed_reuse=True``, the JAX default) or as the raw float32 rows. The
+merges rate a sample with the albedo/pi target or, with ``full_target``,
+with the whole BSDF (the transmission and coat lobes included where the
+frame passes ``trans``/``coat``); the shade always takes the whole BSDF.
+The spatial pass is the biased M-clamped merge
 (``spatial_mis="biased"``) or pairwise MIS (``"pairwise"``: ``k`` =
 ``spatial_neighbors`` defensive strategies a pass, unbiased); with
 ``lvg_samples`` > 0 each pixel also merges that many candidates from the
@@ -50,21 +55,6 @@ _EPS_RAY = 1e-3
 _RIS_BLOCK = 128  # pixels per block of the RIS kernel; divides every tile width
 
 
-def refuse_unported_reuse(cfg) -> None:
-    """Raise for the reuse settings that the DI, GI and PT configs share and
-    the port does not implement: the full GGX+Lambert target
-    (``full_target=True``) and raw-float32 reuse gathers
-    (``packed_reuse=False``)."""
-    if cfg.full_target:
-        raise NotImplementedError(
-            "full_target=True: the full GGX+Lambert reuse target is not ported yet"
-        )
-    if not cfg.packed_reuse:
-        raise NotImplementedError(
-            "packed_reuse=False: raw-float32 reuse gathers are not ported yet"
-        )
-
-
 @dataclass(frozen=True)
 class ReSTIRConfig:
     """Field names and defaults follow the JAX package."""
@@ -76,22 +66,19 @@ class ReSTIRConfig:
     spatial_radius: int = 16  # pixels
     depth_tolerance: float = 0.1  # relative depth test for reuse
     normal_tolerance: float = 0.9  # min dot(ns, ns_prev) for reuse
-    full_target: bool = False  # True is not ported yet
+    full_target: bool = False  # True: the merges rate with the whole BSDF, not albedo/pi
     lvg_samples: int = 0  # light-voxel-grid candidates merged into each initial reservoir
     spatial_mis: str = "biased"  # "pairwise": pairwise MIS; anything else the biased merge
     spatial_neighbors: int = 3  # neighbours a pairwise pass; read by pairwise MIS only
-    packed_reuse: bool = True  # False is not ported yet
-
-    def __post_init__(self):
-        refuse_unported_reuse(self)
+    packed_reuse: bool = True  # False: the reuse gathers move raw float32 reservoirs
 
 
-def surface_from_gbuf(gb: torch.Tensor):
-    """[G.ROWS, N] -> (pos, ns, ng, wo, mat, valid)."""
-    mat = S.MatSoA(
-        base=v3.from_rows(gb, G.BASE), metallic=gb[G.METAL],
-        roughness=gb[G.ROUGH], ior=gb[G.IOR],
-    )
+def surface_from_gbuf(gb: torch.Tensor, trans: bool = False, coat: bool = False):
+    """[G.ROWS, N] -> (pos, ns, ng, wo, mat, valid). ``trans``/``coat``:
+    the material takes the transmission lobe (G.TRANS, G.ETA) and the coat
+    (G.COATW, G.COATR); without them those lobes are left out."""
+    mat = S.material(v3.from_rows(gb, G.BASE), gb[G.METAL], gb[G.ROUGH], gb[G.IOR],
+                     gb[G.TRANS], gb[G.ETA], gb[G.COATW], gb[G.COATR], trans, coat)
     return (
         v3.from_rows(gb, G.POS), v3.from_rows(gb, G.NS), v3.from_rows(gb, G.NG),
         v3.from_rows(gb, G.WO), mat, gb[G.VALID] > 0.5,
@@ -176,12 +163,16 @@ def initial_candidates_plain(gbuf, light_sets, seed: int, rt: int) -> torch.Tens
     })
 
 
-def initial_candidates(gbuf, light_sets, seed: int, rt: int = 1024) -> torch.Tensor:
+def initial_candidates(gbuf, light_sets, seed: int, rt: int = 1024, trans: bool = False,
+                       coat: bool = False) -> torch.Tensor:
     """Full-set RIS over each pixel's presampled light set -> [R_ROWS, N].
 
     ``rt`` is the JAX frame's tile width (``render.frame.pick_rt``): pixel p
     draws from set ``(31 * (p // rt)) % n_sets``. A CPU tensor takes the
-    plain version; a CUDA tensor launches the kernel.
+    plain version; a CUDA tensor launches the kernel. Every candidate is
+    rated with the albedo/pi target, whatever the material: ``trans`` and
+    ``coat`` are taken and not read, as the JAX kernel takes its ``trans``,
+    ``coat`` and ``full`` and rates with that target under each.
     """
     if gbuf.device.type == "cpu":
         return initial_candidates_plain(gbuf, light_sets, seed, rt)
@@ -209,17 +200,17 @@ initial_candidates.launches = 0
 # ---------------------------------------------------------------------------
 
 
-def merge(res_a, res_b, surf, u, m_cap=None):
+def merge(res_a, res_b, surf, u, m_cap=None, full=False):
     """Combine reservoir B into A, re-rating B's sample at ``surf``
     = (pos, ns, mat, frame, wo_l, valid) with the albedo/pi target (the
-    JAX default, ``full_target=False``)."""
+    JAX default) or, with ``full`` (``full_target``), the whole BSDF."""
     pos, ns, mat, frame, wo_l, valid = surf
     m_b = res_b[10]
     if m_cap is not None:
         m_b = torch.minimum(m_b, m_cap)
     phat_b, *_ = phat(
         mat, frame, wo_l, pos, ns, v3.from_rows(res_b, 0), v3.from_rows(res_b, 3),
-        v3.from_rows(res_b, 6), res_b[12] > 0.5, full=False,
+        v3.from_rows(res_b, 6), res_b[12] > 0.5, full=full,
     )
     w_b = torch.where(valid, phat_b * res_b[11] * m_b, 0.0)
     w_sum = res_a[9] + w_b
@@ -231,20 +222,21 @@ def merge(res_a, res_b, surf, u, m_cap=None):
     return stack_rows(res_a.shape[0], {9: w_sum, 10: m_new, 11: big_w, 13: y_phat}, like=out)
 
 
-def _surf(gbuf):
-    pos, ns, _ng, wo, mat, valid = surface_from_gbuf(gbuf)
+def _surf(gbuf, trans=False, coat=False):
+    pos, ns, _ng, wo, mat, valid = surface_from_gbuf(gbuf, trans, coat)
     frame = S.make_frame(ns)
     return (pos, ns, mat, frame, frame.to_local(wo), valid)
 
 
-def lvg_merge(res, gbuf, camera, lvg, seed: int, cfg: ReSTIRConfig, lvg_cfg):
+def lvg_merge(res, gbuf, camera, lvg, seed: int, cfg: ReSTIRConfig, lvg_cfg, trans=False,
+              coat=False):
     """Merge ``cfg.lvg_samples`` light-voxel-grid candidates into each
     pixel's reservoir (``ops.prelighting.sample_lvg`` with salt 0x51AB + s;
     the merge's uniform ``uniform4(pixel, s, seed, 0x1B7A)``). A candidate
     enters as a one-sample reservoir, M = 1 and W = 1 / pdf_area, so its
     merge weight is the RIS weight phat / pdf."""
     n = res.shape[1]
-    surf = _surf(gbuf)
+    surf = _surf(gbuf, trans, coat)
     pix = torch.arange(n, dtype=torch.int64, device=res.device)
     for s in range(cfg.lvg_samples):
         rows, ok = sample_lvg(lvg, gbuf, camera, seed, lvg_cfg, salt=0x51AB + s)
@@ -253,7 +245,8 @@ def lvg_merge(res, gbuf, camera, lvg, seed: int, cfg: ReSTIRConfig, lvg_cfg):
             **{i: rows[i] for i in range(9)},
             10: okf, 11: okf / torch.clamp_min(rows[9], 1e-9), 12: rows[10],
         }, n=n)
-        res = merge(res, res_b, surf, uniform4(pix, s, seed, salt=0x1B7A)[0])
+        res = merge(res, res_b, surf, uniform4(pix, s, seed, salt=0x1B7A)[0],
+                    full=cfg.full_target)
     return res
 
 
@@ -270,9 +263,12 @@ def take_multi(parts, idx):
     return outs
 
 
-def gather_reservoirs(res_src, extra, idx):
-    """Gather reservoirs in the packed 8-row form (the JAX default,
-    ``packed_reuse=True``) together with ``extra`` rows."""
+def gather_reservoirs(res_src, extra, idx, packed: bool = True):
+    """Gather reservoirs together with ``extra`` rows: in the packed 8-row
+    form (``packed_reuse=True``, the JAX default; ``res_src`` raw or
+    packed) or as the raw float32 rows (``packed=False``)."""
+    if not packed:
+        return take_multi([res_src, extra], idx)
     src = res_src if res_src.shape[0] == DI_PACKED_ROWS else pack_di(res_src)
     r, e = take_multi([src, extra], idx)
     return unpack_di(r), e
@@ -305,7 +301,7 @@ def reproject_prev(gbuf, prev_cam, width: int, height: int):
 
 
 def temporal_reuse(res, prev_res, prev_gbuf, gbuf, prev_cam, width, height, seed,
-                   cfg: ReSTIRConfig, prefetch=None):
+                   cfg: ReSTIRConfig, trans=False, coat=False, prefetch=None):
     """Merge the reprojected previous-frame reservoirs into the current ones.
 
     ``prev_gbuf`` is the previous frame's packed temporal G-buffer (TG);
@@ -313,20 +309,20 @@ def temporal_reuse(res, prev_res, prev_gbuf, gbuf, prev_cam, width, height, seed
     when the frame's joint gather already fetched them.
     """
     n = res.shape[1]
-    surf = _surf(gbuf)
+    surf = _surf(gbuf, trans, coat)
     ns, valid = surf[1], surf[5]
     if prefetch is not None:
         prev_r, prev_g, inside, depth_prev_est = prefetch
     else:
         idx, inside, depth_prev_est = reproject_prev(gbuf, prev_cam, width, height)
-        prev_r, prev_g = gather_reservoirs(prev_res, prev_gbuf, idx)
+        prev_r, prev_g = gather_reservoirs(prev_res, prev_gbuf, idx, cfg.packed_reuse)
     ok = inside & temporal_geom_ok(prev_g, ns, depth_prev_est, cfg.depth_tolerance,
                                    cfg.normal_tolerance) & valid
     prev_r = drop_m_w(prev_r, ok)
     pix = torch.arange(n, dtype=torch.int64, device=res.device)
     u = uniform4(pix, 0, seed, salt=0x7E17)[0]
     m_cap = cfg.m_max_factor * torch.clamp_min(res[10], 1.0)
-    return merge(res, prev_r, surf, u, m_cap=m_cap)
+    return merge(res, prev_r, surf, u, m_cap=m_cap, full=cfg.full_target)
 
 
 GEOM_DEPTH, GEOM_NS, GEOM_VALID = 0, 1, 4
@@ -363,15 +359,16 @@ def disk_neighbor(pix, width, height, u, radius):
     return ny * width + nx
 
 
-def spatial_step(res, gbuf, width, height, seed, it, cfg: ReSTIRConfig):
+def spatial_step(res, gbuf, width, height, seed, it, cfg: ReSTIRConfig, trans=False,
+                 coat=False):
     """One spatial-reuse iteration (biased M-clamped merge)."""
     n = res.shape[1]
-    surf = _surf(gbuf)
+    surf = _surf(gbuf, trans, coat)
     pix = torch.arange(n, dtype=torch.int64, device=res.device)
     nidx, u_merge = neighbor_pick(pix, width, height, seed, it, cfg)
-    nb, nb_geom = gather_reservoirs(res, geom_table(gbuf), nidx)
+    nb, nb_geom = gather_reservoirs(res, geom_table(gbuf), nidx, cfg.packed_reuse)
     ok = geom_ok_slim(gbuf, nb_geom, surf[1], cfg)
-    return merge(res, drop_m_w(nb, ok), surf, u_merge)
+    return merge(res, drop_m_w(nb, ok), surf, u_merge, full=cfg.full_target)
 
 
 def neighbor_pick(pix, width, height, seed, tag: int, cfg):
@@ -391,7 +388,8 @@ def geom_ok(gbuf, nb_g, ns: V3, cfg):
     )
 
 
-def spatial_step_pairwise(res, gbuf, width, height, seed, it, cfg: ReSTIRConfig):
+def spatial_step_pairwise(res, gbuf, width, height, seed, it, cfg: ReSTIRConfig, trans=False,
+                          coat=False):
     """One pairwise-MIS spatial pass over ``cfg.spatial_neighbors``
     defensive strategies (neighbour i of pass ``it`` from stream it*16 + i).
 
@@ -401,17 +399,18 @@ def spatial_step_pairwise(res, gbuf, width, height, seed, it, cfg: ReSTIRConfig)
     that pass the geometry test. The samples are area-measure light points,
     so every shift has Jacobian 1."""
     n = res.shape[1]
-    pos, ns, mat, frame, wo_l, valid = _surf(gbuf)
+    full = cfg.full_target
+    pos, ns, mat, frame, wo_l, valid = _surf(gbuf, trans, coat)
     pix = torch.arange(n, dtype=torch.int64, device=res.device)
-    res_p = pack_di(res)
+    res_src = pack_di(res) if cfg.packed_reuse else res
     nbs = []
     k_eff = torch.zeros((n,), dtype=torch.float32, device=res.device)
     for i in range(cfg.spatial_neighbors):
         nidx, u_stream = neighbor_pick(pix, width, height, seed, it * 16 + i, cfg)
-        nb_p, nb_g = take_multi([res_p, gbuf], nidx)
+        nb, nb_g = take_multi([res_src, gbuf], nidx)
         ok = geom_ok(gbuf, nb_g, ns, cfg) & valid
         k_eff = k_eff + ok.to(torch.float32)
-        nbs.append((unpack_di(nb_p), nb_g, ok, u_stream))
+        nbs.append((unpack_di(nb) if cfg.packed_reuse else nb, nb_g, ok, u_stream))
     k_div = torch.clamp_min(k_eff, 1.0)
 
     phat_c_yc, w_c_cap, m_c_count = res[13], res[11], res[10]
@@ -425,7 +424,7 @@ def spatial_step_pairwise(res, gbuf, width, height, seed, it, cfg: ReSTIRConfig)
         m_i_count = nb[10]
         # p_c(y_i): the neighbour's sample rated at this pixel's surface
         phat_c_yi, *_ = phat(mat, frame, wo_l, pos, ns, v3.from_rows(nb, 0),
-                             v3.from_rows(nb, 3), v3.from_rows(nb, 6), nb[12] > 0.5, full=False)
+                             v3.from_rows(nb, 3), v3.from_rows(nb, 6), nb[12] > 0.5, full=full)
         num_i = m_i_count * nb[13]
         den_i = num_i + (m_c_count / k_div) * phat_c_yi
         m_i = torch.where(ok & (den_i > 0.0), num_i / torch.clamp_min(den_i, 1e-12), 0.0)
@@ -436,10 +435,10 @@ def spatial_step_pairwise(res, gbuf, width, height, seed, it, cfg: ReSTIRConfig)
         phat_sel = torch.where(take, phat_c_yi, phat_sel)
 
         # p_i(y_c): this pixel's sample rated at the neighbour's surface
-        pos_i, ns_i, _ng_i, wo_i, mat_i, _ = surface_from_gbuf(nb_g)
+        pos_i, ns_i, _ng_i, wo_i, mat_i, _ = surface_from_gbuf(nb_g, trans, coat)
         frame_i = S.make_frame(ns_i)
         phat_i_yc, *_ = phat(mat_i, frame_i, frame_i.to_local(wo_i), pos_i, ns_i, *yc,
-                             full=False)
+                             full=full)
         num_c = m_i_count * phat_i_yc
         den_c = num_c + (m_c_count / k_div) * phat_c_yc
         dm = torch.where(den_c > 0.0, 1.0 - num_c / torch.clamp_min(den_c, 1e-12), 1.0)
@@ -459,13 +458,13 @@ def spatial_step_pairwise(res, gbuf, width, height, seed, it, cfg: ReSTIRConfig)
     return stack_rows(out.shape[0], {9: w_sum_s, 10: m_s, 11: w_new, 13: phat_sel}, like=out)
 
 
-def spatial_reuse(res, gbuf, width, height, seed, cfg: ReSTIRConfig):
+def spatial_reuse(res, gbuf, width, height, seed, cfg: ReSTIRConfig, trans=False, coat=False):
     """Merge reservoirs from random nearby pixels (``cfg.spatial_mis``:
     pairwise MIS or the biased merge)."""
     step = spatial_step_pairwise if cfg.spatial_mis == "pairwise" else spatial_step
     out = res
     for it in range(cfg.spatial_iterations):
-        out = step(out, gbuf, width, height, seed, it, cfg)
+        out = step(out, gbuf, width, height, seed, it, cfg, trans, coat)
     return out
 
 
@@ -484,10 +483,10 @@ def visibility_reuse(scene, res, gbuf):
     return stack_rows(res.shape[0], {9: res[9] * keep, 11: res[11] * keep}, like=res)
 
 
-def shade(scene, res, gbuf) -> torch.Tensor:
-    """Shadow-test each pixel's sample: direct radiance plus the directly
-    visible emission, planar [3, N]."""
-    pos, ns, mat, frame, wo_l, valid = _surf(gbuf)
+def shade(scene, res, gbuf, trans=False, coat=False) -> torch.Tensor:
+    """Shadow-test each pixel's sample: direct radiance (the whole BSDF)
+    plus the directly visible emission, planar [3, N]."""
+    pos, ns, mat, frame, wo_l, valid = _surf(gbuf, trans, coat)
     y_le = v3.from_rows(res, 6)
     big_w = res[11]
     ph, _wi, dist2, cos_surf, cos_l, f = phat(

@@ -19,7 +19,11 @@ Reservoir rows ([16, N] float32, the JAX package's layout):
 Reuse gathers carry GI reservoirs in the packed DI form
 (``reservoir_pack.pack_di``), as the JAX package does: L2 travels as f16,
 n2 as oct16, and row 12 comes back as the DI two-sided bit, which the merge
-then overwrites.
+then overwrites; with ``packed_reuse=False`` they move the raw float32
+rows. The initial samples and the merges rate with the albedo/pi target,
+or with ``full_target`` with the whole BSDF; the shade always with the
+whole BSDF, its transmission and coat lobes included where the frame
+passes ``trans``/``coat``.
 """
 
 from __future__ import annotations
@@ -29,7 +33,7 @@ from dataclasses import dataclass, replace
 import torch
 
 from ..accel.intersect import intersect_occluded
-from ..accel.megakernel import G, trace_with_first_hit
+from ..accel.megakernel import hit_material, trace_with_first_hit
 from ..core import vec3 as v3
 from ..core.rng import uniform4
 from ..core.rows import stack_rows
@@ -41,8 +45,7 @@ from .gbuffer_pack import temporal_geom_ok
 from .pathtracer import park, trace_reference
 from .prelighting import sample_light_points, sample_lvg_at
 from .restir_di import (
-    disk_neighbor, drop_m_w, gather_reservoirs, geom_ok_slim, geom_table, refuse_unported_reuse,
-    reproject_prev,
+    surface_from_gbuf, disk_neighbor, drop_m_w, gather_reservoirs, geom_ok_slim, geom_table, reproject_prev,
 )
 
 R_ROWS = 16
@@ -57,27 +60,22 @@ class ReSTIRGIConfig:
     """Field names and defaults follow the JAX package."""
 
     temporal: bool = True
-    full_target: bool = False  # True is not ported yet
+    full_target: bool = False  # True: samples and merges rated with the whole BSDF
     m_max: float = 10.0  # temporal M cap
     spatial_iterations: int = 1
     spatial_radius: int = 12
     depth_tolerance: float = 0.1
     normal_tolerance: float = 0.9
-    packed_reuse: bool = True  # False is not ported yet
+    packed_reuse: bool = True  # False: the reuse gathers move raw float32 reservoirs
     lvg: bool = False  # the NEE at x2 draws its light from the light voxel grid
     boiling_suppression: bool = True
 
-    def __post_init__(self):
-        refuse_unported_reuse(self)
 
-
-def _surf(gbuf):
-    """[G.ROWS, N] -> (pos, ns, ng, wo, mat, frame, valid)."""
-    ns = v3.from_rows(gbuf, G.NS)
-    mat = S.MatSoA(base=v3.from_rows(gbuf, G.BASE), metallic=gbuf[G.METAL],
-                   roughness=gbuf[G.ROUGH], ior=gbuf[G.IOR])
-    return (v3.from_rows(gbuf, G.POS), ns, v3.from_rows(gbuf, G.NG), v3.from_rows(gbuf, G.WO),
-            mat, S.make_frame(ns), gbuf[G.VALID] > 0.5)
+def _surf(gbuf, trans=False, coat=False):
+    """[G.ROWS, N] -> (pos, ns, ng, wo, mat, frame, valid); ``trans``/``coat``
+    as ``restir_di.surface_from_gbuf``."""
+    pos, ns, ng, wo, mat, valid = surface_from_gbuf(gbuf, trans, coat)
+    return pos, ns, ng, wo, mat, S.make_frame(ns), valid
 
 
 def _phat_area(mat, frame, wo_l, pos, ns, x2: V3, n2: V3, l2: V3, full=True):
@@ -99,11 +97,12 @@ def _phat_area(mat, frame, wo_l, pos, ns, x2: V3, n2: V3, l2: V3, full=True):
     return torch.where(cos1 > 1e-6, phat, 0.0), f, geom, wi
 
 
-def secondary_rays(gbuf, seed: int):
+def secondary_rays(gbuf, seed: int, trans=False, coat=False):
     """The rays of the GI samples: a BSDF direction at each primary hit
     (uniforms of bounce 101, salt 0x61AA) from the hit offset along its
-    geometric normal. Returns (o [N, 3], d [N, 3], pdf_sa, live)."""
-    pos, _ns, ng, wo, mat, frame, valid = _surf(gbuf)
+    geometric normal; a transmitted direction is not live. Returns (o [N,
+    3], d [N, 3], pdf_sa, live)."""
+    pos, _ns, ng, wo, mat, frame, valid = _surf(gbuf, trans, coat)
     pix = torch.arange(gbuf.shape[1], dtype=torch.int64, device=gbuf.device)
     u = uniform4(pix, 101, seed, salt=0x61AA)
     wi_l, _, pdf_sa = S.bsdf_sample(mat, frame.to_local(wo), u[0], u[1], u[2])
@@ -152,7 +151,8 @@ def _nee_emissive_lvg(scene, lvg, camera, pos2: V3, ns2: V3, ng2: V3, mat2, wo2:
 
 
 def initial_samples(scene, gbuf, pt_cfg, seed: int, rt: int, light_sets=None,
-                    spread_angle=0.0, lvg=None, lvg_cam=None, lvg_cfg=None) -> torch.Tensor:
+                    spread_angle=0.0, lvg=None, lvg_cam=None, lvg_cfg=None, trans=False,
+                    coat=False, full_target=False) -> torch.Tensor:
     """One GI sample per pixel: a BSDF direction at the primary hit, traced
     with ``max_bounces - 1`` further bounces (x2's own emission excluded,
     NEE from x2 on). On a clustered scene x2 = o2 + t * d2 from the trace's
@@ -164,10 +164,12 @@ def initial_samples(scene, gbuf, pt_cfg, seed: int, rt: int, light_sets=None,
     probability 1/2 (``uniform4(pixel, 97, seed, 0x53B0)``). With ``lvg``
     (the frame's grid, its camera ``lvg_cam`` and ``lvg_cfg``) the NEE at x2
     is ``_nee_emissive_lvg`` in place of the trace's bounce-0 NEE.
+    ``trans``/``coat``: the lobes of the primary and x2 materials;
+    ``full_target``: the samples are rated with the whole BSDF.
     Returns reservoir rows [R_ROWS, N]."""
-    pos, ns, _ng, wo, mat, frame, _valid = _surf(gbuf)
+    pos, ns, _ng, wo, mat, frame, _valid = _surf(gbuf, trans, coat)
     wo_l = frame.to_local(wo)
-    o2, d2, pdf_sa, live = secondary_rays(gbuf, seed)
+    o2, d2, pdf_sa, live = secondary_rays(gbuf, seed, trans, coat)
     smb_kill = None
     if pt_cfg.stochastic_multi_bounce and pt_cfg.max_bounces > 1:
         pix = torch.arange(gbuf.shape[1], dtype=torch.int64, device=gbuf.device)
@@ -187,8 +189,7 @@ def initial_samples(scene, gbuf, pt_cfg, seed: int, rt: int, light_sets=None,
         x2_hit = alive2 > 0.5
         x2, n2, l2 = v3.from_rows(surf2, 0), v3.from_rows(surf2, 6), v3.from_rows(l2_rows, 0)
         ns2 = v3.from_rows(surf2, 3)
-        mat2 = S.MatSoA(base=v3.from_rows(surf2, 9), metallic=surf2[12], roughness=surf2[13],
-                        ior=surf2[14])
+        mat2 = S.material(v3.from_rows(surf2, 9), *surf2[12:19], trans, coat)
     else:
         # the wavefront trace's bounce-0 closest hit is the x2 query; dead
         # rays are parked so the traversal culls them
@@ -197,11 +198,11 @@ def initial_samples(scene, gbuf, pt_cfg, seed: int, rt: int, light_sets=None,
         x2_hit = sh.valid
         x2 = V3(*(o2 + sh.t[:, None] * d2).T)
         n2_raw = v3.from_rows(sh.attrs, A.NG)
-        n2 = v3.where(v3.dot(n2_raw, V3(*d2.T)) > 0.0, -n2_raw, n2_raw)  # faces x1
+        flip = v3.dot(n2_raw, V3(*d2.T)) > 0.0
+        n2 = v3.where(flip, -n2_raw, n2_raw)  # faces x1
         l2 = V3(*l2_rgb.T)
         ns2 = n2
-        mat2 = S.MatSoA(base=v3.from_rows(sh.attrs, A.BASE), metallic=sh.attrs[A.METAL],
-                        roughness=sh.attrs[A.ROUGH], ior=torch.clamp_min(sh.attrs[A.IOR], 1.01))
+        mat2 = hit_material(sh.attrs, ~flip, trans, coat)
     hit = x2_hit & live
     if lvg is not None:
         l2 = l2 + _nee_emissive_lvg(scene, lvg, lvg_cam, x2, ns2, n2, mat2, -V3(*d2.T), hit,
@@ -214,7 +215,7 @@ def initial_samples(scene, gbuf, pt_cfg, seed: int, rt: int, light_sets=None,
         l2 = v3.where(sky_miss, SK.sky_radiance(d2v, pt_cfg.sky, with_disk=False), l2)
         hit = hit | sky_miss
 
-    phat, _, _, _ = _phat_area(mat, frame, wo_l, pos, ns, x2, n2, l2, full=False)
+    phat, _, _, _ = _phat_area(mat, frame, wo_l, pos, ns, x2, n2, l2, full=full_target)
     to2 = x2 - pos
     dist2 = torch.clamp_min(v3.dot(to2, to2), 1e-12)
     cos2 = torch.clamp_min(-v3.dot(to2 * torch.rsqrt(dist2), n2), 1e-6)
@@ -227,16 +228,16 @@ def initial_samples(scene, gbuf, pt_cfg, seed: int, rt: int, light_sets=None,
     })
 
 
-def _merge(res_a, res_b, surf, u, m_cap=None):
+def _merge(res_a, res_b, surf, u, m_cap=None, full=False):
     """Combine reservoir B into A, re-rating B's sample at ``surf`` with
-    the albedo/pi target."""
+    the albedo/pi target, or with ``full`` the whole BSDF."""
     pos, ns, _ng, wo, mat, frame, valid = surf
     m_b = res_b[10]
     if m_cap is not None:
         m_b = torch.clamp_max(m_b, m_cap)
     phat_b, _, _, _ = _phat_area(
         mat, frame, frame.to_local(wo), pos, ns, v3.from_rows(res_b, 0),
-        v3.from_rows(res_b, 3), v3.from_rows(res_b, 6), full=False,
+        v3.from_rows(res_b, 3), v3.from_rows(res_b, 6), full=full,
     )
     w_b = torch.where(valid, phat_b * res_b[11] * m_b, 0.0)
     w_sum = res_a[9] + w_b
@@ -262,51 +263,52 @@ def suppress_outlier_reservoirs(res, group: int = 32, w_sum_row: int = 9, m_row:
 
 
 def temporal_reuse(res, prev_res, prev_gbuf, gbuf, prev_cam, width, height, seed,
-                   cfg: ReSTIRGIConfig, prefetch=None):
+                   cfg: ReSTIRGIConfig, trans=False, coat=False, prefetch=None):
     """Merge the reprojected previous-frame reservoirs into the current ones,
     then suppress outliers. ``prev_gbuf`` is the packed temporal G-buffer;
     ``prefetch`` = (prev reservoirs, prev packed G, inside, depth estimate)
     when the frame's joint gather already fetched them."""
     n = res.shape[1]
-    surf = _surf(gbuf)
+    surf = _surf(gbuf, trans, coat)
     if prefetch is not None:
         prev_r, prev_g, inside, depth_est = prefetch
     else:
         idx, inside, depth_est = reproject_prev(gbuf, prev_cam, width, height)
-        prev_r, prev_g = gather_reservoirs(prev_res, prev_gbuf, idx)
+        prev_r, prev_g = gather_reservoirs(prev_res, prev_gbuf, idx, cfg.packed_reuse)
     ok = inside & temporal_geom_ok(prev_g, surf[1], depth_est, cfg.depth_tolerance,
                                    cfg.normal_tolerance)
     prev_r = drop_m_w(prev_r, ok)
     pix = torch.arange(n, dtype=torch.int64, device=res.device)
     u = uniform4(pix, 102, seed, salt=0x6E31)[0]
-    out = _merge(res, prev_r, surf, u, m_cap=cfg.m_max)
+    out = _merge(res, prev_r, surf, u, m_cap=cfg.m_max, full=cfg.full_target)
     return suppress_outlier_reservoirs(out) if cfg.boiling_suppression else out
 
 
-def spatial_step(res, gbuf, width, height, seed, it, cfg: ReSTIRGIConfig):
+def spatial_step(res, gbuf, width, height, seed, it, cfg: ReSTIRGIConfig, trans=False,
+                 coat=False):
     """One spatial-reuse iteration: merge a random neighbour within
     ``spatial_radius`` whose geometry agrees."""
     n = res.shape[1]
-    surf = _surf(gbuf)
+    surf = _surf(gbuf, trans, coat)
     pix = torch.arange(n, dtype=torch.int64, device=res.device)
     u = uniform4(pix, 103 + it, seed, salt=0x51A7)
     nidx = disk_neighbor(pix, width, height, u, cfg.spatial_radius)
-    nb, nb_geom = gather_reservoirs(res, geom_table(gbuf), nidx)
+    nb, nb_geom = gather_reservoirs(res, geom_table(gbuf), nidx, cfg.packed_reuse)
     ok = geom_ok_slim(gbuf, nb_geom, surf[1], cfg)
-    return _merge(res, drop_m_w(nb, ok), surf, u[2])
+    return _merge(res, drop_m_w(nb, ok), surf, u[2], full=cfg.full_target)
 
 
-def spatial_reuse(res, gbuf, width, height, seed, cfg: ReSTIRGIConfig):
+def spatial_reuse(res, gbuf, width, height, seed, cfg: ReSTIRGIConfig, trans=False, coat=False):
     out = res
     for it in range(cfg.spatial_iterations):
-        out = spatial_step(out, gbuf, width, height, seed, it, cfg)
+        out = spatial_step(out, gbuf, width, height, seed, it, cfg, trans, coat)
     return out
 
 
-def shade(scene, res, gbuf) -> torch.Tensor:
-    """Indirect radiance of each pixel's surviving sample after its
-    visibility ray (kernel B3): planar [3, N]."""
-    pos, ns, ng, wo, mat, frame, valid = _surf(gbuf)
+def shade(scene, res, gbuf, trans=False, coat=False) -> torch.Tensor:
+    """Indirect radiance of each pixel's surviving sample (the whole BSDF)
+    after its visibility ray (kernel B3): planar [3, N]."""
+    pos, ns, ng, wo, mat, frame, valid = _surf(gbuf, trans, coat)
     x2, l2 = v3.from_rows(res, 0), v3.from_rows(res, 6)
     big_w = res[11]
     phat, f, geom, _ = _phat_area(mat, frame, frame.to_local(wo), pos, ns, x2,

@@ -1,5 +1,4 @@
-"""ReSTIR PT, as the JAX package's ``ops/restir_pt.py`` (dense scenes, opaque
-materials, no textures).
+"""ReSTIR PT, as the JAX package's ``ops/restir_pt.py`` (no textures).
 
 The sample of a pixel is a whole path beyond its primary hit, held as its
 reconnection vertex x_rc (the prefix's first hit) and a frozen suffix: the
@@ -21,8 +20,13 @@ visibility ray is B3.
 Reservoir rows ([PR.ROWS, N] float32) are the JAX package's. SRCSEED holds
 a u32 seed's bits in a float row: it is moved only by selects, gathers and
 bit views, never by arithmetic, so a seed whose bits form a NaN survives.
-The transmission/coat rows are carried (zero on the opaque scenes the port
-takes) but no lobe reads them.
+Where the frame passes ``trans``/``coat`` the BSDFs at the primary hit, at
+x_rc (from its TRANS/ETA/COATW/COATR rows, eta frozen at the generating
+orientation) and at x2' and x3 of the replay take the transmission and
+coat lobes, and a glass x_rc may be seen from its back (|cos| at x_rc and
+at x2'). The merges rate with the albedo/pi f1 at the primary hit, or with
+``full_target`` with its whole BSDF. Reuse gathers move the packed 30-row
+form, or with ``packed_reuse=False`` the raw 58 rows.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ from dataclasses import dataclass, replace
 import torch
 
 from ..accel.intersect import ShadedHit, intersect_closest_shaded, intersect_occluded
+from ..accel.megakernel import hit_material
 from ..core import vec3 as v3
 from ..core.rng import uniform4
 from ..core.rows import set3, stack_rows
@@ -44,7 +49,7 @@ from .gbuffer_pack import temporal_geom_ok
 from .pathtracer import trace
 from .reservoir_pack import PT_PACKED_ROWS, pack_pt, unpack_pt
 from .restir_di import (
-    disk_neighbor, geom_ok_slim, geom_table, refuse_unported_reuse, reproject_prev, take_multi,
+    disk_neighbor, geom_ok_slim, geom_table, reproject_prev, take_multi,
 )
 from .restir_gi import _surf, suppress_outlier_reservoirs
 
@@ -105,34 +110,36 @@ class ReSTIRPTConfig:
     min_reconnect_rough: float = 0.1  # rc roughness below this -> no reconnection
     replay: bool = True  # replay shift where the reconnection is invalid
     force_replay: bool = False  # testing hook: every merge takes the replay shift
-    full_target: bool = False  # True is not ported yet
+    full_target: bool = False  # True: merges rate with the whole BSDF at the primary hit
     sort_suffix: bool = True  # trace the suffix rays sorted by (material, octant)
-    packed_reuse: bool = True  # False is not ported yet
+    packed_reuse: bool = True  # False: the reuse gathers move raw float32 reservoirs
     spatial_search: int = 1  # neighbours probed for one that passes the geometry test
     boiling_suppression: bool = True
 
-    def __post_init__(self):
-        refuse_unported_reuse(self)
+
+def _rc_mat(res, trans=False, coat=False):
+    """The reconnection vertex's material from reservoir rows; ``trans``/
+    ``coat`` add its transmission lobe (eta frozen at the generating
+    orientation) and its coat."""
+    return S.material(v3.from_rows(res, PR.BASE), res[PR.METAL], res[PR.ROUGH],
+                      torch.full_like(res[PR.METAL], 1.5), *res[PR.TRANS : PR.COATR + 1], trans,
+                      coat)
 
 
-def _rc_mat(res):
-    """The reconnection vertex's material from reservoir rows."""
-    return S.MatSoA(base=v3.from_rows(res, PR.BASE), metallic=res[PR.METAL],
-                    roughness=res[PR.ROUGH], ior=torch.full_like(res[PR.METAL], 1.5))
-
-
-def _phat_pt(surf, res, full=False):
+def _phat_pt(surf, res, full=False, trans=False, coat=False):
     """Target and shading factors of a path sample re-anchored at ``surf``:
     (phat, f1, lout, geom, wi, dist2). phat is the area-measure target
     lum(f1 * L_out) * cos1 * cos_rc / d^2; ``full=False`` takes the albedo/pi
-    f1 of the merges, ``full=True`` the BSDF of the shade."""
+    f1 of the merges, ``full=True`` the BSDF. With ``trans`` x_rc may be
+    seen from its back (|cos_rc|)."""
     pos, ns, _ng, wo, mat, frame, _valid = surf
     n_rc = v3.from_rows(res, PR.N)
     to = v3.from_rows(res, PR.X) - pos
     dist2 = torch.clamp_min(v3.dot(to, to), 1e-12)
     wi = to * torch.rsqrt(dist2)
     cos1 = v3.dot(wi, ns)
-    cos_rc = torch.clamp_min(-v3.dot(wi, n_rc), 0.0)
+    cos_rc_raw = -v3.dot(wi, n_rc)
+    cos_rc = torch.abs(cos_rc_raw) if trans else torch.clamp_min(cos_rc_raw, 0.0)
     if full:
         f1, _ = S.bsdf_eval(mat, frame.to_local(wo), frame.to_local(wi))
     else:
@@ -140,7 +147,7 @@ def _phat_pt(surf, res, full=False):
         f1 = V3((mat.base.x + 0.04) * inv_pi, (mat.base.y + 0.04) * inv_pi,
                 (mat.base.z + 0.04) * inv_pi)
     rc_frame = S.make_frame(n_rc)
-    f_rc, _ = S.bsdf_eval(_rc_mat(res), rc_frame.to_local(-wi),
+    f_rc, _ = S.bsdf_eval(_rc_mat(res, trans, coat), rc_frame.to_local(-wi),
                           rc_frame.to_local(v3.from_rows(res, PR.WS)))
     lout = v3.from_rows(res, PR.LE) + f_rc * v3.from_rows(res, PR.LS)
     geom = cos1 * cos_rc / dist2
@@ -185,24 +192,24 @@ def _prefix(surf, pix, seed):
     """The prefix's first segment: a BSDF direction at each primary hit
     (stream 201, salt 0x9717, of pixel ids ``pix`` and seeds ``seed``) from
     the hit offset along its geometric normal. Returns (o [N, 3], d [N, 3],
-    wi, pdf_sa, live)."""
+    wi, pdf_sa, live, wi in the hit's frame)."""
     pos, _ns, ng, wo, mat, frame, valid = surf
     u = uniform4(pix, 201, seed, salt=0x9717)
     wi_l, _, pdf_sa = S.bsdf_sample(mat, frame.to_local(wo), u[0], u[1], u[2])
     wi = frame.to_world(wi_l)
     live = valid & (pdf_sa > 0.0) & (v3.dot(wi, ng) > 1e-6)
-    return v3.aos3(pos + ng * _EPS_RAY), v3.aos3(wi), wi, pdf_sa, live
+    return v3.aos3(pos + ng * _EPS_RAY), v3.aos3(wi), wi, pdf_sa, live, wi_l
 
 
-def prefix_rays(gbuf, seed: int):
+def prefix_rays(gbuf, seed: int, trans=False, coat=False):
     """The rays whose closest hits (B7) are the initial samples'
     reconnection vertices: (o [N, 3], d [N, 3])."""
-    o, d, *_ = _prefix(_surf(gbuf), _pix(gbuf.shape[1], gbuf.device), seed)
+    o, d, *_ = _prefix(_surf(gbuf, trans, coat), _pix(gbuf.shape[1], gbuf.device), seed)
     return o, d
 
 
 def initial_samples(scene, gbuf, pt_cfg, seed: int, cfg: ReSTIRPTConfig, rt: int,
-                    light_sets=None) -> torch.Tensor:
+                    light_sets=None, trans=False, coat=False) -> torch.Tensor:
     """One path sample per pixel in a reservoir [PR.ROWS, N].
 
     Prefix: a BSDF direction at the primary hit, whose closest hit (B7) is
@@ -212,15 +219,18 @@ def initial_samples(scene, gbuf, pt_cfg, seed: int, cfg: ReSTIRPTConfig, rt: int
     ``max_bounces - 3`` further bounces. The suffix rays are traced sorted
     by (rc material, direction octant), so the trace's pixel ids, random
     streams and light sets are the sorted positions, as in the JAX package.
+    ``trans``/``coat``: the lobes of the primary hit's and x_rc's materials
+    (x3's stays opaque, as in JAX). The sample is rated with the albedo/pi
+    f1, or with ``cfg.full_target`` with the whole BSDF.
     """
     n = gbuf.shape[1]
     dev = gbuf.device
-    surf = _surf(gbuf)
+    surf = _surf(gbuf, trans, coat)
     pos = surf[0]
     pix = _pix(n, dev)
 
     # -- prefix: BSDF direction at the primary hit
-    o2, d2, wi, pdf_sa, live = _prefix(surf, pix, seed)
+    o2, d2, wi, pdf_sa, live, _ = _prefix(surf, pix, seed)
     sh = intersect_closest_shaded(scene, o2, d2)
     hit = sh.valid & live
     at = sh.attrs
@@ -230,7 +240,7 @@ def initial_samples(scene, gbuf, pt_cfg, seed: int, cfg: ReSTIRPTConfig, rt: int
     rc_ior = torch.clamp_min(at[A.IOR], 1.01)
 
     # -- suffix: BSDF direction at x_rc; its first hit x3 is resolved here
-    rc_mat = S.MatSoA(base=rc_base, metallic=rc_metal, roughness=rc_rough, ior=rc_ior)
+    rc_mat = hit_material(at, front, trans, coat)
     rc_frame = S.make_frame(n_rc)
     u2 = uniform4(pix, 202, seed, salt=0x5F17)
     ws_l, _, pdf_s = S.bsdf_sample(rc_mat, rc_frame.to_local(-wi), u2[0], u2[1], u2[2])
@@ -322,7 +332,8 @@ def initial_samples(scene, gbuf, pt_cfg, seed: int, cfg: ReSTIRPTConfig, rt: int
     vals[PR.METAL] = rc_metal
     vals[PR.ROUGH] = rc_rough
     vals[PR.DIST] = torch.sqrt(torch.clamp_min(v3.dot(to, to), 1e-12))
-    phat, *_ = _phat_pt(surf, stack_rows(PR.ROWS, vals, n=n))
+    phat, *_ = _phat_pt(surf, stack_rows(PR.ROWS, vals, n=n), full=cfg.full_target,
+                        trans=trans, coat=coat)
     # the source pdf in area measure: the prefix BSDF pdf projected onto x_rc
     dist2 = torch.clamp_min(v3.dot(to, to), 1e-12)
     cos_rc = torch.clamp_min(-v3.dot(to * torch.rsqrt(dist2), n_rc), 1e-6)
@@ -365,7 +376,7 @@ def initial_samples(scene, gbuf, pt_cfg, seed: int, cfg: ReSTIRPTConfig, rt: int
     return stack_rows(PR.ROWS, vals, n=n)
 
 
-def _replay_shift(scene, surf, res_b, cfg: ReSTIRPTConfig):
+def _replay_shift(scene, surf, res_b, cfg: ReSTIRPTConfig, trans=False, coat=False):
     """Replay the candidate's first segment at the destination with its own
     random stream (SRCPIX/SRCSEED), trace it (B7) to x2', and reconnect x2'
     to the stored second vertex x3.
@@ -373,12 +384,14 @@ def _replay_shift(scene, surf, res_b, cfg: ReSTIRPTConfig):
     Returns (phat_b, w_factor, rows_b, ok_b): the area-measure target of the
     replayed path here; the factor of W_b * m_b in the resampling weight,
     J / PDFS3 with J = p_A(x2' | here) / p_A(x2 | source); the replayed
-    path's reservoir rows; and where the shift is valid.
+    path's reservoir rows; and where the shift is valid. With ``trans`` a
+    glass x2' may reconnect from its back (|cos| toward x3), and x2' and
+    x3 take their transmission lobes (x3's ior recovered from |eta3|).
     """
-    pos, ns, _ng, _wo, mat, _frame, _valid = surf
+    pos, ns, _ng, wo, mat, frame, _valid = surf
     n = res_b.shape[1]
-    o2, d2, wi, pdf_sa, live = _prefix(surf, res_b[PR.SRCPIX].to(torch.int64),
-                                       res_b[PR.SRCSEED].view(torch.int32))
+    o2, d2, wi, pdf_sa, live, wi_l = _prefix(surf, res_b[PR.SRCPIX].to(torch.int64),
+                                             res_b[PR.SRCSEED].view(torch.int32))
     live = live & (res_b[PR.HAS3] > 0.5) & (res_b[PR.PDFA] > 0.0)
     sh = intersect_closest_shaded(scene, o2, d2)
     hit = sh.valid & live
@@ -392,7 +405,8 @@ def _replay_shift(scene, surf, res_b, cfg: ReSTIRPTConfig):
     to3 = x3 - x2p
     d23_2 = torch.clamp_min(v3.dot(to3, to3), 1e-12)
     dir23 = to3 * torch.rsqrt(d23_2)
-    cos2 = v3.dot(dir23, n2)  # at x2' toward x3
+    cos2_raw = v3.dot(dir23, n2)  # at x2' toward x3
+    cos2 = torch.abs(cos2_raw) if trans else cos2_raw
     cos3 = torch.clamp_min(-v3.dot(dir23, n3), 0.0)  # at x3 toward x2'
     to_q = x2p - pos
     dq2 = torch.clamp_min(v3.dot(to_q, to_q), 1e-12)
@@ -404,14 +418,13 @@ def _replay_shift(scene, surf, res_b, cfg: ReSTIRPTConfig):
     # BSDF at x2' (in from this pixel, out to x3) and at x3 (in from x2',
     # out along the stored suffix; ior recovered from |eta3|)
     ior2 = torch.clamp_min(at[A.IOR], 1.01)
-    mat2 = S.MatSoA(base=v3.from_rows(at, A.BASE), metallic=at[A.METAL],
-                    roughness=at[A.ROUGH], ior=ior2)
+    mat2 = hit_material(at, front2, trans, coat)
     frame2 = S.make_frame(n2)
     f2, _ = S.bsdf_eval(mat2, frame2.to_local(-wi), frame2.to_local(dir23))
     eta3 = res_b[PR.ETA3]
     ior3 = torch.clamp_min(torch.maximum(eta3, 1.0 / torch.clamp_min(eta3, 1e-3)), 1.01)
-    mat3 = S.MatSoA(base=v3.from_rows(res_b, PR.B3), metallic=res_b[PR.M3],
-                    roughness=res_b[PR.R3], ior=ior3)
+    mat3 = S.material(v3.from_rows(res_b, PR.B3), res_b[PR.M3], res_b[PR.R3], ior3,
+                      *res_b[PR.TRANS3 : PR.COATR3 + 1], trans, coat)
     frame3 = S.make_frame(n3)
     f3, _ = S.bsdf_eval(mat3, frame3.to_local(-dir23), frame3.to_local(ws3))
     lout3 = le3 + f3 * ls3
@@ -419,9 +432,12 @@ def _replay_shift(scene, surf, res_b, cfg: ReSTIRPTConfig):
     # area-measure target: f1 * f2' * Lout3 * G(q, x2') * G(x2', x3)
     cos1 = v3.dot(wi, ns)
     cos_rc = torch.clamp_min(-v3.dot(wi, n2), 0.0)
-    inv_pi = 0.3183098861
-    f1 = V3((mat.base.x + 0.04) * inv_pi, (mat.base.y + 0.04) * inv_pi,
-            (mat.base.z + 0.04) * inv_pi)
+    if cfg.full_target:
+        f1, _ = S.bsdf_eval(mat, frame.to_local(wo), wi_l)
+    else:
+        inv_pi = 0.3183098861
+        f1 = V3((mat.base.x + 0.04) * inv_pi, (mat.base.y + 0.04) * inv_pi,
+                (mat.base.z + 0.04) * inv_pi)
     g_23 = cos2 * cos3 / d23_2
     phat_b = torch.clamp_min(v3.luminance(f1 * f2 * lout3) * (cos1 * cos_rc / dq2) * g_23, 0.0)
     phat_b = torch.where(ok & (cos1 > 1e-6), phat_b, 0.0)
@@ -456,7 +472,8 @@ def _replay_shift(scene, surf, res_b, cfg: ReSTIRPTConfig):
     return phat_b, w_factor, stack_rows(PR.ROWS, vals, n=n), ok
 
 
-def _merge(res_a, res_b, surf, u, cfg: ReSTIRPTConfig, m_cap=None, scene=None):
+def _merge(res_a, res_b, surf, u, cfg: ReSTIRPTConfig, m_cap=None, scene=None, trans=False,
+           coat=False):
     """Combine reservoir B into A with the hybrid shift: reconnection at x_rc
     where its conditions hold here, else (``cfg.replay`` and a ``scene``)
     the replay shift; an invalid shift contributes 0.
@@ -469,7 +486,7 @@ def _merge(res_a, res_b, surf, u, cfg: ReSTIRPTConfig, m_cap=None, scene=None):
     m_b = res_b[PR.M]
     if m_cap is not None:
         m_b = torch.clamp_max(m_b, m_cap)
-    phat_b, *_ = _phat_pt(surf, res_b)
+    phat_b, *_ = _phat_pt(surf, res_b, full=cfg.full_target, trans=trans, coat=coat)
     shift_a = _shift_valid(surf, res_b, cfg)
     if cfg.force_replay:
         shift_a = torch.zeros_like(shift_a)
@@ -477,7 +494,7 @@ def _merge(res_a, res_b, surf, u, cfg: ReSTIRPTConfig, m_cap=None, scene=None):
     w_b = torch.where(valid, phat_b * res_b[PR.W] * m_b, 0.0)
     replay = cfg.replay and scene is not None
     if replay:
-        phat_r, w_factor, rows_r, ok_r = _replay_shift(scene, surf, res_b, cfg)
+        phat_r, w_factor, rows_r, ok_r = _replay_shift(scene, surf, res_b, cfg, trans, coat)
         case_b = ~shift_a & ok_r
         phat_b = torch.where(case_b, phat_r, phat_b)
         w_b = torch.where(case_b & valid, phat_r * res_b[PR.W] * w_factor * m_b, w_b)
@@ -500,34 +517,39 @@ def _drop_m_w(res, ok):
 
 
 def temporal_reuse(res, prev_res, prev_gbuf, gbuf, prev_cam, width, height, seed,
-                   cfg: ReSTIRPTConfig, scene=None, prefetch=None):
+                   cfg: ReSTIRPTConfig, scene=None, prefetch=None, trans=False, coat=False):
     """Merge the reprojected previous-frame reservoirs (M capped at
     ``m_max``; ``scene`` enables the replay shift), then suppress outliers.
     ``prev_gbuf`` is the packed temporal G-buffer; ``prefetch`` = (prev
     reservoirs, prev packed G, inside, depth estimate) when the frame's
     joint gather already fetched them."""
-    surf = _surf(gbuf)
+    surf = _surf(gbuf, trans, coat)
     if prefetch is not None:
         prev_r, prev_g, inside, depth_est = prefetch
     else:
         idx, inside, depth_est = reproject_prev(gbuf, prev_cam, width, height)
-        src = prev_res if prev_res.shape[0] == PT_PACKED_ROWS else pack_pt(prev_res)
-        prev_p, prev_g = take_multi([src, prev_gbuf], idx)
-        prev_r = unpack_pt(prev_p)
+        if cfg.packed_reuse:
+            src = prev_res if prev_res.shape[0] == PT_PACKED_ROWS else pack_pt(prev_res)
+            prev_p, prev_g = take_multi([src, prev_gbuf], idx)
+            prev_r = unpack_pt(prev_p)
+        else:
+            prev_r, prev_g = take_multi([prev_res, prev_gbuf], idx)
     ok = inside & temporal_geom_ok(prev_g, surf[1], depth_est, cfg.depth_tolerance,
                                    cfg.normal_tolerance)
     u = uniform4(_pix(res.shape[1], res.device), 203, seed, salt=0x4A31)[0]
-    out = _merge(res, _drop_m_w(prev_r, ok), surf, u, cfg, m_cap=cfg.m_max, scene=scene)
+    out = _merge(res, _drop_m_w(prev_r, ok), surf, u, cfg, m_cap=cfg.m_max, scene=scene,
+                 trans=trans, coat=coat)
     if cfg.boiling_suppression:
         out = suppress_outlier_reservoirs(out, w_sum_row=PR.WSUM, m_row=PR.M)
     return out
 
 
-def spatial_step(res, gbuf, width, height, seed, it, cfg: ReSTIRPTConfig, scene=None):
+def spatial_step(res, gbuf, width, height, seed, it, cfg: ReSTIRPTConfig, scene=None,
+                 trans=False, coat=False):
     """One spatial-reuse iteration: merge a random neighbour within
     ``spatial_radius`` whose geometry agrees; with ``spatial_search > 1``
     the first of that many probed neighbours that agrees."""
-    surf = _surf(gbuf)
+    surf = _surf(gbuf, trans, coat)
     ns = surf[1]
     pix = _pix(res.shape[1], res.device)
     u = uniform4(pix, 204 + it, seed, salt=0x77A1)
@@ -541,24 +563,30 @@ def spatial_step(res, gbuf, width, height, seed, it, cfg: ReSTIRPTConfig, scene=
             ok_k = geom_ok_slim(gbuf, gt.index_select(1, cand), ns, cfg)
             nidx = torch.where(~found & ok_k, cand, nidx)
             found = found | ok_k
-    nb_p, nb_geom = take_multi([pack_pt(res), geom_table(gbuf)], nidx)
+    if cfg.packed_reuse:
+        nb_p, nb_geom = take_multi([pack_pt(res), geom_table(gbuf)], nidx)
+        nb = unpack_pt(nb_p)
+    else:
+        nb, nb_geom = take_multi([res, geom_table(gbuf)], nidx)
     ok = geom_ok_slim(gbuf, nb_geom, ns, cfg)
-    return _merge(res, _drop_m_w(unpack_pt(nb_p), ok), surf, u[2], cfg, scene=scene)
+    return _merge(res, _drop_m_w(nb, ok), surf, u[2], cfg, scene=scene, trans=trans, coat=coat)
 
 
-def spatial_reuse(res, gbuf, width, height, seed, cfg: ReSTIRPTConfig, scene=None):
+def spatial_reuse(res, gbuf, width, height, seed, cfg: ReSTIRPTConfig, scene=None, trans=False,
+                  coat=False):
     out = res
     for it in range(cfg.spatial_iterations):
-        out = spatial_step(out, gbuf, width, height, seed, it, cfg, scene=scene)
+        out = spatial_step(out, gbuf, width, height, seed, it, cfg, scene=scene, trans=trans,
+                           coat=coat)
     return out
 
 
-def shade(scene, res, gbuf) -> torch.Tensor:
+def shade(scene, res, gbuf, trans=False, coat=False) -> torch.Tensor:
     """Path radiance of each pixel's surviving sample after the visibility
     ray to x_rc (kernel B3): planar [3, N]."""
-    surf = _surf(gbuf)
+    surf = _surf(gbuf, trans, coat)
     pos, _ns, ng, _wo, _mat, _frame, valid = surf
-    phat, f1, lout, geom, _wi, _dist2 = _phat_pt(surf, res, full=True)
+    phat, f1, lout, geom, _wi, _dist2 = _phat_pt(surf, res, full=True, trans=trans, coat=coat)
     big_w = res[PR.W]
     lit = valid & (phat > 0.0) & (big_w > 0.0)
     so = pos + ng * _EPS_RAY

@@ -1,11 +1,19 @@
-"""SoA shading math, as the JAX package's ``ops/shading_soa.py`` for opaque materials.
+"""SoA shading math, as the JAX package's ``ops/shading_soa.py``.
 
 Lambert diffuse plus GGX reflection (height-correlated Smith, Schlick
-Fresnel) with the Kulla-Conty multiple-scattering term, its one-sample
-lobe-mixture sampler (GGX VNDF or cosine hemisphere) and the power
-heuristic, over ``V3``s of tensors. The operations follow the JAX package in the same order, so the
-two agree to float rounding. The transmission and coat lobes are not ported
-yet: ``upload_scene`` refuses materials that need them.
+Fresnel) with the Kulla-Conty multiple-scattering term, the rough
+dielectric transmission lobe (Walter 2007), the OpenPBR-style coat (a GGX
+layer that attenuates the base by its Fresnel on both directions), their
+one-sample lobe-mixture sampler (GGX VNDF, cosine hemisphere or refraction
+through the sampled half vector) and the power heuristic, over ``V3``s of
+tensors. The operations follow the JAX package in the same order, so the
+two agree to float rounding.
+
+A ``MatSoA`` field left ``None`` leaves its lobe out, as in JAX:
+``transmission`` (with ``eta``) the transmission lobe, ``coat`` (with
+``coat_roughness``) the coat. Callers pass them where the scene has such
+materials (``SceneBuffers.has_transmission`` / ``has_coat``); without them
+only the opaque lobes are evaluated, with none of the other lobes' work.
 """
 
 from __future__ import annotations
@@ -28,6 +36,33 @@ class MatSoA(NamedTuple):
     metallic: torch.Tensor
     roughness: torch.Tensor
     ior: torch.Tensor
+    # transmission weight [0, 1] and the relative IOR along the ray (eta =
+    # eta_incident / eta_transmitted: entering glass 1 / ior); None leaves
+    # the transmission lobe out
+    transmission: torch.Tensor | None = None
+    eta: torch.Tensor | None = None
+    # coat weight [0, 1] and the coat's GGX roughness; None leaves the coat out
+    coat: torch.Tensor | None = None
+    coat_roughness: torch.Tensor | None = None
+
+    def trans(self):
+        return self.transmission if self.transmission is not None else \
+            torch.zeros_like(self.metallic)
+
+    def eta_rel(self):
+        return self.eta if self.eta is not None else 1.0 / self.ior
+
+
+def material(base: V3, metallic, roughness, ior, transmission, eta, coat, coat_roughness,
+             trans: bool, coated: bool) -> MatSoA:
+    """A ``MatSoA`` with the transmission lobe (``transmission``, ``eta``)
+    only where ``trans`` and the coat (``coat``, ``coat_roughness``) only
+    where ``coated``: the scene-wide flags that the JAX package passes as
+    static ``trans``/``coat`` (``SceneBuffers.has_transmission`` /
+    ``has_coat``)."""
+    return MatSoA(base, metallic, roughness, ior,
+                  transmission=transmission if trans else None, eta=eta if trans else None,
+                  coat=coat if coated else None, coat_roughness=coat_roughness if coated else None)
 
 
 class Frame(NamedTuple):
@@ -83,6 +118,7 @@ def _g2(a2, co, ci):
 
 
 def _lobe_params(mat: MatSoA):
+    """(alpha, f0, kd, kt); kt is None where the transmission lobe is left out."""
     alpha = torch.clamp_min(mat.roughness * mat.roughness, _MIN_ALPHA)
     f0d = _f0_from_ior(mat.ior)
     m = mat.metallic
@@ -91,15 +127,27 @@ def _lobe_params(mat: MatSoA):
         f0d * (1.0 - m) + mat.base.y * m,
         f0d * (1.0 - m) + mat.base.z * m,
     )
-    return alpha, f0, mat.base * (1.0 - m)
+    if mat.transmission is None:
+        return alpha, f0, mat.base * (1.0 - m), None
+    t = mat.transmission
+    return alpha, f0, mat.base * ((1.0 - m) * (1.0 - t)), mat.base * ((1.0 - m) * t)
 
 
-def _lobe_probs(f0: V3, kd: V3, cos_o):
-    """(q_spec, q_diff): one-sample lobe selection probabilities."""
+def _lobe_probs(f0: V3, kd: V3, kt, cos_o):
+    """(q_spec, q_diff, q_trans): one-sample lobe selection probabilities
+    (q_trans None without the transmission lobe)."""
     s = v3.luminance(_fresnel(f0, cos_o))
     d = v3.luminance(kd)
-    q_s = torch.clamp(s / torch.clamp_min(s + d, 1e-8), 0.05, 1.0)
-    return q_s, 1.0 - q_s
+    if kt is None:
+        q_s = torch.clamp(s / torch.clamp_min(s + d, 1e-8), 0.05, 1.0)
+        return q_s, 1.0 - q_s, None
+    t = v3.luminance(kt)
+    tot = torch.clamp_min(s + d + t, 1e-8)
+    q_s = torch.clamp(s / tot, 0.05, 1.0)
+    q_t = t / tot * (1.0 - q_s) / torch.clamp_min(1.0 - s / tot, 1e-8)
+    q_t = torch.minimum(q_t, 1.0 - q_s)
+    q_d = torch.clamp_min(1.0 - q_s - q_t, 0.0)
+    return q_s, q_d, q_t
 
 
 def _fit_ggx_albedo_poly(deg: int = 3):
@@ -218,12 +266,76 @@ def _ms_lobe(f0: V3, rough, cos_o, cos_i) -> V3:
     return V3(ms * fres(f_avg.x), ms * fres(f_avg.y), ms * fres(f_avg.z))
 
 
-def bsdf_eval(mat: MatSoA, wo: V3, wi: V3):
-    """(f [V3], pdf) in the local frame; zero below the surface."""
-    alpha, f0, kd = _lobe_params(mat)
+_COAT_F0 = 0.04  # the coat's IOR 1.5
+
+
+def _fresnel_s(f0, cos_h):
+    m = torch.clamp(1.0 - cos_h, 0.0, 1.0)
+    m5 = (m * m) * (m * m) * m
+    return f0 + (1.0 - f0) * m5
+
+
+def _fresnel_scalar_dielectric(cos_i, eta):
+    """Exact unpolarized dielectric Fresnel; eta = eta_i / eta_t; 1 at total
+    internal reflection."""
+    cos_i = torch.clamp(cos_i, 0.0, 1.0)
+    sin2_t = eta * eta * (1.0 - cos_i * cos_i)
+    tir = sin2_t >= 1.0
+    cos_t = torch.sqrt(torch.clamp_min(1.0 - sin2_t, 0.0))
+    r_par = (cos_i - eta * cos_t) / torch.clamp_min(cos_i + eta * cos_t, 1e-8)
+    r_perp = (eta * cos_i - cos_t) / torch.clamp_min(eta * cos_i + cos_t, 1e-8)
+    f = 0.5 * (r_par * r_par + r_perp * r_perp)
+    return torch.where(tir, 1.0, torch.clamp(f, 0.0, 1.0))
+
+
+def _transmission_terms(mat: MatSoA, wo: V3, wi: V3, alpha, kt: V3):
+    """The rough dielectric BTDF (Walter 2007, pbrt's form with eta =
+    eta_i / eta_t along the ray) and its half-vector pdf for wi.z < 0:
+    (f_t, pdf_t, Fresnel, h)."""
+    eta = mat.eta_rel()
+    inv_eta = 1.0 / eta
     a2 = alpha * alpha
     cos_o = torch.clamp_min(wo.z, 1e-6)
-    q_s, q_d = _lobe_probs(f0, kd, cos_o)
+    cos_i = torch.clamp_min(-wi.z, 1e-6)
+    h = v3.normalize(wo + wi * inv_eta, eps=1e-24)
+    h = v3.where(h.z < 0.0, -h, h)
+    odoth = v3.dot(wo, h)
+    idoth = v3.dot(wi, h)
+    valid = (odoth > 1e-6) & (idoth < -1e-6)
+    dt = _ggx_d(a2, torch.clamp(h.z, 0.0, 1.0))
+    g2 = _g2(a2, cos_o, cos_i)
+    fr = _fresnel_scalar_dielectric(odoth, eta)
+    denom = odoth + inv_eta * idoth
+    denom2 = torch.clamp_min(denom * denom, 1e-12)
+    # Walter's eta_t^2 cancels against the radiance transport factor
+    scale = (
+        (1.0 - fr) * dt * g2 * torch.abs(idoth) * torch.abs(odoth)
+        / (cos_o * cos_i * denom2)
+    )
+    f_t = kt * torch.where(valid, scale, 0.0)
+    dwh_dwi = torch.abs(idoth) * (inv_eta * inv_eta) / denom2
+    pdf_t = _g1(a2, cos_o) * dt * torch.clamp_min(odoth, 0.0) / cos_o * dwh_dwi
+    return f_t, torch.where(valid, pdf_t, 0.0), fr, h
+
+
+def _coat_q(mat: MatSoA, cos_o):
+    """The coat's sampling probability (None without the coat)."""
+    if mat.coat is None:
+        return None
+    return torch.clamp(mat.coat * _fresnel_s(_COAT_F0, cos_o) * 2.0, 0.0, 0.5)
+
+
+def bsdf_eval(mat: MatSoA, wo: V3, wi: V3):
+    """(f [V3], pdf) in the local frame. wi.z > 0: [the coat's GGX layer +]
+    GGX reflection with the multiple-scattering term + Lambert diffuse
+    (diffuse and transmission split by the transmission weight); wi.z < 0:
+    the rough dielectric transmission; zero below the surface without it.
+    The coat layers by Fresnel-weighted albedo scaling:
+    f = f_coat + (1 - cw Fc(o)) (1 - cw Fc(i)) f_base."""
+    alpha, f0, kd, kt = _lobe_params(mat)
+    a2 = alpha * alpha
+    cos_o = torch.clamp_min(wo.z, 1e-6)
+    q_s, q_d, q_t = _lobe_probs(f0, kd, kt, cos_o)
     up = wi.z > 1e-6
     cos_i = torch.clamp_min(wi.z, 1e-6)
 
@@ -238,9 +350,40 @@ def bsdf_eval(mat: MatSoA, wo: V3, wi: V3):
     pdf_spec = _g1(a2, cos_o) * dt / (4.0 * cos_o)
     pdf_refl = q_s * pdf_spec + q_d * (cos_i * _INV_PI)
 
+    q_c = _coat_q(mat, cos_o)
+    if q_c is not None:
+        cw = mat.coat
+        ca = torch.clamp_min(mat.coat_roughness * mat.coat_roughness, _MIN_ALPHA)
+        ca2 = ca * ca
+        fc_o = cw * _fresnel_s(_COAT_F0, cos_o)
+        fc_i = cw * _fresnel_s(_COAT_F0, cos_i)
+        dt_c = _ggx_d(ca2, cos_h)
+        g2_c = _g2(ca2, cos_o, cos_i)
+        f_coat = cw * _fresnel_s(_COAT_F0, odoth) * dt_c * g2_c / (4.0 * cos_o * cos_i)
+        att = (1.0 - fc_o) * (1.0 - fc_i)
+        f_refl = V3(f_coat + att * f_refl.x, f_coat + att * f_refl.y, f_coat + att * f_refl.z)
+        pdf_coat = _g1(ca2, cos_o) * dt_c / (4.0 * cos_o)
+        pdf_refl = q_c * pdf_coat + (1.0 - q_c) * pdf_refl
+
     zero = torch.zeros_like(cos_o)
-    f = v3.where(up, f_refl, V3(zero, zero, zero))
-    return f, torch.where(up, pdf_refl, 0.0)
+    if kt is None:  # opaque: no transmission lobe
+        f = v3.where(up, f_refl, V3(zero, zero, zero))
+        return f, torch.where(up, pdf_refl, 0.0)
+
+    down = wi.z < -1e-6
+    f_tr, pdf_tr_h, _, _ = _transmission_terms(mat, wo, wi, alpha, kt)
+    if q_c is not None:
+        # the coat attenuates the transmitted energy on both interfaces
+        att_t = (1.0 - fc_o) * (
+            1.0 - mat.coat * _fresnel_s(_COAT_F0, torch.clamp_min(-wi.z, 1e-6))
+        )
+        f_tr = f_tr * att_t
+        pdf_tr = (1.0 - q_c) * q_t * pdf_tr_h
+    else:
+        pdf_tr = q_t * pdf_tr_h
+    f = v3.where(up, f_refl, v3.where(down, f_tr, V3(zero, zero, zero)))
+    pdf = torch.where(up, pdf_refl, torch.where(down, pdf_tr, 0.0))
+    return f, pdf
 
 
 def _cosine_hemisphere(u1, u2) -> V3:
@@ -281,18 +424,51 @@ def _ggx_vndf(wo: V3, alpha, u1, u2) -> V3:
 
 
 def bsdf_sample(mat: MatSoA, wo: V3, u1, u2, u3):
-    """Sample wi from the two-lobe mixture (GGX reflection or diffuse).
-    Returns (wi [V3], weight f*|cos|/pdf [V3], pdf)."""
-    alpha, f0, kd = _lobe_params(mat)
+    """Sample wi from the one-sample mixture {coat, GGX reflection, diffuse,
+    GGX transmission}: the coat first (probability q_c), then the base
+    mixture on u1 rescaled. Total internal reflection on a transmission pick
+    kills the sample. Returns (wi [V3], weight f*|cos|/pdf [V3], pdf)."""
+    alpha, f0, kd, kt = _lobe_params(mat)
     cos_o = torch.clamp_min(wo.z, 1e-6)
-    q_s, _ = _lobe_probs(f0, kd, cos_o)
+    q_s, _, q_t = _lobe_probs(f0, kd, kt, cos_o)
+
+    q_c = _coat_q(mat, cos_o)
+    if q_c is not None:
+        pick_coat = u1 < q_c
+        u1 = torch.clamp((u1 - q_c) / torch.clamp_min(1.0 - q_c, 1e-6), 0.0, 1.0)
+        ca = torch.clamp_min(mat.coat_roughness * mat.coat_roughness, _MIN_ALPHA)
+        h_c = _ggx_vndf(wo, ca, u2, u3)
+        wi_coat = h_c * (2.0 * v3.dot(wo, h_c)) - wo
     pick_spec = u1 < q_s
     h = _ggx_vndf(wo, alpha, u2, u3)
     wi_spec = h * (2.0 * v3.dot(wo, h)) - wo
     wi_diff = _cosine_hemisphere(u2, u3)
-    wi = v3.where(pick_spec, wi_spec, wi_diff)
+
+    if kt is None:  # opaque: two lobes (and the coat)
+        wi = v3.where(pick_spec, wi_spec, wi_diff)
+        if q_c is not None:
+            wi = v3.where(pick_coat, wi_coat, wi)
+        f, pdf = bsdf_eval(mat, wo, wi)
+        good = (pdf > 1e-12) & (wi.z > 1e-6)
+        scale = torch.where(good, torch.abs(wi.z) / torch.clamp_min(pdf, 1e-12), 0.0)
+        return wi, f * scale, torch.where(good, pdf, 0.0)
+
+    pick_trans = (u1 >= q_s) & (u1 < q_s + q_t)
+    # refraction through the sampled half vector
+    eta = mat.eta_rel()
+    odoth = v3.dot(wo, h)
+    sin2_t = eta * eta * (1.0 - odoth * odoth)
+    tir = sin2_t >= 1.0
+    cos_t = torch.sqrt(torch.clamp_min(1.0 - sin2_t, 0.0))
+    wi_trans = (h * (eta * odoth - cos_t)) - wo * eta
+
+    wi = v3.where(pick_spec, wi_spec, v3.where(pick_trans, wi_trans, wi_diff))
+    if q_c is not None:
+        wi = v3.where(pick_coat, wi_coat, wi)
+        pick_trans = pick_trans & ~pick_coat
     f, pdf = bsdf_eval(mat, wo, wi)
-    good = (pdf > 1e-12) & (wi.z > 1e-6)
+    hemi_ok = (pick_trans & (wi.z < -1e-6) & ~tir) | (~pick_trans & (wi.z > 1e-6))
+    good = (pdf > 1e-12) & hemi_ok
     scale = torch.where(good, torch.abs(wi.z) / torch.clamp_min(pdf, 1e-12), 0.0)
     return wi, f * scale, torch.where(good, pdf, 0.0)
 

@@ -13,7 +13,8 @@ clustered one. In the GI and PT frames this replaces the SkyDI-lite term
 Reservoir rows ([16, N] float32, the JAX package's layout): 0-2 wi, 3-5
 Le(wi) (sky and sun radiance, cached when the candidate is drawn), 9 w_sum,
 10 M, 11 W, 13 phat; rows 6-8 and 12 unused. Reuse gathers take the raw
-rows (SkyDI has no packed form).
+rows (SkyDI has no packed form). Every pass takes ``trans``/``coat``, the
+transmission and coat lobes of the primary hits' BSDF.
 """
 
 from __future__ import annotations
@@ -67,8 +68,8 @@ def _sun_basis(sky):
     return [[float(x) for x in v.astype(np.float32)] for v in (sun, t, b)]
 
 
-def _surf(gbuf):
-    pos, ns, ng, wo, mat, valid = surface_from_gbuf(gbuf)
+def _surf(gbuf, trans=False, coat=False):
+    pos, ns, ng, wo, mat, valid = surface_from_gbuf(gbuf, trans, coat)
     frame = S.make_frame(ns)
     return pos, ns, ng, mat, frame, frame.to_local(wo), valid
 
@@ -121,12 +122,13 @@ def _pix(n, device):
     return torch.arange(n, dtype=torch.int64, device=device)
 
 
-def initial_candidates(gbuf, sky, seed: int, cfg: SkyDIConfig) -> torch.Tensor:
+def initial_candidates(gbuf, sky, seed: int, cfg: SkyDIConfig, trans=False,
+                       coat=False) -> torch.Tensor:
     """RIS over sun-cone, cosine and BSDF direction candidates: [16, N].
     Round r draws ``uniform4(pixel, r, seed)`` with salts 0x50D1 (sun cone,
     cosine), 0x50D2 (BSDF) and 0x50D3 (the three stream picks)."""
     n = gbuf.shape[1]
-    _pos, ns, _ng, mat, frame, wo_l, valid = _surf(gbuf)
+    _pos, ns, _ng, mat, frame, wo_l, valid = _surf(gbuf, trans, coat)
     ids = _pix(n, gbuf.device)
     sun, t, b = _sun_basis(sky)
     cos_r = float(np.cos(sky.sun_angular_radius))
@@ -159,12 +161,12 @@ def initial_candidates(gbuf, sky, seed: int, cfg: SkyDIConfig) -> torch.Tensor:
 
 
 def temporal_reuse(res, prev_res, prev_gbuf, gbuf, prev_cam, width: int, height: int,
-                   seed: int, cfg: SkyDIConfig, sky) -> torch.Tensor:
+                   seed: int, cfg: SkyDIConfig, sky, trans=False, coat=False) -> torch.Tensor:
     """Merge the reprojected previous-frame direction reservoir
     (``uniform4(pixel, 0, seed, 0x50D7)``). ``prev_gbuf`` is the previous
     frame's packed temporal G-buffer."""
     n = res.shape[1]
-    pos, ns, _ng, mat, frame, wo_l, valid = _surf(gbuf)
+    pos, ns, _ng, mat, frame, wo_l, valid = _surf(gbuf, trans, coat)
     p_world = v3.aos3(pos)
     px, py, w_fwd = prev_cam.project(p_world, width, height)
     rel = p_world - torch.tensor(np.asarray(prev_cam.eye, np.float32), device=gbuf.device)
@@ -187,10 +189,10 @@ def temporal_reuse(res, prev_res, prev_gbuf, gbuf, prev_cam, width: int, height:
 
 
 def spatial_step(res, gbuf, width: int, height: int, seed: int, it: int,
-                 cfg: SkyDIConfig) -> torch.Tensor:
+                 cfg: SkyDIConfig, trans=False, coat=False) -> torch.Tensor:
     """One biased spatial merge (neighbour stream it + 64)."""
     n = res.shape[1]
-    _pos, ns, _ng, mat, frame, wo_l, valid = _surf(gbuf)
+    _pos, ns, _ng, mat, frame, wo_l, valid = _surf(gbuf, trans, coat)
     pix = _pix(n, res.device)
     nidx, u_stream = neighbor_pick(pix, width, height, seed, it + 64, cfg)
     nb, nb_geom = take_multi([res, geom_table(gbuf)], nidx)
@@ -203,12 +205,12 @@ def spatial_step(res, gbuf, width: int, height: int, seed: int, it: int,
 
 
 def spatial_step_pairwise(res, gbuf, width: int, height: int, seed: int, it: int,
-                          cfg: SkyDIConfig) -> torch.Tensor:
+                          cfg: SkyDIConfig, trans=False, coat=False) -> torch.Tensor:
     """One pairwise-MIS spatial pass (neighbour i from stream it*16 + i + 64,
     the canonical pick from ``uniform4(pixel, it*16 + 79, seed, 0x5A73)``),
     as ``ops.restir_di.spatial_step_pairwise`` with the direction target."""
     n = res.shape[1]
-    _pos, ns, _ng, mat, frame, wo_l, valid = _surf(gbuf)
+    _pos, ns, _ng, mat, frame, wo_l, valid = _surf(gbuf, trans, coat)
     pix = _pix(n, res.device)
     nbs = []
     k_eff = torch.zeros((n,), dtype=torch.float32, device=res.device)
@@ -240,7 +242,7 @@ def spatial_step_pairwise(res, gbuf, width: int, height: int, seed: int, it: int
         out = torch.where(take[None, :], nb, out)
         phat_sel = torch.where(take, phat_c_yi, phat_sel)
 
-        _pi, ns_i, _ngi, wo_i, mat_i, _vi = surface_from_gbuf(nb_g)
+        _pi, ns_i, _ngi, wo_i, mat_i, _vi = surface_from_gbuf(nb_g, trans, coat)
         frame_i = S.make_frame(ns_i)
         phat_i_yc = _phat_dir(yc_wi, yc_le, ns_i, mat_i, frame_i, frame_i.to_local(wo_i))
         num_c = m_i_count * phat_i_yc
@@ -262,11 +264,11 @@ def spatial_step_pairwise(res, gbuf, width: int, height: int, seed: int, it: int
 
 
 def spatial_reuse(res, gbuf, width: int, height: int, seed: int,
-                  cfg: SkyDIConfig) -> torch.Tensor:
+                  cfg: SkyDIConfig, trans=False, coat=False) -> torch.Tensor:
     step = spatial_step_pairwise if cfg.spatial_mis == "pairwise" else spatial_step
     out = res
     for it in range(cfg.spatial_iterations):
-        out = step(out, gbuf, width, height, seed, it, cfg)
+        out = step(out, gbuf, width, height, seed, it, cfg, trans, coat)
     return out
 
 
@@ -278,10 +280,10 @@ def shade_segments(res, gbuf):
     return v3.aos3(pos + ng * 1e-3), v3.aos3(v3.from_rows(res, 0))
 
 
-def shade(scene, res, gbuf) -> torch.Tensor:
+def shade(scene, res, gbuf, trans=False, coat=False) -> torch.Tensor:
     """Direct sky and sun radiance, f * Le * cos * W where the winning
     direction is not blocked: planar [3, N]."""
-    _pos, ns, _ng, mat, frame, wo_l, valid = _surf(gbuf)
+    _pos, ns, _ng, mat, frame, wo_l, valid = _surf(gbuf, trans, coat)
     wi, le = v3.from_rows(res, 0), v3.from_rows(res, 3)
     cos_s = torch.clamp_min(v3.dot(wi, ns), 0.0)
     f, _ = S.bsdf_eval(mat, wo_l, frame.to_local(wi))

@@ -10,7 +10,10 @@ with its sun and sky, bench.py's features frame (light-voxel-grid DI
 candidates, pairwise MIS, SkyDI, froxel volumetrics) at 256^2 as it stands
 and at 512^2 with the sun in through the box's opening, and bench.py's
 upscale_256_to_512 (ReSTIR GI, max_bounces 2, rendered at 256^2, the
-temporal upscaler to 512^2 and RCAS) beside its native 512^2 twin; and on the box
+temporal upscaler to 512^2 and RCAS) beside its native 512^2 twin, and the
+flagship on the materials box (a glass block and a clear-coated block)
+without and with ``full_target=True`` and ``packed_reuse=False`` in every
+ReSTIR config; and on the box
 split to 139,266 triangles (clustered: every ray query through B8/B9) the
 ReSTIR GI frame (max_bounces 2) and the ReSTIR PT frame (max_bounces 3) at
 256^2, each with a-trous and TAA where the frame has them -- it measures:
@@ -63,7 +66,7 @@ from .ops.skydi import SkyDIConfig
 from .ops.sky import SkyParams
 from .render import frame as F
 from .scene.camera import Camera
-from .scene.procedural import CAMERA_EYE, CAMERA_TARGET, CAMERA_VFOV, cornell_box
+from .scene.procedural import CAMERA_EYE, CAMERA_TARGET, CAMERA_VFOV, cornell_box, materials_box
 from .scene.scene import upload_scene
 from .scene.subdivide import subdivide_scene
 from .timing import card_line
@@ -106,7 +109,7 @@ LAUNCHERS = {"B1": (MK, "gbuffer"), "B2": (RD, "initial_candidates"), "B3": (XI,
              "B7": (XI, "closest_hit"), "B8": (ST, "stream_closest"),
              "B9": (ST, "occlusion_stream")}
 # the scenes of the paths: the box, and the box split past the dense limit
-SCENES = {"box": lambda: cornell_box(),
+SCENES = {"box": lambda: cornell_box(), "materials": lambda: materials_box(),
           "box139k": lambda: subdivide_scene(cornell_box(), 100_000)}
 
 
@@ -131,6 +134,10 @@ def _paths():
         "features_sun_512": ("box", cam, _features(512, (0.2, 0.45, 0.87))),
         "upscale_256_to_512": ("box", cam, _upscale(0.5)),
         "upscale_native_512": ("box", cam, _upscale(1.0)),
+        "materials_gi_512": ("materials", cam, F.RenderConfig(
+            mode="restir_gi", pt=PTConfig(max_bounces=3), **post)),
+        "materials_gi_options_512": ("materials", cam, F.RenderConfig(
+            mode="restir_gi", pt=PTConfig(max_bounces=3), **post, **_reuse_options())),
         "clustered_gi_256": ("box139k", cam, F.RenderConfig(
             width=256, height=256, mode="restir_gi", pt=PTConfig(max_bounces=2), **post)),
         "clustered_pt_256": ("box139k", cam, F.RenderConfig(
@@ -148,6 +155,13 @@ def _features(res: int, sun_dir) -> F.RenderConfig:
         restir_gi=RG.ReSTIRGIConfig(boiling_suppression=True), skydi=True,
         skydi_cfg=SkyDIConfig(spatial_mis="pairwise"), volumetrics=VL.VolumetricsConfig(),
         denoise=True, taa=True)
+
+
+def _reuse_options() -> dict:
+    """``full_target=True`` and ``packed_reuse=False`` in every ReSTIR config."""
+    kw = dict(full_target=True, packed_reuse=False)
+    return dict(restir=RD.ReSTIRConfig(**kw), restir_gi=RG.ReSTIRGIConfig(**kw),
+                restir_pt=RP.ReSTIRPTConfig(**kw))
 
 
 def _upscale(render_scale: float) -> F.RenderConfig:

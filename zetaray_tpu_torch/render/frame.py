@@ -43,6 +43,14 @@ On a clustered scene (``scene.cluster_aabb`` set) every ray query goes
 through the streaming kernels B8/B9 and the path traces through the
 wavefront ``ops.pathtracer.trace_reference``.
 
+Glass and coated materials: every pass takes ``trans =
+scene.has_transmission`` and ``coat = scene.has_coat``, as the JAX frame
+does, and shades with the transmission and coat lobes where they are set
+(SkyDI-lite, ``_sky_direct``, with the coat alone, as in JAX). The reuse
+options ``full_target`` and ``packed_reuse=False`` of the three ReSTIR
+configs act in their passes; the joint temporal gather runs only where
+every temporal pass it serves gathers packed.
+
 The JAX frame's banded gathers (``band_rows``/``band_halo``) are a TPU
 workaround and have no counterpart here: the two fields are accepted and
 have no effect, and reuse gathers read the whole previous frame.
@@ -199,8 +207,9 @@ def _sky_direct(scene, gb, sky) -> torch.Tensor:
     """The sky behind primary-miss pixels and the sun's light at the primary
     hits, through a shadow segment toward the sun in (1e-3, 1e8) (B3, or B9
     on a clustered scene): [3, N]. The GI and PT modes add it; the other
-    modes' path trace gives both."""
-    pos, ns, ng, wo, mat, valid = RD.surface_from_gbuf(gb)
+    modes' path trace gives both. The BSDF takes the coat where the scene
+    has one and, as in the JAX frame, no transmission lobe."""
+    pos, ns, ng, wo, mat, valid = RD.surface_from_gbuf(gb, coat=scene.has_coat)
     frame = S.make_frame(ns)
     sdir = V3(*(torch.full_like(gb[G.VALID], float(x)) for x in SK.sun_direction(sky)))
     cos_s = v3.dot(sdir, ns)
@@ -225,12 +234,13 @@ def _skydi(scene, gb, state, w, h, seed, cfg: RenderConfig):
     """SkyDI's direct light ([3, N]) and the pre-spatial reservoirs the next
     frame reuses."""
     sky, sd_cfg = cfg.pt.sky, cfg.skydi_cfg
-    sky_res = SD.initial_candidates(gb, sky, seed, sd_cfg)
+    mat = dict(trans=scene.has_transmission, coat=scene.has_coat)
+    sky_res = SD.initial_candidates(gb, sky, seed, sd_cfg, **mat)
     if sd_cfg.temporal and state is not None and state.sky_reservoirs is not None:
         sky_res = SD.temporal_reuse(sky_res, state.sky_reservoirs, state.gbuf, gb,
-                                    state.camera_prev, w, h, seed, sd_cfg, sky)
-    sky_sp = SD.spatial_reuse(sky_res, gb, w, h, seed, sd_cfg)
-    return SD.shade(scene, sky_sp, gb), sky_res
+                                    state.camera_prev, w, h, seed, sd_cfg, sky, **mat)
+    sky_sp = SD.spatial_reuse(sky_res, gb, w, h, seed, sd_cfg, **mat)
+    return SD.shade(scene, sky_sp, gb, **mat), sky_res
 
 
 def render_frame(scene, camera: Camera, seed: int, cfg: RenderConfig):
@@ -265,15 +275,18 @@ def render_frame_restir(scene, camera: Camera, seed: int, cfg: RenderConfig,
 
     gb = gbuffer(scene, o, d)
     lsets = build_light_sets(scene, seed)
+    mat = dict(trans=scene.has_transmission, coat=scene.has_coat)
     pt_mode = cfg.mode == "restir_pt"  # check_ported admits restir_di, restir_gi, restir_pt
     ind_cfg = cfg.restir_pt if pt_mode else cfg.restir_gi
     pack_ind, unpack_ind = (pack_pt, unpack_pt) if pt_mode else (pack_di, unpack_di)
 
-    # Joint temporal gather (GI and PT modes): the DI and indirect reservoirs
-    # and the packed temporal G-buffer reproject alike, so one reprojection
-    # and one gather serve both temporal passes.
+    # Joint temporal gather (GI and PT modes, both passes gathering packed):
+    # the DI and indirect reservoirs and the packed temporal G-buffer
+    # reproject alike, so one reprojection and one gather serve both
+    # temporal passes.
     pf_di = pf_ind = None
     if (state is not None and cfg.indirect and cfg.restir.temporal and ind_cfg.temporal
+            and cfg.restir.packed_reuse and ind_cfg.packed_reuse
             and cfg.mode in ("restir_gi", "restir_pt")):
         idx, inside, depth_est = RD.reproject_prev(gb, state.camera_prev, w, h)
         p_di, p_ind, p_g = RD.take_multi(
@@ -282,21 +295,21 @@ def render_frame_restir(scene, camera: Camera, seed: int, cfg: RenderConfig,
         pf_di = (unpack_di(p_di), p_g, inside, depth_est)
         pf_ind = (unpack_ind(p_ind), p_g, inside, depth_est)
 
-    res = RD.initial_candidates(gb, lsets, seed, rt=rt)
+    res = RD.initial_candidates(gb, lsets, seed, rt=rt, **mat)
     gi_lvg = cfg.mode == "restir_gi" and cfg.restir_gi.lvg and cfg.indirect
     lvg = None
     if cfg.restir.lvg_samples > 0 or gi_lvg:
         lvg = PL.build_light_voxel_grid(scene, camera, seed, cfg.lvg_cfg)
     if cfg.restir.lvg_samples > 0:
-        res = RD.lvg_merge(res, gb, camera, lvg, seed, cfg.restir, cfg.lvg_cfg)
+        res = RD.lvg_merge(res, gb, camera, lvg, seed, cfg.restir, cfg.lvg_cfg, **mat)
     if cfg.restir.temporal and state is not None:
         res = RD.temporal_reuse(
             res, state.reservoirs, state.gbuf, gb, state.camera_prev, w, h, seed, cfg.restir,
-            prefetch=pf_di,
+            prefetch=pf_di, **mat,
         )
     res = RD.visibility_reuse(scene, res, gb)
-    res_sp = RD.spatial_reuse(res, gb, w, h, seed, cfg.restir)
-    direct = RD.shade(scene, res_sp, gb)
+    res_sp = RD.spatial_reuse(res, gb, w, h, seed, cfg.restir, **mat)
+    direct = RD.shade(scene, res_sp, gb, **mat)
     # SkyDI: the GI and PT modes take the sky's direct light from reservoirs
     use_skydi = cfg.skydi and cfg.pt.sky is not None and cfg.mode in ("restir_gi", "restir_pt")
     sky_res = None
@@ -310,26 +323,27 @@ def render_frame_restir(scene, camera: Camera, seed: int, cfg: RenderConfig,
     indirect = None
     if cfg.indirect and pt_mode:
         ind_res = RP.initial_samples(scene, gb, pt_cfg, seed, cfg.restir_pt, rt,
-                                     light_sets=lsets)
+                                     light_sets=lsets, **mat)
         if temporal:
             ind_res = RP.temporal_reuse(
                 ind_res, state.gi_reservoirs, state.gbuf, gb, state.camera_prev, w, h, seed,
-                cfg.restir_pt, scene=scene, prefetch=pf_ind,
+                cfg.restir_pt, scene=scene, prefetch=pf_ind, **mat,
             )
-        pt_sp = RP.spatial_reuse(ind_res, gb, w, h, seed, cfg.restir_pt, scene=scene)
-        indirect = RP.shade(scene, pt_sp, gb)
+        pt_sp = RP.spatial_reuse(ind_res, gb, w, h, seed, cfg.restir_pt, scene=scene, **mat)
+        indirect = RP.shade(scene, pt_sp, gb, **mat)
     elif cfg.indirect and cfg.mode == "restir_gi":
         ind_res = RG.initial_samples(scene, gb, pt_cfg, seed, rt, light_sets=lsets,
                                      spread_angle=camera.pixel_spread_angle(h),
                                      lvg=lvg if gi_lvg else None, lvg_cam=camera,
-                                     lvg_cfg=cfg.lvg_cfg)
+                                     lvg_cfg=cfg.lvg_cfg, full_target=cfg.restir_gi.full_target,
+                                     **mat)
         if temporal:
             ind_res = RG.temporal_reuse(
                 ind_res, state.gi_reservoirs, state.gbuf, gb, state.camera_prev, w, h, seed,
-                cfg.restir_gi, prefetch=pf_ind,
+                cfg.restir_gi, prefetch=pf_ind, **mat,
             )
-        gi_sp = RG.spatial_reuse(ind_res, gb, w, h, seed, cfg.restir_gi)
-        indirect = RG.shade(scene, gi_sp, gb)
+        gi_sp = RG.spatial_reuse(ind_res, gb, w, h, seed, cfg.restir_gi, **mat)
+        indirect = RG.shade(scene, gi_sp, gb, **mat)
     elif cfg.indirect:  # restir_di: the camera rays path-traced past their first hit
         indirect = trace(scene, o, d, seed, pt_cfg, rt=rt, rows_out=True, light_sets=lsets)
     if cfg.indirect and cfg.mode != "restir_di" and cfg.pt.sky is not None and not use_skydi:

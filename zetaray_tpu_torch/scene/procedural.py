@@ -15,6 +15,8 @@ that many triangles, so the kernels can be exercised at the dense path's
 size (8192). ``multi_light_box`` adds emissive wall triangles of unequal
 power, for the alias step of WoPS NEE (the box's two light triangles have
 equal power, so their alias table never redirects a pick).
+``materials_box`` makes the tall block glass and puts the short block on a
+clear-coated white, for the transmission and coat lobes.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ CAMERA_TARGET = (0.0, 1.0, 0.0)
 CAMERA_VFOV = 45.0
 
 WHITE, RED, GREEN, LIGHT, GLOSSY = range(5)
+COATED = 5  # materials_box's short block: WHITE under a clear coat
 ROOM = (-1.02, 1.0, 1.99, -1.04, 0.99)  # x0, x1, y1, z0, z1 (the floor is y = 0)
 SYMMETRIC_ROOM = (-1.0, 1.0, 2.0, -1.0, 1.0)
 
@@ -85,7 +88,7 @@ def _box(center, half, angle_deg):
     ]
 
 
-def _base_quads(room):
+def _base_quads(room, short=WHITE):
     X0, X1, Y1, Z0, Z1 = room
     x, y, z = np.eye(3)
     cx, cz = 0.5 * (X0 + X1), 0.5 * (Z0 + Z1)
@@ -98,7 +101,7 @@ def _base_quads(room):
         (_quad((X1, hy, cz), -x, y, hy, hz), GREEN),  # right wall
         (_quad((-0.005, 1.98, -0.03), -y, z, 0.19, 0.235), LIGHT),
     ]
-    quads += [(q, WHITE) for q in _box((0.33, 0.3, 0.37), (0.3, 0.3, 0.3), -17.0)]
+    quads += [(q, short) for q in _box((0.33, 0.3, 0.37), (0.3, 0.3, 0.3), -17.0)]
     quads += [(q, GLOSSY) for q in _box((-0.35, 0.6, -0.3), (0.3, 0.6, 0.3), 17.0)]
     return quads
 
@@ -136,8 +139,13 @@ def _bisect(p, n, uv, idx):
 
 def cornell_box(subdivide_to: int | None = None, room=ROOM) -> CpuScene:
     """The procedural Cornell box (36 triangles, or ``subdivide_to``)."""
+    return _box_scene(subdivide_to, room, _materials(), WHITE)
+
+
+def _box_scene(subdivide_to, room, materials: MaterialsSoA, short: int) -> CpuScene:
+    """The box's triangles on ``materials``, the short block on material ``short``."""
     corners, mats = [], []
-    for q, m in _base_quads(room):
+    for q, m in _base_quads(room, short):
         corners += [q[[0, 1, 2]], q[[0, 2, 3]]]
         mats += [m, m]
     p = np.stack(corners)  # [T, 3, 3]
@@ -160,7 +168,6 @@ def cornell_box(subdivide_to: int | None = None, room=ROOM) -> CpuScene:
             mat = np.concatenate([mat[keep], mat[idx], mat[idx]])
 
     f32 = lambda a: np.ascontiguousarray(a, dtype=np.float32)
-    materials = _materials()
     em_mask = materials.emissive[mat].max(axis=-1) > 0.0
     return CpuScene(
         v0=f32(p[:, 0]), v1=f32(p[:, 1]), v2=f32(p[:, 2]),
@@ -211,3 +218,20 @@ def multi_light_box(subdivide_to: int | None = None) -> CpuScene:
     materials = MaterialsSoA(**grow)
     em = np.nonzero(materials.emissive[mat].max(axis=-1) > 0.0)[0].astype(np.int32)
     return dataclasses.replace(box, mat_id=mat, materials=materials, emissive_tris=em)
+
+
+def materials_box(subdivide_to: int | None = None) -> CpuScene:
+    """The box (``cornell_box(subdivide_to)``'s triangles) with the tall
+    block glass (``GLOSSY``: transmission 1, roughness 0.05, ior 1.5) and
+    the short block on ``COATED``, the walls' white under a clear coat
+    (weight 1, roughness 0.1): every lobe of the BSDF, and rays that enter
+    and leave a solid."""
+    m = _materials()
+    grow = {f.name: np.concatenate([getattr(m, f.name), getattr(m, f.name)[[WHITE]]])
+            for f in dataclasses.fields(m)}
+    grow["transmission"][GLOSSY] = 1.0
+    grow["roughness"][GLOSSY] = 0.05
+    grow["ior"][GLOSSY] = 1.5
+    grow["coat_weight"][COATED] = 1.0
+    grow["coat_roughness"][COATED] = 0.1
+    return _box_scene(subdivide_to, ROOM, MaterialsSoA(**grow), COATED)

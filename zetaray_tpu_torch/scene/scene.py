@@ -1,7 +1,8 @@
 """Flattened scene arrays and their upload to tensors.
 
-The counterpart of the JAX package's ``scene/scene.py`` for opaque scenes
-(no alpha cutout, no transmission, no coat): the same ``CpuScene`` field
+The counterpart of the JAX package's ``scene/scene.py`` (glass and coated
+materials included: ``has_transmission`` and ``has_coat`` are computed from
+the materials; no alpha cutout): the same ``CpuScene`` field
 names on the host and the same table layouts on the device -- Woop
 unit-triangle transforms ``[4, 3*Tp]``, the per-triangle attribute table
 ``A`` and the emissive table ``EA``, with the triangle and emissive counts
@@ -144,7 +145,7 @@ class EA:
 
 @dataclass(frozen=True)
 class SceneBuffers:
-    """Device-side scene (the opaque subset of the JAX ``SceneBuffers``).
+    """Device-side scene (the JAX ``SceneBuffers`` without alpha cutout).
     The cluster fields are None on a dense scene."""
 
     woop: torch.Tensor  # [4, 3*Tp] float32
@@ -338,10 +339,6 @@ def _check_supported(cpu: CpuScene):
     mats = cpu.materials
     if mats.alpha_cutoff is not None and (np.asarray(mats.alpha_cutoff) > 0).any():
         raise NotImplementedError("alpha cutout (textures) is not ported yet")
-    if (np.asarray(mats.transmission) > 0).any():
-        raise NotImplementedError("the transmission lobe is not ported yet")
-    if (np.asarray(mats.coat_weight) > 0).any():
-        raise NotImplementedError("the coat lobe is not ported yet")
 
 
 def upload_scene_arrays(cpu: CpuScene, cluster_size: int | None = None) -> dict:
@@ -440,7 +437,8 @@ def upload_scene_arrays(cpu: CpuScene, cluster_size: int | None = None) -> dict:
         em_alias=_pad_to(alias, ep), em_pdf=_pad_to(pdf, ep),
         em_area=_pad_to(em_area, ep, value=1.0), em_of_tri=em_of_tri,
         em_power=np.asarray(total_power, np.float32), num_emissives=e,
-        has_transmission=False, has_coat=False, has_cutout=False,
+        has_transmission=bool((mats.transmission > 0).any()),
+        has_coat=bool((mats.coat_weight > 0).any()), has_cutout=False,
         world_lo=np.asarray(lo, np.float32), world_hi=np.asarray(hi, np.float32),
         cluster_aabb=cluster_aabb,
     )
