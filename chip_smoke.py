@@ -31,6 +31,15 @@ Phases (any failure exits non-zero):
      closest hit with attributes
      (B7) on ReSTIR PT prefix rays built as its initial samples build them;
      B7 also on 1024^2 camera rays, as the primary-rays rate of bench.py.
+     On the textured box (procedural.textured_box: its PNG maps written
+     into TEX_DIR, the bundle after the emissive power round trip) B4 and
+     B5 on the GI bounce-0 rays of its textured G-buffer with the
+     base-colour fetch between them, as a textured trace splits a bounce,
+     and the fetch's and the G-buffer texturing's own times and launches
+     (torch.profiler); on the cutout box (procedural.cutout_box, a MASK-mode
+     panel) B7 on 512^2 camera rays in each round of the alpha-cutout
+     re-trace (a round on the rays still piercing), against its plain
+     version.
      B1, B4, B5, B6 and B7 record the real triangle count they sweep (nt)
      and B1, B4, B6 and B7 the ray-triangle pairs they test a second (B5
      the shadow segments it lets through).
@@ -79,6 +88,11 @@ Phases (any failure exits non-zero):
      ReSTIR config, and there, for the launches of the other material
      instances, the flagship with the sky and path options, the default
      frame with the sky and no sun NEE, and those with WoPS NEE; and
+     on the textured box the flagship, ReSTIR PT and the default frame, each
+     beside its twin without the bundle (over the checker's pixels darker by
+     the checker's mean within 10%), and on the cutout box the flagship and
+     the default frame (B2 and B7 alone; through the panel's transparent
+     half the G-buffer sees the back wall, on its opaque half the panel);
      the default frame at 512^2 with the firefly
      filter at 3 and the weighted-average exposure, with each tonemapper
      but the LUT's, and through a thin lens (f/2.8, 50 mm, focus 3.5);
@@ -101,7 +115,10 @@ Phases (any failure exits non-zero):
      the default frame through the thin lens with the firefly filter,
      the weighted-average exposure and AgX punchy (its LDR held too), and
      the GI (also with the reuse options), PT and default frames on the
-     materials box;
+     materials box, the GI, PT and default frames on the textured box and
+     the GI frame on the cutout box (also on its 8706-triangle split,
+     clustered); after the clustered frames, the default frame at 256^2 on
+     the cutout box split to 147,458 triangles (B2 and B8 alone);
   5. prints the kernels' record, the card line, and last a JSON status.
 
 The 512^2 images are written to IMAGE_DIR: zetaray_torch_512.png (the
@@ -111,10 +128,13 @@ zetaray_torch_512_restir_di_sky.png and _restir_di.png (the JAX app's
 default frame with and without the sky), _gi_sky.png, _pt_sky.png,
 _features_sun.png, _plain_pt_volumetrics.png, _upscale_256_to_512.png, _wops.png
 (the flagship with WoPS NEE), _restir_di_lens.png and _materials.png,
-_materials_pt.png and _materials_restir_di.png (the materials box); the clustered GI frame to
+_materials_pt.png and _materials_restir_di.png (the materials box), _textured.png,
+_textured_pt.png, _textured_restir_di.png, _cutout.png and _cutout_restir_di.png; the
+clustered GI frame to
 zetaray_torch_256_clustered.png, the clustered default frame with the sky
-to zetaray_torch_256_clustered_restir_di_sky.png and clustered ReSTIR PT to
-zetaray_torch_256_clustered_pt.png.
+to zetaray_torch_256_clustered_restir_di_sky.png, clustered ReSTIR PT to
+zetaray_torch_256_clustered_pt.png and the clustered cutout default frame to
+zetaray_torch_256_clustered_cutout_restir_di.png.
 """
 
 from __future__ import annotations
@@ -133,6 +153,7 @@ import torch
 
 
 IMAGE_DIR = "chiprun_out"
+TEX_DIR = os.path.join(IMAGE_DIR, "textures")  # the texture maps of the textured and cutout boxes
 
 # The least time the card could take (bound_ms): the larger of the work's
 # float operations over the H100 SXM's float32 rate outside the tensor cores
@@ -191,7 +212,7 @@ def lit_segments(after, before, after_no_sun=None) -> int:
 
 
 def bounce_records(scene, label, opt, cfg, st0, lsets, seed, rt, spread, n_tri, tri_bytes,
-                   set_bytes, full=True) -> dict:
+                   set_bytes, full=True, textures=None) -> dict:
     """B4 at bounce 0 on the GI bounce-0 state ``st0``, B5 after it and B6 at
     bounce 1 (and on its trace-only last bounce at 2) under ``cfg``, each
     held against its plain version (``bounce_err``) and timed, with its
@@ -202,7 +223,9 @@ def bounce_records(scene, label, opt, cfg, st0, lsets, seed, rt, spread, n_tri, 
     ``cfg.nee_mode="wops"`` the WoPS table (B5's record then holds the share
     of live rays whose pick the alias table redirects). Without ``full``
     B4 runs only as its plain version and B5 without min_nee_bounce=1:
-    the record has B5 and B6."""
+    the record has B5 and B6. With ``textures`` B5 (and B6 after it) take
+    the surface rows after the base-colour fetch (``megakernel.fetch_base``),
+    as the split bounce of a textured trace does."""
     from zetaray_tpu_torch.accel import megakernel as MK
     from zetaray_tpu_torch.timing import cuda_ms
 
@@ -234,6 +257,8 @@ def bounce_records(scene, label, opt, cfg, st0, lsets, seed, rt, spread, n_tri, 
             n * (2 * state_bytes + MK.SURF_ROWS * F32) + tri_bytes,
             nt=n_tri, hit=found.float().mean().item(), live_misses=misses4)
         r4["pairs_per_s"] = n * n_tri / (r4["ms"] * 1e-3)
+    if textures:
+        sf4_p = MK.fetch_base(textures, st4_p, sf4_p)
 
     shade = (scene, st4_p, sf4_p, lsets, 0, seed, cfg, True, rt)
     st5_p = MK.bounce_shade_plain(*shade)
@@ -313,6 +338,23 @@ def wops_bounce_records(scene, label, opt, cfg, st0, seed, rt, spread, n_tri, tr
                       f"{r['lit_segments']}" for k, r in recs.items()), flush=True)
 
 
+def device_launches(fn, top: int = 4):
+    """Kernel launches on the card of one call of fn, counted by
+    ``torch.profiler`` (copies and fills left out), after one warm-up call,
+    and its ``top`` kernels by device time: (launches, [(name, launches,
+    ms)])."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    evs = [ev for ev in prof.key_averages() if ev.device_type == torch.autograd.DeviceType.CUDA
+           and not ev.key.startswith(("Memcpy", "Memset"))]
+    evs.sort(key=lambda ev: -ev.self_device_time_total)
+    return (sum(ev.count for ev in evs),
+            [(ev.key[:60], ev.count, ev.self_device_time_total / 1e3) for ev in evs[:top]])
+
+
 def bounce_registers() -> dict:
     """What ``nvcc -Xptxas -v`` reports for each instance of B4-B6:
     {"bounce_trace" | "bounce_shade" | "bounce": {instance: text}}, the
@@ -368,6 +410,7 @@ def main() -> int:
     from zetaray_tpu_torch.accel import megakernel as MK
     from zetaray_tpu_torch.accel import stream as ST
     from zetaray_tpu_torch.accel.bvh import LEAF_SIZE
+    from zetaray_tpu_torch.ops import prelighting as PL
     from zetaray_tpu_torch.ops import restir_di as RD
     from zetaray_tpu_torch.ops import skydi as SD
     from zetaray_tpu_torch.ops import volumetrics as VL
@@ -386,9 +429,11 @@ def main() -> int:
     from zetaray_tpu_torch.scene.camera import Camera
     from zetaray_tpu_torch.ops.upscale import UpscaleConfig
     from zetaray_tpu_torch.scene.procedural import (
-        CAMERA_EYE, CAMERA_TARGET, CAMERA_VFOV, cornell_box, materials_box, multi_light_box,
+        CAMERA_EYE, CAMERA_TARGET, CAMERA_VFOV, CHECKER, PANEL, PANEL_RECT, PANEL_Z, ROOM,
+        TEX_CHECKER, cornell_box, cutout_box, materials_box, multi_light_box, textured_box,
     )
     from zetaray_tpu_torch.scene.scene import A, upload_scene
+    from zetaray_tpu_torch.scene.textures import apply_textures_to_gbuffer, load_scene_textures
     from zetaray_tpu_torch.scene.subdivide import subdivide_scene
     from zetaray_tpu_torch.timing import card_line, cuda_ms
 
@@ -692,6 +737,102 @@ def main() -> int:
         del ms, gk_m, o2m, d2m, st0m
         torch.cuda.empty_cache()
 
+    # -- phase 3 on the textured box (after the emissive power round trip, as
+    # the JAX app does it): B4 and B5 on the GI bounce-0 rays of its textured
+    # G-buffer with the base-colour fetch between them, each held against its
+    # plain version, and the fetch's own time and launches (and those of the
+    # G-buffer texturing)
+    os.makedirs(TEX_DIR, exist_ok=True)
+
+    def textured_scene(cpu_, dev_):
+        """(scene, bundle) on dev_; the emissive power round trip where the
+        bundle has an emissive map."""
+        sc_ = upload_scene(cpu_, device=dev_)
+        tex_ = load_scene_textures(cpu_, device=dev_)
+        if tex_["emissive"]:
+            sc_ = PL.apply_tri_powers(sc_, *PL.estimate_tri_power(sc_, tex_))
+        return sc_, tex_
+
+    tscene, ttex = textured_scene(textured_box(TEX_DIR), dev)
+    gk_raw = MK.gbuffer(tscene, o, d)
+    gk_t = apply_textures_to_gbuffer(gk_raw, ttex, spread)
+    o2t, d2t, _, _ = secondary_rays(gk_t, seed)
+    st0t = MK.initial_state(o2t, d2t)
+    lsets_t = MK.build_light_sets(tscene, seed)
+    tri_bytes_t = tscene.num_tris * (12 + A.WIDTH) * F32
+    recs = bounce_records(tscene, "textured36", "textures", gi_cfg, st0t, lsets_t, seed, rt,
+                          spread, tscene.num_tris, tri_bytes_t, lsets_t.numel() * F32,
+                          textures=ttex)
+    rec = record["textured36"] = {k: recs[k] for k in ("bounce_trace", "bounce_shade")}
+    st4t, sf4t = MK.bounce_trace(tscene, st0t, 0, gi_cfg, True, spread)
+    texels = sum(m.numel() for m in ttex["base"][TEX_CHECKER]) * F32
+    fetch = dict(ms=cuda_ms(lambda: MK.fetch_base(ttex, st4t, sf4t), reps=20))
+    fetch["launches"], fetch["top_kernels"] = device_launches(
+        lambda: MK.fetch_base(ttex, st4t, sf4t))
+    # the least a fetch moves: 8 rows of each ray in (uv, texture, density,
+    # cone, base colour) and 3 rows out, and the checker chain read once (its
+    # taps repeat across rays and stay in L2)
+    fetch["bound_ms"], fetch["bound_by"] = bound(0, n * (8 + 3) * F32 + texels)
+    gtex = dict(ms=cuda_ms(lambda: apply_textures_to_gbuffer(gk_raw, ttex, spread), reps=10))
+    gtex["launches"], gtex["top_kernels"] = device_launches(
+        lambda: apply_textures_to_gbuffer(gk_raw, ttex, spread))
+    rec["bounce_shade"]["fetch"] = fetch
+    rec["bounce_shade"]["gbuffer_textures"] = gtex
+    print(f"textured36 ({n} GI bounce-0 rays of the textured G-buffer, fetch between B4 and B5): "
+          + "; ".join(f"{k} {r['ms']:.4f} ms (plain {r['plain_ms']:.3f}, bound "
+                      f"{r['bound_ms']:.4f} by {r['bound_by']}), max abs err "
+                      f"{r['max_abs_err']:.3g}" for k, r in rec.items())
+          + f"; the fetch {fetch['ms']:.4f} ms in {fetch['launches']} launches (bound "
+          f"{fetch['bound_ms']:.4f} by bytes; its checker chain {texels} bytes; longest kernels "
+          f"{fetch['top_kernels']}); the G-buffer's four maps {gtex['ms']:.4f} ms in "
+          f"{gtex['launches']} launches (longest {gtex['top_kernels']})", flush=True)
+    del gk_raw, gk_t, o2t, d2t, st0t, st4t, sf4t
+
+    # B7 on the cutout box's camera rays in each round of the alpha-cutout
+    # re-trace, against its plain version on the same rays (the plain
+    # version's hits carry the re-trace on), then the re-trace through the
+    # kernel alone equal to it
+    csc, ctex = textured_scene(cutout_box(TEX_DIR), dev)
+    uncut = dataclasses.replace(csc, has_cutout=False, alpha_tex=None)
+    tri_bytes_c = csc.num_tris * (12 + A.WIDTH) * F32
+    rounds = []
+
+    def b7_round(_sc, o_, d_, t_min, t_max):
+        kern = lambda: XI.closest_hit(uncut, o_, d_, t_min, t_max)
+        plain = lambda: XI.closest_hit_plain_shaded(uncut.woop, uncut.tri_attrs, o_, d_, t_min,
+                                                    t_max)
+        k_, p_ = kern(), plain()
+        torch.cuda.synchronize()
+        for field, a_, b_ in zip(k_._fields, k_, p_):
+            if not torch.equal(a_, b_):
+                raise AssertionError(f"closest in cutout round {len(rounds)}: {field} differs "
+                                     "from the plain version")
+        m = o_.shape[0]  # a round traces the rays still piercing
+        b_ms, b_by = bound(PAIR_OPS * m * csc.num_tris, m * (6 + 4 + A.WIDTH) * F32 + tri_bytes_c)
+        rounds.append(dict(max_abs_err=0.0, ms=cuda_ms(kern, reps=10),
+                           plain_ms=cuda_ms(plain, reps=2, warmup=1), bound_ms=b_ms,
+                           bound_by=b_by, rays=m, hit=(p_.tri >= 0).float().mean().item()))
+        return p_
+
+    closest_raw, XI._closest_raw = XI._closest_raw, b7_round  # each round through b7_round
+    try:
+        sh_r = XI._closest_cutout(csc, o.contiguous(), d.contiguous(), 1e-4, MK.INF)
+    finally:
+        XI._closest_raw = closest_raw
+    sh_k = XI.intersect_closest_shaded(csc, o, d)
+    torch.cuda.synchronize()
+    for field, a_, b_ in zip(sh_k._fields, sh_k, sh_r):
+        if not torch.equal(a_, b_):
+            raise AssertionError(f"the cutout re-trace: {field} differs from the plain rounds'")
+    record["cutout36"] = {"closest": dict(rounds[0], rounds=rounds)}
+    print(f"cutout36 ({n} camera rays, {len(rounds)} of at most {XI.CUTOUT_ROUNDS} rounds of the "
+          f"re-trace): closest " + "; ".join(
+              f"round {i} on {r['rays']} rays {r['ms']:.4f} ms (plain {r['plain_ms']:.3f}, bound "
+              f"{r['bound_ms']:.4f} by {r['bound_by']}, {r['hit']:.4f} hit)"
+              for i, r in enumerate(rounds))
+          + "; every round equal to the plain version, the re-trace too", flush=True)
+    del uncut, sh_r, sh_k
+
     # -- phase 3 on the clustered box: B8 and B9 against their plain versions
     big_cpu = subdivide_scene(cornell_box(), 100_000)
     t_up = time.perf_counter()
@@ -799,11 +940,12 @@ def main() -> int:
     di_kernels = ("gbuffer", "ris", "occlusion")
     dense_kernels = ("gbuffer", "occlusion", "bounce_trace", "bounce_shade", "bounce", "closest")
 
-    def chain(cfg_, cam_, expect, frames=4, restir=True, sc=None, absent=()):
-        """Render chained frames on ``sc`` (default: the box) with the launch
-        counts set to 0 just before and read just after; the kernels of
-        ``expect`` must have launched, those of ``absent`` not. Returns
-        (last output, each frame's ms, counts)."""
+    def chain(cfg_, cam_, expect, frames=4, restir=True, sc=None, absent=(), textures=None):
+        """Render chained frames on ``sc`` (default: the box), with the
+        texture bundle ``textures``, the launch counts set to 0 just before
+        and read just after; the kernels of ``expect`` must have launched,
+        those of ``absent`` not. Returns (last output, each frame's ms,
+        counts)."""
         sc = scene if sc is None else sc
         for fn in kernels_of.values():
             fn.launches = 0
@@ -811,7 +953,8 @@ def main() -> int:
         for k in range(frames):
             t = time.perf_counter()
             if restir:
-                out_, state = render_frame_restir(sc, cam_.with_jitter(k), seed + k, cfg_, state)
+                out_, state = render_frame_restir(sc, cam_.with_jitter(k), seed + k, cfg_, state,
+                                                  textures=textures)
             else:
                 out_ = render_frame(sc, cam_.with_jitter(k), seed + k, cfg_)
             torch.cuda.synchronize()
@@ -1019,6 +1162,83 @@ def main() -> int:
                   mat_paths[tag][0]["ldr"].cpu().numpy())
     del mscene
 
+    # the textured box after the emissive power round trip: the flagship,
+    # ReSTIR PT and the default frame, each beside its twin without the
+    # bundle. Textured, the default frame's path trace splits every bounce
+    # (B4, the fetch, B5: no B6) and ReSTIR PT's suffix trace (no bounce
+    # past x3 at max_bounces=3) is B4 alone. Over the pixels of the checker
+    # (the floor and the back wall) each is darker than its twin by the
+    # checker's mean
+    tex_kernels = {
+        "flagship": (gi_kernels, ()),
+        "ReSTIR PT": (("gbuffer", "ris", "occlusion", "bounce_trace", "closest"),
+                      ("bounce_shade", "bounce")),
+        "default restir_di": (("gbuffer", "ris", "occlusion", "bounce_trace", "bounce_shade"),
+                              ("bounce",)),
+    }
+    tex_cfgs = {"flagship": RenderConfig(width=res, height=res, **flagship),
+                "ReSTIR PT": RenderConfig(width=res, height=res, **pt_frame),
+                "default restir_di": RenderConfig(**app, pt=PTConfig(max_bounces=4))}
+    checker_px = (MK.gbuffer(tscene, o_l, d_l)[MK.G.MATID] == CHECKER).reshape(res, res)
+    checker_mean = ttex["base"][TEX_CHECKER][0][..., :3].mean().item()
+    tex_paths, darker = {}, {}
+    for tag, cfg_ in tex_cfgs.items():
+        tex_paths[tag] = chain(cfg_, cam, tex_kernels[tag][0], sc=tscene,
+                               absent=tex_kernels[tag][1], textures=ttex)
+        show(f"textured box 512^2: {tag}", *tex_paths[tag][1:])
+        twin = chain(cfg_, cam, (), sc=tscene)
+        show(f"textured box 512^2: {tag}, its twin without the bundle", *twin[1:])
+        lum_t, lum_0 = (p_[0]["hdr"].sum(-1)[checker_px].mean().item() for p_ in (tex_paths[tag],
+                                                                                   twin))
+        darker[tag] = lum_t / lum_0
+    print(f"textured box at 512^2: over the {int(checker_px.sum().item())} checker pixels each "
+          f"textured frame over its twin {darker}; the checker's mean {checker_mean:.6f}",
+          flush=True)
+    for tag, ratio in darker.items():
+        if abs(ratio / checker_mean - 1.0) > 0.1:
+            raise AssertionError(f"the textured {tag} frame is not darker by the checker's mean")
+    for name, tag in (("_textured", "flagship"), ("_textured_pt", "ReSTIR PT"),
+                      ("_textured_restir_di", "default restir_di")):
+        write_png(os.path.join(IMAGE_DIR, f"zetaray_torch_512{name}.png"),
+                  tex_paths[tag][0]["ldr"].cpu().numpy())
+    for name in ("bounce_trace", "bounce_shade"):
+        record["textured36"][name]["launches"] = tex_paths["flagship"][2][name]
+
+    # the cutout box: the flagship and the default frame, every ray query the
+    # re-trace (B7 a round) and every path trace the wavefront: B2 and B7
+    # alone of the kernels. Through the panel's transparent half the
+    # G-buffer sees the back wall, on its opaque half the panel
+    cut_kernels = ("gbuffer", "occlusion", "bounce_trace", "bounce_shade", "bounce")
+    cut_paths = {}
+    for tag, cfg_ in (("flagship", tex_cfgs["flagship"]),
+                      ("default restir_di", tex_cfgs["default restir_di"])):
+        cut_paths[tag] = chain(cfg_, cam, ("ris", "closest"), sc=csc, absent=cut_kernels,
+                               textures=ctex)
+        show(f"cutout box 512^2: {tag}", *cut_paths[tag][1:])
+    record["cutout36"]["closest"]["launches"] = cut_paths["flagship"][2]["closest"]
+    gk_c = MK.gbuffer(csc, o, d)
+    t_pl = (PANEL_Z - o[:, 2]) / d[:, 2]
+    px, py = o[:, 0] + t_pl * d[:, 0], o[:, 1] + t_pl * d[:, 1]
+    x0, x1, y0, y1 = PANEL_RECT
+    m_ = 0.05  # off the panel's edges and its seam at x = 0
+    inside = (px > x0 + m_) & (px < x1 - m_) & (py > y0 + m_) & (py < y1 - m_)
+    unblocked = inside & (gk_c[MK.G.DEPTH] > t_pl * (1.0 - 1e-4))  # no block in front
+    clear, opaque = unblocked & (px < -m_), unblocked & (px > m_)
+    wall_err = (gk_c[MK.G.POS + 2][clear] - ROOM[3]).abs().max().item()
+    panel_err = ((gk_c[MK.G.DEPTH][opaque] - t_pl[opaque]).abs() / t_pl[opaque]).max().item()
+    on_panel = (gk_c[MK.G.MATID][opaque] == PANEL).float().mean().item()
+    print(f"cutout box G-buffer at 512^2: {int(clear.sum().item())} pixels through the panel's "
+          f"transparent half see the back wall (z error {wall_err:.3g}), "
+          f"{int(opaque.sum().item())} on its opaque half the panel (relative depth error "
+          f"{panel_err:.3g}, {on_panel:.4f} of them on its material)", flush=True)
+    if (clear.sum().item() < 1000 or opaque.sum().item() < 1000 or wall_err > 1e-3
+            or panel_err > 1e-4 or on_panel < 1.0):
+        raise AssertionError("the cutout panel does not show as it should")
+    for name, tag in (("_cutout", "flagship"), ("_cutout_restir_di", "default restir_di")):
+        write_png(os.path.join(IMAGE_DIR, f"zetaray_torch_512{name}.png"),
+                  cut_paths[tag][0]["ldr"].cpu().numpy())
+    del gk_c
+
     # the JAX app's default frame with the display options: the firefly
     # filter at 3 with the weighted-average exposure, each tonemapper but
     # the LUT's (AgX is the default frame above), and a thin lens
@@ -1141,6 +1361,23 @@ def main() -> int:
               out_cl_rpt["ldr"].cpu().numpy())
     del big
     torch.cuda.empty_cache()
+    # the box with the masked panel split like the large box (clustered):
+    # the default frame at 256^2, every query the re-trace through B8, so no
+    # B9 and no dense kernel
+    cut_big_cpu = subdivide_scene(cutout_box(TEX_DIR), 100_000)
+    big_cut = upload_scene(cut_big_cpu, device=dev)
+    if big_cut.cluster_aabb is None or not big_cut.has_cutout:
+        raise AssertionError("the large cutout box is not a clustered cutout scene")
+    out_cc, times_cc, counts_cc = chain(
+        RenderConfig(width=res_c, height=res_c, mode="restir_di", taa=True,
+                     pt=PTConfig(max_bounces=4)), cam, ("ris", "stream_closest"), sc=big_cut,
+        absent=dense_kernels + ("occlusion_stream",), textures=ctex)
+    show(f"clustered cutout default frame 256^2 ({cut_big_cpu.num_tris} triangles)", times_cc,
+         counts_cc)
+    write_png(os.path.join(IMAGE_DIR, "zetaray_torch_256_clustered_cutout_restir_di.png"),
+              out_cc["ldr"].cpu().numpy())
+    del big_cut
+    torch.cuda.empty_cache()
 
     # two chained 64^2 frames, GI and PT on the box and GI on the box split to
     # 8706 triangles (clustered), then the JAX app's default frame with its
@@ -1160,6 +1397,8 @@ def main() -> int:
     # the display options act after the HDR: that frame is also held on
     # its LDR, each channel within one level of the CPU's
     cams_64 = {"restir_di lens + display options": lens}
+    tex_box, cut_box = textured_box(TEX_DIR), cutout_box(TEX_DIR)
+    app_64_plain = dict(mode="restir_di", taa=True, pt=PTConfig(max_bounces=4))
     for tag, base, cpu_scene in (("GI", flagship, cornell_box()), ("PT", pt_frame, cornell_box()),
                                  ("clustered GI", large, box_8706),
                                  ("restir_di sky", app_64, cornell_box()),
@@ -1178,17 +1417,26 @@ def main() -> int:
                                  ("GI materials, full_target + packed_reuse=False",
                                   {**flagship, **reuse_opts}, materials_box()),
                                  ("PT materials", pt_frame, materials_box()),
-                                 ("restir_di materials", app_64, materials_box())):
+                                 ("restir_di materials", app_64, materials_box()),
+                                 ("GI textured", flagship, tex_box),
+                                 ("PT textured", pt_frame, tex_box),
+                                 ("restir_di textured", app_64_plain, tex_box),
+                                 ("GI cutout", flagship, cut_box),
+                                 ("clustered GI cutout", large, subdivide_scene(cut_box, 8193))):
         small = RenderConfig(width=64, height=64, **base)
         cam_ = cams_64.get(tag, cam)
         outs = {}
         for dv in ("cuda", "cpu"):
-            sc = upload_scene(cpu_scene, device=dv)
+            if cpu_scene.texture_paths:
+                sc, tex = textured_scene(cpu_scene, dv)
+            else:
+                sc, tex = upload_scene(cpu_scene, device=dv), None
             if (sc.cluster_aabb is not None) != tag.startswith("clustered"):
                 raise AssertionError(f"64^2 {tag}: the scene is not uploaded as expected")
             state = None
             for k in range(2):
-                out_s, state = render_frame_restir(sc, cam_.with_jitter(k), seed + k, small, state)
+                out_s, state = render_frame_restir(sc, cam_.with_jitter(k), seed + k, small, state,
+                                                   textures=tex)
             outs[dv] = out_s
         gpu_hdr, cpu_hdr = outs["cuda"]["hdr"].cpu(), outs["cpu"]["hdr"]
         close = ((gpu_hdr - cpu_hdr).abs() <= 1e-3 * (1 + cpu_hdr.abs())).all(-1)
@@ -1228,11 +1476,16 @@ def main() -> int:
             launches_of, rec_of = launches_pt if name == "closest" else launches, record["cornell36"]
         mats = {k: record[k][name] for k in ("materials36", "materials8192")
                 if name in record[k]}
+        # the textured box's split bounce (B4, B5) and the cutout re-trace
+        # (B7 its rounds on the box, B8 on the large cutout box's frame)
+        paths = {k: record[k][name] for k in ("textured36", "cutout36") if name in record[k]}
+        if name == "stream_closest":
+            paths["cutout147k"] = {"launches": counts_cc[name]}
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": launches_of[name], **rec_of[name], "library_ms": None,
             **({"registers": registers[name]} if name in registers else {}),
-            **({"materials": mats} if mats else {}),
+            **({"materials": mats} if mats else {}), **paths,
         })
     print(json.dumps({"kernels": kernels}))
     print(card)

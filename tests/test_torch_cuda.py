@@ -727,3 +727,130 @@ def test_card_materials_frames_match_cpu_frames(cuda, name):
     close = ((got - want).abs() <= 1e-3 * (1 + want.abs())).all(-1)
     assert close.float().mean() >= 0.99
     assert abs(got.mean() - want.mean()) <= 0.02 * want.mean()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("subdivide", [None, 2000])
+def test_split_textured_bounce_matches_cpu(cuda, tmp_path, subdivide):
+    """The split bounce of a textured trace, B4, the base-colour fetch and
+    B5, on the card against their plain versions on the CPU, on the textured
+    box's GI bounce-0 rays (made on the CPU, so both sides take the same
+    inputs); then the whole textured trace."""
+    from zetaray_tpu_torch.scene.procedural import textured_box
+    from zetaray_tpu_torch.scene.textures import load_scene_textures
+
+    cpu_scene = textured_box(tmp_path, subdivide_to=subdivide)
+    cfg = PTConfig(max_bounces=3, min_emissive_bounce=1)
+    spread = 0.004
+    cpu = torch.device("cpu")
+    scene_p, scene_k = (upload_scene(cpu_scene, device=x) for x in (cpu, cuda))
+    tex_p, tex_k = (load_scene_textures(cpu_scene, device=x) for x in (cpu, cuda))
+    _, o, d = _rays(cpu)
+    o2, d2, _, _ = secondary_rays(MK.gbuffer(scene_p, o, d), SEED)
+    lsets = MK.build_light_sets(scene_p, SEED)
+    rt = pick_rt(o.shape[0])
+    k = lambda x: x.to(cuda)
+    st0 = MK.initial_state(o2, d2)
+    st, surf = MK.bounce_trace(scene_k, k(st0), 0, cfg, True, spread)
+    st_p, surf_p = MK.bounce_trace_plain(scene_p, st0, 0, cfg, True, spread)
+    found = st_p[13] > 0.5
+    assert _close_rays(st.cpu(), st_p) == 1.0 and _close_rays(surf.cpu(), surf_p) == 1.0
+    surf_t = MK.fetch_base(tex_k, k(st_p), k(surf_p)).cpu()
+    surf_tp = MK.fetch_base(tex_p, st_p, surf_p)
+    assert _close_rays(surf_t, surf_tp) == 1.0
+    assert (surf_tp[9:12, found] != surf_p[9:12, found]).any(0).float().mean() > 0.1
+    st5 = MK.bounce_shade(scene_k, k(st_p), k(surf_tp), k(lsets), 0, SEED, cfg, True, rt).cpu()
+    st5_p = MK.bounce_shade_plain(scene_p, st_p, surf_tp, lsets, 0, SEED, cfg, True, rt)
+    assert _close_rays(st5[:, found], st5_p[:, found]) >= 0.999
+    assert _close_rays(st5, st5_p, [9, 10, 11, 13]) >= 0.999
+    rad = MK.trace_megakernel(scene_k, k(o2), k(d2), SEED, cfg, rt=rt, rows_out=True,
+                              light_sets=k(lsets), textures=tex_k, spread_angle=spread).cpu()
+    rad_p = MK.trace_megakernel(scene_p, o2, d2, SEED, cfg, rt=rt, rows_out=True,
+                                light_sets=lsets, textures=tex_p, spread_angle=spread)
+    close = ((rad - rad_p).abs() <= 1e-3 * (1 + rad_p.abs())).all(0)
+    assert close.float().mean() >= 0.99
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster_size", [0, 128])
+def test_cutout_retrace_matches_plain(cuda, tmp_path, monkeypatch, cluster_size):
+    """The alpha-cutout re-trace on the card (B7 each round on the dense
+    cutout box, B8 on its 546-triangle split clustered by 128) against the
+    same on the CPU (the plain versions) on the same camera rays: every hit
+    and occlusion flag equal; B7 launches once a round, as many rounds as
+    the CPU's re-trace runs (two: through the panel's transparent half to
+    the back wall)."""
+    from zetaray_tpu_torch.scene.procedural import cutout_box
+
+    cpu_scene = cutout_box(tmp_path)
+    if cluster_size:
+        cpu_scene = subdivide_scene(cpu_scene, 500)
+    _, o, d = _rays(torch.device("cpu"))
+    seg = torch.tensor([0.0, -0.2, -6.0]).expand_as(d).contiguous()
+    rounds = []
+
+    closest_raw = XI._closest_raw
+
+    def counted(*args):
+        rounds.append(args[1].shape[0])
+        return closest_raw(*args)
+
+    with monkeypatch.context() as patch:
+        patch.setattr(XI, "_closest_raw", counted)
+        XI._closest_cutout(upload_scene(cpu_scene, device="cpu", cluster_size=cluster_size), o,
+                           d, 1e-4, MK.INF)
+    assert len(rounds) == 2 and rounds[1] < rounds[0] // 4
+    got = {}
+    for dev in (cuda, torch.device("cpu")):
+        scene = upload_scene(cpu_scene, device=dev, cluster_size=cluster_size)
+        assert scene.has_cutout
+        o_, d_, seg_ = (x.to(dev) for x in (o, d, seg))
+        before = XI.closest_hit.launches
+        sh = XI.intersect_closest_shaded(scene, o_, d_)
+        launched = XI.closest_hit.launches - before
+        occ = XI.intersect_occluded(scene, o_, seg_, 1e-3, 1.0)
+        gb = MK.gbuffer(scene, o_, d_)
+        got[dev.type] = ([x.cpu() for x in sh] + [occ.cpu(), gb.cpu()], launched)
+    (k, launched), (p, _) = got["cuda"], got["cpu"]
+    assert launched == (0 if cluster_size else len(rounds))
+    for a, b in zip(k[:-1], p[:-1]):
+        assert torch.equal(a, b)
+    torch.testing.assert_close(k[-1], p[-1], rtol=1e-5, atol=1e-5)  # the G-buffer rows
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["textured_gi", "textured_pt", "textured_di", "cutout_gi",
+                                  "cutout_di", "cutout_clustered_gi"])
+def test_card_textured_and_cutout_frames_match_cpu_frames(cuda, tmp_path, name):
+    """Two chained 32^2 frames on the card and on the CPU: the textured box
+    with its bundle after the emissive round trip (GI, ReSTIR PT, the
+    default restir_di frame) and the cutout box (GI and the default frame;
+    GI also on its 8706-triangle split, clustered)."""
+    from zetaray_tpu_torch.ops import prelighting as PL
+    from zetaray_tpu_torch.scene.procedural import cutout_box, textured_box
+    from zetaray_tpu_torch.scene.textures import load_scene_textures
+
+    kind, mode = name.split("_", 1)
+    mode = "restir_" + mode.rsplit("_", 1)[-1]
+    cpu_scene = (textured_box if kind == "textured" else cutout_box)(tmp_path)
+    if "clustered" in name:
+        cpu_scene = subdivide_scene(cpu_scene, 8193)
+    cfg = RenderConfig(width=32, height=32, mode=mode, denoise=mode != "restir_di", taa=True,
+                       pt=PTConfig(max_bounces=4 if mode == "restir_di" else 3))
+    cam, _, _ = _rays(cuda)
+    outs = {}
+    for dev in ("cpu", cuda):
+        scene = upload_scene(cpu_scene, device=dev)
+        assert (scene.cluster_aabb is not None) == ("clustered" in name)
+        tex = load_scene_textures(cpu_scene, device=dev)
+        if kind == "textured":
+            scene = PL.apply_tri_powers(scene, *PL.estimate_tri_power(scene, tex))
+        state = None
+        for k in range(2):
+            out, state = render_frame_restir(scene, cam.with_jitter(k), SEED + k, cfg, state,
+                                             textures=tex)
+        outs[str(dev)] = out["hdr"].cpu()
+    got, want = outs[str(cuda)], outs["cpu"]
+    assert torch.isfinite(got).all() and got.mean() > 0
+    close = ((got - want).abs() <= 1e-3 * (1 + want.abs())).all(-1)
+    assert close.float().mean() >= 0.99

@@ -178,13 +178,19 @@ def test_materials_box_scene():
 
 
 def test_cutout_still_refused():
+    """Alpha cutout is ported (tests/test_torch_cutout.py); what stays
+    refused is a cutout without an alpha atlas. MASK-mode materials without
+    a base-colour map give no atlas, so the upload, as the JAX one, gives a
+    scene without cutout; a scene that claims cutout without an atlas is
+    refused."""
     cpu = P.materials_box()
     cut = dataclasses.replace(cpu, materials=dataclasses.replace(
         cpu.materials, alpha_cutoff=np.full(6, 0.5, np.float32)))
-    with pytest.raises(NotImplementedError, match="alpha cutout"):
-        TSC.upload_scene(cut, device="cpu")
+    jdev, tdev = scene_pair(cut)
+    assert not tdev.has_cutout and not jdev.has_cutout and tdev.alpha_tex is None
+    np.testing.assert_array_equal(tdev.tri_attrs.numpy(), np.asarray(jdev.tri_attrs))
     arrays = jax_scene_arrays(scene_pair(cpu)[0])
-    with pytest.raises(NotImplementedError, match="cutout"):
+    with pytest.raises(ValueError, match="alpha atlas"):
         interop.scene_from_arrays({**arrays, "has_cutout": True}, device="cpu")
 
 

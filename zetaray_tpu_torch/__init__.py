@@ -26,11 +26,14 @@ unless told otherwise (``native.default_device``).
 
 Package layout mirrors the JAX package:
   core/    pcg4d, SoA vectors, packing, sampling, transforms
-  scene/   host scene arrays, upload, procedural Cornell box, camera
-  accel/   G-buffer, occlusion, closest-hit and path bounce kernels
+  scene/   host scene arrays, upload (with the alpha atlas of cutout
+           materials), procedural Cornell boxes, camera, textures
+  accel/   G-buffer, occlusion, closest-hit and path bounce kernels, the
+           alpha-cutout re-trace around the closest hits
   ops/     lights, shading, the path tracer, ReSTIR DI, GI and PT,
            packing, denoise, TAA, post
   render/  the frames
+  utils/   the PNG reader and writer
   profile  where a frame's time goes on the card
   kernel_ab  B1 and B3-B9 against another commit's kernels on the card
   timing   CUDA-event medians and the card's name and power limit

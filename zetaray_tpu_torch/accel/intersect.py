@@ -16,7 +16,13 @@ all blocked skips a chunk, and a block leaves once all its rays are.
 
 On a clustered scene ``intersect_occluded`` and ``intersect_closest_shaded``
 dispatch to the streaming kernels B9 and B8 (``accel.stream``), as the JAX
-package's do.
+package's do. On a scene with MASK-mode materials (``scene.has_cutout``)
+both run the alpha-cutout re-trace of the JAX package: up to
+``CUTOUT_ROUNDS`` closest-hit queries (B7 on a dense scene, B8 on a
+clustered one), each testing its hits against the alpha atlas
+(``_hit_alpha``) and moving the rays that hit a transparent texel on past
+their hit (``_closest_cutout``, ``_occluded_cutout``); a round traces only
+the rays still piercing.
 
 ``closest_hit`` replaces ``_closest_kernel`` (``accel/pallas_kernels.py``,
 launched by ``closest_hit_pallas``) with ``csrc/closest.cu``: the closest
@@ -63,6 +69,13 @@ def occlusion_plain(woop: torch.Tensor, o: torch.Tensor, d: torch.Tensor, t_min,
     return occ
 
 
+def _check_uncut(scene, name: str, instead: str) -> None:
+    """The raw queries test no alpha: a cutout scene ``instead``."""
+    if scene.has_cutout:
+        raise ValueError(f"{name} tests no alpha and takes scenes without cutout only; "
+                         f"a cutout scene {instead}")
+
+
 def occlusion(scene, o: torch.Tensor, d: torch.Tensor, t_min=1e-4, t_max=INF):
     """Any-hit query of rays or segments o, d [N, 3] in (t_min, t_max)
     against the scene's dense Woop table: bool [N].
@@ -70,9 +83,11 @@ def occlusion(scene, o: torch.Tensor, d: torch.Tensor, t_min=1e-4, t_max=INF):
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel,
     which sweeps the ``scene.num_tris`` real triangles only (the pad slots
     past them are all-zero Woop rows, which never hit) and needs t_min >= 0.
-    A clustered scene raises: it takes ``intersect_occluded`` (B9).
+    A clustered scene raises: it takes ``intersect_occluded`` (B9); so does
+    a cutout scene, whose any-hit query is the re-trace.
     """
     _check_dense(scene, "occlusion", "takes intersect_occluded (kernel B9)")
+    _check_uncut(scene, "occlusion", "takes intersect_occluded (the cutout re-trace)")
     if o.device.type == "cpu":
         return occlusion_plain(scene.woop, o, d, t_min, t_max)
     n = o.shape[0]
@@ -98,9 +113,12 @@ occlusion.launches = 0
 
 def intersect_occluded(scene, o: torch.Tensor, d: torch.Tensor, t_min=1e-4, t_max=None):
     """Occlusion against the scene's triangles: B9 on a clustered scene
-    (``accel.stream``), B3 on a dense one."""
+    (``accel.stream``), B3 on a dense one; on a cutout scene the re-trace
+    (``_occluded_cutout``)."""
     t_max = INF if t_max is None else t_max
     o, d = o.contiguous(), d.contiguous()
+    if scene.has_cutout:
+        return _occluded_cutout(scene, o, d, t_min, t_max)
     if scene.cluster_aabb is not None:
         from .stream import occlusion_stream
 
@@ -120,6 +138,15 @@ class ShadedHit(NamedTuple):
     @property
     def valid(self):
         return self.tri >= 0
+
+
+def hit_uv(sh: ShadedHit):
+    """The texture coordinates (u, v) [N] at each hit, interpolated from
+    its attribute rows by its barycentrics (0 at a miss)."""
+    at = sh.attrs
+    w0 = 1.0 - sh.u - sh.v
+    return (w0 * at[A.UV0] + sh.u * at[A.UV1] + sh.v * at[A.UV2],
+            w0 * at[A.UV0 + 1] + sh.u * at[A.UV1 + 1] + sh.v * at[A.UV2 + 1])
 
 
 def tie_chunk(tp: int) -> int:
@@ -148,9 +175,16 @@ def closest_hit(scene, o, d, t_min=1e-4, t_max=INF) -> ShadedHit:
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel,
     which sweeps the ``scene.num_tris`` real triangles only (the pad slots
     past them are all-zero Woop rows, which never hit). A clustered scene
-    raises: it takes ``intersect_closest_shaded`` (B8).
+    raises: it takes ``intersect_closest_shaded`` (B8); so does a cutout
+    scene, whose closest hit is the re-trace.
     """
     _check_dense(scene, "closest_hit", "takes intersect_closest_shaded (kernel B8)")
+    _check_uncut(scene, "closest_hit", "takes intersect_closest_shaded (the cutout re-trace)")
+    return _closest_dense(scene, o, d, t_min, t_max)
+
+
+def _closest_dense(scene, o, d, t_min, t_max) -> ShadedHit:
+    """``closest_hit`` without the checks of the scene's kind."""
     if o.device.type == "cpu":
         return closest_hit_plain_shaded(scene.woop, scene.tri_attrs, o, d, t_min, t_max)
     n = o.shape[0]
@@ -180,14 +214,117 @@ def closest_hit(scene, o, d, t_min=1e-4, t_max=INF) -> ShadedHit:
 closest_hit.launches = 0
 
 
-def intersect_closest_shaded(scene, o: torch.Tensor, d: torch.Tensor, t_min=1e-4,
-                             t_max=INF) -> ShadedHit:
-    """Closest hit with attributes against the scene's triangles: B8 and
-    its Moller-Trumbore epilogue on a clustered scene (``accel.stream``), B7
-    on a dense one."""
-    o, d = o.contiguous(), d.contiguous()
+def _closest_raw(scene, o, d, t_min, t_max) -> ShadedHit:
+    """The closest hit with attributes, no alpha test: B8 and its
+    Moller-Trumbore epilogue on a clustered scene, B7 on a dense one."""
     if scene.cluster_aabb is not None:
         from .stream import closest_hit_stream_shaded
 
         return closest_hit_stream_shaded(scene, o, d, t_min, t_max)
-    return closest_hit(scene, o, d, t_min, t_max)
+    return _closest_dense(scene, o, d, t_min, t_max)
+
+
+def intersect_closest_shaded(scene, o: torch.Tensor, d: torch.Tensor, t_min=1e-4,
+                             t_max=INF) -> ShadedHit:
+    """Closest hit with attributes against the scene's triangles: B8 and
+    its Moller-Trumbore epilogue on a clustered scene (``accel.stream``), B7
+    on a dense one; on a cutout scene the re-trace (``_closest_cutout``)."""
+    o, d = o.contiguous(), d.contiguous()
+    if scene.has_cutout:
+        return _closest_cutout(scene, o, d, t_min, t_max)
+    return _closest_raw(scene, o, d, t_min, t_max)
+
+
+# ---------------------------------------------------------------------------
+# Alpha cutout: the re-trace around the closest-hit queries
+# ---------------------------------------------------------------------------
+
+CUTOUT_ROUNDS = 4  # the most transparent layers a query pierces
+
+
+def _hit_alpha(scene, sh: ShadedHit):
+    """(passes [N] bool, has_mask [N] bool) at each hit: the nearest texel
+    (wrap addressing) of the hit's atlas layer against its material's
+    cutoff; True where the hit has no mask (or no hit)."""
+    at = sh.attrs
+    u, v = hit_uv(sh)
+    cutoff = at[A.ACUT]
+    slot = at[A.ATEX].to(torch.int64)
+    atlas = scene.alpha_tex
+    k, res, _ = atlas.shape
+    xi = torch.remainder((u * res).to(torch.int64), res)
+    yi = torch.remainder((v * res).to(torch.int64), res)
+    alpha = atlas[slot.clamp(0, k - 1), yi, xi]
+    has_mask = (cutoff > 0.0) & (slot >= 0)
+    return torch.where(has_mask, alpha >= cutoff, True), has_mask
+
+
+def _step(t):
+    """How far a ray moves on past a transparent hit at t."""
+    return t + 1e-4 + 1e-4 * t
+
+
+def _closest_cutout(scene, o, d, t_min, t_max) -> ShadedHit:
+    """The closest hit that passes the alpha test: up to CUTOUT_ROUNDS
+    closest-hit queries (``_closest_raw``), a ray
+    that hit a transparent texel moving on by ``_step`` of its t each time.
+    A ray latches its first miss or opaque hit (t the distance from o); one
+    still piercing after the last round reports no hit (tri -1, zero
+    barycentrics and attributes) at the distance it reached. A round traces
+    only the rays still piercing (the JAX loop traces every ray each round
+    and keeps the latched ones' results, the same values), and the rounds
+    stop once none is: one host synchronisation a round, to count them."""
+    n = o.shape[0]
+    f32 = dict(dtype=torch.float32, device=o.device)
+    out_t, out_u, out_v = (torch.zeros((n,), **f32) for _ in range(3))
+    out_at = torch.zeros((A.WIDTH, n), **f32)
+    out_tri = None
+    rays = torch.arange(n, device=o.device)  # the rays still piercing
+    t_acc = torch.zeros((n,), **f32)
+    for _ in range(CUTOUT_ROUNDS):
+        sh = _closest_raw(scene, o, d, t_min, t_max)
+        if out_tri is None:
+            out_tri = torch.full((n,), -1, dtype=sh.tri.dtype, device=o.device)
+        passes, _ = _hit_alpha(scene, sh)
+        settle = ~sh.valid | passes
+        for out, new in ((out_t, t_acc + sh.t), (out_tri, sh.tri), (out_u, sh.u), (out_v, sh.v)):
+            out[rays] = torch.where(settle, new, out[rays])
+        out_at[:, rays] = torch.where(settle[None, :], sh.attrs, out_at[:, rays])
+        keep = (~settle).nonzero().squeeze(1)
+        if keep.numel() == 0:
+            break
+        step = _step(sh.t[keep])
+        o = (o[keep] + step[:, None] * d[keep]).contiguous()
+        d = d[keep].contiguous()
+        t_acc = t_acc[keep] + step
+        rays = rays[keep]
+    else:
+        out_t[rays] = t_acc
+    return ShadedHit(out_t, out_tri, out_u, out_v, out_at)
+
+
+def _occluded_cutout(scene, o, d, t_min, t_max):
+    """Occlusion through transparent texels: along each segment, closest
+    hits (in (t_min, INF) from the moving origin) until one within t_max of
+    o passes the alpha test (occluded) or none lies within it (free). A
+    segment still piercing after CUTOUT_ROUNDS counts as occluded. As in
+    ``_closest_cutout`` a round traces only the segments still piercing."""
+    occ = torch.zeros((o.shape[0],), dtype=torch.bool, device=o.device)
+    rays = torch.arange(o.shape[0], device=o.device)
+    t_acc = torch.zeros((o.shape[0],), dtype=torch.float32, device=o.device)
+    for _ in range(CUTOUT_ROUNDS):
+        sh = _closest_raw(scene, o, d, t_min, INF)
+        within = sh.valid & (t_acc + sh.t < t_max)
+        passes, _ = _hit_alpha(scene, sh)
+        occ[rays] = occ[rays] | (within & passes)
+        keep = (within & ~passes).nonzero().squeeze(1)
+        if keep.numel() == 0:
+            break
+        step = _step(sh.t[keep])
+        o = (o[keep] + step[:, None] * d[keep]).contiguous()
+        d = d[keep].contiguous()
+        t_acc = t_acc[keep] + step
+        rays = rays[keep]
+    else:
+        occ[rays] = True  # the layer budget ran out: occluded
+    return occ

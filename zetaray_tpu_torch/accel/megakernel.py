@@ -56,6 +56,14 @@ instances, which carry no code of either lobe; a scene with either takes
 the material instances (a compile-time branch of B5 and
 B6), which read the two flags at run time (``material_flags``).
 
+A textured trace (``trace_megakernel`` with ``textures``) splits every
+bounce as the JAX one does: B4, then ``fetch_base`` in plain PyTorch (the
+base colour at each hit times its texture over the ray cone's width, in
+the surface rows), then B5; ``trace_with_first_hit`` fetches at bounce 0
+only. The bounce kernels test no alpha: a scene with alpha cutout takes
+the wavefront ``ops.pathtracer.trace_reference``, and its G-buffer the
+cutout re-trace (``accel.intersect``).
+
 Their times on the card, and B1's, are in ``PERF.md`` (section 6).
 """
 
@@ -231,15 +239,16 @@ def gbuffer_rows(o: torch.Tensor, d: torch.Tensor, t_hit, hit, bu, bv, at) -> to
 def gbuffer(scene, o: torch.Tensor, d: torch.Tensor, t_min=1e-4) -> torch.Tensor:
     """Primary-hit G-buffer: rays o, d [N, 3] -> [G.ROWS, N]. A clustered
     scene takes the streaming closest hit (kernel B8, Moller-Trumbore t, u,
-    v), then the rows, as the JAX ``gbuffer_xla`` does.
+    v), a cutout scene the alpha-cutout re-trace (kernel B7 or B8 a round;
+    ``accel.intersect``), then the rows, as the JAX ``gbuffer_xla`` does.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel,
     which sweeps the ``scene.num_tris`` real triangles and needs t_min >= 0.
     """
-    if scene.cluster_aabb is not None:
-        from .stream import closest_hit_stream_shaded
+    if scene.cluster_aabb is not None or scene.has_cutout:
+        from .intersect import intersect_closest_shaded
 
-        sh = closest_hit_stream_shaded(scene, o, d, t_min)
+        sh = intersect_closest_shaded(scene, o, d, t_min)
         return gbuffer_rows(o, d, sh.t, sh.valid, sh.u, sh.v, sh.attrs)
     if o.device.type == "cpu":
         return gbuffer_plain(scene, o, d, t_min)
@@ -335,6 +344,17 @@ def _check_dense(scene, name: str,
     if scene.cluster_aabb is not None:
         raise ValueError(f"{name} sweeps the dense triangle table and takes dense scenes only; "
                          f"a clustered scene {instead}")
+
+
+def _check_bounce(scene, name: str) -> None:
+    """The bounce kernels take dense scenes without alpha cutout (their
+    sweeps test no alpha); the others trace with
+    ``ops.pathtracer.trace_reference``, as the JAX package's
+    ``megakernel_eligible`` sends them."""
+    _check_dense(scene, name)
+    if scene.has_cutout:
+        raise ValueError(f"{name} tests no alpha; a cutout scene traces with "
+                         "ops.pathtracer.trace_reference")
 
 
 def cone_spread(spread_angle: float) -> float:
@@ -610,7 +630,7 @@ def bounce_trace(scene, state, bounce: int, cfg, has_lights: bool, spread_angle=
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel,
     which sweeps the ``scene.num_tris`` real triangles and needs t_min >= 0.
     """
-    _check_dense(scene, "bounce_trace")
+    _check_bounce(scene, "bounce_trace")
     if state.device.type == "cpu":
         return bounce_trace_plain(scene, state, bounce, cfg, has_lights, spread_angle)
     n, tp, _, _ = _bounce_args(scene, state, None, 0)
@@ -640,7 +660,7 @@ def bounce_shade(scene, state, surf, light_sets, bounce: int, seed: int, cfg,
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel,
     whose shadow sweep tests the ``scene.num_tris`` real triangles.
     """
-    _check_dense(scene, "bounce_shade")
+    _check_bounce(scene, "bounce_shade")
     if state.device.type == "cpu":
         return bounce_shade_plain(scene, state, surf, light_sets, bounce, seed, cfg,
                                   has_lights, rt)
@@ -669,7 +689,7 @@ def bounce(scene, state, light_sets, b: int, seed: int, cfg, last: bool,
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel.
     """
-    _check_dense(scene, "bounce")
+    _check_bounce(scene, "bounce")
     if state.device.type == "cpu":
         return bounce_plain(scene, state, light_sets, b, seed, cfg, last, has_lights, rt)
     wops = _wops_em(scene, cfg)
@@ -727,8 +747,24 @@ def _smb_keep(state, smb_kill) -> None:
     state[13] = state[13] * keep
 
 
+def fetch_base(textures, state, surf):
+    """The texture fetch between B4 and B5: surface rows [SURF_ROWS, N] with
+    the base colour (rows 9-11) times ``scene.textures.base_color_at`` at
+    each vertex's uv (rows 19-20) and base-colour texture (row 21), over
+    the cone width it has accumulated (state row 15) and its uv density
+    (row 22); ``surf`` itself where the bundle has no base-colour map."""
+    from ..scene.textures import base_color_at
+
+    factor = base_color_at(textures, surf[19:21].T, surf[21], state[15], surf[22])
+    if factor is None:
+        return surf
+    out = surf.clone()
+    out[9:12] = surf[9:12] * factor
+    return out
+
+
 def trace_megakernel(scene, o, d, seed: int, cfg, rt: int = 1024, rows_out: bool = False,
-                     light_sets=None, smb_kill=None):
+                     light_sets=None, smb_kill=None, textures=None, spread_angle=0.0):
     """Path trace of rays o, d [N, 3] through the fused bounce kernel (B6):
     bounces 0..max_bounces, the last one stopping after its emission.
     Returns radiance [N, 3], or rows [3, N] with ``rows_out``.
@@ -738,8 +774,20 @@ def trace_megakernel(scene, o, d, seed: int, cfg, rt: int = 1024, rows_out: bool
     ``(i // rt + 13 * bounce) % n_sets``. ``light_sets``: as in
     ``trace_with_first_hit``. ``smb_kill``: optional bool [N], paths that
     stop extending after bounce 0's launch.
+
+    With ``textures`` (a bundle of ``scene.textures.load_scene_textures``)
+    every bounce is split, as in the JAX function: B4, the base-colour fetch
+    at each vertex with its ray cone (``fetch_base``; the cone grows by
+    ``spread_angle`` per unit of distance), then B5; the last bounce is B4
+    alone. The JAX split bounce hands B5 no WoPS table, so textures with
+    ``cfg.nee_mode="wops"`` raise (``ROADMAP.md`` section C).
     """
-    _check_dense(scene, "trace_megakernel")
+    _check_bounce(scene, "trace_megakernel")
+    split = bool(textures)
+    if split and cfg.nee_mode == "wops" and cfg.max_bounces > 0:
+        raise NotImplementedError(
+            "textures with nee_mode='wops': the JAX split bounce launches B5 without the WoPS "
+            "table or its uniforms, so there is no reference to hold the port to")
     n = o.shape[0]
     pad = (-n) % rt
     o_p = torch.nn.functional.pad(o, (0, 0, 0, pad))
@@ -748,7 +796,14 @@ def trace_megakernel(scene, o, d, seed: int, cfg, rt: int = 1024, rows_out: bool
     lsets = _trace_light_sets(scene, seed, cfg, light_sets, o.device)
     state = initial_state(o_p, d_p)
     for b in range(cfg.max_bounces + 1):
-        state = bounce(scene, state, lsets, b, seed, cfg, b == cfg.max_bounces, has_lights, rt)
+        last = b == cfg.max_bounces
+        if not split:
+            state = bounce(scene, state, lsets, b, seed, cfg, last, has_lights, rt)
+        else:
+            state, surf = bounce_trace(scene, state, b, cfg, has_lights, spread_angle)
+            if not last:
+                state = bounce_shade(scene, state, fetch_base(textures, state, surf), lsets, b,
+                                     seed, cfg, has_lights, rt)
         if smb_kill is not None and b == 0:
             _smb_keep(state, smb_kill)
     rad = state[9:12, :n]
@@ -756,7 +811,7 @@ def trace_megakernel(scene, o, d, seed: int, cfg, rt: int = 1024, rows_out: bool
 
 
 def trace_with_first_hit(scene, o, d, seed: int, cfg, rt: int, light_sets=None,
-                         spread_angle=0.0, smb_kill=None):
+                         spread_angle=0.0, smb_kill=None, textures=None):
     """Path trace of rays o, d [N, 3] that also returns the first hit's surface:
     B4 and B5 at bounce 0, then B6 for bounces 1..max_bounces (the last one
     stops after its emission). Returns (radiance rows [3, N], surf
@@ -766,13 +821,18 @@ def trace_with_first_hit(scene, o, d, seed: int, cfg, rt: int, light_sets=None,
     size (``cfg.light_ns``, ``cfg.light_ps``), which makes them the sets this
     function would build from ``seed``. Otherwise sets of that size are built.
     ``smb_kill``: optional bool [N], paths that stop extending after B5.
+    ``textures``: the base colour of the first hit is fetched between B4
+    and B5 (``fetch_base``; the returned surf carries it); the later
+    bounces run B6 without textures, as the JAX function does.
     """
-    _check_dense(scene, "trace_with_first_hit")
+    _check_bounce(scene, "trace_with_first_hit")
     has_lights = scene.num_emissives > 0
     lsets = _trace_light_sets(scene, seed, cfg, light_sets, o.device)
     state, surf = bounce_trace(scene, initial_state(o, d), 0, cfg, has_lights, spread_angle)
     alive0 = state[13].clone()
     if cfg.max_bounces > 0:
+        if textures:
+            surf = fetch_base(textures, state, surf)
         state = bounce_shade(scene, state, surf, lsets, 0, seed, cfg, has_lights, rt)
         if smb_kill is not None:
             _smb_keep(state, smb_kill)

@@ -19,13 +19,11 @@ from .scene.scene import SceneBuffers, buffers_from_arrays
 def scene_from_arrays(d: dict, device=None) -> SceneBuffers:
     """Fields of a JAX ``SceneBuffers`` (numpy arrays and Python scalars)
     -> the port's scene on ``device`` (default: the card). Dense and
-    clustered scenes are ported, with glass and coated materials (the
-    ``has_transmission``/``has_coat`` flags are taken over); alpha cutout
-    (``has_cutout``) is refused. A clustered scene gets its traversal
-    tree from ``cluster_aabb``, and the TPU-only ``woop_stream``,
+    clustered scenes are ported, with glass and coated materials and alpha
+    cutout (the ``has_transmission``/``has_coat``/``has_cutout`` flags and
+    the ``alpha_tex`` atlas are taken over). A clustered scene gets its
+    traversal tree from ``cluster_aabb``, and the TPU-only ``woop_stream``,
     ``stream_attrs`` and ``stream_tcap`` are not read."""
-    if d.get("has_cutout"):
-        raise NotImplementedError("has_cutout: alpha cutout is not ported yet")
     return buffers_from_arrays(d, device)
 
 

@@ -17,7 +17,15 @@ roulette).
 On glass and coated materials (``SceneBuffers.has_transmission`` /
 ``has_coat``) the shading takes the transmission and coat lobes
 (``accel.megakernel.hit_material``); a transmitted ray leaves below the
-surface.
+surface. A scene with alpha cutout (``has_cutout``) also takes the
+wavefront, whose queries run the cutout re-trace (``accel.intersect``), as
+the JAX ``megakernel_eligible`` sends it.
+
+With ``textures`` (a ``scene.textures`` bundle) the base colour is fetched
+at every path vertex with its ray cone: ``trace_megakernel`` splits each
+bounce into B4, the fetch and B5; ``trace_reference`` fetches in the
+wavefront, the cone widening by ``spread_angle`` a unit of distance and
+scaled by eta where a ray is transmitted.
 
 With ``PTConfig.sky`` set, rays that miss the scene gather the sky (and the
 sun disk, on the specular primary rays only when ``sun_nee`` samples the
@@ -80,19 +88,29 @@ class PTConfig:
     path_regularization: bool = False
 
 
+def megakernel_eligible(scene) -> bool:
+    """Whether the bounce kernels take the scene: dense and without alpha
+    cutout (the JAX function also asks for a TPU)."""
+    return scene.cluster_aabb is None and not scene.has_cutout
+
+
 def trace(scene, o, d, seed: int, cfg: PTConfig = PTConfig(), rt: int = 1024,
-          rows_out: bool = False, light_sets=None, smb_kill=None):
+          rows_out: bool = False, light_sets=None, smb_kill=None, textures=None,
+          spread_angle=0.0):
     """Path-traced radiance of rays o, d [N, 3]: [N, 3] linear HDR, or rows
     [3, N] with ``rows_out``. ``seed`` is the u32 frame seed; ``rt`` the tile
     width that picks each ray's light set. ``light_sets``: the frame's sets,
     used where they are the ones ``seed`` gives (``trace_megakernel``). A
-    clustered scene takes ``trace_reference``, which reads neither.
-    ``smb_kill``: optional bool [N], paths that end after their first vertex."""
-    if scene.cluster_aabb is not None:
-        out = trace_reference(scene, o, d, seed, cfg, smb_kill=smb_kill)
+    clustered or cutout scene takes ``trace_reference``, which reads neither.
+    ``smb_kill``: optional bool [N], paths that end after their first vertex.
+    ``textures``, ``spread_angle``: the base-colour fetch at every vertex."""
+    if not megakernel_eligible(scene):
+        out = trace_reference(scene, o, d, seed, cfg, smb_kill=smb_kill, textures=textures,
+                              spread_angle=spread_angle)
         return out.T if rows_out else out
     return trace_megakernel(scene, o, d, seed, cfg, rt=rt, rows_out=rows_out,
-                            light_sets=light_sets, smb_kill=smb_kill)
+                            light_sets=light_sets, smb_kill=smb_kill, textures=textures,
+                            spread_angle=spread_angle)
 
 
 def park(mask, o: torch.Tensor, d: torch.Tensor):
@@ -114,7 +132,8 @@ def _div(a: V3, s) -> V3:
 
 
 def trace_reference(scene, o, d, seed: int, cfg: PTConfig = PTConfig(),
-                    return_first_hit: bool = False, smb_kill=None):
+                    return_first_hit: bool = False, smb_kill=None, textures=None,
+                    spread_angle=0.0):
     """Wavefront path trace of rays o, d [N, 3]: radiance [N, 3], and with
     ``return_first_hit`` also the bounce-0 ``ShadedHit`` (the GI pass reads
     its reconnection vertex from it). Bounces 0..max_bounces, the last one
@@ -122,7 +141,13 @@ def trace_reference(scene, o, d, seed: int, cfg: PTConfig = PTConfig(),
     ``smb_kill``: optional bool [N], paths that stop extending after bounce
     0's BSDF sample (before Russian roulette). Its NEE draws from the
     emissive alias table whatever ``cfg.nee_mode`` says, as the JAX
-    function does."""
+    function does. ``textures``: the base colour at each vertex times
+    ``base_color_at`` over the ray cone's width so far (the hit distances
+    of the live segments times ``spread_angle``, scaled by eta at each
+    transmission); the JAX function does not quantize the spread, as the
+    bounce kernels do (``megakernel.cone_spread``)."""
+    from ..scene.textures import base_color_at_hits
+
     n = o.shape[0]
     dev = o.device
     pixel = torch.arange(n, dtype=torch.int64, device=dev)
@@ -133,6 +158,7 @@ def trace_reference(scene, o, d, seed: int, cfg: PTConfig = PTConfig(),
     prev_pdf = zero
     spec_bounce = torch.ones_like(alive)  # primary rays count as specular
     has_lights = scene.num_emissives > 0
+    cone_w = zero  # the ray cone's accumulated width (texturing)
 
     sh0 = None
     for bounce in range(cfg.max_bounces + 1):
@@ -159,6 +185,11 @@ def trace_reference(scene, o, d, seed: int, cfg: PTConfig = PTConfig(),
         mat = hit_material(at, front, scene.has_transmission, scene.has_coat)
         if cfg.path_regularization and bounce > 0:
             mat = mat._replace(roughness=regularize(mat.roughness))
+        if textures:
+            cone_w = cone_w + torch.where(alive & sh.valid, sh.t, 0.0) * spread_angle
+            factor = base_color_at_hits(textures, sh, cone_w)
+            if factor is not None:
+                mat = mat._replace(base=mat.base * v3.from_rows(factor, 0))
 
         # the sky, and the sun disk (only on specular rays where NEE samples
         # the sun), on rays that miss
@@ -231,6 +262,9 @@ def trace_reference(scene, o, d, seed: int, cfg: PTConfig = PTConfig(),
         wi_w = frame.to_world(wi_l)
         # reflected rays leave above the geometric surface, transmitted below
         transmitted = wi_l.z < 0.0
+        if textures:  # refraction scales the cone's width by eta
+            ior = torch.clamp_min(at[A.IOR], 1.01)
+            cone_w = cone_w * torch.where(transmitted, torch.where(front, 1.0 / ior, ior), 1.0)
         side = v3.dot(wi_w, ng)
         geo_ok = torch.where(transmitted, side < -1e-6, side > 1e-6)
         alive = alive & (pdf > 0.0) & geo_ok

@@ -19,21 +19,27 @@ the CPU fuses the camera-space dot products into multiply-adds and this
 module does not, so a point that lies on a voxel face may land in the
 neighbouring voxel here.
 
-``estimate_tri_power``/``apply_tri_powers`` of the JAX module run only with
-emissive textures, which the port does not have yet.
+``estimate_tri_power`` and ``apply_tri_powers`` are the emissive-texture
+power round trip of the JAX app (``app.py:190-197``): each emissive
+triangle's power integrated over its emissive texture on the device (64
+Halton points on the triangle, bilinear on the finest level, their mean),
+then the alias table rebuilt on the host from those powers and the light
+radiance ``EA.LE`` scaled by the texture's mean, so NEE sees the energy the
+powers count. What the frame derives from those tables (the light sets, the
+WoPS table, this grid) is built from the scene each frame, so it follows.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
 
 from ..accel.megakernel import G
 from ..core.rng import uniform4
-from ..core.sampling import sample_alias, square_to_triangle
-from ..scene.scene import EA
+from ..core.sampling import build_alias_table, halton, sample_alias, square_to_triangle
+from ..scene.scene import A, EA
 from .sky import _div
 
 _LUM = (0.2126, 0.7152, 0.0722)
@@ -53,6 +59,75 @@ class LVGConfig:
 
 def _luminance(r, g, b):
     return _LUM[0] * r + _LUM[1] * g + _LUM[2] * b
+
+
+def estimate_tri_power(scene, texmaps=None, n_samples: int = 64):
+    """Power of each real emissive triangle, luminance(Le * mean texture) *
+    area * pi, and that mean: (powers [E], mean_rgb [E, 3]) on
+    ``scene.device``. The mean is over ``n_samples`` Halton (2, 3) points
+    shared by every triangle, bilinear on level 0 of the material's
+    emissive texture in the bundle ``texmaps``; ones where a triangle has
+    none."""
+    e = scene.num_emissives
+    dev = scene.device
+    if e == 0:
+        return (torch.zeros((0,), dtype=torch.float32, device=dev),
+                torch.zeros((0, 3), dtype=torch.float32, device=dev))
+    etri = torch.clamp_min(scene.em_tri[:e].long(), 0)
+    c = torch.linalg.cross(scene.e1[etri], scene.e2[etri])
+    area = 0.5 * torch.sqrt((c[:, 0] * c[:, 0] + c[:, 1] * c[:, 1]) + c[:, 2] * c[:, 2])
+    le = scene.tri_attrs[etri, A.EMISS : A.EMISS + 3]
+    mean_rgb = torch.ones((e, 3), dtype=torch.float32, device=dev)
+    if texmaps and texmaps.get("emissive"):
+        from ..scene.textures import sample_bilinear
+
+        pts = torch.tensor([[halton(i, 0), halton(i, 1)] for i in range(1, n_samples + 1)],
+                           dtype=torch.float32, device=dev)
+        b1, b2 = square_to_triangle(pts[:, 0], pts[:, 1])
+        b1, b2 = b1[None, :, None], b2[None, :, None]
+        w0 = 1.0 - b1 - b2
+        uv = (w0 * scene.uv0[etri][:, None, :] + b1 * scene.uv1[etri][:, None, :]
+              + b2 * scene.uv2[etri][:, None, :])  # [E, S, 2]
+        tex_of = torch.as_tensor(texmaps["ids"]["emissive"], device=dev)[scene.mat_id[etri].long()]
+        for idx, mips in sorted(texmaps["emissive"].items()):
+            rgba = sample_bilinear(mips[0], uv.reshape(-1, 2)).reshape(e, n_samples, 4)
+            mean_rgb = torch.where((tex_of == idx)[:, None], rgba[..., :3].mean(1), mean_rgb)
+    lum = _luminance(le[:, 0] * mean_rgb[:, 0], le[:, 1] * mean_rgb[:, 1],
+                     le[:, 2] * mean_rgb[:, 2])
+    return torch.clamp_min(lum * area * np.pi, 0.0), mean_rgb
+
+
+def apply_tri_powers(scene, powers, mean_rgb=None):
+    """The scene with its emissive alias table rebuilt on the host from
+    ``powers`` [E] (``em_prob``, ``em_alias``, ``em_pdf``, ``em_power``, the
+    pdf per area in ``em_attrs`` and ``tri_attrs``), and with ``mean_rgb``
+    [E, 3] folded into the light radiance ``EA.LE``."""
+    e = scene.num_emissives
+    if e == 0:
+        return scene
+    host = lambda x: x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+    p = np.maximum(host(powers).astype(np.float64), 0.0)
+    prob, alias, pdf = build_alias_table(p)
+    ep = scene.em_prob.shape[0]
+    dev = scene.device
+
+    def pad(x, dtype=np.float32):
+        out = np.zeros((ep,), dtype)
+        out[:e] = x
+        return torch.from_numpy(out).to(dev)
+
+    pdf_area = (pdf / np.maximum(host(scene.em_area[:e]), 1e-12)).astype(np.float32)
+    em_attrs = host(scene.em_attrs).copy()
+    em_attrs[:e, EA.PDF_AREA] = pdf_area
+    if mean_rgb is not None:
+        em_attrs[:e, EA.LE : EA.LE + 3] *= host(mean_rgb).astype(np.float32)
+    tri_attrs = scene.tri_attrs.clone()
+    tri_attrs[scene.em_tri[:e].long(), A.EM_PDF_AREA] = torch.from_numpy(pdf_area).to(dev)
+    return replace(
+        scene, em_prob=pad(prob), em_alias=pad(alias, np.int32), em_pdf=pad(pdf),
+        em_attrs=torch.from_numpy(em_attrs).to(dev), tri_attrs=tri_attrs,
+        em_power=torch.tensor(float(p.sum()), dtype=torch.float32, device=dev),
+    )
 
 
 def _basis(camera, device):

@@ -4,7 +4,10 @@ Per pixel the sample is a reconnection vertex: the secondary hit x2 with its
 normal n2 and the radiance L2 it sends back toward the primary hit, traced
 by the path kernels B4-B6 (``accel.megakernel.trace_with_first_hit``) on a
 dense scene and by the wavefront ``ops.pathtracer.trace_reference``
-(kernels B8/B9) on a clustered one. With a sky, a ray that escapes becomes
+(kernels B8/B9) on a clustered one, and on a scene with alpha cutout (its
+queries the cutout re-trace). With ``textures`` the base colour of x2 is
+fetched between B4 and B5 (the later bounces untextured, as in JAX), or at
+every vertex of the wavefront. With a sky, a ray that escapes becomes
 a vertex on a far sphere (``SKY_DIST``) that carries the sky's radiance;
 with ``stochastic_multi_bounce`` half the paths from rough primary hits end
 at x2. The ReSTIR_GI_LVG variant (``lvg``) moves the NEE at x2 out of the
@@ -42,7 +45,7 @@ from . import shading_soa as S
 from . import sky as SK
 from ..scene.scene import A, EA
 from .gbuffer_pack import temporal_geom_ok
-from .pathtracer import park, trace_reference
+from .pathtracer import megakernel_eligible, park, trace_reference
 from .prelighting import sample_light_points, sample_lvg_at
 from .restir_di import (
     surface_from_gbuf, disk_neighbor, drop_m_w, gather_reservoirs, geom_ok_slim, geom_table, reproject_prev,
@@ -152,7 +155,7 @@ def _nee_emissive_lvg(scene, lvg, camera, pos2: V3, ns2: V3, ng2: V3, mat2, wo2:
 
 def initial_samples(scene, gbuf, pt_cfg, seed: int, rt: int, light_sets=None,
                     spread_angle=0.0, lvg=None, lvg_cam=None, lvg_cfg=None, trans=False,
-                    coat=False, full_target=False) -> torch.Tensor:
+                    coat=False, full_target=False, textures=None) -> torch.Tensor:
     """One GI sample per pixel: a BSDF direction at the primary hit, traced
     with ``max_bounces - 1`` further bounces (x2's own emission excluded,
     NEE from x2 on). On a clustered scene x2 = o2 + t * d2 from the trace's
@@ -166,6 +169,8 @@ def initial_samples(scene, gbuf, pt_cfg, seed: int, rt: int, light_sets=None,
     is ``_nee_emissive_lvg`` in place of the trace's bounce-0 NEE.
     ``trans``/``coat``: the lobes of the primary and x2 materials;
     ``full_target``: the samples are rated with the whole BSDF.
+    ``textures``: the bundle of ``scene.textures``; the ray cones start at
+    the primary hits with width 0 and widen by ``spread_angle``.
     Returns reservoir rows [R_ROWS, N]."""
     pos, ns, _ng, wo, mat, frame, _valid = _surf(gbuf, trans, coat)
     wo_l = frame.to_local(wo)
@@ -181,10 +186,10 @@ def initial_samples(scene, gbuf, pt_cfg, seed: int, rt: int, light_sets=None,
         min_emissive_bounce=max(pt_cfg.min_emissive_bounce - 1, 1),
         min_nee_bounce=1 if lvg is not None else 0,
     )
-    if scene.cluster_aabb is None:
+    if megakernel_eligible(scene):
         l2_rows, surf2, alive2 = trace_with_first_hit(
             scene, o2, d2, seed, l2_cfg, rt, light_sets=light_sets, spread_angle=spread_angle,
-            smb_kill=smb_kill,
+            smb_kill=smb_kill, textures=textures,
         )
         x2_hit = alive2 > 0.5
         x2, n2, l2 = v3.from_rows(surf2, 0), v3.from_rows(surf2, 6), v3.from_rows(l2_rows, 0)
@@ -194,7 +199,8 @@ def initial_samples(scene, gbuf, pt_cfg, seed: int, rt: int, light_sets=None,
         # the wavefront trace's bounce-0 closest hit is the x2 query; dead
         # rays are parked so the traversal culls them
         l2_rgb, sh = trace_reference(scene, *park(live, o2, d2), seed, l2_cfg,
-                                     return_first_hit=True, smb_kill=smb_kill)
+                                     return_first_hit=True, smb_kill=smb_kill, textures=textures,
+                                     spread_angle=spread_angle)
         x2_hit = sh.valid
         x2 = V3(*(o2 + sh.t[:, None] * d2).T)
         n2_raw = v3.from_rows(sh.attrs, A.NG)

@@ -1,4 +1,4 @@
-"""ReSTIR PT, as the JAX package's ``ops/restir_pt.py`` (no textures).
+"""ReSTIR PT, as the JAX package's ``ops/restir_pt.py``.
 
 The sample of a pixel is a whole path beyond its primary hit, held as its
 reconnection vertex x_rc (the prefix's first hit) and a frozen suffix: the
@@ -13,9 +13,12 @@ stored second vertex x3.
 
 Every "closest hit + attributes" query goes through kernel B7
 (``accel.intersect.intersect_closest_shaded``): x_rc and x3 of the initial
-samples, and one replay trace per merge (temporal and spatial). The suffix
+samples, and one replay trace per merge (temporal and spatial); on a
+scene with alpha cutout each of them is the cutout re-trace. The suffix
 beyond x3 is path-traced by B6 (``ops.pathtracer.trace``); the shade's
-visibility ray is B3.
+visibility ray is B3. With textures the initial samples fetch the base
+colour at x_rc and x3 over their ray cones and path-trace the suffix with
+them; the replays of the reuse passes fetch none, as in JAX.
 
 Reservoir rows ([PR.ROWS, N] float32) are the JAX package's. SRCSEED holds
 a u32 seed's bits in a float row: it is moved only by selects, gathers and
@@ -36,7 +39,7 @@ from dataclasses import dataclass, replace
 import torch
 
 from ..accel.intersect import ShadedHit, intersect_closest_shaded, intersect_occluded
-from ..accel.megakernel import hit_material
+from ..accel.megakernel import G, hit_material
 from ..core import vec3 as v3
 from ..core.rng import uniform4
 from ..core.rows import set3, stack_rows
@@ -208,8 +211,18 @@ def prefix_rays(gbuf, seed: int, trans=False, coat=False):
     return o, d
 
 
+def _textured_base(textures, sh: ShadedHit, cone, base: V3) -> V3:
+    """``base`` at the hits of ``sh`` times their base-colour texture over
+    the ray cone's width ``cone``."""
+    from ..scene.textures import base_color_at_hits
+
+    f = base_color_at_hits(textures, sh, cone)
+    return base if f is None else V3(base.x * f[0], base.y * f[1], base.z * f[2])
+
+
 def initial_samples(scene, gbuf, pt_cfg, seed: int, cfg: ReSTIRPTConfig, rt: int,
-                    light_sets=None, trans=False, coat=False) -> torch.Tensor:
+                    light_sets=None, trans=False, coat=False, textures=None,
+                    spread_angle=0.0) -> torch.Tensor:
     """One path sample per pixel in a reservoir [PR.ROWS, N].
 
     Prefix: a BSDF direction at the primary hit, whose closest hit (B7) is
@@ -221,7 +234,10 @@ def initial_samples(scene, gbuf, pt_cfg, seed: int, cfg: ReSTIRPTConfig, rt: int
     streams and light sets are the sorted positions, as in the JAX package.
     ``trans``/``coat``: the lobes of the primary hit's and x_rc's materials
     (x3's stays opaque, as in JAX). The sample is rated with the albedo/pi
-    f1, or with ``cfg.full_target`` with the whole BSDF.
+    f1, or with ``cfg.full_target`` with the whole BSDF. ``textures``: the
+    base colour at x_rc over a cone of width (depth + t) * ``spread_angle``,
+    at x3 over (depth + t + t3) * ``spread_angle``, and at every vertex of
+    the suffix's trace.
     """
     n = gbuf.shape[1]
     dev = gbuf.device
@@ -237,10 +253,12 @@ def initial_samples(scene, gbuf, pt_cfg, seed: int, cfg: ReSTIRPTConfig, rt: int
     x_rc = _hit_point(o2, d2, sh)
     front, n_rc = _facing(wi, at)
     rc_base, rc_metal, rc_rough = v3.from_rows(at, A.BASE), at[A.METAL], at[A.ROUGH]
+    if textures:
+        rc_base = _textured_base(textures, sh, (gbuf[G.DEPTH] + sh.t) * spread_angle, rc_base)
     rc_ior = torch.clamp_min(at[A.IOR], 1.01)
 
     # -- suffix: BSDF direction at x_rc; its first hit x3 is resolved here
-    rc_mat = hit_material(at, front, trans, coat)
+    rc_mat = hit_material(at, front, trans, coat)._replace(base=rc_base)
     rc_frame = S.make_frame(n_rc)
     u2 = uniform4(pix, 202, seed, salt=0x5F17)
     ws_l, _, pdf_s = S.bsdf_sample(rc_mat, rc_frame.to_local(-wi), u2[0], u2[1], u2[2])
@@ -269,6 +287,8 @@ def initial_samples(scene, gbuf, pt_cfg, seed: int, cfg: ReSTIRPTConfig, rt: int
     le3_gain = torch.where(has3 & ((at3[A.DOUBLE] > 0.5) | front3), 1.0, 0.0)
     le3 = v3.from_rows(at3, A.EMISS) * le3_gain
     b3, m3, r3 = v3.from_rows(at3, A.BASE), at3[A.METAL], at3[A.ROUGH]
+    if textures:
+        b3 = _textured_base(textures, sh3, (gbuf[G.DEPTH] + sh.t + sh3.t) * spread_angle, b3)
     ior3 = torch.clamp_min(at3[A.IOR], 1.01)
 
     # -- suffix continuation at x3 (stream 203) and the radiance beyond it
@@ -283,11 +303,12 @@ def initial_samples(scene, gbuf, pt_cfg, seed: int, cfg: ReSTIRPTConfig, rt: int
     if pt_cfg.max_bounces >= 3:
         l4_cfg = replace(pt_cfg, max_bounces=pt_cfg.max_bounces - 3, min_emissive_bounce=0,
                          min_nee_bounce=0)
+        tex = dict(textures=textures, spread_angle=spread_angle)
         if perm is not None:
-            l4 = trace(scene, o4[perm], d4[perm], seed, l4_cfg, rt=rt,
-                       light_sets=light_sets)[inv_perm]
+            l4 = trace(scene, o4[perm], d4[perm], seed, l4_cfg, rt=rt, light_sets=light_sets,
+                       **tex)[inv_perm]
         else:
-            l4 = trace(scene, o4, d4, seed, l4_cfg, rt=rt, light_sets=light_sets)
+            l4 = trace(scene, o4, d4, seed, l4_cfg, rt=rt, light_sets=light_sets, **tex)
     else:
         l4 = torch.zeros((n, 3), dtype=torch.float32, device=dev)
     cos3 = torch.clamp_min(v3.dot(ws3, n3), 0.0)

@@ -13,7 +13,9 @@ upscale_256_to_512 (ReSTIR GI, max_bounces 2, rendered at 256^2, the
 temporal upscaler to 512^2 and RCAS) beside its native 512^2 twin, and the
 flagship on the materials box (a glass block and a clear-coated block)
 without and with ``full_target=True`` and ``packed_reuse=False`` in every
-ReSTIR config; and on the box
+ReSTIR config, the flagship and the default frame on the textured box
+(its maps written into the package's ``_build/textures``; the bundle after
+the emissive power round trip) and the flagship on the cutout box; and on the box
 split to 139,266 triangles (clustered: every ray query through B8/B9) the
 ReSTIR GI frame (max_bounces 2) and the ReSTIR PT frame (max_bounces 3) at
 256^2, each with a-trous and TAA where the frame has them -- it measures:
@@ -66,7 +68,10 @@ from .ops.skydi import SkyDIConfig
 from .ops.sky import SkyParams
 from .render import frame as F
 from .scene.camera import Camera
-from .scene.procedural import CAMERA_EYE, CAMERA_TARGET, CAMERA_VFOV, cornell_box, materials_box
+from .scene import textures as TX
+from .scene.procedural import (
+    CAMERA_EYE, CAMERA_TARGET, CAMERA_VFOV, cornell_box, cutout_box, materials_box, textured_box,
+)
 from .scene.scene import upload_scene
 from .scene.subdivide import subdivide_scene
 from .timing import card_line
@@ -74,6 +79,8 @@ from .timing import card_line
 # (module, attribute, pass name): the stage functions the frames call
 STAGES = [
     (F, "gbuffer", "G-buffer (B1; clustered B8)"), (F, "build_light_sets", "light sets"),
+    (TX, "apply_textures_to_gbuffer", "G-buffer textures"),
+    (MK, "fetch_base", "texture fetch between B4 and B5"),
     (RD, "reproject_prev", "joint temporal gather"), (RD, "take_multi", "joint temporal gather"),
     (RD, "initial_candidates", "DI RIS (B2)"),
     (PL, "build_light_voxel_grid", "light voxel grid build"),
@@ -98,7 +105,7 @@ STAGES = [
 # stages timed on their own rows even inside another stage, whose row they
 # leave. It holds RCAS alone: RCAS runs inside the post chain, as the
 # ``ldr_transform`` that ``_postprocess`` applies after the tonemap
-NESTED = {"RCAS"}
+NESTED = {"RCAS", "texture fetch between B4 and B5"}
 KERNELS = {"gbuffer_kernel": "B1", "ris_kernel": "B2", "occlusion_kernel": "B3",
            "bounce_trace_kernel": "B4", "bounce_shade_kernel": "B5", "bounce_kernel": "B6",
            "closest_kernel": "B7", "stream_closest_kernel": "B8",
@@ -108,9 +115,11 @@ LAUNCHERS = {"B1": (MK, "gbuffer"), "B2": (RD, "initial_candidates"), "B3": (XI,
              "B4": (MK, "bounce_trace"), "B5": (MK, "bounce_shade"), "B6": (MK, "bounce"),
              "B7": (XI, "closest_hit"), "B8": (ST, "stream_closest"),
              "B9": (ST, "occlusion_stream")}
-# the scenes of the paths: the box, and the box split past the dense limit
-SCENES = {"box": lambda: cornell_box(), "materials": lambda: materials_box(),
-          "box139k": lambda: subdivide_scene(cornell_box(), 100_000)}
+# the scenes of the paths, made in a directory for texture maps: the box, the
+# materials, textured and cutout boxes, and the box split past the dense limit
+SCENES = {"box": lambda _: cornell_box(), "materials": lambda _: materials_box(),
+          "textured": textured_box, "cutout": cutout_box,
+          "box139k": lambda _: subdivide_scene(cornell_box(), 100_000)}
 
 
 def _paths():
@@ -138,6 +147,12 @@ def _paths():
             mode="restir_gi", pt=PTConfig(max_bounces=3), **post)),
         "materials_gi_options_512": ("materials", cam, F.RenderConfig(
             mode="restir_gi", pt=PTConfig(max_bounces=3), **post, **_reuse_options())),
+        "textured_gi_512": ("textured", cam, F.RenderConfig(
+            mode="restir_gi", pt=PTConfig(max_bounces=3), **post)),
+        "textured_restir_di_512": ("textured", cam, F.RenderConfig(
+            mode="restir_di", pt=PTConfig(max_bounces=4), taa=True)),
+        "cutout_gi_512": ("cutout", cam, F.RenderConfig(
+            mode="restir_gi", pt=PTConfig(max_bounces=3), **post)),
         "clustered_gi_256": ("box139k", cam, F.RenderConfig(
             width=256, height=256, mode="restir_gi", pt=PTConfig(max_bounces=2), **post)),
         "clustered_pt_256": ("box139k", cam, F.RenderConfig(
@@ -171,7 +186,21 @@ def _upscale(render_scale: float) -> F.RenderConfig:
                           upscale_cfg=UP.UpscaleConfig(rcas_sharpness=0.8))
 
 
-def _chain(scene, cam, cfg, frames, seed=0x2468ACE1, after=None):
+def _load(name: str, tex_dir: str):
+    """(scene, texture bundle or None) of SCENES[name] on the card; a scene
+    with texture maps gets its bundle and, with an emissive map, the
+    emissive power round trip."""
+    cpu = SCENES[name](tex_dir)
+    scene = upload_scene(cpu)
+    if not cpu.texture_paths:
+        return scene, None
+    tex = TX.load_scene_textures(cpu)
+    if tex["emissive"]:
+        scene = PL.apply_tri_powers(scene, *PL.estimate_tri_power(scene, tex))
+    return scene, tex
+
+
+def _chain(scene, cam, cfg, frames, seed=0x2468ACE1, after=None, textures=None):
     """Chained frames; returns each frame's ms (host clock, synchronised).
     ``after(k)`` runs after frame k, outside its time."""
     state, times = None, []
@@ -180,7 +209,8 @@ def _chain(scene, cam, cfg, frames, seed=0x2468ACE1, after=None):
         if cfg.mode == "pt":
             F.render_frame(scene, cam.with_jitter(k), seed + k, cfg)
         else:
-            _, state = F.render_frame_restir(scene, cam.with_jitter(k), seed + k, cfg, state)
+            _, state = F.render_frame_restir(scene, cam.with_jitter(k), seed + k, cfg, state,
+                                             textures=textures)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t) * 1e3)
         if after is not None:
@@ -188,7 +218,7 @@ def _chain(scene, cam, cfg, frames, seed=0x2468ACE1, after=None):
     return times
 
 
-def _passes(scene, cam, cfg, frames):
+def _passes(scene, cam, cfg, frames, textures=None):
     """Median ms per pass over frames 2 on, each stage synchronised."""
     spent = defaultdict(lambda: [0.0] * frames)
     frame_no, stack = [0], []
@@ -223,7 +253,7 @@ def _passes(scene, cam, cfg, frames):
                 F.render_frame(scene, cam.with_jitter(k), 0x2468ACE1 + k, cfg)
             else:
                 _, state = F.render_frame_restir(scene, cam.with_jitter(k), 0x2468ACE1 + k, cfg,
-                                                 state)
+                                                 state, textures=textures)
     finally:
         for m, a, fn in saved:
             setattr(m, a, fn)
@@ -240,7 +270,7 @@ def _kernel_tag(name: str):
     return None
 
 
-def _device(scene, cam, cfg, frame_ms, frames=3):
+def _device(scene, cam, cfg, frame_ms, frames=3, textures=None):
     """Kernel launches, device kernel time and idle share per frame, over
     ``frames`` chained frames after a first one that is traced and dropped."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -253,7 +283,7 @@ def _device(scene, cam, cfg, frame_ms, frames=3):
         prof.step()
 
     with torch.profiler.profile(activities=acts, schedule=sched) as prof:
-        _chain(scene, cam, cfg, frames + 1, after=step)
+        _chain(scene, cam, cfg, frames + 1, after=step, textures=textures)
     counted = {tag: getattr(m, a).launches for tag, (m, a) in LAUNCHERS.items()}
     launches, copies, kernel_us, ours = 0, 0, 0.0, defaultdict(float)
     # each launch of a hand-written kernel, in launch order: the same kernel
@@ -303,19 +333,21 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("profile: CUDA is not available")
     card = card_line()
+    tex_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build", "textures")
+    os.makedirs(tex_dir, exist_ok=True)
     scenes = {}
     result = {"card": card, "kind": torch.cuda.get_device_name(0), "paths": {}}
     for name in args.paths.split(","):
         scene_name, cam, cfg = _paths()[name]
         if scene_name not in scenes:
-            scenes[scene_name] = upload_scene(SCENES[scene_name]())
-        scene = scenes[scene_name]
-        times = _chain(scene, cam, cfg, args.frames)
+            scenes[scene_name] = _load(scene_name, tex_dir)
+        scene, tex = scenes[scene_name]
+        times = _chain(scene, cam, cfg, args.frames, textures=tex)
         frame_ms = statistics.median(times[1:])
         result["paths"][name] = dict(
             frames_ms=times, frame_ms=frame_ms, clocks=_clocks(),
-            passes_ms=_passes(scene, cam, cfg, args.frames),
-            device=_device(scene, cam, cfg, frame_ms),
+            passes_ms=_passes(scene, cam, cfg, args.frames, textures=tex),
+            device=_device(scene, cam, cfg, frame_ms, textures=tex),
         )
         print(name, json.dumps(result["paths"][name]), flush=True)
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)

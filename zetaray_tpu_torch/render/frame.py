@@ -41,7 +41,18 @@ for it (the GI path's NEE at x2).
 
 On a clustered scene (``scene.cluster_aabb`` set) every ray query goes
 through the streaming kernels B8/B9 and the path traces through the
-wavefront ``ops.pathtracer.trace_reference``.
+wavefront ``ops.pathtracer.trace_reference``. On a scene with alpha cutout
+(``scene.has_cutout``) every ray query is the cutout re-trace
+(``accel.intersect``: B7 or B8 a round) and the path traces take the
+wavefront too, in both frames.
+
+``textures`` (the bundle of ``scene.textures.load_scene_textures``, on the
+scene's device) texture the G-buffer right after it is traced
+(``apply_textures_to_gbuffer``: base colour, metallic-roughness, emissive
+and the normal map, ray-cone mips at the render height's pixel spread),
+and the indirect pass fetches the base colour at its path vertices: the
+GI trace at x2, the PT initial samples at x_rc, x3 and along the suffix,
+the ``restir_di`` path trace at every vertex (B4, the fetch, B5 a bounce).
 
 Glass and coated materials: every pass takes ``trans =
 scene.has_transmission`` and ``coat = scene.has_coat``, as the JAX frame
@@ -263,9 +274,12 @@ def render_frame_restir(scene, camera: Camera, seed: int, cfg: RenderConfig,
                         state: FrameState | None, textures=None, motion=None, shard=None):
     """One frame on ``scene.device``: returns ({"hdr": [H, W, 3] float32,
     "ldr": [H, W, 3] uint8}, FrameState) at the display size.
-    ``seed`` is the u32 frame seed."""
+    ``seed`` is the u32 frame seed; ``textures``: a texture bundle on the
+    scene's device (module docstring)."""
+    from ..scene.textures import apply_textures_to_gbuffer
+
     cfg.check_ported()
-    for name, value in (("textures", textures), ("motion", motion), ("shard", shard)):
+    for name, value in (("motion", motion), ("shard", shard)):
         if value is not None:
             raise NotImplementedError(f"{name} is not ported yet")
     w, h = cfg.render_size()
@@ -274,6 +288,10 @@ def render_frame_restir(scene, camera: Camera, seed: int, cfg: RenderConfig,
     rt = pick_rt(w * h)
 
     gb = gbuffer(scene, o, d)
+    spread = camera.pixel_spread_angle(h)
+    tex = dict(textures=textures, spread_angle=spread)
+    if textures:
+        gb = apply_textures_to_gbuffer(gb, textures, spread_angle=spread)
     lsets = build_light_sets(scene, seed)
     mat = dict(trans=scene.has_transmission, coat=scene.has_coat)
     pt_mode = cfg.mode == "restir_pt"  # check_ported admits restir_di, restir_gi, restir_pt
@@ -323,7 +341,7 @@ def render_frame_restir(scene, camera: Camera, seed: int, cfg: RenderConfig,
     indirect = None
     if cfg.indirect and pt_mode:
         ind_res = RP.initial_samples(scene, gb, pt_cfg, seed, cfg.restir_pt, rt,
-                                     light_sets=lsets, **mat)
+                                     light_sets=lsets, **mat, **tex)
         if temporal:
             ind_res = RP.temporal_reuse(
                 ind_res, state.gi_reservoirs, state.gbuf, gb, state.camera_prev, w, h, seed,
@@ -333,10 +351,9 @@ def render_frame_restir(scene, camera: Camera, seed: int, cfg: RenderConfig,
         indirect = RP.shade(scene, pt_sp, gb, **mat)
     elif cfg.indirect and cfg.mode == "restir_gi":
         ind_res = RG.initial_samples(scene, gb, pt_cfg, seed, rt, light_sets=lsets,
-                                     spread_angle=camera.pixel_spread_angle(h),
                                      lvg=lvg if gi_lvg else None, lvg_cam=camera,
                                      lvg_cfg=cfg.lvg_cfg, full_target=cfg.restir_gi.full_target,
-                                     **mat)
+                                     **mat, **tex)
         if temporal:
             ind_res = RG.temporal_reuse(
                 ind_res, state.gi_reservoirs, state.gbuf, gb, state.camera_prev, w, h, seed,
@@ -345,7 +362,8 @@ def render_frame_restir(scene, camera: Camera, seed: int, cfg: RenderConfig,
         gi_sp = RG.spatial_reuse(ind_res, gb, w, h, seed, cfg.restir_gi, **mat)
         indirect = RG.shade(scene, gi_sp, gb, **mat)
     elif cfg.indirect:  # restir_di: the camera rays path-traced past their first hit
-        indirect = trace(scene, o, d, seed, pt_cfg, rt=rt, rows_out=True, light_sets=lsets)
+        indirect = trace(scene, o, d, seed, pt_cfg, rt=rt, rows_out=True, light_sets=lsets,
+                         **tex)
     if cfg.indirect and cfg.mode != "restir_di" and cfg.pt.sky is not None and not use_skydi:
         direct = direct + _sky_direct(scene, gb, cfg.pt.sky)
     hdr = (direct if indirect is None else direct + indirect).reshape(3, h, w)

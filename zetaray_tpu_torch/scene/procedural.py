@@ -17,15 +17,27 @@ power, for the alias step of WoPS NEE (the box's two light triangles have
 equal power, so their alias table never redirects a pick).
 ``materials_box`` makes the tall block glass and puts the short block on a
 clear-coated white, for the transmission and coat lobes.
+
+``textured_box`` and ``cutout_box`` write PNG maps built with numpy into a
+directory the caller names and reference them through ``texture_paths``:
+the first a checker base-colour map on the floor and the back wall, a
+normal map on the short block, a metallic-roughness map on the tall one
+and an emissive map of dark stripes on the light; the second a MASK-mode
+panel in front of the back wall, transparent on its left half (cutoff
+0.5). They are separate scenes because a cutout scene leaves the bounce
+kernels for the wavefront path trace, so it could not exercise the
+texture fetch between B4 and B5.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from pathlib import Path
 
 import numpy as np
 
 from .scene import CpuScene, MaterialsSoA
+from ..utils.png import write_png
 
 CAMERA_EYE = (0.0, 1.0, 3.5)
 CAMERA_TARGET = (0.0, 1.0, 0.0)
@@ -61,6 +73,12 @@ def _materials() -> MaterialsSoA:
         emissive_tex=np.full(m, -1, np.int32),
         alpha_cutoff=np.zeros(m, np.float32),
     )
+
+
+def _grow(m: MaterialsSoA, copies) -> MaterialsSoA:
+    """``m`` with copies of its materials ``copies`` appended."""
+    return MaterialsSoA(**{f.name: np.concatenate([getattr(m, f.name), getattr(m, f.name)[copies]])
+                           for f in dataclasses.fields(m)})
 
 
 def _quad(c, n, u_dir, a, b):
@@ -142,10 +160,12 @@ def cornell_box(subdivide_to: int | None = None, room=ROOM) -> CpuScene:
     return _box_scene(subdivide_to, room, _materials(), WHITE)
 
 
-def _box_scene(subdivide_to, room, materials: MaterialsSoA, short: int) -> CpuScene:
-    """The box's triangles on ``materials``, the short block on material ``short``."""
+def _box_scene(subdivide_to, room, materials: MaterialsSoA, short: int,
+               quads=None) -> CpuScene:
+    """The box's triangles on ``materials``, the short block on material
+    ``short``; or the (corners, material) ``quads`` given."""
     corners, mats = [], []
-    for q, m in _base_quads(room, short):
+    for q, m in (_base_quads(room, short) if quads is None else quads):
         corners += [q[[0, 1, 2]], q[[0, 2, 3]]]
         mats += [m, m]
     p = np.stack(corners)  # [T, 3, 3]
@@ -205,17 +225,13 @@ def multi_light_box(subdivide_to: int | None = None) -> CpuScene:
     z0 = ROOM[3]
     back = (box.mat_id == WHITE) & (np.abs((box.v0 + box.v1 + box.v2)[:, 2] / 3.0 - z0) < 1e-4)
     walls = [back, box.mat_id == RED, box.mat_id == GREEN]
-    m = box.materials
-    n0 = m.base_color.shape[0]
-    k = len(WALL_LIGHTS)
-    grow = {f.name: np.concatenate([getattr(m, f.name), getattr(m, f.name)[[WHITE] * k]])
-            for f in dataclasses.fields(m)}
-    grow["emissive"][n0:] = np.asarray(WALL_LIGHTS, np.float32)
-    grow["double_sided"][n0:] = True
+    n0 = box.materials.base_color.shape[0]
+    materials = _grow(box.materials, [WHITE] * len(WALL_LIGHTS))
+    materials.emissive[n0:] = np.asarray(WALL_LIGHTS, np.float32)
+    materials.double_sided[n0:] = True
     mat = box.mat_id.copy()
     for j, sel in enumerate(walls):
         mat[np.nonzero(sel)[0][0]] = n0 + j
-    materials = MaterialsSoA(**grow)
     em = np.nonzero(materials.emissive[mat].max(axis=-1) > 0.0)[0].astype(np.int32)
     return dataclasses.replace(box, mat_id=mat, materials=materials, emissive_tris=em)
 
@@ -226,12 +242,95 @@ def materials_box(subdivide_to: int | None = None) -> CpuScene:
     the short block on ``COATED``, the walls' white under a clear coat
     (weight 1, roughness 0.1): every lobe of the BSDF, and rays that enter
     and leave a solid."""
-    m = _materials()
-    grow = {f.name: np.concatenate([getattr(m, f.name), getattr(m, f.name)[[WHITE]]])
-            for f in dataclasses.fields(m)}
-    grow["transmission"][GLOSSY] = 1.0
-    grow["roughness"][GLOSSY] = 0.05
-    grow["ior"][GLOSSY] = 1.5
-    grow["coat_weight"][COATED] = 1.0
-    grow["coat_roughness"][COATED] = 0.1
-    return _box_scene(subdivide_to, ROOM, MaterialsSoA(**grow), COATED)
+    m = _grow(_materials(), [WHITE])
+    m.transmission[GLOSSY] = 1.0
+    m.roughness[GLOSSY] = 0.05
+    m.ior[GLOSSY] = 1.5
+    m.coat_weight[COATED] = 1.0
+    m.coat_roughness[COATED] = 0.1
+    return _box_scene(subdivide_to, ROOM, m, COATED)
+
+
+# textured_box's materials past the box's five
+CHECKER, BUMPY, MR_BLOCK = 5, 6, 7
+# its maps: texture_paths indices
+TEX_CHECKER, TEX_NORMAL, TEX_MR, TEX_EMISSIVE = range(4)
+TEX_SIZE = 64  # texels a side of every map
+CHECKER_SRGB = (255, 128)  # the checker's two squares (8 a side), sRGB
+PANEL = 5  # cutout_box's masked panel
+PANEL_Z = -0.85  # the panel's plane, in front of the back wall (z = -1.04)
+PANEL_RECT = (-0.8, 0.8, 0.3, 1.7)  # x0, x1, y0, y1; transparent for x < 0
+
+
+def _tex_maps() -> list[np.ndarray]:
+    """textured_box's four maps, [TEX_SIZE, TEX_SIZE, 3|4] uint8 in
+    texture_paths order: the checker, the normal map (stripes along u
+    tilted +-0.35 along the tangent), the metallic-roughness map (G
+    roughness 1 or 0.38, B metallic 0 or 1, in a 4 x 4 checker) and the
+    emissive map (stripes along u, full and sRGB 48)."""
+    i = np.arange(TEX_SIZE)
+    cells = lambda k: ((i[:, None] * k // TEX_SIZE) + (i[None, :] * k // TEX_SIZE)) % 2
+    checker = np.where(cells(8)[..., None] == 0, CHECKER_SRGB[0], CHECKER_SRGB[1])
+    stripe = (i[None, :] * 8 // TEX_SIZE) % 2 == 0
+    tilt = np.where(stripe, 0.35, -0.35) * np.ones((TEX_SIZE, 1))
+    nrm = np.stack([tilt, np.zeros_like(tilt), np.sqrt(1.0 - tilt * tilt)], -1)
+    normal = np.round((nrm * 0.5 + 0.5) * 255.0)
+    mr = np.zeros((TEX_SIZE, TEX_SIZE, 3))
+    mr[..., 1] = np.where(cells(4) == 0, 255, 96)
+    mr[..., 2] = np.where(cells(4) == 0, 0, 255)
+    emissive = np.where(stripe, 255, 48)[..., None] * np.ones((TEX_SIZE, TEX_SIZE, 3))
+    return [np.broadcast_to(checker, (TEX_SIZE, TEX_SIZE, 3)), normal, mr, emissive]
+
+
+def _write_maps(tex_dir, names, maps) -> list[str]:
+    paths = []
+    for name, img in zip(names, maps):
+        path = str(Path(tex_dir) / name)
+        write_png(path, np.ascontiguousarray(img, np.uint8))
+        paths.append(path)
+    return paths
+
+
+def textured_box(tex_dir, subdivide_to: int | None = None) -> CpuScene:
+    """The box (``cornell_box(subdivide_to)``'s triangles) with textures,
+    its maps written as PNG files into ``tex_dir``: the floor and the back
+    wall on ``CHECKER`` (the walls' white under a checker base-colour map),
+    the short block on ``BUMPY`` (white under a normal map), the tall block
+    on ``MR_BLOCK`` (the glossy white, metallic and roughness factors 1,
+    under a metallic-roughness map) and the light under an emissive map of
+    dark stripes."""
+    m = _grow(_materials(), [WHITE, WHITE, GLOSSY])
+    m.base_color_tex[CHECKER] = TEX_CHECKER
+    m.normal_tex[BUMPY] = TEX_NORMAL
+    m.metallic_roughness_tex[MR_BLOCK] = TEX_MR
+    m.metallic[MR_BLOCK] = 1.0
+    m.roughness[MR_BLOCK] = 1.0
+    m.emissive_tex[LIGHT] = TEX_EMISSIVE
+    quads = _base_quads(ROOM, BUMPY)
+    for k in (0, 2):  # the floor and the back wall
+        quads[k] = (quads[k][0], CHECKER)
+    quads = [(q, MR_BLOCK if mat == GLOSSY else mat) for q, mat in quads]
+    box = _box_scene(subdivide_to, ROOM, m, BUMPY, quads)
+    paths = _write_maps(tex_dir, ("checker.png", "normal.png", "mr.png", "emissive.png"),
+                        _tex_maps())
+    return dataclasses.replace(box, texture_paths=paths)
+
+
+def cutout_box(tex_dir, subdivide_to: int | None = None) -> CpuScene:
+    """The box (``cornell_box``'s materials) with a double-sided panel
+    ``PANEL`` in the plane z = PANEL_Z over PANEL_RECT, in front of the back
+    wall: an orange MASK-mode material (cutoff 0.5) whose base-colour map,
+    written as a PNG file into ``tex_dir``, is white with alpha 0 on its
+    left half (u < 0.5, x < 0) and 1 on its right half."""
+    m = _grow(_materials(), [WHITE])
+    m.base_color[PANEL] = (0.9, 0.5, 0.2)
+    m.roughness[PANEL] = 0.8
+    m.base_color_tex[PANEL] = 0
+    m.alpha_cutoff[PANEL] = 0.5
+    x0, x1, y0, y1 = PANEL_RECT
+    panel = np.array([[x0, y0, PANEL_Z], [x1, y0, PANEL_Z], [x1, y1, PANEL_Z],
+                      [x0, y1, PANEL_Z]], np.float64)  # uv (0,0) (1,0) (1,1) (0,1)
+    box = _box_scene(subdivide_to, ROOM, m, WHITE, _base_quads(ROOM) + [(panel, PANEL)])
+    mask = np.full((TEX_SIZE, TEX_SIZE, 4), 255, np.uint8)
+    mask[:, : TEX_SIZE // 2, 3] = 0
+    return dataclasses.replace(box, texture_paths=_write_maps(tex_dir, ("mask.png",), [mask]))

@@ -2,7 +2,8 @@
 
 The counterpart of the JAX package's ``scene/scene.py`` (glass and coated
 materials included: ``has_transmission`` and ``has_coat`` are computed from
-the materials; no alpha cutout): the same ``CpuScene`` field
+the materials; MASK-mode materials get the alpha atlas ``alpha_tex`` and
+``has_cutout``): the same ``CpuScene`` field
 names on the host and the same table layouts on the device -- Woop
 unit-triangle transforms ``[4, 3*Tp]``, the per-triangle attribute table
 ``A`` and the emissive table ``EA``, with the triangle and emissive counts
@@ -36,6 +37,7 @@ LANE = 128
 # clusters of CLUSTER_SIZE slots for the streaming traversal (accel.stream).
 CLUSTER_SIZE = 256
 CLUSTER_THRESHOLD = 8192
+ALPHA_RES = 256  # the alpha atlas's resolution
 
 
 @dataclass
@@ -145,8 +147,9 @@ class EA:
 
 @dataclass(frozen=True)
 class SceneBuffers:
-    """Device-side scene (the JAX ``SceneBuffers`` without alpha cutout).
-    The cluster fields are None on a dense scene."""
+    """Device-side scene, the JAX ``SceneBuffers`` without its TPU-only
+    stream layouts. The cluster fields are None on a dense scene;
+    ``alpha_tex`` is None unless ``has_cutout``."""
 
     woop: torch.Tensor  # [4, 3*Tp] float32
     tri_attrs: torch.Tensor  # [Tp, A.WIDTH]
@@ -193,6 +196,9 @@ class SceneBuffers:
     walk_nodes: torch.Tensor | None = None  # [K, 16] int32, one node a row
     leaf_slot: torch.Tensor | None = None  # [R] int32 the slot of each leaf-ordered row
     walk_stack: int | None = None  # the most stack entries a walk can need
+    # the alpha atlas of the MASK-mode materials' base-colour maps [K, ALPHA_RES,
+    # ALPHA_RES] (level 0's alpha, nearest resample); A.ATEX is a triangle's layer
+    alpha_tex: torch.Tensor | None = None
     # woop_rows()'s and leaf_rows()'s caches: (woop's version counter, the rows)
     _woop_rows: tuple | None = field(default=None, init=False, repr=False, compare=False)
     _leaf_rows: tuple | None = field(default=None, init=False, repr=False, compare=False)
@@ -335,10 +341,41 @@ def _clusterize(cpu: CpuScene, c: int):
     return new, aabb
 
 
-def _check_supported(cpu: CpuScene):
+def _build_alpha_atlas(cpu: CpuScene):
+    """The alpha atlas of the MASK-mode materials (cutoff > 0) that have a
+    base-colour map: (atlas [K, ALPHA_RES, ALPHA_RES] float32 or None, the
+    atlas layer of each material [M] int32, -1 for none). A layer is level
+    0's alpha resampled to the nearest texel; materials that share a map
+    share its layer."""
+    from .textures import load_texture
+
     mats = cpu.materials
-    if mats.alpha_cutoff is not None and (np.asarray(mats.alpha_cutoff) > 0).any():
-        raise NotImplementedError("alpha cutout (textures) is not ported yet")
+    n_mats = len(mats.metallic)
+    slot_of_mat = np.full(n_mats, -1, np.int32)
+    cutoffs = mats.alpha_cutoff
+    if cutoffs is None or not (np.asarray(cutoffs) > 0).any():
+        return None, slot_of_mat
+    paths = cpu.texture_paths or []
+    layers, slot_of_tex = [], {}
+    for m in range(n_mats):
+        if cutoffs[m] <= 0:
+            continue
+        ti = int(mats.base_color_tex[m])
+        if ti < 0 or ti >= len(paths) or not paths[ti]:
+            continue
+        if ti not in slot_of_tex:
+            mips = load_texture(paths[ti], srgb=True)
+            if mips is None:
+                continue
+            a = np.asarray(mips[0][..., 3], np.float32)
+            ys = (np.arange(ALPHA_RES) * a.shape[0] // ALPHA_RES).clip(0, a.shape[0] - 1)
+            xs = (np.arange(ALPHA_RES) * a.shape[1] // ALPHA_RES).clip(0, a.shape[1] - 1)
+            slot_of_tex[ti] = len(layers)
+            layers.append(a[np.ix_(ys, xs)])
+        slot_of_mat[m] = slot_of_tex[ti]
+    if not layers:
+        return None, slot_of_mat
+    return np.stack(layers).astype(np.float32), slot_of_mat
 
 
 def upload_scene_arrays(cpu: CpuScene, cluster_size: int | None = None) -> dict:
@@ -347,7 +384,6 @@ def upload_scene_arrays(cpu: CpuScene, cluster_size: int | None = None) -> dict:
     ``cluster_size``: None clusters above ``CLUSTER_THRESHOLD`` triangles,
     0 never clusters, C > 0 (a multiple of 128, so that the clusters fill
     the padded tables) always clusters C slots to a cluster."""
-    _check_supported(cpu)
     if cluster_size is None:
         cluster_size = CLUSTER_SIZE if cpu.num_tris > CLUSTER_THRESHOLD else 0
     if cluster_size % LANE or cluster_size < 0:
@@ -406,7 +442,10 @@ def upload_scene_arrays(cpu: CpuScene, cluster_size: int | None = None) -> dict:
     tang, uvdens = _tangents_and_uv_density(cpu)
     attrs[:t, A.TANG : A.TANG + 3] = tang
     attrs[:t, A.UVDENS] = uvdens
-    attrs[:t, A.ATEX] = -1.0  # no alpha atlas on the dense, uncut path
+    alpha_atlas, alpha_slot = _build_alpha_atlas(cpu)
+    if mats.alpha_cutoff is not None:
+        attrs[:t, A.ACUT] = np.where(alpha_slot[mid] >= 0, mats.alpha_cutoff[mid], 0.0)
+    attrs[:t, A.ATEX] = alpha_slot[mid].astype(np.float32)
     attrs[:, A.INSTID] = -1.0
     attrs[:t, A.INSTID] = cpu.inst_id[:t].astype(np.float32)
     em_attrs = np.zeros((ep, EA.WIDTH), np.float32)
@@ -438,7 +477,8 @@ def upload_scene_arrays(cpu: CpuScene, cluster_size: int | None = None) -> dict:
         em_area=_pad_to(em_area, ep, value=1.0), em_of_tri=em_of_tri,
         em_power=np.asarray(total_power, np.float32), num_emissives=e,
         has_transmission=bool((mats.transmission > 0).any()),
-        has_coat=bool((mats.coat_weight > 0).any()), has_cutout=False,
+        has_coat=bool((mats.coat_weight > 0).any()), has_cutout=alpha_atlas is not None,
+        alpha_tex=alpha_atlas,
         world_lo=np.asarray(lo, np.float32), world_hi=np.asarray(hi, np.float32),
         cluster_aabb=cluster_aabb,
     )
@@ -453,6 +493,9 @@ def buffers_from_arrays(d: dict, device=None) -> SceneBuffers:
 
     device = native.default_device(device)
     d = dict(d)
+    if d.get("has_cutout") and d.get("alpha_tex") is None:
+        raise ValueError("has_cutout without an alpha atlas (alpha_tex): the cutout re-trace "
+                         "has nothing to test the hits' alpha against")
     if d.get("cluster_aabb") is not None:
         m = np.asarray(d["cluster_aabb"]).shape[0]
         tp = np.asarray(d["woop"]).shape[1] // 3
