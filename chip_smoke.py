@@ -51,9 +51,20 @@ Phases (any failure exits non-zero):
      end near 3e38), on those of them whose primary ray hit (the rest
      parked), and on the frame's GI bounce-0 rays, and the streaming any
      hit (B9) on the frame's DI shadow segments (the share of them blocked
-     recorded), with bench.py's raw primary and GI-like rates. Each
-     kernel's least time on the card (bound_ms) is
-     reckoned from this run's work and the H100's published peaks;
+     recorded), with bench.py's raw primary and GI-like rates. The box as
+     an animated glTF file (procedural.animated_box, written into a
+     temporary directory with its buffer as a data: URI: the walls, light
+     and short block one node, the tall block a second node with LINEAR
+     translation and rotation channels) goes through load_gltf ->
+     load_scene -> AnimationRig, is split like the large box and uploaded
+     clustered, and is refit to t = 0.5 (refit_scene: the Woop rows, the
+     attribute and emissive rows, the cluster boxes and the walk tree's
+     boxes on the card; its ms printed for the box and the split box): B8
+     on camera and GI-like rays and B9 on DI shadow segments walking the
+     refit tree equal their plain versions, and B8 walking the upload's
+     boxes over the moved rows does not. Each kernel's least time on the
+     card (bound_ms) is reckoned from this run's work and the H100's
+     published peaks;
   4. renders chained frames of each path with its launch counters set to 0
      just before it and read just after: the DI-only slice at 512^2
      (indirect off), the main path -- the flagship frame of bench.py
@@ -118,7 +129,14 @@ Phases (any failure exits non-zero):
      materials box, the GI, PT and default frames on the textured box and
      the GI frame on the cutout box (also on its 8706-triangle split,
      clustered); after the clustered frames, the default frame at 256^2 on
-     the cutout box split to 147,458 triangles (B2 and B8 alone);
+     the cutout box split to 147,458 triangles (B2 and B8 alone); the
+     animated box, refit each frame to ANIM_DT more of its clip and
+     rendered with the motion from the frame before, beside its static
+     twin: the default frame and the flagship at 512^2, the default frame
+     on the split box at 256^2 (B2, B8 and B9 alone), and mode="pt" through
+     render_frame_restir and mode="restir_gi" through render_frame at 512^2
+     (each image differs from its twin's); and two 64^2 animated flagship
+     frames on the card against the CPU;
   5. prints the kernels' record, the card line, and last a JSON status.
 
 The 512^2 images are written to IMAGE_DIR: zetaray_torch_512.png (the
@@ -133,8 +151,10 @@ _textured_pt.png, _textured_restir_di.png, _cutout.png and _cutout_restir_di.png
 clustered GI frame to
 zetaray_torch_256_clustered.png, the clustered default frame with the sky
 to zetaray_torch_256_clustered_restir_di_sky.png, clustered ReSTIR PT to
-zetaray_torch_256_clustered_pt.png and the clustered cutout default frame to
-zetaray_torch_256_clustered_cutout_restir_di.png.
+zetaray_torch_256_clustered_pt.png, the clustered cutout default frame to
+zetaray_torch_256_clustered_cutout_restir_di.png, the animated flagship to
+zetaray_torch_512_animated.png and the clustered animated default frame to
+zetaray_torch_256_clustered_animated_restir_di.png.
 """
 
 from __future__ import annotations
@@ -143,9 +163,11 @@ import dataclasses
 import json
 import os
 import re
+import shutil
 import statistics
 import struct
 import sys
+import tempfile
 import time
 import zlib
 
@@ -153,6 +175,7 @@ import torch
 
 
 IMAGE_DIR = "chiprun_out"
+ANIM_DT = 0.25  # seconds of the animated box's clip a frame
 TEX_DIR = os.path.join(IMAGE_DIR, "textures")  # the texture maps of the textured and cutout boxes
 
 # The least time the card could take (bound_ms): the larger of the work's
@@ -426,13 +449,17 @@ def main() -> int:
     from zetaray_tpu_torch.render.frame import (
         RenderConfig, pick_rt, render_frame, render_frame_restir,
     )
+    from zetaray_tpu_torch.scene.animation import AnimationRig, transform_deltas
     from zetaray_tpu_torch.scene.camera import Camera
+    from zetaray_tpu_torch.scene.gltf import load_gltf
     from zetaray_tpu_torch.ops.upscale import UpscaleConfig
     from zetaray_tpu_torch.scene.procedural import (
         CAMERA_EYE, CAMERA_TARGET, CAMERA_VFOV, CHECKER, PANEL, PANEL_RECT, PANEL_Z, ROOM,
-        TEX_CHECKER, cornell_box, cutout_box, materials_box, multi_light_box, textured_box,
+        TEX_CHECKER, animated_box, cornell_box, cutout_box, materials_box, multi_light_box,
+        textured_box,
     )
-    from zetaray_tpu_torch.scene.scene import A, upload_scene
+    from zetaray_tpu_torch.scene.refit import refit_scene
+    from zetaray_tpu_torch.scene.scene import A, load_scene, upload_scene
     from zetaray_tpu_torch.scene.textures import apply_textures_to_gbuffer, load_scene_textures
     from zetaray_tpu_torch.scene.subdivide import subdivide_scene
     from zetaray_tpu_torch.timing import card_line, cuda_ms
@@ -862,9 +889,10 @@ def main() -> int:
                              f"leaf rows for {big_cpu.num_tris} triangles")
     rec_c = record["cornell139k"] = {}
 
-    def check_b8(label, o_, d_):
-        t_k, tri_k = ST.stream_closest(big, o_, d_)
-        t_p, tri_p = ST.stream_closest_plain(big, o_, d_)
+    def check_b8(label, o_, d_, sc_=None):
+        sc_ = big if sc_ is None else sc_
+        t_k, tri_k = ST.stream_closest(sc_, o_, d_)
+        t_p, tri_p = ST.stream_closest_plain(sc_, o_, d_)
         torch.cuda.synchronize()
         if not (torch.equal(tri_k, tri_p) and torch.equal(t_k, t_p)):
             raise AssertionError(
@@ -873,8 +901,8 @@ def main() -> int:
         hit = tri_p >= 0
         err = max((t_k[hit] - t_p[hit]).abs().max().item() if hit.any() else 0.0,
                   (tri_k - tri_p).abs().max().item())
-        ms = cuda_ms(lambda: ST.stream_closest(big, o_, d_), reps=10)
-        plain = cuda_ms(lambda: ST.stream_closest_plain(big, o_, d_), reps=1, warmup=0)
+        ms = cuda_ms(lambda: ST.stream_closest(sc_, o_, d_), reps=10)
+        plain = cuda_ms(lambda: ST.stream_closest_plain(sc_, o_, d_), reps=1, warmup=0)
         b_ms, b_by = bound(PAIR_OPS * int(hit.sum().item()),
                            o_.shape[0] * (6 + 2) * F32 + tri_p[hit].unique().numel() * 12 * F32)
         print(f"cornell139k ({tp_c} slots in {n_cl} clusters, {o_.shape[0]} {label}, "
@@ -929,6 +957,85 @@ def main() -> int:
     del og, dg, gk_c, o2c, d2c, rk_c, so_c, seg_c, occ_k, occ_p
     torch.cuda.empty_cache()
 
+    # -- phase 3 on the animated box: the box written as a glTF file (walls,
+    # light and short block one node, the tall block a second node with
+    # LINEAR translation and rotation channels) into a temporary directory,
+    # loaded (load_gltf -> load_scene -> AnimationRig), split like the large
+    # box and uploaded clustered, refit to t = 0.5: B8 and B9 walking the
+    # refit tree against their plain versions, and the refit's time (host
+    # clock after a synchronise, median of 10) on the box and split
+    anim_dir = tempfile.mkdtemp(prefix="zetaray_anim_")
+    try:
+        doc = load_gltf(animated_box(os.path.join(anim_dir, "box.gltf")))
+    finally:
+        shutil.rmtree(anim_dir)
+    anim_cpu, rig = load_scene(doc), AnimationRig(doc)
+    anim_box = upload_scene(anim_cpu, device=dev)
+    anim_big_cpu = subdivide_scene(anim_cpu, 100_000)
+    t_up = time.perf_counter()
+    anim_big = upload_scene(anim_big_cpu, device=dev)
+    torch.cuda.synchronize()
+    t_up = time.perf_counter() - t_up
+    if anim_big.cluster_aabb is None or anim_big_cpu.num_tris != big_cpu.num_tris:
+        raise AssertionError("the split animated box is not the clustered large box")
+
+    def refit_ms(sc_, t_anim, reps=10):
+        times_ = []
+        for _ in range(reps + 1):
+            t_ = time.perf_counter()
+            refit_scene(sc_, *rig.deltas(t_anim))
+            torch.cuda.synchronize()
+            times_.append((time.perf_counter() - t_) * 1e3)
+        return statistics.median(times_[1:])
+
+    refit_times = {"box36": refit_ms(anim_box, 0.5), "box139k": refit_ms(anim_big, 0.5)}
+    posed = refit_scene(anim_big, *rig.deltas(0.5))
+    print(f"animated box: {anim_cpu.num_tris} triangles, {len(doc.instances)} instances, clip "
+          f"{rig.duration} s; split to {anim_big_cpu.num_tris} and uploaded in {t_up:.3f} s; "
+          f"refit to t = 0.5 {refit_times['box36']:.3f} ms (box), {refit_times['box139k']:.3f} "
+          f"ms ({anim_big_cpu.num_tris} triangles, walk tree of {posed.walk_nodes.shape[0]} "
+          f"nodes included)", flush=True)
+    rec_r = record["refit139k"] = {}
+    rec_r["stream_closest"], t_pc = check_b8("camera rays, refit to t = 0.5", oc, dc, posed)
+    og = oc + (t_pc - 1e-3)[:, None] * dc
+    dg = torch.randn(oc.shape, device=dev, generator=torch.Generator(device=dev).manual_seed(11))
+    dg = dg / dg.norm(dim=1, keepdim=True).clamp_min(1e-9)
+    check_b8("GI-like rays, refit to t = 0.5", og, dg, posed)
+    _, tri_pc = ST.stream_closest(posed, oc, dc)  # equal to the plain version (check_b8)
+    on_block = int((posed.inst_id[tri_pc[tri_pc >= 0].long()] == 1).sum().item())
+    _, tri_stale = ST.stream_closest(dataclasses.replace(posed, walk_nodes=anim_big.walk_nodes),
+                                     oc, dc)
+    stale = int((tri_stale != tri_pc).sum().item())
+    if on_block < 1000 or stale == 0:
+        raise AssertionError(f"refit: {on_block} camera rays find the moved block, {stale} "
+                             "differ when B8 walks the upload's boxes")
+    gk_r = MK.gbuffer(posed, oc, dc)
+    rk_r = RD.initial_candidates(gk_r, MK.build_light_sets(posed, seed), seed, rt=pick_rt(n_c))
+    so_r = (gk_r[MK.G.POS : MK.G.POS + 3] + 1e-3 * gk_r[MK.G.NG : MK.G.NG + 3]).T.contiguous()
+    seg_r = (rk_r[0:3] - gk_r[MK.G.POS : MK.G.POS + 3]).T.contiguous()
+    occ_k = ST.occlusion_stream(posed, so_r, seg_r, 1e-3, 1.0 - 1e-3)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    occ_p = ST.occlusion_stream_plain(posed, so_r, seg_r, 1e-3, 1.0 - 1e-3)
+    ev[1].record()
+    torch.cuda.synchronize()
+    plain_ms = ev[0].elapsed_time(ev[1])  # one run: the plain walk takes seconds
+    if not torch.equal(occ_k, occ_p):
+        raise AssertionError(f"occlusion_stream refit139k: {(occ_k != occ_p).sum().item()} "
+                             "segments differ from the plain version")
+    n_occ_r = int(occ_p.sum().item())
+    b_ms, b_by = bound(PAIR_OPS * n_occ_r, n_c * (6 + 1) * F32)
+    rec_r["occlusion_stream"] = dict(
+        max_abs_err=0.0, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, blocked=n_occ_r / n_c,
+        ms=cuda_ms(lambda: ST.occlusion_stream(posed, so_r, seg_r, 1e-3, 1.0 - 1e-3), reps=10))
+    print(f"refit139k ({n_c} DI shadow segments, {n_occ_r / n_c:.4f} blocked): occlusion_stream "
+          f"{rec_r['occlusion_stream']['ms']:.4f} ms (plain {plain_ms:.3f}, bound {b_ms:.4f} by "
+          f"{b_by}), equal on every segment", flush=True)
+    print(f"refit139k: {on_block} camera rays hit the moved block; B8 walking the upload's "
+          f"boxes over the moved rows differs on {stale} of them", flush=True)
+    del og, dg, gk_r, rk_r, so_r, seg_r, posed, tri_stale, occ_k, occ_p
+    torch.cuda.empty_cache()
+
     # -- phase 4: each path through the frame entry point, counts read per path
     scene = upload_scene(cornell_box(), device=dev)
     kernels_of = {
@@ -940,23 +1047,31 @@ def main() -> int:
     di_kernels = ("gbuffer", "ris", "occlusion")
     dense_kernels = ("gbuffer", "occlusion", "bounce_trace", "bounce_shade", "bounce", "closest")
 
-    def chain(cfg_, cam_, expect, frames=4, restir=True, sc=None, absent=(), textures=None):
+    def chain(cfg_, cam_, expect, frames=4, restir=True, sc=None, absent=(), textures=None,
+              animate=False):
         """Render chained frames on ``sc`` (default: the box), with the
         texture bundle ``textures``, the launch counts set to 0 just before
         and read just after; the kernels of ``expect`` must have launched,
-        those of ``absent`` not. Returns (last output, each frame's ms,
-        counts)."""
+        those of ``absent`` not. ``animate``: ``sc`` is the animated box's
+        upload, refit each frame to the rig's time ANIM_DT * k and rendered
+        with the motion from the frame before (the refit inside the frame's
+        time). Returns (last output, each frame's ms, counts)."""
         sc = scene if sc is None else sc
         for fn in kernels_of.values():
             fn.launches = 0
-        state, times = None, []
+        state, times, sc_k, motion = None, [], sc, None
+        w_prev = rig.instance_worlds(0.0) if animate else None
         for k in range(frames):
             t = time.perf_counter()
+            if animate:
+                sc_k = refit_scene(sc, *rig.deltas(ANIM_DT * k))
+                w = rig.instance_worlds(ANIM_DT * k)
+                motion, w_prev = transform_deltas(w, w_prev)[0], w
             if restir:
-                out_, state = render_frame_restir(sc, cam_.with_jitter(k), seed + k, cfg_, state,
-                                                  textures=textures)
+                out_, state = render_frame_restir(sc_k, cam_.with_jitter(k), seed + k, cfg_,
+                                                  state, textures=textures, motion=motion)
             else:
-                out_ = render_frame(sc, cam_.with_jitter(k), seed + k, cfg_)
+                out_ = render_frame(sc_k, cam_.with_jitter(k), seed + k, cfg_)
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t) * 1e3)
         counts = {name: fn.launches for name, fn in kernels_of.items()}
@@ -1361,6 +1476,49 @@ def main() -> int:
               out_cl_rpt["ldr"].cpu().numpy())
     del big
     torch.cuda.empty_cache()
+
+    # the animated box (its tall block sliding and turning, ANIM_DT of the
+    # clip a frame, refit and motion each frame) beside its static twin (the
+    # same upload at rest, no motion): the JAX app's default frame and the
+    # flagship at 512^2, the default frame on the split box at 256^2 (B8 and
+    # B9 on the refit walk tree, no dense kernel), and mode="pt" through
+    # both frame functions (render_frame_restir takes restir_di's branches,
+    # render_frame path-traces whatever the mode)
+    anim_paths = {}
+    for tag, cfg_, sc_, expect, absent, restir in (
+            ("default 512^2", RenderConfig(**app, pt=PTConfig(max_bounces=4)), anim_box,
+             app_kernels, (), True),
+            ("flagship 512^2", RenderConfig(width=res, height=res, **flagship), anim_box,
+             gi_kernels, (), True),
+            ("clustered default 256^2", RenderConfig(width=res_c, height=res_c, mode="restir_di",
+                                                     taa=True, pt=PTConfig(max_bounces=4)),
+             anim_big, ("ris",) + stream_kernels, dense_kernels, True),
+            ("mode=pt, render_frame_restir 512^2", RenderConfig(
+                width=res, height=res, mode="pt", taa=True, pt=PTConfig(max_bounces=4)),
+             anim_box, app_kernels, (), True),
+            ("mode=restir_gi, render_frame 512^2", RenderConfig(
+                width=res, height=res, mode="restir_gi", pt=PTConfig(max_bounces=4)),
+             anim_box, ("bounce",), ("ris", "occlusion"), False)):
+        out_a, times_a, counts_a = chain(cfg_, cam, expect, sc=sc_, absent=absent, restir=restir,
+                                         animate=True)
+        show(f"animated {tag}", times_a, counts_a)
+        out_s, times_s, counts_s = chain(cfg_, cam, expect, sc=sc_, absent=absent, restir=restir)
+        show(f"static twin of the animated {tag}", times_s, counts_s)
+        moved = (out_a["hdr"] != out_s["hdr"]).any(-1).float().mean().item()
+        if moved < 0.01:
+            raise AssertionError(f"animated {tag}: the image does not change with the motion")
+        anim_paths[tag] = dict(ms=statistics.median(times_a[1:]),
+                               static_ms=statistics.median(times_s[1:]), counts=counts_a,
+                               moved=moved, out=out_a)
+    print("animated frames (median of frames 2-4, refit included) against their static twins: "
+          + "; ".join(f"{k} {v['ms']:.3f} / {v['static_ms']:.3f} ms, {v['moved']:.4f} of the "
+                      f"pixels differ" for k, v in anim_paths.items()), flush=True)
+    write_png(os.path.join(IMAGE_DIR, "zetaray_torch_512_animated.png"),
+              anim_paths["flagship 512^2"]["out"]["ldr"].cpu().numpy())
+    write_png(os.path.join(IMAGE_DIR, "zetaray_torch_256_clustered_animated_restir_di.png"),
+              anim_paths["clustered default 256^2"]["out"]["ldr"].cpu().numpy())
+    del anim_big
+    torch.cuda.empty_cache()
     # the box with the masked panel split like the large box (clustered):
     # the default frame at 256^2, every query the re-trace through B8, so no
     # B9 and no dense kernel
@@ -1450,6 +1608,26 @@ def main() -> int:
               f"{cpu_hdr.mean().item():.6f}", flush=True)
         if min(shares) < 0.99:
             raise AssertionError(f"the card's {tag} frame disagrees with the CPU frame")
+    # the animated flagship: two 64^2 frames, the box refit to ANIM_DT and
+    # rendered with its motion, on the card and on the CPU
+    outs = {}
+    for dv in ("cuda", "cpu"):
+        rest_ = upload_scene(anim_cpu, device=dv)
+        state, w_prev = None, rig.instance_worlds(0.0)
+        for k in range(2):
+            w = rig.instance_worlds(ANIM_DT * (k + 1))
+            out_s, state = render_frame_restir(
+                refit_scene(rest_, *rig.deltas(ANIM_DT * (k + 1))), cam.with_jitter(k), seed + k,
+                RenderConfig(width=64, height=64, **flagship), state,
+                motion=transform_deltas(w, w_prev)[0])
+            w_prev = w
+        outs[dv] = out_s["hdr"].cpu()
+    close = ((outs["cuda"] - outs["cpu"]).abs() <= 1e-3 * (1 + outs["cpu"].abs())).all(-1)
+    share = close.float().mean().item()
+    print(f"64^2 animated GI frames, card vs CPU: {share:.4f} of pixels within 1e-3*(1+|x|), "
+          f"means {outs['cuda'].mean().item():.6f} / {outs['cpu'].mean().item():.6f}", flush=True)
+    if share < 0.99:
+        raise AssertionError("the card's animated GI frame disagrees with the CPU frame")
 
     bounce_src = "zetaray_tpu_torch/csrc/bounce.cu"
     sources = {
@@ -1481,6 +1659,11 @@ def main() -> int:
         paths = {k: record[k][name] for k in ("textured36", "cutout36") if name in record[k]}
         if name == "stream_closest":
             paths["cutout147k"] = {"launches": counts_cc[name]}
+        if name in record["refit139k"]:  # B8 and B9 on the refit walk tree, t = 0.5
+            paths["refit139k"] = record["refit139k"][name]
+        animated = {k: v["counts"][name] for k, v in anim_paths.items() if v["counts"][name]}
+        if animated:  # launches of the animated frames, a chain of 4
+            paths["animated"] = {"launches": animated}
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": launches_of[name], **rec_of[name], "library_ms": None,

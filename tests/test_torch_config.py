@@ -91,7 +91,7 @@ def test_jax_sky_config_converts():
     assert isinstance(pt.sky, SkyParams)
     for mode in ("restir_di", "restir_gi", "restir_pt"):
         TF.RenderConfig(mode=mode, pt=pt).check_ported()
-    TF.RenderConfig(mode="pt", pt=pt).check_ported(plain=True)
+    TF.RenderConfig(mode="pt", pt=pt).check_ported()
 
 
 REUSE_OPTIONS = [

@@ -854,3 +854,87 @@ def test_card_textured_and_cutout_frames_match_cpu_frames(cuda, tmp_path, name):
     assert torch.isfinite(got).all() and got.mean() > 0
     close = ((got - want).abs() <= 1e-3 * (1 + want.abs())).all(-1)
     assert close.float().mean() >= 0.99
+
+
+def _animated_box(tmp_path, subdivide_to):
+    """The animated box (procedural.animated_box) split to ``subdivide_to``
+    triangles, and its rig."""
+    from zetaray_tpu_torch.scene.animation import AnimationRig
+    from zetaray_tpu_torch.scene.gltf import load_gltf
+    from zetaray_tpu_torch.scene.procedural import animated_box
+    from zetaray_tpu_torch.scene.scene import load_scene
+
+    doc = load_gltf(animated_box(tmp_path / "box.gltf"))
+    return subdivide_scene(load_scene(doc), subdivide_to), AnimationRig(doc)
+
+
+def _stream_hits(scene, o, d):
+    """B8 on camera rays and on rays leaving their hits in random
+    directions, each held against its plain version; B9 on DI shadow
+    segments, held too. Returns B8's (t, slot) on the camera rays."""
+    t, tri = ST.stream_closest(scene, o, d)
+    t_p, tri_p = ST.stream_closest_plain(scene, o, d)
+    assert torch.equal(tri, tri_p) and torch.equal(t, t_p)
+    g = torch.Generator(device=o.device).manual_seed(SEED)
+    dg = torch.randn(o.shape, device=o.device, generator=g)
+    dg = dg / dg.norm(dim=1, keepdim=True)
+    og = o + (t_p - 1e-3)[:, None] * d
+    t2, tri2 = ST.stream_closest(scene, og, dg)
+    t2_p, tri2_p = ST.stream_closest_plain(scene, og, dg)
+    assert torch.equal(tri2, tri2_p) and torch.equal(t2, t2_p)
+    gb = MK.gbuffer(scene, o, d)
+    rk = RD.initial_candidates(gb, MK.build_light_sets(scene, SEED), SEED, rt=pick_rt(o.shape[0]))
+    so = (gb[MK.G.POS : MK.G.POS + 3] + 1e-3 * gb[MK.G.NG : MK.G.NG + 3]).T.contiguous()
+    seg = (rk[0:3] - gb[MK.G.POS : MK.G.POS + 3]).T.contiguous()
+    occ = ST.occlusion_stream(scene, so, seg, 1e-3, 1.0 - 1e-3)
+    assert torch.equal(occ, ST.occlusion_stream_plain(scene, so, seg, 1e-3, 1.0 - 1e-3))
+    assert 0 < occ.sum() < occ.numel()
+    return t, tri
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("split", [(500, 128), (8193, None)], ids=["box546", "box8706"])
+@pytest.mark.parametrize("t", [0.5, 1.0])
+def test_stream_kernels_on_a_refit_scene_match_plain(cuda, tmp_path, split, t):
+    """B8 and B9 walking the refit walk tree of the animated box (its tall
+    block moved) equal their plain versions (max abs err 0), and find the
+    block where it moved to; walking the upload's boxes instead loses hits."""
+    from dataclasses import replace
+
+    from zetaray_tpu_torch.scene.refit import refit_scene
+
+    cpu, rig = _animated_box(tmp_path, split[0])
+    rest = upload_scene(cpu, device=cuda, cluster_size=split[1])
+    assert rest.cluster_aabb is not None
+    posed = refit_scene(rest, *rig.deltas(t))
+    _, o, d = _rays(cuda)
+    _, tri = _stream_hits(posed, o, d)
+    assert (posed.inst_id[tri[tri >= 0].long()] == 1).sum() > 100
+    _, tri_stale = ST.stream_closest(replace(posed, walk_nodes=rest.walk_nodes), o, d)
+    assert not torch.equal(tri_stale, tri)
+
+
+@pytest.mark.cuda
+def test_refit_to_a_pose_and_back_gives_the_rest_hits(cuda, tmp_path):
+    """The rig back at its rest time after a pose: B8's hits and the walk
+    tree equal those of the rest time's refit taken before the pose, bit for
+    bit (nothing of the pose stays behind), and B8's hits on the upload on
+    99.9% of the rays, t to 1e-5 (the refit's float32 Woop rows against the
+    upload's float64 ones; the clip's keys, float32, put the rest time's
+    block an ulp off the node's rest translation)."""
+    from zetaray_tpu_torch.scene.refit import refit_scene
+
+    cpu, rig = _animated_box(tmp_path, 8193)
+    rest = upload_scene(cpu, device=cuda)
+    _, o, d = _rays(cuda)
+    at_rest = refit_scene(rest, *rig.deltas(0.0))
+    first = _stream_hits(at_rest, o, d)
+    _stream_hits(refit_scene(rest, *rig.deltas(1.0)), o, d)
+    back = refit_scene(rest, *rig.deltas(rig.duration))  # the loop wraps to 0
+    again = _stream_hits(back, o, d)
+    assert torch.equal(again[0], first[0]) and torch.equal(again[1], first[1])
+    assert torch.equal(back.walk_nodes, at_rest.walk_nodes)
+    t_r, tri_r = _stream_hits(rest, o, d)
+    assert (again[1] == tri_r).float().mean() >= 0.999
+    same = (again[1] == tri_r) & (tri_r >= 0)
+    torch.testing.assert_close(again[0][same], t_r[same], rtol=1e-5, atol=1e-5)

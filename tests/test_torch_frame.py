@@ -22,8 +22,10 @@ from zetaray_tpu_torch.interop import camera_from_arrays, frame_state_from_array
 from zetaray_tpu_torch.ops.pathtracer import PTConfig
 from zetaray_tpu_torch.ops.restir_gi import ReSTIRGIConfig
 from zetaray_tpu_torch.ops.sky import SkyParams
-from zetaray_tpu_torch.render.frame import RenderConfig, render_frame_restir
+from zetaray_tpu_torch.render.frame import RenderConfig, render_frame, render_frame_restir
 from zetaray_tpu_torch.scene.procedural import CAMERA_EYE, CAMERA_TARGET, CAMERA_VFOV, cornell_box
+from zetaray_tpu_torch.scene.scene import upload_scene
+from zetaray_tpu_torch.scene.subdivide import subdivide_scene
 from tests.test_torch_restir_di import cam_dict
 from tests.test_torch_scene import scene_pair
 
@@ -116,15 +118,15 @@ def test_unported_settings_raise():
     RenderConfig(**gi).check_ported()  # the whole flagship frame is ported
     RenderConfig(**{**gi, "mode": "restir_pt"}).check_ported()  # and ReSTIR PT
     RenderConfig(**{**gi, "mode": "restir_di"}).check_ported()  # and the JAX app's default
-    RenderConfig(**{**gi, "mode": "pt"}).check_ported(plain=True)  # and plain PT
+    RenderConfig(**{**gi, "mode": "pt"}).check_ported()  # and plain PT
     # render_frame reads neither the reuse passes nor the post chain's filters
-    RenderConfig(**{**gi, "mode": "pt", "firefly_factor": 2.0}).check_ported(plain=True)
+    RenderConfig(**{**gi, "mode": "pt", "firefly_factor": 2.0}).check_ported()
     # the sun and sky and the path options, in every mode
     opts = PTConfig(sky=SkyParams(), stochastic_multi_bounce=True, path_regularization=True,
                     firefly_clamp=10.0)
     for mode in ("restir_di", "restir_gi", "restir_pt"):
         RenderConfig(**{**gi, "mode": mode, "pt": opts}).check_ported()
-    RenderConfig(**{**gi, "mode": "pt", "pt": opts}).check_ported(plain=True)
+    RenderConfig(**{**gi, "mode": "pt", "pt": opts}).check_ported()
     # the light voxel grid, pairwise MIS, SkyDI and volumetrics, in every mode
     from zetaray_tpu_torch.ops.restir_di import ReSTIRConfig
     from zetaray_tpu_torch.ops.skydi import SkyDIConfig
@@ -136,7 +138,7 @@ def test_unported_settings_raise():
                     volumetrics=VolumetricsConfig(), pt=PTConfig(sky=SkyParams()))
     for mode in ("restir_di", "restir_gi", "restir_pt"):
         RenderConfig(**{**gi, **features, "mode": mode}).check_ported()
-    RenderConfig(**{**gi, **features, "mode": "pt"}).check_ported(plain=True)
+    RenderConfig(**{**gi, **features, "mode": "pt"}).check_ported()
     # the upscaler and the display options, in every mode; WoPS NEE
     from zetaray_tpu_torch.ops.upscale import UpscaleConfig
 
@@ -148,20 +150,28 @@ def test_unported_settings_raise():
             RenderConfig(**{**gi, **kw, "mode": mode}).check_ported()
     for kw in ({"pt": PTConfig(nee_mode="wops")}, {"tonemapper": "agx_punchy"},
                {"exposure_mode": "weighted_avg"}):
-        RenderConfig(**{**gi, **kw, "mode": "pt"}).check_ported(plain=True)
-    # what stays refused: each frame's other modes
-    with pytest.raises(NotImplementedError):
-        RenderConfig(**{**gi, "mode": "pt"}).check_ported()
-    for kw in ({"mode": "restir_gi"}, {"mode": "restir_pt"}, {"mode": "restir_di"}):
-        cfg = RenderConfig(**{**gi, "mode": "pt", **kw})
-        with pytest.raises(NotImplementedError):
-            cfg.check_ported(plain=True)
-    # ReSTIR PT on a clustered scene renders (B8 and B9 on the card)
-    from zetaray_tpu_torch.scene.scene import upload_scene
-    from zetaray_tpu_torch.scene.subdivide import subdivide_scene
-
-    clustered = upload_scene(subdivide_scene(cornell_box(), 500), device="cpu", cluster_size=128)
+        RenderConfig(**{**gi, **kw, "mode": "pt"}).check_ported()
+    # each frame takes the other's modes, as the JAX frames do: "pt" in
+    # render_frame_restir (the branches of restir_di), every restir_* mode in
+    # render_frame (it traces cfg.pt whatever the mode); an unknown mode raises
+    for mode in ("pt", "restir_gi", "restir_pt", "restir_di"):
+        RenderConfig(**{**gi, "mode": mode}).check_ported()
+    with pytest.raises(ValueError, match="mode"):
+        RenderConfig(**{**gi, "mode": "restir"}).check_ported()
+    box = upload_scene(cornell_box(), device="cpu")
     cam = camera_from_arrays(cam_dict(_camera(0)))
+    small = {**gi, "width": 16, "height": 16}
+    out, _ = render_frame_restir(box, cam, 1, RenderConfig(**{**small, "mode": "pt"}), None)
+    twin, _ = render_frame_restir(box, cam, 1, RenderConfig(**{**small, "mode": "restir_di"}),
+                                  None)
+    assert torch.equal(out["hdr"], twin["hdr"]) and out["hdr"].mean() > 0
+    frames = [render_frame(box, cam, 1, RenderConfig(**{**small, "mode": m}))["hdr"]
+              for m in ("pt", "restir_gi")]
+    assert torch.equal(*frames) and frames[0].mean() > 0
+    with pytest.raises(NotImplementedError, match="shard"):
+        render_frame_restir(box, cam, 1, RenderConfig(**small), None, shard=object())
+    # ReSTIR PT on a clustered scene renders (B8 and B9 on the card)
+    clustered = upload_scene(subdivide_scene(cornell_box(), 500), device="cpu", cluster_size=128)
     cfg = RenderConfig(**{**gi, "mode": "restir_pt", "width": 16, "height": 16})
     out, state = render_frame_restir(clustered, cam, 1, cfg, None)
     assert torch.isfinite(out["hdr"]).all() and out["hdr"].mean() > 0

@@ -26,8 +26,11 @@ unless told otherwise (``native.default_device``).
 
 Package layout mirrors the JAX package:
   core/    pcg4d, SoA vectors, packing, sampling, transforms
-  scene/   host scene arrays, upload (with the alpha atlas of cutout
-           materials), procedural Cornell boxes, camera, textures
+  scene/   host scene arrays, glTF loading and the packed vertex format,
+           upload (with the alpha atlas of cutout materials), the animation
+           rig, the device refit (B8/B9's walk tree included), instance
+           edits, procedural Cornell boxes (one as an animated glTF file),
+           camera, textures
   accel/   G-buffer, occlusion, closest-hit and path bounce kernels, the
            alpha-cutout re-trace around the closest hits
   ops/     lights, shading, the path tracer, ReSTIR DI, GI and PT,

@@ -268,9 +268,15 @@ def walk_tree(tree: dict, cluster_size: int, woop: np.ndarray, v0: np.ndarray,
     box is the cluster tree's; a sub-tree box is grown by ``TREE_PAD_REL``
     of the cluster boxes' largest coordinate and rounded outward, as the
     cluster tree's are. ``leaf_slot`` [R] int32: the slot of each row in
-    leaf order. And ``walk_stack``: the most stack entries a walk can need,
-    which sizes the walks' stacks at launch.
-    Raises if that is more than ``WALK_STACK_MAX``."""
+    leaf order. ``walk_stack``: the most stack entries a walk can need,
+    which sizes the walks' stacks at launch. And what ``scene.refit``
+    needs to recompute every box from moved triangles: ``walk_span`` [K, 4]
+    int32, each child's span (a0, b0, a1, b1), in the first ``walk_top``
+    nodes (the cluster tree's) a span of ``walk_cluster_order`` [M] int32
+    (the clusters in the cluster tree's leaf order; a child's box is its
+    clusters' boxes padded), in the others a span of the rows in leaf order
+    (a child's box is its rows' triangles padded).
+    Raises if the stack is more than ``WALK_STACK_MAX``."""
     tp = woop.shape[1] // 3
     slots = np.nonzero((np.asarray(woop).reshape(4, 3, tp) != 0).any((0, 1)))[0]
     v0 = np.asarray(v0, np.float64)[slots]
@@ -344,11 +350,30 @@ def walk_tree(tree: dict, cluster_size: int, woop: np.ndarray, v0: np.ndarray,
     for side, kids in enumerate((left[top], right[top])):
         r = np.where(cl[kids] >= 0, sub_root[np.maximum(cl[kids], 0)], top_id[kids])
         put(top_id[top], side, tree["tree_lo"][kids], tree["tree_hi"][kids], r)
+    # each child's span: the cluster tree's over its leaf order, the
+    # sub-trees' over the rows
+    count = (cl >= 0).astype(np.int64)
+    for k in range(cl.shape[0] - 1, -1, -1):
+        if cl[k] < 0:
+            count[k] = count[left[k]] + count[right[k]]
+    offset = np.zeros(cl.shape[0], np.int64)
+    for k in range(cl.shape[0]):
+        if cl[k] < 0:
+            offset[left[k]], offset[right[k]] = offset[k], offset[k] + count[left[k]]
+    cluster_order = np.zeros(m, np.int32)
+    cluster_order[offset[cl >= 0]] = cl[cl >= 0]
+    span = lambda kids: np.stack([offset[kids], offset[kids] + count[kids]], 1)
+    walk_span = np.concatenate([
+        np.concatenate([span(left[top]), span(right[top])], 1),
+        np.stack([kid_a[0::2], kid_b[0::2], kid_a[1::2], kid_b[1::2]], 1),
+    ]).astype(np.int32)
+    walk_top = n_top
     if n_top == 0 and n_sub == 0:  # one cluster of one leaf: a root above it
         nodes = np.zeros((1, 16), np.int32)
         f = nodes[:, :12].view(np.float32)
         put([0], 0, tree["tree_lo"][:1], tree["tree_hi"][:1], sub_root[:1])
         put([0], 1, tree["tree_lo"][:1], tree["tree_hi"][:1], [~0])
+        walk_span, walk_top = np.array([[0, 1, 0, 1]], np.int32), 1
     # the stack holds at most one entry for each inner node above a node: a
     # cluster's depth in the cluster tree, and the levels of its sub-tree (at
     # least one: the root above a lone leaf pushes its other child)
@@ -359,4 +384,5 @@ def walk_tree(tree: dict, cluster_size: int, woop: np.ndarray, v0: np.ndarray,
     if stack > WALK_STACK_MAX:
         raise ValueError(f"the walk's tree needs a stack of {stack} nodes, more than its "
                          f"traversal stack may hold ({WALK_STACK_MAX})")
-    return dict(walk_nodes=nodes, leaf_slot=slots[order].astype(np.int32), walk_stack=stack)
+    return dict(walk_nodes=nodes, leaf_slot=slots[order].astype(np.int32), walk_stack=stack,
+                walk_span=walk_span, walk_top=walk_top, walk_cluster_order=cluster_order)

@@ -281,11 +281,12 @@ def drop_m_w(res, ok):
     }, like=res)
 
 
-def reproject_prev(gbuf, prev_cam, width: int, height: int):
+def reproject_prev(gbuf, prev_cam, width: int, height: int, pos_prev=None):
     """Previous-frame flat index of each pixel's hit point:
-    (idx, inside, depth of the point from the previous eye)."""
-    pos = v3.from_rows(gbuf, G.POS)
-    p_world = v3.aos3(pos)
+    (idx, inside, depth of the point from the previous eye). ``pos_prev``
+    [N, 3]: the hit points' previous-frame positions (moving geometry);
+    by default the current ones."""
+    p_world = v3.aos3(v3.from_rows(gbuf, G.POS)) if pos_prev is None else pos_prev
     px, py, w_fwd = prev_cam.project(p_world, width, height)
     rel = p_world - torch.tensor(np.asarray(prev_cam.eye, np.float32), device=gbuf.device)
     depth_prev_est = torch.sqrt(torch.clamp_min(
@@ -301,10 +302,11 @@ def reproject_prev(gbuf, prev_cam, width: int, height: int):
 
 
 def temporal_reuse(res, prev_res, prev_gbuf, gbuf, prev_cam, width, height, seed,
-                   cfg: ReSTIRConfig, trans=False, coat=False, prefetch=None):
+                   cfg: ReSTIRConfig, trans=False, coat=False, pos_prev=None, prefetch=None):
     """Merge the reprojected previous-frame reservoirs into the current ones.
 
     ``prev_gbuf`` is the previous frame's packed temporal G-buffer (TG);
+    ``pos_prev`` the hit points' previous-frame positions (``reproject_prev``);
     ``prefetch`` = (prev reservoirs, prev packed G, inside, depth estimate)
     when the frame's joint gather already fetched them.
     """
@@ -314,7 +316,7 @@ def temporal_reuse(res, prev_res, prev_gbuf, gbuf, prev_cam, width, height, seed
     if prefetch is not None:
         prev_r, prev_g, inside, depth_prev_est = prefetch
     else:
-        idx, inside, depth_prev_est = reproject_prev(gbuf, prev_cam, width, height)
+        idx, inside, depth_prev_est = reproject_prev(gbuf, prev_cam, width, height, pos_prev)
         prev_r, prev_g = gather_reservoirs(prev_res, prev_gbuf, idx, cfg.packed_reuse)
     ok = inside & temporal_geom_ok(prev_g, ns, depth_prev_est, cfg.depth_tolerance,
                                    cfg.normal_tolerance) & valid

@@ -269,9 +269,10 @@ def suppress_outlier_reservoirs(res, group: int = 32, w_sum_row: int = 9, m_row:
 
 
 def temporal_reuse(res, prev_res, prev_gbuf, gbuf, prev_cam, width, height, seed,
-                   cfg: ReSTIRGIConfig, trans=False, coat=False, prefetch=None):
+                   cfg: ReSTIRGIConfig, trans=False, coat=False, pos_prev=None, prefetch=None):
     """Merge the reprojected previous-frame reservoirs into the current ones,
     then suppress outliers. ``prev_gbuf`` is the packed temporal G-buffer;
+    ``pos_prev`` the hit points' previous-frame positions (moving geometry);
     ``prefetch`` = (prev reservoirs, prev packed G, inside, depth estimate)
     when the frame's joint gather already fetched them."""
     n = res.shape[1]
@@ -279,7 +280,7 @@ def temporal_reuse(res, prev_res, prev_gbuf, gbuf, prev_cam, width, height, seed
     if prefetch is not None:
         prev_r, prev_g, inside, depth_est = prefetch
     else:
-        idx, inside, depth_est = reproject_prev(gbuf, prev_cam, width, height)
+        idx, inside, depth_est = reproject_prev(gbuf, prev_cam, width, height, pos_prev)
         prev_r, prev_g = gather_reservoirs(prev_res, prev_gbuf, idx, cfg.packed_reuse)
     ok = inside & temporal_geom_ok(prev_g, surf[1], depth_est, cfg.depth_tolerance,
                                    cfg.normal_tolerance)

@@ -538,17 +538,19 @@ def _drop_m_w(res, ok):
 
 
 def temporal_reuse(res, prev_res, prev_gbuf, gbuf, prev_cam, width, height, seed,
-                   cfg: ReSTIRPTConfig, scene=None, prefetch=None, trans=False, coat=False):
+                   cfg: ReSTIRPTConfig, scene=None, prefetch=None, trans=False, coat=False,
+                   pos_prev=None):
     """Merge the reprojected previous-frame reservoirs (M capped at
     ``m_max``; ``scene`` enables the replay shift), then suppress outliers.
-    ``prev_gbuf`` is the packed temporal G-buffer; ``prefetch`` = (prev
+    ``prev_gbuf`` is the packed temporal G-buffer; ``pos_prev`` the hit
+    points' previous-frame positions (moving geometry); ``prefetch`` = (prev
     reservoirs, prev packed G, inside, depth estimate) when the frame's
     joint gather already fetched them."""
     surf = _surf(gbuf, trans, coat)
     if prefetch is not None:
         prev_r, prev_g, inside, depth_est = prefetch
     else:
-        idx, inside, depth_est = reproject_prev(gbuf, prev_cam, width, height)
+        idx, inside, depth_est = reproject_prev(gbuf, prev_cam, width, height, pos_prev)
         if cfg.packed_reuse:
             src = prev_res if prev_res.shape[0] == PT_PACKED_ROWS else pack_pt(prev_res)
             prev_p, prev_g = take_multi([src, prev_gbuf], idx)

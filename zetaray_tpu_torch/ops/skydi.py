@@ -161,13 +161,15 @@ def initial_candidates(gbuf, sky, seed: int, cfg: SkyDIConfig, trans=False,
 
 
 def temporal_reuse(res, prev_res, prev_gbuf, gbuf, prev_cam, width: int, height: int,
-                   seed: int, cfg: SkyDIConfig, sky, trans=False, coat=False) -> torch.Tensor:
+                   seed: int, cfg: SkyDIConfig, sky, trans=False, coat=False,
+                   pos_prev=None) -> torch.Tensor:
     """Merge the reprojected previous-frame direction reservoir
     (``uniform4(pixel, 0, seed, 0x50D7)``). ``prev_gbuf`` is the previous
-    frame's packed temporal G-buffer."""
+    frame's packed temporal G-buffer; ``pos_prev`` [N, 3] the hit points'
+    previous-frame positions (moving geometry), by default the current ones."""
     n = res.shape[1]
     pos, ns, _ng, mat, frame, wo_l, valid = _surf(gbuf, trans, coat)
-    p_world = v3.aos3(pos)
+    p_world = v3.aos3(pos) if pos_prev is None else pos_prev
     px, py, w_fwd = prev_cam.project(p_world, width, height)
     rel = p_world - torch.tensor(np.asarray(prev_cam.eye, np.float32), device=gbuf.device)
     depth_est = torch.sqrt(torch.clamp_min(

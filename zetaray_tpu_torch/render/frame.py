@@ -4,18 +4,29 @@ and the plain path-traced ``render_frame``.
 ``render_frame_restir`` covers ``mode="restir_di"`` (the JAX app's default
 frame: ReSTIR DI with the indirect light path-traced), ``mode="restir_gi"``
 (the flagship ``RenderConfig(mode="restir_gi", pt=PTConfig(max_bounces=3),
-denoise=True, taa=True)``) and ``mode="restir_pt"``, with the indirect pass
-on or off. It runs camera rays -> G-buffer -> presampled light sets -> DI
-RIS -> DI temporal -> DI visibility -> DI spatial -> DI shade -> the
-indirect pass (a path trace of the camera rays past their first hit, or
-ReSTIR GI or ReSTIR PT: initial samples, temporal reuse with boiling
-suppression, spatial reuse, shade) -> the firefly filter -> a-trous -> TAA
+denoise=True, taa=True)``), ``mode="restir_pt"`` and ``mode="pt"`` (which
+takes the branches of ``"restir_di"``, as in the JAX frame), with the
+indirect pass on or off. It runs camera rays -> G-buffer -> presampled
+light sets -> DI RIS -> DI temporal -> DI visibility -> DI spatial -> DI
+shade -> the indirect pass (a path trace of the camera rays past their
+first hit, or ReSTIR GI or ReSTIR PT: initial samples, temporal reuse with
+boiling suppression, spatial reuse, shade) -> the firefly filter -> a-trous -> TAA
 or the temporal upscaler -> exposure (histogram or weighted average), a
 tonemapper of ``ops.post.TONEMAPPERS_P``, RCAS after an upscale, and sRGB,
 in the JAX frame's order. In the GI and PT modes one
 reprojection and one gather serve both temporal passes, and the pre-spatial
-DI and indirect reservoirs are fed forward. ``render_frame`` covers
-``mode="pt"``. A setting outside these raises ``NotImplementedError``.
+DI and indirect reservoirs are fed forward. ``render_frame`` path-traces
+the camera rays with ``cfg.pt`` whatever ``cfg.mode`` says, as the JAX
+function does. ``shard`` raises ``NotImplementedError``; an unknown mode
+or tonemapper raises ``ValueError``.
+
+Animated geometry: ``motion`` [I+1, 3, 4] holds each instance's curr ->
+prev world transform (row I the identity, which primary misses take),
+``animation.transform_deltas(W_curr, W_prev)[0]``. ``_prev_positions``
+gives each pixel's hit point in the previous frame, and every temporal
+pass (the joint gather, DI, GI, PT and SkyDI temporal reuse) and TAA or
+the upscaler reproject that point instead of the current one. The scene
+itself moves through ``scene.refit.refit_scene`` before the frame.
 
 With ``render_scale`` != 1 everything up to the post chain runs at the
 render resolution (``render_size``) and ``ops.upscale.taau_resolve``
@@ -96,6 +107,9 @@ from ..ops.reservoir_pack import pack_di, pack_pt, unpack_di, unpack_pt
 from ..scene.camera import Camera
 
 
+MODES = ("pt", "restir_di", "restir_gi", "restir_pt")
+
+
 @dataclass(frozen=True)
 class RenderConfig:
     """Per-frame settings; field names and defaults follow the JAX package."""
@@ -136,15 +150,12 @@ class RenderConfig:
         if self.upscale_cfg is None:
             object.__setattr__(self, "upscale_cfg", UP.UpscaleConfig())
 
-    def check_ported(self, plain: bool = False) -> None:
-        """Raise ``NotImplementedError`` for a mode the frame does not render
-        (``render_frame_restir``, or with ``plain`` ``render_frame``) and
-        ``ValueError`` for a tonemapper that ``ops.post.TONEMAPPERS_P`` does
-        not name."""
-        modes = ("pt",) if plain else ("restir_di", "restir_gi", "restir_pt")
-        if self.mode not in modes:
-            name = "render_frame" if plain else "render_frame_restir"
-            raise NotImplementedError(f"not ported yet: mode={self.mode!r} in {name}")
+    def check_ported(self) -> None:
+        """Raise ``ValueError`` for a mode that is none of ``MODES`` or a
+        tonemapper that ``ops.post.TONEMAPPERS_P`` does not name. Both frame
+        functions render every mode."""
+        if self.mode not in MODES:
+            raise ValueError(f"unknown mode {self.mode!r}; one of {MODES}")
         if self.tonemapper not in post.TONEMAPPERS_P:
             raise ValueError(f"unknown tonemapper {self.tonemapper!r}; "
                              f"one of {sorted(post.TONEMAPPERS_P)}")
@@ -196,6 +207,16 @@ def _postprocess(hdr, cfg: RenderConfig, ldr_transform=None):
     return post.to_u8(post.srgb_encode(ldr))
 
 
+def _prev_positions(gb, motion) -> torch.Tensor:
+    """Each pixel's hit point in the previous frame, [N, 3]: its instance's
+    row of ``motion`` [I+1, 3, 4] (curr -> prev; a miss, G.INST -1, takes
+    row I, the identity) applied to G.POS."""
+    motion = torch.as_tensor(motion, dtype=torch.float32, device=gb.device)
+    inst = gb[G.INST]
+    m = motion[torch.where(inst < 0.0, motion.shape[0] - 1, inst).long()]
+    return torch.einsum("nij,nj->ni", m[:, :, :3], gb[G.POS : G.POS + 3].T) + m[:, :, 3]
+
+
 def _lens_u(camera: Camera, seed: int, n: int, device):
     """Per-pixel lens-disk uniforms [n, 2] of a thin-lens camera, or None
     for a pinhole: ``uniform4(pixel, 0, seed, 0x0D0F)``, the first two.
@@ -241,7 +262,7 @@ def _inscatter(scene, camera, gb, hdr, cfg: RenderConfig):
     return VL.apply_inscattering(hdr, gb, camera, froxels, cfg.volumetrics, w, h)
 
 
-def _skydi(scene, gb, state, w, h, seed, cfg: RenderConfig):
+def _skydi(scene, gb, state, w, h, seed, cfg: RenderConfig, pos_prev=None):
     """SkyDI's direct light ([3, N]) and the pre-spatial reservoirs the next
     frame reuses."""
     sky, sd_cfg = cfg.pt.sky, cfg.skydi_cfg
@@ -249,17 +270,19 @@ def _skydi(scene, gb, state, w, h, seed, cfg: RenderConfig):
     sky_res = SD.initial_candidates(gb, sky, seed, sd_cfg, **mat)
     if sd_cfg.temporal and state is not None and state.sky_reservoirs is not None:
         sky_res = SD.temporal_reuse(sky_res, state.sky_reservoirs, state.gbuf, gb,
-                                    state.camera_prev, w, h, seed, sd_cfg, sky, **mat)
+                                    state.camera_prev, w, h, seed, sd_cfg, sky,
+                                    pos_prev=pos_prev, **mat)
     sky_sp = SD.spatial_reuse(sky_res, gb, w, h, seed, sd_cfg, **mat)
     return SD.shade(scene, sky_sp, gb, **mat), sky_res
 
 
 def render_frame(scene, camera: Camera, seed: int, cfg: RenderConfig):
-    """One plain path-traced frame (``mode="pt"``) on ``scene.device``:
-    {"hdr": [H, W, 3] float32, "ldr": [H, W, 3] uint8}. ``seed`` is the u32
-    frame seed. The camera rays are path-traced by B6 with ``cfg.pt``. Like
-    the JAX function it renders at the display size (no upscaler)."""
-    cfg.check_ported(plain=True)
+    """One plain path-traced frame on ``scene.device``: {"hdr": [H, W, 3]
+    float32, "ldr": [H, W, 3] uint8}. ``seed`` is the u32 frame seed. The
+    camera rays are path-traced by B6 with ``cfg.pt`` whatever ``cfg.mode``
+    says. Like the JAX function it renders at the display size (no
+    upscaler)."""
+    cfg.check_ported()
     w, h = cfg.width, cfg.height
     o, d = camera.generate_rays(w, h, _lens_u(camera, seed, w * h, scene.device),
                                 device=scene.device)
@@ -275,13 +298,13 @@ def render_frame_restir(scene, camera: Camera, seed: int, cfg: RenderConfig,
     """One frame on ``scene.device``: returns ({"hdr": [H, W, 3] float32,
     "ldr": [H, W, 3] uint8}, FrameState) at the display size.
     ``seed`` is the u32 frame seed; ``textures``: a texture bundle on the
-    scene's device (module docstring)."""
+    scene's device; ``motion``: [I+1, 3, 4] curr -> prev instance transforms
+    (module docstring)."""
     from ..scene.textures import apply_textures_to_gbuffer
 
     cfg.check_ported()
-    for name, value in (("motion", motion), ("shard", shard)):
-        if value is not None:
-            raise NotImplementedError(f"{name} is not ported yet")
+    if shard is not None:
+        raise NotImplementedError("shard is not ported yet")
     w, h = cfg.render_size()
     dev = scene.device
     o, d = camera.generate_rays(w, h, _lens_u(camera, seed, w * h, dev), device=dev)
@@ -292,9 +315,10 @@ def render_frame_restir(scene, camera: Camera, seed: int, cfg: RenderConfig,
     tex = dict(textures=textures, spread_angle=spread)
     if textures:
         gb = apply_textures_to_gbuffer(gb, textures, spread_angle=spread)
+    pos_prev = _prev_positions(gb, motion) if motion is not None else None
     lsets = build_light_sets(scene, seed)
     mat = dict(trans=scene.has_transmission, coat=scene.has_coat)
-    pt_mode = cfg.mode == "restir_pt"  # check_ported admits restir_di, restir_gi, restir_pt
+    pt_mode = cfg.mode == "restir_pt"
     ind_cfg = cfg.restir_pt if pt_mode else cfg.restir_gi
     pack_ind, unpack_ind = (pack_pt, unpack_pt) if pt_mode else (pack_di, unpack_di)
 
@@ -306,7 +330,7 @@ def render_frame_restir(scene, camera: Camera, seed: int, cfg: RenderConfig,
     if (state is not None and cfg.indirect and cfg.restir.temporal and ind_cfg.temporal
             and cfg.restir.packed_reuse and ind_cfg.packed_reuse
             and cfg.mode in ("restir_gi", "restir_pt")):
-        idx, inside, depth_est = RD.reproject_prev(gb, state.camera_prev, w, h)
+        idx, inside, depth_est = RD.reproject_prev(gb, state.camera_prev, w, h, pos_prev)
         p_di, p_ind, p_g = RD.take_multi(
             [pack_di(state.reservoirs), pack_ind(state.gi_reservoirs), state.gbuf], idx
         )
@@ -323,7 +347,7 @@ def render_frame_restir(scene, camera: Camera, seed: int, cfg: RenderConfig,
     if cfg.restir.temporal and state is not None:
         res = RD.temporal_reuse(
             res, state.reservoirs, state.gbuf, gb, state.camera_prev, w, h, seed, cfg.restir,
-            prefetch=pf_di, **mat,
+            pos_prev=pos_prev, prefetch=pf_di, **mat,
         )
     res = RD.visibility_reuse(scene, res, gb)
     res_sp = RD.spatial_reuse(res, gb, w, h, seed, cfg.restir, **mat)
@@ -332,7 +356,7 @@ def render_frame_restir(scene, camera: Camera, seed: int, cfg: RenderConfig,
     use_skydi = cfg.skydi and cfg.pt.sky is not None and cfg.mode in ("restir_gi", "restir_pt")
     sky_res = None
     if use_skydi:
-        sky_direct, sky_res = _skydi(scene, gb, state, w, h, seed, cfg)
+        sky_direct, sky_res = _skydi(scene, gb, state, w, h, seed, cfg, pos_prev)
         direct = direct + sky_direct + _sky_background(gb, cfg.pt.sky)
 
     ind_res = torch.zeros_like(res)
@@ -345,7 +369,7 @@ def render_frame_restir(scene, camera: Camera, seed: int, cfg: RenderConfig,
         if temporal:
             ind_res = RP.temporal_reuse(
                 ind_res, state.gi_reservoirs, state.gbuf, gb, state.camera_prev, w, h, seed,
-                cfg.restir_pt, scene=scene, prefetch=pf_ind, **mat,
+                cfg.restir_pt, scene=scene, pos_prev=pos_prev, prefetch=pf_ind, **mat,
             )
         pt_sp = RP.spatial_reuse(ind_res, gb, w, h, seed, cfg.restir_pt, scene=scene, **mat)
         indirect = RP.shade(scene, pt_sp, gb, **mat)
@@ -357,14 +381,15 @@ def render_frame_restir(scene, camera: Camera, seed: int, cfg: RenderConfig,
         if temporal:
             ind_res = RG.temporal_reuse(
                 ind_res, state.gi_reservoirs, state.gbuf, gb, state.camera_prev, w, h, seed,
-                cfg.restir_gi, prefetch=pf_ind, **mat,
+                cfg.restir_gi, pos_prev=pos_prev, prefetch=pf_ind, **mat,
             )
         gi_sp = RG.spatial_reuse(ind_res, gb, w, h, seed, cfg.restir_gi, **mat)
         indirect = RG.shade(scene, gi_sp, gb, **mat)
-    elif cfg.indirect:  # restir_di: the camera rays path-traced past their first hit
+    elif cfg.indirect:  # restir_di and pt: the camera rays path-traced past their first hit
         indirect = trace(scene, o, d, seed, pt_cfg, rt=rt, rows_out=True, light_sets=lsets,
                          **tex)
-    if cfg.indirect and cfg.mode != "restir_di" and cfg.pt.sky is not None and not use_skydi:
+    if (cfg.indirect and cfg.mode in ("restir_gi", "restir_pt") and cfg.pt.sky is not None
+            and not use_skydi):
         direct = direct + _sky_direct(scene, gb, cfg.pt.sky)
     hdr = (direct if indirect is None else direct + indirect).reshape(3, h, w)
     if cfg.volumetrics is not None and cfg.pt.sky is not None:
@@ -377,7 +402,7 @@ def render_frame_restir(scene, camera: Camera, seed: int, cfg: RenderConfig,
         hdr = DN.firefly_filter_p(hdr, cfg.firefly_factor)
     if cfg.denoise:
         hdr = DN.atrous_denoise_p(hdr, normal_img, depth_img, valid_img)
-    pos_img = gb[G.POS : G.POS + 3].reshape(3, h, w)
+    pos_img = (gb[G.POS : G.POS + 3] if pos_prev is None else pos_prev.T).reshape(3, h, w)
     lock = None
     rcas = None
     if cfg.render_scale != 1.0:

@@ -334,3 +334,116 @@ def cutout_box(tex_dir, subdivide_to: int | None = None) -> CpuScene:
     mask = np.full((TEX_SIZE, TEX_SIZE, 4), 255, np.uint8)
     mask[:, : TEX_SIZE // 2, 3] = 0
     return dataclasses.replace(box, texture_paths=_write_maps(tex_dir, ("mask.png",), [mask]))
+
+
+# animated_box's tall block: its centre (the node's rest translation) and
+# its keys, seconds -> translation offset and turn about +y (degrees)
+TALL_CENTER = (-0.35, 0.6, -0.3)
+ANIM_TIMES = (0.0, 1.0, 2.0)
+ANIM_OFFSETS = ((0.0, 0.0, 0.0), (0.15, 0.0, 0.1), (0.0, 0.0, 0.0))
+ANIM_TURNS = (0.0, 35.0, 0.0)
+
+
+def write_gltf(path, doc: dict, blob: bytes) -> Path:
+    """Write a glTF document whose one buffer holds ``blob``: a ``.glb``
+    (its BIN chunk) or a ``.gltf`` (a ``data:`` URI), by ``path``'s suffix."""
+    import base64
+    import json
+    import struct
+
+    path = Path(path)
+    doc = dict(doc, buffers=[{"byteLength": len(blob)}])
+    if path.suffix == ".glb":
+        js = json.dumps(doc).encode()
+        js += b" " * (-len(js) % 4)
+        bin_ = blob + b"\0" * (-len(blob) % 4)
+        total = 12 + 8 + len(js) + 8 + len(bin_)
+        path.write_bytes(struct.pack("<III", 0x46546C67, 2, total)
+                         + struct.pack("<II", len(js), 0x4E4F534A) + js
+                         + struct.pack("<II", len(bin_), 0x004E4942) + bin_)
+    else:
+        uri = "data:application/octet-stream;base64," + base64.b64encode(blob).decode()
+        doc["buffers"][0]["uri"] = uri
+        path.write_text(json.dumps(doc))
+    return path
+
+
+def animated_box(path) -> Path:
+    """The box as an animated glTF file at ``path`` (``.gltf`` with a
+    ``data:`` buffer, or ``.glb``): node "room" holds the walls, the light and
+    the short block (a primitive a material), node "tall_block" the tall
+    block in its own frame about ``TALL_CENTER``, and the animation "move"
+    drives that node with LINEAR translation and rotation channels over
+    ``ANIM_TIMES`` (to ``ANIM_OFFSETS`` and ``ANIM_TURNS``, back at 2 s).
+    ``scene.load_scene`` gives the box's 36 triangles, the tall block's
+    twelve last, as instance 1."""
+    mats = _materials()
+    quads = _base_quads(ROOM)
+    quad_uv = np.array([[0, 0], [1, 0], [1, 1], [0, 1]], np.float32)
+    center = np.asarray(TALL_CENTER, np.float64)
+    blob, views, accessors = bytearray(), [], []
+
+    def add(arr, comp, kind):
+        arr = np.ascontiguousarray(arr)
+        views.append({"buffer": 0, "byteOffset": len(blob), "byteLength": arr.nbytes})
+        blob.extend(arr.tobytes())
+        blob.extend(b"\0" * (-len(blob) % 4))
+        acc = {"bufferView": len(views) - 1, "componentType": comp, "count": int(arr.shape[0]),
+               "type": kind}
+        if kind == "VEC3" and comp == 5126:
+            acc.update(min=arr.min(0).tolist(), max=arr.max(0).tolist())
+        accessors.append(acc)
+        return len(accessors) - 1
+
+    def prims(sel, origin):
+        out = []
+        for m in sorted({mat for q, mat in sel}):
+            corners = [q[[0, 1, 2]] for q, mat in sel if mat == m]
+            corners += [q[[0, 2, 3]] for q, mat in sel if mat == m]
+            p = np.concatenate(corners) - origin
+            g = np.cross(p[1::3] - p[0::3], p[2::3] - p[0::3])
+            g /= np.linalg.norm(g, axis=-1, keepdims=True)
+            half = len(corners) // 2
+            uv = np.concatenate([np.tile(quad_uv[[0, 1, 2]], (half, 1)),
+                                 np.tile(quad_uv[[0, 2, 3]], (half, 1))])
+            out.append({"attributes": {"POSITION": add(p.astype(np.float32), 5126, "VEC3"),
+                                       "NORMAL": add(np.repeat(g, 3, 0).astype(np.float32),
+                                                     5126, "VEC3"),
+                                       "TEXCOORD_0": add(uv, 5126, "VEC2")},
+                        "indices": add(np.arange(len(p), dtype=np.uint16), 5123, "SCALAR"),
+                        "material": int(m)})
+        return out
+
+    room = prims([(q, m) for q, m in quads if m != GLOSSY], np.zeros(3))
+    tall = prims([(q, m) for q, m in quads if m == GLOSSY], center)
+    times = add(np.asarray(ANIM_TIMES, np.float32), 5126, "SCALAR")
+    trans = add((center + np.asarray(ANIM_OFFSETS)).astype(np.float32), 5126, "VEC3")
+    half_turn = np.radians(ANIM_TURNS) / 2
+    quats = np.stack([np.zeros(3), np.sin(half_turn), np.zeros(3), np.cos(half_turn)], 1)
+    rot = add(quats.astype(np.float32), 5126, "VEC4")
+    materials = []
+    for k in range(mats.base_color.shape[0]):
+        m = {"pbrMetallicRoughness": {
+                 "baseColorFactor": [*map(float, mats.base_color[k]), 1.0],
+                 "metallicFactor": float(mats.metallic[k]),
+                 "roughnessFactor": float(mats.roughness[k])},
+             "doubleSided": bool(mats.double_sided[k])}
+        strength = float(mats.emissive[k].max())
+        if strength > 0:
+            m["emissiveFactor"] = [float(x) / strength for x in mats.emissive[k]]
+            m["extensions"] = {"KHR_materials_emissive_strength": {"emissiveStrength": strength}}
+        materials.append(m)
+    doc = {
+        "asset": {"version": "2.0"},
+        "bufferViews": views, "accessors": accessors, "materials": materials,
+        "meshes": [{"primitives": room}, {"primitives": tall}],
+        "nodes": [{"mesh": 0, "name": "room"},
+                  {"mesh": 1, "name": "tall_block", "translation": center.tolist()}],
+        "scenes": [{"nodes": [0, 1]}], "scene": 0,
+        "animations": [{"name": "move",
+                        "samplers": [{"input": times, "output": trans, "interpolation": "LINEAR"},
+                                     {"input": times, "output": rot, "interpolation": "LINEAR"}],
+                        "channels": [{"sampler": 0, "target": {"node": 1, "path": "translation"}},
+                                     {"sampler": 1, "target": {"node": 1, "path": "rotation"}}]}],
+    }
+    return write_gltf(path, doc, bytes(blob))

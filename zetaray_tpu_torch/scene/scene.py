@@ -29,7 +29,9 @@ import numpy as np
 import torch
 
 from .. import native
+from ..core import transforms as T
 from ..core.sampling import build_alias_table
+from .gltf import GltfDoc, GltfMaterial, load_gltf
 from .light_build import emissive_powers
 
 LANE = 128
@@ -100,6 +102,102 @@ class CpuScene:
         lo = np.minimum(np.minimum(self.v0.min(0), self.v1.min(0)), self.v2.min(0))
         hi = np.maximum(np.maximum(self.v0.max(0), self.v1.max(0)), self.v2.max(0))
         return lo, hi
+
+
+_DEFAULT_MATERIAL = GltfMaterial(name="__default", metallic=0.0, roughness=1.0)
+
+
+def _materials_soa(mats: list[GltfMaterial]) -> MaterialsSoA:
+    """glTF materials -> the material table (the default one if none)."""
+    if not mats:
+        mats = [_DEFAULT_MATERIAL]
+    return MaterialsSoA(
+        base_color=np.stack([m.base_color[:3] for m in mats]).astype(np.float32),
+        metallic=np.array([m.metallic for m in mats], np.float32),
+        roughness=np.array([m.roughness for m in mats], np.float32),
+        emissive=np.stack([m.emissive_factor * m.emissive_strength for m in mats]
+                          ).astype(np.float32),
+        ior=np.array([m.ior for m in mats], np.float32),
+        transmission=np.array([m.transmission for m in mats], np.float32),
+        coat_weight=np.array([m.coat_weight for m in mats], np.float32),
+        coat_roughness=np.array([m.coat_roughness for m in mats], np.float32),
+        double_sided=np.array([m.double_sided for m in mats], bool),
+        base_color_tex=np.array([m.base_color_tex for m in mats], np.int32),
+        normal_tex=np.array([m.normal_tex for m in mats], np.int32),
+        metallic_roughness_tex=np.array([m.metallic_roughness_tex for m in mats], np.int32),
+        emissive_tex=np.array([m.emissive_tex for m in mats], np.int32),
+        alpha_cutoff=np.array([m.alpha_cutoff if m.alpha_mode == "MASK" else 0.0 for m in mats],
+                              np.float32),
+    )
+
+
+def _flatten_prim(world, nrm_m, inst_idx, prim):
+    """One primitive -> its world-space triangle corners, normals, uvs,
+    material and instance ids (geometric normals where it has none)."""
+    pos = T.transform_points(world, prim.positions.astype(np.float64))
+    idx = prim.indices.reshape(-1, 3).astype(np.int64)
+    if prim.normals is not None:
+        nrm = prim.normals.astype(np.float64) @ nrm_m.T
+        nrm /= np.maximum(np.linalg.norm(nrm, axis=-1, keepdims=True), 1e-20)
+    else:
+        nrm = None
+    a, b, c = idx[:, 0], idx[:, 1], idx[:, 2]
+    if nrm is not None:
+        n0, n1, n2 = nrm[a], nrm[b], nrm[c]
+    else:
+        g = np.cross(pos[b] - pos[a], pos[c] - pos[a])
+        g /= np.maximum(np.linalg.norm(g, axis=-1, keepdims=True), 1e-20)
+        n0 = n1 = n2 = g
+    if prim.uvs is not None:
+        uv0, uv1, uv2 = prim.uvs[a], prim.uvs[b], prim.uvs[c]
+    else:
+        uv0 = uv1 = uv2 = np.zeros((idx.shape[0], 2), np.float32)
+    mid = prim.material if prim.material >= 0 else 0
+    return (pos[a], pos[b], pos[c], n0, n1, n2, uv0, uv1, uv2,
+            np.full(idx.shape[0], mid, np.int32), np.full(idx.shape[0], inst_idx, np.int32))
+
+
+def load_scene(path, workers: int = 4) -> CpuScene:
+    """A glTF file (or an already parsed ``GltfDoc``, as when an
+    ``AnimationRig`` is built from the same document) -> the flattened
+    world-space ``CpuScene``, as the JAX ``load_scene``: the primitives of
+    each instance in document order (flattened on ``workers`` threads,
+    concatenated in submission order), normals round-tripped through oct16
+    and uvs through half2 (``packed``), ``inst_id`` the instance of each
+    triangle. PNG maps in ``texture_paths`` feed
+    ``textures.load_scene_textures``."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from .packed import quantize_normals, quantize_uvs
+
+    doc = path if isinstance(path, GltfDoc) else load_gltf(path)
+    mats = list(doc.materials) if doc.materials else [_DEFAULT_MATERIAL]
+    inst_names, tasks = [], []
+    for inst_idx, inst in enumerate(doc.instances):
+        inst_names.append(inst.name)
+        nrm_m = T.normal_matrix(inst.world)
+        tasks += [(inst.world, nrm_m, inst_idx, prim) for prim in inst.mesh_prims]
+    if workers > 1 and len(tasks) > 1:
+        with ThreadPoolExecutor(max_workers=workers) as ex:
+            flat = list(ex.map(lambda t: _flatten_prim(*t), tasks))
+    else:
+        flat = [_flatten_prim(*t) for t in tasks]
+    v0s, v1s, v2s, n0s, n1s, n2s, uv0s, uv1s, uv2s, mids, iids = (
+        [f[i] for f in flat] for i in range(11))
+    cat = lambda xs, dt=np.float32: np.concatenate(xs).astype(dt)
+    mat_id = cat(mids, np.int32)
+    materials = _materials_soa(mats)
+    em_mask = materials.emissive[mat_id].max(axis=-1) > 0.0
+    qn = lambda xs: quantize_normals(cat(xs))
+    qu = lambda xs: quantize_uvs(cat(xs))
+    return CpuScene(
+        v0=cat(v0s), v1=cat(v1s), v2=cat(v2s),
+        n0=qn(n0s), n1=qn(n1s), n2=qn(n2s),
+        uv0=qu(uv0s), uv1=qu(uv1s), uv2=qu(uv2s),
+        mat_id=mat_id, inst_id=cat(iids, np.int32), inst_names=inst_names,
+        texture_paths=doc.textures, materials=materials,
+        emissive_tris=np.nonzero(em_mask)[0].astype(np.int32),
+    )
 
 
 class A:
@@ -196,6 +294,11 @@ class SceneBuffers:
     walk_nodes: torch.Tensor | None = None  # [K, 16] int32, one node a row
     leaf_slot: torch.Tensor | None = None  # [R] int32 the slot of each leaf-ordered row
     walk_stack: int | None = None  # the most stack entries a walk can need
+    # what refit.refit_scene recomputes the walk's boxes from (accel.bvh.walk_tree):
+    # each child's span, of walk_cluster_order in the first walk_top nodes, else of rows
+    walk_span: torch.Tensor | None = None  # [K, 4] int32 (a0, b0, a1, b1)
+    walk_top: int | None = None
+    walk_cluster_order: torch.Tensor | None = None  # [M] int32
     # the alpha atlas of the MASK-mode materials' base-colour maps [K, ALPHA_RES,
     # ALPHA_RES] (level 0's alpha, nearest resample); A.ATEX is a triangle's layer
     alpha_tex: torch.Tensor | None = None
@@ -221,9 +324,11 @@ class SceneBuffers:
         order, [R, 12]: the table kernels B8 and B9 read, gathered from
         ``woop`` (no dense copy is made), at first use and again whenever
         ``woop`` was changed in place. Only the rows follow ``woop``: the
-        tree (``walk_nodes``, ``leaf_slot``, ``walk_stack``) is built at
-        upload, so an edit that moves a triangle out of its boxes, or makes a
-        pad slot real, needs a fresh upload."""
+        tree's boxes (``walk_nodes``) follow the triangles through
+        ``refit.refit_scene``, which returns a new scene with them
+        recomputed; its topology (``leaf_slot``, the refs, ``walk_stack``)
+        is the upload's, so an edit that makes a pad slot real needs a
+        fresh upload."""
         return self._rows_cached("_leaf_rows", self.leaf_slot.long())
 
     def _rows_cached(self, name: str, slots):
@@ -511,7 +616,7 @@ def buffers_from_arrays(d: dict, device=None) -> SceneBuffers:
         v = d.get(f.name) if f.default is None else d[f.name]
         if v is None:
             kw[f.name] = None
-        elif f.name in ("num_tris", "num_emissives", "cluster_size", "walk_stack"):
+        elif f.name in ("num_tris", "num_emissives", "cluster_size", "walk_stack", "walk_top"):
             kw[f.name] = int(v)
         elif f.name.startswith("has_"):
             kw[f.name] = bool(v)
@@ -528,9 +633,9 @@ def with_cluster_tree(scene: SceneBuffers, tree: dict) -> SceneBuffers:
 
     host = lambda k: getattr(scene, k).cpu().numpy()
     walk = walk_tree(tree, scene.cluster_size, *(host(k) for k in ("woop", "v0", "e1", "e2")))
-    stack = walk.pop("walk_stack")
+    ints = {k: walk.pop(k) for k in ("walk_stack", "walk_top")}
     tables = {k: torch.from_numpy(np.asarray(v)).to(scene.device) for k, v in walk.items()}
-    return replace(scene, walk_stack=stack, **tables)
+    return replace(scene, **ints, **tables)
 
 
 def upload_scene(cpu: CpuScene, device=None, cluster_size: int | None = None) -> SceneBuffers:
