@@ -62,9 +62,12 @@ Phases (any failure exits non-zero):
      boxes on the card; its ms printed for the box and the split box): B8
      on camera and GI-like rays and B9 on DI shadow segments walking the
      refit tree equal their plain versions, and B8 walking the upload's
-     boxes over the moved rows does not. Each kernel's least time on the
-     card (bound_ms) is reckoned from this run's work and the H100's
-     published peaks;
+     boxes over the moved rows does not. The tile offset: B2, B5 and B6 on
+     the image's lower half as the second of two row bands (pix0 = 131,072,
+     tile0 = 128), each equal to its plain version at that offset (max abs
+     err 0) and timed beside the same band at tile0 = 0. Each kernel's
+     least time on the card (bound_ms) is reckoned from this run's work and
+     the H100's published peaks;
   4. renders chained frames of each path with its launch counters set to 0
      just before it and read just after: the DI-only slice at 512^2
      (indirect off), the main path -- the flagship frame of bench.py
@@ -137,7 +140,18 @@ Phases (any failure exits non-zero):
      render_frame_restir and mode="restir_gi" through render_frame at 512^2
      (each image differs from its twin's); and two 64^2 animated flagship
      frames on the card against the CPU;
-  5. prints the kernels' record, the card line, and last a JSON status.
+  5. the sharded frames: SHARD_WORLD ranks (parallel.mesh.run_ranks, fresh
+     processes after the parent's build; NCCL with a card a rank, else
+     gloo with the ranks sharing the card, the choice printed) render row
+     bands of 3 chained frames each of the flagship 512^2, ReSTIR PT
+     512^2, the default restir_di frame with the sun at 512^2 and
+     upscale_256_to_512 (the eye drifting, so reprojections cross the
+     bands' edges), with the launch counts set to 0 just before each and
+     read just after; the gathered bands are held to the whole frames from
+     the same seeds (rtol 3e-3, atol 1e-5), and each rank's ms a frame,
+     its exchanges (calls, bytes received, host-staged ms) and peak memory
+     are printed;
+  6. prints the kernels' record, the card line, and last a JSON status.
 
 The 512^2 images are written to IMAGE_DIR: zetaray_torch_512.png (the
 flagship frame), zetaray_torch_512_di.png (DI only), zetaray_torch_512_pt.png
@@ -235,7 +249,7 @@ def lit_segments(after, before, after_no_sun=None) -> int:
 
 
 def bounce_records(scene, label, opt, cfg, st0, lsets, seed, rt, spread, n_tri, tri_bytes,
-                   set_bytes, full=True, textures=None) -> dict:
+                   set_bytes, full=True, textures=None, pix0=0) -> dict:
     """B4 at bounce 0 on the GI bounce-0 state ``st0``, B5 after it and B6 at
     bounce 1 (and on its trace-only last bounce at 2) under ``cfg``, each
     held against its plain version (``bounce_err``) and timed, with its
@@ -248,7 +262,8 @@ def bounce_records(scene, label, opt, cfg, st0, lsets, seed, rt, spread, n_tri, 
     B4 runs only as its plain version and B5 without min_nee_bounce=1:
     the record has B5 and B6. With ``textures`` B5 (and B6 after it) take
     the surface rows after the base-colour fetch (``megakernel.fetch_base``),
-    as the split bounce of a textured trace does."""
+    as the split bounce of a textured trace does. ``pix0``: the rays are a
+    row band from that global ray id on (B5 and B6 take tile0 = pix0 // rt)."""
     from zetaray_tpu_torch.accel import megakernel as MK
     from zetaray_tpu_torch.timing import cuda_ms
 
@@ -283,11 +298,11 @@ def bounce_records(scene, label, opt, cfg, st0, lsets, seed, rt, spread, n_tri, 
     if textures:
         sf4_p = MK.fetch_base(textures, st4_p, sf4_p)
 
-    shade = (scene, st4_p, sf4_p, lsets, 0, seed, cfg, True, rt)
+    shade = (scene, st4_p, sf4_p, lsets, 0, seed, cfg, True, rt, pix0)
     st5_p = MK.bounce_shade_plain(*shade)
     err = bounce_err("bounce_shade", tag, MK.bounce_shade(*shade), st5_p, found)
     segs5 = lit_segments(st5_p, st4_p, None if no_sun is None else MK.bounce_shade_plain(
-        scene, st4_p, sf4_p, lsets, 0, seed, no_sun, True, rt))
+        scene, st4_p, sf4_p, lsets, 0, seed, no_sun, True, rt, pix0))
     r5 = out["bounce_shade"] = record(
         err, lambda: MK.bounce_shade(*shade), lambda: MK.bounce_shade_plain(*shade),
         PAIR_OPS * segs5 * n_tri,
@@ -315,16 +330,16 @@ def bounce_records(scene, label, opt, cfg, st0, lsets, seed, rt, spread, n_tri, 
     st_t1 = MK.bounce_trace_plain(scene, st5_p, 1, cfg, True)[0]
     found_1 = st_t1[13] > 0.5
     misses6 = int(((st5_p[13] > 0.5) & ~found_1).sum().item())
-    b6 = (scene, st5_p, lsets, 1, seed, cfg, False, True, rt)
+    b6 = (scene, st5_p, lsets, 1, seed, cfg, False, True, rt, pix0)
     st6_p = MK.bounce_plain(*b6)
     err = bounce_err("bounce", tag, MK.bounce(*b6), st6_p, found_1)
     # the frame's final bounce takes the kernel's trace-only branch
-    b6_last = (scene, st6_p, lsets, 2, seed, cfg, True, True, rt)
+    b6_last = (scene, st6_p, lsets, 2, seed, cfg, True, True, rt, pix0)
     st6_last_p = MK.bounce_plain(*b6_last)
     err = max(err, bounce_err("bounce last", tag, MK.bounce(*b6_last), st6_last_p,
                               st6_last_p[13] > 0.5))
     segs6 = lit_segments(st6_p, st_t1, None if no_sun is None else MK.bounce_plain(
-        scene, st5_p, lsets, 1, seed, no_sun, False, True, rt))
+        scene, st5_p, lsets, 1, seed, no_sun, False, True, rt, pix0))
     r6 = out["bounce"] = record(
         err, lambda: MK.bounce(*b6), lambda: MK.bounce_plain(*b6),
         PAIR_OPS * (int(found_1.sum().item()) + segs6) * n_tri + miss_ops * misses6,
@@ -424,6 +439,66 @@ def write_png(path: str, img) -> None:
         f.write(png)
 
 
+SHARD_WORLD = 2  # ranks of the sharded phase
+
+
+def shard_camera(k: int, aspect: float = 1.0):
+    """Frame k's camera in the sharded phase: the box's framing with the eye
+    drifting right and up, so that reprojections cross the bands' edges."""
+    from zetaray_tpu_torch.scene.camera import Camera
+    from zetaray_tpu_torch.scene.procedural import CAMERA_EYE, CAMERA_TARGET, CAMERA_VFOV
+
+    eye = (CAMERA_EYE[0] + 0.03 * k, CAMERA_EYE[1] + 0.02 * k, CAMERA_EYE[2])
+    return Camera.look_at(eye, CAMERA_TARGET, vfov_deg=CAMERA_VFOV,
+                          aspect=aspect).with_jitter(k)
+
+
+def sharded_rank(rank: int, world: int, init_method: str, backend: str, specs, seed: int):
+    """One rank of the sharded phase (``parallel.mesh.run_ranks`` in a fresh
+    process; the parent built the kernels): its band of each spec's chained
+    frames on the box through ``render_frame_restir_sharded``, each path
+    with the kernels' launch counts set to 0 just before it and read just
+    after. Returns, by spec, each frame's ms, the bytes and host seconds of
+    the exchanges, the peak memory, the counts and (the gathered image, on
+    every rank) each frame's HDR."""
+    from zetaray_tpu_torch import native
+    from zetaray_tpu_torch.accel import intersect as XI
+    from zetaray_tpu_torch.accel import megakernel as MK
+    from zetaray_tpu_torch.ops import restir_di as RD
+    from zetaray_tpu_torch.parallel import halo as HX
+    from zetaray_tpu_torch.parallel import mesh as PM
+    from zetaray_tpu_torch.scene.procedural import cornell_box
+    from zetaray_tpu_torch.scene.scene import upload_scene
+
+    tiles = PM.init_tiles(world, rank, init_method, backend, timeout=300.0)
+    dev = tiles.device
+    native.lib()
+    scene = upload_scene(cornell_box(), device=dev)
+    kernels_of = {"gbuffer": MK.gbuffer, "ris": RD.initial_candidates, "occlusion": XI.occlusion,
+                  "bounce_trace": MK.bounce_trace, "bounce_shade": MK.bounce_shade,
+                  "bounce": MK.bounce, "closest": XI.closest_hit}
+    out = {}
+    for tag, cfg, frames in specs:
+        for fn in kernels_of.values():
+            fn.launches = 0
+        HX.stats.update(bytes=0, calls=0, seconds=0.0)
+        torch.cuda.reset_peak_memory_stats(dev)
+        state, times, hdrs, stats = None, [], [], []
+        for k in range(frames):
+            before = dict(HX.stats)
+            t = time.perf_counter()
+            res, state = PM.render_frame_restir_sharded(tiles, scene, shard_camera(k), seed + k,
+                                                        cfg, state)
+            torch.cuda.synchronize(dev)
+            times.append((time.perf_counter() - t) * 1e3)
+            stats.append({key: HX.stats[key] - before[key] for key in before})
+            hdrs.append(PM.gather_rows(res["hdr"], tiles))
+        out[tag] = dict(times=times, exchange=stats, peak_mb=torch.cuda.max_memory_allocated(dev)
+                        / 2**20, counts={name: fn.launches for name, fn in kernels_of.items()},
+                        hdr=hdrs if rank == 0 else None, device=str(dev))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -483,15 +558,16 @@ def main() -> int:
     o, d = cam.generate_rays(res, res, device=dev)
     cam_hd = Camera.look_at(CAMERA_EYE, CAMERA_TARGET, vfov_deg=CAMERA_VFOV, aspect=1920 / 1080)
 
-    def check_ris(label, gk, lsets):
+    def check_ris(label, gk, lsets, pix0=0):
         """B2 on G-buffer gk against its plain version: at least 99.5% of the
         pixels pick the same entry and those agree to 1e-5 * (1 + |x|).
-        Returns its reservoirs and a record of its times and bound."""
+        Returns its reservoirs and a record of its times and bound. ``pix0``:
+        gk is a row band from that global pixel on (tile0 = pix0 // rt)."""
         n_px = gk.shape[1]
         n_sets, _, ps = lsets.shape
         rt = pick_rt(n_px)
-        rk = RD.initial_candidates(gk, lsets, seed, rt=rt)
-        rp = RD.initial_candidates_plain(gk, lsets, seed, rt)
+        rk = RD.initial_candidates(gk, lsets, seed, rt=rt, pix0=pix0)
+        rp = RD.initial_candidates_plain(gk, lsets, seed, rt, pix0)
         torch.cuda.synchronize()
         same = (rk[0:3] == rp[0:3]).all(0)
         share = same.float().mean().item()
@@ -507,8 +583,10 @@ def main() -> int:
         b_ms, b_by = bound(RIS_ENTRY_OPS * (n_valid * ps + n_px - n_valid),
                            n_px * (10 + RD.R_ROWS) * F32 + n_sets * MK.LSET_STAGED * ps * F32)
         return rk, dict(max_abs_err=err,
-                        ms=cuda_ms(lambda: RD.initial_candidates(gk, lsets, seed, rt=rt), reps=20),
-                        plain_ms=cuda_ms(lambda: RD.initial_candidates_plain(gk, lsets, seed, rt),
+                        ms=cuda_ms(lambda: RD.initial_candidates(gk, lsets, seed, rt=rt,
+                                                                 pix0=pix0), reps=20),
+                        plain_ms=cuda_ms(lambda: RD.initial_candidates_plain(gk, lsets, seed, rt,
+                                                                             pix0),
                                          reps=3, warmup=1),
                         bound_ms=b_ms, bound_by=b_by, valid_share=n_valid / n_px)
 
@@ -662,6 +740,36 @@ def main() -> int:
                       f"bounce {recs['bounce']['live_misses']}; bounds with the sky, ms: "
                       f"bounce_trace {recs['bounce_trace']['bound_ms']!r}, bounce "
                       f"{recs['bounce']['bound_ms']!r}" if opt else ""), flush=True)
+
+        if label == "cornell36":
+            # the tile offset: B2, B5 and B6 on the image's lower half as the
+            # second of two row bands (rank 1 of the sharded frames), from
+            # global pixel pix0 = n / 2 (tile0 = pix0 // rt), against their
+            # plain versions at that offset: max abs err 0; each also timed on
+            # the same band at tile0 = 0 (ms_tile0_0)
+            half = n // 2
+            rt_b = pick_rt(half)
+            tile0 = half // rt_b
+            key = f"tile0_{tile0}"
+            gk_b, st0_b = gk[:, half:].contiguous(), st0[:, half:].contiguous()
+            r_b = check_ris(f"{label} band {key}", gk_b, lsets, pix0=half)[1]
+            r_b["ms_tile0_0"] = cuda_ms(lambda: RD.initial_candidates(gk_b, lsets, seed, rt=rt_b),
+                                        reps=20)
+            recs = bounce_records(scene, label, key, gi_cfg, st0_b, lsets, seed, rt_b, spread,
+                                  n_tri, tri_bytes, set_bytes, full=False, pix0=half)
+            recs0 = bounce_records(scene, label, "tile0_0", gi_cfg, st0_b, lsets, seed, rt_b,
+                                   spread, n_tri, tri_bytes, set_bytes, full=False)
+            for name, r in recs.items():
+                r["ms_tile0_0"] = recs0[name]["ms"]
+            for name, r in (("ris", r_b), *recs.items()):
+                if r["max_abs_err"] != 0.0:
+                    raise AssertionError(f"{name} {key}: max abs err {r['max_abs_err']}")
+                rec[name][key] = {**r, "tile0": tile0, "pix0": half}
+            print(f"{label} (the lower band of {half} pixels, pix0 {half}, tile0 {tile0}): "
+                  + "; ".join(f"{k} {r['ms']:.4f} ms (at tile0 0 {r['ms_tile0_0']:.4f}, plain "
+                              f"{r['plain_ms']:.3f}, bound {r['bound_ms']:.4f} by "
+                              f"{r['bound_by']}), max abs err {r['max_abs_err']:.3g}"
+                              for k, r in (("ris", r_b), *recs.items())), flush=True)
 
         # the WoPS instances of B5 and B6 (nee_mode="wops": a per-ray draw
         # from the emissive alias table) on the same rays, bit-equal to
@@ -1629,6 +1737,72 @@ def main() -> int:
     if share < 0.99:
         raise AssertionError("the card's animated GI frame disagrees with the CPU frame")
 
+    # -- the sharded frames: SHARD_WORLD ranks render row bands of chained
+    # 512^2 frames; the gathered bands are held to the whole frames
+    from zetaray_tpu_torch.parallel import mesh as PM
+
+    backend = PM.pick_backend(SHARD_WORLD)
+    n_cards = torch.cuda.device_count()
+    why = ("NCCL, one card a rank" if backend == "nccl" else
+           "gloo: the ranks share the cards, each exchange staged through the host")
+    print(f"sharded frames: backend {backend}, world {SHARD_WORLD}, {n_cards} card(s), rank r "
+          f"on cuda:(r % {n_cards}); {why}", flush=True)
+    shard_specs = [
+        ("flagship 512^2", RenderConfig(width=res, height=res, **flagship), 3),
+        ("ReSTIR PT 512^2", RenderConfig(width=res, height=res, **pt_frame), 3),
+        ("default restir_di 512^2 with the sun",
+         RenderConfig(**app, pt=PTConfig(max_bounces=4, sky=sky)), 3),
+        ("upscale_256_to_512", upscale, 3),
+    ]
+    shard_expect = {"flagship 512^2": gi_kernels, "upscale_256_to_512": gi_kernels,
+                    "ReSTIR PT 512^2": ("gbuffer", "ris", "occlusion", "closest", "bounce"),
+                    "default restir_di 512^2 with the sun": app_kernels}
+    twins = {}
+    for tag, cfg_, frames in shard_specs:
+        state, times = None, []
+        for k in range(frames):
+            t = time.perf_counter()
+            out_t, state = render_frame_restir(scene, shard_camera(k), seed + k, cfg_, state)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+            twins[tag, k] = out_t["hdr"].cpu()
+        twins[tag, "ms"] = times
+    torch.cuda.empty_cache()
+    t_sh = time.perf_counter()
+    ranks = PM.run_ranks("chip_smoke:sharded_rank", SHARD_WORLD, (backend, shard_specs, seed),
+                         timeout=900)
+    print(f"sharded phase: {SHARD_WORLD} ranks started, rendered and joined in "
+          f"{time.perf_counter() - t_sh:.1f} s", flush=True)
+    shard_launches = {}
+    for tag, cfg_, frames in shard_specs:
+        for k in range(frames):
+            got, want = torch.from_numpy(ranks[0][tag]["hdr"][k]), twins[tag, k]
+            if got.shape != want.shape or not torch.isfinite(got).all():
+                raise AssertionError(f"sharded {tag}: bad gathered HDR")
+            err = (got - want).abs()
+            if not (err <= 1e-5 + 3e-3 * want.abs()).all():
+                raise AssertionError(f"sharded {tag} frame {k}: max abs err "
+                                     f"{err.max().item()} beyond rtol 3e-3, atol 1e-5")
+        for name in shard_expect[tag]:
+            if min(r[tag]["counts"][name] for r in ranks) <= 0:
+                raise AssertionError(f"sharded {tag}: a rank did not launch {name}")
+        for name in kernels_of:
+            total = sum(r[tag]["counts"].get(name, 0) for r in ranks)
+            if total:
+                shard_launches.setdefault(name, {})[tag] = total
+        per_rank = "; ".join(
+            f"rank {i} ({r[tag]['device']}): frames {[round(x, 3) for x in r[tag]['times']]} ms, "
+            f"exchanges {[e['calls'] for e in r[tag]['exchange']]} calls "
+            f"{[e['bytes'] for e in r[tag]['exchange']]} B received "
+            f"{[round(e['seconds'] * 1e3, 3) for e in r[tag]['exchange']]} ms host-staged, "
+            f"peak {r[tag]['peak_mb']:.1f} MiB" for i, r in enumerate(ranks))
+        err = max((torch.from_numpy(ranks[0][tag]["hdr"][k]) - twins[tag, k]).abs().max().item()
+                  for k in range(frames))
+        print(f"sharded {tag}, {frames} chained frames: max abs err against the whole frame "
+              f"{err} (rtol 3e-3, atol 1e-5); whole frame "
+              f"{[round(x, 3) for x in twins[tag, 'ms']]} ms; {per_rank}", flush=True)
+    del ranks, twins
+
     bounce_src = "zetaray_tpu_torch/csrc/bounce.cu"
     sources = {
         "gbuffer": ("zetaray_tpu_torch/csrc/gbuffer.cu", "zetaray_tpu/accel/megakernel.py:650"),
@@ -1664,6 +1838,8 @@ def main() -> int:
         animated = {k: v["counts"][name] for k, v in anim_paths.items() if v["counts"][name]}
         if animated:  # launches of the animated frames, a chain of 4
             paths["animated"] = {"launches": animated}
+        if name in shard_launches:  # the ranks' launches of the sharded frames, 3 a chain
+            paths["sharded"] = {"launches": shard_launches[name]}
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": launches_of[name], **rec_of[name], "library_ms": None,

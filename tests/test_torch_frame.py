@@ -168,8 +168,20 @@ def test_unported_settings_raise():
     frames = [render_frame(box, cam, 1, RenderConfig(**{**small, "mode": m}))["hdr"]
               for m in ("pt", "restir_gi")]
     assert torch.equal(*frames) and frames[0].mean() > 0
-    with pytest.raises(NotImplementedError, match="shard"):
+    # shard renders a row band (tests/test_torch_parallel.py): one band of
+    # the whole image is the whole frame; a shard that is no ShardCtx, or
+    # bands that do not make the image, raise
+    from zetaray_tpu_torch.parallel.halo import ShardCtx
+
+    one, _ = render_frame_restir(box, cam, 1, RenderConfig(**small), None,
+                                 shard=ShardCtx(None, 0, 1, 16))
+    plain, _ = render_frame_restir(box, cam, 1, RenderConfig(**small), None)
+    assert torch.equal(one["hdr"], plain["hdr"]) and torch.equal(one["ldr"], plain["ldr"])
+    with pytest.raises(TypeError, match="ShardCtx"):
         render_frame_restir(box, cam, 1, RenderConfig(**small), None, shard=object())
+    with pytest.raises(ValueError, match="bands"):
+        render_frame_restir(box, cam, 1, RenderConfig(**small), None,
+                            shard=ShardCtx(None, 0, 1, 8))
     # ReSTIR PT on a clustered scene renders (B8 and B9 on the card)
     clustered = upload_scene(subdivide_scene(cornell_box(), 500), device="cpu", cluster_size=128)
     cfg = RenderConfig(**{**gi, "mode": "restir_pt", "width": 16, "height": 16})

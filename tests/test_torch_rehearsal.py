@@ -258,43 +258,45 @@ def _lights(scene, lsets, cfg):
     return lsets.shape[0], lsets.shape[2], 0
 
 
-def host_bounce_shade(lib, scene, state, surf, lsets, seed, cfg, rt, nt=None, bounce=0):
+def host_bounce_shade(lib, scene, state, surf, lsets, seed, cfg, rt, nt=None, bounce=0,
+                      pix0=0):
     """B5 at ``bounce`` on the host: state [STATE_ROWS, N], or None where the
     entry point refuses the launch. ``lsets``: the light sets, or with
-    cfg.nee_mode="wops" the WoPS table."""
+    cfg.nee_mode="wops" the WoPS table; ``pix0``: the rays' global offset."""
     n, tp = state.shape[1], scene.woop.shape[1] // 3
     n_sets, ps, wops_em = _lights(scene, lsets, cfg)
     out = torch.full_like(state, -7.0)
     err = lib.zr_bounce_shade(_ptr(state), _ptr(surf), _ptr(scene.woop_rows()), _ptr(lsets),
                               _ptr(out), n, tp, scene.num_tris if nt is None else nt, n_sets,
-                              ps, rt, bounce, seed & 0xFFFFFFFF, cfg.min_nee_bounce,
+                              ps, rt, pix0, bounce, seed & 0xFFFFFFFF, cfg.min_nee_bounce,
                               cfg.rr_start, int(cfg.nee), 1, wops_em, MK.material_flags(scene),
                               MK.path_options(cfg), None)
     return None if err else out
 
 
-def host_bounce(lib, scene, state, lsets, b, seed, cfg, last, rt=128):
-    """B6 at bounce b on the host: state [STATE_ROWS, N]. ``lsets``: as for
-    host_bounce_shade."""
+def host_bounce(lib, scene, state, lsets, b, seed, cfg, last, rt=128, pix0=0):
+    """B6 at bounce b on the host: state [STATE_ROWS, N]. ``lsets``, ``pix0``:
+    as for host_bounce_shade."""
     n, tp = state.shape[1], scene.woop.shape[1] // 3
     n_sets, ps, wops_em = _lights(scene, lsets, cfg)
     out = torch.full_like(state, -7.0)
     assert lib.zr_bounce(_ptr(state), _ptr(scene.woop_rows()), _ptr(scene.tri_attrs), _ptr(lsets),
-                         _ptr(out), n, tp, scene.num_tris, n_sets, ps, rt, b, seed & 0xFFFFFFFF,
+                         _ptr(out), n, tp, scene.num_tris, n_sets, ps, rt, pix0, b,
+                         seed & 0xFFFFFFFF,
                          cfg.t_min, cfg.min_emissive_bounce, cfg.min_nee_bounce, cfg.rr_start,
                          int(cfg.nee), 1, int(last), wops_em, MK.material_flags(scene),
                          MK.path_options(cfg), None) == 0
     return out
 
 
-def host_ris(lib, gb, lsets, seed, rt, block=128):
+def host_ris(lib, gb, lsets, seed, rt, block=128, pix0=0):
     """B2 on the host: reservoirs [R_ROWS, N], or None where the entry point
-    refuses the launch."""
+    refuses the launch. ``pix0``: the pixels' global offset."""
     n = gb.shape[1]
     n_sets, _, ps = lsets.shape
     out = torch.full((RD.R_ROWS, n), -7.0)
     err = lib.zr_ris(_ptr(gb), _ptr(lsets), _ptr(out), n, n_sets, ps, rt, block,
-                     seed & 0xFFFFFFFF, None)
+                     seed & 0xFFFFFFFF, pix0, None)
     return None if err else out
 
 
@@ -499,6 +501,46 @@ def test_bounce_shade_on_host(host_kernels, subdivide, monkeypatch):
     assert host_bounce_shade(host_kernels, scene, st4, sf4, lsets, SEED, cfg, 100) is None
     assert host_bounce_shade(host_kernels, scene, st4, sf4, lsets, SEED, cfg, 128,
                              nt=tp + 1) is None
+
+
+@pytest.mark.parametrize("pix0", [640, 300, 1 << 20])
+def test_tile_offset_on_host(host_kernels, pix0):
+    """B2, B5 and B6 with a row band's offset ``pix0`` (tile0 = pix0 // 128
+    > 0; 300 is no multiple of the tile width) against their plain versions
+    with the same offset, on 300 GI bounce-0 rays of the box with a shelf at
+    rt = 128: B2 bit for bit, B5 and B6 with the criteria of
+    test_bounce_shade_on_host. The offset moves the light sets and the
+    random streams: the outputs differ from those at offset 0. A negative
+    offset is refused."""
+    scene = upload_scene(_with_shelf(cornell_box()), device="cpu")
+    st0, spread = _gi_bounce0(scene)
+    cfg = PTConfig(max_bounces=3, min_emissive_bounce=1, rr_start=1)
+    lsets = MK.build_light_sets(scene, SEED)
+    gb, ris_sets = ris_case("sampled", "cpu")
+    got = host_ris(host_kernels, gb, ris_sets, RIS_SEED, RIS_RT, pix0=pix0)
+    want = RD.initial_candidates_plain(gb, ris_sets, RIS_SEED, RIS_RT, pix0)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert not torch.equal(want, RD.initial_candidates_plain(gb, ris_sets, RIS_SEED, RIS_RT))
+    assert host_ris(host_kernels, gb, ris_sets, RIS_SEED, RIS_RT, pix0=-128) is None
+
+    st4, sf4 = MK.bounce_trace_plain(scene, st0, 0, cfg, True, spread)
+    found = st4[13] > 0.5
+    st5 = host_bounce_shade(host_kernels, scene, st4, sf4, lsets, SEED, cfg, 128, pix0=pix0)
+    st5_p = MK.bounce_shade_plain(scene, st4, sf4, lsets, 0, SEED, cfg, True, 128, pix0)
+    assert _close_rays(st5[:, found], st5_p[:, found]) >= 0.999
+    assert _close_rays(st5, st5_p, [9, 10, 11, 13]) >= 0.999
+    lit, lit_p = ((x[9:12] != st4[9:12]).any(0) for x in (st5, st5_p))
+    assert torch.equal(lit, lit_p) and lit.any()
+    st5_0 = MK.bounce_shade_plain(scene, st4, sf4, lsets, 0, SEED, cfg, True, 128)
+    assert not torch.equal(st5_p[3:6], st5_0[3:6])
+    assert host_bounce_shade(host_kernels, scene, st4, sf4, lsets, SEED, cfg, 128,
+                             pix0=-1) is None
+    f6 = MK.bounce_trace_plain(scene, st5_p, 1, cfg, True)[0][13] > 0.5
+    st6 = host_bounce(host_kernels, scene, st5_p, lsets, 1, SEED, cfg, False, pix0=pix0)
+    st6_p = MK.bounce_plain(scene, st5_p, lsets, 1, SEED, cfg, False, True, 128, pix0)
+    assert _close_rays(st6[:, f6], st6_p[:, f6]) >= 0.999
+    assert _close_rays(st6, st6_p, [9, 10, 11, 13]) >= 0.999
+    assert torch.equal(*((x[9:12] != st5_p[9:12]).any(0) for x in (st6, st6_p)))
 
 
 SUN = (0.2, 0.45, 0.87)  # shines in through the box's opening at +z

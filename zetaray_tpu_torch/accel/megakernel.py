@@ -453,7 +453,7 @@ def _surface_plain(o: V3, d: V3, t_hit, bu, bv, at, wo_dot_ng):
 
 
 def _shade_plain(scene, d: V3, thr: V3, rad: V3, alive, pos: V3, ns: V3, ng: V3, mat,
-                 light_sets, u, bounce: int, cfg, has_lights: bool, rt: int):
+                 light_sets, u, bounce: int, cfg, has_lights: bool, rt: int, pix0: int = 0):
     """NEE with its shadow segment, sun NEE with its own, BSDF sample and
     Russian roulette, the shade half of a bounce, at the regularized
     material past bounce 0 where ``cfg.path_regularization``. ``light_sets``
@@ -474,7 +474,7 @@ def _shade_plain(scene, d: V3, thr: V3, rad: V3, alive, pos: V3, ns: V3, ng: V3,
         else:
             n_sets, _, ps = light_sets.shape
             pix = torch.arange(u1.shape[0], dtype=torch.int64, device=u1.device)
-            set_idx = (pix // rt + bounce * 13) % n_sets
+            set_idx = (pix0 // rt + pix // rt + bounce * 13) % n_sets
             p = torch.clamp_max((u1 * ps).to(torch.int64), ps - 1)
             srow = light_sets[set_idx, :, p].T  # [LSET_ROWS, N]
             lp, lng, lle = v3.from_rows(srow, 0), v3.from_rows(srow, 3), v3.from_rows(srow, 6)
@@ -560,23 +560,23 @@ def bounce_trace_plain(scene, state, bounce: int, cfg, has_lights: bool, spread_
 
 
 def bounce_shade_plain(scene, state, surf, light_sets, bounce: int, seed: int, cfg,
-                       has_lights: bool, rt: int):
+                       has_lights: bool, rt: int, pix0: int = 0):
     """The plain PyTorch version of the shade kernel (B5): state [STATE_ROWS, N]."""
     _, d, thr, rad, _, alive, _ = _path(state)
     mat = S.material(v3.from_rows(surf, 9), *surf[12:19], scene.has_transmission,
                      scene.has_coat)
     u = bounce_uniforms(state.shape[1], bounce, seed, device=state.device,
-                        wops=cfg.nee_mode == "wops")
+                        wops=cfg.nee_mode == "wops", pix0=pix0)
     o2, d2, thr, rad, pdf, alive, transmitted = _shade_plain(
         scene, d, thr, rad, alive, v3.from_rows(surf, 0), v3.from_rows(surf, 3),
-        v3.from_rows(surf, 6), mat, light_sets, u, bounce, cfg, has_lights, rt,
+        v3.from_rows(surf, 6), mat, light_sets, u, bounce, cfg, has_lights, rt, pix0,
     )
     eta_scale = torch.where(transmitted & (surf[16] > 0.0), surf[16], 1.0)
     return _state(o2, d2, thr, rad, pdf, alive, torch.zeros_like(pdf), state[15] * eta_scale)
 
 
 def bounce_plain(scene, state, light_sets, bounce: int, seed: int, cfg, last: bool,
-                 has_lights: bool, rt: int):
+                 has_lights: bool, rt: int, pix0: int = 0):
     """The plain PyTorch version of the fused bounce kernel (B6):
     state [STATE_ROWS, N]. ``last`` stops after the emission."""
     o, d, thr, _, prev_pdf, _, _ = _path(state)
@@ -587,14 +587,15 @@ def bounce_plain(scene, state, light_sets, bounce: int, seed: int, cfg, last: bo
     pos, ns, ng, front, _, _ = _surface_plain(o, d, t_hit, bu, bv, at, wo_dot_ng)
     mat = hit_material(at, front, scene.has_transmission, scene.has_coat)
     u = bounce_uniforms(state.shape[1], bounce, seed, device=state.device,
-                        wops=cfg.nee_mode == "wops")
+                        wops=cfg.nee_mode == "wops", pix0=pix0)
     o2, d2, thr, rad, pdf, alive, _ = _shade_plain(
         scene, d, thr, rad, found, pos, ns, ng, mat, light_sets, u, bounce, cfg, has_lights, rt,
+        pix0,
     )
     return _state(o2, d2, thr, rad, pdf, alive, torch.zeros_like(pdf), state[15])
 
 
-def _bounce_args(scene, state, light_sets, rt: int, wops: bool = False):
+def _bounce_args(scene, state, light_sets, rt: int, wops: bool = False, pix0: int = 0):
     """Validate the tensors of a bounce launch; returns (n, tp, n_sets, ps):
     with ``wops`` ``light_sets`` is ``wops_table`` and (n_sets, ps) (1, Ep)."""
     n = state.shape[1]
@@ -608,6 +609,8 @@ def _bounce_args(scene, state, light_sets, rt: int, wops: bool = False):
         return n, tp, 1, 1
     if rt % BOUNCE_BLOCK:
         raise ValueError(f"tile width {rt} is not a multiple of {BOUNCE_BLOCK}")
+    if pix0 < 0:
+        raise ValueError(f"ray offset {pix0} is negative")
     if wops:
         ep = scene.em_attrs.shape[0]
         native.require_cuda(light_sets, "wops_table", torch.float32, (ep, WOPS_ROW))
@@ -652,10 +655,13 @@ bounce_trace.launches = 0
 
 
 def bounce_shade(scene, state, surf, light_sets, bounce: int, seed: int, cfg,
-                 has_lights: bool, rt: int):
-    """Shade half of a bounce (B5): state [STATE_ROWS, N]. Pixel i draws its
-    NEE sample from set ``(i // rt + 13 * bounce) % n_sets``, or with
-    ``cfg.nee_mode="wops"`` from ``light_sets`` = ``wops_table(scene)``.
+                 has_lights: bool, rt: int, pix0: int = 0):
+    """Shade half of a bounce (B5): state [STATE_ROWS, N]. Ray i draws its
+    NEE sample from set ``(pix0 // rt + i // rt + 13 * bounce) % n_sets``,
+    or with ``cfg.nee_mode="wops"`` from ``light_sets`` =
+    ``wops_table(scene)``, and its uniforms from the stream of ray id
+    ``pix0 + i`` (``pix0``: the global id of a row band's first ray, 0 for
+    the whole image).
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel,
     whose shadow sweep tests the ``scene.num_tris`` real triangles.
@@ -663,16 +669,16 @@ def bounce_shade(scene, state, surf, light_sets, bounce: int, seed: int, cfg,
     _check_bounce(scene, "bounce_shade")
     if state.device.type == "cpu":
         return bounce_shade_plain(scene, state, surf, light_sets, bounce, seed, cfg,
-                                  has_lights, rt)
+                                  has_lights, rt, pix0)
     wops = _wops_em(scene, cfg)
-    n, tp, n_sets, ps = _bounce_args(scene, state, light_sets, rt, wops > 0)
+    n, tp, n_sets, ps = _bounce_args(scene, state, light_sets, rt, wops > 0, pix0)
     native.require_cuda(surf, "surf", torch.float32, (SURF_ROWS, n))
     out = torch.empty_like(state)
     err = native.lib().zr_bounce_shade(
         state.data_ptr(), surf.data_ptr(), scene.woop_rows().data_ptr(), light_sets.data_ptr(),
-        out.data_ptr(), n, tp, scene.num_tris, n_sets, ps, rt, bounce, int(seed) & 0xFFFFFFFF,
-        cfg.min_nee_bounce, cfg.rr_start, int(cfg.nee), int(has_lights), wops,
-        material_flags(scene), path_options(cfg), native.stream_ptr(state.device),
+        out.data_ptr(), n, tp, scene.num_tris, n_sets, ps, rt, int(pix0), bounce,
+        int(seed) & 0xFFFFFFFF, cfg.min_nee_bounce, cfg.rr_start, int(cfg.nee), int(has_lights),
+        wops, material_flags(scene), path_options(cfg), native.stream_ptr(state.device),
     )
     native.check(err, "bounce_shade")
     bounce_shade.launches += 1
@@ -683,23 +689,23 @@ bounce_shade.launches = 0
 
 
 def bounce(scene, state, light_sets, b: int, seed: int, cfg, last: bool,
-           has_lights: bool, rt: int):
+           has_lights: bool, rt: int, pix0: int = 0):
     """One whole bounce, of index ``b`` (B6): state [STATE_ROWS, N].
-    ``light_sets``: as for ``bounce_shade``.
+    ``light_sets``, ``pix0``: as for ``bounce_shade``.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel.
     """
     _check_bounce(scene, "bounce")
     if state.device.type == "cpu":
-        return bounce_plain(scene, state, light_sets, b, seed, cfg, last, has_lights, rt)
+        return bounce_plain(scene, state, light_sets, b, seed, cfg, last, has_lights, rt, pix0)
     wops = _wops_em(scene, cfg)
-    n, tp, n_sets, ps = _bounce_args(scene, state, light_sets, rt, wops > 0)
+    n, tp, n_sets, ps = _bounce_args(scene, state, light_sets, rt, wops > 0, pix0)
     check_sweep_t_min(cfg.t_min)
     out = torch.empty_like(state)
     err = native.lib().zr_bounce(
         state.data_ptr(), scene.woop_rows().data_ptr(), scene.tri_attrs.data_ptr(),
-        light_sets.data_ptr(), out.data_ptr(), n, tp, scene.num_tris, n_sets, ps, rt, b,
-        int(seed) & 0xFFFFFFFF, cfg.t_min, cfg.min_emissive_bounce, cfg.min_nee_bounce,
+        light_sets.data_ptr(), out.data_ptr(), n, tp, scene.num_tris, n_sets, ps, rt, int(pix0),
+        b, int(seed) & 0xFFFFFFFF, cfg.t_min, cfg.min_emissive_bounce, cfg.min_nee_bounce,
         cfg.rr_start, int(cfg.nee), int(has_lights), int(last), wops, material_flags(scene),
         path_options(cfg), native.stream_ptr(state.device),
     )
@@ -764,16 +770,18 @@ def fetch_base(textures, state, surf):
 
 
 def trace_megakernel(scene, o, d, seed: int, cfg, rt: int = 1024, rows_out: bool = False,
-                     light_sets=None, smb_kill=None, textures=None, spread_angle=0.0):
+                     light_sets=None, smb_kill=None, textures=None, spread_angle=0.0,
+                     pix0: int = 0):
     """Path trace of rays o, d [N, 3] through the fused bounce kernel (B6):
     bounces 0..max_bounces, the last one stopping after its emission.
     Returns radiance [N, 3], or rows [3, N] with ``rows_out``.
 
     The rays are padded to a multiple of the tile width ``rt``, as the JAX
     function pads them: ray i draws its NEE sample from light set
-    ``(i // rt + 13 * bounce) % n_sets``. ``light_sets``: as in
-    ``trace_with_first_hit``. ``smb_kill``: optional bool [N], paths that
-    stop extending after bounce 0's launch.
+    ``(pix0 // rt + i // rt + 13 * bounce) % n_sets`` and its uniforms from
+    ray id ``pix0 + i`` (``pix0``: the global id of a row band's first
+    ray). ``light_sets``: as in ``trace_with_first_hit``. ``smb_kill``:
+    optional bool [N], paths that stop extending after bounce 0's launch.
 
     With ``textures`` (a bundle of ``scene.textures.load_scene_textures``)
     every bounce is split, as in the JAX function: B4, the base-colour fetch
@@ -798,12 +806,12 @@ def trace_megakernel(scene, o, d, seed: int, cfg, rt: int = 1024, rows_out: bool
     for b in range(cfg.max_bounces + 1):
         last = b == cfg.max_bounces
         if not split:
-            state = bounce(scene, state, lsets, b, seed, cfg, last, has_lights, rt)
+            state = bounce(scene, state, lsets, b, seed, cfg, last, has_lights, rt, pix0)
         else:
             state, surf = bounce_trace(scene, state, b, cfg, has_lights, spread_angle)
             if not last:
                 state = bounce_shade(scene, state, fetch_base(textures, state, surf), lsets, b,
-                                     seed, cfg, has_lights, rt)
+                                     seed, cfg, has_lights, rt, pix0)
         if smb_kill is not None and b == 0:
             _smb_keep(state, smb_kill)
     rad = state[9:12, :n]
@@ -811,7 +819,7 @@ def trace_megakernel(scene, o, d, seed: int, cfg, rt: int = 1024, rows_out: bool
 
 
 def trace_with_first_hit(scene, o, d, seed: int, cfg, rt: int, light_sets=None,
-                         spread_angle=0.0, smb_kill=None, textures=None):
+                         spread_angle=0.0, smb_kill=None, textures=None, pix0: int = 0):
     """Path trace of rays o, d [N, 3] that also returns the first hit's surface:
     B4 and B5 at bounce 0, then B6 for bounces 1..max_bounces (the last one
     stops after its emission). Returns (radiance rows [3, N], surf
@@ -824,6 +832,7 @@ def trace_with_first_hit(scene, o, d, seed: int, cfg, rt: int, light_sets=None,
     ``textures``: the base colour of the first hit is fetched between B4
     and B5 (``fetch_base``; the returned surf carries it); the later
     bounces run B6 without textures, as the JAX function does.
+    ``pix0``: as for ``trace_megakernel``.
     """
     _check_bounce(scene, "trace_with_first_hit")
     has_lights = scene.num_emissives > 0
@@ -833,9 +842,10 @@ def trace_with_first_hit(scene, o, d, seed: int, cfg, rt: int, light_sets=None,
     if cfg.max_bounces > 0:
         if textures:
             surf = fetch_base(textures, state, surf)
-        state = bounce_shade(scene, state, surf, lsets, 0, seed, cfg, has_lights, rt)
+        state = bounce_shade(scene, state, surf, lsets, 0, seed, cfg, has_lights, rt, pix0)
         if smb_kill is not None:
             _smb_keep(state, smb_kill)
         for b in range(1, cfg.max_bounces + 1):
-            state = bounce(scene, state, lsets, b, seed, cfg, b == cfg.max_bounces, has_lights, rt)
+            state = bounce(scene, state, lsets, b, seed, cfg, b == cfg.max_bounces, has_lights, rt,
+                           pix0)
     return state[9:12], surf, alive0

@@ -67,15 +67,16 @@ def uniform4(pixel: torch.Tensor, bounce: int, frame_seed, salt: int = 0):
 
 
 def bounce_uniforms(n: int, bounce: int, seed: int, device="cpu",
-                    wops: bool = False) -> torch.Tensor:
+                    wops: bool = False, pix0: int = 0) -> torch.Tensor:
     """[5, N] float32 uniforms of one path bounce from one pcg4d per ray
-    (ray index i, bounce, seed, BOUNCE_SALT): the top 24 bits of each of the
+    (ray id pix0 + i, bounce, seed, BOUNCE_SALT; ``pix0`` the global id of
+    a row band's first ray, 0 unsharded): the top 24 bits of each of the
     four outputs (light pick and three BSDF-sample uniforms), then the
     Russian-roulette uniform built from the low bytes of the first three.
     With ``wops``, [8, N]: then the top 24 bits of the first three outputs
     of a second pcg4d (salt WOPS_SALT): WoPS NEE's alias test and the two
     uniforms of its point on the triangle."""
-    pix = torch.arange(n, dtype=torch.int64, device=device)
+    pix = (torch.arange(n, dtype=torch.int64, device=device) + int(pix0)) & _M32
     full = lambda v: torch.full_like(pix, int(v) & _M32)
     r = pcg4d_lanes(pix, full(bounce), full(seed), full(BOUNCE_SALT))
     lo = (r[0] & 0xFF) | ((r[1] & 0xFF) << 8) | ((r[2] & 0xFF) << 16)

@@ -223,13 +223,15 @@ bounce_kernel(const float* __restrict__ st_in, const float4* __restrict__ tri_ro
   }
 }
 
-zr::BounceParams params(int bounce, uint32_t seed, int rt, int n_sets, int ps, int n_em,
-                        float t_min, int min_emissive_bounce, int min_nee_bounce, int rr_start,
-                        int nee, int has_lights, int mat, const float* opts) {
+zr::BounceParams params(int bounce, uint32_t seed, int rt, int pix0, int n_sets, int ps,
+                        int n_em, float t_min, int min_emissive_bounce, int min_nee_bounce,
+                        int rr_start, int nee, int has_lights, int mat, const float* opts) {
   zr::BounceParams p;
   p.bounce = bounce;
   p.seed = seed;
   p.rt = rt;
+  p.pix0 = pix0;
+  p.tile0 = pix0 / rt;
   p.n_sets = n_sets;
   p.ps = ps;
   p.n_em = n_em;
@@ -261,7 +263,7 @@ extern "C" int zr_bounce_trace(const float* st_in, const float* tri_rows, const 
                                int bounce, float t_min, float spread, int min_emissive_bounce,
                                int nee, int has_lights, const float* opts, void* stream) {
   if (nt < 0 || nt > tp || !(t_min >= 0.f)) return (int)cudaErrorInvalidValue;
-  const zr::BounceParams p = params(bounce, 0u, BOUNCE_BLOCK, 1, 1, 0, t_min,
+  const zr::BounceParams p = params(bounce, 0u, BOUNCE_BLOCK, 0, 1, 1, 0, t_min,
                                     min_emissive_bounce, 0, 0, nee, has_lights, 0, opts);
   const int grid = (n + BOUNCE_BLOCK - 1) / BOUNCE_BLOCK;
   const auto kernel = zr::opts_sky(opts) ? bounce_trace_kernel<true> : bounce_trace_kernel<false>;
@@ -278,16 +280,18 @@ extern "C" int zr_bounce_trace(const float* st_in, const float* tri_rows, const 
 // many emissives, sets then the [ps][WOPS_ROW] table (wops_table, ps its
 // padded emissive count). mat: the scene's material lobes, bit 0
 // transmission, bit 1 coat (material_flags); 0 takes the opaque instances.
+// pix0: the global id of ray 0 (a row band's offset; 0 for the whole image):
+// ray i draws from the tile pix0 / rt + i / rt and the random stream pix0 + i.
 extern "C" int zr_bounce_shade(const float* st_in, const float* surf, const float* tri_rows,
                                const float* sets, float* st_out, int n, int tp, int nt,
-                               int n_sets, int ps, int rt, int bounce, uint32_t seed,
+                               int n_sets, int ps, int rt, int pix0, int bounce, uint32_t seed,
                                int min_nee_bounce, int rr_start, int nee, int has_lights,
                                int wops_em, int mat, const float* opts, void* stream) {
-  if (nt < 0 || nt > tp || rt % BOUNCE_BLOCK || wops_em < 0 || wops_em > ps || mat < 0 ||
-      mat > 3) {
+  if (nt < 0 || nt > tp || rt % BOUNCE_BLOCK || pix0 < 0 || wops_em < 0 || wops_em > ps ||
+      mat < 0 || mat > 3) {
     return (int)cudaErrorInvalidValue;
   }
-  const zr::BounceParams p = params(bounce, seed, rt, n_sets, ps, wops_em, 0.f, 0,
+  const zr::BounceParams p = params(bounce, seed, rt, pix0, n_sets, ps, wops_em, 0.f, 0,
                                     min_nee_bounce, rr_start, nee, has_lights, mat, opts);
   const int grid = (n + BOUNCE_BLOCK - 1) / BOUNCE_BLOCK;
   const bool wops = wops_em > 0;
@@ -309,19 +313,19 @@ extern "C" int zr_bounce_shade(const float* st_in, const float* surf, const floa
   return (int)cudaGetLastError();
 }
 
-// tri_rows, nt, opts: as for zr_bounce_trace; sets, wops_em, mat: as for
-// zr_bounce_shade.
+// tri_rows, nt, opts: as for zr_bounce_trace; sets, pix0, wops_em, mat: as
+// for zr_bounce_shade.
 extern "C" int zr_bounce(const float* st_in, const float* tri_rows, const float* attrs,
                          const float* sets, float* st_out, int n, int tp, int nt, int n_sets,
-                         int ps, int rt, int bounce, uint32_t seed, float t_min,
+                         int ps, int rt, int pix0, int bounce, uint32_t seed, float t_min,
                          int min_emissive_bounce, int min_nee_bounce, int rr_start, int nee,
                          int has_lights, int last, int wops_em, int mat, const float* opts,
                          void* stream) {
-  if (nt < 0 || nt > tp || rt % BOUNCE_BLOCK || !(t_min >= 0.f) || wops_em < 0 ||
+  if (nt < 0 || nt > tp || rt % BOUNCE_BLOCK || pix0 < 0 || !(t_min >= 0.f) || wops_em < 0 ||
       wops_em > ps || mat < 0 || mat > 3) {
     return (int)cudaErrorInvalidValue;
   }
-  const zr::BounceParams p = params(bounce, seed, rt, n_sets, ps, wops_em, t_min,
+  const zr::BounceParams p = params(bounce, seed, rt, pix0, n_sets, ps, wops_em, t_min,
                                     min_emissive_bounce, min_nee_bounce, rr_start, nee,
                                     has_lights, mat, opts);
   const int grid = (n + BOUNCE_BLOCK - 1) / BOUNCE_BLOCK;

@@ -463,7 +463,11 @@ __device__ __forceinline__ void store_path(float* __restrict__ st, int n, int i,
 struct BounceParams {
   int bounce;
   uint32_t seed;
-  int rt, n_sets, ps;  // light-set tiling: set (i / rt + 13 * bounce) % n_sets
+  // light-set tiling: ray i takes set (tile0 + i / rt + 13 * bounce) % n_sets;
+  // pix0 is the global id of ray 0 (a row band's offset, 0 for the whole
+  // image), tile0 = pix0 / rt, and ray i's random stream is pix0 + i
+  int rt, n_sets, ps;
+  int pix0, tile0;
   int n_em;  // WoPS NEE: the real emissives of the table (ps its rows)
   float t_min;
   int min_emissive_bounce, min_nee_bounce, rr_start;
@@ -506,7 +510,7 @@ struct Surface {
 
 // The light set of the tile that holds ray p0 at this bounce.
 __device__ __forceinline__ int bounce_set(const BounceParams& prm, int p0) {
-  return (int)(((long long)(p0 / prm.rt) + 13LL * prm.bounce) % prm.n_sets);
+  return (int)(((long long)(prm.tile0 + p0 / prm.rt) + 13LL * prm.bounce) % prm.n_sets);
 }
 
 // The trace half of B4 and B6 after their closest-hit sweep (sweep.cuh),
@@ -595,7 +599,8 @@ __device__ __forceinline__ LightSample set_light(const float* lset, const Bounce
 __device__ __forceinline__ LightSample wops_light(const float* __restrict__ tab,
                                                   const BounceParams& prm, int i, float u_pick) {
   static_assert(WOPS_ROW % 2 == 0 && EA_WIDTH % 2 == 0, "the alias entry is an 8-byte word");
-  uint32_t h0 = (uint32_t)i, h1 = (uint32_t)prm.bounce, h2 = prm.seed, h3 = WOPS_SALT;
+  uint32_t h0 = (uint32_t)prm.pix0 + (uint32_t)i, h1 = (uint32_t)prm.bounce;
+  uint32_t h2 = prm.seed, h3 = WOPS_SALT;
   pcg4d(h0, h1, h2, h3);
   const float u_alias = to_unit(h0), u_b0 = to_unit(h1), u_b1 = to_unit(h2);
   const int k0 = min((int)(u_pick * (float)prm.n_em), prm.n_em - 1);
@@ -630,7 +635,8 @@ __device__ __forceinline__ bool shade_sample(const float* lights, const BouncePa
                                              Path& path, const Surface& sf, V3f* so, V3f* seg,
                                              V3f* rad_lit, bool* sun_cand, V3f* sun_add,
                                              bool* trans_out) {
-  uint32_t h0 = (uint32_t)i, h1 = (uint32_t)prm.bounce, h2 = prm.seed, h3 = BOUNCE_SALT;
+  uint32_t h0 = (uint32_t)prm.pix0 + (uint32_t)i, h1 = (uint32_t)prm.bounce;
+  uint32_t h2 = prm.seed, h3 = BOUNCE_SALT;
   pcg4d(h0, h1, h2, h3);
   const float u1 = to_unit(h0), u5 = to_unit(h1), u6 = to_unit(h2), u7 = to_unit(h3);
   const uint32_t lo = (h0 & 0xFFu) | ((h1 & 0xFFu) << 8) | ((h2 & 0xFFu) << 16);

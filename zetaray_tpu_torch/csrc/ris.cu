@@ -59,13 +59,14 @@ __device__ __forceinline__ float rate(const float4 a, const float4 b, const Surf
 
 __global__ void ris_kernel(const float* __restrict__ gb, const float* __restrict__ sets,
                            float* __restrict__ out, int n, int n_sets, int ps, int rt,
-                           uint32_t seed) {
+                           uint32_t seed, int pix0) {
   extern __shared__ float4 s4[];  // [3][ps]
   float4* const s_a = s4;
   float4* const s_b = s4 + ps;
   float4* const s_c = s4 + 2 * ps;
   const int p0 = blockIdx.x * blockDim.x;
-  const int set = (int)(((long long)(p0 / rt) * 31) % n_sets);
+  // the global tile of a row band's pixel: pix0 / rt tiles precede the band
+  const int set = (int)((((long long)(pix0 / rt) + p0 / rt) * 31) % n_sets);
   const float* src = sets + (size_t)set * LSET_ROWS * ps;
   for (int k = threadIdx.x; k < ps; k += blockDim.x) {
     const float lum = 0.2126f * src[6 * ps + k] + 0.7152f * src[7 * ps + k] +
@@ -111,7 +112,7 @@ __global__ void ris_kernel(const float* __restrict__ gb, const float* __restrict
     }
   }
 
-  uint32_t h0 = (uint32_t)i, h1 = 0u, h2 = seed, h3 = 0x51E5u;
+  uint32_t h0 = (uint32_t)pix0 + (uint32_t)i, h1 = 0u, h2 = seed, h3 = 0x51E5u;
   zr::pcg4d(h0, h1, h2, h3);
   const float target = zr::to_unit(h0) * w_sum;
   int idx = ps - 1;
@@ -158,16 +159,18 @@ __global__ void ris_kernel(const float* __restrict__ gb, const float* __restrict
 }  // namespace
 
 // block: pixels (threads) a block; it must divide the tile width rt.
+// pix0: the global id of the first pixel (a row band's offset; 0 for the
+// whole image), which moves the pixels' tiles and random streams.
 extern "C" int zr_ris(const float* gb, const float* sets, float* out, int n, int n_sets, int ps,
-                      int rt, int block, uint32_t seed, void* stream) {
-  if (n_sets < 1 || ps < 1 || block < 1 || rt % block) {
+                      int rt, int block, uint32_t seed, int pix0, void* stream) {
+  if (n_sets < 1 || ps < 1 || block < 1 || rt % block || pix0 < 0) {
     return (int)cudaErrorInvalidValue;
   }
   const int grid = (n + block - 1) / block;
   const size_t smem = (size_t)3 * ps * sizeof(float4);
   if (grid > 0) {
     ris_kernel<<<grid, block, smem, (cudaStream_t)stream>>>(gb, sets, out, n, n_sets, ps, rt,
-                                                             seed);
+                                                             seed, pix0);
   }
   return (int)cudaGetLastError();
 }

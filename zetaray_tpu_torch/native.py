@@ -51,21 +51,22 @@ _SIGNATURES = {
     "zr_gbuffer": [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _F, _VP],
     # o, d, woop_rows, out, n, tp, nt, t_min, t_max, stream
     "zr_occlusion": [_VP, _VP, _VP, _VP, _I, _I, _I, _F, _F, _VP],
-    # gb, sets, out, n, n_sets, ps, rt, block, seed, stream
+    # gb, sets, out, n, n_sets, ps, rt, block, seed, pix0, stream
     "zr_ris": [_VP, _VP, _VP, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-               ctypes.c_int, ctypes.c_uint32, _VP],
+               ctypes.c_int, ctypes.c_uint32, ctypes.c_int, _VP],
     # state, woop_rows, attrs, state_out, surf_out, n, tp, nt, bounce, t_min, spread,
     # min_emissive_bounce, nee, has_lights, path options, stream
     "zr_bounce_trace": [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _F, _F, _I, _I, _I, _FP, _VP],
-    # state, surf, woop_rows, sets, state_out, n, tp, nt, n_sets, ps, rt, bounce, seed,
-    # min_nee_bounce, rr_start, nee, has_lights, wops_em, material flags, path options, stream
-    "zr_bounce_shade": [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _I, ctypes.c_uint32,
-                        _I, _I, _I, _I, _I, _I, _FP, _VP],
-    # state, woop_rows, attrs, sets, state_out, n, tp, nt, n_sets, ps, rt, bounce, seed,
-    # t_min, min_emissive_bounce, min_nee_bounce, rr_start, nee, has_lights, last,
+    # state, surf, woop_rows, sets, state_out, n, tp, nt, n_sets, ps, rt, pix0, bounce,
+    # seed, min_nee_bounce, rr_start, nee, has_lights, wops_em, material flags, path
+    # options, stream
+    "zr_bounce_shade": [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _I, _I,
+                        ctypes.c_uint32, _I, _I, _I, _I, _I, _I, _FP, _VP],
+    # state, woop_rows, attrs, sets, state_out, n, tp, nt, n_sets, ps, rt, pix0, bounce,
+    # seed, t_min, min_emissive_bounce, min_nee_bounce, rr_start, nee, has_lights, last,
     # wops_em, material flags, path options, stream
-    "zr_bounce": [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _I, ctypes.c_uint32, _F,
-                  _I, _I, _I, _I, _I, _I, _I, _I, _FP, _VP],
+    "zr_bounce": [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_uint32,
+                  _F, _I, _I, _I, _I, _I, _I, _I, _I, _FP, _VP],
     # o, d, woop_rows, attrs, t, tri, u, v, attrs_out, n, tp, nt, tie, t_min, t_max, stream
     "zr_closest": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _F, _F, _VP],
     # o, d, walk_nodes, leaf_rows, leaf_slot, t, tri, n, c, stack, t_min, t_max, stream

@@ -96,21 +96,23 @@ def megakernel_eligible(scene) -> bool:
 
 def trace(scene, o, d, seed: int, cfg: PTConfig = PTConfig(), rt: int = 1024,
           rows_out: bool = False, light_sets=None, smb_kill=None, textures=None,
-          spread_angle=0.0):
+          spread_angle=0.0, pix0: int = 0):
     """Path-traced radiance of rays o, d [N, 3]: [N, 3] linear HDR, or rows
     [3, N] with ``rows_out``. ``seed`` is the u32 frame seed; ``rt`` the tile
-    width that picks each ray's light set. ``light_sets``: the frame's sets,
+    width that picks each ray's light set; ``pix0`` the global id of the
+    first ray (a row band's offset, 0 for the whole image), which moves
+    every ray's random stream and tile. ``light_sets``: the frame's sets,
     used where they are the ones ``seed`` gives (``trace_megakernel``). A
     clustered or cutout scene takes ``trace_reference``, which reads neither.
     ``smb_kill``: optional bool [N], paths that end after their first vertex.
     ``textures``, ``spread_angle``: the base-colour fetch at every vertex."""
     if not megakernel_eligible(scene):
         out = trace_reference(scene, o, d, seed, cfg, smb_kill=smb_kill, textures=textures,
-                              spread_angle=spread_angle)
+                              spread_angle=spread_angle, pix0=pix0)
         return out.T if rows_out else out
     return trace_megakernel(scene, o, d, seed, cfg, rt=rt, rows_out=rows_out,
                             light_sets=light_sets, smb_kill=smb_kill, textures=textures,
-                            spread_angle=spread_angle)
+                            spread_angle=spread_angle, pix0=pix0)
 
 
 def park(mask, o: torch.Tensor, d: torch.Tensor):
@@ -133,7 +135,7 @@ def _div(a: V3, s) -> V3:
 
 def trace_reference(scene, o, d, seed: int, cfg: PTConfig = PTConfig(),
                     return_first_hit: bool = False, smb_kill=None, textures=None,
-                    spread_angle=0.0):
+                    spread_angle=0.0, pix0: int = 0):
     """Wavefront path trace of rays o, d [N, 3]: radiance [N, 3], and with
     ``return_first_hit`` also the bounce-0 ``ShadedHit`` (the GI pass reads
     its reconnection vertex from it). Bounces 0..max_bounces, the last one
@@ -145,12 +147,13 @@ def trace_reference(scene, o, d, seed: int, cfg: PTConfig = PTConfig(),
     ``base_color_at`` over the ray cone's width so far (the hit distances
     of the live segments times ``spread_angle``, scaled by eta at each
     transmission); the JAX function does not quantize the spread, as the
-    bounce kernels do (``megakernel.cone_spread``)."""
+    bounce kernels do (``megakernel.cone_spread``). Ray i's random streams
+    are those of pixel id ``pix0 + i``."""
     from ..scene.textures import base_color_at_hits
 
     n = o.shape[0]
     dev = o.device
-    pixel = torch.arange(n, dtype=torch.int64, device=dev)
+    pixel = torch.arange(n, dtype=torch.int64, device=dev) + pix0
     zero = torch.zeros((n,), dtype=torch.float32, device=dev)
     radiance = V3(zero, zero, zero)
     throughput = v3.splat(torch.ones_like(zero))

@@ -14,6 +14,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from ..parallel.halo import all_reduce_sum
 from .sky import _div, _rdiv
 
 # AgX fitted matrices (float32 values, as in the JAX package).
@@ -45,16 +46,20 @@ def luminance_p(img):
 def histogram_exposure_p(
     hdr: torch.Tensor, bins: int = 256, min_log_lum: float = -10.0,
     max_log_lum: float = 8.0, low_clip: float = 0.6, high_clip: float = 0.95,
-    key_value: float = 0.18,
+    key_value: float = 0.18, shard=None,
 ) -> torch.Tensor:
     """Exposure scale from a percentile-clipped log-luminance histogram:
-    the clipped geometric-mean luminance maps to ``key_value``."""
+    the clipped geometric-mean luminance maps to ``key_value``. ``shard``
+    (``parallel.halo.ShardCtx``): ``hdr`` is a row band, and the ranks'
+    histograms are summed (whole counts, so exactly) before the clip."""
     lum = luminance_p(hdr.reshape(3, -1))
     ok = lum > 1e-8
     loglum = torch.clamp(torch.log2(torch.clamp_min(lum, 1e-8)), min_log_lum, max_log_lum)
     t = (loglum - min_log_lum) / (max_log_lum - min_log_lum)
     idx = torch.clamp((t * bins).to(torch.int64), 0, bins - 1)
     hist = torch.bincount(idx, weights=ok.to(torch.float32), minlength=bins).to(torch.float32)
+    if shard is not None:
+        hist = all_reduce_sum(hist, shard)
     cdf = torch.cumsum(hist, 0)
     total = cdf[-1]
     lo = low_clip * total
@@ -70,13 +75,16 @@ def histogram_exposure_p(
 
 def weighted_avg_exposure_p(
     hdr: torch.Tensor, min_lum: float = 5e-3, max_lum: float = 4.0, lum_map_exp: float = 0.5,
-    adaptation_rate: float = 1.0, dt=None, prev_avg=None,
+    adaptation_rate: float = 1.0, dt=None, prev_avg=None, shard=None,
 ):
     """Weighted-average auto-exposure: luminance mapped to t = saturate((lum
     - min_lum) / range) ** lum_map_exp, the mean of t over the pixels with
     lum > 0 mapped back, optionally adapted from ``prev_avg`` over ``dt``
     seconds, then the photometric EV100 exposure (S = 100, K = 12.5, q =
-    0.65). Returns (exposure, average luminance), both 0-d tensors."""
+    0.65). Returns (exposure, average luminance), both 0-d tensors.
+    ``shard``: as for ``histogram_exposure_p``; the ranks' sums of t and
+    counts are summed (the float sum in another order than the whole
+    image's)."""
     dev = hdr.device
     f32 = lambda x: torch.as_tensor(x, dtype=torch.float32, device=dev)
     lum_range = max_lum - min_lum
@@ -86,6 +94,8 @@ def weighted_avg_exposure_p(
     t = torch.pow(torch.clamp_min(t, 1e-12), lum_map_exp)
     s = torch.sum(torch.where(ok, t, 0.0))
     cnt = torch.sum(ok.to(torch.float32))
+    if shard is not None:
+        s, cnt = all_reduce_sum(torch.stack([s, cnt]), shard)
     mean = s / torch.clamp_min(cnt, 1.0)
     result = torch.pow(torch.clamp_min(mean, 1e-12), 1.0 / lum_map_exp)
     result = result * lum_range + min_lum

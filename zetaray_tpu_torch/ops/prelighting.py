@@ -253,13 +253,15 @@ def build_light_voxel_grid(scene, camera, seed: int, cfg: LVGConfig = LVGConfig(
 
 
 def sample_lvg_at(lvg: torch.Tensor, p: torch.Tensor, ok, camera, seed: int, cfg: LVGConfig,
-                  salt: int = 0x51AB):
+                  salt: int = 0x51AB, pix=None):
     """A grid light candidate at positions p [N, 3]: (rows [LVG_ROWS, N],
     valid [N]). The lookup position is jittered by the voxel's extents and a
-    uniform slot is taken (``uniform4(i, 0, seed, salt)``); an empty
-    reservoir, a point off the grid or ``ok`` False gives valid False."""
+    uniform slot is taken (``uniform4(i, 0, seed, salt)``, i the global
+    pixel id, ``pix`` in a row band); an empty reservoir, a point off the
+    grid or ``ok`` False gives valid False."""
     n = p.shape[0]
-    pix = torch.arange(n, dtype=torch.int64, device=p.device)
+    if pix is None:
+        pix = torch.arange(n, dtype=torch.int64, device=p.device)
     u = uniform4(pix, 0, seed, salt=salt)
     _, r, up, f = _basis(camera, p.device)
     ex = torch.tensor(cfg.extents, dtype=torch.float32, device=p.device)
@@ -272,7 +274,7 @@ def sample_lvg_at(lvg: torch.Tensor, p: torch.Tensor, ok, camera, seed: int, cfg
 
 
 def sample_lvg(lvg: torch.Tensor, gbuf: torch.Tensor, camera, seed: int, cfg: LVGConfig,
-               salt: int = 0x51AB):
+               salt: int = 0x51AB, pix=None):
     """``sample_lvg_at`` at each pixel's primary hit (G-buffer [G.ROWS, N])."""
     p = gbuf[G.POS : G.POS + 3].T
-    return sample_lvg_at(lvg, p, gbuf[G.VALID] > 0.5, camera, seed, cfg, salt=salt)
+    return sample_lvg_at(lvg, p, gbuf[G.VALID] > 0.5, camera, seed, cfg, salt=salt, pix=pix)

@@ -73,6 +73,20 @@ class ReSTIRConfig:
     packed_reuse: bool = True  # False: the reuse gathers move raw float32 reservoirs
 
 
+def pixel_ids(n: int, device, pix=None) -> torch.Tensor:
+    """The global pixel ids that drive a pass's random streams: ``pix`` (a
+    row band's, ``render.frame``), else 0..n-1 (the whole image)."""
+    return torch.arange(n, dtype=torch.int64, device=device) if pix is None else pix
+
+
+def no_halo(x: torch.Tensor, halo: int):
+    """The gather source of a whole-image reuse pass: ``x`` itself, whose
+    first row is image row 0. A row-sharded frame passes an exchange that
+    returns the band extended by ``halo`` rows on both sides and the image
+    row of its first row (``render.frame``)."""
+    return x, 0
+
+
 def surface_from_gbuf(gb: torch.Tensor, trans: bool = False, coat: bool = False):
     """[G.ROWS, N] -> (pos, ns, ng, wo, mat, valid). ``trans``/``coat``:
     the material takes the transmission lobe (G.TRANS, G.ETA) and the coat
@@ -111,13 +125,14 @@ def phat(mat, frame, wo_l, pos: V3, ns: V3, y_pos: V3, y_ng: V3, y_le: V3, y_two
 # ---------------------------------------------------------------------------
 
 
-def initial_candidates_plain(gbuf, light_sets, seed: int, rt: int) -> torch.Tensor:
+def initial_candidates_plain(gbuf, light_sets, seed: int, rt: int,
+                             pix0: int = 0) -> torch.Tensor:
     """The plain PyTorch version of the RIS kernel: [R_ROWS, N]."""
     n = gbuf.shape[1]
     n_sets, _, ps = light_sets.shape
     dev = gbuf.device
     pix = torch.arange(n, dtype=torch.int64, device=dev)
-    set_of_pix = (pix // rt) * 31 % n_sets
+    set_of_pix = (pix0 // rt + pix // rt) * 31 % n_sets
     rows = {r: light_sets[:, r, :][set_of_pix] for r in range(LSET_STAGED)}  # each [N, ps]
     pos, ns, _ng, _wo, mat, valid = surface_from_gbuf(gbuf)
     col = rows.__getitem__
@@ -149,7 +164,7 @@ def initial_candidates_plain(gbuf, light_sets, seed: int, rt: int) -> torch.Tens
         acc = acc + w_all[:, k]
         cum[:, k] = acc
     w_sum = acc
-    u = uniform4(pix, 0, seed, salt=0x51E5)[0]
+    u = uniform4(pix0 + pix, 0, seed, salt=0x51E5)[0]
     sel = cum > (u * w_sum)[:, None]
     idx = torch.where(sel.any(1), sel.to(torch.int64).argmax(1), ps - 1)  # first True
     pick = lambda t: t.gather(1, idx[:, None])[:, 0]
@@ -164,28 +179,33 @@ def initial_candidates_plain(gbuf, light_sets, seed: int, rt: int) -> torch.Tens
 
 
 def initial_candidates(gbuf, light_sets, seed: int, rt: int = 1024, trans: bool = False,
-                       coat: bool = False) -> torch.Tensor:
+                       coat: bool = False, pix0: int = 0) -> torch.Tensor:
     """Full-set RIS over each pixel's presampled light set -> [R_ROWS, N].
 
     ``rt`` is the JAX frame's tile width (``render.frame.pick_rt``): pixel p
-    draws from set ``(31 * (p // rt)) % n_sets``. A CPU tensor takes the
+    draws from set ``(31 * (pix0 // rt + p // rt)) % n_sets`` with the
+    uniform of pixel id ``pix0 + p``, where ``pix0`` is the global id of a
+    row band's first pixel (0 for the whole image; a multiple of ``rt`` for
+    a band to draw as it would in the whole image). A CPU tensor takes the
     plain version; a CUDA tensor launches the kernel. Every candidate is
     rated with the albedo/pi target, whatever the material: ``trans`` and
     ``coat`` are taken and not read, as the JAX kernel takes its ``trans``,
     ``coat`` and ``full`` and rates with that target under each.
     """
     if gbuf.device.type == "cpu":
-        return initial_candidates_plain(gbuf, light_sets, seed, rt)
+        return initial_candidates_plain(gbuf, light_sets, seed, rt, pix0)
     n = gbuf.shape[1]
     n_sets, _, ps = light_sets.shape
     native.require_cuda(gbuf, "gbuf", torch.float32, (G.ROWS, n))
     native.require_cuda(light_sets, "light_sets", torch.float32, (n_sets, LSET_ROWS, ps))
     if rt % _RIS_BLOCK:
         raise ValueError(f"tile width {rt} is not a multiple of {_RIS_BLOCK}")
+    if pix0 < 0:
+        raise ValueError(f"pixel offset {pix0} is negative")
     out = torch.empty((R_ROWS, n), dtype=torch.float32, device=gbuf.device)
     err = native.lib().zr_ris(
         gbuf.data_ptr(), light_sets.data_ptr(), out.data_ptr(), n, n_sets, ps, rt,
-        _RIS_BLOCK, int(seed) & 0xFFFFFFFF, native.stream_ptr(gbuf.device),
+        _RIS_BLOCK, int(seed) & 0xFFFFFFFF, int(pix0), native.stream_ptr(gbuf.device),
     )
     native.check(err, "ris")
     initial_candidates.launches += 1
@@ -229,17 +249,19 @@ def _surf(gbuf, trans=False, coat=False):
 
 
 def lvg_merge(res, gbuf, camera, lvg, seed: int, cfg: ReSTIRConfig, lvg_cfg, trans=False,
-              coat=False):
+              coat=False, pix=None):
     """Merge ``cfg.lvg_samples`` light-voxel-grid candidates into each
     pixel's reservoir (``ops.prelighting.sample_lvg`` with salt 0x51AB + s;
-    the merge's uniform ``uniform4(pixel, s, seed, 0x1B7A)``). A candidate
-    enters as a one-sample reservoir, M = 1 and W = 1 / pdf_area, so its
-    merge weight is the RIS weight phat / pdf."""
+    the merge's uniform ``uniform4(pixel, s, seed, 0x1B7A)``; ``pix``: the
+    global pixel ids, ``pixel_ids``). A candidate enters as a one-sample
+    reservoir, M = 1 and W = 1 / pdf_area, so its merge weight is the RIS
+    weight phat / pdf. (The JAX function draws the grid's candidates by
+    the band's own pixel index.)"""
     n = res.shape[1]
     surf = _surf(gbuf, trans, coat)
-    pix = torch.arange(n, dtype=torch.int64, device=res.device)
+    pix = pixel_ids(n, res.device, pix)
     for s in range(cfg.lvg_samples):
-        rows, ok = sample_lvg(lvg, gbuf, camera, seed, lvg_cfg, salt=0x51AB + s)
+        rows, ok = sample_lvg(lvg, gbuf, camera, seed, lvg_cfg, salt=0x51AB + s, pix=pix)
         okf = ok.to(torch.float32)
         res_b = stack_rows(R_ROWS, {
             **{i: rows[i] for i in range(9)},
@@ -281,11 +303,14 @@ def drop_m_w(res, ok):
     }, like=res)
 
 
-def reproject_prev(gbuf, prev_cam, width: int, height: int, pos_prev=None):
+def reproject_prev(gbuf, prev_cam, width: int, height: int, pos_prev=None, prev_row0: int = 0,
+                   prev_rows: int | None = None):
     """Previous-frame flat index of each pixel's hit point:
     (idx, inside, depth of the point from the previous eye). ``pos_prev``
     [N, 3]: the hit points' previous-frame positions (moving geometry);
-    by default the current ones."""
+    by default the current ones. ``prev_row0``, ``prev_rows``: the image
+    row of the previous tables' first row and their rows (a row band
+    extended by its halo); a point beyond them is not inside."""
     p_world = v3.aos3(v3.from_rows(gbuf, G.POS)) if pos_prev is None else pos_prev
     px, py, w_fwd = prev_cam.project(p_world, width, height)
     rel = p_world - torch.tensor(np.asarray(prev_cam.eye, np.float32), device=gbuf.device)
@@ -298,17 +323,23 @@ def reproject_prev(gbuf, prev_cam, width: int, height: int, pos_prev=None):
         (px >= -0.5) & (px <= width - 0.5) & (py >= -0.5) & (py <= height - 0.5)
         & (w_fwd > 0.0)
     )
-    return iy * width + ix, inside, depth_prev_est
+    ey = iy - prev_row0
+    rows = height if prev_rows is None else prev_rows
+    inside = inside & (ey >= 0) & (ey < rows)
+    return torch.clamp(ey, 0, rows - 1) * width + ix, inside, depth_prev_est
 
 
 def temporal_reuse(res, prev_res, prev_gbuf, gbuf, prev_cam, width, height, seed,
-                   cfg: ReSTIRConfig, trans=False, coat=False, pos_prev=None, prefetch=None):
+                   cfg: ReSTIRConfig, trans=False, coat=False, pos_prev=None, prefetch=None,
+                   pix=None, prev_row0: int = 0, prev_rows: int | None = None):
     """Merge the reprojected previous-frame reservoirs into the current ones.
 
     ``prev_gbuf`` is the previous frame's packed temporal G-buffer (TG);
     ``pos_prev`` the hit points' previous-frame positions (``reproject_prev``);
     ``prefetch`` = (prev reservoirs, prev packed G, inside, depth estimate)
-    when the frame's joint gather already fetched them.
+    when the frame's joint gather already fetched them. Row bands: ``pix``
+    the global pixel ids (``pixel_ids``); ``prev_row0``, ``prev_rows`` as
+    for ``reproject_prev`` (the previous tables halo-extended).
     """
     n = res.shape[1]
     surf = _surf(gbuf, trans, coat)
@@ -316,13 +347,13 @@ def temporal_reuse(res, prev_res, prev_gbuf, gbuf, prev_cam, width, height, seed
     if prefetch is not None:
         prev_r, prev_g, inside, depth_prev_est = prefetch
     else:
-        idx, inside, depth_prev_est = reproject_prev(gbuf, prev_cam, width, height, pos_prev)
+        idx, inside, depth_prev_est = reproject_prev(gbuf, prev_cam, width, height, pos_prev,
+                                                     prev_row0, prev_rows)
         prev_r, prev_g = gather_reservoirs(prev_res, prev_gbuf, idx, cfg.packed_reuse)
     ok = inside & temporal_geom_ok(prev_g, ns, depth_prev_est, cfg.depth_tolerance,
                                    cfg.normal_tolerance) & valid
     prev_r = drop_m_w(prev_r, ok)
-    pix = torch.arange(n, dtype=torch.int64, device=res.device)
-    u = uniform4(pix, 0, seed, salt=0x7E17)[0]
+    u = uniform4(pixel_ids(n, res.device, pix), 0, seed, salt=0x7E17)[0]
     m_cap = cfg.m_max_factor * torch.clamp_min(res[10], 1.0)
     return merge(res, prev_r, surf, u, m_cap=m_cap, full=cfg.full_target)
 
@@ -348,8 +379,10 @@ def geom_ok_slim(gbuf, nb_geom, ns: V3, cfg: ReSTIRConfig):
     )
 
 
-def disk_neighbor(pix, width, height, u, radius):
-    """Disk-sampled neighbour flat index from a uniform4 row pair."""
+def disk_neighbor(pix, width, height, u, radius, src_row0: int = 0):
+    """Disk-sampled neighbour of each global pixel id ``pix`` from a
+    uniform4 row pair, clamped to the image: its flat index in a source
+    table whose first row is image row ``src_row0``."""
     x = pix % width
     y = pix // width
     r = radius * torch.sqrt(u[0])
@@ -358,26 +391,32 @@ def disk_neighbor(pix, width, height, u, radius):
     dy = torch.round(r * torch.sin(phi)).to(torch.int64)
     nx = torch.clamp(x + dx, 0, width - 1)
     ny = torch.clamp(y + dy, 0, height - 1)
-    return ny * width + nx
+    return (ny - src_row0) * width + nx
 
 
 def spatial_step(res, gbuf, width, height, seed, it, cfg: ReSTIRConfig, trans=False,
-                 coat=False):
-    """One spatial-reuse iteration (biased M-clamped merge)."""
+                 coat=False, pix=None, res_src=None, gbuf_src=None, src_row0: int = 0):
+    """One spatial-reuse iteration (biased M-clamped merge). Row bands:
+    ``pix`` the global pixel ids; ``res_src``, ``gbuf_src`` the gather
+    sources (the band halo-extended; by default ``res`` and ``gbuf``) and
+    ``src_row0`` the image row of their first row."""
     n = res.shape[1]
     surf = _surf(gbuf, trans, coat)
-    pix = torch.arange(n, dtype=torch.int64, device=res.device)
-    nidx, u_merge = neighbor_pick(pix, width, height, seed, it, cfg)
-    nb, nb_geom = gather_reservoirs(res, geom_table(gbuf), nidx, cfg.packed_reuse)
+    pix = pixel_ids(n, res.device, pix)
+    nidx, u_merge = neighbor_pick(pix, width, height, seed, it, cfg, src_row0)
+    nb, nb_geom = gather_reservoirs(res if res_src is None else res_src,
+                                    geom_table(gbuf if gbuf_src is None else gbuf_src), nidx,
+                                    cfg.packed_reuse)
     ok = geom_ok_slim(gbuf, nb_geom, surf[1], cfg)
     return merge(res, drop_m_w(nb, ok), surf, u_merge, full=cfg.full_target)
 
 
-def neighbor_pick(pix, width, height, seed, tag: int, cfg):
+def neighbor_pick(pix, width, height, seed, tag: int, cfg, src_row0: int = 0):
     """A random disk neighbour of each pixel (``uniform4(pixel, tag, seed,
-    0x5A71)``): (flat index, the uniform of its stream pick)."""
+    0x5A71)``): (flat index in a source from image row ``src_row0``, the
+    uniform of its stream pick)."""
     u = uniform4(pix, tag, seed, salt=0x5A71)
-    return disk_neighbor(pix, width, height, u, cfg.spatial_radius), u[2]
+    return disk_neighbor(pix, width, height, u, cfg.spatial_radius, src_row0), u[2]
 
 
 def geom_ok(gbuf, nb_g, ns: V3, cfg):
@@ -391,7 +430,8 @@ def geom_ok(gbuf, nb_g, ns: V3, cfg):
 
 
 def spatial_step_pairwise(res, gbuf, width, height, seed, it, cfg: ReSTIRConfig, trans=False,
-                          coat=False):
+                          coat=False, pix=None, res_src=None, gbuf_src=None,
+                          src_row0: int = 0):
     """One pairwise-MIS spatial pass over ``cfg.spatial_neighbors``
     defensive strategies (neighbour i of pass ``it`` from stream it*16 + i).
 
@@ -399,17 +439,20 @@ def spatial_step_pairwise(res, gbuf, width, height, seed, it, cfg: ReSTIRConfig,
     (M_c / k_eff) p_c(y_i)) and the canonical sample collects the
     complements; W divides by 1 + k_eff, where k_eff counts the neighbours
     that pass the geometry test. The samples are area-measure light points,
-    so every shift has Jacobian 1."""
+    so every shift has Jacobian 1. Row bands: ``pix``, ``res_src``,
+    ``gbuf_src`` and ``src_row0`` as for ``spatial_step``."""
     n = res.shape[1]
     full = cfg.full_target
     pos, ns, mat, frame, wo_l, valid = _surf(gbuf, trans, coat)
-    pix = torch.arange(n, dtype=torch.int64, device=res.device)
-    res_src = pack_di(res) if cfg.packed_reuse else res
+    pix = pixel_ids(n, res.device, pix)
+    res_src = res if res_src is None else res_src
+    res_src = pack_di(res_src) if cfg.packed_reuse else res_src
+    gbuf_src = gbuf if gbuf_src is None else gbuf_src
     nbs = []
     k_eff = torch.zeros((n,), dtype=torch.float32, device=res.device)
     for i in range(cfg.spatial_neighbors):
-        nidx, u_stream = neighbor_pick(pix, width, height, seed, it * 16 + i, cfg)
-        nb, nb_g = take_multi([res_src, gbuf], nidx)
+        nidx, u_stream = neighbor_pick(pix, width, height, seed, it * 16 + i, cfg, src_row0)
+        nb, nb_g = take_multi([res_src, gbuf_src], nidx)
         ok = geom_ok(gbuf, nb_g, ns, cfg) & valid
         k_eff = k_eff + ok.to(torch.float32)
         nbs.append((unpack_di(nb) if cfg.packed_reuse else nb, nb_g, ok, u_stream))
@@ -460,13 +503,18 @@ def spatial_step_pairwise(res, gbuf, width, height, seed, it, cfg: ReSTIRConfig,
     return stack_rows(out.shape[0], {9: w_sum_s, 10: m_s, 11: w_new, 13: phat_sel}, like=out)
 
 
-def spatial_reuse(res, gbuf, width, height, seed, cfg: ReSTIRConfig, trans=False, coat=False):
+def spatial_reuse(res, gbuf, width, height, seed, cfg: ReSTIRConfig, trans=False, coat=False,
+                  pix=None, ext=no_halo):
     """Merge reservoirs from random nearby pixels (``cfg.spatial_mis``:
-    pairwise MIS or the biased merge)."""
+    pairwise MIS or the biased merge). Row bands: ``pix`` the global pixel
+    ids, ``ext`` the halo exchange of the gather sources (``no_halo``)."""
     step = spatial_step_pairwise if cfg.spatial_mis == "pairwise" else spatial_step
+    gbuf_src, row0 = ext(gbuf, cfg.spatial_radius)
     out = res
     for it in range(cfg.spatial_iterations):
-        out = step(out, gbuf, width, height, seed, it, cfg, trans, coat)
+        res_src, _ = ext(out, cfg.spatial_radius)
+        out = step(out, gbuf, width, height, seed, it, cfg, trans, coat, pix, res_src, gbuf_src,
+                   row0)
     return out
 
 

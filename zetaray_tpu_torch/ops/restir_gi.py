@@ -48,7 +48,8 @@ from .gbuffer_pack import temporal_geom_ok
 from .pathtracer import megakernel_eligible, park, trace_reference
 from .prelighting import sample_light_points, sample_lvg_at
 from .restir_di import (
-    surface_from_gbuf, disk_neighbor, drop_m_w, gather_reservoirs, geom_ok_slim, geom_table, reproject_prev,
+    disk_neighbor, drop_m_w, gather_reservoirs, geom_ok_slim, geom_table, no_halo, pixel_ids,
+    reproject_prev, surface_from_gbuf,
 )
 
 R_ROWS = 16
@@ -100,14 +101,13 @@ def _phat_area(mat, frame, wo_l, pos, ns, x2: V3, n2: V3, l2: V3, full=True):
     return torch.where(cos1 > 1e-6, phat, 0.0), f, geom, wi
 
 
-def secondary_rays(gbuf, seed: int, trans=False, coat=False):
+def secondary_rays(gbuf, seed: int, trans=False, coat=False, pix=None):
     """The rays of the GI samples: a BSDF direction at each primary hit
-    (uniforms of bounce 101, salt 0x61AA) from the hit offset along its
-    geometric normal; a transmitted direction is not live. Returns (o [N,
-    3], d [N, 3], pdf_sa, live)."""
+    (uniforms of bounce 101, salt 0x61AA, of the global pixel ids ``pix``)
+    from the hit offset along its geometric normal; a transmitted direction
+    is not live. Returns (o [N, 3], d [N, 3], pdf_sa, live)."""
     pos, _ns, ng, wo, mat, frame, valid = _surf(gbuf, trans, coat)
-    pix = torch.arange(gbuf.shape[1], dtype=torch.int64, device=gbuf.device)
-    u = uniform4(pix, 101, seed, salt=0x61AA)
+    u = uniform4(pixel_ids(gbuf.shape[1], gbuf.device, pix), 101, seed, salt=0x61AA)
     wi_l, _, pdf_sa = S.bsdf_sample(mat, frame.to_local(wo), u[0], u[1], u[2])
     wi = frame.to_world(wi_l)
     live = valid & (pdf_sa > 0.0) & (v3.dot(wi, ng) > 1e-6)
@@ -115,19 +115,20 @@ def secondary_rays(gbuf, seed: int, trans=False, coat=False):
 
 
 def _nee_emissive_lvg(scene, lvg, camera, pos2: V3, ns2: V3, ng2: V3, mat2, wo2: V3, live,
-                      seed: int, lvg_cfg) -> V3:
+                      seed: int, lvg_cfg, pix) -> V3:
     """NEE at the reconnection vertex x2 with a light from the light voxel
     grid (``sample_lvg_at``, salt 0x6B21), or, where the grid has none, a
     power-sampled light (``uniform4(pixel, 7, seed, 0x6B22)``), weighted by
     the power heuristic against the BSDF, behind one shadow segment.
-    ``wo2`` points back toward x1. Returns radiance, zero where not ``live``."""
+    ``wo2`` points back toward x1; ``pix``: the global pixel ids (the JAX
+    function draws by the band's own pixel index). Returns radiance, zero
+    where not ``live``."""
     n = ns2.x.shape[0]
     zero = torch.zeros((n,), dtype=torch.float32, device=ns2.x.device)
     if scene.num_emissives == 0:
         return V3(zero, zero, zero)
-    pix = torch.arange(n, dtype=torch.int64, device=zero.device)
     rows_l, use_lvg = sample_lvg_at(lvg, v3.aos3(pos2), live, camera, seed, lvg_cfg,
-                                    salt=0x6B21)
+                                    salt=0x6B21, pix=pix)
     row, lp_f, pdf_f = sample_light_points(scene, uniform4(pix, 7, seed, salt=0x6B22))
 
     lp = v3.where(use_lvg, v3.from_rows(rows_l, 0), V3(*lp_f.T))
@@ -155,7 +156,7 @@ def _nee_emissive_lvg(scene, lvg, camera, pos2: V3, ns2: V3, ng2: V3, mat2, wo2:
 
 def initial_samples(scene, gbuf, pt_cfg, seed: int, rt: int, light_sets=None,
                     spread_angle=0.0, lvg=None, lvg_cam=None, lvg_cfg=None, trans=False,
-                    coat=False, full_target=False, textures=None) -> torch.Tensor:
+                    coat=False, full_target=False, textures=None, pix0: int = 0) -> torch.Tensor:
     """One GI sample per pixel: a BSDF direction at the primary hit, traced
     with ``max_bounces - 1`` further bounces (x2's own emission excluded,
     NEE from x2 on). On a clustered scene x2 = o2 + t * d2 from the trace's
@@ -171,13 +172,15 @@ def initial_samples(scene, gbuf, pt_cfg, seed: int, rt: int, light_sets=None,
     ``full_target``: the samples are rated with the whole BSDF.
     ``textures``: the bundle of ``scene.textures``; the ray cones start at
     the primary hits with width 0 and widen by ``spread_angle``.
+    ``pix0``: the global id of the first pixel (a row band's offset), which
+    moves every random stream and the trace's tiles.
     Returns reservoir rows [R_ROWS, N]."""
     pos, ns, _ng, wo, mat, frame, _valid = _surf(gbuf, trans, coat)
     wo_l = frame.to_local(wo)
-    o2, d2, pdf_sa, live = secondary_rays(gbuf, seed, trans, coat)
+    pix = torch.arange(gbuf.shape[1], dtype=torch.int64, device=gbuf.device) + pix0
+    o2, d2, pdf_sa, live = secondary_rays(gbuf, seed, trans, coat, pix)
     smb_kill = None
     if pt_cfg.stochastic_multi_bounce and pt_cfg.max_bounces > 1:
-        pix = torch.arange(gbuf.shape[1], dtype=torch.int64, device=gbuf.device)
         smb_kill = (uniform4(pix, 97, seed, salt=0x53B0)[0] < 0.5) & (mat.roughness >= 0.1)
 
     l2_cfg = replace(
@@ -189,7 +192,7 @@ def initial_samples(scene, gbuf, pt_cfg, seed: int, rt: int, light_sets=None,
     if megakernel_eligible(scene):
         l2_rows, surf2, alive2 = trace_with_first_hit(
             scene, o2, d2, seed, l2_cfg, rt, light_sets=light_sets, spread_angle=spread_angle,
-            smb_kill=smb_kill, textures=textures,
+            smb_kill=smb_kill, textures=textures, pix0=pix0,
         )
         x2_hit = alive2 > 0.5
         x2, n2, l2 = v3.from_rows(surf2, 0), v3.from_rows(surf2, 6), v3.from_rows(l2_rows, 0)
@@ -200,7 +203,7 @@ def initial_samples(scene, gbuf, pt_cfg, seed: int, rt: int, light_sets=None,
         # rays are parked so the traversal culls them
         l2_rgb, sh = trace_reference(scene, *park(live, o2, d2), seed, l2_cfg,
                                      return_first_hit=True, smb_kill=smb_kill, textures=textures,
-                                     spread_angle=spread_angle)
+                                     spread_angle=spread_angle, pix0=pix0)
         x2_hit = sh.valid
         x2 = V3(*(o2 + sh.t[:, None] * d2).T)
         n2_raw = v3.from_rows(sh.attrs, A.NG)
@@ -212,7 +215,7 @@ def initial_samples(scene, gbuf, pt_cfg, seed: int, rt: int, light_sets=None,
     hit = x2_hit & live
     if lvg is not None:
         l2 = l2 + _nee_emissive_lvg(scene, lvg, lvg_cam, x2, ns2, n2, mat2, -V3(*d2.T), hit,
-                                    seed, lvg_cfg)
+                                    seed, lvg_cfg, pix)
     if pt_cfg.sky is not None:
         sky_miss = live & ~x2_hit
         d2v = V3(*d2.T)
@@ -269,46 +272,58 @@ def suppress_outlier_reservoirs(res, group: int = 32, w_sum_row: int = 9, m_row:
 
 
 def temporal_reuse(res, prev_res, prev_gbuf, gbuf, prev_cam, width, height, seed,
-                   cfg: ReSTIRGIConfig, trans=False, coat=False, pos_prev=None, prefetch=None):
+                   cfg: ReSTIRGIConfig, trans=False, coat=False, pos_prev=None, prefetch=None,
+                   pix=None, prev_row0: int = 0, prev_rows: int | None = None):
     """Merge the reprojected previous-frame reservoirs into the current ones,
     then suppress outliers. ``prev_gbuf`` is the packed temporal G-buffer;
     ``pos_prev`` the hit points' previous-frame positions (moving geometry);
     ``prefetch`` = (prev reservoirs, prev packed G, inside, depth estimate)
-    when the frame's joint gather already fetched them."""
+    when the frame's joint gather already fetched them. Row bands: ``pix``,
+    ``prev_row0`` and ``prev_rows`` as in ``restir_di.temporal_reuse``."""
     n = res.shape[1]
     surf = _surf(gbuf, trans, coat)
     if prefetch is not None:
         prev_r, prev_g, inside, depth_est = prefetch
     else:
-        idx, inside, depth_est = reproject_prev(gbuf, prev_cam, width, height, pos_prev)
+        idx, inside, depth_est = reproject_prev(gbuf, prev_cam, width, height, pos_prev,
+                                                prev_row0, prev_rows)
         prev_r, prev_g = gather_reservoirs(prev_res, prev_gbuf, idx, cfg.packed_reuse)
     ok = inside & temporal_geom_ok(prev_g, surf[1], depth_est, cfg.depth_tolerance,
                                    cfg.normal_tolerance)
     prev_r = drop_m_w(prev_r, ok)
-    pix = torch.arange(n, dtype=torch.int64, device=res.device)
-    u = uniform4(pix, 102, seed, salt=0x6E31)[0]
+    u = uniform4(pixel_ids(n, res.device, pix), 102, seed, salt=0x6E31)[0]
     out = _merge(res, prev_r, surf, u, m_cap=cfg.m_max, full=cfg.full_target)
     return suppress_outlier_reservoirs(out) if cfg.boiling_suppression else out
 
 
 def spatial_step(res, gbuf, width, height, seed, it, cfg: ReSTIRGIConfig, trans=False,
-                 coat=False):
+                 coat=False, pix=None, res_src=None, gbuf_src=None, src_row0: int = 0):
     """One spatial-reuse iteration: merge a random neighbour within
-    ``spatial_radius`` whose geometry agrees."""
+    ``spatial_radius`` whose geometry agrees. Row bands: ``pix``,
+    ``res_src``, ``gbuf_src`` and ``src_row0`` as in
+    ``restir_di.spatial_step``."""
     n = res.shape[1]
     surf = _surf(gbuf, trans, coat)
-    pix = torch.arange(n, dtype=torch.int64, device=res.device)
+    pix = pixel_ids(n, res.device, pix)
     u = uniform4(pix, 103 + it, seed, salt=0x51A7)
-    nidx = disk_neighbor(pix, width, height, u, cfg.spatial_radius)
-    nb, nb_geom = gather_reservoirs(res, geom_table(gbuf), nidx, cfg.packed_reuse)
+    nidx = disk_neighbor(pix, width, height, u, cfg.spatial_radius, src_row0)
+    nb, nb_geom = gather_reservoirs(res if res_src is None else res_src,
+                                    geom_table(gbuf if gbuf_src is None else gbuf_src), nidx,
+                                    cfg.packed_reuse)
     ok = geom_ok_slim(gbuf, nb_geom, surf[1], cfg)
     return _merge(res, drop_m_w(nb, ok), surf, u[2], full=cfg.full_target)
 
 
-def spatial_reuse(res, gbuf, width, height, seed, cfg: ReSTIRGIConfig, trans=False, coat=False):
+def spatial_reuse(res, gbuf, width, height, seed, cfg: ReSTIRGIConfig, trans=False, coat=False,
+                  pix=None, ext=no_halo):
+    """``cfg.spatial_iterations`` spatial steps; ``pix``, ``ext`` as in
+    ``restir_di.spatial_reuse``."""
+    gbuf_src, row0 = ext(gbuf, cfg.spatial_radius)
     out = res
     for it in range(cfg.spatial_iterations):
-        out = spatial_step(out, gbuf, width, height, seed, it, cfg, trans, coat)
+        res_src, _ = ext(out, cfg.spatial_radius)
+        out = spatial_step(out, gbuf, width, height, seed, it, cfg, trans, coat, pix, res_src,
+                           gbuf_src, row0)
     return out
 
 

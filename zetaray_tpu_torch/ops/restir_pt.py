@@ -52,7 +52,7 @@ from .gbuffer_pack import temporal_geom_ok
 from .pathtracer import trace
 from .reservoir_pack import PT_PACKED_ROWS, pack_pt, unpack_pt
 from .restir_di import (
-    disk_neighbor, geom_ok_slim, geom_table, reproject_prev, take_multi,
+    disk_neighbor, geom_ok_slim, geom_table, no_halo, pixel_ids, reproject_prev, take_multi,
 )
 from .restir_gi import _surf, suppress_outlier_reservoirs
 
@@ -204,10 +204,11 @@ def _prefix(surf, pix, seed):
     return v3.aos3(pos + ng * _EPS_RAY), v3.aos3(wi), wi, pdf_sa, live, wi_l
 
 
-def prefix_rays(gbuf, seed: int, trans=False, coat=False):
+def prefix_rays(gbuf, seed: int, trans=False, coat=False, pix0: int = 0):
     """The rays whose closest hits (B7) are the initial samples'
-    reconnection vertices: (o [N, 3], d [N, 3])."""
-    o, d, *_ = _prefix(_surf(gbuf, trans, coat), _pix(gbuf.shape[1], gbuf.device), seed)
+    reconnection vertices: (o [N, 3], d [N, 3]); ``pix0`` as for
+    ``initial_samples``."""
+    o, d, *_ = _prefix(_surf(gbuf, trans, coat), _pix(gbuf.shape[1], gbuf.device) + pix0, seed)
     return o, d
 
 
@@ -222,7 +223,7 @@ def _textured_base(textures, sh: ShadedHit, cone, base: V3) -> V3:
 
 def initial_samples(scene, gbuf, pt_cfg, seed: int, cfg: ReSTIRPTConfig, rt: int,
                     light_sets=None, trans=False, coat=False, textures=None,
-                    spread_angle=0.0) -> torch.Tensor:
+                    spread_angle=0.0, pix0: int = 0) -> torch.Tensor:
     """One path sample per pixel in a reservoir [PR.ROWS, N].
 
     Prefix: a BSDF direction at the primary hit, whose closest hit (B7) is
@@ -237,13 +238,18 @@ def initial_samples(scene, gbuf, pt_cfg, seed: int, cfg: ReSTIRPTConfig, rt: int
     f1, or with ``cfg.full_target`` with the whole BSDF. ``textures``: the
     base colour at x_rc over a cone of width (depth + t) * ``spread_angle``,
     at x3 over (depth + t + t3) * ``spread_angle``, and at every vertex of
-    the suffix's trace.
+    the suffix's trace. ``pix0``: the global id of the first pixel (a row
+    band's offset): the streams, and the SRCPIX row, take global ids. The
+    sorted suffix trace numbers its rays by their place in the band's sort
+    from ``pix0``, as the JAX function does, so past ``max_bounces`` = 3 a
+    row band draws its suffix's NEE and BSDF samples otherwise than the
+    whole image would.
     """
     n = gbuf.shape[1]
     dev = gbuf.device
     surf = _surf(gbuf, trans, coat)
     pos = surf[0]
-    pix = _pix(n, dev)
+    pix = _pix(n, dev) + pix0
 
     # -- prefix: BSDF direction at the primary hit
     o2, d2, wi, pdf_sa, live, _ = _prefix(surf, pix, seed)
@@ -306,9 +312,10 @@ def initial_samples(scene, gbuf, pt_cfg, seed: int, cfg: ReSTIRPTConfig, rt: int
         tex = dict(textures=textures, spread_angle=spread_angle)
         if perm is not None:
             l4 = trace(scene, o4[perm], d4[perm], seed, l4_cfg, rt=rt, light_sets=light_sets,
-                       **tex)[inv_perm]
+                       pix0=pix0, **tex)[inv_perm]
         else:
-            l4 = trace(scene, o4, d4, seed, l4_cfg, rt=rt, light_sets=light_sets, **tex)
+            l4 = trace(scene, o4, d4, seed, l4_cfg, rt=rt, light_sets=light_sets, pix0=pix0,
+                       **tex)
     else:
         l4 = torch.zeros((n, 3), dtype=torch.float32, device=dev)
     cos3 = torch.clamp_min(v3.dot(ws3, n3), 0.0)
@@ -539,18 +546,20 @@ def _drop_m_w(res, ok):
 
 def temporal_reuse(res, prev_res, prev_gbuf, gbuf, prev_cam, width, height, seed,
                    cfg: ReSTIRPTConfig, scene=None, prefetch=None, trans=False, coat=False,
-                   pos_prev=None):
+                   pos_prev=None, pix=None, prev_row0: int = 0, prev_rows: int | None = None):
     """Merge the reprojected previous-frame reservoirs (M capped at
     ``m_max``; ``scene`` enables the replay shift), then suppress outliers.
     ``prev_gbuf`` is the packed temporal G-buffer; ``pos_prev`` the hit
     points' previous-frame positions (moving geometry); ``prefetch`` = (prev
     reservoirs, prev packed G, inside, depth estimate) when the frame's
-    joint gather already fetched them."""
+    joint gather already fetched them. Row bands: ``pix``, ``prev_row0``
+    and ``prev_rows`` as in ``restir_di.temporal_reuse``."""
     surf = _surf(gbuf, trans, coat)
     if prefetch is not None:
         prev_r, prev_g, inside, depth_est = prefetch
     else:
-        idx, inside, depth_est = reproject_prev(gbuf, prev_cam, width, height, pos_prev)
+        idx, inside, depth_est = reproject_prev(gbuf, prev_cam, width, height, pos_prev,
+                                                prev_row0, prev_rows)
         if cfg.packed_reuse:
             src = prev_res if prev_res.shape[0] == PT_PACKED_ROWS else pack_pt(prev_res)
             prev_p, prev_g = take_multi([src, prev_gbuf], idx)
@@ -559,7 +568,7 @@ def temporal_reuse(res, prev_res, prev_gbuf, gbuf, prev_cam, width, height, seed
             prev_r, prev_g = take_multi([prev_res, prev_gbuf], idx)
     ok = inside & temporal_geom_ok(prev_g, surf[1], depth_est, cfg.depth_tolerance,
                                    cfg.normal_tolerance)
-    u = uniform4(_pix(res.shape[1], res.device), 203, seed, salt=0x4A31)[0]
+    u = uniform4(pixel_ids(res.shape[1], res.device, pix), 203, seed, salt=0x4A31)[0]
     out = _merge(res, _drop_m_w(prev_r, ok), surf, u, cfg, m_cap=cfg.m_max, scene=scene,
                  trans=trans, coat=coat)
     if cfg.boiling_suppression:
@@ -568,39 +577,48 @@ def temporal_reuse(res, prev_res, prev_gbuf, gbuf, prev_cam, width, height, seed
 
 
 def spatial_step(res, gbuf, width, height, seed, it, cfg: ReSTIRPTConfig, scene=None,
-                 trans=False, coat=False):
+                 trans=False, coat=False, pix=None, res_src=None, gbuf_src=None,
+                 src_row0: int = 0):
     """One spatial-reuse iteration: merge a random neighbour within
     ``spatial_radius`` whose geometry agrees; with ``spatial_search > 1``
-    the first of that many probed neighbours that agrees."""
+    the first of that many probed neighbours that agrees. Row bands:
+    ``pix``, ``res_src``, ``gbuf_src`` and ``src_row0`` as in
+    ``restir_di.spatial_step``."""
     surf = _surf(gbuf, trans, coat)
     ns = surf[1]
-    pix = _pix(res.shape[1], res.device)
+    pix = pixel_ids(res.shape[1], res.device, pix)
+    res_src = res if res_src is None else res_src
+    gt = geom_table(gbuf if gbuf_src is None else gbuf_src)
     u = uniform4(pix, 204 + it, seed, salt=0x77A1)
-    nidx = disk_neighbor(pix, width, height, u, cfg.spatial_radius)
+    nidx = disk_neighbor(pix, width, height, u, cfg.spatial_radius, src_row0)
     if cfg.spatial_search > 1:
-        gt = geom_table(gbuf)
         found = geom_ok_slim(gbuf, gt.index_select(1, nidx), ns, cfg)
         for k in range(1, cfg.spatial_search):
             uk = uniform4(pix, 204 + it, seed, salt=0x77A1 + k * 0x1013)
-            cand = disk_neighbor(pix, width, height, uk, cfg.spatial_radius)
+            cand = disk_neighbor(pix, width, height, uk, cfg.spatial_radius, src_row0)
             ok_k = geom_ok_slim(gbuf, gt.index_select(1, cand), ns, cfg)
             nidx = torch.where(~found & ok_k, cand, nidx)
             found = found | ok_k
     if cfg.packed_reuse:
-        nb_p, nb_geom = take_multi([pack_pt(res), geom_table(gbuf)], nidx)
+        nb_p, nb_geom = take_multi([pack_pt(res_src), gt], nidx)
         nb = unpack_pt(nb_p)
     else:
-        nb, nb_geom = take_multi([res, geom_table(gbuf)], nidx)
+        nb, nb_geom = take_multi([res_src, gt], nidx)
     ok = geom_ok_slim(gbuf, nb_geom, ns, cfg)
     return _merge(res, _drop_m_w(nb, ok), surf, u[2], cfg, scene=scene, trans=trans, coat=coat)
 
 
 def spatial_reuse(res, gbuf, width, height, seed, cfg: ReSTIRPTConfig, scene=None, trans=False,
-                  coat=False):
+                  coat=False, pix=None, ext=no_halo):
+    """``cfg.spatial_iterations`` spatial steps; ``pix``, ``ext`` as in
+    ``restir_di.spatial_reuse``."""
+    gbuf_src, row0 = ext(gbuf, cfg.spatial_radius)
     out = res
     for it in range(cfg.spatial_iterations):
+        res_src, _ = ext(out, cfg.spatial_radius)
         out = spatial_step(out, gbuf, width, height, seed, it, cfg, scene=scene, trans=trans,
-                           coat=coat)
+                           coat=coat, pix=pix, res_src=res_src, gbuf_src=gbuf_src,
+                           src_row0=row0)
     return out
 
 

@@ -36,7 +36,8 @@ from . import sky as SK
 from .sky import _div
 from .gbuffer_pack import temporal_geom_ok
 from .restir_di import (
-    geom_ok, geom_ok_slim, geom_table, neighbor_pick, surface_from_gbuf, take_multi,
+    geom_ok, geom_ok_slim, geom_table, neighbor_pick, no_halo, pixel_ids, surface_from_gbuf,
+    take_multi,
 )
 
 R_ROWS = 16
@@ -118,18 +119,15 @@ def _finalize(res, m):
     return stack_rows(R_ROWS, {10: m, 11: big_w}, like=res)
 
 
-def _pix(n, device):
-    return torch.arange(n, dtype=torch.int64, device=device)
-
-
 def initial_candidates(gbuf, sky, seed: int, cfg: SkyDIConfig, trans=False,
-                       coat=False) -> torch.Tensor:
+                       coat=False, pix=None) -> torch.Tensor:
     """RIS over sun-cone, cosine and BSDF direction candidates: [16, N].
     Round r draws ``uniform4(pixel, r, seed)`` with salts 0x50D1 (sun cone,
-    cosine), 0x50D2 (BSDF) and 0x50D3 (the three stream picks)."""
+    cosine), 0x50D2 (BSDF) and 0x50D3 (the three stream picks); ``pix``:
+    the global pixel ids of a row band."""
     n = gbuf.shape[1]
     _pos, ns, _ng, mat, frame, wo_l, valid = _surf(gbuf, trans, coat)
-    ids = _pix(n, gbuf.device)
+    ids = pixel_ids(n, gbuf.device, pix)
     sun, t, b = _sun_basis(sky)
     cos_r = float(np.cos(sky.sun_angular_radius))
 
@@ -162,11 +160,14 @@ def initial_candidates(gbuf, sky, seed: int, cfg: SkyDIConfig, trans=False,
 
 def temporal_reuse(res, prev_res, prev_gbuf, gbuf, prev_cam, width: int, height: int,
                    seed: int, cfg: SkyDIConfig, sky, trans=False, coat=False,
-                   pos_prev=None) -> torch.Tensor:
+                   pos_prev=None, pix=None, prev_row0: int = 0,
+                   prev_rows: int | None = None) -> torch.Tensor:
     """Merge the reprojected previous-frame direction reservoir
     (``uniform4(pixel, 0, seed, 0x50D7)``). ``prev_gbuf`` is the previous
     frame's packed temporal G-buffer; ``pos_prev`` [N, 3] the hit points'
-    previous-frame positions (moving geometry), by default the current ones."""
+    previous-frame positions (moving geometry), by default the current ones.
+    Row bands: ``pix``, ``prev_row0`` and ``prev_rows`` as in
+    ``restir_di.temporal_reuse``."""
     n = res.shape[1]
     pos, ns, _ng, mat, frame, wo_l, valid = _surf(gbuf, trans, coat)
     p_world = v3.aos3(pos) if pos_prev is None else pos_prev
@@ -176,9 +177,11 @@ def temporal_reuse(res, prev_res, prev_gbuf, gbuf, prev_cam, width: int, height:
         (rel[:, 0] * rel[:, 0] + rel[:, 1] * rel[:, 1]) + rel[:, 2] * rel[:, 2], 1e-12))
     ix = torch.clamp(torch.round(px).to(torch.int64), 0, width - 1)
     ry = torch.round(py).to(torch.int64)
-    iy = torch.clamp(ry, 0, height - 1)
+    rows = height if prev_rows is None else prev_rows
+    iy = torch.clamp(ry - prev_row0, 0, rows - 1)
     inside = ((px >= -0.5) & (px <= width - 0.5) & (py >= -0.5) & (py <= height - 0.5)
-              & (w_fwd > 0.0) & (ry >= 0) & (ry <= height - 1))
+              & (w_fwd > 0.0) & (ry >= 0) & (ry <= height - 1)
+              & (ry - prev_row0 >= 0) & (ry - prev_row0 <= rows - 1))
     nb, nb_g = take_multi([prev_res, prev_gbuf], iy * width + ix)
     ok = inside & valid & temporal_geom_ok(nb_g, ns, depth_est, cfg.depth_tolerance,
                                            cfg.normal_tolerance)
@@ -186,18 +189,22 @@ def temporal_reuse(res, prev_res, prev_gbuf, gbuf, prev_cam, width: int, height:
     m_b = torch.where(ok, torch.minimum(nb[10], cfg.m_max * torch.clamp_min(res[10], 1.0)), 0.0)
     phat_b = _phat_dir(wi_b, le_b, ns, mat, frame, wo_l)
     w_b = torch.where(ok, phat_b * nb[11] * m_b, 0.0)
-    u = uniform4(_pix(n, res.device), 0, seed, salt=0x50D7)[0]
+    u = uniform4(pixel_ids(n, res.device, pix), 0, seed, salt=0x50D7)[0]
     return _finalize(_stream(res, wi_b, le_b, w_b, phat_b, u), res[10] + m_b)
 
 
 def spatial_step(res, gbuf, width: int, height: int, seed: int, it: int,
-                 cfg: SkyDIConfig, trans=False, coat=False) -> torch.Tensor:
-    """One biased spatial merge (neighbour stream it + 64)."""
+                 cfg: SkyDIConfig, trans=False, coat=False, pix=None, res_src=None,
+                 gbuf_src=None, src_row0: int = 0) -> torch.Tensor:
+    """One biased spatial merge (neighbour stream it + 64). Row bands:
+    ``pix``, ``res_src``, ``gbuf_src`` and ``src_row0`` as in
+    ``restir_di.spatial_step``."""
     n = res.shape[1]
     _pos, ns, _ng, mat, frame, wo_l, valid = _surf(gbuf, trans, coat)
-    pix = _pix(n, res.device)
-    nidx, u_stream = neighbor_pick(pix, width, height, seed, it + 64, cfg)
-    nb, nb_geom = take_multi([res, geom_table(gbuf)], nidx)
+    pix = pixel_ids(n, res.device, pix)
+    nidx, u_stream = neighbor_pick(pix, width, height, seed, it + 64, cfg, src_row0)
+    nb, nb_geom = take_multi([res if res_src is None else res_src,
+                              geom_table(gbuf if gbuf_src is None else gbuf_src)], nidx)
     ok = geom_ok_slim(gbuf, nb_geom, ns, cfg) & valid
     wi_b, le_b = v3.from_rows(nb, 0), v3.from_rows(nb, 3)
     m_b = torch.where(ok, nb[10], 0.0)
@@ -207,18 +214,23 @@ def spatial_step(res, gbuf, width: int, height: int, seed: int, it: int,
 
 
 def spatial_step_pairwise(res, gbuf, width: int, height: int, seed: int, it: int,
-                          cfg: SkyDIConfig, trans=False, coat=False) -> torch.Tensor:
+                          cfg: SkyDIConfig, trans=False, coat=False, pix=None, res_src=None,
+                          gbuf_src=None, src_row0: int = 0) -> torch.Tensor:
     """One pairwise-MIS spatial pass (neighbour i from stream it*16 + i + 64,
     the canonical pick from ``uniform4(pixel, it*16 + 79, seed, 0x5A73)``),
-    as ``ops.restir_di.spatial_step_pairwise`` with the direction target."""
+    as ``ops.restir_di.spatial_step_pairwise`` with the direction target
+    (its row-band hooks too)."""
     n = res.shape[1]
     _pos, ns, _ng, mat, frame, wo_l, valid = _surf(gbuf, trans, coat)
-    pix = _pix(n, res.device)
+    pix = pixel_ids(n, res.device, pix)
+    res_src = res if res_src is None else res_src
+    gbuf_src = gbuf if gbuf_src is None else gbuf_src
     nbs = []
     k_eff = torch.zeros((n,), dtype=torch.float32, device=res.device)
     for i in range(cfg.spatial_neighbors):
-        nidx, u_stream = neighbor_pick(pix, width, height, seed, it * 16 + i + 64, cfg)
-        nb, nb_g = take_multi([res, gbuf], nidx)
+        nidx, u_stream = neighbor_pick(pix, width, height, seed, it * 16 + i + 64, cfg,
+                                       src_row0)
+        nb, nb_g = take_multi([res_src, gbuf_src], nidx)
         ok = geom_ok(gbuf, nb_g, ns, cfg) & valid
         k_eff = k_eff + ok.to(torch.float32)
         nbs.append((nb, nb_g, ok, u_stream))
@@ -266,11 +278,17 @@ def spatial_step_pairwise(res, gbuf, width: int, height: int, seed: int, it: int
 
 
 def spatial_reuse(res, gbuf, width: int, height: int, seed: int,
-                  cfg: SkyDIConfig, trans=False, coat=False) -> torch.Tensor:
+                  cfg: SkyDIConfig, trans=False, coat=False, pix=None,
+                  ext=no_halo) -> torch.Tensor:
+    """``cfg.spatial_iterations`` spatial passes; ``pix``, ``ext`` as in
+    ``restir_di.spatial_reuse``."""
     step = spatial_step_pairwise if cfg.spatial_mis == "pairwise" else spatial_step
+    gbuf_src, row0 = ext(gbuf, cfg.spatial_radius)
     out = res
     for it in range(cfg.spatial_iterations):
-        out = step(out, gbuf, width, height, seed, it, cfg, trans, coat)
+        res_src, _ = ext(out, cfg.spatial_radius)
+        out = step(out, gbuf, width, height, seed, it, cfg, trans, coat, pix, res_src, gbuf_src,
+                   row0)
     return out
 
 

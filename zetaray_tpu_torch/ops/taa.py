@@ -1,6 +1,13 @@
 """Temporal anti-aliasing, as the JAX package's ``ops/taa.py`` with its default
 settings: depth-dilated motion, Catmull-Rom history resample, 3x3
 neighbourhood clamp, blend 0.1. Planar [3, H, W] images.
+
+Row bands (``render.frame`` with ``shard``): ``taa_resolve_p`` takes the
+current planes extended by ``ext`` edge-clamped halo rows, so that the
+depth dilation and the neighbourhood clamp see the rows beyond the band,
+and a history band that starts at image row ``hist_row0``. (The JAX
+function extends only the colour for the clamp and dilates within the
+band.) The resamplers clamp at the image's rows, then read the band.
 """
 
 from __future__ import annotations
@@ -44,12 +51,16 @@ def _cubic_w(f):
     )
 
 
-def catmull_rom_p(img, px, py):
+def catmull_rom_p(img, px, py, row0: int = 0, h_full: int | None = None):
     """Catmull-Rom resample of [3, H, W] at texel coordinates px, py [N]
-    (0.0 = centre of texel 0), border-clamped. Returns [3, N]."""
+    (0.0 = centre of texel 0), border-clamped. Returns [3, N]. A band of
+    rows of an ``h_full``-row image, whose first row is image row ``row0``,
+    resamples at image coordinates: the taps clamp at the image's rows and
+    then read the band (at its edge beyond it)."""
     _, h, w = img.shape
+    hf = h if h_full is None else h_full
     pxc = torch.clamp(px, 0.0, w - 1.0)
-    pyc = torch.clamp(py, 0.0, h - 1.0)
+    pyc = torch.clamp(py, 0.0, hf - 1.0)
     x1 = torch.floor(pxc)
     y1 = torch.floor(pyc)
     wx = _cubic_w(pxc - x1)
@@ -59,7 +70,7 @@ def catmull_rom_p(img, px, py):
     flat = img.reshape(3, -1)
     out = torch.zeros((3, px.shape[0]), dtype=img.dtype, device=img.device)
     for j in range(4):
-        row = torch.clamp(yi + (j - 1), 0, h - 1) * w
+        row = torch.clamp(torch.clamp(yi + (j - 1), 0, hf - 1) - row0, 0, h - 1) * w
         for i in range(4):
             tap = flat.index_select(1, row + torch.clamp(xi + (i - 1), 0, w - 1))
             out = out + tap * (wy[j] * wx[i])
@@ -86,25 +97,41 @@ def _depth_dilated_motion(motion, depth, valid):
     return best_m
 
 
-def taa_resolve_p(curr, history, world_pos, valid, prev_cam, depth):
+def taa_resolve_p(curr, history, world_pos, valid, prev_cam, depth, row0: int = 0,
+                  height_full: int | None = None, hist_row0: int = 0, ext: int = 0):
     """One TAA step: curr, history, world_pos [3, H, W]; valid, depth [H, W];
-    prev_cam the previous frame's camera. Returns the resolved colour."""
-    _, h, w = curr.shape
+    prev_cam the previous frame's camera. Returns the resolved colour.
+
+    Row bands of an image of ``height_full`` rows: curr, world_pos, valid and
+    depth hold the band (``row0`` its first image row) and ``ext``
+    edge-clamped halo rows above and below it; history holds rows from image
+    row ``hist_row0`` on. Returns the band's rows. A reprojection that lands
+    beyond the history's rows is not taken."""
+    _, he, w = curr.shape
+    h = he - 2 * ext
+    hf = he if height_full is None else height_full
     dev = curr.device
-    px, py, zfwd = prev_cam.project(world_pos.reshape(3, -1).T, w, h)
-    xg = torch.arange(w, dtype=torch.float32, device=dev).repeat(h)
-    yg = torch.arange(h, dtype=torch.float32, device=dev).repeat_interleave(w)
-    m = torch.stack([(px - xg).reshape(h, w), (py - yg).reshape(h, w)], 0)
-    m = _depth_dilated_motion(m, depth, valid)
-    px = xg + m[0].reshape(-1)
-    py = yg + m[1].reshape(-1)
+    px, py, zfwd = prev_cam.project(world_pos.reshape(3, -1).T, w, hf)
+    xg = torch.arange(w, dtype=torch.float32, device=dev).repeat(he)
+    # a halo row beyond the image replicates the edge row: its own row there
+    yg = torch.clamp(torch.arange(he, dtype=torch.float32, device=dev) + (row0 - ext), 0.0,
+                     hf - 1.0).repeat_interleave(w)
+    m = torch.stack([(px - xg).reshape(he, w), (py - yg).reshape(he, w)], 0)
+    inner = slice(ext, ext + h)
+    m = _depth_dilated_motion(m, depth, valid)[:, inner]
+    px = xg[: h * w] + m[0].reshape(-1)
+    py = yg.reshape(he, w)[inner].reshape(-1) + m[1].reshape(-1)
+    zfwd = zfwd.reshape(he, w)[inner].reshape(-1)
     inside = (
-        (px >= -0.5) & (px <= w - 0.5) & (py >= -0.5) & (py <= h - 0.5) & (zfwd > 0)
+        (px >= -0.5) & (px <= w - 0.5) & (py >= -0.5) & (py <= hf - 0.5) & (zfwd > 0)
     )
     ry = torch.round(py)
-    inside = inside & (ry >= 0) & (ry <= h - 1)
-    hist = catmull_rom_p(history, px, torch.clamp(py, 0.0, h - 1.0)).reshape(3, h, w)
-    lo, hi = _neighborhood_minmax_p(curr)
+    inside = inside & (ry >= 0) & (ry <= hf - 1)
+    inside = inside & (ry >= hist_row0) & (ry <= hist_row0 + history.shape[1] - 1)
+    hist = catmull_rom_p(history, px, torch.clamp(py, 0.0, hf - 1.0), hist_row0,
+                         hf).reshape(3, h, w)
+    lo, hi = (x[:, inner] for x in _neighborhood_minmax_p(curr))
     hist = torch.minimum(torch.maximum(hist, lo), hi)
-    ok = (inside.reshape(h, w) & valid)[None]
+    curr = curr[:, inner]
+    ok = (inside.reshape(h, w) & valid[inner])[None]
     return torch.where(ok, BLEND * curr + (1.0 - BLEND) * hist, curr)

@@ -24,8 +24,15 @@ the lock test (``conf > 0.7``, current luminance beyond 1.05 times the
 neighbourhood's top or 0.95 times its bottom). An ulp of their inputs
 flips such a pixel, so parity with the JAX package holds shares of pixels
 there. Divisions by constants go through a tensor divisor
-(``ops.sky._div``). The JAX function's row-band sharding hooks have no
-counterpart here: the call covers the whole image.
+(``ops.sky._div``).
+
+Row bands (``render.frame`` with ``shard``), the JAX function's hooks: a
+call makes the display rows [``out_row0``, ``out_row0 + out_rows``); the
+render-res planes hold the rows from render row ``lr_row0`` on (the band
+and an edge-clamped halo; ``hr_full`` the render height), the history and
+the locks the display rows from ``hist_row0`` on. Every resample clamps at
+the image's rows before it reads the band, so a band equals those rows of
+the whole image while the reprojection stays within the halo.
 """
 
 from __future__ import annotations
@@ -70,27 +77,35 @@ def _axis_taps(p: torch.Tensor, n: int):
     return i0, i1, torch.where(same, (1.0 - f) + f, 1.0 - f), torch.where(same, 0.0, f)
 
 
-def _sep_bilinear(imgs: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:
+def _sep_bilinear(imgs: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor, row0: int = 0,
+                  h_full: int | None = None) -> torch.Tensor:
     """Separable bilinear resample of planes [C, h, w] at rows ys [OH] and
     columns xs [OW] (render-res texel coordinates): rows, then columns.
-    Returns [C, OH, OW]."""
+    Returns [C, OH, OW]. A band of an ``h_full``-row image from row ``row0``
+    takes its taps and weights at image rows, then reads the band."""
     _, h, w = imgs.shape
-    y0, y1, wy0, wy1 = _axis_taps(ys, h)
+    y0, y1, wy0, wy1 = _axis_taps(ys, h if h_full is None else h_full)
+    y0, y1 = (torch.clamp(y - row0, 0, h - 1) for y in (y0, y1))
     t = imgs[:, y0, :] * wy0[None, :, None] + imgs[:, y1, :] * wy1[None, :, None]
     x0, x1, wx0, wx1 = _axis_taps(xs, w)
     return t[:, :, x0] * wx0 + t[:, :, x1] * wx1
 
 
-def _bilinear_p(plane: torch.Tensor, px: torch.Tensor, py: torch.Tensor) -> torch.Tensor:
+def _bilinear_p(plane: torch.Tensor, px: torch.Tensor, py: torch.Tensor, row0: int = 0,
+                h_full: int | None = None) -> torch.Tensor:
     """Bilinear sample of one [H, W] plane at texel coordinates px, py [N],
-    border-clamped: rows of two lerps, then one between them."""
+    border-clamped: rows of two lerps, then one between them. A band of an
+    ``h_full``-row plane whose first row is row ``row0`` samples at image
+    coordinates, as ``taa.catmull_rom_p``."""
     h, w = plane.shape
+    hf = h if h_full is None else h_full
     x0 = torch.clamp(torch.floor(px), 0, w - 1)
-    y0 = torch.clamp(torch.floor(py), 0, h - 1)
+    y0 = torch.clamp(torch.floor(py), 0, hf - 1)
     fx = torch.clamp(px - x0, 0.0, 1.0)
     fy = torch.clamp(py - y0, 0.0, 1.0)
     x0i, y0i = x0.to(torch.int64), y0.to(torch.int64)
-    x1i, y1i = torch.clamp_max(x0i + 1, w - 1), torch.clamp_max(y0i + 1, h - 1)
+    x1i, y1i = torch.clamp_max(x0i + 1, w - 1), torch.clamp_max(y0i + 1, hf - 1)
+    y0i, y1i = (torch.clamp(y - row0, 0, h - 1) for y in (y0i, y1i))
     flat = plane.reshape(-1)
     at = lambda yi, xi: flat[yi * w + xi]
     top = at(y0i, x0i) * (1.0 - fx) + at(y0i, x1i) * fx
@@ -100,7 +115,8 @@ def _bilinear_p(plane: torch.Tensor, px: torch.Tensor, py: torch.Tensor) -> torc
 
 def taau_resolve(curr_lr, history, pos_lr, valid_lr, depth_lr, prev_cam, jitter, out_w: int,
                  out_h: int, cfg: UpscaleConfig = UpscaleConfig(), prev_depth_lr=None,
-                 lock=None):
+                 lock=None, out_row0: int = 0, out_rows: int | None = None, lr_row0: int = 0,
+                 hr_full: int | None = None, hist_row0: int = 0):
     """One temporal-upscale step.
 
     curr_lr [3, hr, wr]: this frame's render-res colour, rendered with the
@@ -111,24 +127,33 @@ def taau_resolve(curr_lr, history, pos_lr, valid_lr, depth_lr, prev_cam, jitter,
     frame's render-res depth plane (enables the depth clip); ``lock``: the
     last luminance-lock plane [out_h, out_w]. Returns (the display image
     [3, out_h, out_w], the new lock plane, or None without ``cfg.locks``).
+    Row bands: ``out_row0``, ``out_rows``, ``lr_row0``, ``hr_full`` and
+    ``hist_row0`` (module docstring); the planes of the previous frame
+    (``prev_depth_lr``, ``lock``) start where ``curr_lr`` and ``history``
+    start.
     """
     _, hr, wr = curr_lr.shape
     dev = curr_lr.device
     f32 = dict(dtype=torch.float32, device=dev)
+    out_rows = out_h if out_rows is None else out_rows
+    hr_full = hr if hr_full is None else hr_full
     sx = wr / out_w
-    sy = hr / out_h
+    sy = hr_full / out_h
 
     # display-pixel centres in render-res texel coordinates
     xs = (torch.arange(out_w, **f32) + 0.5) * sx - 0.5
-    ys = (torch.arange(out_h, **f32) + 0.5) * sy - 0.5
-    px = xs.repeat(out_h)
+    ys = (torch.arange(out_rows, **f32) + out_row0 + 0.5) * sy - 0.5
+    px = xs.repeat(out_rows)
     py = ys.repeat_interleave(out_w)
 
     jx = torch.tensor(float(jitter[0]), **f32)
     jy = torch.tensor(float(jitter[1]), **f32)
     spx = xs - jx  # per display column: the render-res sample coordinate
     spy = ys - jy  # per display row
-    spy_c = torch.clamp(spy, 0.0, hr - 1.0)
+    # clamped to the image's rows before the band's rows are taken: a halo
+    # row beyond the image replicates the edge row's data, not its stencils
+    spy_c = torch.clamp(spy, 0.0, hr_full - 1.0)
+    rows_lr = dict(row0=lr_row0, h_full=hr_full)
 
     # confidence: a Gaussian of the distance to the nearest jittered sample
     inv2s = 1.0 / (2.0 * cfg.sigma * cfg.sigma)
@@ -137,15 +162,17 @@ def taau_resolve(curr_lr, history, pos_lr, valid_lr, depth_lr, prev_cam, jitter,
     conf = (torch.exp(-dy * dy * inv2s)[:, None]
             * torch.exp(-dx * dx * inv2s)[None, :]).reshape(-1)
 
-    zeros_lock = torch.zeros((out_h, out_w), **f32) if cfg.locks else None
+    zeros_lock = torch.zeros((out_rows, out_w), **f32) if cfg.locks else None
     if history is None:
-        return _sep_bilinear(curr_lr, spy_c, spx), zeros_lock
+        return _sep_bilinear(curr_lr, spy_c, spx, **rows_lr), zeros_lock
 
     # per render-res texel motion: display-space offset between its jittered
     # sample and its reprojection, optionally depth-dilated
     p_lr, pp_lr, zf_lr = prev_cam.project(pos_lr.reshape(3, -1).T, out_w, out_h)
     tx = _div(torch.arange(wr, **f32) + 0.5 + jx, wr) * out_w - 0.5
-    ty = _div(torch.arange(hr, **f32) + 0.5 + jy, hr) * out_h - 0.5
+    # a halo row beyond the image replicates the edge row: its own row there
+    row_g = torch.clamp(torch.arange(hr, **f32) + lr_row0, 0.0, hr_full - 1.0)
+    ty = _div(row_g + 0.5 + jy, hr_full) * out_h - 0.5
     m_lr = torch.stack([(p_lr - tx.repeat(hr)).reshape(hr, wr),
                         (pp_lr - ty.repeat_interleave(wr)).reshape(hr, wr)], 0)
     ok_lr = valid_lr & (zf_lr.reshape(hr, wr) > 0)
@@ -161,7 +188,7 @@ def taau_resolve(curr_lr, history, pos_lr, valid_lr, depth_lr, prev_cam, jitter,
         planes.append(pos_lr.reshape(3, hr, wr))
     if cfg.clamp or cfg.locks:
         planes.extend(_neighborhood_minmax_p(curr_lr))
-    smp = _sep_bilinear(torch.cat(planes, 0), spy_c, spx)
+    smp = _sep_bilinear(torch.cat(planes, 0), spy_c, spx, **rows_lr)
     smp = smp.reshape(smp.shape[0], -1)
     cur = smp[0:3]
     valid_s = smp[3] > 0.99
@@ -172,10 +199,12 @@ def taau_resolve(curr_lr, history, pos_lr, valid_lr, depth_lr, prev_cam, jitter,
     # back to display coordinates, moved by the sampled motion
     hpx = (_div(px + 0.5, sx) - 0.5) + m_s[0]
     hpy = (_div(py + 0.5, sy) - 0.5) + m_s[1]
-    inside = (hpx >= -0.5) & (hpx <= out_w - 0.5) & (hpy >= -0.5) & (hpy <= out_h - 0.5)
+    hpy_l = hpy - hist_row0
+    inside = ((hpx >= -0.5) & (hpx <= out_w - 0.5) & (hpy >= -0.5) & (hpy <= out_h - 0.5)
+              & (hpy_l >= -0.5) & (hpy_l <= history.shape[1] - 0.5))
     hpx_c = torch.clamp(hpx, 0.0, out_w - 1.0)
     hpy_c = torch.clamp(hpy, 0.0, out_h - 1.0)
-    hist = catmull_rom_p(history, hpx_c, hpy_c)
+    hist = catmull_rom_p(history, hpx_c, hpy_c, hist_row0, out_h)
 
     # depth clip: the reprojected sample's distance from the last eye must
     # match the last frame's depth there, else the history is another
@@ -186,13 +215,15 @@ def taau_resolve(curr_lr, history, pos_lr, valid_lr, depth_lr, prev_cam, jitter,
         rel = smp[6:9] - eye[:, None]
         depth_est = torch.sqrt(torch.clamp_min((rel[0] * rel[0] + rel[1] * rel[1])
                                                + rel[2] * rel[2], 1e-12))
-        prev_d = _bilinear_p(prev_depth_lr, (hpx + 0.5) * sx - 0.5, (hpy + 0.5) * sy - 0.5)
+        prev_d = _bilinear_p(prev_depth_lr, (hpx + 0.5) * sx - 0.5, (hpy + 0.5) * sy - 0.5,
+                             lr_row0, hr_full)
         disocc = torch.abs(prev_d - depth_est) > cfg.depth_clip_tol * depth_est
 
     # the last lock plane where the pixel came from (locks follow their feature)
     lock_prev = torch.zeros_like(conf)
     if cfg.locks and lock is not None:
-        lock_prev = torch.where(inside & ~disocc, _bilinear_p(lock, hpx_c, hpy_c), 0.0)
+        lock_prev = torch.where(inside & ~disocc,
+                                _bilinear_p(lock, hpx_c, hpy_c, hist_row0, out_h), 0.0)
     if cfg.clamp:
         hist_cl = torch.minimum(torch.maximum(hist, lo), hi)
         hist = hist_cl + (hist - hist_cl) * lock_prev[None, :]
@@ -216,8 +247,8 @@ def taau_resolve(curr_lr, history, pos_lr, valid_lr, depth_lr, prev_cam, jitter,
         create = (feature & (conf > 0.7)).to(torch.float32)
         keep = (ok & (react < 0.5)).to(torch.float32)
         new_lock = torch.clamp(torch.maximum(lock_prev * (1.0 - cfg.lock_decay) * keep, create),
-                               0.0, 1.0).reshape(out_h, out_w)
-    return out.reshape(3, out_h, out_w), new_lock
+                               0.0, 1.0).reshape(out_rows, out_w)
+    return out.reshape(3, out_rows, out_w), new_lock
 
 
 def rcas_p(img: torch.Tensor, sharpness: float = 0.8) -> torch.Tensor:

@@ -148,13 +148,15 @@ def slice_of_depth(zv: torch.Tensor, cfg: VolumetricsConfig) -> torch.Tensor:
 
 
 def apply_inscattering(hdr, gbuf, camera, froxels: dict, cfg: VolumetricsConfig,
-                       width: int, height: int) -> torch.Tensor:
+                       width: int, height: int, row0: int = 0) -> torch.Tensor:
     """hdr [3, H, W] -> hdr * Tr(depth) + Ls(depth), each pixel at its
-    primary hit's view depth (the grid's far plane where the ray missed)."""
+    primary hit's view depth (the grid's far plane where the ray missed).
+    A row band of a ``height``-row image passes the image row of its first
+    row as ``row0``."""
     _, h, w = hdr.shape
     dev = hdr.device
     xs = _div(torch.arange(w, dtype=torch.float32, device=dev) + 0.5, w)
-    ys = _div(torch.arange(h, dtype=torch.float32, device=dev) + 0.5, height)
+    ys = _div(torch.arange(h, dtype=torch.float32, device=dev) + row0 + 0.5, height)
     u = xs.repeat(h)
     v = torch.repeat_interleave(ys, w)
     valid = gbuf[G.VALID] > 0.5

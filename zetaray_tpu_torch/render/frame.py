@@ -17,8 +17,21 @@ in the JAX frame's order. In the GI and PT modes one
 reprojection and one gather serve both temporal passes, and the pre-spatial
 DI and indirect reservoirs are fed forward. ``render_frame`` path-traces
 the camera rays with ``cfg.pt`` whatever ``cfg.mode`` says, as the JAX
-function does. ``shard`` raises ``NotImplementedError``; an unknown mode
-or tonemapper raises ``ValueError``.
+function does. An unknown mode or tonemapper raises ``ValueError``.
+
+Row bands: with ``shard`` (``parallel.halo.ShardCtx``) the call renders
+this rank's band of the rendered rows, as the JAX frame's ``shard``
+branches do (``parallel.mesh.render_frame_restir_sharded`` makes the
+context). Every random stream and light-set pick takes global pixel ids
+(``pix0``, ``pix``); every reuse pass gathers from its tables extended by
+halo rows (the temporal passes by ``shard.halo`` rows of the previous
+frame's tables, each spatial pass by its radius); the firefly filter and
+a-trous extend the image circularly, TAA, the upscaler and RCAS with
+edge-clamped rows; the exposure sums the ranks' statistics. The joint
+temporal gather serves the whole image only. A band then equals those
+rows of the whole frame wherever ``pick_rt`` gives the band the image's
+tile width (and reuse stays within the halo). ``FrameState`` holds the
+band's tables, and the history and locks of its display rows.
 
 Animated geometry: ``motion`` [I+1, 3, 4] holds each instance's curr ->
 prev world transform (row I the identity, which primary misses take),
@@ -104,6 +117,8 @@ from ..ops import volumetrics as VL
 from ..ops.gbuffer_pack import TG, pack_temporal
 from ..ops.pathtracer import PTConfig, trace
 from ..ops.reservoir_pack import pack_di, pack_pt, unpack_di, unpack_pt
+from ..parallel import halo as HX
+from ..parallel.halo import ShardCtx
 from ..scene.camera import Camera
 
 
@@ -192,15 +207,16 @@ def pick_rt(n: int) -> int:
     return 1024
 
 
-def _postprocess(hdr, cfg: RenderConfig, ldr_transform=None):
+def _postprocess(hdr, cfg: RenderConfig, ldr_transform=None, shard=None):
     """Planar [3, H, W] linear radiance -> [3, H, W] uint8 sRGB.
-    ``ldr_transform``: applied after the tonemap (RCAS after an upscale)."""
+    ``ldr_transform``: applied after the tonemap (RCAS after an upscale).
+    ``shard``: ``hdr`` is a row band; the exposure reduces over the ranks."""
     if not cfg.auto_exposure:
         exposure = cfg.manual_exposure
     elif cfg.exposure_mode == "weighted_avg":
-        exposure, _ = post.weighted_avg_exposure_p(hdr)
+        exposure, _ = post.weighted_avg_exposure_p(hdr, shard=shard)
     else:
-        exposure = post.histogram_exposure_p(hdr)
+        exposure = post.histogram_exposure_p(hdr, shard=shard)
     ldr = post.TONEMAPPERS_P[cfg.tonemapper](hdr * exposure)
     if ldr_transform is not None:
         ldr = ldr_transform(ldr)
@@ -255,25 +271,75 @@ def _sky_direct(scene, gb, sky) -> torch.Tensor:
     return _sky_background(gb, sky) + sun
 
 
-def _inscatter(scene, camera, gb, hdr, cfg: RenderConfig):
-    """hdr [3, h, w] through the froxel grid of this frame's camera."""
+def _inscatter(scene, camera, gb, hdr, cfg: RenderConfig, row0: int = 0, height=None):
+    """hdr [3, h, w] (a band from image row ``row0`` of a ``height``-row
+    image) through the froxel grid of this frame's camera."""
     froxels = VL.build_froxels(scene, camera, cfg.pt.sky, cfg.volumetrics)
     h, w = hdr.shape[1:]
-    return VL.apply_inscattering(hdr, gb, camera, froxels, cfg.volumetrics, w, h)
+    return VL.apply_inscattering(hdr, gb, camera, froxels, cfg.volumetrics, w,
+                                 h if height is None else height, row0)
 
 
-def _skydi(scene, gb, state, w, h, seed, cfg: RenderConfig, pos_prev=None):
+def _skydi(scene, gb, state, w, h, seed, cfg: RenderConfig, pos_prev, band):
     """SkyDI's direct light ([3, N]) and the pre-spatial reservoirs the next
-    frame reuses."""
+    frame reuses. ``band``: the frame's rows (``_Band``)."""
     sky, sd_cfg = cfg.pt.sky, cfg.skydi_cfg
     mat = dict(trans=scene.has_transmission, coat=scene.has_coat)
-    sky_res = SD.initial_candidates(gb, sky, seed, sd_cfg, **mat)
+    sky_res = SD.initial_candidates(gb, sky, seed, sd_cfg, pix=band.pix, **mat)
     if sd_cfg.temporal and state is not None and state.sky_reservoirs is not None:
-        sky_res = SD.temporal_reuse(sky_res, state.sky_reservoirs, state.gbuf, gb,
-                                    state.camera_prev, w, h, seed, sd_cfg, sky,
-                                    pos_prev=pos_prev, **mat)
-    sky_sp = SD.spatial_reuse(sky_res, gb, w, h, seed, sd_cfg, **mat)
+        sky_res = SD.temporal_reuse(sky_res, band.prev(state.sky_reservoirs),
+                                    band.prev(state.gbuf), gb, state.camera_prev, w, h, seed,
+                                    sd_cfg, sky, pos_prev=pos_prev, **band.temporal(), **mat)
+    sky_sp = SD.spatial_reuse(sky_res, gb, w, h, seed, sd_cfg, pix=band.pix, ext=band.ext,
+                              **mat)
     return SD.shade(scene, sky_sp, gb, **mat), sky_res
+
+
+class _Band:
+    """The rows that one call of ``render_frame_restir`` renders: the whole
+    ``w`` x ``h`` image, or with ``shard`` (``parallel.halo.ShardCtx``) this
+    rank's band of ``shard.h_local`` rows. It hands the passes their global
+    pixel ids (``pix``, None for the whole image) and their halo exchanges
+    (identities for the whole image)."""
+
+    def __init__(self, shard, w: int, h: int, device):
+        self.shard, self.w = shard, w
+        if shard is None:
+            self.row0, self.rows, self.pix, self.halo = 0, h, None, 0
+            return
+        if not isinstance(shard, ShardCtx):
+            raise TypeError(f"shard must be a parallel.halo.ShardCtx, not {type(shard)!r}")
+        if shard.h_local * shard.n_shards != h:
+            raise ValueError(f"{shard.n_shards} bands of {shard.h_local} rows do not make the "
+                             f"{h} rendered rows")
+        self.row0, self.rows, self.halo = shard.row0, shard.h_local, shard.halo
+        self.pix = torch.arange(self.rows * w, dtype=torch.int64, device=device) + self.pix0
+
+    @property
+    def pix0(self) -> int:
+        return self.row0 * self.w
+
+    def ext(self, x, halo: int):
+        """SoA rows [R, rows * w] and their halo of ``halo`` rows: (the band
+        extended, the image row of its first row)."""
+        if self.shard is None:
+            return x, 0
+        return HX.halo_exchange_flat(x, self.w, halo, self.shard), self.row0 - halo
+
+    def prev(self, x):
+        """A previous frame's table extended by the temporal halo."""
+        return self.ext(x, self.halo)[0]
+
+    def temporal(self) -> dict:
+        """The temporal passes' row hooks for tables from ``prev``."""
+        return dict(pix=self.pix, prev_row0=self.row0 - self.halo,
+                    prev_rows=self.rows + 2 * self.halo)
+
+    def rows_ext(self, x, halo: int, row_axis: int, clamped: bool = False):
+        """An image band extended by ``halo`` rows along ``row_axis``
+        (circular, or edge-clamped at the image's first and last rows)."""
+        fn = HX.halo_exchange_rows_clamped if clamped else HX.halo_exchange_rows
+        return fn(x, halo, self.shard, row_axis)
 
 
 def render_frame(scene, camera: Camera, seed: int, cfg: RenderConfig):
@@ -299,16 +365,24 @@ def render_frame_restir(scene, camera: Camera, seed: int, cfg: RenderConfig,
     "ldr": [H, W, 3] uint8}, FrameState) at the display size.
     ``seed`` is the u32 frame seed; ``textures``: a texture bundle on the
     scene's device; ``motion``: [I+1, 3, 4] curr -> prev instance transforms
-    (module docstring)."""
+    (module docstring). ``shard`` (``parallel.halo.ShardCtx``): this rank
+    renders its band of the rendered rows and returns its band of the
+    outputs and of the state; ``state`` is then its band too (module
+    docstring)."""
     from ..scene.textures import apply_textures_to_gbuffer
 
     cfg.check_ported()
-    if shard is not None:
-        raise NotImplementedError("shard is not ported yet")
     w, h = cfg.render_size()
     dev = scene.device
-    o, d = camera.generate_rays(w, h, _lens_u(camera, seed, w * h, dev), device=dev)
-    rt = pick_rt(w * h)
+    band = _Band(shard, w, h, dev)
+    if shard is not None and cfg.render_scale != 1.0 and cfg.height % shard.n_shards:
+        raise ValueError(f"{cfg.height} display rows do not split into {shard.n_shards} bands")
+    h_loc, row0, pix0, pix = band.rows, band.row0, band.pix0, band.pix
+    lens = _lens_u(camera, seed, w * h, dev)  # drawn by global pixel id
+    if lens is not None:
+        lens = lens[pix0 : pix0 + h_loc * w]
+    o, d = camera.generate_rays(w, h, lens, device=dev, rows=(row0, h_loc))
+    rt = pick_rt(h_loc * w)
 
     gb = gbuffer(scene, o, d)
     spread = camera.pixel_spread_angle(h)
@@ -322,13 +396,14 @@ def render_frame_restir(scene, camera: Camera, seed: int, cfg: RenderConfig,
     ind_cfg = cfg.restir_pt if pt_mode else cfg.restir_gi
     pack_ind, unpack_ind = (pack_pt, unpack_pt) if pt_mode else (pack_di, unpack_di)
 
-    # Joint temporal gather (GI and PT modes, both passes gathering packed):
-    # the DI and indirect reservoirs and the packed temporal G-buffer
-    # reproject alike, so one reprojection and one gather serve both
-    # temporal passes.
+    # Joint temporal gather (GI and PT modes, both passes gathering packed;
+    # the whole image only): the DI and indirect reservoirs and the packed
+    # temporal G-buffer reproject alike, so one reprojection and one gather
+    # serve both temporal passes. A row band runs each temporal pass on its
+    # halo-extended tables (``band.prev``), as the JAX frame does.
     pf_di = pf_ind = None
-    if (state is not None and cfg.indirect and cfg.restir.temporal and ind_cfg.temporal
-            and cfg.restir.packed_reuse and ind_cfg.packed_reuse
+    if (shard is None and state is not None and cfg.indirect and cfg.restir.temporal
+            and ind_cfg.temporal and cfg.restir.packed_reuse and ind_cfg.packed_reuse
             and cfg.mode in ("restir_gi", "restir_pt")):
         idx, inside, depth_est = RD.reproject_prev(gb, state.camera_prev, w, h, pos_prev)
         p_di, p_ind, p_g = RD.take_multi(
@@ -337,93 +412,146 @@ def render_frame_restir(scene, camera: Camera, seed: int, cfg: RenderConfig,
         pf_di = (unpack_di(p_di), p_g, inside, depth_est)
         pf_ind = (unpack_ind(p_ind), p_g, inside, depth_est)
 
-    res = RD.initial_candidates(gb, lsets, seed, rt=rt, **mat)
+    res = RD.initial_candidates(gb, lsets, seed, rt=rt, pix0=pix0, **mat)
     gi_lvg = cfg.mode == "restir_gi" and cfg.restir_gi.lvg and cfg.indirect
     lvg = None
     if cfg.restir.lvg_samples > 0 or gi_lvg:
         lvg = PL.build_light_voxel_grid(scene, camera, seed, cfg.lvg_cfg)
     if cfg.restir.lvg_samples > 0:
-        res = RD.lvg_merge(res, gb, camera, lvg, seed, cfg.restir, cfg.lvg_cfg, **mat)
+        res = RD.lvg_merge(res, gb, camera, lvg, seed, cfg.restir, cfg.lvg_cfg, pix=pix, **mat)
+    prev_g = band.prev(state.gbuf) if state is not None else None
     if cfg.restir.temporal and state is not None:
         res = RD.temporal_reuse(
-            res, state.reservoirs, state.gbuf, gb, state.camera_prev, w, h, seed, cfg.restir,
-            pos_prev=pos_prev, prefetch=pf_di, **mat,
+            res, band.prev(state.reservoirs), prev_g, gb, state.camera_prev, w, h, seed, cfg.restir,
+            pos_prev=pos_prev, prefetch=pf_di, **band.temporal(), **mat,
         )
     res = RD.visibility_reuse(scene, res, gb)
-    res_sp = RD.spatial_reuse(res, gb, w, h, seed, cfg.restir, **mat)
+    res_sp = RD.spatial_reuse(res, gb, w, h, seed, cfg.restir, pix=pix, ext=band.ext, **mat)
     direct = RD.shade(scene, res_sp, gb, **mat)
     # SkyDI: the GI and PT modes take the sky's direct light from reservoirs
     use_skydi = cfg.skydi and cfg.pt.sky is not None and cfg.mode in ("restir_gi", "restir_pt")
     sky_res = None
     if use_skydi:
-        sky_direct, sky_res = _skydi(scene, gb, state, w, h, seed, cfg, pos_prev)
+        sky_direct, sky_res = _skydi(scene, gb, state, w, h, seed, cfg, pos_prev, band)
         direct = direct + sky_direct + _sky_background(gb, cfg.pt.sky)
 
     ind_res = torch.zeros_like(res)
     pt_cfg = replace(cfg.pt, min_emissive_bounce=2, min_nee_bounce=1)
     temporal = ind_cfg.temporal and state is not None
     indirect = None
+    reuse = dict(pix=pix, ext=band.ext, **mat)
     if cfg.indirect and pt_mode:
         ind_res = RP.initial_samples(scene, gb, pt_cfg, seed, cfg.restir_pt, rt,
-                                     light_sets=lsets, **mat, **tex)
+                                     light_sets=lsets, pix0=pix0, **mat, **tex)
         if temporal:
             ind_res = RP.temporal_reuse(
-                ind_res, state.gi_reservoirs, state.gbuf, gb, state.camera_prev, w, h, seed,
-                cfg.restir_pt, scene=scene, pos_prev=pos_prev, prefetch=pf_ind, **mat,
+                ind_res, band.prev(state.gi_reservoirs), prev_g, gb, state.camera_prev, w, h, seed,
+                cfg.restir_pt, scene=scene, pos_prev=pos_prev, prefetch=pf_ind,
+                **band.temporal(), **mat,
             )
-        pt_sp = RP.spatial_reuse(ind_res, gb, w, h, seed, cfg.restir_pt, scene=scene, **mat)
+        pt_sp = RP.spatial_reuse(ind_res, gb, w, h, seed, cfg.restir_pt, scene=scene, **reuse)
         indirect = RP.shade(scene, pt_sp, gb, **mat)
     elif cfg.indirect and cfg.mode == "restir_gi":
         ind_res = RG.initial_samples(scene, gb, pt_cfg, seed, rt, light_sets=lsets,
                                      lvg=lvg if gi_lvg else None, lvg_cam=camera,
                                      lvg_cfg=cfg.lvg_cfg, full_target=cfg.restir_gi.full_target,
-                                     **mat, **tex)
+                                     pix0=pix0, **mat, **tex)
         if temporal:
             ind_res = RG.temporal_reuse(
-                ind_res, state.gi_reservoirs, state.gbuf, gb, state.camera_prev, w, h, seed,
-                cfg.restir_gi, pos_prev=pos_prev, prefetch=pf_ind, **mat,
+                ind_res, band.prev(state.gi_reservoirs), prev_g, gb, state.camera_prev, w, h, seed,
+                cfg.restir_gi, pos_prev=pos_prev, prefetch=pf_ind, **band.temporal(), **mat,
             )
-        gi_sp = RG.spatial_reuse(ind_res, gb, w, h, seed, cfg.restir_gi, **mat)
+        gi_sp = RG.spatial_reuse(ind_res, gb, w, h, seed, cfg.restir_gi, **reuse)
         indirect = RG.shade(scene, gi_sp, gb, **mat)
     elif cfg.indirect:  # restir_di and pt: the camera rays path-traced past their first hit
         indirect = trace(scene, o, d, seed, pt_cfg, rt=rt, rows_out=True, light_sets=lsets,
-                         **tex)
+                         pix0=pix0, **tex)
     if (cfg.indirect and cfg.mode in ("restir_gi", "restir_pt") and cfg.pt.sky is not None
             and not use_skydi):
         direct = direct + _sky_direct(scene, gb, cfg.pt.sky)
-    hdr = (direct if indirect is None else direct + indirect).reshape(3, h, w)
+    hdr = (direct if indirect is None else direct + indirect).reshape(3, h_loc, w)
     if cfg.volumetrics is not None and cfg.pt.sky is not None:
-        hdr = _inscatter(scene, camera, gb, hdr, cfg)
+        hdr = _inscatter(scene, camera, gb, hdr, cfg, row0, h)
 
-    normal_img = gb[G.NS : G.NS + 3].reshape(3, h, w)
-    depth_img = gb[G.DEPTH].reshape(h, w)
-    valid_img = (gb[G.VALID] > 0.5).reshape(h, w)
+    normal_img = gb[G.NS : G.NS + 3].reshape(3, h_loc, w)
+    depth_img = gb[G.DEPTH].reshape(h_loc, w)
+    valid_img = (gb[G.VALID] > 0.5).reshape(h_loc, w)
     if cfg.firefly_factor > 0.0:
-        hdr = DN.firefly_filter_p(hdr, cfg.firefly_factor)
+        if shard is None:
+            hdr = DN.firefly_filter_p(hdr, cfg.firefly_factor)
+        else:  # the 3x3 stencil on a circular 1-row halo
+            hdr = DN.firefly_filter_p(band.rows_ext(hdr, 1, 1), cfg.firefly_factor)[:, 1:-1]
     if cfg.denoise:
-        hdr = DN.atrous_denoise_p(hdr, normal_img, depth_img, valid_img)
-    pos_img = (gb[G.POS : G.POS + 3] if pos_prev is None else pos_prev.T).reshape(3, h, w)
+        if shard is None:
+            hdr = DN.atrous_denoise_p(hdr, normal_img, depth_img, valid_img)
+        else:
+            hdr = _atrous_band(band, hdr, normal_img, depth_img, valid_img)
+    pos_img = (gb[G.POS : G.POS + 3] if pos_prev is None else pos_prev.T).reshape(3, h_loc, w)
     lock = None
     rcas = None
     if cfg.render_scale != 1.0:
         # the history, the last depth plane and the locks gate together
         hist = state.history if (cfg.taa and state is not None) else None
+        prev_depth = None if hist is None else state.gbuf[TG.DEPTH].reshape(h_loc, w)
+        lock = None if hist is None else state.upscale_lock
+        args = (hdr, hist, pos_img, valid_img, depth_img)
+        rows = {}
+        if shard is not None:
+            # render-res stencils (bilinear, min/max, dilation) read 2 halo
+            # rows, the display-res history and locks the temporal halo;
+            # edge-clamped, as the whole image's resamplers clamp
+            hs, out_rows = 2, cfg.height // shard.n_shards
+            ext = lambda x, k, ax=0: None if x is None else band.rows_ext(x, k, ax, True)
+            args = (ext(hdr, hs, 1), ext(hist, band.halo, 1), ext(pos_img, hs, 1),
+                    ext(valid_img, hs), ext(depth_img, hs))
+            prev_depth, lock = ext(prev_depth, hs), ext(lock, band.halo)
+            rows = dict(out_row0=shard.rank * out_rows, out_rows=out_rows, lr_row0=row0 - hs,
+                        hr_full=h, hist_row0=shard.rank * out_rows - band.halo)
         hdr, lock = UP.taau_resolve(
-            hdr, hist, pos_img, valid_img, depth_img,
-            state.camera_prev if state is not None else camera, camera.jitter, cfg.width,
-            cfg.height, cfg.upscale_cfg,
-            prev_depth_lr=None if hist is None else state.gbuf[TG.DEPTH].reshape(h, w),
-            lock=None if hist is None else state.upscale_lock,
+            *args, state.camera_prev if state is not None else camera, camera.jitter,
+            cfg.width, cfg.height, cfg.upscale_cfg, prev_depth_lr=prev_depth, lock=lock, **rows,
         )
         if cfg.upscale_cfg.rcas_sharpness > 0.0:
             rcas = lambda ldr: UP.rcas_p(ldr, cfg.upscale_cfg.rcas_sharpness)
+            if shard is not None:  # the cross stencil on an edge-clamped 1-row halo
+                sharpen = rcas
+                rcas = lambda ldr: sharpen(band.rows_ext(ldr, 1, 1, True))[:, 1:-1]
     elif cfg.taa and state is not None:
-        hdr = TA.taa_resolve_p(hdr, state.history, pos_img, valid_img, state.camera_prev,
-                               depth_img)
+        if shard is None:
+            hdr = TA.taa_resolve_p(hdr, state.history, pos_img, valid_img, state.camera_prev,
+                                   depth_img)
+        else:
+            # edge-clamped halos: one row for the dilation and the clamp,
+            # the temporal halo of the history
+            ext = lambda x, k, ax=0: band.rows_ext(x, k, ax, True)
+            hdr = TA.taa_resolve_p(ext(hdr, 1, 1), ext(state.history, band.halo, 1),
+                                   ext(pos_img, 1, 1), ext(valid_img, 1), state.camera_prev,
+                                   ext(depth_img, 1), row0=row0, height_full=h,
+                                   hist_row0=row0 - band.halo, ext=1)
 
-    ldr = _postprocess(hdr, cfg, rcas)
+    ldr = _postprocess(hdr, cfg, rcas, shard)
     new_state = FrameState(
         reservoirs=res, gi_reservoirs=ind_res, gbuf=pack_temporal(gb),
         camera_prev=camera, history=hdr, sky_reservoirs=sky_res, upscale_lock=lock,
     )
     return {"hdr": hdr.permute(1, 2, 0), "ldr": ldr.permute(1, 2, 0)}, new_state
+
+
+def _atrous_band(band: _Band, hdr, normal, depth, valid, cfg: DN.ATrousConfig = DN.ATrousConfig()):
+    """``ops.denoise.atrous_denoise_p`` on a row band: each pass at tap
+    spacing s reads 2 s rows beyond the band, so the guides are exchanged
+    once with the widest pass's halo and the colour before each pass with
+    its own (circular, as the whole image's rolls)."""
+    hmax = 2 * (1 << (cfg.iterations - 1))
+    h = hdr.shape[1]
+    nrm = band.rows_ext(normal, hmax, 1)
+    dep = band.rows_ext(depth, hmax, 0)
+    vf = band.rows_ext(valid.to(torch.float32), hmax, 0)
+    out = hdr
+    for it in range(cfg.iterations):
+        step = 1 << it
+        hh = 2 * step
+        rows = slice(hmax - hh, hmax + h + hh)
+        out = DN.atrous_iteration_p(band.rows_ext(out, hh, 1), nrm[:, rows], dep[rows],
+                                    vf[rows], step, cfg)[:, hh:-hh]
+    return out

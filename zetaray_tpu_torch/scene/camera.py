@@ -69,13 +69,14 @@ class Camera:
         return torch.tensor(float(v), dtype=torch.float32, device=device)
 
     def generate_rays(self, width: int, height: int, lens_u: torch.Tensor | None = None,
-                      device=None):
+                      device=None, rows: tuple[int, int] | None = None):
         """Primary rays through pixel centres (+ jitter): ([N, 3], [N, 3]) on
         ``device`` (default: the card; ``native.default_device``).
         ``lens_u`` ([N, 2] uniforms) moves each origin onto the lens disk
         and aims it at the pixel's point on the focus plane where
         ``lens_radius`` > 0 (thin-lens depth of field); without it the
-        rays leave the eye."""
+        rays leave the eye. ``rows`` = (row0, n_rows): only the rays of
+        that band of image rows of the ``width`` x ``height`` image."""
         device = native.default_device(device)
         f32 = torch.float32
         jx = self._scalar(self.jitter[0], device)
@@ -83,11 +84,12 @@ class Camera:
         thf = self._scalar(self.tan_half_fov, device)
         aspect = self._scalar(self.aspect, device)
         px = (torch.arange(width, dtype=f32, device=device) + 0.5 + jx) / width
-        py = (torch.arange(height, dtype=f32, device=device) + 0.5 + jy) / height
+        row0, n_rows = (0, height) if rows is None else rows
+        py = (torch.arange(n_rows, dtype=f32, device=device) + row0 + 0.5 + jy) / height
         sx = (2.0 * px - 1.0) * (aspect * thf)
         sy = (1.0 - 2.0 * py) * thf
-        sx = sx[None, :].expand(height, width).reshape(-1)
-        sy = sy[:, None].expand(height, width).reshape(-1)
+        sx = sx[None, :].expand(n_rows, width).reshape(-1)
+        sy = sy[:, None].expand(n_rows, width).reshape(-1)
         right, up, fwd = (self._vec(k, device) for k in ("right", "up", "forward"))
         d = sx[:, None] * right + sy[:, None] * up + fwd
         eye = self._vec("eye", device)
