@@ -151,7 +151,29 @@ Phases (any failure exits non-zero):
      the same seeds (rtol 3e-3, atol 1e-5), and each rank's ms a frame,
      its exchanges (calls, bytes received, host-staged ms) and peak memory
      are printed;
-  6. prints the kernels' record, the card line, and last a JSON status.
+  6. the host side, each through the entry point a user calls (host_phase):
+     (a) the app (python -m zetaray_tpu_torch.app, a subprocess) on the
+     animated box written as glTF into IMAGE_DIR/app: 4 frames at 512^2 of
+     the default restir_di frame with the sun, --animate, --validate,
+     --dump-graph and --outline, the same with --mode restir_gi --bounces 3
+     --denoise, and --profile at 256^2, each writing 4 lit PNGs, its ms a
+     frame and its last frame's kernel launches (the app's frame stats)
+     printed; (c) pick (render.picking) on the 139,266-triangle clustered
+     box (B8) and on the cutout box (the re-trace, B7 a round) equal to the
+     same picks through the plain versions on a CPU copy of the scene; (d)
+     the textured box with its checker as a BC1 and a BC7 DDS file: the
+     host decode's ms, a 64^2 textured flagship on the card against the CPU
+     (99% of the pixels) and the 512^2 textured flagship's frames; (e) a
+     checkpoint of the default frame's 512^2 chain after frame 2, resumed:
+     frames 3-4 equal the unbroken chain bit for bit; (b) the viewer
+     (gui.Viewer, restir_gi at 256^2, make_server on an ephemeral port):
+     GET / and /api/stats, picks at the centre and at a miss equal to the
+     plain closest hit on the same ray, camera, material and transform
+     (refit) edits, a hot reload (no library rebuilt; the next frame equal
+     to the frame without it) and /api/quit, its ms a frame printed; (f)
+     python -m zetaray_tpu_torch.warmup and its seconds;
+  7. prints the kernels' record (with each kernel's launches on the
+     host-side paths, "host_side"), the card line, and last a JSON status.
 
 The 512^2 images are written to IMAGE_DIR: zetaray_torch_512.png (the
 flagship frame), zetaray_torch_512_di.png (DI only), zetaray_torch_512_pt.png
@@ -497,6 +519,374 @@ def sharded_rank(rank: int, world: int, init_method: str, backend: str, specs, s
                         / 2**20, counts={name: fn.launches for name, fn in kernels_of.items()},
                         hdr=hdrs if rank == 0 else None, device=str(dev))
     return out
+
+
+# the hand-written kernels by the tags of the frame stats (profile.LAUNCHERS)
+TAG_NAMES = {"B1": "gbuffer", "B2": "ris", "B3": "occlusion", "B4": "bounce_trace",
+             "B5": "bounce_shade", "B6": "bounce", "B7": "closest", "B8": "stream_closest",
+             "B9": "occlusion_stream"}
+
+
+def _http(port: int, path: str, obj=None):
+    """GET (obj None) or POST obj as JSON to the viewer's server; the JSON
+    reply, or the raw bytes of a page."""
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}",
+                                 data=None if obj is None else json.dumps(obj).encode(),
+                                 method="GET" if obj is None else "POST")
+    with urllib.request.urlopen(req, timeout=60) as r:
+        body = r.read()
+    return body if path == "/" else json.loads(body)
+
+
+def _scene_on_cpu(sc):
+    """A CUDA scene's tables copied to the CPU, where every wrapper takes
+    its plain version: the same slots, trees and rows."""
+    return dataclasses.replace(sc, **{f.name: getattr(sc, f.name).cpu()
+                                      for f in dataclasses.fields(sc)
+                                      if f.init and isinstance(getattr(sc, f.name), torch.Tensor)})
+
+
+def _app_chain(path, opts, dev, frames=4):
+    """The LDR of frame ``frames - 1`` of an app run with ``opts`` (size,
+    sun, ``--animate``, ``--outline``, mode, bounces, denoise), rendered
+    in this process by ``render_frame_restir`` on ``dev``."""
+    from zetaray_tpu_torch import app
+    from zetaray_tpu_torch.ops import post
+    from zetaray_tpu_torch.ops.gbuffer_pack import TG
+    from zetaray_tpu_torch.ops.pathtracer import PTConfig
+    from zetaray_tpu_torch.ops.sky import SkyParams
+    from zetaray_tpu_torch.render.frame import RenderConfig, render_frame_restir
+    from zetaray_tpu_torch.scene.animation import AnimationRig, transform_deltas
+    from zetaray_tpu_torch.scene.camera import Camera
+    from zetaray_tpu_torch.scene.gltf import load_gltf
+    from zetaray_tpu_torch.scene.refit import refit_scene
+    from zetaray_tpu_torch.scene.scene import load_scene, upload_scene
+
+    arg = lambda flag, default: opts[opts.index(flag) + 1] if flag in opts else default
+    w, h = (int(v) for v in arg("--size", "512x512").split("x"))
+    sun = tuple(float(v) for v in arg("--sun", "").split(",")) if "--sun" in opts else None
+    cfg_ = RenderConfig(width=w, height=h, mode=arg("--mode", "restir_di"),
+                        pt=PTConfig(max_bounces=int(arg("--bounces", 4)),
+                                    sky=SkyParams(sun_dir=sun) if sun else None),
+                        denoise="--denoise" in opts)
+    fps = float(arg("--animate", 0))
+    doc = load_gltf(path)
+    cpu_ = load_scene(doc)
+    sc = upload_scene(cpu_, device=dev)
+    if app.scene_textures(cpu_, dev) is not None:
+        raise AssertionError("_app_chain: the animated box has no textures")
+    rig = AnimationRig(doc)
+    cam0 = Camera.look_at((0.0, 1.0, 3.5), (0.0, 1.0, 0.0), vfov_deg=45.0, aspect=w / h)
+    state = None
+    for i in range(frames):
+        t = i / fps
+        motion, _ = transform_deltas(rig.instance_worlds(t),
+                                     rig.instance_worlds(max(t - 1.0 / fps, 0.0)))
+        out, state = render_frame_restir(refit_scene(sc, *rig.deltas(t)),
+                                         cam0.with_jitter(i), app.frame_seed(i), cfg_,
+                                         state, None, motion=motion)
+    ldr = out["ldr"]
+    pid = [k for k, n in enumerate(cpu_.inst_names) if arg("--outline", None) in n][0]
+    inst = state.gbuf[TG.INST].reshape(h, w)
+    return (post.picked_outline_p(ldr.float().permute(2, 0, 1) / 255.0, inst, pid)
+            * 255.0).permute(1, 2, 0).to(torch.uint8).cpu().numpy()
+
+
+def host_phase(dev, chain, show, kernels_of, big_cpu, seed: int, res: int) -> dict:
+    """Phase 6, the host side: the app, picking, DDS textures, a checkpoint,
+    the viewer and the warm-up, each through the entry point a user calls.
+    Returns {kernel name: {path: launches}} of the paths run in this
+    process and, for the app's runs (subprocesses), their last frame's
+    launches from the app's frame stats."""
+    import subprocess
+    import threading
+
+    import numpy as np
+
+    from zetaray_tpu_torch import native
+    from zetaray_tpu_torch.accel import intersect as XI
+    from zetaray_tpu_torch.gui import Viewer, make_server
+    from zetaray_tpu_torch.ops import prelighting as PL
+    from zetaray_tpu_torch.ops.pathtracer import PTConfig
+    from zetaray_tpu_torch.ops.sky import SkyParams
+    from zetaray_tpu_torch.render.frame import RenderConfig, render_frame_restir
+    from zetaray_tpu_torch.render.picking import pick
+    from zetaray_tpu_torch.scene.camera import Camera
+    from zetaray_tpu_torch.scene.procedural import (
+        CAMERA_EYE, CAMERA_TARGET, CAMERA_VFOV, TEX_CHECKER, animated_box, cornell_box,
+        cutout_box, textured_box,
+    )
+    from zetaray_tpu_torch.scene.scene import upload_scene
+    from zetaray_tpu_torch.scene.textures import load_dds, load_scene_textures
+    from zetaray_tpu_torch.utils.checkpoint import load_frame_state, save_frame_state
+    from zetaray_tpu_torch.utils.png import read_png
+
+    t_phase = time.perf_counter()
+    host = {}  # kernel name -> {path: launches}
+
+    def note(path, counts):
+        for name, n in counts.items():
+            if n:
+                host.setdefault(name, {})[path] = n
+
+    # (a) the app as a user runs it, on the animated box written as glTF
+    app_dir = os.path.join(IMAGE_DIR, "app")
+    os.makedirs(app_dir, exist_ok=True)
+    gltf = str(animated_box(os.path.join(app_dir, "box.gltf")))
+    common = [sys.executable, "-m", "zetaray_tpu_torch.app", gltf, "--frames", "4"]
+    frame_opts = ["--size", "512x512", "--sun", ",".join(map(str, SUN)), "--animate", "30",
+                  "--validate", "--dump-graph", "--outline", "tall"]
+    runs = {
+        "app restir_di 512^2": (frame_opts, ("B1", "B2", "B3", "B6")),
+        "app restir_gi 512^2": (frame_opts + ["--mode", "restir_gi", "--bounces", "3",
+                                              "--denoise"], ("B1", "B2", "B3", "B4", "B5", "B6")),
+        "app --profile 256^2": (["--size", "256x256", "--profile"], ("B1", "B2", "B3", "B6")),
+    }
+    for k, (tag, (opts, expect)) in enumerate(runs.items()):
+        out_dir = os.path.join(app_dir, f"run{k}")
+        t0 = time.perf_counter()
+        p = subprocess.run(common + opts + ["--out", out_dir], capture_output=True, text=True,
+                           timeout=600)
+        wall = time.perf_counter() - t0
+        if p.returncode != 0:
+            raise AssertionError(f"{tag} exited {p.returncode}:\n{p.stderr[-4000:]}")
+        frame_ms = [float(x) for x in re.findall(r"\] frame \d+: ([0-9.]+) ms", p.stderr)]
+        launches = {TAG_NAMES[t]: int(n) for t, n in re.findall(r"launches/(B\d): (\d+)",
+                                                                 p.stdout)}
+        means = [float(read_png(os.path.join(out_dir, f"frame_{i:04d}.png")).mean())
+                 for i in range(4)]
+        if len(frame_ms) != 4 or min(means) < 10.0:
+            raise AssertionError(f"{tag}: frames {frame_ms} ms, PNG means {means}")
+        for t in expect:
+            if launches.get(TAG_NAMES[t], 0) <= 0:
+                raise AssertionError(f"{tag}: kernel {TAG_NAMES[t]} was not launched: {launches}")
+        if "--dump-graph" in opts and "digraph frame {" not in p.stdout:
+            raise AssertionError(f"{tag}: no frame graph printed")
+        passes = re.findall(r"^  (.+): ([0-9.]+) ms$", p.stdout, re.M)
+        if "--profile" in opts and len(passes) < 10:
+            raise AssertionError(f"{tag}: --profile printed {len(passes)} passes")
+        note(f"{tag}, a frame", launches)
+        same = ""
+        if "--animate" in opts:
+            # the same frames rendered here through the frame function, with the
+            # app's frame seeds, refit, motion and outline: the app's last PNG
+            # must equal this chain's last LDR bit for bit
+            want = _app_chain(gltf, opts, dev)
+            got = read_png(os.path.join(out_dir, "frame_0003.png"))
+            if not np.array_equal(got, want):
+                raise AssertionError(f"{tag}: frame_0003.png differs from the direct chain in "
+                                     f"{int((got != want).any(-1).sum())} pixels")
+            same = "; frame_0003.png equal to a direct render_frame_restir chain bit for bit"
+        print(f"(a) {tag}: frames {frame_ms} ms (median of frames 2-4 "
+              f"{statistics.median(frame_ms[1:]):.3f} ms), the run {wall:.1f} s wall; last "
+              f"frame's launches {launches}; PNG means {[round(x, 1) for x in means]}"
+              + (f"; passes {dict((n, float(v)) for n, v in passes[:6])} ms ..."
+                 if "--profile" in opts else "") + same, flush=True)
+
+    # (c) pick on the 139,266-triangle clustered box (B8 and its epilogue)
+    # and on the cutout box (the re-trace, B7 a round), each against the same
+    # pick through the plain versions on a CPU copy of the scene
+    cam = Camera.look_at(CAMERA_EYE, CAMERA_TARGET, vfov_deg=CAMERA_VFOV, aspect=1.0)
+    pixels = [(256, 256), (40, 300), (470, 60), (200, 180), (330, 180), (100, 420), (0, 0)]
+    cut_cpu = cutout_box(TEX_DIR)
+    for tag, sc, cpu_, kernel in (
+            ("clustered 139k", upload_scene(big_cpu, device=dev), big_cpu, "stream_closest"),
+            ("cutout", upload_scene(cut_cpu, device=dev), cut_cpu, "closest")):
+        plain_sc = _scene_on_cpu(sc)
+        for fn in kernels_of.values():
+            fn.launches = 0
+        ms, hits = [], 0
+        for px, py in pixels:
+            t0 = time.perf_counter()
+            got = pick(sc, cpu_, cam, px, py, res, res)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            want = pick(plain_sc, cpu_, cam, px, py, res, res)
+            if (got.hit, got.tri, got.instance, got.material) != (
+                    want.hit, want.tri, want.instance, want.material) or (
+                    got.hit and abs(got.t - want.t) > 1e-6 * abs(want.t)):
+                raise AssertionError(f"pick {tag} ({px}, {py}): {got} against plain {want}")
+            hits += got.hit
+        counts = {name: fn.launches for name, fn in kernels_of.items()}
+        if counts[kernel] < len(pixels) or hits < 5:
+            raise AssertionError(f"pick {tag}: launches {counts}, {hits} hits")
+        note(f"pick {tag}, {len(pixels)} picks", counts)
+        print(f"(c) pick on the {tag} box at {res}^2 pixels {pixels}: equal to the plain "
+              f"versions ({hits} hits, t to 1e-6); ms a pick {[round(x, 3) for x in ms]}; "
+              f"launches {counts}", flush=True)
+        del sc, plain_sc
+    torch.cuda.empty_cache()
+
+    # (d) the textured box with its checker as BC1 and BC7 DDS files
+    flag = dict(mode="restir_gi", pt=PTConfig(max_bounces=3), denoise=True, taa=True)
+    dds_dir = os.path.join(TEX_DIR, "dds")
+    os.makedirs(dds_dir, exist_ok=True)
+    t0 = time.perf_counter()
+    native.bcn_lib()
+    print(f"(d) BCn library: {time.perf_counter() - t0:.2f} s -> "
+          f"{os.path.relpath(native.bcn_library_path())}", flush=True)
+    for fmt in ("bc1", "bc7"):
+        tcpu = textured_box(dds_dir, base_format=fmt)
+        path = tcpu.texture_paths[TEX_CHECKER]
+        dec = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            load_dds(path)
+            dec.append((time.perf_counter() - t0) * 1e3)
+        outs = {}
+        for dv, where in (("cpu", "cpu"), (dev, "card")):
+            sc = upload_scene(tcpu, device=dv)
+            tex = load_scene_textures(tcpu, device=dv)
+            sc = PL.apply_tri_powers(sc, *PL.estimate_tri_power(sc, tex))
+            if where == "cpu":
+                state = None
+                for k in range(2):
+                    o_, state = render_frame_restir(sc, cam.with_jitter(k), seed + k,
+                                                    RenderConfig(width=64, height=64, **flag),
+                                                    state, textures=tex)
+                outs["cpu"] = o_["hdr"]
+            else:
+                o_, _, _ = chain(RenderConfig(width=64, height=64, **flag), cam, (), frames=2,
+                                 sc=sc, textures=tex)
+                outs["card"] = o_["hdr"].cpu()
+                _, times, counts = chain(RenderConfig(width=res, height=res, **flag), cam,
+                                         ("gbuffer", "ris", "occlusion", "bounce_trace",
+                                          "bounce_shade", "bounce"), sc=sc, textures=tex)
+        close = ((outs["card"] - outs["cpu"]).abs() <= 1e-3 * (1 + outs["cpu"].abs())).all(-1)
+        share = close.float().mean().item()
+        if not share >= 0.99:
+            raise AssertionError(f"DDS {fmt} textured 64^2 flagship: {share} of the pixels "
+                                 "agree with the CPU")
+        note(f"DDS {fmt} flagship {res}^2, a chain of 4", counts)
+        print(f"(d) DDS {fmt.upper()} checker {os.path.basename(path)}: host decode (load_dds) "
+              f"{[round(x, 3) for x in dec]} ms; 64^2 textured flagship on the card against "
+              f"the CPU: {share:.4f} of the pixels within 1e-3", flush=True)
+        show(f"(d) DDS {fmt.upper()} textured flagship {res}^2", times, counts)
+
+    # (e) a checkpoint after frame 2 of the default frame's chain, resumed
+    app_cfg = RenderConfig(width=res, height=res, mode="restir_di", taa=True,
+                           pt=PTConfig(max_bounces=4, sky=SkyParams(sun_dir=SUN)))
+    box = upload_scene(cornell_box(), device=dev)
+    ckpt = os.path.join(app_dir, "state.npz")
+    state, whole = None, []
+    for k in range(4):
+        o_, state = render_frame_restir(box, cam.with_jitter(k), seed + k, app_cfg, state)
+        whole.append(o_)
+        if k == 1:
+            t0 = time.perf_counter()
+            save_frame_state(ckpt, state, params_snapshot={"seed": seed})
+            save_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    state, params = load_frame_state(ckpt)
+    load_ms = (time.perf_counter() - t0) * 1e3
+    if params != {"seed": seed} or state.history.device.type != "cuda":
+        raise AssertionError(f"checkpoint: params {params}, history on {state.history.device}")
+    for k in (2, 3):
+        o_, state = render_frame_restir(box, cam.with_jitter(k), seed + k, app_cfg, state)
+        for key in ("hdr", "ldr"):
+            if not torch.equal(o_[key], whole[k][key]):
+                raise AssertionError(f"checkpoint: resumed frame {k + 1} {key} differs from the "
+                                     f"unbroken chain")
+    print(f"(e) checkpoint of the default frame {res}^2 after frame 2 "
+          f"({os.path.getsize(ckpt)} bytes, save {save_ms:.1f} ms, load {load_ms:.1f} ms): "
+          "frames 3-4 resumed equal the unbroken chain bit for bit", flush=True)
+
+    # (b) the viewer on the card at 256^2 (restir_gi) behind its HTTP server;
+    # last of the in-process steps, since its hot reload re-imports the op
+    # modules (the kernels' wrappers and their counts with them)
+    vres = 256
+    from zetaray_tpu_torch.utils import params as PRM
+
+    PRM.registry._params.clear()
+    viewer = Viewer(gltf, RenderConfig(width=vres, height=vres, **flag), device=dev)
+    server = make_server(viewer, 0)
+    port = server.server_address[1]
+    srv = threading.Thread(target=server.serve_forever, daemon=True)
+    srv.start()
+    try:
+        vms = []
+
+        def frame(i):
+            t0 = time.perf_counter()
+            img = viewer.render_one(i)  # ends in a copy to the host
+            vms.append((time.perf_counter() - t0) * 1e3)
+            return img
+
+        for i in range(3):
+            frame(i)
+        if b"zetaray_tpu_torch" not in _http(port, "/"):
+            raise AssertionError("viewer: GET / did not serve the page")
+        st = _http(port, "/api/stats")
+        if st["width"] != vres or st["device"] != str(dev):
+            raise AssertionError(f"viewer: stats {st}")
+        XI.closest_hit.launches = 0
+        for px, py, hit in ((vres // 2, vres // 2, True), (0, 0, False)):
+            _http(port, "/api/pick", {"x": px, "y": py})
+            frame(3)
+            res_ = _http(port, "/api/pick")
+            o, d = viewer._camera(3).generate_rays(vres, vres, device=dev, rows=(py, 1))
+            sh = XI.closest_hit_plain_shaded(viewer.scene.woop, viewer.scene.tri_attrs,
+                                             o[px : px + 1], d[px : px + 1])
+            tri, t = int(sh.tri[0]), float(sh.t[0])
+            if res_["hit"] != hit or res_["tri"] != tri or (
+                    hit and abs(res_["t"] - t) > 1e-6 * t):
+                raise AssertionError(f"viewer pick ({px}, {py}): {res_} against the plain "
+                                     f"closest hit tri {tri}, t {t}")
+        pick_launches = XI.closest_hit.launches
+        if pick_launches != 2:
+            raise AssertionError(f"viewer picks launched B7 {pick_launches} times")
+        note("viewer, 2 picks", {"closest": pick_launches})
+        _http(port, "/api/camera", {"dyaw": 0.2, "ddolly": 0.1})
+        _http(port, "/api/material", {"index": 0, "field": "roughness", "value": 0.4})
+        _http(port, "/api/transform", {"instance": 1, "translate": [0.1, 0.0, 0.0]})
+        sel = viewer.scene.inst_id == 1
+        x0 = viewer.scene.v0[sel, 0].mean().item()
+        frame(4)
+        moved = viewer.scene.v0[sel, 0].mean().item() - x0
+        if abs(moved - 0.1) > 1e-5 or abs(viewer.scene.mat_roughness[0].item() - 0.4) > 1e-6:
+            raise AssertionError(f"viewer edits: moved {moved}, roughness "
+                                 f"{viewer.scene.mat_roughness[0].item()}")
+        lib_before, path_before = native._lib, native.library_path()
+        viewer._frame_state = None
+        plain_next = frame(5)
+        _http(port, "/api/reload", {})
+        reloaded_next = frame(5)
+        reloaded = _http(port, "/api/reload_result")["reloaded"]
+        if (native._lib is not lib_before or native.library_path() != path_before
+                or "zetaray_tpu_torch.native" in reloaded
+                or "zetaray_tpu_torch.render.frame" not in reloaded):
+            raise AssertionError(f"viewer reload: {reloaded}")
+        if not (plain_next == reloaded_next).all():
+            raise AssertionError("viewer: the frame after the reload differs from the frame "
+                                 "without it")
+        _http(port, "/api/quit", {})
+        srv.join(timeout=60)
+        if srv.is_alive() or viewer.state.running:
+            raise AssertionError("viewer: /api/quit did not stop the server and the loop")
+        print(f"(b) viewer {vres}^2 restir_gi on {dev}: ms a viewer frame "
+              f"{[round(x, 3) for x in vms]} (median {statistics.median(vms[1:]):.3f}); picks "
+              f"equal the plain closest hit (B7 launched {pick_launches} times); camera, "
+              f"material and transform (refit) edits applied; reload of {len(reloaded)} "
+              "modules, no library rebuilt, the next frame equal to the frame without it; "
+              "quit stopped the server", flush=True)
+    finally:
+        viewer.stop()
+        server.shutdown()
+        server.server_close()
+        PRM.registry._params.clear()
+
+    # (f) the warm-up as a user runs it
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, "-m", "zetaray_tpu_torch.warmup"], capture_output=True,
+                       text=True, timeout=600)
+    if p.returncode != 0 or "warmup complete" not in p.stdout:
+        raise AssertionError(f"warmup exited {p.returncode}:\n{p.stdout[-2000:]}\n"
+                             f"{p.stderr[-3000:]}")
+    print(f"(f) python -m zetaray_tpu_torch.warmup: {time.perf_counter() - t0:.1f} s wall; "
+          + "; ".join(p.stdout.strip().splitlines()), flush=True)
+    print(f"host-side phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return host
 
 
 def main() -> int:
@@ -1803,6 +2193,10 @@ def main() -> int:
               f"{[round(x, 3) for x in twins[tag, 'ms']]} ms; {per_rank}", flush=True)
     del ranks, twins
 
+    # -- the host side: the app, picking, DDS textures, a checkpoint, the
+    # viewer and the warm-up
+    host = host_phase(dev, chain, show, kernels_of, big_cpu, seed, res)
+
     bounce_src = "zetaray_tpu_torch/csrc/bounce.cu"
     sources = {
         "gbuffer": ("zetaray_tpu_torch/csrc/gbuffer.cu", "zetaray_tpu/accel/megakernel.py:650"),
@@ -1845,6 +2239,7 @@ def main() -> int:
             "launches": launches_of[name], **rec_of[name], "library_ms": None,
             **({"registers": registers[name]} if name in registers else {}),
             **({"materials": mats} if mats else {}), **paths,
+            **({"host_side": host[name]} if name in host else {}),
         })
     print(json.dumps({"kernels": kernels}))
     print(card)

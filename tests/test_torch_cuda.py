@@ -938,3 +938,63 @@ def test_refit_to_a_pose_and_back_gives_the_rest_hits(cuda, tmp_path):
     assert (again[1] == tri_r).float().mean() >= 0.999
     same = (again[1] == tri_r) & (tri_r >= 0)
     torch.testing.assert_close(again[0][same], t_r[same], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["dense", "clustered", "cutout"])
+def test_card_pick_matches_cpu(cuda, tmp_path, kind):
+    """``render.picking.pick`` on the card (B7 on the box, B8 on its split
+    to 8193 triangles, the cutout re-trace on the cutout box) against the
+    same picks on the CPU: triangle, instance and material exact, t to
+    1e-5."""
+    from zetaray_tpu_torch.render.picking import pick
+    from zetaray_tpu_torch.scene.procedural import cutout_box
+
+    cpu_scene = cutout_box(tmp_path) if kind == "cutout" else cornell_box(
+        subdivide_to=8193 if kind == "clustered" else None)
+    cam = Camera.look_at(CAMERA_EYE, CAMERA_TARGET, vfov_deg=CAMERA_VFOV, aspect=1.0)
+    scenes = {dev: upload_scene(cpu_scene, device=dev) for dev in ("cpu", cuda)}
+    assert (scenes[cuda].cluster_aabb is not None) == (kind == "clustered")
+    counter = XI.closest_hit if kind != "clustered" else ST.stream_closest
+    hits = 0
+    for px, py in [(32, 32), (5, 40), (60, 3), (20, 22), (40, 22), (12, 50), (0, 0)]:
+        before = counter.launches
+        got = pick(scenes[cuda], cpu_scene, cam, px, py, 64, 64)
+        assert counter.launches > before
+        want = pick(scenes["cpu"], cpu_scene, cam, px, py, 64, 64)
+        assert (got.hit, got.tri, got.instance, got.material) == (
+            want.hit, want.tri, want.instance, want.material)
+        if got.hit:
+            hits += 1
+            assert got.t == pytest.approx(want.t, rel=1e-5)
+    assert hits >= 5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["bc1", "bc7"])
+def test_card_dds_textured_frame_matches_cpu(cuda, tmp_path, fmt):
+    """The flagship on the textured box with its checker as a BC1 or BC7
+    DDS file (decoded on the host by the BCn library), two chained 64^2
+    frames on the card against the CPU (99% of pixels)."""
+    from zetaray_tpu_torch.ops import prelighting as PL
+    from zetaray_tpu_torch.scene.procedural import textured_box
+    from zetaray_tpu_torch.scene.textures import load_scene_textures
+
+    cpu_scene = textured_box(tmp_path, base_format=fmt)
+    cfg = RenderConfig(width=64, height=64, mode="restir_gi", denoise=True, taa=True,
+                       pt=PTConfig(max_bounces=3))
+    cam = Camera.look_at(CAMERA_EYE, CAMERA_TARGET, vfov_deg=CAMERA_VFOV, aspect=1.0)
+    outs = {}
+    for dev in ("cpu", cuda):
+        scene = upload_scene(cpu_scene, device=dev)
+        tex = load_scene_textures(cpu_scene, device=dev)
+        scene = PL.apply_tri_powers(scene, *PL.estimate_tri_power(scene, tex))
+        state = None
+        for k in range(2):
+            out, state = render_frame_restir(scene, cam.with_jitter(k), SEED + k, cfg, state,
+                                             textures=tex)
+        outs[str(dev)] = out["hdr"].cpu()
+    got, want = outs[str(cuda)], outs["cpu"]
+    assert torch.isfinite(got).all() and got.mean() > 0
+    close = ((got - want).abs() <= 1e-3 * (1 + want.abs())).all(-1)
+    assert close.float().mean() >= 0.99

@@ -25,19 +25,24 @@ PyTorch on the same device. The loaders put scenes and rays on the card
 unless told otherwise (``native.default_device``).
 
 Package layout mirrors the JAX package:
-  core/    pcg4d, SoA vectors, packing, sampling, transforms
+  core/    pcg4d, SoA vectors, packing, sampling, transforms, SH
   scene/   host scene arrays, glTF loading and the packed vertex format,
            upload (with the alpha atlas of cutout materials), the animation
            rig, the device refit (B8/B9's walk tree included), instance
            edits, procedural Cornell boxes (one as an animated glTF file),
-           camera, textures
+           camera, textures (PNG and BC-compressed DDS), material packing
   accel/   G-buffer, occlusion, closest-hit and path bounce kernels, the
            alpha-cutout re-trace around the closest hits
   ops/     lights, shading, the path tracer, ReSTIR DI, GI and PT,
            packing, denoise, TAA, post
-  render/  the frames
-  utils/   the PNG reader and writer
-  profile  where a frame's time goes on the card
+  render/  the frames, picking, the frame graph
+  utils/   the PNG reader and writer, the log ring, params, frame stats,
+           validation, checkpoints
+  csrc/host/  the host's BCn texture decoder (g++, ``native.decode_bcn``)
+  gui/     the interactive viewer and its HTTP server
+  app      ``python -m zetaray_tpu_torch.app``: the JAX app's entry point
+  warmup   builds both libraries and renders each mode once
+  profile  where a frame's time goes on the card; ``time_passes``
   kernel_ab  B1 and B3-B9 against another commit's kernels on the card
   timing   CUDA-event medians and the card's name and power limit
 """

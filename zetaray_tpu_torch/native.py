@@ -11,6 +11,11 @@ Each C entry point launches on the stream it is given, allocates nothing,
 and returns ``cudaGetLastError()``; :func:`check` turns a non-zero code
 into an exception.
 
+The host's BCn texture decoder (``csrc/host/bcdec.cpp``, :func:`decode_bcn`)
+is a second, plain C++ library built with ``g++`` at its first use into the
+same ``_build/`` under a name hashed from its sources. It stays out of
+:func:`sources`, so that it never changes the CUDA library's hash.
+
 The row and column layouts the kernels index (``A``, ``EA``, ``G``,
 ``LSET_ROWS``, ``R_ROWS``, ``STATE_ROWS``, ``SURF_ROWS``), the bounce
 kernels' block size, pcg4d salts and path options block, the tree walks' stack limit and box
@@ -31,6 +36,7 @@ import tempfile
 import threading
 from pathlib import Path
 
+import numpy as np
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -77,6 +83,8 @@ _SIGNATURES = {
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
+_bcn_lib: ctypes.CDLL | None = None
+HOST_SRC = CSRC / "host"
 
 
 def _nvcc() -> str:
@@ -186,6 +194,21 @@ def lib() -> ctypes.CDLL:
         return _lib
 
 
+def reload_lib() -> bool:
+    """Where the kernels' library is loaded and its sources changed since
+    (``library_path`` names another file), build the library of the new
+    sources and load it in place of the old one. Returns whether it did;
+    where no library is loaded (no kernel has run) there is nothing to
+    swap."""
+    global _lib
+    with _lock:
+        if _lib is None or Path(_lib._name) == library_path():
+            return False
+        _lib = None
+    lib()
+    return True
+
+
 def default_device(device=None) -> torch.device:
     """The device a loader puts its tensors on: ``device`` where one is
     named, else the card. Without CUDA and without a named device it raises:
@@ -217,3 +240,83 @@ def require_cuda(t: torch.Tensor, name: str, dtype: torch.dtype, shape=None) -> 
         raise ValueError(f"{name}: expected a contiguous tensor")
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+
+
+# -- the host's BCn decoder --------------------------------------------------
+
+BCN_BLOCK_BYTES = {"BC1": 8, "BC2": 16, "BC3": 16, "BC4": 8, "BC5": 16,
+                   "BC7": 16, "BC6H": 16, "BC6H_SF": 16}
+_GXX_FLAGS = ["-O2", "-shared", "-fPIC"]
+
+
+def bcn_library_path() -> Path:
+    """The decoder library's path in ``_build/``, named by a hash of its
+    sources and flags."""
+    h = hashlib.sha256(" ".join(_GXX_FLAGS).encode())
+    for p in sorted(HOST_SRC.iterdir()):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return BUILD_DIR / f"libbcdec_{h.hexdigest()[:16]}.so"
+
+
+def build_bcn() -> Path:
+    """Compile ``csrc/host/bcdec.cpp`` with g++ unless a library for these
+    sources exists. A failed build raises."""
+    out = bcn_library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp_dir = Path(tempfile.mkdtemp(dir=BUILD_DIR))
+    try:
+        lib_tmp = tmp_dir / out.name
+        cmd = ["g++", *_GXX_FLAGS, "-o", str(lib_tmp), str(HOST_SRC / "bcdec.cpp")]
+        p = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if p.returncode != 0:
+            raise RuntimeError(f"g++ failed ({p.returncode}):\n{' '.join(cmd)}\n{p.stdout}")
+        os.replace(lib_tmp, out)
+    finally:
+        shutil.rmtree(tmp_dir, ignore_errors=True)
+    return out
+
+
+def bcn_lib() -> ctypes.CDLL:
+    """The loaded decoder library (built on first call)."""
+    global _bcn_lib
+    with _lock:
+        if _bcn_lib is None:
+            loaded = ctypes.CDLL(str(build_bcn()))
+            u8p = ctypes.POINTER(ctypes.c_uint8)
+            for fmt in ("bc1", "bc2", "bc3", "bc4", "bc5", "bc7"):
+                fn = getattr(loaded, f"{fmt}_decode")
+                fn.argtypes = [u8p, ctypes.c_int, ctypes.c_int, u8p]
+                fn.restype = None
+            loaded.bc6h_decode.argtypes = [u8p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                           ctypes.POINTER(ctypes.c_float)]
+            loaded.bc6h_decode.restype = None
+            _bcn_lib = loaded
+        return _bcn_lib
+
+
+def decode_bcn(fmt: str, data: bytes, width: int, height: int) -> np.ndarray:
+    """Decode one BCn mip level of ``width`` x ``height`` texels: BC1-BC5
+    and BC7 -> uint8 RGBA [H, W, 4]; BC6H and BC6H_SF (HDR) -> float32
+    RGBA [H, W, 4]. As the JAX package's ``native.decode_bcn``."""
+    fmt = fmt.upper()
+    if fmt not in BCN_BLOCK_BYTES:
+        raise NotImplementedError(f"BC format {fmt} not supported")
+    bw, bh = (width + 3) // 4, (height + 3) // 4
+    need = bw * bh * BCN_BLOCK_BYTES[fmt]
+    if len(data) < need:
+        raise ValueError(f"{fmt}: need {need} bytes, got {len(data)}")
+    src = np.frombuffer(data, np.uint8, count=need)
+    lib_ = bcn_lib()
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    if fmt.startswith("BC6H"):
+        out = np.empty(height * width * 4, np.float32)
+        lib_.bc6h_decode(src.ctypes.data_as(u8p), width, height, int(fmt == "BC6H_SF"),
+                         out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)))
+    else:
+        out = np.empty(height * width * 4, np.uint8)
+        getattr(lib_, f"{fmt.lower()}_decode")(src.ctypes.data_as(u8p), width, height,
+                                               out.ctypes.data_as(u8p))
+    return out.reshape(height, width, 4)

@@ -45,7 +45,7 @@ import torch
 from ..accel.intersect import intersect_closest_shaded, intersect_occluded
 from ..accel.megakernel import hit_material, trace_megakernel
 from ..core import vec3 as v3
-from ..core.rng import uniform4
+from ..core.rng import pcg4d_lanes, uniform4
 from ..core.vec3 import V3
 from ..scene.scene import A
 from . import lights as L
@@ -287,3 +287,29 @@ def trace_reference(scene, o, d, seed: int, cfg: PTConfig = PTConfig(),
 
     rad = v3.aos3(radiance)
     return (rad, sh0) if return_first_hit else rad
+
+
+SPP_SALT = 0x5350  # the third pcg4d counter of render_spp's sample seeds
+
+
+def _sample_seed(seed: int, i: int) -> int:
+    """The u32 frame seed of sample ``i`` of ``render_spp``: the first lane
+    of pcg4d(seed, i, SPP_SALT, 0). (The JAX function folds ``i`` into its
+    PRNG key, a stream the port's u32 seeds cannot give.)"""
+    lane = lambda v: torch.tensor([int(v) & 0xFFFFFFFF], dtype=torch.int64)
+    return int(pcg4d_lanes(lane(seed), lane(i), lane(SPP_SALT), lane(0))[0])
+
+
+def render_spp(scene, camera, width: int, height: int, seed: int, cfg: PTConfig = PTConfig(),
+               spp: int = 1) -> torch.Tensor:
+    """``spp`` path-traced samples a pixel of the camera's rays, averaged:
+    [H*W, 3] HDR on ``scene.device``. One sample takes the frame seed
+    ``seed``, as the JAX function takes its key; sample i of several
+    takes ``_sample_seed(seed, i)``."""
+    o, d = camera.generate_rays(width, height, device=scene.device)
+    if spp == 1:
+        return trace(scene, o, d, seed, cfg)
+    acc = torch.zeros((width * height, 3), dtype=torch.float32, device=scene.device)
+    for i in range(spp):
+        acc = acc + trace(scene, o, d, _sample_seed(seed, i), cfg)
+    return acc / spp

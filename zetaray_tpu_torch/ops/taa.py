@@ -1,6 +1,10 @@
-"""Temporal anti-aliasing, as the JAX package's ``ops/taa.py`` with its default
-settings: depth-dilated motion, Catmull-Rom history resample, 3x3
-neighbourhood clamp, blend 0.1. Planar [3, H, W] images.
+"""Temporal anti-aliasing and progressive accumulation, as the JAX package's
+``ops/taa.py``: depth-dilated motion, Catmull-Rom history resample (or the
+nearest history texel), 3x3 neighbourhood clamp and the blend, each set by
+``TAAConfig`` (the defaults are the frame's: every option on, blend 0.1).
+Planar [3, H, W] images; ``taa_resolve`` is the channel-last form and
+``accumulate`` the running average of a static camera. The frames take the
+defaults: ``RenderConfig`` has no TAA field, as in JAX.
 
 Row bands (``render.frame`` with ``shard``): ``taa_resolve_p`` takes the
 current planes extended by ``ext`` edge-clamped halo rows, so that the
@@ -12,10 +16,20 @@ band.) The resamplers clamp at the image's rows, then read the band.
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import torch
 import torch.nn.functional as F
 
-BLEND = 0.1  # weight of the current frame
+
+@dataclass(frozen=True)
+class TAAConfig:
+    blend: float = 0.1  # weight of the current frame
+    clamp: bool = True  # clamp the history to the current 3x3 neighbourhood
+    # Catmull-Rom history resample (TAA.hlsl); False fetches the nearest texel
+    catmull_rom: bool = True
+    # reproject by the closest-depth pixel of the 3x3 neighbourhood's motion
+    depth_dilate: bool = True
 
 
 def _pad_edge(img, before: int, after: int):
@@ -97,10 +111,13 @@ def _depth_dilated_motion(motion, depth, valid):
     return best_m
 
 
-def taa_resolve_p(curr, history, world_pos, valid, prev_cam, depth, row0: int = 0,
-                  height_full: int | None = None, hist_row0: int = 0, ext: int = 0):
-    """One TAA step: curr, history, world_pos [3, H, W]; valid, depth [H, W];
-    prev_cam the previous frame's camera. Returns the resolved colour.
+def taa_resolve_p(curr, history, world_pos, valid, prev_cam, depth=None, row0: int = 0,
+                  height_full: int | None = None, hist_row0: int = 0, ext: int = 0,
+                  cfg: TAAConfig = TAAConfig()):
+    """One TAA step: curr, history, world_pos [3, H, W]; valid [H, W];
+    prev_cam the previous frame's camera; depth [H, W], or None for no
+    depth dilation (as ``cfg.depth_dilate=False``). Returns the resolved
+    colour.
 
     Row bands of an image of ``height_full`` rows: curr, world_pos, valid and
     depth hold the band (``row0`` its first image row) and ``ext``
@@ -111,27 +128,51 @@ def taa_resolve_p(curr, history, world_pos, valid, prev_cam, depth, row0: int = 
     h = he - 2 * ext
     hf = he if height_full is None else height_full
     dev = curr.device
-    px, py, zfwd = prev_cam.project(world_pos.reshape(3, -1).T, w, hf)
-    xg = torch.arange(w, dtype=torch.float32, device=dev).repeat(he)
-    # a halo row beyond the image replicates the edge row: its own row there
-    yg = torch.clamp(torch.arange(he, dtype=torch.float32, device=dev) + (row0 - ext), 0.0,
-                     hf - 1.0).repeat_interleave(w)
-    m = torch.stack([(px - xg).reshape(he, w), (py - yg).reshape(he, w)], 0)
     inner = slice(ext, ext + h)
-    m = _depth_dilated_motion(m, depth, valid)[:, inner]
-    px = xg[: h * w] + m[0].reshape(-1)
-    py = yg.reshape(he, w)[inner].reshape(-1) + m[1].reshape(-1)
+    px, py, zfwd = prev_cam.project(world_pos.reshape(3, -1).T, w, hf)
+    if cfg.depth_dilate and depth is not None:
+        xg = torch.arange(w, dtype=torch.float32, device=dev).repeat(he)
+        # a halo row beyond the image replicates the edge row: its own row there
+        yg = torch.clamp(torch.arange(he, dtype=torch.float32, device=dev) + (row0 - ext), 0.0,
+                         hf - 1.0).repeat_interleave(w)
+        m = torch.stack([(px - xg).reshape(he, w), (py - yg).reshape(he, w)], 0)
+        m = _depth_dilated_motion(m, depth, valid)[:, inner]
+        px = xg[: h * w] + m[0].reshape(-1)
+        py = yg.reshape(he, w)[inner].reshape(-1) + m[1].reshape(-1)
+    else:
+        px, py = (x.reshape(he, w)[inner].reshape(-1) for x in (px, py))
     zfwd = zfwd.reshape(he, w)[inner].reshape(-1)
     inside = (
         (px >= -0.5) & (px <= w - 0.5) & (py >= -0.5) & (py <= hf - 0.5) & (zfwd > 0)
     )
     ry = torch.round(py)
+    hr = history.shape[1]
     inside = inside & (ry >= 0) & (ry <= hf - 1)
-    inside = inside & (ry >= hist_row0) & (ry <= hist_row0 + history.shape[1] - 1)
-    hist = catmull_rom_p(history, px, torch.clamp(py, 0.0, hf - 1.0), hist_row0,
-                         hf).reshape(3, h, w)
-    lo, hi = (x[:, inner] for x in _neighborhood_minmax_p(curr))
-    hist = torch.minimum(torch.maximum(hist, lo), hi)
+    inside = inside & (ry >= hist_row0) & (ry <= hist_row0 + hr - 1)
+    if cfg.catmull_rom:
+        hist = catmull_rom_p(history, px, torch.clamp(py, 0.0, hf - 1.0), hist_row0, hf)
+    else:
+        iy = torch.clamp(ry - hist_row0, 0, hr - 1).to(torch.int64)
+        ix = torch.clamp(torch.round(px), 0, w - 1).to(torch.int64)
+        hist = history.reshape(3, -1).index_select(1, iy * w + ix)
+    hist = hist.reshape(3, h, w)
+    if cfg.clamp:
+        lo, hi = (x[:, inner] for x in _neighborhood_minmax_p(curr))
+        hist = torch.minimum(torch.maximum(hist, lo), hi)
     curr = curr[:, inner]
     ok = (inside.reshape(h, w) & valid[inner])[None]
-    return torch.where(ok, BLEND * curr + (1.0 - BLEND) * hist, curr)
+    return torch.where(ok, cfg.blend * curr + (1.0 - cfg.blend) * hist, curr)
+
+
+def taa_resolve(curr, history, world_pos, valid, prev_cam, cfg: TAAConfig = TAAConfig()):
+    """Channel-last form: curr, history, world_pos [H, W, 3]; no depth, so no
+    dilation (as the JAX ``taa_resolve``). Returns [H, W, 3]."""
+    cl = lambda x: x.permute(2, 0, 1)
+    return taa_resolve_p(cl(curr), cl(history), cl(world_pos), valid, prev_cam,
+                         cfg=cfg).permute(1, 2, 0)
+
+
+def accumulate(curr, accum, frame_index):
+    """Progressive average: accum_n = (accum_{n-1} * n + curr) / (n + 1)."""
+    n = torch.as_tensor(frame_index, device=curr.device).to(torch.float32)
+    return (accum * n + curr) / (n + 1.0)

@@ -38,6 +38,13 @@ ReSTIR GI frame (max_bounces 2) and the ReSTIR PT frame (max_bounces 3) at
   median.
 
 It prints one JSON object and writes it to ``--out``. It needs a CUDA card.
+
+Two public functions serve the app and the viewer, as the JAX package's
+``render/profile.py`` does: ``time_passes(scene, camera, cfg)`` -> {pass:
+ms}, the per-pass medians above of a short chain on the scene's device
+(it synchronises only on a CUDA device), and ``trace_frame(trace_dir, fn,
+*args)``, which runs one call under ``torch.profiler`` and writes its
+Chrome trace into ``trace_dir``.
 """
 
 from __future__ import annotations
@@ -115,6 +122,13 @@ LAUNCHERS = {"B1": (MK, "gbuffer"), "B2": (RD, "initial_candidates"), "B3": (XI,
              "B4": (MK, "bounce_trace"), "B5": (MK, "bounce_shade"), "B6": (MK, "bounce"),
              "B7": (XI, "closest_hit"), "B8": (ST, "stream_closest"),
              "B9": (ST, "occlusion_stream")}
+
+
+def launch_counts() -> dict:
+    """{B1..B9: launches so far} as each kernel's wrapper counts them."""
+    return {tag: getattr(m, a).launches for tag, (m, a) in LAUNCHERS.items()}
+
+
 # the scenes of the paths, made in a directory for texture maps: the box, the
 # materials, textured and cutout boxes, and the box split past the dense limit
 SCENES = {"box": lambda _: cornell_box(), "materials": lambda _: materials_box(),
@@ -218,10 +232,17 @@ def _chain(scene, cam, cfg, frames, seed=0x2468ACE1, after=None, textures=None):
     return times
 
 
-def _passes(scene, cam, cfg, frames, textures=None):
+def _sync(device) -> None:
+    """Wait for the work queued on ``device``: a no-op on the CPU."""
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _passes(scene, cam, cfg, frames, textures=None, seed=0x2468ACE1):
     """Median ms per pass over frames 2 on, each stage synchronised."""
     spent = defaultdict(lambda: [0.0] * frames)
     frame_no, stack = [0], []
+    dev = scene.device
 
     def wrap(fn, name):
         @functools.wraps(fn)
@@ -229,12 +250,12 @@ def _passes(scene, cam, cfg, frames, textures=None):
             if stack and name not in NESTED:
                 return fn(*a, **kw)
             stack.append(name)
-            torch.cuda.synchronize()
+            _sync(dev)
             t = time.perf_counter()
             try:
                 return fn(*a, **kw)
             finally:
-                torch.cuda.synchronize()
+                _sync(dev)
                 ms = (time.perf_counter() - t) * 1e3
                 stack.pop()
                 spent[name][frame_no[0]] += ms
@@ -250,15 +271,50 @@ def _passes(scene, cam, cfg, frames, textures=None):
         for k in range(frames):
             frame_no[0] = k
             if cfg.mode == "pt":
-                F.render_frame(scene, cam.with_jitter(k), 0x2468ACE1 + k, cfg)
+                F.render_frame(scene, cam.with_jitter(k), seed + k, cfg)
             else:
-                _, state = F.render_frame_restir(scene, cam.with_jitter(k), 0x2468ACE1 + k, cfg,
+                _, state = F.render_frame_restir(scene, cam.with_jitter(k), seed + k, cfg,
                                                  state, textures=textures)
     finally:
         for m, a, fn in saved:
             setattr(m, a, fn)
     rows = {name: statistics.median(v[1:]) for name, v in spent.items()}
     return dict(sorted(rows.items(), key=lambda kv: -kv[1]))
+
+
+def time_passes(scene, camera, cfg, seed: int = 0x2468ACE1, reps: int = 10,
+                textures=None) -> dict:
+    """{pass: ms} of ``cfg``'s frame on ``scene.device``: ``reps`` + 1
+    chained frames from frame seed ``seed``, each stage function the frame
+    calls wrapped in the host clock (and, on a CUDA device, a synchronise
+    each side), the median per pass over all frames but the first (which
+    has no temporal reuse and no TAA), largest first. The synchronises add
+    their own cost, so the sum exceeds the frame's time."""
+    return _passes(scene, camera, cfg, reps + 1, textures=textures, seed=seed)
+
+
+def profiled(fn, *args, **kwargs):
+    """Run ``fn(*args, **kwargs)`` under ``torch.profiler`` (the CPU, and the
+    card where there is one), synchronising the card before the profile
+    closes. Returns (the profile, fn's result)."""
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=acts) as prof:
+        out = fn(*args, **kwargs)
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+    return prof, out
+
+
+def trace_frame(trace_dir: str, fn, *args, **kwargs):
+    """Run ``fn(*args, **kwargs)`` under ``profiled`` and write the trace
+    into ``trace_dir`` as ``trace.json`` (Chrome trace format: open it in
+    Perfetto). Returns fn's result."""
+    prof, out = profiled(fn, *args, **kwargs)
+    os.makedirs(trace_dir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(trace_dir, "trace.json"))
+    return out
 
 
 def _kernel_tag(name: str):
@@ -284,7 +340,7 @@ def _device(scene, cam, cfg, frame_ms, frames=3, textures=None):
 
     with torch.profiler.profile(activities=acts, schedule=sched) as prof:
         _chain(scene, cam, cfg, frames + 1, after=step, textures=textures)
-    counted = {tag: getattr(m, a).launches for tag, (m, a) in LAUNCHERS.items()}
+    counted = launch_counts()
     launches, copies, kernel_us, ours = 0, 0, 0.0, defaultdict(float)
     # each launch of a hand-written kernel, in launch order: the same kernel
     # serves several passes of a frame on inputs of different cost

@@ -26,7 +26,9 @@ and an emissive map of dark stripes on the light; the second a MASK-mode
 panel in front of the back wall, transparent on its left half (cutoff
 0.5). They are separate scenes because a cutout scene leaves the bounce
 kernels for the wavefront path trace, so it could not exercise the
-texture fetch between B4 and B5.
+texture fetch between B4 and B5. ``textured_box(..., base_format="bc1" or
+"bc7")`` writes its checker as a BC-compressed DDS file instead
+(``write_dds_solid``), for the BCn decoder's path.
 """
 
 from __future__ import annotations
@@ -291,9 +293,54 @@ def _write_maps(tex_dir, names, maps) -> list[str]:
     return paths
 
 
-def textured_box(tex_dir, subdivide_to: int | None = None) -> CpuScene:
+_DDS_DXGI_SRGB = {"BC1": 72, "BC7": 99}  # BC1_UNORM_SRGB, BC7_UNORM_SRGB
+
+
+def write_dds_solid(path, img: np.ndarray, fmt: str) -> Path:
+    """An sRGB DDS file (DX10 header, one level) of ``img`` [H, W, 3]
+    uint8, H and W multiples of 4, whose 4 x 4 blocks are each of one
+    colour, encoded as solid blocks: BC1 both endpoints the colour in
+    RGB565 (it decodes to the 565 colour expanded back to 8 bits), BC7 mode
+    6 both endpoints the colour with alpha 255 (mode 6 keeps one low bit
+    for the four channels, so each channel's low bit becomes alpha's 1: 128
+    decodes as 129). A block of two colours raises."""
+    h, w, _ = img.shape
+    if h % 4 or w % 4 or fmt not in _DDS_DXGI_SRGB:
+        raise ValueError(f"write_dds_solid: {fmt} of {h} x {w}")
+    blocks = img.reshape(h // 4, 4, w // 4, 4, 3).transpose(0, 2, 1, 3, 4).reshape(-1, 16, 3)
+    if (blocks != blocks[:, :1]).any():
+        raise ValueError("write_dds_solid: a 4 x 4 block holds two colours")
+    out = bytearray()
+    for r, g, b in blocks[:, 0].tolist():
+        if fmt == "BC1":
+            c = ((r * 31 + 127) // 255) << 11 | ((g * 63 + 127) // 255) << 5 | (b * 31 + 127) // 255
+            out += int(c).to_bytes(2, "little") * 2 + bytes(4)  # indices 0: color0
+        else:  # BC7 mode 6: bit 6 set, then 7-bit endpoints and the p-bits
+            bits = 1 << 6
+            pos = 7
+            for v in (r, g, b, 255):
+                bits |= ((v >> 1) | (v >> 1) << 7) << pos  # endpoints 0 and 1
+                pos += 14
+            bits |= 0b11 << pos  # p-bits 1: low bit 1 on both endpoints
+            out += int(bits).to_bytes(16, "little")  # indices 0: endpoint 0
+    hdr = bytearray(128)
+    hdr[0:4] = b"DDS "
+    hdr[4:20] = np.asarray([124, 0x1007, h, w], "<u4").tobytes()
+    hdr[28:32] = np.asarray([1], "<u4").tobytes()
+    hdr[76:80] = np.asarray([32], "<u4").tobytes()
+    hdr[84:88] = b"DX10"
+    dx10 = np.asarray([_DDS_DXGI_SRGB[fmt], 3, 0, 1, 0], "<u4").tobytes()
+    path = Path(path)
+    path.write_bytes(bytes(hdr) + dx10 + bytes(out))
+    return path
+
+
+def textured_box(tex_dir, subdivide_to: int | None = None,
+                 base_format: str = "png") -> CpuScene:
     """The box (``cornell_box(subdivide_to)``'s triangles) with textures,
-    its maps written as PNG files into ``tex_dir``: the floor and the back
+    its maps written as PNG files into ``tex_dir`` (the checker, with
+    ``base_format`` "bc1" or "bc7", as a DDS file of that format instead,
+    ``write_dds_solid``): the floor and the back
     wall on ``CHECKER`` (the walls' white under a checker base-colour map),
     the short block on ``BUMPY`` (white under a normal map), the tall block
     on ``MR_BLOCK`` (the glossy white, metallic and roughness factors 1,
@@ -311,8 +358,12 @@ def textured_box(tex_dir, subdivide_to: int | None = None) -> CpuScene:
         quads[k] = (quads[k][0], CHECKER)
     quads = [(q, MR_BLOCK if mat == GLOSSY else mat) for q, mat in quads]
     box = _box_scene(subdivide_to, ROOM, m, BUMPY, quads)
-    paths = _write_maps(tex_dir, ("checker.png", "normal.png", "mr.png", "emissive.png"),
-                        _tex_maps())
+    maps = _tex_maps()
+    paths = _write_maps(tex_dir, ("checker.png", "normal.png", "mr.png", "emissive.png"), maps)
+    if base_format != "png":
+        fmt = base_format.upper()
+        paths[TEX_CHECKER] = str(write_dds_solid(Path(tex_dir) / f"checker_{base_format}.dds",
+                                                 np.ascontiguousarray(maps[0], np.uint8), fmt))
     return dataclasses.replace(box, texture_paths=paths)
 
 

@@ -1,13 +1,15 @@
-"""Textures, as the JAX package's ``scene/textures.py``: PNG maps decoded on
-the host into linear-float RGBA mip chains, and their fetch on the device.
+"""Textures, as the JAX package's ``scene/textures.py``: DDS (BC1-BC7 and
+BC6H through the host's BCn decoder, ``native.decode_bcn``) and PNG maps
+decoded on the host into linear-float RGBA mip chains, and their fetch on
+the device.
 
-Host side: ``load_texture`` reads a PNG (through ``utils.png``) and builds
-its box-filtered mip chain (``build_mips``); ``load_scene_textures`` decodes
+Host side: ``load_texture`` reads a DDS file (``load_dds``: its own mips, or
+a box-filtered chain where it holds one level) or a PNG (through
+``utils.png``, then ``build_mips``); ``load_scene_textures`` decodes
 every map a scene's materials reference into the bundle
 ``{"base" | "normal" | "mr" | "emissive": {tex_index: [mips]}, "ids":
 {slot: int32 [M]}}`` (each slot's texture index per material, -1 for none),
-one decode per (path, colour space). DDS files need the BCn decoder, which
-is not ported yet (ROADMAP.md, A9: the host side): a ``.dds`` path raises.
+one decode per (path, colour space).
 
 Device side: ``sample_bilinear`` (wrap addressing) and ``sample_trilinear``
 (ray-cone mip level ``lam``), ``apply_texture_maps`` at the primary hits
@@ -28,6 +30,7 @@ JAX, so a pixel takes the same texture.
 
 from __future__ import annotations
 
+import struct
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -45,8 +48,62 @@ SLOTS = (
 )
 
 
+# DDS: the DXGI formats (DX10 header) and legacy fourccs of BC-compressed maps
+_DXGI_TO_BC = {
+    70: "BC1", 71: "BC1", 72: "BC1",
+    73: "BC2", 74: "BC2", 75: "BC2",
+    76: "BC3", 77: "BC3", 78: "BC3",
+    79: "BC4", 80: "BC4", 81: "BC4",
+    82: "BC5", 83: "BC5", 84: "BC5",
+    94: "BC6H", 95: "BC6H", 96: "BC6H_SF",
+    97: "BC7", 98: "BC7", 99: "BC7",
+}
+_DXGI_SRGB = {72, 75, 78, 99}
+_FOURCC_TO_BC = {b"DXT1": "BC1", b"DXT3": "BC2", b"DXT5": "BC3"}
+
+
 def _srgb_to_linear(rgb):
     return np.where(rgb <= 0.04045, rgb / 12.92, ((rgb + 0.055) / 1.055) ** 2.4)
+
+
+def load_dds(path, srgb: bool | None = None) -> list[np.ndarray]:
+    """A BC-compressed DDS file -> its float32 linear RGBA mips [[H, W, 4],
+    ...], every level the file holds. ``srgb``: decode the colour as sRGB
+    (True) or linear (False); None trusts the DXGI format (legacy fourcc
+    headers carry no colour space and read linear). BC6H decodes to float
+    HDR. An unsupported format raises ``NotImplementedError``."""
+    data = Path(path).read_bytes()
+    if data[:4] != b"DDS ":
+        raise ValueError(f"{path}: not a DDS file")
+    height, width = struct.unpack_from("<2I", data, 12)
+    (mip_count,) = struct.unpack_from("<I", data, 28)
+    fourcc = data[84:88]
+    off, fmt_srgb = 128, False
+    if fourcc == b"DX10":
+        (dxgi,) = struct.unpack_from("<I", data, 128)
+        off = 148
+        if dxgi not in _DXGI_TO_BC:
+            raise NotImplementedError(f"{path}: DDS DXGI format {dxgi} unsupported")
+        fmt, fmt_srgb = _DXGI_TO_BC[dxgi], dxgi in _DXGI_SRGB
+    elif fourcc in _FOURCC_TO_BC:
+        fmt = _FOURCC_TO_BC[fourcc]
+    else:
+        raise NotImplementedError(f"{path}: DDS fourcc {fourcc!r} unsupported")
+    srgb = fmt_srgb if srgb is None else srgb
+    mips = []
+    w, h = width, height
+    for _ in range(max(1, mip_count)):
+        # a level below the block size still takes one whole block
+        nbytes = ((w + 3) // 4) * ((h + 3) // 4) * native.BCN_BLOCK_BYTES[fmt]
+        raw = native.decode_bcn(fmt, data[off : off + nbytes], w, h)
+        img = raw.astype(np.float32) / 255.0 if raw.dtype == np.uint8 else raw
+        if srgb:
+            img = img.copy()
+            img[..., :3] = _srgb_to_linear(img[..., :3])
+        mips.append(img)
+        off += nbytes
+        w, h = max(1, w // 2), max(1, h // 2)
+    return mips
 
 
 def build_mips(img: np.ndarray, max_levels: int = 16) -> list[np.ndarray]:
@@ -63,19 +120,21 @@ def build_mips(img: np.ndarray, max_levels: int = 16) -> list[np.ndarray]:
 
 
 def load_texture(path, srgb: bool = True) -> list[np.ndarray] | None:
-    """A PNG file -> its float32 linear RGBA mips [[H, W, 4], ...], or None
-    where the file does not exist. ``srgb``: decode the colour as sRGB
-    (base colour, emissive); False for data maps (normal,
-    metallic-roughness). Any other format raises ``NotImplementedError``."""
+    """A DDS or PNG file -> its float32 linear RGBA mips [[H, W, 4], ...],
+    or None where the file does not exist. ``srgb``: decode the colour as
+    sRGB (base colour, emissive); False for data maps (normal,
+    metallic-roughness), which a DDS file then reads linear whatever its
+    format says. A DDS file of one level gets a box-filtered chain. Any
+    other format raises ``NotImplementedError``."""
     p = Path(path)
     if not p.exists():
         return None
     suffix = p.suffix.lower()
     if suffix == ".dds":
-        raise NotImplementedError(f"{p}: DDS textures need the BCn decoder, which is not "
-                                  "ported yet (ROADMAP.md, A9: the host side)")
+        mips = load_dds(p, srgb=None if srgb else False)
+        return build_mips(mips[0]) if len(mips) == 1 else mips
     if suffix != ".png":
-        raise NotImplementedError(f"{p}: only PNG textures are read")
+        raise NotImplementedError(f"{p}: only DDS and PNG textures are read")
     from ..utils.png import read_png
 
     img = read_png(str(p)).astype(np.float32) / 255.0
