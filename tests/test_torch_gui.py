@@ -177,7 +177,7 @@ def test_profile_endpoint(gui):
     viewer.render_one(7)  # runs time_passes (6 frames at 24^2) at the boundary
     times = json.loads(_get(port, "/api/pass_times")[1])
     assert "error" not in times
-    assert times["DI RIS (B2)"] > 0.0 and "G-buffer (B1; clustered B8)" in times
+    assert times["reuse:DI RIS (B2)"] > 0.0 and "frame:G-buffer (B8)" in times
 
 
 def test_material_editor_roundtrip(gui):

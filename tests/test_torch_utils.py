@@ -122,12 +122,11 @@ def test_frame_stats_and_kernel_timer():
     rep = fs.report().splitlines()
     assert rep[0].startswith(f"frame {TST.FrameStats.HISTORY + 5} |")
     assert rep[1] == f"  frame/k: {TST.FrameStats.HISTORY + 4}"
-    kt = TST.KernelTimer()
-    synced = []
-    with kt.span("cpu", sync=lambda: synced.append(1), device="cpu"):
-        torch.ones(64).sum()
-    assert synced == [1] and kt.spans["cpu"] >= 0.0
-    assert "cpu:" in kt.report()
+    with fs.frame():
+        with fs.span("post:cpu"):
+            torch.ones(64).sum()
+    assert fs.last.ms["post:cpu"] >= 0.0 and list(fs.frames) == [fs.last]
+    assert "  host/post:cpu: " in fs.report()
 
 
 def test_log_ring_levels_and_mirror(capsys):

@@ -36,13 +36,13 @@ Package layout mirrors the JAX package:
   ops/     lights, shading, the path tracer, ReSTIR DI, GI and PT,
            packing, denoise, TAA, post
   render/  the frames, picking, the frame graph
-  utils/   the PNG reader and writer, the log ring, params, frame stats,
+  utils/   the PNG reader and writer, the log ring, params, frame stats and spans,
            validation, checkpoints
   csrc/host/  the host's BCn texture decoder (g++, ``native.decode_bcn``)
   gui/     the interactive viewer and its HTTP server
   app      ``python -m zetaray_tpu_torch.app``: the JAX app's entry point
   warmup   builds both libraries and renders each mode once
-  profile  where a frame's time goes on the card; ``time_passes``
+  profile  ``time_passes`` (host ms per span), ``trace_frame``, ``launch_counts``
   kernel_ab  B1 and B3-B9 against another commit's kernels on the card
   timing   CUDA-event medians and the card's name and power limit
 """

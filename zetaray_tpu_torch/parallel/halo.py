@@ -28,7 +28,8 @@ either collective and the result copied back. A neighbour-only ring (NCCL's
 others in them and, where gloo stages CUDA tensors through the host, the
 seconds from the card's last queued work to the result's return to it (the
 card is synchronized before and after: the copies to the host wait for it
-anyway); NCCL's collectives run in the stream and are not timed here.
+anyway, and a profiled frame counts both as host syncs, ``utils.stats``);
+NCCL's collectives run in the stream and are not timed here.
 """
 
 from __future__ import annotations
@@ -38,6 +39,8 @@ from dataclasses import dataclass
 
 import torch
 import torch.distributed as dist
+
+from ..utils.stats import stats as frame_stats
 
 stats = {"bytes": 0, "calls": 0, "seconds": 0.0}
 
@@ -76,7 +79,7 @@ def _count(sent: torch.Tensor, ctx: ShardCtx, t0, device) -> None:
     """Count a collective of ``sent`` (one rank's part); with ``t0`` its
     host-staged time up to its result's arrival on ``device``."""
     if t0 is not None:
-        torch.cuda.synchronize(device)
+        frame_stats.synchronize(device)
         stats["seconds"] += time.perf_counter() - t0
     stats["bytes"] += sent.numel() * sent.element_size() * (ctx.n_shards - 1)
     stats["calls"] += 1
@@ -85,7 +88,7 @@ def _count(sent: torch.Tensor, ctx: ShardCtx, t0, device) -> None:
 def _start(x: torch.Tensor, staged: bool):
     if not staged:
         return None
-    torch.cuda.synchronize(x.device)
+    frame_stats.synchronize(x.device)
     return time.perf_counter()
 
 

@@ -86,6 +86,12 @@ options ``full_target`` and ``packed_reuse=False`` of the three ReSTIR
 configs act in their passes; the joint temporal gather runs only where
 every temporal pass it serves gathers packed.
 
+Each call is one frame of the span recorder ``utils.stats.stats``: every
+pass, and the code between passes that launches device work, runs inside
+a span ``<layer>:<pass>`` (layers ``frame``, ``reuse``, ``post``; a pass
+that ``rtbench/layers/*.json`` lists takes that file's label), and the
+call commits the frame's host ms per span, and under a profiler its syncs.
+
 The JAX frame's banded gathers (``band_rows``/``band_halo``) are a TPU
 workaround and have no counterpart here: the two fields are accepted and
 have no effect, and reuse gathers read the whole previous frame.
@@ -120,9 +126,12 @@ from ..ops.reservoir_pack import pack_di, pack_pt, unpack_di, unpack_pt
 from ..parallel import halo as HX
 from ..parallel.halo import ShardCtx
 from ..scene.camera import Camera
+from ..utils.stats import framed, stats
 
 
 MODES = ("pt", "restir_di", "restir_gi", "restir_pt")
+# the post chain's span (``rtbench/layers/post.json`` labels the pass so)
+POST_CHAIN = "post:exposure + tonemap + sRGB (RCAS after an upscale)"
 
 
 @dataclass(frozen=True)
@@ -274,10 +283,12 @@ def _sky_direct(scene, gb, sky) -> torch.Tensor:
 def _inscatter(scene, camera, gb, hdr, cfg: RenderConfig, row0: int = 0, height=None):
     """hdr [3, h, w] (a band from image row ``row0`` of a ``height``-row
     image) through the froxel grid of this frame's camera."""
-    froxels = VL.build_froxels(scene, camera, cfg.pt.sky, cfg.volumetrics)
+    with stats.span("frame:froxel build (B9)"):
+        froxels = VL.build_froxels(scene, camera, cfg.pt.sky, cfg.volumetrics)
     h, w = hdr.shape[1:]
-    return VL.apply_inscattering(hdr, gb, camera, froxels, cfg.volumetrics, w,
-                                 h if height is None else height, row0)
+    with stats.span("frame:froxel compositing"):
+        return VL.apply_inscattering(hdr, gb, camera, froxels, cfg.volumetrics, w,
+                                     h if height is None else height, row0)
 
 
 def _skydi(scene, gb, state, w, h, seed, cfg: RenderConfig, pos_prev, band):
@@ -342,6 +353,7 @@ class _Band:
         return fn(x, halo, self.shard, row_axis)
 
 
+@framed
 def render_frame(scene, camera: Camera, seed: int, cfg: RenderConfig):
     """One plain path-traced frame on ``scene.device``: {"hdr": [H, W, 3]
     float32, "ldr": [H, W, 3] uint8}. ``seed`` is the u32 frame seed. The
@@ -350,15 +362,21 @@ def render_frame(scene, camera: Camera, seed: int, cfg: RenderConfig):
     upscaler)."""
     cfg.check_ported()
     w, h = cfg.width, cfg.height
-    o, d = camera.generate_rays(w, h, _lens_u(camera, seed, w * h, scene.device),
-                                device=scene.device)
-    hdr = trace(scene, o, d, seed, cfg.pt, rows_out=True).reshape(3, h, w)
+    with stats.span("frame:camera rays"):
+        o, d = camera.generate_rays(w, h, _lens_u(camera, seed, w * h, scene.device),
+                                    device=scene.device)
+    with stats.span("frame:path trace (B8, B9)"):
+        hdr = trace(scene, o, d, seed, cfg.pt, rows_out=True).reshape(3, h, w)
     if cfg.volumetrics is not None and cfg.pt.sky is not None:
-        hdr = _inscatter(scene, camera, gbuffer(scene, o, d), hdr, cfg)
-    ldr = _postprocess(hdr, cfg)
+        with stats.span("frame:G-buffer (B8)"):
+            gb = gbuffer(scene, o, d)
+        hdr = _inscatter(scene, camera, gb, hdr, cfg)
+    with stats.span(POST_CHAIN):
+        ldr = _postprocess(hdr, cfg)
     return {"hdr": hdr.permute(1, 2, 0), "ldr": ldr.permute(1, 2, 0)}
 
 
+@framed
 def render_frame_restir(scene, camera: Camera, seed: int, cfg: RenderConfig,
                         state: FrameState | None, textures=None, motion=None, shard=None):
     """One frame on ``scene.device``: returns ({"hdr": [H, W, 3] float32,
@@ -374,23 +392,30 @@ def render_frame_restir(scene, camera: Camera, seed: int, cfg: RenderConfig,
     cfg.check_ported()
     w, h = cfg.render_size()
     dev = scene.device
-    band = _Band(shard, w, h, dev)
-    if shard is not None and cfg.render_scale != 1.0 and cfg.height % shard.n_shards:
-        raise ValueError(f"{cfg.height} display rows do not split into {shard.n_shards} bands")
-    h_loc, row0, pix0, pix = band.rows, band.row0, band.pix0, band.pix
-    lens = _lens_u(camera, seed, w * h, dev)  # drawn by global pixel id
-    if lens is not None:
-        lens = lens[pix0 : pix0 + h_loc * w]
-    o, d = camera.generate_rays(w, h, lens, device=dev, rows=(row0, h_loc))
+    with stats.span("frame:camera rays"):
+        band = _Band(shard, w, h, dev)
+        if shard is not None and cfg.render_scale != 1.0 and cfg.height % shard.n_shards:
+            raise ValueError(f"{cfg.height} display rows do not split into {shard.n_shards} bands")
+        h_loc, row0, pix0, pix = band.rows, band.row0, band.pix0, band.pix
+        lens = _lens_u(camera, seed, w * h, dev)  # drawn by global pixel id
+        if lens is not None:
+            lens = lens[pix0 : pix0 + h_loc * w]
+        o, d = camera.generate_rays(w, h, lens, device=dev, rows=(row0, h_loc))
     rt = pick_rt(h_loc * w)
 
-    gb = gbuffer(scene, o, d)
+    with stats.span("frame:G-buffer (B8)"):
+        gb = gbuffer(scene, o, d)
     spread = camera.pixel_spread_angle(h)
     tex = dict(textures=textures, spread_angle=spread)
     if textures:
-        gb = apply_textures_to_gbuffer(gb, textures, spread_angle=spread)
-    pos_prev = _prev_positions(gb, motion) if motion is not None else None
-    lsets = build_light_sets(scene, seed)
+        with stats.span("frame:G-buffer textures"):
+            gb = apply_textures_to_gbuffer(gb, textures, spread_angle=spread)
+    pos_prev = None
+    if motion is not None:
+        with stats.span("frame:motion"):
+            pos_prev = _prev_positions(gb, motion)
+    with stats.span("frame:light sets"):
+        lsets = build_light_sets(scene, seed)
     mat = dict(trans=scene.has_transmission, coat=scene.has_coat)
     pt_mode = cfg.mode == "restir_pt"
     ind_cfg = cfg.restir_pt if pt_mode else cfg.restir_gi
@@ -405,136 +430,185 @@ def render_frame_restir(scene, camera: Camera, seed: int, cfg: RenderConfig,
     if (shard is None and state is not None and cfg.indirect and cfg.restir.temporal
             and ind_cfg.temporal and cfg.restir.packed_reuse and ind_cfg.packed_reuse
             and cfg.mode in ("restir_gi", "restir_pt")):
-        idx, inside, depth_est = RD.reproject_prev(gb, state.camera_prev, w, h, pos_prev)
-        p_di, p_ind, p_g = RD.take_multi(
-            [pack_di(state.reservoirs), pack_ind(state.gi_reservoirs), state.gbuf], idx
-        )
-        pf_di = (unpack_di(p_di), p_g, inside, depth_est)
-        pf_ind = (unpack_ind(p_ind), p_g, inside, depth_est)
+        with stats.span("reuse:joint temporal gather"):
+            idx, inside, depth_est = RD.reproject_prev(gb, state.camera_prev, w, h, pos_prev)
+            p_di, p_ind, p_g = RD.take_multi(
+                [pack_di(state.reservoirs), pack_ind(state.gi_reservoirs), state.gbuf], idx
+            )
+            pf_di = (unpack_di(p_di), p_g, inside, depth_est)
+            pf_ind = (unpack_ind(p_ind), p_g, inside, depth_est)
 
-    res = RD.initial_candidates(gb, lsets, seed, rt=rt, pix0=pix0, **mat)
+    with stats.span("reuse:DI RIS (B2)"):
+        res = RD.initial_candidates(gb, lsets, seed, rt=rt, pix0=pix0, **mat)
     gi_lvg = cfg.mode == "restir_gi" and cfg.restir_gi.lvg and cfg.indirect
     lvg = None
     if cfg.restir.lvg_samples > 0 or gi_lvg:
-        lvg = PL.build_light_voxel_grid(scene, camera, seed, cfg.lvg_cfg)
+        with stats.span("frame:light voxel grid build"):
+            lvg = PL.build_light_voxel_grid(scene, camera, seed, cfg.lvg_cfg)
     if cfg.restir.lvg_samples > 0:
-        res = RD.lvg_merge(res, gb, camera, lvg, seed, cfg.restir, cfg.lvg_cfg, pix=pix, **mat)
-    prev_g = band.prev(state.gbuf) if state is not None else None
+        with stats.span("reuse:DI grid candidates"):
+            res = RD.lvg_merge(res, gb, camera, lvg, seed, cfg.restir, cfg.lvg_cfg, pix=pix,
+                               **mat)
+    prev_g = None
+    if state is not None:
+        with stats.span("frame:halo exchange"):
+            prev_g = band.prev(state.gbuf)
     if cfg.restir.temporal and state is not None:
-        res = RD.temporal_reuse(
-            res, band.prev(state.reservoirs), prev_g, gb, state.camera_prev, w, h, seed, cfg.restir,
-            pos_prev=pos_prev, prefetch=pf_di, **band.temporal(), **mat,
-        )
-    res = RD.visibility_reuse(scene, res, gb)
-    res_sp = RD.spatial_reuse(res, gb, w, h, seed, cfg.restir, pix=pix, ext=band.ext, **mat)
-    direct = RD.shade(scene, res_sp, gb, **mat)
+        with stats.span("reuse:DI temporal reuse"):
+            res = RD.temporal_reuse(
+                res, band.prev(state.reservoirs), prev_g, gb, state.camera_prev, w, h, seed,
+                cfg.restir, pos_prev=pos_prev, prefetch=pf_di, **band.temporal(), **mat,
+            )
+    with stats.span("reuse:DI visibility (B9)"):
+        res = RD.visibility_reuse(scene, res, gb)
+    with stats.span("reuse:DI spatial reuse"):
+        res_sp = RD.spatial_reuse(res, gb, w, h, seed, cfg.restir, pix=pix, ext=band.ext, **mat)
+    with stats.span("reuse:DI shade (B9)"):
+        direct = RD.shade(scene, res_sp, gb, **mat)
     # SkyDI: the GI and PT modes take the sky's direct light from reservoirs
     use_skydi = cfg.skydi and cfg.pt.sky is not None and cfg.mode in ("restir_gi", "restir_pt")
     sky_res = None
     if use_skydi:
-        sky_direct, sky_res = _skydi(scene, gb, state, w, h, seed, cfg, pos_prev, band)
-        direct = direct + sky_direct + _sky_background(gb, cfg.pt.sky)
+        with stats.span("frame:SkyDI (B9)"):
+            sky_direct, sky_res = _skydi(scene, gb, state, w, h, seed, cfg, pos_prev, band)
+        with stats.span("frame:compose"):
+            direct = direct + sky_direct + _sky_background(gb, cfg.pt.sky)
 
-    ind_res = torch.zeros_like(res)
+    ind_res = None  # without an indirect pass: zeros, made with the state
     pt_cfg = replace(cfg.pt, min_emissive_bounce=2, min_nee_bounce=1)
     temporal = ind_cfg.temporal and state is not None
     indirect = None
     reuse = dict(pix=pix, ext=band.ext, **mat)
     if cfg.indirect and pt_mode:
-        ind_res = RP.initial_samples(scene, gb, pt_cfg, seed, cfg.restir_pt, rt,
-                                     light_sets=lsets, pix0=pix0, **mat, **tex)
+        with stats.span("reuse:PT initial samples (B8, B9)"):
+            ind_res = RP.initial_samples(scene, gb, pt_cfg, seed, cfg.restir_pt, rt,
+                                         light_sets=lsets, pix0=pix0, **mat, **tex)
         if temporal:
-            ind_res = RP.temporal_reuse(
-                ind_res, band.prev(state.gi_reservoirs), prev_g, gb, state.camera_prev, w, h, seed,
-                cfg.restir_pt, scene=scene, pos_prev=pos_prev, prefetch=pf_ind,
-                **band.temporal(), **mat,
-            )
-        pt_sp = RP.spatial_reuse(ind_res, gb, w, h, seed, cfg.restir_pt, scene=scene, **reuse)
-        indirect = RP.shade(scene, pt_sp, gb, **mat)
+            with stats.span("reuse:PT temporal reuse (replay: B8)"):
+                ind_res = RP.temporal_reuse(
+                    ind_res, band.prev(state.gi_reservoirs), prev_g, gb, state.camera_prev, w,
+                    h, seed, cfg.restir_pt, scene=scene, pos_prev=pos_prev, prefetch=pf_ind,
+                    **band.temporal(), **mat,
+                )
+        with stats.span("reuse:PT spatial reuse (replay: B8)"):
+            pt_sp = RP.spatial_reuse(ind_res, gb, w, h, seed, cfg.restir_pt, scene=scene,
+                                     **reuse)
+        with stats.span("reuse:PT shade (B9)"):
+            indirect = RP.shade(scene, pt_sp, gb, **mat)
     elif cfg.indirect and cfg.mode == "restir_gi":
-        ind_res = RG.initial_samples(scene, gb, pt_cfg, seed, rt, light_sets=lsets,
-                                     lvg=lvg if gi_lvg else None, lvg_cam=camera,
-                                     lvg_cfg=cfg.lvg_cfg, full_target=cfg.restir_gi.full_target,
-                                     pix0=pix0, **mat, **tex)
+        with stats.span("reuse:GI initial samples (B8, B9)"):
+            ind_res = RG.initial_samples(scene, gb, pt_cfg, seed, rt, light_sets=lsets,
+                                         lvg=lvg if gi_lvg else None, lvg_cam=camera,
+                                         lvg_cfg=cfg.lvg_cfg,
+                                         full_target=cfg.restir_gi.full_target, pix0=pix0,
+                                         **mat, **tex)
         if temporal:
-            ind_res = RG.temporal_reuse(
-                ind_res, band.prev(state.gi_reservoirs), prev_g, gb, state.camera_prev, w, h, seed,
-                cfg.restir_gi, pos_prev=pos_prev, prefetch=pf_ind, **band.temporal(), **mat,
-            )
-        gi_sp = RG.spatial_reuse(ind_res, gb, w, h, seed, cfg.restir_gi, **reuse)
-        indirect = RG.shade(scene, gi_sp, gb, **mat)
+            with stats.span("reuse:GI temporal reuse"):
+                ind_res = RG.temporal_reuse(
+                    ind_res, band.prev(state.gi_reservoirs), prev_g, gb, state.camera_prev, w,
+                    h, seed, cfg.restir_gi, pos_prev=pos_prev, prefetch=pf_ind,
+                    **band.temporal(), **mat,
+                )
+        with stats.span("reuse:GI spatial reuse"):
+            gi_sp = RG.spatial_reuse(ind_res, gb, w, h, seed, cfg.restir_gi, **reuse)
+        with stats.span("reuse:GI shade (B9)"):
+            indirect = RG.shade(scene, gi_sp, gb, **mat)
     elif cfg.indirect:  # restir_di and pt: the camera rays path-traced past their first hit
-        indirect = trace(scene, o, d, seed, pt_cfg, rt=rt, rows_out=True, light_sets=lsets,
-                         pix0=pix0, **tex)
+        with stats.span("frame:path trace (B8, B9)"):
+            indirect = trace(scene, o, d, seed, pt_cfg, rt=rt, rows_out=True, light_sets=lsets,
+                             pix0=pix0, **tex)
+    sky = None
     if (cfg.indirect and cfg.mode in ("restir_gi", "restir_pt") and cfg.pt.sky is not None
             and not use_skydi):
-        direct = direct + _sky_direct(scene, gb, cfg.pt.sky)
-    hdr = (direct if indirect is None else direct + indirect).reshape(3, h_loc, w)
+        with stats.span("frame:sky background + primary sun NEE (B9)"):
+            sky = _sky_direct(scene, gb, cfg.pt.sky)
+    with stats.span("frame:compose"):
+        if sky is not None:
+            direct = direct + sky
+        hdr = (direct if indirect is None else direct + indirect).reshape(3, h_loc, w)
     if cfg.volumetrics is not None and cfg.pt.sky is not None:
         hdr = _inscatter(scene, camera, gb, hdr, cfg, row0, h)
 
-    normal_img = gb[G.NS : G.NS + 3].reshape(3, h_loc, w)
-    depth_img = gb[G.DEPTH].reshape(h_loc, w)
-    valid_img = (gb[G.VALID] > 0.5).reshape(h_loc, w)
+    with stats.span("post:guide images"):
+        normal_img = gb[G.NS : G.NS + 3].reshape(3, h_loc, w)
+        depth_img = gb[G.DEPTH].reshape(h_loc, w)
+        valid_img = (gb[G.VALID] > 0.5).reshape(h_loc, w)
+        pos_img = (gb[G.POS : G.POS + 3] if pos_prev is None else pos_prev.T).reshape(3, h_loc, w)
     if cfg.firefly_factor > 0.0:
-        if shard is None:
-            hdr = DN.firefly_filter_p(hdr, cfg.firefly_factor)
-        else:  # the 3x3 stencil on a circular 1-row halo
-            hdr = DN.firefly_filter_p(band.rows_ext(hdr, 1, 1), cfg.firefly_factor)[:, 1:-1]
+        with stats.span("post:firefly"):
+            if shard is None:
+                hdr = DN.firefly_filter_p(hdr, cfg.firefly_factor)
+            else:  # the 3x3 stencil on a circular 1-row halo
+                hdr = DN.firefly_filter_p(band.rows_ext(hdr, 1, 1), cfg.firefly_factor)[:, 1:-1]
     if cfg.denoise:
-        if shard is None:
-            hdr = DN.atrous_denoise_p(hdr, normal_img, depth_img, valid_img)
-        else:
-            hdr = _atrous_band(band, hdr, normal_img, depth_img, valid_img)
-    pos_img = (gb[G.POS : G.POS + 3] if pos_prev is None else pos_prev.T).reshape(3, h_loc, w)
+        with stats.span("post:a-trous"):
+            if shard is None:
+                hdr = DN.atrous_denoise_p(hdr, normal_img, depth_img, valid_img)
+            else:
+                hdr = _atrous_band(band, hdr, normal_img, depth_img, valid_img)
     lock = None
     rcas = None
     if cfg.render_scale != 1.0:
-        # the history, the last depth plane and the locks gate together
-        hist = state.history if (cfg.taa and state is not None) else None
-        prev_depth = None if hist is None else state.gbuf[TG.DEPTH].reshape(h_loc, w)
-        lock = None if hist is None else state.upscale_lock
-        args = (hdr, hist, pos_img, valid_img, depth_img)
-        rows = {}
-        if shard is not None:
-            # render-res stencils (bilinear, min/max, dilation) read 2 halo
-            # rows, the display-res history and locks the temporal halo;
-            # edge-clamped, as the whole image's resamplers clamp
-            hs, out_rows = 2, cfg.height // shard.n_shards
-            ext = lambda x, k, ax=0: None if x is None else band.rows_ext(x, k, ax, True)
-            args = (ext(hdr, hs, 1), ext(hist, band.halo, 1), ext(pos_img, hs, 1),
-                    ext(valid_img, hs), ext(depth_img, hs))
-            prev_depth, lock = ext(prev_depth, hs), ext(lock, band.halo)
-            rows = dict(out_row0=shard.rank * out_rows, out_rows=out_rows, lr_row0=row0 - hs,
-                        hr_full=h, hist_row0=shard.rank * out_rows - band.halo)
-        hdr, lock = UP.taau_resolve(
-            *args, state.camera_prev if state is not None else camera, camera.jitter,
-            cfg.width, cfg.height, cfg.upscale_cfg, prev_depth_lr=prev_depth, lock=lock, **rows,
-        )
+        with stats.span("post:TAAU (temporal upscaler)"):
+            # the history, the last depth plane and the locks gate together
+            hist = state.history if (cfg.taa and state is not None) else None
+            prev_depth = None if hist is None else state.gbuf[TG.DEPTH].reshape(h_loc, w)
+            lock = None if hist is None else state.upscale_lock
+            args = (hdr, hist, pos_img, valid_img, depth_img)
+            rows = {}
+            if shard is not None:
+                # render-res stencils (bilinear, min/max, dilation) read 2 halo
+                # rows, the display-res history and locks the temporal halo;
+                # edge-clamped, as the whole image's resamplers clamp
+                hs, out_rows = 2, cfg.height // shard.n_shards
+                ext = lambda x, k, ax=0: None if x is None else band.rows_ext(x, k, ax, True)
+                args = (ext(hdr, hs, 1), ext(hist, band.halo, 1), ext(pos_img, hs, 1),
+                        ext(valid_img, hs), ext(depth_img, hs))
+                prev_depth, lock = ext(prev_depth, hs), ext(lock, band.halo)
+                rows = dict(out_row0=shard.rank * out_rows, out_rows=out_rows, lr_row0=row0 - hs,
+                            hr_full=h, hist_row0=shard.rank * out_rows - band.halo)
+            hdr, lock = UP.taau_resolve(
+                *args, state.camera_prev if state is not None else camera, camera.jitter,
+                cfg.width, cfg.height, cfg.upscale_cfg, prev_depth_lr=prev_depth, lock=lock,
+                **rows,
+            )
         if cfg.upscale_cfg.rcas_sharpness > 0.0:
-            rcas = lambda ldr: UP.rcas_p(ldr, cfg.upscale_cfg.rcas_sharpness)
-            if shard is not None:  # the cross stencil on an edge-clamped 1-row halo
-                sharpen = rcas
-                rcas = lambda ldr: sharpen(band.rows_ext(ldr, 1, 1, True))[:, 1:-1]
+            rcas = lambda ldr: _rcas(ldr, cfg.upscale_cfg.rcas_sharpness, band)
     elif cfg.taa and state is not None:
-        if shard is None:
-            hdr = TA.taa_resolve_p(hdr, state.history, pos_img, valid_img, state.camera_prev,
-                                   depth_img)
-        else:
-            # edge-clamped halos: one row for the dilation and the clamp,
-            # the temporal halo of the history
-            ext = lambda x, k, ax=0: band.rows_ext(x, k, ax, True)
-            hdr = TA.taa_resolve_p(ext(hdr, 1, 1), ext(state.history, band.halo, 1),
-                                   ext(pos_img, 1, 1), ext(valid_img, 1), state.camera_prev,
-                                   ext(depth_img, 1), row0=row0, height_full=h,
-                                   hist_row0=row0 - band.halo, ext=1)
+        with stats.span("post:TAA"):
+            if shard is None:
+                hdr = TA.taa_resolve_p(hdr, state.history, pos_img, valid_img, state.camera_prev,
+                                       depth_img)
+            else:
+                # edge-clamped halos: one row for the dilation and the clamp,
+                # the temporal halo of the history
+                ext = lambda x, k, ax=0: band.rows_ext(x, k, ax, True)
+                hdr = TA.taa_resolve_p(ext(hdr, 1, 1), ext(state.history, band.halo, 1),
+                                       ext(pos_img, 1, 1), ext(valid_img, 1), state.camera_prev,
+                                       ext(depth_img, 1), row0=row0, height_full=h,
+                                       hist_row0=row0 - band.halo, ext=1)
 
-    ldr = _postprocess(hdr, cfg, rcas, shard)
-    new_state = FrameState(
-        reservoirs=res, gi_reservoirs=ind_res, gbuf=pack_temporal(gb),
-        camera_prev=camera, history=hdr, sky_reservoirs=sky_res, upscale_lock=lock,
-    )
+    with stats.span(POST_CHAIN):
+        ldr = _postprocess(hdr, cfg, rcas, shard)
+    with stats.span("frame:FrameState packing"):
+        if ind_res is None:
+            ind_res = torch.zeros_like(res)
+        with stats.span("frame:pack temporal G-buffer"):
+            gbuf = pack_temporal(gb)
+        new_state = FrameState(
+            reservoirs=res, gi_reservoirs=ind_res, gbuf=gbuf,
+            camera_prev=camera, history=hdr, sky_reservoirs=sky_res, upscale_lock=lock,
+        )
     return {"hdr": hdr.permute(1, 2, 0), "ldr": ldr.permute(1, 2, 0)}, new_state
+
+
+def _rcas(ldr, sharpness: float, band: _Band):
+    """RCAS after an upscale; on a row band, the cross stencil on an
+    edge-clamped 1-row halo."""
+    with stats.span("post:RCAS"):
+        if band.shard is None:
+            return UP.rcas_p(ldr, sharpness)
+        return UP.rcas_p(band.rows_ext(ldr, 1, 1, True), sharpness)[:, 1:-1]
 
 
 def _atrous_band(band: _Band, hdr, normal, depth, valid, cfg: DN.ATrousConfig = DN.ATrousConfig()):

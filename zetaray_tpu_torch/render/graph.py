@@ -164,9 +164,11 @@ def dump_launches(fn, *args, **kwargs) -> str:
     on_device = [e for e in prof.events()
                  if e.device_type == torch.autograd.DeviceType.CUDA]
     kind = "device kernels"
-    if not on_device:  # the CPU: the top-level operators
+    if not on_device:  # the CPU: the top-level operators, under the frame's spans
         kind = "operators"
-        on_device = [e for e in prof.events() if e.cpu_parent is None]
+        span = lambda e: e is not None and e.name.startswith("zr.")
+        on_device = [e for e in prof.events()
+                     if not span(e) and (e.cpu_parent is None or span(e.cpu_parent))]
     events = sorted(on_device, key=lambda e: e.time_range.start)
     runs: list[list] = []
     for e in events:

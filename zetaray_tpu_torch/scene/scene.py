@@ -31,6 +31,7 @@ import torch
 from .. import native
 from ..core import transforms as T
 from ..core.sampling import build_alias_table
+from ..utils.stats import spanned
 from .gltf import GltfDoc, GltfMaterial, load_gltf
 from .light_build import emissive_powers
 
@@ -157,6 +158,7 @@ def _flatten_prim(world, nrm_m, inst_idx, prim):
             np.full(idx.shape[0], mid, np.int32), np.full(idx.shape[0], inst_idx, np.int32))
 
 
+@spanned("setup:load_scene")
 def load_scene(path, workers: int = 4) -> CpuScene:
     """A glTF file (or an already parsed ``GltfDoc``, as when an
     ``AnimationRig`` is built from the same document) -> the flattened
@@ -638,6 +640,7 @@ def with_cluster_tree(scene: SceneBuffers, tree: dict) -> SceneBuffers:
     return replace(scene, **ints, **tables)
 
 
+@spanned("setup:upload_scene")
 def upload_scene(cpu: CpuScene, device=None, cluster_size: int | None = None) -> SceneBuffers:
     """CpuScene -> SceneBuffers on ``device``. The default is the card;
     without CUDA it raises unless ``device="cpu"`` is named.

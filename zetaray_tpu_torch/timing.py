@@ -1,4 +1,4 @@
-"""Timing on the card, shared by ``chip_smoke.py``, ``profile`` and
+"""Timing on the card, shared by ``chip_smoke.py`` and
 ``kernel_ab``: the card's name and power limit, and CUDA-event medians."""
 
 from __future__ import annotations
