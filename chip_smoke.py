@@ -31,6 +31,9 @@ Phases (any failure exits non-zero):
      closest hit with attributes
      (B7) on ReSTIR PT prefix rays built as its initial samples build them;
      B7 also on 1024^2 camera rays, as the primary-rays rate of bench.py.
+     The a-trous pass (csrc/atrous.cu) on a GI frame of the box at
+     1920x1080 with its G-buffer's guides: the four passes bit-equal to the
+     plain passes, their ms, bound, launches and registers.
      On the textured box (procedural.textured_box: its PNG maps written
      into TEX_DIR, the bundle after the emissive power round trip) B4 and
      B5 on the GI bounce-0 rays of its textured G-buffer with the
@@ -234,6 +237,17 @@ SKY_OPS = 62
 SUN = (0.2, 0.45, 0.87)  # toward the sun: it shines in through the box's opening at +z
 BENCH_FEATURES_SUN = (0.3, 0.8, 0.2)  # bench.py's features frame
 FIREFLY_CLAMP = 10.0
+# float operations of one a-trous tap (csrc/atrous.cu, a transcendental
+# counted as one): the tap's luminance 5; its difference, abs, negation and
+# scale 4; expf 1; the normal dot 5; clamp 1; powf 1; the depth difference,
+# abs, negation and division 4; expf 1; the weight's 5 products; the colour
+# and weight sums 7
+ATROUS_TAP_OPS = 34
+# a pixel's own: its luminance 5, the depth clamp and scale 2, two compares,
+# the weight sum's clamp and three divisions
+ATROUS_PIXEL_OPS = 13
+# read once a pass: colour, normal, depth, the validity's bool byte; written: colour
+ATROUS_PIXEL_BYTES = 12 + 12 + 4 + 1 + 12
 
 
 def bound(ops: float, nbytes: float):
@@ -415,35 +429,106 @@ def device_launches(fn, top: int = 4):
             [(ev.key[:60], ev.count, ev.self_device_time_total / 1e3) for ev in evs[:top]])
 
 
-def bounce_registers() -> dict:
-    """What ``nvcc -Xptxas -v`` reports for each instance of B4-B6:
-    {"bounce_trace" | "bounce_shade" | "bounce": {instance: text}}, the
-    instances named by their compile-time branches (B4 sky, B5 sun_nee,
-    wops and mat, B6 sky, sun_nee, wops and mat, joined by "_"; "" for
-    none)."""
-    from zetaray_tpu_torch import kernel_ab, native
-
-    names = {"bounce_trace_kernel": ("bounce_trace", ("sky",)),
-             "bounce_shade_kernel": ("bounce_shade", ("sun_nee", "wops", "mat")),
-             "bounce_kernel": ("bounce", ("sky", "sun_nee", "wops", "mat"))}
-    out = {v[0]: {} for v in names.values()}
-    key = spill = None
-    for line in kernel_ab.ptxas_report(native).splitlines():
-        m = re.search(r"Compiling entry function '\w*?\d+(bounce\w*_kernel)I((?:Lb[01]E)+)E", line)
+def ptxas_registers(report: str) -> dict:
+    """{mangled kernel name: "<n> registers, <spill stores> B spill stores,
+    <loads> B loads"} from what ``nvcc -Xptxas -v`` reports (``report``:
+    ``kernel_ab.ptxas_report``)."""
+    out, key, spill = {}, None, None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            kernel, branches = names[m.group(1)]
-            flags = re.findall(r"Lb([01])E", m.group(2))
-            key = (kernel, "_".join(b for b, f in zip(branches, flags) if f == "1"))
-            spill = None
+            key, spill = m.group(1), None
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m and key:
             spill = f"{m.group(1)} B spill stores, {m.group(2)} B loads"
         m = re.search(r"Used (\d+) registers", line)
         if m and key:
-            out[key[0]][key[1]] = f"{m.group(1)} registers, {spill}"
+            out[key] = f"{m.group(1)} registers, {spill}"
             key = None
     return out
+
+
+def bounce_registers(report: str) -> dict:
+    """``ptxas_registers(report)`` of each instance of B4-B6:
+    {"bounce_trace" | "bounce_shade" | "bounce": {instance: text}}, the
+    instances named by their compile-time branches (B4 sky, B5 sun_nee,
+    wops and mat, B6 sky, sun_nee, wops and mat, joined by "_"; "" for
+    none)."""
+    names = {"bounce_trace_kernel": ("bounce_trace", ("sky",)),
+             "bounce_shade_kernel": ("bounce_shade", ("sun_nee", "wops", "mat")),
+             "bounce_kernel": ("bounce", ("sky", "sun_nee", "wops", "mat"))}
+    out = {v[0]: {} for v in names.values()}
+    for entry, text in ptxas_registers(report).items():
+        m = re.search(r"\d+(bounce\w*_kernel)I((?:Lb[01]E)+)E", entry)
+        if m:
+            kernel, branches = names[m.group(1)]
+            flags = re.findall(r"Lb([01])E", m.group(2))
+            out[kernel]["_".join(b for b, f in zip(branches, flags) if f == "1")] = text
+    return out
+
+
+def atrous_record(dev, report: str, seed: int = 0x2468ACE1) -> dict:
+    """Phase 3's a-trous row: the four passes of ``ops.denoise.atrous_denoise_p``
+    (``csrc/atrous.cu``, a launch each) on a GI frame of the box at 1920x1080
+    (denoise and TAA off) with its G-buffer's normals, depth and validity
+    as guides, against the plain passes on the card, bit for bit or it
+    raises. Returns the four passes' ms and the plain ones' (CUDA events),
+    their bound, the launches of each on the card as the profiler counts
+    them (``device_launches``: the plain chain against the kernel's) and
+    the kernel's registers (``report``: ``kernel_ab.ptxas_report``). The
+    launches of the main path are counted by its chains."""
+    from zetaray_tpu_torch.accel import megakernel as MK
+    from zetaray_tpu_torch.kernel_ab import bits_equal
+    from zetaray_tpu_torch.ops import denoise as DN
+    from zetaray_tpu_torch.ops.pathtracer import PTConfig
+    from zetaray_tpu_torch.render.frame import RenderConfig, render_frame_restir
+    from zetaray_tpu_torch.scene.camera import Camera
+    from zetaray_tpu_torch.scene.procedural import (
+        CAMERA_EYE, CAMERA_TARGET, CAMERA_VFOV, cornell_box,
+    )
+    from zetaray_tpu_torch.scene.scene import upload_scene
+    from zetaray_tpu_torch.timing import cuda_ms
+
+    w, h = 1920, 1080
+    scene = upload_scene(cornell_box(), device=dev)
+    cam = Camera.look_at(CAMERA_EYE, CAMERA_TARGET, vfov_deg=CAMERA_VFOV, aspect=w / h)
+    frame, _ = render_frame_restir(scene, cam, seed, RenderConfig(
+        width=w, height=h, mode="restir_gi", pt=PTConfig(max_bounces=3), denoise=False,
+        taa=False), None)
+    gb = MK.gbuffer(scene, *cam.generate_rays(w, h, device=dev))
+    img = frame["hdr"].permute(2, 0, 1).contiguous()
+    nrm = gb[MK.G.NS : MK.G.NS + 3].reshape(3, h, w)
+    depth, valid = gb[MK.G.DEPTH].reshape(h, w), (gb[MK.G.VALID] > 0.5).reshape(h, w)
+    cfg = DN.ATrousConfig()
+
+    def kernel():
+        return DN.atrous_denoise_p(img, nrm, depth, valid, cfg)
+
+    def plain():
+        return DN.atrous_denoise_plain(img, nrm, depth, valid, cfg)
+
+    got, want = kernel(), plain()
+    if not bits_equal(got, want):
+        diff = (got - want).abs().nan_to_num(nan=float("inf")).max().item()
+        raise AssertionError(f"atrous 1920x1080: max abs err {diff} against the plain passes")
+    n = w * h
+    b_ms, b_by = bound(cfg.iterations * n * (25 * ATROUS_TAP_OPS + ATROUS_PIXEL_OPS),
+                       cfg.iterations * n * ATROUS_PIXEL_BYTES)
+    rec = dict(max_abs_err=0.0, ms=cuda_ms(kernel, reps=20),
+               plain_ms=cuda_ms(plain, reps=3, warmup=1), bound_ms=b_ms, bound_by=b_by,
+               profiled_launches=device_launches(kernel)[0],
+               plain_launches=device_launches(plain)[0],
+               registers=next(t for e, t in ptxas_registers(report).items()
+                              if "atrous_pass_kernel" in e),
+               valid_share=valid.float().mean().item())
+    print(f"atrous (1920x1080, {cfg.iterations} passes, {rec['valid_share']:.4f} valid): "
+          f"{rec['ms']:.4f} ms, {rec['ms'] / cfg.iterations:.4f} a pass (plain "
+          f"{rec['plain_ms']:.3f}, bound {b_ms:.4f} by {b_by}), profiled launches "
+          f"{rec['profiled_launches']} "
+          f"(plain {rec['plain_launches']}), registers {rec['registers']}, bit-equal to the "
+          f"plain passes", flush=True)
+    return rec
 
 
 def write_png(path: str, img) -> None:
@@ -486,6 +571,7 @@ def sharded_rank(rank: int, world: int, init_method: str, backend: str, specs, s
     from zetaray_tpu_torch import native
     from zetaray_tpu_torch.accel import intersect as XI
     from zetaray_tpu_torch.accel import megakernel as MK
+    from zetaray_tpu_torch.ops import denoise as DN
     from zetaray_tpu_torch.ops import restir_di as RD
     from zetaray_tpu_torch.parallel import halo as HX
     from zetaray_tpu_torch.parallel import mesh as PM
@@ -498,7 +584,8 @@ def sharded_rank(rank: int, world: int, init_method: str, backend: str, specs, s
     scene = upload_scene(cornell_box(), device=dev)
     kernels_of = {"gbuffer": MK.gbuffer, "ris": RD.initial_candidates, "occlusion": XI.occlusion,
                   "bounce_trace": MK.bounce_trace, "bounce_shade": MK.bounce_shade,
-                  "bounce": MK.bounce, "closest": XI.closest_hit}
+                  "bounce": MK.bounce, "closest": XI.closest_hit,
+                  "atrous": DN.atrous_iteration_p}
     out = {}
     for tag, cfg, frames in specs:
         for fn in kernels_of.values():
@@ -898,6 +985,7 @@ def main() -> int:
     from zetaray_tpu_torch.accel import megakernel as MK
     from zetaray_tpu_torch.accel import stream as ST
     from zetaray_tpu_torch.accel.bvh import LEAF_SIZE
+    from zetaray_tpu_torch.ops import denoise as DN
     from zetaray_tpu_torch.ops import prelighting as PL
     from zetaray_tpu_torch.ops import restir_di as RD
     from zetaray_tpu_torch.ops import skydi as SD
@@ -937,7 +1025,10 @@ def main() -> int:
     lib_path = native.build()
     native.lib()
     print(f"build: {time.perf_counter() - t0:.1f} s -> {os.path.relpath(lib_path)}", flush=True)
-    registers = bounce_registers()
+    from zetaray_tpu_torch import kernel_ab
+
+    report = kernel_ab.ptxas_report(native)
+    registers = bounce_registers(report)
     print(f"registers of B4-B6 by their compile-time branches: {registers}", flush=True)
 
     # -- phase 3: each kernel against its plain version at the frame's shapes
@@ -1262,6 +1353,10 @@ def main() -> int:
         del ms, gk_m, o2m, d2m, st0m
         torch.cuda.empty_cache()
 
+    # a-trous at 1920x1080, the size both benchmark cells denoise
+    record["atrous1080p"] = atrous_record(dev, report, seed)
+    torch.cuda.empty_cache()
+
     # -- phase 3 on the textured box (after the emissive power round trip, as
     # the JAX app does it): B4 and B5 on the GI bounce-0 rays of its textured
     # G-buffer with the base-colour fetch between them, each held against its
@@ -1540,7 +1635,7 @@ def main() -> int:
         "gbuffer": MK.gbuffer, "ris": RD.initial_candidates, "occlusion": XI.occlusion,
         "bounce_trace": MK.bounce_trace, "bounce_shade": MK.bounce_shade, "bounce": MK.bounce,
         "closest": XI.closest_hit, "stream_closest": ST.stream_closest,
-        "occlusion_stream": ST.occlusion_stream,
+        "occlusion_stream": ST.occlusion_stream, "atrous": DN.atrous_iteration_p,
     }
     di_kernels = ("gbuffer", "ris", "occlusion")
     dense_kernels = ("gbuffer", "occlusion", "bounce_trace", "bounce_shade", "bounce", "closest")
@@ -1550,11 +1645,16 @@ def main() -> int:
         """Render chained frames on ``sc`` (default: the box), with the
         texture bundle ``textures``, the launch counts set to 0 just before
         and read just after; the kernels of ``expect`` must have launched,
-        those of ``absent`` not. ``animate``: ``sc`` is the animated box's
+        those of ``absent`` not, and a-trous exactly when the frames
+        denoise. ``animate``: ``sc`` is the animated box's
         upload, refit each frame to the rig's time ANIM_DT * k and rendered
         with the motion from the frame before (the refit inside the frame's
         time). Returns (last output, each frame's ms, counts)."""
         sc = scene if sc is None else sc
+        if restir and cfg_.denoise:
+            expect = (*expect, "atrous")
+        else:
+            absent = (*absent, "atrous")
         for fn in kernels_of.values():
             fn.launches = 0
         state, times, sc_k, motion = None, [], sc, None
@@ -2173,7 +2273,7 @@ def main() -> int:
             if not (err <= 1e-5 + 3e-3 * want.abs()).all():
                 raise AssertionError(f"sharded {tag} frame {k}: max abs err "
                                      f"{err.max().item()} beyond rtol 3e-3, atol 1e-5")
-        for name in shard_expect[tag]:
+        for name in shard_expect[tag] + (("atrous",) if cfg_.denoise else ()):
             if min(r[tag]["counts"][name] for r in ranks) <= 0:
                 raise AssertionError(f"sharded {tag}: a rank did not launch {name}")
         for name in kernels_of:
@@ -2241,6 +2341,17 @@ def main() -> int:
             **({"materials": mats} if mats else {}), **paths,
             **({"host_side": host[name]} if name in host else {}),
         })
+    # a-trous replaces no TPU kernel: the JAX package's a-trous is XLA-side.
+    # Its launches are the flagship chain's; the denoised 1920x1080, ReSTIR
+    # PT and sharded chains', and the host side's, beside them
+    kernels.append({"name": "atrous", "route": "cuda",
+                    "source": "zetaray_tpu_torch/csrc/atrous.cu", "replaces": None,
+                    "launches": launches["atrous"], **record["atrous1080p"],
+                    "library_ms": None, "flagship1080p": {"launches": counts_hd["atrous"]},
+                    "restir_pt": {"launches": launches_pt["atrous"]},
+                    **({"sharded": {"launches": shard_launches["atrous"]}}
+                       if "atrous" in shard_launches else {}),
+                    **({"host_side": host["atrous"]} if "atrous" in host else {})})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

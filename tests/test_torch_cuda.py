@@ -9,14 +9,18 @@ of JAX, so they also run where JAX is not installed:
 import pytest
 import torch
 
+from zetaray_tpu_torch import native
 from zetaray_tpu_torch.accel import bvh as TB
 from zetaray_tpu_torch.accel import intersect as XI
 from zetaray_tpu_torch.accel import megakernel as MK
 from zetaray_tpu_torch.accel import stream as ST
+from zetaray_tpu_torch.kernel_ab import bits_equal
+from zetaray_tpu_torch.ops import denoise as DN
 from zetaray_tpu_torch.ops import restir_di as RD
 from zetaray_tpu_torch.ops.pathtracer import PTConfig
 from zetaray_tpu_torch.ops.restir_gi import secondary_rays
 from zetaray_tpu_torch.ops.sky import SkyParams
+from zetaray_tpu_torch.parallel.mesh import run_ranks
 from zetaray_tpu_torch.render.frame import RenderConfig, pick_rt, render_frame, render_frame_restir
 from zetaray_tpu_torch.scene.camera import Camera
 from zetaray_tpu_torch.scene.procedural import (
@@ -998,3 +1002,147 @@ def test_card_dds_textured_frame_matches_cpu(cuda, tmp_path, fmt):
     assert torch.isfinite(got).all() and got.mean() > 0
     close = ((got - want).abs() <= 1e-3 * (1 + want.abs())).all(-1)
     assert close.float().mean() >= 0.99
+
+
+# -- a-trous (csrc/atrous.cu) ---------------------------------------------------
+
+# shapes where the taps' shifts (up to 16) exceed the image, and where the
+# 32 x 8 blocks are ragged
+ATROUS_SHAPES = [(7, 5), (1, 33), (33, 1), (17, 1000)]
+
+
+def atrous_case(h: int, w: int, seed: int, device="cpu"):
+    """An a-trous input, seeded: a lognormal colour [3, H, W], unit normals
+    that mostly agree, depth in [2, 4] and about a tenth of the pixels not
+    valid (bool [H, W])."""
+    g = torch.Generator().manual_seed(seed)
+    img = torch.exp(1.5 * torch.randn((3, h, w), generator=g) - 1.0)
+    nrm = torch.randn((3, h, w), generator=g)
+    nrm[2] = nrm[2].abs() + 2.0
+    nrm = nrm / torch.linalg.vector_norm(nrm, dim=0, keepdim=True)
+    depth = 2.0 + 2.0 * torch.rand((h, w), generator=g)
+    valid = torch.rand((h, w), generator=g) > 0.1
+    return tuple(t.to(device) for t in (img, nrm, depth, valid))
+
+
+@pytest.fixture(scope="module")
+def gi_guides_1080p():
+    """A GI frame of the box at 1920x1080 before a-trous (denoise and TAA
+    off), [3, H, W], and its guides: the G-buffer's shading normals, depth
+    and validity (the box's outside misses: invalid pixels)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    w, h = 1920, 1080
+    scene = upload_scene(cornell_box(), device=dev)
+    cam = Camera.look_at(CAMERA_EYE, CAMERA_TARGET, vfov_deg=CAMERA_VFOV, aspect=w / h)
+    cfg = RenderConfig(width=w, height=h, mode="restir_gi", pt=PTConfig(max_bounces=3),
+                       denoise=False, taa=False)
+    out, _ = render_frame_restir(scene, cam, SEED, cfg, None)
+    gb = MK.gbuffer(scene, *cam.generate_rays(w, h, device=dev))
+    return (out["hdr"].permute(2, 0, 1).contiguous(), gb[MK.G.NS : MK.G.NS + 3].reshape(3, h, w),
+            gb[MK.G.DEPTH].reshape(h, w), (gb[MK.G.VALID] > 0.5).reshape(h, w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("step", [1, 2, 4, 8, "chain"])
+def test_atrous_kernel_matches_plain_at_1080p(gi_guides_1080p, step):
+    """Each a-trous pass (one launch) and the 4-pass chain (4 launches) on a
+    rendered GI frame at 1920x1080, bit for bit against the plain pass on
+    the card."""
+    hdr, nrm, depth, valid = gi_guides_1080p
+    assert valid.any() and not valid.all()
+    before = DN.atrous_iteration_p.launches
+    if step == "chain":
+        got, want = DN.atrous_denoise_p(hdr, nrm, depth, valid), DN.atrous_denoise_plain(
+            hdr, nrm, depth, valid)
+    else:
+        got = DN.atrous_iteration_p(hdr, nrm, depth, valid, step)
+        want = DN.atrous_iteration_plain(hdr, nrm, depth, valid.to(torch.float32), step)
+    assert bits_equal(got, want)
+    assert DN.atrous_iteration_p.launches == before + (4 if step == "chain" else 1)
+    assert not torch.equal(got, hdr)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ATROUS_SHAPES, ids=lambda s: f"{s[0]}x{s[1]}")
+def test_atrous_kernel_on_ragged_shapes(cuda, shape):
+    """Steps 1-8 and the chain on images smaller than the taps' shifts and
+    on ragged blocks, bit for bit against the plain pass."""
+    img, nrm, depth, valid = atrous_case(*shape, seed=sum(shape), device=cuda)
+    for step in (1, 2, 4, 8):
+        want = DN.atrous_iteration_plain(img, nrm, depth, valid.to(torch.float32), step)
+        assert bits_equal(DN.atrous_iteration_p(img, nrm, depth, valid, step), want), step
+    assert bits_equal(DN.atrous_denoise_p(img, nrm, depth, valid),
+                      DN.atrous_denoise_plain(img, nrm, depth, valid))
+
+
+@pytest.mark.cuda
+def test_atrous_kernel_reads_strided_planes(cuda):
+    """Row and column slices of larger planes, as the row-band path slices
+    its halo-extended guides: the kernel reads them through their strides,
+    bit-equal to the plain pass on contiguous copies."""
+    h, w = 40, 70
+    big = atrous_case(h + 9, w + 6, seed=21, device=cuda)
+    img, nrm, depth, valid = (t[..., 4 : 4 + h, 2 : 2 + w] for t in big)
+    assert not any(t.is_contiguous() for t in (img, nrm, depth, valid))
+    dense = [t.contiguous() for t in (img, nrm, depth, valid)]
+    for step in (1, 2, 4, 8):
+        want = DN.atrous_iteration_plain(*dense[:3], dense[3].to(torch.float32), step)
+        assert bits_equal(DN.atrous_iteration_p(img, nrm, depth, valid, step), want), step
+
+
+def atrous_bands(rank, world, init_method, cases):
+    """A rank of ``test_atrous_bands_match_the_whole_image`` (``run_ranks``
+    imports it from this module, which pytest puts on the path): each case
+    {name: (img, nrm, depth, valid)} (numpy, the whole image) -> this
+    rank's band of ``render.frame._atrous_band`` on the card (gloo)."""
+    from zetaray_tpu_torch.parallel import mesh
+    from zetaray_tpu_torch.render.frame import _Band, _atrous_band
+
+    tiles = mesh.init_tiles(world, rank, init_method, "gloo", timeout=120.0)
+    out = {}
+    for name, arrays in cases.items():
+        img, nrm, depth, valid = (torch.from_numpy(x).to(tiles.device) for x in arrays)
+        h, w = depth.shape
+        ctx = tiles.shard(h)
+        rows = slice(ctx.row0, ctx.row0 + ctx.h_local)
+        out[name] = _atrous_band(_Band(ctx, w, h, tiles.device), img[:, rows], nrm[:, rows],
+                                 depth[rows], valid[rows]).cpu()
+    return out
+
+
+@pytest.mark.cuda
+def test_atrous_bands_match_the_whole_image(cuda):
+    """``render.frame._atrous_band`` over 2 row bands (2 gloo ranks on the
+    card; bands of 40 rows, and of 6, under the widest pass's halo of 16)
+    equals the whole image's a-trous bit for bit."""
+    native.build()  # the ranks load this build
+    cases = {f"{h}x37": [t.numpy() for t in atrous_case(h, 37, seed=h)] for h in (80, 12)}
+    bands = run_ranks(f"{__name__}:atrous_bands", 2, (cases,), timeout=300, blocked=("jax",))
+    for name, arrays in cases.items():
+        whole = DN.atrous_denoise_p(*(torch.from_numpy(x).to(cuda) for x in arrays))
+        got = torch.cat([torch.from_numpy(b[name]) for b in bands], 1).to(cuda)
+        assert bits_equal(got, whole), name
+
+
+@pytest.mark.cuda
+def test_atrous_wrapper_rejects_bad_inputs(cuda):
+    img, nrm, depth, valid = atrous_case(9, 11, seed=5, device=cuda)
+    it = DN.atrous_iteration_p
+    before = it.launches
+    with pytest.raises(TypeError):
+        it(img.double(), nrm, depth, valid, 1)
+    with pytest.raises(TypeError):
+        it(img, nrm, depth, valid.to(torch.float32), 1)
+    with pytest.raises(ValueError):
+        it(img[0], nrm, depth, valid, 1)
+    with pytest.raises(ValueError):
+        it(img, nrm[:2], depth, valid, 1)
+    with pytest.raises(ValueError):
+        it(img, nrm, depth[:8], valid, 1)
+    with pytest.raises(ValueError):
+        it(img, nrm, depth.cpu(), valid, 1)
+    with pytest.raises(ValueError):  # a column stride of 9
+        it(img, nrm.transpose(1, 2).contiguous().transpose(1, 2), depth, valid, 1)
+    assert it.launches == before

@@ -58,6 +58,19 @@ def test_atrous_matches_jax():
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
 
 
+def test_atrous_on_cpu_takes_the_plain_pass():
+    """CPU tensors take the plain pass, with the validity as bool or float:
+    no kernel launch."""
+    img = torch.from_numpy(_img(1))
+    nrm, depth, valid = (torch.from_numpy(x) for x in _gbuf_planes(2))
+    before = TDN.atrous_iteration_p.launches
+    assert torch.equal(TDN.atrous_denoise_p(img, nrm, depth, valid),
+                       TDN.atrous_denoise_plain(img, nrm, depth, valid))
+    assert torch.equal(TDN.atrous_iteration_p(img, nrm, depth, valid.to(torch.float32), 2),
+                       TDN.atrous_iteration_plain(img, nrm, depth, valid.to(torch.float32), 2))
+    assert TDN.atrous_iteration_p.launches == before
+
+
 @pytest.mark.parametrize("shift", [0.0, 0.05])
 def test_taa_matches_jax(shift):
     curr, hist = _smooth_img(3), _smooth_img(4)

@@ -1,11 +1,13 @@
-"""The kernels B1, B2, B3, B4, B5, B6, B8 and B9 built for the host and held to
-their plain versions, so that their logic (the sign test, the pruning, the
-tie rules, node culling, the shadow sweep's early exit, RIS's checkpoints
-and the transmission and coat lobes of B5 and B6) is checked on every run
-of the tests, with no card.
+"""The kernels B1, B2, B3, B4, B5, B6, B8 and B9 and the a-trous pass built for
+the host and held to their plain versions, so that their logic (the sign
+test, the pruning, the tie rules, node culling, the shadow sweep's early
+exit, RIS's checkpoints, the transmission and coat lobes of B5 and B6, and
+a-trous's wrapped taps and strides) is checked on every run of the tests,
+with no card.
 
 ``csrc/gbuffer.cu``, ``csrc/ris.cu``, ``csrc/occlusion.cu``,
-``csrc/bounce.cu`` and ``csrc/stream.cu`` are compiled with g++ against a small stand-in for
+``csrc/bounce.cu``, ``csrc/stream.cu`` and ``csrc/atrous.cu`` are compiled
+with g++ against a small stand-in for
 ``cuda_runtime.h``: the CUDA qualifiers are empty, ``__shared__`` is
 ``static``, each block runs as ``blockDim.x`` threads with barriers behind
 ``__syncthreads``, ``__syncthreads_and`` and ``__all_sync``, the
@@ -16,7 +18,9 @@ __shared__`` array points at a buffer of the launch's size. Without
 rounds on its own, as in the plain versions and in the card's build
 (``--fmad=false``), so the ray queries' outputs and B2's reservoirs must be
 equal bit for bit; the shading rows of B1, B4 and B5, whose operations PyTorch orders its own
-way, agree to 1e-5.
+way, agree to 1e-5, and so does a-trous, whose expf and powf are the host's
+and whose division by sigma_color PyTorch on the CPU does not turn into a
+multiply.
 
 Skips only where g++ is absent.
 """
@@ -39,6 +43,7 @@ from zetaray_tpu_torch.accel import bvh as TB
 from zetaray_tpu_torch.accel.bvh import LEAF_SIZE, WALK_STACK_MAX
 from zetaray_tpu_torch.accel.megakernel import INF
 from zetaray_tpu_torch.core.rng import uniform4
+from zetaray_tpu_torch.ops import denoise as DN
 from zetaray_tpu_torch.ops import restir_di as RD
 from zetaray_tpu_torch.ops.pathtracer import PTConfig
 from zetaray_tpu_torch.ops.restir_gi import secondary_rays
@@ -50,8 +55,8 @@ from zetaray_tpu_torch.scene.procedural import (
 from zetaray_tpu_torch.scene.scene import upload_scene, with_cluster_tree
 from zetaray_tpu_torch.scene.subdivide import subdivide_scene
 from tests.test_torch_cuda import (
-    MATERIAL_CASES, RIS_CASES, RIS_RT, RIS_SEED, RIS_U0_PIXEL, _close_rays, lobes_box, ris_case,
-    ris_pick,
+    MATERIAL_CASES, RIS_CASES, RIS_RT, RIS_SEED, RIS_U0_PIXEL, _close_rays,
+    atrous_case, lobes_box, ris_case, ris_pick,
 )
 
 torch.set_num_threads(1)
@@ -151,13 +156,13 @@ void zr_launch(int grid, int block, size_t shared, K kernel, A... args) {
 LAUNCH = re.compile(r"(\w+)<<<\s*([^,]+),\s*([^,]+),\s*([^,]+),[^>]*>>>\(")
 DYNAMIC_SHARED = re.compile(r"extern __shared__ (\w+) (\w+)\[\];")
 KERNELS = ("zr_gbuffer", "zr_ris", "zr_occlusion", "zr_bounce_trace", "zr_bounce_shade",
-           "zr_bounce", "zr_stream_closest", "zr_stream_occlusion")
+           "zr_bounce", "zr_stream_closest", "zr_stream_occlusion", "zr_atrous")
 
 
 @pytest.fixture(scope="session")
 def host_kernels(tmp_path_factory):
-    """csrc/gbuffer.cu, csrc/ris.cu, csrc/occlusion.cu, csrc/bounce.cu and
-    csrc/stream.cu built for the host, loaded."""
+    """csrc/gbuffer.cu, csrc/ris.cu, csrc/occlusion.cu, csrc/bounce.cu,
+    csrc/stream.cu and csrc/atrous.cu built for the host, loaded."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ to build the kernels for the host")
@@ -167,7 +172,7 @@ def host_kernels(tmp_path_factory):
     for p in native.CSRC.glob("*.cuh"):
         shutil.copy(p, tmp / p.name)
     srcs = []
-    for name in ("gbuffer.cu", "ris.cu", "occlusion.cu", "bounce.cu", "stream.cu"):
+    for name in ("gbuffer.cu", "ris.cu", "occlusion.cu", "bounce.cu", "stream.cu", "atrous.cu"):
         text = LAUNCH.sub(r"zr_launch(\2, \3, \4, \1, ", (native.CSRC / name).read_text())
         text = DYNAMIC_SHARED.sub(
             r"\1* const \2 = reinterpret_cast<\1*>(mock::dynamic_shared.data());", text)
@@ -783,3 +788,36 @@ def test_stream_closest_on_host_one_cluster(host_kernels, n_tris):
     t_p, tri_p = ST.stream_closest_plain(scene, o, d)
     assert torch.equal(tri, tri_p) and torch.equal(t, t_p)
     assert (tri_p >= 0).any()
+
+
+def host_atrous(lib, img, nrm, depth, valid, step, cfg: DN.ATrousConfig = DN.ATrousConfig(),
+                size=None):
+    """One a-trous pass on the host, each input through its plane and row
+    strides: [3, H, W], or None where the entry point refuses the launch.
+    ``size``: the (H, W) the entry point is told of (depth's by default)."""
+    h, w = depth.shape if size is None else size
+    out = torch.full((3, max(h, 0), max(w, 0)), -7.0)
+    err = lib.zr_atrous(img.data_ptr(), img.stride(0), img.stride(1), nrm.data_ptr(),
+                        nrm.stride(0), nrm.stride(1), depth.data_ptr(), depth.stride(0),
+                        valid.data_ptr(), valid.stride(0), _ptr(out), h, w, step,
+                        cfg.sigma_color, cfg.sigma_normal, cfg.sigma_depth, None)
+    return None if err else out
+
+
+@pytest.mark.parametrize("step", [1, 2, 4, 8])
+@pytest.mark.parametrize("shape", [(24, 40), (7, 5), (1, 33), (33, 1), (17, 300)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_atrous_on_host(host_kernels, shape, step):
+    """A pass at each step on row and column slices of larger planes against
+    the plain pass, on a 24x40 image, on images smaller than the taps'
+    shifts and on ragged blocks: every pixel to 1e-5, an invalid pixel's
+    colour kept bit for bit. A negative size is refused."""
+    h, w = shape
+    big = atrous_case(h + 5, w + 3, seed=h + w)
+    img, nrm, depth, valid = (t[..., 3 : 3 + h, 1 : 1 + w] for t in big)
+    got = host_atrous(host_kernels, img, nrm, depth, valid, step)
+    want = DN.atrous_iteration_plain(img, nrm, depth, valid.to(torch.float32), step)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    assert torch.equal(got[:, ~valid], img[:, ~valid])
+    assert not torch.equal(got[:, valid], img[:, valid])
+    assert host_atrous(host_kernels, img, nrm, depth, valid, step, size=(-1, w)) is None

@@ -18,6 +18,8 @@ What runs on the card as a kernel written by hand (``csrc/``):
 - ``accel.stream.stream_closest``, ``occlusion_stream``  closest (B8) and
   any hit (B9) on a clustered scene: a walk over the cluster tree and on
   down to leaves of a few triangles
+- ``ops.denoise.atrous_iteration_p``  one pass of the a-trous denoiser
+  (no TPU kernel: the JAX package's a-trous is XLA-side)
 
 Each wrapper takes its plain PyTorch version for a CPU tensor and launches
 its kernel for a CUDA tensor. Everything between the kernels is plain

@@ -51,6 +51,7 @@ NVCC_FLAGS = [
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_LL = ctypes.c_longlong
 _FP = ctypes.POINTER(ctypes.c_float)  # a host array (accel.megakernel.path_options)
 _SIGNATURES = {
     # o, d, woop_rows, attrs, out, n, tp, nt, t_min, stream
@@ -79,6 +80,10 @@ _SIGNATURES = {
     "zr_stream_closest": [_VP] * 7 + [_I, _I, _I, _F, _F, _VP],
     # o, d, walk_nodes, leaf_rows, out, n, stack, t_min, t_max, stream
     "zr_stream_occlusion": [_VP] * 5 + [_I, _I, _F, _F, _VP],
+    # src, src plane/row strides, nrm, its strides, dep, its row stride, valid, its row
+    # stride, dst, h, w, step, sigma_color, sigma_normal, sigma_depth, stream
+    "zr_atrous": [_VP, _LL, _LL, _VP, _LL, _LL, _VP, _LL, _VP, _LL, _VP, _I, _I, _I,
+                  _F, _F, _F, _VP],
 }
 
 _lock = threading.Lock()
@@ -230,13 +235,15 @@ def check(err: int, name: str) -> None:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {err}")
 
 
-def require_cuda(t: torch.Tensor, name: str, dtype: torch.dtype, shape=None) -> None:
-    """Validate a tensor handed to a kernel: device, dtype, contiguity, shape."""
+def require_cuda(t: torch.Tensor, name: str, dtype: torch.dtype, shape=None,
+                 contiguous: bool = True) -> None:
+    """Validate a tensor handed to a kernel: device, dtype, contiguity
+    (unless the kernel takes strides), shape."""
     if not t.is_cuda:
         raise ValueError(f"{name}: expected a CUDA tensor, got one on {t.device}")
     if t.dtype != dtype:
         raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
-    if not t.is_contiguous():
+    if contiguous and not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")

@@ -2,7 +2,8 @@
 package's ``ops/denoise.py``.
 
 Planar: img and normal [3, H, W], depth and validity [H, W]. The stencil
-taps are circular rolls, as in the JAX package.
+taps are circular rolls, as in the JAX package. On the card an a-trous pass
+is one launch of ``csrc/atrous.cu``, bit-equal to the plain pass there.
 """
 
 from __future__ import annotations
@@ -11,6 +12,7 @@ from dataclasses import dataclass
 
 import torch
 
+from .. import native
 from .post import luminance_p
 
 
@@ -45,7 +47,8 @@ def firefly_filter_p(img, factor: float = 3.0):
     return img * scale[None]
 
 
-def atrous_iteration_p(out, normal, depth, vf, step: int, cfg: ATrousConfig = ATrousConfig()):
+def atrous_iteration_plain(out, normal, depth, vf, step: int,
+                           cfg: ATrousConfig = ATrousConfig()):
     """One a-trous pass at tap spacing ``step`` (vf = validity as float)."""
     lum_c = luminance_p(out)
     acc = torch.zeros_like(out)
@@ -72,10 +75,57 @@ def atrous_iteration_p(out, normal, depth, vf, step: int, cfg: ATrousConfig = AT
     )
 
 
-def atrous_denoise_p(img, normal, depth, valid, cfg: ATrousConfig = ATrousConfig()):
-    """``cfg.iterations`` a-trous passes with doubling tap spacing."""
-    out = img
-    vf = valid.to(torch.float32)
+def atrous_iteration_p(out, normal, depth, valid, step: int,
+                       cfg: ATrousConfig = ATrousConfig()):
+    """One a-trous pass at tap spacing ``step``: out and normal [3, H, W],
+    depth [H, W] float32, valid [H, W] bool -> a new [3, H, W].
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
+    (``csrc/atrous.cu``), which reads each input through its plane and row
+    strides (row slices need no copy; the column stride must be 1).
+    """
+    if out.device.type == "cpu":
+        return atrous_iteration_plain(out, normal, depth, valid.to(torch.float32), step, cfg)
+    if out.dim() != 3:
+        raise ValueError(f"out: expected [3, H, W], got shape {tuple(out.shape)}")
+    h, w = out.shape[1:]
+    for name, t, dtype, shape in (("out", out, torch.float32, (3, h, w)),
+                                  ("normal", normal, torch.float32, (3, h, w)),
+                                  ("depth", depth, torch.float32, (h, w)),
+                                  ("valid", valid, torch.bool, (h, w))):
+        native.require_cuda(t, name, dtype, shape, contiguous=False)
+        if t.device != out.device:
+            raise ValueError(f"{name}: expected a tensor on {out.device}, got one on {t.device}")
+        if w > 1 and t.stride(-1) != 1:
+            raise ValueError(f"{name}: expected a column stride of 1, got {t.stride(-1)}")
+    dst = torch.empty((3, h, w), dtype=torch.float32, device=out.device)
+    err = native.lib().zr_atrous(
+        out.data_ptr(), out.stride(0), out.stride(1), normal.data_ptr(), normal.stride(0),
+        normal.stride(1), depth.data_ptr(), depth.stride(0), valid.data_ptr(), valid.stride(0),
+        dst.data_ptr(), h, w, int(step), cfg.sigma_color, cfg.sigma_normal, cfg.sigma_depth,
+        native.stream_ptr(out.device),
+    )
+    native.check(err, "atrous")
+    atrous_iteration_p.launches += 1
+    return dst
+
+
+atrous_iteration_p.launches = 0
+
+
+def atrous_denoise_plain(img, normal, depth, valid, cfg: ATrousConfig = ATrousConfig()):
+    """``atrous_denoise_p`` through the plain pass on any device: what the
+    kernel's passes are held to on the card."""
+    out, vf = img, valid.to(torch.float32)
     for it in range(cfg.iterations):
-        out = atrous_iteration_p(out, normal, depth, vf, 1 << it, cfg)
+        out = atrous_iteration_plain(out, normal, depth, vf, 1 << it, cfg)
+    return out
+
+
+def atrous_denoise_p(img, normal, depth, valid, cfg: ATrousConfig = ATrousConfig()):
+    """``cfg.iterations`` a-trous passes with doubling tap spacing (valid
+    [H, W] bool); on the card one kernel launch a pass."""
+    out = img
+    for it in range(cfg.iterations):
+        out = atrous_iteration_p(out, normal, depth, valid, 1 << it, cfg)
     return out

@@ -620,12 +620,12 @@ def _atrous_band(band: _Band, hdr, normal, depth, valid, cfg: DN.ATrousConfig = 
     h = hdr.shape[1]
     nrm = band.rows_ext(normal, hmax, 1)
     dep = band.rows_ext(depth, hmax, 0)
-    vf = band.rows_ext(valid.to(torch.float32), hmax, 0)
+    val = band.rows_ext(valid, hmax, 0)
     out = hdr
     for it in range(cfg.iterations):
         step = 1 << it
         hh = 2 * step
         rows = slice(hmax - hh, hmax + h + hh)
         out = DN.atrous_iteration_p(band.rows_ext(out, hh, 1), nrm[:, rows], dep[rows],
-                                    vf[rows], step, cfg)[:, hh:-hh]
+                                    val[rows], step, cfg)[:, hh:-hh]
     return out
