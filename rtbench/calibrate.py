@@ -32,16 +32,21 @@ sys.path[:0] = [str(HERE), str(HERE.parent)]
 
 def _ray_query_check(cell, gltf, traffic, device):
     """The reference's B8/B9 answers against the port's kernels on frame 0's
-    camera rays and on GI-like rays from their hits: rays that differ."""
+    camera rays and on GI-like rays from their hits: rays that differ. An
+    animated scene is posed (refit) at its clip's middle first."""
     import torch
 
-    from rtb.loop import PORT, REFERENCE, load_port_scene
-    from rtb.port import Port
+    from rtb.loop import PORT, load_port_scene, reference_port
+    from rtb.port import Animated, Port
 
     out = {}
-    port, ref = Port(PORT), Port(REFERENCE)
+    port, ref = Port(PORT), reference_port()
     ps, cfg = load_port_scene(cell, gltf, port, device)
     rs, _ = load_port_scene(cell, gltf, ref, device)
+    if isinstance(ps, Animated):  # the pose at the clip's middle, the farthest from rest
+        k = round(0.5 * ps.rig.duration / ps.dt)
+        ps, rs = port.pose(ps, k)[0], ref.pose(rs, k)[0]
+        out["pose_frame"] = k
     w, h = cfg.render_size()
     o, d = port.camera(traffic, 0).generate_rays(w, h, device=device)
     st_k, st_r = port.module("accel.stream"), ref.module("accel.stream")
@@ -112,7 +117,7 @@ def main() -> int:
         traffic0 = Traffic(cell["traffic"], cell["config"]["camera"], first)
         emit(dict(kind="ray_queries", **_ray_query_check(cell, gltf, traffic0, device)))
         scene, cfg = loop.load_port_scene(cell, gltf, port, device)
-        ref_loaded = loop.load_port_scene(cell, gltf, Port(loop.REFERENCE), device)
+        ref_loaded = loop.load_port_scene(cell, gltf, loop.reference_port(), device)
         jobs = ([("port", s, None) for s in seeds(args.seeds)]
                 + [("control", s, None) for s in seeds(args.control)]
                 + [(f"fault:{name}", s, hook) for s in seeds(args.faults)

@@ -2,7 +2,8 @@
 the comparison with the reference.
 
 The window is a user's frame loop (the port's ``app.py`` loop without its
-read-back): ``render_frame_restir`` a frame, closed loop, with
+read-back): ``render_frame_restir`` a frame (on an animated scene after
+the clip's refit, ``Port.frame``), closed loop, with
 ``frames_in_flight`` frames queued on the device: before the host submits
 frame k it waits for the CUDA event recorded after frame k - in_flight.
 Nothing in the window reads a result back to the host.
@@ -71,11 +72,23 @@ def _unpatch(saved):
         setattr(mod, attr, fn)
 
 
+def reference_port() -> Port:
+    """The reference, which flattens the glTF file on one thread: on the
+    loader's default four threads ``load_scene`` now and then returns other
+    corners or normals for a primitive (about one load in 60 to 80 on a
+    host; on one thread, none in 80), so a reference that loaded so could
+    differ from the port without a fault in the port."""
+    return Port(REFERENCE, load_workers=1)
+
+
 def stage_targets(port: Port):
-    """(module, function, range name) of every pass in the layer files."""
+    """(module, function, range name) of every pass in the layer files: the
+    ``functions`` that the frame function calls (each inside the port's own
+    span of its label) and the ``harness_calls`` that the harness's frame
+    (``Port.frame``) makes around it, which no span of the port holds."""
     out = []
     for stem, layer in spec.layers().items():
-        for mod, attr, label in layer.get("functions", []):
+        for mod, attr, label in layer.get("functions", []) + layer.get("harness_calls", []):
             out.append((port.module(mod), attr, f"{STAGE}{stem}:{label}"))
     return out
 
@@ -167,7 +180,8 @@ def load_port_scene(cell: dict, gltf: Path, port: Port, device):
     """(scene, RenderConfig) of the cell on ``device`` through ``port``."""
     tr = cell["traffic"]
     cfg = port.render_config(cell["config"]["render"], int(tr["width"]), int(tr["height"]))
-    return port.load(gltf, device, cell["config"]["scene"].get("triangles")), cfg
+    return port.load(gltf, device, cell["config"]["scene"].get("triangles"),
+                     cell["config"].get("animation")), cfg
 
 
 def warm_up(port: Port, scene, cfg, traffic: Traffic, frame, start_frames: int, device):
@@ -237,7 +251,7 @@ def reference_checks(cell: dict, gltf: Path, traffic: Traffic, device, start, fr
     the reference itself with every pass's float32 outputs rounded to
     bfloat16, in the port's place. ``loaded``: the reference's (scene,
     RenderConfig), when already loaded."""
-    ref = Port(REFERENCE)
+    ref = reference_port()
     scene, cfg = load_port_scene(cell, gltf, ref, device) if loaded is None else loaded
     n_start = int(cell["check"]["start_frames"])
 

@@ -12,7 +12,7 @@ import pytest
 BENCH = Path(__file__).resolve().parent.parent
 sys.path[:0] = [str(BENCH), str(BENCH.parent)]
 
-CELLS = ("gi139k.1080p.sway", "pt139k.4k_taau.sway")
+CELLS = ("gi139k.1080p.sway", "pt139k.4k_taau.sway", "gi139k.1080p.animated")
 
 
 def tiny(cell: dict) -> dict:

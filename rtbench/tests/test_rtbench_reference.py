@@ -62,9 +62,10 @@ def test_reference_frames_equal_the_ports_cpu_frames(tmp_path, name, cpu):
     scene_cfg = cell["config"]["scene"]
     gltf = spec.scene_generator(scene_cfg["generator"]).write(tmp_path, scene_cfg)
     traffic = Traffic(cell["traffic"], cell["config"]["camera"], 2**33 + 7)
-    port, ref = Port(loop.PORT), Port(loop.REFERENCE)
+    port, ref = Port(loop.PORT), loop.reference_port()
     (ps, pcfg), (rs, rcfg) = (loop.load_port_scene(cell, gltf, p, cpu) for p in (port, ref))
-    assert ps.cluster_aabb is not None and rs.cluster_aabb is not None
+    rest = lambda s: getattr(s, "rest", s)  # an animated scene's upload
+    assert rest(ps).cluster_aabb is not None and rest(rs).cluster_aabb is not None
     p_state = r_state = None
     for k in range(3):
         p_out, p_state = port.frame(ps, traffic, k, pcfg, p_state)
@@ -77,3 +78,18 @@ def test_reference_frames_equal_the_ports_cpu_frames(tmp_path, name, cpu):
     p_out, _ = port.frame(ps, traffic, 3, pcfg, p_state)
     r_out, _ = ref.frame(rs, traffic, 3, rcfg, ref.state_from(p_state))
     assert torch.equal(p_out["hdr"], r_out["hdr"])
+
+
+@pytest.mark.parametrize("name", CELLS)
+def test_reference_loads_on_one_thread(tmp_path, name, cpu, monkeypatch):
+    """The port loads the glTF file as a user's call does; the reference on
+    one thread, where the loader gives the same scene every time."""
+    cell = tiny(spec.cell(name))
+    scene_cfg = cell["config"]["scene"]
+    gltf = spec.scene_generator(scene_cfg["generator"]).write(tmp_path, scene_cfg)
+    for port, kw in ((Port(loop.PORT), {}), (loop.reference_port(), {"workers": 1})):
+        seen, real = [], port.scene_mod.load_scene
+        monkeypatch.setattr(port.scene_mod, "load_scene",
+                            lambda *a, _real=real, **k: seen.append(k) or _real(*a, **k))
+        loop.load_port_scene(cell, gltf, port, cpu)
+        assert seen == [kw], port.package

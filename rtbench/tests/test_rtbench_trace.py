@@ -123,3 +123,14 @@ def test_bounds_count_a_launch():
     gbuf[15, :4] = 1.0
     c = {k: int(v) for k, v in b2.counts((gbuf, torch.zeros(7, 16, 32)), {}, None).items()}
     assert b2.work(c) == (32 * (4 * 32 + 2), 6 * 26 * 4 + 7 * 11 * 32 * 4)
+
+
+def test_refit_ms_reads_the_refit_range():
+    ev = _events() + [_host("rtbench.stage.refit:refit", 240, 5), _launch(9, 241),
+                      _kernel(9, "elementwise_kernel", 600, 8), _launch(10, 242),
+                      _kernel(10, "Memcpy HtoD", 610, 4, cat="gpu_memcpy")]
+    tr = Trace(ev, [10, 11], KERNELS)
+    assert spec.metric("refit_ms").read(_run(trace=tr)) == pytest.approx(8e-3 / 2)
+    # a static scene's frames launch nothing there
+    assert spec.metric("refit_ms").read(_run(trace=Trace(_events(), [10, 11], KERNELS))) is None
+    assert spec.metric("refit_ms").read(_run()) is None
