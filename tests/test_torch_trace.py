@@ -12,13 +12,15 @@ import json
 import sys
 import time
 import warnings
+from collections import Counter
 from pathlib import Path
+from types import SimpleNamespace
 
 import pytest
 import torch
 
 from zetaray_tpu_torch.ops import post
-from zetaray_tpu_torch.ops.pathtracer import PTConfig
+from zetaray_tpu_torch.ops.pathtracer import PTConfig, trace_reference
 from zetaray_tpu_torch.ops.upscale import UpscaleConfig
 from zetaray_tpu_torch.render import frame as TF
 from zetaray_tpu_torch.scene.camera import Camera
@@ -26,6 +28,7 @@ from zetaray_tpu_torch.scene.procedural import (
     CAMERA_EYE, CAMERA_TARGET, CAMERA_VFOV, animated_box, cornell_box,
 )
 from zetaray_tpu_torch.scene.scene import load_scene, upload_scene
+from zetaray_tpu_torch.scene.subdivide import subdivide_scene
 from zetaray_tpu_torch.utils import stats as TST
 from zetaray_tpu_torch.utils.stats import SYNC_WARNING, FrameRecord, FrameStats
 
@@ -234,6 +237,64 @@ def test_sync_warnings_counted_in_profiled_frames():
     assert rec.last.syncs == 0
 
 
+@pytest.fixture(scope="module")
+def clustered():
+    """The box split to 546 triangles, clustered (128 slots a cluster)."""
+    return upload_scene(subdivide_scene(cornell_box(), 500), device="cpu", cluster_size=128)
+
+
+@pytest.mark.parametrize("kind", ["dense", "clustered"])
+def test_ray_counter_counts_each_query_once(scene, clustered, kind):
+    """A frame's record counts the rays each ray query hands its kernel:
+    B8 and B9 on a clustered scene, B7 and B3 on a dense one. A 4-bounce
+    wavefront trace hands its n rays to 5 closest-hit and 4 any-hit
+    queries. The ``restir_di`` frame's are the G-buffer (B8; on a dense
+    scene B1, no query), DI visibility and shade, and on a clustered scene
+    its path trace's 5 closest hits and 3 NEE segments (from bounce 1; on a
+    dense scene B6 traces the path)."""
+    sc = clustered if kind == "clustered" else scene
+    closest, any_hit = ("B8", "B9") if kind == "clustered" else ("B7", "B3")
+    w, h = 16, 8
+    n = w * h
+    cam = Camera.look_at(CAMERA_EYE, CAMERA_TARGET, vfov_deg=CAMERA_VFOV, aspect=w / h)
+    o, d = cam.generate_rays(w, h, device="cpu")
+    with TST.stats.frame():
+        trace_reference(sc, o, d, 5, PTConfig(max_bounces=4))
+    assert TST.stats.last.rays == {closest: 5 * n, any_hit: 4 * n}
+    trace_reference(sc, o, d, 5, PTConfig(max_bounces=1))  # outside a frame: not counted
+    cfg = TF.RenderConfig(width=w, height=h, mode="restir_di", pt=PTConfig(max_bounces=4))
+    _frames(sc, cfg, 2)
+    want = {"B8": 6 * n, "B9": 5 * n} if kind == "clustered" else {"B3": 2 * n}
+    assert TST.stats.last.rays == want
+
+
+def test_ray_counter_adds_no_operation_or_sync(clustered, monkeypatch):
+    """The counter takes its counts from shapes on the host: a profiled
+    frame runs the same operators and counts the same syncs with it as
+    without it, and it is handed Python ints."""
+    cfg = TF.RenderConfig(width=16, height=8, mode="restir_di", pt=PTConfig(max_bounces=4))
+    state = _frames(clustered, cfg, 1)
+    handed = []
+    count = FrameStats.count_rays
+
+    def spy(self, kernel, n):
+        handed.append(type(n))
+        count(self, kernel, n)
+
+    def profiled():
+        with torch.profiler.profile(activities=CPU) as prof:
+            _frames(clustered, cfg, 1, state, 1)
+        return Counter(e.name for e in prof.events() if e.name.startswith("aten::")), TST.stats.last
+
+    monkeypatch.setattr(FrameStats, "count_rays", spy)
+    ops_on, fr_on = profiled()
+    monkeypatch.setattr(FrameStats, "count_rays", lambda self, kernel, n: None)
+    ops_off, fr_off = profiled()
+    assert fr_on.profiled and fr_on.rays and not fr_off.rays
+    assert set(handed) == {int} and len(handed) == 11
+    assert ops_on == ops_off and fr_on.syncs == fr_off.syncs
+
+
 def _reader(name):
     path = BENCH / "metrics" / f"{name}.py"
     spec = importlib.util.spec_from_file_location(f"reader_{name}", path)
@@ -246,7 +307,8 @@ def _filled(frames=25, profiled=(10, 12)):
     rec = FrameStats()
     for _ in range(frames):
         rec.frames.append(FrameRecord(self_ms={"frame": 9.0, "reuse:a": 1.0, "reuse:b": 2.0,
-                                               "post:x": 0.5, "frame:y": 4.0}))
+                                               "post:x": 0.5, "frame:y": 4.0,
+                                               "frame:path trace (B8, B9)": 3.5}))
     for n in profiled:
         rec.profiled_frames.append(FrameRecord(syncs=n, profiled=True))
     rec.setup.update({"setup:load_scene": 1.5, "setup:upload_scene": 2.5})
@@ -254,7 +316,7 @@ def _filled(frames=25, profiled=(10, 12)):
 
 
 READINGS = {"reuse_host_ms": 3.0, "post_host_ms": 0.5, "host_syncs_per_frame": 11.0,
-            "scene_load_s": 1.5, "scene_upload_s": 2.5}
+            "scene_load_s": 1.5, "scene_upload_s": 2.5, "pathtrace_host_ms": 3.5}
 
 
 @pytest.mark.parametrize("name", sorted(READINGS))
@@ -271,6 +333,52 @@ def test_readers(name, monkeypatch):
     assert read(None) is None
     monkeypatch.delitem(sys.modules, "zetaray_tpu_torch.utils.stats")
     assert read(None) is None
+
+
+class _FakeTrace:
+    """The profiled frames' device operations as ``rtb.trace.Trace`` hands
+    them to the readers."""
+
+    def __init__(self, ops, frames):
+        self.counted, self.frames = ops, frames
+
+    def per_frame_us(self, pick):
+        return sum(op["dur"] for op in self.counted
+                   if op["cat"] == "kernel" and pick(op)) / len(self.frames)
+
+
+def _op(stage, dur, tag=None):
+    return {"cat": "kernel", "stage": f"rtbench.stage.{stage}", "dur": dur, "tag": tag}
+
+
+def test_trace_readers(monkeypatch):
+    """pathtrace_ms (the path trace's kernels, B8/B9 left out), lvg_ms (the
+    grid's build and candidates) and rayquery_mrays_s (the counted frames'
+    B8/B9 rays over their device time): each reads None where its code did
+    not run or its counter is missing."""
+    pt, grid = "frame:path trace (B8, B9)", "frame:light voxel grid build"
+    cand = "reuse:DI grid candidates"
+    ops = [_op(pt, 300.0), _op(pt, 500.0, "B8"), _op(pt, 100.0, "B9"), _op(grid, 40.0),
+           _op(cand, 20.0), _op("reuse:DI RIS (B2)", 70.0, "B2"),
+           _op("frame:G-buffer (B8)", 200.0, "B8")]
+    run = SimpleNamespace(trace=_FakeTrace(ops, [7, 8]))
+    assert _reader("pathtrace_ms")(run) == pytest.approx(0.15)
+    assert _reader("lvg_ms")(run) == pytest.approx(0.03)
+    rec = FrameStats()
+    rec.profiled_frames.append(FrameRecord(profiled=True, rays={"B8": 1}))  # the lead-in
+    for _ in range(2):
+        rec.profiled_frames.append(FrameRecord(profiled=True, rays={"B8": 400, "B9": 200,
+                                                                     "B3": 99}))
+    monkeypatch.setattr(TST, "stats", rec)
+    rate = _reader("rayquery_mrays_s")
+    assert rate(run) == pytest.approx(600 / 400.0)  # rays a microsecond: Mrays/s
+    none = SimpleNamespace(trace=_FakeTrace([_op("reuse:DI shade (B9)", 5.0, "B9")], [7, 8]))
+    assert _reader("pathtrace_ms")(none) is None and _reader("lvg_ms")(none) is None
+    assert _reader("pathtrace_ms")(SimpleNamespace(trace=None)) is None
+    del rec.profiled_frames[-1].rays  # a recorder without the counter
+    assert rate(run) is None
+    monkeypatch.setattr(TST, "stats", FrameStats())
+    assert rate(run) is None
 
 
 @pytest.fixture

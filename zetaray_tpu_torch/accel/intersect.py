@@ -24,6 +24,12 @@ clustered one), each testing its hits against the alpha atlas
 their hit (``_closest_cutout``, ``_occluded_cutout``); a round traces only
 the rays still piercing.
 
+Each query counts the rays it hands its kernel in the frame's record
+(``utils.stats.FrameStats.count_rays``), once, where it dispatches them:
+``occlusion`` (B3), ``_closest_dense`` (B7) and the clustered branches of
+``intersect_occluded`` (B9) and ``_closest_raw`` (B8). Parked rays count:
+they are launched.
+
 ``closest_hit`` replaces ``_closest_kernel`` (``accel/pallas_kernels.py``,
 launched by ``closest_hit_pallas``) with ``csrc/closest.cu``: the closest
 (t, tri, u, v) of each ray and the winner's attribute row. It is the
@@ -50,6 +56,7 @@ import torch
 
 from .. import native
 from ..scene.scene import A
+from ..utils.stats import stats
 from .megakernel import (
     INF, TRI_CHUNK, RAY_CHUNK, _check_dense, check_sweep_t_min, closest_hit_plain, tri_hits,
 )
@@ -88,6 +95,7 @@ def occlusion(scene, o: torch.Tensor, d: torch.Tensor, t_min=1e-4, t_max=INF):
     """
     _check_dense(scene, "occlusion", "takes intersect_occluded (kernel B9)")
     _check_uncut(scene, "occlusion", "takes intersect_occluded (the cutout re-trace)")
+    stats.count_rays("B3", o.shape[0])
     if o.device.type == "cpu":
         return occlusion_plain(scene.woop, o, d, t_min, t_max)
     n = o.shape[0]
@@ -122,6 +130,7 @@ def intersect_occluded(scene, o: torch.Tensor, d: torch.Tensor, t_min=1e-4, t_ma
     if scene.cluster_aabb is not None:
         from .stream import occlusion_stream
 
+        stats.count_rays("B9", o.shape[0])
         return occlusion_stream(scene, o, d, t_min, t_max)
     return occlusion(scene, o, d, t_min, t_max)
 
@@ -185,6 +194,7 @@ def closest_hit(scene, o, d, t_min=1e-4, t_max=INF) -> ShadedHit:
 
 def _closest_dense(scene, o, d, t_min, t_max) -> ShadedHit:
     """``closest_hit`` without the checks of the scene's kind."""
+    stats.count_rays("B7", o.shape[0])
     if o.device.type == "cpu":
         return closest_hit_plain_shaded(scene.woop, scene.tri_attrs, o, d, t_min, t_max)
     n = o.shape[0]
@@ -220,6 +230,7 @@ def _closest_raw(scene, o, d, t_min, t_max) -> ShadedHit:
     if scene.cluster_aabb is not None:
         from .stream import closest_hit_stream_shaded
 
+        stats.count_rays("B8", o.shape[0])
         return closest_hit_stream_shaded(scene, o, d, t_min, t_max)
     return _closest_dense(scene, o, d, t_min, t_max)
 

@@ -23,6 +23,7 @@ two-phase distance cap (``stream_tcap``) have no counterpart.
 
 from __future__ import annotations
 
+import threading
 from dataclasses import dataclass, field, fields, replace
 
 import numpy as np
@@ -132,16 +133,22 @@ def _materials_soa(mats: list[GltfMaterial]) -> MaterialsSoA:
     )
 
 
+# Held around the BLAS calls of ``_flatten_prim``: numpy's OpenBLAS (0.3.27
+# on the hosts measured) now and then returns another product when threads
+# call its dgemm while others run numpy work, so ``load_scene``'s workers
+# take turns there (the products are tiny; the gathers run in parallel).
+_BLAS = threading.Lock()
+
+
 def _flatten_prim(world, nrm_m, inst_idx, prim):
     """One primitive -> its world-space triangle corners, normals, uvs,
     material and instance ids (geometric normals where it has none)."""
-    pos = T.transform_points(world, prim.positions.astype(np.float64))
+    with _BLAS:
+        pos = T.transform_points(world, prim.positions.astype(np.float64))
+        nrm = None if prim.normals is None else prim.normals.astype(np.float64) @ nrm_m.T
     idx = prim.indices.reshape(-1, 3).astype(np.int64)
-    if prim.normals is not None:
-        nrm = prim.normals.astype(np.float64) @ nrm_m.T
+    if nrm is not None:
         nrm /= np.maximum(np.linalg.norm(nrm, axis=-1, keepdims=True), 1e-20)
-    else:
-        nrm = None
     a, b, c = idx[:, 0], idx[:, 1], idx[:, 2]
     if nrm is not None:
         n0, n1, n2 = nrm[a], nrm[b], nrm[c]

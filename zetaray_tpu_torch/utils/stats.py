@@ -23,6 +23,10 @@ times of the app's ``begin_frame``/``end_frame``, and records spans:
     synchronising-operation warnings out of the warning stream (any other
     warning passes on); ``synchronize`` counts an explicit one.
   - A ``setup:`` span keeps the seconds of its last call in ``setup``.
+  - ``count_rays(kernel, n)`` adds the ``n`` rays a ray query hands to a
+    kernel (B3, B7, B8, B9; ``accel.intersect`` counts each query once,
+    where it dispatches it) to the frame's ``FrameRecord.rays``. The count
+    is read from the tensors' shapes on the host: no device read, no sync.
 
 ``sync_device`` (set by ``profile.time_passes``) synchronises that device
 at every span boundary, so that a span's time holds its device work.
@@ -48,14 +52,17 @@ _SKIP = (os.path.dirname(torch.__file__), __file__, warnings.__file__)
 @dataclass
 class FrameRecord:
     """One frame call: host ms per span name (``ms`` total, ``self_ms``
-    without nested spans; a span entered twice sums), and in a profiled
-    frame the host syncs, by (span, ``file:line``) in ``sync_sites``."""
+    without nested spans; a span entered twice sums), the rays handed to
+    the ray query kernels by kernel (``rays``: {"B8": n, ...}), and in a
+    profiled frame the host syncs, by (span, ``file:line``) in
+    ``sync_sites``."""
 
     ms: dict = field(default_factory=dict)
     self_ms: dict = field(default_factory=dict)
     syncs: int = 0
     sync_sites: dict = field(default_factory=dict)
     profiled: bool = False
+    rays: dict = field(default_factory=dict)
 
 
 def _site(filename: str, lineno: int) -> str:
@@ -215,6 +222,13 @@ class FrameStats:
         """A context manager around one frame call: the root span ``frame``,
         which commits the frame's ``FrameRecord``."""
         return _Frame(self)
+
+    def count_rays(self, kernel: str, n: int) -> None:
+        """Count ``n`` rays handed to the ray query kernel ``kernel`` in the
+        open frame (none open: nothing)."""
+        fr = self._frame
+        if fr is not None:
+            fr.rays[kernel] = fr.rays.get(kernel, 0) + int(n)
 
     def synchronize(self, device=None) -> None:
         """``torch.cuda.synchronize(device)``, counted as a host sync in a
