@@ -68,7 +68,14 @@ Phases (any failure exits non-zero):
      boxes over the moved rows does not. The tile offset: B2, B5 and B6 on
      the image's lower half as the second of two row bands (pix0 = 131,072,
      tile0 = 128), each equal to its plain version at that offset (max abs
-     err 0) and timed beside the same band at tile0 = 0. Each kernel's
+     err 0) and timed beside the same band at tile0 = 0. The wavefront
+     path trace (ops.pathtracer.trace_reference: B8, the vertex kernel of
+     csrc/wavefront.cu, B9 a bounce) on the 139,266-triangle box and the
+     benchmark's 262,144-triangle hall at 1920x1080 camera rays, in the
+     restir_di frame's and GI's configurations, bit-equal to the plain
+     wavefront (radiance and first hit), its ms a bounce beside the plain
+     one's, the vertex kernel's own ms beside its bound and its registers
+     (wavefront_record). Each kernel's
      least time on the card (bound_ms) is reckoned from this run's work and
      the H100's published peaks;
   4. renders chained frames of each path with its launch counters set to 0
@@ -85,7 +92,9 @@ Phases (any failure exits non-zero):
      the ReSTIR PT frame with the sky; and on the 139,266-triangle box the
      large-scene frame of bench.py (ReSTIR GI, max_bounces=2, a-trous, TAA)
      at 256^2 with its DI-only slice, plain PT and the JAX app's default
-     frame with the sky at 256^2. Chains are 4 frames; the first has no
+     frame with the sky at 256^2 (the vertex kernel launched in the
+     clustered chains that path-trace without a sky or cutout, and in no
+     dense chain). Chains are 4 frames; the first has no
      temporal reuse and no TAA, so frame times are medians of frames 2-4.
      Then bench.py's features frame (ReSTIR DI with 2 light-voxel-grid
      candidates and pairwise MIS, ReSTIR GI with max_bounces=2, SkyDI with
@@ -528,6 +537,123 @@ def atrous_record(dev, report: str, seed: int = 0x2468ACE1) -> dict:
           f"{rec['profiled_launches']} "
           f"(plain {rec['plain_launches']}), registers {rec['registers']}, bit-equal to the "
           f"plain passes", flush=True)
+    return rec
+
+
+# the vertex kernel's bytes (csrc/wavefront.cu) at a bounce that reads no
+# path state: each ray's o, d and B8 slot in; its path state, radiance, next
+# ray and shadow segment out; each distinct hit triangle's v0/e1/e2 and the
+# 26 attribute columns a vertex reads; each emissive's alias entry and the
+# 17 floats of its row
+WAVEFRONT_RAY_BYTES = (6 + 1) * F32 + (9 + 3 + 6 + 6) * F32
+WAVEFRONT_TRI_BYTES = (9 + 26) * F32
+WAVEFRONT_LIGHT_BYTES = (2 + 17) * F32
+
+
+def lamp_hall(directory):
+    """The benchmark's many-light hall (``rtbench/scenes/lamp_hall.py``,
+    262,144 triangles) written into ``directory`` and loaded: (CpuScene,
+    its camera at 16:9)."""
+    import importlib.util
+
+    from zetaray_tpu_torch.scene.camera import Camera
+    from zetaray_tpu_torch.scene.scene import load_scene
+
+    bench = os.path.join(os.path.dirname(os.path.abspath(__file__)), "rtbench")
+    if bench not in sys.path:
+        sys.path.append(bench)  # the generator reads the harness's spec (``rtb``)
+    spec = importlib.util.spec_from_file_location(
+        "lamp_hall", os.path.join(bench, "scenes", "lamp_hall.py"))
+    gen = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(gen)
+    cpu = load_scene(str(gen.write(directory, {"split_rounds": 5})))
+    return cpu, Camera.look_at((-13.0, 1.7, 0.0), (0.0, 3.0, 0.0), vfov_deg=60.0,
+                               aspect=1920 / 1080)
+
+
+def wavefront_record(dev, report: str, seed: int = 0x2468ACE1) -> dict:
+    """Phase 3's wavefront row: ``ops.pathtracer.trace_reference``'s kernel
+    path (B8, the vertex kernel of ``csrc/wavefront.cu``, B9 a bounce) on
+    the 139,266-triangle box and the benchmark's 262,144-triangle hall at
+    1920x1080 camera rays, in the restir_di frame's configuration and in
+    GI's (the first hit returned, every seventh ray parked), against the
+    plain wavefront on the card, radiance and first hit bit for bit or it
+    raises. Returns each case's ms a bounce of both (CUDA events, B8 and B9
+    included) and their launches a trace (``device_launches``), the vertex
+    kernel's own ms at bounce 0 with every branch on (emission, NEE, the
+    BSDF sample, Russian roulette) beside its bound (bytes: path state,
+    attribute columns and emissive rows), and the registers of its two
+    instances (``report``: ``kernel_ab.ptxas_report``)."""
+    from zetaray_tpu_torch.accel import stream as ST
+    from zetaray_tpu_torch.kernel_ab import bits_equal
+    from zetaray_tpu_torch.ops import pathtracer as PT
+    from zetaray_tpu_torch.ops.pathtracer import PTConfig
+    from zetaray_tpu_torch.scene.camera import Camera
+    from zetaray_tpu_torch.scene.procedural import (
+        CAMERA_EYE, CAMERA_TARGET, CAMERA_VFOV, cornell_box,
+    )
+    from zetaray_tpu_torch.scene.scene import upload_scene
+    from zetaray_tpu_torch.scene.subdivide import subdivide_scene
+    from zetaray_tpu_torch.timing import cuda_ms
+
+    w, h = 1920, 1080
+    n = w * h
+    hall_cpu, hall_cam = lamp_hall(tempfile.mkdtemp(prefix="zetaray_hall_"))
+    scenes = {
+        "box139k": (subdivide_scene(cornell_box(), 100_000),
+                    Camera.look_at(CAMERA_EYE, CAMERA_TARGET, vfov_deg=CAMERA_VFOV, aspect=w / h)),
+        "hall262k": (hall_cpu, hall_cam),
+    }
+    configs = {"di": (PTConfig(max_bounces=4, min_emissive_bounce=2, min_nee_bounce=1), False),
+               "gi": (PTConfig(max_bounces=1, min_emissive_bounce=1), True)}
+    regs = {("mat" if "ILb1E" in e else "opaque"): t for e, t in ptxas_registers(report).items()
+            if "wavefront_vertex_kernel" in e}
+    rec = {"registers": regs}
+    for name, (cpu, cam) in scenes.items():
+        sc = upload_scene(cpu, device=dev)
+        o, d = cam.generate_rays(w, h, device=dev)
+        for cname, (cfg, first) in configs.items():
+            oo, dd = (PT.park(torch.arange(n, device=dev) % 7 != 3, o, d) if first else (o, d))
+
+            def kernel():
+                return PT.trace_reference(sc, oo, dd, seed, cfg, return_first_hit=first)
+
+            def plain():
+                return PT.trace_reference_plain(sc, oo, dd, seed, cfg, return_first_hit=first)
+
+            got, want = kernel(), plain()
+            pairs = list(zip((got[0], *got[1]), (want[0], *want[1]))) if first else [(got, want)]
+            for a, b in pairs:
+                if not bits_equal(a, b):
+                    raise AssertionError(f"wavefront {name} {cname}: the kernel path differs from "
+                                         f"the plain wavefront in {(a != b).sum().item()} values")
+            bounces = cfg.max_bounces + 1
+            case = dict(max_abs_err=0.0, ms=cuda_ms(kernel, reps=10) / bounces,
+                        plain_ms=cuda_ms(plain, reps=3, warmup=1) / bounces,
+                        launches=device_launches(kernel)[0], plain_launches=device_launches(plain)[0],
+                        lit=((got[0] if first else got).sum(1) > 0).float().mean().item())
+            rec[f"{name}_{cname}"] = case
+            print(f"wavefront {name} {cname} (1920x1080, {bounces} bounces, {case['lit']:.4f} of "
+                  f"the rays lit): {case['ms']:.4f} ms a bounce (plain {case['plain_ms']:.3f}), "
+                  f"{case['launches']} launches a trace (plain {case['plain_launches']}), bit-equal "
+                  f"to the plain wavefront", flush=True)
+        # the vertex kernel alone at bounce 0, every branch on
+        cfg = PTConfig(max_bounces=4, rr_start=0)
+        _, tri = ST.stream_closest(sc, o, d, cfg.t_min)
+        f32 = dict(dtype=torch.float32, device=dev)
+        state = torch.empty((PT.WF_ROWS, n), **f32)
+        rows = [torch.empty((n, 3), **f32) for _ in range(5)]
+        ms = cuda_ms(lambda: PT.wavefront_vertex(sc, o, d, tri, None, None, state, *rows, None, 0,
+                                                 seed, cfg), reps=20)
+        n_tri = tri[tri >= 0].unique().numel()
+        b_ms, b_by = bound(0, n * WAVEFRONT_RAY_BYTES + n_tri * WAVEFRONT_TRI_BYTES
+                           + sc.num_emissives * WAVEFRONT_LIGHT_BYTES)
+        rec[f"{name}_vertex"] = dict(ms=ms, bound_ms=b_ms, bound_by=b_by, hit_triangles=n_tri)
+        print(f"wavefront {name}: the vertex kernel at bounce 0 with every branch "
+              f"{ms:.4f} ms (bound {b_ms:.4f} by {b_by}, {n_tri} distinct triangles hit, "
+              f"{sc.num_emissives} emissives); registers {regs}", flush=True)
+        del sc, o, d, tri, state, rows
+        torch.cuda.empty_cache()
     return rec
 
 
@@ -986,6 +1112,7 @@ def main() -> int:
     from zetaray_tpu_torch.accel import stream as ST
     from zetaray_tpu_torch.accel.bvh import LEAF_SIZE
     from zetaray_tpu_torch.ops import denoise as DN
+    from zetaray_tpu_torch.ops import pathtracer as PT
     from zetaray_tpu_torch.ops import prelighting as PL
     from zetaray_tpu_torch.ops import restir_di as RD
     from zetaray_tpu_torch.ops import skydi as SD
@@ -1356,6 +1483,9 @@ def main() -> int:
     # a-trous at 1920x1080, the size both benchmark cells denoise
     record["atrous1080p"] = atrous_record(dev, report, seed)
     torch.cuda.empty_cache()
+    # the wavefront path trace at 1920x1080 on the benchmark's clustered scenes
+    record["wavefront1080p"] = wavefront_record(dev, report, seed)
+    torch.cuda.empty_cache()
 
     # -- phase 3 on the textured box (after the emissive power round trip, as
     # the JAX app does it): B4 and B5 on the GI bounce-0 rays of its textured
@@ -1636,6 +1766,7 @@ def main() -> int:
         "bounce_trace": MK.bounce_trace, "bounce_shade": MK.bounce_shade, "bounce": MK.bounce,
         "closest": XI.closest_hit, "stream_closest": ST.stream_closest,
         "occlusion_stream": ST.occlusion_stream, "atrous": DN.atrous_iteration_p,
+        "wavefront": PT.wavefront_vertex,
     }
     di_kernels = ("gbuffer", "ris", "occlusion")
     dense_kernels = ("gbuffer", "occlusion", "bounce_trace", "bounce_shade", "bounce", "closest")
@@ -1645,12 +1776,15 @@ def main() -> int:
         """Render chained frames on ``sc`` (default: the box), with the
         texture bundle ``textures``, the launch counts set to 0 just before
         and read just after; the kernels of ``expect`` must have launched,
-        those of ``absent`` not, and a-trous exactly when the frames
-        denoise. ``animate``: ``sc`` is the animated box's
+        those of ``absent`` not, a-trous exactly when the frames denoise,
+        and the wavefront's vertex kernel never on a dense scene.
+        ``animate``: ``sc`` is the animated box's
         upload, refit each frame to the rig's time ANIM_DT * k and rendered
         with the motion from the frame before (the refit inside the frame's
         time). Returns (last output, each frame's ms, counts)."""
         sc = scene if sc is None else sc
+        if sc.cluster_aabb is None:
+            absent = (*absent, "wavefront")
         if restir and cfg_.denoise:
             expect = (*expect, "atrous")
         else:
@@ -2039,16 +2173,16 @@ def main() -> int:
     large = dict(mode="restir_gi", pt=PTConfig(max_bounces=2), denoise=True, taa=True)
     stream_kernels = ("stream_closest", "occlusion_stream")
     out_cl, times_cl, launches_cl = chain(
-        RenderConfig(width=res_c, height=res_c, **large), cam, ("ris",) + stream_kernels,
-        sc=big, absent=dense_kernels)
+        RenderConfig(width=res_c, height=res_c, **large), cam,
+        ("ris", "wavefront") + stream_kernels, sc=big, absent=dense_kernels)
     show("clustered GI 256^2 (139,266 triangles), max_bounces=2", times_cl, launches_cl)
     out_cl_di, times_cl_di, counts_cl_di = chain(
         RenderConfig(width=res_c, height=res_c, **{**large, "indirect": False}), cam,
-        ("ris",) + stream_kernels, sc=big, absent=dense_kernels)
+        ("ris",) + stream_kernels, sc=big, absent=dense_kernels + ("wavefront",))
     show("clustered DI-only slice 256^2", times_cl_di, counts_cl_di)
     out_cl_pt, times_cl_pt, counts_cl_pt = chain(
         RenderConfig(width=res_c, height=res_c, mode="pt", pt=PTConfig(max_bounces=4)), cam,
-        stream_kernels, restir=False, sc=big, absent=dense_kernels)
+        ("wavefront",) + stream_kernels, restir=False, sc=big, absent=dense_kernels)
     show("clustered plain PT 256^2, max_bounces=4", times_cl_pt, counts_cl_pt)
     means_cl = {k: v["hdr"].mean().item() for k, v in
                 (("gi", out_cl), ("di", out_cl_di), ("plain_pt", out_cl_pt))}
@@ -2060,13 +2194,13 @@ def main() -> int:
     out_cl_app, times_cl_app, counts_cl_app = chain(
         RenderConfig(width=res_c, height=res_c, mode="restir_di", taa=True,
                      pt=PTConfig(max_bounces=4, sky=sky)), cam, ("ris",) + stream_kernels,
-        sc=big, absent=dense_kernels)
+        sc=big, absent=dense_kernels + ("wavefront",))  # a sky: the plain wavefront
     show("clustered JAX app default frame 256^2 with sun and sky", times_cl_app, counts_cl_app)
     write_png(os.path.join(IMAGE_DIR, "zetaray_torch_256_clustered_restir_di_sky.png"),
               out_cl_app["ldr"].cpu().numpy())
     out_cl_rpt, times_cl_rpt, counts_cl_rpt = chain(
-        RenderConfig(width=res_c, height=res_c, **pt_frame), cam, ("ris",) + stream_kernels,
-        sc=big, absent=dense_kernels)
+        RenderConfig(width=res_c, height=res_c, **pt_frame), cam,
+        ("ris", "wavefront") + stream_kernels, sc=big, absent=dense_kernels)
     show("clustered ReSTIR PT 256^2, max_bounces=3", times_cl_rpt, counts_cl_rpt)
     if not out_cl_rpt["hdr"].mean().item() > 1.05 * means_cl["di"]:
         raise AssertionError("the clustered ReSTIR PT frame adds no light to its DI-only frame")
@@ -2090,7 +2224,7 @@ def main() -> int:
              gi_kernels, (), True),
             ("clustered default 256^2", RenderConfig(width=res_c, height=res_c, mode="restir_di",
                                                      taa=True, pt=PTConfig(max_bounces=4)),
-             anim_big, ("ris",) + stream_kernels, dense_kernels, True),
+             anim_big, ("ris", "wavefront") + stream_kernels, dense_kernels, True),
             ("mode=pt, render_frame_restir 512^2", RenderConfig(
                 width=res, height=res, mode="pt", taa=True, pt=PTConfig(max_bounces=4)),
              anim_box, app_kernels, (), True),
@@ -2127,7 +2261,7 @@ def main() -> int:
     out_cc, times_cc, counts_cc = chain(
         RenderConfig(width=res_c, height=res_c, mode="restir_di", taa=True,
                      pt=PTConfig(max_bounces=4)), cam, ("ris", "stream_closest"), sc=big_cut,
-        absent=dense_kernels + ("occlusion_stream",), textures=ctex)
+        absent=dense_kernels + ("occlusion_stream", "wavefront"), textures=ctex)
     show(f"clustered cutout default frame 256^2 ({cut_big_cpu.num_tris} triangles)", times_cc,
          counts_cc)
     write_png(os.path.join(IMAGE_DIR, "zetaray_torch_256_clustered_cutout_restir_di.png"),
@@ -2352,6 +2486,16 @@ def main() -> int:
                     **({"sharded": {"launches": shard_launches["atrous"]}}
                        if "atrous" in shard_launches else {}),
                     **({"host_side": host["atrous"]} if "atrous" in host else {})})
+    # the wavefront's vertex kernel replaces no TPU kernel: the JAX wavefront
+    # is XLA-side. Its launches are the clustered GI chain's; the clustered
+    # plain PT, ReSTIR PT and animated default chains' beside them
+    kernels.append({"name": "wavefront", "route": "cuda",
+                    "source": "zetaray_tpu_torch/csrc/wavefront.cu", "replaces": None,
+                    "launches": launches_cl["wavefront"], **record["wavefront1080p"],
+                    "library_ms": None, "plain_pt": {"launches": counts_cl_pt["wavefront"]},
+                    "restir_pt": {"launches": counts_cl_rpt["wavefront"]},
+                    "animated": {"launches": anim_paths["clustered default 256^2"]["counts"][
+                        "wavefront"]}})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -17,6 +17,7 @@ from zetaray_tpu_torch.accel import stream as ST
 from zetaray_tpu_torch.kernel_ab import bits_equal
 from zetaray_tpu_torch.ops import denoise as DN
 from zetaray_tpu_torch.ops import restir_di as RD
+from zetaray_tpu_torch.ops import pathtracer as PT
 from zetaray_tpu_torch.ops.pathtracer import PTConfig
 from zetaray_tpu_torch.ops.restir_gi import secondary_rays
 from zetaray_tpu_torch.ops.sky import SkyParams
@@ -1146,3 +1147,105 @@ def test_atrous_wrapper_rejects_bad_inputs(cuda):
     with pytest.raises(ValueError):  # a column stride of 9
         it(img, nrm.transpose(1, 2).contiguous().transpose(1, 2), depth, valid, 1)
     assert it.launches == before
+
+
+# The path traces of the frames: the restir_di frame's (render.frame) and
+# GI's initial samples (ops.restir_gi l2_cfg, with the first hit and every
+# seventh ray parked, as GI parks its dead rays).
+WAVEFRONT_CONFIGS = {
+    "di": (PTConfig(max_bounces=4, min_emissive_bounce=2, min_nee_bounce=1), False),
+    "gi": (PTConfig(max_bounces=1, min_emissive_bounce=1), True),
+}
+
+
+@pytest.fixture(scope="module")
+def wavefront_scenes_1080p(tmp_path_factory):
+    """The 139,266-triangle box and the 262,144-triangle hall on the card
+    with their 1920x1080 camera rays."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    box_cam = Camera.look_at(CAMERA_EYE, CAMERA_TARGET, vfov_deg=CAMERA_VFOV, aspect=1920 / 1080)
+    from chip_smoke import lamp_hall
+
+    hall, hall_cam = lamp_hall(tmp_path_factory.mktemp("hall"))
+    out = {}
+    for name, cpu, cam in (("box139k", subdivide_scene(cornell_box(), 100_000), box_cam),
+                           ("hall262k", hall, hall_cam)):
+        scene = upload_scene(cpu, device=dev)
+        assert scene.cluster_aabb is not None and not scene.has_cutout
+        out[name] = (scene, *cam.generate_rays(1920, 1080, device=dev))
+    return out
+
+
+def _wavefront_both(scene, o, d, cfg, first_hit, pix0=0):
+    """(kernel path, plain wavefront) of the same rays; GI's parks every
+    seventh ray first."""
+    if first_hit:
+        o, d = PT.park(torch.arange(o.shape[0], device=o.device) % 7 != 3, o, d)
+    got = PT.trace_reference(scene, o, d, SEED, cfg, return_first_hit=first_hit, pix0=pix0)
+    want = PT.trace_reference_plain(scene, o, d, SEED, cfg, return_first_hit=first_hit,
+                                    pix0=pix0)
+    return got, want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scene_name", ["box139k", "hall262k"])
+@pytest.mark.parametrize("config", sorted(WAVEFRONT_CONFIGS))
+def test_wavefront_kernel_matches_plain_at_1080p(wavefront_scenes_1080p, scene_name, config):
+    """trace_reference's kernel path (B8, the vertex kernel, B9 a bounce)
+    against the plain wavefront on 1920x1080 camera rays: the radiance and
+    the bounce-0 ShadedHit bit for bit; one vertex launch a bounce."""
+    scene, o, d = wavefront_scenes_1080p[scene_name]
+    cfg, first_hit = WAVEFRONT_CONFIGS[config]
+    before = PT.wavefront_vertex.launches
+    got, want = _wavefront_both(scene, o, d, cfg, first_hit)
+    assert PT.wavefront_vertex.launches == before + cfg.max_bounces + 1
+    if first_hit:
+        (got, sh_got), (want, sh_want) = got, want
+        for a, b in zip(sh_got, sh_want):
+            assert a.dtype == b.dtype and bits_equal(a, b)
+    assert bits_equal(got, want)
+    assert (want.sum(1) > 0).float().mean().item() > 0.2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 127, 129, 1920 * 1080 - 37])
+def test_wavefront_kernel_on_ragged_shapes(wavefront_scenes_1080p, n):
+    """Ray counts that fill no whole block, and a row band's pixel offset:
+    bit for bit against the plain wavefront (the DI configuration)."""
+    scene, o, d = wavefront_scenes_1080p["box139k"]
+    cfg, _ = WAVEFRONT_CONFIGS["di"]
+    pix0 = 1920 * 1080 - n
+    got, want = _wavefront_both(scene, o[pix0:].contiguous(), d[pix0:].contiguous(), cfg, False,
+                                pix0=pix0)
+    assert bits_equal(got, want)
+
+
+@pytest.mark.cuda
+def test_wavefront_wrapper_rejects_bad_inputs(wavefront_scenes_1080p):
+    scene, o, d = wavefront_scenes_1080p["box139k"]
+    o, d = o[:256].contiguous(), d[:256].contiguous()
+    cfg = PTConfig(max_bounces=1)
+    n, dev = o.shape[0], o.device
+    state = torch.empty((PT.WF_ROWS, n), device=dev)
+    rows = [torch.empty((n, 3), device=dev) for _ in range(5)]
+    tri = torch.zeros((n,), dtype=torch.int32, device=dev)
+    before = PT.wavefront_vertex.launches
+    bad = [
+        dict(tri=tri.long()), dict(tri=tri[:-1]), dict(o=o.cpu()), dict(state=state[:-1]),
+        dict(occluded=torch.zeros((n,), dtype=torch.int32, device=dev)),
+        dict(o=o.T.contiguous().T),
+    ]
+    for change in bad:
+        args = dict(o=o, d=d, tri=tri, occluded=None, smb_kill=None, state=state, rad=rows[0],
+                    o_next=rows[1], d_next=rows[2], seg_o=rows[3], seg_d=rows[4],
+                    first_hit=None)
+        args.update(change)
+        with pytest.raises((TypeError, ValueError)):
+            PT.wavefront_vertex(scene, bounce=0, seed=SEED, cfg=cfg, **args)
+    with pytest.raises(RuntimeError):  # a first hit past bounce 0: the entry point refuses
+        PT.wavefront_vertex(scene, o, d, tri, None, None, state, *rows,
+                            (torch.empty((n,), device=dev),) * 3
+                            + (torch.empty((PT.A.WIDTH, n), device=dev),), 1, SEED, cfg)
+    assert PT.wavefront_vertex.launches == before

@@ -1,12 +1,14 @@
-"""The kernels B1, B2, B3, B4, B5, B6, B8 and B9 and the a-trous pass built for
-the host and held to their plain versions, so that their logic (the sign
-test, the pruning, the tie rules, node culling, the shadow sweep's early
-exit, RIS's checkpoints, the transmission and coat lobes of B5 and B6, and
-a-trous's wrapped taps and strides) is checked on every run of the tests,
-with no card.
+"""The kernels B1, B2, B3, B4, B5, B6, B8 and B9, the a-trous pass and the
+wavefront's vertex kernel built for the host and held to their plain
+versions, so that their logic (the sign test, the pruning, the tie rules,
+node culling, the shadow sweep's early exit, RIS's checkpoints, the
+transmission and coat lobes of B5 and B6, a-trous's wrapped taps and
+strides, and the wavefront's order of a bounce, random streams and path
+state) is checked on every run of the tests, with no card.
 
 ``csrc/gbuffer.cu``, ``csrc/ris.cu``, ``csrc/occlusion.cu``,
-``csrc/bounce.cu``, ``csrc/stream.cu`` and ``csrc/atrous.cu`` are compiled
+``csrc/bounce.cu``, ``csrc/stream.cu``, ``csrc/atrous.cu`` and
+``csrc/wavefront.cu`` are compiled
 with g++ against a small stand-in for
 ``cuda_runtime.h``: the CUDA qualifiers are empty, ``__shared__`` is
 ``static``, each block runs as ``blockDim.x`` threads with barriers behind
@@ -21,6 +23,8 @@ equal bit for bit; the shading rows of B1, B4 and B5, whose operations PyTorch o
 way, agree to 1e-5, and so does a-trous, whose expf and powf are the host's
 and whose division by sigma_color PyTorch on the CPU does not turn into a
 multiply.
+The wavefront's radiance agrees to the limits ``test_wavefront_on_host``
+states (the host's cosf, sinf and rsqrtf in its BSDF samples).
 
 Skips only where g++ is absent.
 """
@@ -44,13 +48,15 @@ from zetaray_tpu_torch.accel.bvh import LEAF_SIZE, WALK_STACK_MAX
 from zetaray_tpu_torch.accel.megakernel import INF
 from zetaray_tpu_torch.core.rng import uniform4
 from zetaray_tpu_torch.ops import denoise as DN
+from zetaray_tpu_torch.ops import pathtracer as PT
 from zetaray_tpu_torch.ops import restir_di as RD
 from zetaray_tpu_torch.ops.pathtracer import PTConfig
 from zetaray_tpu_torch.ops.restir_gi import secondary_rays
 from zetaray_tpu_torch.ops.sky import SkyParams, sun_direction
 from zetaray_tpu_torch.scene.camera import Camera
 from zetaray_tpu_torch.scene.procedural import (
-    CAMERA_EYE, CAMERA_TARGET, CAMERA_VFOV, cornell_box, multi_light_box, repeated_box,
+    CAMERA_EYE, CAMERA_TARGET, CAMERA_VFOV, cornell_box, materials_box, multi_light_box,
+    repeated_box,
 )
 from zetaray_tpu_torch.scene.scene import upload_scene, with_cluster_tree
 from zetaray_tpu_torch.scene.subdivide import subdivide_scene
@@ -156,13 +162,15 @@ void zr_launch(int grid, int block, size_t shared, K kernel, A... args) {
 LAUNCH = re.compile(r"(\w+)<<<\s*([^,]+),\s*([^,]+),\s*([^,]+),[^>]*>>>\(")
 DYNAMIC_SHARED = re.compile(r"extern __shared__ (\w+) (\w+)\[\];")
 KERNELS = ("zr_gbuffer", "zr_ris", "zr_occlusion", "zr_bounce_trace", "zr_bounce_shade",
-           "zr_bounce", "zr_stream_closest", "zr_stream_occlusion", "zr_atrous")
+           "zr_bounce", "zr_stream_closest", "zr_stream_occlusion", "zr_atrous",
+           "zr_wavefront_vertex")
 
 
 @pytest.fixture(scope="session")
 def host_kernels(tmp_path_factory):
     """csrc/gbuffer.cu, csrc/ris.cu, csrc/occlusion.cu, csrc/bounce.cu,
-    csrc/stream.cu and csrc/atrous.cu built for the host, loaded."""
+    csrc/stream.cu, csrc/atrous.cu and csrc/wavefront.cu built for the host,
+    loaded."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ to build the kernels for the host")
@@ -172,7 +180,8 @@ def host_kernels(tmp_path_factory):
     for p in native.CSRC.glob("*.cuh"):
         shutil.copy(p, tmp / p.name)
     srcs = []
-    for name in ("gbuffer.cu", "ris.cu", "occlusion.cu", "bounce.cu", "stream.cu", "atrous.cu"):
+    for name in ("gbuffer.cu", "ris.cu", "occlusion.cu", "bounce.cu", "stream.cu", "atrous.cu",
+                 "wavefront.cu"):
         text = LAUNCH.sub(r"zr_launch(\2, \3, \4, \1, ", (native.CSRC / name).read_text())
         text = DYNAMIC_SHARED.sub(
             r"\1* const \2 = reinterpret_cast<\1*>(mock::dynamic_shared.data());", text)
@@ -821,3 +830,165 @@ def test_atrous_on_host(host_kernels, shape, step):
     assert torch.equal(got[:, ~valid], img[:, ~valid])
     assert not torch.equal(got[:, valid], img[:, valid])
     assert host_atrous(host_kernels, img, nrm, depth, valid, step, size=(-1, w)) is None
+
+
+# The wavefront path trace's vertex kernel (csrc/wavefront.cu) on the
+# 546-triangle box clustered by 128 (and the materials box split and
+# clustered the same way), with each case's PTConfig fields and
+# trace_reference arguments: the restir_di frame's path trace
+# (render.frame), GI's initial samples (ops.restir_gi l2_cfg; with the
+# stochastic multi-bounce kill at two bounces), ReSTIR PT's suffix
+# (max_bounces = 0), glass and a coat with path regularization and the
+# firefly clamp, and a row band's pixel offset.
+WAVEFRONT_CASES = {
+    "di": ("box546", dict(max_bounces=4, min_emissive_bounce=2, min_nee_bounce=1), {}),
+    "gi": ("box546", dict(max_bounces=1, min_emissive_bounce=1), dict(return_first_hit=True)),
+    "gi_smb": ("box546", dict(max_bounces=2, min_emissive_bounce=1),
+               dict(return_first_hit=True, smb_kill=True)),
+    "pt_suffix": ("box546", dict(max_bounces=0), {}),
+    "materials": ("materials546", dict(max_bounces=3, rr_start=1, min_emissive_bounce=1,
+                                       path_regularization=True, firefly_clamp=0.05),
+                  dict(return_first_hit=True)),
+    "pix0": ("box546", dict(max_bounces=4, min_emissive_bounce=2, min_nee_bounce=1),
+             dict(pix0=3 * 4096 + 5)),
+}
+WAVEFRONT_SCENES = {
+    "box546": lambda: subdivide_scene(cornell_box(), 500),
+    "materials546": lambda: materials_box(500),
+}
+
+
+@pytest.fixture(scope="module")
+def wavefront_scenes():
+    return {k: upload_scene(f(), device="cpu", cluster_size=128)
+            for k, f in WAVEFRONT_SCENES.items()}
+
+
+def _wavefront_rays(n_side=64):
+    """The box camera's rays, every seventh parked as GI parks its dead
+    rays (``ops.pathtracer.park``)."""
+    cam = Camera.look_at(CAMERA_EYE, CAMERA_TARGET, vfov_deg=CAMERA_VFOV, aspect=1.0)
+    o, d = cam.generate_rays(n_side, n_side, device="cpu")
+    return PT.park(torch.arange(o.shape[0]) % 7 != 3, o, d)
+
+
+def _host_walks(lib, monkeypatch):
+    """B8 and B9 of ``accel.stream`` replaced by their host builds."""
+    monkeypatch.setattr(ST, "stream_closest", lambda scene, o, d, t_min=1e-4, t_max=INF:
+                        host_stream_closest(lib, scene, o, d, t_min, t_max))
+    monkeypatch.setattr(ST, "occlusion_stream", lambda scene, o, d, t_min=1e-4, t_max=INF:
+                        host_stream_occlusion(lib, scene, o, d, t_min, t_max))
+
+
+def _wavefront_case(scenes, case):
+    name, fields, kw = WAVEFRONT_CASES[case]
+    scene = scenes[name]
+    o, d = _wavefront_rays()
+    kw = dict(kw)
+    if kw.get("smb_kill"):
+        kw["smb_kill"] = uniform4(torch.arange(o.shape[0]), 97, SEED, salt=0x53B0)[0] < 0.5
+    return scene, o, d, PTConfig(**fields), kw
+
+
+@pytest.mark.parametrize("case", sorted(WAVEFRONT_CASES))
+def test_wavefront_on_host(host_kernels, wavefront_scenes, monkeypatch, case):
+    """The kernel path of trace_reference (B8, the vertex kernel, B9 a
+    bounce, with the host builds of all three) against the plain wavefront
+    on 4,096 camera rays: the bounce-0 ShadedHit bit for bit (the
+    Moller-Trumbore epilogue's operations are exact on both); the radiance
+    of 90% of the rays bit for bit, of 99.9% to 1e-4 relative and of every
+    ray to 1e-2 (1e-6 absolute). The host's cosf, sinf and rsqrtf (1 /
+    sqrtf here) round an ulp away from PyTorch's CPU kernels in the BSDF
+    samples, and the ulp grows along the later vertices of a path (on the
+    card both sides use the card's functions). One vertex launch a bounce;
+    the random streams follow ``pix0``."""
+    scene, o, d, cfg, kw = _wavefront_case(wavefront_scenes, case)
+    want = PT.trace_reference_plain(scene, o, d, SEED, cfg, **kw)
+    _host_walks(host_kernels, monkeypatch)
+    before = PT.wavefront_vertex.launches
+    got = PT.trace_wavefront(scene, o, d, SEED, cfg, lib=host_kernels, **kw)
+    assert PT.wavefront_vertex.launches == before + cfg.max_bounces + 1
+    if kw.get("return_first_hit"):
+        (want, sh_want), (got, sh_got) = want, got
+        for a, b in zip(sh_got, sh_want):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+    assert (want.sum(1) > 0).sum() > 10
+    assert (got == want).all(1).float().mean() >= 0.9
+    assert torch.isclose(got, want, rtol=1e-4, atol=1e-6).all(1).float().mean() >= 0.999
+    torch.testing.assert_close(got, want, rtol=1e-2, atol=1e-6)
+
+
+@pytest.mark.parametrize("kind", ["clustered", "dense", "cutout", "textures", "sky"])
+def test_wavefront_dispatch(wavefront_scenes, tmp_path, monkeypatch, kind):
+    """``wavefront_eligible``: the vertex kernel takes trace_reference's
+    bounces on a clustered scene only, and not with alpha cutout, with
+    ``textures`` or with a sky. On CPU tensors trace_reference takes the
+    plain wavefront in every case and never enters the kernel path."""
+    from zetaray_tpu_torch.scene.procedural import cutout_box, textured_box
+    from zetaray_tpu_torch.scene.textures import load_scene_textures
+
+    cfg, textures = PTConfig(max_bounces=1), None
+    scene = wavefront_scenes["box546"]
+    if kind == "dense":
+        scene = upload_scene(cornell_box(), device="cpu")
+    elif kind == "cutout":
+        scene = upload_scene(cutout_box(tmp_path), device="cpu", cluster_size=128)
+        assert scene.has_cutout
+    elif kind == "textures":
+        cpu = textured_box(tmp_path)
+        scene = upload_scene(cpu, device="cpu", cluster_size=128)
+        textures = load_scene_textures(cpu, device="cpu")
+    elif kind == "sky":
+        cfg = PTConfig(max_bounces=1, sky=SkyParams(sun_dir=(0.2, 0.45, 0.87)))
+    assert PT.wavefront_eligible(scene, cfg, textures) == (kind == "clustered")
+
+    def refuse(*a, **kw):
+        raise AssertionError("the kernel path ran on CPU tensors")
+
+    monkeypatch.setattr(PT, "trace_wavefront", refuse)
+    o, d = (x[::64].contiguous() for x in _wavefront_rays())
+    before = PT.wavefront_vertex.launches
+    rad = PT.trace_reference(scene, o, d, SEED, cfg, textures=textures)
+    assert rad.shape == o.shape and PT.wavefront_vertex.launches == before
+
+
+def test_wavefront_ray_counter_adds_no_operation_or_sync(host_kernels, wavefront_scenes,
+                                                         monkeypatch):
+    """The vertex kernel's ray count (``stats.count_rays("wavefront", n)``,
+    beside B8's and B9's) comes from shapes on the host: the kernel path
+    runs the same operators and counts the same syncs in a profiled frame
+    with it as without it, hands it Python ints, and the frame's record
+    holds the rays of each kernel: max_bounces + 1 vertex launches and B8
+    launches, and a B9 launch per NEE bounce."""
+    from zetaray_tpu_torch.utils import stats as TST
+    from zetaray_tpu_torch.utils.stats import FrameStats
+
+    scene, o, d, cfg, _ = _wavefront_case(wavefront_scenes, "di")
+    _host_walks(host_kernels, monkeypatch)
+    handed = []
+    count = FrameStats.count_rays
+
+    def spy(self, kernel, n):
+        handed.append(type(n))
+        count(self, kernel, n)
+
+    def profiled():
+        rec = FrameStats()
+        monkeypatch.setattr(TST, "stats", rec)
+        monkeypatch.setattr(PT, "stats", rec)
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            with rec.frame():
+                PT.trace_wavefront(scene, o, d, SEED, cfg, lib=host_kernels)
+        ops = [e.name for e in prof.events() if e.name.startswith("aten::")]
+        return sorted(ops), rec.last
+
+    PT.trace_wavefront(scene, o, d, SEED, cfg, lib=host_kernels)  # the walks' rows, cached
+    monkeypatch.setattr(FrameStats, "count_rays", spy)
+    ops_on, fr_on = profiled()
+    monkeypatch.setattr(FrameStats, "count_rays", lambda self, kernel, n: None)
+    ops_off, fr_off = profiled()
+    n = o.shape[0]
+    assert fr_on.profiled and not fr_off.rays
+    assert fr_on.rays == {"B8": 5 * n, "wavefront": 5 * n, "B9": 3 * n}
+    assert set(handed) == {int} and len(handed) == 13
+    assert ops_on == ops_off and fr_on.syncs == fr_off.syncs

@@ -41,6 +41,9 @@ the plain versions return, bit for bit.
 The epilogues stay in PyTorch, as in the JAX package: ``closest_hit_stream``
 recomputes the winner's Woop (t, u, v), ``closest_hit_stream_shaded`` its
 Moller-Trumbore (t, u, v) from ``scene.v0/e1/e2`` and its attribute row.
+The wavefront path trace's vertex kernel (``ops.pathtracer``,
+``csrc/wavefront.cu``) computes that Moller-Trumbore epilogue itself, in
+the same order, after a launch of ``stream_closest``.
 The JAX package's shaft sort, overlap prepass, visit-pair grid, two-phase
 distance cap and stream table layouts are TPU workarounds with no
 counterpart here.

@@ -84,6 +84,11 @@ _SIGNATURES = {
     # stride, dst, h, w, step, sigma_color, sigma_normal, sigma_depth, stream
     "zr_atrous": [_VP, _LL, _LL, _VP, _LL, _LL, _VP, _LL, _VP, _LL, _VP, _I, _I, _I,
                   _F, _F, _F, _VP],
+    # o, d, tri, occluded, smb_kill, v0, e1, e2, attrs, em_prob, em_alias, em_attrs, state,
+    # rad, o_next, d_next, seg_o, seg_d, hit t, u, v, attrs, n, bounce, pix0, seed, n_em,
+    # min_emissive_bounce, min_nee_bounce, rr_start, nee, has_lights, last, path_reg,
+    # material flags, firefly, stream
+    "zr_wavefront_vertex": [_VP] * 22 + [_I, _I, _I, ctypes.c_uint32] + [_I] * 9 + [_F, _VP],
 }
 
 _lock = threading.Lock()

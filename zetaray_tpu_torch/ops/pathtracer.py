@@ -34,6 +34,20 @@ sun (``ops.sky``). ``path_regularization`` clamps GGX roughness at the
 vertices past the first, ``firefly_clamp`` clamps each NEE sample, and the
 stochastic multi-bounce mask ``smb_kill`` ends the chosen paths after their
 first vertex (``ops.restir_gi.initial_samples`` draws it).
+
+On the card ``trace_reference`` runs its bounces as hand-written CUDA
+around the unchanged B8 and B9 (``csrc/wavefront.cu``): a bounce is B8
+(``accel.stream.stream_closest``), one launch of the vertex kernel
+(``wavefront_vertex``: the hit, the material, emission, the NEE sample and
+its parked segment, the BSDF sample, Russian roulette and the next ray,
+with the previous bounce's NEE added where B9 found its segment free) and,
+where NEE runs, B9 (``accel.stream.occlusion_stream``), bit-equal to the
+plain wavefront there. It takes that path for a CUDA tensor on a clustered
+scene (``cluster_aabb`` set) without alpha cutout and without
+``textures``, where ``cfg.sky`` is None. The plain wavefront
+(``trace_reference_plain``) stays the CPU path and the reference, and takes
+a CUDA tensor on a dense scene, on a cutout scene, with ``textures`` and
+with a sky (and its sun NEE).
 """
 
 from __future__ import annotations
@@ -42,12 +56,15 @@ from dataclasses import dataclass
 
 import torch
 
-from ..accel.intersect import intersect_closest_shaded, intersect_occluded
-from ..accel.megakernel import hit_material, trace_megakernel
+from .. import native
+from ..accel import stream as ST
+from ..accel.intersect import ShadedHit, intersect_closest_shaded, intersect_occluded
+from ..accel.megakernel import hit_material, material_flags, trace_megakernel
 from ..core import vec3 as v3
 from ..core.rng import pcg4d_lanes, uniform4
 from ..core.vec3 import V3
-from ..scene.scene import A
+from ..scene.scene import A, EA
+from ..utils.stats import stats
 from . import lights as L
 from . import shading_soa as S
 from . import sky as SK
@@ -58,6 +75,7 @@ _EPS_RAY = 1e-3  # ray offset along the geometric normal (scene units)
 # streaming traversal culls them at the root box.
 _PARK = 3.0e7
 _PARK_DIR = (1.0, 0.0, 0.0)
+WF_ROWS = 9  # the path state rows of the vertex kernel (csrc/wavefront.cu)
 
 
 @dataclass(frozen=True)
@@ -136,7 +154,19 @@ def _div(a: V3, s) -> V3:
 def trace_reference(scene, o, d, seed: int, cfg: PTConfig = PTConfig(),
                     return_first_hit: bool = False, smb_kill=None, textures=None,
                     spread_angle=0.0, pix0: int = 0):
-    """Wavefront path trace of rays o, d [N, 3]: radiance [N, 3], and with
+    """Wavefront path trace of rays o, d [N, 3] (``trace_reference_plain``):
+    on a CUDA tensor where ``wavefront_eligible`` says so, its bounces run
+    as B8, the vertex kernel and B9 (``trace_wavefront``), bit-equal."""
+    if o.is_cuda and wavefront_eligible(scene, cfg, textures):
+        return trace_wavefront(scene, o, d, seed, cfg, return_first_hit, smb_kill, pix0)
+    return trace_reference_plain(scene, o, d, seed, cfg, return_first_hit, smb_kill, textures,
+                                 spread_angle, pix0)
+
+
+def trace_reference_plain(scene, o, d, seed: int, cfg: PTConfig = PTConfig(),
+                          return_first_hit: bool = False, smb_kill=None, textures=None,
+                          spread_angle=0.0, pix0: int = 0):
+    """Wavefront path trace of rays o, d [N, 3] in plain PyTorch: radiance [N, 3], and with
     ``return_first_hit`` also the bounce-0 ``ShadedHit`` (the GI pass reads
     its reconnection vertex from it). Bounces 0..max_bounces, the last one
     stopping after its emission. Dead rays are parked (``park``).
@@ -286,6 +316,122 @@ def trace_reference(scene, o, d, seed: int, cfg: PTConfig = PTConfig(),
         o, d = park(alive, v3.aos3(pos + ng * _EPS_RAY * offset), v3.aos3(wi_w))
 
     rad = v3.aos3(radiance)
+    return (rad, sh0) if return_first_hit else rad
+
+
+def wavefront_eligible(scene, cfg: PTConfig, textures=None) -> bool:
+    """Whether the vertex kernel takes ``trace_reference``'s bounces on
+    ``scene`` (for a CUDA tensor): a clustered scene without alpha cutout,
+    without ``textures`` and without a sky."""
+    return (scene.cluster_aabb is not None and not scene.has_cutout and not textures
+            and cfg.sky is None)
+
+
+def _require(t: torch.Tensor, name: str, dtype: torch.dtype, shape, device) -> None:
+    """Validate a tensor handed to the vertex kernel (on the card, or on the
+    CPU for a host build of it)."""
+    if t.device != device:
+        raise ValueError(f"{name}: expected a tensor on {device}, got one on {t.device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+
+
+def wavefront_vertex(scene, o, d, tri, occluded, smb_kill, state, rad, o_next, d_next, seg_o,
+                     seg_d, first_hit, bounce: int, seed: int, cfg: PTConfig, pix0: int = 0,
+                     lib=None) -> None:
+    """One launch of the vertex kernel (``csrc/wavefront.cu``) for rays o, d
+    [N, 3] after their closest hit (B8's slots ``tri`` [N] int32): it adds
+    the previous bounce's NEE where ``occluded`` (B9's bool [N] answer for
+    that bounce's segments, None where it ran no NEE) is False, then shades
+    bounce ``bounce`` into the path state ``state`` [WF_ROWS, N] and the
+    radiance ``rad`` [N, 3], writes the next rays to ``o_next``/``d_next``
+    (which may be o, d) and, where NEE runs, its segments to
+    ``seg_o``/``seg_d`` [N, 3]. ``first_hit``: None, or at bounce 0 the
+    tensors (t, u, v [N], attribute rows [A.WIDTH, N]) of the hit.
+    ``smb_kill``: None or bool [N]. ``lib``: the library to launch from
+    (default ``native.lib()``; the tests pass a host build)."""
+    n, dev = o.shape[0], o.device
+    tp = scene.tri_attrs.shape[0]
+    for name, t in (("o", o), ("d", d), ("rad", rad), ("o_next", o_next), ("d_next", d_next),
+                    ("seg_o", seg_o), ("seg_d", seg_d)):
+        _require(t, name, torch.float32, (n, 3), dev)
+    _require(tri, "tri", torch.int32, (n,), dev)
+    _require(state, "state", torch.float32, (WF_ROWS, n), dev)
+    for name, t in (("v0", scene.v0), ("e1", scene.e1), ("e2", scene.e2)):
+        _require(t, name, torch.float32, (tp, 3), dev)
+    _require(scene.tri_attrs, "tri_attrs", torch.float32, (tp, A.WIDTH), dev)
+    ep = scene.em_attrs.shape[0]
+    if scene.num_emissives > ep:
+        raise ValueError(f"{scene.num_emissives} emissives in a table of {ep} rows")
+    _require(scene.em_attrs, "em_attrs", torch.float32, (ep, EA.WIDTH), dev)
+    _require(scene.em_prob, "em_prob", torch.float32, (ep,), dev)
+    _require(scene.em_alias, "em_alias", torch.int32, (ep,), dev)
+    for name, t in (("occluded", occluded), ("smb_kill", smb_kill)):
+        if t is not None:
+            _require(t, name, torch.bool, (n,), dev)
+    hit = [None] * 4
+    if first_hit is not None:
+        for name, t, shape in zip(("t", "u", "v", "attrs"), first_hit,
+                                  ((n,), (n,), (n,), (A.WIDTH, n))):
+            _require(t, f"first_hit {name}", torch.float32, shape, dev)
+        hit = [t.data_ptr() for t in first_hit]
+    ptr = lambda t: None if t is None else t.data_ptr()
+    lib = native.lib() if lib is None else lib
+    err = lib.zr_wavefront_vertex(
+        o.data_ptr(), d.data_ptr(), tri.data_ptr(), ptr(occluded), ptr(smb_kill),
+        scene.v0.data_ptr(), scene.e1.data_ptr(), scene.e2.data_ptr(), scene.tri_attrs.data_ptr(),
+        scene.em_prob.data_ptr(), scene.em_alias.data_ptr(), scene.em_attrs.data_ptr(),
+        state.data_ptr(), rad.data_ptr(), o_next.data_ptr(), d_next.data_ptr(),
+        seg_o.data_ptr(), seg_d.data_ptr(), *hit, n, bounce, pix0, int(seed) & 0xFFFFFFFF,
+        scene.num_emissives, cfg.min_emissive_bounce, cfg.min_nee_bounce, cfg.rr_start,
+        int(cfg.nee), int(scene.num_emissives > 0), int(bounce == cfg.max_bounces),
+        int(cfg.path_regularization), material_flags(scene), float(cfg.firefly_clamp),
+        native.stream_ptr(dev) if o.is_cuda else None,
+    )
+    native.check(err, "wavefront_vertex")
+    stats.count_rays("wavefront", n)
+    wavefront_vertex.launches += 1
+
+
+wavefront_vertex.launches = 0
+
+
+def trace_wavefront(scene, o, d, seed: int, cfg: PTConfig = PTConfig(),
+                    return_first_hit: bool = False, smb_kill=None, pix0: int = 0, lib=None):
+    """``trace_reference`` on a clustered scene as B8, the vertex kernel
+    (``wavefront_vertex``) and, where NEE runs, B9 a bounce: the same
+    arguments and results, bit for bit on the card. B8 and B9 are looked up
+    on ``accel.stream`` at each call; on CPU tensors they take their plain
+    versions, and ``lib`` a host build of the vertex kernel (the tests').
+    B8 refuses a dense scene."""
+    n, dev = o.shape[0], o.device
+    o, d = o.contiguous(), d.contiguous()
+    f32 = dict(dtype=torch.float32, device=dev)
+    state = torch.empty((WF_ROWS, n), **f32)
+    rad, o_next, d_next, seg_o, seg_d = (torch.empty((n, 3), **f32) for _ in range(5))
+    has_lights = scene.num_emissives > 0
+    kill = None if smb_kill is None else smb_kill.contiguous()
+    sh0 = occluded = None
+    for bounce in range(cfg.max_bounces + 1):
+        stats.count_rays("B8", n)
+        _, tri = ST.stream_closest(scene, o, d, cfg.t_min)
+        first = None
+        if return_first_hit and bounce == 0:
+            first = (*(torch.empty((n,), **f32) for _ in range(3)),
+                     torch.empty((A.WIDTH, n), **f32))
+        wavefront_vertex(scene, o, d, tri, occluded, kill, state, rad, o_next, d_next, seg_o,
+                         seg_d, first, bounce, seed, cfg, pix0, lib)
+        if first is not None:
+            sh0 = ShadedHit(first[0], tri, *first[1:])
+        occluded = None
+        if cfg.nee and has_lights and cfg.min_nee_bounce <= bounce < cfg.max_bounces:
+            stats.count_rays("B9", n)
+            occluded = ST.occlusion_stream(scene, seg_o, seg_d, 1e-3, 1.0 - 1e-3)
+        o, d = o_next, d_next
     return (rad, sh0) if return_first_hit else rad
 
 

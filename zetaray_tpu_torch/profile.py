@@ -27,6 +27,7 @@ from .accel import intersect as XI
 from .accel import megakernel as MK
 from .accel import stream as ST
 from .ops import denoise as DN
+from .ops import pathtracer as PT
 from .ops import restir_di as RD
 from .render import frame as F
 from .utils.stats import stats
@@ -35,11 +36,13 @@ from .utils.stats import stats
 LAUNCHERS = {"B1": (MK, "gbuffer"), "B2": (RD, "initial_candidates"), "B3": (XI, "occlusion"),
              "B4": (MK, "bounce_trace"), "B5": (MK, "bounce_shade"), "B6": (MK, "bounce"),
              "B7": (XI, "closest_hit"), "B8": (ST, "stream_closest"),
-             "B9": (ST, "occlusion_stream"), "atrous": (DN, "atrous_iteration_p")}
+             "B9": (ST, "occlusion_stream"), "atrous": (DN, "atrous_iteration_p"),
+             "wavefront": (PT, "wavefront_vertex")}
 
 
 def launch_counts() -> dict:
-    """{B1..B9, atrous: launches so far} as each kernel's wrapper counts them."""
+    """{B1..B9, atrous, wavefront: launches so far} as each kernel's wrapper
+    counts them."""
     return {tag: getattr(m, a).launches for tag, (m, a) in LAUNCHERS.items()}
 
 
