@@ -695,10 +695,6 @@ def sharded_rank(rank: int, world: int, init_method: str, backend: str, specs, s
     the exchanges, the peak memory, the counts and (the gathered image, on
     every rank) each frame's HDR."""
     from zetaray_tpu_torch import native
-    from zetaray_tpu_torch.accel import intersect as XI
-    from zetaray_tpu_torch.accel import megakernel as MK
-    from zetaray_tpu_torch.ops import denoise as DN
-    from zetaray_tpu_torch.ops import restir_di as RD
     from zetaray_tpu_torch.parallel import halo as HX
     from zetaray_tpu_torch.parallel import mesh as PM
     from zetaray_tpu_torch.scene.procedural import cornell_box
@@ -708,14 +704,13 @@ def sharded_rank(rank: int, world: int, init_method: str, backend: str, specs, s
     dev = tiles.device
     native.lib()
     scene = upload_scene(cornell_box(), device=dev)
-    kernels_of = {"gbuffer": MK.gbuffer, "ris": RD.initial_candidates, "occlusion": XI.occlusion,
-                  "bounce_trace": MK.bounce_trace, "bounce_shade": MK.bounce_shade,
-                  "bounce": MK.bounce, "closest": XI.closest_hit,
-                  "atrous": DN.atrous_iteration_p}
+    kernels_of = {"gbuffer": "zr_gbuffer", "ris": "zr_ris", "occlusion": "zr_occlusion",
+                  "bounce_trace": "zr_bounce_trace", "bounce_shade": "zr_bounce_shade",
+                  "bounce": "zr_bounce", "closest": "zr_closest", "atrous": "zr_atrous"}
     out = {}
     for tag, cfg, frames in specs:
-        for fn in kernels_of.values():
-            fn.launches = 0
+        for entry in kernels_of.values():
+            native.launches[entry] = 0
         HX.stats.update(bytes=0, calls=0, seconds=0.0)
         torch.cuda.reset_peak_memory_stats(dev)
         state, times, hdrs, stats = None, [], [], []
@@ -729,15 +724,9 @@ def sharded_rank(rank: int, world: int, init_method: str, backend: str, specs, s
             stats.append({key: HX.stats[key] - before[key] for key in before})
             hdrs.append(PM.gather_rows(res["hdr"], tiles))
         out[tag] = dict(times=times, exchange=stats, peak_mb=torch.cuda.max_memory_allocated(dev)
-                        / 2**20, counts={name: fn.launches for name, fn in kernels_of.items()},
+                        / 2**20, counts={n: native.launches[e] for n, e in kernels_of.items()},
                         hdr=hdrs if rank == 0 else None, device=str(dev))
     return out
-
-
-# the hand-written kernels by the tags of the frame stats (profile.LAUNCHERS)
-TAG_NAMES = {"B1": "gbuffer", "B2": "ris", "B3": "occlusion", "B4": "bounce_trace",
-             "B5": "bounce_shade", "B6": "bounce", "B7": "closest", "B8": "stream_closest",
-             "B9": "occlusion_stream"}
 
 
 def _http(port: int, path: str, obj=None):
@@ -821,6 +810,7 @@ def host_phase(dev, chain, show, kernels_of, big_cpu, seed: int, res: int) -> di
     from zetaray_tpu_torch import native
     from zetaray_tpu_torch.accel import intersect as XI
     from zetaray_tpu_torch.gui import Viewer, make_server
+    from zetaray_tpu_torch.profile import LAUNCHERS
     from zetaray_tpu_torch.ops import prelighting as PL
     from zetaray_tpu_torch.ops.pathtracer import PTConfig
     from zetaray_tpu_torch.ops.sky import SkyParams
@@ -838,6 +828,9 @@ def host_phase(dev, chain, show, kernels_of, big_cpu, seed: int, res: int) -> di
 
     t_phase = time.perf_counter()
     host = {}  # kernel name -> {path: launches}
+    # the kernels' names by the tags of the frame stats
+    entry_names = {e: name for name, e in kernels_of.items()}
+    tag_names = {tag: entry_names[e] for tag, e in LAUNCHERS.items()}
 
     def note(path, counts):
         for name, n in counts.items():
@@ -866,15 +859,15 @@ def host_phase(dev, chain, show, kernels_of, big_cpu, seed: int, res: int) -> di
         if p.returncode != 0:
             raise AssertionError(f"{tag} exited {p.returncode}:\n{p.stderr[-4000:]}")
         frame_ms = [float(x) for x in re.findall(r"\] frame \d+: ([0-9.]+) ms", p.stderr)]
-        launches = {TAG_NAMES[t]: int(n) for t, n in re.findall(r"launches/(B\d): (\d+)",
+        launches = {tag_names[t]: int(n) for t, n in re.findall(r"launches/(B\d): (\d+)",
                                                                  p.stdout)}
         means = [float(read_png(os.path.join(out_dir, f"frame_{i:04d}.png")).mean())
                  for i in range(4)]
         if len(frame_ms) != 4 or min(means) < 10.0:
             raise AssertionError(f"{tag}: frames {frame_ms} ms, PNG means {means}")
         for t in expect:
-            if launches.get(TAG_NAMES[t], 0) <= 0:
-                raise AssertionError(f"{tag}: kernel {TAG_NAMES[t]} was not launched: {launches}")
+            if launches.get(tag_names[t], 0) <= 0:
+                raise AssertionError(f"{tag}: kernel {tag_names[t]} was not launched: {launches}")
         if "--dump-graph" in opts and "digraph frame {" not in p.stdout:
             raise AssertionError(f"{tag}: no frame graph printed")
         passes = re.findall(r"^  (.+): ([0-9.]+) ms$", p.stdout, re.M)
@@ -908,8 +901,8 @@ def host_phase(dev, chain, show, kernels_of, big_cpu, seed: int, res: int) -> di
             ("clustered 139k", upload_scene(big_cpu, device=dev), big_cpu, "stream_closest"),
             ("cutout", upload_scene(cut_cpu, device=dev), cut_cpu, "closest")):
         plain_sc = _scene_on_cpu(sc)
-        for fn in kernels_of.values():
-            fn.launches = 0
+        for entry in kernels_of.values():
+            native.launches[entry] = 0
         ms, hits = [], 0
         for px, py in pixels:
             t0 = time.perf_counter()
@@ -921,7 +914,7 @@ def host_phase(dev, chain, show, kernels_of, big_cpu, seed: int, res: int) -> di
                     got.hit and abs(got.t - want.t) > 1e-6 * abs(want.t)):
                 raise AssertionError(f"pick {tag} ({px}, {py}): {got} against plain {want}")
             hits += got.hit
-        counts = {name: fn.launches for name, fn in kernels_of.items()}
+        counts = {name: native.launches[e] for name, e in kernels_of.items()}
         if counts[kernel] < len(pixels) or hits < 5:
             raise AssertionError(f"pick {tag}: launches {counts}, {hits} hits")
         note(f"pick {tag}, {len(pixels)} picks", counts)
@@ -1033,7 +1026,7 @@ def host_phase(dev, chain, show, kernels_of, big_cpu, seed: int, res: int) -> di
         st = _http(port, "/api/stats")
         if st["width"] != vres or st["device"] != str(dev):
             raise AssertionError(f"viewer: stats {st}")
-        XI.closest_hit.launches = 0
+        native.launches["zr_closest"] = 0
         for px, py, hit in ((vres // 2, vres // 2, True), (0, 0, False)):
             _http(port, "/api/pick", {"x": px, "y": py})
             frame(3)
@@ -1046,7 +1039,7 @@ def host_phase(dev, chain, show, kernels_of, big_cpu, seed: int, res: int) -> di
                     hit and abs(res_["t"] - t) > 1e-6 * t):
                 raise AssertionError(f"viewer pick ({px}, {py}): {res_} against the plain "
                                      f"closest hit tri {tri}, t {t}")
-        pick_launches = XI.closest_hit.launches
+        pick_launches = native.launches["zr_closest"]
         if pick_launches != 2:
             raise AssertionError(f"viewer picks launched B7 {pick_launches} times")
         note("viewer, 2 picks", {"closest": pick_launches})
@@ -1111,8 +1104,6 @@ def main() -> int:
     from zetaray_tpu_torch.accel import megakernel as MK
     from zetaray_tpu_torch.accel import stream as ST
     from zetaray_tpu_torch.accel.bvh import LEAF_SIZE
-    from zetaray_tpu_torch.ops import denoise as DN
-    from zetaray_tpu_torch.ops import pathtracer as PT
     from zetaray_tpu_torch.ops import prelighting as PL
     from zetaray_tpu_torch.ops import restir_di as RD
     from zetaray_tpu_torch.ops import skydi as SD
@@ -1762,11 +1753,11 @@ def main() -> int:
     # -- phase 4: each path through the frame entry point, counts read per path
     scene = upload_scene(cornell_box(), device=dev)
     kernels_of = {
-        "gbuffer": MK.gbuffer, "ris": RD.initial_candidates, "occlusion": XI.occlusion,
-        "bounce_trace": MK.bounce_trace, "bounce_shade": MK.bounce_shade, "bounce": MK.bounce,
-        "closest": XI.closest_hit, "stream_closest": ST.stream_closest,
-        "occlusion_stream": ST.occlusion_stream, "atrous": DN.atrous_iteration_p,
-        "wavefront": PT.wavefront_vertex,
+        "gbuffer": "zr_gbuffer", "ris": "zr_ris", "occlusion": "zr_occlusion",
+        "bounce_trace": "zr_bounce_trace", "bounce_shade": "zr_bounce_shade",
+        "bounce": "zr_bounce", "closest": "zr_closest", "stream_closest": "zr_stream_closest",
+        "occlusion_stream": "zr_stream_occlusion", "atrous": "zr_atrous",
+        "wavefront": "zr_wavefront_vertex",
     }
     di_kernels = ("gbuffer", "ris", "occlusion")
     dense_kernels = ("gbuffer", "occlusion", "bounce_trace", "bounce_shade", "bounce", "closest")
@@ -1789,8 +1780,8 @@ def main() -> int:
             expect = (*expect, "atrous")
         else:
             absent = (*absent, "atrous")
-        for fn in kernels_of.values():
-            fn.launches = 0
+        for entry in kernels_of.values():
+            native.launches[entry] = 0
         state, times, sc_k, motion = None, [], sc, None
         w_prev = rig.instance_worlds(0.0) if animate else None
         for k in range(frames):
@@ -1806,7 +1797,7 @@ def main() -> int:
                 out_ = render_frame(sc_k, cam_.with_jitter(k), seed + k, cfg_)
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t) * 1e3)
-        counts = {name: fn.launches for name, fn in kernels_of.items()}
+        counts = {name: native.launches[e] for name, e in kernels_of.items()}
         for name in expect:
             if counts[name] <= 0:
                 raise AssertionError(f"kernel {name} was not launched by its path: {counts}")

@@ -52,11 +52,11 @@ def _rays(dev, res=128):
 def test_gbuffer_kernel_matches_plain(cuda, subdivide):
     scene = upload_scene(cornell_box(subdivide_to=subdivide), device=cuda)
     _, o, d = _rays(cuda)
-    before = MK.gbuffer.launches
+    before = native.launches["zr_gbuffer"]
     gk = MK.gbuffer(scene, o, d)
     gp = MK.gbuffer_plain(scene, o, d)
     torch.cuda.synchronize()
-    assert MK.gbuffer.launches == before + 1
+    assert native.launches["zr_gbuffer"] == before + 1
     for r in (MK.G.VALID, MK.G.MATID, MK.G.INST):
         assert torch.equal(gk[r], gp[r])
     hit = gp[MK.G.VALID] > 0.5
@@ -138,14 +138,14 @@ def test_ris_and_occlusion_kernels_match_plain(cuda):
     lsets = MK.build_light_sets(scene, SEED)
     rt = pick_rt(gb.shape[1])
     cases = [(gb, lsets, SEED, rt)] + [(*ris_case(c, cuda), RIS_SEED, RIS_RT) for c in RIS_CASES]
-    before = RD.initial_candidates.launches
+    before = native.launches["zr_ris"]
     for g, ls, seed, rt_ in cases:
         rk = RD.initial_candidates(g, ls, seed, rt=rt_)
         rp = RD.initial_candidates_plain(g, ls, seed, rt_)
         same = (rk[0:3] == rp[0:3]).all(0)
         assert same.float().mean() >= 0.995
         torch.testing.assert_close(rk[:, same], rp[:, same], rtol=1e-5, atol=1e-6)
-    assert RD.initial_candidates.launches == before + len(cases)
+    assert native.launches["zr_ris"] == before + len(cases)
     rk = RD.initial_candidates(gb, lsets, SEED, rt=rt)
     so = (gb[MK.G.POS : MK.G.POS + 3] + 1e-3 * gb[MK.G.NG : MK.G.NG + 3]).T.contiguous()
     seg = (rk[0:3] - gb[MK.G.POS : MK.G.POS + 3]).T.contiguous()
@@ -182,7 +182,8 @@ def test_bounce_kernels_match_plain(cuda, subdivide):
     lsets = MK.build_light_sets(scene, SEED)
     cfg = PTConfig(max_bounces=3, min_emissive_bounce=1, rr_start=1)
     rt = pick_rt(o.shape[0])
-    counts = (MK.bounce_trace.launches, MK.bounce_shade.launches, MK.bounce.launches)
+    kernels = ("zr_bounce_trace", "zr_bounce_shade", "zr_bounce")
+    counts = [native.launches[k] for k in kernels]
     st, surf = MK.bounce_trace(scene, MK.initial_state(o2, d2), 0, cfg, True, 0.004)
     st_p, surf_p = MK.bounce_trace_plain(scene, MK.initial_state(o2, d2), 0, cfg, True, 0.004)
     found = st_p[13] > 0.5
@@ -199,8 +200,7 @@ def test_bounce_kernels_match_plain(cuda, subdivide):
         assert _close_rays(st6[:, f6], st6_p[:, f6]) >= 0.999
         assert _close_rays(st6, st6_p, [9, 10, 11, 13]) >= 0.999
     torch.cuda.synchronize()
-    assert (MK.bounce_trace.launches, MK.bounce_shade.launches, MK.bounce.launches) == (
-        counts[0] + 1, counts[1] + 1, counts[2] + 2)
+    assert [native.launches[k] for k in kernels] == [counts[0] + 1, counts[1] + 1, counts[2] + 2]
 
 
 SUN = (0.2, 0.45, 0.87)  # shines in through the box's opening at +z
@@ -260,11 +260,11 @@ def test_closest_kernel_matches_plain(cuda, subdivide):
     scene = upload_scene(cornell_box(subdivide_to=subdivide), device=cuda)
     _, o, d = _rays(cuda)
     o2, d2, _, _ = secondary_rays(MK.gbuffer(scene, o, d), SEED)
-    before = XI.closest_hit.launches
+    before = native.launches["zr_closest"]
     got = XI.closest_hit(scene, o2, d2)
     want = XI.closest_hit_plain_shaded(scene.woop, scene.tri_attrs, o2, d2)
     torch.cuda.synchronize()
-    assert XI.closest_hit.launches == before + 1
+    assert native.launches["zr_closest"] == before + 1
     assert 0.3 < (want.tri >= 0).float().mean() < 1.0
     assert all(torch.equal(a, b) for a, b in zip(got, want))
 
@@ -398,7 +398,7 @@ def test_stream_kernels_match_plain(cuda, name, cluster_size):
         assert scene.walk_stack == 61
     _, o, d = _rays(cuda)
     g = torch.Generator(device=cuda).manual_seed(SEED)
-    before = (ST.stream_closest.launches, ST.occlusion_stream.launches)
+    before = (native.launches["zr_stream_closest"], native.launches["zr_stream_occlusion"])
     t, tri = ST.stream_closest(scene, o, d)
     t_p, tri_p = ST.stream_closest_plain(scene, o, d)
     assert torch.equal(tri, tri_p) and torch.equal(t, t_p)
@@ -418,7 +418,7 @@ def test_stream_kernels_match_plain(cuda, name, cluster_size):
     assert 0 < occ.sum() < occ.numel()
     torch.cuda.synchronize()
     # the G-buffer took B8 too
-    assert (ST.stream_closest.launches, ST.occlusion_stream.launches) == (
+    assert (native.launches["zr_stream_closest"], native.launches["zr_stream_occlusion"]) == (
         before[0] + 3, before[1] + 1)
     with pytest.raises(ValueError, match="t_min"):
         ST.stream_closest(scene, o, d, t_min=-1.0)
@@ -573,9 +573,9 @@ def test_wops_kernels_match_plain(cuda, subdivide, sun):
     redirected = MK.wops_pick(table, scene.num_emissives, u[0], u[5])[1]
     assert (redirected & found).float().mean() > 0.01
     for b in (0, 1):
-        before = MK.bounce_shade.launches
+        before = native.launches["zr_bounce_shade"]
         st5 = MK.bounce_shade(scene, st_p, surf_p, table, b, SEED, cfg, True, 128)
-        assert MK.bounce_shade.launches == before + 1
+        assert native.launches["zr_bounce_shade"] == before + 1
         st5_p = MK.bounce_shade_plain(scene, st_p, surf_p, table, b, SEED, cfg, True, 128)
         assert _close_rays(st5[:, found], st5_p[:, found]) >= 0.999
         assert _close_rays(st5, st5_p, [9, 10, 11, 13]) >= 0.999
@@ -685,7 +685,7 @@ def test_material_kernels_match_plain(cuda, case):
     lsets = MK.wops_table(scene) if cfg.nee_mode == "wops" else MK.build_light_sets(scene, SEED)
     st_p, surf_p = MK.bounce_trace_plain(scene, MK.initial_state(o2, d2), 0, cfg, True)
     found = st_p[13] > 0.5
-    before = (MK.bounce_shade.launches, MK.bounce.launches)
+    before = (native.launches["zr_bounce_shade"], native.launches["zr_bounce"])
     st5 = MK.bounce_shade(scene, st_p, surf_p, lsets, 0, SEED, cfg, True, 128)
     st5_p = MK.bounce_shade_plain(scene, st_p, surf_p, lsets, 0, SEED, cfg, True, 128)
     assert _close_rays(st5[:, found], st5_p[:, found]) >= 0.999
@@ -700,7 +700,8 @@ def test_material_kernels_match_plain(cuda, case):
         assert _close_rays(st6[:, f6], st6_p[:, f6]) >= 0.999
         assert _close_rays(st6, st6_p, [9, 10, 11, 13]) >= 0.999
     torch.cuda.synchronize()
-    assert (MK.bounce_shade.launches, MK.bounce.launches) == (before[0] + 1, before[1] + 2)
+    assert (native.launches["zr_bounce_shade"], native.launches["zr_bounce"]) == (
+        before[0] + 1, before[1] + 2)
 
 
 @pytest.mark.cuda
@@ -810,9 +811,9 @@ def test_cutout_retrace_matches_plain(cuda, tmp_path, monkeypatch, cluster_size)
         scene = upload_scene(cpu_scene, device=dev, cluster_size=cluster_size)
         assert scene.has_cutout
         o_, d_, seg_ = (x.to(dev) for x in (o, d, seg))
-        before = XI.closest_hit.launches
+        before = native.launches["zr_closest"]
         sh = XI.intersect_closest_shaded(scene, o_, d_)
-        launched = XI.closest_hit.launches - before
+        launched = native.launches["zr_closest"] - before
         occ = XI.intersect_occluded(scene, o_, seg_, 1e-3, 1.0)
         gb = MK.gbuffer(scene, o_, d_)
         got[dev.type] = ([x.cpu() for x in sh] + [occ.cpu(), gb.cpu()], launched)
@@ -960,12 +961,12 @@ def test_card_pick_matches_cpu(cuda, tmp_path, kind):
     cam = Camera.look_at(CAMERA_EYE, CAMERA_TARGET, vfov_deg=CAMERA_VFOV, aspect=1.0)
     scenes = {dev: upload_scene(cpu_scene, device=dev) for dev in ("cpu", cuda)}
     assert (scenes[cuda].cluster_aabb is not None) == (kind == "clustered")
-    counter = XI.closest_hit if kind != "clustered" else ST.stream_closest
+    counter = "zr_closest" if kind != "clustered" else "zr_stream_closest"
     hits = 0
     for px, py in [(32, 32), (5, 40), (60, 3), (20, 22), (40, 22), (12, 50), (0, 0)]:
-        before = counter.launches
+        before = native.launches[counter]
         got = pick(scenes[cuda], cpu_scene, cam, px, py, 64, 64)
-        assert counter.launches > before
+        assert native.launches[counter] > before
         want = pick(scenes["cpu"], cpu_scene, cam, px, py, 64, 64)
         assert (got.hit, got.tri, got.instance, got.material) == (
             want.hit, want.tri, want.instance, want.material)
@@ -1053,7 +1054,7 @@ def test_atrous_kernel_matches_plain_at_1080p(gi_guides_1080p, step):
     the card."""
     hdr, nrm, depth, valid = gi_guides_1080p
     assert valid.any() and not valid.all()
-    before = DN.atrous_iteration_p.launches
+    before = native.launches["zr_atrous"]
     if step == "chain":
         got, want = DN.atrous_denoise_p(hdr, nrm, depth, valid), DN.atrous_denoise_plain(
             hdr, nrm, depth, valid)
@@ -1061,7 +1062,7 @@ def test_atrous_kernel_matches_plain_at_1080p(gi_guides_1080p, step):
         got = DN.atrous_iteration_p(hdr, nrm, depth, valid, step)
         want = DN.atrous_iteration_plain(hdr, nrm, depth, valid.to(torch.float32), step)
     assert bits_equal(got, want)
-    assert DN.atrous_iteration_p.launches == before + (4 if step == "chain" else 1)
+    assert native.launches["zr_atrous"] == before + (4 if step == "chain" else 1)
     assert not torch.equal(got, hdr)
 
 
@@ -1131,7 +1132,7 @@ def test_atrous_bands_match_the_whole_image(cuda):
 def test_atrous_wrapper_rejects_bad_inputs(cuda):
     img, nrm, depth, valid = atrous_case(9, 11, seed=5, device=cuda)
     it = DN.atrous_iteration_p
-    before = it.launches
+    before = native.launches["zr_atrous"]
     with pytest.raises(TypeError):
         it(img.double(), nrm, depth, valid, 1)
     with pytest.raises(TypeError):
@@ -1146,7 +1147,7 @@ def test_atrous_wrapper_rejects_bad_inputs(cuda):
         it(img, nrm, depth.cpu(), valid, 1)
     with pytest.raises(ValueError):  # a column stride of 9
         it(img, nrm.transpose(1, 2).contiguous().transpose(1, 2), depth, valid, 1)
-    assert it.launches == before
+    assert native.launches["zr_atrous"] == before
 
 
 # The path traces of the frames: the restir_di frame's (render.frame) and
@@ -1198,9 +1199,9 @@ def test_wavefront_kernel_matches_plain_at_1080p(wavefront_scenes_1080p, scene_n
     the bounce-0 ShadedHit bit for bit; one vertex launch a bounce."""
     scene, o, d = wavefront_scenes_1080p[scene_name]
     cfg, first_hit = WAVEFRONT_CONFIGS[config]
-    before = PT.wavefront_vertex.launches
+    before = native.launches["zr_wavefront_vertex"]
     got, want = _wavefront_both(scene, o, d, cfg, first_hit)
-    assert PT.wavefront_vertex.launches == before + cfg.max_bounces + 1
+    assert native.launches["zr_wavefront_vertex"] == before + cfg.max_bounces + 1
     if first_hit:
         (got, sh_got), (want, sh_want) = got, want
         for a, b in zip(sh_got, sh_want):
@@ -1231,7 +1232,7 @@ def test_wavefront_wrapper_rejects_bad_inputs(wavefront_scenes_1080p):
     state = torch.empty((PT.WF_ROWS, n), device=dev)
     rows = [torch.empty((n, 3), device=dev) for _ in range(5)]
     tri = torch.zeros((n,), dtype=torch.int32, device=dev)
-    before = PT.wavefront_vertex.launches
+    before = native.launches["zr_wavefront_vertex"]
     bad = [
         dict(tri=tri.long()), dict(tri=tri[:-1]), dict(o=o.cpu()), dict(state=state[:-1]),
         dict(occluded=torch.zeros((n,), dtype=torch.int32, device=dev)),
@@ -1248,4 +1249,4 @@ def test_wavefront_wrapper_rejects_bad_inputs(wavefront_scenes_1080p):
         PT.wavefront_vertex(scene, o, d, tri, None, None, state, *rows,
                             (torch.empty((n,), device=dev),) * 3
                             + (torch.empty((PT.A.WIDTH, n), device=dev),), 1, SEED, cfg)
-    assert PT.wavefront_vertex.launches == before
+    assert native.launches["zr_wavefront_vertex"] == before

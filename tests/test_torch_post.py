@@ -11,6 +11,7 @@ from zetaray_tpu.ops import denoise as JDN
 from zetaray_tpu.ops import post as JP
 from zetaray_tpu.ops import taa as JTA
 from zetaray_tpu.scene.camera import Camera as JaxCamera
+from zetaray_tpu_torch import native
 from zetaray_tpu_torch.interop import camera_from_arrays
 from zetaray_tpu_torch.ops import denoise as TDN
 from zetaray_tpu_torch.ops import post as TP
@@ -63,12 +64,12 @@ def test_atrous_on_cpu_takes_the_plain_pass():
     no kernel launch."""
     img = torch.from_numpy(_img(1))
     nrm, depth, valid = (torch.from_numpy(x) for x in _gbuf_planes(2))
-    before = TDN.atrous_iteration_p.launches
+    before = native.launches["zr_atrous"]
     assert torch.equal(TDN.atrous_denoise_p(img, nrm, depth, valid),
                        TDN.atrous_denoise_plain(img, nrm, depth, valid))
     assert torch.equal(TDN.atrous_iteration_p(img, nrm, depth, valid.to(torch.float32), 2),
                        TDN.atrous_iteration_plain(img, nrm, depth, valid.to(torch.float32), 2))
-    assert TDN.atrous_iteration_p.launches == before
+    assert native.launches["zr_atrous"] == before
 
 
 @pytest.mark.parametrize("shift", [0.0, 0.05])

@@ -31,8 +31,8 @@ from zetaray_tpu_torch.scene.gltf import load_gltf
 from zetaray_tpu_torch.scene.procedural import animated_box
 from zetaray_tpu_torch.scene.refit import refit_scene, woop_pack
 from zetaray_tpu_torch.scene.subdivide import subdivide_scene
-from tests.test_torch_rehearsal import (  # noqa: F401  (host_kernels is a fixture)
-    _segments, host_kernels, host_stream_closest, host_stream_occlusion,
+from tests.test_torch_rehearsal import (  # noqa: F401  (host_build, host_kernels: fixtures)
+    _segments, host_build, host_kernels, host_stream_closest, host_stream_occlusion,
 )
 from tests.test_torch_scene import to_jax_cpu_scene
 
@@ -205,18 +205,18 @@ def test_host_walks_on_the_refit_tree_match_plain(box, host_kernels):
     o, d = (torch.from_numpy(np.ascontiguousarray(x)) for x in _camera_rays(24))
     o2, seg, d2 = _segments(8, 400)
     t_p, tri_p = ST.stream_closest_plain(got, o, d)
-    t_k, tri_k = host_stream_closest(host_kernels, got, o, d)
+    t_k, tri_k = host_stream_closest(got, o, d)
     assert torch.equal(tri_k, tri_p) and torch.equal(t_k, t_p)
     moved = (got.inst_id[tri_p.clamp_min(0).long()] == 1) & (tri_p >= 0)
     assert moved.sum() > 20  # the block moved where the rays find it
     for dirs, t_max in ((seg, 1.0 - 1e-3), (d2, 1e30)):
         want = ST.occlusion_stream_plain(got, o2, dirs, 1e-3, t_max)
-        assert torch.equal(host_stream_occlusion(host_kernels, got, o2, dirs, 1e-3, t_max), want)
+        assert torch.equal(host_stream_occlusion(got, o2, dirs, 1e-3, t_max), want)
         assert 0 < want.sum() < want.numel()
     from dataclasses import replace
 
     stale = replace(got, walk_nodes=tdev.walk_nodes)
-    _, tri_s = host_stream_closest(host_kernels, stale, o, d)
+    _, tri_s = host_stream_closest(stale, o, d)
     assert not torch.equal(tri_s, tri_p)
 
 

@@ -26,6 +26,13 @@ multiply.
 The wavefront's radiance agrees to the limits ``test_wavefront_on_host``
 states (the host's cosf, sinf and rsqrtf in its BSDF samples).
 
+The ``host_kernels`` fixture puts the host build in the place of
+``native.lib``, so the kernels are launched through the port's own launch
+functions (``MK.launch_gbuffer``, ``RD.launch_ris``, ...,
+``PT.wavefront_vertex``) and ``native.launch``: the argument lists under
+test are the ones the card gets. Each ``host_*`` helper fills the outputs
+with -7 first, so an output the kernel leaves unwritten fails.
+
 Skips only where g++ is absent.
 """
 
@@ -34,6 +41,8 @@ import dataclasses
 import re
 import shutil
 import subprocess
+from collections import Counter
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -161,16 +170,13 @@ void zr_launch(int grid, int block, size_t shared, K kernel, A... args) {
 
 LAUNCH = re.compile(r"(\w+)<<<\s*([^,]+),\s*([^,]+),\s*([^,]+),[^>]*>>>\(")
 DYNAMIC_SHARED = re.compile(r"extern __shared__ (\w+) (\w+)\[\];")
-KERNELS = ("zr_gbuffer", "zr_ris", "zr_occlusion", "zr_bounce_trace", "zr_bounce_shade",
-           "zr_bounce", "zr_stream_closest", "zr_stream_occlusion", "zr_atrous",
-           "zr_wavefront_vertex")
 
 
 @pytest.fixture(scope="session")
-def host_kernels(tmp_path_factory):
+def host_build(tmp_path_factory):
     """csrc/gbuffer.cu, csrc/ris.cu, csrc/occlusion.cu, csrc/bounce.cu,
     csrc/stream.cu, csrc/atrous.cu and csrc/wavefront.cu built for the host,
-    loaded."""
+    loaded and bound (``native.bind``)."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ to build the kernels for the host")
@@ -191,131 +197,82 @@ def host_kernels(tmp_path_factory):
     subprocess.run([gxx, "-std=c++20", "-O1", "-ffp-contract=off", "-fPIC", "-shared",
                     "-pthread", "-I", str(tmp), *srcs, "-o", str(lib_path)],
                    check=True, capture_output=True)
-    lib = ctypes.CDLL(str(lib_path))
-    for name in KERNELS:
-        getattr(lib, name).argtypes = native._SIGNATURES[name]
-        getattr(lib, name).restype = ctypes.c_int
-    return lib
+    return native.bind(ctypes.CDLL(str(lib_path)))
 
 
-def _ptr(x: torch.Tensor) -> int:
-    assert x.is_contiguous()
-    return x.data_ptr()
+@pytest.fixture
+def host_kernels(host_build, monkeypatch):
+    """The host build in the place of ``native.lib`` for one test."""
+    monkeypatch.setattr(native, "lib", lambda: host_build)
+    return host_build
 
 
-def host_occlusion(lib, scene, o, d, t_min, t_max):
+def host_occlusion(scene, o, d, t_min, t_max):
     """B3 on the host: bool [N]."""
-    n, tp = o.shape[0], scene.woop.shape[1] // 3
-    out = torch.full((n,), -1, dtype=torch.int32)
-    assert lib.zr_occlusion(_ptr(o), _ptr(d), _ptr(scene.woop_rows()), _ptr(out), n, tp,
-                            scene.num_tris, t_min, t_max, None) == 0
+    out = torch.full((o.shape[0],), -1, dtype=torch.int32)
+    XI.launch_occlusion(scene, o, d, t_min, t_max, out)
     assert ((out == 0) | (out == 1)).all()
     return out.bool()
 
 
-def host_gbuffer(lib, scene, o, d, t_min=1e-4, nt=None):
-    """B1 on the host: G [G.ROWS, N], or None where the entry point refuses
-    the launch. ``nt``: the real triangles the entry point is told of."""
-    n, tp = o.shape[0], scene.woop.shape[1] // 3
-    out = torch.full((MK.G.ROWS, n), -7.0)
-    err = lib.zr_gbuffer(_ptr(o), _ptr(d), _ptr(scene.woop_rows()), _ptr(scene.tri_attrs),
-                         _ptr(out), n, tp, scene.num_tris if nt is None else nt, t_min, None)
-    return None if err else out
-
-
-def host_stream_closest(lib, scene, o, d, t_min=1e-4, t_max=INF):
-    """B8 on the host: (t [N], slot [N])."""
-    n = o.shape[0]
-    t = torch.full((n,), -7.0)
-    tri = torch.full((n,), -7, dtype=torch.int32)
-    assert lib.zr_stream_closest(_ptr(o), _ptr(d), _ptr(scene.walk_nodes),
-                                 _ptr(scene.leaf_rows()), _ptr(scene.leaf_slot), _ptr(t),
-                                 _ptr(tri), n, scene.cluster_size, scene.walk_stack, t_min,
-                                 t_max, None) == 0
-    return t, tri
-
-
-def host_stream_occlusion(lib, scene, o, d, t_min, t_max, stack=None):
-    """B9 on the host: bool [N], or None where the entry point refuses the
-    launch."""
-    n = o.shape[0]
-    out = torch.full((n,), -1, dtype=torch.int32)
-    err = lib.zr_stream_occlusion(_ptr(o), _ptr(d), _ptr(scene.walk_nodes),
-                                  _ptr(scene.leaf_rows()), _ptr(out), n,
-                                  scene.walk_stack if stack is None else stack, t_min, t_max,
-                                  None)
-    if err:
-        return None
-    assert ((out == 0) | (out == 1)).all()
-    return out.bool()
-
-
-def host_bounce_trace(lib, scene, state, cfg, spread_angle):
-    """B4 at bounce 0 on the host: (state [STATE_ROWS, N], surf [SURF_ROWS,
-    N]), or None where the entry point refuses the launch."""
-    n, tp = state.shape[1], scene.woop.shape[1] // 3
-    out = torch.full_like(state, -7.0)
-    surf = torch.full((MK.SURF_ROWS, n), -7.0)
-    err = lib.zr_bounce_trace(_ptr(state), _ptr(scene.woop_rows()), _ptr(scene.tri_attrs),
-                              _ptr(out), _ptr(surf), n, tp, scene.num_tris, 0, cfg.t_min,
-                              MK.cone_spread(spread_angle), cfg.min_emissive_bounce,
-                              int(cfg.nee), 1, MK.path_options(cfg), None)
-    return None if err else (out, surf)
-
-
-def _lights(scene, lsets, cfg):
-    """(n_sets, ps, wops_em) of a bounce launch: the light sets' shape, or
-    with cfg.nee_mode="wops" one set of the WoPS table's rows."""
-    wops_em = MK._wops_em(scene, cfg)
-    if wops_em:
-        return 1, lsets.shape[0], wops_em
-    return lsets.shape[0], lsets.shape[2], 0
-
-
-def host_bounce_shade(lib, scene, state, surf, lsets, seed, cfg, rt, nt=None, bounce=0,
-                      pix0=0):
-    """B5 at ``bounce`` on the host: state [STATE_ROWS, N], or None where the
-    entry point refuses the launch. ``lsets``: the light sets, or with
-    cfg.nee_mode="wops" the WoPS table; ``pix0``: the rays' global offset."""
-    n, tp = state.shape[1], scene.woop.shape[1] // 3
-    n_sets, ps, wops_em = _lights(scene, lsets, cfg)
-    out = torch.full_like(state, -7.0)
-    err = lib.zr_bounce_shade(_ptr(state), _ptr(surf), _ptr(scene.woop_rows()), _ptr(lsets),
-                              _ptr(out), n, tp, scene.num_tris if nt is None else nt, n_sets,
-                              ps, rt, pix0, bounce, seed & 0xFFFFFFFF, cfg.min_nee_bounce,
-                              cfg.rr_start, int(cfg.nee), 1, wops_em, MK.material_flags(scene),
-                              MK.path_options(cfg), None)
-    return None if err else out
-
-
-def host_bounce(lib, scene, state, lsets, b, seed, cfg, last, rt=128, pix0=0):
-    """B6 at bounce b on the host: state [STATE_ROWS, N]. ``lsets``, ``pix0``:
-    as for host_bounce_shade."""
-    n, tp = state.shape[1], scene.woop.shape[1] // 3
-    n_sets, ps, wops_em = _lights(scene, lsets, cfg)
-    out = torch.full_like(state, -7.0)
-    assert lib.zr_bounce(_ptr(state), _ptr(scene.woop_rows()), _ptr(scene.tri_attrs), _ptr(lsets),
-                         _ptr(out), n, tp, scene.num_tris, n_sets, ps, rt, pix0, b,
-                         seed & 0xFFFFFFFF,
-                         cfg.t_min, cfg.min_emissive_bounce, cfg.min_nee_bounce, cfg.rr_start,
-                         int(cfg.nee), 1, int(last), wops_em, MK.material_flags(scene),
-                         MK.path_options(cfg), None) == 0
+def host_gbuffer(scene, o, d, t_min=1e-4):
+    """B1 on the host: G [G.ROWS, N]."""
+    out = torch.full((MK.G.ROWS, o.shape[0]), -7.0)
+    MK.launch_gbuffer(scene, o, d, t_min, out)
     return out
 
 
-def host_ris(lib, gb, lsets, seed, rt, block=128, pix0=0):
-    """B2 on the host: reservoirs [R_ROWS, N], or None where the entry point
-    refuses the launch. ``pix0``: the pixels' global offset."""
-    n = gb.shape[1]
-    n_sets, _, ps = lsets.shape
-    out = torch.full((RD.R_ROWS, n), -7.0)
-    err = lib.zr_ris(_ptr(gb), _ptr(lsets), _ptr(out), n, n_sets, ps, rt, block,
-                     seed & 0xFFFFFFFF, pix0, None)
-    return None if err else out
+def host_stream_closest(scene, o, d, t_min=1e-4, t_max=INF):
+    """B8 on the host: (t [N], slot [N])."""
+    t = torch.full((o.shape[0],), -7.0)
+    tri = torch.full((o.shape[0],), -7, dtype=torch.int32)
+    ST.launch_stream_closest(scene, o, d, t_min, t_max, t, tri)
+    return t, tri
+
+
+def host_stream_occlusion(scene, o, d, t_min=1e-4, t_max=INF):
+    """B9 on the host: bool [N]."""
+    out = torch.full((o.shape[0],), -1, dtype=torch.int32)
+    ST.launch_occlusion_stream(scene, o, d, t_min, t_max, out)
+    assert ((out == 0) | (out == 1)).all()
+    return out.bool()
+
+
+def host_bounce_trace(scene, state, cfg, spread_angle):
+    """B4 at bounce 0 on the host: (state [STATE_ROWS, N], surf [SURF_ROWS, N])."""
+    out = torch.full_like(state, -7.0)
+    surf = torch.full((MK.SURF_ROWS, state.shape[1]), -7.0)
+    MK.launch_bounce_trace(scene, state, 0, cfg, True, spread_angle, out, surf)
+    return out, surf
+
+
+def host_bounce_shade(scene, state, surf, lsets, seed, cfg, rt, bounce=0, pix0=0):
+    """B5 at ``bounce`` on the host: state [STATE_ROWS, N]. ``lsets``: the
+    light sets, or with cfg.nee_mode="wops" the WoPS table; ``pix0``: the
+    rays' global offset."""
+    out = torch.full_like(state, -7.0)
+    MK.launch_bounce_shade(scene, state, surf, lsets, bounce, seed, cfg, True, rt, pix0, out)
+    return out
+
+
+def host_bounce(scene, state, lsets, b, seed, cfg, last, rt=128, pix0=0):
+    """B6 at bounce b on the host: state [STATE_ROWS, N]. ``lsets``, ``pix0``:
+    as for host_bounce_shade."""
+    out = torch.full_like(state, -7.0)
+    MK.launch_bounce(scene, state, lsets, b, seed, cfg, last, True, rt, pix0, out)
+    return out
+
+
+def host_ris(gb, lsets, seed, rt, pix0=0):
+    """B2 on the host: reservoirs [R_ROWS, N]. ``pix0``: the pixels' global
+    offset."""
+    out = torch.full((RD.R_ROWS, gb.shape[1]), -7.0)
+    RD.launch_ris(gb, lsets, seed, rt, pix0, out)
+    return out
 
 
 @pytest.mark.parametrize("name", RIS_CASES)
-def test_ris_on_host(host_kernels, name):
+def test_ris_on_host(host_kernels, monkeypatch, name):
     """B2 equal to initial_candidates_plain, every row bit for bit, on the
     cases of ris_case (1000 pixels of the box in 8 blocks, the last one
     ragged, every fifth one not valid; 8 sets at tile width 128): the
@@ -326,7 +283,7 @@ def test_ris_on_host(host_kernels, name):
     positive weight, past checkpoints equal to its target. A tile width that
     the block does not divide and an empty block are refused."""
     gb, lsets = ris_case(name, "cpu")
-    got = host_ris(host_kernels, gb, lsets, RIS_SEED, RIS_RT)
+    got = host_ris(gb, lsets, RIS_SEED, RIS_RT)
     want = RD.initial_candidates_plain(gb, lsets, RIS_SEED, RIS_RT)
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
     ps = lsets.shape[2]
@@ -351,8 +308,9 @@ def test_ris_on_host(host_kernels, name):
         u = uniform4(torch.tensor([RIS_U0_PIXEL]), 0, RIS_SEED, salt=0x51E5)[0]
         assert u.item() == 0.0 and want[9, RIS_U0_PIXEL] > 0
         assert 120 <= pick[RIS_U0_PIXEL] < ps - 1
-    assert host_ris(host_kernels, gb, lsets, RIS_SEED, 192) is None
-    assert host_ris(host_kernels, gb, lsets, RIS_SEED, 128, block=0) is None
+    pytest.raises(RuntimeError, host_ris, gb, lsets, RIS_SEED, 192)
+    monkeypatch.setattr(RD, "_RIS_BLOCK", 0)
+    pytest.raises(RuntimeError, host_ris, gb, lsets, RIS_SEED, 128)
 
 
 def _segments(seed, n):
@@ -376,14 +334,11 @@ def test_occlusion_kernel_on_host(host_kernels, subdivide):
     scene = upload_scene(cornell_box(subdivide_to=subdivide), device="cpu")
     o, seg, d = _segments(3, 300)
     for dirs, t_min, t_max in ((seg, 1e-3, 1.0 - 1e-3), (d, 1e-4, INF), (d, 0.0, 0.7)):
-        got = host_occlusion(host_kernels, scene, o, dirs, t_min, t_max)
+        got = host_occlusion(scene, o, dirs, t_min, t_max)
         want = XI.occlusion_plain(scene.woop, o, dirs, t_min, t_max)
         assert torch.equal(got, want)
         assert 0 < got.sum() < got.numel()
-    n, tp = o.shape[0], scene.woop.shape[1] // 3
-    out = torch.zeros((n,), dtype=torch.int32)
-    assert host_kernels.zr_occlusion(_ptr(o), _ptr(seg), _ptr(scene.woop_rows()), _ptr(out), n,
-                                     tp, scene.num_tris, -1.0, 1.0, None) != 0
+    pytest.raises(RuntimeError, host_occlusion, scene, o, seg, -1.0, 1.0)
 
 
 def _gi_bounce0(scene, res=18, n=300):
@@ -406,7 +361,7 @@ def test_bounce_trace_on_host(host_kernels, subdivide):
     scene = upload_scene(cornell_box(subdivide_to=subdivide), device="cpu")
     st0, spread = _gi_bounce0(scene)
     cfg = PTConfig(max_bounces=2, min_emissive_bounce=1)
-    st, surf = host_bounce_trace(host_kernels, scene, st0, cfg, spread)
+    st, surf = host_bounce_trace(scene, st0, cfg, spread)
     st_p, surf_p = MK.bounce_trace_plain(scene, st0, 0, cfg, True, spread)
     found = st_p[13] > 0.5
     assert 0.3 < found.float().mean() < 1.0
@@ -415,7 +370,7 @@ def test_bounce_trace_on_host(host_kernels, subdivide):
     assert _close_rays(st[:, found], st_p[:, found]) == 1.0
     assert _close_rays(surf[:, found], surf_p[:, found]) == 1.0
     assert _close_rays(st, st_p, [9, 10, 11]) == 1.0
-    assert host_bounce_trace(host_kernels, scene, st0, PTConfig(t_min=-1.0), spread) is None
+    pytest.raises(RuntimeError, host_bounce_trace, scene, st0, PTConfig(t_min=-1.0), spread)
 
 
 def _with_shelf(cpu):
@@ -430,6 +385,12 @@ def _with_shelf(cpu):
     return dataclasses.replace(cpu, **{
         f: np.concatenate([getattr(cpu, f), np.asarray([v], getattr(cpu, f).dtype)])
         for f, v in tri.items()})
+
+
+def _past_table(scene):
+    """``scene`` telling the kernels of one more real triangle than its
+    table holds."""
+    return dataclasses.replace(scene, num_tris=scene.woop.shape[1] // 3 + 1)
 
 
 GBUFFER_SCENES = {
@@ -459,7 +420,7 @@ def test_gbuffer_on_host(host_kernels, name):
     o_in, _, d_in = _segments(4, 300)
     G = MK.G
     for oo, dd in ((o.contiguous(), d.contiguous()), (o_in, d_in)):
-        g = host_gbuffer(host_kernels, scene, oo, dd)
+        g = host_gbuffer(scene, oo, dd)
         g_p = MK.gbuffer_plain(scene, oo, dd)
         hit = g_p[G.VALID] > 0.5
         assert 0.5 < hit.float().mean()
@@ -471,9 +432,8 @@ def test_gbuffer_on_host(host_kernels, name):
         tri = MK.closest_hit_plain(scene.woop, o_in, d_in)[1]
         assert ((tri[tri >= 0] % 5 == 4) | (tri[tri >= 0] == 127)).all()
         assert (tri == 127).any()
-    tp = scene.woop.shape[1] // 3
-    assert host_gbuffer(host_kernels, scene, o, d, t_min=-1.0) is None
-    assert host_gbuffer(host_kernels, scene, o, d, nt=tp + 1) is None
+    pytest.raises(RuntimeError, host_gbuffer, scene, o, d, t_min=-1.0)
+    pytest.raises(RuntimeError, host_gbuffer, _past_table(scene), o, d)
 
 
 @pytest.mark.parametrize("subdivide", [None, 200, 300])
@@ -496,7 +456,7 @@ def test_bounce_shade_on_host(host_kernels, subdivide, monkeypatch):
     cfg = PTConfig(max_bounces=3, min_emissive_bounce=1, rr_start=1)
     st4, sf4 = MK.bounce_trace_plain(scene, st0, 0, cfg, True, spread)
     lsets = MK.build_light_sets(scene, SEED)
-    st5 = host_bounce_shade(host_kernels, scene, st4, sf4, lsets, SEED, cfg, 128)
+    st5 = host_bounce_shade(scene, st4, sf4, lsets, SEED, cfg, 128)
     st5_p = MK.bounce_shade_plain(scene, st4, sf4, lsets, 0, SEED, cfg, True, 128)
     found = st4[13] > 0.5
     assert 0.3 < found.float().mean() < 1.0
@@ -511,10 +471,9 @@ def test_bounce_shade_on_host(host_kernels, subdivide, monkeypatch):
     free = (st5_free[9:12] != st4[9:12]).any(0)
     assert (free & lit_p).sum() > 20 and (free & ~lit_p).sum() > 5
     assert not (lit_p & ~free).any()
-    tp = scene.woop.shape[1] // 3
-    assert host_bounce_shade(host_kernels, scene, st4, sf4, lsets, SEED, cfg, 100) is None
-    assert host_bounce_shade(host_kernels, scene, st4, sf4, lsets, SEED, cfg, 128,
-                             nt=tp + 1) is None
+    pytest.raises(RuntimeError, host_bounce_shade, scene, st4, sf4, lsets, SEED, cfg, 100)
+    pytest.raises(RuntimeError, host_bounce_shade, _past_table(scene), st4, sf4, lsets, SEED,
+                  cfg, 128)
 
 
 @pytest.mark.parametrize("pix0", [640, 300, 1 << 20])
@@ -531,15 +490,15 @@ def test_tile_offset_on_host(host_kernels, pix0):
     cfg = PTConfig(max_bounces=3, min_emissive_bounce=1, rr_start=1)
     lsets = MK.build_light_sets(scene, SEED)
     gb, ris_sets = ris_case("sampled", "cpu")
-    got = host_ris(host_kernels, gb, ris_sets, RIS_SEED, RIS_RT, pix0=pix0)
+    got = host_ris(gb, ris_sets, RIS_SEED, RIS_RT, pix0=pix0)
     want = RD.initial_candidates_plain(gb, ris_sets, RIS_SEED, RIS_RT, pix0)
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
     assert not torch.equal(want, RD.initial_candidates_plain(gb, ris_sets, RIS_SEED, RIS_RT))
-    assert host_ris(host_kernels, gb, ris_sets, RIS_SEED, RIS_RT, pix0=-128) is None
+    pytest.raises(RuntimeError, host_ris, gb, ris_sets, RIS_SEED, RIS_RT, pix0=-128)
 
     st4, sf4 = MK.bounce_trace_plain(scene, st0, 0, cfg, True, spread)
     found = st4[13] > 0.5
-    st5 = host_bounce_shade(host_kernels, scene, st4, sf4, lsets, SEED, cfg, 128, pix0=pix0)
+    st5 = host_bounce_shade(scene, st4, sf4, lsets, SEED, cfg, 128, pix0=pix0)
     st5_p = MK.bounce_shade_plain(scene, st4, sf4, lsets, 0, SEED, cfg, True, 128, pix0)
     assert _close_rays(st5[:, found], st5_p[:, found]) >= 0.999
     assert _close_rays(st5, st5_p, [9, 10, 11, 13]) >= 0.999
@@ -547,10 +506,9 @@ def test_tile_offset_on_host(host_kernels, pix0):
     assert torch.equal(lit, lit_p) and lit.any()
     st5_0 = MK.bounce_shade_plain(scene, st4, sf4, lsets, 0, SEED, cfg, True, 128)
     assert not torch.equal(st5_p[3:6], st5_0[3:6])
-    assert host_bounce_shade(host_kernels, scene, st4, sf4, lsets, SEED, cfg, 128,
-                             pix0=-1) is None
+    pytest.raises(RuntimeError, host_bounce_shade, scene, st4, sf4, lsets, SEED, cfg, 128, pix0=-1)
     f6 = MK.bounce_trace_plain(scene, st5_p, 1, cfg, True)[0][13] > 0.5
-    st6 = host_bounce(host_kernels, scene, st5_p, lsets, 1, SEED, cfg, False, pix0=pix0)
+    st6 = host_bounce(scene, st5_p, lsets, 1, SEED, cfg, False, pix0=pix0)
     st6_p = MK.bounce_plain(scene, st5_p, lsets, 1, SEED, cfg, False, True, 128, pix0)
     assert _close_rays(st6[:, f6], st6_p[:, f6]) >= 0.999
     assert _close_rays(st6, st6_p, [9, 10, 11, 13]) >= 0.999
@@ -582,7 +540,7 @@ def test_bounce_options_on_host(host_kernels, subdivide, opts):
     st0, spread = _gi_bounce0(scene)
     cfg = PTConfig(max_bounces=3, min_emissive_bounce=1, rr_start=1, **PATH_OPTIONS[opts])
     lsets = MK.build_light_sets(scene, SEED)
-    st4, sf4 = host_bounce_trace(host_kernels, scene, st0, cfg, spread)
+    st4, sf4 = host_bounce_trace(scene, st0, cfg, spread)
     st4_p, sf4_p = MK.bounce_trace_plain(scene, st0, 0, cfg, True, spread)
     found = st4_p[13] > 0.5
     assert torch.equal(st4[13], st4_p[13]) and torch.equal(sf4[0:3, found], sf4_p[0:3, found])
@@ -590,7 +548,7 @@ def test_bounce_options_on_host(host_kernels, subdivide, opts):
     escaped = (st4_p[9:12] != st0[9:12]).any(0) & ~found
     assert escaped.sum() > 10 if cfg.sky is not None else not escaped.any()
 
-    st5 = host_bounce_shade(host_kernels, scene, st4_p, sf4_p, lsets, SEED, cfg, 128)
+    st5 = host_bounce_shade(scene, st4_p, sf4_p, lsets, SEED, cfg, 128)
     st5_p = MK.bounce_shade_plain(scene, st4_p, sf4_p, lsets, 0, SEED, cfg, True, 128)
     assert _close_rays(st5[:, found], st5_p[:, found]) >= 0.999
     assert _close_rays(st5, st5_p, [9, 10, 11, 13]) >= 0.999
@@ -604,14 +562,14 @@ def test_bounce_options_on_host(host_kernels, subdivide, opts):
         facing = found & ((sf4_p[3:6] * s[:, None]).sum(0) > 1e-6)
         assert (facing & sun_lit).sum() > 10 and (facing & ~sun_lit).sum() > 10
         assert not (sun_lit & ~facing).any()
-    st5 = host_bounce_shade(host_kernels, scene, st4_p, sf4_p, lsets, SEED, cfg, 128, bounce=1)
+    st5 = host_bounce_shade(scene, st4_p, sf4_p, lsets, SEED, cfg, 128, bounce=1)
     st5_1 = MK.bounce_shade_plain(scene, st4_p, sf4_p, lsets, 1, SEED, cfg, True, 128)
     assert _close_rays(st5[:, found], st5_1[:, found]) >= 0.999
     assert _close_rays(st5, st5_1, [9, 10, 11, 13]) >= 0.999
 
     for b, last in ((1, False), (2, True)):
         f6 = MK.bounce_trace_plain(scene, st5_p, b, cfg, True)[0][13] > 0.5
-        st6 = host_bounce(host_kernels, scene, st5_p, lsets, b, SEED, cfg, last)
+        st6 = host_bounce(scene, st5_p, lsets, b, SEED, cfg, last)
         st6_p = MK.bounce_plain(scene, st5_p, lsets, b, SEED, cfg, last, True, 128)
         assert _close_rays(st6[:, f6], st6_p[:, f6]) >= 0.999
         assert _close_rays(st6, st6_p, [9, 10, 11, 13]) >= 0.999
@@ -635,7 +593,7 @@ def test_wops_bounce_on_host(host_kernels, subdivide, sun):
     table = MK.wops_table(scene)
     st4, sf4 = MK.bounce_trace_plain(scene, st0, 0, cfg, True, spread)
     found = st4[13] > 0.5
-    st5 = host_bounce_shade(host_kernels, scene, st4, sf4, table, SEED, cfg, 128)
+    st5 = host_bounce_shade(scene, st4, sf4, table, SEED, cfg, 128)
     st5_p = MK.bounce_shade_plain(scene, st4, sf4, table, 0, SEED, cfg, True, 128)
     assert _close_rays(st5[:, found], st5_p[:, found]) >= 0.999
     assert _close_rays(st5, st5_p, [9, 10, 11, 13]) >= 0.999
@@ -645,14 +603,14 @@ def test_wops_bounce_on_host(host_kernels, subdivide, sun):
     redirected = MK.wops_pick(table, scene.num_emissives, u[0], u[5])[1]
     assert (redirected & found).sum() > 10  # the alias is taken
     f6 = MK.bounce_trace_plain(scene, st5_p, 1, cfg, True)[0][13] > 0.5
-    st6 = host_bounce(host_kernels, scene, st5_p, table, 1, SEED, cfg, False)
+    st6 = host_bounce(scene, st5_p, table, 1, SEED, cfg, False)
     st6_p = MK.bounce_plain(scene, st5_p, table, 1, SEED, cfg, False, True, 128)
     assert _close_rays(st6[:, f6], st6_p[:, f6]) >= 0.999
     assert _close_rays(st6, st6_p, [9, 10, 11, 13]) >= 0.999
     assert torch.equal(*((x[9:12] != st5_p[9:12]).any(0) for x in (st6, st6_p)))
     # a table narrower than its emissive count is refused
-    assert host_bounce_shade(host_kernels, scene, st4, sf4, table[: scene.num_emissives - 1],
-                             SEED, cfg, 128) is None
+    more = dataclasses.replace(scene, num_emissives=table.shape[0] + 1)
+    pytest.raises(RuntimeError, host_bounce_shade, more, st4, sf4, table, SEED, cfg, 128)
 
 
 def _close_material(k, p, found):
@@ -689,7 +647,7 @@ def test_material_bounce_on_host(host_kernels, case):
     lsets = MK.wops_table(scene) if cfg.nee_mode == "wops" else MK.build_light_sets(scene, SEED)
     st4, sf4 = MK.bounce_trace_plain(scene, st0, 0, cfg, True, spread)
     found = st4[13] > 0.5
-    st5 = host_bounce_shade(host_kernels, scene, st4, sf4, lsets, SEED, cfg, 128)
+    st5 = host_bounce_shade(scene, st4, sf4, lsets, SEED, cfg, 128)
     st5_p = MK.bounce_shade_plain(scene, st4, sf4, lsets, 0, SEED, cfg, True, 128)
     _close_material(st5, st5_p, found)
     lit, lit_p = ((x[9:12] != st4[9:12]).any(0) for x in (st5, st5_p))
@@ -703,7 +661,7 @@ def test_material_bounce_on_host(host_kernels, case):
     for b, last in ((1, False), (2, True)):
         if b == 2:
             f6 = MK.bounce_trace_plain(scene, st5_p, b, cfg, True)[0][13] > 0.5
-        st6 = host_bounce(host_kernels, scene, st5_p, lsets, b, SEED, cfg, last)
+        st6 = host_bounce(scene, st5_p, lsets, b, SEED, cfg, last)
         st6_p = MK.bounce_plain(scene, st5_p, lsets, b, SEED, cfg, last, True, 128)
         _close_material(st6, st6_p, f6)
         assert torch.equal(*((x[9:12] != st5_p[9:12]).any(0) for x in (st6, st6_p)))
@@ -743,7 +701,7 @@ def test_stream_kernels_on_host(host_kernels, name):
     if name == "deep":
         assert scene.walk_stack == 61 and scene.walk_nodes.shape[0] == 2799
     o, seg, d = _segments(5, 300)
-    t, tri = host_stream_closest(host_kernels, scene, o, d)
+    t, tri = host_stream_closest(scene, o, d)
     t_p, tri_p = ST.stream_closest_plain(scene, o, d)
     assert torch.equal(tri, tri_p) and torch.equal(t, t_p)
     assert 0.5 < (tri_p >= 0).float().mean() < 1.0
@@ -758,23 +716,19 @@ def test_stream_kernels_on_host(host_kernels, name):
     o2 = (o + (t_p - 1e-3)[:, None] * d).contiguous()
     o2[:5] = o[:5] + (INF - 1e-3) * d[:5]  # far ends of missed rays
     for oo, dd, t_min, t_max in ((o2, d2, 1e-4, INF), (o, d, 1e-3, 0.5), (o, d, 0.0, INF)):
-        t, tri = host_stream_closest(host_kernels, scene, oo, dd, t_min, t_max)
+        t, tri = host_stream_closest(scene, oo, dd, t_min, t_max)
         t_p, tri_p = ST.stream_closest_plain(scene, oo, dd, t_min, t_max)
         assert torch.equal(tri, tri_p) and torch.equal(t, t_p)
     for dirs, t_min, t_max in ((seg, 1e-3, 1.0 - 1e-3), (d2, 1e-4, INF)):
-        got = host_stream_occlusion(host_kernels, scene, o, dirs, t_min, t_max)
+        got = host_stream_occlusion(scene, o, dirs, t_min, t_max)
         assert torch.equal(got, ST.occlusion_stream_plain(scene, o, dirs, t_min, t_max))
         assert 0 < got.sum() < got.numel()
-    got = host_stream_occlusion(host_kernels, scene, o2, d2, 1e-4, INF)
+    got = host_stream_occlusion(scene, o2, d2, 1e-4, INF)
     assert torch.equal(got, ST.occlusion_stream_plain(scene, o2, d2, 1e-4, INF))
-    t0 = torch.zeros(300)
-    tri0 = torch.zeros(300, dtype=torch.int32)
     for stack, t_min in ((scene.walk_stack, -1.0), (0, 1e-4), (WALK_STACK_MAX + 1, 1e-4)):
-        assert host_kernels.zr_stream_closest(
-            _ptr(o), _ptr(d), _ptr(scene.walk_nodes), _ptr(scene.leaf_rows()),
-            _ptr(scene.leaf_slot), _ptr(t0), _ptr(tri0), 300, 128, stack, t_min, INF,
-            None) != 0
-        assert host_stream_occlusion(host_kernels, scene, o, seg, t_min, 1.0, stack) is None
+        refused = dataclasses.replace(scene, walk_stack=stack)
+        pytest.raises(RuntimeError, host_stream_closest, refused, o, d, t_min)
+        pytest.raises(RuntimeError, host_stream_occlusion, refused, o, seg, t_min, 1.0)
 
 
 @pytest.mark.parametrize("n_tris", [36, LEAF_SIZE])
@@ -793,24 +747,18 @@ def test_stream_closest_on_host_one_cluster(host_kernels, n_tris):
     leaves = -(-n_tris // LEAF_SIZE)  # a node above each pair of subtrees
     assert scene.walk_nodes.shape[0] == max(leaves - 1, 1)
     o, _, d = _segments(9, 300)
-    t, tri = host_stream_closest(host_kernels, scene, o, d)
+    t, tri = host_stream_closest(scene, o, d)
     t_p, tri_p = ST.stream_closest_plain(scene, o, d)
     assert torch.equal(tri, tri_p) and torch.equal(t, t_p)
     assert (tri_p >= 0).any()
 
 
-def host_atrous(lib, img, nrm, depth, valid, step, cfg: DN.ATrousConfig = DN.ATrousConfig(),
-                size=None):
+def host_atrous(img, nrm, depth, valid, step):
     """One a-trous pass on the host, each input through its plane and row
-    strides: [3, H, W], or None where the entry point refuses the launch.
-    ``size``: the (H, W) the entry point is told of (depth's by default)."""
-    h, w = depth.shape if size is None else size
-    out = torch.full((3, max(h, 0), max(w, 0)), -7.0)
-    err = lib.zr_atrous(img.data_ptr(), img.stride(0), img.stride(1), nrm.data_ptr(),
-                        nrm.stride(0), nrm.stride(1), depth.data_ptr(), depth.stride(0),
-                        valid.data_ptr(), valid.stride(0), _ptr(out), h, w, step,
-                        cfg.sigma_color, cfg.sigma_normal, cfg.sigma_depth, None)
-    return None if err else out
+    strides: [3, H, W]."""
+    out = torch.full((3, *depth.shape), -7.0)
+    DN.launch_atrous(img, nrm, depth, valid, step, DN.ATrousConfig(), out)
+    return out
 
 
 @pytest.mark.parametrize("step", [1, 2, 4, 8])
@@ -820,16 +768,37 @@ def test_atrous_on_host(host_kernels, shape, step):
     """A pass at each step on row and column slices of larger planes against
     the plain pass, on a 24x40 image, on images smaller than the taps'
     shifts and on ragged blocks: every pixel to 1e-5, an invalid pixel's
-    colour kept bit for bit. A negative size is refused."""
+    colour kept bit for bit."""
     h, w = shape
     big = atrous_case(h + 5, w + 3, seed=h + w)
     img, nrm, depth, valid = (t[..., 3 : 3 + h, 1 : 1 + w] for t in big)
-    got = host_atrous(host_kernels, img, nrm, depth, valid, step)
+    got = host_atrous(img, nrm, depth, valid, step)
     want = DN.atrous_iteration_plain(img, nrm, depth, valid.to(torch.float32), step)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
     assert torch.equal(got[:, ~valid], img[:, ~valid])
     assert not torch.equal(got[:, valid], img[:, valid])
-    assert host_atrous(host_kernels, img, nrm, depth, valid, step, size=(-1, w)) is None
+
+
+def test_launch_on_host(host_kernels, monkeypatch):
+    """``native.launch`` with the host build: an a-trous pass on CPU tensors
+    calls its entry point once, with None as the stream, and counts one
+    launch; a negative size, which only the entry point is told, is refused
+    with RuntimeError and not counted."""
+    streams = []
+    entry = host_kernels.zr_atrous
+    monkeypatch.setattr(native, "lib", lambda: SimpleNamespace(
+        zr_atrous=lambda *args: streams.append(args[-1]) or entry(*args)))
+    img, nrm, depth, valid = atrous_case(7, 5, seed=1)
+    before = native.launches.copy()
+    got = host_atrous(img, nrm, depth, valid, 2)
+    assert streams == [None] and native.launches - before == Counter(zr_atrous=1)
+    cfg = DN.ATrousConfig()
+    with pytest.raises(RuntimeError, match="zr_atrous"):
+        native.launch("zr_atrous", img.device, img, img.stride(0), img.stride(1), nrm,
+                      nrm.stride(0), nrm.stride(1), depth, depth.stride(0), valid,
+                      valid.stride(0), got, -1, 5, 2, cfg.sigma_color, cfg.sigma_normal,
+                      cfg.sigma_depth)
+    assert streams == [None, None] and native.launches - before == Counter(zr_atrous=1)
 
 
 # The wavefront path trace's vertex kernel (csrc/wavefront.cu) on the
@@ -872,12 +841,10 @@ def _wavefront_rays(n_side=64):
     return PT.park(torch.arange(o.shape[0]) % 7 != 3, o, d)
 
 
-def _host_walks(lib, monkeypatch):
-    """B8 and B9 of ``accel.stream`` replaced by their host builds."""
-    monkeypatch.setattr(ST, "stream_closest", lambda scene, o, d, t_min=1e-4, t_max=INF:
-                        host_stream_closest(lib, scene, o, d, t_min, t_max))
-    monkeypatch.setattr(ST, "occlusion_stream", lambda scene, o, d, t_min=1e-4, t_max=INF:
-                        host_stream_occlusion(lib, scene, o, d, t_min, t_max))
+def _host_walks(monkeypatch):
+    """B8 and B9 of ``accel.stream`` launched from the host build."""
+    monkeypatch.setattr(ST, "stream_closest", host_stream_closest)
+    monkeypatch.setattr(ST, "occlusion_stream", host_stream_occlusion)
 
 
 def _wavefront_case(scenes, case):
@@ -904,10 +871,10 @@ def test_wavefront_on_host(host_kernels, wavefront_scenes, monkeypatch, case):
     the random streams follow ``pix0``."""
     scene, o, d, cfg, kw = _wavefront_case(wavefront_scenes, case)
     want = PT.trace_reference_plain(scene, o, d, SEED, cfg, **kw)
-    _host_walks(host_kernels, monkeypatch)
-    before = PT.wavefront_vertex.launches
-    got = PT.trace_wavefront(scene, o, d, SEED, cfg, lib=host_kernels, **kw)
-    assert PT.wavefront_vertex.launches == before + cfg.max_bounces + 1
+    _host_walks(monkeypatch)
+    before = native.launches["zr_wavefront_vertex"]
+    got = PT.trace_wavefront(scene, o, d, SEED, cfg, **kw)
+    assert native.launches["zr_wavefront_vertex"] == before + cfg.max_bounces + 1
     if kw.get("return_first_hit"):
         (want, sh_want), (got, sh_got) = want, got
         for a, b in zip(sh_got, sh_want):
@@ -947,9 +914,9 @@ def test_wavefront_dispatch(wavefront_scenes, tmp_path, monkeypatch, kind):
 
     monkeypatch.setattr(PT, "trace_wavefront", refuse)
     o, d = (x[::64].contiguous() for x in _wavefront_rays())
-    before = PT.wavefront_vertex.launches
+    before = native.launches["zr_wavefront_vertex"]
     rad = PT.trace_reference(scene, o, d, SEED, cfg, textures=textures)
-    assert rad.shape == o.shape and PT.wavefront_vertex.launches == before
+    assert rad.shape == o.shape and native.launches["zr_wavefront_vertex"] == before
 
 
 def test_wavefront_ray_counter_adds_no_operation_or_sync(host_kernels, wavefront_scenes,
@@ -964,7 +931,7 @@ def test_wavefront_ray_counter_adds_no_operation_or_sync(host_kernels, wavefront
     from zetaray_tpu_torch.utils.stats import FrameStats
 
     scene, o, d, cfg, _ = _wavefront_case(wavefront_scenes, "di")
-    _host_walks(host_kernels, monkeypatch)
+    _host_walks(monkeypatch)
     handed = []
     count = FrameStats.count_rays
 
@@ -978,11 +945,11 @@ def test_wavefront_ray_counter_adds_no_operation_or_sync(host_kernels, wavefront
         monkeypatch.setattr(PT, "stats", rec)
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
             with rec.frame():
-                PT.trace_wavefront(scene, o, d, SEED, cfg, lib=host_kernels)
+                PT.trace_wavefront(scene, o, d, SEED, cfg)
         ops = [e.name for e in prof.events() if e.name.startswith("aten::")]
         return sorted(ops), rec.last
 
-    PT.trace_wavefront(scene, o, d, SEED, cfg, lib=host_kernels)  # the walks' rows, cached
+    PT.trace_wavefront(scene, o, d, SEED, cfg)  # the walks' rows, cached
     monkeypatch.setattr(FrameStats, "count_rays", spy)
     ops_on, fr_on = profiled()
     monkeypatch.setattr(FrameStats, "count_rays", lambda self, kernel, n: None)

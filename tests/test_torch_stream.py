@@ -35,8 +35,8 @@ from zetaray_tpu_torch.scene import scene as TS
 from zetaray_tpu_torch.scene.procedural import cornell_box, repeated_box
 from zetaray_tpu_torch.scene.subdivide import subdivide_scene
 from tests.test_stream import _soup
-from tests.test_torch_rehearsal import (  # noqa: F401  (host_kernels is a fixture)
-    _segments, host_kernels, host_stream_closest, host_stream_occlusion,
+from tests.test_torch_rehearsal import (  # noqa: F401  (host_build, host_kernels: fixtures)
+    _segments, host_build, host_kernels, host_stream_closest, host_stream_occlusion,
 )
 from tests.test_torch_intersect import _camera_rays
 from tests.test_torch_scene import TABLES, jax_scene_arrays, to_jax_cpu_scene, to_port_cpu_scene
@@ -177,12 +177,12 @@ def test_cluster_tree_depth_is_checked(host_kernels):
     assert box.shape[0] == 80 and TB._depth(left, right).max() == 79
     assert 79 < chain.walk_stack <= TB.WALK_STACK_MAX
     o, seg, d = _segments(5, 300)
-    t, tri = host_stream_closest(host_kernels, chain, o, d)
+    t, tri = host_stream_closest(chain, o, d)
     t_p, tri_p = ST.stream_closest_plain(chain, o, d)
     assert torch.equal(tri, tri_p) and torch.equal(t, t_p)
     assert 0.5 < (tri_p >= 0).float().mean() < 1.0
     for dirs, t_max in ((seg, 1.0 - 1e-3), (d, 0.5)):
-        got = host_stream_occlusion(host_kernels, chain, o, dirs, 1e-3, t_max)
+        got = host_stream_occlusion(chain, o, dirs, 1e-3, t_max)
         assert torch.equal(got, ST.occlusion_stream_plain(chain, o, dirs, 1e-3, t_max))
         assert 0 < got.sum() < got.numel()
 

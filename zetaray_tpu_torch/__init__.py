@@ -20,10 +20,16 @@ What runs on the card as a kernel written by hand (``csrc/``):
   down to leaves of a few triangles
 - ``ops.denoise.atrous_iteration_p``  one pass of the a-trous denoiser
   (no TPU kernel: the JAX package's a-trous is XLA-side)
+- ``ops.pathtracer.wavefront_vertex``  one vertex of the clustered
+  scenes' wavefront path trace, between B8 and B9 (no TPU kernel)
 
-Each wrapper takes its plain PyTorch version for a CPU tensor and launches
-its kernel for a CUDA tensor. Everything between the kernels is plain
-PyTorch on the same device. The loaders put scenes and rays on the card
+Each wrapper takes its plain PyTorch version for a CPU tensor; for a CUDA
+tensor it allocates its outputs and calls its launch function
+(``launch_gbuffer``, ``launch_ris``, ...; ``wavefront_vertex`` is one),
+which validates every tensor with ``native.require`` and calls
+``native.launch``: the one seam to ``csrc/``, which counts each launch in
+``native.launches``. Everything between the kernels is plain PyTorch on
+the same device. The loaders put scenes and rays on the card
 unless told otherwise (``native.default_device``).
 
 Package layout mirrors the JAX package:

@@ -58,7 +58,8 @@ from .. import native
 from ..scene.scene import A
 from ..utils.stats import stats
 from .megakernel import (
-    INF, TRI_CHUNK, RAY_CHUNK, _check_dense, check_sweep_t_min, closest_hit_plain, tri_hits,
+    INF, TRI_CHUNK, RAY_CHUNK, _check_dense, check_sweep_t_min, closest_hit_plain, dense_rays,
+    tri_hits,
 )
 
 
@@ -98,25 +99,18 @@ def occlusion(scene, o: torch.Tensor, d: torch.Tensor, t_min=1e-4, t_max=INF):
     stats.count_rays("B3", o.shape[0])
     if o.device.type == "cpu":
         return occlusion_plain(scene.woop, o, d, t_min, t_max)
-    n = o.shape[0]
-    tp = scene.woop.shape[1] // 3
-    native.require_cuda(o, "o", torch.float32, (n, 3))
-    native.require_cuda(d, "d", torch.float32, (n, 3))
-    native.require_cuda(scene.woop, "woop", torch.float32, (4, 3 * tp))
-    if tp % TRI_CHUNK:
-        raise ValueError(f"triangle count {tp} is not padded to a multiple of {TRI_CHUNK}")
     check_sweep_t_min(t_min)
-    out = torch.empty((n,), dtype=torch.int32, device=o.device)
-    err = native.lib().zr_occlusion(
-        o.data_ptr(), d.data_ptr(), scene.woop_rows().data_ptr(), out.data_ptr(), n, tp,
-        scene.num_tris, float(t_min), float(t_max), native.stream_ptr(o.device),
-    )
-    native.check(err, "occlusion")
-    occlusion.launches += 1
+    out = torch.empty((o.shape[0],), dtype=torch.int32, device=o.device)
+    launch_occlusion(scene, o, d, t_min, t_max, out)
     return out.bool()
 
 
-occlusion.launches = 0
+def launch_occlusion(scene, o, d, t_min, t_max, out) -> None:
+    """``occlusion``'s launch of B3: into ``out`` int32 [N], 1 where blocked."""
+    n, tp = dense_rays(scene, o, d)
+    native.require(out, "out", torch.int32, (n,), o.device)
+    native.launch("zr_occlusion", o.device, o, d, scene.woop_rows(), out, n, tp, scene.num_tris,
+                  float(t_min), float(t_max))
 
 
 def intersect_occluded(scene, o: torch.Tensor, d: torch.Tensor, t_min=1e-4, t_max=None):
@@ -197,31 +191,26 @@ def _closest_dense(scene, o, d, t_min, t_max) -> ShadedHit:
     stats.count_rays("B7", o.shape[0])
     if o.device.type == "cpu":
         return closest_hit_plain_shaded(scene.woop, scene.tri_attrs, o, d, t_min, t_max)
-    n = o.shape[0]
-    tp = scene.woop.shape[1] // 3
-    native.require_cuda(o, "o", torch.float32, (n, 3))
-    native.require_cuda(d, "d", torch.float32, (n, 3))
-    native.require_cuda(scene.woop, "woop", torch.float32, (4, 3 * tp))
-    native.require_cuda(scene.tri_attrs, "tri_attrs", torch.float32, (tp, A.WIDTH))
-    rows = scene.woop_rows()
-    if tp % TRI_CHUNK:
-        raise ValueError(f"triangle count {tp} is not padded to a multiple of {TRI_CHUNK}")
     check_sweep_t_min(t_min)
+    n = o.shape[0]
     f32 = dict(dtype=torch.float32, device=o.device)
     t, u, v = (torch.empty((n,), **f32) for _ in range(3))
-    tri = torch.empty((n,), dtype=torch.int32, device=o.device)
-    at = torch.empty((A.WIDTH, n), **f32)
-    err = native.lib().zr_closest(
-        o.data_ptr(), d.data_ptr(), rows.data_ptr(), scene.tri_attrs.data_ptr(),
-        t.data_ptr(), tri.data_ptr(), u.data_ptr(), v.data_ptr(), at.data_ptr(), n, tp,
-        scene.num_tris, tie_chunk(tp), float(t_min), float(t_max), native.stream_ptr(o.device),
-    )
-    native.check(err, "closest")
-    closest_hit.launches += 1
-    return ShadedHit(t, tri, u, v, at)
+    hit = ShadedHit(t, torch.empty((n,), dtype=torch.int32, device=o.device), u, v,
+                    torch.empty((A.WIDTH, n), **f32))
+    launch_closest(scene, o, d, t_min, t_max, hit)
+    return hit
 
 
-closest_hit.launches = 0
+def launch_closest(scene, o, d, t_min, t_max, hit: ShadedHit) -> None:
+    """``closest_hit``'s launch of B7: into the tensors of ``hit``."""
+    n, tp = dense_rays(scene, o, d)
+    native.require(scene.tri_attrs, "tri_attrs", torch.float32, (tp, A.WIDTH), o.device)
+    for name in ("t", "u", "v"):
+        native.require(getattr(hit, name), name, torch.float32, (n,), o.device)
+    native.require(hit.tri, "tri", torch.int32, (n,), o.device)
+    native.require(hit.attrs, "attrs", torch.float32, (A.WIDTH, n), o.device)
+    native.launch("zr_closest", o.device, o, d, scene.woop_rows(), scene.tri_attrs, *hit, n, tp,
+                  scene.num_tris, tie_chunk(tp), float(t_min), float(t_max))
 
 
 def _closest_raw(scene, o, d, t_min, t_max) -> ShadedHit:

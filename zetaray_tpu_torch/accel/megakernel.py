@@ -252,26 +252,19 @@ def gbuffer(scene, o: torch.Tensor, d: torch.Tensor, t_min=1e-4) -> torch.Tensor
         return gbuffer_rows(o, d, sh.t, sh.valid, sh.u, sh.v, sh.attrs)
     if o.device.type == "cpu":
         return gbuffer_plain(scene, o, d, t_min)
-    n = o.shape[0]
-    tp = scene.woop.shape[1] // 3
-    native.require_cuda(o, "o", torch.float32, (n, 3))
-    native.require_cuda(d, "d", torch.float32, (n, 3))
-    native.require_cuda(scene.woop, "woop", torch.float32, (4, 3 * tp))
-    native.require_cuda(scene.tri_attrs, "tri_attrs", torch.float32, (tp, A.WIDTH))
-    if tp % TRI_CHUNK:
-        raise ValueError(f"triangle count {tp} is not padded to a multiple of {TRI_CHUNK}")
     check_sweep_t_min(t_min)
-    out = torch.empty((G.ROWS, n), dtype=torch.float32, device=o.device)
-    err = native.lib().zr_gbuffer(
-        o.data_ptr(), d.data_ptr(), scene.woop_rows().data_ptr(), scene.tri_attrs.data_ptr(),
-        out.data_ptr(), n, tp, scene.num_tris, t_min, native.stream_ptr(o.device),
-    )
-    native.check(err, "gbuffer")
-    gbuffer.launches += 1
+    out = torch.empty((G.ROWS, o.shape[0]), dtype=torch.float32, device=o.device)
+    launch_gbuffer(scene, o, d, t_min, out)
     return out
 
 
-gbuffer.launches = 0
+def launch_gbuffer(scene, o, d, t_min, out) -> None:
+    """``gbuffer``'s launch of B1: rays o, d [N, 3] into ``out`` [G.ROWS, N]."""
+    n, tp = dense_rays(scene, o, d)
+    native.require(scene.tri_attrs, "tri_attrs", torch.float32, (tp, A.WIDTH), o.device)
+    native.require(out, "out", torch.float32, (G.ROWS, n), o.device)
+    native.launch("zr_gbuffer", o.device, o, d, scene.woop_rows(), scene.tri_attrs, out, n, tp,
+                  scene.num_tris, t_min)
 
 
 def build_light_sets(scene, seed: int, ns: int = NS, ps: int = PS) -> torch.Tensor:
@@ -326,6 +319,19 @@ def _wops_light(table, n_em: int, u_pick, u_alias, u_b0, u_b1):
 # ---------------------------------------------------------------------------
 # Path bounce: trace (B4), shade (B5), fused (B6)
 # ---------------------------------------------------------------------------
+
+
+def dense_rays(scene, o, d) -> tuple[int, int]:
+    """Validate the rays o, d [N, 3] and the dense Woop table of a sweep
+    (B1, B3, B7); returns (N, padded triangle count)."""
+    n = o.shape[0]
+    tp = scene.woop.shape[1] // 3
+    native.require(o, "o", torch.float32, (n, 3), o.device)
+    native.require(d, "d", torch.float32, (n, 3), o.device)
+    native.require(scene.woop, "woop", torch.float32, (4, 3 * tp), o.device)
+    if tp % TRI_CHUNK:
+        raise ValueError(f"triangle count {tp} is not padded to a multiple of {TRI_CHUNK}")
+    return n, tp
 
 
 def check_sweep_t_min(t_min) -> None:
@@ -595,29 +601,40 @@ def bounce_plain(scene, state, light_sets, bounce: int, seed: int, cfg, last: bo
     return _state(o2, d2, thr, rad, pdf, alive, torch.zeros_like(pdf), state[15])
 
 
-def _bounce_args(scene, state, light_sets, rt: int, wops: bool = False, pix0: int = 0):
-    """Validate the tensors of a bounce launch; returns (n, tp, n_sets, ps):
-    with ``wops`` ``light_sets`` is ``wops_table`` and (n_sets, ps) (1, Ep)."""
+def _bounce_args(scene, state, out):
+    """Validate the path state, the triangles and the output state of a
+    bounce launch; returns (n, tp)."""
     n = state.shape[1]
     tp = scene.woop.shape[1] // 3
-    native.require_cuda(state, "state", torch.float32, (STATE_ROWS, n))
-    native.require_cuda(scene.woop, "woop", torch.float32, (4, 3 * tp))
-    native.require_cuda(scene.tri_attrs, "tri_attrs", torch.float32, (tp, A.WIDTH))
+    native.require(state, "state", torch.float32, (STATE_ROWS, n), state.device)
+    native.require(scene.woop, "woop", torch.float32, (4, 3 * tp), state.device)
+    native.require(scene.tri_attrs, "tri_attrs", torch.float32, (tp, A.WIDTH), state.device)
     if tp % TRI_CHUNK:
         raise ValueError(f"triangle count {tp} is not padded to a multiple of {TRI_CHUNK}")
-    if light_sets is None:
-        return n, tp, 1, 1
-    if rt % BOUNCE_BLOCK:
-        raise ValueError(f"tile width {rt} is not a multiple of {BOUNCE_BLOCK}")
-    if pix0 < 0:
-        raise ValueError(f"ray offset {pix0} is negative")
+    native.require(out, "out", torch.float32, (STATE_ROWS, n), state.device)
+    return n, tp
+
+
+def _light_args(scene, cfg, light_sets, device):
+    """Validate the light sets of a B5 or B6 launch; returns (n_sets, ps,
+    wops_em): their shape, or with WoPS NEE (``_wops_em``) one set of the
+    rows of ``light_sets`` = ``wops_table``."""
+    wops = _wops_em(scene, cfg)
     if wops:
         ep = scene.em_attrs.shape[0]
-        native.require_cuda(light_sets, "wops_table", torch.float32, (ep, WOPS_ROW))
-        return n, tp, 1, ep
+        native.require(light_sets, "wops_table", torch.float32, (ep, WOPS_ROW), device)
+        return 1, ep, wops
     n_sets, _, ps = light_sets.shape
-    native.require_cuda(light_sets, "light_sets", torch.float32, (n_sets, LSET_ROWS, ps))
-    return n, tp, n_sets, ps
+    native.require(light_sets, "light_sets", torch.float32, (n_sets, LSET_ROWS, ps), device)
+    return n_sets, ps, 0
+
+
+def check_tiles(rt: int, pix0: int, block: int = BOUNCE_BLOCK) -> None:
+    """A launch's tiles of ``rt`` rays must be whole blocks, its offset >= 0."""
+    if rt % block:
+        raise ValueError(f"tile width {rt} is not a multiple of {block}")
+    if pix0 < 0:
+        raise ValueError(f"ray offset {pix0} is negative")
 
 
 def _wops_em(scene, cfg) -> int:
@@ -636,22 +653,22 @@ def bounce_trace(scene, state, bounce: int, cfg, has_lights: bool, spread_angle=
     _check_bounce(scene, "bounce_trace")
     if state.device.type == "cpu":
         return bounce_trace_plain(scene, state, bounce, cfg, has_lights, spread_angle)
-    n, tp, _, _ = _bounce_args(scene, state, None, 0)
     check_sweep_t_min(cfg.t_min)
     out = torch.empty_like(state)
-    surf = torch.empty((SURF_ROWS, n), dtype=torch.float32, device=state.device)
-    err = native.lib().zr_bounce_trace(
-        state.data_ptr(), scene.woop_rows().data_ptr(), scene.tri_attrs.data_ptr(),
-        out.data_ptr(), surf.data_ptr(), n, tp, scene.num_tris, bounce, cfg.t_min,
-        cone_spread(spread_angle), cfg.min_emissive_bounce, int(cfg.nee), int(has_lights),
-        path_options(cfg), native.stream_ptr(state.device),
-    )
-    native.check(err, "bounce_trace")
-    bounce_trace.launches += 1
+    surf = torch.empty((SURF_ROWS, state.shape[1]), dtype=torch.float32, device=state.device)
+    launch_bounce_trace(scene, state, bounce, cfg, has_lights, spread_angle, out, surf)
     return out, surf
 
 
-bounce_trace.launches = 0
+def launch_bounce_trace(scene, state, bounce: int, cfg, has_lights: bool, spread_angle,
+                        out, surf) -> None:
+    """``bounce_trace``'s launch of B4: into ``out`` [STATE_ROWS, N] and
+    ``surf`` [SURF_ROWS, N]."""
+    n, tp = _bounce_args(scene, state, out)
+    native.require(surf, "surf", torch.float32, (SURF_ROWS, n), state.device)
+    native.launch("zr_bounce_trace", state.device, state, scene.woop_rows(), scene.tri_attrs,
+                  out, surf, n, tp, scene.num_tris, bounce, cfg.t_min, cone_spread(spread_angle),
+                  cfg.min_emissive_bounce, int(cfg.nee), int(has_lights), path_options(cfg))
 
 
 def bounce_shade(scene, state, surf, light_sets, bounce: int, seed: int, cfg,
@@ -670,22 +687,23 @@ def bounce_shade(scene, state, surf, light_sets, bounce: int, seed: int, cfg,
     if state.device.type == "cpu":
         return bounce_shade_plain(scene, state, surf, light_sets, bounce, seed, cfg,
                                   has_lights, rt, pix0)
-    wops = _wops_em(scene, cfg)
-    n, tp, n_sets, ps = _bounce_args(scene, state, light_sets, rt, wops > 0, pix0)
-    native.require_cuda(surf, "surf", torch.float32, (SURF_ROWS, n))
+    check_tiles(rt, pix0)
     out = torch.empty_like(state)
-    err = native.lib().zr_bounce_shade(
-        state.data_ptr(), surf.data_ptr(), scene.woop_rows().data_ptr(), light_sets.data_ptr(),
-        out.data_ptr(), n, tp, scene.num_tris, n_sets, ps, rt, int(pix0), bounce,
-        int(seed) & 0xFFFFFFFF, cfg.min_nee_bounce, cfg.rr_start, int(cfg.nee), int(has_lights),
-        wops, material_flags(scene), path_options(cfg), native.stream_ptr(state.device),
-    )
-    native.check(err, "bounce_shade")
-    bounce_shade.launches += 1
+    launch_bounce_shade(scene, state, surf, light_sets, bounce, seed, cfg, has_lights, rt, pix0,
+                        out)
     return out
 
 
-bounce_shade.launches = 0
+def launch_bounce_shade(scene, state, surf, light_sets, bounce: int, seed: int, cfg,
+                        has_lights: bool, rt: int, pix0: int, out) -> None:
+    """``bounce_shade``'s launch of B5: into ``out`` [STATE_ROWS, N]."""
+    n, tp = _bounce_args(scene, state, out)
+    n_sets, ps, wops = _light_args(scene, cfg, light_sets, state.device)
+    native.require(surf, "surf", torch.float32, (SURF_ROWS, n), state.device)
+    native.launch("zr_bounce_shade", state.device, state, surf, scene.woop_rows(), light_sets,
+                  out, n, tp, scene.num_tris, n_sets, ps, rt, int(pix0), bounce,
+                  int(seed) & 0xFFFFFFFF, cfg.min_nee_bounce, cfg.rr_start, int(cfg.nee),
+                  int(has_lights), wops, material_flags(scene), path_options(cfg))
 
 
 def bounce(scene, state, light_sets, b: int, seed: int, cfg, last: bool,
@@ -698,23 +716,23 @@ def bounce(scene, state, light_sets, b: int, seed: int, cfg, last: bool,
     _check_bounce(scene, "bounce")
     if state.device.type == "cpu":
         return bounce_plain(scene, state, light_sets, b, seed, cfg, last, has_lights, rt, pix0)
-    wops = _wops_em(scene, cfg)
-    n, tp, n_sets, ps = _bounce_args(scene, state, light_sets, rt, wops > 0, pix0)
+    check_tiles(rt, pix0)
     check_sweep_t_min(cfg.t_min)
     out = torch.empty_like(state)
-    err = native.lib().zr_bounce(
-        state.data_ptr(), scene.woop_rows().data_ptr(), scene.tri_attrs.data_ptr(),
-        light_sets.data_ptr(), out.data_ptr(), n, tp, scene.num_tris, n_sets, ps, rt, int(pix0),
-        b, int(seed) & 0xFFFFFFFF, cfg.t_min, cfg.min_emissive_bounce, cfg.min_nee_bounce,
-        cfg.rr_start, int(cfg.nee), int(has_lights), int(last), wops, material_flags(scene),
-        path_options(cfg), native.stream_ptr(state.device),
-    )
-    native.check(err, "bounce")
-    bounce.launches += 1
+    launch_bounce(scene, state, light_sets, b, seed, cfg, last, has_lights, rt, pix0, out)
     return out
 
 
-bounce.launches = 0
+def launch_bounce(scene, state, light_sets, b: int, seed: int, cfg, last: bool,
+                  has_lights: bool, rt: int, pix0: int, out) -> None:
+    """``bounce``'s launch of B6: into ``out`` [STATE_ROWS, N]."""
+    n, tp = _bounce_args(scene, state, out)
+    n_sets, ps, wops = _light_args(scene, cfg, light_sets, state.device)
+    native.launch("zr_bounce", state.device, state, scene.woop_rows(), scene.tri_attrs,
+                  light_sets, out, n, tp, scene.num_tris, n_sets, ps, rt, int(pix0), b,
+                  int(seed) & 0xFFFFFFFF, cfg.t_min, cfg.min_emissive_bounce,
+                  cfg.min_nee_bounce, cfg.rr_start, int(cfg.nee), int(has_lights), int(last),
+                  wops, material_flags(scene), path_options(cfg))
 
 
 def initial_state(o: torch.Tensor, d: torch.Tensor) -> torch.Tensor:

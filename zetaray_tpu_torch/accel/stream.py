@@ -74,26 +74,22 @@ def stream_closest_plain(scene, o, d, t_min=1e-4, t_max=INF):
     return t, tri.to(torch.int32)
 
 
-def _check_rays(scene, o, d) -> int:
-    """Validate the rays and the Woop table of a launch of B8 or B9; returns N."""
+def _walk_args(scene, o, d) -> tuple[int, torch.Tensor]:
+    """Validate the rays, the Woop table and the tree of a walk of B8 or B9;
+    returns (N, the tree's leaf-ordered rows)."""
     n = o.shape[0]
     tp = scene.woop.shape[1] // 3
     m = scene.cluster_aabb.shape[0]
-    native.require_cuda(o, "o", torch.float32, (n, 3))
-    native.require_cuda(d, "d", torch.float32, (n, 3))
-    native.require_cuda(scene.woop, "woop", torch.float32, (4, 3 * tp))
+    native.require(o, "o", torch.float32, (n, 3), o.device)
+    native.require(d, "d", torch.float32, (n, 3), o.device)
+    native.require(scene.woop, "woop", torch.float32, (4, 3 * tp), o.device)
     if m * scene.cluster_size != tp:
         raise ValueError(f"{m} clusters of {scene.cluster_size} do not fill {tp} slots")
-    return n
-
-
-def _walk_rows(scene) -> torch.Tensor:
-    """Validate the tree of a walk of B8 or B9; returns its leaf-ordered rows."""
     rows = scene.leaf_rows()
-    native.require_cuda(scene.walk_nodes, "walk_nodes", torch.int32,
-                        (scene.walk_nodes.shape[0], 16))
-    native.require_cuda(rows, "leaf_rows", torch.float32, (rows.shape[0], 12))
-    return rows
+    native.require(scene.walk_nodes, "walk_nodes", torch.int32, (scene.walk_nodes.shape[0], 16),
+                   o.device)
+    native.require(rows, "leaf_rows", torch.float32, (rows.shape[0], 12), o.device)
+    return n, rows
 
 
 def stream_closest(scene, o, d, t_min=1e-4, t_max=INF):
@@ -108,23 +104,22 @@ def stream_closest(scene, o, d, t_min=1e-4, t_max=INF):
     _check_clustered(scene)
     if o.device.type == "cpu":
         return stream_closest_plain(scene, o, d, t_min, t_max)
-    n = _check_rays(scene, o, d)
     check_sweep_t_min(t_min)
-    rows = _walk_rows(scene)
-    native.require_cuda(scene.leaf_slot, "leaf_slot", torch.int32, (rows.shape[0],))
-    t = torch.empty((n,), dtype=torch.float32, device=o.device)
-    tri = torch.empty((n,), dtype=torch.int32, device=o.device)
-    err = native.lib().zr_stream_closest(
-        o.data_ptr(), d.data_ptr(), scene.walk_nodes.data_ptr(), rows.data_ptr(),
-        scene.leaf_slot.data_ptr(), t.data_ptr(), tri.data_ptr(), n, scene.cluster_size,
-        scene.walk_stack, float(t_min), float(t_max), native.stream_ptr(o.device),
-    )
-    native.check(err, "stream_closest")
-    stream_closest.launches += 1
+    t = torch.empty((o.shape[0],), dtype=torch.float32, device=o.device)
+    tri = torch.empty((o.shape[0],), dtype=torch.int32, device=o.device)
+    launch_stream_closest(scene, o, d, t_min, t_max, t, tri)
     return t, tri
 
 
-stream_closest.launches = 0
+def launch_stream_closest(scene, o, d, t_min, t_max, t, tri) -> None:
+    """``stream_closest``'s launch of B8: into ``t`` float32 [N] and ``tri``
+    int32 [N]."""
+    n, rows = _walk_args(scene, o, d)
+    native.require(scene.leaf_slot, "leaf_slot", torch.int32, (rows.shape[0],), o.device)
+    native.require(t, "t", torch.float32, (n,), o.device)
+    native.require(tri, "tri", torch.int32, (n,), o.device)
+    native.launch("zr_stream_closest", o.device, o, d, scene.walk_nodes, rows, scene.leaf_slot,
+                  t, tri, n, scene.cluster_size, scene.walk_stack, float(t_min), float(t_max))
 
 
 def occlusion_stream_plain(scene, o, d, t_min=1e-4, t_max=INF):
@@ -146,21 +141,19 @@ def occlusion_stream(scene, o, d, t_min=1e-4, t_max=INF):
     _check_clustered(scene)
     if o.device.type == "cpu":
         return occlusion_stream_plain(scene, o, d, t_min, t_max)
-    n = _check_rays(scene, o, d)
     check_sweep_t_min(t_min)
-    rows = _walk_rows(scene)
-    out = torch.empty((n,), dtype=torch.int32, device=o.device)
-    err = native.lib().zr_stream_occlusion(
-        o.data_ptr(), d.data_ptr(), scene.walk_nodes.data_ptr(), rows.data_ptr(),
-        out.data_ptr(), n, scene.walk_stack, float(t_min), float(t_max),
-        native.stream_ptr(o.device),
-    )
-    native.check(err, "stream_occlusion")
-    occlusion_stream.launches += 1
+    out = torch.empty((o.shape[0],), dtype=torch.int32, device=o.device)
+    launch_occlusion_stream(scene, o, d, t_min, t_max, out)
     return out.bool()
 
 
-occlusion_stream.launches = 0
+def launch_occlusion_stream(scene, o, d, t_min, t_max, out) -> None:
+    """``occlusion_stream``'s launch of B9: into ``out`` int32 [N], 1 where
+    blocked."""
+    n, rows = _walk_args(scene, o, d)
+    native.require(out, "out", torch.int32, (n,), o.device)
+    native.launch("zr_stream_occlusion", o.device, o, d, scene.walk_nodes, rows, out, n,
+                  scene.walk_stack, float(t_min), float(t_max))
 
 
 def _uv_postpass(woop, tri, o, d):

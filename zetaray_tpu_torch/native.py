@@ -8,8 +8,11 @@ package (listed in ``.gitignore``), so a fresh checkout builds everything
 the first time a CUDA tensor reaches a kernel.
 
 Each C entry point launches on the stream it is given, allocates nothing,
-and returns ``cudaGetLastError()``; :func:`check` turns a non-zero code
-into an exception.
+and returns ``cudaGetLastError()``. Each kernel's launch function checks
+its tensors with :func:`require` and calls :func:`launch`, the one seam to
+the library: it appends the stream, turns a non-zero code into an
+exception and counts the launch in ``launches``. The host rehearsal puts a
+host build of the same sources in the place of :func:`lib`.
 
 The host's BCn texture decoder (``csrc/host/bcdec.cpp``, :func:`decode_bcn`)
 is a second, plain C++ library built with ``g++`` at its first use into the
@@ -27,6 +30,7 @@ writes them as C constants into the ``layout.h`` that the sources include.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -93,6 +97,7 @@ _SIGNATURES = {
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
+launches: collections.Counter = collections.Counter()  # {entry point: launches so far}
 _bcn_lib: ctypes.CDLL | None = None
 HOST_SRC = CSRC / "host"
 
@@ -190,17 +195,23 @@ def build() -> Path:
     return out
 
 
+def bind(cdll: ctypes.CDLL) -> ctypes.CDLL:
+    """Give each entry point of ``_SIGNATURES`` that ``cdll`` holds (a host
+    build holds some) its argument and return types; returns ``cdll``."""
+    for name, argtypes in _SIGNATURES.items():
+        if hasattr(cdll, name):
+            fn = getattr(cdll, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+    return cdll
+
+
 def lib() -> ctypes.CDLL:
     """The loaded kernel library (built on first call)."""
     global _lib
     with _lock:
         if _lib is None:
-            loaded = ctypes.CDLL(str(build()))
-            for name, argtypes in _SIGNATURES.items():
-                fn = getattr(loaded, name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-            _lib = loaded
+            _lib = bind(ctypes.CDLL(str(build())))
         return _lib
 
 
@@ -231,26 +242,31 @@ def default_device(device=None) -> torch.device:
     return torch.device("cuda")
 
 
-def stream_ptr(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
-
-
-def check(err: int, name: str) -> None:
+def launch(entry: str, device: torch.device, *args) -> None:
+    """Call the entry point ``entry`` of :func:`lib` with ``args`` (a tensor
+    as its data pointer, None as a null pointer) and the current stream of
+    ``device`` (None for a CPU device, which only a host build takes); raise
+    where it refuses the launch, else count the launch in ``launches``."""
+    args = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    stream = torch.cuda.current_stream(device).cuda_stream if device.type == "cuda" else None
+    err = getattr(lib(), entry)(*args, stream)
     if err != 0:
-        raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {err}")
+        raise RuntimeError(f"CUDA kernel {entry} failed to launch: cudaError {err}")
+    launches[entry] += 1
 
 
-def require_cuda(t: torch.Tensor, name: str, dtype: torch.dtype, shape=None,
-                 contiguous: bool = True) -> None:
-    """Validate a tensor handed to a kernel: device, dtype, contiguity
-    (unless the kernel takes strides), shape."""
-    if not t.is_cuda:
-        raise ValueError(f"{name}: expected a CUDA tensor, got one on {t.device}")
+def require(t: torch.Tensor, name: str, dtype: torch.dtype, shape, device: torch.device,
+            contiguous: bool = True) -> None:
+    """Validate a tensor handed to a kernel: on ``device`` (the rays' or the
+    outputs'), its dtype, contiguity (unless the kernel takes strides),
+    shape."""
+    if t.device != device:
+        raise ValueError(f"{name}: expected a tensor on {device}, got one on {t.device}")
     if t.dtype != dtype:
         raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
     if contiguous and not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
-    if shape is not None and tuple(t.shape) != tuple(shape):
+    if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
 
 

@@ -88,29 +88,26 @@ def atrous_iteration_p(out, normal, depth, valid, step: int,
         return atrous_iteration_plain(out, normal, depth, valid.to(torch.float32), step, cfg)
     if out.dim() != 3:
         raise ValueError(f"out: expected [3, H, W], got shape {tuple(out.shape)}")
+    dst = torch.empty((3, *out.shape[1:]), dtype=torch.float32, device=out.device)
+    launch_atrous(out, normal, depth, valid, step, cfg, dst)
+    return dst
+
+
+def launch_atrous(out, normal, depth, valid, step: int, cfg: ATrousConfig, dst) -> None:
+    """``atrous_iteration_p``'s launch of one pass: into ``dst`` [3, H, W]."""
     h, w = out.shape[1:]
     for name, t, dtype, shape in (("out", out, torch.float32, (3, h, w)),
                                   ("normal", normal, torch.float32, (3, h, w)),
                                   ("depth", depth, torch.float32, (h, w)),
                                   ("valid", valid, torch.bool, (h, w))):
-        native.require_cuda(t, name, dtype, shape, contiguous=False)
-        if t.device != out.device:
-            raise ValueError(f"{name}: expected a tensor on {out.device}, got one on {t.device}")
+        native.require(t, name, dtype, shape, out.device, contiguous=False)
         if w > 1 and t.stride(-1) != 1:
             raise ValueError(f"{name}: expected a column stride of 1, got {t.stride(-1)}")
-    dst = torch.empty((3, h, w), dtype=torch.float32, device=out.device)
-    err = native.lib().zr_atrous(
-        out.data_ptr(), out.stride(0), out.stride(1), normal.data_ptr(), normal.stride(0),
-        normal.stride(1), depth.data_ptr(), depth.stride(0), valid.data_ptr(), valid.stride(0),
-        dst.data_ptr(), h, w, int(step), cfg.sigma_color, cfg.sigma_normal, cfg.sigma_depth,
-        native.stream_ptr(out.device),
-    )
-    native.check(err, "atrous")
-    atrous_iteration_p.launches += 1
-    return dst
-
-
-atrous_iteration_p.launches = 0
+    native.require(dst, "dst", torch.float32, (3, h, w), out.device)
+    native.launch("zr_atrous", out.device, out, out.stride(0), out.stride(1), normal,
+                  normal.stride(0), normal.stride(1), depth, depth.stride(0), valid,
+                  valid.stride(0), dst, h, w, int(step), cfg.sigma_color, cfg.sigma_normal,
+                  cfg.sigma_depth)
 
 
 def atrous_denoise_plain(img, normal, depth, valid, cfg: ATrousConfig = ATrousConfig()):

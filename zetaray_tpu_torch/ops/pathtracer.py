@@ -327,22 +327,9 @@ def wavefront_eligible(scene, cfg: PTConfig, textures=None) -> bool:
             and cfg.sky is None)
 
 
-def _require(t: torch.Tensor, name: str, dtype: torch.dtype, shape, device) -> None:
-    """Validate a tensor handed to the vertex kernel (on the card, or on the
-    CPU for a host build of it)."""
-    if t.device != device:
-        raise ValueError(f"{name}: expected a tensor on {device}, got one on {t.device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: expected a contiguous tensor")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
-
-
 def wavefront_vertex(scene, o, d, tri, occluded, smb_kill, state, rad, o_next, d_next, seg_o,
-                     seg_d, first_hit, bounce: int, seed: int, cfg: PTConfig, pix0: int = 0,
-                     lib=None) -> None:
+                     seg_d, first_hit, bounce: int, seed: int, cfg: PTConfig,
+                     pix0: int = 0) -> None:
     """One launch of the vertex kernel (``csrc/wavefront.cu``) for rays o, d
     [N, 3] after their closest hit (B8's slots ``tri`` [N] int32): it adds
     the previous bounce's NEE where ``occluded`` (B9's bool [N] answer for
@@ -352,62 +339,49 @@ def wavefront_vertex(scene, o, d, tri, occluded, smb_kill, state, rad, o_next, d
     (which may be o, d) and, where NEE runs, its segments to
     ``seg_o``/``seg_d`` [N, 3]. ``first_hit``: None, or at bounce 0 the
     tensors (t, u, v [N], attribute rows [A.WIDTH, N]) of the hit.
-    ``smb_kill``: None or bool [N]. ``lib``: the library to launch from
-    (default ``native.lib()``; the tests pass a host build)."""
+    ``smb_kill``: None or bool [N]."""
     n, dev = o.shape[0], o.device
     tp = scene.tri_attrs.shape[0]
     for name, t in (("o", o), ("d", d), ("rad", rad), ("o_next", o_next), ("d_next", d_next),
                     ("seg_o", seg_o), ("seg_d", seg_d)):
-        _require(t, name, torch.float32, (n, 3), dev)
-    _require(tri, "tri", torch.int32, (n,), dev)
-    _require(state, "state", torch.float32, (WF_ROWS, n), dev)
+        native.require(t, name, torch.float32, (n, 3), dev)
+    native.require(tri, "tri", torch.int32, (n,), dev)
+    native.require(state, "state", torch.float32, (WF_ROWS, n), dev)
     for name, t in (("v0", scene.v0), ("e1", scene.e1), ("e2", scene.e2)):
-        _require(t, name, torch.float32, (tp, 3), dev)
-    _require(scene.tri_attrs, "tri_attrs", torch.float32, (tp, A.WIDTH), dev)
+        native.require(t, name, torch.float32, (tp, 3), dev)
+    native.require(scene.tri_attrs, "tri_attrs", torch.float32, (tp, A.WIDTH), dev)
     ep = scene.em_attrs.shape[0]
     if scene.num_emissives > ep:
         raise ValueError(f"{scene.num_emissives} emissives in a table of {ep} rows")
-    _require(scene.em_attrs, "em_attrs", torch.float32, (ep, EA.WIDTH), dev)
-    _require(scene.em_prob, "em_prob", torch.float32, (ep,), dev)
-    _require(scene.em_alias, "em_alias", torch.int32, (ep,), dev)
+    native.require(scene.em_attrs, "em_attrs", torch.float32, (ep, EA.WIDTH), dev)
+    native.require(scene.em_prob, "em_prob", torch.float32, (ep,), dev)
+    native.require(scene.em_alias, "em_alias", torch.int32, (ep,), dev)
     for name, t in (("occluded", occluded), ("smb_kill", smb_kill)):
         if t is not None:
-            _require(t, name, torch.bool, (n,), dev)
-    hit = [None] * 4
+            native.require(t, name, torch.bool, (n,), dev)
     if first_hit is not None:
         for name, t, shape in zip(("t", "u", "v", "attrs"), first_hit,
                                   ((n,), (n,), (n,), (A.WIDTH, n))):
-            _require(t, f"first_hit {name}", torch.float32, shape, dev)
-        hit = [t.data_ptr() for t in first_hit]
-    ptr = lambda t: None if t is None else t.data_ptr()
-    lib = native.lib() if lib is None else lib
-    err = lib.zr_wavefront_vertex(
-        o.data_ptr(), d.data_ptr(), tri.data_ptr(), ptr(occluded), ptr(smb_kill),
-        scene.v0.data_ptr(), scene.e1.data_ptr(), scene.e2.data_ptr(), scene.tri_attrs.data_ptr(),
-        scene.em_prob.data_ptr(), scene.em_alias.data_ptr(), scene.em_attrs.data_ptr(),
-        state.data_ptr(), rad.data_ptr(), o_next.data_ptr(), d_next.data_ptr(),
-        seg_o.data_ptr(), seg_d.data_ptr(), *hit, n, bounce, pix0, int(seed) & 0xFFFFFFFF,
-        scene.num_emissives, cfg.min_emissive_bounce, cfg.min_nee_bounce, cfg.rr_start,
-        int(cfg.nee), int(scene.num_emissives > 0), int(bounce == cfg.max_bounces),
-        int(cfg.path_regularization), material_flags(scene), float(cfg.firefly_clamp),
-        native.stream_ptr(dev) if o.is_cuda else None,
+            native.require(t, f"first_hit {name}", torch.float32, shape, dev)
+    native.launch(
+        "zr_wavefront_vertex", dev, o, d, tri, occluded, smb_kill, scene.v0, scene.e1, scene.e2,
+        scene.tri_attrs, scene.em_prob, scene.em_alias, scene.em_attrs, state, rad, o_next,
+        d_next, seg_o, seg_d, *(first_hit or [None] * 4), n, bounce, pix0,
+        int(seed) & 0xFFFFFFFF, scene.num_emissives, cfg.min_emissive_bounce,
+        cfg.min_nee_bounce, cfg.rr_start, int(cfg.nee), int(scene.num_emissives > 0),
+        int(bounce == cfg.max_bounces), int(cfg.path_regularization), material_flags(scene),
+        float(cfg.firefly_clamp),
     )
-    native.check(err, "wavefront_vertex")
     stats.count_rays("wavefront", n)
-    wavefront_vertex.launches += 1
-
-
-wavefront_vertex.launches = 0
 
 
 def trace_wavefront(scene, o, d, seed: int, cfg: PTConfig = PTConfig(),
-                    return_first_hit: bool = False, smb_kill=None, pix0: int = 0, lib=None):
+                    return_first_hit: bool = False, smb_kill=None, pix0: int = 0):
     """``trace_reference`` on a clustered scene as B8, the vertex kernel
     (``wavefront_vertex``) and, where NEE runs, B9 a bounce: the same
     arguments and results, bit for bit on the card. B8 and B9 are looked up
-    on ``accel.stream`` at each call; on CPU tensors they take their plain
-    versions, and ``lib`` a host build of the vertex kernel (the tests').
-    B8 refuses a dense scene."""
+    on ``accel.stream`` at each call (on CPU tensors they take their plain
+    versions). B8 refuses a dense scene."""
     n, dev = o.shape[0], o.device
     o, d = o.contiguous(), d.contiguous()
     f32 = dict(dtype=torch.float32, device=dev)
@@ -424,7 +398,7 @@ def trace_wavefront(scene, o, d, seed: int, cfg: PTConfig = PTConfig(),
             first = (*(torch.empty((n,), **f32) for _ in range(3)),
                      torch.empty((A.WIDTH, n), **f32))
         wavefront_vertex(scene, o, d, tri, occluded, kill, state, rad, o_next, d_next, seg_o,
-                         seg_d, first, bounce, seed, cfg, pix0, lib)
+                         seg_d, first, bounce, seed, cfg, pix0)
         if first is not None:
             sh0 = ShadedHit(first[0], tri, *first[1:])
         occluded = None

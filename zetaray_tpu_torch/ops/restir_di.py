@@ -40,7 +40,7 @@ import torch
 
 from .. import native
 from ..accel.intersect import intersect_occluded
-from ..accel.megakernel import G, LSET_ROWS, LSET_STAGED
+from ..accel.megakernel import G, LSET_ROWS, LSET_STAGED, check_tiles
 from ..core import vec3 as v3
 from ..core.rng import uniform4
 from ..core.rows import stack_rows
@@ -194,25 +194,22 @@ def initial_candidates(gbuf, light_sets, seed: int, rt: int = 1024, trans: bool 
     """
     if gbuf.device.type == "cpu":
         return initial_candidates_plain(gbuf, light_sets, seed, rt, pix0)
-    n = gbuf.shape[1]
-    n_sets, _, ps = light_sets.shape
-    native.require_cuda(gbuf, "gbuf", torch.float32, (G.ROWS, n))
-    native.require_cuda(light_sets, "light_sets", torch.float32, (n_sets, LSET_ROWS, ps))
-    if rt % _RIS_BLOCK:
-        raise ValueError(f"tile width {rt} is not a multiple of {_RIS_BLOCK}")
-    if pix0 < 0:
-        raise ValueError(f"pixel offset {pix0} is negative")
-    out = torch.empty((R_ROWS, n), dtype=torch.float32, device=gbuf.device)
-    err = native.lib().zr_ris(
-        gbuf.data_ptr(), light_sets.data_ptr(), out.data_ptr(), n, n_sets, ps, rt,
-        _RIS_BLOCK, int(seed) & 0xFFFFFFFF, int(pix0), native.stream_ptr(gbuf.device),
-    )
-    native.check(err, "ris")
-    initial_candidates.launches += 1
+    check_tiles(rt, pix0, _RIS_BLOCK)
+    out = torch.empty((R_ROWS, gbuf.shape[1]), dtype=torch.float32, device=gbuf.device)
+    launch_ris(gbuf, light_sets, seed, rt, pix0, out)
     return out
 
 
-initial_candidates.launches = 0
+def launch_ris(gbuf, light_sets, seed: int, rt: int, pix0: int, out) -> None:
+    """``initial_candidates``' launch of B2: into ``out`` [R_ROWS, N], in
+    blocks of ``_RIS_BLOCK`` pixels."""
+    n = gbuf.shape[1]
+    n_sets, _, ps = light_sets.shape
+    native.require(gbuf, "gbuf", torch.float32, (G.ROWS, n), gbuf.device)
+    native.require(light_sets, "light_sets", torch.float32, (n_sets, LSET_ROWS, ps), gbuf.device)
+    native.require(out, "out", torch.float32, (R_ROWS, n), gbuf.device)
+    native.launch("zr_ris", gbuf.device, gbuf, light_sets, out, n, n_sets, ps, rt, _RIS_BLOCK,
+                  int(seed) & 0xFFFFFFFF, int(pix0))
 
 
 # ---------------------------------------------------------------------------

@@ -23,27 +23,21 @@ import statistics
 
 import torch
 
-from .accel import intersect as XI
-from .accel import megakernel as MK
-from .accel import stream as ST
-from .ops import denoise as DN
-from .ops import pathtracer as PT
-from .ops import restir_di as RD
+from . import native
 from .render import frame as F
 from .utils.stats import stats
 
-# (module, wrapper) of each kernel: the wrapper counts its launches
-LAUNCHERS = {"B1": (MK, "gbuffer"), "B2": (RD, "initial_candidates"), "B3": (XI, "occlusion"),
-             "B4": (MK, "bounce_trace"), "B5": (MK, "bounce_shade"), "B6": (MK, "bounce"),
-             "B7": (XI, "closest_hit"), "B8": (ST, "stream_closest"),
-             "B9": (ST, "occlusion_stream"), "atrous": (DN, "atrous_iteration_p"),
-             "wavefront": (PT, "wavefront_vertex")}
+# the entry point of each kernel (csrc/*.cu) by its tag
+LAUNCHERS = {"B1": "zr_gbuffer", "B2": "zr_ris", "B3": "zr_occlusion", "B4": "zr_bounce_trace",
+             "B5": "zr_bounce_shade", "B6": "zr_bounce", "B7": "zr_closest",
+             "B8": "zr_stream_closest", "B9": "zr_stream_occlusion", "atrous": "zr_atrous",
+             "wavefront": "zr_wavefront_vertex"}
 
 
 def launch_counts() -> dict:
-    """{B1..B9, atrous, wavefront: launches so far} as each kernel's wrapper
+    """{B1..B9, atrous, wavefront: launches so far} as ``native.launch``
     counts them."""
-    return {tag: getattr(m, a).launches for tag, (m, a) in LAUNCHERS.items()}
+    return {tag: native.launches[entry] for tag, entry in LAUNCHERS.items()}
 
 
 def time_passes(scene, camera, cfg, seed: int = 0x2468ACE1, reps: int = 10,
